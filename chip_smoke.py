@@ -1,0 +1,317 @@
+"""Quickest proof that the PyTorch port runs on an NVIDIA GPU.
+
+  python3 chip_smoke.py
+
+Builds the port's CUDA kernels from pcc_tpu_torch/csrc/ (one nvcc per
+source, all started together), drives the IPDAE compress -> decompress path
+at the default CodecConfig (N=8192, K=256, S=64, d=16, L=7) on 64 synthetic
+clouds from a numpy seed with random weights from a torch seed, holds every
+kernel against its plain PyTorch version at the shapes that path gives it,
+and checks the streams against the port on the CPU.
+
+Phases (any failed check raises, and the script exits non-zero):
+  1. card, power limit, torch and CUDA versions;
+  2. kernel builds;
+  3. the main path: Codec.compress_many -> Codec.decompress_many on the card
+     with every launch counter set to 0 just before and read just after;
+     decoded symbols must equal encoded ones, every kernel must have run;
+     then one more encode and decode under torch.profiler (where the time
+     goes: device kernel time, busy share, the ops with most device time);
+  4. each kernel vs its plain version on that path's inputs (FPS indices
+     bit-equal; encoder latents and decoder points within 1e-4), with CUDA
+     event times, the plain version's time and the card's lower bound;
+  5. two of the clouds on the CPU port: .s.bin/.c.bin byte-equal to the
+     card's, the card's .p.bin decoded to the card encoder's symbols, and
+     decoded clouds within one int8 step.
+The line before the last is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}. Without a card it exits 1 and prints no
+result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from pcc_tpu_torch.codec import Codec, decode_clouds_packed, encode_geometry, init_params
+from pcc_tpu_torch.codec import pack_encode_upload, unpack_encode_upload
+from pcc_tpu_torch.coding.octree_host import codes_to_points, parse_octree_bits, unpack_bits
+from pcc_tpu_torch.config import CodecConfig
+from pcc_tpu_torch.ops import cuda_lib
+from pcc_tpu_torch.ops.decoder_cuda import patch_decoder, patch_decoder_plain
+from pcc_tpu_torch.ops.fps import fps_batch, fps_plain
+from pcc_tpu_torch.ops.sa_cuda import patch_encoder, patch_encoder_plain
+
+SEED = 11
+N_CLOUDS = 64
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+TOL = 1e-4   # float32 sums in another order than cuBLAS / the CPU
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def synthetic_clouds(n: int, N: int, seed: int) -> list:
+    """Gaussian-blob clouds (16 blobs each) from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    centres = rng.random((n, 16, 3)) * 4 - 1
+    which = rng.integers(0, 16, (n, N))
+    pts = np.take_along_axis(centres, which[..., None], 1) \
+        + rng.standard_normal((n, N, 3)) * 0.15
+    return [c.astype(np.float32) for c in pts]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean CUDA-event time of `fn` over `reps` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def bound(flops: float, nbytes: float):
+    """(least ms, 'operations' or 'bytes') on this card for the work."""
+    t_ops, t_bytes = flops / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def profile(label: str, fn, top: int = 8) -> None:
+    """Where the time of one call of `fn` goes: host wall time, the device
+    time of all kernels (their sum over the wall time is the device's busy
+    share) and the ops with the most device time, from torch.profiler."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side rows only (kernels, copies): a CPU op's row repeats the
+    # device time of the kernels it launched
+    rows = [r for r in prof.key_averages()
+            if r.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(r.self_device_time_total for r in rows) / 1e3
+    if busy_ms == 0.0:
+        log(f"profile {label}: wall {wall_ms:.1f} ms, device time not measured "
+            "(the profiler saw no kernel)")
+        return
+    log(f"profile {label}: wall {wall_ms:.1f} ms (profiler on), device kernels "
+        f"{busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f}")
+    rows = sorted(rows, key=lambda r: r.self_device_time_total, reverse=True)[:top]
+    for r in rows:
+        log(f"  {r.self_device_time_total / 1e3:9.3f} ms  x{r.count:<5d} {r.key[:90]}")
+
+
+def step_times(card: Codec, clouds, streams) -> None:
+    """Host wall time of each step of one encode and one decode batch, each
+    ending in a device sync (profiler off)."""
+    starts = np.zeros(len(clouds), np.int32)
+    steps = []
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps.append((name, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    res = step("encode: pack + upload + device encode", lambda: card.encode_batch(
+        np.stack(clouds), starts))
+    step("encode: fetch + host CDF rows, range coding, octree bits", lambda: card.serialize(res))
+    parsed = step("decode: parse skeletons (host)", lambda: [
+        (codes_to_points(*parse_octree_bits(unpack_bits(s))), np.frombuffer(c, np.float32))
+        for _, s, c in streams])
+    recs = np.stack([r for r, _ in parsed])
+    headers = np.stack([h for _, h in parsed])
+    syms = step("decode: device CPM weights + host range decoding", lambda: card.decode_symbols(
+        recs, [p for p, _, _ in streams]))
+    step("decode: device decoder + fetch + host reconstruction",
+         lambda: card.decode_batch(syms, recs, headers))
+    log("steps of one batch: " + "; ".join(f"{n} {ms:.1f} ms" for n, ms in steps))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+
+    # 1. the card
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+
+    # 2. kernel builds
+    t0 = time.perf_counter()
+    seconds = cuda_lib.build()
+    log(f"built kernels in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+    for k, out in cuda_lib.build_log.items():
+        regs = [ln.strip() for ln in out.splitlines() if "registers" in ln]
+        log(f"  {k}: {'; '.join(regs)}")
+
+    # 3. the main path, through the entry points a user calls
+    cfg = CodecConfig()
+    clouds = synthetic_clouds(N_CLOUDS, cfg.N, SEED)
+    ae_state, prob_state = init_params(SEED, cfg)
+    card = Codec(cfg, ae_state, prob_state, batch_size=N_CLOUDS, device="cuda")
+    card.decompress_many(card.compress_many(clouds))          # warm-up, uncounted
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    streams = card.compress_many(clouds)
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = card.decompress_many(streams)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    launches = dict(cuda_lib.launches)
+    log(f"main path: {N_CLOUDS} clouds x {cfg.N} points; encode "
+        f"{N_CLOUDS / t_enc:.2f} clouds/s ({t_enc * 1e3:.1f} ms), decode "
+        f"{N_CLOUDS / t_dec:.2f} clouds/s ({t_dec * 1e3:.1f} ms) on {smi}")
+    log(f"launches on the main path: {launches}")
+    for k, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"kernel {k} was not launched on the main path")
+    bpp = [8 * (len(p) + len(s) + len(c)) / cfg.N for p, s, c in streams]
+    log(f"mean bits per input point {np.mean(bpp):.4f}")
+    for pc in decoded:
+        if pc.shape != (cfg.S * cfg.k, 3) or not np.isfinite(pc).all():
+            raise RuntimeError(f"bad decoded cloud: shape {pc.shape}")
+    with torch.inference_mode():
+        step_times(card, clouds, streams)
+    profile("encode", lambda: card.compress_many(clouds))
+    profile("decode", lambda: card.decompress_many(streams))
+
+    starts = np.zeros(N_CLOUDS, np.int32)
+    with torch.inference_mode():
+        enc = card.encode_batch(np.stack(clouds), starts)
+        sym = enc.sym.cpu().numpy()
+        recs = np.stack([codes_to_points(*parse_octree_bits(unpack_bits(s)))
+                         for _, s, _ in streams])
+        got = card.decode_symbols(recs, [p for p, _, _ in streams])
+        if not np.array_equal(got, sym):
+            raise RuntimeError("decoded symbols differ from the encoded symbols")
+        log("decoded symbols equal encoded symbols for all clouds")
+
+        # 4. each kernel vs its plain version, on the main path's inputs
+        packed = pack_encode_upload(np.stack(clouds), starts)
+        pcs, st = unpack_encode_upload(
+            torch.from_numpy(packed.view(np.int32)).to(dev), cfg.N)
+        geo = encode_geometry(pcs, st, cfg)
+        ae = card.ae
+        sa_wb, pn_wb = ae.sa.layers(), ae.pn.layers()
+        latent_q = (enc.sym.to(torch.float32) - cfg.L // 2).reshape(-1, cfg.d).contiguous()
+        h2, w3r, b3r, mlp_wb = ae.decoder_inputs(latent_q)
+        B, N, S, P = N_CLOUDS, cfg.N, cfg.S, latent_q.shape[0]
+        kernels = []
+
+        a = fps_batch(geo.pc01, S, st)
+        b = fps_plain(geo.pc01, S, st)
+        err = float((a.long() - b.long()).abs().max())
+        if err != 0:
+            raise RuntimeError(f"FPS indices differ from the plain version ({err})")
+        # 9 operations per point and step: 3 sub, 3 mul, 2 add, 1 min
+        bms, by = bound(9.0 * B * S * N, nbytes(geo.pc01, st, a))
+        kernels.append(dict(
+            name="fps", route="cuda", source="pcc_tpu_torch/csrc/fps.cu",
+            replaces="pcc_tpu/ops/fps_pallas.py:31", launches=launches["fps"],
+            max_abs_err=err, ms=cuda_ms(lambda: fps_batch(geo.pc01, S, st), 20),
+            plain_ms=cuda_ms(lambda: fps_plain(geo.pc01, S, st), 3),
+            bound_ms=bms, bound_by=by, library_ms=None))
+
+        a = patch_encoder(geo.patches, sa_wb, pn_wb, cfg.sa_knn)
+        b = patch_encoder_plain(geo.patches, sa_wb, pn_wb, cfg.sa_knn)
+        err = float((a - b).abs().max())
+        if not err <= TOL:
+            raise RuntimeError(f"patch encoder differs from the plain version: {err}")
+        K, knn = cfg.K, cfg.sa_knn
+        sa_mac = knn * (3 * 32 + 32 * 64 + 64 * 128)
+        pn_mac = 131 * 128 + 128 * 256 + 256 * 512 + 512 * cfg.d
+        # per patch: 9 operations per distance pair, 2 per multiply-add
+        flops = P * (9.0 * K * K + 2.0 * K * (sa_mac + pn_mac))
+        w_bytes = nbytes(*[t for wb in sa_wb + pn_wb for t in wb])
+        bms, by = bound(flops, nbytes(geo.patches, a) + w_bytes)
+        kernels.append(dict(
+            name="patch_encoder", route="cuda", source="pcc_tpu_torch/csrc/patch_encoder.cu",
+            replaces="pcc_tpu/ops/sa_pallas.py:142", launches=launches["patch_encoder"],
+            max_abs_err=err,
+            ms=cuda_ms(lambda: patch_encoder(geo.patches, sa_wb, pn_wb, knn), 5),
+            plain_ms=cuda_ms(lambda: patch_encoder_plain(geo.patches, sa_wb, pn_wb, knn), 2),
+            bound_ms=bms, bound_by=by, library_ms=None))
+
+        a = patch_decoder(h2, latent_q, w3r, b3r, mlp_wb, cfg.k)
+        b = patch_decoder_plain(h2, latent_q, w3r, b3r, mlp_wb, cfg.k)
+        err = float((a - b).abs().max())
+        if not err <= TOL:
+            raise RuntimeError(f"patch decoder differs from the plain version: {err}")
+        C, d, k = h2.shape[1], cfg.d, cfg.k
+        mlp_mac = (128 + d) * 128 + 128 * 64 + 64 * 32 + 32 * 3
+        flops = 2.0 * P * k * (C * 128 + mlp_mac)
+        w_bytes = nbytes(w3r, b3r, *[t for wb in mlp_wb for t in wb])
+        bms, by = bound(flops, nbytes(h2, latent_q, a) + w_bytes)
+        kernels.append(dict(
+            name="patch_decoder", route="cuda", source="pcc_tpu_torch/csrc/patch_decoder.cu",
+            replaces="pcc_tpu/ops/decoder_pallas.py:30", launches=launches["patch_decoder"],
+            max_abs_err=err,
+            ms=cuda_ms(lambda: patch_decoder(h2, latent_q, w3r, b3r, mlp_wb, k), 10),
+            plain_ms=cuda_ms(lambda: patch_decoder_plain(h2, latent_q, w3r, b3r, mlp_wb, k), 5),
+            bound_ms=bms, bound_by=by, library_ms=None))
+        for kr in kernels:
+            log(f"{kr['name']}: {kr['ms']:.4f} ms (plain {kr['plain_ms']:.4f} ms, "
+                f"bound {kr['bound_ms']:.4f} ms by {kr['bound_by']}), "
+                f"max_abs_err {kr['max_abs_err']:.3g}, launches {kr['launches']}")
+
+        # 5. the same weights and clouds on the CPU port
+        cpu = Codec(cfg, ae_state, prob_state, batch_size=2, device="cpu")
+        cpu_streams = cpu.compress_many(clouds[:2])
+        for j, ((_, s_card, c_card), (_, s_cpu, c_cpu)) in enumerate(
+                zip(streams[:2], cpu_streams)):
+            if s_card != s_cpu or c_card != c_cpu:
+                raise RuntimeError(f"cloud {j}: card .s.bin/.c.bin differ from the CPU port's")
+        got = cpu.decode_symbols(recs[:2], [p for p, _, _ in streams[:2]])
+        if not np.array_equal(got, sym[:2]):
+            raise RuntimeError("the CPU port decodes the card's .p.bin to other symbols")
+        cpu_decoded = cpu.decompress_many(streams[:2])
+        _, scale = decode_clouds_packed(cpu.ae, torch.from_numpy(got), cfg)
+        for j in range(2):
+            longest = np.frombuffer(streams[j][2], np.float32)[3]
+            step = scale[j].numpy() / 127.0 * longest / (1.0 - cfg.margin)
+            tol = np.repeat(step, cfg.k, axis=0) + 1e-6
+            if not np.all(np.abs(cpu_decoded[j] - decoded[j]) <= tol):
+                raise RuntimeError(f"cloud {j}: CPU and card decodes differ by more "
+                                   "than one int8 step")
+        log("cross-device: .s.bin and .c.bin byte-equal, the card's .p.bin decodes "
+            "on the CPU to the same symbols, decoded clouds within one int8 step")
+
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,37 @@
+"""Shared CLI pieces: the reference's codec flags and codec loading."""
+
+from __future__ import annotations
+
+from pcc_tpu_torch.codec import Codec, init_params
+from pcc_tpu_torch.config import DEFAULT_SEED, CodecConfig
+from pcc_tpu_torch.weights import load_inference_params
+
+
+def add_codec_flags(p) -> None:
+    """Flags shared by compress and decompress (reference names/defaults)."""
+    p.add_argument("--N0", type=int, default=1024, help="Scale Transformation constant.")
+    p.add_argument("--ALPHA", type=int, default=2, help="The factor of patch coverage ratio.")
+    p.add_argument("--K", type=int, default=256, help="Number of points in each patch.")
+    p.add_argument("--d", type=int, default=16, help="Bottleneck size.")
+    p.add_argument("--L", type=int, default=7, help="Quantization Level.")
+    p.add_argument("--seed", type=int, default=DEFAULT_SEED,
+                   help="Seed of the random weights used when the model folder is empty.")
+    p.add_argument("--batch_size", type=int, default=64, help="Clouds per device batch.")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="Device to run on; 'cuda' raises when there is no card.")
+
+
+def config_from_args(args) -> CodecConfig:
+    return CodecConfig(N0=args.N0, ALPHA=args.ALPHA, K=args.K, d=args.d, L=args.L)
+
+
+def load_codec(model_load_folder: str, cfg: CodecConfig, seed: int,
+               batch_size: int = 64, device: str = "cuda") -> Codec:
+    """Codec from pcc_tpu's ae.pkl/prob.pkl in the folder, or from seeded
+    random weights when the folder holds none."""
+    ae_state, prob_state = load_inference_params(model_load_folder)
+    if ae_state is None:
+        print(f"WARNING: no ae.pkl/prob.pkl in {model_load_folder}; "
+              "using randomly initialized weights.")
+        ae_state, prob_state = init_params(seed, cfg)
+    return Codec(cfg, ae_state, prob_state, batch_size=batch_size, device=device)

@@ -1,0 +1,111 @@
+"""Self-contained PLY point-cloud IO (numpy only): the PyTorch port's copy
+of pcc_tpu/io/ply.py, geometry only.
+
+Supports ascii, binary_little_endian and binary_big_endian vertex elements;
+tolerates upper/lowercase x/y/z like the reference's pn_kit.py:27-30.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+_PLY_TYPES = {
+    "char": "i1", "int8": "i1",
+    "uchar": "u1", "uint8": "u1",
+    "short": "i2", "int16": "i2",
+    "ushort": "u2", "uint16": "u2",
+    "int": "i4", "int32": "i4",
+    "uint": "u4", "uint32": "u4",
+    "float": "f4", "float32": "f4",
+    "double": "f8", "float64": "f8",
+}
+
+
+def _parse_header(f):
+    """Returns (fmt, elements). elements: list of [name, count, props]."""
+    if f.readline().strip() != b"ply":
+        raise ValueError("not a PLY file")
+    fmt = None
+    elements = []
+    while True:
+        line = f.readline()
+        if not line:
+            raise ValueError("unterminated PLY header")
+        tokens = line.strip().split()
+        if not tokens:
+            continue
+        key = tokens[0]
+        if key == b"format":
+            fmt = tokens[1].decode()
+        elif key == b"element":
+            elements.append([tokens[1].decode(), int(tokens[2]), []])
+        elif key == b"property":
+            if tokens[1] == b"list":
+                elements[-1][2].append(("list", tokens[2].decode(),
+                                        tokens[3].decode(), tokens[4].decode()))
+            else:
+                elements[-1][2].append(("scalar", tokens[1].decode(),
+                                        tokens[2].decode()))
+        elif key == b"end_header":
+            break
+    return fmt, elements
+
+
+def read_point_cloud(filepath: str) -> np.ndarray:
+    """Read the vertex x/y/z columns of a .ply file as float32 [N, 3]."""
+    with open(filepath, "rb") as f:
+        fmt, elements = _parse_header(f)
+        byte_order = {"binary_little_endian": "<",
+                      "binary_big_endian": ">"}.get(fmt, "")
+        for name, count, props in elements:
+            if any(p[0] == "list" for p in props):
+                if name == "vertex":
+                    raise ValueError("list properties on vertex element unsupported")
+                # ascii rows are line-delimited and skip trivially; a binary
+                # list element before the vertices has data-dependent size
+                if fmt != "ascii" and count > 0:
+                    raise ValueError(
+                        f"binary list element '{name}' precedes the vertex "
+                        "element; cannot compute the vertex data offset")
+                for _ in range(count):
+                    f.readline()
+                continue
+            dtype = np.dtype([(p[2], byte_order + _PLY_TYPES[p[1]]) for p in props])
+            if fmt == "ascii":
+                rows = [f.readline().split() for _ in range(count)]
+                arr = np.array(rows, dtype=np.float64).reshape(count, len(props))
+                data = np.rec.fromarrays(arr.T, names=[p[2] for p in props])
+            else:
+                data = np.frombuffer(f.read(count * dtype.itemsize), dtype=dtype,
+                                     count=count)
+            if name == "vertex":
+                names = data.dtype.names
+                cols = []
+                for axis in ("x", "y", "z"):
+                    col = axis if axis in names else axis.upper()
+                    if col not in names:
+                        raise ValueError(f"vertex element missing {axis} column")
+                    cols.append(np.asarray(data[col], dtype=np.float32))
+                return np.stack(cols, axis=1)
+    raise ValueError("no vertex element in PLY file")
+
+
+def save_point_cloud(pc: np.ndarray, filename: str, path: str = "./viewing/") -> str:
+    """Write [N, 3] float32 points as binary_little_endian PLY
+    (reference pn_kit.py:39-42 signature)."""
+    pc = np.ascontiguousarray(np.asarray(pc, dtype=np.float32).reshape(-1, 3))
+    os.makedirs(path, exist_ok=True)
+    out_path = os.path.join(path, filename)
+    header = (
+        "ply\n"
+        "format binary_little_endian 1.0\n"
+        f"element vertex {pc.shape[0]}\n"
+        "property float x\nproperty float y\nproperty float z\n"
+        "end_header\n"
+    )
+    with open(out_path, "wb") as f:
+        f.write(header.encode("ascii"))
+        f.write(pc.astype("<f4").tobytes())
+    return out_path

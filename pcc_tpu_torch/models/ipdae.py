@@ -1,0 +1,90 @@
+"""IPDAE patch autoencoder + conditional probability model (counterpart of
+pcc_tpu/models/ipdae.py; reference AE.py).
+
+Same graph and the reference's state_dict names and shapes (encoder
+AE.py:16-17, decoder AE.py:19-27, probability model AE.py:87-123).
+`encode` / `decode` run the fused CUDA kernels on the card and their plain
+versions on the CPU (ops/sa_cuda.py, ops/decoder_cuda.py).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from pcc_tpu_torch.models.layers import (
+    PointConv,
+    PointNetFeat,
+    PointwiseMLP,
+    SetAbstraction,
+    sigmoid_spread,
+)
+from pcc_tpu_torch.ops.decoder_cuda import patch_decoder, permute_expansion
+from pcc_tpu_torch.ops.sa_cuda import patch_encoder
+
+
+class PatchAE(nn.Module):
+    """[B, K, 3] patches -> d-dim quantized latent -> [B, k, 3] points
+    (reference AE.AE(K, k, d, L), AE.py:12-32)."""
+
+    def __init__(self, K: int = 256, k: int = 128, d: int = 16, L: int = 7,
+                 sa_knn: int = 16):
+        super().__init__()
+        self.K, self.k, self.d, self.L, self.sa_knn = K, k, d, L, sa_knn
+        self.sa = SetAbstraction(knn=sa_knn, mlp=(32, 64, 128))
+        self.pn = PointNetFeat(3 + 128, (128, 256, 512, d),
+                               relu=(True, True, True, False))
+        self.inv_pool = nn.Sequential(
+            nn.Linear(d, 256), nn.ReLU(),
+            nn.Linear(256, 1024), nn.ReLU(),
+            nn.Linear(1024, k * 128), nn.ReLU(),
+        )
+        self.inv_mlp = PointwiseMLP(128 + d, (128, 64, 32, 3),
+                                    relu=(True, True, True, False))
+
+    def encode(self, patches: torch.Tensor) -> torch.Tensor:
+        """[B, K, 3] -> latent [B, d], already spread into the quantizer
+        range (AE.py:36-44)."""
+        latent = patch_encoder(patches, self.sa.layers(), self.pn.layers(),
+                               self.sa_knn)
+        return sigmoid_spread(latent, self.L)
+
+    def decoder_inputs(self, latent_q: torch.Tensor):
+        """The fused decoder's arguments for [B, d] latents: inv_pool layers
+        1-2 as plain products (h2 [B, 1024]), the point-major expansion
+        weight and bias, and the inv_mlp ([in, out] weight, bias) pairs."""
+        l1, l2, l3 = self.inv_pool[0], self.inv_pool[2], self.inv_pool[4]
+        h1 = torch.relu(latent_q @ l1.weight.t() + l1.bias)
+        h2 = torch.relu(h1 @ l2.weight.t() + l2.bias)
+        w3r, b3r = permute_expansion(l3.weight.t(), l3.bias, self.k)
+        return h2.contiguous(), w3r, b3r, self.inv_mlp.layers()
+
+    def decode(self, latent_q: torch.Tensor) -> torch.Tensor:
+        """[B, d] quantized latent -> [B, k, 3] patch points (AE.py:47-53):
+        the expansion, fold, tile and inv_mlp are the fused decoder."""
+        h2, w3r, b3r, mlp_wb = self.decoder_inputs(latent_q)
+        return patch_decoder(h2, latent_q.contiguous(), w3r, b3r, mlp_wb, self.k)
+
+
+class ConditionalProbabilityModel(nn.Module):
+    """Latent PMFs conditioned only on the decoded skeleton (AE.py:87-123):
+    [B, S, 3] -> [B, S, d, L]. The codec codes with its integer twin
+    (coding/iprob.py); this float model holds the weights that twin is
+    converted from."""
+
+    def __init__(self, d: int = 16, L: int = 7):
+        super().__init__()
+        self.d, self.L = d, L
+        self.model_pn = PointNetFeat(3, (64, 128, 256))
+        self.model_mlp = nn.Sequential(
+            PointConv(3 + 256, 512), nn.ReLU(),
+            PointConv(512, 512), nn.ReLU(),
+            PointConv(512, d * L),
+        )
+
+    def forward(self, sampled_xyz: torch.Tensor) -> torch.Tensor:
+        B, S, _ = sampled_xyz.shape
+        feature = self.model_pn(sampled_xyz)                    # [B, 256]
+        tiled = feature[:, None, :].expand(B, S, feature.shape[-1])
+        out = self.model_mlp(torch.cat([sampled_xyz, tiled], dim=-1))
+        return torch.softmax(out.reshape(B, S, self.d, self.L), dim=-1)

@@ -1,0 +1,127 @@
+"""Point-set network building blocks (counterpart of pcc_tpu/models/layers.py).
+
+Parameters carry the reference's torch names and shapes (1x1 Conv2d weights
+[out, in, 1, 1], Linear weights [out, in]), so a reference state_dict loads
+as it is and pcc_tpu's importer (cli/import_torch_checkpoint.py) reads the
+port's. Every layer computes channels-last, as a matmul on
+weight.view(out, in): never a cuDNN convolution, which would run float32 in
+TF32 by default.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from pcc_tpu_torch.ops.knn import knn_points
+
+
+class PointConv(nn.Module):
+    """The parameters of a reference 1x1 Conv2d (weight [out, in, 1, 1],
+    bias [out]) applied to [..., in] as x @ W + b."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, 1, 1))
+        self.bias = nn.Parameter(torch.empty(cout))
+
+    def kernel(self) -> torch.Tensor:
+        """[in, out] weight matrix (the flax kernel layout), contiguous."""
+        cout, cin = self.weight.shape[:2]
+        return self.weight.view(cout, cin).t().contiguous()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.kernel() + self.bias
+
+
+def torch_dense_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """Torch's Linear/Conv default init for every layer of `module`, in
+    module order: kernel AND bias from U(-1/sqrt(fan_in), +1/sqrt(fan_in)).
+
+    The nonzero bias is load-bearing (pcc_tpu/models/layers.py::TorchDense):
+    at init the quantized latent rounds to all zeros, and with zero biases
+    every decoder layer would output exactly 0 with relu'(0) = 0."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (PointConv, nn.Linear)):
+                bound = float(m.weight.shape[1]) ** -0.5
+                m.weight.uniform_(-bound, bound, generator=generator)
+                m.bias.uniform_(-bound, bound, generator=generator)
+
+
+def ste_round(x: torch.Tensor) -> torch.Tensor:
+    """Straight-through rounding: round forward, identity gradient
+    (reference STEQuantize, AE.py:72-85)."""
+    return x + (torch.round(x) - x).detach()
+
+
+def sigmoid_spread(latent: torch.Tensor, L: int) -> torch.Tensor:
+    """Squash the latent into the quantizer's range [-(L-0.2)/2, +(L-0.2)/2]
+    (reference AE.py:42-44)."""
+    spread = L - 0.2
+    return torch.sigmoid(latent) * spread - spread / 2
+
+
+class PointwiseMLP(nn.Module):
+    """Per-point MLP [..., cin] -> [..., features[-1]] with the reference
+    MLP's module tree (pn_kit.py:263-305): mlp_Modules.{i} = Sequential(
+    conv[, ReLU])."""
+
+    def __init__(self, cin: int, features: Sequence[int],
+                 relu: Sequence[bool] | None = None):
+        super().__init__()
+        relu = list(relu) if relu is not None else [True] * len(features)
+        self.mlp_Modules = nn.ModuleList()
+        for f, r in zip(features, relu):
+            layers = [PointConv(cin, f)] + ([nn.ReLU()] if r else [])
+            self.mlp_Modules.append(nn.Sequential(*layers))
+            cin = f
+
+    def layers(self):
+        """[([in, out] kernel, bias)] per layer, for the fused kernels."""
+        return [(m[0].kernel(), m[0].bias) for m in self.mlp_Modules]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for m in self.mlp_Modules:
+            x = m(x)
+        return x
+
+
+class PointNetFeat(PointwiseMLP):
+    """Pointwise MLP + max over points: [B, N, C] -> [B, D] (reference
+    PointNet, pn_kit.py:98-144)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x).amax(dim=-2)
+
+
+class SetAbstraction(nn.Module):
+    """Per-point local features by KNN grouping (reference SetAbstraction
+    with npoint == N, pn_kit.py:146-211): for every point, its knn nearest
+    neighbours in the patch, centred, through a 3-layer MLP with relu, max
+    over neighbours. [B, N, 3] -> [B, N, mlp[-1]]."""
+
+    def __init__(self, knn: int = 16, mlp: Sequence[int] = (32, 64, 128)):
+        super().__init__()
+        self.knn = knn
+        cin = 3
+        for i, f in enumerate(mlp):
+            self.add_module(f"conv{i}", PointConv(cin, f))
+            cin = f
+        self.n_layers = len(mlp)
+
+    def convs(self):
+        return [getattr(self, f"conv{i}") for i in range(self.n_layers)]
+
+    def layers(self):
+        """[([in, out] kernel, bias)] per layer, for the fused kernels."""
+        return [(c.kernel(), c.bias) for c in self.convs()]
+
+    def forward(self, xyz: torch.Tensor) -> torch.Tensor:
+        _, _, grouped = knn_points(xyz, xyz, K=self.knn, return_nn=True)
+        x = grouped - xyz[..., None, :]                     # [B, N, knn, 3]
+        for c in self.convs():
+            x = torch.relu(c(x))
+        return x.amax(dim=-2)

@@ -1,0 +1,99 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda`: each test skips, with the reason, where torch has no CUDA
+device (the check runs inside the fixture, so every worker collects the
+same tests). On a machine with a card:
+
+  python -m pytest tests/test_torch_port_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pcc_tpu_torch.codec import Codec, init_params
+from pcc_tpu_torch.config import CodecConfig
+from pcc_tpu_torch.ops import cuda_lib
+from pcc_tpu_torch.ops.decoder_cuda import patch_decoder, patch_decoder_plain
+from pcc_tpu_torch.ops.fps import fps_batch, fps_plain
+from pcc_tpu_torch.ops.sa_cuda import patch_encoder, patch_encoder_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    from pcc_tpu_torch.device import resolve_device
+
+    return resolve_device("cuda")
+
+
+def _wb(g, dims, dev):
+    out = []
+    for a, b in zip(dims[:-1], dims[1:]):
+        bound = a ** -0.5
+        out.append((((torch.rand((a, b), generator=g) * 2 - 1) * bound).to(dev),
+                    ((torch.rand(b, generator=g) * 2 - 1) * bound).to(dev)))
+    return out
+
+
+@pytest.mark.parametrize("B,N,S,twins", [(3, 1000, 16, False), (8, 8192, 64, False),
+                                         (4, 4096, 64, True)])
+def test_fps_kernel_bit_equal(dev, B, N, S, twins):
+    """With twins every point has a duplicate: each pick is a tie that the
+    block-wide argmax must give to the lowest index."""
+    g = torch.Generator().manual_seed(0)
+    xyz = torch.rand((B, N, 3), generator=g)
+    if twins:
+        xyz[:, N // 2:] = xyz[:, :N // 2]
+    xyz = xyz.to(dev)
+    starts = torch.randint(0, N, (B,), generator=g).to(dev)
+    before = cuda_lib.launches["fps"]
+    out = fps_batch(xyz, S, starts)
+    assert cuda_lib.launches["fps"] == before + 1
+    assert torch.equal(out, fps_plain(xyz, S, starts))
+
+
+@pytest.mark.parametrize("P,N,knn,D", [(16, 256, 16, 16), (5, 32, 8, 4)])
+def test_patch_encoder_kernel(dev, P, N, knn, D):
+    g = torch.Generator().manual_seed(1)
+    pts = ((torch.rand((P, N, 3), generator=g) * 2 - 1) * 0.4).to(dev)
+    sa = _wb(g, [3, 32, 64, 128], dev)
+    pn = _wb(g, [131, 128, 256, 512, D], dev)
+    out = patch_encoder(pts, sa, pn, knn)
+    torch.testing.assert_close(out, patch_encoder_plain(pts, sa, pn, knn),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("P,d,k", [(70, 16, 128), (9, 4, 16)])
+def test_patch_decoder_kernel(dev, P, d, k):
+    g = torch.Generator().manual_seed(2)
+    h2 = torch.rand((P, 1024), generator=g).to(dev)
+    lat = torch.randint(-3, 4, (P, d), generator=g).float().to(dev)
+    (w3r, b3r), = _wb(g, [1024, k * 128], dev)
+    mlp = _wb(g, [128 + d, 128, 64, 32, 3], dev)
+    out = patch_decoder(h2, lat, w3r, b3r, mlp, k)
+    torch.testing.assert_close(out, patch_decoder_plain(h2, lat, w3r, b3r, mlp, k),
+                               atol=1e-5, rtol=0)
+
+
+def test_codec_card_streams_match_cpu(dev):
+    """.s.bin/.c.bin from the card equal the CPU port's, and the CPU port
+    decodes the card's .p.bin to the card encoder's symbols."""
+    cfg = CodecConfig(N=1024, N0=256, K=64, d=8)
+    ae, prob = init_params(0, cfg)
+    card = Codec(cfg, ae, prob, batch_size=4, device="cuda")
+    cpu = Codec(cfg, ae, prob, batch_size=4, device="cpu")
+    rng = np.random.default_rng(0)
+    clouds = [(rng.random((cfg.N, 3)) * 2 - 1).astype(np.float32) for _ in range(2)]
+    a, b = card.compress_many(clouds), cpu.compress_many(clouds)
+    for (_, sa_, ca), (_, sb, cb) in zip(a, b):
+        assert sa_ == sb and ca == cb
+    sym = card.encode_batch(np.stack(clouds), np.zeros(2, np.int32)).sym.cpu().numpy()
+    from pcc_tpu_torch.coding.octree_host import (codes_to_points,
+                                                  parse_octree_bits, unpack_bits)
+    recs = np.stack([codes_to_points(*parse_octree_bits(unpack_bits(s)))
+                     for _, s, _ in a])
+    np.testing.assert_array_equal(cpu.decode_symbols(recs, [p for p, _, _ in a]), sym)
