@@ -5,9 +5,10 @@
 Builds the port's CUDA kernels from pcc_tpu_torch/csrc/ (one nvcc per
 source, all started together), drives the IPDAE compress -> decompress path
 at the default CodecConfig (N=8192, K=256, S=64, d=16, L=7) on 64 synthetic
-clouds from a numpy seed with random weights from a torch seed, holds every
-kernel against its plain PyTorch version at the shapes that path gives it,
-and checks the streams against the port on the CPU.
+clouds from a numpy seed with random weights from a torch seed, then the
+IPDAE train step at the same config on 8 such clouds, holds every kernel
+against its plain PyTorch version at the shapes those paths give it, and
+checks the streams and a train step against the port on the CPU.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card, power limit, torch and CUDA versions;
@@ -22,10 +23,25 @@ Phases (any failed check raises, and the script exits non-zero):
      event times, the plain version's time and the card's lower bound;
   5. two of the clouds on the CPU port: .s.bin/.c.bin byte-equal to the
      card's, the card's .p.bin decoded to the card encoder's symbols, and
-     decoded clouds within one int8 step.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Without a card it exits 1 and prints no
-result.
+     decoded clouds within one int8 step;
+  6. the training path: the step cli/train.py builds (build_train_step,
+     rate_mode "reference", lam 1e-6) on 8 clouds of 8192 points, one
+     warm-up step, then TRAIN_STEPS counted steps with every launch counter
+     set to 0 just before and read just after (fps, patch_encoder and
+     patch_encoder_bwd once per step, patch_decoder never); finite losses,
+     parameters moved; median step time and points/s; one step under
+     torch.profiler;
+  7. the backward kernel vs its plain version on the step's own patches
+     [512, 256, 3] and its real cotangent: every output within
+     TOL_BWD * max|plain|, two launches bitwise equal, CUDA-event times;
+  8. one train step at the CPU tests' TINY config on the card and on the
+     CPU port, same weights and FPS starts: loss to 1e-5 relative, every
+     parameter's gradient within 1e-5 of its largest entry, updated
+     parameters to 1e-5.
+The line before the last is the kernels' JSON record (the serving path's
+launch counts for fps, patch_encoder and patch_decoder; the counted train
+steps' for patch_encoder_bwd); the last line is {"ok": true, "device":
+{...}}. Without a card it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -45,7 +61,12 @@ from pcc_tpu_torch.config import CodecConfig
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.decoder_cuda import patch_decoder, patch_decoder_plain
 from pcc_tpu_torch.ops.fps import fps_batch, fps_plain
-from pcc_tpu_torch.ops.sa_cuda import patch_encoder, patch_encoder_plain
+from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
+from pcc_tpu_torch.ops.sa_cuda import (PatchEncoderFn, patch_encoder, patch_encoder_bwd,
+                                       patch_encoder_bwd_plain, patch_encoder_plain,
+                                       pointwise_plain)
+from pcc_tpu_torch.train import build_train_step, create_train_state
+from pcc_tpu_torch.train.state import make_optimizer
 
 SEED = 11
 N_CLOUDS = 64
@@ -53,6 +74,14 @@ N_CLOUDS = 64
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TOL = 1e-4   # float32 sums in another order than cuBLAS / the CPU
+# the backward kernel: max |kernel - plain| <= TOL_BWD * max |plain| for each
+# of its 15 outputs (sums over 512 patches in another order)
+TOL_BWD = 1e-4
+SERVING_KERNELS = ("fps", "patch_encoder", "patch_decoder")
+TRAIN_CLOUDS = 8     # clouds per train step (bench.py:317's batch)
+TRAIN_STEPS = 10
+TRAIN_LAM = 1e-6     # the reference's lambda, so the rate path runs
+TINY = dict(N=256, N0=64, ALPHA=2, K=32, d=4, L=7, sa_knn=8)
 
 
 def log(msg: str) -> None:
@@ -149,6 +178,172 @@ def step_times(card: Codec, clouds, streams) -> None:
     log("steps of one batch: " + "; ".join(f"{n} {ms:.1f} ms" for n, ms in steps))
 
 
+def flat_grads(out) -> list:
+    """(dpatches, dsa_wb, dpn_wb) -> [dpatches, dw1, db1, ..., dpb4]."""
+    dp, dsa, dpn = out
+    return [dp] + [t for wb in list(dsa) + list(dpn) for t in wb]
+
+
+def winner_rows(patches, sa_wb, pn_wb, knn: int, chunk: int = 64) -> int:
+    """Sum over patches of the distinct points that win a channel of the
+    encoder's global max: the rows the backward has to propagate."""
+    total = 0
+    for s in range(0, patches.shape[0], chunk):
+        p = patches[s:s + chunk]
+        win = pointwise_plain(p, select_nearest(sq_dists(p, p), knn), sa_wb,
+                              pn_wb).argmax(dim=1)              # [c, D]
+        total += sum(len(torch.unique(r)) for r in win)
+    return total
+
+
+def encoder_flops(P: int, K: int, knn: int, d: int):
+    """(forward FLOPs, multiply-adds per point of SetAbstraction and of
+    PointNet) of the encoder on P patches of K points."""
+    sa_mac = knn * (3 * 32 + 32 * 64 + 64 * 128)
+    pn_mac = 131 * 128 + 128 * 256 + 256 * 512 + 512 * d
+    # per patch: 9 operations per distance pair, 2 per multiply-add
+    return P * (9.0 * K * K + 2.0 * K * (sa_mac + pn_mac)), sa_mac, pn_mac
+
+
+def train_phase(dev, smi: str):
+    """Phase 6: the train step at full width; returns the step's patches
+    and encoder cotangent (recorded from one more step) for phase 7."""
+    cfg = CodecConfig()
+    B = TRAIN_CLOUDS
+    batch = torch.from_numpy(np.stack(synthetic_clouds(B, cfg.N, SEED))).to(dev)
+    tx = make_optimizer(5e-4, 0.1, 60000, 80000)
+    state = create_train_state(SEED, cfg, tx, device="cuda")
+    step = build_train_step(cfg, tx, rate_mode="reference")
+    gen = torch.Generator().manual_seed(SEED + 1)
+
+    def starts():
+        return torch.randint(0, cfg.N, (B,), generator=gen, dtype=torch.int32).to(dev)
+
+    before = [p.detach().clone() for _, p in state.named_parameters()]
+    step(state, batch, starts(), TRAIN_LAM)                    # warm-up, uncounted
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, aux = step(state, batch, starts(), TRAIN_LAM)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(aux["loss"])
+    launches = dict(cuda_lib.launches)
+    log(f"train launches over {TRAIN_STEPS} steps: {launches}")
+    want = {"fps": TRAIN_STEPS, "patch_encoder": TRAIN_STEPS,
+            "patch_encoder_bwd": TRAIN_STEPS, "patch_decoder": 0}
+    if launches != want:
+        raise RuntimeError(f"train launches {launches} != {want}")
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"non-finite train loss: {losses}")
+    moved = sum(not torch.equal(a, p.detach()) for a, (_, p) in
+                zip(before, state.named_parameters()))
+    if moved == 0:
+        raise RuntimeError("no parameter moved in training")
+    ms = float(np.median(times)) * 1e3
+    log(f"train: {B} clouds x {cfg.N} points per step; median step {ms:.2f} ms "
+        f"(steps {min(times) * 1e3:.2f} to {max(times) * 1e3:.2f} ms), "
+        f"{B * cfg.N / (ms / 1e3):.0f} points/s on {smi}; losses "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}; {moved} of {len(before)} parameter "
+        "tensors moved")
+    profile("train step", lambda: step(state, batch, starts(), TRAIN_LAM), top=14)
+
+    # one more step, recording the encoder's patches and real cotangent
+    rec = {}
+    backward = PatchEncoderFn.backward
+
+    def recording(ctx, g):
+        rec["patches"], rec["g"] = ctx.saved_tensors[0], g.contiguous()
+        return backward(ctx, g)
+
+    PatchEncoderFn.backward = staticmethod(recording)
+    step(state, batch, starts(), TRAIN_LAM)
+    PatchEncoderFn.backward = staticmethod(backward)
+    return state, rec["patches"], rec["g"], launches["patch_encoder_bwd"]
+
+
+def backward_kernel_check(state, patches, g, launches: int) -> dict:
+    """Phase 7: the backward kernel vs its plain version on the train
+    step's own inputs; its record for the kernels line."""
+    cfg = CodecConfig()
+    knn = cfg.sa_knn
+    with torch.no_grad():
+        sa_wb = [(w.detach(), b.detach()) for w, b in state.ae.sa.layers()]
+        pn_wb = [(w.detach(), b.detach()) for w, b in state.ae.pn.layers()]
+    a = flat_grads(patch_encoder_bwd(patches, g, sa_wb, pn_wb, knn))
+    b = flat_grads(patch_encoder_bwd_plain(patches, g, sa_wb, pn_wb, knn))
+    rel = []
+    for x, y in zip(a, b):
+        err, big = float((x - y).abs().max()), float(y.abs().max())
+        if not err <= TOL_BWD * big:
+            raise RuntimeError(f"patch_encoder_bwd differs from the plain version on "
+                               f"{tuple(y.shape)}: {err} > {TOL_BWD} * {big}")
+        rel.append(err / big if big else 0.0)
+    again = flat_grads(patch_encoder_bwd(patches, g, sa_wb, pn_wb, knn))
+    if not all(torch.equal(x, y) for x, y in zip(a, again)):
+        raise RuntimeError("two launches of patch_encoder_bwd differ")
+    err = max(float((x - y).abs().max()) for x, y in zip(a, b))
+    log(f"patch_encoder_bwd on {tuple(patches.shape)}: max |kernel - plain| / "
+        f"max |plain| per output {max(rel):.3g} (limit {TOL_BWD}); two launches "
+        "bitwise equal")
+    P, K = patches.shape[:2]
+    fwd, sa_mac, pn_mac = encoder_flops(P, K, knn, cfg.d)
+    with torch.no_grad():
+        rows = winner_rows(patches, sa_wb, pn_wb, knn)
+    # the forward, to find each channel's winner, then two products (weight
+    # and input gradients) per layer for the winning points: over all knn
+    # slots in SetAbstraction layers 1-2, over each (point, channel)'s one
+    # winning slot in layer 3
+    flops = fwd + 4.0 * rows * (pn_mac + sa_mac - (knn - 1) * 64 * 128)
+    w_bytes = nbytes(*[t for wb in sa_wb + pn_wb for t in wb])
+    bms, by = bound(flops, 2 * nbytes(patches) + nbytes(g) + 2 * w_bytes)
+    log(f"patch_encoder_bwd work: {fwd / 1e9:.1f} GFLOP forward + {rows} winning "
+        f"rows ({rows / P:.2f} per patch) -> {flops / 1e9:.1f} GFLOP")
+    return dict(
+        name="patch_encoder_bwd", route="cuda", source="pcc_tpu_torch/csrc/patch_encoder_bwd.cu",
+        replaces="pcc_tpu/ops/sa_pallas.py:288", launches=launches, max_abs_err=err,
+        ms=cuda_ms(lambda: patch_encoder_bwd(patches, g, sa_wb, pn_wb, knn), 5),
+        plain_ms=cuda_ms(lambda: patch_encoder_bwd_plain(patches, g, sa_wb, pn_wb, knn), 2),
+        bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def train_card_vs_cpu(dev) -> None:
+    """Phase 8: one train step at TINY on the card and on the CPU port."""
+    cfg = CodecConfig(**TINY)
+    tx = make_optimizer(1e-3, 0.1, 10, 10)
+    card = create_train_state(SEED, cfg, tx, device="cuda")
+    cpu = create_train_state(SEED, cfg, tx, device="cpu")
+    batch = torch.from_numpy(np.stack(synthetic_clouds(2, cfg.N, SEED)))
+    starts = torch.tensor([0, 77], dtype=torch.int32)
+    step = build_train_step(cfg, tx, rate_mode="reference")
+    _, a = step(card, batch.to(dev), starts.to(dev), 1e-2)
+    _, b = step(cpu, batch, starts, 1e-2)
+    la, lb = float(a["loss"]), float(b["loss"])
+    if not abs(la - lb) <= 1e-5 * abs(lb):
+        raise RuntimeError(f"TINY train step loss: card {la} vs CPU {lb}")
+    # the step leaves its gradients in .grad: each within 1e-5 of the CPU
+    # port's largest entry, so a scaled gradient fails here and not only
+    # in the kernel-vs-plain phase (Adam's first update is about +-lr)
+    rel = 0.0
+    for (name, p), (_, q) in zip(card.named_parameters(), cpu.named_parameters()):
+        err, big = float((p.grad.cpu() - q.grad).abs().max()), float(q.grad.abs().max())
+        if not err <= 1e-5 * big:
+            raise RuntimeError(f"TINY train step gradient of {name}: card and CPU differ "
+                               f"by {err} > 1e-5 * {big}")
+        rel = max(rel, err / big if big else 0.0)
+    worst = max(float((p.detach().cpu() - q.detach()).abs().max()) for (_, p), (_, q)
+                in zip(card.named_parameters(), cpu.named_parameters()))
+    if not worst <= 1e-5:
+        raise RuntimeError(f"TINY train step parameters differ by {worst}")
+    log(f"train step at TINY, card vs CPU port: loss {la:.8f} vs {lb:.8f}, "
+        f"gradients within {rel:.3g} of each tensor's largest entry, parameters "
+        f"within {worst:.3g}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -193,8 +388,8 @@ def main() -> int:
         f"{N_CLOUDS / t_enc:.2f} clouds/s ({t_enc * 1e3:.1f} ms), decode "
         f"{N_CLOUDS / t_dec:.2f} clouds/s ({t_dec * 1e3:.1f} ms) on {smi}")
     log(f"launches on the main path: {launches}")
-    for k, n in launches.items():
-        if n <= 0:
+    for k in SERVING_KERNELS:
+        if launches[k] <= 0:
             raise RuntimeError(f"kernel {k} was not launched on the main path")
     bpp = [8 * (len(p) + len(s) + len(c)) / cfg.N for p, s, c in streams]
     log(f"mean bits per input point {np.mean(bpp):.4f}")
@@ -248,11 +443,8 @@ def main() -> int:
         err = float((a - b).abs().max())
         if not err <= TOL:
             raise RuntimeError(f"patch encoder differs from the plain version: {err}")
-        K, knn = cfg.K, cfg.sa_knn
-        sa_mac = knn * (3 * 32 + 32 * 64 + 64 * 128)
-        pn_mac = 131 * 128 + 128 * 256 + 256 * 512 + 512 * cfg.d
-        # per patch: 9 operations per distance pair, 2 per multiply-add
-        flops = P * (9.0 * K * K + 2.0 * K * (sa_mac + pn_mac))
+        knn = cfg.sa_knn
+        flops, _, _ = encoder_flops(P, cfg.K, knn, cfg.d)
         w_bytes = nbytes(*[t for wb in sa_wb + pn_wb for t in wb])
         bms, by = bound(flops, nbytes(geo.patches, a) + w_bytes)
         kernels.append(dict(
@@ -306,6 +498,14 @@ def main() -> int:
                                    "than one int8 step")
         log("cross-device: .s.bin and .c.bin byte-equal, the card's .p.bin decodes "
             "on the CPU to the same symbols, decoded clouds within one int8 step")
+
+    # 6-8. the training path
+    state, patches, g, bwd_launches = train_phase(dev, smi)
+    kernels.append(backward_kernel_check(state, patches, g, bwd_launches))
+    kr = kernels[-1]
+    log(f"{kr['name']}: {kr['ms']:.4f} ms (plain {kr['plain_ms']:.4f} ms, bound "
+        f"{kr['bound_ms']:.4f} ms by {kr['bound_by']}), launches {kr['launches']}")
+    train_card_vs_cpu(dev)
 
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,0 +1,171 @@
+"""Train the patch autoencoder (reference train.py CLI, PyTorch port of
+pcc_tpu/cli/train.py).
+
+Flags, defaults and derived parameters are pcc_tpu's (reference
+train.py:29-53,254), plus --device cuda|cpu ('cuda' raises where there is
+no card). On the card the step runs the port's CUDA kernels (FPS, the
+patch encoder and its backward); on the CPU their plain versions.
+Checkpoints are pcc_tpu-readable (train/checkpoint.py).
+
+  python -m pcc_tpu_torch.cli.train --train_glob 'in/*.ply' \\
+      --model_save_folder model/ --batch_size 8 [--device cpu]
+
+Not ported yet, and refused with a message: --model PPPF-AE, --bf16,
+--devices > 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from glob import glob
+
+import numpy as np
+import torch
+
+from pcc_tpu_torch.config import DEFAULT_SEED, CodecConfig
+from pcc_tpu_torch.io import read_point_clouds
+from pcc_tpu_torch.train import (build_train_step, create_train_state,
+                                 load_latest_checkpoint, save_checkpoint)
+from pcc_tpu_torch.train.state import make_optimizer
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="train.py",
+        description="Train autoencoder using point cloud patches",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    p.add_argument("--train_glob", default="./data/ModelNet40_pc_01_8192p/**/train/*.ply",
+                   help="Point clouds glob pattern for training.")
+    p.add_argument("--model_save_folder", default="./model/K256/",
+                   help="Directory where to save trained models.")
+    p.add_argument("--model", default="AE", help="Type of the model (AE or PPPF-AE).")
+    p.add_argument("--N", type=int, default=8192, help="Point cloud resolution.")
+    p.add_argument("--N0", type=int, default=1024, help="Scale Transformation constant.")
+    p.add_argument("--ALPHA", type=int, default=2, help="The factor of patch coverage ratio.")
+    p.add_argument("--K", type=int, default=256, help="Number of points in each patch.")
+    p.add_argument("--d", type=int, default=16, help="Bottleneck size.")
+    p.add_argument("--L", type=int, default=7, help="Quantization Level.")
+    p.add_argument("--lr", type=float, default=0.0005, help="Learning rate.")
+    p.add_argument("--batch_size", type=int, default=1, help="Batch size.")
+    p.add_argument("--step_window", type=int, default=100,
+                   help="Number of steps per window to iterate in epoch.")
+    p.add_argument("--lamda", type=float, default=1e-06,
+                   help="Lambda for rate-distortion tradeoff.")
+    p.add_argument("--rate_loss_enable_step", type=int, default=40000,
+                   help="Apply rate-distortion tradeoff at x steps.")
+    p.add_argument("--lr_decay", type=float, default=0.1,
+                   help="Decays the learning rate to x times the original.")
+    p.add_argument("--lr_decay_steps", type=int, default=60000,
+                   help="Decays the learning rate every x steps.")
+    p.add_argument("--max_steps", type=int, default=80000,
+                   help="Train up to this number of steps.")
+    p.add_argument("--reset", action="store_true",
+                   help="Reset training and start from scratch (ignore saved model).")
+    p.add_argument("--rate_mode", default="reference", choices=["reference", "fixed"],
+                   help="Rate-term normalization (see train/steps.py).")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 mixed-precision compute (not ported yet).")
+    p.add_argument("--seed", type=int, default=DEFAULT_SEED)
+    p.add_argument("--devices", type=int, default=1,
+                   help="Data-parallel device count (only 1 is ported).")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="Device to run on; 'cuda' raises when there is no card.")
+    p.add_argument("--profile_dir", default=None,
+                   help="Write a torch.profiler trace of the first logging "
+                        "window of training steps here.")
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    for flag, refused in (("--model " + args.model, args.model != "AE"),
+                          ("--bf16", args.bf16),
+                          (f"--devices {args.devices}", args.devices > 1)):
+        if refused:
+            raise SystemExit(f"{flag}: not ported yet (pcc_tpu_torch trains the "
+                             "IPDAE model in float32 on one device)")
+    cfg = CodecConfig(N=args.N, N0=args.N0, ALPHA=args.ALPHA, K=args.K, d=args.d, L=args.L)
+    tx = make_optimizer(args.lr, args.lr_decay, args.lr_decay_steps, args.max_steps)
+    state = create_train_state(args.seed, cfg, tx, device=args.device)
+    device = state.optimizer.param_groups[0]["params"][0].device
+    print(f"Training {args.model} on {device}")
+    print(f"N={cfg.N}, K={cfg.K}, S={cfg.S}, d={cfg.d}, L={cfg.L}")
+
+    os.makedirs(args.model_save_folder, exist_ok=True)
+    files = sorted(glob(args.train_glob, recursive=True))
+    if not files:
+        raise SystemExit(f"no training files match {args.train_glob}")
+    print("loading point clouds...")
+    points = read_point_clouds(files)
+    print(f"Loaded {points.shape} points, range: [{points.min()}, {points.max()}]")
+
+    train_step = build_train_step(cfg, tx, rate_mode=args.rate_mode)
+    start_step = 0
+    if not args.reset:
+        state, start_step = load_latest_checkpoint(args.model_save_folder, state)
+        print(f"Resuming from step {start_step}")
+    else:
+        print("Resetting training from scratch.")
+
+    rng = np.random.default_rng(args.seed)
+    gen = torch.Generator().manual_seed(args.seed + 1)   # FPS start indices
+    global_step = start_step
+    prof = None
+    if args.profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda"
+                                         else [])
+        prof = profile(activities=acts)
+        prof.start()
+    B = args.batch_size
+    window = {"loss": [], "fbpp": [], "bpp": []}
+    t_window = time.time()
+
+    for epoch in range(10**9):
+        order = rng.permutation(len(points))
+        for lo in range(0, len(order) - B + 1, B):
+            if global_step >= args.max_steps:
+                break
+            batch = torch.from_numpy(points[order[lo:lo + B]]).to(device)
+            starts = torch.randint(0, points.shape[1], (B,), generator=gen,
+                                   dtype=torch.int32).to(device)
+            lam = args.lamda if global_step >= args.rate_loss_enable_step else 0.0
+            state, aux = train_step(state, batch, starts, lam)
+            global_step += 1
+
+            # aux stays on the device; it is read once per window
+            window["loss"].append(aux["loss"])
+            window["fbpp"].append(aux["true_fbpp"])
+            window["bpp"].append(aux["bpp"])
+            if global_step % args.step_window == 0:
+                window = {k: torch.stack(v).cpu().numpy() for k, v in window.items()}
+                dt = time.time() - t_window
+                print(
+                    f"[Epoch {epoch}] Step {global_step} | "
+                    f"Feature bpp: {np.mean(window['fbpp']):.5f} | "
+                    f"Bpp: {np.mean(window['bpp']):.5f} | "
+                    f"Loss: {np.mean(window['loss']):.5f} | "
+                    f"{args.step_window / dt:.2f} steps/s"
+                )
+                window = {"loss": [], "fbpp": [], "bpp": []}
+                t_window = time.time()
+                save_checkpoint(args.model_save_folder, state, global_step)
+                if prof is not None:
+                    prof.stop()
+                    os.makedirs(args.profile_dir, exist_ok=True)
+                    prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+                    print(f"profiler trace written to {args.profile_dir}")
+                    prof = None
+        if global_step >= args.max_steps:
+            break
+
+    save_checkpoint(args.model_save_folder, state, "")
+    print("Done.")
+
+
+if __name__ == "__main__":
+    main()

@@ -100,18 +100,21 @@ def unpack_encode_upload(packed: torch.Tensor, N: int):
     clouds [B, N, 3] f32 and starts [B] int32.
 
     The coordinates are v * step + lo with step = scale * f32(1/1023), as
-    one fused multiply-add (pcc_tpu's specification of this step). The
-    float64 product v * step is exact (10 x 24 bits), so the float64 sum
-    rounded to float32 is that fused multiply-add on the CPU and on the
-    card alike."""
+    pcc_tpu's XLA program computes them: x and y as one fused multiply-add,
+    z as a rounded product and then a rounded sum (XLA's CPU program
+    contracts the first two and not the third). The fused form is the
+    float64 sum of the exact float64 product (10 x 24 bits) rounded to
+    float32; the unfused one is two float32 operations, two PyTorch kernels
+    on the card, so neither device contracts them."""
     q = packed[:, :N]
     lo = packed[:, N:N + 3].contiguous().view(torch.float32)
     scale = packed[:, N + 3:N + 6].contiguous().view(torch.float32)
     v = torch.stack([q & 1023, (q >> 10) & 1023, (q >> 20) & 1023], dim=-1)
     step = scale * _INV_1023
-    pcs = (v.to(torch.float64) * step[:, None, :].to(torch.float64)
-           + lo[:, None, :].to(torch.float64)).to(torch.float32)
-    return pcs, packed[:, N + 6]
+    fused = (v[..., :2].to(torch.float64) * step[:, None, :2].to(torch.float64)
+             + lo[:, None, :2].to(torch.float64)).to(torch.float32)
+    unfused = v[..., 2:].to(torch.float32) * step[:, None, 2:] + lo[:, None, 2:]
+    return torch.cat([fused, unfused], dim=-1), packed[:, N + 6]
 
 
 class Geometry(NamedTuple):

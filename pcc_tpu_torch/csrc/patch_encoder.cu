@@ -27,28 +27,25 @@
 //
 // Selection is bit-equal to the plain PyTorch version
 // (pcc_tpu_torch/ops/sa_cuda.py::patch_encoder_plain): the same distance
-// formula, one rounding per operation (__f*_rn intrinsics are never
-// contracted into FMAs), and an insertion that keeps the lower index first
-// among equal distances, as a stable ascending sort does.
+// formula, one rounding per operation, and the lower index first among
+// equal distances. The selection and the per-chunk forward live in
+// encoder_common.cuh, which the backward kernel (patch_encoder_bwd.cu)
+// shares, so its recomputed forward is this one bit for bit.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#include "dense.cuh"
+#include "encoder_common.cuh"
 
 namespace {
 
+using namespace pcc;
+
 constexpr int kThreads = 256;
-constexpr int kQ = 16;                     // query points per MLP chunk
-constexpr int kC1 = 32, kC2 = 64, kC3 = 128;     // SetAbstraction widths
-constexpr int kP1 = 128, kP2 = 256, kP3 = 512;   // PointNet widths
-constexpr int kMaxD = 64;                  // latent width the buffers hold
-constexpr int kMaxN = 1024;                // points per patch
-constexpr int kX0 = 3 + kC3 + 1;           // concat row stride (131, padded)
 
 struct Layout {
   int sx, sy, sz, sq;                // patch points (SoA) and squared norms
-  int w1, b1, w2, b2, w3, b3;        // SetAbstraction weights
+  int sa;                            // SetAbstraction weights and biases
   int h;                             // grouped rows; aliased by PointNet rows
   int x0, o, lat;                    // concat rows, last-layer rows, running max
   int floats;                        // float words before the neighbour table
@@ -62,18 +59,13 @@ __host__ __device__ inline Layout make_layout(int n, int knn) {
   L.sy = off; off += n;
   L.sz = off; off += n;
   L.sq = off; off += n;
-  L.w1 = off; off += 3 * kC1;
-  L.b1 = off; off += kC1;
-  L.w2 = off; off += kC1 * kC2;
-  L.b2 = off; off += kC2;
-  L.w3 = off; off += kC2 * kC3;
-  L.b3 = off; off += kC3;
-  const int grouped = kQ * knn * (kC1 + kC2);
-  const int pointnet = kQ * (kP1 + kP2 + kP3);
+  L.sa = off; off += kEncSaW;
+  const int grouped = kEncQ * knn * (kEncC1 + kEncC2);
+  const int pointnet = kEncQ * (kEncP1 + kEncP2 + kEncP3);
   L.h = off; off += grouped > pointnet ? grouped : pointnet;
-  L.x0 = off; off += kQ * kX0;
-  L.o = off; off += kQ * kMaxD;
-  L.lat = off; off += kMaxD;
+  L.x0 = off; off += kEncQ * kEncX0;
+  L.o = off; off += kEncQ * kEncMaxD;
+  L.lat = off; off += kEncMaxD;
   L.floats = off;
   L.bytes = static_cast<size_t>(off) * sizeof(float) +
             static_cast<size_t>(n) * knn * sizeof(unsigned short);
@@ -97,120 +89,35 @@ patch_encoder_kernel(const float* __restrict__ pts, int n,
   float* sy = smem + L.sy;
   float* sz = smem + L.sz;
   float* sq = smem + L.sq;
-  float* sw1 = smem + L.w1;
-  float* sb1 = smem + L.b1;
-  float* sw2 = smem + L.w2;
-  float* sb2 = smem + L.b2;
-  float* sw3 = smem + L.w3;
-  float* sb3 = smem + L.b3;
-  float* h1 = smem + L.h;                  // [kQ*KNN, kC1]
-  float* h2 = h1 + kQ * KNN * kC1;         // [kQ*KNN, kC2]
-  float* x1 = smem + L.h;                  // [kQ, kP1] (aliases h1/h2)
-  float* x2 = x1 + kQ * kP1;               // [kQ, kP2]
-  float* x3 = x2 + kQ * kP2;               // [kQ, kP3]
-  float* x0 = smem + L.x0;                 // [kQ, kX0]
-  float* o4 = smem + L.o;                  // [kQ, dout]
+  float* sw1 = smem + L.sa;                // SetAbstraction weights, as loaded
+  float* sb1 = sw1 + 3 * kEncC1;
+  float* sw2 = sb1 + kEncC1;
+  float* sb2 = sw2 + kEncC1 * kEncC2;
+  float* sw3 = sb2 + kEncC2;
+  float* sb3 = sw3 + kEncC2 * kEncC3;
+  float* h1 = smem + L.h;                  // [kEncQ*KNN, kEncC1]
+  float* h2 = h1 + kEncQ * KNN * kEncC1;   // [kEncQ*KNN, kEncC2]
+  float* x1 = smem + L.h;                  // [kEncQ, kEncP1] (aliases h1/h2)
+  float* x2 = x1 + kEncQ * kEncP1;         // [kEncQ, kEncP2]
+  float* x3 = x2 + kEncQ * kEncP2;         // [kEncQ, kEncP3]
+  float* x0 = smem + L.x0;                 // [kEncQ, kEncX0]
+  float* o4 = smem + L.o;                  // [kEncQ, dout]
   float* lat = smem + L.lat;               // [dout]
   unsigned short* nbr = reinterpret_cast<unsigned short*>(smem + L.floats);
 
   const int tid = threadIdx.x;
-  const float* patch = pts + static_cast<size_t>(blockIdx.x) * n * 3;
-  for (int j = tid; j < n; j += blockDim.x) {
-    sx[j] = patch[3 * j];
-    sy[j] = patch[3 * j + 1];
-    sz[j] = patch[3 * j + 2];
-  }
-  for (int i = tid; i < 3 * kC1; i += blockDim.x) sw1[i] = w1[i];
-  for (int i = tid; i < kC1 * kC2; i += blockDim.x) sw2[i] = w2[i];
-  for (int i = tid; i < kC2 * kC3; i += blockDim.x) sw3[i] = w3[i];
-  for (int i = tid; i < kC1; i += blockDim.x) sb1[i] = b1[i];
-  for (int i = tid; i < kC2; i += blockDim.x) sb2[i] = b2[i];
-  for (int i = tid; i < kC3; i += blockDim.x) sb3[i] = b3[i];
   for (int i = tid; i < dout; i += blockDim.x) lat[i] = -CUDART_INF_F;
-  __syncthreads();
-  for (int j = tid; j < n; j += blockDim.x) {
-    sq[j] = __fadd_rn(__fadd_rn(__fmul_rn(sx[j], sx[j]), __fmul_rn(sy[j], sy[j])),
-                      __fmul_rn(sz[j], sz[j]));
-  }
-  __syncthreads();
+  load_sa_weights(w1, b1, w2, b2, w3, b3, sw1);
+  load_patch(pts + static_cast<size_t>(blockIdx.x) * n * 3, n, sx, sy, sz, sq);
+  select_knn<KNN>(sx, sy, sz, sq, n, nbr);
 
-  // knn selection: one query per thread, a sorted list in registers
-  for (int q = tid; q < n; q += blockDim.x) {
-    float bd[KNN];
-    int bi[KNN];
-#pragma unroll
-    for (int s = 0; s < KNN; ++s) {
-      bd[s] = CUDART_INF_F;
-      bi[s] = 0;
-    }
-    const float qx = sx[q], qy = sy[q], qz = sz[q], qq = sq[q];
-    for (int j = 0; j < n; ++j) {
-      const float cross = __fadd_rn(
-          __fadd_rn(__fmul_rn(qx, sx[j]), __fmul_rn(qy, sy[j])), __fmul_rn(qz, sz[j]));
-      const float d =
-          fmaxf(__fadd_rn(__fsub_rn(qq, __fmul_rn(2.0f, cross)), sq[j]), 0.0f);
-      if (d < bd[KNN - 1]) {
-        // insert after every entry <= d: equal distances keep index order
-        bool placed = false;
-#pragma unroll
-        for (int s = KNN - 1; s >= 0; --s) {
-          if (!placed) {
-            if (s > 0 && d < bd[s - 1]) {
-              bd[s] = bd[s - 1];
-              bi[s] = bi[s - 1];
-            } else {
-              bd[s] = d;
-              bi[s] = j;
-              placed = true;
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < KNN; ++s) nbr[q * KNN + s] = static_cast<unsigned short>(bi[s]);
-  }
-  __syncthreads();
-
-  constexpr int kRows = kQ * KNN;
-  for (int c0 = 0; c0 < n; c0 += kQ) {
-    // SetAbstraction layer 1 on the centred neighbours (row = query * KNN + slot)
-    for (int e = tid; e < kRows * kC1; e += blockDim.x) {
-      const int o = e % kC1;
-      const int r = e / kC1;
-      const int q = c0 + r / KNN;
-      const int j = nbr[c0 * KNN + r];
-      const float cx = sx[j] - sx[q];
-      const float cy = sy[j] - sy[q];
-      const float cz = sz[j] - sz[q];
-      float acc = cx * sw1[o];
-      acc = fmaf(cy, sw1[kC1 + o], acc);
-      acc = fmaf(cz, sw1[2 * kC1 + o], acc);
-      h1[r * kC1 + o] = fmaxf(acc + sb1[o], 0.0f);
-    }
-    __syncthreads();
-    pcc::dense_rows<8, true, false>(h1, kC1, kRows, kC1, sw2, sb2, kC2, h2, kC2);
-    __syncthreads();
-    // layer 3, relu and the max over each query's KNN neighbours, straight
-    // into the concat rows after the query's xyz
-    pcc::dense_relu_groupmax<KNN, false>(h2, kC2, kQ, kC2, sw3, sb3, kC3, x0 + 3, kX0);
-    for (int e = tid; e < kQ * 3; e += blockDim.x) {
-      const int qi = e / 3, c = e % 3;
-      const int q = c0 + qi;
-      x0[qi * kX0 + c] = c == 0 ? sx[q] : (c == 1 ? sy[q] : sz[q]);
-    }
-    __syncthreads();
-    pcc::dense_rows<8, true, true>(x0, kX0, kQ, 3 + kC3, pw1, pb1, kP1, x1, kP1);
-    __syncthreads();
-    pcc::dense_rows<16, true, true>(x1, kP1, kQ, kP1, pw2, pb2, kP2, x2, kP2);
-    __syncthreads();
-    pcc::dense_rows<16, true, true>(x2, kP2, kQ, kP2, pw3, pb3, kP3, x3, kP3);
-    __syncthreads();
-    pcc::dense_rows<1, false, true>(x3, kP3, kQ, kP3, pw4, pb4, dout, o4, dout);
-    __syncthreads();
+  for (int c0 = 0; c0 < n; c0 += kEncQ) {
+    encoder_chunk<KNN>(QueryRange{c0}, nbr, sx, sy, sz, sw1, sb1, sw2, sb2, sw3, sb3,
+                       pw1, pb1, pw2, pb2, pw3, pb3, pw4, pb4, dout, h1, h2, x0, x1, x2,
+                       x3, o4);
     if (tid < dout) {
       float m = lat[tid];
-      for (int r = 0; r < kQ; ++r) m = fmaxf(m, o4[r * dout + tid]);
+      for (int r = 0; r < kEncQ; ++r) m = fmaxf(m, o4[r * dout + tid]);
       lat[tid] = m;
     }
   }
@@ -246,7 +153,8 @@ extern "C" int patch_encoder_launch(const float* pts, int p, int n, int knn,
                                     const float* pw3, const float* pb3,
                                     const float* pw4, const float* pb4, int dout,
                                     float* out, void* stream) {
-  if (p <= 0 || n % kQ != 0 || n > kMaxN || n < knn || dout <= 0 || dout > kMaxD)
+  if (p <= 0 || n % kEncQ != 0 || n > kEncMaxN || n < knn || dout <= 0 ||
+      dout > kEncMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* w[14] = {w1, b1, w2, b2, w3, b3, pw1, pb1, pw2, pb2, pw3, pb3, pw4, pb4};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -92,6 +92,15 @@ def read_point_cloud(filepath: str) -> np.ndarray:
     raise ValueError("no vertex element in PLY file")
 
 
+def read_point_clouds(files) -> np.ndarray:
+    """Read equal-sized .ply clouds into one [M, N, 3] float32 array
+    (pcc_tpu.io.read_point_clouds; reference pn_kit.py:33-37)."""
+    files = list(files)
+    if not files:
+        return np.zeros((0, 0, 3), dtype=np.float32)
+    return np.stack([read_point_cloud(f) for f in files], axis=0)
+
+
 def save_point_cloud(pc: np.ndarray, filename: str, path: str = "./viewing/") -> str:
     """Write [N, 3] float32 points as binary_little_endian PLY
     (reference pn_kit.py:39-42 signature)."""

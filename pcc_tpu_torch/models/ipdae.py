@@ -4,7 +4,10 @@ pcc_tpu/models/ipdae.py; reference AE.py).
 Same graph and the reference's state_dict names and shapes (encoder
 AE.py:16-17, decoder AE.py:19-27, probability model AE.py:87-123).
 `encode` / `decode` run the fused CUDA kernels on the card and their plain
-versions on the CPU (ops/sa_cuda.py, ops/decoder_cuda.py).
+versions on the CPU (ops/sa_cuda.py, ops/decoder_cuda.py). `forward` is the
+training pass: the encoder with its backward kernel
+(ops/sa_cuda.py::patch_encoder_trainable) and a differentiable decoder of
+plain products, as pcc_tpu trains (models/ipdae.py:115-130).
 """
 
 from __future__ import annotations
@@ -18,9 +21,10 @@ from pcc_tpu_torch.models.layers import (
     PointwiseMLP,
     SetAbstraction,
     sigmoid_spread,
+    ste_round,
 )
 from pcc_tpu_torch.ops.decoder_cuda import patch_decoder, permute_expansion
-from pcc_tpu_torch.ops.sa_cuda import patch_encoder
+from pcc_tpu_torch.ops.sa_cuda import patch_encoder, patch_encoder_trainable
 
 
 class PatchAE(nn.Module):
@@ -64,6 +68,24 @@ class PatchAE(nn.Module):
         the expansion, fold, tile and inv_mlp are the fused decoder."""
         h2, w3r, b3r, mlp_wb = self.decoder_inputs(latent_q)
         return patch_decoder(h2, latent_q.contiguous(), w3r, b3r, mlp_wb, self.k)
+
+    def decode_train(self, latent_q: torch.Tensor) -> torch.Tensor:
+        """The differentiable decoder (AE.py:47-53): inv_pool, the fold of
+        [B, k*128] viewed as [B, 128, k] and moved point-major, the latent
+        tiled onto every point, inv_mlp -> [B, k, 3]."""
+        B = latent_q.shape[0]
+        fold = self.inv_pool(latent_q).reshape(B, 128, self.k).transpose(1, 2)
+        tiled = latent_q[:, None, :].expand(B, self.k, latent_q.shape[-1])
+        return self.inv_mlp(torch.cat([fold, tiled], dim=-1))
+
+    def forward(self, patches: torch.Tensor):
+        """Training pass (AE.py:34-55): [B, K, 3] patches -> (reconstructed
+        [B, k, 3], latent [B, d], straight-through quantized latent [B, d])."""
+        latent = sigmoid_spread(
+            patch_encoder_trainable(patches, self.sa.layers(), self.pn.layers(),
+                                    self.sa_knn), self.L)
+        latent_q = ste_round(latent)
+        return self.decode_train(latent_q), latent, latent_q
 
 
 class ConditionalProbabilityModel(nn.Module):

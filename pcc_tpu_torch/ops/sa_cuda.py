@@ -1,15 +1,24 @@
-"""The fused IPDAE patch encoder (counterpart of pcc_tpu/ops/sa_pallas.py,
-TPU kernel _encoder_kernel, entry patch_encoder_fused).
+"""The fused IPDAE patch encoder and its backward (counterpart of
+pcc_tpu/ops/sa_pallas.py: TPU kernels _encoder_kernel, entry
+patch_encoder_fused, and _encoder_bwd_kernel, entry
+patch_encoder_trainable).
 
 `patch_encoder` launches the CUDA kernel csrc/patch_encoder.cu on CUDA
 tensors and runs `patch_encoder_plain`, the same function in plain
 PyTorch, on CPU tensors: per [N, 3] patch, knn-nearest-neighbour grouping,
 the SetAbstraction MLP with a max over neighbours, the concat with xyz, the
-PointNet MLP and a max over points -> the pre-spread latent [P, D]. The
-kernel's design note (what bounds it on an H100, what it does about that)
-is at the top of csrc/patch_encoder.cu. Neighbour selection is bit-equal
-between the two; the MLP sums run in another order, so latents agree to
-float32 rounding.
+PointNet MLP and a max over points -> the pre-spread latent [P, D].
+Neighbour selection is bit-equal between the two; the MLP sums run in
+another order, so latents agree to float32 rounding.
+
+`patch_encoder_bwd` is its gradient against a cotangent [P, D]: the CUDA
+kernel csrc/patch_encoder_bwd.cu on CUDA tensors, `patch_encoder_bwd_plain`
+(autograd through plain products, with the kernel's relu and max choices)
+on CPU tensors.
+`patch_encoder_trainable` is the differentiable encoder that training
+calls: forward `patch_encoder`, backward `patch_encoder_bwd`. The kernels'
+design notes (what bounds them on an H100, what they do about that) are at
+the top of their sources.
 """
 
 from __future__ import annotations
@@ -21,15 +30,37 @@ from pcc_tpu_torch.ops.knn import knn_gather, select_nearest, sq_dists
 
 _ARGTYPES = ([cuda_lib.PTR, cuda_lib.INT, cuda_lib.INT, cuda_lib.INT]
              + [cuda_lib.PTR] * 14 + [cuda_lib.INT, cuda_lib.PTR, cuda_lib.PTR])
+_BWD_ARGTYPES = ([cuda_lib.PTR, cuda_lib.PTR, cuda_lib.INT, cuda_lib.INT, cuda_lib.INT]
+                 + [cuda_lib.PTR] * 14
+                 + [cuda_lib.INT, cuda_lib.PTR, cuda_lib.PTR, cuda_lib.PTR, cuda_lib.INT,
+                    cuda_lib.PTR])
 SA_WIDTHS = (3, 32, 64, 128)
 PN_WIDTHS = (131, 128, 256, 512)        # then D
 KNN_SUPPORTED = (8, 16)
 MAX_POINTS = 1024
 MAX_D = 64
+# persistent blocks of the backward kernel (one per H100 SM). Fixed, so the
+# order of its sums, and hence its bits, does not depend on the card.
+BWD_GRID = 132
+PLAIN_CHUNK = 256   # patches per pass of the plain versions (bounds their memory)
+
+
+def pointwise_plain(p: torch.Tensor, idx: torch.Tensor, sa_wb, pn_wb) -> torch.Tensor:
+    """The encoder before its max over points, in plain PyTorch: [c, N, 3]
+    patches and their neighbour indices [c, N, knn] -> [c, N, D]."""
+    h = knn_gather(p, idx) - p[:, :, None, :]
+    for w, b in sa_wb:
+        h = torch.relu(h @ w + b)
+    x = torch.cat([p, h.amax(dim=2)], dim=-1)              # [c, N, 131]
+    for i, (w, b) in enumerate(pn_wb):
+        x = x @ w + b
+        if i < len(pn_wb) - 1:
+            x = torch.relu(x)
+    return x
 
 
 def patch_encoder_plain(patches: torch.Tensor, sa_wb, pn_wb, knn: int,
-                        chunk: int = 256) -> torch.Tensor:
+                        chunk: int = PLAIN_CHUNK) -> torch.Tensor:
     """[P, N, 3] f32 -> [P, D]. sa_wb / pn_wb: lists of ([in, out] weight,
     [out] bias) tensors. Runs `chunk` patches at a time to bound the memory
     of the [chunk, N, knn, 128] grouped activations."""
@@ -37,16 +68,87 @@ def patch_encoder_plain(patches: torch.Tensor, sa_wb, pn_wb, knn: int,
     for s in range(0, patches.shape[0], chunk):
         p = patches[s:s + chunk]
         idx = select_nearest(sq_dists(p, p), knn)          # [c, N, knn]
-        h = knn_gather(p, idx) - p[:, :, None, :]
-        for w, b in sa_wb:
-            h = torch.relu(h @ w + b)
-        x = torch.cat([p, h.amax(dim=2)], dim=-1)          # [c, N, 131]
-        for i, (w, b) in enumerate(pn_wb):
-            x = x @ w + b
-            if i < len(pn_wb) - 1:
-                x = torch.relu(x)
-        outs.append(x.amax(dim=1))
+        outs.append(pointwise_plain(p, idx, sa_wb, pn_wb).amax(dim=1))
     return torch.cat(outs)
+
+
+def _fma_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., cin] @ w [cin, cout] in float32 as the kernels compute it:
+    acc = fma(x[k], w[k], acc) for k = 0, 1, ... from 0. The float64
+    product of two float32 values is exact and its float64 sum, rounded to
+    float32, is the fused multiply-add (but for a double rounding, about
+    2^-29 of the time)."""
+    x64, w64 = x.double(), w.double()
+    acc = torch.zeros(x.shape[:-1] + (w.shape[1],), dtype=torch.float32, device=x.device)
+    for k in range(x.shape[-1]):
+        acc = (x64[..., k:k + 1] * w64[k] + acc).to(torch.float32)
+    return acc
+
+
+def _kernel_choices(p, idx, rows, sa_wb, pn_wb):
+    """The forward of the query points `rows` [c, R] of patches p, in the
+    kernels' float32 arithmetic (csrc/encoder_common.cuh), for the choices
+    the backward makes on them. Returns the relu masks of the
+    SetAbstraction layers 1-2 [c, R, knn, 32 / 64], the SetAbstraction
+    max's first winning slot and its liveness (max > 0) [c, R, 128], the
+    PointNet relu masks [c, R, 128 / 256 / 512] and the last layer [c, R, D]."""
+    q = torch.gather(p, 1, rows[..., None].expand(-1, -1, 3))            # [c, R, 3]
+    nbr = torch.gather(idx, 1, rows[..., None].expand(-1, -1, idx.shape[-1]))
+    h = knn_gather(p, nbr) - q[:, :, None, :]
+    sa_masks = []
+    for i, (w, b) in enumerate(sa_wb):
+        z = _fma_matmul(h, w) + b
+        if i < len(sa_wb) - 1:
+            sa_masks.append(z > 0)
+            h = torch.relu(z)
+    top, slot = z.max(dim=2)                  # first slot reaching the max
+    x = torch.cat([q, torch.relu(top)], dim=-1)
+    pn_masks = []
+    for i, (w, b) in enumerate(pn_wb):
+        x = _fma_matmul(x, w) + b
+        if i < len(pn_wb) - 1:
+            pn_masks.append(x > 0)
+            x = torch.relu(x)
+    return sa_masks, slot, top > 0, pn_masks, x
+
+
+def _gather_rows(t: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """t [c, R, ...] at rows sel [c, D] -> [c, D, ...]."""
+    return torch.gather(t, 1, sel.reshape(sel.shape + (1,) * (t.dim() - 2)).expand(
+        sel.shape + t.shape[2:]))
+
+
+def _flatten(sa_wb, pn_wb) -> list:
+    """([(w, b)] * 3, [(w, b)] * 4) -> the 14 tensors w1, b1, ..., pb4."""
+    return [t for wb in list(sa_wb) + list(pn_wb) for t in wb]
+
+
+def _unflatten(flat):
+    """The 14 tensors w1, b1, ..., pb4 -> ([(w, b)] * 3, [(w, b)] * 4)."""
+    pairs = [(flat[2 * i], flat[2 * i + 1]) for i in range(len(flat) // 2)]
+    return pairs[:len(SA_WIDTHS) - 1], pairs[len(SA_WIDTHS) - 1:]
+
+
+def _kernel_args(name: str, patches: torch.Tensor, sa_wb, pn_wb, knn: int) -> list:
+    """Check what the encoder kernels take (raise otherwise) and return the
+    14 weight/bias pointers in the kernels' order."""
+    cuda_lib.require_cuda(name, patches, torch.float32, 3)
+    _, N, C = patches.shape
+    D = pn_wb[-1][0].shape[1]
+    if (C != 3 or knn not in KNN_SUPPORTED or N % 16 or not knn <= N <= MAX_POINTS
+            or not 0 < D <= MAX_D):
+        raise ValueError(f"{name}: unsupported patches {tuple(patches.shape)}, "
+                         f"knn={knn}, D={D}")
+    widths = [w.shape for w, _ in sa_wb] + [w.shape for w, _ in pn_wb]
+    want = ([(SA_WIDTHS[i], SA_WIDTHS[i + 1]) for i in range(3)]
+            + [(PN_WIDTHS[i], PN_WIDTHS[i + 1]) for i in range(3)] + [(512, D)])
+    if [tuple(s) for s in widths] != want:
+        raise ValueError(f"{name}: weight shapes {widths} != {want}")
+    flat = _flatten(sa_wb, pn_wb)
+    for i, t in enumerate(flat):
+        cuda_lib.require_cuda(f"{name} {'bias' if i % 2 else 'weight'}", t, torch.float32,
+                              1 if i % 2 else 2)
+    return [t.data_ptr() for t in flat]
 
 
 def patch_encoder(patches: torch.Tensor, sa_wb, pn_wb, knn: int) -> torch.Tensor:
@@ -54,24 +156,125 @@ def patch_encoder(patches: torch.Tensor, sa_wb, pn_wb, knn: int) -> torch.Tensor
     on CUDA tensors, the plain version on CPU tensors."""
     if patches.device.type == "cpu":
         return patch_encoder_plain(patches, sa_wb, pn_wb, knn)
-    cuda_lib.require_cuda("patch_encoder", patches, torch.float32, 3)
-    P, N, C = patches.shape
-    D = pn_wb[-1][0].shape[1]
-    if (C != 3 or knn not in KNN_SUPPORTED or N % 16 or not knn <= N <= MAX_POINTS
-            or not 0 < D <= MAX_D):
-        raise ValueError(f"patch_encoder: unsupported patches {tuple(patches.shape)}, "
-                         f"knn={knn}, D={D}")
-    widths = [w.shape for w, _ in sa_wb] + [w.shape for w, _ in pn_wb]
-    want = ([(SA_WIDTHS[i], SA_WIDTHS[i + 1]) for i in range(3)]
-            + [(PN_WIDTHS[i], PN_WIDTHS[i + 1]) for i in range(3)] + [(512, D)])
-    if [tuple(s) for s in widths] != want:
-        raise ValueError(f"patch_encoder: weight shapes {widths} != {want}")
-    args = []
-    for w, b in list(sa_wb) + list(pn_wb):
-        cuda_lib.require_cuda("patch_encoder weight", w, torch.float32, 2)
-        cuda_lib.require_cuda("patch_encoder bias", b, torch.float32, 1)
-        args += [w.data_ptr(), b.data_ptr()]
+    args = _kernel_args("patch_encoder", patches, sa_wb, pn_wb, knn)
+    P, D = patches.shape[0], pn_wb[-1][0].shape[1]
     out = torch.empty((P, D), dtype=torch.float32, device=patches.device)
-    cuda_lib.launch("patch_encoder", _ARGTYPES, patches.data_ptr(), P, N, knn,
+    cuda_lib.launch("patch_encoder", _ARGTYPES, patches.data_ptr(), P,
+                    patches.shape[1], knn,
                     *args, D, out.data_ptr(), cuda_lib.stream_ptr(patches))
     return out
+
+
+def patch_encoder_bwd_plain(patches: torch.Tensor, g: torch.Tensor, sa_wb, pn_wb,
+                            knn: int):
+    """The encoder's gradient against the cotangent g [P, D], with the
+    kernel's subgradient. Returns (dpatches [P, N, 3], dsa_wb, dpn_wb), the
+    weight gradients summed over patches in the ([in, out], [out]) layout of
+    sa_wb / pn_wb.
+
+    The gradient of latent channel c flows only through the point that wins
+    its max over points, and within that point through the slot that wins
+    each SetAbstraction channel's max, gated by the relu masks. The kernel
+    makes these choices on its own float32 values, routing ties to the
+    first point or slot; float32 ties and near-ties, which do occur at
+    training sizes, can resolve differently in any other summation order. So the choices here are made by repeating the kernel's
+    arithmetic (_fma_matmul) on the points within 1e-4 of each channel's
+    max, and the gradients are then autograd through plain products on the
+    winning points, with the relu and max replaced by those choices."""
+    leaves = [t.detach().requires_grad_(True) for t in _flatten(sa_wb, pn_wb)]
+    sa, pn = _unflatten(leaves)
+    dpatches, wgrads = [], None
+    for s in range(0, patches.shape[0], PLAIN_CHUNK):
+        p, gc = patches[s:s + PLAIN_CHUNK].detach(), g[s:s + PLAIN_CHUNK]
+        with torch.no_grad():
+            idx = select_nearest(sq_dists(p, p), knn)                      # [c, N, knn]
+            z4 = pointwise_plain(p, idx, sa_wb, pn_wb)                          # [c, N, D]
+            top = z4.amax(dim=1, keepdim=True)
+            near = z4 >= top - 1e-4 * z4.abs().amax(dim=1, keepdim=True)
+            # the candidate points of each patch, ascending, padded with the first
+            cand = near.any(dim=-1)                                        # [c, N]
+            R = int(cand.sum(dim=1).max())
+            order = torch.sort((~cand).to(torch.int8), dim=1, stable=True).indices[:, :R]
+            rows = torch.where(torch.gather(cand, 1, order), order, order[:, :1])
+            sa_masks, slot, live, pn_masks, z4r = _kernel_choices(p, idx, rows, sa_wb, pn_wb)
+            z4r = torch.where(_gather_rows(near, rows), z4r, -torch.inf)   # [c, R, D]
+            win = z4r.max(dim=1).indices                                   # [c, D], first row
+            q = torch.gather(rows, 1, win)                                 # winning points
+            sa_masks = [_gather_rows(m, win) for m in sa_masks]
+            slot, live = _gather_rows(slot, win), _gather_rows(live, win)  # [c, D, 128]
+            pn_masks = [_gather_rows(m, win) for m in pn_masks]
+            nbr = torch.gather(idx, 1, q[..., None].expand(-1, -1, knn))  # [c, D, knn]
+        with torch.enable_grad():
+            pp = p.requires_grad_(True)
+            xyz = torch.gather(pp, 1, q[..., None].expand(-1, -1, 3))     # [c, D, 3]
+            h = knn_gather(pp, nbr) - xyz[:, :, None, :]
+            for (w, b), m in zip(sa[:-1], sa_masks):
+                h = (h @ w + b) * m
+            w, b = sa[-1]
+            z3 = h @ w + b                                                 # [c, D, knn, 128]
+            feats = torch.gather(z3, 2, slot[:, :, None, :]).squeeze(2) * live
+            x = torch.cat([xyz, feats], dim=-1)
+            for (w, b), m in zip(pn[:-1], pn_masks):
+                x = (x @ w + b) * m
+            w, b = pn[-1]
+            z4 = x @ w + b                                                 # [c, D rows, D]
+            out = torch.diagonal(z4, dim1=1, dim2=2)                       # row c -> channel c
+            grads = torch.autograd.grad(out, [pp] + leaves, grad_outputs=gc)
+        dpatches.append(grads[0])
+        wgrads = list(grads[1:]) if wgrads is None else [
+            a + b for a, b in zip(wgrads, grads[1:])]
+    return (torch.cat(dpatches), *_unflatten(wgrads))
+
+
+def patch_encoder_bwd(patches: torch.Tensor, g: torch.Tensor, sa_wb, pn_wb, knn: int):
+    """(dpatches, dsa_wb, dpn_wb) of the encoder against the cotangent g
+    [P, D]: the CUDA kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    if patches.device.type == "cpu":
+        return patch_encoder_bwd_plain(patches, g, sa_wb, pn_wb, knn)
+    args = _kernel_args("patch_encoder_bwd", patches, sa_wb, pn_wb, knn)
+    P, N, _ = patches.shape
+    D = pn_wb[-1][0].shape[1]
+    cuda_lib.require_cuda("patch_encoder_bwd cotangent", g, torch.float32, 2)
+    if g.shape != (P, D):
+        raise ValueError(f"patch_encoder_bwd: cotangent {tuple(g.shape)} != {(P, D)}")
+    leaves = _flatten(sa_wb, pn_wb)
+    total = sum(t.numel() for t in leaves)
+    grid = min(P, BWD_GRID)
+    dpatches = torch.empty_like(patches)
+    grads = torch.empty(total, dtype=torch.float32, device=patches.device)
+    partial = torch.empty(grid * total, dtype=torch.float32, device=patches.device)
+    cuda_lib.launch("patch_encoder_bwd", _BWD_ARGTYPES, patches.data_ptr(), g.data_ptr(),
+                    P, N, knn, *args, D, dpatches.data_ptr(), grads.data_ptr(),
+                    partial.data_ptr(), grid, cuda_lib.stream_ptr(patches))
+    flat = list(torch.split(grads, [t.numel() for t in leaves]))
+    flat = [f.view(t.shape) for f, t in zip(flat, leaves)]
+    return (dpatches, *_unflatten(flat))
+
+
+class PatchEncoderFn(torch.autograd.Function):
+    """The encoder with its backward kernel: forward `patch_encoder`,
+    backward `patch_encoder_bwd` (pcc_tpu's custom VJP,
+    sa_pallas.py::_make_trainable_encoder). Arguments: knn, patches, then
+    the 14 weights and biases."""
+
+    @staticmethod
+    def forward(ctx, knn, patches, *wb):
+        ctx.knn = knn
+        ctx.save_for_backward(patches, *wb)
+        sa, pn = _unflatten(wb)
+        return patch_encoder(patches, sa, pn, knn)
+
+    @staticmethod
+    def backward(ctx, g):
+        patches, *wb = ctx.saved_tensors
+        sa, pn = _unflatten(wb)
+        dpatches, dsa, dpn = patch_encoder_bwd(patches, g.contiguous(), sa, pn, ctx.knn)
+        return (None, dpatches, *_flatten(dsa, dpn))
+
+
+def patch_encoder_trainable(patches: torch.Tensor, sa_wb, pn_wb, knn: int) -> torch.Tensor:
+    """Differentiable encoder [P, N, 3] -> [P, D] (pcc_tpu's
+    patch_encoder_trainable): the kernels on CUDA tensors, the plain
+    versions on CPU tensors, the same latents as `patch_encoder`."""
+    return PatchEncoderFn.apply(knn, patches, *_flatten(sa_wb, pn_wb))

@@ -1,0 +1,108 @@
+"""Checkpoint save / resume with the reference's naming (counterpart of
+pcc_tpu/train/checkpoint.py; reference train.py:70-108).
+
+Every dump writes step-suffixed ae_step{N}.pkl, prob_step{N}.pkl,
+optimizer_step{N}.pkl and global_step{N}.pkl, and exports the un-suffixed
+ae.pkl / prob.pkl that compress loads. The model pickles are in pcc_tpu's
+layout (nested dicts of numpy arrays, weights.to_jax_params), so pcc_tpu's
+load_inference_params and compress read what the port trains, and the
+port's own weights.load_inference_params reads it back. The optimizer
+pickle holds the port's Adam state as numpy arrays keyed by parameter name
+('ae.sa.conv0.weight', ...): {name: {"exp_avg", "exp_avg_sq", "step"}}.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import re
+
+import torch
+
+from pcc_tpu_torch.weights import from_jax_params, to_jax_params
+
+
+def _dump(obj, path: str) -> None:
+    with open(path, "wb") as f:
+        pickle.dump(obj, f)
+
+
+def _load(path: str):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _model_vars(state):
+    """(ae, prob) as pcc_tpu flax variable trees of numpy arrays."""
+    return to_jax_params(state.ae.state_dict(), state.prob.state_dict())
+
+
+def optimizer_state(state) -> dict:
+    """The Adam moments and step of every parameter, as numpy arrays."""
+    out = {}
+    for name, p in state.named_parameters():
+        st = state.optimizer.state.get(p)
+        if st:
+            out[name] = {k: v.detach().cpu().numpy().copy() for k, v in st.items()}
+    return out
+
+
+def load_optimizer_state(state, saved: dict) -> None:
+    """Put `optimizer_state`'s arrays back on the state's parameters."""
+    for name, p in state.named_parameters():
+        if name in saved:
+            state.optimizer.state[p] = {
+                k: torch.from_numpy(v).to(p.device if k != "step" else "cpu")
+                for k, v in saved[name].items()}
+
+
+def save_checkpoint(folder: str, state, global_step: int | str = "") -> None:
+    """Step-suffixed dump (train.py:104-108) plus the inference export."""
+    os.makedirs(folder, exist_ok=True)
+    ae_vars, prob_vars = _model_vars(state)
+    _dump(ae_vars, os.path.join(folder, f"ae_step{global_step}.pkl"))
+    _dump(prob_vars, os.path.join(folder, f"prob_step{global_step}.pkl"))
+    _dump(optimizer_state(state), os.path.join(folder, f"optimizer_step{global_step}.pkl"))
+    _dump(int(state.step), os.path.join(folder, f"global_step{global_step}.pkl"))
+    export_inference_params(folder, state)
+
+
+def export_inference_params(folder: str, state) -> None:
+    """Write the un-suffixed names compress / decompress load."""
+    os.makedirs(folder, exist_ok=True)
+    ae_vars, prob_vars = _model_vars(state)
+    _dump(ae_vars, os.path.join(folder, "ae.pkl"))
+    _dump(prob_vars, os.path.join(folder, "prob.pkl"))
+
+
+def find_latest_checkpoint(folder: str, prefix: str) -> str | None:
+    """Highest-step `{prefix}_step{N}.pkl` in folder (train.py:71-80)."""
+    if not os.path.isdir(folder):
+        return None
+    best, best_step = None, -1
+    pat = re.compile(rf"^{re.escape(prefix)}_step(\d+)\.pkl$")
+    for f in os.listdir(folder):
+        m = pat.match(f)
+        if m and int(m.group(1)) > best_step:
+            best_step = int(m.group(1))
+            best = os.path.join(folder, f)
+    return best
+
+
+def load_latest_checkpoint(folder: str, state):
+    """Resume models, optimizer and step from the latest dump; returns
+    (state, start_step), start_step = the saved step + 1 as the reference
+    resumes. Missing files are skipped (train.py:83-101)."""
+    paths = {p: find_latest_checkpoint(folder, p)
+             for p in ("ae", "prob", "optimizer", "global")}
+    if paths["ae"] and paths["prob"]:
+        ae_sd, prob_sd = from_jax_params(_load(paths["ae"]), _load(paths["prob"]))
+        state.ae.load_state_dict(ae_sd)
+        state.prob.load_state_dict(prob_sd)
+    if paths["optimizer"]:
+        load_optimizer_state(state, _load(paths["optimizer"]))
+    start_step = 0
+    if paths["global"]:
+        start_step = int(_load(paths["global"])) + 1
+        state.step = start_step
+    return state, start_step

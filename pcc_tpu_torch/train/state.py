@@ -1,0 +1,83 @@
+"""Joint AE + probability-model training state (counterpart of
+pcc_tpu/train/state.py): Adam over both models' parameters together, as the
+reference optimizes them (train.py:132-135), with its step-decay schedule.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from pcc_tpu_torch.codec import init_params, make_models
+from pcc_tpu_torch.config import CodecConfig
+from pcc_tpu_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamSchedule:
+    """Adam (beta 0.9 / 0.999, eps 1e-8, optax.adam's defaults) with the
+    reference's step decay (train.py:241-245): lr *= lr_decay every
+    lr_decay_steps, as optax.piecewise_constant_schedule applies it."""
+
+    lr: float
+    lr_decay: float
+    lr_decay_steps: int
+    max_steps: int
+
+    def lr_at(self, count: int) -> float:
+        """Learning rate of update `count` (0-based, counted before the
+        update): lr * lr_decay ** #{b in range(lr_decay_steps, max_steps + 1,
+        lr_decay_steps) : b <= count}."""
+        n = sum(1 for b in range(self.lr_decay_steps, self.max_steps + 1,
+                                 self.lr_decay_steps) if b <= count)
+        return self.lr * self.lr_decay ** n
+
+    def build(self, params) -> torch.optim.Adam:
+        return torch.optim.Adam(params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def make_optimizer(lr: float, lr_decay: float, lr_decay_steps: int,
+                   max_steps: int) -> AdamSchedule:
+    return AdamSchedule(lr, lr_decay, lr_decay_steps, max_steps)
+
+
+@dataclasses.dataclass
+class TrainState:
+    ae: torch.nn.Module             # PatchAE
+    prob: torch.nn.Module           # ConditionalProbabilityModel
+    optimizer: torch.optim.Adam     # over ae's then prob's parameters
+    step: int = 0
+
+    def named_parameters(self):
+        """(name, parameter) of both models, names prefixed 'ae.' / 'prob.':
+        the optimizer's parameter order."""
+        return ([(f"ae.{n}", p) for n, p in self.ae.named_parameters()]
+                + [(f"prob.{n}", p) for n, p in self.prob.named_parameters()])
+
+    def update_count(self) -> int:
+        """Adam updates applied so far (the schedule's count)."""
+        st = self.optimizer.state.get(self.optimizer.param_groups[0]["params"][0])
+        return int(st["step"]) if st else 0
+
+    def apply_gradients(self, tx: AdamSchedule) -> None:
+        """One Adam update from the parameters' .grad, at the learning rate
+        that `tx` gives this update."""
+        lr = tx.lr_at(self.update_count())
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.step += 1
+
+
+def create_train_state(seed: int, cfg: CodecConfig, tx: AdamSchedule,
+                       device: str | torch.device = "cuda") -> TrainState:
+    """Models on `device` with seeded random weights, and a fresh Adam."""
+    dev = resolve_device(device)
+    ae_sd, prob_sd = init_params(seed, cfg)
+    ae, prob = make_models(cfg)
+    ae.load_state_dict(ae_sd)
+    prob.load_state_dict(prob_sd)
+    ae, prob = ae.to(dev).train(), prob.to(dev).train()
+    optimizer = tx.build(list(ae.parameters()) + list(prob.parameters()))
+    return TrainState(ae=ae, prob=prob, optimizer=optimizer)

@@ -1,10 +1,9 @@
 """PyTorch port (pcc_tpu_torch) vs pcc_tpu: the whole compress -> decompress
 slice on the CPU, same weights, same clouds.
 
-  * .s.bin byte-equal;
-  * .c.bin within 1 ulp: pcc_tpu's XLA CPU program fuses the 10-bit
-    upload's multiply-add for x and y but not for z (ROADMAP.md, "Faults
-    found in the port"), so the z centre can differ by one ulp;
+  * .s.bin and .c.bin byte-equal: the port dequantizes the 10-bit upload
+    per axis as pcc_tpu's XLA CPU program does (x and y as one fused
+    multiply-add, z unfused);
   * streams cross-decode both ways to the encoder's own symbols;
   * decoded clouds agree to one int8 step of each patch's scale;
   * one in-process CLI round trip.
@@ -62,11 +61,50 @@ def _skeleton(s_bytes):
     return codes_to_points(codes, depth)
 
 
+def _clouds(seed, n):
+    rng = np.random.default_rng(seed)
+    return [(rng.random((CFG.N, 3)) * 4 - 1).astype(np.float32) for _ in range(n)]
+
+
 def test_skeleton_and_header_streams(run):
-    for (jp, js, jc_), (pp, ps, pc_) in zip(run["j_streams"], run["p_streams"]):
+    """.s.bin and .c.bin byte-equal, over the fixture's clouds (seed 11)
+    and two more seeds."""
+    pairs = list(zip(run["j_streams"], run["p_streams"]))
+    for seed in (12, 13):
+        clouds = _clouds(seed, 3)
+        pairs += list(zip(run["jc"].compress_many(clouds), run["pc"].compress_many(clouds)))
+    assert len(pairs) == 9
+    for (_, js, jc_), (_, ps, pc_) in pairs:
         assert ps == js
-        np.testing.assert_array_max_ulp(np.frombuffer(pc_, np.float32),
-                                        np.frombuffer(jc_, np.float32), maxulp=1)
+        assert pc_ == jc_
+
+
+def test_header_dequantization_per_axis(run):
+    """Clouds (seeds 2, 3, 7) whose .c.bin differs when all three axes are
+    dequantized as a fused multiply-add: pcc_tpu's header is the per-axis
+    one, and the port's equals it."""
+    from pcc_tpu_torch.codec import _INV_1023, pack_encode_upload, unpack_encode_upload
+    from pcc_tpu_torch.ops.normalize import normalize
+
+    for seed in (2, 3, 7):
+        clouds = _clouds(seed, 1)
+        (_, _, j_c), = run["jc"].compress_many(clouds)
+        (_, _, p_c), = run["pc"].compress_many(clouds)
+        assert p_c == j_c
+        packed = torch.from_numpy(pack_encode_upload(np.stack(clouds),
+                                                      np.zeros(1, np.int32)).view(np.int32))
+        N = CFG.N
+        q = packed[:, :N]
+        lo = packed[:, N:N + 3].contiguous().view(torch.float32)
+        step = packed[:, N + 3:N + 6].contiguous().view(torch.float32) * _INV_1023
+        v = torch.stack([q & 1023, (q >> 10) & 1023, (q >> 20) & 1023], dim=-1)
+        all_fused = (v.double() * step[:, None].double() + lo[:, None].double()).float()
+        _, center, longest = normalize(all_fused)
+        header = np.concatenate([center[0].numpy(), longest.numpy()]).astype(np.float32)
+        assert header.tobytes() != j_c
+        _, center, longest = normalize(unpack_encode_upload(packed, N)[0])
+        header = np.concatenate([center[0].numpy(), longest.numpy()]).astype(np.float32)
+        assert header.tobytes() == j_c
 
 
 def test_streams_cross_decode_both_ways(run):

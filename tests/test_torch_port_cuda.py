@@ -16,7 +16,8 @@ from pcc_tpu_torch.config import CodecConfig
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.decoder_cuda import patch_decoder, patch_decoder_plain
 from pcc_tpu_torch.ops.fps import fps_batch, fps_plain
-from pcc_tpu_torch.ops.sa_cuda import patch_encoder, patch_encoder_plain
+from pcc_tpu_torch.ops.sa_cuda import (patch_encoder, patch_encoder_bwd,
+                                       patch_encoder_bwd_plain, patch_encoder_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -67,6 +68,46 @@ def test_patch_encoder_kernel(dev, P, N, knn, D):
                                atol=1e-5, rtol=0)
 
 
+def _flat(dp, dsa, dpn):
+    return [dp] + [t for wb in list(dsa) + list(dpn) for t in wb]
+
+
+@pytest.mark.parametrize("P,N,knn,D,twins", [(16, 256, 16, 16, False), (5, 32, 8, 4, False),
+                                             (5, 32, 8, 4, True)])
+def test_patch_encoder_bwd_kernel(dev, P, N, knn, D, twins):
+    """Every output within 1e-4 of the largest entry of its plain version
+    (float32 sums in another order), and two launches bitwise equal. With
+    twins every point has a duplicate: every max is an exact tie, routed to
+    the first winner by both."""
+    g = torch.Generator().manual_seed(3)
+    pts = (torch.rand((P, N, 3), generator=g) * 2 - 1) * 0.4
+    if twins:
+        pts[:, N // 2:] = pts[:, :N // 2]
+    pts = pts.to(dev)
+    sa = _wb(g, [3, 32, 64, 128], dev)
+    pn = _wb(g, [131, 128, 256, 512, D], dev)
+    cot = torch.randn((P, D), generator=g).to(dev)
+    before = cuda_lib.launches["patch_encoder_bwd"]
+    a = _flat(*patch_encoder_bwd(pts, cot, sa, pn, knn))
+    assert cuda_lib.launches["patch_encoder_bwd"] == before + 1
+    b = _flat(*patch_encoder_bwd_plain(pts, cot, sa, pn, knn))
+    for x, y in zip(a, b):
+        assert x.shape == y.shape
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
+    again = _flat(*patch_encoder_bwd(pts, cot, sa, pn, knn))
+    assert all(torch.equal(x, y) for x, y in zip(a, again))
+
+
+@pytest.mark.parametrize("N,knn,D", [(24, 8, 4), (32, 12, 4), (32, 8, 65)])
+def test_patch_encoder_bwd_rejects_unsupported_shapes(dev, N, knn, D):
+    g = torch.Generator().manual_seed(4)
+    pts = torch.rand((2, N, 3), generator=g).to(dev)
+    sa = _wb(g, [3, 32, 64, 128], dev)
+    pn = _wb(g, [131, 128, 256, 512, D], dev)
+    with pytest.raises(ValueError):
+        patch_encoder_bwd(pts, torch.zeros((2, D), device=dev), sa, pn, knn)
+
+
 @pytest.mark.parametrize("P,d,k", [(70, 16, 128), (9, 4, 16)])
 def test_patch_decoder_kernel(dev, P, d, k):
     g = torch.Generator().manual_seed(2)
@@ -77,6 +118,34 @@ def test_patch_decoder_kernel(dev, P, d, k):
     out = patch_decoder(h2, lat, w3r, b3r, mlp, k)
     torch.testing.assert_close(out, patch_decoder_plain(h2, lat, w3r, b3r, mlp, k),
                                atol=1e-5, rtol=0)
+
+
+def test_train_step_card_matches_cpu(dev):
+    """One train step at the CPU tests' TINY config on the card (FPS,
+    encoder and encoder-backward kernels) and on the CPU port (their plain
+    versions), from the same weights and FPS starts: loss to 1e-5
+    relative, every gradient within 1e-5 of its largest entry on the CPU
+    (the step leaves it in .grad), updated parameters to 1e-5."""
+    from pcc_tpu_torch.train import build_train_step, create_train_state
+    from pcc_tpu_torch.train.state import make_optimizer
+
+    cfg = CodecConfig(N=256, N0=64, ALPHA=2, K=32, d=4, L=7, sa_knn=8)
+    tx = make_optimizer(1e-3, 0.1, 10, 10)
+    states = [create_train_state(0, cfg, tx, device=d) for d in ("cuda", "cpu")]
+    rng = np.random.default_rng(5)
+    batch = torch.from_numpy((rng.random((2, cfg.N, 3)) * 4 - 1).astype(np.float32))
+    starts = torch.tensor([3, 100], dtype=torch.int32)
+    step = build_train_step(cfg, tx, rate_mode="reference")
+    before = cuda_lib.launches["patch_encoder_bwd"]
+    _, card = step(states[0], batch.to(dev), starts.to(dev), 1e-2)
+    assert cuda_lib.launches["patch_encoder_bwd"] == before + 1
+    _, cpu = step(states[1], batch, starts, 1e-2)
+    torch.testing.assert_close(card["loss"].cpu(), cpu["loss"], rtol=1e-5, atol=0)
+    for (name, a), (_, b) in zip(states[0].named_parameters(), states[1].named_parameters()):
+        err = float((a.grad.cpu() - b.grad).abs().max())
+        assert err <= 1e-5 * float(b.grad.abs().max()), name
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0, atol=1e-5,
+                                   msg=name)
 
 
 def test_codec_card_streams_match_cpu(dev):
