@@ -6,9 +6,11 @@ Builds the port's CUDA kernels from pcc_tpu_torch/csrc/ (one nvcc per
 source, all started together), drives the IPDAE compress -> decompress path
 at the default CodecConfig (N=8192, K=256, S=64, d=16, L=7) on 64 synthetic
 clouds from a numpy seed with random weights from a torch seed, then the
-IPDAE train step at the same config on 8 such clouds, holds every kernel
-against its plain PyTorch version at the shapes those paths give it, and
-checks the streams and a train step against the port on the CPU.
+IPDAE train step at the same config on 8 such clouds, then the PPPF-AE
+compress -> decompress path (CodecConfig(model="PPPF-AE"), same widths) on
+16 of the clouds, holds every kernel against its plain PyTorch version at
+the shapes those paths give it, and checks the streams and a train step
+against the port on the CPU.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card, power limit, torch and CUDA versions;
@@ -38,9 +40,26 @@ Phases (any failed check raises, and the script exits non-zero):
      CPU port, same weights and FPS starts: loss to 1e-5 relative, every
      parameter's gradient within 1e-5 of its largest entry, updated
      parameters to 1e-5.
-The line before the last is the kernels' JSON record (the serving path's
-launch counts for fps, patch_encoder and patch_decoder; the counted train
-steps' for patch_encoder_bwd); the last line is {"ok": true, "device":
+  9. the PPPF-AE path: Codec(CodecConfig(model="PPPF-AE"), batch_size=16) on
+     16 clouds with seeded random weights and non-trivial BatchNorm
+     statistics (seeded running means and variances, some negative
+     scales); warm-up, then compress_many -> decompress_many with every
+     launch counter set to 0 just before and read just after
+     (pppf_sa_stage 3, fps 3, the IPDAE kernels 0); decoded symbols equal
+     encoded ones; decoded clouds [S*d*d, 3] and finite; clouds/s, bits per
+     point, the steps of one batch, one encode and one decode under
+     torch.profiler;
+ 10. the stage kernel vs its plain version on that path's own stage inputs
+     (sa1, sa2, sa3 at P = 1024) and, with the "pppe" layout, on sa2's
+     inputs: max abs error <= TOL of the output's largest entry, CUDA-event
+     times, the plain version's time and the card's lower bound;
+ 11. one of the clouds on the CPU port with the same weights: .s.bin and
+     .c.bin byte-equal, the card's .p.bin decoded on the CPU to the card's
+     symbols, the integer coding weights [1, 64, 16, 7] bit-equal.
+The line before the last is the kernels' JSON record (the IPDAE serving
+path's launch counts for fps, patch_encoder and patch_decoder, the counted
+train steps' for patch_encoder_bwd, the PPPF-AE path's for pppf_sa_stage;
+fps also carries the PPPF-AE path's count as launches_pppf); the last line is {"ok": true, "device":
 {...}}. Without a card it exits 1 and prints no result.
 """
 
@@ -55,13 +74,14 @@ import numpy as np
 import torch
 
 from pcc_tpu_torch.codec import Codec, decode_clouds_packed, encode_geometry, init_params
-from pcc_tpu_torch.codec import pack_encode_upload, unpack_encode_upload
+from pcc_tpu_torch.codec import integer_pmf_weights, pack_encode_upload, unpack_encode_upload
 from pcc_tpu_torch.coding.octree_host import codes_to_points, parse_octree_bits, unpack_bits
 from pcc_tpu_torch.config import CodecConfig
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.decoder_cuda import patch_decoder, patch_decoder_plain
 from pcc_tpu_torch.ops.fps import fps_batch, fps_plain
 from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
+from pcc_tpu_torch.ops.pppf_sa_cuda import pppf_sa_fused, pppf_sa_plain, stage_flops
 from pcc_tpu_torch.ops.sa_cuda import (PatchEncoderFn, patch_encoder, patch_encoder_bwd,
                                        patch_encoder_bwd_plain, patch_encoder_plain,
                                        pointwise_plain)
@@ -81,6 +101,7 @@ SERVING_KERNELS = ("fps", "patch_encoder", "patch_decoder")
 TRAIN_CLOUDS = 8     # clouds per train step (bench.py:317's batch)
 TRAIN_STEPS = 10
 TRAIN_LAM = 1e-6     # the reference's lambda, so the rate path runs
+PPPF_CLOUDS = 16     # clouds per PPPF-AE device batch (the CLIs' default for this model)
 TINY = dict(N=256, N0=64, ALPHA=2, K=32, d=4, L=7, sa_knn=8)
 
 
@@ -233,8 +254,8 @@ def train_phase(dev, smi: str):
         losses.append(aux["loss"])
     launches = dict(cuda_lib.launches)
     log(f"train launches over {TRAIN_STEPS} steps: {launches}")
-    want = {"fps": TRAIN_STEPS, "patch_encoder": TRAIN_STEPS,
-            "patch_encoder_bwd": TRAIN_STEPS, "patch_decoder": 0}
+    want = {name: 0 for name in cuda_lib.KERNELS}
+    want.update(fps=TRAIN_STEPS, patch_encoder=TRAIN_STEPS, patch_encoder_bwd=TRAIN_STEPS)
     if launches != want:
         raise RuntimeError(f"train launches {launches} != {want}")
     losses = torch.stack(losses).cpu().numpy()
@@ -344,6 +365,152 @@ def train_card_vs_cpu(dev) -> None:
         f"within {worst:.3g}")
 
 
+def skeletons(streams) -> np.ndarray:
+    """The decoded skeletons [B, S, 3] of a list of (p, s, c) streams."""
+    return np.stack([codes_to_points(*parse_octree_bits(unpack_bits(s)))
+                     for _, s, _ in streams])
+
+
+def randomize_batchnorm(state: dict, seed: int) -> dict:
+    """A copy of a state_dict with non-trivial BatchNorm entries from a torch
+    seed: running means around 0, variances in [0.5, 1.5], scales in
+    [0.5, 1.5] with about a quarter negative, small biases."""
+    g = torch.Generator().manual_seed(seed)
+    out = dict(state)
+    for key in state:
+        if not key.endswith(".running_mean"):
+            continue
+        stem = key[:-len("running_mean")]
+        n = state[key].shape[0]
+        out[key] = torch.randn(n, generator=g) * 0.1
+        out[stem + "running_var"] = torch.rand(n, generator=g) + 0.5
+        sign = torch.where(torch.rand(n, generator=g) < 0.25, -1.0, 1.0)
+        out[stem + "weight"] = (torch.rand(n, generator=g) + 0.5) * sign
+        out[stem + "bias"] = (torch.rand(n, generator=g) - 0.3) * 0.2
+    return out
+
+
+def pppf_phase(dev, smi: str, clouds, fps_record: dict) -> dict:
+    """Phases 9-11: the PPPF-AE path, its stage kernel vs the plain version,
+    and the card vs the CPU port; the kernel's record for the kernels line."""
+    cfg = CodecConfig(model="PPPF-AE")
+    B = PPPF_CLOUDS
+    clouds = clouds[:B]
+    ae_state, prob_state = init_params(SEED, cfg)
+    ae_state = randomize_batchnorm(ae_state, SEED + 2)
+    prob_state = randomize_batchnorm(prob_state, SEED + 3)
+    t0 = time.perf_counter()
+    card = Codec(cfg, ae_state, prob_state, batch_size=B, device="cuda")
+    log(f"PPPF-AE codec built in {time.perf_counter() - t0:.1f} s (the integer "
+        "probability model's conversion runs on the host)")
+
+    # 9. the path, through the entry points a user calls
+    card.decompress_many(card.compress_many(clouds))          # warm-up, uncounted
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    streams = card.compress_many(clouds)
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = card.decompress_many(streams)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    launches = dict(cuda_lib.launches)
+    log(f"PPPF-AE path: {B} clouds x {cfg.N} points; encode {B / t_enc:.2f} clouds/s "
+        f"({t_enc * 1e3:.1f} ms), decode {B / t_dec:.2f} clouds/s ({t_dec * 1e3:.1f} ms) "
+        f"on {smi}")
+    log(f"launches on the PPPF-AE path: {launches}")
+    want = {name: 0 for name in cuda_lib.KERNELS}
+    want.update(pppf_sa_stage=3, fps=3)
+    if launches != want:
+        raise RuntimeError(f"PPPF-AE path launches {launches} != {want}")
+    bpp = [8 * (len(p) + len(s) + len(c)) / cfg.N for p, s, c in streams]
+    log(f"PPPF-AE mean bits per input point {np.mean(bpp):.4f}")
+    for pc in decoded:
+        if pc.shape != (cfg.S * cfg.d * cfg.d, 3) or not np.isfinite(pc).all():
+            raise RuntimeError(f"bad decoded PPPF-AE cloud: shape {pc.shape}")
+    starts = np.zeros(B, np.int32)
+    recs = skeletons(streams)
+    with torch.inference_mode():
+        step_times(card, clouds, streams)
+        profile("PPPF-AE encode", lambda: card.compress_many(clouds), top=12)
+        profile("PPPF-AE decode", lambda: card.decompress_many(streams), top=12)
+        enc = card.encode_batch(np.stack(clouds), starts)
+        sym = enc.sym.cpu().numpy()
+        if not np.array_equal(card.decode_symbols(recs, [p for p, _, _ in streams]), sym):
+            raise RuntimeError("PPPF-AE: decoded symbols differ from the encoded symbols")
+        log("PPPF-AE: decoded symbols equal encoded symbols for all clouds")
+
+        # 10. the stage kernel vs its plain version, on the path's inputs
+        packed = pack_encode_upload(np.stack(clouds), starts)
+        pcs, st = unpack_encode_upload(torch.from_numpy(packed.view(np.int32)).to(dev), cfg.N)
+        xyz, feat = encode_geometry(pcs, st, cfg).patches, None
+        stages, cases = [], []
+        for name in ("sa1", "sa2", "sa3"):
+            sa = getattr(card.ae.encoder, name)
+            new_xyz = sa.queries(xyz).contiguous()
+            cases.append((name, "pppf", new_xyz, xyz, feat, sa))
+            if name == "sa2":
+                cases.append((name, "pppe", new_xyz, xyz, feat, sa))
+            feat = pppf_sa_fused(new_xyz, xyz, feat, sa.layers(), nsample=sa.nsample,
+                                 radius=sa.radius)
+            xyz = new_xyz
+        for name, layout, new_xyz, xyz, feat, sa in cases:
+            layers = sa.layers()
+            kw = dict(nsample=sa.nsample, radius=sa.radius, layout=layout)
+            a = pppf_sa_fused(new_xyz, xyz, feat, layers, **kw)
+            b = pppf_sa_plain(new_xyz, xyz, feat, layers, **kw)
+            err, big = float((a - b).abs().max()), float(b.abs().max())
+            if not err <= TOL * big:
+                raise RuntimeError(f"pppf_sa_stage {name} ({layout}) differs from the plain "
+                                   f"version: {err} > {TOL} * {big}")
+            P, S, _ = new_xyz.shape
+            widths = [layers[0][0].shape[0]] + [lay[0].shape[1] for lay in layers]
+            flops = stage_flops(P, S, xyz.shape[1], sa.nsample, widths)
+            ins = [new_xyz] + ([xyz] if new_xyz is not xyz else []) \
+                + ([] if feat is None else [feat]) + [t for lay in layers for t in lay]
+            bms, by = bound(flops, nbytes(*ins, a))
+            rec = dict(stage=name, layout=layout, shape=[P, S, xyz.shape[1], widths],
+                       nsample=sa.nsample, max_abs_err=err, max_abs=big,
+                       ms=cuda_ms(lambda: pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), 3),
+                       plain_ms=cuda_ms(lambda: pppf_sa_plain(new_xyz, xyz, feat, layers, **kw), 1),
+                       bound_ms=bms, bound_by=by, gflop=flops / 1e9)
+            log(f"pppf_sa_stage {name} ({layout}) new_xyz {tuple(new_xyz.shape)} xyz "
+                f"{tuple(xyz.shape)} widths {widths} nsample {sa.nsample}: {rec['ms']:.3f} ms "
+                f"(plain {rec['plain_ms']:.1f} ms, bound {bms:.3f} ms by {by}, "
+                f"{flops / 1e9:.1f} GFLOP, {flops / rec['ms'] / 1e9:.2f} TFLOP/s), "
+                f"max_abs_err {err:.3g} of {big:.3g}")
+            stages.append(rec)
+
+        # 11. the same weights and one of the clouds on the CPU port
+        t0 = time.perf_counter()
+        cpu = Codec(cfg, ae_state, prob_state, batch_size=1, device="cpu")
+        (_, s_cpu, c_cpu), = cpu.compress_many(clouds[:1])
+        if streams[0][1] != s_cpu or streams[0][2] != c_cpu:
+            raise RuntimeError("PPPF-AE: card .s.bin/.c.bin differ from the CPU port's")
+        if not np.array_equal(cpu.decode_symbols(recs[:1], [streams[0][0]]), sym[:1]):
+            raise RuntimeError("PPPF-AE: the CPU port decodes the card's .p.bin to other "
+                               "symbols")
+        rec1 = torch.from_numpy(recs[:1])
+        w_card = integer_pmf_weights(card.bundle, rec1.to(dev), cfg).cpu()
+        w_cpu = integer_pmf_weights(cpu.bundle, rec1, cfg)
+        if tuple(w_cpu.shape) != (1, cfg.S, cfg.d, cfg.L) or not torch.equal(w_card, w_cpu):
+            raise RuntimeError("PPPF-AE: integer coding weights differ between card and CPU")
+        log(f"PPPF-AE cross-device ({time.perf_counter() - t0:.1f} s): .s.bin and .c.bin "
+            "byte-equal, the card's .p.bin decodes on the CPU to the same symbols, integer "
+            f"weights {tuple(w_cpu.shape)} bit-equal")
+
+    fps_record["launches_pppf"] = launches["fps"]
+    path = [r for r in stages if r["layout"] == "pppf"]
+    return dict(
+        name="pppf_sa_stage", route="cuda", source="pcc_tpu_torch/csrc/pppf_sa_stage.cu",
+        replaces="pcc_tpu/ops/pppf_sa_pallas.py:45", launches=launches["pppf_sa_stage"],
+        max_abs_err=max(r["max_abs_err"] for r in stages),
+        ms=sum(r["ms"] for r in path), plain_ms=sum(r["plain_ms"] for r in path),
+        bound_ms=sum(r["bound_ms"] for r in path), bound_by=path[-1]["bound_by"],
+        library_ms=None, stages=stages)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -405,8 +572,7 @@ def main() -> int:
     with torch.inference_mode():
         enc = card.encode_batch(np.stack(clouds), starts)
         sym = enc.sym.cpu().numpy()
-        recs = np.stack([codes_to_points(*parse_octree_bits(unpack_bits(s)))
-                         for _, s, _ in streams])
+        recs = skeletons(streams)
         got = card.decode_symbols(recs, [p for p, _, _ in streams])
         if not np.array_equal(got, sym):
             raise RuntimeError("decoded symbols differ from the encoded symbols")
@@ -506,6 +672,12 @@ def main() -> int:
     log(f"{kr['name']}: {kr['ms']:.4f} ms (plain {kr['plain_ms']:.4f} ms, bound "
         f"{kr['bound_ms']:.4f} ms by {kr['bound_by']}), launches {kr['launches']}")
     train_card_vs_cpu(dev)
+
+    # 9-11. the PPPF-AE path
+    kernels.append(pppf_phase(dev, smi, clouds, kernels[0]))
+    kr = kernels[-1]
+    log(f"{kr['name']}: {kr['ms']:.4f} ms for the three stages (plain {kr['plain_ms']:.4f} ms, "
+        f"bound {kr['bound_ms']:.4f} ms by {kr['bound_by']}), launches {kr['launches']}")
 
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 from pcc_tpu_torch.codec import Codec, init_params
-from pcc_tpu_torch.config import DEFAULT_SEED, CodecConfig
+from pcc_tpu_torch.config import DEFAULT_SEED, MODELS, CodecConfig
 from pcc_tpu_torch.weights import load_inference_params
 
 
@@ -14,15 +14,27 @@ def add_codec_flags(p) -> None:
     p.add_argument("--K", type=int, default=256, help="Number of points in each patch.")
     p.add_argument("--d", type=int, default=16, help="Bottleneck size.")
     p.add_argument("--L", type=int, default=7, help="Quantization Level.")
+    p.add_argument("--model", default="AE", choices=list(MODELS),
+                   help="Type of the model (AE or PPPF-AE); both families share "
+                        "the binary pipeline.")
     p.add_argument("--seed", type=int, default=DEFAULT_SEED,
                    help="Seed of the random weights used when the model folder is empty.")
-    p.add_argument("--batch_size", type=int, default=64, help="Clouds per device batch.")
+    p.add_argument("--batch_size", type=int, default=None,
+                   help="Clouds per device batch. Default 64 (AE), 16 for PPPF-AE, as "
+                        "pcc_tpu's CLIs.")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="Device to run on; 'cuda' raises when there is no card.")
 
 
 def config_from_args(args) -> CodecConfig:
-    return CodecConfig(N0=args.N0, ALPHA=args.ALPHA, K=args.K, d=args.d, L=args.L)
+    return CodecConfig(N0=args.N0, ALPHA=args.ALPHA, K=args.K, d=args.d, L=args.L,
+                       model=args.model)
+
+
+def batch_size_from_args(args) -> int:
+    if args.batch_size is not None:
+        return args.batch_size
+    return 16 if args.model == "PPPF-AE" else 64
 
 
 def load_codec(model_load_folder: str, cfg: CodecConfig, seed: int,

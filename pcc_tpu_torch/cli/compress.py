@@ -3,7 +3,7 @@
 Same positional arguments, flags and outputs ({name}.p.bin/.s.bin/.c.bin,
 compress.py:139-152) as pcc_tpu's compress; the streams are byte-compatible.
 
-  python -m pcc_tpu_torch.cli.compress 'in/*.ply' comp/ model/ [--device cpu]
+  python -m pcc_tpu_torch.cli.compress 'in/*.ply' comp/ model/ [--model PPPF-AE] [--device cpu]
 """
 
 from __future__ import annotations
@@ -13,7 +13,8 @@ import os
 import time
 from glob import glob
 
-from pcc_tpu_torch.cli._common import add_codec_flags, config_from_args, load_codec
+from pcc_tpu_torch.cli._common import (add_codec_flags, batch_size_from_args,
+                                        config_from_args, load_codec)
 from pcc_tpu_torch.io import read_point_cloud
 
 
@@ -37,7 +38,7 @@ def main(argv=None):
         raise SystemExit(f"no input files match {args.input_glob}")
     os.makedirs(args.compressed_path, exist_ok=True)
     codec = load_codec(args.model_load_folder, config_from_args(args), args.seed,
-                       batch_size=args.batch_size, device=args.device)
+                       batch_size=batch_size_from_args(args), device=args.device)
     print(f"Processing on device: {codec.device}")
 
     clouds = [read_point_cloud(f) for f in files]

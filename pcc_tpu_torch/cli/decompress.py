@@ -1,7 +1,7 @@
 """Decompress .p/.s/.c.bin streams to .ply (reference decompress.py CLI,
 PyTorch port). Output files are named {name}.bin.ply, as pcc_tpu's.
 
-  python -m pcc_tpu_torch.cli.decompress comp/ decomp/ model/ [--device cpu]
+  python -m pcc_tpu_torch.cli.decompress comp/ decomp/ model/ [--model PPPF-AE] [--device cpu]
 """
 
 from __future__ import annotations
@@ -11,7 +11,8 @@ import os
 import time
 from glob import glob
 
-from pcc_tpu_torch.cli._common import add_codec_flags, config_from_args, load_codec
+from pcc_tpu_torch.cli._common import (add_codec_flags, batch_size_from_args,
+                                        config_from_args, load_codec)
 from pcc_tpu_torch.io import save_point_cloud
 
 
@@ -35,7 +36,7 @@ def main(argv=None):
         raise SystemExit(f"no .s.bin files in {args.compressed_path}")
     os.makedirs(args.decompressed_path, exist_ok=True)
     codec = load_codec(args.model_load_folder, config_from_args(args), args.seed,
-                       batch_size=args.batch_size, device=args.device)
+                       batch_size=batch_size_from_args(args), device=args.device)
     print(f"Processing on device: {codec.device}")
 
     names, streams = [], []

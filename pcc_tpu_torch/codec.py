@@ -1,17 +1,22 @@
-"""IPDAE patch codec: clouds <-> (.p.bin, .s.bin, .c.bin) streams
-(counterpart of pcc_tpu/codec.py, integer CDF mode, float32).
+"""Patch codec: clouds <-> (.p.bin, .s.bin, .c.bin) streams (counterpart of
+pcc_tpu/codec.py, integer CDF mode, float32), for both model families of
+CodecConfig.model.
 
 Encode, per batch of clouds on the device: the 10-bit packed upload ->
 normalize -> FPS (CUDA kernel, ops/fps.py) -> octree analysis -> KNN
-patches -> patch encoder (CUDA kernel, ops/sa_cuda.py) -> int8 symbols, and
-the integer probability model's weights (coding/iprob.py). The host turns
-the weights into CDF rows with integer ops and range-codes the symbols.
+patches -> the family's encoder -> int8 symbols, and the integer
+probability model's weights. The host turns the weights into CDF rows with
+integer ops and range-codes the symbols. "AE" (IPDAE): the patch encoder
+kernel (ops/sa_cuda.py) and coding/iprob.py. "PPPF-AE": three PN++
+set-abstraction stages, each the fused stage kernel (ops/pppf_sa_cuda.py)
+with the FPS kernel inside the second and third, and coding/iprob_pppf.py.
 
 Decode: the host parses the skeleton bits; the device computes the integer
 weights from the skeleton alone; the host range-decodes the symbols; the
-device runs the patch decoder (CUDA kernel, ops/decoder_cuda.py) and
-returns int8 offsets around each skeleton point, which the host adds and
-denormalizes.
+device runs the family's decoder (IPDAE: the patch decoder kernel,
+ops/decoder_cuda.py, k points per patch; PPPF-AE: FoldingNet, plain
+products, d * d points per patch) and returns int8 offsets around each
+skeleton point, which the host adds and denormalizes.
 
 On-disk contract (reference compress.py:139-152, same bytes as pcc_tpu):
   {name}.p.bin  — range-coded latents
@@ -29,6 +34,7 @@ import torch
 from pcc_tpu_torch.coding import rangecoder
 from pcc_tpu_torch.coding.iprob import (bundle_to_device, convert_prob_params,
                                         iprob_pmf_weights, weights_to_cdf_rows)
+from pcc_tpu_torch.coding.iprob_pppf import convert_pppf_prob_params, pppf_pmf_weights
 from pcc_tpu_torch.coding.octree import OctreeResult, octree_analyze
 from pcc_tpu_torch.coding.octree_host import (codes_to_points, emit_octree_bits,
                                               pack_bits, parse_octree_bits,
@@ -37,6 +43,7 @@ from pcc_tpu_torch.config import CodecConfig
 from pcc_tpu_torch.device import resolve_device
 from pcc_tpu_torch.models.ipdae import ConditionalProbabilityModel, PatchAE
 from pcc_tpu_torch.models.layers import torch_dense_init_
+from pcc_tpu_torch.models.pppf import PPPF_AE, PPPFConditionalProbabilityModel
 from pcc_tpu_torch.ops.fps import fps_batch
 from pcc_tpu_torch.ops.knn import knn_points
 from pcc_tpu_torch.ops.normalize import normalize
@@ -48,13 +55,18 @@ _INV_1023 = float(np.float32(1.0) / np.float32(1023.0))
 
 
 def make_models(cfg: CodecConfig):
+    """The (autoencoder, float probability model) modules of cfg.model."""
+    if cfg.model == "PPPF-AE":
+        return (PPPF_AE(K=cfg.K, k=cfg.k, d=cfg.d, L=cfg.L),
+                PPPFConditionalProbabilityModel(d=cfg.d, L=cfg.L))
     return (PatchAE(K=cfg.K, k=cfg.k, d=cfg.d, L=cfg.L, sa_knn=cfg.sa_knn),
             ConditionalProbabilityModel(d=cfg.d, L=cfg.L))
 
 
 def init_params(seed: int, cfg: CodecConfig):
-    """Random (PatchAE, ConditionalProbabilityModel) state_dicts from a
-    seeded torch.Generator, with torch's Linear/Conv default init."""
+    """Random (autoencoder, probability model) state_dicts from a seeded
+    torch.Generator, with torch's Linear/Conv default init (BatchNorm at its
+    defaults)."""
     g = torch.Generator().manual_seed(seed)
     ae, prob = make_models(cfg)
     torch_dense_init_(ae, g)
@@ -143,7 +155,15 @@ def encode_geometry(pcs: torch.Tensor, fps_starts: torch.Tensor,
                     patches.reshape(B * S, cfg.K, 3).contiguous())
 
 
-def encode_clouds(ae: PatchAE, bundle, pcs: torch.Tensor, fps_starts: torch.Tensor,
+def integer_pmf_weights(bundle, rec_xyz: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
+    """Family dispatch of the integer probability model: [B, S, 3] skeletons
+    -> [B, S, d, L] int32 Q16 weights, bit-equal on any device."""
+    if cfg.model == "PPPF-AE":
+        return pppf_pmf_weights(bundle, rec_xyz)
+    return iprob_pmf_weights(bundle, rec_xyz)
+
+
+def encode_clouds(ae, bundle, pcs: torch.Tensor, fps_starts: torch.Tensor,
                   cfg: CodecConfig) -> EncodeResult:
     """Batched analysis transform [B, N, 3] -> EncodeResult
     (reference compress.py:78-136 for all clouds and patches at once)."""
@@ -153,7 +173,7 @@ def encode_clouds(ae: PatchAE, bundle, pcs: torch.Tensor, fps_starts: torch.Tens
     sym = torch.clamp(torch.round(latent) + cfg.L // 2, 0, cfg.L - 1)
     return EncodeResult(
         sym=sym.to(torch.int8).reshape(B, -1, cfg.d),
-        weights=iprob_pmf_weights(bundle, geo.octree.rec_xyz),
+        weights=integer_pmf_weights(bundle, geo.octree.rec_xyz, cfg),
         sorted_codes=geo.octree.sorted_codes,
         depth=geo.octree.depth,
         center=geo.center,
@@ -161,13 +181,14 @@ def encode_clouds(ae: PatchAE, bundle, pcs: torch.Tensor, fps_starts: torch.Tens
     )
 
 
-def decode_clouds_packed(ae: PatchAE, sym: torch.Tensor, cfg: CodecConfig):
+def decode_clouds_packed(ae, sym: torch.Tensor, cfg: CodecConfig):
     """Batched synthesis transform: [B, S, d] symbols -> (int8 patch offsets
-    [B, S, k, 3], per-patch scale [B, S, 3]) around each skeleton point; the
-    host adds the skeleton it parsed and denormalizes."""
+    [B, S, k, 3], per-patch scale [B, S, 3]) around each skeleton point (d * d
+    points per patch instead of k for PPPF-AE); the host adds the skeleton it
+    parsed and denormalizes."""
     B, S = sym.shape[:2]
     latent_q = (sym.to(torch.float32) - cfg.L // 2).reshape(B * S, cfg.d)
-    patches = ae.decode(latent_q)                                  # [B*S, k, 3]
+    patches = ae.decode(latent_q)                                  # [B*S, k | d*d, 3]
     # / patch_scale as XLA compiles it: a product with the f32 reciprocal
     inv_scale = float(np.float32(1.0) / np.float32(cfg.patch_scale))
     off = patches.reshape(B, S, -1, 3) * inv_scale
@@ -195,8 +216,11 @@ class Codec:
         # the float probability model is converted once, on the host, into
         # the integer bundle whose CDFs are byte-identical on any device
         _, prob_tree = to_jax_params(None, prob.state_dict())
-        self.bundle = bundle_to_device(convert_prob_params(prob_tree, cfg.d, cfg.L),
-                                       self.device)
+        if cfg.model == "PPPF-AE":
+            raw = convert_pppf_prob_params(prob_tree, cfg.d, cfg.L, S=cfg.S)
+        else:
+            raw = convert_prob_params(prob_tree, cfg.d, cfg.L)
+        self.bundle = bundle_to_device(raw, self.device)
 
     # ------------------------------------------------------------- encode --
 
@@ -262,7 +286,7 @@ class Codec:
         integer coding weights on the device, CDF rows and the range
         decoder on the host."""
         rec_t = torch.from_numpy(np.ascontiguousarray(recs, np.float32)).to(self.device)
-        w = iprob_pmf_weights(self.bundle, rec_t).cpu().numpy()
+        w = integer_pmf_weights(self.bundle, rec_t, self.cfg).cpu().numpy()
         cdfs = weights_to_cdf_rows(w)
         return np.stack([rangecoder.decode_quantized_cdf(cdfs[j], p)
                          for j, p in enumerate(p_streams)]).astype(np.int8)
@@ -270,7 +294,7 @@ class Codec:
     @torch.inference_mode()
     def decode_batch(self, syms: np.ndarray, recs: np.ndarray, headers: np.ndarray):
         """Symbols [B, S, d] + skeletons [B, S, 3] + .c.bin headers [B, 4]
-        -> decoded clouds [B, S*k, 3] f32."""
+        -> decoded clouds [B, S*k, 3] f32 ([B, S*d*d, 3] for PPPF-AE)."""
         B, S = syms.shape[:2]
         cfg = self.cfg.with_n(S * self.cfg.k)   # decode side: N = S * k
         q, scale = decode_clouds_packed(

@@ -240,17 +240,18 @@ def iprob_pmf_weights_np(bundle, rec_xyz) -> np.ndarray:
     return _softmax_weights_np(logits)
 
 
-_LAYERS = ("pn0", "pn1", "pn2", "mlp0", "mlp1", "mlp2")
-
-
 def bundle_to_device(bundle, device) -> dict:
     """Numpy integer bundle -> dict of tensors on `device` for
-    iprob_pmf_weights. Shift amounts stay Python ints; per-channel rounding
-    offsets (1 << rq) >> 1 are precomputed on the host."""
+    iprob_pmf_weights / iprob_pppf.pppf_pmf_weights: every entry that holds
+    a layer dict becomes a layer of tensors, with the split-scale xyz part
+    (wx, mx, rxa, rx) wherever the layer has one. Shift amounts stay Python
+    ints; per-channel rounding offsets (1 << rq) >> 1 are precomputed on the
+    host."""
     dev = {"d": int(bundle["d"]), "L": int(bundle["L"]),
            "lut": torch.as_tensor(bundle["lut"], dtype=torch.int32, device=device)}
-    for name in _LAYERS:
-        lw = bundle[name]
+    for name, lw in bundle.items():
+        if not isinstance(lw, dict):
+            continue
         out = {
             "w": torch.as_tensor(lw["w"], dtype=torch.float32, device=device),
             "b": torch.as_tensor(lw["b"], dtype=torch.int32, device=device),
@@ -260,7 +261,7 @@ def bundle_to_device(bundle, device) -> dict:
             "rq_half": torch.as_tensor((1 << lw["rq"].astype(np.int64)) >> 1,
                                        dtype=torch.int32, device=device),
         }
-        if name == "mlp0":
+        if "wx" in lw:
             out["wx"] = torch.as_tensor(lw["wx"], dtype=torch.float32, device=device)
             out["mx"], out["rxa"], out["rx"] = (int(lw["mx"]), int(lw["rxa"]),
                                                 int(lw["rx"]))
@@ -291,6 +292,16 @@ def _requant(z, layer, relu):
     return torch.clamp(a, -32767, 32767)
 
 
+def _split_requant(zf, zx, layer, relu):
+    """Requant of a concat-input layer: the xyz accumulation zx (scale
+    2^Q_IN) is rescaled onto the feature accumulation zf, then the shared
+    bias and requant."""
+    rxa, rx = layer["rxa"], layer["rx"]
+    zx = (zx + ((1 << rxa) >> 1)) >> rxa
+    zx = (zx * layer["mx"] + ((1 << rx) >> 1)) >> rx
+    return _requant(zf + zx, layer, relu=relu)
+
+
 def softmax_weights(logits: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     """Torch twin of _softmax_weights_np: int32 logits at scale S_SM ->
     Q16 weights via the exp2 LUT."""
@@ -317,12 +328,8 @@ def iprob_pmf_weights(dev_bundle, rec_xyz: torch.Tensor) -> torch.Tensor:
     feat_t = feat[:, None, :].expand(B, S, feat.shape[-1]).reshape(B * S, -1)
 
     lw = dev_bundle["mlp0"]
-    zf = _exact_int_matmul(feat_t, lw["w"])
-    zx = _exact_int_matmul(xq, lw["wx"])
-    rxa, rx = lw["rxa"], lw["rx"]
-    zx = (zx + ((1 << rxa) >> 1)) >> rxa
-    zx = (zx * lw["mx"] + ((1 << rx) >> 1)) >> rx
-    a = _requant(zf + zx, lw, relu=True)
+    a = _split_requant(_exact_int_matmul(feat_t, lw["w"]),
+                       _exact_int_matmul(xq, lw["wx"]), lw, relu=True)
     for i in (1, 2):
         lw = dev_bundle[f"mlp{i}"]
         a = _requant(_exact_int_matmul(a, lw["w"]), lw, relu=(i < 2))

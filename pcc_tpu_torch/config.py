@@ -5,8 +5,9 @@ The reference spreads these hyperparameters across per-CLI argparse defaults
 (pn_kit.py:17-23 OCTREE_BPP_DICT, AE.py:43 quantizer spread). Here they live
 in one dataclass; CLIs build it from flags with the reference's names/defaults.
 
-The port implements pcc_tpu's defaults for the fields it leaves out: the
-IPDAE model ("AE"), float32 compute and the integer CDF mode. The TPU kernel
+`model` selects the family, as in pcc_tpu: "AE" (IPDAE) or "PPPF-AE" (PN++
+encoder + FoldingNet decoder). The port implements pcc_tpu's defaults for the
+fields it leaves out: float32 compute and the integer CDF mode. The TPU kernel
 switches (fused_sa, fused_decode, pruned_knn) have no counterpart: on a CUDA
 device the port always runs its kernels, and its patch selection is the
 exact dense KNN whose output the pruned search reproduces bit for bit.
@@ -30,6 +31,8 @@ OCTREE_BPP_DICT = {
 # FPS-sampled skeletons are losslessly separable well before depth 10.
 MAX_OCTREE_DEPTH = 10
 
+MODELS = ("AE", "PPPF-AE")
+
 # Global RNG seed; reference seeds torch/np with 11 (train.py:18-20).
 DEFAULT_SEED = 11
 
@@ -52,8 +55,11 @@ class CodecConfig:
     sa_knn: int = 16   # KNN size inside SetAbstraction (AE.py:16)
     margin: float = 0.01  # normalize margin (pn_kit.py:47)
     max_depth: int = MAX_OCTREE_DEPTH
+    model: str = "AE"  # "AE" (IPDAE) | "PPPF-AE" (train.py --model)
 
     def __post_init__(self):
+        if self.model not in MODELS:
+            raise ValueError(f"model={self.model!r} is not one of {MODELS}")
         # the encoded symbol array travels as int8: L beyond 128 would
         # silently wrap into a corrupt-but-decodable stream
         if not 2 <= self.L <= 128:

@@ -1,7 +1,8 @@
 """Point-set network building blocks (counterpart of pcc_tpu/models/layers.py).
 
 Parameters carry the reference's torch names and shapes (1x1 Conv2d weights
-[out, in, 1, 1], Linear weights [out, in]), so a reference state_dict loads
+[out, in, 1, 1], 1x1 Conv1d weights [out, in, 1], Linear weights [out, in],
+BatchNorm2d parameters and running statistics), so a reference state_dict loads
 as it is and pcc_tpu's importer (cli/import_torch_checkpoint.py) reads the
 port's. Every layer computes channels-last, as a matmul on
 weight.view(out, in): never a cuDNN convolution, which would run float32 in
@@ -19,12 +20,13 @@ from pcc_tpu_torch.ops.knn import knn_points
 
 
 class PointConv(nn.Module):
-    """The parameters of a reference 1x1 Conv2d (weight [out, in, 1, 1],
-    bias [out]) applied to [..., in] as x @ W + b."""
+    """The parameters of a reference 1x1 convolution (weight [out, in, 1, 1]
+    for a Conv2d, [out, in, 1] for a Conv1d with conv_dims=1; bias [out])
+    applied to [..., in] as x @ W + b."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, conv_dims: int = 2):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, 1, 1))
+        self.weight = nn.Parameter(torch.empty(cout, cin, *([1] * conv_dims)))
         self.bias = nn.Parameter(torch.empty(cout))
 
     def kernel(self) -> torch.Tensor:
@@ -49,6 +51,24 @@ def torch_dense_init_(module: nn.Module, generator: torch.Generator) -> None:
                 bound = float(m.weight.shape[1]) ** -0.5
                 m.weight.uniform_(-bound, bound, generator=generator)
                 m.bias.uniform_(-bound, bound, generator=generator)
+
+
+def conv_bn_relu_stack(cin: int, features: Sequence[int]) -> nn.Sequential:
+    """The reference's flat Sequential of [Conv2d, BatchNorm2d, ReLU] triples
+    (pointnet_sa_module.py:49-56): the conv of layer i at index 3 * i, its
+    BatchNorm at 3 * i + 1. The BatchNorm modules hold the parameters and
+    running statistics; the stack is evaluated by the fused stage
+    (ops/pppf_sa_cuda.py) on `stack_layers`."""
+    mods = []
+    for f in features:
+        mods += [PointConv(cin, f), nn.BatchNorm2d(f), nn.ReLU()]
+        cin = f
+    return nn.Sequential(*mods)
+
+
+def stack_layers(stack: nn.Sequential):
+    """[(conv, bn)] per layer of a conv_bn_relu_stack."""
+    return [(stack[i], stack[i + 1]) for i in range(0, len(stack), 3)]
 
 
 def ste_round(x: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,166 @@
+"""PPPF-AE: PointNet++ encoder + FoldingNet decoder patch autoencoder, and
+its conditional probability model (counterpart of pcc_tpu/models/pppf.py;
+reference PPPF_AE.py + pointnet_sa_module.py).
+
+Same graph, stage configuration (PPPF_AE.py:29-37,115-126) and state_dict
+names as the reference: `encoder.sa{j}.mlp.{3i}` conv, `.{3i+1}` BatchNorm,
+`decoder.mlp1/mlp2.{0,2,4}` Conv1d, `enc_proj`, `dec_proj`;
+`model_pnpp.sa{j}.mlp.*`, `model_mlp.{0,2,4}`. Every set-abstraction stage
+runs the fused stage of ops/pppf_sa_cuda.py (the CUDA kernel on the card,
+its plain version on the CPU) with BatchNorm in its eval form; its internal
+FPS is ops/fps.py::fps_batch. Training the stages (batch statistics, the
+stage's backward kernel) is not ported yet: a module in train mode raises.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from pcc_tpu_torch.models.layers import (PointConv, conv_bn_relu_stack, sigmoid_spread,
+                                         stack_layers)
+from pcc_tpu_torch.ops.fps import fps_batch
+from pcc_tpu_torch.ops.pppf_sa_cuda import fold_bn, pppf_sa_fused
+
+
+class PointnetSAModule(nn.Module):
+    """Canonical PN++ set abstraction: FPS -> ball query -> group(+xyz) ->
+    Conv+BN+ReLU stack -> max over samples (pointnet_sa_module.py:38-93).
+    [B, N, 3] xyz (+ optional [B, N, C] features) ->
+    ([B, npoint, 3], [B, npoint, mlp[-1]])."""
+
+    def __init__(self, npoint: int, radius: float, nsample: int, cin: int,
+                 mlp: Sequence[int]):
+        super().__init__()
+        self.npoint, self.radius, self.nsample = npoint, radius, nsample
+        self.mlp = conv_bn_relu_stack(cin, mlp)
+
+    def layers(self):
+        """[(W [in, out], b, mean, mul, bias)] per layer, BatchNorm folded."""
+        return [(conv.kernel(), conv.bias, *fold_bn(bn)) for conv, bn in
+                stack_layers(self.mlp)]
+
+    def queries(self, xyz: torch.Tensor) -> torch.Tensor:
+        """The stage's query centroids [B, npoint, 3]: the points themselves
+        when npoint == N, else FPS from index 0."""
+        if self.npoint == xyz.shape[1]:
+            return xyz
+        idx = fps_batch(xyz, self.npoint, torch.zeros(
+            xyz.shape[0], dtype=torch.int32, device=xyz.device))
+        return torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3))
+
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor | None = None):
+        if self.training:
+            raise NotImplementedError(
+                "PointnetSAModule runs in eval mode only: training the PN++ stages is "
+                "not ported yet")
+        xyz = xyz.contiguous()
+        new_xyz = self.queries(xyz)
+        out = pppf_sa_fused(new_xyz, xyz,
+                            None if features is None else features.contiguous(),
+                            self.layers(), nsample=self.nsample, radius=self.radius)
+        return new_xyz, out
+
+
+class PointNetPP(nn.Module):
+    """3-stage PN++ encoder -> global feature [B, feature_dim]
+    (PPPF_AE.py:9-46), including the leading 3 -> 3 conv produced by the
+    reference's `[3] + sa1_mlp` list."""
+
+    def __init__(self, points: int = 512, sa1_mlp: Sequence[int] = (64, 64, 128),
+                 sa2_mlp: Sequence[int] = (128, 128, 128, 256),
+                 sa3_mlp: Sequence[int] = (256, 256, 512), feature_dim: int = 1024):
+        super().__init__()
+        self.sa1 = PointnetSAModule(points, 0.2, 32, 3, (3,) + tuple(sa1_mlp))
+        self.sa2 = PointnetSAModule(128, 0.4, 64, sa1_mlp[-1] + 3, tuple(sa2_mlp))
+        self.sa3 = PointnetSAModule(32, 0.8, 128, sa2_mlp[-1] + 3,
+                                    tuple(sa3_mlp) + (feature_dim,))
+
+    def forward(self, xyz: torch.Tensor):
+        xyz, feat = self.sa1(xyz)
+        xyz, feat = self.sa2(xyz, feat)
+        xyz, feat = self.sa3(xyz, feat)
+        return xyz, feat.amax(dim=1)                         # [B, feature_dim]
+
+
+class FoldingNet(nn.Module):
+    """Two-stage folding decoder over a grid_size^2 2D grid in [-1, 1]^2
+    (PPPF_AE.py:50-109): [B, F] latent -> [B, grid_size^2, 3]. The grid is
+    numpy's float32 linspace; pcc_tpu's jnp.linspace may differ from it in
+    the last place, which the parity tests accept inside their tolerance."""
+
+    def __init__(self, points: int = 512, grid_size: int = 45, feature_dim: int = 1024):
+        super().__init__()
+        self.grid_size = grid_size
+        self.mlp1 = nn.Sequential(
+            PointConv(2 + feature_dim, points, conv_dims=1), nn.ReLU(),
+            PointConv(points, points, conv_dims=1), nn.ReLU(),
+            PointConv(points, 3, conv_dims=1))
+        self.mlp2 = nn.Sequential(
+            PointConv(3 + feature_dim, 128, conv_dims=1), nn.ReLU(),
+            PointConv(128, 128, conv_dims=1), nn.ReLU(),
+            PointConv(128, 3, conv_dims=1))
+
+    def forward(self, latent: torch.Tensor) -> torch.Tensor:
+        B = latent.shape[0]
+        n = self.grid_size * self.grid_size
+        line = np.linspace(-1.0, 1.0, self.grid_size, dtype=np.float32)
+        gx, gy = np.meshgrid(line, line, indexing="ij")
+        grid = torch.from_numpy(np.stack([gx, gy], axis=-1).reshape(1, n, 2)).to(
+            latent.device).expand(B, n, 2)
+        tiled = latent[:, None, :].expand(B, n, latent.shape[-1])    # [B, n, F]
+        coarse = self.mlp1(torch.cat([grid, tiled], dim=-1))
+        return self.mlp2(torch.cat([coarse, tiled], dim=-1))
+
+
+class PPPF_AE(nn.Module):
+    """PN++ encoder -> project to d -> quantize -> project back ->
+    FoldingNet with grid_size = d, so a decoded patch has d^2 points
+    (PPPF_AE.py:114-150). `k` is unused, as in pcc_tpu."""
+
+    def __init__(self, K: int = 512, k: int = 0, d: int = 16, L: int = 7,
+                 dim: int = 1024):
+        super().__init__()
+        self.K, self.k, self.d, self.L, self.dim = K, k, d, L, dim
+        self.encoder = PointNetPP(points=K, feature_dim=dim)
+        self.decoder = FoldingNet(points=K, grid_size=d, feature_dim=dim)
+        self.enc_proj = nn.Linear(dim, d)
+        self.dec_proj = nn.Linear(d, dim)
+
+    def encode(self, xyz: torch.Tensor) -> torch.Tensor:
+        """[B, K, 3] patches -> latent [B, d] in the quantizer's range."""
+        _, latent = self.encoder(xyz)
+        return self.enc_proj(sigmoid_spread(latent, self.L))
+
+    def decode(self, latent_q: torch.Tensor) -> torch.Tensor:
+        """[B, d] quantized latent -> [B, d * d, 3] patch points."""
+        return self.decoder(self.dec_proj(latent_q))
+
+
+class PPPFConditionalProbabilityModel(nn.Module):
+    """PMFs from a PN++ backbone over the skeleton (PPPF_AE.py:181-228):
+    [B, S, 3] -> [B, S, d, L]. The codec codes with its integer twin
+    (coding/iprob_pppf.py); this float model holds the weights that twin is
+    converted from. BatchNorm stays in the backbone, as in the reference
+    (its bn=False flag never reaches PointnetSAModule)."""
+
+    def __init__(self, d: int = 16, L: int = 7):
+        super().__init__()
+        self.d, self.L = d, L
+        self.model_pnpp = PointNetPP(sa1_mlp=(64, 64, 128), sa2_mlp=(128, 128, 256),
+                                     sa3_mlp=(256, 512, 1024), feature_dim=1024)
+        self.model_mlp = nn.Sequential(
+            PointConv(3 + 1024, 512), nn.ReLU(),
+            PointConv(512, 512), nn.ReLU(),
+            PointConv(512, d * L),
+        )
+
+    def forward(self, sampled_xyz: torch.Tensor) -> torch.Tensor:
+        B, S, _ = sampled_xyz.shape
+        _, feature = self.model_pnpp(sampled_xyz)
+        tiled = feature[:, None, :].expand(B, S, feature.shape[-1])
+        out = self.model_mlp(torch.cat([sampled_xyz, tiled], dim=-1))
+        return torch.softmax(out.reshape(B, S, self.d, self.L), dim=-1)

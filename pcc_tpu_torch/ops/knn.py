@@ -1,4 +1,4 @@
-"""KNN / gather on tensors (counterpart of pcc_tpu/ops/knn.py).
+"""KNN / gather / ball query on tensors (counterpart of pcc_tpu/ops/knn.py).
 
 Selection uses the expanded distance q2 - 2 q.p + p2, written out
 coordinate by coordinate so that every operation rounds once, in the same
@@ -62,3 +62,17 @@ def knn_points(query: torch.Tensor, points: torch.Tensor, K: int,
     nn = knn_gather(points, idx)
     dists = ((nn - query[..., None, :]) ** 2).sum(-1)
     return dists, idx, (nn if return_nn else None)
+
+
+def ball_query(query: torch.Tensor, points: torch.Tensor, K: int,
+               radius: float) -> torch.Tensor:
+    """Radius grouping (pcc_tpu's ball_query): the K nearest neighbours,
+    with every slot beyond `radius` set to index 0, the reference's clamp of
+    pytorch3d's -1 padding (pointnet_sa_module.py:16-28). The radius test
+    runs on exactly recomputed distances, summed x, y, z in that order as
+    the fused stage kernel (csrc/pppf_sa_stage.cu) sums them.
+    Returns idx [B, S, K] int64."""
+    idx = select_nearest(sq_dists(query, points), K)
+    d = sq_norms(knn_gather(points, idx) - query[..., None, :])
+    r2 = torch.tensor(radius * radius, dtype=d.dtype, device=d.device)
+    return torch.where(d <= r2, idx, 0)

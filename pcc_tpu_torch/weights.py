@@ -7,8 +7,12 @@ JAX. `from_jax_params` turns them into the port's state_dicts, which carry
 the reference's torch names (the inverse of pcc_tpu's
 cli/import_torch_checkpoint.py::convert_ae_state_dict /
 convert_prob_state_dict); `to_jax_params` goes the other way, for the
-integer probability model's converter (coding/iprob.py) and the tests.
-Both are exact copies: a transpose, no arithmetic.
+integer probability model's converter (coding/iprob.py,
+coding/iprob_pppf.py) and the tests. Both model families are carried: IPDAE
+("AE", `params` only) and PPPF-AE (`params` and the BatchNorm running
+statistics in `batch_stats`; cli/import_torch_checkpoint.py::
+convert_pppf_ae_state_dict / convert_pppf_prob_state_dict). Both ways are
+exact copies: a transpose and a rename, no arithmetic.
 """
 
 from __future__ import annotations
@@ -27,10 +31,11 @@ def _params(variables):
     return variables["params"] if "params" in variables else variables
 
 
-def _conv_w(kernel) -> torch.Tensor:
-    """[in, out] Dense kernel -> [out, in, 1, 1] 1x1-Conv2d weight."""
-    k = np.asarray(kernel, np.float32)
-    return torch.from_numpy(np.ascontiguousarray(k.T)[:, :, None, None])
+def _conv_w(kernel, conv_dims: int = 2) -> torch.Tensor:
+    """[in, out] Dense kernel -> [out, in, 1, 1] 1x1-Conv2d weight ([out,
+    in, 1] for a Conv1d with conv_dims=1)."""
+    k = np.ascontiguousarray(np.asarray(kernel, np.float32).T)
+    return torch.from_numpy(k.reshape(k.shape + (1,) * conv_dims))
 
 
 def _linear_w(kernel) -> torch.Tensor:
@@ -42,9 +47,61 @@ def _bias(b) -> torch.Tensor:
     return torch.from_numpy(np.array(b, dtype=np.float32))
 
 
+def _is_pppf(ae_vars=None, prob_vars=None) -> bool:
+    """Whether flax variables belong to the PPPF-AE family."""
+    return ((ae_vars is not None and "encoder" in _params(ae_vars))
+            or (prob_vars is not None and "model_pnpp" in _params(prob_vars)))
+
+
+def _pnpp_from_jax(params, stats, prefix: str, sd: dict) -> None:
+    """flax PointNetPP params + batch_stats -> `{prefix}sa{j}.mlp.{3i}` conv
+    and `.{3i+1}` BatchNorm entries of `sd`."""
+    for j in (1, 2, 3):
+        mp, ms = params[f"sa{j}"]["mlp"], stats[f"sa{j}"]["mlp"]
+        for i in range(len(ms)):
+            lin = mp[f"dense_{i}"]["linear"]
+            conv, bn = f"{prefix}sa{j}.mlp.{3 * i}", f"{prefix}sa{j}.mlp.{3 * i + 1}"
+            sd[f"{conv}.weight"] = _conv_w(lin["kernel"])
+            sd[f"{conv}.bias"] = _bias(lin["bias"])
+            sd[f"{bn}.weight"] = _bias(mp[f"bn_{i}"]["scale"])
+            sd[f"{bn}.bias"] = _bias(mp[f"bn_{i}"]["bias"])
+            sd[f"{bn}.running_mean"] = _bias(ms[f"bn_{i}"]["mean"])
+            sd[f"{bn}.running_var"] = _bias(ms[f"bn_{i}"]["var"])
+            sd[f"{bn}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+
+def _pppf_from_jax(ae_vars, prob_vars):
+    ae = prob = None
+    if ae_vars is not None:
+        p, ae = _params(ae_vars), {}
+        _pnpp_from_jax(p["encoder"], ae_vars["batch_stats"]["encoder"], "encoder.", ae)
+        for mlp in ("mlp1", "mlp2"):
+            for i, idx in enumerate(_MODEL_MLP):
+                lin = p["decoder"][mlp][f"dense_{i}"]["linear"]
+                ae[f"decoder.{mlp}.{idx}.weight"] = _conv_w(lin["kernel"], conv_dims=1)
+                ae[f"decoder.{mlp}.{idx}.bias"] = _bias(lin["bias"])
+        for proj in ("enc_proj", "dec_proj"):
+            ae[f"{proj}.weight"] = _linear_w(p[proj]["linear"]["kernel"])
+            ae[f"{proj}.bias"] = _bias(p[proj]["linear"]["bias"])
+    if prob_vars is not None:
+        q, prob = _params(prob_vars), {}
+        _pnpp_from_jax(q["model_pnpp"], prob_vars["batch_stats"]["model_pnpp"],
+                       "model_pnpp.", prob)
+        for j, idx in enumerate(_MODEL_MLP):
+            lin = q["model_mlp"][f"dense_{j}"]["linear"]
+            prob[f"model_mlp.{idx}.weight"] = _conv_w(lin["kernel"])
+            prob[f"model_mlp.{idx}.bias"] = _bias(lin["bias"])
+    return ae, prob
+
+
 def from_jax_params(ae_vars, prob_vars):
-    """pcc_tpu flax variables (nested dicts of arrays) -> (PatchAE
-    state_dict, ConditionalProbabilityModel state_dict) of the port."""
+    """pcc_tpu flax variables (nested dicts of arrays) -> (autoencoder
+    state_dict, probability model state_dict) of the port, for the family
+    the variables belong to (IPDAE: PatchAE / ConditionalProbabilityModel;
+    PPPF-AE: PPPF_AE / PPPFConditionalProbabilityModel; for this family
+    either argument may be None)."""
+    if _is_pppf(ae_vars, prob_vars):
+        return _pppf_from_jax(ae_vars, prob_vars)
     p = _params(ae_vars)
     ae = {}
     for i in range(len(p["sa"]["mlp"])):
@@ -88,9 +145,54 @@ def _count(sd, prefix: str) -> int:
     return len({k[len(prefix):].split(".")[0] for k in sd if k.startswith(prefix)})
 
 
+def _vec(t) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def _pnpp_to_jax(sd, prefix: str):
+    """`{prefix}sa{j}.mlp.*` entries -> flax PointNetPP (params, batch_stats)."""
+    params, stats = {}, {}
+    for j in (1, 2, 3):
+        mp, ms = {}, {}
+        stack = f"{prefix}sa{j}.mlp."
+        for i in range(_count(sd, stack) // 2):      # a conv and a BatchNorm per layer
+            conv, bn = f"{stack}{3 * i}", f"{stack}{3 * i + 1}"
+            mp[f"dense_{i}"] = _dense(sd[f"{conv}.weight"], sd[f"{conv}.bias"])
+            mp[f"bn_{i}"] = {"scale": _vec(sd[f"{bn}.weight"]), "bias": _vec(sd[f"{bn}.bias"])}
+            ms[f"bn_{i}"] = {"mean": _vec(sd[f"{bn}.running_mean"]),
+                             "var": _vec(sd[f"{bn}.running_var"])}
+        params[f"sa{j}"], stats[f"sa{j}"] = {"mlp": mp}, {"mlp": ms}
+    return params, stats
+
+
+def _pppf_to_jax(ae_sd, prob_sd):
+    ae = prob = None
+    if ae_sd is not None:
+        enc_p, enc_s = _pnpp_to_jax(ae_sd, "encoder.")
+        p = {"encoder": enc_p, "decoder": {
+            mlp: {f"dense_{i}": _dense(ae_sd[f"decoder.{mlp}.{idx}.weight"],
+                                       ae_sd[f"decoder.{mlp}.{idx}.bias"])
+                  for i, idx in enumerate(_MODEL_MLP)} for mlp in ("mlp1", "mlp2")}}
+        for proj in ("enc_proj", "dec_proj"):
+            p[proj] = _dense(ae_sd[f"{proj}.weight"], ae_sd[f"{proj}.bias"])
+        ae = {"params": p, "batch_stats": {"encoder": enc_s}}
+    if prob_sd is not None:
+        pn_p, pn_s = _pnpp_to_jax(prob_sd, "model_pnpp.")
+        q = {"model_pnpp": pn_p, "model_mlp": {
+            f"dense_{j}": _dense(prob_sd[f"model_mlp.{idx}.weight"],
+                                 prob_sd[f"model_mlp.{idx}.bias"])
+            for j, idx in enumerate(_MODEL_MLP)}}
+        prob = {"params": q, "batch_stats": {"model_pnpp": pn_s}}
+    return ae, prob
+
+
 def to_jax_params(ae_sd=None, prob_sd=None):
-    """Port state_dicts -> pcc_tpu flax variables ({'params': ...} nested
-    dicts of numpy arrays); either may be None."""
+    """Port state_dicts -> pcc_tpu flax variables ({'params': ...}, and
+    'batch_stats' for PPPF-AE: nested dicts of numpy arrays); either may be
+    None. The family is read off the state_dicts' names."""
+    if ((ae_sd is not None and "enc_proj.weight" in ae_sd)
+            or (prob_sd is not None and "model_pnpp.sa1.mlp.0.weight" in prob_sd)):
+        return _pppf_to_jax(ae_sd, prob_sd)
     ae = prob = None
     if ae_sd is not None:
         p = {"sa": {"mlp": {
@@ -122,8 +224,9 @@ def to_jax_params(ae_sd=None, prob_sd=None):
 
 
 def load_inference_params(folder: str):
-    """pcc_tpu's `ae.pkl` / `prob.pkl` in `folder` -> the port's
-    (ae_state_dict, prob_state_dict), or (None, None) when absent."""
+    """pcc_tpu's `ae.pkl` / `prob.pkl` in `folder`, of either model family
+    -> the port's (ae_state_dict, prob_state_dict), or (None, None) when
+    absent."""
     ae_p = os.path.join(folder, "ae.pkl")
     prob_p = os.path.join(folder, "prob.pkl")
     if not (os.path.exists(ae_p) and os.path.exists(prob_p)):

@@ -16,6 +16,7 @@ from pcc_tpu_torch.config import CodecConfig
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.decoder_cuda import patch_decoder, patch_decoder_plain
 from pcc_tpu_torch.ops.fps import fps_batch, fps_plain
+from pcc_tpu_torch.ops.pppf_sa_cuda import pppf_sa_fused, pppf_sa_plain
 from pcc_tpu_torch.ops.sa_cuda import (patch_encoder, patch_encoder_bwd,
                                        patch_encoder_bwd_plain, patch_encoder_plain)
 
@@ -166,3 +167,85 @@ def test_codec_card_streams_match_cpu(dev):
     recs = np.stack([codes_to_points(*parse_octree_bits(unpack_bits(s)))
                      for _, s, _ in a])
     np.testing.assert_array_equal(cpu.decode_symbols(recs, [p for p, _, _ in a]), sym)
+
+
+def _stage_layers(g, widths, dev, negative=True):
+    """(W, b, mean, mul, bias) per layer with non-trivial BatchNorm
+    statistics; with `negative` about half the multipliers are below 0."""
+    out = []
+    for a, b in zip(widths[:-1], widths[1:]):
+        bound = a ** -0.5
+        w = (torch.rand((a, b), generator=g) * 2 - 1) * bound
+        bias = (torch.rand(b, generator=g) * 2 - 1) * bound
+        mean = (torch.rand(b, generator=g) - 0.5) * 0.2
+        mul = torch.rand(b, generator=g) + 0.5
+        if negative:
+            mul = mul * (torch.randint(0, 2, (b,), generator=g) * 2 - 1)
+        beta = (torch.rand(b, generator=g) - 0.3) * 0.5
+        out.append(tuple(t.to(dev) for t in (w, bias, mean, mul, beta)))
+    return out
+
+
+# (P, S, N, C, nsample, radius, widths after the input): the three stage
+# shapes of the PPPF encoder at full width and at the CPU tests' width, an
+# odd P, nsample > N, a stage of one narrow layer
+_STAGES = [
+    (5, 256, 256, 0, 32, 0.2, (3, 64, 64, 128)),
+    (3, 128, 256, 128, 64, 0.4, (128, 128, 128, 256)),
+    (3, 32, 128, 256, 128, 0.8, (256, 256, 512, 1024)),
+    (4, 64, 64, 0, 8, 0.2, (3, 16, 16, 32)),
+    (4, 32, 64, 21, 16, 0.4, (24, 16, 32)),
+    (7, 8, 32, 37, 32, 0.8, (40, 32, 48)),
+    (2, 128, 32, 128, 64, 0.4, (128, 128, 128, 256)),
+    (3, 5, 40, 0, 12, 0.3, (7,)),
+]
+
+
+@pytest.mark.parametrize("layout", ["pppf", "pppe"])
+@pytest.mark.parametrize("P,S,N,C,nsample,radius,widths", _STAGES)
+def test_pppf_sa_stage_kernel(dev, layout, P, S, N, C, nsample, radius, widths):
+    """Within 1e-4 of the plain version's largest entry (float32 sums in
+    another order; selection and mask are bit-equal), with negative
+    BatchNorm multipliers."""
+    g = torch.Generator().manual_seed(5)
+    xyz = torch.rand((P, N, 3), generator=g).to(dev)
+    new_xyz = xyz if S == N else xyz[:, torch.randint(0, N, (S,), generator=g)].contiguous()
+    feat = torch.rand((P, N, C), generator=g).to(dev) if C else None
+    layers = _stage_layers(g, (C + 3,) + tuple(widths), dev)
+    before = cuda_lib.launches["pppf_sa_stage"]
+    out = pppf_sa_fused(new_xyz, xyz, feat, layers, nsample=nsample, radius=radius,
+                        layout=layout)
+    assert cuda_lib.launches["pppf_sa_stage"] == before + 1
+    ref = pppf_sa_plain(new_xyz, xyz, feat, layers, nsample=nsample, radius=radius,
+                        layout=layout)
+    assert out.shape == ref.shape == (P, S, widths[-1])
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def test_pppf_sa_stage_all_slots_outside_radius(dev):
+    """Queries far from every point: each slot reads point 0's row whole, so
+    every query of a patch gives that row's activation."""
+    g = torch.Generator().manual_seed(6)
+    xyz = torch.rand((3, 64, 3), generator=g).to(dev)
+    new_xyz = (xyz[:, :16] + 5.0).contiguous()
+    feat = torch.rand((3, 64, 20), generator=g).to(dev)
+    layers = _stage_layers(g, (23, 32, 64), dev)
+    out = pppf_sa_fused(new_xyz, xyz, feat, layers, nsample=16, radius=0.2)
+    ref = pppf_sa_plain(new_xyz, xyz, feat, layers, nsample=16, radius=0.2)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert torch.equal(out, out[:, :1].expand_as(out))
+
+
+@pytest.mark.parametrize("case", ["points", "layers", "width", "feat", "layout", "cpu_layer"])
+def test_pppf_sa_stage_rejects_unsupported(dev, case):
+    g = torch.Generator().manual_seed(7)
+    N = 2048 if case == "points" else 32
+    xyz = torch.rand((2, N, 3), generator=g).to(dev)
+    feat = torch.rand((2, 16 if case == "feat" else N, 5), generator=g).to(dev)
+    widths = {"layers": (8,) * 8, "width": (8, 70000)}.get(case, (8, 16))
+    layers = _stage_layers(g, (8,) + widths, dev)
+    if case == "cpu_layer":
+        layers[0] = tuple(t.cpu() for t in layers[0])
+    with pytest.raises(ValueError):
+        pppf_sa_fused(xyz[:, :8].contiguous(), xyz, feat, layers, nsample=8, radius=0.4,
+                      layout="other" if case == "layout" else "pppf")
