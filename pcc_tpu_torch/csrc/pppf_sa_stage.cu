@@ -50,27 +50,19 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// Build knobs: tools/bench_sa_stage.py compiles variants of this file with
-// -D and times them side by side. The defaults are what measured fastest.
-#ifndef PCC_SA_TM
-#define PCC_SA_TM 8
-#endif
-#ifndef PCC_SA_ROWS
-#define PCC_SA_ROWS 64
-#endif
-#ifndef PCC_SA_MINBLOCKS
-#define PCC_SA_MINBLOCKS 2
-#endif
-constexpr int kTM = PCC_SA_TM;      // rows per thread
+constexpr int kTM = 8;              // rows per thread
 constexpr int kMaxLayers = 6;
 constexpr int kMaxN = 1024;         // points per patch
-constexpr int kMaxRows = PCC_SA_ROWS;    // rows per tile, a multiple of kTM
+constexpr int kMaxRows = 64;        // rows per tile, a multiple of kTM
 constexpr int kSmemLimit = 227 * 1024;
 // Blocks meant to share an SM: the registers allow two, and a tile is sized
-// so that two fit in the SM's shared memory too. Measured on an H100 at the
-// widest stage (259 -> 256 -> 256 -> 512 -> 1024, nsample 128): two blocks
-// of 32 rows run at 36.8 TFLOP/s, one block of 64 rows at 23.9.
-constexpr int kMinBlocks = PCC_SA_MINBLOCKS;
+// so that two fit in the SM's shared memory too (32 rows at the widest
+// stage, 259 -> 256 -> 256 -> 512 -> 1024 with nsample 128, against one
+// block of 64 rows). Two blocks per SM and 8 rows per thread won on the sum
+// of the three PPPF-AE stages on an H100; 16 rows per thread was faster at
+// the widest stage alone and slower at the other two.
+constexpr int kMinBlocks = 2;
+static_assert(kMaxRows % kTM == 0, "a tile is whole row groups");
 
 struct Stage {
   const float* new_xyz;   // [P, S, 3]
@@ -396,17 +388,18 @@ extern "C" int pppf_sa_stage_launch(const float* new_xyz, const float* xyz, cons
   }
   const int cout = widths[n_layers];
   // the largest tile of up to kMaxRows rows of which kMinBlocks fit in an SM's
-  // shared memory; failing that, the largest of which one does
+  // shared memory (a block is charged 1 KB more than it asks for); failing
+  // that, the largest of which one does
   size_t bytes = 0;
-  for (int share = kMinBlocks; share >= 1; share = share > 1 ? 1 : 0) {
+  const size_t budgets[2] = {(kSmemLimit + 1024) / kMinBlocks - 1024, kSmemLimit};
+  st.rows = 0;
+  for (int i = 0; i < 2 && st.rows < kTM; ++i) {
     for (st.rows = kMaxRows; st.rows >= kTM; st.rows -= kTM) {
       st.qb = st.rows >= nsample ? st.rows / nsample : 1;
       if (st.qb > s) st.qb = s;
       bytes = smem_words(st.rows, st.qb, st.lda, st.ldb, cout, n, nsample) * sizeof(float);
-      // a block's shared memory is charged 1 KB more than it asks for
-      if (bytes + 1024 <= static_cast<size_t>(kSmemLimit + 1024) / share) break;
+      if (bytes <= budgets[i]) break;
     }
-    if (st.rows >= kTM) break;
   }
   if (st.rows < kTM) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = static_cast<long long>(p) * ((s + st.qb - 1) / st.qb);

@@ -29,8 +29,9 @@ _ARGTYPES = ([cuda_lib.PTR] * 4 + [cuda_lib.INT] * 5 + [ctypes.c_float]
 LAYOUTS = ("pppf", "pppe")
 MAX_POINTS = 1024      # csrc/pppf_sa_stage.cu: kMaxN
 MAX_LAYERS = 6         # kMaxLayers
-# the kernel's smallest tile (8 rows of both activation buffers, one query's
-# maxima, indices and distances) must fit in a block's shared memory
+MIN_TILE_ROWS = 8      # kTM
+# the kernel's smallest tile (MIN_TILE_ROWS rows of both activation buffers,
+# one query's maxima, indices and distances) must fit in a block's shared memory
 SMEM_WORDS = 227 * 1024 // 4
 PLAIN_ELEMS = 1 << 27  # elements of the widest grouped activation per pass of the plain version
 
@@ -81,11 +82,15 @@ def pppf_sa_plain(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
 
 
 def stage_flops(P: int, S: int, N: int, nsample: int, widths) -> float:
-    """Operations of one stage: 9 per (query, point) distance pair, 2 per
+    """Operations of one stage: 9 per (query, point) distance pair where a
+    selection is made (nsample < N; otherwise every point is taken), 2 per
     multiply-add of the stack plus 5 per output of a layer (bias, the
-    BatchNorm affine, relu)."""
+    BatchNorm affine, relu). Masked slots count as full rows although those
+    of a patch all share point 0's activation, so this is an upper count of
+    the work the function needs."""
     macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
-    return P * S * (9.0 * N + nsample * (2.0 * macs + 5.0 * sum(widths[1:])))
+    dist = 9.0 * N if nsample < N else 0.0
+    return P * S * (dist + nsample * (2.0 * macs + 5.0 * sum(widths[1:])))
 
 
 def _check(new_xyz, xyz, feat, layers, nsample: int, layout: str):
@@ -126,7 +131,7 @@ def _check(new_xyz, xyz, feat, layers, nsample: int, layout: str):
             raise ValueError("pppf_sa_fused: layer tensors must be 16-byte aligned")
         widths.append(w.shape[1])
     pad4 = [(v + 3) & ~3 for v in widths[:-1]]
-    words = (8 * (max(pad4[0::2]) + max(pad4[1::2], default=4)) + widths[-1] + nsample
+    words = (MIN_TILE_ROWS * (max(pad4[0::2]) + max(pad4[1::2], default=4)) + widths[-1] + nsample
              + (N if nsample < N else 0) + 4)
     if words > SMEM_WORDS:
         raise ValueError(f"pppf_sa_fused: widths {widths} with nsample={nsample}, N={N} "

@@ -22,7 +22,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from pcc_tpu.cli.import_torch_checkpoint import (convert_pppf_ae_state_dict,
                                                  convert_pppf_prob_state_dict)
@@ -46,11 +45,18 @@ def one_thread_per_worker():
     """numpy's BLAS and torch on one thread each for this module: several
     test workers share the cores, and their thread pools, each as wide as
     the machine, slow one another down many times over."""
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:                 # torch alone is limited then
+        threadpool_limits = None
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        with threadpool_limits(limits=1, user_api="blas"):
+        if threadpool_limits is None:
             yield
+        else:
+            with threadpool_limits(limits=1, user_api="blas"):
+                yield
     finally:
         torch.set_num_threads(n)
 
