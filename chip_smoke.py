@@ -8,8 +8,9 @@ at the default CodecConfig (N=8192, K=256, S=64, d=16, L=7) on 64 synthetic
 clouds from a numpy seed with random weights from a torch seed, then the
 IPDAE train step at the same config on 8 such clouds, then the PPPF-AE
 compress -> decompress path (CodecConfig(model="PPPF-AE"), same widths) on
-16 of the clouds, holds every kernel against its plain PyTorch version at
-the shapes those paths give it, and checks the streams and a train step
+16 of the clouds, then the PPPF-AE train step (warm-up steps on 4 clouds,
+fused steps on 8), holds every kernel against its plain PyTorch version at
+the shapes those paths give it, and checks the streams and the train steps
 against the port on the CPU.
 
 Phases (any failed check raises, and the script exits non-zero):
@@ -55,12 +56,36 @@ Phases (any failed check raises, and the script exits non-zero):
      times, the plain version's time and the card's lower bound;
  11. one of the clouds on the CPU port with the same weights: .s.bin and
      .c.bin byte-equal, the card's .p.bin decoded on the CPU to the card's
-     symbols, the integer coding weights [1, 64, 16, 7] bit-equal.
+     symbols, the integer coding weights [1, 64, 16, 7] bit-equal;
+ 12. the PPPF-AE train path, built as cli/train.py --model PPPF-AE builds it
+     (seeded weights and BatchNorm statistics): one uncounted and
+     PPPF_WARMUP_STEPS counted warm-up steps (batch statistics, plain
+     stages) on PPPF_WARMUP_CLOUDS clouds, then one uncounted and
+     PPPF_FUSED_STEPS counted fused steps on PPPF_TRAIN_CLOUDS, every launch
+     counter set to 0 just before each kind's counted steps and read just
+     after (fps 6 per step; fused: pppf_sa_stage 3 and pppf_sa_stage_bwd 3
+     per step; nothing else); finite losses, parameters moved, the encoder's
+     running statistics moved by warm-up steps only, the CPM's by both;
+     median step times, points/s, peak memory; one fused step under
+     torch.profiler;
+ 13. the stage backward kernel vs its plain version on one more fused
+     step's own stage inputs and cotangents (sa1, sa2, sa3 at P = 512):
+     every output within TOL_BWD of the plain version's largest entry, two
+     launches bitwise equal, CUDA-event times, the plain version's time and
+     the card's lower bound;
+ 14. a warm-up step and a fused step at TINY_PPPF on the card and on the
+     CPU port, each from the same fresh weights and FPS starts
+     (compare_train_states): loss to 1e-5 relative, every gradient within
+     TOL_PPPF_STEP of its largest entry (TOL_BATCH_STATS where it runs
+     through batch statistics), parameters to a quarter of the learning
+     rate, running statistics to TOL_BATCH_STATS.
 The line before the last is the kernels' JSON record (the IPDAE serving
 path's launch counts for fps, patch_encoder and patch_decoder, the counted
-train steps' for patch_encoder_bwd, the PPPF-AE path's for pppf_sa_stage;
-fps also carries the PPPF-AE path's count as launches_pppf); the last line is {"ok": true, "device":
-{...}}. Without a card it exits 1 and prints no result.
+train steps' for patch_encoder_bwd, the PPPF-AE path's for pppf_sa_stage,
+the counted fused PPPF-AE steps' for pppf_sa_stage_bwd; fps also carries
+the PPPF-AE path's count as launches_pppf, pppf_sa_stage its launches per
+fused step); the last line is {"ok": true, "device": {...}}. Without a card
+it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -81,11 +106,13 @@ from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.decoder_cuda import patch_decoder, patch_decoder_plain
 from pcc_tpu_torch.ops.fps import fps_batch, fps_plain
 from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
-from pcc_tpu_torch.ops.pppf_sa_cuda import pppf_sa_fused, pppf_sa_plain, stage_flops
+from pcc_tpu_torch.ops.pppf_sa_cuda import (PPPFStageFn, pppf_sa_bwd, pppf_sa_bwd_plain,
+                                            pppf_sa_fused, pppf_sa_plain, stage_bwd_flops,
+                                            stage_flops)
 from pcc_tpu_torch.ops.sa_cuda import (PatchEncoderFn, patch_encoder, patch_encoder_bwd,
                                        patch_encoder_bwd_plain, patch_encoder_plain,
                                        pointwise_plain)
-from pcc_tpu_torch.train import build_train_step, create_train_state
+from pcc_tpu_torch.train import build_pppf_train_step, build_train_step, create_train_state
 from pcc_tpu_torch.train.state import make_optimizer
 
 SEED = 11
@@ -102,6 +129,29 @@ TRAIN_CLOUDS = 8     # clouds per train step (bench.py:317's batch)
 TRAIN_STEPS = 10
 TRAIN_LAM = 1e-6     # the reference's lambda, so the rate path runs
 PPPF_CLOUDS = 16     # clouds per PPPF-AE device batch (the CLIs' default for this model)
+# PPPF-AE training: the fused step at the IPDAE train batch; the warm-up
+# step's plain stages keep every grouped activation for the backward (about
+# 12.6 GB per cloud at full width), so it runs at the largest batch that
+# leaves room on an 80 GB card
+PPPF_TRAIN_CLOUDS = 8
+PPPF_WARMUP_CLOUDS = 4
+PPPF_WARMUP_STEPS = 2
+PPPF_FUSED_STEPS = 5
+TINY_PPPF = dict(N=256, N0=64, ALPHA=2, K=32, d=4, L=7, model="PPPF-AE")
+# a PPPF-AE train step on the card vs the CPU port: each gradient within
+# TOL_PPPF_STEP of its tensor's largest entry on the CPU (float32 products,
+# the chamfer and the max routing's inputs in another order: up to 9.6e-4
+# measured, in the fused step), TOL_BATCH_STATS where it runs through batch
+# statistics: their fast variance mean(h^2) - mean^2 cancels over batches
+# that are mostly copies of one row (masked slots, the CPM's FPS queries),
+# and at TINY_PPPF the card and the CPU port differ by up to 0.15 there
+# (the CPM in the fused step; the CPU port on 1 and on 8 threads by 1.8e-5;
+# the stages' semantics are held to pcc_tpu in float64 by the CPU tests).
+# Both bounds are about 3x the spread measured on an H100; ZERO_GRAD: see
+# compare_train_states
+TOL_PPPF_STEP = 3e-3
+TOL_BATCH_STATS = 0.5
+ZERO_GRAD = 1e-3
 TINY = dict(N=256, N0=64, ALPHA=2, K=32, d=4, L=7, sa_knn=8)
 
 
@@ -390,6 +440,17 @@ def randomize_batchnorm(state: dict, seed: int) -> dict:
     return out
 
 
+def pppf_test_weights(state: dict, seed: int) -> dict:
+    """randomize_batchnorm, and the FoldingNet's last layer scaled up 30
+    times: at random weights a patch's decoded points crowd together, and
+    the chamfer's nearest neighbours then near-tie among them, so that two
+    float32 orders of summation route its gradients differently."""
+    out = randomize_batchnorm(state, seed)
+    for key in ("decoder.mlp2.4.weight", "decoder.mlp2.4.bias"):
+        out[key] = state[key] * 30.0
+    return out
+
+
 def pppf_phase(dev, smi: str, clouds, fps_record: dict) -> dict:
     """Phases 9-11: the PPPF-AE path, its stage kernel vs the plain version,
     and the card vs the CPU port; the kernel's record for the kernels line."""
@@ -509,6 +570,236 @@ def pppf_phase(dev, smi: str, clouds, fps_record: dict) -> dict:
         ms=sum(r["ms"] for r in path), plain_ms=sum(r["plain_ms"] for r in path),
         bound_ms=sum(r["bound_ms"] for r in path), bound_by=path[-1]["bound_by"],
         library_ms=None, stages=stages)
+
+def bn_stats(model) -> list:
+    """Copies of a model's BatchNorm running statistics."""
+    return [b.detach().clone() for n, b in model.named_buffers() if ".running_" in n]
+
+
+def pppf_train_phase(dev, smi: str):
+    """Phase 12: the PPPF-AE train path at full width, built as
+    cli/train.py --model PPPF-AE builds it: the warm-up step (batch
+    statistics, plain stages) and the fused step (the encoder's BatchNorm
+    frozen: the stage kernel and its backward). Returns the state, the
+    fused steps' launch counts and, from one more fused step, each stage's
+    inputs and real cotangent (sa1, sa2, sa3) for phase 13."""
+    cfg = CodecConfig(model="PPPF-AE")
+    tx = make_optimizer(5e-4, 0.1, 60000, 80000)
+    state = create_train_state(SEED, cfg, tx, device="cuda")
+    state.ae.load_state_dict(randomize_batchnorm(state.ae.state_dict(), SEED + 2))
+    state.prob.load_state_dict(randomize_batchnorm(state.prob.state_dict(), SEED + 3))
+    clouds = np.stack(synthetic_clouds(PPPF_TRAIN_CLOUDS, cfg.N, SEED + 4))
+    gen = torch.Generator().manual_seed(SEED + 5)
+
+    def starts(B):
+        return torch.randint(0, cfg.N, (B,), generator=gen, dtype=torch.int32).to(dev)
+
+    fused_launches = None
+    for kind, fused, B, steps in (("warm-up", False, PPPF_WARMUP_CLOUDS, PPPF_WARMUP_STEPS),
+                                  ("fused", True, PPPF_TRAIN_CLOUDS, PPPF_FUSED_STEPS)):
+        step = build_pppf_train_step(cfg, tx, rate_mode="reference", fused=fused)
+        batch = torch.from_numpy(clouds[:B]).to(dev)
+        step(state, batch, starts(B), TRAIN_LAM)                 # warm-up, uncounted
+        torch.cuda.synchronize()
+        before = [p.detach().clone() for _, p in state.named_parameters()]
+        enc_stats, prob_stats = bn_stats(state.ae.encoder), bn_stats(state.prob)
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launches()
+        times, losses = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, aux = step(state, batch, starts(B), TRAIN_LAM)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(aux["loss"])
+        launches = dict(cuda_lib.launches)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"PPPF-AE {kind} launches over {steps} steps: {launches}")
+        # FPS: the skeleton, the encoder's sa2 and sa3, the CPM's three stages
+        want = {name: 0 for name in cuda_lib.KERNELS}
+        want["fps"] = 6 * steps
+        if fused:
+            want.update(pppf_sa_stage=3 * steps, pppf_sa_stage_bwd=3 * steps)
+            fused_launches = launches
+        if launches != want:
+            raise RuntimeError(f"PPPF-AE {kind} launches {launches} != {want}")
+        losses = torch.stack(losses).cpu().numpy()
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"non-finite PPPF-AE {kind} loss: {losses}")
+        moved = sum(not torch.equal(a, p.detach()) for a, (_, p) in
+                    zip(before, state.named_parameters()))
+        if moved == 0:
+            raise RuntimeError(f"no parameter moved in the PPPF-AE {kind} steps")
+        enc_same = all(torch.equal(a, b) for a, b in zip(enc_stats, bn_stats(state.ae.encoder)))
+        if enc_same != fused:
+            raise RuntimeError(f"PPPF-AE {kind} steps: the encoder's running statistics "
+                               f"{'stayed' if enc_same else 'moved'}")
+        if any(torch.equal(a, b) for a, b in zip(prob_stats, bn_stats(state.prob))):
+            raise RuntimeError(f"PPPF-AE {kind} steps left a running statistic of the "
+                               "probability model unchanged")
+        ms = float(np.median(times)) * 1e3
+        log(f"PPPF-AE {kind} step: {B} clouds x {cfg.N} points per step; median step "
+            f"{ms:.2f} ms (steps {min(times) * 1e3:.2f} to {max(times) * 1e3:.2f} ms), "
+            f"{B * cfg.N / (ms / 1e3):.0f} points/s on {smi}; peak memory "
+            f"{peak / 2**30:.2f} GiB (batch {B}); losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
+            f"{moved} of {len(before)} parameter tensors moved; encoder statistics "
+            f"{'unchanged' if enc_same else 'updated'}, the CPM's updated")
+    profile("PPPF-AE fused train step", lambda: step(state, batch, starts(B), TRAIN_LAM),
+            top=16)
+
+    # one more fused step, recording each stage's inputs and cotangent
+    rec = []
+    backward = PPPFStageFn.backward
+
+    def recording(ctx, gout):
+        new_xyz, xyz, feat, *flat = ctx.saved_tensors
+        layers = [tuple(t.detach() for t in flat[i:i + 5]) for i in range(0, len(flat), 5)]
+        rec.append((new_xyz, xyz, feat, layers, gout.contiguous(), ctx.nsample, ctx.radius))
+        return backward(ctx, gout)
+
+    PPPFStageFn.backward = staticmethod(recording)
+    step(state, batch, starts(B), TRAIN_LAM)
+    PPPFStageFn.backward = staticmethod(backward)
+    return state, fused_launches, rec[::-1]
+
+
+def pppf_bwd_kernel_check(records, launches: dict) -> dict:
+    """Phase 13: the stage backward kernel vs its plain version on the fused
+    step's own stage inputs and cotangents; its record for the kernels
+    line."""
+    stages = []
+    for name, (new_xyz, xyz, feat, layers, gout, nsample, radius) in zip(
+            ("sa1", "sa2", "sa3"), records):
+        kw = dict(nsample=nsample, radius=radius)
+
+        def flat(out):
+            dxyz, dfeat, dl = out
+            return [dxyz] + ([] if dfeat is None else [dfeat]) + [t for lay in dl for t in lay]
+
+        a = flat(pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, **kw))
+        b = flat(pppf_sa_bwd_plain(new_xyz, xyz, feat, gout, layers, **kw))
+        rel = []
+        for x, y in zip(a, b):
+            err, big = float((x - y).abs().max()), float(y.abs().max())
+            log(f"  pppf_sa_stage_bwd {name} output {tuple(y.shape)}: max |kernel - plain| "
+                f"{err:.3g}, max |plain| {big:.3g}")
+            if not err <= TOL_BWD * big:
+                raise RuntimeError(f"pppf_sa_stage_bwd {name} differs from the plain version "
+                                   f"on {tuple(y.shape)}: {err} > {TOL_BWD} * {big}")
+            rel.append(err / big if big else 0.0)
+        again = flat(pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, **kw))
+        if not all(torch.equal(x, y) for x, y in zip(a, again)):
+            raise RuntimeError(f"two launches of pppf_sa_stage_bwd differ at {name}")
+        P, S, _ = new_xyz.shape
+        N = xyz.shape[1]
+        widths = [layers[0][0].shape[0]] + [lay[0].shape[1] for lay in layers]
+        flops = stage_bwd_flops(P, S, N, nsample, widths)
+        ins = [new_xyz] + ([xyz] if xyz.data_ptr() != new_xyz.data_ptr() else []) \
+            + ([] if feat is None else [feat]) + [gout] \
+            + [t for lay in layers for t in (lay[0], lay[1], lay[3], lay[4])]
+        bms, by = bound(flops, nbytes(*ins, *a))
+        r = dict(stage=name, shape=[P, S, N, widths], nsample=nsample,
+                 max_abs_err=max(float((x - y).abs().max()) for x, y in zip(a, b)),
+                 max_rel_err=max(rel),
+                 ms=cuda_ms(lambda: pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, **kw), 3),
+                 plain_ms=cuda_ms(lambda: pppf_sa_bwd_plain(new_xyz, xyz, feat, gout, layers,
+                                                            **kw), 1),
+                 bound_ms=bms, bound_by=by, gflop=flops / 1e9)
+        log(f"pppf_sa_stage_bwd {name} new_xyz {tuple(new_xyz.shape)} xyz {tuple(xyz.shape)} "
+            f"widths {widths} nsample {nsample}: {r['ms']:.3f} ms (plain {r['plain_ms']:.1f} ms, "
+            f"bound {bms:.3f} ms by {by}, {flops / 1e9:.1f} GFLOP, "
+            f"{flops / r['ms'] / 1e9:.2f} TFLOP/s); max |kernel - plain| / max |plain| per "
+            f"output {max(rel):.3g} (limit {TOL_BWD}); two launches bitwise equal")
+        stages.append(r)
+    return dict(
+        name="pppf_sa_stage_bwd", route="cuda",
+        source="pcc_tpu_torch/csrc/pppf_sa_stage_bwd.cu",
+        replaces="pcc_tpu/ops/pppf_sa_pallas.py:258", launches=launches["pppf_sa_stage_bwd"],
+        max_abs_err=max(r["max_abs_err"] for r in stages), ms=sum(r["ms"] for r in stages),
+        plain_ms=sum(r["plain_ms"] for r in stages),
+        bound_ms=sum(r["bound_ms"] for r in stages), bound_by=stages[-1]["bound_by"],
+        library_ms=None, launches_per_fused_step=3, stages=stages)
+
+
+def compare_train_states(label: str, la: float, lb: float, sa, sb, batch_stats) -> str:
+    """Hold a PPPF-AE train state after a step (sa) against the same step's
+    on the CPU port (sb): loss to 1e-5 relative; each gradient within
+    TOL_PPPF_STEP of its tensor's largest entry on the CPU, or within
+    TOL_BATCH_STATS for the parameters named by the prefixes `batch_stats`
+    (those whose gradient runs through batch statistics in this step); the
+    updated parameters to lr / 4 where their gradient is above ZERO_GRAD of
+    its tensor's largest entry and twice the two gradients' difference
+    (Adam's first update is lr * g / (|g| + eps): an entry whose sign the
+    rounding decides steps either way, and one near eps by up to lr / 8);
+    the running statistics to TOL_BATCH_STATS relative. A
+    tensor whose largest gradient entry is below ZERO_GRAD of its model's
+    largest is a zero gradient in exact arithmetic (the biases of
+    convolutions that feed batch statistics), left as rounding noise: it is
+    held within ZERO_GRAD of the model's largest entry instead, its
+    parameters not at all. Returns a summary; raises on a failed check."""
+    if not abs(la - lb) <= 1e-5 * abs(lb):
+        raise RuntimeError(f"{label} loss: card {la} vs CPU {lb}")
+    rel, rel_bs, worst, noise = 0.0, 0.0, 0.0, 0
+    for prefix, model_a, model_b in (("ae.", sa.ae, sb.ae), ("prob.", sa.prob, sb.prob)):
+        top = max(float(q.grad.abs().max()) for q in model_b.parameters())
+        for (name, p), q in zip(model_a.named_parameters(), model_b.parameters()):
+            name = prefix + name
+            err, big = float((p.grad.cpu() - q.grad).abs().max()), float(q.grad.abs().max())
+            if big < ZERO_GRAD * top:
+                noise += 1
+                if not err <= ZERO_GRAD * top:
+                    raise RuntimeError(f"{label} gradient of {name} (zero in exact arithmetic): "
+                                       f"card and CPU differ by {err} > {ZERO_GRAD} * {top}")
+                continue
+            stats = name.startswith(batch_stats)
+            tol = TOL_BATCH_STATS if stats else TOL_PPPF_STEP
+            if not err <= tol * big:
+                raise RuntimeError(f"{label} gradient of {name}: card and CPU differ by {err} > "
+                                   f"{tol} * {big}")
+            if stats:
+                rel_bs = max(rel_bs, err / big)
+            else:
+                rel = max(rel, err / big)
+            diff = (p.grad.cpu() - q.grad).abs()
+            sure = (q.grad.abs() > ZERO_GRAD * big) & (q.grad.abs() > 2 * diff)
+            moved = float((p.detach().cpu() - q.detach())[sure].abs().max())
+            # Adam's first update lr * g / (|g| + eps) changes by at most
+            # lr / 8 where |g| > 2 |dg|, all of it where |g| is near eps
+            if not moved <= sb.optimizer.param_groups[0]["lr"] / 4:
+                raise RuntimeError(f"{label} parameters of {name} differ by {moved}")
+            worst = max(worst, moved)
+    run = max(float(((x.cpu() - y).abs() / y.abs().clamp_min(1e-6)).max()) for x, y in
+              zip(bn_stats(sa.ae) + bn_stats(sa.prob), bn_stats(sb.ae) + bn_stats(sb.prob)))
+    if not run <= TOL_BATCH_STATS:
+        raise RuntimeError(f"{label} running statistics differ by {run} (relative)")
+    return (f"loss {la:.8f} vs {lb:.8f}; gradients within {rel:.3g} of each tensor's largest "
+            f"entry, {rel_bs:.3g} through batch statistics ({', '.join(batch_stats)}), "
+            f"{noise} zero gradients within {ZERO_GRAD} of their model's largest; parameters "
+            f"within {worst:.3g}; running statistics within {run:.3g} (relative)")
+
+
+def pppf_train_card_vs_cpu(dev) -> None:
+    """Phase 14: a warm-up step and a fused step at TINY_PPPF, each from the
+    same fresh weights and FPS starts on the card and on the CPU port, held
+    by compare_train_states."""
+    cfg = CodecConfig(**TINY_PPPF)
+    tx = make_optimizer(1e-3, 0.1, 10, 10)
+    batch = torch.from_numpy(np.stack(synthetic_clouds(2, cfg.N, SEED)))
+    starts = torch.tensor([0, 37], dtype=torch.int32)
+    for kind, fused in (("warm-up", False), ("fused", True)):
+        states = [create_train_state(SEED, cfg, tx, device=d) for d in ("cuda", "cpu")]
+        for st in states:
+            st.ae.load_state_dict(pppf_test_weights(st.ae.state_dict(), SEED + 6))
+            st.prob.load_state_dict(randomize_batchnorm(st.prob.state_dict(), SEED + 7))
+        step = build_pppf_train_step(cfg, tx, rate_mode="fixed", fused=fused)
+        _, a = step(states[0], batch.to(dev), starts.to(dev), 1e-2)
+        _, b = step(states[1], batch, starts, 1e-2)
+        # the parameters whose gradient runs through batch statistics
+        batch_stats = ("prob.",) if fused else ("prob.", "ae.encoder.", "ae.enc_proj.")
+        summary = compare_train_states(f"TINY PPPF-AE {kind} step", float(a["loss"]),
+                                       float(b["loss"]), *states, batch_stats)
+        log(f"PPPF-AE {kind} step at TINY, card vs CPU port: {summary}")
 
 
 def main() -> int:
@@ -678,6 +969,16 @@ def main() -> int:
     kr = kernels[-1]
     log(f"{kr['name']}: {kr['ms']:.4f} ms for the three stages (plain {kr['plain_ms']:.4f} ms, "
         f"bound {kr['bound_ms']:.4f} ms by {kr['bound_by']}), launches {kr['launches']}")
+
+    # 12-14. the PPPF-AE train path
+    _, launches_fused, records = pppf_train_phase(dev, smi)
+    kernels[-1]["launches_per_fused_step"] = launches_fused["pppf_sa_stage"] // PPPF_FUSED_STEPS
+    kernels.append(pppf_bwd_kernel_check(records, launches_fused))
+    kr = kernels[-1]
+    log(f"{kr['name']}: {kr['ms']:.4f} ms for the three stages (plain {kr['plain_ms']:.4f} ms, "
+        f"bound {kr['bound_ms']:.4f} ms by {kr['bound_by']}), launches {kr['launches']} over "
+        f"{PPPF_FUSED_STEPS} fused steps")
+    pppf_train_card_vs_cpu(dev)
 
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,15 +3,19 @@ pcc_tpu/cli/train.py).
 
 Flags, defaults and derived parameters are pcc_tpu's (reference
 train.py:29-53,254), plus --device cuda|cpu ('cuda' raises where there is
-no card). On the card the step runs the port's CUDA kernels (FPS, the
-patch encoder and its backward); on the CPU their plain versions.
+no card). On the card the step runs the port's CUDA kernels (IPDAE: FPS,
+the patch encoder and its backward; PPPF-AE: FPS, and after the BatchNorm
+warm-up the PN++ stage and its backward); on the CPU their plain versions.
 Checkpoints are pcc_tpu-readable (train/checkpoint.py).
 
   python -m pcc_tpu_torch.cli.train --train_glob 'in/*.ply' \\
-      --model_save_folder model/ --batch_size 8 [--device cpu]
+      --model_save_folder model/ --batch_size 8 [--model PPPF-AE] [--device cpu]
 
-Not ported yet, and refused with a message: --model PPPF-AE, --bf16,
---devices > 1.
+--model PPPF-AE trains the first --bn_warmup_steps steps with the
+encoder's BatchNorm on batch statistics (plain products), then the fused
+step with them frozen (train/steps_pppf.py), as pcc_tpu's --fused_encoder
+auto does on one accelerator; --fused_encoder itself is not ported. Not
+ported yet, and refused with a message: --bf16, --devices > 1.
 """
 
 from __future__ import annotations
@@ -26,8 +30,9 @@ import torch
 
 from pcc_tpu_torch.config import DEFAULT_SEED, CodecConfig
 from pcc_tpu_torch.io import read_point_clouds
-from pcc_tpu_torch.train import (build_train_step, create_train_state,
-                                 load_latest_checkpoint, save_checkpoint)
+from pcc_tpu_torch.train import (build_pppf_train_step, build_train_step,
+                                 create_train_state, load_latest_checkpoint,
+                                 save_checkpoint)
 from pcc_tpu_torch.train.state import make_optimizer
 
 
@@ -68,6 +73,11 @@ def build_parser():
                    help="Rate-term normalization (see train/steps.py).")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 mixed-precision compute (not ported yet).")
+    p.add_argument("--bn_warmup_steps", type=int, default=1000,
+                   help="PPPF-AE only: steps trained with the encoder's BatchNorm on "
+                        "batch statistics (running statistics updating) before the "
+                        "fused step with them frozen (the PN++ stage kernels and "
+                        "their backward). 0 = fused from the start.")
     p.add_argument("--seed", type=int, default=DEFAULT_SEED)
     p.add_argument("--devices", type=int, default=1,
                    help="Data-parallel device count (only 1 is ported).")
@@ -81,13 +91,15 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag, refused in (("--model " + args.model, args.model != "AE"),
-                          ("--bf16", args.bf16),
+    if args.model not in ("AE", "PPPF-AE"):
+        raise SystemExit(f"Unknown model type: {args.model}")
+    for flag, refused in (("--bf16", args.bf16),
                           (f"--devices {args.devices}", args.devices > 1)):
         if refused:
-            raise SystemExit(f"{flag}: not ported yet (pcc_tpu_torch trains the "
-                             "IPDAE model in float32 on one device)")
-    cfg = CodecConfig(N=args.N, N0=args.N0, ALPHA=args.ALPHA, K=args.K, d=args.d, L=args.L)
+            raise SystemExit(f"{flag}: not ported yet (pcc_tpu_torch trains in "
+                             "float32 on one device)")
+    cfg = CodecConfig(N=args.N, N0=args.N0, ALPHA=args.ALPHA, K=args.K, d=args.d, L=args.L,
+                      model=args.model)
     tx = make_optimizer(args.lr, args.lr_decay, args.lr_decay_steps, args.max_steps)
     state = create_train_state(args.seed, cfg, tx, device=args.device)
     device = state.optimizer.param_groups[0]["params"][0].device
@@ -102,7 +114,15 @@ def main(argv=None):
     points = read_point_clouds(files)
     print(f"Loaded {points.shape} points, range: [{points.min()}, {points.max()}]")
 
-    train_step = build_train_step(cfg, tx, rate_mode=args.rate_mode)
+    if args.model == "PPPF-AE":
+        # the BatchNorm warm-up, then the fused step; chosen per step off the
+        # Python counter, never off a device value
+        warmup_step = build_pppf_train_step(cfg, tx, rate_mode=args.rate_mode)
+        fused_step = build_pppf_train_step(cfg, tx, rate_mode=args.rate_mode, fused=True)
+        fused_after = args.bn_warmup_steps
+    else:
+        warmup_step = fused_step = build_train_step(cfg, tx, rate_mode=args.rate_mode)
+        fused_after = 0
     start_step = 0
     if not args.reset:
         state, start_step = load_latest_checkpoint(args.model_save_folder, state)
@@ -134,7 +154,8 @@ def main(argv=None):
             starts = torch.randint(0, points.shape[1], (B,), generator=gen,
                                    dtype=torch.int32).to(device)
             lam = args.lamda if global_step >= args.rate_loss_enable_step else 0.0
-            state, aux = train_step(state, batch, starts, lam)
+            step_fn = fused_step if global_step >= fused_after else warmup_step
+            state, aux = step_fn(state, batch, starts, lam)
             global_step += 1
 
             # aux stays on the device; it is read once per window

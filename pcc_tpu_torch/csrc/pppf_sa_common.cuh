@@ -1,0 +1,277 @@
+// Building blocks of the PointNet++ set-abstraction stage, shared by the
+// stage kernel (pppf_sa_stage.cu) and its backward (pppf_sa_stage_bwd.cu):
+// the queries' coordinates, the rank-based selection of the nsample nearest,
+// the ball mask, and one Conv + BatchNorm(eval) + ReLU layer on a tile of
+// rows in shared memory. Both kernels run this code, so the backward's
+// replay computes the forward's selection and activations bit for bit.
+//
+// Float32 rounding, fixed so that a plain version can repeat it exactly:
+// the distances are one rounding per operation (__f*_rn, never contracted);
+// a layer's product is acc = fma(x[k], w[k][o], acc) for k = 0, 1, ... from
+// 0; the BatchNorm affine is t = (acc + b) - mean, rounded twice, then
+// relu(fma(t, mul, beta)).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace pcc_sa {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTM = 8;              // rows per thread
+constexpr int kMaxLayers = 6;
+constexpr int kMaxN = 1024;         // points per patch
+constexpr int kMaxRows = 64;        // rows per tile, a multiple of kTM
+constexpr int kSmemLimit = 227 * 1024;
+static_assert(kMaxRows % kTM == 0, "a tile is whole row groups");
+
+__device__ __forceinline__ float bn_shift(float acc, float b, float mu) {
+  return __fsub_rn(__fadd_rn(acc, b), mu);
+}
+
+// What a layer does with its outputs.
+enum Epilogue {
+  kStore,        // out[r][o] = relu(fma(bn_shift(...), mul, beta))
+  kQueryMax,     // only each query's maximum: atomicMax into qmax[query][o]
+  kStoreGlobal,  // as kStore into out (if not null) and into gx, bn_shift into gt
+  kLinear,       // out[r][o] = acc: a plain product, no bias, BatchNorm or relu
+};
+
+// Rows of a layer written to device memory by kStoreGlobal: row r of the
+// tile goes to row r of gx / gt (already offset to the tile), if r < valid.
+struct GlobalRows {
+  float* gx;   // relu outputs, row stride ld
+  float* gt;   // (acc + b) - mean, row stride ld
+  int ld, valid;
+};
+
+// One layer on a tile: out[r][o] = epilogue(sum_k in[r][k] * w[k][o]). With
+// kQueryMax the rows are not stored: row r of the tile is row row0 + r of the
+// block, which belongs to query (row0 + r) / nsample, and only each query's
+// maximum is kept in qmax[query][o]. No trailing barrier.
+template <int kMode>
+__device__ __forceinline__ void dense_layer(
+    const float* in, int ld_in, int rows, int cin, const float* __restrict__ w,
+    const float* __restrict__ b, const float* __restrict__ mu,
+    const float* __restrict__ mul, const float* __restrict__ beta, int cout, float* out,
+    int ld_out, int* qmax, int row0, int rows_total, int nsample, GlobalRows g) {
+  if (cout % 4 != 0) {
+    // narrow layers (3 -> 3): one output per work item
+    for (int e = threadIdx.x; e < rows * cout; e += kThreads) {
+      const int o = e % cout, r = e / cout;
+      float acc = 0.0f;
+      for (int k = 0; k < cin; ++k) acc = fmaf(in[r * ld_in + k], __ldg(w + k * cout + o), acc);
+      if (kMode == kLinear) {
+        out[r * ld_out + o] = acc;
+        continue;
+      }
+      const float t = bn_shift(acc, __ldg(b + o), __ldg(mu + o));
+      const float v = fmaxf(fmaf(t, __ldg(mul + o), __ldg(beta + o)), 0.0f);
+      if (kMode == kQueryMax) {
+        if (row0 + r < rows_total)
+          atomicMax(qmax + ((row0 + r) / nsample) * cout + o, __float_as_int(v));
+      } else {
+        if (kMode == kStore || out) out[r * ld_out + o] = v;
+        if (kMode == kStoreGlobal && r < g.valid) {
+          g.gx[r * g.ld + o] = v;
+          g.gt[r * g.ld + o] = t;
+        }
+      }
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int groups = rows / kTM;
+  const int chunks = (cout + 127) / 128;
+  const int cin4 = cin & ~3;
+  // the warps of a block take the row groups of one 128-column chunk
+  // together, so they read the same weights at the same time
+  for (int item = warp; item < groups * chunks; item += kWarps) {
+    const int gi = item % groups;
+    const int col = (item / groups) * 128 + lane * 4;
+    if (col >= cout) continue;
+    const float* x = in + gi * kTM * ld_in;
+    float acc[kTM][4];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+    const float* wc = w + col;
+    for (int k = 0; k < cin4; k += 4) {
+      const float4 w0 = __ldg(reinterpret_cast<const float4*>(wc + (k + 0) * cout));
+      const float4 w1 = __ldg(reinterpret_cast<const float4*>(wc + (k + 1) * cout));
+      const float4 w2 = __ldg(reinterpret_cast<const float4*>(wc + (k + 2) * cout));
+      const float4 w3 = __ldg(reinterpret_cast<const float4*>(wc + (k + 3) * cout));
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        const float4 xv = *reinterpret_cast<const float4*>(x + i * ld_in + k);
+        acc[i][0] = fmaf(xv.x, w0.x, acc[i][0]);
+        acc[i][1] = fmaf(xv.x, w0.y, acc[i][1]);
+        acc[i][2] = fmaf(xv.x, w0.z, acc[i][2]);
+        acc[i][3] = fmaf(xv.x, w0.w, acc[i][3]);
+        acc[i][0] = fmaf(xv.y, w1.x, acc[i][0]);
+        acc[i][1] = fmaf(xv.y, w1.y, acc[i][1]);
+        acc[i][2] = fmaf(xv.y, w1.z, acc[i][2]);
+        acc[i][3] = fmaf(xv.y, w1.w, acc[i][3]);
+        acc[i][0] = fmaf(xv.z, w2.x, acc[i][0]);
+        acc[i][1] = fmaf(xv.z, w2.y, acc[i][1]);
+        acc[i][2] = fmaf(xv.z, w2.z, acc[i][2]);
+        acc[i][3] = fmaf(xv.z, w2.w, acc[i][3]);
+        acc[i][0] = fmaf(xv.w, w3.x, acc[i][0]);
+        acc[i][1] = fmaf(xv.w, w3.y, acc[i][1]);
+        acc[i][2] = fmaf(xv.w, w3.z, acc[i][2]);
+        acc[i][3] = fmaf(xv.w, w3.w, acc[i][3]);
+      }
+    }
+    for (int k = cin4; k < cin; ++k) {
+      const float4 wk = __ldg(reinterpret_cast<const float4*>(wc + k * cout));
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        const float xv = x[i * ld_in + k];
+        acc[i][0] = fmaf(xv, wk.x, acc[i][0]);
+        acc[i][1] = fmaf(xv, wk.y, acc[i][1]);
+        acc[i][2] = fmaf(xv, wk.z, acc[i][2]);
+        acc[i][3] = fmaf(xv, wk.w, acc[i][3]);
+      }
+    }
+    if (kMode == kLinear) {
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+        *reinterpret_cast<float4*>(out + (gi * kTM + i) * ld_out + col) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      continue;
+    }
+    const float4 vb = __ldg(reinterpret_cast<const float4*>(b + col));
+    const float4 vmu = __ldg(reinterpret_cast<const float4*>(mu + col));
+    const float4 vmul = __ldg(reinterpret_cast<const float4*>(mul + col));
+    const float4 vbeta = __ldg(reinterpret_cast<const float4*>(beta + col));
+    int cur_q = -1;
+    float4 m = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      float4 t, v;
+      t.x = bn_shift(acc[i][0], vb.x, vmu.x);
+      t.y = bn_shift(acc[i][1], vb.y, vmu.y);
+      t.z = bn_shift(acc[i][2], vb.z, vmu.z);
+      t.w = bn_shift(acc[i][3], vb.w, vmu.w);
+      v.x = fmaxf(fmaf(t.x, vmul.x, vbeta.x), 0.0f);
+      v.y = fmaxf(fmaf(t.y, vmul.y, vbeta.y), 0.0f);
+      v.z = fmaxf(fmaf(t.z, vmul.z, vbeta.z), 0.0f);
+      v.w = fmaxf(fmaf(t.w, vmul.w, vbeta.w), 0.0f);
+      if (kMode == kQueryMax) {
+        const int r = row0 + gi * kTM + i;
+        if (r < rows_total) {
+          const int q = r / nsample;
+          if (q != cur_q) {
+            if (cur_q >= 0) {
+              int* dst = qmax + cur_q * cout + col;
+              atomicMax(dst + 0, __float_as_int(m.x));
+              atomicMax(dst + 1, __float_as_int(m.y));
+              atomicMax(dst + 2, __float_as_int(m.z));
+              atomicMax(dst + 3, __float_as_int(m.w));
+            }
+            cur_q = q;
+            m = v;
+          } else {
+            m.x = fmaxf(m.x, v.x);
+            m.y = fmaxf(m.y, v.y);
+            m.z = fmaxf(m.z, v.z);
+            m.w = fmaxf(m.w, v.w);
+          }
+        }
+      } else {
+        const int r = gi * kTM + i;
+        if (kMode == kStore || out) *reinterpret_cast<float4*>(out + r * ld_out + col) = v;
+        if (kMode == kStoreGlobal && r < g.valid) {
+          *reinterpret_cast<float4*>(g.gx + r * g.ld + col) = v;
+          *reinterpret_cast<float4*>(g.gt + r * g.ld + col) = t;
+        }
+      }
+    }
+    if (kMode == kQueryMax && cur_q >= 0) {
+      int* dst = qmax + cur_q * cout + col;
+      atomicMax(dst + 0, __float_as_int(m.x));
+      atomicMax(dst + 1, __float_as_int(m.y));
+      atomicMax(dst + 2, __float_as_int(m.z));
+      atomicMax(dst + 3, __float_as_int(m.w));
+    }
+  }
+}
+
+// sq[4 * qi .. 4 * qi + 3] = x, y, z, |q|^2 of the nq queries q[0 .. nq).
+__device__ __forceinline__ void load_queries(const float* q, int nq, float* sq) {
+  for (int qi = threadIdx.x; qi < nq; qi += kThreads) {
+    const float x = q[3 * qi], y = q[3 * qi + 1], z = q[3 * qi + 2];
+    sq[4 * qi] = x;
+    sq[4 * qi + 1] = y;
+    sq[4 * qi + 2] = z;
+    sq[4 * qi + 3] = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+  }
+}
+
+// sel[qi * nsample + slot] = the point in `slot` of query qi, for the nq
+// queries in sq (after a barrier that publishes sq): the nsample nearest of
+// the n points pts, a point's rank among the (distance, index) pairs being
+// its slot (ties to the lower index; slots beyond n read point 0). When
+// nsample >= n every point is taken: then, unless `ordered`, in index order
+// without ranking (the forward's max does not depend on the order; the
+// backward's first winner does). With `mask`, every slot whose exactly
+// recomputed distance exceeds r2 then reads point 0. dist: nq * n words of
+// shared memory, used when ranking. Ends with a barrier. sel may lie in
+// shared or device memory.
+__device__ __forceinline__ void select_slots(const float* __restrict__ pts, const float* sq,
+                                             int nq, int n, int nsample, bool mask,
+                                             bool ordered, float r2, float* dist, int* sel) {
+  const int tid = threadIdx.x;
+  const int rows_total = nq * nsample;
+  if (nsample < n || ordered) {
+    for (int e = tid; e < nq * n; e += kThreads) {
+      const int qi = e / n, j = e % n;
+      const float px = __ldg(pts + 3 * j), py = __ldg(pts + 3 * j + 1),
+                  pz = __ldg(pts + 3 * j + 2);
+      const float pp =
+          __fadd_rn(__fadd_rn(__fmul_rn(px, px), __fmul_rn(py, py)), __fmul_rn(pz, pz));
+      const float cross = __fadd_rn(
+          __fadd_rn(__fmul_rn(sq[4 * qi], px), __fmul_rn(sq[4 * qi + 1], py)),
+          __fmul_rn(sq[4 * qi + 2], pz));
+      dist[e] = fmaxf(__fadd_rn(__fsub_rn(sq[4 * qi + 3], __fmul_rn(2.0f, cross)), pp), 0.0f);
+    }
+    __syncthreads();
+    for (int e = tid; e < nq * n; e += kThreads) {
+      const int qi = e / n, j = e % n;
+      const float* d = dist + qi * n;
+      const float dj = d[j];
+      int rank = 0;
+      for (int i = 0; i < n; ++i) {
+        const float di = d[i];
+        rank += (di < dj || (di == dj && i < j)) ? 1 : 0;
+      }
+      if (rank < nsample) sel[qi * nsample + rank] = j;
+    }
+    for (int e = tid; e < rows_total; e += kThreads)
+      if (e % nsample >= n) sel[e] = 0;
+  } else {
+    for (int e = tid; e < rows_total; e += kThreads) {
+      const int slot = e % nsample;
+      sel[e] = slot < n ? slot : 0;
+    }
+  }
+  __syncthreads();
+  if (mask) {
+    // ball mask on exactly recomputed distances: outside -> point 0
+    for (int e = tid; e < rows_total; e += kThreads) {
+      const int qi = e / nsample, j = sel[e];
+      const float dx = __fsub_rn(__ldg(pts + 3 * j), sq[4 * qi]);
+      const float dy = __fsub_rn(__ldg(pts + 3 * j + 1), sq[4 * qi + 1]);
+      const float dz = __fsub_rn(__ldg(pts + 3 * j + 2), sq[4 * qi + 2]);
+      const float d =
+          __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+      if (!(d <= r2)) sel[e] = 0;
+    }
+    __syncthreads();
+  }
+}
+
+__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+
+}  // namespace pcc_sa

@@ -42,19 +42,17 @@
 // (pcc_tpu_torch/ops/pppf_sa_cuda.py::pppf_sa_plain): the same distance
 // formulas with one rounding per operation (__f*_rn intrinsics are never
 // contracted into FMAs). The products sum in another order, so outputs
-// agree to float32 rounding.
+// agree to float32 rounding. The selection, the mask and the layer product
+// live in pppf_sa_common.cuh, which the backward kernel shares.
 
 #include <cuda_runtime.h>
 
+#include "pppf_sa_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTM = 8;              // rows per thread
-constexpr int kMaxLayers = 6;
-constexpr int kMaxN = 1024;         // points per patch
-constexpr int kMaxRows = 64;        // rows per tile, a multiple of kTM
-constexpr int kSmemLimit = 227 * 1024;
+using namespace pcc_sa;
+
 // Blocks meant to share an SM: the registers allow two, and a tile is sized
 // so that two fit in the SM's shared memory too (32 rows at the widest
 // stage, 259 -> 256 -> 256 -> 512 -> 1024 with nsample 128, against one
@@ -62,7 +60,6 @@ constexpr int kSmemLimit = 227 * 1024;
 // of the three PPPF-AE stages on an H100; 16 rows per thread was faster at
 // the widest stage alone and slower at the other two.
 constexpr int kMinBlocks = 2;
-static_assert(kMaxRows % kTM == 0, "a tile is whole row groups");
 
 struct Stage {
   const float* new_xyz;   // [P, S, 3]
@@ -81,138 +78,6 @@ struct Stage {
   const float* mul[kMaxLayers];
   const float* beta[kMaxLayers];
 };
-
-__device__ __forceinline__ float bn_relu(float acc, float b, float mu, float mul,
-                                         float beta) {
-  return fmaxf(((acc + b) - mu) * mul + beta, 0.0f);
-}
-
-// One layer on a tile: out[r][o] = bn_relu(sum_k in[r][k] * w[k][o]). With
-// kLast the rows are not stored: row r of the tile is row row0 + r of the
-// block, which belongs to query (row0 + r) / nsample, and only each
-// query's maximum is kept in qmax[query][o]. No trailing barrier.
-template <bool kLast>
-__device__ __forceinline__ void dense_bn_relu(
-    const float* in, int ld_in, int rows, int cin, const float* __restrict__ w,
-    const float* __restrict__ b, const float* __restrict__ mu,
-    const float* __restrict__ mul, const float* __restrict__ beta, int cout, float* out,
-    int ld_out, int* qmax, int row0, int rows_total, int nsample) {
-  if (cout % 4 != 0) {
-    // narrow layers (3 -> 3): one output per work item
-    for (int e = threadIdx.x; e < rows * cout; e += kThreads) {
-      const int o = e % cout, r = e / cout;
-      float acc = 0.0f;
-      for (int k = 0; k < cin; ++k) acc = fmaf(in[r * ld_in + k], __ldg(w + k * cout + o), acc);
-      const float v = bn_relu(acc, __ldg(b + o), __ldg(mu + o), __ldg(mul + o), __ldg(beta + o));
-      if (kLast) {
-        if (row0 + r < rows_total)
-          atomicMax(qmax + ((row0 + r) / nsample) * cout + o, __float_as_int(v));
-      } else {
-        out[r * ld_out + o] = v;
-      }
-    }
-    return;
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int groups = rows / kTM;
-  const int chunks = (cout + 127) / 128;
-  const int cin4 = cin & ~3;
-  // the warps of a block take the row groups of one 128-column chunk
-  // together, so they read the same weights at the same time
-  for (int item = warp; item < groups * chunks; item += kWarps) {
-    const int g = item % groups;
-    const int col = (item / groups) * 128 + lane * 4;
-    if (col >= cout) continue;
-    const float* x = in + g * kTM * ld_in;
-    float acc[kTM][4];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
-    const float* wc = w + col;
-    for (int k = 0; k < cin4; k += 4) {
-      const float4 w0 = __ldg(reinterpret_cast<const float4*>(wc + (k + 0) * cout));
-      const float4 w1 = __ldg(reinterpret_cast<const float4*>(wc + (k + 1) * cout));
-      const float4 w2 = __ldg(reinterpret_cast<const float4*>(wc + (k + 2) * cout));
-      const float4 w3 = __ldg(reinterpret_cast<const float4*>(wc + (k + 3) * cout));
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-        const float4 xv = *reinterpret_cast<const float4*>(x + i * ld_in + k);
-        acc[i][0] = fmaf(xv.x, w0.x, acc[i][0]);
-        acc[i][1] = fmaf(xv.x, w0.y, acc[i][1]);
-        acc[i][2] = fmaf(xv.x, w0.z, acc[i][2]);
-        acc[i][3] = fmaf(xv.x, w0.w, acc[i][3]);
-        acc[i][0] = fmaf(xv.y, w1.x, acc[i][0]);
-        acc[i][1] = fmaf(xv.y, w1.y, acc[i][1]);
-        acc[i][2] = fmaf(xv.y, w1.z, acc[i][2]);
-        acc[i][3] = fmaf(xv.y, w1.w, acc[i][3]);
-        acc[i][0] = fmaf(xv.z, w2.x, acc[i][0]);
-        acc[i][1] = fmaf(xv.z, w2.y, acc[i][1]);
-        acc[i][2] = fmaf(xv.z, w2.z, acc[i][2]);
-        acc[i][3] = fmaf(xv.z, w2.w, acc[i][3]);
-        acc[i][0] = fmaf(xv.w, w3.x, acc[i][0]);
-        acc[i][1] = fmaf(xv.w, w3.y, acc[i][1]);
-        acc[i][2] = fmaf(xv.w, w3.z, acc[i][2]);
-        acc[i][3] = fmaf(xv.w, w3.w, acc[i][3]);
-      }
-    }
-    for (int k = cin4; k < cin; ++k) {
-      const float4 wk = __ldg(reinterpret_cast<const float4*>(wc + k * cout));
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-        const float xv = x[i * ld_in + k];
-        acc[i][0] = fmaf(xv, wk.x, acc[i][0]);
-        acc[i][1] = fmaf(xv, wk.y, acc[i][1]);
-        acc[i][2] = fmaf(xv, wk.z, acc[i][2]);
-        acc[i][3] = fmaf(xv, wk.w, acc[i][3]);
-      }
-    }
-    const float4 vb = __ldg(reinterpret_cast<const float4*>(b + col));
-    const float4 vmu = __ldg(reinterpret_cast<const float4*>(mu + col));
-    const float4 vmul = __ldg(reinterpret_cast<const float4*>(mul + col));
-    const float4 vbeta = __ldg(reinterpret_cast<const float4*>(beta + col));
-    int cur_q = -1;
-    float4 m = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      float4 v;
-      v.x = bn_relu(acc[i][0], vb.x, vmu.x, vmul.x, vbeta.x);
-      v.y = bn_relu(acc[i][1], vb.y, vmu.y, vmul.y, vbeta.y);
-      v.z = bn_relu(acc[i][2], vb.z, vmu.z, vmul.z, vbeta.z);
-      v.w = bn_relu(acc[i][3], vb.w, vmu.w, vmul.w, vbeta.w);
-      if (kLast) {
-        const int r = row0 + g * kTM + i;
-        if (r < rows_total) {
-          const int q = r / nsample;
-          if (q != cur_q) {
-            if (cur_q >= 0) {
-              int* dst = qmax + cur_q * cout + col;
-              atomicMax(dst + 0, __float_as_int(m.x));
-              atomicMax(dst + 1, __float_as_int(m.y));
-              atomicMax(dst + 2, __float_as_int(m.z));
-              atomicMax(dst + 3, __float_as_int(m.w));
-            }
-            cur_q = q;
-            m = v;
-          } else {
-            m.x = fmaxf(m.x, v.x);
-            m.y = fmaxf(m.y, v.y);
-            m.z = fmaxf(m.z, v.z);
-            m.w = fmaxf(m.w, v.w);
-          }
-        }
-      } else {
-        *reinterpret_cast<float4*>(out + (g * kTM + i) * ld_out + col) = v;
-      }
-    }
-    if (kLast && cur_q >= 0) {
-      int* dst = qmax + cur_q * cout + col;
-      atomicMax(dst + 0, __float_as_int(m.x));
-      atomicMax(dst + 1, __float_as_int(m.y));
-      atomicMax(dst + 2, __float_as_int(m.z));
-      atomicMax(dst + 3, __float_as_int(m.w));
-    }
-  }
-}
 
 // Shared memory, in 4-byte words: the two activation buffers, the per-query
 // maxima, the selected indices, the distances and the queries' coordinates.
@@ -245,63 +110,10 @@ pppf_sa_stage_kernel(const __grid_constant__ Stage st) {
   const float* pts = st.xyz + static_cast<size_t>(p) * n * 3;
   const float* ft = st.feat ? st.feat + static_cast<size_t>(p) * n * st.c : nullptr;
 
-  for (int qi = tid; qi < nq; qi += kThreads) {
-    const float* q = st.new_xyz + (static_cast<size_t>(p) * st.s + q0 + qi) * 3;
-    const float x = q[0], y = q[1], z = q[2];
-    sq[4 * qi] = x;
-    sq[4 * qi + 1] = y;
-    sq[4 * qi + 2] = z;
-    sq[4 * qi + 3] = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
-  }
+  load_queries(st.new_xyz + (static_cast<size_t>(p) * st.s + q0) * 3, nq, sq);
   for (int e = tid; e < nq * cout; e += kThreads) qmax[e] = 0;
   __syncthreads();
-
-  // the nsample nearest of each query, as a set: a point's rank among the
-  // (distance, index) pairs is its slot
-  if (st.nsample < n) {
-    for (int e = tid; e < nq * n; e += kThreads) {
-      const int qi = e / n, j = e % n;
-      const float px = __ldg(pts + 3 * j), py = __ldg(pts + 3 * j + 1),
-                  pz = __ldg(pts + 3 * j + 2);
-      const float pp =
-          __fadd_rn(__fadd_rn(__fmul_rn(px, px), __fmul_rn(py, py)), __fmul_rn(pz, pz));
-      const float cross = __fadd_rn(
-          __fadd_rn(__fmul_rn(sq[4 * qi], px), __fmul_rn(sq[4 * qi + 1], py)),
-          __fmul_rn(sq[4 * qi + 2], pz));
-      dist[e] = fmaxf(__fadd_rn(__fsub_rn(sq[4 * qi + 3], __fmul_rn(2.0f, cross)), pp), 0.0f);
-    }
-    __syncthreads();
-    for (int e = tid; e < nq * n; e += kThreads) {
-      const int qi = e / n, j = e % n;
-      const float* d = dist + qi * n;
-      const float dj = d[j];
-      int rank = 0;
-      for (int i = 0; i < n; ++i) {
-        const float di = d[i];
-        rank += (di < dj || (di == dj && i < j)) ? 1 : 0;
-      }
-      if (rank < st.nsample) sel[qi * st.nsample + rank] = j;
-    }
-  } else {
-    for (int e = tid; e < rows_total; e += kThreads) {
-      const int slot = e % st.nsample;
-      sel[e] = slot < n ? slot : 0;
-    }
-  }
-  __syncthreads();
-  if (!st.pppe) {
-    // ball mask on exactly recomputed distances: outside -> point 0
-    for (int e = tid; e < rows_total; e += kThreads) {
-      const int qi = e / st.nsample, j = sel[e];
-      const float dx = __fsub_rn(__ldg(pts + 3 * j), sq[4 * qi]);
-      const float dy = __fsub_rn(__ldg(pts + 3 * j + 1), sq[4 * qi + 1]);
-      const float dz = __fsub_rn(__ldg(pts + 3 * j + 2), sq[4 * qi + 2]);
-      const float d =
-          __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-      if (!(d <= st.r2)) sel[e] = 0;
-    }
-    __syncthreads();
-  }
+  select_slots(pts, sq, nq, n, st.nsample, !st.pppe, false, st.r2, dist, sel);
 
   for (int row0 = 0; row0 < rows_total; row0 += st.rows) {
     // gather the tile's rows into buf_a
@@ -327,13 +139,13 @@ pppf_sa_stage_kernel(const __grid_constant__ Stage st) {
       const int ld_src = (l & 1) ? st.ldb : st.lda;
       const int ld_dst = (l & 1) ? st.lda : st.ldb;
       if (l == st.n_layers - 1) {
-        dense_bn_relu<true>(src, ld_src, st.rows, st.width[l], st.w[l], st.b[l], st.mu[l],
-                            st.mul[l], st.beta[l], st.width[l + 1], dst, ld_dst, qmax, row0,
-                            rows_total, st.nsample);
+        dense_layer<kQueryMax>(src, ld_src, st.rows, st.width[l], st.w[l], st.b[l], st.mu[l],
+                               st.mul[l], st.beta[l], st.width[l + 1], dst, ld_dst, qmax, row0,
+                               rows_total, st.nsample, GlobalRows{});
       } else {
-        dense_bn_relu<false>(src, ld_src, st.rows, st.width[l], st.w[l], st.b[l], st.mu[l],
-                             st.mul[l], st.beta[l], st.width[l + 1], dst, ld_dst, qmax, row0,
-                             rows_total, st.nsample);
+        dense_layer<kStore>(src, ld_src, st.rows, st.width[l], st.w[l], st.b[l], st.mu[l],
+                            st.mul[l], st.beta[l], st.width[l + 1], dst, ld_dst, qmax, row0,
+                            rows_total, st.nsample, GlobalRows{});
       }
       __syncthreads();
     }
@@ -341,8 +153,6 @@ pppf_sa_stage_kernel(const __grid_constant__ Stage st) {
   float* o = st.out + (static_cast<size_t>(p) * st.s + q0) * cout;
   for (int e = tid; e < nq * cout; e += kThreads) o[e] = __int_as_float(qmax[e]);
 }
-
-inline int round4(int v) { return (v + 3) & ~3; }
 
 }  // namespace
 

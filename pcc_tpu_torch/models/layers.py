@@ -58,7 +58,8 @@ def conv_bn_relu_stack(cin: int, features: Sequence[int]) -> nn.Sequential:
     (pointnet_sa_module.py:49-56): the conv of layer i at index 3 * i, its
     BatchNorm at 3 * i + 1. The BatchNorm modules hold the parameters and
     running statistics; the stack is evaluated by the fused stage
-    (ops/pppf_sa_cuda.py) on `stack_layers`."""
+    (ops/pppf_sa_cuda.py) on `stack_layers`, or layer by layer with
+    `batch_norm_train` while the batch statistics train."""
     mods = []
     for f in features:
         mods += [PointConv(cin, f), nn.BatchNorm2d(f), nn.ReLU()]
@@ -69,6 +70,28 @@ def conv_bn_relu_stack(cin: int, features: Sequence[int]) -> nn.Sequential:
 def stack_layers(stack: nn.Sequential):
     """[(conv, bn)] per layer of a conv_bn_relu_stack."""
     return [(stack[i], stack[i + 1]) for i in range(0, len(stack), 3)]
+
+
+BN_MOMENTUM = 0.99   # flax.linen.BatchNorm's defaults, which pcc_tpu's PN++ stages use
+BN_EPS = 1e-5
+
+
+def batch_norm_train(h: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """BatchNorm of h [..., C] with its batch statistics, as
+    flax.linen.BatchNorm computes it in training (pcc_tpu's PN++ stages,
+    BN_MOMENTUM and BN_EPS): the mean and the fast
+    variance mean(h^2) - mean^2, clamped at 0, over every axis but the last;
+    then (h - mean) * (rsqrt(var + eps) * scale) + bias. Updates bn's running
+    statistics in place, running = BN_MOMENTUM * running + (1 - BN_MOMENTUM)
+    * batch, with the biased variance. (nn.BatchNorm2d in training would use
+    torch's momentum 0.1 and the unbiased variance.)"""
+    dims = tuple(range(h.dim() - 1))
+    mean = h.mean(dim=dims)
+    var = torch.clamp_min((h * h).mean(dim=dims) - mean * mean, 0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
+        bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
+    return (h - mean) * (torch.rsqrt(var + BN_EPS) * bn.weight) + bn.bias
 
 
 def ste_round(x: torch.Tensor) -> torch.Tensor:

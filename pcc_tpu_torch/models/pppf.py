@@ -5,11 +5,16 @@ reference PPPF_AE.py + pointnet_sa_module.py).
 Same graph, stage configuration (PPPF_AE.py:29-37,115-126) and state_dict
 names as the reference: `encoder.sa{j}.mlp.{3i}` conv, `.{3i+1}` BatchNorm,
 `decoder.mlp1/mlp2.{0,2,4}` Conv1d, `enc_proj`, `dec_proj`;
-`model_pnpp.sa{j}.mlp.*`, `model_mlp.{0,2,4}`. Every set-abstraction stage
-runs the fused stage of ops/pppf_sa_cuda.py (the CUDA kernel on the card,
-its plain version on the CPU) with BatchNorm in its eval form; its internal
-FPS is ops/fps.py::fps_batch. Training the stages (batch statistics, the
-stage's backward kernel) is not ported yet: a module in train mode raises.
+`model_pnpp.sa{j}.mlp.*`, `model_mlp.{0,2,4}`. A set-abstraction stage's
+internal FPS is ops/fps.py::fps_batch. Its BatchNorm follows the module's
+mode:
+  * eval: frozen at the running statistics (pcc_tpu's train=False and its
+    fused_train stage): the fused stage of ops/pppf_sa_cuda.py, the CUDA
+    kernel on the card and its plain version on the CPU, differentiable
+    through the backward kernel (pppf_sa_trainable);
+  * train: batch statistics with flax's semantics, running statistics
+    updated (pcc_tpu's XLA path with train=True): ball query, gather and
+    the stack as plain products (layers.batch_norm_train).
 """
 
 from __future__ import annotations
@@ -20,10 +25,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from pcc_tpu_torch.models.layers import (PointConv, conv_bn_relu_stack, sigmoid_spread,
-                                         stack_layers)
+from pcc_tpu_torch.models.layers import (PointConv, batch_norm_train, conv_bn_relu_stack,
+                                         sigmoid_spread, stack_layers, ste_round)
 from pcc_tpu_torch.ops.fps import fps_batch
-from pcc_tpu_torch.ops.pppf_sa_cuda import fold_bn, pppf_sa_fused
+from pcc_tpu_torch.ops.knn import ball_query, knn_gather
+from pcc_tpu_torch.ops.pppf_sa_cuda import fold_bn, pppf_sa_trainable
 
 
 class PointnetSAModule(nn.Module):
@@ -39,7 +45,8 @@ class PointnetSAModule(nn.Module):
         self.mlp = conv_bn_relu_stack(cin, mlp)
 
     def layers(self):
-        """[(W [in, out], b, mean, mul, bias)] per layer, BatchNorm folded."""
+        """[(W [in, out], b, mean, mul, bias)] per layer, BatchNorm folded;
+        differentiable in W, b and BatchNorm's scale and bias."""
         return [(conv.kernel(), conv.bias, *fold_bn(bn)) for conv, bn in
                 stack_layers(self.mlp)]
 
@@ -53,16 +60,20 @@ class PointnetSAModule(nn.Module):
         return torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3))
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor | None = None):
-        if self.training:
-            raise NotImplementedError(
-                "PointnetSAModule runs in eval mode only: training the PN++ stages is "
-                "not ported yet")
         xyz = xyz.contiguous()
         new_xyz = self.queries(xyz)
-        out = pppf_sa_fused(new_xyz, xyz,
-                            None if features is None else features.contiguous(),
-                            self.layers(), nsample=self.nsample, radius=self.radius)
-        return new_xyz, out
+        feat = None if features is None else features.contiguous()
+        if not self.training:
+            return new_xyz, pppf_sa_trainable(new_xyz, xyz, feat, self.layers(),
+                                              nsample=self.nsample, radius=self.radius)
+        # batch statistics: pcc_tpu's XLA stage (pointnet_sa_module.py:74-93)
+        idx = ball_query(new_xyz, xyz, self.nsample, self.radius)
+        x = knn_gather(xyz, idx)                                # [B, S, ns, 3]
+        if feat is not None:
+            x = torch.cat([knn_gather(feat, idx), x], dim=-1)
+        for conv, bn in stack_layers(self.mlp):
+            x = torch.relu(batch_norm_train(conv(x), bn))
+        return new_xyz, x.amax(dim=2)
 
 
 class PointNetPP(nn.Module):
@@ -138,6 +149,14 @@ class PPPF_AE(nn.Module):
     def decode(self, latent_q: torch.Tensor) -> torch.Tensor:
         """[B, d] quantized latent -> [B, d * d, 3] patch points."""
         return self.decoder(self.dec_proj(latent_q))
+
+    def forward(self, xyz: torch.Tensor):
+        """Training pass (PPPF_AE.py:139-150): [B, K, 3] patches ->
+        (reconstructed [B, d * d, 3], latent [B, d], straight-through
+        quantized latent [B, d])."""
+        latent = self.encode(xyz)
+        latent_q = ste_round(latent)
+        return self.decode(latent_q), latent, latent_q
 
 
 class PPPFConditionalProbabilityModel(nn.Module):

@@ -33,6 +33,7 @@ KERNELS = {
     "patch_decoder": ("patch_decoder.cu", ()),
     "patch_encoder_bwd": ("patch_encoder_bwd.cu", ()),
     "pppf_sa_stage": ("pppf_sa_stage.cu", ()),
+    "pppf_sa_stage_bwd": ("pppf_sa_stage_bwd.cu", ()),
 }
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,6 +1,6 @@
-"""The fused PointNet++ set-abstraction stage (counterpart of
-pcc_tpu/ops/pppf_sa_pallas.py: TPU kernel _stage_kernel, entry
-pppf_sa_fused).
+"""The fused PointNet++ set-abstraction stage and its backward (counterpart
+of pcc_tpu/ops/pppf_sa_pallas.py: TPU kernels _stage_kernel, entry
+pppf_sa_fused, and _stage_bwd_kernel, entry pppf_sa_trainable).
 
 `pppf_sa_fused` launches the CUDA kernel csrc/pppf_sa_stage.cu on CUDA
 tensors and runs `pppf_sa_plain`, the same function in plain PyTorch, on
@@ -10,8 +10,15 @@ the radius read point 0; "pppe": [xyz - query | feat], no mask), the
 Conv + BatchNorm(eval) + ReLU stack and the max over samples ->
 [P, S, C_out]. Selection and mask are bit-equal between the two (the same
 float32 operations in the same order); the products sum in another order,
-so outputs agree to float32 rounding. The kernel's design note (what
-bounds it on an H100, what it does about that) is at the top of its source.
+so outputs agree to float32 rounding.
+
+`pppf_sa_bwd` is the stage's gradient against a cotangent [P, S, C_out],
+layout "pppf", BatchNorm in its eval-affine form (frozen running
+statistics): the CUDA kernel csrc/pppf_sa_stage_bwd.cu on CUDA tensors,
+`pppf_sa_bwd_plain` on CPU tensors. `pppf_sa_trainable` is the
+differentiable stage that training calls: forward `pppf_sa_fused`, backward
+`pppf_sa_bwd`. The kernels' design notes (what bounds them on an H100, what
+they do about that) are at the top of their sources.
 """
 
 from __future__ import annotations
@@ -20,12 +27,16 @@ import ctypes
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.knn import ball_query, knn_gather, select_nearest, sq_dists
+from pcc_tpu_torch.ops.sa_cuda import fma_matmul
 
 _ARGTYPES = ([cuda_lib.PTR] * 4 + [cuda_lib.INT] * 5 + [ctypes.c_float]
              + [cuda_lib.INT] * 2 + [cuda_lib.PTR] * 3)
+_BWD_ARGTYPES = ([cuda_lib.PTR] * 4 + [cuda_lib.INT] * 5 + [ctypes.c_float] + [cuda_lib.INT]
+                 + [cuda_lib.PTR] * 12)
 LAYOUTS = ("pppf", "pppe")
 MAX_POINTS = 1024      # csrc/pppf_sa_stage.cu: kMaxN
 MAX_LAYERS = 6         # kMaxLayers
@@ -34,6 +45,11 @@ MIN_TILE_ROWS = 8      # kTM
 # one query's maxima, indices and distances) must fit in a block's shared memory
 SMEM_WORDS = 227 * 1024 // 4
 PLAIN_ELEMS = 1 << 27  # elements of the widest grouped activation per pass of the plain version
+BWD_SPLIT = 16         # csrc/pppf_sa_stage_bwd.cu: kSplit, row ranges of the weight gradients
+BWD_VSPLIT = 128       # kVSplit, row ranges of the bias and BatchNorm gradients
+# activations within NEAR_TIE of a relu's 0 or of a maximum (relative to the
+# largest of their channel) are recomputed in the kernels' arithmetic
+NEAR_TIE = 1e-4
 
 
 def fold_bn(bn, eps: float = 1e-5):
@@ -93,48 +109,53 @@ def stage_flops(P: int, S: int, N: int, nsample: int, widths) -> float:
     return P * S * (dist + nsample * (2.0 * macs + 5.0 * sum(widths[1:])))
 
 
-def _check(new_xyz, xyz, feat, layers, nsample: int, layout: str):
-    """Raise on what the kernel does not take; return the layer widths."""
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def _check(new_xyz, xyz, feat, layers, nsample: int, layout: str, name: str = "pppf_sa_fused"):
+    """Raise on what the kernel `name` does not take; return the layer
+    widths."""
     if layout not in LAYOUTS:
-        raise ValueError(f"pppf_sa_fused: unknown layout {layout!r}")
-    cuda_lib.require_cuda("pppf_sa_fused new_xyz", new_xyz, torch.float32, 3)
-    cuda_lib.require_cuda("pppf_sa_fused xyz", xyz, torch.float32, 3)
+        raise ValueError(f"{name}: unknown layout {layout!r}")
+    cuda_lib.require_cuda(f"{name} new_xyz", new_xyz, torch.float32, 3)
+    cuda_lib.require_cuda(f"{name} xyz", xyz, torch.float32, 3)
     P, S, _ = new_xyz.shape
     N = xyz.shape[1]
     C = 0
     if feat is not None:
-        cuda_lib.require_cuda("pppf_sa_fused feat", feat, torch.float32, 3)
+        cuda_lib.require_cuda(f"{name} feat", feat, torch.float32, 3)
         C = feat.shape[2]
         if feat.shape[:2] != (P, N) or C == 0:
-            raise ValueError(f"pppf_sa_fused: feat {tuple(feat.shape)} does not match "
+            raise ValueError(f"{name}: feat {tuple(feat.shape)} does not match "
                              f"xyz {tuple(xyz.shape)}")
     if (new_xyz.shape[2] != 3 or xyz.shape[2] != 3 or xyz.shape[0] != P or P == 0
             or S == 0 or not 0 < N <= MAX_POINTS or nsample <= 0
             or not 0 < len(layers) <= MAX_LAYERS):
         raise ValueError(
-            f"pppf_sa_fused: unsupported new_xyz {tuple(new_xyz.shape)}, xyz "
+            f"{name}: unsupported new_xyz {tuple(new_xyz.shape)}, xyz "
             f"{tuple(xyz.shape)}, nsample={nsample}, {len(layers)} layers (N <= "
             f"{MAX_POINTS}, at most {MAX_LAYERS} layers)")
     widths = [C + 3]
     for lay in layers:
         w = lay[0]
-        cuda_lib.require_cuda("pppf_sa_fused weight", w, torch.float32, 2)
+        cuda_lib.require_cuda(f"{name} weight", w, torch.float32, 2)
         if w.shape[0] != widths[-1]:
-            raise ValueError(f"pppf_sa_fused: weight {tuple(w.shape)} after width "
+            raise ValueError(f"{name}: weight {tuple(w.shape)} after width "
                              f"{widths[-1]}")
         for t in lay[1:]:
-            cuda_lib.require_cuda("pppf_sa_fused bias/mean/mul", t, torch.float32, 1)
+            cuda_lib.require_cuda(f"{name} bias/mean/mul", t, torch.float32, 1)
             if t.shape[0] != w.shape[1]:
-                raise ValueError(f"pppf_sa_fused: vector {tuple(t.shape)} for weight "
+                raise ValueError(f"{name}: vector {tuple(t.shape)} for weight "
                                  f"{tuple(w.shape)}")
         if any(t.data_ptr() % 16 for t in lay):
-            raise ValueError("pppf_sa_fused: layer tensors must be 16-byte aligned")
+            raise ValueError(f"{name}: layer tensors must be 16-byte aligned")
         widths.append(w.shape[1])
-    pad4 = [(v + 3) & ~3 for v in widths[:-1]]
+    pad4 = [_round4(v) for v in widths[:-1]]
     words = (MIN_TILE_ROWS * (max(pad4[0::2]) + max(pad4[1::2], default=4)) + widths[-1] + nsample
              + (N if nsample < N else 0) + 4)
     if words > SMEM_WORDS:
-        raise ValueError(f"pppf_sa_fused: widths {widths} with nsample={nsample}, N={N} "
+        raise ValueError(f"{name}: widths {widths} with nsample={nsample}, N={N} "
                          f"need {4 * words} bytes of shared memory for the smallest tile "
                          f"(limit {4 * SMEM_WORDS})")
     return widths
@@ -162,3 +183,210 @@ def pppf_sa_fused(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
         LAYOUTS.index(layout), len(layers), ptrs, (ctypes.c_int * len(widths))(*widths),
         cuda_lib.stream_ptr(new_xyz))
     return out
+
+
+def stack_replay(rows: torch.Tensor, layers) -> list:
+    """The layer stack on rows [..., cin] in the kernels' float32 arithmetic
+    (csrc/pppf_sa_common.cuh): the product as fma_matmul, t = (z + b) - mean
+    rounded twice, relu(fma(t, mul, beta)) with the fused multiply-add taken
+    in float64 and rounded once to float32. Returns every layer's output."""
+    x, outs = rows, []
+    for w, b, mean, mul, beta in layers:
+        t = (fma_matmul(x, w) + b) - mean
+        x = torch.relu((t.double() * mul.double() + beta.double()).to(torch.float32))
+        outs.append(x)
+    return outs
+
+
+def _kernel_choices(rows: torch.Tensor, idx: torch.Tensor, layers):
+    """The choices the backward kernel makes for the points rows [c, N, cin]
+    and slots idx [c, S, ns]: every layer's relu mask [c, N, width] and the
+    last activations [c, N, C_out] that route each max. Computed in plain
+    float32, except for the distinct rows whose choices depend on their last
+    bits, which `stack_replay` recomputes in the kernels' arithmetic: a
+    pre-activation within NEAR_TIE of 0, or a last activation within
+    NEAR_TIE of a live maximum that another distinct row comes as close to.
+    (Equal rows, such as the points FPS picks twice, tie exactly in any
+    arithmetic.)"""
+    uniq, inv = torch.unique(rows.flatten(0, 1), dim=0, return_inverse=True)
+    rid = inv.view(rows.shape[:2])                                        # [c, N]
+    x, outs, doubt = uniq, [], torch.zeros(len(uniq), dtype=torch.bool, device=rows.device)
+    for w, b, mean, mul, beta in layers:
+        a = ((x @ w + b) - mean) * mul + beta
+        doubt |= (a.abs() <= NEAR_TIE * a.abs().amax(dim=0)).any(dim=-1)
+        x = torch.relu(a)
+        outs.append(x)
+    ids = torch.gather(rid, 1, idx.flatten(1)).view(idx.shape)            # [c, S, ns]
+    vals = x[ids]                                                         # [c, S, ns, C_out]
+    top = vals.amax(dim=2, keepdim=True)
+    near = (vals >= top - NEAR_TIE * x.amax(dim=0)) & (top > 0)
+    rows_near = ids[..., None].expand_as(vals)
+    tied = (torch.where(near, rows_near, len(uniq)).amin(dim=2)
+            != torch.where(near, rows_near, -1).amax(dim=2))              # [c, S, C_out]
+    slots = (near & tied[:, :, None, :]).any(dim=-1).to(torch.int32)      # [c, S, ns]
+    doubt |= torch.zeros(len(uniq), dtype=torch.int32, device=rows.device).scatter_reduce_(
+        0, ids.flatten(), slots.flatten(), reduce="amax").bool()
+    if doubt.any():
+        for out, exact in zip(outs, stack_replay(uniq[doubt], layers)):
+            out[doubt] = exact
+    return [o[rid] > 0 for o in outs], outs[-1][rid]
+
+
+def pppf_sa_bwd_plain(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, gout: torch.Tensor,
+                      layers, *, nsample: int, radius: float):
+    """The "pppf" stage's gradient against the cotangent gout [P, S, C_out],
+    with BatchNorm's eval affine: (dxyz [P, N, 3], dfeat [P, N, C] or None,
+    [(dW, db, dmul, dbeta)] per layer, summed over the patches). mean and
+    new_xyz get no gradient.
+
+    A slot's row is its point's [feat | xyz], uncentred, so the stack is
+    evaluated once per point. The max over slots routes each (patch, query,
+    channel) to the first slot, in selection order, that reaches the
+    maximum, and only where it is > 0, as the kernel does. Float32 near-ties
+    between distinct points can resolve differently in another summation
+    order, and exact ties (every masked slot is a copy of point 0) are
+    common, so the choices (the max routing and every relu mask) are the
+    kernel's own (`_kernel_choices`); the gradients are then autograd
+    through plain products with those masks, per point, against the summed
+    cotangents each point wins. Runs a chunk of
+    patches at a time to bound the memory of the gathered maxima."""
+    leaves = [t.detach().requires_grad_(True) for lay in layers
+              for t in (lay[0], lay[1], lay[3], lay[4])]
+    P, S, _ = new_xyz.shape
+    cout = layers[-1][0].shape[1]
+    chunk = max(1, PLAIN_ELEMS // (S * nsample * cout))
+    dxyz, dfeat, grads = [], [], None
+    for s in range(0, P, chunk):
+        pts = xyz[s:s + chunk].detach()
+        f = None if feat is None else feat[s:s + chunk].detach()
+        rows = pts if f is None else torch.cat([f, pts], dim=-1)          # [c, N, C+3]
+        with torch.no_grad():
+            idx = ball_query(new_xyz[s:s + chunk], pts, nsample, radius)  # [c, S, ns]
+            masks, act = _kernel_choices(rows, idx, layers)
+            vals = knn_gather(act, idx)                                   # [c, S, ns, C_out]
+            top = vals.amax(dim=2, keepdim=True)
+            slot = (vals == top).to(torch.int32).argmax(dim=2)            # first winner
+            point = torch.gather(idx, 2, slot)                            # [c, S, C_out]
+            g = torch.where(top.squeeze(2) > 0, gout[s:s + chunk], 0.0)
+            G = torch.zeros(rows.shape[:2] + (cout,), dtype=torch.float32,
+                            device=rows.device).scatter_add_(1, point, g)
+        with torch.enable_grad():
+            x = rows.requires_grad_(True)
+            h = x
+            for i, (lay, m) in enumerate(zip(layers, masks)):
+                w, b, mul, beta = leaves[4 * i:4 * i + 4]
+                h = (((h @ w + b) - lay[2]) * mul + beta) * m
+            got = torch.autograd.grad(h, [x] + leaves, grad_outputs=G)
+        dx = got[0]
+        dxyz.append(dx[..., -3:])
+        if f is not None:
+            dfeat.append(dx[..., :-3])
+        grads = list(got[1:]) if grads is None else [a + b for a, b in zip(grads, got[1:])]
+    dlayers = [tuple(grads[4 * i:4 * i + 4]) for i in range(len(layers))]
+    return torch.cat(dxyz), (torch.cat(dfeat) if feat is not None else None), dlayers
+
+
+def stage_bwd_flops(P: int, S: int, N: int, nsample: int, widths) -> float:
+    """Operations of one stage's backward as the kernel computes it, per
+    point: the replay (2 per multiply-add of the stack, 5 per output of a
+    layer), the input and weight gradients (4 per multiply-add) and their
+    elementwise parts (5 per output: mask, scale, three sums); per query: 9
+    per (query, point) distance pair where a selection is made and one
+    comparison per slot and output channel for the max routing."""
+    macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    outs = sum(widths[1:])
+    dist = 9.0 * N if nsample < N else 0.0
+    return P * N * (6.0 * macs + 10.0 * outs) + P * S * (dist + nsample * widths[-1])
+
+
+def _bwd_workspace(P: int, S: int, N: int, nsample: int, widths) -> dict:
+    """Element counts of the backward kernel's scratch buffers (see the
+    launcher's comment in csrc/pppf_sa_stage_bwd.cu)."""
+    pad = [_round4(w) for w in widths]
+    pairs = list(zip(widths[:-1], widths[1:]))
+    return dict(sel=P * S * nsample, win=P * S * widths[-1], act=P * N * sum(pad),
+                t=P * N * sum(pad[1:]), da=P * N * sum(pad[1:]),
+                part=max(max(BWD_SPLIT * a * b, BWD_VSPLIT * 3 * b) for a, b in pairs))
+
+
+def pppf_sa_bwd(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, gout: torch.Tensor, layers,
+                *, nsample: int, radius: float):
+    """(dxyz, dfeat | None, [(dW, db, dmul, dbeta)] per layer) of the "pppf"
+    stage against the cotangent gout [P, S, C_out]: the CUDA kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    if new_xyz.device.type == "cpu":
+        return pppf_sa_bwd_plain(new_xyz, xyz, feat, gout, layers, nsample=nsample,
+                                 radius=radius)
+    widths = _check(new_xyz, xyz, feat, layers, nsample, "pppf", name="pppf_sa_bwd")
+    P, S, _ = new_xyz.shape
+    N = xyz.shape[1]
+    cuda_lib.require_cuda("pppf_sa_bwd gout", gout, torch.float32, 3)
+    if tuple(gout.shape) != (P, S, widths[-1]):
+        raise ValueError(f"pppf_sa_bwd: cotangent {tuple(gout.shape)} != "
+                         f"{(P, S, widths[-1])}")
+    # the backward's smallest tile: MIN_TILE_ROWS rows of its two gradient
+    # buffers, which hold the widths alternately from the last
+    pad = [_round4(w) for w in widths][::-1]
+    if MIN_TILE_ROWS * (max(pad[0::2]) + max(pad[1::2])) > SMEM_WORDS:
+        raise ValueError(f"pppf_sa_bwd: widths {widths} need more than {4 * SMEM_WORDS} "
+                         "bytes of shared memory for the smallest backward tile")
+    dev = new_xyz.device
+    ws = _bwd_workspace(P, S, N, nsample, widths)
+    sel, win = (torch.empty(ws[k], dtype=torch.int32, device=dev) for k in ("sel", "win"))
+    act, t, da, part = (torch.empty(ws[k], dtype=torch.float32, device=dev)
+                        for k in ("act", "t", "da", "part"))
+    wts = [F.pad(lay[0].t(), (0, _round4(lay[0].shape[0]) - lay[0].shape[0])).contiguous()
+           for lay in layers]
+    ptrs = (ctypes.c_void_p * (6 * len(layers)))(*[
+        p.data_ptr() for lay, wt in zip(layers, wts) for p in (lay[0], wt, *lay[1:])])
+    dxyz = torch.empty_like(xyz)
+    dfeat = None if feat is None else torch.empty_like(feat)
+    pairs = list(zip(widths[:-1], widths[1:]))
+    grads = torch.empty(sum(a * b + 3 * b for a, b in pairs), dtype=torch.float32, device=dev)
+    cuda_lib.launch(
+        "pppf_sa_stage_bwd", _BWD_ARGTYPES, new_xyz.data_ptr(), xyz.data_ptr(),
+        None if feat is None else feat.data_ptr(), gout.data_ptr(), P, S, N,
+        0 if feat is None else feat.shape[2], nsample, _radius2(radius), len(layers), ptrs,
+        (ctypes.c_int * len(widths))(*widths), dxyz.data_ptr(),
+        None if dfeat is None else dfeat.data_ptr(), grads.data_ptr(), sel.data_ptr(),
+        win.data_ptr(), act.data_ptr(), t.data_ptr(), da.data_ptr(), part.data_ptr(),
+        cuda_lib.stream_ptr(xyz))
+    parts = torch.split(grads, [n for a, b in pairs for n in (a * b, b, b, b)])
+    dlayers = [(parts[4 * i].view(a, b), *parts[4 * i + 1:4 * i + 4])
+               for i, (a, b) in enumerate(pairs)]
+    return dxyz, dfeat, dlayers
+
+
+class PPPFStageFn(torch.autograd.Function):
+    """The stage with its backward kernel: forward `pppf_sa_fused`, backward
+    `pppf_sa_bwd` (pcc_tpu's custom VJP, pppf_sa_pallas.py::
+    _make_trainable_stage). Arguments: nsample, radius, new_xyz, xyz, feat
+    (or None), then W, b, mean, mul, beta of each layer. new_xyz and mean
+    get no gradient; at a first stage new_xyz may be xyz itself, whose
+    gradient is then dxyz alone."""
+
+    @staticmethod
+    def forward(ctx, nsample, radius, new_xyz, xyz, feat, *flat):
+        ctx.nsample, ctx.radius = nsample, radius
+        ctx.save_for_backward(new_xyz, xyz, feat, *flat)
+        layers = [flat[i:i + 5] for i in range(0, len(flat), 5)]
+        return pppf_sa_fused(new_xyz, xyz, feat, layers, nsample=nsample, radius=radius)
+
+    @staticmethod
+    def backward(ctx, gout):
+        new_xyz, xyz, feat, *flat = ctx.saved_tensors
+        layers = [flat[i:i + 5] for i in range(0, len(flat), 5)]
+        dxyz, dfeat, dl = pppf_sa_bwd(new_xyz, xyz, feat, gout.contiguous(), layers,
+                                      nsample=ctx.nsample, radius=ctx.radius)
+        return (None, None, None, dxyz, dfeat,
+                *[g for dw, db, dmul, dbeta in dl for g in (dw, db, None, dmul, dbeta)])
+
+
+def pppf_sa_trainable(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
+                      nsample: int, radius: float) -> torch.Tensor:
+    """Differentiable "pppf" stage [P, S, C_out] (pcc_tpu's
+    pppf_sa_trainable): the same output as `pppf_sa_fused`, gradients by
+    `pppf_sa_bwd` to xyz, feat and every layer's W, b, mul and beta
+    (BatchNorm frozen at the running statistics folded into mean and mul)."""
+    return PPPFStageFn.apply(nsample, radius, new_xyz, xyz, feat,
+                             *[t for lay in layers for t in lay])

@@ -72,7 +72,7 @@ def patch_encoder_plain(patches: torch.Tensor, sa_wb, pn_wb, knn: int,
     return torch.cat(outs)
 
 
-def _fma_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def fma_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., cin] @ w [cin, cout] in float32 as the kernels compute it:
     acc = fma(x[k], w[k], acc) for k = 0, 1, ... from 0. The float64
     product of two float32 values is exact and its float64 sum, rounded to
@@ -97,7 +97,7 @@ def _kernel_choices(p, idx, rows, sa_wb, pn_wb):
     h = knn_gather(p, nbr) - q[:, :, None, :]
     sa_masks = []
     for i, (w, b) in enumerate(sa_wb):
-        z = _fma_matmul(h, w) + b
+        z = fma_matmul(h, w) + b
         if i < len(sa_wb) - 1:
             sa_masks.append(z > 0)
             h = torch.relu(z)
@@ -105,7 +105,7 @@ def _kernel_choices(p, idx, rows, sa_wb, pn_wb):
     x = torch.cat([q, torch.relu(top)], dim=-1)
     pn_masks = []
     for i, (w, b) in enumerate(pn_wb):
-        x = _fma_matmul(x, w) + b
+        x = fma_matmul(x, w) + b
         if i < len(pn_wb) - 1:
             pn_masks.append(x > 0)
             x = torch.relu(x)
@@ -178,7 +178,7 @@ def patch_encoder_bwd_plain(patches: torch.Tensor, g: torch.Tensor, sa_wb, pn_wb
     makes these choices on its own float32 values, routing ties to the
     first point or slot; float32 ties and near-ties, which do occur at
     training sizes, can resolve differently in any other summation order. So the choices here are made by repeating the kernel's
-    arithmetic (_fma_matmul) on the points within 1e-4 of each channel's
+    arithmetic (fma_matmul) on the points within 1e-4 of each channel's
     max, and the gradients are then autograd through plain products on the
     winning points, with the relu and max replaced by those choices."""
     leaves = [t.detach().requires_grad_(True) for t in _flatten(sa_wb, pn_wb)]

@@ -4,9 +4,11 @@ pcc_tpu/train/checkpoint.py; reference train.py:70-108).
 Every dump writes step-suffixed ae_step{N}.pkl, prob_step{N}.pkl,
 optimizer_step{N}.pkl and global_step{N}.pkl, and exports the un-suffixed
 ae.pkl / prob.pkl that compress loads. The model pickles are in pcc_tpu's
-layout (nested dicts of numpy arrays, weights.to_jax_params), so pcc_tpu's
-load_inference_params and compress read what the port trains, and the
-port's own weights.load_inference_params reads it back. The optimizer
+layout (nested dicts of numpy arrays, weights.to_jax_params; for PPPF-AE
+{'params', 'batch_stats'}, the BatchNorm running statistics included), so
+pcc_tpu's load_inference_params and compress read what the port trains,
+and the port's own weights.load_inference_params reads it back; resuming
+restores the running statistics with the weights. The optimizer
 pickle holds the port's Adam state as numpy arrays keyed by parameter name
 ('ae.sa.conv0.weight', ...): {name: {"exp_avg", "exp_avg_sq", "step"}}.
 """

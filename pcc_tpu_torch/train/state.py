@@ -1,6 +1,9 @@
 """Joint AE + probability-model training state (counterpart of
-pcc_tpu/train/state.py): Adam over both models' parameters together, as the
+pcc_tpu/train/state.py and, for PPPF-AE, of train/steps_pppf.py's
+PPPFTrainState): Adam over both models' parameters together, as the
 reference optimizes them (train.py:132-135), with its step-decay schedule.
+PPPF-AE's BatchNorm running statistics are the modules' buffers (pcc_tpu's
+batch_stats), outside the optimizer.
 """
 
 from __future__ import annotations
@@ -44,8 +47,8 @@ def make_optimizer(lr: float, lr_decay: float, lr_decay_steps: int,
 
 @dataclasses.dataclass
 class TrainState:
-    ae: torch.nn.Module             # PatchAE
-    prob: torch.nn.Module           # ConditionalProbabilityModel
+    ae: torch.nn.Module             # PatchAE or PPPF_AE
+    prob: torch.nn.Module           # ConditionalProbabilityModel or its PPPF twin
     optimizer: torch.optim.Adam     # over ae's then prob's parameters
     step: int = 0
 
@@ -72,7 +75,9 @@ class TrainState:
 
 def create_train_state(seed: int, cfg: CodecConfig, tx: AdamSchedule,
                        device: str | torch.device = "cuda") -> TrainState:
-    """Models on `device` with seeded random weights, and a fresh Adam."""
+    """The models of cfg.model on `device` in train mode, with seeded random
+    weights (BatchNorm at its defaults), and a fresh Adam over their
+    parameters."""
     dev = resolve_device(device)
     ae_sd, prob_sd = init_params(seed, cfg)
     ae, prob = make_models(cfg)

@@ -2,10 +2,10 @@
 pcc_tpu/train/steps.py; reference train.py:156-223).
 
 One step for a batch of clouds: normalize -> FPS (CUDA kernel) -> octree
-analysis -> KNN patches -> PatchAE (the encoder and its backward as CUDA
-kernels, the decoder as plain products) -> probability model -> chamfer +
-rate -> gradients -> Adam. On CPU tensors every kernel runs its plain
-version.
+analysis -> KNN patches -> the autoencoder (IPDAE: the encoder and its
+backward as CUDA kernels, the decoder as plain products; PPPF-AE through
+train/steps_pppf.py) -> probability model -> chamfer + rate -> gradients ->
+Adam. On CPU tensors every kernel runs its plain version.
 """
 
 from __future__ import annotations
@@ -55,8 +55,10 @@ def rd_forward(ae, prob, batch: torch.Tensor, starts: torch.Tensor, lam: float,
         fbpp = feature_bits / (B * N)
         bpp = (skeleton_bits + feature_bits) / (B * N)
 
-    pc_pred = (patches_pred.reshape(B, cfg.S, cfg.k, 3)
-               + rec_xyz[:, :, None, :]).reshape(B, cfg.S * cfg.k, 3)
+    # k points per patch for IPDAE, d * d for PPPF-AE (steps_pppf.py:123-128)
+    per_patch = patches_pred.shape[1]
+    pc_pred = (patches_pred.reshape(B, cfg.S, per_patch, 3)
+               + rec_xyz[:, :, None, :]).reshape(B, cfg.S * per_patch, 3)
     loss, aux = rate_distortion_loss(pc_pred, geo.pc01, fbpp, lam)
     aux["bpp"] = bpp
     aux["true_fbpp"] = feature_bits / (B * N)

@@ -16,7 +16,8 @@ from pcc_tpu_torch.config import CodecConfig
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.decoder_cuda import patch_decoder, patch_decoder_plain
 from pcc_tpu_torch.ops.fps import fps_batch, fps_plain
-from pcc_tpu_torch.ops.pppf_sa_cuda import pppf_sa_fused, pppf_sa_plain
+from pcc_tpu_torch.ops.pppf_sa_cuda import (pppf_sa_bwd, pppf_sa_bwd_plain, pppf_sa_fused,
+                                            pppf_sa_plain)
 from pcc_tpu_torch.ops.sa_cuda import (patch_encoder, patch_encoder_bwd,
                                        patch_encoder_bwd_plain, patch_encoder_plain)
 
@@ -249,3 +250,91 @@ def test_pppf_sa_stage_rejects_unsupported(dev, case):
     with pytest.raises(ValueError):
         pppf_sa_fused(xyz[:, :8].contiguous(), xyz, feat, layers, nsample=8, radius=0.4,
                       layout="other" if case == "layout" else "pppf")
+
+
+def _bwd_flat(dxyz, dfeat, dl):
+    return [dxyz] + ([] if dfeat is None else [dfeat]) + [t for lay in dl for t in lay]
+
+
+# (P, S, N, C, nsample, radius, widths after the input, ties): the three
+# PPPF-AE stages at full width, the CPU tests' widths, nsample > N, most
+# slots beyond the radius, exact ties between distinct points (every point
+# duplicated; or features duplicated and the first layer blind to xyz, so
+# that equal activations lie at different distances, where the first
+# winner in selection order depends on the slots' order even with
+# nsample = N), more patches than one block's tile holds, one narrow layer
+_BWD_STAGES = [
+    (5, 256, 256, 0, 32, 0.2, (3, 64, 64, 128), None),
+    (3, 128, 256, 128, 64, 0.4, (128, 128, 128, 256), None),
+    (3, 32, 128, 256, 128, 0.8, (256, 256, 512, 1024), None),
+    (4, 64, 64, 0, 8, 0.2, (3, 16, 16, 32), None),
+    (4, 32, 64, 21, 16, 0.4, (24, 16, 32), None),
+    (2, 128, 32, 128, 64, 0.4, (128, 128, 128, 256), None),
+    (3, 16, 64, 20, 16, 0.05, (32, 64), None),
+    (4, 32, 64, 21, 16, 0.4, (24, 16, 32), "twins"),
+    (3, 16, 32, 6, 32, 2.0, (16, 24), "blind"),
+    (40, 16, 64, 5, 16, 0.3, (16, 24), None),
+    (3, 5, 40, 0, 12, 0.3, (7,), None),
+]
+
+
+@pytest.mark.parametrize("P,S,N,C,nsample,radius,widths,ties", _BWD_STAGES)
+def test_pppf_sa_stage_bwd_kernel(dev, P, S, N, C, nsample, radius, widths, ties):
+    """Every output within 1e-4 of the plain version's largest entry
+    (float32 sums in another order; both route each max to the first slot on
+    the same replayed activations), two launches bitwise equal, and the
+    autograd Function on the kernels."""
+    from pcc_tpu_torch.ops.pppf_sa_cuda import pppf_sa_trainable
+
+    g = torch.Generator().manual_seed(8)
+    xyz = torch.rand((P, N, 3), generator=g)
+    feat = torch.rand((P, N, C), generator=g) if C else None
+    if ties == "twins":
+        xyz[:, N // 2:] = xyz[:, :N // 2]
+    if ties is not None and feat is not None:
+        feat[:, N // 2:] = feat[:, :N // 2]
+    xyz = xyz.to(dev)
+    feat = None if feat is None else feat.to(dev)
+    new_xyz = xyz if S == N else xyz[:, torch.randint(0, N, (S,), generator=g)].contiguous()
+    layers = _stage_layers(g, (C + 3,) + tuple(widths), dev)
+    if ties == "blind":
+        layers[0][0][C:] = 0.0
+    gout = torch.randn((P, S, widths[-1]), generator=g).to(dev)
+    before = cuda_lib.launches["pppf_sa_stage_bwd"]
+    a = _bwd_flat(*pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, nsample=nsample,
+                               radius=radius))
+    assert cuda_lib.launches["pppf_sa_stage_bwd"] == before + 1
+    b = _bwd_flat(*pppf_sa_bwd_plain(new_xyz, xyz, feat, gout, layers, nsample=nsample,
+                                     radius=radius))
+    assert float(b[1 if ties == "blind" else 0].abs().max()) > 0   # blind: dxyz is 0
+    for x, y in zip(a, b):
+        assert x.shape == y.shape
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
+    again = _bwd_flat(*pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, nsample=nsample,
+                                   radius=radius))
+    assert all(torch.equal(x, y) for x, y in zip(a, again))
+
+    x = xyz.clone().requires_grad_(True)
+    lays = [tuple(t.clone().requires_grad_(True) for t in lay) for lay in layers]
+    out = pppf_sa_trainable(x if S == N else new_xyz, x, feat, lays, nsample=nsample,
+                            radius=radius)
+    assert torch.equal(out, pppf_sa_fused(new_xyz, xyz, feat, layers, nsample=nsample,
+                                          radius=radius))
+    out.backward(gout)
+    assert torch.equal(x.grad, a[0])
+    assert torch.equal(lays[-1][4].grad, a[-1]) and lays[0][2].grad is None
+
+
+@pytest.mark.parametrize("case", ["points", "layers", "cotangent", "cpu_layer", "wide"])
+def test_pppf_sa_stage_bwd_rejects_unsupported(dev, case):
+    g = torch.Generator().manual_seed(9)
+    N = 2048 if case == "points" else 32
+    xyz = torch.rand((2, N, 3), generator=g).to(dev)
+    widths = {"layers": (8,) * 8, "wide": (8, 8000, 8000)}.get(case, (8, 16))
+    layers = _stage_layers(g, (3,) + widths, dev)
+    if case == "cpu_layer":
+        layers[0] = tuple(t.cpu() for t in layers[0])
+    cout = 15 if case == "cotangent" else widths[-1]
+    gout = torch.zeros((2, 8, cout), device=dev)
+    with pytest.raises(ValueError):
+        pppf_sa_bwd(xyz[:, :8].contiguous(), xyz, None, gout, layers, nsample=8, radius=0.4)

@@ -211,16 +211,6 @@ def test_pppf_ae_decode(ae_pair):
     np.testing.assert_allclose(out, ref, atol=2e-5, rtol=0)
 
 
-def test_pppf_ae_train_mode_raises(ae_pair):
-    _, _, ae = ae_pair
-    ae.train()
-    try:
-        with pytest.raises(NotImplementedError):
-            ae.encode(torch.zeros((1, 64, 3)))
-    finally:
-        ae.eval()
-
-
 @pytest.fixture(scope="module")
 def prob_pair():
     prob = _seeded(PPPFConditionalProbabilityModel(d=4, L=7), 2)
@@ -296,8 +286,8 @@ def test_cli_round_trip_from_pcc_tpu_pickles(tmp_path, monkeypatch):
 
 
 def test_cli_batch_default_and_train_refusal():
-    """The PPPF-AE batch default is 16, as pcc_tpu's CLIs; the train CLI goes
-    on refusing the family."""
+    """The PPPF-AE batch default is 16, as pcc_tpu's CLIs; the train CLI
+    refuses what it does not port for the family (bf16)."""
     from pcc_tpu_torch.cli import compress, train
     from pcc_tpu_torch.cli._common import batch_size_from_args
 
@@ -307,6 +297,7 @@ def test_cli_batch_default_and_train_refusal():
     assert batch_size_from_args(parse(["i", "c", "m", "--model", "PPPF-AE",
                                        "--batch_size", "4"])) == 4
     with pytest.raises(SystemExit):
-        train.main(["--train_glob", "none/*.ply", "--model", "PPPF-AE", "--device", "cpu"])
+        train.main(["--train_glob", "none/*.ply", "--model", "PPPF-AE", "--bf16",
+                    "--device", "cpu"])
     with pytest.raises(ValueError):
         CodecConfig(model="PPPE")
