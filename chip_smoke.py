@@ -9,9 +9,11 @@ clouds from a numpy seed with random weights from a torch seed, then the
 IPDAE train step at the same config on 8 such clouds, then the PPPF-AE
 compress -> decompress path (CodecConfig(model="PPPF-AE"), same widths) on
 16 of the clouds, then the PPPF-AE train step (warm-up steps on 4 clouds,
-fused steps on 8), holds every kernel against its plain PyTorch version at
-the shapes those paths give it, and checks the streams and the train steps
-against the port on the CPU.
+fused steps on 8), then both families' train steps on 512-point clouds
+(cli/train.py --N 512, whose chamfer runs the chamfer kernels), then the
+SetAbstraction kernel behind SetAbstraction(fused=True), holds every kernel
+against its plain PyTorch version at the shapes those paths give it, and
+checks the streams and the train steps against the port on the CPU.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card, power limit, torch and CUDA versions;
@@ -38,9 +40,9 @@ Phases (any failed check raises, and the script exits non-zero):
      [512, 256, 3] and its real cotangent: every output within
      TOL_BWD * max|plain|, two launches bitwise equal, CUDA-event times;
   8. one train step at the CPU tests' TINY config on the card and on the
-     CPU port, same weights and FPS starts: loss to 1e-5 relative, every
-     parameter's gradient within 1e-5 of its largest entry, updated
-     parameters to 1e-5.
+     CPU port, same weights and FPS starts (the card's step launches the
+     chamfer kernels once each): loss to 1e-5 relative, every parameter's
+     gradient within 1e-5 of its largest entry, updated parameters to 1e-5.
   9. the PPPF-AE path: Codec(CodecConfig(model="PPPF-AE"), batch_size=16) on
      16 clouds with seeded random weights and non-trivial BatchNorm
      statistics (seeded running means and variances, some negative
@@ -75,17 +77,42 @@ Phases (any failed check raises, and the script exits non-zero):
      the card's lower bound;
  14. a warm-up step and a fused step at TINY_PPPF on the card and on the
      CPU port, each from the same fresh weights and FPS starts
-     (compare_train_states): loss to 1e-5 relative, every gradient within
-     TOL_PPPF_STEP of its largest entry (TOL_BATCH_STATS where it runs
-     through batch statistics), parameters to a quarter of the learning
-     rate, running statistics to TOL_BATCH_STATS.
+     (compare_train_states; each card step launches the chamfer kernels
+     once): loss to 1e-5 relative, every gradient within TOL_PPPF_STEP of
+     its largest entry (TOL_BATCH_STATS where it runs through batch
+     statistics), parameters to a quarter of the learning rate, running
+     statistics to TOL_BATCH_STATS;
+ 15. the small-cloud train path, built as cli/train.py --N 512 builds it
+     (CodecConfig(N=512), seeded weights, synthetic 512-point clouds): the
+     IPDAE step on SMALL_CLOUDS clouds (512 patches, phase 6's count), the
+     PPPF-AE warm-up step on SMALL_WARMUP_CLOUDS and its fused step on
+     SMALL_CLOUDS; per kind one uncounted and SMALL_STEPS counted steps,
+     every launch counter set to 0 just before and read just after
+     (chamfer_fwd and chamfer_bwd once per step; fps 1 (IPDAE) or 6; the
+     encoder and stage kernels as in phases 6 and 12); finite losses,
+     parameters moved; median step times, points/s, peak memory; one IPDAE
+     and one fused PPPF-AE step under torch.profiler;
+ 16. the chamfer kernels vs their plain versions on phase 15's own clouds
+     (one more IPDAE and fused PPPF-AE step each), with the loss's real
+     cotangents and a random pair: indices bit-equal, distances within TOL
+     and gradients within TOL_BWD of the plain version's largest entry, two
+     backward launches bitwise equal; CUDA-event times, the plain
+     versions' times, the bounds;
+ 17. the SetAbstraction kernel vs its plain version on the IPDAE serving
+     path's own patches (phase 4, [4096, 256, 3]) with the serving model's
+     weights: within TOL of the largest entry; CUDA-event times, the plain
+     version's time, the bound; then SetAbstraction(fused=True) on the
+     card with every launch counter set to 0 just before and read just
+     after (sa_fused 1), its output equal to the kernel's.
 The line before the last is the kernels' JSON record (the IPDAE serving
 path's launch counts for fps, patch_encoder and patch_decoder, the counted
 train steps' for patch_encoder_bwd, the PPPF-AE path's for pppf_sa_stage,
-the counted fused PPPF-AE steps' for pppf_sa_stage_bwd; fps also carries
-the PPPF-AE path's count as launches_pppf, pppf_sa_stage its launches per
-fused step); the last line is {"ok": true, "device": {...}}. Without a card
-it exits 1 and prints no result.
+the counted fused PPPF-AE steps' for pppf_sa_stage_bwd, phase 15's counted
+steps' for chamfer_fwd and chamfer_bwd (the IPDAE step's shapes on top,
+both families under `paths`), phase 17's module call's for sa_fused; fps
+also carries the PPPF-AE path's count as launches_pppf, pppf_sa_stage its
+launches per fused step); the last line is {"ok": true, "device": {...}}.
+Without a card it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -102,7 +129,10 @@ from pcc_tpu_torch.codec import Codec, decode_clouds_packed, encode_geometry, in
 from pcc_tpu_torch.codec import integer_pmf_weights, pack_encode_upload, unpack_encode_upload
 from pcc_tpu_torch.coding.octree_host import codes_to_points, parse_octree_bits, unpack_bits
 from pcc_tpu_torch.config import CodecConfig
+from pcc_tpu_torch.models.layers import SetAbstraction
 from pcc_tpu_torch.ops import cuda_lib
+from pcc_tpu_torch.ops.chamfer_cuda import (ChamferFn, bwd_work, chamfer_bwd, chamfer_bwd_plain,
+                                            chamfer_fwd, chamfer_fwd_plain, fwd_work)
 from pcc_tpu_torch.ops.decoder_cuda import patch_decoder, patch_decoder_plain
 from pcc_tpu_torch.ops.fps import fps_batch, fps_plain
 from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
@@ -111,7 +141,7 @@ from pcc_tpu_torch.ops.pppf_sa_cuda import (PPPFStageFn, pppf_sa_bwd, pppf_sa_bw
                                             stage_flops)
 from pcc_tpu_torch.ops.sa_cuda import (PatchEncoderFn, patch_encoder, patch_encoder_bwd,
                                        patch_encoder_bwd_plain, patch_encoder_plain,
-                                       pointwise_plain)
+                                       pointwise_plain, sa_fused, sa_fused_plain)
 from pcc_tpu_torch.train import build_pppf_train_step, build_train_step, create_train_state
 from pcc_tpu_torch.train.state import make_optimizer
 
@@ -153,6 +183,12 @@ TOL_PPPF_STEP = 3e-3
 TOL_BATCH_STATS = 0.5
 ZERO_GRAD = 1e-3
 TINY = dict(N=256, N0=64, ALPHA=2, K=32, d=4, L=7, sa_knn=8)
+# the small-cloud train path (cli/train.py --N 512): the whole-cloud chamfer
+# of a step is then in the chamfer kernels' domain for both families
+SMALL_N = 512
+SMALL_CLOUDS = 128         # IPDAE and fused PPPF-AE steps: 512 patches, phase 6's count
+SMALL_WARMUP_CLOUDS = 32   # PPPF-AE warm-up steps (plain stages keep every grouped row)
+SMALL_STEPS = 5
 
 
 def log(msg: str) -> None:
@@ -391,7 +427,10 @@ def train_card_vs_cpu(dev) -> None:
     batch = torch.from_numpy(np.stack(synthetic_clouds(2, cfg.N, SEED)))
     starts = torch.tensor([0, 77], dtype=torch.int32)
     step = build_train_step(cfg, tx, rate_mode="reference")
+    before = dict(cuda_lib.launches)
     _, a = step(card, batch.to(dev), starts.to(dev), 1e-2)
+    torch.cuda.synchronize()
+    chamfer_launched(before, "TINY train step")
     _, b = step(cpu, batch, starts, 1e-2)
     la, lb = float(a["loss"]), float(b["loss"])
     if not abs(la - lb) <= 1e-5 * abs(lb):
@@ -413,6 +452,15 @@ def train_card_vs_cpu(dev) -> None:
     log(f"train step at TINY, card vs CPU port: loss {la:.8f} vs {lb:.8f}, "
         f"gradients within {rel:.3g} of each tensor's largest entry, parameters "
         f"within {worst:.3g}")
+
+
+def chamfer_launched(before: dict, label: str) -> None:
+    """Raise unless the chamfer forward and backward kernels each ran once
+    since the launch counts `before`."""
+    for name in ("chamfer_fwd", "chamfer_bwd"):
+        if cuda_lib.launches[name] != before[name] + 1:
+            raise RuntimeError(f"{label}: {name} launched "
+                               f"{cuda_lib.launches[name] - before[name]} times, not once")
 
 
 def skeletons(streams) -> np.ndarray:
@@ -793,13 +841,224 @@ def pppf_train_card_vs_cpu(dev) -> None:
             st.ae.load_state_dict(pppf_test_weights(st.ae.state_dict(), SEED + 6))
             st.prob.load_state_dict(randomize_batchnorm(st.prob.state_dict(), SEED + 7))
         step = build_pppf_train_step(cfg, tx, rate_mode="fixed", fused=fused)
+        before = dict(cuda_lib.launches)
         _, a = step(states[0], batch.to(dev), starts.to(dev), 1e-2)
+        torch.cuda.synchronize()
+        chamfer_launched(before, f"TINY PPPF-AE {kind} step")
         _, b = step(states[1], batch, starts, 1e-2)
         # the parameters whose gradient runs through batch statistics
         batch_stats = ("prob.",) if fused else ("prob.", "ae.encoder.", "ae.enc_proj.")
         summary = compare_train_states(f"TINY PPPF-AE {kind} step", float(a["loss"]),
                                        float(b["loss"]), *states, batch_stats)
         log(f"PPPF-AE {kind} step at TINY, card vs CPU port: {summary}")
+
+
+def small_train_phase(dev, smi):
+    """Phase 15: the small-cloud train path at full width, built as
+    cli/train.py --N 512 builds it (and --model PPPF-AE --bn_warmup_steps W):
+    seeded weights (PPPF-AE: and BatchNorm statistics), synthetic 512-point
+    clouds. Per step kind one uncounted step, then SMALL_STEPS counted steps
+    with every launch counter set to 0 just before and read just after.
+    Returns the chamfer kernels' launches over all counted steps and, from
+    one more step of the IPDAE and of the fused PPPF-AE kind, the chamfer's
+    inputs and real cotangents for phase 16."""
+    tx = make_optimizer(5e-4, 0.1, 60000, 80000)
+    gen = torch.Generator().manual_seed(SEED + 8)
+    chamfer_launches = {"chamfer_fwd": 0, "chamfer_bwd": 0}
+    records = {}
+    state = None
+    for family, kind, B in (("IPDAE", None, SMALL_CLOUDS),
+                            ("PPPF-AE", "warm-up", SMALL_WARMUP_CLOUDS),
+                            ("PPPF-AE", "fused", SMALL_CLOUDS)):
+        cfg = CodecConfig(N=SMALL_N, model="AE" if family == "IPDAE" else "PPPF-AE")
+        label = family if kind is None else f"{family} {kind}"
+        if kind != "fused":
+            state = create_train_state(SEED, cfg, tx, device="cuda")
+            if family == "PPPF-AE":
+                state.ae.load_state_dict(randomize_batchnorm(state.ae.state_dict(), SEED + 2))
+                state.prob.load_state_dict(randomize_batchnorm(state.prob.state_dict(),
+                                                               SEED + 3))
+        if family == "IPDAE":
+            step = build_train_step(cfg, tx, rate_mode="reference")
+        else:
+            step = build_pppf_train_step(cfg, tx, rate_mode="reference", fused=kind == "fused")
+        batch = torch.from_numpy(np.stack(synthetic_clouds(B, cfg.N, SEED + 9))).to(dev)
+
+        def starts():
+            return torch.randint(0, cfg.N, (B,), generator=gen, dtype=torch.int32).to(dev)
+
+        step(state, batch, starts(), TRAIN_LAM)                    # warm-up, uncounted
+        torch.cuda.synchronize()
+        before = [p.detach().clone() for _, p in state.named_parameters()]
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launches()
+        times, losses = [], []
+        for _ in range(SMALL_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, aux = step(state, batch, starts(), TRAIN_LAM)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(aux["loss"])
+        launches = dict(cuda_lib.launches)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"N={cfg.N} {label} launches over {SMALL_STEPS} steps: {launches}")
+        n = SMALL_STEPS
+        want = {name: 0 for name in cuda_lib.KERNELS}
+        want.update(chamfer_fwd=n, chamfer_bwd=n)
+        if family == "IPDAE":
+            want.update(fps=n, patch_encoder=n, patch_encoder_bwd=n)
+        else:
+            want["fps"] = 6 * n
+            if kind == "fused":
+                want.update(pppf_sa_stage=3 * n, pppf_sa_stage_bwd=3 * n)
+        if launches != want:
+            raise RuntimeError(f"N={cfg.N} {label} launches {launches} != {want}")
+        for name in chamfer_launches:
+            chamfer_launches[name] += launches[name]
+        losses = torch.stack(losses).cpu().numpy()
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"non-finite N={cfg.N} {label} loss: {losses}")
+        moved = sum(not torch.equal(a, p.detach()) for a, (_, p) in
+                    zip(before, state.named_parameters()))
+        if moved == 0:
+            raise RuntimeError(f"no parameter moved in the N={cfg.N} {label} steps")
+        ms = float(np.median(times)) * 1e3
+        log(f"N={cfg.N} {label} step: {B} clouds x {cfg.N} points ({B * cfg.S} patches); "
+            f"median step {ms:.2f} ms (steps {min(times) * 1e3:.2f} to "
+            f"{max(times) * 1e3:.2f} ms), {B * cfg.N / (ms / 1e3):.0f} points/s on {smi}; "
+            f"peak memory {peak / 2**30:.2f} GiB; losses {losses[0]:.6f} -> "
+            f"{losses[-1]:.6f}; {moved} of {len(before)} parameter tensors moved")
+        if kind != "warm-up":
+            profile(f"N={cfg.N} {label} train step",
+                    lambda: step(state, batch, starts(), TRAIN_LAM), top=14)
+        if kind == "warm-up":
+            continue
+        # one more step, recording the chamfer's clouds and real cotangents
+        backward = ChamferFn.backward
+
+        def recording(ctx, gx, gy):
+            x, y, _, _ = ctx.saved_tensors
+            records[family] = (x.detach(), y.detach(), gx.contiguous(), gy.contiguous())
+            return backward(ctx, gx, gy)
+
+        ChamferFn.backward = staticmethod(recording)
+        step(state, batch, starts(), TRAIN_LAM)
+        ChamferFn.backward = staticmethod(backward)
+    return chamfer_launches, records
+
+
+def chamfer_kernel_check(dev, records: dict, launches: dict) -> list:
+    """Phase 16: the chamfer kernels vs their plain versions on phase 15's
+    own clouds, for both families, with the loss's real cotangents and a
+    random pair; the kernels' records for the kernels line (the IPDAE
+    step's shapes on top, both families under `paths`)."""
+    gen = torch.Generator().manual_seed(SEED + 10)
+    paths = []
+    for family, (x, y, gx_loss, gy_loss) in records.items():
+        P, k, K = x.shape[0], x.shape[1], y.shape[1]
+        a, b = chamfer_fwd(x, y), chamfer_fwd_plain(x, y)
+        if not (torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])):
+            raise RuntimeError(f"chamfer_fwd indices differ from the plain version ({family})")
+        fwd_err = 0.0
+        for u, v in zip(a[:2], b[:2]):
+            err, big = float((u - v).abs().max()), float(v.abs().max())
+            if not err <= TOL * big:
+                raise RuntimeError(f"chamfer_fwd distances differ from the plain version "
+                                   f"({family}): {err} > {TOL} * {big}")
+            fwd_err = max(fwd_err, err)
+        ixy, iyx = a[2], a[3]
+        cotangents = (("loss", gx_loss, gy_loss),
+                      ("random", torch.randn((P, k), generator=gen).to(dev),
+                       torch.randn((P, K), generator=gen).to(dev)))
+        bwd_err, rel = 0.0, 0.0
+        for name, gx, gy in cotangents:
+            u2 = chamfer_bwd(x, y, ixy, iyx, gx, gy)
+            v2 = chamfer_bwd_plain(x, y, ixy, iyx, gx, gy)
+            for u, v in zip(u2, v2):
+                err, big = float((u - v).abs().max()), float(v.abs().max())
+                if not err <= TOL_BWD * big:
+                    raise RuntimeError(f"chamfer_bwd differs from the plain version ({family}, "
+                                       f"{name} cotangent): {err} > {TOL_BWD} * {big}")
+                bwd_err, rel = max(bwd_err, err), max(rel, err / big if big else 0.0)
+            again = chamfer_bwd(x, y, ixy, iyx, gx, gy)
+            if not all(torch.equal(u, v) for u, v in zip(u2, again)):
+                raise RuntimeError(f"two launches of chamfer_bwd differ ({family}, {name})")
+        dx, dy = u2
+        f_flops, f_bytes = fwd_work(P, k, K)
+        b_flops, b_bytes = bwd_work(P, k, K)
+        f_bms, f_by = bound(f_flops, f_bytes)
+        b_bms, b_by = bound(b_flops, b_bytes)
+        rec = dict(
+            family=family, shape=[P, k, K], fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err,
+            fwd_ms=cuda_ms(lambda: chamfer_fwd(x, y), 20),
+            fwd_plain_ms=cuda_ms(lambda: chamfer_fwd_plain(x, y), 3),
+            fwd_bound_ms=f_bms, fwd_bound_by=f_by, fwd_gflop=f_flops / 1e9,
+            bwd_ms=cuda_ms(lambda: chamfer_bwd(x, y, ixy, iyx, gx_loss, gy_loss), 20),
+            bwd_plain_ms=cuda_ms(lambda: chamfer_bwd_plain(x, y, ixy, iyx, gx_loss, gy_loss), 3),
+            bwd_bound_ms=b_bms, bwd_bound_by=b_by)
+        log(f"chamfer {family} x {tuple(x.shape)} y {tuple(y.shape)}: forward "
+            f"{rec['fwd_ms']:.4f} ms (plain {rec['fwd_plain_ms']:.3f} ms, bound {f_bms:.4f} ms "
+            f"by {f_by}, {f_flops / 1e9:.2f} GFLOP), indices bit-equal, max_abs_err "
+            f"{fwd_err:.3g}; backward {rec['bwd_ms']:.4f} ms (plain {rec['bwd_plain_ms']:.3f} "
+            f"ms, bound {b_bms:.4f} ms by {b_by}), max |kernel - plain| / max |plain| "
+            f"{rel:.3g} (limit {TOL_BWD}) on the loss's and a random cotangent, two launches "
+            "bitwise equal")
+        paths.append(rec)
+    top = paths[0]
+    common = dict(route="cuda", library_ms=None, paths=paths, launches_per_step=1)
+    return [
+        dict(name="chamfer_fwd", source="pcc_tpu_torch/csrc/chamfer_fwd.cu",
+             replaces="pcc_tpu/ops/chamfer_pallas.py:47", launches=launches["chamfer_fwd"],
+             max_abs_err=max(r["fwd_max_abs_err"] for r in paths), ms=top["fwd_ms"],
+             plain_ms=top["fwd_plain_ms"], bound_ms=top["fwd_bound_ms"],
+             bound_by=top["fwd_bound_by"], **common),
+        dict(name="chamfer_bwd", source="pcc_tpu_torch/csrc/chamfer_bwd.cu",
+             replaces="pcc_tpu/ops/chamfer_pallas.py:72", launches=launches["chamfer_bwd"],
+             max_abs_err=max(r["bwd_max_abs_err"] for r in paths), ms=top["bwd_ms"],
+             plain_ms=top["bwd_plain_ms"], bound_ms=top["bwd_bound_ms"],
+             bound_by=top["bwd_bound_by"], **common)]
+
+
+def sa_fused_phase(dev, patches, sa: SetAbstraction) -> dict:
+    """Phase 17: the SetAbstraction kernel vs its plain version on the IPDAE
+    serving path's own patches (phase 4) with the serving model's weights,
+    then SetAbstraction(fused=True) on the card with every launch counter
+    set to 0 just before and read just after; the kernel's record."""
+    knn, sa_wb = sa.knn, sa.layers()
+    a, b = sa_fused(patches, sa_wb, knn), sa_fused_plain(patches, sa_wb, knn)
+    err, big = float((a - b).abs().max()), float(b.abs().max())
+    if not err <= TOL * big:
+        raise RuntimeError(f"sa_fused differs from the plain version: {err} > {TOL} * {big}")
+    P, N = patches.shape[:2]
+    sa_mac = 3 * 32 + 32 * 64 + 64 * 128
+    # 9 operations per distance pair, 2 per multiply-add of the MLP per slot
+    flops = P * (9.0 * N * N + 2.0 * N * knn * sa_mac)
+    bms, by = bound(flops, nbytes(patches, a, *[t for wb in sa_wb for t in wb]))
+    rec = dict(name="sa_fused", route="cuda", source="pcc_tpu_torch/csrc/sa_fused.cu",
+               replaces="pcc_tpu/ops/sa_pallas.py:43", max_abs_err=err,
+               ms=cuda_ms(lambda: sa_fused(patches, sa_wb, knn), 5),
+               plain_ms=cuda_ms(lambda: sa_fused_plain(patches, sa_wb, knn), 2),
+               bound_ms=bms, bound_by=by, library_ms=None)
+    module = SetAbstraction(knn=knn, fused=True).to(dev)
+    module.load_state_dict(sa.state_dict())
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    out = module(patches)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launches)
+    want = {name: 0 for name in cuda_lib.KERNELS}
+    want["sa_fused"] = 1
+    if launches != want:
+        raise RuntimeError(f"SetAbstraction(fused=True) launches {launches} != {want}")
+    if not torch.equal(out, a):
+        raise RuntimeError("SetAbstraction(fused=True) differs from sa_fused")
+    rec["launches"] = launches["sa_fused"]
+    log(f"sa_fused on {tuple(patches.shape)}, knn {knn}: {rec['ms']:.3f} ms (plain "
+        f"{rec['plain_ms']:.1f} ms, bound {bms:.3f} ms by {by}, {flops / 1e9:.1f} GFLOP, "
+        f"{flops / rec['ms'] / 1e9:.2f} TFLOP/s), max_abs_err {err:.3g} of {big:.3g}; "
+        f"SetAbstraction(fused=True) launches {launches['sa_fused']}, output equal")
+    return rec
 
 
 def main() -> int:
@@ -874,6 +1133,7 @@ def main() -> int:
         pcs, st = unpack_encode_upload(
             torch.from_numpy(packed.view(np.int32)).to(dev), cfg.N)
         geo = encode_geometry(pcs, st, cfg)
+        sa_patches = geo.patches            # phase 17's inputs
         ae = card.ae
         sa_wb, pn_wb = ae.sa.layers(), ae.pn.layers()
         latent_q = (enc.sym.to(torch.float32) - cfg.L // 2).reshape(-1, cfg.d).contiguous()
@@ -979,6 +1239,15 @@ def main() -> int:
         f"bound {kr['bound_ms']:.4f} ms by {kr['bound_by']}), launches {kr['launches']} over "
         f"{PPPF_FUSED_STEPS} fused steps")
     pppf_train_card_vs_cpu(dev)
+
+    # 15-16. the small-cloud train path and the chamfer kernels
+    chamfer_launches, records = small_train_phase(dev, smi)
+    kernels += chamfer_kernel_check(dev, records, chamfer_launches)
+    del records
+
+    # 17. the SetAbstraction kernel
+    with torch.no_grad():
+        kernels.append(sa_fused_phase(dev, sa_patches, card.ae.sa))
 
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,7 +5,10 @@ Flags, defaults and derived parameters are pcc_tpu's (reference
 train.py:29-53,254), plus --device cuda|cpu ('cuda' raises where there is
 no card). On the card the step runs the port's CUDA kernels (IPDAE: FPS,
 the patch encoder and its backward; PPPF-AE: FPS, and after the BatchNorm
-warm-up the PN++ stage and its backward); on the CPU their plain versions.
+warm-up the PN++ stage and its backward; both families the chamfer
+forward and backward at --N 512, where the decoded and input clouds of a
+step fit them, ops/chamfer_cuda.py::fits_kernel); on the CPU their plain
+versions.
 Checkpoints are pcc_tpu-readable (train/checkpoint.py).
 
   python -m pcc_tpu_torch.cli.train --train_glob 'in/*.ply' \\

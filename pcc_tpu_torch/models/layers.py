@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from pcc_tpu_torch.ops.knn import knn_points
+from pcc_tpu_torch.ops.sa_cuda import sa_fused
 
 
 class PointConv(nn.Module):
@@ -144,11 +145,18 @@ class SetAbstraction(nn.Module):
     """Per-point local features by KNN grouping (reference SetAbstraction
     with npoint == N, pn_kit.py:146-211): for every point, its knn nearest
     neighbours in the patch, centred, through a 3-layer MLP with relu, max
-    over neighbours. [B, N, 3] -> [B, N, mlp[-1]]."""
+    over neighbours. [B, N, 3] -> [B, N, mlp[-1]].
 
-    def __init__(self, knn: int = 16, mlp: Sequence[int] = (32, 64, 128)):
+    fused=True evaluates a 3-D input with ops/sa_cuda.py::sa_fused (the
+    CUDA kernel on the card, its plain version on the CPU), as pcc_tpu's
+    fused flag routes it to its Pallas kernel: inference only, no
+    backward. The state_dict is the same either way."""
+
+    def __init__(self, knn: int = 16, mlp: Sequence[int] = (32, 64, 128),
+                 fused: bool = False):
         super().__init__()
         self.knn = knn
+        self.fused = fused
         cin = 3
         for i, f in enumerate(mlp):
             self.add_module(f"conv{i}", PointConv(cin, f))
@@ -163,6 +171,8 @@ class SetAbstraction(nn.Module):
         return [(c.kernel(), c.bias) for c in self.convs()]
 
     def forward(self, xyz: torch.Tensor) -> torch.Tensor:
+        if self.fused and xyz.dim() == 3:
+            return sa_fused(xyz, self.layers(), self.knn)
         _, _, grouped = knn_points(xyz, xyz, K=self.knn, return_nn=True)
         x = grouped - xyz[..., None, :]                     # [B, N, knn, 3]
         for c in self.convs():

@@ -8,15 +8,22 @@ chunk padded and masked with inf. Ties go to the lowest index, as
 jnp.argmin's do (torch.argmin returns the first minimum, and a later chunk
 replaces the running best only when strictly closer).
 
-These are plain PyTorch operations. pcc_tpu computes them in XLA at the
-shapes training uses: its Pallas chamfer kernel takes only per-patch shapes
-(k * K <= 2^19, chamfer_pallas.py:205-209), and every trainer passes whole
-clouds.
+`chamfer_distance(fast_search=True)`, the training loss's search, takes the
+chamfer kernels (ops/chamfer_cuda.py: csrc/chamfer_fwd.cu and its backward
+csrc/chamfer_bwd.cu on the card, their plain versions on the CPU) whenever
+the clouds are in their domain, [P, k, 3] against [P, K, 3] with k, K >= 8
+and k * K <= 2^19, as pcc_tpu takes its Pallas kernels
+(pcc_tpu/ops/chamfer.py:187-195). Both trainers pass whole clouds, [B, S*k,
+3] against [B, N, 3], so that is training on clouds of N <= 512 at the
+default K, S*k = N for IPDAE and 2N for PPPF-AE. Larger clouds and
+fast_search=False take the chunked plain path here.
 """
 
 from __future__ import annotations
 
 import torch
+
+from pcc_tpu_torch.ops.chamfer_cuda import chamfer_min_dists, fits_kernel
 
 _CHUNK = 2048
 
@@ -119,7 +126,11 @@ def chamfer_distance(x: torch.Tensor, y: torch.Tensor, fast_search: bool = False
     (loss, None), the tuple the reference unpacks (AE.py:67).
 
     fast_search=True searches by the expansion form (the loss is still the
-    exactly recomputed gathered distance); the training step uses it."""
+    exactly recomputed gathered distance); the training step uses it. It
+    goes through the chamfer kernels where `fits_kernel(x, y)` holds."""
+    if fast_search and fits_kernel(x, y):
+        dxy, dyx = chamfer_min_dists(x, y)
+        return torch.mean(torch.mean(dxy, dim=-1) + torch.mean(dyx, dim=-1)), None
     d_xy = _directed_mean_sq(x, y, fast_search)
     d_yx = _directed_mean_sq(y, x, fast_search)
     return torch.mean(d_xy + d_yx), None

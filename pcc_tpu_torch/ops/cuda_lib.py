@@ -34,6 +34,10 @@ KERNELS = {
     "patch_encoder_bwd": ("patch_encoder_bwd.cu", ()),
     "pppf_sa_stage": ("pppf_sa_stage.cu", ()),
     "pppf_sa_stage_bwd": ("pppf_sa_stage_bwd.cu", ()),
+    # chamfer indices must be bit-equal to the plain version, as FPS's
+    "chamfer_fwd": ("chamfer_fwd.cu", ("--fmad=false",)),
+    "chamfer_bwd": ("chamfer_bwd.cu", ("--fmad=false",)),
+    "sa_fused": ("sa_fused.cu", ()),
 }
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -2,9 +2,10 @@
 
 Selection uses the expanded distance q2 - 2 q.p + p2, written out
 coordinate by coordinate so that every operation rounds once, in the same
-order on the CPU and on the card, and the patch encoder kernel
-(csrc/patch_encoder.cu) can repeat it bit for bit. The returned distances
-are recomputed exactly on the gathered neighbours, as pcc_tpu does.
+order on the CPU and on the card, and the patch encoder and chamfer kernels
+(csrc/encoder_common.cuh, csrc/chamfer_common.cuh) can repeat it bit for
+bit. The returned distances are recomputed exactly on the gathered
+neighbours, as pcc_tpu does.
 """
 
 from __future__ import annotations
@@ -18,15 +19,20 @@ def sq_norms(p: torch.Tensor) -> torch.Tensor:
     return x * x + y * y + z * z
 
 
-def sq_dists(query: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """Pairwise squared distances [..., S, N] between [..., S, 3] and
-    [..., N, 3], in pcc_tpu's expanded form max((q2 - 2 q.p) + p2, 0)."""
+def expanded_sq_dists(query: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Pairwise (q2 - 2 q.p) + p2 [..., S, N] between [..., S, 3] and
+    [..., N, 3], unclamped: near zero it can be negative (the chamfer's
+    selection, ops/chamfer_cuda.py, keeps that sign)."""
     qx, qy, qz = (c[..., :, None] for c in query.unbind(-1))
     px, py, pz = (c[..., None, :] for c in points.unbind(-1))
     cross = qx * px + qy * py + qz * pz
-    d = (sq_norms(query)[..., :, None] - 2.0 * cross) \
-        + sq_norms(points)[..., None, :]
-    return torch.clamp_min(d, 0.0)
+    return (sq_norms(query)[..., :, None] - 2.0 * cross) + sq_norms(points)[..., None, :]
+
+
+def sq_dists(query: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared distances [..., S, N] between [..., S, 3] and
+    [..., N, 3], in pcc_tpu's expanded form max((q2 - 2 q.p) + p2, 0)."""
+    return torch.clamp_min(expanded_sq_dists(query, points), 0.0)
 
 
 def select_nearest(d: torch.Tensor, K: int) -> torch.Tensor:

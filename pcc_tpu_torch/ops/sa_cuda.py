@@ -1,7 +1,7 @@
-"""The fused IPDAE patch encoder and its backward (counterpart of
-pcc_tpu/ops/sa_pallas.py: TPU kernels _encoder_kernel, entry
-patch_encoder_fused, and _encoder_bwd_kernel, entry
-patch_encoder_trainable).
+"""The fused IPDAE patch encoder, its backward and SetAbstraction alone
+(counterpart of pcc_tpu/ops/sa_pallas.py: TPU kernels _encoder_kernel,
+entry patch_encoder_fused, _encoder_bwd_kernel, entry
+patch_encoder_trainable, and _sa_kernel, entry sa_fused).
 
 `patch_encoder` launches the CUDA kernel csrc/patch_encoder.cu on CUDA
 tensors and runs `patch_encoder_plain`, the same function in plain
@@ -16,9 +16,15 @@ kernel csrc/patch_encoder_bwd.cu on CUDA tensors, `patch_encoder_bwd_plain`
 (autograd through plain products, with the kernel's relu and max choices)
 on CPU tensors.
 `patch_encoder_trainable` is the differentiable encoder that training
-calls: forward `patch_encoder`, backward `patch_encoder_bwd`. The kernels'
-design notes (what bounds them on an H100, what they do about that) are at
-the top of their sources.
+calls: forward `patch_encoder`, backward `patch_encoder_bwd`.
+
+`sa_fused` is the encoder's first half alone, SetAbstraction [P, N, 3] ->
+[P, N, 128] (pcc_tpu's TPU kernel _sa_kernel, entry sa_fused): the CUDA
+kernel csrc/sa_fused.cu, built on the encoder's selection and products
+(csrc/encoder_common.cuh), on CUDA tensors; `sa_fused_plain` on CPU
+tensors. Like pcc_tpu's, it has no backward. The kernels' design notes
+(what bounds them on an H100, what they do about that) are at the top of
+their sources.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ _BWD_ARGTYPES = ([cuda_lib.PTR, cuda_lib.PTR, cuda_lib.INT, cuda_lib.INT, cuda_l
                  + [cuda_lib.PTR] * 14
                  + [cuda_lib.INT, cuda_lib.PTR, cuda_lib.PTR, cuda_lib.PTR, cuda_lib.INT,
                     cuda_lib.PTR])
+_SA_ARGTYPES = ([cuda_lib.PTR, cuda_lib.INT, cuda_lib.INT, cuda_lib.INT]
+                + [cuda_lib.PTR] * 8)
 SA_WIDTHS = (3, 32, 64, 128)
 PN_WIDTHS = (131, 128, 256, 512)        # then D
 KNN_SUPPORTED = (8, 16)
@@ -45,13 +53,20 @@ BWD_GRID = 132
 PLAIN_CHUNK = 256   # patches per pass of the plain versions (bounds their memory)
 
 
-def pointwise_plain(p: torch.Tensor, idx: torch.Tensor, sa_wb, pn_wb) -> torch.Tensor:
-    """The encoder before its max over points, in plain PyTorch: [c, N, 3]
-    patches and their neighbour indices [c, N, knn] -> [c, N, D]."""
+def sa_features(p: torch.Tensor, idx: torch.Tensor, sa_wb) -> torch.Tensor:
+    """SetAbstraction in plain PyTorch: [c, N, 3] patches and their
+    neighbour indices [c, N, knn] -> the centred neighbours through the
+    relu MLP, max over neighbours [c, N, 128]."""
     h = knn_gather(p, idx) - p[:, :, None, :]
     for w, b in sa_wb:
         h = torch.relu(h @ w + b)
-    x = torch.cat([p, h.amax(dim=2)], dim=-1)              # [c, N, 131]
+    return h.amax(dim=2)
+
+
+def pointwise_plain(p: torch.Tensor, idx: torch.Tensor, sa_wb, pn_wb) -> torch.Tensor:
+    """The encoder before its max over points, in plain PyTorch: [c, N, 3]
+    patches and their neighbour indices [c, N, knn] -> [c, N, D]."""
+    x = torch.cat([p, sa_features(p, idx, sa_wb)], dim=-1)  # [c, N, 131]
     for i, (w, b) in enumerate(pn_wb):
         x = x @ w + b
         if i < len(pn_wb) - 1:
@@ -70,6 +85,44 @@ def patch_encoder_plain(patches: torch.Tensor, sa_wb, pn_wb, knn: int,
         idx = select_nearest(sq_dists(p, p), knn)          # [c, N, knn]
         outs.append(pointwise_plain(p, idx, sa_wb, pn_wb).amax(dim=1))
     return torch.cat(outs)
+
+
+def sa_fused_plain(patches: torch.Tensor, sa_wb, knn: int,
+                   chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+    """SetAbstraction alone, [P, N, 3] f32 -> [P, N, 128], in plain PyTorch,
+    `chunk` patches at a time."""
+    return torch.cat([sa_features(p, select_nearest(sq_dists(p, p), knn), sa_wb)
+                      for p in torch.split(patches, chunk)])
+
+
+def sa_fused(patches: torch.Tensor, sa_wb, knn: int) -> torch.Tensor:
+    """SetAbstraction alone (pcc_tpu's sa_fused): [P, N, 3] f32 patches ->
+    per-point features [P, N, 128] f32, the CUDA kernel on CUDA tensors, the
+    plain version on CPU tensors. sa_wb: [([in, out] weight, [out] bias)]
+    for 3 -> 32 -> 64 -> 128. Raises where a gradient would be needed: the
+    kernel has no backward, as pcc_tpu's has none."""
+    flat = [t for wb in sa_wb for t in wb]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in [patches] + flat):
+        raise RuntimeError("sa_fused has no backward: call it under torch.no_grad() "
+                           "(SetAbstraction(fused=True) is for inference)")
+    if patches.device.type == "cpu":
+        return sa_fused_plain(patches, sa_wb, knn)
+    cuda_lib.require_cuda("sa_fused", patches, torch.float32, 3)
+    P, N, C = patches.shape
+    if C != 3 or knn not in KNN_SUPPORTED or N % 16 or not knn <= N <= MAX_POINTS:
+        raise ValueError(f"sa_fused: unsupported patches {tuple(patches.shape)}, knn={knn}")
+    want = [(SA_WIDTHS[i], SA_WIDTHS[i + 1]) for i in range(3)]
+    if [tuple(w.shape) for w, _ in sa_wb] != want:
+        raise ValueError(f"sa_fused: weight shapes {[tuple(w.shape) for w, _ in sa_wb]} "
+                         f"!= {want}")
+    for i, t in enumerate(flat):
+        cuda_lib.require_cuda(f"sa_fused {'bias' if i % 2 else 'weight'}", t, torch.float32,
+                              1 if i % 2 else 2)
+    out = torch.empty((P, N, SA_WIDTHS[-1]), dtype=torch.float32, device=patches.device)
+    cuda_lib.launch("sa_fused", _SA_ARGTYPES, patches.data_ptr(), P, N, knn,
+                    *[t.data_ptr() for t in flat], out.data_ptr(),
+                    cuda_lib.stream_ptr(patches))
+    return out
 
 
 def fma_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

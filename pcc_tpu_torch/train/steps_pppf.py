@@ -3,7 +3,8 @@ the pipeline of train/steps.py with the PN++ autoencoder and its
 conditional probability model, whose set-abstraction stages carry
 BatchNorm running statistics (pointnet_sa_module.py:49-56), kept as the
 modules' buffers. The decoded cloud has S * d * d points against the
-N-point input (PPPF_AE.py:118-123), as in the reference.
+N-point input (PPPF_AE.py:118-123), as in the reference: 2N at the
+default K and d, so the chamfer kernels take the loss for N <= 512.
 
 Two kinds of step, as pcc_tpu trains them (cli/train.py --bn_warmup_steps):
   * fused=False, the warm-up: every stage with batch statistics, running

@@ -6,6 +6,15 @@ pcc_tpu.ops.chamfer at rtol 1e-5 / atol 1e-7 (float32 sums of three squared
 differences in another order), with the exact and the expansion-form search
 and with a key side that spans two 2048-point chunks, the second padded.
 Nearest-neighbour indices and the rate estimate are compared exactly.
+
+The chamfer kernels' plain versions (ops/chamfer_cuda.py, what the wrappers
+run on CPU tensors) are held to pcc_tpu's Pallas chamfer kernels under the
+interpreter: distances to rtol 1e-6, indices equal to a numpy expansion-form
+argmin (one float32 rounding per operation, first index among equal
+minima), gradients through jax.vjp within 1e-6 of each one's largest entry;
+with duplicated keys, an identical cloud whose expansions go negative, and
+a cloud count past the Pallas block of 32. fits_kernel and the route of
+chamfer_distance(fast_search=True) follow pcc_tpu's.
 """
 
 import jax
@@ -16,8 +25,10 @@ import torch
 
 from pcc_tpu.coding.pmf import estimate_bits_from_pmf as j_bits
 from pcc_tpu.ops import chamfer as j_chamfer
+from pcc_tpu.ops import chamfer_pallas as j_chamfer_pallas
 from pcc_tpu_torch.coding.pmf import estimate_bits_from_pmf
-from pcc_tpu_torch.ops import chamfer
+from pcc_tpu_torch.ops import chamfer, chamfer_cuda
+from pcc_tpu_torch.ops.knn import expanded_sq_dists, sq_dists, sq_norms
 
 
 def _clouds(rng, S, N, B=2):
@@ -78,3 +89,122 @@ def test_estimate_bits_from_pmf(rng):
     assert (torch.softmax(t, -1).detach().numpy() < 1e-3).any()
     np.testing.assert_allclose(float(val.detach()), float(j_val), rtol=1e-6)
     np.testing.assert_allclose(t.grad.numpy(), np.asarray(j_g), rtol=1e-5, atol=1e-6)
+
+
+def _pairs(rng, P, k, K, case):
+    """Clouds x [P, k, 3], y [P, K, 3] in [-1, 1): random; "duplicates":
+    y's second half repeats its first and some x sit on the repeated keys;
+    "self": y is x moved to [2, 4), each odd point one float32 step from
+    the even one before it, so that the expansion of such a pair rounds to
+    either side of 0 (a point against itself gives exactly 0)."""
+    x = (rng.random((P, k, 3)) * 2 - 1).astype(np.float32)
+    y = (rng.random((P, K, 3)) * 2 - 1).astype(np.float32)
+    if case == "duplicates":
+        y[:, K // 2:] = y[:, :K // 2]
+        x[:, :4] = y[:, K // 2:K // 2 + 4]
+    elif case == "self":
+        x = x + np.float32(3.0)
+        x[:, 1::2] = np.nextafter(x[:, 0::2], np.float32(np.inf))
+        y = x.copy()
+    return x, y
+
+
+def _np_argmin(a, b):
+    """The expansion (a2 - 2 a.b) + b2 in float32, one rounding per
+    operation, and its first argmin: [P, n] int32."""
+    a2 = (a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1]) + a[..., 2] * a[..., 2]
+    b2 = (b[..., 0] * b[..., 0] + b[..., 1] * b[..., 1]) + b[..., 2] * b[..., 2]
+    cross = (a[:, :, None, 0] * b[:, None, :, 0] + a[:, :, None, 1] * b[:, None, :, 1]) \
+        + a[:, :, None, 2] * b[:, None, :, 2]
+    d = (a2[:, :, None] - np.float32(2.0) * cross) + b2[:, None, :]
+    assert d.dtype == np.float32
+    return d.argmin(-1).astype(np.int32)
+
+
+_FWD_CASES = [(3, 16, 128, "random"), (2, 64, 8, "random"), (33, 8, 16, "random"),
+              (4, 16, 64, "duplicates"), (3, 32, 32, "self")]
+
+
+@pytest.mark.parametrize("P,k,K,case", _FWD_CASES)
+def test_chamfer_fwd_plain_matches_pallas(rng, P, k, K, case):
+    x, y = _pairs(rng, P, k, K, case)
+    j_dxy, j_dyx = j_chamfer_pallas.chamfer_min_dists(jnp.asarray(x), jnp.asarray(y),
+                                                      interpret=True)
+    dxy, dyx, ixy, iyx = chamfer_cuda.chamfer_fwd_plain(torch.from_numpy(x),
+                                                        torch.from_numpy(y))
+    assert ixy.dtype == iyx.dtype == torch.int32
+    # on twins one float32 step apart pcc_tpu's cross term, one dot product
+    # rounded its own way, picks the other twin of a pair about a third of
+    # the time: the two distances then differ by the twins' own, 1.7e-13
+    atol = float(sq_norms(torch.from_numpy(x[:, 1::2] - x[:, 0::2])).max()) \
+        if case == "self" else 0.0
+    np.testing.assert_allclose(dxy.numpy(), np.asarray(j_dxy), rtol=1e-6, atol=atol)
+    np.testing.assert_allclose(dyx.numpy(), np.asarray(j_dyx), rtol=1e-6, atol=atol)
+    np.testing.assert_array_equal(ixy.numpy(), _np_argmin(x, y))
+    np.testing.assert_array_equal(iyx.numpy(), _np_argmin(y, x))
+    if case == "duplicates":
+        assert (ixy.numpy()[:, :4] == np.arange(4)).all()       # the first copy
+        assert (iyx.numpy()[:, K // 2:] == iyx.numpy()[:, :K // 2]).all()
+    if case == "self":
+        # negative expansions pick the twin over the point itself, where a
+        # clamp at 0 (ops/knn.py::sq_dists) would tie them and pick the first
+        e = expanded_sq_dists(torch.from_numpy(x), torch.from_numpy(x))
+        assert (e < 0).any()
+        assert (ixy != sq_dists(torch.from_numpy(x), torch.from_numpy(x)).argmin(-1)).any()
+        assert float(dxy.max()) < 1e-6
+
+
+@pytest.mark.parametrize("P,k,K,case", [(3, 16, 128, "random"), (33, 8, 16, "random"),
+                                        (4, 16, 64, "duplicates")])
+def test_chamfer_grads_match_pallas_vjp(rng, P, k, K, case):
+    """ChamferFn's backward (chamfer_bwd_plain on CPU tensors) against
+    jax.vjp through pcc_tpu's kernels, with random cotangents; each
+    gradient within 1e-6 of its largest entry."""
+    x, y = _pairs(rng, P, k, K, case)
+    gx = rng.standard_normal((P, k)).astype(np.float32)
+    gy = rng.standard_normal((P, K)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: j_chamfer_pallas.chamfer_min_dists(a, b, interpret=True),
+                     jnp.asarray(x), jnp.asarray(y))
+    j_dx, j_dy = vjp((jnp.asarray(gx), jnp.asarray(gy)))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    ty = torch.from_numpy(y).requires_grad_(True)
+    dxy, dyx = chamfer_cuda.chamfer_min_dists(tx, ty)
+    torch.autograd.backward([dxy, dyx], [torch.from_numpy(gx), torch.from_numpy(gy)])
+    for ours, ref in ((tx.grad, j_dx), (ty.grad, j_dy)):
+        ref = np.asarray(ref)
+        assert np.abs(ours.numpy() - ref).max() <= 1e-6 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("k,K", [(512, 1024), (8, 65536), (8, 65537), (7, 64), (8, 64),
+                                 (64, 7)])
+def test_fits_kernel_matches_pcc_tpu(k, K):
+    """k * K = 2^19 fits, one more key does not; k and K at least 8."""
+    x, y = np.empty((1, k, 3), np.float32), np.empty((1, K, 3), np.float32)
+    want = j_chamfer_pallas.fits_kernel(x, y)
+    assert want == (k * K <= 2 ** 19 and min(k, K) >= 8)
+    assert chamfer_cuda.fits_kernel(torch.from_numpy(x), torch.from_numpy(y)) == want
+    assert not chamfer_cuda.fits_kernel(torch.from_numpy(x[0]), torch.from_numpy(y[0]))
+
+
+@pytest.mark.parametrize("k,K,fast_search,routed", [(64, 96, True, True),
+                                                    (7, 64, True, False),
+                                                    (8, 65537, True, False),
+                                                    (64, 96, False, False)])
+def test_chamfer_distance_routes_through_kernels(rng, monkeypatch, k, K, fast_search, routed):
+    """chamfer_distance takes chamfer_min_dists exactly when fast_search is
+    set and the clouds fit the kernels; the value matches pcc_tpu's XLA
+    path either way (rtol 1e-6)."""
+    calls = []
+
+    def counted(x, y):
+        calls.append((tuple(x.shape), tuple(y.shape)))
+        return chamfer_cuda.chamfer_min_dists(x, y)
+
+    monkeypatch.setattr(chamfer, "chamfer_min_dists", counted)
+    x, y = _pairs(rng, 2, k, K, "random")
+    val, _ = chamfer.chamfer_distance(torch.from_numpy(x), torch.from_numpy(y),
+                                      fast_search=fast_search)
+    assert len(calls) == int(routed)
+    want, _ = j_chamfer.chamfer_distance(jnp.asarray(x), jnp.asarray(y),
+                                         fast_search=fast_search)
+    np.testing.assert_allclose(float(val), float(want), rtol=1e-6)

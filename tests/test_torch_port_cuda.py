@@ -338,3 +338,134 @@ def test_pppf_sa_stage_bwd_rejects_unsupported(dev, case):
     gout = torch.zeros((2, 8, cout), device=dev)
     with pytest.raises(ValueError):
         pppf_sa_bwd(xyz[:, :8].contiguous(), xyz, None, gout, layers, nsample=8, radius=0.4)
+
+
+def _chamfer_pair(g, P, k, K, case, dev):
+    """Clouds x [P, k, 3], y [P, K, 3]: random; "ties": y's second half
+    repeats its first, and x's first points sit on repeated keys; "self":
+    y is x, each odd point one float32 step from the even one before it,
+    so that expansions of a pair fall on either side of 0."""
+    x = torch.rand((P, k, 3), generator=g) * 2 - 1
+    y = torch.rand((P, K, 3), generator=g) * 2 - 1
+    if case == "ties":
+        y[:, K // 2:] = y[:, :K // 2]
+        x[:, :4] = y[:, K // 2:K // 2 + 4]
+    elif case == "self":
+        x = x + 3.0
+        x[:, 1::2] = torch.nextafter(x[:, 0::2], torch.tensor(float("inf")))
+        y = x.clone()
+    return x.to(dev), y.to(dev)
+
+
+_CHAMFER = [(4, 512, 1024, "random"), (2, 8, 65536, "random"), (3, 1024, 512, "ties"),
+            (5, 256, 256, "self"), (33, 8, 16, "random"), (7, 100, 37, "random")]
+
+
+@pytest.mark.parametrize("P,k,K,case", _CHAMFER)
+def test_chamfer_fwd_kernel(dev, P, k, K, case):
+    """k * K = 2^19, k = 8 against 65536 keys (64 tiles of them), tied
+    keys, an identical cloud and ragged tiles: indices bit-equal to the
+    plain version, distances to float32 rounding."""
+    g = torch.Generator().manual_seed(20)
+    x, y = _chamfer_pair(g, P, k, K, case, dev)
+    from pcc_tpu_torch.ops.chamfer_cuda import chamfer_fwd, chamfer_fwd_plain
+
+    before = cuda_lib.launches["chamfer_fwd"]
+    got = chamfer_fwd(x, y)
+    assert cuda_lib.launches["chamfer_fwd"] == before + 1
+    want = chamfer_fwd_plain(x, y)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("P,k,K,case", _CHAMFER)
+def test_chamfer_bwd_kernel(dev, P, k, K, case):
+    """dx, dy within 1e-5 of the plain version's largest entry (its
+    scatter sums with atomics, in another order); two launches bitwise
+    equal; ChamferFn's backward is the kernel."""
+    from pcc_tpu_torch.ops.chamfer_cuda import (chamfer_bwd, chamfer_bwd_plain, chamfer_fwd,
+                                                chamfer_min_dists)
+
+    g = torch.Generator().manual_seed(21)
+    x, y = _chamfer_pair(g, P, k, K, case, dev)
+    _, _, ixy, iyx = chamfer_fwd(x, y)
+    gx = torch.randn((P, k), generator=g).to(dev)
+    gy = torch.randn((P, K), generator=g).to(dev)
+    a = chamfer_bwd(x, y, ixy, iyx, gx, gy)
+    for u, v in zip(a, chamfer_bwd_plain(x, y, ixy, iyx, gx, gy)):
+        assert float((u - v).abs().max()) <= 1e-5 * float(v.abs().max())
+    again = chamfer_bwd(x, y, ixy, iyx, gx, gy)
+    assert all(torch.equal(u, v) for u, v in zip(a, again))
+    xr, yr = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    before = cuda_lib.launches["chamfer_bwd"]
+    torch.autograd.backward(chamfer_min_dists(xr, yr), [gx, gy])
+    assert cuda_lib.launches["chamfer_bwd"] == before + 1
+    assert torch.equal(xr.grad, a[0]) and torch.equal(yr.grad, a[1])
+
+
+@pytest.mark.parametrize("case", ["few", "many", "clouds", "dtype", "strided", "cpu_y",
+                                  "cotangent"])
+def test_chamfer_kernels_reject_unsupported(dev, case):
+    """Outside pcc_tpu's domain (fewer than 8 points, k * K > 2^19), unequal
+    cloud counts, float64, non-contiguous, mixed devices, a wrong
+    cotangent: the wrappers raise."""
+    from pcc_tpu_torch.ops.chamfer_cuda import chamfer_bwd, chamfer_fwd
+
+    k, K = {"few": (7, 64), "many": (8, 65537)}.get(case, (16, 32))
+    x, y = torch.rand((2, k, 3), device=dev), torch.rand((2, K, 3), device=dev)
+    if case == "clouds":
+        y = y[:1]
+    elif case == "dtype":
+        x = x.double()
+    elif case == "strided":
+        x = torch.rand((2, 3, k), device=dev).transpose(1, 2)
+    elif case == "cpu_y":
+        y = y.cpu()
+    with pytest.raises(ValueError):
+        if case == "cotangent":
+            ixy = torch.zeros((2, k), dtype=torch.int32, device=dev)
+            iyx = torch.zeros((2, K), dtype=torch.int32, device=dev)
+            chamfer_bwd(x, y, ixy, iyx, torch.zeros((2, k + 1), device=dev),
+                        torch.zeros((2, K), device=dev))
+        else:
+            chamfer_fwd(x, y)
+
+
+@pytest.mark.parametrize("P,N,knn", [(5, 32, 8), (5, 32, 16), (64, 256, 16), (6, 1024, 16),
+                                     (4, 1024, 8)])
+def test_sa_fused_kernel(dev, P, N, knn):
+    """Features within 1e-5 of the plain version; SetAbstraction(fused=True)
+    launches the kernel."""
+    from pcc_tpu_torch.models.layers import SetAbstraction
+    from pcc_tpu_torch.ops.sa_cuda import sa_fused, sa_fused_plain
+
+    g = torch.Generator().manual_seed(22)
+    pts = ((torch.rand((P, N, 3), generator=g) * 2 - 1) * 0.4).to(dev)
+    sa = _wb(g, [3, 32, 64, 128], dev)
+    out = sa_fused(pts, sa, knn)
+    torch.testing.assert_close(out, sa_fused_plain(pts, sa, knn), atol=1e-5, rtol=0)
+    module = SetAbstraction(knn=knn, fused=True).to(dev)
+    with torch.no_grad():
+        for conv, (w, b) in zip(module.convs(), sa):
+            conv.weight.copy_(w.t().reshape(conv.weight.shape))
+            conv.bias.copy_(b)
+        before = cuda_lib.launches["sa_fused"]
+        assert torch.equal(module(pts), out)
+    assert cuda_lib.launches["sa_fused"] == before + 1
+
+
+@pytest.mark.parametrize("N,knn,widths", [(24, 8, (32, 64, 128)), (32, 12, (32, 64, 128)),
+                                          (1040, 16, (32, 64, 128)), (32, 8, (32, 64, 64)),
+                                          (32, 8, (32, 64, 128, "grad"))])
+def test_sa_fused_rejects_unsupported(dev, N, knn, widths):
+    from pcc_tpu_torch.ops.sa_cuda import sa_fused
+
+    g = torch.Generator().manual_seed(23)
+    pts = torch.rand((2, N, 3), generator=g).to(dev)
+    want_grad = widths[-1] == "grad"
+    sa = _wb(g, [3] + [w for w in widths if w != "grad"], dev)
+    if want_grad:
+        sa[0][0].requires_grad_(True)
+    with pytest.raises(RuntimeError if want_grad else ValueError):
+        sa_fused(pts, sa, knn)

@@ -1,0 +1,81 @@
+"""PyTorch port (pcc_tpu_torch) vs pcc_tpu: SetAbstraction alone, the
+function of pcc_tpu's _sa_kernel (ops/sa_pallas.py::sa_fused), on the CPU.
+
+sa_fused_plain (what ops/sa_cuda.py::sa_fused runs on CPU tensors) and the
+port's SetAbstraction(fused=True) are held to pcc_tpu's Pallas kernel under
+the interpreter at atol 1e-5 (float32 sums in another order; the bar of
+tests/test_sa_pallas.py), with the port's seeded IPDAE weights carried
+across by weights.to_jax_params, at knn 8 and 16. The module keeps its
+state_dict names with the flag set and refuses to run where autograd would
+need a backward, as pcc_tpu's kernel has none.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pcc_tpu.ops.sa_pallas import sa_fused as j_sa_fused
+from pcc_tpu_torch.codec import init_params
+from pcc_tpu_torch.config import CodecConfig
+from pcc_tpu_torch.models.layers import SetAbstraction
+from pcc_tpu_torch.ops import cuda_lib
+from pcc_tpu_torch.ops.sa_cuda import sa_fused, sa_fused_plain
+from pcc_tpu_torch.weights import to_jax_params
+
+P, N = 3, 32
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """The port's seeded IPDAE SetAbstraction weights, as the `sa.`
+    state_dict entries and, through weights.to_jax_params, as pcc_tpu's
+    flax (kernel, bias) pairs."""
+    ae_sd, _ = init_params(3, CodecConfig(N=256, N0=64, ALPHA=2, K=N, d=4, L=7))
+    mlp = to_jax_params(ae_sd)[0]["params"]["sa"]["mlp"]
+    j_wb = [(mlp[f"dense_{i}"]["linear"]["kernel"], mlp[f"dense_{i}"]["linear"]["bias"])
+            for i in range(3)]
+    sd = {k[len("sa."):]: v for k, v in ae_sd.items() if k.startswith("sa.")}
+    return j_wb, sd
+
+
+def _patches(seed):
+    rng = np.random.default_rng(seed)
+    return ((rng.random((P, N, 3)) * 2 - 1) * 0.4).astype(np.float32)
+
+
+@pytest.mark.parametrize("knn", [8, 16])
+def test_sa_fused_plain_and_module_match_pallas(weights, knn):
+    j_wb, sd = weights
+    patches = _patches(knn)
+    ref = np.asarray(j_sa_fused(jnp.asarray(patches), [w for w, _ in j_wb],
+                                [b for _, b in j_wb], knn=knn, interpret=True))
+    module = SetAbstraction(knn=knn, fused=True)
+    module.load_state_dict(sd)
+    before = dict(cuda_lib.launches)
+    with torch.no_grad():
+        plain = sa_fused_plain(torch.from_numpy(patches), module.layers(), knn)
+        fused = module(torch.from_numpy(patches))
+    assert fused.shape == (P, N, 128)
+    np.testing.assert_allclose(plain.numpy(), ref, atol=1e-5)
+    np.testing.assert_allclose(fused.numpy(), ref, atol=1e-5)
+    assert cuda_lib.launches == before            # CPU tensors: the plain version
+
+
+def test_sa_module_flag_keeps_names_and_routes(weights, monkeypatch):
+    """fused=True leaves the state_dict as it is and routes through
+    sa_fused; with autograd wanting a gradient it raises."""
+    _, sd = weights
+    fused, plain = SetAbstraction(knn=8, fused=True), SetAbstraction(knn=8)
+    assert list(fused.state_dict()) == list(plain.state_dict()) == list(sd)
+    fused.load_state_dict(sd)
+    plain.load_state_dict(sd)
+    calls = []
+    monkeypatch.setattr("pcc_tpu_torch.models.layers.sa_fused",
+                        lambda *a: calls.append(a) or sa_fused(*a))
+    x = torch.from_numpy(_patches(1))
+    with torch.no_grad():
+        torch.testing.assert_close(fused(x), plain(x), atol=1e-6, rtol=0)
+        assert len(calls) == 1
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused(x)

@@ -9,6 +9,7 @@ carried across by weights.from_jax_params and the same numpy clouds.
   * rd_forward's loss and aux equal to rtol 1e-6, every parameter gradient
     within 1e-5 of the largest entry of its tensor, in both rate modes,
     with JAX's FPS starts fed to the port and the patches bit-equal first;
+    its chamfer goes through the chamfer kernels' plain versions;
   * three Adam steps across a learning-rate boundary against
     build_train_step + make_optimizer: parameters within atol 2e-6 (float32
     rounding of Adam's update, of the order of lr * 1e-3);
@@ -158,6 +159,31 @@ def test_rd_forward_loss_aux_and_grads(setup, rate_mode):
         b = np.asarray(b)
         bound = 1e-5 * np.abs(b).max()
         assert np.abs(a - b).max() <= bound, jax.tree_util.keystr(path)
+
+
+def test_rd_forward_takes_the_chamfer_kernels(setup, monkeypatch):
+    """At TINY the loss compares [2, 256, 3] decoded points with [2, 256, 3]
+    input points, inside the chamfer kernels' domain: rd_forward calls
+    chamfer_min_dists once (on the CPU its plain versions), and its loss
+    and chamfer still equal pcc_tpu's to rtol 1e-6 (pcc_tpu's CPU path
+    searches in XLA with the same semantics)."""
+    from pcc_tpu_torch.ops import chamfer
+
+    ae_vars, prob_vars, batch, key, starts = setup
+    (j_loss, j_aux), _ = jax.jit(jax.value_and_grad(
+        functools.partial(j_rd_forward, cfg=JTINY, rate_mode="reference"), has_aux=True))(
+        {"ae": ae_vars, "prob": prob_vars}, jnp.asarray(batch), key, 1e-2)
+    shapes = []
+    routed = chamfer.chamfer_min_dists
+    monkeypatch.setattr(chamfer, "chamfer_min_dists",
+                        lambda x, y: shapes.append((x.shape, y.shape)) or routed(x, y))
+    state = _port_state(ae_vars, prob_vars, make_optimizer(1e-3, 0.1, 10, 10))
+    loss, aux = rd_forward(state.ae, state.prob, torch.from_numpy(batch),
+                           torch.from_numpy(starts), 1e-2, TINY, "reference")
+    assert shapes == [((B, TINY.S * TINY.k, 3), (B, TINY.N, 3))]
+    np.testing.assert_allclose(float(loss.detach()), float(j_loss), rtol=1e-6)
+    np.testing.assert_allclose(float(aux["chamfer"].detach()), float(j_aux["chamfer"]),
+                               rtol=1e-6)
 
 
 def test_three_adam_steps_across_a_decay_boundary(setup):

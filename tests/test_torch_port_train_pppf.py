@@ -20,6 +20,7 @@ weights.to_jax_params and the same numpy clouds.
     pcc_tpu's pppf_forward with train=False (frozen BatchNorm, the fused
     encoder's semantics), and the probability model's running statistics
     still updating;
+  * the forward's chamfer through the chamfer kernels' plain versions;
   * the train CLI with --model PPPF-AE: both step kinds, checkpoints with
     batch_stats that pcc_tpu reads, resume.
 Every JAX call is jitted; two interpret-mode kernel runs. Each test states
@@ -372,6 +373,31 @@ def test_fused_step_matches_frozen_batchnorm(setup):
     loss, _ = pppf_forward(state.ae, state.prob, torch.from_numpy(batch),
                            torch.from_numpy(starts), 0.0, TINY, fused=True)
     assert torch.isfinite(loss)
+
+
+def test_pppf_forward_takes_the_chamfer_kernels(setup, monkeypatch):
+    """At this config the loss compares [1, 64, 3] decoded points (4 patches
+    of d * d = 16) with the [1, 64, 3] input, inside the chamfer kernels'
+    domain: pppf_forward calls chamfer_min_dists once (on the CPU their
+    plain versions), and its loss equals pcc_tpu's frozen-BatchNorm forward
+    to 1e-5 relative, the bar of test_fused_step_matches_frozen_batchnorm."""
+    from pcc_tpu_torch.ops import chamfer
+
+    tx, state, ae_vars, prob_vars, batch, key, starts = setup
+    params = {"ae": ae_vars["params"], "prob": prob_vars["params"]}
+    stats = {"ae": ae_vars["batch_stats"], "prob": prob_vars["batch_stats"]}
+    (j_loss, _), _ = jax.jit(jax.value_and_grad(
+        functools.partial(j_pppf_forward, cfg=JTINY, train=False), has_aux=True))(
+        params, stats, jnp.asarray(batch), key, 0.0)
+    shapes = []
+    routed = chamfer.chamfer_min_dists
+    monkeypatch.setattr(chamfer, "chamfer_min_dists",
+                        lambda x, y: shapes.append((x.shape, y.shape)) or routed(x, y))
+    state = copy.deepcopy(state)
+    loss, _ = pppf_forward(state.ae, state.prob, torch.from_numpy(batch),
+                           torch.from_numpy(starts), 0.0, TINY, fused=True)
+    assert shapes == [((B, TINY.S * TINY.d * TINY.d, 3), (B, TINY.N, 3))]
+    np.testing.assert_allclose(float(loss.detach()), float(j_loss), rtol=1e-5)
 
 
 # ------------------------------------------------------------------ the CLI --
