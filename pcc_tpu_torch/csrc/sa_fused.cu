@@ -12,9 +12,10 @@
 // encoder's bit for bit, and the MLP sums run in the encoder's order.
 //
 // What bounds it on an H100: operations. 2 * knn * 10336 FLOP per point
-// (85 GFLOP for 4096 patches of 256 points at knn = 16) against 12 bytes in
-// and 512 bytes out per point: about 650 operations per byte, above the
-// card's balance, so the floor is FLOPs / 67 TFLOP/s.
+// (85 MFLOP per patch of 256 points at knn = 16, about 347 GFLOP for 4096
+// such patches) against 12 bytes in and 512 bytes out per point: about 650
+// operations per byte, above the card's balance, so the floor is
+// FLOPs / 67 TFLOP/s.
 // What the design does about it: nothing of the grouped activations leaves
 // the SM. Each thread keeps one query's sorted top-knn in registers
 // while it scans the patch in shared memory; the MLP runs over chunks of

@@ -31,7 +31,9 @@ import torch
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.knn import expanded_sq_dists, sq_norms
 
-KERNEL_LIMIT = 1 << 19    # k * K per pair of clouds (pcc_tpu's VMEM bound)
+# k * K per pair of clouds: pcc_tpu's domain, which fits_kernel keeps as the
+# route (the kernels stream tiles and need no such bound themselves)
+KERNEL_LIMIT = 1 << 19
 MIN_POINTS = 8
 PLAIN_PAIRS = 1 << 24     # point pairs per pass of the plain forward (bounds its memory)
 _FWD_ARGTYPES = [cuda_lib.PTR, cuda_lib.PTR, cuda_lib.INT, cuda_lib.INT, cuda_lib.INT,
@@ -39,11 +41,11 @@ _FWD_ARGTYPES = [cuda_lib.PTR, cuda_lib.PTR, cuda_lib.INT, cuda_lib.INT, cuda_li
 _BWD_ARGTYPES = [cuda_lib.PTR] * 6 + [cuda_lib.INT] * 3 + [cuda_lib.PTR] * 3
 
 
-def fits_kernel(x, y, limit: int = KERNEL_LIMIT) -> bool:
+def fits_kernel(x, y) -> bool:
     """Whether clouds x [P, k, 3] and y [P, K, 3] are in the kernels'
     domain: 3-D, at least 8 points on each side, k * K <= 2^19
     (pcc_tpu/ops/chamfer_pallas.py::fits_kernel)."""
-    return (x.dim() == 3 and y.dim() == 3 and x.shape[1] * y.shape[1] <= limit
+    return (x.dim() == 3 and y.dim() == 3 and x.shape[1] * y.shape[1] <= KERNEL_LIMIT
             and x.shape[1] >= MIN_POINTS and y.shape[1] >= MIN_POINTS)
 
 

@@ -87,12 +87,11 @@ def patch_encoder_plain(patches: torch.Tensor, sa_wb, pn_wb, knn: int,
     return torch.cat(outs)
 
 
-def sa_fused_plain(patches: torch.Tensor, sa_wb, knn: int,
-                   chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+def sa_fused_plain(patches: torch.Tensor, sa_wb, knn: int) -> torch.Tensor:
     """SetAbstraction alone, [P, N, 3] f32 -> [P, N, 128], in plain PyTorch,
-    `chunk` patches at a time."""
+    PLAIN_CHUNK patches at a time."""
     return torch.cat([sa_features(p, select_nearest(sq_dists(p, p), knn), sa_wb)
-                      for p in torch.split(patches, chunk)])
+                      for p in torch.split(patches, PLAIN_CHUNK)])
 
 
 def sa_fused(patches: torch.Tensor, sa_wb, knn: int) -> torch.Tensor:

@@ -17,6 +17,8 @@ a cloud count past the Pallas block of 32. fits_kernel and the route of
 chamfer_distance(fast_search=True) follow pcc_tpu's.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -125,11 +127,25 @@ _FWD_CASES = [(3, 16, 128, "random"), (2, 64, 8, "random"), (33, 8, 16, "random"
               (4, 16, 64, "duplicates"), (3, 32, 32, "self")]
 
 
-@pytest.mark.parametrize("P,k,K,case", _FWD_CASES)
-def test_chamfer_fwd_plain_matches_pallas(rng, P, k, K, case):
+@functools.lru_cache(maxsize=None)
+def _pallas_case(P, k, K, case):
+    """One case's clouds and random cotangents (seed 11), pcc_tpu's kernels'
+    forward under the interpreter and the jax.vjp that holds its backward:
+    the forward and the gradient test of a case share one interpreter run
+    of the forward kernel."""
+    rng = np.random.default_rng(11)
     x, y = _pairs(rng, P, k, K, case)
-    j_dxy, j_dyx = j_chamfer_pallas.chamfer_min_dists(jnp.asarray(x), jnp.asarray(y),
-                                                      interpret=True)
+    gx = rng.standard_normal((P, k)).astype(np.float32)
+    gy = rng.standard_normal((P, K)).astype(np.float32)
+    (j_dxy, j_dyx), vjp = jax.vjp(
+        lambda a, b: j_chamfer_pallas.chamfer_min_dists(a, b, interpret=True),
+        jnp.asarray(x), jnp.asarray(y))
+    return x, y, gx, gy, np.asarray(j_dxy), np.asarray(j_dyx), vjp
+
+
+@pytest.mark.parametrize("P,k,K,case", _FWD_CASES)
+def test_chamfer_fwd_plain_matches_pallas(P, k, K, case):
+    x, y, _, _, j_dxy, j_dyx, _ = _pallas_case(P, k, K, case)
     dxy, dyx, ixy, iyx = chamfer_cuda.chamfer_fwd_plain(torch.from_numpy(x),
                                                         torch.from_numpy(y))
     assert ixy.dtype == iyx.dtype == torch.int32
@@ -138,8 +154,8 @@ def test_chamfer_fwd_plain_matches_pallas(rng, P, k, K, case):
     # the time: the two distances then differ by the twins' own, 1.7e-13
     atol = float(sq_norms(torch.from_numpy(x[:, 1::2] - x[:, 0::2])).max()) \
         if case == "self" else 0.0
-    np.testing.assert_allclose(dxy.numpy(), np.asarray(j_dxy), rtol=1e-6, atol=atol)
-    np.testing.assert_allclose(dyx.numpy(), np.asarray(j_dyx), rtol=1e-6, atol=atol)
+    np.testing.assert_allclose(dxy.numpy(), j_dxy, rtol=1e-6, atol=atol)
+    np.testing.assert_allclose(dyx.numpy(), j_dyx, rtol=1e-6, atol=atol)
     np.testing.assert_array_equal(ixy.numpy(), _np_argmin(x, y))
     np.testing.assert_array_equal(iyx.numpy(), _np_argmin(y, x))
     if case == "duplicates":
@@ -156,15 +172,11 @@ def test_chamfer_fwd_plain_matches_pallas(rng, P, k, K, case):
 
 @pytest.mark.parametrize("P,k,K,case", [(3, 16, 128, "random"), (33, 8, 16, "random"),
                                         (4, 16, 64, "duplicates")])
-def test_chamfer_grads_match_pallas_vjp(rng, P, k, K, case):
+def test_chamfer_grads_match_pallas_vjp(P, k, K, case):
     """ChamferFn's backward (chamfer_bwd_plain on CPU tensors) against
     jax.vjp through pcc_tpu's kernels, with random cotangents; each
     gradient within 1e-6 of its largest entry."""
-    x, y = _pairs(rng, P, k, K, case)
-    gx = rng.standard_normal((P, k)).astype(np.float32)
-    gy = rng.standard_normal((P, K)).astype(np.float32)
-    _, vjp = jax.vjp(lambda a, b: j_chamfer_pallas.chamfer_min_dists(a, b, interpret=True),
-                     jnp.asarray(x), jnp.asarray(y))
+    x, y, gx, gy, _, _, vjp = _pallas_case(P, k, K, case)
     j_dx, j_dy = vjp((jnp.asarray(gx), jnp.asarray(gy)))
     tx = torch.from_numpy(x).requires_grad_(True)
     ty = torch.from_numpy(y).requires_grad_(True)
@@ -201,7 +213,7 @@ def test_chamfer_distance_routes_through_kernels(rng, monkeypatch, k, K, fast_se
         return chamfer_cuda.chamfer_min_dists(x, y)
 
     monkeypatch.setattr(chamfer, "chamfer_min_dists", counted)
-    x, y = _pairs(rng, 2, k, K, "random")
+    x, y = _pairs(rng, 1, k, K, "random")
     val, _ = chamfer.chamfer_distance(torch.from_numpy(x), torch.from_numpy(y),
                                       fast_search=fast_search)
     assert len(calls) == int(routed)

@@ -136,13 +136,25 @@ def test_patches_bit_equal(setup):
     np.testing.assert_array_equal(geo.patches.numpy(), np.asarray(ref))
 
 
+@pytest.fixture(scope="module")
+def j_rd(setup):
+    """rate_mode -> pcc_tpu's jitted rd_forward ((loss, aux), grads) at lam
+    1e-2 on setup's cloud, each computed once for the tests that read it."""
+    ae_vars, prob_vars, batch, key, _ = setup
+
+    @functools.cache
+    def run(rate_mode):
+        return jax.jit(jax.value_and_grad(
+            functools.partial(j_rd_forward, cfg=JTINY, rate_mode=rate_mode), has_aux=True))(
+            {"ae": ae_vars, "prob": prob_vars}, jnp.asarray(batch), key, 1e-2)
+    return run
+
+
 @pytest.mark.parametrize("rate_mode", ["reference", "fixed"])
-def test_rd_forward_loss_aux_and_grads(setup, rate_mode):
+def test_rd_forward_loss_aux_and_grads(setup, j_rd, rate_mode):
     ae_vars, prob_vars, batch, key, starts = setup
     lam = 1e-2
-    (j_loss, j_aux), j_grads = jax.jit(jax.value_and_grad(
-        functools.partial(j_rd_forward, cfg=JTINY, rate_mode=rate_mode), has_aux=True))(
-        {"ae": ae_vars, "prob": prob_vars}, jnp.asarray(batch), key, lam)
+    (j_loss, j_aux), j_grads = j_rd(rate_mode)
     state = _port_state(ae_vars, prob_vars, make_optimizer(1e-3, 0.1, 10, 10))
     loss, aux = rd_forward(state.ae, state.prob, torch.from_numpy(batch),
                            torch.from_numpy(starts), lam, TINY, rate_mode)
@@ -161,7 +173,7 @@ def test_rd_forward_loss_aux_and_grads(setup, rate_mode):
         assert np.abs(a - b).max() <= bound, jax.tree_util.keystr(path)
 
 
-def test_rd_forward_takes_the_chamfer_kernels(setup, monkeypatch):
+def test_rd_forward_takes_the_chamfer_kernels(setup, j_rd, monkeypatch):
     """At TINY the loss compares [2, 256, 3] decoded points with [2, 256, 3]
     input points, inside the chamfer kernels' domain: rd_forward calls
     chamfer_min_dists once (on the CPU its plain versions), and its loss
@@ -169,10 +181,8 @@ def test_rd_forward_takes_the_chamfer_kernels(setup, monkeypatch):
     searches in XLA with the same semantics)."""
     from pcc_tpu_torch.ops import chamfer
 
-    ae_vars, prob_vars, batch, key, starts = setup
-    (j_loss, j_aux), _ = jax.jit(jax.value_and_grad(
-        functools.partial(j_rd_forward, cfg=JTINY, rate_mode="reference"), has_aux=True))(
-        {"ae": ae_vars, "prob": prob_vars}, jnp.asarray(batch), key, 1e-2)
+    ae_vars, prob_vars, batch, _, starts = setup
+    (j_loss, j_aux), _ = j_rd("reference")
     shapes = []
     routed = chamfer.chamfer_min_dists
     monkeypatch.setattr(chamfer, "chamfer_min_dists",

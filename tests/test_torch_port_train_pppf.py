@@ -341,7 +341,20 @@ def test_warmup_step_matches_pcc_tpu(setup):
             assert not np.array_equal(a, c) and not np.array_equal(np.asarray(b), c)
 
 
-def test_fused_step_matches_frozen_batchnorm(setup):
+@pytest.fixture(scope="module")
+def j_frozen(setup):
+    """pcc_tpu's jitted pppf_forward with train=False (frozen BatchNorm) at
+    lam 0 on setup's cloud: ((loss, aux), grads), computed once for the
+    tests that read it."""
+    _, _, ae_vars, prob_vars, batch, key, _ = setup
+    params = {"ae": ae_vars["params"], "prob": prob_vars["params"]}
+    stats = {"ae": ae_vars["batch_stats"], "prob": prob_vars["batch_stats"]}
+    return jax.jit(jax.value_and_grad(
+        functools.partial(j_pppf_forward, cfg=JTINY, train=False), has_aux=True))(
+        params, stats, jnp.asarray(batch), key, 0.0)
+
+
+def test_fused_step_matches_frozen_batchnorm(setup, j_frozen):
     """lam = 0, so the loss does not depend on the probability model: the
     fused step's loss to 1e-5 relative and every AE gradient within 1e-4 of
     its tensor's largest entry, against pcc_tpu's pppf_forward with
@@ -350,13 +363,10 @@ def test_fused_step_matches_frozen_batchnorm(setup):
     max over slots by the kernel's float32 arithmetic, XLA by its own, and
     near-ties resolve differently (5e-5 measured). The encoder's running
     statistics stay, the probability model's move."""
-    tx, state, ae_vars, prob_vars, batch, key, starts = setup
+    tx, state, ae_vars, prob_vars, batch, _, starts = setup
     state = copy.deepcopy(state)
-    params = {"ae": ae_vars["params"], "prob": prob_vars["params"]}
     stats = {"ae": ae_vars["batch_stats"], "prob": prob_vars["batch_stats"]}
-    (j_loss, _), j_grads = jax.jit(jax.value_and_grad(
-        functools.partial(j_pppf_forward, cfg=JTINY, train=False), has_aux=True))(
-        params, stats, jnp.asarray(batch), key, 0.0)
+    (j_loss, _), j_grads = j_frozen
 
     step = build_pppf_train_step(TINY, tx, fused=True)
     _, aux = step(state, torch.from_numpy(batch), torch.from_numpy(starts), 0.0)
@@ -375,7 +385,7 @@ def test_fused_step_matches_frozen_batchnorm(setup):
     assert torch.isfinite(loss)
 
 
-def test_pppf_forward_takes_the_chamfer_kernels(setup, monkeypatch):
+def test_pppf_forward_takes_the_chamfer_kernels(setup, j_frozen, monkeypatch):
     """At this config the loss compares [1, 64, 3] decoded points (4 patches
     of d * d = 16) with the [1, 64, 3] input, inside the chamfer kernels'
     domain: pppf_forward calls chamfer_min_dists once (on the CPU their
@@ -383,12 +393,8 @@ def test_pppf_forward_takes_the_chamfer_kernels(setup, monkeypatch):
     to 1e-5 relative, the bar of test_fused_step_matches_frozen_batchnorm."""
     from pcc_tpu_torch.ops import chamfer
 
-    tx, state, ae_vars, prob_vars, batch, key, starts = setup
-    params = {"ae": ae_vars["params"], "prob": prob_vars["params"]}
-    stats = {"ae": ae_vars["batch_stats"], "prob": prob_vars["batch_stats"]}
-    (j_loss, _), _ = jax.jit(jax.value_and_grad(
-        functools.partial(j_pppf_forward, cfg=JTINY, train=False), has_aux=True))(
-        params, stats, jnp.asarray(batch), key, 0.0)
+    _, state, _, _, batch, _, starts = setup
+    (j_loss, _), _ = j_frozen
     shapes = []
     routed = chamfer.chamfer_min_dists
     monkeypatch.setattr(chamfer, "chamfer_min_dists",
