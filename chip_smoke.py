@@ -24,8 +24,11 @@ Phases (any failed check raises, and the script exits non-zero):
      then one more encode and decode under torch.profiler (where the time
      goes: device kernel time, busy share, the ops with most device time);
   4. each kernel vs its plain version on that path's inputs (FPS indices
-     bit-equal; encoder latents and decoder points within 1e-4), with CUDA
-     event times, the plain version's time and the card's lower bound;
+     bit-equal; encoder latents and decoder points within 1e-4; the encoder
+     also against sa_cuda.py::_kernel_choices, its arithmetic replayed, on
+     REPLAY_PATCHES patches: the count of entries that differ, each within
+     one ulp), with CUDA event times, the plain version's time and the
+     card's lower bound;
   5. two of the clouds on the CPU port: .s.bin/.c.bin byte-equal to the
      card's, the card's .p.bin decoded to the card encoder's symbols, and
      decoded clouds within one int8 step;
@@ -54,8 +57,12 @@ Phases (any failed check raises, and the script exits non-zero):
      torch.profiler;
  10. the stage kernel vs its plain version on that path's own stage inputs
      (sa1, sa2, sa3 at P = 1024) and, with the "pppe" layout, on sa2's
-     inputs: max abs error <= TOL of the output's largest entry, CUDA-event
-     times, the plain version's time and the card's lower bound;
+     inputs: max abs error <= TOL of the output's largest entry; the
+     "pppf" kernel also against the per-point replay of its arithmetic
+     (pppf_sa_points(replay=True)) on REPLAY_PATCHES patches at each stage:
+     the count of entries that differ, each within one ulp; CUDA-event
+     times, the plain version's time and the card's lower bound (the work
+     the function needs: the stack per point);
  11. one of the clouds on the CPU port with the same weights: .s.bin and
      .c.bin byte-equal, the card's .p.bin decoded on the CPU to the card's
      symbols, the integer coding weights [1, 64, 16, 7] bit-equal;
@@ -137,11 +144,12 @@ from pcc_tpu_torch.ops.decoder_cuda import patch_decoder, patch_decoder_plain
 from pcc_tpu_torch.ops.fps import fps_batch, fps_plain
 from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
 from pcc_tpu_torch.ops.pppf_sa_cuda import (PPPFStageFn, pppf_sa_bwd, pppf_sa_bwd_plain,
-                                            pppf_sa_fused, pppf_sa_plain, stage_bwd_flops,
-                                            stage_flops)
-from pcc_tpu_torch.ops.sa_cuda import (PatchEncoderFn, patch_encoder, patch_encoder_bwd,
-                                       patch_encoder_bwd_plain, patch_encoder_plain,
-                                       pointwise_plain, sa_fused, sa_fused_plain)
+                                            pppf_sa_fused, pppf_sa_plain, pppf_sa_points,
+                                            stage_bwd_flops, stage_flops)
+from pcc_tpu_torch.ops.sa_cuda import (PatchEncoderFn, _kernel_choices, patch_encoder,
+                                       patch_encoder_bwd, patch_encoder_bwd_plain,
+                                       patch_encoder_plain, pointwise_plain, sa_fused,
+                                       sa_fused_plain)
 from pcc_tpu_torch.train import build_pppf_train_step, build_train_step, create_train_state
 from pcc_tpu_torch.train.state import make_optimizer
 
@@ -151,6 +159,10 @@ N_CLOUDS = 64
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TOL = 1e-4   # float32 sums in another order than cuBLAS / the CPU
+# patches on which a kernel is held bit for bit to its replay in the kernels'
+# own arithmetic (fma_matmul's float64 emulation of each fused multiply-add
+# double-rounds about 2^-29 of the time, so an entry may differ by one ulp)
+REPLAY_PATCHES = 64
 # the backward kernel: max |kernel - plain| <= TOL_BWD * max |plain| for each
 # of its 15 outputs (sums over 512 patches in another order)
 TOL_BWD = 1e-4
@@ -216,6 +228,19 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def replay_check(name: str, got: torch.Tensor, replay: torch.Tensor) -> int:
+    """Hold a kernel's output to its replay in the kernels' arithmetic: raise
+    where an entry differs by more than one ulp; return how many differ."""
+    diff = (got - replay).abs()
+    ulp = torch.nextafter(replay.abs(), torch.tensor(float("inf"), device=replay.device)) \
+        - replay.abs()
+    beyond = int((diff > ulp).sum())
+    if beyond:
+        raise RuntimeError(f"{name} differs from its replay in the kernels' arithmetic by more "
+                           f"than one ulp in {beyond} entries (largest {float(diff.max())})")
+    return int((diff > 0).sum())
 
 
 def bound(flops: float, nbytes: float):
@@ -573,6 +598,15 @@ def pppf_phase(dev, smi: str, clouds, fps_record: dict) -> dict:
             if not err <= TOL * big:
                 raise RuntimeError(f"pppf_sa_stage {name} ({layout}) differs from the plain "
                                    f"version: {err} > {TOL} * {big}")
+            differ = None
+            if layout == "pppf":
+                # the per-point kernel bit for bit against the stack replayed
+                # on the points and each query's max over its ball_query set
+                sl = slice(0, REPLAY_PATCHES)
+                rep = pppf_sa_points(new_xyz[sl], xyz[sl], None if feat is None else feat[sl],
+                                     layers, nsample=sa.nsample, radius=sa.radius, replay=True)
+                differ = replay_check(f"pppf_sa_stage {name}", a[sl], rep)
+                del rep
             P, S, _ = new_xyz.shape
             widths = [layers[0][0].shape[0]] + [lay[0].shape[1] for lay in layers]
             flops = stage_flops(P, S, xyz.shape[1], sa.nsample, widths)
@@ -580,15 +614,17 @@ def pppf_phase(dev, smi: str, clouds, fps_record: dict) -> dict:
                 + ([] if feat is None else [feat]) + [t for lay in layers for t in lay]
             bms, by = bound(flops, nbytes(*ins, a))
             rec = dict(stage=name, layout=layout, shape=[P, S, xyz.shape[1], widths],
-                       nsample=sa.nsample, max_abs_err=err, max_abs=big,
-                       ms=cuda_ms(lambda: pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), 3),
+                       nsample=sa.nsample, max_abs_err=err, max_abs=big, replay_differ=differ,
+                       ms=cuda_ms(lambda: pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), 10),
                        plain_ms=cuda_ms(lambda: pppf_sa_plain(new_xyz, xyz, feat, layers, **kw), 1),
                        bound_ms=bms, bound_by=by, gflop=flops / 1e9)
             log(f"pppf_sa_stage {name} ({layout}) new_xyz {tuple(new_xyz.shape)} xyz "
                 f"{tuple(xyz.shape)} widths {widths} nsample {sa.nsample}: {rec['ms']:.3f} ms "
                 f"(plain {rec['plain_ms']:.1f} ms, bound {bms:.3f} ms by {by}, "
                 f"{flops / 1e9:.1f} GFLOP, {flops / rec['ms'] / 1e9:.2f} TFLOP/s), "
-                f"max_abs_err {err:.3g} of {big:.3g}")
+                f"max_abs_err {err:.3g} of {big:.3g}"
+                + ("" if differ is None else f"; vs its replay on {REPLAY_PATCHES} patches "
+                   f"{differ} entries differ (within one ulp)"))
             stages.append(rec)
 
         # 11. the same weights and one of the clouds on the CPU port
@@ -1161,14 +1197,22 @@ def main() -> int:
         if not err <= TOL:
             raise RuntimeError(f"patch encoder differs from the plain version: {err}")
         knn = cfg.sa_knn
+        # bit for bit against the replay of its arithmetic on a slice of patches
+        p = geo.patches[:REPLAY_PATCHES]
+        rows = torch.arange(p.shape[1], device=dev).expand(p.shape[:2]).contiguous()
+        z4 = _kernel_choices(p, select_nearest(sq_dists(p, p), knn), rows, sa_wb, pn_wb)[-1]
+        enc_differ = replay_check("patch encoder", a[:REPLAY_PATCHES], z4.amax(dim=1))
+        del z4
+        log(f"patch_encoder vs its replay on {tuple(p.shape)}: {enc_differ} entries differ "
+            "(within one ulp)")
         flops, _, _ = encoder_flops(P, cfg.K, knn, cfg.d)
         w_bytes = nbytes(*[t for wb in sa_wb + pn_wb for t in wb])
         bms, by = bound(flops, nbytes(geo.patches, a) + w_bytes)
         kernels.append(dict(
             name="patch_encoder", route="cuda", source="pcc_tpu_torch/csrc/patch_encoder.cu",
             replaces="pcc_tpu/ops/sa_pallas.py:142", launches=launches["patch_encoder"],
-            max_abs_err=err,
-            ms=cuda_ms(lambda: patch_encoder(geo.patches, sa_wb, pn_wb, knn), 5),
+            max_abs_err=err, replay_differ=enc_differ,
+            ms=cuda_ms(lambda: patch_encoder(geo.patches, sa_wb, pn_wb, knn), 10),
             plain_ms=cuda_ms(lambda: patch_encoder_plain(geo.patches, sa_wb, pn_wb, knn), 2),
             bound_ms=bms, bound_by=by, library_ms=None))
 

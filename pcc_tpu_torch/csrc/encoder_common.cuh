@@ -1,7 +1,8 @@
 // The IPDAE patch encoder's forward, shared by the forward kernel
-// (patch_encoder.cu) and the backward kernel (patch_encoder_bwd.cu), so
-// that the backward's recomputed selection and activations are the
-// forward's bit for bit and the two files cannot drift apart.
+// (patch_encoder.cu), the backward kernel (patch_encoder_bwd.cu) and
+// SetAbstraction alone (sa_fused.cu), so that the backward's recomputed
+// selection and activations are the forward's bit for bit and the files
+// cannot drift apart. Blocks of kEncThreads threads.
 //
 // Selection: the expanded-form squared distance
 // max((sq_i - 2 cross_ij) + sq_j, 0) with one rounding per operation
@@ -18,7 +19,10 @@
 
 namespace pcc {
 
-constexpr int kEncQ = 16;                               // query points per chunk
+constexpr int kEncThreads = 256;                        // threads per block
+constexpr int kEncQ = 16;                               // N % kEncQ == 0; the backward's winners per chunk
+constexpr int kEncPnQ = 32;                             // points per PointNet chunk
+constexpr int kEncSaRows = 128;                         // grouped rows per SetAbstraction step
 constexpr int kEncC1 = 32, kEncC2 = 64, kEncC3 = 128;   // SetAbstraction widths
 constexpr int kEncP1 = 128, kEncP2 = 256, kEncP3 = 512; // PointNet widths
 constexpr int kEncMaxD = 64;                            // latent width the buffers hold
@@ -26,6 +30,22 @@ constexpr int kEncMaxN = 1024;                          // points per patch
 constexpr int kEncX0 = 3 + kEncC3 + 1;                  // concat row stride (131, padded)
 constexpr int kEncSaW = 3 * kEncC1 + kEncC1 + kEncC1 * kEncC2 + kEncC2 +
                         kEncC2 * kEncC3 + kEncC3;       // SetAbstraction weights + biases
+constexpr int kEncP3Step = 256;                         // PointNet layer-3 columns per step
+constexpr int kEncX3 = kEncP3Step + 4;                  // their row stride (rows in other banks)
+// A chunk's shared memory, in floats: x0 [kEncPnQ][kEncX0], x1 [kEncPnQ][kEncP1],
+// x2 [kEncPnQ][kEncP2], one after the other. The SetAbstraction rows
+// h1 [kEncSaRows][kEncC1] and h2 [kEncSaRows][kEncC2] alias x1 and x2; a step
+// of layer 3 [kEncPnQ][kEncX3] aliases x0 and x1; the last layer's rows o4
+// [kEncPnQ][dout] alias x2.
+constexpr int kEncX1Off = kEncPnQ * kEncX0;
+constexpr int kEncX2Off = kEncX1Off + kEncPnQ * kEncP1;
+constexpr int kEncChunkWords = kEncX2Off + kEncPnQ * kEncP2;
+static_assert(kEncSaRows * (kEncC1 + kEncC2) <= kEncChunkWords - kEncX1Off,
+              "the grouped rows fit in x1 and x2");
+static_assert(kEncPnQ * kEncX3 <= kEncX2Off, "a layer-3 step fits in x0 and x1");
+static_assert(kEncPnQ * kEncMaxD <= kEncPnQ * kEncP2, "o4 fits in x2");
+static_assert(kEncPnQ % kEncQ == 0 && kEncQ % (kEncSaRows / 8) == 0,
+              "chunks hold whole SetAbstraction steps");
 
 // Weights are passed as separate pointers, never gathered in a struct: a
 // struct of them made the forward kernel measurably slower on an H100, with
@@ -150,19 +170,20 @@ __device__ __forceinline__ void sa_layer1(int nq, Q qs,
   }
 }
 
-// The xyz columns of the concat rows of kEncQ queries. No trailing barrier.
+// The xyz columns of the concat rows of nq queries. No trailing barrier.
 template <class Q>
-__device__ __forceinline__ void concat_xyz(Q qs, const float* sx,
+__device__ __forceinline__ void concat_xyz(int nq, Q qs, const float* sx,
                                            const float* sy, const float* sz, float* x0) {
-  for (int e = threadIdx.x; e < kEncQ * 3; e += blockDim.x) {
+  for (int e = threadIdx.x; e < nq * 3; e += blockDim.x) {
     const int qi = e / 3, c = e % 3;
     const int q = qs[qi];
     x0[qi * kEncX0 + c] = c == 0 ? sx[q] : (c == 1 ? sy[q] : sz[q]);
   }
 }
 
-// PointNet layers 1-3 (relu) on kEncQ concat rows x0 -> x1, x2, x3.
-// Starts after a barrier; ends with __syncthreads().
+// PointNet layers 1-3 (relu) on kEncQ concat rows x0 -> x1, x2, x3, in the
+// simple product of dense.cuh (the backward's winners). Starts after a
+// barrier; ends with __syncthreads().
 __device__ __forceinline__ void pointnet_123(const float* x0, const float* pw1,
                                              const float* pb1, const float* pw2,
                                              const float* pb2, const float* pw3,
@@ -176,33 +197,120 @@ __device__ __forceinline__ void pointnet_123(const float* x0, const float* pw1,
   __syncthreads();
 }
 
-// The whole encoder for the kEncQ queries qs[]: the
-// SetAbstraction MLP (weights sw1..sb3 in shared memory) with relu and a max
-// over each query's KNN neighbours, the concat with xyz, the PointNet MLP
-// (pw1..pb4 in global memory) -> o4 [kEncQ, dout] (no relu on the last
-// layer). h1/h2 hold the grouped rows, x1..x3 may alias them. Starts after
-// a barrier; ends with __syncthreads().
+// SetAbstraction for the kEncSaRows / KNN queries qs[0 ..): layer 1 on the
+// centred neighbours into h1, layer 2 into h2, layer 3 with relu and the max
+// over each query's KNN neighbours into out[i][0 .. kEncC3) (row stride
+// ld_out, shared or device memory). Weights [in, out] and biases in device
+// memory, 16-byte aligned. Starts after a barrier that frees h2 from its
+// last reader; no trailing barrier (the next step's layer 1 may start: it
+// writes h1, which layer 3 does not read).
 template <int KNN, class Q>
+__device__ __forceinline__ void sa_step(Q qs, const unsigned short* nbr, const float* sx,
+                                        const float* sy, const float* sz,
+                                        const float* __restrict__ w1,
+                                        const float* __restrict__ b1,
+                                        const float* __restrict__ w2,
+                                        const float* __restrict__ b2,
+                                        const float* __restrict__ w3,
+                                        const float* __restrict__ b3, float* h1, float* h2,
+                                        float* out, int ld_out) {
+  sa_layer1<KNN>(kEncSaRows / KNN, qs, nbr, sx, sy, sz, w1, b1, h1);
+  __syncthreads();
+  dense_tile<8, kTileRelu>(h1, kEncC1, kEncSaRows, kEncC1, w2, kEncC2, b2, kEncC2, h2, kEncC2);
+  __syncthreads();
+  dense_tile<KNN, kTileGroupMax>(h2, kEncC2, kEncSaRows, kEncC2, w3, kEncC3, b3, kEncC3, out,
+                                 ld_out);
+}
+
+// PointNet's last layer, a step of it: acc[i] += x3[r][k] * pw4[c0 + k][o]
+// for k in [0, kEncP3Step) in order, over the items e = threadIdx.x + i *
+// kEncThreads of the kEncPnQ x dout outputs (4 columns an item with kVec).
+template <bool kVec>
+__device__ __forceinline__ void last_layer_step(const float* x3, const float* __restrict__ pw4,
+                                                int c0, int dout, float* acc) {
+  constexpr int kV = kVec ? 4 : 1;
+  const int per_row = dout / kV;
+#pragma unroll
+  for (int i = 0; i < kEncPnQ * kEncMaxD / kEncThreads / kV; ++i) {
+    const int e = threadIdx.x + i * kEncThreads;
+    if (e >= kEncPnQ * per_row) break;
+    const int r = e / per_row, o = (e % per_row) * kV;
+    const float* x = x3 + r * kEncX3;
+    const float* w = pw4 + static_cast<size_t>(c0) * dout + o;
+    float* a = acc + kV * i;
+    for (int k = 0; k < kEncP3Step; ++k) {
+      const float xv = x[k];
+      if (kVec) {
+        const float4 wv = __ldg(reinterpret_cast<const float4*>(w + k * dout));
+        a[0] = fmaf(xv, wv.x, a[0]);
+        a[1] = fmaf(xv, wv.y, a[1]);
+        a[2] = fmaf(xv, wv.z, a[2]);
+        a[3] = fmaf(xv, wv.w, a[3]);
+      } else {
+        a[0] = fmaf(xv, __ldg(w + k * dout), a[0]);
+      }
+    }
+  }
+}
+
+// The whole encoder for the nq points c0, c0 + 1, ... of the patch (nq <=
+// kEncPnQ, a multiple of kEncQ): the SetAbstraction MLP with relu and a max
+// over each point's KNN neighbours, the concat with xyz, the PointNet MLP ->
+// o4 [nq][dout] at buf + kEncX2Off (no relu on the last layer). buf:
+// kEncChunkWords floats of shared memory. Weights [in, out] and biases in
+// device memory, 16-byte aligned. Every output sums acc = fma(x[k], w[k][o],
+// acc) for k = 0, 1, ... from 0, then + b: the sums of dense_rows. PointNet
+// runs on kEncPnQ rows (rows past nq are 0), layer 1 with 4 rows a thread
+// (every warp busy), layers 2 and 3 with 8; layer 3 in steps of kEncP3Step
+// columns, each folded straight into the last layer's sums, which stay in
+// registers. Starts after a barrier; ends with __syncthreads().
+template <int KNN>
 __device__ __forceinline__ void encoder_chunk(
-    Q qs, const unsigned short* nbr, const float* sx, const float* sy,
-    const float* sz, const float* sw1, const float* sb1, const float* sw2,
-    const float* sb2, const float* sw3, const float* sb3, const float* pw1,
-    const float* pb1, const float* pw2, const float* pb2, const float* pw3,
-    const float* pb3, const float* pw4, const float* pb4, int dout, float* h1, float* h2,
-    float* x0, float* x1, float* x2, float* x3, float* o4) {
-  constexpr int kRows = kEncQ * KNN;
-  sa_layer1<KNN>(kEncQ, qs, nbr, sx, sy, sz, sw1, sb1, h1);
+    int c0, int nq, const unsigned short* nbr, const float* sx, const float* sy,
+    const float* sz, const float* w1, const float* b1, const float* w2, const float* b2,
+    const float* w3, const float* b3, const float* pw1, const float* pb1, const float* pw2,
+    const float* pb2, const float* pw3, const float* pb3, const float* __restrict__ pw4,
+    const float* __restrict__ pb4, int dout, float* buf) {
+  float* x0 = buf;
+  float* x1 = buf + kEncX1Off;
+  float* x2 = buf + kEncX2Off;
+  float* x3 = buf;
+  constexpr int kSaQ = kEncSaRows / KNN;
+  for (int q0 = 0; q0 < nq; q0 += kSaQ)
+    sa_step<KNN>(QueryRange{c0 + q0}, nbr, sx, sy, sz, w1, b1, w2, b2, w3, b3, x1,
+                 x1 + kEncSaRows * kEncC1, x0 + q0 * kEncX0 + 3, kEncX0);
+  concat_xyz(nq, QueryRange{c0}, sx, sy, sz, x0);
+  for (int e = nq * kEncX0 + threadIdx.x; e < kEncPnQ * kEncX0; e += blockDim.x) x0[e] = 0.0f;
   __syncthreads();
-  dense_rows<8, true, false>(h1, kEncC1, kRows, kEncC1, sw2, sb2, kEncC2, h2, kEncC2);
+  dense_tile<4, kTileRelu>(x0, kEncX0, kEncPnQ, 3 + kEncC3, pw1, kEncP1, pb1, kEncP1, x1,
+                           kEncP1);
   __syncthreads();
-  // layer 3, relu and the max over each query's KNN neighbours, straight
-  // into the concat rows after the query's xyz
-  dense_relu_groupmax<KNN, false>(h2, kEncC2, kEncQ, kEncC2, sw3, sb3, kEncC3, x0 + 3,
-                                  kEncX0);
-  concat_xyz(qs, sx, sy, sz, x0);
+  dense_tile<8, kTileRelu>(x1, kEncP1, kEncPnQ, kEncP1, pw2, kEncP2, pb2, kEncP2, x2, kEncP2);
   __syncthreads();
-  pointnet_123(x0, pw1, pb1, pw2, pb2, pw3, pb3, x1, x2, x3);
-  dense_rows<1, false, true>(x3, kEncP3, kEncQ, kEncP3, pw4, pb4, dout, o4, dout);
+  const bool vec = dout % 4 == 0;
+  float acc[kEncPnQ * kEncMaxD / kEncThreads];
+#pragma unroll
+  for (int i = 0; i < kEncPnQ * kEncMaxD / kEncThreads; ++i) acc[i] = 0.0f;
+  for (int c = 0; c < kEncP3; c += kEncP3Step) {
+    dense_tile<8, kTileRelu>(x2, kEncP2, kEncPnQ, kEncP2, pw3 + c, kEncP3, pb3 + c, kEncP3Step,
+                             x3, kEncX3);
+    __syncthreads();
+    if (vec) {
+      last_layer_step<true>(x3, pw4, c, dout, acc);
+    } else {
+      last_layer_step<false>(x3, pw4, c, dout, acc);
+    }
+    __syncthreads();
+  }
+  float* o4 = x2;
+  const int kV = vec ? 4 : 1;
+#pragma unroll
+  for (int i = 0; i < kEncPnQ * kEncMaxD / kEncThreads; ++i) {
+    const int e = threadIdx.x + (i / kV) * kEncThreads;
+    if (e >= kEncPnQ * dout / kV) break;
+    const int o = (e % (dout / kV)) * kV + i % kV;
+    o4[(e / (dout / kV)) * dout + o] = acc[i] + __ldg(pb4 + o);
+  }
   __syncthreads();
 }
 

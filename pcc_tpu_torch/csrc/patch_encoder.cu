@@ -17,13 +17,23 @@
 // the SM. The TPU kernel's [N, N] distance matrix (256 KB) does not fit in
 // shared memory, so each thread keeps a sorted top-knn list of one query
 // in registers while it scans the patch's points (held in shared memory).
-// The MLPs then run over chunks of 16 query points: the 16 x knn grouped
-// rows of the SetAbstraction MLP, and the 16 rows of the PointNet MLP, live
-// in shared memory; the SetAbstraction weights (41 KB) sit in shared
-// memory and the PointNet weights (755 KB) are read through L2. Each layer
-// is the simple register-reuse product of dense.cuh on CUDA cores, not a
-// tensor-core product; that, and one 256-thread block per SM (about 165 KB
-// of shared memory), are what a later, faster version changes.
+// The MLPs then run over chunks of 32 points (encoder_common.cuh): the
+// SetAbstraction MLP on 128 grouped rows at a time (8 points x 16
+// neighbours), its max written into the chunk's concat rows, then the
+// PointNet MLP on the 32 rows, so that each weight the block reads from L2
+// serves 32 points. Every layer is a register-tiled product
+// (dense.cuh::dense_tile): a thread takes 4 or 8 rows (SetAbstraction's last
+// layer: one point's 16 neighbours) x 4 columns, with 16-byte activation
+// broadcasts from shared memory and 16-byte weight loads through the
+// read-only cache, where the simple form read one activation from shared
+// memory per multiply-add. The grouped rows alias the PointNet rows, the
+// PointNet layer 3 runs in two 256-column steps folded straight into the
+// last layer's sums (kept in registers), and the weights stay in device
+// memory (L2 and the read-only cache): 78 KB of shared memory a block at
+// N = 256, so two 256-thread blocks share an SM.
+// Sums keep the simple form's order (k from 0, then the bias), so the
+// latents are bit for bit those of that form. It is not a tensor-core
+// product (TF32 would not hold the 1e-4 agreement with the plain version).
 //
 // Selection is bit-equal to the plain PyTorch version
 // (pcc_tpu_torch/ops/sa_cuda.py::patch_encoder_plain): the same distance
@@ -41,13 +51,12 @@ namespace {
 
 using namespace pcc;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = kEncThreads;
 
 struct Layout {
   int sx, sy, sz, sq;                // patch points (SoA) and squared norms
-  int sa;                            // SetAbstraction weights and biases
-  int h;                             // grouped rows; aliased by PointNet rows
-  int x0, o, lat;                    // concat rows, last-layer rows, running max
+  int chunk;                         // a chunk's rows (encoder_common.cuh)
+  int lat;                           // running max
   int floats;                        // float words before the neighbour table
   size_t bytes;                      // total dynamic shared memory
 };
@@ -59,12 +68,7 @@ __host__ __device__ inline Layout make_layout(int n, int knn) {
   L.sy = off; off += n;
   L.sz = off; off += n;
   L.sq = off; off += n;
-  L.sa = off; off += kEncSaW;
-  const int grouped = kEncQ * knn * (kEncC1 + kEncC2);
-  const int pointnet = kEncQ * (kEncP1 + kEncP2 + kEncP3);
-  L.h = off; off += grouped > pointnet ? grouped : pointnet;
-  L.x0 = off; off += kEncQ * kEncX0;
-  L.o = off; off += kEncQ * kEncMaxD;
+  L.chunk = off; off += kEncChunkWords;
   L.lat = off; off += kEncMaxD;
   L.floats = off;
   L.bytes = static_cast<size_t>(off) * sizeof(float) +
@@ -73,7 +77,7 @@ __host__ __device__ inline Layout make_layout(int n, int knn) {
 }
 
 template <int KNN>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 patch_encoder_kernel(const float* __restrict__ pts, int n,
                      const float* __restrict__ w1, const float* __restrict__ b1,
                      const float* __restrict__ w2, const float* __restrict__ b2,
@@ -84,40 +88,28 @@ patch_encoder_kernel(const float* __restrict__ pts, int n,
                      const float* __restrict__ pw4, const float* __restrict__ pb4,
                      int dout, float* __restrict__ out) {
   const Layout L = make_layout(n, KNN);
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* sx = smem + L.sx;
   float* sy = smem + L.sy;
   float* sz = smem + L.sz;
   float* sq = smem + L.sq;
-  float* sw1 = smem + L.sa;                // SetAbstraction weights, as loaded
-  float* sb1 = sw1 + 3 * kEncC1;
-  float* sw2 = sb1 + kEncC1;
-  float* sb2 = sw2 + kEncC1 * kEncC2;
-  float* sw3 = sb2 + kEncC2;
-  float* sb3 = sw3 + kEncC2 * kEncC3;
-  float* h1 = smem + L.h;                  // [kEncQ*KNN, kEncC1]
-  float* h2 = h1 + kEncQ * KNN * kEncC1;   // [kEncQ*KNN, kEncC2]
-  float* x1 = smem + L.h;                  // [kEncQ, kEncP1] (aliases h1/h2)
-  float* x2 = x1 + kEncQ * kEncP1;         // [kEncQ, kEncP2]
-  float* x3 = x2 + kEncQ * kEncP2;         // [kEncQ, kEncP3]
-  float* x0 = smem + L.x0;                 // [kEncQ, kEncX0]
-  float* o4 = smem + L.o;                  // [kEncQ, dout]
+  float* chunk = smem + L.chunk;
+  const float* o4 = chunk + kEncX2Off;     // [kEncPnQ, dout]
   float* lat = smem + L.lat;               // [dout]
   unsigned short* nbr = reinterpret_cast<unsigned short*>(smem + L.floats);
 
   const int tid = threadIdx.x;
   for (int i = tid; i < dout; i += blockDim.x) lat[i] = -CUDART_INF_F;
-  load_sa_weights(w1, b1, w2, b2, w3, b3, sw1);
   load_patch(pts + static_cast<size_t>(blockIdx.x) * n * 3, n, sx, sy, sz, sq);
   select_knn<KNN>(sx, sy, sz, sq, n, nbr);
 
-  for (int c0 = 0; c0 < n; c0 += kEncQ) {
-    encoder_chunk<KNN>(QueryRange{c0}, nbr, sx, sy, sz, sw1, sb1, sw2, sb2, sw3, sb3,
-                       pw1, pb1, pw2, pb2, pw3, pb3, pw4, pb4, dout, h1, h2, x0, x1, x2,
-                       x3, o4);
+  for (int c0 = 0; c0 < n; c0 += kEncPnQ) {
+    const int nq = min(kEncPnQ, n - c0);
+    encoder_chunk<KNN>(c0, nq, nbr, sx, sy, sz, w1, b1, w2, b2, w3, b3, pw1, pb1, pw2, pb2,
+                       pw3, pb3, pw4, pb4, dout, chunk);
     if (tid < dout) {
       float m = lat[tid];
-      for (int r = 0; r < kEncQ; ++r) m = fmaxf(m, o4[r * dout + tid]);
+      for (int r = 0; r < nq; ++r) m = fmaxf(m, o4[r * dout + tid]);
       lat[tid] = m;
     }
   }

@@ -34,9 +34,11 @@
 // max routing are those of csrc/patch_encoder.cu bit for bit.
 //
 // Memory: the TPU kernel keeps every slot's activations (49 MB of VMEM at
-// a block of 4 patches); here nothing is saved between passes and the
-// recomputation runs in chunks of 16 queries through shared memory (about
-// 170 KB at N = 256), one 256-thread block per SM.
+// a block of 4 patches); here nothing is saved between passes: pass 1 runs
+// the forward kernel's chunks of 32 points (encoder_common.cuh::
+// encoder_chunk), pass 2 the winners in chunks of 16 through shared memory
+// (about 155 KB at N = 256, the SetAbstraction weights among it), one
+// 256-thread block per SM.
 //
 // Determinism: the weight gradients are sums over P * N * knn rows. A fixed
 // grid of persistent blocks walks the patches in a fixed order; each block
@@ -46,7 +48,8 @@
 // block order. The dpatches scatter is one thread per point, walking the
 // rows in a fixed order. Two launches give bitwise equal outputs.
 //
-// Float32 on CUDA cores with the register-reuse products of dense.cuh;
+// Float32 on CUDA cores: pass 1 with the forward's register-tiled
+// products, pass 2 with the simple register-reuse products of dense.cuh;
 // tensor cores, wgmma and TMA are later work.
 
 #include <cuda_runtime.h>
@@ -58,7 +61,7 @@ namespace {
 
 using namespace pcc;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = kEncThreads;
 constexpr int kG = 4;                   // winning queries per SetAbstraction group
 constexpr unsigned char kDead = 0xFF;   // SetAbstraction max <= 0: no gradient
 
@@ -85,7 +88,7 @@ __host__ __device__ inline GradOffsets grad_offsets(int dout) {
 struct Layout {
   int sx, sy, sz, sq, sa, dpts;      // patch, SetAbstraction weights, patch gradient
   int qs, win, winv, winners, nwin;  // chunk queries, per-channel winners, distinct winners
-  int h, x0, o;                      // pass 1: grouped rows (aliased by PointNet rows)
+  int chunk;                         // pass 1: a chunk's rows (encoder_common.cuh)
   int bx0, bx1, bx2, bx3, dz4;       // pass 2: the winners' PointNet rows
   int a1, a2, best, dinp;            // pass 2: one group's SetAbstraction rows
   int floats;                        // float words before the neighbour table
@@ -108,12 +111,8 @@ __host__ __device__ inline Layout make_layout(int n, int knn) {
   L.nwin = off; off += 4;
   const int region = off;
   // pass 1 (the forward over all points)
-  const int grouped = kEncQ * knn * (kEncC1 + kEncC2);
-  const int pointnet = kEncQ * (kEncP1 + kEncP2 + kEncP3);
-  L.h = region;
-  L.x0 = L.h + (grouped > pointnet ? grouped : pointnet);
-  L.o = L.x0 + kEncQ * kEncX0;
-  const int end1 = L.o + kEncQ * kEncMaxD;
+  L.chunk = region;
+  const int end1 = L.chunk + kEncChunkWords;
   // pass 2 (the winners), aliasing pass 1
   L.bx0 = region;
   L.bx1 = L.bx0 + kEncQ * kEncX0;
@@ -339,7 +338,7 @@ patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict_
                          float* __restrict__ partial) {
   const Layout L = make_layout(n, KNN);
   const GradOffsets go = grad_offsets(dout);
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* sx = smem + L.sx;
   float* sy = smem + L.sy;
   float* sz = smem + L.sz;
@@ -350,13 +349,8 @@ patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict_
   float* winv = smem + L.winv;
   int* winners = reinterpret_cast<int*>(smem + L.winners);
   int* nwin = reinterpret_cast<int*>(smem + L.nwin);
-  float* h1 = smem + L.h;
-  float* h2 = h1 + kEncQ * KNN * kEncC1;
-  float* x1 = smem + L.h;
-  float* x2 = x1 + kEncQ * kEncP1;
-  float* x3 = x2 + kEncQ * kEncP2;
-  float* x0 = smem + L.x0;
-  float* o4 = smem + L.o;
+  float* chunk = smem + L.chunk;
+  const float* o4 = chunk + kEncX2Off;     // [kEncPnQ, dout]
   float* bx0 = smem + L.bx0;
   float* bx1 = smem + L.bx1;
   float* bx2 = smem + L.bx2;
@@ -390,12 +384,12 @@ patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict_
 
     // pass 1: the forward over all points, and each channel's first
     // arg-max over points
-    for (int c0 = 0; c0 < n; c0 += kEncQ) {
-      encoder_chunk<KNN>(QueryRange{c0}, nbr, sx, sy, sz, sw1, sb1, sw2, sb2, sw3, sb3,
-                         pw1, pb1, pw2, pb2, pw3, pb3, pw4, pb4, dout, h1, h2, x0, x1, x2,
-                         x3, o4);
+    for (int c0 = 0; c0 < n; c0 += kEncPnQ) {
+      const int nq = min(kEncPnQ, n - c0);
+      encoder_chunk<KNN>(c0, nq, nbr, sx, sy, sz, w1, b1, w2, b2, w3, b3, pw1, pb1, pw2, pb2,
+                         pw3, pb3, pw4, pb4, dout, chunk);
       if (tid < dout) {
-        for (int r = 0; r < kEncQ; ++r) {
+        for (int r = 0; r < nq; ++r) {
           const float v = o4[r * dout + tid];
           if (v > winv[tid]) {
             winv[tid] = v;
@@ -428,7 +422,7 @@ patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict_
         sa_group_forward<KNN>(qs + g0, nbr, sx, sy, sz, sw1, sb1, sw2, sb2, a1, a2);
         sa_group_max<KNN>(a2, sw3, sb3, bx0 + g0 * kEncX0 + 3, best + g0 * kEncC3);
       }
-      concat_xyz(QueryList{qs}, sx, sy, sz, bx0);
+      concat_xyz(kEncQ, QueryList{qs}, sx, sy, sz, bx0);
       for (int e = tid; e < kEncQ * dout; e += blockDim.x) {
         const int r = e / dout, c = e % dout;
         dz4[e] = (r < Wn && win[c] == qs[r]) ? gp[c] : 0.0f;

@@ -1,6 +1,6 @@
 // Building blocks of the PointNet++ set-abstraction stage, shared by the
 // stage kernel (pppf_sa_stage.cu) and its backward (pppf_sa_stage_bwd.cu):
-// the queries' coordinates, the rank-based selection of the nsample nearest,
+// the queries' coordinates, the selection of the nsample nearest,
 // the ball mask, and one Conv + BatchNorm(eval) + ReLU layer on a tile of
 // rows in shared memory. Both kernels run this code, so the backward's
 // replay computes the forward's selection and activations bit for bit.
@@ -26,6 +26,8 @@ constexpr int kMaxRows = 64;        // rows per tile, a multiple of kTM
 constexpr int kSmemLimit = 227 * 1024;
 static_assert(kMaxRows % kTM == 0, "a tile is whole row groups");
 
+__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+
 __device__ __forceinline__ float bn_shift(float acc, float b, float mu) {
   return __fsub_rn(__fadd_rn(acc, b), mu);
 }
@@ -46,13 +48,15 @@ struct GlobalRows {
   int ld, valid;
 };
 
-// One layer on a tile: out[r][o] = epilogue(sum_k in[r][k] * w[k][o]). With
-// kQueryMax the rows are not stored: row r of the tile is row row0 + r of the
-// block, which belongs to query (row0 + r) / nsample, and only each query's
-// maximum is kept in qmax[query][o]. No trailing barrier.
+// One layer on a tile: out[r][o] = epilogue(sum_k in[r][k] * w[k][o]) for the
+// cout columns of w, whose rows are ldw floats apart (a column chunk of a
+// wider layer: w, b, mu, mul and beta offset to the chunk). With kQueryMax
+// the rows are not stored: row r of the tile is row row0 + r of the block,
+// which belongs to query (row0 + r) / nsample, and only each query's maximum
+// is kept in qmax[query][o]. No trailing barrier.
 template <int kMode>
 __device__ __forceinline__ void dense_layer(
-    const float* in, int ld_in, int rows, int cin, const float* __restrict__ w,
+    const float* in, int ld_in, int rows, int cin, const float* __restrict__ w, int ldw,
     const float* __restrict__ b, const float* __restrict__ mu,
     const float* __restrict__ mul, const float* __restrict__ beta, int cout, float* out,
     int ld_out, int* qmax, int row0, int rows_total, int nsample, GlobalRows g) {
@@ -61,7 +65,7 @@ __device__ __forceinline__ void dense_layer(
     for (int e = threadIdx.x; e < rows * cout; e += kThreads) {
       const int o = e % cout, r = e / cout;
       float acc = 0.0f;
-      for (int k = 0; k < cin; ++k) acc = fmaf(in[r * ld_in + k], __ldg(w + k * cout + o), acc);
+      for (int k = 0; k < cin; ++k) acc = fmaf(in[r * ld_in + k], __ldg(w + k * ldw + o), acc);
       if (kMode == kLinear) {
         out[r * ld_out + o] = acc;
         continue;
@@ -98,10 +102,10 @@ __device__ __forceinline__ void dense_layer(
       acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
     const float* wc = w + col;
     for (int k = 0; k < cin4; k += 4) {
-      const float4 w0 = __ldg(reinterpret_cast<const float4*>(wc + (k + 0) * cout));
-      const float4 w1 = __ldg(reinterpret_cast<const float4*>(wc + (k + 1) * cout));
-      const float4 w2 = __ldg(reinterpret_cast<const float4*>(wc + (k + 2) * cout));
-      const float4 w3 = __ldg(reinterpret_cast<const float4*>(wc + (k + 3) * cout));
+      const float4 w0 = __ldg(reinterpret_cast<const float4*>(wc + (k + 0) * ldw));
+      const float4 w1 = __ldg(reinterpret_cast<const float4*>(wc + (k + 1) * ldw));
+      const float4 w2 = __ldg(reinterpret_cast<const float4*>(wc + (k + 2) * ldw));
+      const float4 w3 = __ldg(reinterpret_cast<const float4*>(wc + (k + 3) * ldw));
 #pragma unroll
       for (int i = 0; i < kTM; ++i) {
         const float4 xv = *reinterpret_cast<const float4*>(x + i * ld_in + k);
@@ -124,7 +128,7 @@ __device__ __forceinline__ void dense_layer(
       }
     }
     for (int k = cin4; k < cin; ++k) {
-      const float4 wk = __ldg(reinterpret_cast<const float4*>(wc + k * cout));
+      const float4 wk = __ldg(reinterpret_cast<const float4*>(wc + k * ldw));
 #pragma unroll
       for (int i = 0; i < kTM; ++i) {
         const float xv = x[i * ld_in + k];
@@ -209,6 +213,18 @@ __device__ __forceinline__ void load_queries(const float* q, int nq, float* sq) 
   }
 }
 
+// Words of select_slots' scratch per query where it ranks: the distances
+// and the list of selected points.
+__host__ __device__ inline int select_words(int n, int nsample) {
+  return n + (nsample < n ? nsample : n);
+}
+
+// A distance's bits as an unsigned key that orders as the distance does
+// (distances are >= 0; -0 and +0 both map to 0).
+__device__ __forceinline__ unsigned dist_key(float d) {
+  return d == 0.0f ? 0u : __float_as_uint(d);
+}
+
 // sel[qi * nsample + slot] = the point in `slot` of query qi, for the nq
 // queries in sq (after a barrier that publishes sq): the nsample nearest of
 // the n points pts, a point's rank among the (distance, index) pairs being
@@ -216,15 +232,24 @@ __device__ __forceinline__ void load_queries(const float* q, int nq, float* sq) 
 // nsample >= n every point is taken: then, unless `ordered`, in index order
 // without ranking (the forward's max does not depend on the order; the
 // backward's first winner does). With `mask`, every slot whose exactly
-// recomputed distance exceeds r2 then reads point 0. dist: nq * n words of
-// shared memory, used when ranking. Ends with a barrier. sel may lie in
-// shared or device memory.
+// recomputed distance exceeds r2 then reads point 0. dist: nq *
+// select_words(n, nsample) words of shared memory, used when ranking. Ends
+// with a barrier. sel may lie in shared or device memory.
+//
+// Ranking, a warp per query: the k = min(nsample, n)-th smallest distance t
+// by a binary search on its bits (31 counts of the distances below a
+// candidate); the selected points, in index order, are those below t and
+// the first k - #{d < t} of those equal to t; a point's slot is its rank
+// among them alone (k^2 comparisons, where ranking every point would take
+// n^2).
 __device__ __forceinline__ void select_slots(const float* __restrict__ pts, const float* sq,
                                              int nq, int n, int nsample, bool mask,
                                              bool ordered, float r2, float* dist, int* sel) {
   const int tid = threadIdx.x;
   const int rows_total = nq * nsample;
   if (nsample < n || ordered) {
+    const int k = nsample < n ? nsample : n;
+    const int words = select_words(n, nsample);
     for (int e = tid; e < nq * n; e += kThreads) {
       const int qi = e / n, j = e % n;
       const float px = __ldg(pts + 3 * j), py = __ldg(pts + 3 * j + 1),
@@ -234,19 +259,54 @@ __device__ __forceinline__ void select_slots(const float* __restrict__ pts, cons
       const float cross = __fadd_rn(
           __fadd_rn(__fmul_rn(sq[4 * qi], px), __fmul_rn(sq[4 * qi + 1], py)),
           __fmul_rn(sq[4 * qi + 2], pz));
-      dist[e] = fmaxf(__fadd_rn(__fsub_rn(sq[4 * qi + 3], __fmul_rn(2.0f, cross)), pp), 0.0f);
+      dist[qi * words + j] =
+          fmaxf(__fadd_rn(__fsub_rn(sq[4 * qi + 3], __fmul_rn(2.0f, cross)), pp), 0.0f);
     }
     __syncthreads();
-    for (int e = tid; e < nq * n; e += kThreads) {
-      const int qi = e / n, j = e % n;
-      const float* d = dist + qi * n;
-      const float dj = d[j];
-      int rank = 0;
-      for (int i = 0; i < n; ++i) {
-        const float di = d[i];
-        rank += (di < dj || (di == dj && i < j)) ? 1 : 0;
+    const int lane = tid & 31;
+    const unsigned below = (1u << lane) - 1u;
+    for (int qi = tid >> 5; qi < nq; qi += kWarps) {
+      const float* d = dist + qi * words;
+      int* list = reinterpret_cast<int*>(dist + qi * words + n);
+      // t: the largest key with fewer than k keys below it (every key when k == n)
+      unsigned t = 0xffffffffu;
+      if (k < n) {
+        t = 0u;
+        for (int b = 30; b >= 0; --b) {
+          const unsigned x = t | (1u << b);
+          int c = 0;
+          for (int j = lane; j < n; j += 32) c += dist_key(d[j]) < x ? 1 : 0;
+          if (__reduce_add_sync(0xffffffffu, c) < k) t = x;
+        }
       }
-      if (rank < nsample) sel[qi * nsample + rank] = j;
+      int less = 0;
+      for (int j = lane; j < n; j += 32) less += dist_key(d[j]) < t ? 1 : 0;
+      int ties = k - __reduce_add_sync(0xffffffffu, less);
+      // the selected points in index order
+      int pos = 0;
+      for (int j0 = 0; j0 < n; j0 += 32) {
+        const int j = j0 + lane;
+        const unsigned kj = j < n ? dist_key(d[j]) : 0xffffffffu;
+        const bool tie = j < n && kj == t;
+        const unsigned tb = __ballot_sync(0xffffffffu, tie);
+        const bool take = (j < n && kj < t) || (tie && __popc(tb & below) < ties);
+        const unsigned sb = __ballot_sync(0xffffffffu, take);
+        if (take) list[pos + __popc(sb & below)] = j;
+        pos += __popc(sb);
+        ties -= __popc(tb);
+      }
+      __syncwarp();
+      // each one's slot: its rank among them, (distance, index) ascending
+      for (int e = lane; e < k; e += 32) {
+        const int j = list[e];
+        const unsigned kj = dist_key(d[j]);
+        int rank = 0;
+        for (int f = 0; f < k; ++f) {
+          const unsigned kf = dist_key(d[list[f]]);
+          rank += (kf < kj || (kf == kj && f < e)) ? 1 : 0;
+        }
+        sel[qi * nsample + rank] = j;
+      }
     }
     for (int e = tid; e < rows_total; e += kThreads)
       if (e % nsample >= n) sel[e] = 0;
@@ -272,6 +332,5 @@ __device__ __forceinline__ void select_slots(const float* __restrict__ pts, cons
   }
 }
 
-__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
 
 }  // namespace pcc_sa

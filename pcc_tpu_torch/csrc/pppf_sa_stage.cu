@@ -1,5 +1,5 @@
-// One PointNet++ set-abstraction stage, fused: selection, gather, ball mask,
-// the Conv + BatchNorm(eval) + ReLU stack and the max over samples, one launch.
+// One PointNet++ set-abstraction stage, fused: selection, ball mask, the
+// Conv + BatchNorm(eval) + ReLU stack and the max over samples, one launch.
 //
 // Replaces the TPU kernel pcc_tpu/ops/pppf_sa_pallas.py::_stage_kernel
 // (entry pppf_sa_fused). Per patch and query point it computes: the
@@ -12,37 +12,62 @@
 // relu(((x W + b) - mean) * mul + beta) and the max over the nsample rows.
 // Output [P, S, C_out].
 //
-// What bounds it on an H100: operations. The stack is 2 * nsample *
-// sum(cin * cout) FLOP per query against a few KB of input per patch, far
-// above the card's bytes-to-FLOP balance; in float32 on CUDA cores the floor
-// is FLOPs / 67 TFLOP/s.
-// What the design does about it: the grouped activations never leave the SM.
-// A block owns a few queries of one patch (as many as fill a tile of up to
-// 64 rows; one query when nsample is larger, its rows taken tile by tile).
-// The tile is cut so that two blocks share an SM (32 rows at the widest
-// stage): 16 resident warps hide the weight loads' latency, which one
-// 64-row block per SM does not.
-// It ranks the patch's points for its queries in shared memory (a point's
-// rank among (distance, index) pairs is its slot, so no sort and no
-// compaction), gathers a tile's rows, and runs the layers between two
-// activation buffers in shared memory. The last layer is never stored: each
-// thread folds its rows into a per-query maximum in shared memory (ReLU
-// outputs are >= 0, so an integer atomicMax on the float's bits, from 0, is
-// exact). Each layer is a register-tiled product on CUDA cores: a warp takes
-// 8 rows x 128 columns, a thread 8 rows x 4 columns, activations come as
-// 16-byte shared-memory broadcasts and weights as 16-byte loads through the
-// read-only cache (the weights of all layers, up to 3 MB, stay in L2; the 8
-// warps of a block read the same columns together). It is not a tensor-core
-// product (TF32 would not hold the 1e-4 agreement with the plain version);
-// larger register tiles where the tile allows them, and weights staged
-// through shared memory with asynchronous copies, are what a later, faster
-// version adds.
+// Layout "pppf", per point. A slot's row is its point's [feat | xyz],
+// uncentred, so its activations depend on the point alone, and the max over
+// a query's slots is the max over the set of points its slots read: its
+// selected in-ball points, and point 0 when a slot is masked or lies beyond
+// N (duplicates do not change a max). The work the function needs is the
+// stack on P * N point rows, 32x fewer than the P * S * nsample slot rows at
+// each PPPF-AE stage, plus the selection (9 FLOP per query-point distance,
+// where nsample < N) and one comparison per (query, slot, output channel)
+// for the max: about 267 GFLOP for the three stages at a 16-cloud batch
+// (P = 1024), 4.0 ms at 67 TFLOP/s.
+// What bounds it on an H100: operations (a few KB of input per patch against
+// MFLOPs of products), float32 on CUDA cores (TF32 would not hold the 1e-4
+// agreement with the plain version).
+// What the design does: a block owns one patch. It first selects, a group of
+// queries at a time, with pppf_sa_common.cuh::select_slots (a warp per
+// query: the nsample-th smallest distance by a binary search on its bits,
+// then the selected points ranked among themselves, nsample^2 comparisons
+// where ranking every point would take N^2), and keeps
+// each query's set as a bitmask over the patch's points (N / 32 words per
+// query). Then it runs the stack
+// on the patch's points in tiles of rows, with the register-tiled product of
+// pppf_sa_common.cuh (a thread 8 rows x 4 columns, 16-byte activation
+// broadcasts, 16-byte weight loads through the read-only cache; each output
+// summed in k-order from 0, so every point's activations are those of its
+// slots in the per-slot path, bit for bit). The BatchNorm affine and relu
+// apply per row before the max, since scales can be negative. The last layer
+// is never stored whole (128 points x 1024 channels would be 512 KB at the
+// widest stage): it runs a column chunk at a time into shared memory, and
+// each (8 queries, 4 channels) item walks the chunk's rows that any of its
+// queries holds (the set bits of their masks in the tile's range), each row
+// read once for the 8, into the queries' maxima in the output, which the
+// block alone owns (written at the first tile, read and rewritten at later
+// ones; relu outputs are >= 0, so a maximum from 0 is exact). Why a block per patch and not per patch x column tile: the
+// selection and every layer but the last would be repeated per column tile
+// (1.33x the products at the widest stage with two tiles), while P = 1024
+// patches at the serving batch already give about 4 waves of two blocks per
+// SM (2 at the train step's P = 512). Tiles are sized so that two blocks
+// share an SM (128 rows at sa1, 64 at sa2, 32 at sa3): 16 resident warps
+// hide the weight loads' latency (one block per SM with 64-row tiles, and
+// 16 rows a thread, were no faster over the three stages on an H100).
+//
+// Layout "pppe", and "pppf" where the queries' masks do not fit in shared
+// memory beside the smallest tile, per slot: its rows are centred
+// (xyz - query), so they depend on the slot. A block owns a few queries of
+// one patch (as many as fill a tile of up to 64 rows; one query when nsample
+// is larger, its rows taken tile by tile), gathers a tile's rows and runs the
+// layers between two activation buffers in shared memory; each thread folds
+// the last layer's rows into a per-query maximum in shared memory (integer
+// atomicMax on the float's bits, exact from 0).
 //
 // Selection is bit-equal to the plain PyTorch version
 // (pcc_tpu_torch/ops/pppf_sa_cuda.py::pppf_sa_plain): the same distance
 // formulas with one rounding per operation (__f*_rn intrinsics are never
 // contracted into FMAs). The products sum in another order, so outputs
-// agree to float32 rounding. The selection, the mask and the layer product
+// agree to float32 rounding; pppf_sa_cuda.py::stack_replay repeats the
+// kernel's own arithmetic. The selection, the mask and the layer product
 // live in pppf_sa_common.cuh, which the backward kernel shares.
 
 #include <cuda_runtime.h>
@@ -54,12 +79,14 @@ namespace {
 using namespace pcc_sa;
 
 // Blocks meant to share an SM: the registers allow two, and a tile is sized
-// so that two fit in the SM's shared memory too (32 rows at the widest
-// stage, 259 -> 256 -> 256 -> 512 -> 1024 with nsample 128, against one
-// block of 64 rows). Two blocks per SM and 8 rows per thread won on the sum
-// of the three PPPF-AE stages on an H100; 16 rows per thread was faster at
-// the widest stage alone and slower at the other two.
+// so that two fit in the SM's shared memory too. Two blocks per SM and 8 rows
+// per thread won on the sum of the three PPPF-AE stages on an H100 in the
+// per-slot form; 16 rows per thread was faster at the widest stage alone and
+// slower at the other two.
 constexpr int kMinBlocks = 2;
+// per-point tiles: whole multiples of kTM * kWarps rows (every warp takes a
+// row group of each 128-column chunk) up to this many, else multiples of kTM
+constexpr int kMaxPointRows = 128;
 
 struct Stage {
   const float* new_xyz;   // [P, S, 3]
@@ -69,8 +96,10 @@ struct Stage {
   int s, n, c, nsample, n_layers, pppe;
   float r2;
   int rows;               // rows per tile, a multiple of kTM
-  int qb;                 // queries per block
+  int qb;                 // per slot: queries per block; per point: queries per selection group
   int lda, ldb;           // row strides of the two activation buffers
+  int region;             // per point: words of the activation buffers and selection scratch
+  int cc;                 // per point: columns per chunk of the last layer
   int width[kMaxLayers + 1];
   const float* w[kMaxLayers];
   const float* b[kMaxLayers];
@@ -79,12 +108,14 @@ struct Stage {
   const float* beta[kMaxLayers];
 };
 
-// Shared memory, in 4-byte words: the two activation buffers, the per-query
-// maxima, the selected indices, the distances and the queries' coordinates.
+// Per slot, shared memory in 4-byte words: the two activation buffers, the
+// distances, the per-query maxima, the selected indices and the queries'
+// coordinates.
 __host__ __device__ inline size_t smem_words(int rows, int qb, int lda, int ldb, int cout,
                                              int n, int nsample) {
-  return static_cast<size_t>(rows) * (lda + ldb) + static_cast<size_t>(qb) * cout +
-         static_cast<size_t>(qb) * nsample + (nsample < n ? static_cast<size_t>(qb) * n : 0) +
+  return static_cast<size_t>(rows) * (lda + ldb) +
+         (nsample < n ? static_cast<size_t>(qb) * select_words(n, nsample) : 0) +
+         static_cast<size_t>(qb) * cout + static_cast<size_t>(qb) * nsample +
          static_cast<size_t>(qb) * 4;
 }
 
@@ -95,10 +126,11 @@ pppf_sa_stage_kernel(const __grid_constant__ Stage st) {
   const int cin = st.width[0];
   float* buf_a = smem;
   float* buf_b = buf_a + st.rows * st.lda;
-  int* qmax = reinterpret_cast<int*>(buf_b + st.rows * st.ldb);
+  float* dist = buf_b + st.rows * st.ldb;
+  int* qmax = reinterpret_cast<int*>(
+      dist + (st.nsample < st.n ? st.qb * select_words(st.n, st.nsample) : 0));
   int* sel = qmax + st.qb * cout;
-  float* dist = reinterpret_cast<float*>(sel + st.qb * st.nsample);
-  float* sq = dist + (st.nsample < st.n ? st.qb * st.n : 0);   // [qb][4]: x y z |q|^2
+  float* sq = reinterpret_cast<float*>(sel + st.qb * st.nsample);   // [qb][4]: x y z |q|^2
 
   const int tid = threadIdx.x;
   const int qblocks = (st.s + st.qb - 1) / st.qb;
@@ -138,20 +170,201 @@ pppf_sa_stage_kernel(const __grid_constant__ Stage st) {
       float* dst = (l & 1) ? buf_a : buf_b;
       const int ld_src = (l & 1) ? st.ldb : st.lda;
       const int ld_dst = (l & 1) ? st.lda : st.ldb;
+      const int w = st.width[l + 1];
       if (l == st.n_layers - 1) {
-        dense_layer<kQueryMax>(src, ld_src, st.rows, st.width[l], st.w[l], st.b[l], st.mu[l],
-                               st.mul[l], st.beta[l], st.width[l + 1], dst, ld_dst, qmax, row0,
+        dense_layer<kQueryMax>(src, ld_src, st.rows, st.width[l], st.w[l], w, st.b[l],
+                               st.mu[l], st.mul[l], st.beta[l], w, dst, ld_dst, qmax, row0,
                                rows_total, st.nsample, GlobalRows{});
       } else {
-        dense_layer<kStore>(src, ld_src, st.rows, st.width[l], st.w[l], st.b[l], st.mu[l],
-                            st.mul[l], st.beta[l], st.width[l + 1], dst, ld_dst, qmax, row0,
-                            rows_total, st.nsample, GlobalRows{});
+        dense_layer<kStore>(src, ld_src, st.rows, st.width[l], st.w[l], w, st.b[l], st.mu[l],
+                            st.mul[l], st.beta[l], w, dst, ld_dst, qmax, row0, rows_total,
+                            st.nsample, GlobalRows{});
       }
       __syncthreads();
     }
   }
   float* o = st.out + (static_cast<size_t>(p) * st.s + q0) * cout;
   for (int e = tid; e < nq * cout; e += kThreads) o[e] = __int_as_float(qmax[e]);
+}
+
+// Folds the rows [row0, row0 + valid) of the points, whose last-layer
+// columns [c0, c0 + cc) are t[r - row0][0 .. cc) (row stride ldt), into the
+// maxima out[q][c0 ..] (row stride ld_out) of the s queries, whose point sets
+// are the bitmasks masks[q][0 .. nw). At the first tile the maxima start
+// from 0. An item is kFoldQ queries x 4 columns (kVec, cc % 4 == 0) or 1: it
+// walks the points any of its queries holds, so that each activation read
+// from shared memory serves up to kFoldQ queries. No trailing barrier.
+constexpr int kFoldQ = 8;
+template <bool kVec>
+__device__ __forceinline__ void fold_query_max(const float* t, int ldt, int row0, int valid,
+                                               int cc, int c0, const unsigned* masks,
+                                               int nw, int s, float* out, int ld_out) {
+  constexpr int kV = kVec ? 4 : 1;
+  const int per_g = cc / kV;
+  const int groups = (s + kFoldQ - 1) / kFoldQ;
+  const int w0 = row0 >> 5, w1 = (row0 + valid + 31) >> 5;
+  for (int e = threadIdx.x; e < groups * per_g; e += kThreads) {
+    const int q0 = (e / per_g) * kFoldQ, o = (e % per_g) * kV;
+    float acc[kFoldQ][kV];
+#pragma unroll
+    for (int g = 0; g < kFoldQ; ++g)
+#pragma unroll
+      for (int v = 0; v < kV; ++v) acc[g][v] = 0.0f;
+    unsigned any = 0u;   // bit g: query q0 + g holds a point of the tile
+    for (int wi = w0; wi < w1; ++wi) {
+      // the bits of word wi that fall in the tile
+      const int lo = max(row0 - 32 * wi, 0), hi = min(row0 + valid - 32 * wi, 32);
+      const unsigned range = (0xffffffffu >> (32 - hi)) & (0xffffffffu << lo);
+      unsigned m[kFoldQ], u = 0u;
+#pragma unroll
+      for (int g = 0; g < kFoldQ; ++g) {
+        m[g] = q0 + g < s ? masks[(q0 + g) * nw + wi] & range : 0u;
+        u |= m[g];
+        any |= m[g] != 0u ? 1u << g : 0u;
+      }
+      while (u) {
+        const int b = __ffs(u) - 1;
+        u &= u - 1u;
+        const float* row = t + (32 * wi + b - row0) * ldt + o;
+        float x[kV];
+        if (kVec) {
+          const float4 v = *reinterpret_cast<const float4*>(row);
+          x[0] = v.x;
+          x[kV > 1 ? 1 : 0] = v.y;
+          x[kV > 2 ? 2 : 0] = v.z;
+          x[kV > 3 ? 3 : 0] = v.w;
+        } else {
+          x[0] = row[0];
+        }
+#pragma unroll
+        for (int g = 0; g < kFoldQ; ++g)
+          if ((m[g] >> b) & 1u)
+#pragma unroll
+            for (int v = 0; v < kV; ++v) acc[g][v] = fmaxf(acc[g][v], x[v]);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kFoldQ; ++g) {
+      if (q0 + g >= s || (row0 > 0 && !((any >> g) & 1u))) continue;
+      float* dst = out + static_cast<size_t>(q0 + g) * ld_out + c0 + o;
+#pragma unroll
+      for (int v = 0; v < kV; ++v) dst[v] = row0 == 0 ? acc[g][v] : fmaxf(acc[g][v], dst[v]);
+    }
+  }
+}
+
+// Layout "pppf", one block per patch: the queries' point sets, then the stack
+// on the patch's points tile by tile, the last layer folded into the maxima.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+pppf_sa_points_kernel(const __grid_constant__ Stage st) {
+  extern __shared__ __align__(16) float smem[];
+  const int L = st.n_layers, cout = st.width[L], cin = st.width[0];
+  const int n = st.n, s = st.s, ns = st.nsample, nw = (n + 31) >> 5;
+  const int tid = threadIdx.x;
+  const int p = blockIdx.x;
+  const float* pts = st.xyz + static_cast<size_t>(p) * n * 3;
+  const float* ft = st.feat ? st.feat + static_cast<size_t>(p) * n * st.c : nullptr;
+  unsigned* masks = reinterpret_cast<unsigned*>(smem + st.region);   // [s][nw]
+
+  // 1. each query's set: the points its slots read after the ball mask
+  // (masked slots and slots beyond N read point 0), as bits of its mask.
+  // The selection scratch aliases the activation buffers.
+  float* sq = smem;                                         // [qb][4]
+  float* dist = sq + 4 * st.qb;                             // where ns < n
+  int* sel = reinterpret_cast<int*>(dist + (ns < n ? st.qb * select_words(n, ns) : 0));
+  for (int e = tid; e < s * nw; e += kThreads) masks[e] = 0u;
+  for (int q0 = 0; q0 < s; q0 += st.qb) {
+    const int nq = min(st.qb, s - q0);
+    load_queries(st.new_xyz + (static_cast<size_t>(p) * s + q0) * 3, nq, sq);
+    __syncthreads();
+    select_slots(pts, sq, nq, n, ns, true, false, st.r2, dist, sel);
+    for (int e = tid; e < nq * ns; e += kThreads) {
+      const int j = sel[e];
+      atomicOr(masks + (q0 + e / ns) * nw + (j >> 5), 1u << (j & 31));
+    }
+  }
+  __syncthreads();
+
+  // 2. the stack on the points, tile by tile
+  float* buf_a = smem;
+  float* buf_b = buf_a + st.rows * st.lda;
+  float* o = st.out + static_cast<size_t>(p) * s * cout;
+  for (int row0 = 0; row0 < n; row0 += st.rows) {
+    const int valid = min(st.rows, n - row0);
+    for (int e = tid; e < st.rows * cin; e += kThreads) {
+      const int rl = e / cin, c = e % cin, j = row0 + rl;
+      float v = 0.0f;
+      if (rl < valid)
+        v = c < st.c ? __ldg(ft + static_cast<size_t>(j) * st.c + c)
+                     : __ldg(pts + 3 * j + (c - st.c));
+      buf_a[rl * st.lda + c] = v;
+    }
+    __syncthreads();
+    for (int l = 0; l < L - 1; ++l) {
+      const int w = st.width[l + 1];
+      dense_layer<kStore>((l & 1) ? buf_b : buf_a, (l & 1) ? st.ldb : st.lda, st.rows,
+                          st.width[l], st.w[l], w, st.b[l], st.mu[l], st.mul[l], st.beta[l], w,
+                          (l & 1) ? buf_a : buf_b, (l & 1) ? st.lda : st.ldb, nullptr, 0, 0, 1,
+                          GlobalRows{});
+      __syncthreads();
+    }
+    // the last layer, a column chunk at a time into the buffer it does not read
+    const int l = L - 1;
+    const float* src = (l & 1) ? buf_b : buf_a;
+    float* t = (l & 1) ? buf_a : buf_b;
+    const int ld_src = (l & 1) ? st.ldb : st.lda, ldt = (l & 1) ? st.lda : st.ldb;
+    for (int c0 = 0; c0 < cout; c0 += st.cc) {
+      const int cc = min(st.cc, cout - c0);
+      dense_layer<kStore>(src, ld_src, st.rows, st.width[l], st.w[l] + c0, cout, st.b[l] + c0,
+                          st.mu[l] + c0, st.mul[l] + c0, st.beta[l] + c0, cc, t, ldt, nullptr,
+                          0, 0, 1, GlobalRows{});
+      __syncthreads();
+      if (cout % 4 == 0) {
+        fold_query_max<true>(t, ldt, row0, valid, cc, c0, masks, nw, s, o, cout);
+      } else {
+        fold_query_max<false>(t, ldt, row0, valid, cc, c0, masks, nw, s, o, cout);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The per-point tile: the largest of up to kMaxPointRows rows (capped at the
+// patch's points rounded up to kTM) whose activation buffers, selection
+// scratch and masks fit in `budget` bytes. Sets st.rows, lda, ldb, region,
+// cc and qb; returns the bytes, or 0 if no tile fits.
+size_t point_tile(Stage& st, int lda0, int ldb0, size_t budget) {
+  const int L = st.n_layers, cout = st.width[L];
+  const int nw = (st.n + 31) / 32;
+  const size_t per_query =
+      4 + st.nsample + (st.nsample < st.n ? select_words(st.n, st.nsample) : 0);
+  const int cap = (st.n + kTM - 1) / kTM * kTM;
+  for (int rows = kMaxPointRows; rows >= kTM;
+       rows -= rows > kTM * kWarps ? kTM * kWarps : kTM) {
+    if (rows > cap && rows - kTM >= cap) continue;
+    // the last layer's column chunk: as many 128-column chunks as leave no
+    // warp without a row group
+    const int groups = rows / kTM;
+    int cc = 128 * (groups >= kWarps ? 1 : kWarps / groups);
+    if (cout % 4 != 0 || cc > cout) cc = cout;
+    int lda = lda0, ldb = ldb0;
+    int& ldt = ((L - 1) & 1) ? lda : ldb;
+    if (round4(cc) > ldt) ldt = round4(cc);
+    size_t region = static_cast<size_t>(rows) * (lda + ldb);
+    if (region < per_query) region = per_query;
+    const size_t bytes = (region + static_cast<size_t>(st.s) * nw) * sizeof(float);
+    if (bytes <= budget) {
+      st.rows = rows;
+      st.lda = lda;
+      st.ldb = ldb;
+      st.region = static_cast<int>(region);
+      st.cc = cc;
+      const size_t qb = region / per_query;
+      st.qb = qb < static_cast<size_t>(st.s) ? static_cast<int>(qb) : st.s;
+      return bytes;
+    }
+  }
+  return 0;
 }
 
 }  // namespace
@@ -183,6 +396,8 @@ extern "C" int pppf_sa_stage_launch(const float* new_xyz, const float* xyz, cons
   st.pppe = pppe;
   st.r2 = r2;
   st.lda = st.ldb = 4;
+  st.region = 0;
+  st.cc = 0;
   for (int l = 0; l <= n_layers; ++l) {
     if (widths[l] <= 0) return static_cast<int>(cudaErrorInvalidValue);
     st.width[l] = widths[l];
@@ -197,11 +412,29 @@ extern "C" int pppf_sa_stage_launch(const float* new_xyz, const float* xyz, cons
     }
   }
   const int cout = widths[n_layers];
-  // the largest tile of up to kMaxRows rows of which kMinBlocks fit in an SM's
-  // shared memory (a block is charged 1 KB more than it asks for); failing
-  // that, the largest of which one does
-  size_t bytes = 0;
+  // budgets: kMinBlocks blocks per SM (a block is charged 1 KB more than it
+  // asks for), failing that one
   const size_t budgets[2] = {(kSmemLimit + 1024) / kMinBlocks - 1024, kSmemLimit};
+  cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  if (!pppe) {
+    // per point, where the queries' masks fit beside a tile
+    const int lda0 = st.lda, ldb0 = st.ldb;
+    size_t bytes = 0;
+    for (int i = 0; i < 2 && bytes == 0; ++i) bytes = point_tile(st, lda0, ldb0, budgets[i]);
+    if (bytes > 0) {
+      cudaError_t err = cudaFuncSetAttribute(pppf_sa_points_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(bytes));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      pppf_sa_points_kernel<<<static_cast<unsigned>(p), kThreads, bytes, strm>>>(st);
+      return static_cast<int>(cudaGetLastError());
+    }
+    st.lda = lda0;
+    st.ldb = ldb0;
+  }
+  // per slot: the largest tile of up to kMaxRows rows of which kMinBlocks
+  // fit in an SM's shared memory; failing that, the largest of which one does
+  size_t bytes = 0;
   st.rows = 0;
   for (int i = 0; i < 2 && st.rows < kTM; ++i) {
     for (st.rows = kMaxRows; st.rows >= kTM; st.rows -= kTM) {
@@ -218,7 +451,6 @@ extern "C" int pppf_sa_stage_launch(const float* new_xyz, const float* xyz, cons
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  pppf_sa_stage_kernel<<<static_cast<unsigned>(blocks), kThreads, bytes,
-                         static_cast<cudaStream_t>(stream)>>>(st);
+  pppf_sa_stage_kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, strm>>>(st);
   return static_cast<int>(cudaGetLastError());
 }

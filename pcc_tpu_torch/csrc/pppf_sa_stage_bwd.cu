@@ -113,7 +113,7 @@ struct Bwd {
 __global__ void __launch_bounds__(kThreads) select_kernel(const __grid_constant__ Bwd st) {
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;                      // [qb][4]
-  float* dist = sq + 4 * st.qb;          // [qb][n]
+  float* dist = sq + 4 * st.qb;          // [qb][select_words(n, nsample)]
   const int qblocks = (st.s + st.qb - 1) / st.qb;
   const int p = blockIdx.x / qblocks;
   const int q0 = (blockIdx.x % qblocks) * st.qb;
@@ -152,7 +152,7 @@ forward_kernel(const __grid_constant__ Bwd st) {
     const GlobalRows g{st.act + st.act_off[l + 1] + off, st.t + st.t_off[l] + off,
                        st.ld[l + 1], valid};
     dense_layer<kStoreGlobal>(src, (l & 1) ? st.ldb : st.lda, st.rows, st.width[l], st.w[l],
-                              st.b[l], st.mu[l], st.mul[l], st.beta[l], st.width[l + 1], dst,
+                              st.width[l + 1], st.b[l], st.mu[l], st.mul[l], st.beta[l], st.width[l + 1], dst,
                               (l & 1) ? st.lda : st.ldb, nullptr, 0, 0, 1, g);
     __syncthreads();
   }
@@ -229,9 +229,9 @@ backward_kernel(const __grid_constant__ Bwd st) {
     float* dz = bufs[cur];
     float* dx = bufs[cur ^ 1];
     const int cin = st.width[l];
-    dense_layer<kLinear>(dz, lds[cur], st.rows_b, st.width[l + 1], st.wt[l], nullptr, nullptr,
-                         nullptr, nullptr, round4(cin), dx, lds[cur ^ 1], nullptr, 0, 0, 1,
-                         GlobalRows{});
+    dense_layer<kLinear>(dz, lds[cur], st.rows_b, st.width[l + 1], st.wt[l], round4(cin),
+                         nullptr, nullptr, nullptr, nullptr, round4(cin), dx, lds[cur ^ 1],
+                         nullptr, 0, 0, 1, GlobalRows{});
     __syncthreads();
     if (l > 0) {
       const int ld = st.ld[l];
@@ -435,7 +435,8 @@ extern "C" int pppf_sa_stage_bwd_launch(const float* new_xyz, const float* xyz,
   st.qb = 4096 / n > 0 ? 4096 / n : 1;
   if (st.qb > s) st.qb = s;
 
-  const size_t sel_bytes = static_cast<size_t>(st.qb) * (4 + n) * sizeof(float);
+  const size_t sel_bytes =
+      static_cast<size_t>(st.qb) * (4 + select_words(n, nsample)) * sizeof(float);
   const size_t fwd_bytes = static_cast<size_t>(st.rows) * (st.lda + st.ldb) * sizeof(float);
   const size_t bwd_bytes = static_cast<size_t>(st.rows_b) * (st.ldA + st.ldB) * sizeof(float);
   cudaError_t err;

@@ -18,14 +18,14 @@
 // FLOPs / 67 TFLOP/s.
 // What the design does about it: nothing of the grouped activations leaves
 // the SM. Each thread keeps one query's sorted top-knn in registers
-// while it scans the patch in shared memory; the MLP runs over chunks of
-// 16 query points, whose 16 x knn rows of layers 1 and 2 live in shared
-// memory with the MLP's weights (41 KB); layer 3, its relu and the max
-// over neighbours write each query's 128 features straight to device
-// memory, neighbouring threads on neighbouring channels. As in the
-// encoder, the products are the simple register-reuse form of dense.cuh on
-// CUDA cores and a block takes most of an SM's shared memory at N = 1024;
-// tensor cores and more blocks per SM are later work.
+// while it scans the patch in shared memory; the MLP runs over steps of 128
+// grouped rows (128 / knn query points), whose layers 1 and 2 live in
+// shared memory; layer 3, its relu and the max over neighbours write each
+// query's 128 features straight to device memory. Layers 2 and 3 are the
+// encoder's register-tiled products (dense.cuh::dense_tile; a thread takes
+// 8 rows, or one query's knn rows, x 4 columns), the weights are read
+// through the read-only cache, and a block takes 61 KB of shared memory at
+// N = 256, so that two share an SM. Tensor cores are later work.
 
 #include <cuda_runtime.h>
 
@@ -35,11 +35,10 @@ namespace {
 
 using namespace pcc;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = kEncThreads;
 
 struct Layout {
   int sx, sy, sz, sq;   // patch points (SoA) and squared norms
-  int sa;               // SetAbstraction weights and biases
   int h;                // grouped rows of layers 1 and 2
   int floats;           // float words before the neighbour table
   size_t bytes;         // total dynamic shared memory
@@ -52,8 +51,7 @@ inline Layout make_layout(int n, int knn) {
   L.sy = off; off += n;
   L.sz = off; off += n;
   L.sq = off; off += n;
-  L.sa = off; off += kEncSaW;
-  L.h = off; off += kEncQ * knn * (kEncC1 + kEncC2);
+  L.h = off; off += kEncSaRows * (kEncC1 + kEncC2);
   L.floats = off;
   L.bytes = static_cast<size_t>(off) * sizeof(float) +
             static_cast<size_t>(n) * knn * sizeof(unsigned short);
@@ -61,43 +59,28 @@ inline Layout make_layout(int n, int knn) {
 }
 
 template <int KNN>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 sa_fused_kernel(const float* __restrict__ pts, int n, Layout L,
                 const float* __restrict__ w1, const float* __restrict__ b1,
                 const float* __restrict__ w2, const float* __restrict__ b2,
                 const float* __restrict__ w3, const float* __restrict__ b3,
                 float* __restrict__ out) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* sx = smem + L.sx;
   float* sy = smem + L.sy;
   float* sz = smem + L.sz;
   float* sq = smem + L.sq;
-  float* sw1 = smem + L.sa;                // weights, in load_sa_weights' order
-  float* sb1 = sw1 + 3 * kEncC1;
-  float* sw2 = sb1 + kEncC1;
-  float* sb2 = sw2 + kEncC1 * kEncC2;
-  float* sw3 = sb2 + kEncC2;
-  float* sb3 = sw3 + kEncC2 * kEncC3;
-  float* h1 = smem + L.h;                  // [kEncQ*KNN, kEncC1]
-  float* h2 = h1 + kEncQ * KNN * kEncC1;   // [kEncQ*KNN, kEncC2]
+  float* h1 = smem + L.h;                     // [kEncSaRows, kEncC1]
+  float* h2 = h1 + kEncSaRows * kEncC1;       // [kEncSaRows, kEncC2]
   unsigned short* nbr = reinterpret_cast<unsigned short*>(smem + L.floats);
-  constexpr int kRows = kEncQ * KNN;
 
-  load_sa_weights(w1, b1, w2, b2, w3, b3, sw1);
   load_patch(pts + static_cast<size_t>(blockIdx.x) * n * 3, n, sx, sy, sz, sq);
   select_knn<KNN>(sx, sy, sz, sq, n, nbr);
   float* feats = out + static_cast<size_t>(blockIdx.x) * n * kEncC3;
-
-  for (int c0 = 0; c0 < n; c0 += kEncQ) {
-    // h1 is free: the previous chunk's layer 2 read it before the barrier
-    // that ended it; h2 is free after the barrier below
-    sa_layer1<KNN>(kEncQ, QueryRange{c0}, nbr, sx, sy, sz, sw1, sb1, h1);
-    __syncthreads();
-    dense_rows<8, true, false>(h1, kEncC1, kRows, kEncC1, sw2, sb2, kEncC2, h2, kEncC2);
-    __syncthreads();
-    dense_relu_groupmax<KNN, false>(h2, kEncC2, kEncQ, kEncC2, sw3, sb3, kEncC3,
-                                    feats + static_cast<size_t>(c0) * kEncC3, kEncC3);
-  }
+  // n % kEncQ == 0, and a step's kEncSaRows / KNN queries divide kEncQ
+  for (int c0 = 0; c0 < n; c0 += kEncSaRows / KNN)
+    sa_step<KNN>(QueryRange{c0}, nbr, sx, sy, sz, w1, b1, w2, b2, w3, b3, h1, h2,
+                 feats + static_cast<size_t>(c0) * kEncC3, kEncC3);
 }
 
 template <int KNN>

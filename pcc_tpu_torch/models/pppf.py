@@ -97,11 +97,25 @@ class PointNetPP(nn.Module):
         return xyz, feat.amax(dim=1)                         # [B, feature_dim]
 
 
+def grid_line(d: int) -> np.ndarray:
+    """The d values of the FoldingNet grid's line in [-1, 1], float32, as
+    pcc_tpu's jitted programs compute jnp.linspace(-1, 1, d): s = i * f32(1 /
+    (d - 1)), then s - (1 - s), one rounding each, and the last value exactly
+    1. (numpy's float32 linspace differs from it in the last place in 11 of
+    16 values at d = 16.)"""
+    if d == 1:
+        return np.full(1, -1.0, np.float32)
+    s = np.arange(d, dtype=np.float32) * np.float32(1.0 / (d - 1))
+    line = s - (np.float32(1.0) - s)
+    line[-1] = 1.0
+    return line
+
+
 class FoldingNet(nn.Module):
     """Two-stage folding decoder over a grid_size^2 2D grid in [-1, 1]^2
-    (PPPF_AE.py:50-109): [B, F] latent -> [B, grid_size^2, 3]. The grid is
-    numpy's float32 linspace; pcc_tpu's jnp.linspace may differ from it in
-    the last place, which the parity tests accept inside their tolerance."""
+    (PPPF_AE.py:50-109): [B, F] latent -> [B, grid_size^2, 3]. The grid's
+    line is `grid_line`, bit-equal to the jnp.linspace(-1, 1, d) of
+    pcc_tpu's jitted programs."""
 
     def __init__(self, points: int = 512, grid_size: int = 45, feature_dim: int = 1024):
         super().__init__()
@@ -118,7 +132,7 @@ class FoldingNet(nn.Module):
     def forward(self, latent: torch.Tensor) -> torch.Tensor:
         B = latent.shape[0]
         n = self.grid_size * self.grid_size
-        line = np.linspace(-1.0, 1.0, self.grid_size, dtype=np.float32)
+        line = grid_line(self.grid_size)
         gx, gy = np.meshgrid(line, line, indexing="ij")
         grid = torch.from_numpy(np.stack([gx, gy], axis=-1).reshape(1, n, 2)).to(
             latent.device).expand(B, n, 2)

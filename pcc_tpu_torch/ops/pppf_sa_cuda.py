@@ -98,15 +98,41 @@ def pppf_sa_plain(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
 
 
 def stage_flops(P: int, S: int, N: int, nsample: int, widths) -> float:
-    """Operations of one stage: 9 per (query, point) distance pair where a
-    selection is made (nsample < N; otherwise every point is taken), 2 per
-    multiply-add of the stack plus 5 per output of a layer (bias, the
-    BatchNorm affine, relu). Masked slots count as full rows although those
-    of a patch all share point 0's activation, so this is an upper count of
-    the work the function needs."""
+    """Operations the "pppf" stage needs, as the kernel computes it per point:
+    the stack on the P * N point rows (2 per multiply-add, 5 per output of a
+    layer: bias, the BatchNorm affine, relu), 9 per (query, point) distance
+    pair where a selection is made (nsample < N; otherwise every point is
+    taken), and one comparison per (query, slot, output channel) for the
+    max. A slot's activations are its point's, so the P * S * nsample slot
+    rows need no more than this."""
     macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
     dist = 9.0 * N if nsample < N else 0.0
-    return P * S * (dist + nsample * (2.0 * macs + 5.0 * sum(widths[1:])))
+    return (P * N * (2.0 * macs + 5.0 * sum(widths[1:]))
+            + P * S * (dist + nsample * widths[-1]))
+
+
+def pppf_sa_points(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *, nsample: int,
+                   radius: float, replay: bool = False) -> torch.Tensor:
+    """The "pppf" stage per point, as csrc/pppf_sa_stage.cu computes it: the
+    layer stack once on each point's row [feat | xyz], then each query's max
+    over the points its slots read (`ball_query`: masked slots and slots
+    beyond N read point 0) -> [P, S, C_out]. With `replay` the stack is
+    `stack_replay`, the kernels' float32 arithmetic; otherwise plain products
+    in the inputs' dtype. Equal to `pppf_sa_plain`, which evaluates the stack
+    per slot, up to the order of the products' sums."""
+    rows = xyz if feat is None else torch.cat([feat, xyz], dim=-1)
+    if replay:
+        act = stack_replay(rows, layers)[-1]
+    else:
+        act = rows
+        for w, b, mean, mul, bias in layers:
+            act = torch.relu(((act @ w + b) - mean) * mul + bias)
+    S, cout = new_xyz.shape[1], act.shape[-1]
+    chunk = max(1, PLAIN_ELEMS // (S * nsample * cout))
+    return torch.cat([
+        knn_gather(act[s:s + chunk], ball_query(new_xyz[s:s + chunk], xyz[s:s + chunk],
+                                                 nsample, radius)).amax(dim=2)
+        for s in range(0, xyz.shape[0], chunk)])
 
 
 def _round4(v: int) -> int:
@@ -153,7 +179,7 @@ def _check(new_xyz, xyz, feat, layers, nsample: int, layout: str, name: str = "p
         widths.append(w.shape[1])
     pad4 = [_round4(v) for v in widths[:-1]]
     words = (MIN_TILE_ROWS * (max(pad4[0::2]) + max(pad4[1::2], default=4)) + widths[-1] + nsample
-             + (N if nsample < N else 0) + 4)
+             + (N + min(N, nsample) if nsample < N else 0) + 4)
     if words > SMEM_WORDS:
         raise ValueError(f"{name}: widths {widths} with nsample={nsample}, N={N} "
                          f"need {4 * words} bytes of shared memory for the smallest tile "

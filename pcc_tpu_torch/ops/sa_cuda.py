@@ -117,6 +117,8 @@ def sa_fused(patches: torch.Tensor, sa_wb, knn: int) -> torch.Tensor:
     for i, t in enumerate(flat):
         cuda_lib.require_cuda(f"sa_fused {'bias' if i % 2 else 'weight'}", t, torch.float32,
                               1 if i % 2 else 2)
+    if any(t.data_ptr() % 16 for t in flat):
+        raise ValueError("sa_fused: weights and biases must be 16-byte aligned")
     out = torch.empty((P, N, SA_WIDTHS[-1]), dtype=torch.float32, device=patches.device)
     cuda_lib.launch("sa_fused", _SA_ARGTYPES, patches.data_ptr(), P, N, knn,
                     *[t.data_ptr() for t in flat], out.data_ptr(),
@@ -200,6 +202,8 @@ def _kernel_args(name: str, patches: torch.Tensor, sa_wb, pn_wb, knn: int) -> li
     for i, t in enumerate(flat):
         cuda_lib.require_cuda(f"{name} {'bias' if i % 2 else 'weight'}", t, torch.float32,
                               1 if i % 2 else 2)
+    if any(t.data_ptr() % 16 for t in flat):
+        raise ValueError(f"{name}: weights and biases must be 16-byte aligned")
     return [t.data_ptr() for t in flat]
 
 

@@ -17,7 +17,7 @@ from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.decoder_cuda import patch_decoder, patch_decoder_plain
 from pcc_tpu_torch.ops.fps import fps_batch, fps_plain
 from pcc_tpu_torch.ops.pppf_sa_cuda import (pppf_sa_bwd, pppf_sa_bwd_plain, pppf_sa_fused,
-                                            pppf_sa_plain)
+                                            pppf_sa_plain, pppf_sa_points, stack_replay)
 from pcc_tpu_torch.ops.sa_cuda import (patch_encoder, patch_encoder_bwd,
                                        patch_encoder_bwd_plain, patch_encoder_plain)
 
@@ -68,6 +68,7 @@ def test_patch_encoder_kernel(dev, P, N, knn, D):
     out = patch_encoder(pts, sa, pn, knn)
     torch.testing.assert_close(out, patch_encoder_plain(pts, sa, pn, knn),
                                atol=1e-5, rtol=0)
+    assert torch.equal(patch_encoder(pts, sa, pn, knn), out)
 
 
 def _flat(dp, dsa, dpn):
@@ -170,9 +171,10 @@ def test_codec_card_streams_match_cpu(dev):
     np.testing.assert_array_equal(cpu.decode_symbols(recs, [p for p, _, _ in a]), sym)
 
 
-def _stage_layers(g, widths, dev, negative=True):
+def _stage_layers(g, widths, dev, negative=True, share=0.5):
     """(W, b, mean, mul, bias) per layer with non-trivial BatchNorm
-    statistics; with `negative` about half the multipliers are below 0."""
+    statistics; with `negative` about `share` of the multipliers are below
+    0."""
     out = []
     for a, b in zip(widths[:-1], widths[1:]):
         bound = a ** -0.5
@@ -180,8 +182,10 @@ def _stage_layers(g, widths, dev, negative=True):
         bias = (torch.rand(b, generator=g) * 2 - 1) * bound
         mean = (torch.rand(b, generator=g) - 0.5) * 0.2
         mul = torch.rand(b, generator=g) + 0.5
-        if negative:
+        if negative and share == 0.5:
             mul = mul * (torch.randint(0, 2, (b,), generator=g) * 2 - 1)
+        elif negative:
+            mul = mul * torch.where(torch.rand(b, generator=g) < share, -1.0, 1.0)
         beta = (torch.rand(b, generator=g) - 0.3) * 0.5
         out.append(tuple(t.to(dev) for t in (w, bias, mean, mul, beta)))
     return out
@@ -235,6 +239,61 @@ def test_pppf_sa_stage_all_slots_outside_radius(dev):
     ref = pppf_sa_plain(new_xyz, xyz, feat, layers, nsample=16, radius=0.2)
     assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
     assert torch.equal(out, out[:, :1].expand_as(out))
+
+
+def _ulps(got, want):
+    """The entries of got that differ from want, and those by more than one ulp."""
+    diff = (got - want).abs()
+    ulp = torch.nextafter(want.abs(), torch.tensor(float("inf"), device=want.device)) - want.abs()
+    return int((diff > 0).sum()), int((diff > ulp).sum())
+
+
+# (case, P, S, N, C, nsample, radius, widths after the input) for the
+# per-point "pppf" kernel: many masked slots (point 0 joins the sets);
+# nsample > N (64 of 32 points); nsample = N (sa3 at full width); a quarter
+# of the BatchNorm scales negative; one query whose ball holds only point 0
+_POINT_CASES = [
+    ("masked", 4, 64, 128, 13, 32, 0.08, (32, 64)),
+    ("ns_gt_n", 3, 16, 32, 5, 64, 0.5, (16, 16, 24)),
+    ("ns_eq_n", 2, 32, 128, 256, 128, 0.8, (256, 256, 512, 1024)),
+    ("quarter_negative", 3, 128, 256, 0, 32, 0.2, (64, 64, 128)),
+    ("only_point0", 3, 8, 64, 7, 16, 0.05, (16, 32)),
+]
+
+
+@pytest.mark.parametrize("case,P,S,N,C,nsample,radius,widths", _POINT_CASES)
+def test_pppf_sa_stage_per_point(dev, case, P, S, N, C, nsample, radius, widths):
+    """The "pppf" kernel evaluates each point once and takes each query's
+    max over its point set: within 1e-4 of the per-slot plain version's
+    largest entry, and bit for bit the per-point replay of its arithmetic
+    (stack_replay on the points, then the max over each ball_query set), but
+    for at most one ulp where the float64 emulation of a fused multiply-add
+    double-rounds; two launches bitwise equal."""
+    g = torch.Generator().manual_seed(8)
+    xyz = torch.rand((P, N, 3), generator=g)
+    new_xyz = xyz[:, torch.randint(0, N, (S,), generator=g)].clone()
+    if case == "only_point0":
+        # point 0 alone within the radius of query 0
+        xyz[:, 1:] += 3 * radius * (xyz[:, 1:] - xyz[:, :1]).sign()
+        new_xyz[:, 0] = xyz[:, 0]
+    xyz, new_xyz = xyz.to(dev), new_xyz.contiguous().to(dev)
+    feat = torch.rand((P, N, C), generator=g).to(dev) if C else None
+    layers = _stage_layers(g, (C + 3,) + tuple(widths), dev,
+                           share=0.25 if case == "quarter_negative" else 0.5)
+    kw = dict(nsample=nsample, radius=radius)
+    before = cuda_lib.launches["pppf_sa_stage"]
+    out = pppf_sa_fused(new_xyz, xyz, feat, layers, **kw)
+    assert cuda_lib.launches["pppf_sa_stage"] == before + 1
+    ref = pppf_sa_plain(new_xyz, xyz, feat, layers, **kw)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    differ, beyond = _ulps(out, pppf_sa_points(new_xyz, xyz, feat, layers, replay=True, **kw))
+    assert beyond == 0, (differ, beyond)
+    assert torch.equal(pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), out)
+    if case == "only_point0":
+        rows = xyz[:, :1] if feat is None else torch.cat([feat[:, :1], xyz[:, :1]], dim=-1)
+        assert torch.equal(out[:, 0], stack_replay(rows, layers)[-1][:, 0])
+    if case == "masked":
+        assert bool((out[:, 1:] != out[:, :1]).any())
 
 
 @pytest.mark.parametrize("case", ["points", "layers", "width", "feat", "layout", "cpu_layer"])
@@ -445,6 +504,7 @@ def test_sa_fused_kernel(dev, P, N, knn):
     sa = _wb(g, [3, 32, 64, 128], dev)
     out = sa_fused(pts, sa, knn)
     torch.testing.assert_close(out, sa_fused_plain(pts, sa, knn), atol=1e-5, rtol=0)
+    assert torch.equal(sa_fused(pts, sa, knn), out)
     module = SetAbstraction(knn=knn, fused=True).to(dev)
     with torch.no_grad():
         for conv, (w, b) in zip(module.convs(), sa):

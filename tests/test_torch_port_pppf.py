@@ -6,9 +6,11 @@ interpreter at the three stage shapes of tests/test_pppf_sa_pallas.py, in
 both layouts, with non-trivial BatchNorm statistics and negative scales, at
 atol 1e-5 (float32 sums in another order). The models run on pcc_tpu's XLA
 path on the port's seeded weights moved through pcc_tpu_torch.weights, at
-atol 2e-5; that
-bar also covers FoldingNet's grid, numpy's float32 linspace in the port and
-jnp.linspace in pcc_tpu. The weight bridge is checked bitwise. Last, one
+atol 2e-5.
+FoldingNet's grid is held bit-equal to pcc_tpu's jitted one. The per-point
+form of the "pppf" stage (the stack on each point once, then each query's
+max over its points) is held equal to the per-slot plain version in
+float64. The weight bridge is checked bitwise. Last, one
 in-process CLI round trip with --model PPPF-AE from an ae.pkl / prob.pkl
 that pcc_tpu wrote.
 """
@@ -25,6 +27,7 @@ import torch
 
 from pcc_tpu.cli.import_torch_checkpoint import (convert_pppf_ae_state_dict,
                                                  convert_pppf_prob_state_dict)
+from pcc_tpu.models.pppf import FoldingNet as JFoldingNet
 from pcc_tpu.models.pppf import PPPF_AE as JPPPF_AE
 from pcc_tpu.models.pppf import PPPFConditionalProbabilityModel as JPPPFProb
 from pcc_tpu.ops.knn import ball_query as j_ball_query
@@ -34,9 +37,10 @@ from pcc_tpu_torch.codec import init_params
 from pcc_tpu_torch.config import CodecConfig
 from pcc_tpu_torch.io import read_point_cloud, save_point_cloud
 from pcc_tpu_torch.models.layers import torch_dense_init_
-from pcc_tpu_torch.models.pppf import PPPF_AE, PPPFConditionalProbabilityModel
+from pcc_tpu_torch.models.pppf import FoldingNet, PPPF_AE, PPPFConditionalProbabilityModel
 from pcc_tpu_torch.ops.knn import ball_query
-from pcc_tpu_torch.ops.pppf_sa_cuda import fold_bn, pppf_sa_fused, pppf_sa_plain
+from pcc_tpu_torch.ops.pppf_sa_cuda import (fold_bn, pppf_sa_fused, pppf_sa_plain,
+                                            pppf_sa_points)
 from pcc_tpu_torch.weights import from_jax_params, load_inference_params, to_jax_params
 
 
@@ -161,6 +165,84 @@ def test_fold_bn_matches_pcc_tpu():
     for a, b in zip(fold_bn(bn), ref):
         # rsqrt may round its last place differently in the two libraries
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=3e-7, atol=0)
+
+
+# (S, N, nsample, radius, query offset, widths after the input): patches of
+# K = 32 points; a stage at nsample > N; one whose queries lie outside every
+# point's radius (each slot reads point 0)
+_POINT_CASES = [
+    (16, 32, 8, 0.3, 0.0, (16, 16, 32)),
+    (8, 32, 64, 0.5, 0.0, (16, 24)),
+    (8, 32, 16, 0.2, 5.0, (16, 16, 32)),
+]
+
+
+@pytest.mark.parametrize("S,N,nsample,radius,offset,widths", _POINT_CASES)
+def test_stage_per_point_equals_plain_in_float64(S, N, nsample, radius, offset, widths):
+    """The "pppf" stage's per-point form (the stack once on each point's
+    row, then each query's max over the points its slots read, point 0 for
+    a masked slot or one beyond N), which the stage kernel computes, equals
+    the per-slot plain version: in float64 no sum or tie rounds differently."""
+    rng = np.random.default_rng(17)
+    P, C = 3, 5
+    xyz = rng.random((P, N, 3))
+    new_xyz = xyz[:, rng.permutation(N)[:S]] + offset
+    feat = rng.random((P, N, C))
+    layers, cin = [], C + 3
+    for cout in widths:
+        sign = np.where(rng.random(cout) < 0.25, -1.0, 1.0)
+        layers.append(tuple(torch.from_numpy(a) for a in (
+            (rng.random((cin, cout)) * 2 - 1) * cin ** -0.5, rng.random(cout) * 0.2 - 0.1,
+            rng.standard_normal(cout) * 0.1, (rng.random(cout) + 0.5) * sign,
+            (rng.random(cout) - 0.3) * 0.2)))
+        cin = cout
+    args = (torch.from_numpy(new_xyz), torch.from_numpy(xyz), torch.from_numpy(feat), layers)
+    ref = pppf_sa_plain(*args, nsample=nsample, radius=radius)
+    out = pppf_sa_points(*args, nsample=nsample, radius=radius)
+    assert out.dtype == torch.float64 and out.shape == (P, S, widths[-1])
+    assert torch.equal(out, ref)
+    if offset:
+        # every slot reads point 0: each query gives point 0's activation
+        assert torch.equal(out, out[:, :1].expand_as(out))
+    else:
+        assert 0 < float((out > 0).double().mean()) < 1
+
+
+@pytest.mark.parametrize("d", [8, 16, 45])
+def test_folding_grid_bit_equal_to_jitted_pcc_tpu(d):
+    """FoldingNet on both sides, pcc_tpu's jitted, with weights that carry
+    the grid through exactly (products with 0 and +-1, sums with zeros): the
+    decoded points are the grid [gx, gy, 0], bit-equal."""
+    F = 4
+
+    def carry(cin, width):
+        # relu(+-gx), relu(+-gy) in the first layer, identity, then
+        # gx = relu(gx) - relu(-gx) and gy alike
+        first = np.zeros((cin, width), np.float32)
+        first[0, 0], first[0, 1], first[1, 2], first[1, 3] = 1, -1, 1, -1
+        last = np.zeros((width, 3), np.float32)
+        last[0, 0], last[1, 0], last[2, 1], last[3, 1] = 1, -1, 1, -1
+        return first, np.eye(width, dtype=np.float32), last
+
+    kernels = {"mlp1": carry(2 + F, 8), "mlp2": carry(3 + F, 128)}
+    params = {"params": {mlp: {f"dense_{i}": {"linear": {
+        "kernel": jnp.asarray(k), "bias": jnp.zeros(k.shape[1], jnp.float32)}}
+        for i, k in enumerate(ks)} for mlp, ks in kernels.items()}}
+    latent = np.zeros((2, F), np.float32)
+    ref = np.asarray(jax.jit(JFoldingNet(points=8, grid_size=d, feature_dim=F).apply)(
+        params, jnp.asarray(latent)))
+    tm = FoldingNet(points=8, grid_size=d, feature_dim=F)
+    with torch.no_grad():
+        for mlp, ks in kernels.items():
+            convs = [m for m in getattr(tm, mlp) if hasattr(m, "kernel")]
+            for conv, k in zip(convs, ks):
+                conv.weight.copy_(torch.from_numpy(k.T.copy()).view(conv.weight.shape))
+                conv.bias.zero_()
+        out = tm(torch.from_numpy(latent)).numpy()
+    assert out.shape == ref.shape == (2, d * d, 3)
+    line = out[0, ::d, 0]
+    assert line[0] == -1.0 and line[-1] == 1.0 and np.all(np.diff(line) > 0)
+    np.testing.assert_array_equal(out, ref)
 
 
 @pytest.mark.parametrize("S,N,K,radius", [(16, 64, 8, 0.2), (8, 32, 32, 0.4), (8, 16, 24, 0.8)])
