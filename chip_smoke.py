@@ -27,8 +27,10 @@ Phases (any failed check raises, and the script exits non-zero):
      bit-equal; encoder latents and decoder points within 1e-4; the encoder
      also against sa_cuda.py::_kernel_choices, its arithmetic replayed, on
      REPLAY_PATCHES patches: the count of entries that differ, each within
-     one ulp), with CUDA event times, the plain version's time and the
-     card's lower bound;
+     one ulp; with its winners output, the latents bit-equal and the
+     winners the plain version's on those patches), with CUDA event times
+     (the encoder's also with the winners output), the plain version's time
+     and the card's lower bound;
   5. two of the clouds on the CPU port: .s.bin/.c.bin byte-equal to the
      card's, the card's .p.bin decoded to the card encoder's symbols, and
      decoded clouds within one int8 step;
@@ -40,8 +42,13 @@ Phases (any failed check raises, and the script exits non-zero):
      parameters moved; median step time and points/s; one step under
      torch.profiler;
   7. the backward kernel vs its plain version on the step's own patches
-     [512, 256, 3] and its real cotangent: every output within
-     TOL_BWD * max|plain|, two launches bitwise equal, CUDA-event times;
+     [512, 256, 3], the winners its forward handed over and its real
+     cotangent (with the step's weights): the winners equal to the forward
+     kernel's again and to the plain version's, the backward on them bit
+     for bit the backward that gets them itself (winners=None), every
+     output within TOL_BWD * max|plain|, two launches bitwise equal,
+     CUDA-event times; the forward's time with and without the winners
+     output;
   8. one train step at the CPU tests' TINY config on the card and on the
      CPU port, same weights and FPS starts (the card's step launches the
      chamfer kernels once each): loss to 1e-5 relative, every parameter's
@@ -81,7 +88,9 @@ Phases (any failed check raises, and the script exits non-zero):
      step's own stage inputs and cotangents (sa1, sa2, sa3 at P = 512):
      every output within TOL_BWD of the plain version's largest entry, two
      launches bitwise equal, CUDA-event times, the plain version's time and
-     the card's lower bound;
+     the card's lower bound (with the dx and dW products as 3xTF32 on the
+     tensor cores, and all in float32 beside it); each stage's launches'
+     device times under torch.profiler;
  14. a warm-up step and a fused step at TINY_PPPF on the card and on the
      CPU port, each from the same fresh weights and FPS starts
      (compare_train_states; each card step launches the chamfer kernels
@@ -145,11 +154,11 @@ from pcc_tpu_torch.ops.fps import fps_batch, fps_plain
 from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
 from pcc_tpu_torch.ops.pppf_sa_cuda import (PPPFStageFn, pppf_sa_bwd, pppf_sa_bwd_plain,
                                             pppf_sa_fused, pppf_sa_plain, pppf_sa_points,
-                                            stage_bwd_flops, stage_flops)
-from pcc_tpu_torch.ops.sa_cuda import (PatchEncoderFn, _kernel_choices, patch_encoder,
-                                       patch_encoder_bwd, patch_encoder_bwd_plain,
+                                            stage_bwd_flops, stage_bwd_work, stage_flops)
+from pcc_tpu_torch.ops.sa_cuda import (PatchEncoderFn, _kernel_choices, _unflatten,
+                                       patch_encoder, patch_encoder_bwd, patch_encoder_bwd_plain,
                                        patch_encoder_plain, pointwise_plain, sa_fused,
-                                       sa_fused_plain)
+                                       sa_fused_plain, winners_plain)
 from pcc_tpu_torch.train import build_pppf_train_step, build_train_step, create_train_state
 from pcc_tpu_torch.train.state import make_optimizer
 
@@ -158,6 +167,7 @@ N_CLOUDS = 64
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12   # dense, on the tensor cores
 TOL = 1e-4   # float32 sums in another order than cuBLAS / the CPU
 # patches on which a kernel is held bit for bit to its replay in the kernels'
 # own arithmetic (fma_matmul's float64 emulation of each fused multiply-add
@@ -389,24 +399,52 @@ def train_phase(dev, smi: str):
     backward = PatchEncoderFn.backward
 
     def recording(ctx, g):
-        rec["patches"], rec["g"] = ctx.saved_tensors[0], g.contiguous()
+        # the weights as this step's forward saw them (the optimizer then
+        # updates them in place)
+        patches, winners, *wb = ctx.saved_tensors
+        rec.update(patches=patches, winners=winners, g=g.contiguous(),
+                   wb=[t.detach().clone() for t in wb])
         return backward(ctx, g)
 
     PatchEncoderFn.backward = staticmethod(recording)
     step(state, batch, starts(), TRAIN_LAM)
     PatchEncoderFn.backward = staticmethod(backward)
-    return state, rec["patches"], rec["g"], launches["patch_encoder_bwd"]
+    return state, rec, launches["patch_encoder_bwd"]
 
 
-def backward_kernel_check(state, patches, g, launches: int) -> dict:
+def backward_kernel_check(rec: dict, launches: int) -> dict:
     """Phase 7: the backward kernel vs its plain version on the train
-    step's own inputs; its record for the kernels line."""
+    step's own inputs (patches, the winners its forward handed over,
+    cotangent); its record for the kernels line."""
     cfg = CodecConfig()
     knn = cfg.sa_knn
+    patches, win, g = rec["patches"], rec["winners"], rec["g"]
+    sa_wb, pn_wb = _unflatten(rec["wb"])
     with torch.no_grad():
-        sa_wb = [(w.detach(), b.detach()) for w, b in state.ae.sa.layers()]
-        pn_wb = [(w.detach(), b.detach()) for w, b in state.ae.pn.layers()]
-    a = flat_grads(patch_encoder_bwd(patches, g, sa_wb, pn_wb, knn))
+        # the hand-over: the step's winners are the forward kernel's and the
+        # plain version's, and the backward on them is the backward that
+        # gets them itself, bit for bit
+        lat, again_win = patch_encoder(patches, sa_wb, pn_wb, knn, return_winners=True)
+        if not (torch.equal(again_win, win)
+                and torch.equal(lat, patch_encoder(patches, sa_wb, pn_wb, knn))):
+            raise RuntimeError("patch_encoder's winners output differs from the step's, or "
+                               "changes its latents")
+        plain_win = torch.cat([winners_plain(p, i, pointwise_plain(p, i, sa_wb, pn_wb), sa_wb,
+                                             pn_wb)
+                               for p in torch.split(patches, 64)
+                               for i in [select_nearest(sq_dists(p, p), knn)]])
+        n_win = int((plain_win != win.long()).sum())
+        if n_win:
+            raise RuntimeError(f"{n_win} of the forward kernel's winners differ from the "
+                               "plain version's")
+    a = flat_grads(patch_encoder_bwd(patches, g, sa_wb, pn_wb, knn, winners=win))
+    if not all(torch.equal(x, y) for x, y in
+               zip(a, flat_grads(patch_encoder_bwd(patches, g, sa_wb, pn_wb, knn)))):
+        raise RuntimeError("patch_encoder_bwd on the forward's winners differs from "
+                           "patch_encoder_bwd with winners=None")
+    log(f"patch_encoder winners on {tuple(patches.shape)}: equal to the plain version's "
+        f"({win.numel()} of {win.numel()}); the backward on them equals the backward with "
+        "winners=None bit for bit")
     b = flat_grads(patch_encoder_bwd_plain(patches, g, sa_wb, pn_wb, knn))
     rel = []
     for x, y in zip(a, b):
@@ -415,7 +453,7 @@ def backward_kernel_check(state, patches, g, launches: int) -> dict:
             raise RuntimeError(f"patch_encoder_bwd differs from the plain version on "
                                f"{tuple(y.shape)}: {err} > {TOL_BWD} * {big}")
         rel.append(err / big if big else 0.0)
-    again = flat_grads(patch_encoder_bwd(patches, g, sa_wb, pn_wb, knn))
+    again = flat_grads(patch_encoder_bwd(patches, g, sa_wb, pn_wb, knn, winners=win))
     if not all(torch.equal(x, y) for x, y in zip(a, again)):
         raise RuntimeError("two launches of patch_encoder_bwd differ")
     err = max(float((x - y).abs().max()) for x, y in zip(a, b))
@@ -426,21 +464,28 @@ def backward_kernel_check(state, patches, g, launches: int) -> dict:
     fwd, sa_mac, pn_mac = encoder_flops(P, K, knn, cfg.d)
     with torch.no_grad():
         rows = winner_rows(patches, sa_wb, pn_wb, knn)
-    # the forward, to find each channel's winner, then two products (weight
-    # and input gradients) per layer for the winning points: over all knn
-    # slots in SetAbstraction layers 1-2, over each (point, channel)'s one
-    # winning slot in layer 3
-    flops = fwd + 4.0 * rows * (pn_mac + sa_mac - (knn - 1) * 64 * 128)
+    # the winning points' rows (the forward hands the winners over): their
+    # forward, then two products (weight and input gradients) per layer:
+    # over all knn slots in SetAbstraction layers 1-2, over each (point,
+    # channel)'s one winning slot in layer 3
+    flops = 2.0 * rows * (pn_mac + sa_mac) + 4.0 * rows * (pn_mac + sa_mac - (knn - 1) * 64 * 128)
     w_bytes = nbytes(*[t for wb in sa_wb + pn_wb for t in wb])
-    bms, by = bound(flops, 2 * nbytes(patches) + nbytes(g) + 2 * w_bytes)
-    log(f"patch_encoder_bwd work: {fwd / 1e9:.1f} GFLOP forward + {rows} winning "
-        f"rows ({rows / P:.2f} per patch) -> {flops / 1e9:.1f} GFLOP")
+    bms, by = bound(flops, 2 * nbytes(patches) + nbytes(g, win) + 2 * w_bytes)
+    log(f"patch_encoder_bwd work: {rows} winning rows ({rows / P:.2f} per patch) -> "
+        f"{flops / 1e9:.2f} GFLOP (the forward over all points, {fwd / 1e9:.1f} GFLOP, is "
+        "the forward kernel's)")
+    fwd_ms = cuda_ms(lambda: patch_encoder(patches, sa_wb, pn_wb, knn), 5)
+    fwd_win_ms = cuda_ms(lambda: patch_encoder(patches, sa_wb, pn_wb, knn, return_winners=True), 5)
+    log(f"patch_encoder on {tuple(patches.shape)}: {fwd_ms:.4f} ms, with the winners output "
+        f"{fwd_win_ms:.4f} ms")
     return dict(
         name="patch_encoder_bwd", route="cuda", source="pcc_tpu_torch/csrc/patch_encoder_bwd.cu",
         replaces="pcc_tpu/ops/sa_pallas.py:288", launches=launches, max_abs_err=err,
-        ms=cuda_ms(lambda: patch_encoder_bwd(patches, g, sa_wb, pn_wb, knn), 5),
-        plain_ms=cuda_ms(lambda: patch_encoder_bwd_plain(patches, g, sa_wb, pn_wb, knn), 2),
-        bound_ms=bms, bound_by=by, library_ms=None)
+        ms=cuda_ms(lambda: patch_encoder_bwd(patches, g, sa_wb, pn_wb, knn, winners=win), 5),
+        plain_ms=cuda_ms(lambda: patch_encoder_bwd_plain(patches, g, sa_wb, pn_wb, knn,
+                                                         winners=win), 2),
+        bound_ms=bms, bound_by=by, library_ms=None, forward_ms=fwd_ms,
+        forward_winners_ms=fwd_win_ms)
 
 
 def train_card_vs_cpu(dev) -> None:
@@ -737,7 +782,8 @@ def pppf_train_phase(dev, smi: str):
     backward = PPPFStageFn.backward
 
     def recording(ctx, gout):
-        new_xyz, xyz, feat, *flat = ctx.saved_tensors
+        new_xyz, xyz, feat, *rest = ctx.saved_tensors
+        flat = rest[:ctx.n_flat]
         layers = [tuple(t.detach() for t in flat[i:i + 5]) for i in range(0, len(flat), 5)]
         rec.append((new_xyz, xyz, feat, layers, gout.contiguous(), ctx.nsample, ctx.radius))
         return backward(ctx, gout)
@@ -775,26 +821,63 @@ def pppf_bwd_kernel_check(records, launches: dict) -> dict:
         again = flat(pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, **kw))
         if not all(torch.equal(x, y) for x, y in zip(a, again)):
             raise RuntimeError(f"two launches of pppf_sa_stage_bwd differ at {name}")
+        # the store mode: the forward's output bit for bit, and the backward
+        # on what it stored bit for bit the backward that replays
+        out, saved = pppf_sa_fused(new_xyz, xyz, feat, layers, save=True, **kw)
+        if saved is None or not torch.equal(out, pppf_sa_fused(new_xyz, xyz, feat, layers,
+                                                               **kw)):
+            raise RuntimeError(f"pppf_sa_stage's store mode at {name}: nothing stored, or "
+                               "another output")
+        if not all(torch.equal(x, y) for x, y in
+                   zip(a, flat(pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, saved=saved,
+                                           **kw)))):
+            raise RuntimeError(f"pppf_sa_stage_bwd on the stored activations differs from "
+                               f"the replaying one at {name}")
         P, S, _ = new_xyz.shape
         N = xyz.shape[1]
         widths = [layers[0][0].shape[0]] + [lay[0].shape[1] for lay in layers]
         flops = stage_bwd_flops(P, S, N, nsample, widths)
+        fp32, products = stage_bwd_work(P, S, N, nsample, widths, replay=False)
         ins = [new_xyz] + ([xyz] if xyz.data_ptr() != new_xyz.data_ptr() else []) \
             + ([] if feat is None else [feat]) + [gout] \
             + [t for lay in layers for t in (lay[0], lay[1], lay[3], lay[4])]
-        bms, by = bound(flops, nbytes(*ins, *a))
+        # the bound as the train step's backward computes, on what the
+        # forward stored: the routing and elementwise work in float32 on CUDA
+        # cores, the dx and dW products as three TF32 products each on the
+        # tensor cores; and the float32 bound (the selection and the replay
+        # too, everything on CUDA cores) beside it
+        t_ops = fp32 / FP32_FLOP_PER_S + 3.0 * products / TF32_FLOP_PER_S
+        t_bytes = nbytes(*ins, *a) / HBM_BYTES_PER_S
+        bms, by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+        bms32, _ = bound(flops, nbytes(*ins, *a))
         r = dict(stage=name, shape=[P, S, N, widths], nsample=nsample,
                  max_abs_err=max(float((x - y).abs().max()) for x, y in zip(a, b)),
                  max_rel_err=max(rel),
-                 ms=cuda_ms(lambda: pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, **kw), 3),
+                 ms=cuda_ms(lambda: pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, saved=saved,
+                                                **kw), 3),
+                 replay_ms=cuda_ms(lambda: pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, **kw),
+                                   3),
+                 fwd_ms=cuda_ms(lambda: pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), 3),
+                 fwd_save_ms=cuda_ms(lambda: pppf_sa_fused(new_xyz, xyz, feat, layers, save=True,
+                                                           **kw), 3),
                  plain_ms=cuda_ms(lambda: pppf_sa_bwd_plain(new_xyz, xyz, feat, gout, layers,
                                                             **kw), 1),
-                 bound_ms=bms, bound_by=by, gflop=flops / 1e9)
+                 bound_ms=bms, bound_by=by, bound_fp32_ms=bms32, gflop=flops / 1e9)
         log(f"pppf_sa_stage_bwd {name} new_xyz {tuple(new_xyz.shape)} xyz {tuple(xyz.shape)} "
-            f"widths {widths} nsample {nsample}: {r['ms']:.3f} ms (plain {r['plain_ms']:.1f} ms, "
-            f"bound {bms:.3f} ms by {by}, {flops / 1e9:.1f} GFLOP, "
-            f"{flops / r['ms'] / 1e9:.2f} TFLOP/s); max |kernel - plain| / max |plain| per "
-            f"output {max(rel):.3g} (limit {TOL_BWD}); two launches bitwise equal")
+            f"widths {widths} nsample {nsample}: {r['ms']:.3f} ms on the stored activations, "
+            f"{r['replay_ms']:.3f} ms replaying them (plain {r['plain_ms']:.1f} ms; bound "
+            f"{bms:.3f} ms by {by} with the products on the tensor cores, {bms32:.3f} ms with "
+            f"the replay, all in float32); max |kernel - plain| / max |plain| per output "
+            f"{max(rel):.3g} (limit {TOL_BWD}); two launches bitwise equal, and equal to the "
+            f"backward on the stored activations; the stage forward {r['fwd_ms']:.3f} ms, "
+            f"{r['fwd_save_ms']:.3f} ms in store mode")
+        profile(f"pppf_sa_stage_bwd {name} (one call on the stored activations: each "
+                "launch's device time)",
+                lambda: pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, saved=saved, **kw),
+                top=12)
+        profile(f"pppf_sa_stage_bwd {name} (one call replaying the stack)",
+                lambda: pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, **kw), top=12)
+        del saved
         stages.append(r)
     return dict(
         name="pppf_sa_stage_bwd", route="cuda",
@@ -803,6 +886,9 @@ def pppf_bwd_kernel_check(records, launches: dict) -> dict:
         max_abs_err=max(r["max_abs_err"] for r in stages), ms=sum(r["ms"] for r in stages),
         plain_ms=sum(r["plain_ms"] for r in stages),
         bound_ms=sum(r["bound_ms"] for r in stages), bound_by=stages[-1]["bound_by"],
+        bound_fp32_ms=sum(r["bound_fp32_ms"] for r in stages),
+        replay_ms=sum(r["replay_ms"] for r in stages),
+        fwd_ms=sum(r["fwd_ms"] for r in stages), fwd_save_ms=sum(r["fwd_save_ms"] for r in stages),
         library_ms=None, launches_per_fused_step=3, stages=stages)
 
 
@@ -1205,6 +1291,19 @@ def main() -> int:
         del z4
         log(f"patch_encoder vs its replay on {tuple(p.shape)}: {enc_differ} entries differ "
             "(within one ulp)")
+        # the winners output (the train step's forward asks for it): the
+        # latents bit for bit unchanged, the winners the plain version's
+        a_win, win = patch_encoder(geo.patches, sa_wb, pn_wb, knn, return_winners=True)
+        if not torch.equal(a_win, a):
+            raise RuntimeError("patch_encoder's latents change with the winners output")
+        idx = select_nearest(sq_dists(p, p), knn)
+        n_win = int((winners_plain(p, idx, pointwise_plain(p, idx, sa_wb, pn_wb), sa_wb, pn_wb)
+                     != win[:REPLAY_PATCHES].long()).sum())
+        if n_win:
+            raise RuntimeError(f"{n_win} of patch_encoder's winners differ from the plain "
+                               "version's")
+        log(f"patch_encoder with the winners output: latents bit-equal; winners on "
+            f"{tuple(p.shape)} equal to the plain version's")
         flops, _, _ = encoder_flops(P, cfg.K, knn, cfg.d)
         w_bytes = nbytes(*[t for wb in sa_wb + pn_wb for t in wb])
         bms, by = bound(flops, nbytes(geo.patches, a) + w_bytes)
@@ -1214,7 +1313,9 @@ def main() -> int:
             max_abs_err=err, replay_differ=enc_differ,
             ms=cuda_ms(lambda: patch_encoder(geo.patches, sa_wb, pn_wb, knn), 10),
             plain_ms=cuda_ms(lambda: patch_encoder_plain(geo.patches, sa_wb, pn_wb, knn), 2),
-            bound_ms=bms, bound_by=by, library_ms=None))
+            bound_ms=bms, bound_by=by, library_ms=None,
+            winners_ms=cuda_ms(lambda: patch_encoder(geo.patches, sa_wb, pn_wb, knn,
+                                                     return_winners=True), 10)))
 
         a = patch_decoder(h2, latent_q, w3r, b3r, mlp_wb, cfg.k)
         b = patch_decoder_plain(h2, latent_q, w3r, b3r, mlp_wb, cfg.k)
@@ -1261,8 +1362,9 @@ def main() -> int:
             "on the CPU to the same symbols, decoded clouds within one int8 step")
 
     # 6-8. the training path
-    state, patches, g, bwd_launches = train_phase(dev, smi)
-    kernels.append(backward_kernel_check(state, patches, g, bwd_launches))
+    _, rec, bwd_launches = train_phase(dev, smi)
+    kernels.append(backward_kernel_check(rec, bwd_launches))
+    del rec
     kr = kernels[-1]
     log(f"{kr['name']}: {kr['ms']:.4f} ms (plain {kr['plain_ms']:.4f} ms, bound "
         f"{kr['bound_ms']:.4f} ms by {kr['bound_by']}), launches {kr['launches']}")

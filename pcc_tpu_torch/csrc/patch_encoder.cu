@@ -35,6 +35,14 @@
 // latents are bit for bit those of that form. It is not a tensor-core
 // product (TF32 would not hold the 1e-4 agreement with the plain version).
 //
+// On request (a non-null `winners`, as the train step's forward asks) the
+// fold of each chunk into the latent also keeps, per latent channel, the
+// first point that reaches its max (strict > from -inf, chunks and rows in
+// order): the point through which the backward kernel
+// (patch_encoder_bwd.cu) routes that channel's gradient, which it would
+// otherwise have to find with a second forward. The latent itself stays the
+// fmaxf fold, so it is the same bit for bit either way.
+//
 // Selection is bit-equal to the plain PyTorch version
 // (pcc_tpu_torch/ops/sa_cuda.py::patch_encoder_plain): the same distance
 // formula, one rounding per operation, and the lower index first among
@@ -57,6 +65,7 @@ struct Layout {
   int sx, sy, sz, sq;                // patch points (SoA) and squared norms
   int chunk;                         // a chunk's rows (encoder_common.cuh)
   int lat;                           // running max
+  int win;                           // running arg-max (int), with winners
   int floats;                        // float words before the neighbour table
   size_t bytes;                      // total dynamic shared memory
 };
@@ -70,13 +79,14 @@ __host__ __device__ inline Layout make_layout(int n, int knn) {
   L.sq = off; off += n;
   L.chunk = off; off += kEncChunkWords;
   L.lat = off; off += kEncMaxD;
+  L.win = off; off += kEncMaxD;
   L.floats = off;
   L.bytes = static_cast<size_t>(off) * sizeof(float) +
             static_cast<size_t>(n) * knn * sizeof(unsigned short);
   return L;
 }
 
-template <int KNN>
+template <int KNN, bool kWinners>
 __global__ void __launch_bounds__(kThreads, 2)
 patch_encoder_kernel(const float* __restrict__ pts, int n,
                      const float* __restrict__ w1, const float* __restrict__ b1,
@@ -86,7 +96,7 @@ patch_encoder_kernel(const float* __restrict__ pts, int n,
                      const float* __restrict__ pw2, const float* __restrict__ pb2,
                      const float* __restrict__ pw3, const float* __restrict__ pb3,
                      const float* __restrict__ pw4, const float* __restrict__ pb4,
-                     int dout, float* __restrict__ out) {
+                     int dout, float* __restrict__ out, int* __restrict__ winners) {
   const Layout L = make_layout(n, KNN);
   extern __shared__ __align__(16) float smem[];
   float* sx = smem + L.sx;
@@ -96,10 +106,14 @@ patch_encoder_kernel(const float* __restrict__ pts, int n,
   float* chunk = smem + L.chunk;
   const float* o4 = chunk + kEncX2Off;     // [kEncPnQ, dout]
   float* lat = smem + L.lat;               // [dout]
+  int* win = reinterpret_cast<int*>(smem + L.win);   // [dout], with kWinners
   unsigned short* nbr = reinterpret_cast<unsigned short*>(smem + L.floats);
 
   const int tid = threadIdx.x;
-  for (int i = tid; i < dout; i += blockDim.x) lat[i] = -CUDART_INF_F;
+  for (int i = tid; i < dout; i += blockDim.x) {
+    lat[i] = -CUDART_INF_F;
+    if (kWinners) win[i] = 0;
+  }
   load_patch(pts + static_cast<size_t>(blockIdx.x) * n * 3, n, sx, sy, sz, sq);
   select_knn<KNN>(sx, sy, sz, sq, n, nbr);
 
@@ -109,25 +123,38 @@ patch_encoder_kernel(const float* __restrict__ pts, int n,
                        pw3, pb3, pw4, pb4, dout, chunk);
     if (tid < dout) {
       float m = lat[tid];
-      for (int r = 0; r < nq; ++r) m = fmaxf(m, o4[r * dout + tid]);
+      if (kWinners) {
+        int w = win[tid];
+        for (int r = 0; r < nq; ++r) {
+          const float v = o4[r * dout + tid];
+          if (v > m) w = c0 + r;
+          m = fmaxf(m, v);
+        }
+        win[tid] = w;
+      } else {
+        for (int r = 0; r < nq; ++r) m = fmaxf(m, o4[r * dout + tid]);
+      }
       lat[tid] = m;
     }
   }
   __syncthreads();
-  if (tid < dout) out[static_cast<size_t>(blockIdx.x) * dout + tid] = lat[tid];
+  if (tid < dout) {
+    out[static_cast<size_t>(blockIdx.x) * dout + tid] = lat[tid];
+    if (kWinners) winners[static_cast<size_t>(blockIdx.x) * dout + tid] = win[tid];
+  }
 }
 
-template <int KNN>
+template <int KNN, bool kWinners>
 int launch(const float* pts, int p, int n, const float* const* w, int dout,
-           float* out, cudaStream_t stream) {
+           float* out, int* winners, cudaStream_t stream) {
   const Layout L = make_layout(n, KNN);
-  cudaError_t err = cudaFuncSetAttribute(patch_encoder_kernel<KNN>,
+  cudaError_t err = cudaFuncSetAttribute(patch_encoder_kernel<KNN, kWinners>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L.bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  patch_encoder_kernel<KNN><<<p, kThreads, L.bytes, stream>>>(
+  patch_encoder_kernel<KNN, kWinners><<<p, kThreads, L.bytes, stream>>>(
       pts, n, w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8], w[9], w[10],
-      w[11], w[12], w[13], dout, out);
+      w[11], w[12], w[13], dout, out, winners);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -135,7 +162,8 @@ int launch(const float* pts, int p, int n, const float* const* w, int dout,
 
 // pts: [p, n, 3] f32. Weights [in, out] row-major f32 and biases [out]:
 // SetAbstraction 3->32->64->128, PointNet 131->128->256->512->dout.
-// out: [p, dout] f32. Returns a cudaError_t value.
+// out: [p, dout] f32; winners: [p, dout] int32 (each latent channel's first
+// arg-max point) or null. Returns a cudaError_t value.
 extern "C" int patch_encoder_launch(const float* pts, int p, int n, int knn,
                                     const float* w1, const float* b1,
                                     const float* w2, const float* b2,
@@ -144,7 +172,7 @@ extern "C" int patch_encoder_launch(const float* pts, int p, int n, int knn,
                                     const float* pw2, const float* pb2,
                                     const float* pw3, const float* pb3,
                                     const float* pw4, const float* pb4, int dout,
-                                    float* out, void* stream) {
+                                    float* out, int* winners, void* stream) {
   if (p <= 0 || n % kEncQ != 0 || n > kEncMaxN || n < knn || dout <= 0 ||
       dout > kEncMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -152,9 +180,11 @@ extern "C" int patch_encoder_launch(const float* pts, int p, int n, int knn,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (knn) {
     case 8:
-      return launch<8>(pts, p, n, w, dout, out, s);
+      return winners ? launch<8, true>(pts, p, n, w, dout, out, winners, s)
+                     : launch<8, false>(pts, p, n, w, dout, out, nullptr, s);
     case 16:
-      return launch<16>(pts, p, n, w, dout, out, s);
+      return winners ? launch<16, true>(pts, p, n, w, dout, out, winners, s)
+                     : launch<16, false>(pts, p, n, w, dout, out, nullptr, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,10 +3,11 @@
 //
 // Replaces the TPU kernel pcc_tpu/ops/sa_pallas.py::_encoder_bwd_kernel
 // (entry patch_encoder_trainable, the custom VJP of patch_encoder_fused).
-// Inputs: patches [P, N, 3], the cotangent g [P, D], the 14 weights and
-// biases of csrc/patch_encoder.cu ([in, out] row-major). Outputs: dpatches
-// [P, N, 3] and the 14 gradients, each summed over the P patches, in one
-// flat buffer (w1, b1, w2, b2, w3, b3, pw1, pb1, ..., pw4, pb4).
+// Inputs: patches [P, N, 3], the cotangent g [P, D], each latent channel's
+// winning point [P, D] (the forward kernel's), the 14 weights and biases of
+// csrc/patch_encoder.cu ([in, out] row-major). Outputs: dpatches [P, N, 3]
+// and the 14 gradients, each summed over the P patches, in one flat buffer
+// (w1, b1, w2, b2, w3, b3, pw1, pb1, ..., pw4, pb4).
 //
 // Semantics (those of the TPU kernel, sa_pallas.py:324-468): the knn
 // selection carries no gradient; the SetAbstraction max routes each
@@ -18,48 +19,50 @@
 // distinct positive values are measure-zero; all-dead ties die in the relu
 // mask), which is what the plain version is.
 //
-// What bounds it on an H100: operations. Written densely, as the TPU
-// kernel does, the backward is the forward recomputed plus two products per
-// layer for every point and slot: about 3x the forward's MLP FLOPs, 0.28
-// TFLOP at P = 512 (a batch of 8 clouds of 64 patches), about 4 ms at 67
-// TFLOP/s in float32. What the design does about it: the gradient of the
-// global max over points is nonzero on at most D rows per patch (one
-// winning point per latent channel), and every gradient upstream of it is
-// zero on every other point. So after one forward pass to find the
-// winners, only the U <= D distinct winning points (and their knn slots)
-// are recomputed and backpropagated: the dense backward's 2x becomes about
-// U/N of it, and the kernel costs about one forward (93 GFLOP at P = 512,
-// 1.4 ms at the float32 peak). The forward is the forward kernel's own code
-// (encoder_common.cuh), so the selection, the activations and hence the
-// max routing are those of csrc/patch_encoder.cu bit for bit.
+// The work: written densely, as the TPU kernel does, the backward is the
+// forward recomputed plus two products per layer for every point and slot,
+// about 0.28 TFLOP at P = 512 (a batch of 8 clouds of 64 patches). But the
+// gradient of the global max over points is nonzero on at most D rows per
+// patch (one winning point per latent channel), and every gradient upstream
+// of it is zero on every other point. So only the U <= D distinct winning
+// points (and their knn slots) are recomputed and backpropagated: about 11
+// GFLOP at P = 512, 0.16 ms at the float32 peak. Finding the winners takes
+// a forward over all points (about 5 ms at P = 512 on an H100), which the
+// forward kernel has just run: it keeps each channel's first arg-max point
+// in its fold when asked (csrc/patch_encoder.cu), the train step's forward
+// asks, and this kernel takes them. The recomputed rows use
+// the forward kernel's code (encoder_common.cuh), so their selection and
+// activations, hence the max routing, are the forward's bit for bit.
 //
-// Memory: the TPU kernel keeps every slot's activations (49 MB of VMEM at
-// a block of 4 patches); here nothing is saved between passes: pass 1 runs
-// the forward kernel's chunks of 32 points (encoder_common.cuh::
-// encoder_chunk), pass 2 the winners in chunks of 16 through shared memory
-// (about 155 KB at N = 256, the SetAbstraction weights among it), one
-// 256-thread block per SM.
+// What bounds it on an H100: not its operations but the latency of a chain
+// of small steps per group of 16 winners between the barriers of one
+// 256-thread block per SM (the SetAbstraction weights, the patch and the
+// winners' rows take about 155 KB of shared memory at N = 256). Summing the
+// weight gradients there, one output per thread into a per-block slice of
+// partials for each group, cost about as much as the SetAbstraction
+// backward (1.4 and 1.6 ms at P = 512, timed by taking each out:
+// pcc_tpu_torch/tools/bwd_breakdown.py). So the kernel only recomputes the
+// winners' rows and propagates the gradients through them, and writes each
+// layer's input rows and the gradients of its pre-activation to device
+// memory (about 0.23 GB at P = 512); each layer's weight gradient is then
+// one split-K 3xTF32 product over those rows (tf32_mma.cuh::
+// wgrad_tf32_kernel, as the PN++ stage backward computes its own), its bias
+// gradient the column sums of the same pass.
 //
-// Determinism: the weight gradients are sums over P * N * knn rows. A fixed
-// grid of persistent blocks walks the patches in a fixed order; each block
-// adds its patches' contributions into its own slice of a partial buffer
-// [grid, total] (each element owned by one thread, added in a fixed order,
-// no atomics), and a second kernel sums the partials over the blocks in
-// block order. The dpatches scatter is one thread per point, walking the
-// rows in a fixed order. Two launches give bitwise equal outputs.
-//
-// Float32 on CUDA cores: pass 1 with the forward's register-tiled
-// products, pass 2 with the simple register-reuse products of dense.cuh;
-// tensor cores, wgmma and TMA are later work.
+// Determinism: every sum runs in a fixed order (the products' splits are
+// fixed by the shapes and summed in order; the dpatches scatter is one
+// thread per point, walking the rows in a fixed order); no float atomics.
+// Two launches give bitwise equal outputs.
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
 #include "encoder_common.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
 using namespace pcc;
+using namespace pcc_mma;
 
 constexpr int kThreads = kEncThreads;
 constexpr int kG = 4;                   // winning queries per SetAbstraction group
@@ -87,10 +90,9 @@ __host__ __device__ inline GradOffsets grad_offsets(int dout) {
 
 struct Layout {
   int sx, sy, sz, sq, sa, dpts;      // patch, SetAbstraction weights, patch gradient
-  int qs, win, winv, winners, nwin;  // chunk queries, per-channel winners, distinct winners
-  int chunk;                         // pass 1: a chunk's rows (encoder_common.cuh)
-  int bx0, bx1, bx2, bx3, dz4;       // pass 2: the winners' PointNet rows
-  int a1, a2, best, dinp;            // pass 2: one group's SetAbstraction rows
+  int qs, win, winners, nwin;        // chunk queries, per-channel winners, distinct winners
+  int bx0, bx1, bx2, bx3, dz4;       // the winners' PointNet rows
+  int a1, a2, best, dinp;            // one group's SetAbstraction rows
   int floats;                        // float words before the neighbour table
   size_t bytes;                      // total dynamic shared memory
 };
@@ -106,15 +108,9 @@ __host__ __device__ inline Layout make_layout(int n, int knn) {
   L.dpts = off; off += 3 * n;
   L.qs = off; off += kEncQ;
   L.win = off; off += kEncMaxD;
-  L.winv = off; off += kEncMaxD;
   L.winners = off; off += kEncMaxD;
   L.nwin = off; off += 4;
-  const int region = off;
-  // pass 1 (the forward over all points)
-  L.chunk = region;
-  const int end1 = L.chunk + kEncChunkWords;
-  // pass 2 (the winners), aliasing pass 1
-  L.bx0 = region;
+  L.bx0 = off;
   L.bx1 = L.bx0 + kEncQ * kEncX0;
   L.bx2 = L.bx1 + kEncQ * kEncP1;
   L.bx3 = L.bx2 + kEncQ * kEncP2;
@@ -123,33 +119,72 @@ __host__ __device__ inline Layout make_layout(int n, int knn) {
   L.a2 = L.a1 + kG * knn * kEncC1;
   L.best = L.a2 + kG * knn * kEncC2;
   L.dinp = L.best + kEncQ * kEncC3 / 4;
-  const int end2 = L.dinp + kG * knn * 3;
-  L.floats = end1 > end2 ? end1 : end2;
+  L.floats = L.dinp + kG * knn * 3;
   L.bytes = static_cast<size_t>(L.floats) * sizeof(float) +
             static_cast<size_t>(n) * knn * sizeof(unsigned short);
   return L;
 }
 
-// part[i * cout + o] += sum_r x[r][i] * dz[r][o]
-__device__ __forceinline__ void add_wgrad(const float* x, int ldx, const float* dz,
-                                          int ldz, int rows, int cin, int cout,
-                                          float* part) {
-  for (int e = threadIdx.x; e < cin * cout; e += blockDim.x) {
-    const int o = e % cout, i = e / cout;
-    float s = 0.0f;
-    for (int r = 0; r < rows; ++r) s = fmaf(x[r * ldx + i], dz[r * ldz + o], s);
-    part[e] += s;
+// The winners' rows in device memory, for the weight-gradient products. A
+// patch has rs = D rounded up to kEncQ row slots (slots past its winners
+// hold zeros); per slot, PointNet's layer inputs x0 [132] (the concat row;
+// column 131 zero), x1 [128], x2 [256], x3 [512] and the gradients of its
+// pre-activations dz1 [128], dz2 [256], dz3 [512], dz4 [round4(D)]; per
+// slot and neighbour (knn SetAbstraction rows a slot), the centred
+// neighbour c [4], layer 1's output a1 [32] and gradient da1 [32], layer
+// 2's a2 [64] and da2 [64], and layer 3's gradient sdz3 [128] (nonzero only
+// at each channel's winning slot). Offsets in floats.
+struct Rows {
+  int rs, ldd;
+  size_t pn, sa;                                  // rows of each kind
+  size_t x0, dz1, x1, dz2, x2, dz3, x3, dz4;
+  size_t c, a1, da1, a2, da2, sdz3;
+  size_t floats;
+};
+
+__host__ __device__ inline Rows make_rows(int p, int dout, int knn) {
+  Rows R;
+  R.rs = (dout + kEncQ - 1) / kEncQ * kEncQ;
+  R.ldd = (dout + 3) & ~3;
+  R.pn = static_cast<size_t>(p) * R.rs;
+  R.sa = R.pn * knn;
+  size_t o = 0;
+  R.x0 = o; o += R.pn * kEncX0;
+  R.dz1 = o; o += R.pn * kEncP1;
+  R.x1 = o; o += R.pn * kEncP1;
+  R.dz2 = o; o += R.pn * kEncP2;
+  R.x2 = o; o += R.pn * kEncP2;
+  R.dz3 = o; o += R.pn * kEncP3;
+  R.x3 = o; o += R.pn * kEncP3;
+  R.dz4 = o; o += R.pn * R.ldd;
+  R.c = o; o += R.sa * 4;
+  R.a1 = o; o += R.sa * kEncC1;
+  R.da1 = o; o += R.sa * kEncC1;
+  R.a2 = o; o += R.sa * kEncC2;
+  R.da2 = o; o += R.sa * kEncC2;
+  R.sdz3 = o; o += R.sa * kEncC3;
+  R.floats = o;
+  return R;
+}
+
+// dst[r * ld + c] = src[r * lds + c] for c < cols, 0 for cols <= c < ld,
+// r < nrows (src null: zeros). No trailing barrier.
+__device__ __forceinline__ void store_rows(const float* src, int lds, int cols, int nrows,
+                                           float* dst, int ld) {
+  for (int e = threadIdx.x; e < nrows * ld; e += blockDim.x) {
+    const int r = e / ld, c = e % ld;
+    dst[static_cast<size_t>(r) * ld + c] = src && c < cols ? src[r * lds + c] : 0.0f;
   }
 }
 
-// part[o] += sum_r dz[r][o]
-__device__ __forceinline__ void add_bgrad(const float* dz, int ldz, int rows, int cout,
-                                          float* part) {
-  for (int o = threadIdx.x; o < cout; o += blockDim.x) {
-    float s = 0.0f;
-    for (int r = 0; r < rows; ++r) s += dz[r * ldz + o];
-    part[o] += s;
-  }
+// Zeros in every SetAbstraction row [r0, r0 + nrows). No trailing barrier.
+__device__ __forceinline__ void zero_sa_rows(float* rows, const Rows& R, size_t r0, int nrows) {
+  store_rows(nullptr, 0, 0, nrows, rows + R.c + r0 * 4, 4);
+  store_rows(nullptr, 0, 0, nrows, rows + R.a1 + r0 * kEncC1, kEncC1);
+  store_rows(nullptr, 0, 0, nrows, rows + R.da1 + r0 * kEncC1, kEncC1);
+  store_rows(nullptr, 0, 0, nrows, rows + R.a2 + r0 * kEncC2, kEncC2);
+  store_rows(nullptr, 0, 0, nrows, rows + R.da2 + r0 * kEncC2, kEncC2);
+  store_rows(nullptr, 0, 0, nrows, rows + R.sdz3 + r0 * kEncC3, kEncC3);
 }
 
 // x[r][k] = sum_o dz[r][o] * w[k][o], times (x[r][k] > 0) when kMask: the
@@ -233,31 +268,31 @@ __device__ __forceinline__ void sa_group_max(const float* a2, const float* sw3,
 
 // The SetAbstraction backward of kG queries qs[0..kG) whose a1/a2 rows were
 // just recomputed, given the pooled features' gradient dfeats (row stride
-// kEncX0): adds the SetAbstraction weight gradients into `part` and the
-// patch gradient into dpts. Ends with a barrier.
+// kEncX0): writes their SetAbstraction rows (from r0 on) for the weight
+// gradients and adds the patch gradient into dpts. Ends with a barrier.
 template <int KNN>
 __device__ __forceinline__ void sa_group_backward(
     const int* qs, const unsigned short* nbr, const float* sx, const float* sy,
     const float* sz, int n, const float* sw1, const float* sw2, const float* sw3,
-    float* a1, float* a2,
-    const unsigned char* best, const float* dfeats, float* dinp, float* dpts,
-    float* part, const GradOffsets& go) {
+    float* a1, float* a2, const unsigned char* best, const float* dfeats, float* dinp,
+    float* dpts, float* rows, const Rows& R, size_t r0) {
   constexpr int kRows = kG * KNN;
-  // layer 3: each (query, channel) gradient flows to its winning slot only
-  for (int e = threadIdx.x; e < kEncC2 * kEncC3; e += blockDim.x) {
-    const int o = e % kEncC3, i = e / kEncC3;
-    float s = 0.0f;
-    for (int qi = 0; qi < kG; ++qi) {
-      const int b = best[qi * kEncC3 + o];
-      if (b != kDead) s = fmaf(a2[(qi * KNN + b) * kEncC2 + i], dfeats[qi * kEncX0 + o], s);
-    }
-    part[go.off[4] + e] += s;
+  // the layers' inputs, and layer 3's gradient: each (query, channel)
+  // gradient flows to its winning slot only
+  for (int e = threadIdx.x; e < kRows * 4; e += blockDim.x) {
+    const int d = e % 4, r = e / 4;
+    const int q = qs[r / KNN];
+    const int j = nbr[q * KNN + r % KNN];
+    const float* c = d == 0 ? sx : (d == 1 ? sy : sz);
+    rows[R.c + r0 * 4 + e] = d < 3 ? c[j] - c[q] : 0.0f;
   }
-  for (int o = threadIdx.x; o < kEncC3; o += blockDim.x) {
-    float s = 0.0f;
-    for (int qi = 0; qi < kG; ++qi)
-      if (best[qi * kEncC3 + o] != kDead) s += dfeats[qi * kEncX0 + o];
-    part[go.off[5] + o] += s;
+  for (int e = threadIdx.x; e < kRows * kEncC1; e += blockDim.x) rows[R.a1 + r0 * kEncC1 + e] = a1[e];
+  for (int e = threadIdx.x; e < kRows * kEncC2; e += blockDim.x) rows[R.a2 + r0 * kEncC2 + e] = a2[e];
+  for (int e = threadIdx.x; e < kRows * kEncC3; e += blockDim.x) {
+    const int o = e % kEncC3, r = e / kEncC3;
+    const int qi = r / KNN, slot = r % KNN;
+    rows[R.sdz3 + r0 * kEncC3 + e] =
+        best[qi * kEncC3 + o] == slot ? dfeats[qi * kEncX0 + o] : 0.0f;
   }
   __syncthreads();
   // da2 = (dz3 @ w3^T) * (a2 > 0), over a2
@@ -273,24 +308,11 @@ __device__ __forceinline__ void sa_group_backward(
     a2[e] = s;
   }
   __syncthreads();
-  add_wgrad(a1, kEncC1, a2, kEncC2, kRows, kEncC1, kEncC2, part + go.off[2]);
-  add_bgrad(a2, kEncC2, kRows, kEncC2, part + go.off[3]);
-  __syncthreads();
+  for (int e = threadIdx.x; e < kRows * kEncC2; e += blockDim.x) rows[R.da2 + r0 * kEncC2 + e] = a2[e];
   dense_bwd_x<8, false, true>(a2, kEncC2, kRows, kEncC2, sw2, kEncC1, a1, kEncC1);
   __syncthreads();
-  // layer 1 on the centred neighbours, and the centred input's gradient
-  for (int e = threadIdx.x; e < 3 * kEncC1; e += blockDim.x) {
-    const int o = e % kEncC1, d = e / kEncC1;
-    const float* c = d == 0 ? sx : (d == 1 ? sy : sz);
-    float s = 0.0f;
-    for (int r = 0; r < kRows; ++r) {
-      const int q = qs[r / KNN];
-      const int j = nbr[q * KNN + r % KNN];
-      s = fmaf(c[j] - c[q], a1[r * kEncC1 + o], s);
-    }
-    part[go.off[0] + e] += s;
-  }
-  add_bgrad(a1, kEncC1, kRows, kEncC1, part + go.off[1]);
+  for (int e = threadIdx.x; e < kRows * kEncC1; e += blockDim.x) rows[R.da1 + r0 * kEncC1 + e] = a1[e];
+  // the centred input's gradient
   for (int e = threadIdx.x; e < kRows * 3; e += blockDim.x) {
     const int d = e % 3, r = e / 3;
     float s = 0.0f;
@@ -323,10 +345,11 @@ __device__ __forceinline__ void sa_group_backward(
   __syncthreads();
 }
 
+// One block per patch.
 template <int KNN>
 __global__ void __launch_bounds__(kThreads)
 patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ g,
-                         int np, int n,
+                         const int* __restrict__ pwin, int n,
                          const float* __restrict__ w1, const float* __restrict__ b1,
                          const float* __restrict__ w2, const float* __restrict__ b2,
                          const float* __restrict__ w3, const float* __restrict__ b3,
@@ -334,10 +357,9 @@ patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict_
                          const float* __restrict__ pw2, const float* __restrict__ pb2,
                          const float* __restrict__ pw3, const float* __restrict__ pb3,
                          const float* __restrict__ pw4, const float* __restrict__ pb4,
-                         int dout, float* __restrict__ dpatches,
-                         float* __restrict__ partial) {
+                         int dout, float* __restrict__ dpatches, float* __restrict__ rows,
+                         const Rows R) {
   const Layout L = make_layout(n, KNN);
-  const GradOffsets go = grad_offsets(dout);
   extern __shared__ __align__(16) float smem[];
   float* sx = smem + L.sx;
   float* sy = smem + L.sy;
@@ -346,11 +368,8 @@ patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict_
   float* dpts = smem + L.dpts;
   int* qs = reinterpret_cast<int*>(smem + L.qs);
   int* win = reinterpret_cast<int*>(smem + L.win);
-  float* winv = smem + L.winv;
   int* winners = reinterpret_cast<int*>(smem + L.winners);
   int* nwin = reinterpret_cast<int*>(smem + L.nwin);
-  float* chunk = smem + L.chunk;
-  const float* o4 = chunk + kEncX2Off;     // [kEncPnQ, dout]
   float* bx0 = smem + L.bx0;
   float* bx1 = smem + L.bx1;
   float* bx2 = smem + L.bx2;
@@ -368,164 +387,200 @@ patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict_
   float* sw3 = sb2 + kEncC2;
   float* sb3 = sw3 + kEncC2 * kEncC3;
   const int tid = threadIdx.x;
-
-  float* part = partial + static_cast<size_t>(blockIdx.x) * go.off[14];
-  for (int e = tid; e < go.off[14]; e += blockDim.x) part[e] = 0.0f;
+  const int p = blockIdx.x;
 
   load_sa_weights(w1, b1, w2, b2, w3, b3, sw1);
-  for (int p = blockIdx.x; p < np; p += gridDim.x) {
-    for (int e = tid; e < 3 * n; e += blockDim.x) dpts[e] = 0.0f;
-    if (tid < dout) {
-      winv[tid] = -CUDART_INF_F;
-      win[tid] = 0;
+  for (int e = tid; e < 3 * n; e += blockDim.x) dpts[e] = 0.0f;
+  // each channel's first arg-max point, from the forward
+  if (tid < dout) win[tid] = pwin[static_cast<size_t>(p) * dout + tid];
+  load_patch(pts + static_cast<size_t>(p) * n * 3, n, sx, sy, sz, sq);
+  select_knn<KNN>(sx, sy, sz, sq, n, nbr);
+  if (tid == 0) {
+    int u = 0;
+    for (int c = 0; c < dout; ++c) {
+      bool seen = false;
+      for (int i = 0; i < u; ++i) seen = seen || winners[i] == win[c];
+      if (!seen) winners[u++] = win[c];
     }
-    load_patch(pts + static_cast<size_t>(p) * n * 3, n, sx, sy, sz, sq);
-    select_knn<KNN>(sx, sy, sz, sq, n, nbr);
-
-    // pass 1: the forward over all points, and each channel's first
-    // arg-max over points
-    for (int c0 = 0; c0 < n; c0 += kEncPnQ) {
-      const int nq = min(kEncPnQ, n - c0);
-      encoder_chunk<KNN>(c0, nq, nbr, sx, sy, sz, w1, b1, w2, b2, w3, b3, pw1, pb1, pw2, pb2,
-                         pw3, pb3, pw4, pb4, dout, chunk);
-      if (tid < dout) {
-        for (int r = 0; r < nq; ++r) {
-          const float v = o4[r * dout + tid];
-          if (v > winv[tid]) {
-            winv[tid] = v;
-            win[tid] = c0 + r;
-          }
-        }
-      }
-    }
-    __syncthreads();
-    if (tid == 0) {
-      int u = 0;
-      for (int c = 0; c < dout; ++c) {
-        bool seen = false;
-        for (int i = 0; i < u; ++i) seen = seen || winners[i] == win[c];
-        if (!seen) winners[u++] = win[c];
-      }
-      *nwin = u;
-    }
-    __syncthreads();
-    const int U = *nwin;
-    const float* gp = g + static_cast<size_t>(p) * dout;
-
-    // pass 2: the distinct winning points, kEncQ at a time (rows past W
-    // repeat the last winner with a zero cotangent)
-    for (int w0 = 0; w0 < U; w0 += kEncQ) {
-      const int Wn = min(kEncQ, U - w0);
-      if (tid < kEncQ) qs[tid] = winners[w0 + min(tid, Wn - 1)];
-      __syncthreads();
-      for (int g0 = 0; g0 < kEncQ; g0 += kG) {
-        sa_group_forward<KNN>(qs + g0, nbr, sx, sy, sz, sw1, sb1, sw2, sb2, a1, a2);
-        sa_group_max<KNN>(a2, sw3, sb3, bx0 + g0 * kEncX0 + 3, best + g0 * kEncC3);
-      }
-      concat_xyz(kEncQ, QueryList{qs}, sx, sy, sz, bx0);
-      for (int e = tid; e < kEncQ * dout; e += blockDim.x) {
-        const int r = e / dout, c = e % dout;
-        dz4[e] = (r < Wn && win[c] == qs[r]) ? gp[c] : 0.0f;
-      }
-      __syncthreads();
-      pointnet_123(bx0, pw1, pb1, pw2, pb2, pw3, pb3, bx1, bx2, bx3);
-
-      // PointNet backward, each delta written over its layer's activations
-      add_wgrad(bx3, kEncP3, dz4, dout, kEncQ, kEncP3, dout, part + go.off[12]);
-      add_bgrad(dz4, dout, kEncQ, dout, part + go.off[13]);
-      __syncthreads();
-      dense_bwd_x<16, true, true>(dz4, dout, kEncQ, dout, pw4, kEncP3, bx3, kEncP3);
-      __syncthreads();
-      add_wgrad(bx2, kEncP2, bx3, kEncP3, kEncQ, kEncP2, kEncP3, part + go.off[10]);
-      add_bgrad(bx3, kEncP3, kEncQ, kEncP3, part + go.off[11]);
-      __syncthreads();
-      dense_bwd_x<16, true, true>(bx3, kEncP3, kEncQ, kEncP3, pw3, kEncP2, bx2, kEncP2);
-      __syncthreads();
-      add_wgrad(bx1, kEncP1, bx2, kEncP2, kEncQ, kEncP1, kEncP2, part + go.off[8]);
-      add_bgrad(bx2, kEncP2, kEncQ, kEncP2, part + go.off[9]);
-      __syncthreads();
-      dense_bwd_x<16, true, true>(bx2, kEncP2, kEncQ, kEncP2, pw2, kEncP1, bx1, kEncP1);
-      __syncthreads();
-      add_wgrad(bx0, kEncX0, bx1, kEncP1, kEncQ, 3 + kEncC3, kEncP1, part + go.off[6]);
-      add_bgrad(bx1, kEncP1, kEncQ, kEncP1, part + go.off[7]);
-      __syncthreads();
-      dense_bwd_x<16, true, false>(bx1, kEncP1, kEncQ, kEncP1, pw1, 3 + kEncC3, bx0,
-                                   kEncX0);
-      __syncthreads();
-      // the concat's xyz columns straight onto the (distinct) winners
-      for (int e = tid; e < Wn * 3; e += blockDim.x) {
-        const int r = e / 3, d = e % 3;
-        dpts[3 * qs[r] + d] += bx0[r * kEncX0 + d];
-      }
-      __syncthreads();
-      // SetAbstraction backward of the pooled features' gradient
-      for (int g0 = 0; g0 < Wn; g0 += kG) {
-        sa_group_forward<KNN>(qs + g0, nbr, sx, sy, sz, sw1, sb1, sw2, sb2, a1, a2);
-        sa_group_backward<KNN>(qs + g0, nbr, sx, sy, sz, n, sw1, sw2, sw3, a1, a2,
-                               best + g0 * kEncC3, bx0 + g0 * kEncX0 + 3, dinp, dpts,
-                               part, go);
-      }
-    }
-    float* out = dpatches + static_cast<size_t>(p) * n * 3;
-    for (int e = tid; e < 3 * n; e += blockDim.x) out[e] = dpts[e];
-    __syncthreads();
+    *nwin = u;
   }
+  __syncthreads();
+  const int U = *nwin;
+  const float* gp = g + static_cast<size_t>(p) * dout;
+
+  // the distinct winning points, kEncQ at a time (rows past Wn repeat the
+  // last winner with a zero cotangent: their gradients are zeros)
+  int w0 = 0;
+  for (; w0 < U; w0 += kEncQ) {
+    const int Wn = min(kEncQ, U - w0);
+    const size_t pr = static_cast<size_t>(p) * R.rs + w0;   // first PointNet row
+    if (tid < kEncQ) qs[tid] = winners[w0 + min(tid, Wn - 1)];
+    __syncthreads();
+    for (int g0 = 0; g0 < kEncQ; g0 += kG) {
+      sa_group_forward<KNN>(qs + g0, nbr, sx, sy, sz, sw1, sb1, sw2, sb2, a1, a2);
+      sa_group_max<KNN>(a2, sw3, sb3, bx0 + g0 * kEncX0 + 3, best + g0 * kEncC3);
+    }
+    concat_xyz(kEncQ, QueryList{qs}, sx, sy, sz, bx0);
+    for (int e = tid; e < kEncQ * dout; e += blockDim.x) {
+      const int r = e / dout, c = e % dout;
+      dz4[e] = (r < Wn && win[c] == qs[r]) ? gp[c] : 0.0f;
+    }
+    __syncthreads();
+    pointnet_123(bx0, pw1, pb1, pw2, pb2, pw3, pb3, bx1, bx2, bx3);
+
+    // PointNet backward, each gradient written over its layer's activations,
+    // every layer's input rows and pre-activation gradients to `rows`
+    store_rows(bx0, kEncX0, 3 + kEncC3, kEncQ, rows + R.x0 + pr * kEncX0, kEncX0);
+    store_rows(bx1, kEncP1, kEncP1, kEncQ, rows + R.x1 + pr * kEncP1, kEncP1);
+    store_rows(bx2, kEncP2, kEncP2, kEncQ, rows + R.x2 + pr * kEncP2, kEncP2);
+    store_rows(bx3, kEncP3, kEncP3, kEncQ, rows + R.x3 + pr * kEncP3, kEncP3);
+    store_rows(dz4, dout, dout, kEncQ, rows + R.dz4 + pr * R.ldd, R.ldd);
+    __syncthreads();
+    dense_bwd_x<16, true, true>(dz4, dout, kEncQ, dout, pw4, kEncP3, bx3, kEncP3);
+    __syncthreads();
+    store_rows(bx3, kEncP3, kEncP3, kEncQ, rows + R.dz3 + pr * kEncP3, kEncP3);
+    dense_bwd_x<16, true, true>(bx3, kEncP3, kEncQ, kEncP3, pw3, kEncP2, bx2, kEncP2);
+    __syncthreads();
+    store_rows(bx2, kEncP2, kEncP2, kEncQ, rows + R.dz2 + pr * kEncP2, kEncP2);
+    dense_bwd_x<16, true, true>(bx2, kEncP2, kEncQ, kEncP2, pw2, kEncP1, bx1, kEncP1);
+    __syncthreads();
+    store_rows(bx1, kEncP1, kEncP1, kEncQ, rows + R.dz1 + pr * kEncP1, kEncP1);
+    dense_bwd_x<16, true, false>(bx1, kEncP1, kEncQ, kEncP1, pw1, 3 + kEncC3, bx0, kEncX0);
+    __syncthreads();
+    // the concat's xyz columns straight onto the (distinct) winners
+    for (int e = tid; e < Wn * 3; e += blockDim.x) {
+      const int r = e / 3, d = e % 3;
+      dpts[3 * qs[r] + d] += bx0[r * kEncX0 + d];
+    }
+    __syncthreads();
+    // SetAbstraction backward of the pooled features' gradient, kG winners
+    // at a time; the rows of the groups past Wn are zeros
+    int g0 = 0;
+    for (; g0 < Wn; g0 += kG) {
+      sa_group_forward<KNN>(qs + g0, nbr, sx, sy, sz, sw1, sb1, sw2, sb2, a1, a2);
+      sa_group_backward<KNN>(qs + g0, nbr, sx, sy, sz, n, sw1, sw2, sw3, a1, a2,
+                             best + g0 * kEncC3, bx0 + g0 * kEncX0 + 3, dinp, dpts, rows, R,
+                             (pr + g0) * KNN);
+    }
+    zero_sa_rows(rows, R, (pr + g0) * KNN, (kEncQ - g0) * KNN);
+  }
+  // the patch's row slots past its winners' groups: zeros
+  const size_t pr = static_cast<size_t>(p) * R.rs + w0;
+  const int rest = R.rs - w0;
+  if (rest > 0) {
+    store_rows(nullptr, 0, 0, rest, rows + R.x0 + pr * kEncX0, kEncX0);
+    store_rows(nullptr, 0, 0, rest, rows + R.x1 + pr * kEncP1, kEncP1);
+    store_rows(nullptr, 0, 0, rest, rows + R.x2 + pr * kEncP2, kEncP2);
+    store_rows(nullptr, 0, 0, rest, rows + R.x3 + pr * kEncP3, kEncP3);
+    store_rows(nullptr, 0, 0, rest, rows + R.dz1 + pr * kEncP1, kEncP1);
+    store_rows(nullptr, 0, 0, rest, rows + R.dz2 + pr * kEncP2, kEncP2);
+    store_rows(nullptr, 0, 0, rest, rows + R.dz3 + pr * kEncP3, kEncP3);
+    store_rows(nullptr, 0, 0, rest, rows + R.dz4 + pr * R.ldd, R.ldd);
+    zero_sa_rows(rows, R, pr * KNN, rest * KNN);
+  }
+  __syncthreads();
+  float* out = dpatches + static_cast<size_t>(p) * n * 3;
+  for (int e = tid; e < 3 * n; e += blockDim.x) out[e] = dpts[e];
 }
 
-// grads[e] = sum over blocks b, in order, of partial[b][e]
-__global__ void reduce_partials(const float* __restrict__ partial, int grid, int total,
-                                float* __restrict__ grads) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= total) return;
-  float s = 0.0f;
-  for (int b = 0; b < grid; ++b) s += partial[static_cast<size_t>(b) * total + e];
-  grads[e] = s;
+// The weight-gradient scratch for `rows` rows of a cin x cout product: its
+// splits' partial products and column sums.
+inline size_t part_floats(size_t rows, int cin, int cout) {
+  int chunk;
+  return static_cast<size_t>(wgrad_splits(static_cast<int>(rows), cin, cout, &chunk)) *
+         (cin + 3) * cout;
 }
 
 template <int KNN>
-int launch(const float* pts, const float* g, int p, int n, const float* const* w, int dout,
-           float* dpatches, float* grads, float* partial, int grid, cudaStream_t stream) {
+int launch(const float* pts, const float* g, const int* winners, int p, int n,
+           const float* const* w, int dout, float* dpatches, float* grads, float* rows,
+           float* part, long long part_n, cudaStream_t stream) {
   const Layout L = make_layout(n, KNN);
-  cudaError_t err = cudaFuncSetAttribute(patch_encoder_bwd_kernel<KNN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L.bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  patch_encoder_bwd_kernel<KNN><<<grid, kThreads, L.bytes, stream>>>(
-      pts, g, p, n, w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8], w[9], w[10],
-      w[11], w[12], w[13], dout, dpatches, partial);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int total = grad_offsets(dout).off[14];
-  reduce_partials<<<(total + 255) / 256, 256, 0, stream>>>(partial, grid, total, grads);
+  const Rows R = make_rows(p, dout, KNN);
+  // (X rows, row stride, cin, gradient rows, row stride, cout, rows) of the
+  // seven layers, in the gradients' order
+  struct Product {
+    size_t x;
+    int ldx, cin;
+    size_t d;
+    int ldd, cout;
+    size_t rows;
+  };
+  const Product prods[7] = {
+      {R.c, 4, 3, R.da1, kEncC1, kEncC1, R.sa},
+      {R.a1, kEncC1, kEncC1, R.da2, kEncC2, kEncC2, R.sa},
+      {R.a2, kEncC2, kEncC2, R.sdz3, kEncC3, kEncC3, R.sa},
+      {R.x0, kEncX0, 3 + kEncC3, R.dz1, kEncP1, kEncP1, R.pn},
+      {R.x1, kEncP1, kEncP1, R.dz2, kEncP2, kEncP2, R.pn},
+      {R.x2, kEncP2, kEncP2, R.dz3, kEncP3, kEncP3, R.pn},
+      {R.x3, kEncP3, kEncP3, R.dz4, R.ldd, dout, R.pn},
+  };
+  for (const Product& pr : prods)
+    if (static_cast<long long>(part_floats(pr.rows, pr.cin, pr.cout)) > part_n)
+      return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(patch_encoder_bwd_kernel<KNN>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(L.bytes))) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(wgrad_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(kWSmemBytes))) != cudaSuccess)
+    return static_cast<int>(err);
+  patch_encoder_bwd_kernel<KNN><<<p, kThreads, L.bytes, stream>>>(
+      pts, g, winners, n, w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8], w[9], w[10],
+      w[11], w[12], w[13], dout, dpatches, rows, R);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const GradOffsets go = grad_offsets(dout);
+  for (int i = 0; i < 7; ++i) {
+    const Product& pr = prods[i];
+    int chunk;
+    const int nr = static_cast<int>(pr.rows);
+    const int splits = wgrad_splits(nr, pr.cin, pr.cout, &chunk);
+    float* vpart = part + static_cast<size_t>(splits) * pr.cin * pr.cout;
+    wgrad_tf32_kernel<<<dim3((pr.cout + kWBN - 1) / kWBN, (pr.cin + kWBM - 1) / kWBM, splits),
+                        kWThreads, kWSmemBytes, stream>>>(
+        rows + pr.x, pr.ldx, pr.cin, rows + pr.d, pr.ldd, pr.cout, nullptr, nr, chunk, part,
+        vpart);
+    const int size = pr.cin * pr.cout;
+    split_sum_kernel<<<(size + 31) / 32, 256, 0, stream>>>(part, size, size, splits, nullptr, 1,
+                                                           0, grads + go.off[2 * i]);
+    split_sum_kernel<<<(pr.cout + 31) / 32, 256, 0, stream>>>(
+        vpart, pr.cout, 3 * static_cast<size_t>(pr.cout), splits, nullptr, 1, 0,
+        grads + go.off[2 * i + 1]);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// pts: [p, n, 3] f32; g: [p, dout] f32; weights [in, out] row-major f32 and
-// biases [out] as for patch_encoder_launch. dpatches: [p, n, 3] f32; grads:
-// the 14 gradients flattened in that order; partial: scratch of grid times
-// as many floats, 0 < grid <= p. Returns a cudaError_t value.
-extern "C" int patch_encoder_bwd_launch(const float* pts, const float* g, int p, int n,
-                                        int knn, const float* w1, const float* b1,
+// pts: [p, n, 3] f32; g: [p, dout] f32; winners: [p, dout] int32, each
+// latent channel's first arg-max point (patch_encoder_launch's winners
+// output); weights [in, out] row-major f32 and biases [out] as for
+// patch_encoder_launch. dpatches: [p, n, 3] f32; grads: the 14 gradients
+// flattened in that order. Scratch, as pcc_tpu_torch/ops/sa_cuda.py sizes
+// it: rows (make_rows(p, dout, knn).floats floats), part (part_n floats, at
+// least the largest layer's splits * (in + 3) * out, tf32_mma.cuh::
+// wgrad_splits). Returns a cudaError_t value.
+extern "C" int patch_encoder_bwd_launch(const float* pts, const float* g, const int* winners,
+                                        int p, int n, int knn, const float* w1, const float* b1,
                                         const float* w2, const float* b2,
                                         const float* w3, const float* b3,
                                         const float* pw1, const float* pb1,
                                         const float* pw2, const float* pb2,
                                         const float* pw3, const float* pb3,
                                         const float* pw4, const float* pb4, int dout,
-                                        float* dpatches, float* grads, float* partial,
-                                        int grid, void* stream) {
-  if (p <= 0 || n % kEncQ != 0 || n > kEncMaxN || n < knn || dout <= 0 ||
-      dout > kEncMaxD || grid <= 0 || grid > p)
+                                        float* dpatches, float* grads, float* rows, float* part,
+                                        long long part_n, void* stream) {
+  if (p <= 0 || n % kEncQ != 0 || n > kEncMaxN || n < knn || dout <= 0 || dout > kEncMaxD ||
+      static_cast<long long>(p) * ((dout + kEncQ - 1) / kEncQ * kEncQ) * knn > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* w[14] = {w1, b1, w2, b2, w3, b3, pw1, pb1, pw2, pb2, pw3, pb3, pw4, pb4};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (knn) {
     case 8:
-      return launch<8>(pts, g, p, n, w, dout, dpatches, grads, partial, grid, s);
+      return launch<8>(pts, g, winners, p, n, w, dout, dpatches, grads, rows, part, part_n, s);
     case 16:
-      return launch<16>(pts, g, p, n, w, dout, dpatches, grads, partial, grid, s);
+      return launch<16>(pts, g, winners, p, n, w, dout, dpatches, grads, rows, part, part_n, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

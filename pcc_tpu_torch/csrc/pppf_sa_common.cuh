@@ -32,6 +32,33 @@ __device__ __forceinline__ float bn_shift(float acc, float b, float mu) {
   return __fsub_rn(__fadd_rn(acc, b), mu);
 }
 
+// Where a stage's activations lie in device memory, for its backward: x_l
+// (the input of layer l, l = 0..n_layers; x_n_layers the last activation)
+// as [rows][ld[l]] at act + act_off[l], and t_l = (z + b) - mean of layer l
+// as [rows][ld[l + 1]] at t + t_off[l], ld[l] = round4(width[l]), rows = P *
+// N points. The forward kernel writes them in its store mode, the backward
+// kernel's replay otherwise.
+struct ActLayout {
+  int ld[kMaxLayers + 1];
+  size_t act_off[kMaxLayers + 1];
+  size_t t_off[kMaxLayers];
+};
+
+inline ActLayout act_layout(size_t rows, int n_layers, const int* widths) {
+  ActLayout a;
+  size_t act_off = 0, t_off = 0;
+  for (int l = 0; l <= n_layers; ++l) {
+    a.ld[l] = round4(widths[l]);
+    a.act_off[l] = act_off;
+    act_off += rows * a.ld[l];
+    if (l > 0) {
+      a.t_off[l - 1] = t_off;
+      t_off += rows * a.ld[l];
+    }
+  }
+  return a;
+}
+
 // What a layer does with its outputs.
 enum Epilogue {
   kStore,        // out[r][o] = relu(fma(bn_shift(...), mul, beta))

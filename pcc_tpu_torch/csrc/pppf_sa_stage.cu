@@ -53,6 +53,14 @@
 // hide the weight loads' latency (one block per SM with 64-row tiles, and
 // 16 rows a thread, were no faster over the three stages on an H100).
 //
+// Store mode ("pppf" per point; the train step's forward asks for it): the
+// same kernel, templated, also writes each query's slots ranked by
+// (distance, index), every layer's input x_l and shifted pre-activation t_l
+// and the last activations to device memory (pppf_sa_common.cuh::
+// ActLayout), so that the backward kernel (pppf_sa_stage_bwd.cu) neither
+// selects nor replays the stack. Its outputs are bit for bit the serving
+// mode's, which is compiled without the stores.
+//
 // Layout "pppe", and "pppf" where the queries' masks do not fit in shared
 // memory beside the smallest tile, per slot: its rows are centred
 // (xyz - query), so they depend on the slot. A block owns a few queries of
@@ -100,6 +108,10 @@ struct Stage {
   int lda, ldb;           // row strides of the two activation buffers
   int region;             // per point: words of the activation buffers and selection scratch
   int cc;                 // per point: columns per chunk of the last layer
+  int* gsel;              // store mode: the slots [P, S, nsample], ranked
+  float* gact;            // store mode: every layer's input and the last
+  float* gt;              //   activations, and t_l (pppf_sa_common.cuh::ActLayout)
+  ActLayout lay;
   int width[kMaxLayers + 1];
   const float* w[kMaxLayers];
   const float* b[kMaxLayers];
@@ -255,6 +267,11 @@ __device__ __forceinline__ void fold_query_max(const float* t, int ldt, int row0
 
 // Layout "pppf", one block per patch: the queries' point sets, then the stack
 // on the patch's points tile by tile, the last layer folded into the maxima.
+// kSave (the store mode the train step's forward asks for): the same
+// arithmetic, and also the ranked slots, every layer's input x_l and t_l and
+// the last activations stored for the backward kernel (pppf_sa_stage_bwd.cu),
+// which then neither selects nor replays the stack.
+template <bool kSave>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 pppf_sa_points_kernel(const __grid_constant__ Stage st) {
   extern __shared__ __align__(16) float smem[];
@@ -270,17 +287,20 @@ pppf_sa_points_kernel(const __grid_constant__ Stage st) {
   // (masked slots and slots beyond N read point 0), as bits of its mask.
   // The selection scratch aliases the activation buffers.
   float* sq = smem;                                         // [qb][4]
-  float* dist = sq + 4 * st.qb;                             // where ns < n
-  int* sel = reinterpret_cast<int*>(dist + (ns < n ? st.qb * select_words(n, ns) : 0));
+  float* dist = sq + 4 * st.qb;                             // where ns < n or kSave
+  int* sel = reinterpret_cast<int*>(dist + (ns < n || kSave ? st.qb * select_words(n, ns) : 0));
   for (int e = tid; e < s * nw; e += kThreads) masks[e] = 0u;
   for (int q0 = 0; q0 < s; q0 += st.qb) {
     const int nq = min(st.qb, s - q0);
     load_queries(st.new_xyz + (static_cast<size_t>(p) * s + q0) * 3, nq, sq);
     __syncthreads();
-    select_slots(pts, sq, nq, n, ns, true, false, st.r2, dist, sel);
+    // with kSave, ranked also where every point is taken (the same set; the
+    // backward's first winner depends on the order)
+    select_slots(pts, sq, nq, n, ns, true, kSave, st.r2, dist, sel);
     for (int e = tid; e < nq * ns; e += kThreads) {
       const int j = sel[e];
       atomicOr(masks + (q0 + e / ns) * nw + (j >> 5), 1u << (j & 31));
+      if (kSave) st.gsel[(static_cast<size_t>(p) * s + q0) * ns + e] = j;
     }
   }
   __syncthreads();
@@ -291,21 +311,30 @@ pppf_sa_points_kernel(const __grid_constant__ Stage st) {
   float* o = st.out + static_cast<size_t>(p) * s * cout;
   for (int row0 = 0; row0 < n; row0 += st.rows) {
     const int valid = min(st.rows, n - row0);
+    // this tile's rows of the saved layers (kSave)
+    const size_t grow = static_cast<size_t>(p) * n + row0;
+    auto saved = [&](int l, int c0) {
+      return GlobalRows{st.gact + st.lay.act_off[l + 1] + grow * st.lay.ld[l + 1] + c0,
+                        st.gt + st.lay.t_off[l] + grow * st.lay.ld[l + 1] + c0,
+                        st.lay.ld[l + 1], valid};
+    };
     for (int e = tid; e < st.rows * cin; e += kThreads) {
       const int rl = e / cin, c = e % cin, j = row0 + rl;
       float v = 0.0f;
-      if (rl < valid)
+      if (rl < valid) {
         v = c < st.c ? __ldg(ft + static_cast<size_t>(j) * st.c + c)
                      : __ldg(pts + 3 * j + (c - st.c));
+        if (kSave) st.gact[st.lay.act_off[0] + (grow + rl) * st.lay.ld[0] + c] = v;
+      }
       buf_a[rl * st.lda + c] = v;
     }
     __syncthreads();
     for (int l = 0; l < L - 1; ++l) {
       const int w = st.width[l + 1];
-      dense_layer<kStore>((l & 1) ? buf_b : buf_a, (l & 1) ? st.ldb : st.lda, st.rows,
-                          st.width[l], st.w[l], w, st.b[l], st.mu[l], st.mul[l], st.beta[l], w,
-                          (l & 1) ? buf_a : buf_b, (l & 1) ? st.lda : st.ldb, nullptr, 0, 0, 1,
-                          GlobalRows{});
+      dense_layer<kSave ? kStoreGlobal : kStore>(
+          (l & 1) ? buf_b : buf_a, (l & 1) ? st.ldb : st.lda, st.rows, st.width[l], st.w[l], w,
+          st.b[l], st.mu[l], st.mul[l], st.beta[l], w, (l & 1) ? buf_a : buf_b,
+          (l & 1) ? st.lda : st.ldb, nullptr, 0, 0, 1, kSave ? saved(l, 0) : GlobalRows{});
       __syncthreads();
     }
     // the last layer, a column chunk at a time into the buffer it does not read
@@ -315,9 +344,10 @@ pppf_sa_points_kernel(const __grid_constant__ Stage st) {
     const int ld_src = (l & 1) ? st.ldb : st.lda, ldt = (l & 1) ? st.lda : st.ldb;
     for (int c0 = 0; c0 < cout; c0 += st.cc) {
       const int cc = min(st.cc, cout - c0);
-      dense_layer<kStore>(src, ld_src, st.rows, st.width[l], st.w[l] + c0, cout, st.b[l] + c0,
-                          st.mu[l] + c0, st.mul[l] + c0, st.beta[l] + c0, cc, t, ldt, nullptr,
-                          0, 0, 1, GlobalRows{});
+      dense_layer<kSave ? kStoreGlobal : kStore>(
+          src, ld_src, st.rows, st.width[l], st.w[l] + c0, cout, st.b[l] + c0, st.mu[l] + c0,
+          st.mul[l] + c0, st.beta[l] + c0, cc, t, ldt, nullptr, 0, 0, 1,
+          kSave ? saved(l, c0) : GlobalRows{});
       __syncthreads();
       if (cout % 4 == 0) {
         fold_query_max<true>(t, ldt, row0, valid, cc, c0, masks, nw, s, o, cout);
@@ -333,11 +363,11 @@ pppf_sa_points_kernel(const __grid_constant__ Stage st) {
 // patch's points rounded up to kTM) whose activation buffers, selection
 // scratch and masks fit in `budget` bytes. Sets st.rows, lda, ldb, region,
 // cc and qb; returns the bytes, or 0 if no tile fits.
-size_t point_tile(Stage& st, int lda0, int ldb0, size_t budget) {
+size_t point_tile(Stage& st, int lda0, int ldb0, size_t budget, bool save) {
   const int L = st.n_layers, cout = st.width[L];
   const int nw = (st.n + 31) / 32;
   const size_t per_query =
-      4 + st.nsample + (st.nsample < st.n ? select_words(st.n, st.nsample) : 0);
+      4 + st.nsample + (st.nsample < st.n || save ? select_words(st.n, st.nsample) : 0);
   const int cap = (st.n + kTM - 1) / kTM * kTM;
   for (int rows = kMaxPointRows; rows >= kTM;
        rows -= rows > kTM * kWarps ? kTM * kWarps : kTM) {
@@ -373,17 +403,27 @@ size_t point_tile(Stage& st, int lda0, int ldb0, size_t budget) {
 // contiguous; out [p, s, widths[n_layers]] f32. layers: host array of
 // 5 * n_layers device pointers (W [in, out] row-major, b, mean, mul, beta per
 // layer, 16-byte aligned); widths: host array of n_layers + 1 ints, widths[0]
-// = c + 3. pppe: 0 for the "pppf" layout, 1 for "pppe". Returns a
-// cudaError_t value.
+// = c + 3. pppe: 0 for the "pppf" layout, 1 for "pppe". Store mode, "pppf"
+// only: gsel (p * s * nsample ints), gact and gt (laid out as
+// pppf_sa_common.cuh::act_layout(p * n, ...) gives), or all null; *saved
+// (host) is set to 1 where they were written (the per-point kernel ran),
+// else 0. Returns a cudaError_t value.
 extern "C" int pppf_sa_stage_launch(const float* new_xyz, const float* xyz, const float* feat,
                                     float* out, int p, int s, int n, int c, int nsample,
                                     float r2, int pppe, int n_layers,
-                                    const void* const* layers, const int* widths,
-                                    void* stream) {
+                                    const void* const* layers, const int* widths, int* gsel,
+                                    float* gact, float* gt, int* saved, void* stream) {
   if (p <= 0 || s <= 0 || n <= 0 || n > kMaxN || nsample <= 0 || n_layers <= 0 ||
-      n_layers > kMaxLayers || c < 0 || (c > 0) != (feat != nullptr) || widths[0] != c + 3)
+      n_layers > kMaxLayers || c < 0 || (c > 0) != (feat != nullptr) || widths[0] != c + 3 ||
+      (gsel != nullptr) != (gact != nullptr) || (gsel != nullptr) != (gt != nullptr) ||
+      (gsel != nullptr && (pppe || saved == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool save = gsel != nullptr;
+  if (saved) *saved = 0;
   Stage st;
+  st.gsel = gsel;
+  st.gact = gact;
+  st.gt = gt;
   st.new_xyz = new_xyz;
   st.xyz = xyz;
   st.feat = feat;
@@ -412,6 +452,7 @@ extern "C" int pppf_sa_stage_launch(const float* new_xyz, const float* xyz, cons
     }
   }
   const int cout = widths[n_layers];
+  st.lay = act_layout(static_cast<size_t>(p) * n, n_layers, widths);
   // budgets: kMinBlocks blocks per SM (a block is charged 1 KB more than it
   // asks for), failing that one
   const size_t budgets[2] = {(kSmemLimit + 1024) / kMinBlocks - 1024, kSmemLimit};
@@ -420,14 +461,17 @@ extern "C" int pppf_sa_stage_launch(const float* new_xyz, const float* xyz, cons
     // per point, where the queries' masks fit beside a tile
     const int lda0 = st.lda, ldb0 = st.ldb;
     size_t bytes = 0;
-    for (int i = 0; i < 2 && bytes == 0; ++i) bytes = point_tile(st, lda0, ldb0, budgets[i]);
+    for (int i = 0; i < 2 && bytes == 0; ++i)
+      bytes = point_tile(st, lda0, ldb0, budgets[i], save);
     if (bytes > 0) {
-      cudaError_t err = cudaFuncSetAttribute(pppf_sa_points_kernel,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+      auto kernel = save ? pppf_sa_points_kernel<true> : pppf_sa_points_kernel<false>;
+      cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              static_cast<int>(bytes));
       if (err != cudaSuccess) return static_cast<int>(err);
-      pppf_sa_points_kernel<<<static_cast<unsigned>(p), kThreads, bytes, strm>>>(st);
-      return static_cast<int>(cudaGetLastError());
+      kernel<<<static_cast<unsigned>(p), kThreads, bytes, strm>>>(st);
+      err = cudaGetLastError();
+      if (err == cudaSuccess && save) *saved = 1;
+      return static_cast<int>(err);
     }
     st.lda = lda0;
     st.ldb = ldb0;

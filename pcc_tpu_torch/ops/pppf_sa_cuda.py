@@ -32,11 +32,12 @@ import torch.nn.functional as F
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.knn import ball_query, knn_gather, select_nearest, sq_dists
 from pcc_tpu_torch.ops.sa_cuda import fma_matmul
+from pcc_tpu_torch.ops.tf32_mma import wgrad_part_floats
 
 _ARGTYPES = ([cuda_lib.PTR] * 4 + [cuda_lib.INT] * 5 + [ctypes.c_float]
-             + [cuda_lib.INT] * 2 + [cuda_lib.PTR] * 3)
+             + [cuda_lib.INT] * 2 + [cuda_lib.PTR] * 7)
 _BWD_ARGTYPES = ([cuda_lib.PTR] * 4 + [cuda_lib.INT] * 5 + [ctypes.c_float] + [cuda_lib.INT]
-                 + [cuda_lib.PTR] * 12)
+                 + [cuda_lib.PTR] * 10 + [ctypes.c_longlong, cuda_lib.INT, cuda_lib.PTR])
 LAYOUTS = ("pppf", "pppe")
 MAX_POINTS = 1024      # csrc/pppf_sa_stage.cu: kMaxN
 MAX_LAYERS = 6         # kMaxLayers
@@ -45,8 +46,6 @@ MIN_TILE_ROWS = 8      # kTM
 # one query's maxima, indices and distances) must fit in a block's shared memory
 SMEM_WORDS = 227 * 1024 // 4
 PLAIN_ELEMS = 1 << 27  # elements of the widest grouped activation per pass of the plain version
-BWD_SPLIT = 16         # csrc/pppf_sa_stage_bwd.cu: kSplit, row ranges of the weight gradients
-BWD_VSPLIT = 128       # kVSplit, row ranges of the bias and BatchNorm gradients
 # activations within NEAR_TIE of a relu's 0 or of a maximum (relative to the
 # largest of their channel) are recomputed in the kernels' arithmetic
 NEAR_TIE = 1e-4
@@ -188,26 +187,47 @@ def _check(new_xyz, xyz, feat, layers, nsample: int, layout: str, name: str = "p
 
 
 def pppf_sa_fused(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
-                  nsample: int, radius: float, layout: str = "pppf") -> torch.Tensor:
+                  nsample: int, radius: float, layout: str = "pppf", save: bool = False):
     """One fused PN++ SA stage over a flat patch batch (pcc_tpu's
     pppf_sa_fused): new_xyz [P, S, 3] query centroids, xyz [P, N, 3], feat
     [P, N, C] or None, layers a list of (W [cin, cout], b, mean, mul, bias)
     with the BatchNorm folded by `fold_bn` -> [P, S, C_out] f32. The CUDA
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+    kernel on CUDA tensors, the plain version on CPU tensors.
+
+    With `save` (layout "pppf"; the train step's forward), (out, saved):
+    the kernel's store mode also writes what its backward would otherwise
+    recompute, the ranked slots and every layer's activations, for
+    `pppf_sa_bwd(..., saved=saved)`; the output is the same bit for bit.
+    saved is None on CPU tensors and where the store mode does not apply
+    (the per-slot kernel runs where the queries' masks do not fit)."""
+    if save and layout != "pppf":
+        raise ValueError("pppf_sa_fused: save applies to the \"pppf\" layout")
     if new_xyz.device.type == "cpu":
-        return pppf_sa_plain(new_xyz, xyz, feat, layers, nsample=nsample, radius=radius,
-                             layout=layout)
+        out = pppf_sa_plain(new_xyz, xyz, feat, layers, nsample=nsample, radius=radius,
+                            layout=layout)
+        return (out, None) if save else out
     widths = _check(new_xyz, xyz, feat, layers, nsample, layout)
     P, S, _ = new_xyz.shape
-    out = torch.empty((P, S, widths[-1]), dtype=torch.float32, device=new_xyz.device)
+    N = xyz.shape[1]
+    dev = new_xyz.device
+    out = torch.empty((P, S, widths[-1]), dtype=torch.float32, device=dev)
+    bufs, done = None, ctypes.c_int(0)
+    if save:
+        ws = _bwd_workspace(P, S, N, nsample, widths)
+        bufs = (torch.empty(ws["sel"], dtype=torch.int32, device=dev),
+                torch.empty(ws["act"], dtype=torch.float32, device=dev),
+                torch.empty(ws["t"], dtype=torch.float32, device=dev))
     ptrs = (ctypes.c_void_p * (5 * len(layers)))(
         *[t.data_ptr() for lay in layers for t in lay])
     cuda_lib.launch(
         "pppf_sa_stage", _ARGTYPES, new_xyz.data_ptr(), xyz.data_ptr(),
-        None if feat is None else feat.data_ptr(), out.data_ptr(), P, S, xyz.shape[1],
+        None if feat is None else feat.data_ptr(), out.data_ptr(), P, S, N,
         0 if feat is None else feat.shape[2], nsample, _radius2(radius),
         LAYOUTS.index(layout), len(layers), ptrs, (ctypes.c_int * len(widths))(*widths),
-        cuda_lib.stream_ptr(new_xyz))
+        *([b.data_ptr() for b in bufs] if save else [None] * 3),
+        ctypes.addressof(done) if save else None, cuda_lib.stream_ptr(new_xyz))
+    if save:
+        return out, (bufs if done.value else None)
     return out
 
 
@@ -318,11 +338,24 @@ def stage_bwd_flops(P: int, S: int, N: int, nsample: int, widths) -> float:
     layer), the input and weight gradients (4 per multiply-add) and their
     elementwise parts (5 per output: mask, scale, three sums); per query: 9
     per (query, point) distance pair where a selection is made and one
-    comparison per slot and output channel for the max routing."""
+    comparison per slot and output channel for the max routing. All of it
+    counted as float32 work (stage_bwd_work splits it by unit)."""
+    fp32, products = stage_bwd_work(P, S, N, nsample, widths)
+    return fp32 + products
+
+
+def stage_bwd_work(P: int, S: int, N: int, nsample: int, widths, replay: bool = True):
+    """(float32 operations on CUDA cores, float32 operations of the input and
+    weight-gradient products) of one stage's backward; the kernel runs the
+    products in 3xTF32 on the tensor cores, three TF32 products each. Without
+    `replay` (the forward's store mode handed the activations over), neither
+    the selection nor the replay of the stack is counted."""
     macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
     outs = sum(widths[1:])
-    dist = 9.0 * N if nsample < N else 0.0
-    return P * N * (6.0 * macs + 10.0 * outs) + P * S * (dist + nsample * widths[-1])
+    dist = 9.0 * N if nsample < N and replay else 0.0
+    fp32 = (P * N * ((2.0 * macs + 5.0 * outs if replay else 0.0) + 5.0 * outs)
+            + P * S * (dist + nsample * widths[-1]))
+    return fp32, P * N * 4.0 * macs
 
 
 def _bwd_workspace(P: int, S: int, N: int, nsample: int, widths) -> dict:
@@ -330,16 +363,19 @@ def _bwd_workspace(P: int, S: int, N: int, nsample: int, widths) -> dict:
     launcher's comment in csrc/pppf_sa_stage_bwd.cu)."""
     pad = [_round4(w) for w in widths]
     pairs = list(zip(widths[:-1], widths[1:]))
-    return dict(sel=P * S * nsample, win=P * S * widths[-1], act=P * N * sum(pad),
+    return dict(sel=P * S * nsample, act=P * N * sum(pad),
                 t=P * N * sum(pad[1:]), da=P * N * sum(pad[1:]),
-                part=max(max(BWD_SPLIT * a * b, BWD_VSPLIT * 3 * b) for a, b in pairs))
+                part=wgrad_part_floats([(P * N, a, b) for a, b in pairs]))
 
 
 def pppf_sa_bwd(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, gout: torch.Tensor, layers,
-                *, nsample: int, radius: float):
+                *, nsample: int, radius: float, saved=None):
     """(dxyz, dfeat | None, [(dW, db, dmul, dbeta)] per layer) of the "pppf"
     stage against the cotangent gout [P, S, C_out]: the CUDA kernel on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors, the plain version on CPU tensors. saved: what
+    `pppf_sa_fused(..., save=True)` stored for these inputs and layers (the
+    kernel then starts at the routing); None to select and replay the stack
+    here. The results are the same bit for bit either way."""
     if new_xyz.device.type == "cpu":
         return pppf_sa_bwd_plain(new_xyz, xyz, feat, gout, layers, nsample=nsample,
                                  radius=radius)
@@ -350,19 +386,25 @@ def pppf_sa_bwd(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, gout: torch.Tens
     if tuple(gout.shape) != (P, S, widths[-1]):
         raise ValueError(f"pppf_sa_bwd: cotangent {tuple(gout.shape)} != "
                          f"{(P, S, widths[-1])}")
-    # the backward's smallest tile: MIN_TILE_ROWS rows of its two gradient
-    # buffers, which hold the widths alternately from the last
-    pad = [_round4(w) for w in widths][::-1]
-    if MIN_TILE_ROWS * (max(pad[0::2]) + max(pad[1::2])) > SMEM_WORDS:
-        raise ValueError(f"pppf_sa_bwd: widths {widths} need more than {4 * SMEM_WORDS} "
-                         "bytes of shared memory for the smallest backward tile")
+    # the routing's smallest block: 4 channels of one patch's points and
+    # queries
+    if 4 * (4 * N + 6 * S) > 4 * SMEM_WORDS:
+        raise ValueError(f"pppf_sa_bwd: N={N}, S={S} need more than {4 * SMEM_WORDS} bytes "
+                         "of shared memory for the routing of 4 channels")
     dev = new_xyz.device
     ws = _bwd_workspace(P, S, N, nsample, widths)
-    sel, win = (torch.empty(ws[k], dtype=torch.int32, device=dev) for k in ("sel", "win"))
-    act, t, da, part = (torch.empty(ws[k], dtype=torch.float32, device=dev)
-                        for k in ("act", "t", "da", "part"))
-    wts = [F.pad(lay[0].t(), (0, _round4(lay[0].shape[0]) - lay[0].shape[0])).contiguous()
-           for lay in layers]
+    if saved is None:
+        sel = torch.empty(ws["sel"], dtype=torch.int32, device=dev)
+        act, t = (torch.empty(ws[k], dtype=torch.float32, device=dev) for k in ("act", "t"))
+    else:
+        sel, act, t = saved
+        if (sel.numel(), act.numel(), t.numel()) != (ws["sel"], ws["act"], ws["t"]):
+            raise ValueError("pppf_sa_bwd: saved buffers of another stage's shapes")
+    da, part = (torch.empty(ws[k], dtype=torch.float32, device=dev) for k in ("da", "part"))
+    # (W mul)^T [round4(cout), round4(cin)], zero-padded: dx's weights
+    wts = [F.pad((lay[0] * lay[3]).t(), (0, _round4(lay[0].shape[0]) - lay[0].shape[0],
+                                         0, _round4(lay[0].shape[1]) - lay[0].shape[1]))
+           .contiguous() for lay in layers]
     ptrs = (ctypes.c_void_p * (6 * len(layers)))(*[
         p.data_ptr() for lay, wt in zip(layers, wts) for p in (lay[0], wt, *lay[1:])])
     dxyz = torch.empty_like(xyz)
@@ -375,8 +417,8 @@ def pppf_sa_bwd(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, gout: torch.Tens
         0 if feat is None else feat.shape[2], nsample, _radius2(radius), len(layers), ptrs,
         (ctypes.c_int * len(widths))(*widths), dxyz.data_ptr(),
         None if dfeat is None else dfeat.data_ptr(), grads.data_ptr(), sel.data_ptr(),
-        win.data_ptr(), act.data_ptr(), t.data_ptr(), da.data_ptr(), part.data_ptr(),
-        cuda_lib.stream_ptr(xyz))
+        act.data_ptr(), t.data_ptr(), da.data_ptr(), part.data_ptr(), part.numel(),
+        int(saved is None), cuda_lib.stream_ptr(xyz))
     parts = torch.split(grads, [n for a, b in pairs for n in (a * b, b, b, b)])
     dlayers = [(parts[4 * i].view(a, b), *parts[4 * i + 1:4 * i + 4])
                for i, (a, b) in enumerate(pairs)]
@@ -384,27 +426,36 @@ def pppf_sa_bwd(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, gout: torch.Tens
 
 
 class PPPFStageFn(torch.autograd.Function):
-    """The stage with its backward kernel: forward `pppf_sa_fused`, backward
-    `pppf_sa_bwd` (pcc_tpu's custom VJP, pppf_sa_pallas.py::
-    _make_trainable_stage). Arguments: nsample, radius, new_xyz, xyz, feat
-    (or None), then W, b, mean, mul, beta of each layer. new_xyz and mean
-    get no gradient; at a first stage new_xyz may be xyz itself, whose
-    gradient is then dxyz alone."""
+    """The stage with its backward kernel: forward `pppf_sa_fused`, with
+    `save` in its store mode, backward `pppf_sa_bwd` on what it stored
+    (pcc_tpu's custom VJP, pppf_sa_pallas.py::_make_trainable_stage).
+    Arguments: nsample, radius, save, new_xyz, xyz, feat (or None), then W,
+    b, mean, mul, beta of each layer. new_xyz and mean get no gradient; at a
+    first stage new_xyz may be xyz itself, whose gradient is then dxyz alone.
+    ctx.saved_tensors holds new_xyz, xyz, feat, the layers' tensors, then the
+    stored buffers (none without `save`, or on the CPU)."""
 
     @staticmethod
-    def forward(ctx, nsample, radius, new_xyz, xyz, feat, *flat):
-        ctx.nsample, ctx.radius = nsample, radius
-        ctx.save_for_backward(new_xyz, xyz, feat, *flat)
+    def forward(ctx, nsample, radius, save, new_xyz, xyz, feat, *flat):
+        ctx.nsample, ctx.radius, ctx.n_flat = nsample, radius, len(flat)
         layers = [flat[i:i + 5] for i in range(0, len(flat), 5)]
-        return pppf_sa_fused(new_xyz, xyz, feat, layers, nsample=nsample, radius=radius)
+        kw = dict(nsample=nsample, radius=radius)
+        if save:
+            out, saved = pppf_sa_fused(new_xyz, xyz, feat, layers, save=True, **kw)
+        else:
+            out, saved = pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), None
+        ctx.save_for_backward(new_xyz, xyz, feat, *flat, *(saved or ()))
+        return out
 
     @staticmethod
     def backward(ctx, gout):
-        new_xyz, xyz, feat, *flat = ctx.saved_tensors
+        new_xyz, xyz, feat, *rest = ctx.saved_tensors
+        flat, saved = rest[:ctx.n_flat], rest[ctx.n_flat:]
         layers = [flat[i:i + 5] for i in range(0, len(flat), 5)]
         dxyz, dfeat, dl = pppf_sa_bwd(new_xyz, xyz, feat, gout.contiguous(), layers,
-                                      nsample=ctx.nsample, radius=ctx.radius)
-        return (None, None, None, dxyz, dfeat,
+                                      nsample=ctx.nsample, radius=ctx.radius,
+                                      saved=tuple(saved) or None)
+        return (None, None, None, None, dxyz, dfeat,
                 *[g for dw, db, dmul, dbeta in dl for g in (dw, db, None, dmul, dbeta)])
 
 
@@ -413,6 +464,11 @@ def pppf_sa_trainable(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
     """Differentiable "pppf" stage [P, S, C_out] (pcc_tpu's
     pppf_sa_trainable): the same output as `pppf_sa_fused`, gradients by
     `pppf_sa_bwd` to xyz, feat and every layer's W, b, mul and beta
-    (BatchNorm frozen at the running statistics folded into mean and mul)."""
-    return PPPFStageFn.apply(nsample, radius, new_xyz, xyz, feat,
-                             *[t for lay in layers for t in lay])
+    (BatchNorm frozen at the running statistics folded into mean and mul).
+    Where a gradient will be taken, the forward stores its activations for
+    the backward (about 1.9 GB for the three stages of an 8-cloud step);
+    under no_grad, as in serving, it does not."""
+    flat = [t for lay in layers for t in lay]
+    save = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in [new_xyz, xyz, feat] + flat)
+    return PPPFStageFn.apply(nsample, radius, save, new_xyz, xyz, feat, *flat)

@@ -14,9 +14,14 @@ another order, so latents agree to float32 rounding.
 `patch_encoder_bwd` is its gradient against a cotangent [P, D]: the CUDA
 kernel csrc/patch_encoder_bwd.cu on CUDA tensors, `patch_encoder_bwd_plain`
 (autograd through plain products, with the kernel's relu and max choices)
-on CPU tensors.
+on CPU tensors. Both route each latent channel's gradient through its
+winner, the first point that reaches the channel's max over points:
+`patch_encoder(..., return_winners=True)` returns them beside the latent
+(the forward kernel computes them in its fold), and `patch_encoder_bwd(...,
+winners=...)` takes them.
 `patch_encoder_trainable` is the differentiable encoder that training
-calls: forward `patch_encoder`, backward `patch_encoder_bwd`.
+calls: forward `patch_encoder` with its winners, backward
+`patch_encoder_bwd` on them.
 
 `sa_fused` is the encoder's first half alone, SetAbstraction [P, N, 3] ->
 [P, N, 128] (pcc_tpu's TPU kernel _sa_kernel, entry sa_fused): the CUDA
@@ -29,17 +34,19 @@ their sources.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.knn import knn_gather, select_nearest, sq_dists
+from pcc_tpu_torch.ops.tf32_mma import wgrad_part_floats
 
 _ARGTYPES = ([cuda_lib.PTR, cuda_lib.INT, cuda_lib.INT, cuda_lib.INT]
-             + [cuda_lib.PTR] * 14 + [cuda_lib.INT, cuda_lib.PTR, cuda_lib.PTR])
-_BWD_ARGTYPES = ([cuda_lib.PTR, cuda_lib.PTR, cuda_lib.INT, cuda_lib.INT, cuda_lib.INT]
-                 + [cuda_lib.PTR] * 14
-                 + [cuda_lib.INT, cuda_lib.PTR, cuda_lib.PTR, cuda_lib.PTR, cuda_lib.INT,
-                    cuda_lib.PTR])
+             + [cuda_lib.PTR] * 14 + [cuda_lib.INT] + [cuda_lib.PTR] * 3)
+_BWD_ARGTYPES = ([cuda_lib.PTR] * 3 + [cuda_lib.INT, cuda_lib.INT, cuda_lib.INT]
+                 + [cuda_lib.PTR] * 14 + [cuda_lib.INT] + [cuda_lib.PTR] * 4
+                 + [ctypes.c_longlong, cuda_lib.PTR])
 _SA_ARGTYPES = ([cuda_lib.PTR, cuda_lib.INT, cuda_lib.INT, cuda_lib.INT]
                 + [cuda_lib.PTR] * 8)
 SA_WIDTHS = (3, 32, 64, 128)
@@ -47,9 +54,7 @@ PN_WIDTHS = (131, 128, 256, 512)        # then D
 KNN_SUPPORTED = (8, 16)
 MAX_POINTS = 1024
 MAX_D = 64
-# persistent blocks of the backward kernel (one per H100 SM). Fixed, so the
-# order of its sums, and hence its bits, does not depend on the card.
-BWD_GRID = 132
+ENC_Q = 16          # csrc/encoder_common.cuh: kEncQ, the backward's winners per group
 PLAIN_CHUNK = 256   # patches per pass of the plain versions (bounds their memory)
 
 
@@ -75,15 +80,22 @@ def pointwise_plain(p: torch.Tensor, idx: torch.Tensor, sa_wb, pn_wb) -> torch.T
 
 
 def patch_encoder_plain(patches: torch.Tensor, sa_wb, pn_wb, knn: int,
-                        chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+                        chunk: int = PLAIN_CHUNK, return_winners: bool = False):
     """[P, N, 3] f32 -> [P, D]. sa_wb / pn_wb: lists of ([in, out] weight,
     [out] bias) tensors. Runs `chunk` patches at a time to bound the memory
-    of the [chunk, N, knn, 128] grouped activations."""
-    outs = []
+    of the [chunk, N, knn, 128] grouped activations. With return_winners,
+    (latent, winners [P, D] int32): each channel's first arg-max point as
+    the kernel finds it (`winners_plain`)."""
+    outs, wins = [], []
     for s in range(0, patches.shape[0], chunk):
         p = patches[s:s + chunk]
         idx = select_nearest(sq_dists(p, p), knn)          # [c, N, knn]
-        outs.append(pointwise_plain(p, idx, sa_wb, pn_wb).amax(dim=1))
+        z4 = pointwise_plain(p, idx, sa_wb, pn_wb)
+        outs.append(z4.amax(dim=1))
+        if return_winners:
+            wins.append(winners_plain(p, idx, z4, sa_wb, pn_wb).to(torch.int32))
+    if return_winners:
+        return torch.cat(outs), torch.cat(wins)
     return torch.cat(outs)
 
 
@@ -207,36 +219,64 @@ def _kernel_args(name: str, patches: torch.Tensor, sa_wb, pn_wb, knn: int) -> li
     return [t.data_ptr() for t in flat]
 
 
-def patch_encoder(patches: torch.Tensor, sa_wb, pn_wb, knn: int) -> torch.Tensor:
+def patch_encoder(patches: torch.Tensor, sa_wb, pn_wb, knn: int,
+                  return_winners: bool = False):
     """[P, N, 3] f32 patches -> pre-spread latent [P, D] f32: the CUDA kernel
-    on CUDA tensors, the plain version on CPU tensors."""
+    on CUDA tensors, the plain version on CPU tensors. With return_winners,
+    (latent, winners [P, D] int32): each latent channel's first arg-max
+    point, which the backward routes its gradient through."""
     if patches.device.type == "cpu":
-        return patch_encoder_plain(patches, sa_wb, pn_wb, knn)
+        return patch_encoder_plain(patches, sa_wb, pn_wb, knn, return_winners=return_winners)
     args = _kernel_args("patch_encoder", patches, sa_wb, pn_wb, knn)
     P, D = patches.shape[0], pn_wb[-1][0].shape[1]
     out = torch.empty((P, D), dtype=torch.float32, device=patches.device)
+    win = (torch.empty((P, D), dtype=torch.int32, device=patches.device)
+           if return_winners else None)
     cuda_lib.launch("patch_encoder", _ARGTYPES, patches.data_ptr(), P,
-                    patches.shape[1], knn,
-                    *args, D, out.data_ptr(), cuda_lib.stream_ptr(patches))
-    return out
+                    patches.shape[1], knn, *args, D, out.data_ptr(),
+                    None if win is None else win.data_ptr(), cuda_lib.stream_ptr(patches))
+    return (out, win) if return_winners else out
+
+
+def winners_plain(p: torch.Tensor, idx: torch.Tensor, z4: torch.Tensor, sa_wb,
+                  pn_wb) -> torch.Tensor:
+    """Each latent channel's winner as the kernels find it: the first point
+    (lowest index) that reaches the channel's max over points, on the
+    kernels' float32 values. p [c, N, 3] patches, idx [c, N, knn] their
+    neighbours, z4 [c, N, D] the plain pre-max latents -> [c, D] points. The
+    points within 1e-4 of a channel's max are recomputed in the kernels'
+    arithmetic (fma_matmul), since float32 ties and near-ties, which occur at
+    training sizes, can resolve differently in any other summation order."""
+    top = z4.amax(dim=1, keepdim=True)
+    near = z4 >= top - 1e-4 * z4.abs().amax(dim=1, keepdim=True)
+    # the candidate points of each patch, ascending, padded with the first
+    cand = near.any(dim=-1)                                        # [c, N]
+    R = int(cand.sum(dim=1).max())
+    order = torch.sort((~cand).to(torch.int8), dim=1, stable=True).indices[:, :R]
+    rows = torch.where(torch.gather(cand, 1, order), order, order[:, :1])
+    z4r = _kernel_choices(p, idx, rows, sa_wb, pn_wb)[-1]
+    z4r = torch.where(_gather_rows(near, rows), z4r, -torch.inf)   # [c, R, D]
+    return torch.gather(rows, 1, z4r.max(dim=1).indices)           # first row
 
 
 def patch_encoder_bwd_plain(patches: torch.Tensor, g: torch.Tensor, sa_wb, pn_wb,
-                            knn: int):
+                            knn: int, winners=None):
     """The encoder's gradient against the cotangent g [P, D], with the
     kernel's subgradient. Returns (dpatches [P, N, 3], dsa_wb, dpn_wb), the
     weight gradients summed over patches in the ([in, out], [out]) layout of
     sa_wb / pn_wb.
 
     The gradient of latent channel c flows only through the point that wins
-    its max over points, and within that point through the slot that wins
+    its max over points (`winners` [P, D], the forward's, or else
+    `winners_plain`), and within that point through the slot that wins
     each SetAbstraction channel's max, gated by the relu masks. The kernel
     makes these choices on its own float32 values, routing ties to the
     first point or slot; float32 ties and near-ties, which do occur at
-    training sizes, can resolve differently in any other summation order. So the choices here are made by repeating the kernel's
-    arithmetic (fma_matmul) on the points within 1e-4 of each channel's
-    max, and the gradients are then autograd through plain products on the
-    winning points, with the relu and max replaced by those choices."""
+    training sizes, can resolve differently in any other summation order. So
+    the choices on the winning points are made by repeating the kernel's
+    arithmetic (fma_matmul), and the gradients are then autograd through
+    plain products on the winning points, with the relu and max replaced by
+    those choices."""
     leaves = [t.detach().requires_grad_(True) for t in _flatten(sa_wb, pn_wb)]
     sa, pn = _unflatten(leaves)
     dpatches, wgrads = [], None
@@ -244,21 +284,11 @@ def patch_encoder_bwd_plain(patches: torch.Tensor, g: torch.Tensor, sa_wb, pn_wb
         p, gc = patches[s:s + PLAIN_CHUNK].detach(), g[s:s + PLAIN_CHUNK]
         with torch.no_grad():
             idx = select_nearest(sq_dists(p, p), knn)                      # [c, N, knn]
-            z4 = pointwise_plain(p, idx, sa_wb, pn_wb)                          # [c, N, D]
-            top = z4.amax(dim=1, keepdim=True)
-            near = z4 >= top - 1e-4 * z4.abs().amax(dim=1, keepdim=True)
-            # the candidate points of each patch, ascending, padded with the first
-            cand = near.any(dim=-1)                                        # [c, N]
-            R = int(cand.sum(dim=1).max())
-            order = torch.sort((~cand).to(torch.int8), dim=1, stable=True).indices[:, :R]
-            rows = torch.where(torch.gather(cand, 1, order), order, order[:, :1])
-            sa_masks, slot, live, pn_masks, z4r = _kernel_choices(p, idx, rows, sa_wb, pn_wb)
-            z4r = torch.where(_gather_rows(near, rows), z4r, -torch.inf)   # [c, R, D]
-            win = z4r.max(dim=1).indices                                   # [c, D], first row
-            q = torch.gather(rows, 1, win)                                 # winning points
-            sa_masks = [_gather_rows(m, win) for m in sa_masks]
-            slot, live = _gather_rows(slot, win), _gather_rows(live, win)  # [c, D, 128]
-            pn_masks = [_gather_rows(m, win) for m in pn_masks]
+            if winners is None:
+                q = winners_plain(p, idx, pointwise_plain(p, idx, sa_wb, pn_wb), sa_wb, pn_wb)
+            else:
+                q = winners[s:s + PLAIN_CHUNK].long()                      # [c, D]
+            sa_masks, slot, live, pn_masks, _ = _kernel_choices(p, idx, q, sa_wb, pn_wb)
             nbr = torch.gather(idx, 1, q[..., None].expand(-1, -1, knn))  # [c, D, knn]
         with torch.enable_grad():
             pp = p.requires_grad_(True)
@@ -282,34 +312,64 @@ def patch_encoder_bwd_plain(patches: torch.Tensor, g: torch.Tensor, sa_wb, pn_wb
     return (torch.cat(dpatches), *_unflatten(wgrads))
 
 
-def patch_encoder_bwd(patches: torch.Tensor, g: torch.Tensor, sa_wb, pn_wb, knn: int):
+def _bwd_workspace(P: int, knn: int, D: int):
+    """Floats of the backward kernel's scratch (csrc/patch_encoder_bwd.cu::
+    make_rows and its seven weight-gradient products): the winners' rows,
+    D rounded up to ENC_Q slots a patch (PointNet: the layers' inputs and
+    their pre-activations' gradients; SetAbstraction, knn rows a slot: the
+    centred neighbour and the layers' inputs and gradients), and the
+    products' scratch."""
+    pn = P * -(-D // ENC_Q) * ENC_Q
+    sa = pn * knn
+    c1, c2, c3 = SA_WIDTHS[1:]
+    # x0 padded to 132 floats, x1..x3 and dz1..dz3, dz4 padded to a multiple of 4
+    rows = (pn * (PN_WIDTHS[0] + 1 + 2 * sum(PN_WIDTHS[1:]) + ((D + 3) & ~3))
+            + sa * (4 + 2 * c1 + 2 * c2 + c3))
+    pn_widths = PN_WIDTHS + (D,)
+    products = ([(sa, a, b) for a, b in zip(SA_WIDTHS[:-1], SA_WIDTHS[1:])]
+                + [(pn, a, b) for a, b in zip(pn_widths[:-1], pn_widths[1:])])
+    return rows, wgrad_part_floats(products)
+
+
+def patch_encoder_bwd(patches: torch.Tensor, g: torch.Tensor, sa_wb, pn_wb, knn: int,
+                      winners=None):
     """(dpatches, dsa_wb, dpn_wb) of the encoder against the cotangent g
     [P, D]: the CUDA kernel on CUDA tensors, the plain version on CPU
-    tensors."""
+    tensors. winners [P, D] int32: each latent channel's first arg-max point,
+    as `patch_encoder(..., return_winners=True)` gives them; when None, the
+    wrapper gets them from one launch of the forward kernel (the plain
+    version from `winners_plain`)."""
     if patches.device.type == "cpu":
-        return patch_encoder_bwd_plain(patches, g, sa_wb, pn_wb, knn)
+        return patch_encoder_bwd_plain(patches, g, sa_wb, pn_wb, knn, winners=winners)
     args = _kernel_args("patch_encoder_bwd", patches, sa_wb, pn_wb, knn)
     P, N, _ = patches.shape
     D = pn_wb[-1][0].shape[1]
     cuda_lib.require_cuda("patch_encoder_bwd cotangent", g, torch.float32, 2)
     if g.shape != (P, D):
         raise ValueError(f"patch_encoder_bwd: cotangent {tuple(g.shape)} != {(P, D)}")
+    if winners is None:
+        winners = patch_encoder(patches, sa_wb, pn_wb, knn, return_winners=True)[1]
+    cuda_lib.require_cuda("patch_encoder_bwd winners", winners, torch.int32, 2)
+    if winners.shape != (P, D):
+        raise ValueError(f"patch_encoder_bwd: winners {tuple(winners.shape)} != {(P, D)}")
     leaves = _flatten(sa_wb, pn_wb)
     total = sum(t.numel() for t in leaves)
-    grid = min(P, BWD_GRID)
     dpatches = torch.empty_like(patches)
     grads = torch.empty(total, dtype=torch.float32, device=patches.device)
-    partial = torch.empty(grid * total, dtype=torch.float32, device=patches.device)
+    rows, part = (torch.empty(n, dtype=torch.float32, device=patches.device)
+                  for n in _bwd_workspace(P, knn, D))
     cuda_lib.launch("patch_encoder_bwd", _BWD_ARGTYPES, patches.data_ptr(), g.data_ptr(),
-                    P, N, knn, *args, D, dpatches.data_ptr(), grads.data_ptr(),
-                    partial.data_ptr(), grid, cuda_lib.stream_ptr(patches))
+                    winners.data_ptr(), P, N, knn, *args, D, dpatches.data_ptr(),
+                    grads.data_ptr(), rows.data_ptr(), part.data_ptr(), part.numel(),
+                    cuda_lib.stream_ptr(patches))
     flat = list(torch.split(grads, [t.numel() for t in leaves]))
     flat = [f.view(t.shape) for f, t in zip(flat, leaves)]
     return (dpatches, *_unflatten(flat))
 
 
 class PatchEncoderFn(torch.autograd.Function):
-    """The encoder with its backward kernel: forward `patch_encoder`,
+    """The encoder with its backward kernel: forward `patch_encoder`, which
+    also hands over each latent channel's winning point, saved for the
     backward `patch_encoder_bwd` (pcc_tpu's custom VJP,
     sa_pallas.py::_make_trainable_encoder). Arguments: knn, patches, then
     the 14 weights and biases."""
@@ -317,15 +377,17 @@ class PatchEncoderFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, knn, patches, *wb):
         ctx.knn = knn
-        ctx.save_for_backward(patches, *wb)
         sa, pn = _unflatten(wb)
-        return patch_encoder(patches, sa, pn, knn)
+        latent, winners = patch_encoder(patches, sa, pn, knn, return_winners=True)
+        ctx.save_for_backward(patches, winners, *wb)
+        return latent
 
     @staticmethod
     def backward(ctx, g):
-        patches, *wb = ctx.saved_tensors
+        patches, winners, *wb = ctx.saved_tensors
         sa, pn = _unflatten(wb)
-        dpatches, dsa, dpn = patch_encoder_bwd(patches, g.contiguous(), sa, pn, ctx.knn)
+        dpatches, dsa, dpn = patch_encoder_bwd(patches, g.contiguous(), sa, pn, ctx.knn,
+                                               winners=winners)
         return (None, dpatches, *_flatten(dsa, dpn))
 
 

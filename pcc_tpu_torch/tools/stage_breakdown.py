@@ -45,11 +45,12 @@ VARIANTS = {
 }
 
 
-def stage_inputs(dev):
+def stage_inputs(dev, n_clouds: int = cs.PPPF_CLOUDS):
     """[(name, new_xyz, xyz, feat, layers, nsample, radius)] of the three
-    stages on chip_smoke.py's PPPF-AE serving batch."""
+    stages on n_clouds of chip_smoke.py's clouds (default: its PPPF-AE
+    serving batch)."""
     cfg = CodecConfig(model="PPPF-AE")
-    clouds = cs.synthetic_clouds(cs.PPPF_CLOUDS, cfg.N, cs.SEED)
+    clouds = cs.synthetic_clouds(n_clouds, cfg.N, cs.SEED)
     ae_state, _ = init_params(cs.SEED, cfg)
     ae, _ = make_models(cfg)
     ae.load_state_dict(cs.randomize_batchnorm(ae_state, cs.SEED + 2))
@@ -107,7 +108,8 @@ def launch(fn, new_xyz, xyz, feat, layers, nsample, radius) -> torch.Tensor:
     err = fn(new_xyz.data_ptr(), xyz.data_ptr(), None if feat is None else feat.data_ptr(),
              out.data_ptr(), P, S, xyz.shape[1], 0 if feat is None else feat.shape[2], nsample,
              sa_ops._radius2(radius), 0, len(layers), ptrs,
-             (ctypes.c_int * len(widths))(*widths), cuda_lib.stream_ptr(new_xyz))
+             (ctypes.c_int * len(widths))(*widths), None, None, None, None,
+             cuda_lib.stream_ptr(new_xyz))
     if err:
         raise RuntimeError(f"launch failed: cudaError_t {err}")
     return out

@@ -16,10 +16,12 @@ from pcc_tpu_torch.config import CodecConfig
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.decoder_cuda import patch_decoder, patch_decoder_plain
 from pcc_tpu_torch.ops.fps import fps_batch, fps_plain
+from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
 from pcc_tpu_torch.ops.pppf_sa_cuda import (pppf_sa_bwd, pppf_sa_bwd_plain, pppf_sa_fused,
                                             pppf_sa_plain, pppf_sa_points, stack_replay)
 from pcc_tpu_torch.ops.sa_cuda import (patch_encoder, patch_encoder_bwd,
-                                       patch_encoder_bwd_plain, patch_encoder_plain)
+                                       patch_encoder_bwd_plain, patch_encoder_plain,
+                                       pointwise_plain, winners_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -99,6 +101,39 @@ def test_patch_encoder_bwd_kernel(dev, P, N, knn, D, twins):
         assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
     again = _flat(*patch_encoder_bwd(pts, cot, sa, pn, knn))
     assert all(torch.equal(x, y) for x, y in zip(a, again))
+
+
+@pytest.mark.parametrize("P,N,knn,D,twins", [(16, 256, 16, 16, False), (5, 32, 8, 4, True)])
+def test_patch_encoder_winners_handover(dev, P, N, knn, D, twins):
+    """The forward kernel's winners output leaves the latents bit for bit,
+    equals the plain version's winners (first arg-max point per channel,
+    also where twins make every max a tie), and the backward kernel on them
+    equals the backward that gets them itself (one more forward launch)
+    bit for bit, and the plain version on them within 1e-4."""
+    g = torch.Generator().manual_seed(11)
+    pts = (torch.rand((P, N, 3), generator=g) * 2 - 1) * 0.4
+    if twins:
+        pts[:, N // 2:] = pts[:, :N // 2]
+    pts = pts.to(dev)
+    sa = _wb(g, [3, 32, 64, 128], dev)
+    pn = _wb(g, [131, 128, 256, 512, D], dev)
+    cot = torch.randn((P, D), generator=g).to(dev)
+    lat, win = patch_encoder(pts, sa, pn, knn, return_winners=True)
+    assert win.dtype == torch.int32 and win.shape == (P, D)
+    assert torch.equal(lat, patch_encoder(pts, sa, pn, knn))
+    idx = select_nearest(sq_dists(pts, pts), knn)
+    assert torch.equal(win.long(), winners_plain(pts, idx, pointwise_plain(pts, idx, sa, pn),
+                                                 sa, pn))
+    before = dict(cuda_lib.launches)
+    a = _flat(*patch_encoder_bwd(pts, cot, sa, pn, knn, winners=win))
+    assert cuda_lib.launches["patch_encoder_bwd"] == before["patch_encoder_bwd"] + 1
+    assert cuda_lib.launches["patch_encoder"] == before["patch_encoder"]
+    b = _flat(*patch_encoder_bwd(pts, cot, sa, pn, knn))
+    assert cuda_lib.launches["patch_encoder"] == before["patch_encoder"] + 1
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    c = _flat(*patch_encoder_bwd_plain(pts, cot, sa, pn, knn, winners=win))
+    for x, y in zip(a, c):
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
 
 
 @pytest.mark.parametrize("N,knn,D", [(24, 8, 4), (32, 12, 4), (32, 8, 65)])
@@ -382,6 +417,67 @@ def test_pppf_sa_stage_bwd_kernel(dev, P, S, N, C, nsample, radius, widths, ties
     out.backward(gout)
     assert torch.equal(x.grad, a[0])
     assert torch.equal(lays[-1][4].grad, a[-1]) and lays[0][2].grad is None
+
+
+# (case, P, S, N, C, nsample, radius, widths after the input) where the
+# backward's tiles are stressed: P * N rows not a multiple of any tile (the
+# backward's 16 / 32 / 64 rows, the weight gradient's 32-row stages and its
+# splits); cin = 3; widths that are not multiples of 4 or 8; nsample >= N;
+# every slot outside the radius; exact ties between twin points; widths
+# over several 64-wide weight-gradient tiles with a ragged last one
+_BWD_TILING = [
+    ("odd_rows", 3, 12, 37, 5, 16, 0.5, (24, 40)),
+    ("cin3", 5, 24, 50, 0, 12, 0.3, (64, 64, 72)),
+    ("odd_widths", 3, 16, 48, 6, 8, 0.4, (13, 7, 21)),
+    ("ns_ge_n", 4, 8, 24, 2, 32, 0.6, (20, 12)),
+    ("outside", 3, 16, 64, 20, 16, 0.2, (32, 48)),
+    ("twins", 4, 32, 64, 21, 16, 0.4, (24, 16, 33)),
+    ("wide", 6, 32, 128, 131, 32, 0.8, (140, 70, 200)),
+]
+
+
+@pytest.mark.parametrize("case,P,S,N,C,nsample,radius,widths", _BWD_TILING)
+def test_pppf_sa_stage_bwd_tiling(dev, case, P, S, N, C, nsample, radius, widths):
+    """Every output within 1e-4 of the plain version's largest entry and two
+    launches bitwise equal, where the tensor-core tiles, the split-K sums
+    and the routing's channel chunks have ragged edges; the forward's store
+    mode leaves its output and the backward bit for bit. With every slot
+    outside the radius, all slots read point 0, so no other point gets a
+    gradient."""
+    g = torch.Generator().manual_seed(10)
+    xyz = torch.rand((P, N, 3), generator=g)
+    feat = torch.rand((P, N, C), generator=g) if C else None
+    if case == "twins":
+        xyz[:, N // 2:] = xyz[:, :N // 2]
+        feat[:, N // 2:] = feat[:, :N // 2]
+    new_xyz = xyz[:, torch.randint(0, N, (S,), generator=g)].clone()
+    if case == "outside":
+        new_xyz += 5.0
+    xyz, new_xyz = xyz.to(dev), new_xyz.contiguous().to(dev)
+    feat = None if feat is None else feat.to(dev)
+    layers = _stage_layers(g, (C + 3,) + tuple(widths), dev)
+    gout = torch.randn((P, S, widths[-1]), generator=g).to(dev)
+    kw = dict(nsample=nsample, radius=radius)
+    before = cuda_lib.launches["pppf_sa_stage_bwd"]
+    out = pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, **kw)
+    assert cuda_lib.launches["pppf_sa_stage_bwd"] == before + 1
+    a = _bwd_flat(*out)
+    b = _bwd_flat(*pppf_sa_bwd_plain(new_xyz, xyz, feat, gout, layers, **kw))
+    assert float(b[0].abs().max()) > 0
+    for x, y in zip(a, b):
+        assert x.shape == y.shape
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
+    again = _bwd_flat(*pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, **kw))
+    assert all(torch.equal(x, y) for x, y in zip(a, again))
+    # the forward's store mode: the same output, and the backward on what it
+    # stored the same as the one that selects and replays
+    fwd, saved = pppf_sa_fused(new_xyz, xyz, feat, layers, save=True, **kw)
+    assert saved is not None
+    assert torch.equal(fwd, pppf_sa_fused(new_xyz, xyz, feat, layers, **kw))
+    stored = _bwd_flat(*pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, saved=saved, **kw))
+    assert all(torch.equal(x, y) for x, y in zip(a, stored))
+    if case == "outside":
+        assert not bool(out[0][:, 1:].any()) and not bool(out[1][:, 1:].any())
 
 
 @pytest.mark.parametrize("case", ["points", "layers", "cotangent", "cpu_layer", "wide"])

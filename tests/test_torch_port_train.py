@@ -10,6 +10,8 @@ carried across by weights.from_jax_params and the same numpy clouds.
     within 1e-5 of the largest entry of its tensor, in both rate modes,
     with JAX's FPS starts fed to the port and the patches bit-equal first;
     its chamfer goes through the chamfer kernels' plain versions;
+  * the encoder's forward hands its winners to its backward: they equal
+    the plain rule's, and a step is bitwise unchanged by the hand-over;
   * three Adam steps across a learning-rate boundary against
     build_train_step + make_optimizer: parameters within atol 2e-6 (float32
     rounding of Adam's update, of the order of lr * 1e-3);
@@ -194,6 +196,50 @@ def test_rd_forward_takes_the_chamfer_kernels(setup, j_rd, monkeypatch):
     np.testing.assert_allclose(float(loss.detach()), float(j_loss), rtol=1e-6)
     np.testing.assert_allclose(float(aux["chamfer"].detach()), float(j_aux["chamfer"]),
                                rtol=1e-6)
+
+
+def test_encoder_hands_its_winners_to_the_backward(setup, monkeypatch):
+    """PatchEncoderFn's forward saves each latent channel's winning point and
+    its backward hands them to patch_encoder_bwd_plain: they equal the
+    winners the plain backward finds on its own (winners_plain), and one
+    rd_forward step's loss and every gradient are bitwise those of the
+    backward that finds them itself. One torch thread: a small test."""
+    from pcc_tpu_torch.ops import sa_cuda
+    from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
+
+    ae_vars, prob_vars, batch, _, starts = setup
+    bwd, calls = sa_cuda.patch_encoder_bwd, []
+
+    def handed(patches, g, sa_wb, pn_wb, knn, winners=None):
+        calls.append((patches, winners, sa_wb, pn_wb))
+        return bwd(patches, g, sa_wb, pn_wb, knn, winners=winners)
+
+    def found(patches, g, sa_wb, pn_wb, knn, winners=None):
+        return bwd(patches, g, sa_wb, pn_wb, knn)
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        runs = []
+        for fn in (handed, found):
+            monkeypatch.setattr(sa_cuda, "patch_encoder_bwd", fn)
+            state = _port_state(ae_vars, prob_vars, make_optimizer(1e-3, 0.1, 10, 10))
+            loss, _ = rd_forward(state.ae, state.prob, torch.from_numpy(batch),
+                                 torch.from_numpy(starts), 1e-2, TINY, "reference")
+            loss.backward()
+            runs.append([loss.detach()] + [p.grad for _, p in state.named_parameters()
+                                           if p.grad is not None])
+        (patches, winners, sa_wb, pn_wb), = calls
+        assert winners.dtype == torch.int32 and winners.shape == (B * TINY.S, TINY.d)
+        with torch.no_grad():
+            idx = select_nearest(sq_dists(patches, patches), TINY.sa_knn)
+            z4 = sa_cuda.pointwise_plain(patches, idx, sa_wb, pn_wb)
+            want = sa_cuda.winners_plain(patches, idx, z4, sa_wb, pn_wb)
+        assert torch.equal(winners.long(), want)
+    finally:
+        torch.set_num_threads(threads)
+    assert len(runs[0]) == len(runs[1]) > 1
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def test_three_adam_steps_across_a_decay_boundary(setup):
