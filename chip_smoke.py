@@ -24,13 +24,19 @@ Phases (any failed check raises, and the script exits non-zero):
      then one more encode and decode under torch.profiler (where the time
      goes: device kernel time, busy share, the ops with most device time);
   4. each kernel vs its plain version on that path's inputs (FPS indices
-     bit-equal; encoder latents and decoder points within 1e-4; the encoder
+     bit-equal; encoder latents and decoder points within 1e-4, the decoder
+     on the weights the decode path prepared, two of its launches bitwise
+     equal; the encoder
      also against sa_cuda.py::_kernel_choices, its arithmetic replayed, on
      REPLAY_PATCHES patches: the count of entries that differ, each within
      one ulp; with its winners output, the latents bit-equal and the
      winners the plain version's on those patches), with CUDA event times
      (the encoder's also with the winners output), the plain version's time
-     and the card's lower bound;
+     and the card's lower bound (the decoder's with its products as 3xTF32
+     on the tensor cores, and in float32 beside it; its yardstick the
+     expansion product alone, torch.matmul(h2, w3r) in float32 with TF32
+     off, and the time the decode path would spend preparing its weights
+     if it held none);
   5. two of the clouds on the CPU port: .s.bin/.c.bin byte-equal to the
      card's, the card's .p.bin decoded to the card encoder's symbols, and
      decoded clouds within one int8 step;
@@ -39,8 +45,8 @@ Phases (any failed check raises, and the script exits non-zero):
      warm-up step, then TRAIN_STEPS counted steps with every launch counter
      set to 0 just before and read just after (fps, patch_encoder and
      patch_encoder_bwd once per step, patch_decoder never); finite losses,
-     parameters moved; median step time and points/s; one step under
-     torch.profiler;
+     parameters moved; median step time, points/s and peak memory; one
+     step under torch.profiler;
   7. the backward kernel vs its plain version on the step's own patches
      [512, 256, 3], the winners its forward handed over and its real
      cotangent (with the step's weights): the winners equal to the forward
@@ -69,7 +75,8 @@ Phases (any failed check raises, and the script exits non-zero):
      (pppf_sa_points(replay=True)) on REPLAY_PATCHES patches at each stage:
      the count of entries that differ, each within one ulp; CUDA-event
      times, the plain version's time and the card's lower bound (the work
-     the function needs: the stack per point);
+     the function needs: the stack per point); FPS timed at each stage's
+     shape where the stage samples (fps_timing);
  11. one of the clouds on the CPU port with the same weights: .s.bin and
      .c.bin byte-equal, the card's .p.bin decoded on the CPU to the card's
      symbols, the integer coding weights [1, 64, 16, 7] bit-equal;
@@ -90,7 +97,7 @@ Phases (any failed check raises, and the script exits non-zero):
      launches bitwise equal, CUDA-event times, the plain version's time and
      the card's lower bound (with the dx and dW products as 3xTF32 on the
      tensor cores, and all in float32 beside it); each stage's launches'
-     device times under torch.profiler;
+     device times under torch.profiler; FPS timed at the stages' shapes;
  14. a warm-up step and a fused step at TINY_PPPF on the card and on the
      CPU port, each from the same fresh weights and FPS starts
      (compare_train_states; each card step launches the chamfer kernels
@@ -126,8 +133,9 @@ train steps' for patch_encoder_bwd, the PPPF-AE path's for pppf_sa_stage,
 the counted fused PPPF-AE steps' for pppf_sa_stage_bwd, phase 15's counted
 steps' for chamfer_fwd and chamfer_bwd (the IPDAE step's shapes on top,
 both families under `paths`), phase 17's module call's for sa_fused; fps
-also carries the PPPF-AE path's count as launches_pppf, pppf_sa_stage its
-launches per fused step); the last line is {"ok": true, "device": {...}}.
+also carries the PPPF-AE path's count as launches_pppf and its times at the
+PPPF-AE stages' shapes as pppf_serving and pppf_fused_step, pppf_sa_stage
+its launches per fused step); the last line is {"ok": true, "device": {...}}.
 Without a card it exits 1 and prints no result.
 """
 
@@ -149,7 +157,8 @@ from pcc_tpu_torch.models.layers import SetAbstraction
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.chamfer_cuda import (ChamferFn, bwd_work, chamfer_bwd, chamfer_bwd_plain,
                                             chamfer_fwd, chamfer_fwd_plain, fwd_work)
-from pcc_tpu_torch.ops.decoder_cuda import patch_decoder, patch_decoder_plain
+from pcc_tpu_torch.ops.decoder_cuda import (expansion_kmajor, pack_decoder, patch_decoder,
+                                            patch_decoder_plain, permute_expansion)
 from pcc_tpu_torch.ops.fps import fps_batch, fps_plain
 from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
 from pcc_tpu_torch.ops.pppf_sa_cuda import (PPPFStageFn, pppf_sa_bwd, pppf_sa_bwd_plain,
@@ -238,6 +247,19 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def fps_timing(xyz: torch.Tensor, npoint: int) -> dict:
+    """FPS as a PN++ stage runs it (models/pppf.py::queries: [P, N, 3] ->
+    [P, npoint] from index 0): CUDA-event ms and the bound (9 operations per
+    point and step, as phase 4 counts)."""
+    xyz = xyz.contiguous()
+    starts = torch.zeros(xyz.shape[0], dtype=torch.int32, device=xyz.device)
+    out = fps_batch(xyz, npoint, starts)
+    P, N, _ = xyz.shape
+    bms, by = bound(9.0 * P * npoint * N, nbytes(xyz, starts, out))
+    return dict(shape=[P, N, npoint], ms=cuda_ms(lambda: fps_batch(xyz, npoint, starts), 20),
+                bound_ms=bms, bound_by=by)
 
 
 def replay_check(name: str, got: torch.Tensor, replay: torch.Tensor) -> int:
@@ -365,6 +387,7 @@ def train_phase(dev, smi: str):
     step(state, batch, starts(), TRAIN_LAM)                    # warm-up, uncounted
     torch.cuda.synchronize()
     cuda_lib.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -374,6 +397,7 @@ def train_phase(dev, smi: str):
         times.append(time.perf_counter() - t0)
         losses.append(aux["loss"])
     launches = dict(cuda_lib.launches)
+    peak = torch.cuda.max_memory_allocated()
     log(f"train launches over {TRAIN_STEPS} steps: {launches}")
     want = {name: 0 for name in cuda_lib.KERNELS}
     want.update(fps=TRAIN_STEPS, patch_encoder=TRAIN_STEPS, patch_encoder_bwd=TRAIN_STEPS)
@@ -389,9 +413,9 @@ def train_phase(dev, smi: str):
     ms = float(np.median(times)) * 1e3
     log(f"train: {B} clouds x {cfg.N} points per step; median step {ms:.2f} ms "
         f"(steps {min(times) * 1e3:.2f} to {max(times) * 1e3:.2f} ms), "
-        f"{B * cfg.N / (ms / 1e3):.0f} points/s on {smi}; losses "
-        f"{losses[0]:.6f} -> {losses[-1]:.6f}; {moved} of {len(before)} parameter "
-        "tensors moved")
+        f"{B * cfg.N / (ms / 1e3):.0f} points/s on {smi}; peak memory "
+        f"{peak / 2**30:.2f} GiB; losses {losses[0]:.6f} -> {losses[-1]:.6f}; {moved} of "
+        f"{len(before)} parameter tensors moved")
     profile("train step", lambda: step(state, batch, starts(), TRAIN_LAM), top=14)
 
     # one more step, recording the encoder's patches and real cotangent
@@ -624,9 +648,12 @@ def pppf_phase(dev, smi: str, clouds, fps_record: dict) -> dict:
         packed = pack_encode_upload(np.stack(clouds), starts)
         pcs, st = unpack_encode_upload(torch.from_numpy(packed.view(np.int32)).to(dev), cfg.N)
         xyz, feat = encode_geometry(pcs, st, cfg).patches, None
-        stages, cases = [], []
+        stages, cases, fps_stages = [], [], []
         for name in ("sa1", "sa2", "sa3"):
             sa = getattr(card.ae.encoder, name)
+            if sa.npoint < xyz.shape[1]:
+                fps_stages.append(dict(stage=name, **fps_timing(xyz, sa.npoint)))
+                log(f"fps at {name}: {fps_stages[-1]}")
             new_xyz = sa.queries(xyz).contiguous()
             cases.append((name, "pppf", new_xyz, xyz, feat, sa))
             if name == "sa2":
@@ -691,6 +718,7 @@ def pppf_phase(dev, smi: str, clouds, fps_record: dict) -> dict:
             f"weights {tuple(w_cpu.shape)} bit-equal")
 
     fps_record["launches_pppf"] = launches["fps"]
+    fps_record["pppf_serving"] = fps_stages
     path = [r for r in stages if r["layout"] == "pppf"]
     return dict(
         name="pppf_sa_stage", route="cuda", source="pcc_tpu_torch/csrc/pppf_sa_stage.cu",
@@ -794,14 +822,17 @@ def pppf_train_phase(dev, smi: str):
     return state, fused_launches, rec[::-1]
 
 
-def pppf_bwd_kernel_check(records, launches: dict) -> dict:
+def pppf_bwd_kernel_check(records, launches: dict, fps_record: dict) -> dict:
     """Phase 13: the stage backward kernel vs its plain version on the fused
     step's own stage inputs and cotangents; its record for the kernels
-    line."""
-    stages = []
+    line. FPS timed at the stages' shapes goes into fps_record."""
+    stages, fps_stages = [], []
     for name, (new_xyz, xyz, feat, layers, gout, nsample, radius) in zip(
             ("sa1", "sa2", "sa3"), records):
         kw = dict(nsample=nsample, radius=radius)
+        if new_xyz.shape[1] < xyz.shape[1]:
+            fps_stages.append(dict(stage=name, **fps_timing(xyz, new_xyz.shape[1])))
+            log(f"fps at the fused step's {name}: {fps_stages[-1]}")
 
         def flat(out):
             dxyz, dfeat, dl = out
@@ -879,6 +910,7 @@ def pppf_bwd_kernel_check(records, launches: dict) -> dict:
                 lambda: pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, **kw), top=12)
         del saved
         stages.append(r)
+    fps_record["pppf_fused_step"] = fps_stages
     return dict(
         name="pppf_sa_stage_bwd", route="cuda",
         source="pcc_tpu_torch/csrc/pppf_sa_stage_bwd.cu",
@@ -1183,6 +1215,55 @@ def sa_fused_phase(dev, patches, sa: SetAbstraction) -> dict:
     return rec
 
 
+def decoder_kernel_check(ae, h2, lat, w3r, b3r, mlp_wb, packed, launches: int) -> dict:
+    """Phase 4's decoder: the kernel on the serving batch's own inputs and
+    the weights the decode path prepared vs its plain version (TOL), two
+    launches bitwise equal, its record for the kernels line."""
+    k = ae.k
+    a = patch_decoder(h2, lat, w3r, b3r, mlp_wb, k, packed=packed)
+    b = patch_decoder_plain(h2, lat, w3r, b3r, mlp_wb, k)
+    err = float((a - b).abs().max())
+    if not err <= TOL:
+        raise RuntimeError(f"patch decoder differs from the plain version: {err}")
+    if not torch.equal(a, patch_decoder(h2, lat, w3r, b3r, mlp_wb, k, packed=packed)):
+        raise RuntimeError("two launches of patch_decoder differ")
+    (P, C), d = h2.shape, lat.shape[1]
+    mlp_mac = (128 + d) * 128 + 128 * 64 + 64 * 32 + 32 * 3
+    flops = 2.0 * P * k * (C * 128 + mlp_mac)
+    # what the function reads and writes: h2, lat, one copy of each weight
+    # (the kernel reads the expansion's hi and lo, the split is its own)
+    io = nbytes(h2, lat, a, w3r, b3r, *[t for wb in mlp_wb for t in wb])
+    # the bound as the kernel computes: every product as three TF32 products
+    # on the tensor cores (the 32 -> 3 layer, 0.2% of the operations, too);
+    # the float32 bound on the CUDA cores beside it
+    t_ops, t_bytes = 3.0 * flops / TF32_FLOP_PER_S, io / HBM_BYTES_PER_S
+    bms, by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    bms32, _ = bound(flops, io)
+    l3 = ae.inv_pool[4]
+    rec = dict(
+        name="patch_decoder", route="cuda", source="pcc_tpu_torch/csrc/patch_decoder.cu",
+        replaces="pcc_tpu/ops/decoder_pallas.py:30", launches=launches, max_abs_err=err,
+        ms=cuda_ms(lambda: patch_decoder(h2, lat, w3r, b3r, mlp_wb, k, packed=packed), 10),
+        plain_ms=cuda_ms(lambda: patch_decoder_plain(h2, lat, w3r, b3r, mlp_wb, k), 5),
+        bound_ms=bms, bound_by=by, bound_fp32_ms=bms32, gflop=flops / 1e9,
+        # no PyTorch call computes the decoder; the yardstick is its
+        # expansion product alone (82% of the operations) in float32, TF32
+        # off, as device.py sets it
+        library_ms=cuda_ms(lambda: torch.matmul(h2, w3r), 10),
+        library_call="torch.matmul(h2, w3r), float32, TF32 off: the expansion product alone",
+        # what the decode path would pay per batch if it held no prepared
+        # weights: the permutation and the kernel's layout of them
+        prep_ms=cuda_ms(lambda: (permute_expansion(l3.weight.t(), l3.bias, k),
+                                 pack_decoder(expansion_kmajor(l3.weight, k), b3r, mlp_wb)), 10))
+    log(f"patch_decoder h2 {tuple(h2.shape)} k {k} d {d}: {rec['ms']:.4f} ms (plain "
+        f"{rec['plain_ms']:.4f} ms; bound {bms:.4f} ms by {by} with its products as 3xTF32 "
+        f"on the tensor cores, {bms32:.4f} ms in float32; {flops / 1e9:.1f} GFLOP, "
+        f"{flops / rec['ms'] / 1e9:.2f} TFLOP/s); {rec['library_call']} "
+        f"{rec['library_ms']:.4f} ms; weight preparation {rec['prep_ms']:.4f} ms; max_abs_err "
+        f"{err:.3g} of {float(b.abs().max()):.3g}; two launches bitwise equal")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1259,7 +1340,7 @@ def main() -> int:
         ae = card.ae
         sa_wb, pn_wb = ae.sa.layers(), ae.pn.layers()
         latent_q = (enc.sym.to(torch.float32) - cfg.L // 2).reshape(-1, cfg.d).contiguous()
-        h2, w3r, b3r, mlp_wb = ae.decoder_inputs(latent_q)
+        h2, w3r, b3r, mlp_wb, packed = ae.decoder_inputs(latent_q)
         B, N, S, P = N_CLOUDS, cfg.N, cfg.S, latent_q.shape[0]
         kernels = []
 
@@ -1317,23 +1398,8 @@ def main() -> int:
             winners_ms=cuda_ms(lambda: patch_encoder(geo.patches, sa_wb, pn_wb, knn,
                                                      return_winners=True), 10)))
 
-        a = patch_decoder(h2, latent_q, w3r, b3r, mlp_wb, cfg.k)
-        b = patch_decoder_plain(h2, latent_q, w3r, b3r, mlp_wb, cfg.k)
-        err = float((a - b).abs().max())
-        if not err <= TOL:
-            raise RuntimeError(f"patch decoder differs from the plain version: {err}")
-        C, d, k = h2.shape[1], cfg.d, cfg.k
-        mlp_mac = (128 + d) * 128 + 128 * 64 + 64 * 32 + 32 * 3
-        flops = 2.0 * P * k * (C * 128 + mlp_mac)
-        w_bytes = nbytes(w3r, b3r, *[t for wb in mlp_wb for t in wb])
-        bms, by = bound(flops, nbytes(h2, latent_q, a) + w_bytes)
-        kernels.append(dict(
-            name="patch_decoder", route="cuda", source="pcc_tpu_torch/csrc/patch_decoder.cu",
-            replaces="pcc_tpu/ops/decoder_pallas.py:30", launches=launches["patch_decoder"],
-            max_abs_err=err,
-            ms=cuda_ms(lambda: patch_decoder(h2, latent_q, w3r, b3r, mlp_wb, k), 10),
-            plain_ms=cuda_ms(lambda: patch_decoder_plain(h2, latent_q, w3r, b3r, mlp_wb, k), 5),
-            bound_ms=bms, bound_by=by, library_ms=None))
+        kernels.append(decoder_kernel_check(ae, h2, latent_q, w3r, b3r, mlp_wb, packed,
+                                            launches["patch_decoder"]))
         for kr in kernels:
             log(f"{kr['name']}: {kr['ms']:.4f} ms (plain {kr['plain_ms']:.4f} ms, "
                 f"bound {kr['bound_ms']:.4f} ms by {kr['bound_by']}), "
@@ -1379,7 +1445,7 @@ def main() -> int:
     # 12-14. the PPPF-AE train path
     _, launches_fused, records = pppf_train_phase(dev, smi)
     kernels[-1]["launches_per_fused_step"] = launches_fused["pppf_sa_stage"] // PPPF_FUSED_STEPS
-    kernels.append(pppf_bwd_kernel_check(records, launches_fused))
+    kernels.append(pppf_bwd_kernel_check(records, launches_fused, kernels[0]))
     kr = kernels[-1]
     log(f"{kr['name']}: {kr['ms']:.4f} ms for the three stages (plain {kr['plain_ms']:.4f} ms, "
         f"bound {kr['bound_ms']:.4f} ms by {kr['bound_by']}), launches {kr['launches']} over "

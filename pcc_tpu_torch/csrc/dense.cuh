@@ -1,5 +1,5 @@
 // Block-level dense layers over activations in shared memory, shared by the
-// patch encoder, its backward, SetAbstraction alone and the patch decoder.
+// patch encoder, its backward and SetAbstraction alone.
 //
 // out[r][o] = act(sum_k in[r][k] * W[k][o] + bias[o]) for a tile of rows.
 // W is [cin][cout] row-major (the flax "kernel" layout). Each work item is

@@ -1,5 +1,6 @@
 // 3xTF32 products on the H100's tensor cores, and the weight-gradient
-// product built from them: shared by the backward kernels.
+// product built from them: shared by the backward kernels (the patch
+// decoder takes split_tf32 for its wgmma products, wgmma_tf32.cuh).
 //
 // mma.sync m16n8k8 TF32 reads 10 bits of each operand's mantissa (the
 // tensor cores ignore the 13 low bits of a float32 register). 3xTF32 splits

@@ -23,7 +23,8 @@ from pcc_tpu_torch.models.layers import (
     sigmoid_spread,
     ste_round,
 )
-from pcc_tpu_torch.ops.decoder_cuda import patch_decoder, permute_expansion
+from pcc_tpu_torch.ops.decoder_cuda import (expansion_kmajor, pack_decoder, patch_decoder,
+                                            permute_expansion)
 from pcc_tpu_torch.ops.sa_cuda import patch_encoder, patch_encoder_trainable
 
 
@@ -45,6 +46,17 @@ class PatchAE(nn.Module):
         )
         self.inv_mlp = PointwiseMLP(128 + d, (128, 64, 32, 3),
                                     relu=(True, True, True, False))
+        # the decoder's weights in the fused decoder's layouts, made once per
+        # weights in eval mode (decoder_weights)
+        self._decoder_cache = None
+        self.register_load_state_dict_post_hook(PatchAE._drop_decoder_cache)
+
+    def _drop_decoder_cache(self, *_) -> None:
+        self._decoder_cache = None
+
+    def train(self, mode: bool = True):
+        self._drop_decoder_cache()
+        return super().train(mode)
 
     def encode(self, patches: torch.Tensor) -> torch.Tensor:
         """[B, K, 3] -> latent [B, d], already spread into the quantizer
@@ -53,21 +65,45 @@ class PatchAE(nn.Module):
                                self.sa_knn)
         return sigmoid_spread(latent, self.L)
 
+    def decoder_weights(self):
+        """(w3r, b3r, mlp_wb, packed): the point-major expansion weight and
+        bias, the inv_mlp ([in, out] weight, bias) pairs and, for weights on
+        the card, the fused decoder's layout of them
+        (ops/decoder_cuda.py::pack_decoder). Made on every call in train mode;
+        in eval mode once per weights (a 64 MB permutation and its TF32
+        split at full width), dropped by train() and load_state_dict."""
+        l3 = self.inv_pool[4]
+        params = (l3.weight, l3.bias, *self.inv_mlp.parameters())
+        # the weights' storage (a move to another device) and, where a tensor
+        # has one, its version counter (an update in place; inference
+        # tensors, made under torch.inference_mode, have none)
+        key = tuple((t.data_ptr(), None if t.is_inference() else t._version) for t in params)
+        if self._decoder_cache is not None and self._decoder_cache[0] == key:
+            return self._decoder_cache[1]
+        with torch.no_grad():
+            w3r, b3r = permute_expansion(l3.weight.t(), l3.bias, self.k)
+            mlp_wb = self.inv_mlp.layers()
+            packed = None
+            if l3.weight.is_cuda:
+                packed = pack_decoder(expansion_kmajor(l3.weight, self.k), b3r, mlp_wb)
+        weights = (w3r, b3r, mlp_wb, packed)
+        if not self.training:
+            self._decoder_cache = (key, weights)
+        return weights
+
     def decoder_inputs(self, latent_q: torch.Tensor):
         """The fused decoder's arguments for [B, d] latents: inv_pool layers
-        1-2 as plain products (h2 [B, 1024]), the point-major expansion
-        weight and bias, and the inv_mlp ([in, out] weight, bias) pairs."""
-        l1, l2, l3 = self.inv_pool[0], self.inv_pool[2], self.inv_pool[4]
+        1-2 as plain products (h2 [B, 1024]), then decoder_weights()."""
+        l1, l2 = self.inv_pool[0], self.inv_pool[2]
         h1 = torch.relu(latent_q @ l1.weight.t() + l1.bias)
         h2 = torch.relu(h1 @ l2.weight.t() + l2.bias)
-        w3r, b3r = permute_expansion(l3.weight.t(), l3.bias, self.k)
-        return h2.contiguous(), w3r, b3r, self.inv_mlp.layers()
+        return (h2.contiguous(), *self.decoder_weights())
 
     def decode(self, latent_q: torch.Tensor) -> torch.Tensor:
         """[B, d] quantized latent -> [B, k, 3] patch points (AE.py:47-53):
         the expansion, fold, tile and inv_mlp are the fused decoder."""
-        h2, w3r, b3r, mlp_wb = self.decoder_inputs(latent_q)
-        return patch_decoder(h2, latent_q.contiguous(), w3r, b3r, mlp_wb, self.k)
+        h2, w3r, b3r, mlp_wb, packed = self.decoder_inputs(latent_q)
+        return patch_decoder(h2, latent_q.contiguous(), w3r, b3r, mlp_wb, self.k, packed=packed)
 
     def decode_train(self, latent_q: torch.Tensor) -> torch.Tensor:
         """The differentiable decoder (AE.py:47-53): inv_pool, the fold of

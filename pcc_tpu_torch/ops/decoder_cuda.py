@@ -8,18 +8,46 @@ PyTorch, on CPU tensors: the layer-3 expansion over permuted columns, the
 fold, the latent tile + concat and the point MLP -> [P, k, 3]. The first
 two inv_pool layers stay outside, as in pcc_tpu (models/ipdae.py). The
 kernel's design note is at the top of csrc/patch_decoder.cu.
+
+The kernel takes its weights in its own layout (`pack_decoder`): every
+product operand K-major (wgmma reads 32-bit operands only so) and split
+into TF32 hi and lo (`split_tf32`) for its 3xTF32 products, the expansion
+point-major (`expansion_kmajor`), the MLP's input columns permuted in
+groups of 8 (`mlp_kmajor`) so that one layer's accumulator is the next
+layer's operand as it stands.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from pcc_tpu_torch.ops import cuda_lib
 
 _ARGTYPES = ([cuda_lib.PTR, cuda_lib.PTR] + [cuda_lib.INT] * 4
-             + [cuda_lib.PTR] * 11 + [cuda_lib.PTR])
+             + [cuda_lib.PTR] * 14 + [cuda_lib.PTR, cuda_lib.PTR])
 MLP_WIDTHS = (128, 64, 32, 3)
 MAX_D = 64
+# the kernel's k = 8 steps read an 8-column group of a layer's input in this
+# order: its accumulator columns 2t and 2t + 1 are the next product's k = t
+# and t + 4 (csrc/wgmma_tf32.cuh, fragments)
+GROUP_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+_TF32_HI = -(1 << 13)   # 0xffffe000 as int32: clears the 13 mantissa bits TF32 drops
+
+
+class PackedDecoder(NamedTuple):
+    """The kernel's weights (pack_decoder). w_hi / w_lo: the expansion
+    [k*128, C]; b3r [k*128]; m_hi / m_lo: layers 1-3 [out, round8(in)];
+    mb: their biases; w4 [32, 3], b4 [3]."""
+    w_hi: torch.Tensor
+    w_lo: torch.Tensor
+    b3r: torch.Tensor
+    m_hi: tuple
+    m_lo: tuple
+    mb: tuple
+    w4: torch.Tensor
+    b4: torch.Tensor
 
 
 def permute_expansion(w3: torch.Tensor, b3: torch.Tensor, k: int):
@@ -31,6 +59,45 @@ def permute_expansion(w3: torch.Tensor, b3: torch.Tensor, k: int):
     w3r = w3.reshape(C, 128, k).transpose(1, 2).reshape(C, k * 128)
     b3r = b3.reshape(128, k).t().reshape(k * 128)
     return w3r.contiguous(), b3r.contiguous()
+
+
+def expansion_kmajor(weight: torch.Tensor, k: int) -> torch.Tensor:
+    """inv_pool layer 3's nn.Linear weight [k*128, C] (row c*k + j) with its
+    rows point-major (row j*128 + c): permute_expansion(weight.t(), ...)[0].t(),
+    made in one copy."""
+    C = weight.shape[1]
+    return weight.reshape(128, k, C).transpose(0, 1).reshape(k * 128, C).contiguous()
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) with hi = x with its 13 low mantissa bits cleared (what the
+    tensor cores read of a TF32 operand) and lo = x - hi, exact in float32."""
+    hi = (x.contiguous().view(torch.int32) & _TF32_HI).view(torch.float32)
+    return hi, x - hi
+
+
+def mlp_kmajor(w: torch.Tensor) -> torch.Tensor:
+    """An inv_mlp weight [in, out] as the kernel reads it: [out, round8(in)],
+    K-major, each 8-column group in GROUP_ORDER, zero past `in`."""
+    cin, cout = w.shape
+    kp = -(-cin // 8) * 8
+    wp = torch.zeros((kp, cout), dtype=w.dtype, device=w.device)
+    wp[:cin] = w
+    col = torch.arange(kp, device=w.device)
+    order = torch.tensor(GROUP_ORDER, device=w.device)
+    return wp[col // 8 * 8 + order[col % 8]].t().contiguous()
+
+
+def pack_decoder(w_kmajor: torch.Tensor, b3r: torch.Tensor, mlp_wb) -> PackedDecoder:
+    """The kernel's weights from the point-major K-major expansion weight
+    [k*128, C] (expansion_kmajor, or permute_expansion's w3r.t()), its
+    point-major bias and the inv_mlp ([in, out] weight, bias) pairs."""
+    w_hi, w_lo = split_tf32(w_kmajor.contiguous())
+    m_hi, m_lo = zip(*(split_tf32(mlp_kmajor(w)) for w, _ in mlp_wb[:3]))
+    return PackedDecoder(w_hi, w_lo.contiguous(), b3r.contiguous(), tuple(m_hi),
+                         tuple(t.contiguous() for t in m_lo),
+                         tuple(b.contiguous() for _, b in mlp_wb[:3]),
+                         mlp_wb[3][0].contiguous(), mlp_wb[3][1].contiguous())
 
 
 def patch_decoder_plain(h2: torch.Tensor, lat: torch.Tensor, w3r: torch.Tensor,
@@ -47,33 +114,57 @@ def patch_decoder_plain(h2: torch.Tensor, lat: torch.Tensor, w3r: torch.Tensor,
     return x
 
 
+def _check(name: str, t: torch.Tensor, shape, tma: bool = True) -> None:
+    """Raise unless t is a contiguous float32 CUDA tensor of `shape`, 16-byte
+    aligned where the kernel reads it by TMA."""
+    cuda_lib.require_cuda(f"patch_decoder {name}", t, torch.float32, len(shape))
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"patch_decoder: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if tma and t.data_ptr() % 16:
+        raise ValueError(f"patch_decoder: {name} is not 16-byte aligned")
+
+
 def patch_decoder(h2: torch.Tensor, lat: torch.Tensor, w3r: torch.Tensor,
-                  b3r: torch.Tensor, mlp_wb, k: int) -> torch.Tensor:
+                  b3r: torch.Tensor, mlp_wb, k: int,
+                  packed: PackedDecoder | None = None) -> torch.Tensor:
     """Fused patch decoder: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors. Shapes as in patch_decoder_plain."""
+    version on CPU tensors. Shapes as in patch_decoder_plain; `packed`, the
+    kernel's layout of the same weights (pack_decoder), is made from w3r,
+    b3r and mlp_wb where the caller holds none."""
     if h2.device.type == "cpu":
         return patch_decoder_plain(h2, lat, w3r, b3r, mlp_wb, k)
-    cuda_lib.require_cuda("patch_decoder h2", h2, torch.float32, 2)
-    cuda_lib.require_cuda("patch_decoder lat", lat, torch.float32, 2)
-    cuda_lib.require_cuda("patch_decoder w3r", w3r, torch.float32, 2)
-    cuda_lib.require_cuda("patch_decoder b3r", b3r, torch.float32, 1)
     P, C = h2.shape
     d = lat.shape[1]
-    if (lat.shape[0] != P or C % 32 or not 0 < d <= MAX_D
-            or tuple(w3r.shape) != (C, k * 128) or tuple(b3r.shape) != (k * 128,)):
+    if lat.shape[0] != P or C % 32 or not 0 < d <= MAX_D:
         raise ValueError(f"patch_decoder: unsupported shapes h2 {tuple(h2.shape)}, "
-                         f"lat {tuple(lat.shape)}, w3r {tuple(w3r.shape)}, k={k}")
+                         f"lat {tuple(lat.shape)}")
     want = [(128 + d, 128), (128, 64), (64, 32), (32, 3)]
     if [tuple(w.shape) for w, _ in mlp_wb] != want:
         raise ValueError(f"patch_decoder: inv_mlp shapes "
                          f"{[tuple(w.shape) for w, _ in mlp_wb]} != {want}")
+    if packed is None:
+        if tuple(w3r.shape) != (C, k * 128):
+            raise ValueError(f"patch_decoder: w3r has shape {tuple(w3r.shape)}, "
+                             f"expected {(C, k * 128)}")
+        packed = pack_decoder(w3r.t(), b3r, mlp_wb)
+    _check("h2", h2, (P, C))
+    cuda_lib.require_cuda("patch_decoder lat", lat, torch.float32, 2)
+    _check("expansion hi", packed.w_hi, (k * 128, C))
+    _check("expansion lo", packed.w_lo, (k * 128, C))
+    _check("expansion bias", packed.b3r, (k * 128,), tma=False)
     args = []
-    for w, b in mlp_wb:
-        cuda_lib.require_cuda("patch_decoder weight", w, torch.float32, 2)
-        cuda_lib.require_cuda("patch_decoder bias", b, torch.float32, 1)
-        args += [w.data_ptr(), b.data_ptr()]
+    for i, (cin, cout) in enumerate(want[:3]):
+        kp = -(-cin // 8) * 8
+        _check(f"layer {i + 1} hi", packed.m_hi[i], (cout, kp))
+        _check(f"layer {i + 1} lo", packed.m_lo[i], (cout, kp))
+        _check(f"layer {i + 1} bias", packed.mb[i], (cout,), tma=False)
+        args += [packed.m_hi[i].data_ptr(), packed.m_lo[i].data_ptr(), packed.mb[i].data_ptr()]
+    _check("layer 4", packed.w4, (32, 3), tma=False)
+    _check("layer 4 bias", packed.b4, (3,), tma=False)
     out = torch.empty((P, k, 3), dtype=torch.float32, device=h2.device)
-    cuda_lib.launch("patch_decoder", _ARGTYPES, h2.data_ptr(), lat.data_ptr(),
-                    P, C, d, k, w3r.data_ptr(), b3r.data_ptr(), *args,
-                    out.data_ptr(), cuda_lib.stream_ptr(h2))
+    cuda_lib.launch("patch_decoder", _ARGTYPES, h2.data_ptr(), lat.data_ptr(), P, C, d, k,
+                    packed.w_hi.data_ptr(), packed.w_lo.data_ptr(), packed.b3r.data_ptr(),
+                    *args, packed.w4.data_ptr(), packed.b4.data_ptr(), out.data_ptr(),
+                    cuda_lib.stream_ptr(h2))
     return out

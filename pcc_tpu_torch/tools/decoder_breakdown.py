@@ -1,0 +1,159 @@
+"""Where the time of the IPDAE patch decoder kernel goes, on an NVIDIA GPU.
+
+  python3 -m pcc_tpu_torch.tools.decoder_breakdown      # from the repo root
+
+Builds csrc/patch_decoder.cu as it is and with one part taken out (nvcc,
+all variants in parallel, into a temporary directory), then times each with
+CUDA events at the IPDAE serving batch's shapes (chip_smoke.py's default
+CodecConfig and seeded weights, 64 clouds: P = 4096 patches of k = 128
+points, h2 [4096, 1024], seeded quantized latents): `noexp` leaves out the
+1024 -> k*128 expansion (the fold is relu of the bias alone), `nomlp` leaves
+out the 144 -> 128 -> 64 -> 32 point MLP. A variant applies where its texts
+are in the source (the list covers the designs of several revisions: run
+the tool from a copy of an older tree to time that tree's kernel); the
+variants give wrong outputs, and only `full` is checked, bit for bit
+against the wrapper. Beside them: torch.matmul(h2, w3r) in float32 with
+TF32 off (the expansion product alone, as cuBLAS computes it), the plain
+version, and the preparation of the kernel's weights that the decode path
+makes where it holds none (permute_expansion, and pack_decoder where the
+kernel takes its own layout).
+
+Prints the card's name and power limit, then one line per round.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import inspect
+import os
+import subprocess
+import tempfile
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+from pcc_tpu_torch.codec import init_params, make_models
+from pcc_tpu_torch.config import CodecConfig
+from pcc_tpu_torch.ops import cuda_lib
+from pcc_tpu_torch.ops import decoder_cuda
+
+SRC = "patch_decoder.cu"
+# variant -> alternatives, each a list of (old, new) replacements in SRC:
+# the first whose texts are all in the source applies
+VARIANTS = {
+    "full": [[]],
+    "noexp": [
+        # CUDA-core design: the staged K loop
+        [("  for (int k0 = 0; k0 < C; k0 += kBK) {", "  for (int k0 = 0; k0 < 0; k0 += kBK) {")],
+        # wgmma design: the mainloop's stages
+        [("constexpr bool kRunExpansion = true;", "constexpr bool kRunExpansion = false;")],
+    ],
+    "nomlp": [
+        [("  pcc::dense_rows<8, true, true>(", "  if (0) pcc::dense_rows<8, true, true>(")],
+        [("constexpr bool kRunMlp = true;", "constexpr bool kRunMlp = false;")],
+    ],
+}
+REPS = 10
+
+
+def build_variants(tmp: str) -> dict:
+    """variant -> its launch function, each built by its own nvcc process."""
+    flags = cuda_lib.KERNELS["patch_decoder"][1]
+    procs = {}
+    for name, alternatives in VARIANTS.items():
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        texts = {}
+        for f in os.listdir(cuda_lib.CSRC_DIR):
+            with open(os.path.join(cuda_lib.CSRC_DIR, f)) as fh:
+                texts[f] = fh.read()
+        edits = next((alt for alt in alternatives
+                      if all(old in texts[SRC] for old, _ in alt)), None)
+        if edits is None:
+            print(f"variant {name}: no alternative matches {SRC}; skipped", flush=True)
+            continue
+        for old, new in edits:
+            texts[SRC] = texts[SRC].replace(old, new)
+        for f, text in texts.items():
+            with open(os.path.join(d, f), "w") as fh:
+                fh.write(text)
+        so = os.path.join(d, "decoder.so")
+        cmd = [cuda_lib._nvcc(), *cuda_lib._NVCC_FLAGS, *flags, "-o", so, os.path.join(d, SRC)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), so)
+    fns = {}
+    for name, (proc, so) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{out}")
+        fn = ctypes.CDLL(so).patch_decoder_launch
+        fn.restype, fn.argtypes = ctypes.c_int, decoder_cuda._ARGTYPES
+        fns[name] = fn
+    return fns
+
+
+def decoder_case(dev):
+    """(h2, lat, w3r, b3r, mlp_wb, k, model) at the IPDAE serving batch's
+    shapes, from chip_smoke.py's seed."""
+    cfg = CodecConfig()
+    ae_state, _ = init_params(cs.SEED, cfg)
+    ae, _ = make_models(cfg)
+    ae.load_state_dict(ae_state)
+    ae = ae.to(dev).eval()
+    rng = np.random.default_rng(cs.SEED)
+    P = cs.N_CLOUDS * cfg.S
+    lat = torch.from_numpy(rng.integers(-(cfg.L // 2), cfg.L // 2 + 1, (P, cfg.d))
+                           .astype(np.float32)).to(dev)
+    l1, l2, l3 = ae.inv_pool[0], ae.inv_pool[2], ae.inv_pool[4]
+    h2 = torch.relu(torch.relu(lat @ l1.weight.t() + l1.bias) @ l2.weight.t() + l2.bias)
+    w3r, b3r = decoder_cuda.permute_expansion(l3.weight.t(), l3.bias, cfg.k)
+    return h2.contiguous(), lat, w3r, b3r, ae.inv_mlp.layers(), cfg.k, ae
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("decoder_breakdown needs an NVIDIA GPU")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    with torch.inference_mode():
+        h2, lat, w3r, b3r, mlp, k, ae = decoder_case(dev)
+        l3 = ae.inv_pool[4]
+        pack = getattr(decoder_cuda, "pack_decoder", None)
+        extra = {}
+        if pack is not None and "packed" in inspect.signature(decoder_cuda.patch_decoder).parameters:
+            prepare = lambda: pack(decoder_cuda.expansion_kmajor(l3.weight, k), b3r, mlp)  # noqa: E731
+            extra = {"packed": prepare()}
+        call = lambda: decoder_cuda.patch_decoder(h2, lat, w3r, b3r, mlp, k, **extra)  # noqa: E731
+        ref = call()
+        with tempfile.TemporaryDirectory() as tmp:
+            fns = build_variants(tmp)
+            own = cuda_lib.function("patch_decoder", decoder_cuda._ARGTYPES)
+            try:
+                cuda_lib._functions["patch_decoder"] = fns["full"]
+                if not torch.equal(call(), ref):
+                    raise RuntimeError("the full variant differs from the wrapper")
+                for rnd in range(2):
+                    times = {}
+                    for variant, fn in fns.items():
+                        cuda_lib._functions["patch_decoder"] = fn
+                        times[variant] = cs.cuda_ms(call, REPS)
+                    cuda_lib._functions["patch_decoder"] = own
+                    times["matmul(h2, w3r) fp32"] = cs.cuda_ms(lambda: h2 @ w3r, REPS)
+                    times["plain"] = cs.cuda_ms(
+                        lambda: decoder_cuda.patch_decoder_plain(h2, lat, w3r, b3r, mlp, k), 3)
+                    times["permute_expansion"] = cs.cuda_ms(
+                        lambda: decoder_cuda.permute_expansion(l3.weight.t(), l3.bias, k), REPS)
+                    if extra:
+                        times["pack_decoder"] = cs.cuda_ms(prepare, REPS)
+                    print(f"round {rnd} (P = {h2.shape[0]}, k = {k}): " + ", ".join(
+                        f"{name} {t:.4f} ms" for name, t in times.items()), flush=True)
+            finally:
+                cuda_lib._functions["patch_decoder"] = own
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -14,7 +14,7 @@ import torch
 from pcc_tpu_torch.codec import Codec, init_params
 from pcc_tpu_torch.config import CodecConfig
 from pcc_tpu_torch.ops import cuda_lib
-from pcc_tpu_torch.ops.decoder_cuda import patch_decoder, patch_decoder_plain
+from pcc_tpu_torch.ops.decoder_cuda import pack_decoder, patch_decoder, patch_decoder_plain
 from pcc_tpu_torch.ops.fps import fps_batch, fps_plain
 from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
 from pcc_tpu_torch.ops.pppf_sa_cuda import (pppf_sa_bwd, pppf_sa_bwd_plain, pppf_sa_fused,
@@ -146,16 +146,56 @@ def test_patch_encoder_bwd_rejects_unsupported_shapes(dev, N, knn, D):
         patch_encoder_bwd(pts, torch.zeros((2, D), device=dev), sa, pn, knn)
 
 
-@pytest.mark.parametrize("P,d,k", [(70, 16, 128), (9, 4, 16)])
-def test_patch_decoder_kernel(dev, P, d, k):
-    g = torch.Generator().manual_seed(2)
-    h2 = torch.rand((P, 1024), generator=g).to(dev)
+def _decoder_case(dev, P, d, k, C=1024, seed=2):
+    g = torch.Generator().manual_seed(seed)
+    h2 = torch.rand((P, C), generator=g).to(dev)
     lat = torch.randint(-3, 4, (P, d), generator=g).float().to(dev)
-    (w3r, b3r), = _wb(g, [1024, k * 128], dev)
+    (w3r, b3r), = _wb(g, [C, k * 128], dev)
     mlp = _wb(g, [128 + d, 128, 64, 32, 3], dev)
+    return h2, lat, w3r, b3r, mlp, k
+
+
+# the kernel's tiles are 128 patch rows x one point's 128 channels, its
+# latent steps 8 columns, its weight chunks 32: rows on both sides of a tile
+# edge, one row, a ragged last tile; d below one step, two steps, the most
+@pytest.mark.parametrize("P,d,k", [(70, 16, 128), (9, 4, 16)]
+                         + [(P, d, k) for P in (1, 127, 129, 4100) for d in (4, 16, 64)
+                            for k in (16, 128)])
+def test_patch_decoder_kernel(dev, P, d, k):
+    h2, lat, w3r, b3r, mlp, k = _decoder_case(dev, P, d, k)
+    before = cuda_lib.launches["patch_decoder"]
     out = patch_decoder(h2, lat, w3r, b3r, mlp, k)
+    assert cuda_lib.launches["patch_decoder"] == before + 1
     torch.testing.assert_close(out, patch_decoder_plain(h2, lat, w3r, b3r, mlp, k),
                                atol=1e-5, rtol=0)
+
+
+def test_patch_decoder_repeatable_and_packed_once(dev):
+    """Two launches bitwise equal; the weights packed by the caller
+    (pack_decoder from the K-major expansion, as PatchAE prepares them) give
+    the kernel's output bit for bit."""
+    h2, lat, w3r, b3r, mlp, k = _decoder_case(dev, 515, 16, 128, seed=3)
+    a = patch_decoder(h2, lat, w3r, b3r, mlp, k)
+    assert torch.equal(a, patch_decoder(h2, lat, w3r, b3r, mlp, k))
+    packed = pack_decoder(w3r.t().contiguous(), b3r, mlp)
+    assert torch.equal(a, patch_decoder(h2, lat, w3r, b3r, mlp, k, packed=packed))
+
+
+@pytest.mark.parametrize("case", ["d65", "C1000", "h2_misaligned", "weight_misaligned"])
+def test_patch_decoder_rejects_unsupported(dev, case):
+    d, C = (65, 1024) if case == "d65" else (16, 1000 if case == "C1000" else 1024)
+    h2, lat, w3r, b3r, mlp, k = _decoder_case(dev, 40, d, 16, C=C)
+    packed = None
+    if case == "h2_misaligned":
+        h2 = torch.empty(h2.numel() + 1, device=dev)[1:].view(h2.shape).copy_(h2)
+    if case == "weight_misaligned":
+        packed = pack_decoder(w3r.t().contiguous(), b3r, mlp)
+        w = torch.empty(packed.w_hi.numel() + 1, device=dev)[1:].view(packed.w_hi.shape)
+        packed = packed._replace(w_hi=w.copy_(packed.w_hi))
+    before = cuda_lib.launches["patch_decoder"]
+    with pytest.raises(ValueError):
+        patch_decoder(h2, lat, w3r, b3r, mlp, k, packed=packed)
+    assert cuda_lib.launches["patch_decoder"] == before
 
 
 def test_train_step_card_matches_cpu(dev):

@@ -25,7 +25,9 @@ from pcc_tpu.ops.sa_pallas import patch_encoder_fused
 from pcc_tpu_torch.codec import make_models
 from pcc_tpu_torch.config import CodecConfig
 from pcc_tpu_torch.models.layers import sigmoid_spread, ste_round
-from pcc_tpu_torch.ops.decoder_cuda import patch_decoder_plain, permute_expansion
+from pcc_tpu_torch.ops.decoder_cuda import (GROUP_ORDER, expansion_kmajor, mlp_kmajor,
+                                            pack_decoder, patch_decoder_plain,
+                                            permute_expansion, split_tf32)
 from pcc_tpu_torch.ops.sa_cuda import patch_encoder_plain
 from pcc_tpu_torch.weights import from_jax_params, to_jax_params
 
@@ -133,6 +135,101 @@ def test_decoder_plain_is_the_fold(rng):
         x = x @ w + b
         x = torch.relu(x) if i < 3 else x
     np.testing.assert_allclose(ours.numpy(), x.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_expansion_kmajor_is_permuted_expansion_transposed(rng, k):
+    """The kernel's expansion layout from nn.Linear's weight equals the
+    plain path's point-major w3r, transposed, bit for bit."""
+    w = torch.from_numpy(rng.standard_normal((128 * k, 32)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(128 * k).astype(np.float32))
+    assert torch.equal(expansion_kmajor(w, k), permute_expansion(w.t(), b, k)[0].t())
+
+
+def test_split_tf32_exact(rng):
+    """hi + lo == x exactly, hi's 13 low mantissa bits zero, |lo| below one
+    TF32 step of x where x is normal: the 3xTF32 operands lose nothing of x
+    but lo's own low bits."""
+    x = np.concatenate([rng.standard_normal(4000) * s for s in (1e-30, 1e-3, 1.0, 1e6)]
+                       + [[0.0, -0.0, 1.0, -2.5, 1e-40, 3e38]]).astype(np.float32)
+    t = torch.from_numpy(x)
+    hi, lo = split_tf32(t)
+    assert torch.equal(hi + lo, t)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    normal = t.abs() >= torch.finfo(torch.float32).tiny
+    assert bool((lo.abs() <= t.abs() * 2.0 ** -10)[normal].all())
+
+
+@pytest.mark.parametrize("cin,cout", [(144, 128), (128, 64), (20, 32)])
+def test_mlp_kmajor_layout(rng, cin, cout):
+    """[out, round8(in)]: column 8i + q holds input row 8i + GROUP_ORDER[q],
+    zero past the input's width."""
+    w = torch.from_numpy(rng.standard_normal((cin, cout)).astype(np.float32))
+    m = mlp_kmajor(w)
+    kp = -(-cin // 8) * 8
+    assert tuple(m.shape) == (cout, kp) and m.is_contiguous()
+    for c in range(kp):
+        src = c // 8 * 8 + GROUP_ORDER[c % 8]
+        want = w[src] if src < cin else torch.zeros(cout)
+        assert torch.equal(m[:, c], want)
+
+
+@pytest.mark.parametrize("d", [4, 13])
+def test_packed_decoder_layout_is_the_decoder(rng, d):
+    """The kernel's data flow on pack_decoder's weights, emulated in float64
+    (hi + lo is the float32 weight exactly): the expansion from the K-major
+    rows, each layer's input read in GROUP_ORDER per 8 columns against the
+    permuted weight columns, gives patch_decoder_plain's output."""
+    k, P, C = 4, 5, 64
+    h2 = torch.from_numpy(rng.random((P, C)).astype(np.float32))
+    lat = torch.from_numpy(rng.integers(-3, 4, (P, d)).astype(np.float32))
+    w3 = torch.from_numpy((rng.standard_normal((128 * k, C)) * C ** -0.5).astype(np.float32))
+    b3 = torch.from_numpy(rng.standard_normal(128 * k).astype(np.float32) * 0.1)
+    mlp = [(torch.from_numpy((rng.standard_normal(s) * s[0] ** -0.5).astype(np.float32)),
+            torch.from_numpy(rng.standard_normal(s[1]).astype(np.float32) * 0.1))
+           for s in [(128 + d, 128), (128, 64), (64, 32), (32, 3)]]
+    w3r, b3r = permute_expansion(w3.t(), b3, k)
+    packed = pack_decoder(expansion_kmajor(w3, k), b3r, mlp)
+    f64 = [t.double() for t in (packed.w_hi, packed.w_lo)]
+    fold = torch.relu(h2.double() @ (f64[0] + f64[1]).t() + packed.b3r.double())
+    x = torch.cat([fold.reshape(P, k, 128), lat.double()[:, None, :].expand(P, k, d)], -1)
+    for i in range(3):
+        m = packed.m_hi[i].double() + packed.m_lo[i].double()
+        kp = m.shape[1]
+        x = torch.nn.functional.pad(x, (0, kp - x.shape[-1]))
+        col = torch.arange(kp)
+        x = torch.relu(x[..., col // 8 * 8 + torch.tensor(GROUP_ORDER)[col % 8]] @ m.t()
+                       + packed.mb[i].double())
+    x = x @ packed.w4.double() + packed.b4.double()
+    ours = patch_decoder_plain(h2, lat, w3r, b3r, mlp, k)
+    np.testing.assert_allclose(x.numpy(), ours.numpy(), atol=1e-5)
+
+
+def test_decoder_weights_prepared_once_in_eval():
+    """PatchAE.decoder_weights: made on every call in train mode, once per
+    weights in eval mode; dropped by train() and load_state_dict, and made
+    again when a weight changes in place."""
+    ae, _ = make_models(CFG)
+    a = ae.decoder_weights()
+    assert a[3] is None                        # no kernel layout on the CPU
+    assert ae.decoder_weights() is not a       # train mode: no cache
+    ae.eval()
+    a = ae.decoder_weights()
+    assert ae.decoder_weights() is a
+    with torch.no_grad():
+        ae.inv_mlp.parameters().__next__().mul_(2.0)
+    b = ae.decoder_weights()
+    assert b is not a and ae.decoder_weights() is b
+    ae.load_state_dict(ae.state_dict())
+    assert ae._decoder_cache is None
+    ae.decoder_weights()
+    ae.train()
+    assert ae._decoder_cache is None
+    with torch.inference_mode():               # weights without version counters
+        ae, _ = make_models(CFG)
+        ae.eval()
+        a = ae.decoder_weights()
+        assert ae.decoder_weights() is a
 
 
 def test_quantizer_helpers():
