@@ -24,10 +24,12 @@ Phases (any failed check raises, and the script exits non-zero):
      then one more encode and decode under torch.profiler (where the time
      goes: device kernel time, busy share, the ops with most device time);
   4. each kernel vs its plain version on that path's inputs (FPS indices
-     bit-equal; encoder latents and decoder points within 1e-4, the decoder
-     on the weights the decode path prepared, two of its launches bitwise
-     equal; the encoder
-     also against sa_cuda.py::_kernel_choices, its arithmetic replayed, on
+     bit-equal, at the skeleton's [64, 8192 -> 64], with the kernel's device
+     time from a CUDA graph's replays beside the CUDA-event time of the
+     wrapper's calls; encoder latents
+     and decoder points within 1e-4, the decoder on the weights the decode
+     path prepared, two of its launches bitwise equal; the encoder also
+     against sa_cuda.py::_kernel_choices, its arithmetic replayed, on
      REPLAY_PATCHES patches: the count of entries that differ, each within
      one ulp; with its winners output, the latents bit-equal and the
      winners the plain version's on those patches), with CUDA event times
@@ -64,10 +66,11 @@ Phases (any failed check raises, and the script exits non-zero):
      statistics (seeded running means and variances, some negative
      scales); warm-up, then compress_many -> decompress_many with every
      launch counter set to 0 just before and read just after
-     (pppf_sa_stage 3, fps 3, the IPDAE kernels 0); decoded symbols equal
-     encoded ones; decoded clouds [S*d*d, 3] and finite; clouds/s, bits per
-     point, the steps of one batch, one encode and one decode under
-     torch.profiler;
+     (pppf_sa_stage 3, fps 3, fps_int 6: the integer CPM's three stages in
+     the encode and again in the decode, the IPDAE kernels 0); decoded
+     symbols equal encoded ones; decoded clouds [S*d*d, 3] and finite;
+     clouds/s, bits per point, the steps of one batch, one encode and one
+     decode under torch.profiler;
  10. the stage kernel vs its plain version on that path's own stage inputs
      (sa1, sa2, sa3 at P = 1024) and, with the "pppe" layout, on sa2's
      inputs: max abs error <= TOL of the output's largest entry; the
@@ -75,8 +78,11 @@ Phases (any failed check raises, and the script exits non-zero):
      (pppf_sa_points(replay=True)) on REPLAY_PATCHES patches at each stage:
      the count of entries that differ, each within one ulp; CUDA-event
      times, the plain version's time and the card's lower bound (the work
-     the function needs: the stack per point); FPS timed at each stage's
-     shape where the stage samples (fps_timing);
+     the function needs: the stack per point); every FPS call of one encode
+     batch (recording_fps: the skeleton, the encoder's sa2 and sa3, the
+     integer CPM's three stages) held bit for bit to its plain version on
+     its own inputs and timed (fps_check: CUDA events, device time, the
+     plain version's time, the bound, ns per step);
  11. one of the clouds on the CPU port with the same weights: .s.bin and
      .c.bin byte-equal, the card's .p.bin decoded on the CPU to the card's
      symbols, the integer coding weights [1, 64, 16, 7] bit-equal;
@@ -97,7 +103,10 @@ Phases (any failed check raises, and the script exits non-zero):
      launches bitwise equal, CUDA-event times, the plain version's time and
      the card's lower bound (with the dx and dW products as 3xTF32 on the
      tensor cores, and all in float32 beside it); each stage's launches'
-     device times under torch.profiler; FPS timed at the stages' shapes;
+     device times under torch.profiler; the same step's six FPS calls (the
+     skeleton, the encoder's sa2 and sa3, the CPM's three stages on batch
+     statistics) held bit for bit to the plain version and timed
+     (fps_check);
  14. a warm-up step and a fused step at TINY_PPPF on the card and on the
      CPU port, each from the same fresh weights and FPS starts
      (compare_train_states; each card step launches the chamfer kernels
@@ -120,7 +129,8 @@ Phases (any failed check raises, and the script exits non-zero):
      cotangents and a random pair: indices bit-equal, distances within TOL
      and gradients within TOL_BWD of the plain version's largest entry, two
      backward launches bitwise equal; CUDA-event times, the plain
-     versions' times, the bounds;
+     versions' times, the bounds; the fused PPPF-AE step's six FPS calls
+     (the CPM's on skeletons of 4 points) held and timed as in phase 13;
  17. the SetAbstraction kernel vs its plain version on the IPDAE serving
      path's own patches (phase 4, [4096, 256, 3]) with the serving model's
      weights: within TOL of the largest entry; CUDA-event times, the plain
@@ -129,18 +139,22 @@ Phases (any failed check raises, and the script exits non-zero):
      after (sa_fused 1), its output equal to the kernel's.
 The line before the last is the kernels' JSON record (the IPDAE serving
 path's launch counts for fps, patch_encoder and patch_decoder, the counted
-train steps' for patch_encoder_bwd, the PPPF-AE path's for pppf_sa_stage,
+train steps' for patch_encoder_bwd, the PPPF-AE path's for pppf_sa_stage
+and fps_int (the int32 instance of the FPS kernel: the integer CPM's three
+stages per evaluation, its times summed over them, each under `stages`),
 the counted fused PPPF-AE steps' for pppf_sa_stage_bwd, phase 15's counted
 steps' for chamfer_fwd and chamfer_bwd (the IPDAE step's shapes on top,
 both families under `paths`), phase 17's module call's for sa_fused; fps
-also carries the PPPF-AE path's count as launches_pppf and its times at the
-PPPF-AE stages' shapes as pppf_serving and pppf_fused_step, pppf_sa_stage
-its launches per fused step); the last line is {"ok": true, "device": {...}}.
+also carries the PPPF-AE path's count as launches_pppf and every float
+shape it was held and timed at (phases 4, 10, 13, 16) under `shapes`,
+pppf_sa_stage its launches per fused step); the last line is {"ok": true,
+"device": {...}}.
 Without a card it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -159,7 +173,8 @@ from pcc_tpu_torch.ops.chamfer_cuda import (ChamferFn, bwd_work, chamfer_bwd, ch
                                             chamfer_fwd, chamfer_fwd_plain, fwd_work)
 from pcc_tpu_torch.ops.decoder_cuda import (expansion_kmajor, pack_decoder, patch_decoder,
                                             patch_decoder_plain, permute_expansion)
-from pcc_tpu_torch.ops.fps import fps_batch, fps_plain
+from pcc_tpu_torch.ops import fps as fps_ops
+from pcc_tpu_torch.ops.fps import fps_batch, fps_int_batch, fps_int_plain, fps_plain
 from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
 from pcc_tpu_torch.ops.pppf_sa_cuda import (PPPFStageFn, pppf_sa_bwd, pppf_sa_bwd_plain,
                                             pppf_sa_fused, pppf_sa_plain, pppf_sa_points,
@@ -176,6 +191,7 @@ N_CLOUDS = 64
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+INT32_OPS_PER_S = 33.5e12  # CUDA cores' int32 rate: half the float32 rate
 TF32_FLOP_PER_S = 495e12   # dense, on the tensor cores
 TOL = 1e-4   # float32 sums in another order than cuBLAS / the CPU
 # patches on which a kernel is held bit for bit to its replay in the kernels'
@@ -249,17 +265,98 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def fps_timing(xyz: torch.Tensor, npoint: int) -> dict:
-    """FPS as a PN++ stage runs it (models/pppf.py::queries: [P, N, 3] ->
-    [P, npoint] from index 0): CUDA-event ms and the bound (9 operations per
-    point and step, as phase 4 counts)."""
-    xyz = xyz.contiguous()
-    starts = torch.zeros(xyz.shape[0], dtype=torch.int32, device=xyz.device)
-    out = fps_batch(xyz, npoint, starts)
-    P, N, _ = xyz.shape
-    bms, by = bound(9.0 * P * npoint * N, nbytes(xyz, starts, out))
-    return dict(shape=[P, N, npoint], ms=cuda_ms(lambda: fps_batch(xyz, npoint, starts), 20),
-                bound_ms=bms, bound_by=by)
+@contextlib.contextmanager
+def recording_fps():
+    """Record the inputs of every FPS call the paths make while active:
+    fps_batch as codec.py and models/pppf.py call it, fps_int_batch as
+    coding/iprob_pppf.py calls it (their names swapped for wrappers that
+    record and go on to the kernels). Yields the list of calls, each
+    (kind "f32" or "i32", points, npoint, starts or inf)."""
+    import pcc_tpu_torch.codec as codec_mod
+    import pcc_tpu_torch.coding.iprob_pppf as ipppf_mod
+    import pcc_tpu_torch.models.pppf as pppf_mod
+
+    calls = []
+
+    def float_fps(xyz, npoint, starts):
+        calls.append(("f32", xyz.detach().clone(), npoint, starts.detach().clone()))
+        return fps_batch(xyz, npoint, starts)
+
+    def int_fps(xs, npoint, inf):
+        calls.append(("i32", xs.clone(), npoint, inf))
+        return fps_int_batch(xs, npoint, inf)
+
+    saved = codec_mod.fps_batch, pppf_mod.fps_batch, ipppf_mod.fps_int_batch
+    codec_mod.fps_batch = pppf_mod.fps_batch = float_fps
+    ipppf_mod.fps_int_batch = int_fps
+    try:
+        yield calls
+    finally:
+        codec_mod.fps_batch, pppf_mod.fps_batch, ipppf_mod.fps_int_batch = saved
+
+
+def fps_label(call, clouds: int, cfg: CodecConfig) -> str:
+    """Which FPS of a path a recorded call is: the skeleton, or a PN++
+    stage of the encoder (per patch) or of the probability model (per
+    cloud)."""
+    kind, x, npoint, _ = call
+    B, N, _ = x.shape
+    if N == cfg.N and npoint == cfg.S:
+        return "skeleton"
+    who = "integer CPM" if kind == "i32" else "CPM" if B == clouds else "encoder"
+    return f"{who} " + {512: "sa1", 128: "sa2", 32: "sa3"}.get(npoint, f"npoint {npoint}")
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device ms per call of fn, from CUDA events around replays of a CUDA
+    graph of reps calls: the kernels alone, where CUDA events around
+    back-to-back calls of a short kernel also count the wrapper's host
+    time."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(g.replay, 5) / reps
+
+
+def fps_check(path: str, call) -> dict:
+    """FPS kernel (fps for float32, fps_int for int32 points) vs its plain
+    version on one recorded call's own inputs, bit for bit; CUDA-event ms
+    of the wrapper, the kernel's device ms (graph_ms) and ns per step by
+    it, the plain version's ms and the bound (9 operations per point and step:
+    3 sub, 3 mul, 2 add, 1 min; float32 at 67 TFLOP/s, int32 at 33.5
+    TOP/s)."""
+    kind, x, npoint, arg = call
+    x = x.contiguous()
+    if kind == "f32":
+        name, rate = "fps", FP32_FLOP_PER_S
+        kern = lambda: fps_batch(x, npoint, arg)  # noqa: E731
+        plain = lambda: fps_plain(x, npoint, arg)  # noqa: E731
+    else:
+        name, rate = "fps_int", INT32_OPS_PER_S
+        kern = lambda: fps_int_batch(x, npoint, arg)  # noqa: E731
+        plain = lambda: fps_int_plain(x, npoint, arg)  # noqa: E731
+    a = kern()
+    if not torch.equal(a, plain()):
+        raise RuntimeError(f"{name} differs from its plain version at {path} "
+                           f"{tuple(x.shape)} -> {npoint}")
+    B, N, _ = x.shape
+    bms, by = bound(9.0 * B * N * npoint, nbytes(x, a) + (4 * B if kind == "f32" else 0), rate)
+    ms, device_ms = cuda_ms(kern, 20), graph_ms(kern)
+    rec = dict(path=path, shape=[B, N, npoint], type=kind, plan=list(fps_ops.plan(B, N)),
+               ms=ms, device_ms=device_ms, ns_per_step=device_ms * 1e6 / npoint,
+               plain_ms=cuda_ms(plain, 1), bound_ms=bms, bound_by=by, max_abs_err=0.0)
+    log(f"{name} at {path} [{B}, {N} -> {npoint}] (plan {rec['plan']}): {ms:.4f} ms, "
+        f"device {rec['device_ms']:.4f} ms, {rec['ns_per_step']:.1f} ns per step (plain "
+        f"{rec['plain_ms']:.3f} ms, bound {bms:.5f} ms by {by}), indices bit-equal to the "
+        "plain version's")
+    return rec
+
+
+def fps_checks(path: str, calls, clouds: int, cfg: CodecConfig) -> list:
+    return [fps_check(f"{path} {fps_label(c, clouds, cfg)}", c) for c in calls]
 
 
 def replay_check(name: str, got: torch.Tensor, replay: torch.Tensor) -> int:
@@ -275,9 +372,10 @@ def replay_check(name: str, got: torch.Tensor, replay: torch.Tensor) -> int:
     return int((diff > 0).sum())
 
 
-def bound(flops: float, nbytes: float):
-    """(least ms, 'operations' or 'bytes') on this card for the work."""
-    t_ops, t_bytes = flops / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+def bound(flops: float, nbytes: float, rate: float = FP32_FLOP_PER_S):
+    """(least ms, 'operations' or 'bytes') on this card for the work, its
+    operations at `rate` a second."""
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -593,9 +691,11 @@ def pppf_test_weights(state: dict, seed: int) -> dict:
     return out
 
 
-def pppf_phase(dev, smi: str, clouds, fps_record: dict) -> dict:
-    """Phases 9-11: the PPPF-AE path, its stage kernel vs the plain version,
-    and the card vs the CPU port; the kernel's record for the kernels line."""
+def pppf_phase(dev, smi: str, clouds, fps_record: dict):
+    """Phases 9-11: the PPPF-AE path, its stage kernel and the FPS kernels
+    vs their plain versions, and the card vs the CPU port. Returns the
+    records of the stage kernel and of fps_int for the kernels line; the
+    float FPS shapes go into fps_record."""
     cfg = CodecConfig(model="PPPF-AE")
     B = PPPF_CLOUDS
     clouds = clouds[:B]
@@ -624,7 +724,9 @@ def pppf_phase(dev, smi: str, clouds, fps_record: dict) -> dict:
         f"on {smi}")
     log(f"launches on the PPPF-AE path: {launches}")
     want = {name: 0 for name in cuda_lib.KERNELS}
-    want.update(pppf_sa_stage=3, fps=3)
+    # FPS: the skeleton, sa2, sa3; fps_int: the integer CPM's three stages,
+    # once in the encode and once in the decode
+    want.update(pppf_sa_stage=3, fps=3, fps_int=6)
     if launches != want:
         raise RuntimeError(f"PPPF-AE path launches {launches} != {want}")
     bpp = [8 * (len(p) + len(s) + len(c)) / cfg.N for p, s, c in streams]
@@ -638,7 +740,8 @@ def pppf_phase(dev, smi: str, clouds, fps_record: dict) -> dict:
         step_times(card, clouds, streams)
         profile("PPPF-AE encode", lambda: card.compress_many(clouds), top=12)
         profile("PPPF-AE decode", lambda: card.decompress_many(streams), top=12)
-        enc = card.encode_batch(np.stack(clouds), starts)
+        with recording_fps() as fps_calls:
+            enc = card.encode_batch(np.stack(clouds), starts)
         sym = enc.sym.cpu().numpy()
         if not np.array_equal(card.decode_symbols(recs, [p for p, _, _ in streams]), sym):
             raise RuntimeError("PPPF-AE: decoded symbols differ from the encoded symbols")
@@ -648,12 +751,10 @@ def pppf_phase(dev, smi: str, clouds, fps_record: dict) -> dict:
         packed = pack_encode_upload(np.stack(clouds), starts)
         pcs, st = unpack_encode_upload(torch.from_numpy(packed.view(np.int32)).to(dev), cfg.N)
         xyz, feat = encode_geometry(pcs, st, cfg).patches, None
-        stages, cases, fps_stages = [], [], []
+        fps_recs = fps_checks("PPPF-AE serving", fps_calls, B, cfg)
+        stages, cases = [], []
         for name in ("sa1", "sa2", "sa3"):
             sa = getattr(card.ae.encoder, name)
-            if sa.npoint < xyz.shape[1]:
-                fps_stages.append(dict(stage=name, **fps_timing(xyz, sa.npoint)))
-                log(f"fps at {name}: {fps_stages[-1]}")
             new_xyz = sa.queries(xyz).contiguous()
             cases.append((name, "pppf", new_xyz, xyz, feat, sa))
             if name == "sa2":
@@ -718,7 +819,10 @@ def pppf_phase(dev, smi: str, clouds, fps_record: dict) -> dict:
             f"weights {tuple(w_cpu.shape)} bit-equal")
 
     fps_record["launches_pppf"] = launches["fps"]
-    fps_record["pppf_serving"] = fps_stages
+    fps_record["shapes"] += [r for r in fps_recs if r["type"] == "f32"]
+    ints = [r for r in fps_recs if r["type"] == "i32"]
+    if len(ints) != 3:
+        raise RuntimeError(f"the integer CPM ran {len(ints)} FPS calls per evaluation, not 3")
     path = [r for r in stages if r["layout"] == "pppf"]
     return dict(
         name="pppf_sa_stage", route="cuda", source="pcc_tpu_torch/csrc/pppf_sa_stage.cu",
@@ -726,7 +830,13 @@ def pppf_phase(dev, smi: str, clouds, fps_record: dict) -> dict:
         max_abs_err=max(r["max_abs_err"] for r in stages),
         ms=sum(r["ms"] for r in path), plain_ms=sum(r["plain_ms"] for r in path),
         bound_ms=sum(r["bound_ms"] for r in path), bound_by=path[-1]["bound_by"],
-        library_ms=None, stages=stages)
+        library_ms=None, stages=stages), dict(
+        name="fps_int", route="cuda", source="pcc_tpu_torch/csrc/fps.cu",
+        replaces="pcc_tpu/coding/iprob_pppf.py:103", launches=launches["fps_int"],
+        max_abs_err=0.0, ms=sum(r["ms"] for r in ints),
+        plain_ms=sum(r["plain_ms"] for r in ints), bound_ms=sum(r["bound_ms"] for r in ints),
+        bound_by=max(ints, key=lambda r: r["bound_ms"])["bound_by"], library_ms=None,
+        launches_per_evaluation=3, stages=ints)
 
 def bn_stats(model) -> list:
     """Copies of a model's BatchNorm running statistics."""
@@ -739,7 +849,8 @@ def pppf_train_phase(dev, smi: str):
     statistics, plain stages) and the fused step (the encoder's BatchNorm
     frozen: the stage kernel and its backward). Returns the state, the
     fused steps' launch counts and, from one more fused step, each stage's
-    inputs and real cotangent (sa1, sa2, sa3) for phase 13."""
+    inputs and real cotangent (sa1, sa2, sa3) and the step's FPS calls for
+    phase 13."""
     cfg = CodecConfig(model="PPPF-AE")
     tx = make_optimizer(5e-4, 0.1, 60000, 80000)
     state = create_train_state(SEED, cfg, tx, device="cuda")
@@ -817,22 +928,20 @@ def pppf_train_phase(dev, smi: str):
         return backward(ctx, gout)
 
     PPPFStageFn.backward = staticmethod(recording)
-    step(state, batch, starts(B), TRAIN_LAM)
+    with recording_fps() as fps_calls:
+        step(state, batch, starts(B), TRAIN_LAM)
     PPPFStageFn.backward = staticmethod(backward)
-    return state, fused_launches, rec[::-1]
+    return state, fused_launches, rec[::-1], fps_calls
 
 
-def pppf_bwd_kernel_check(records, launches: dict, fps_record: dict) -> dict:
+def pppf_bwd_kernel_check(records, launches: dict) -> dict:
     """Phase 13: the stage backward kernel vs its plain version on the fused
     step's own stage inputs and cotangents; its record for the kernels
-    line. FPS timed at the stages' shapes goes into fps_record."""
-    stages, fps_stages = [], []
+    line."""
+    stages = []
     for name, (new_xyz, xyz, feat, layers, gout, nsample, radius) in zip(
             ("sa1", "sa2", "sa3"), records):
         kw = dict(nsample=nsample, radius=radius)
-        if new_xyz.shape[1] < xyz.shape[1]:
-            fps_stages.append(dict(stage=name, **fps_timing(xyz, new_xyz.shape[1])))
-            log(f"fps at the fused step's {name}: {fps_stages[-1]}")
 
         def flat(out):
             dxyz, dfeat, dl = out
@@ -910,7 +1019,6 @@ def pppf_bwd_kernel_check(records, launches: dict, fps_record: dict) -> dict:
                 lambda: pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, **kw), top=12)
         del saved
         stages.append(r)
-    fps_record["pppf_fused_step"] = fps_stages
     return dict(
         name="pppf_sa_stage_bwd", route="cuda",
         source="pcc_tpu_torch/csrc/pppf_sa_stage_bwd.cu",
@@ -1015,7 +1123,8 @@ def small_train_phase(dev, smi):
     with every launch counter set to 0 just before and read just after.
     Returns the chamfer kernels' launches over all counted steps and, from
     one more step of the IPDAE and of the fused PPPF-AE kind, the chamfer's
-    inputs and real cotangents for phase 16."""
+    inputs and real cotangents for phase 16, and the fused PPPF-AE step's
+    FPS calls."""
     tx = make_optimizer(5e-4, 0.1, 60000, 80000)
     gen = torch.Generator().manual_seed(SEED + 8)
     chamfer_launches = {"chamfer_fwd": 0, "chamfer_bwd": 0}
@@ -1097,9 +1206,12 @@ def small_train_phase(dev, smi):
             return backward(ctx, gx, gy)
 
         ChamferFn.backward = staticmethod(recording)
-        step(state, batch, starts(), TRAIN_LAM)
+        with recording_fps() as calls:
+            step(state, batch, starts(), TRAIN_LAM)
         ChamferFn.backward = staticmethod(backward)
-    return chamfer_launches, records
+        if family == "PPPF-AE":
+            fps_calls = calls
+    return chamfer_launches, records, fps_calls
 
 
 def chamfer_kernel_check(dev, records: dict, launches: dict) -> list:
@@ -1341,22 +1453,16 @@ def main() -> int:
         sa_wb, pn_wb = ae.sa.layers(), ae.pn.layers()
         latent_q = (enc.sym.to(torch.float32) - cfg.L // 2).reshape(-1, cfg.d).contiguous()
         h2, w3r, b3r, mlp_wb, packed = ae.decoder_inputs(latent_q)
-        B, N, S, P = N_CLOUDS, cfg.N, cfg.S, latent_q.shape[0]
+        S, P = cfg.S, latent_q.shape[0]
         kernels = []
 
-        a = fps_batch(geo.pc01, S, st)
-        b = fps_plain(geo.pc01, S, st)
-        err = float((a.long() - b.long()).abs().max())
-        if err != 0:
-            raise RuntimeError(f"FPS indices differ from the plain version ({err})")
-        # 9 operations per point and step: 3 sub, 3 mul, 2 add, 1 min
-        bms, by = bound(9.0 * B * S * N, nbytes(geo.pc01, st, a))
+        sk = fps_check("IPDAE serving skeleton", ("f32", geo.pc01, S, st))
         kernels.append(dict(
             name="fps", route="cuda", source="pcc_tpu_torch/csrc/fps.cu",
             replaces="pcc_tpu/ops/fps_pallas.py:31", launches=launches["fps"],
-            max_abs_err=err, ms=cuda_ms(lambda: fps_batch(geo.pc01, S, st), 20),
-            plain_ms=cuda_ms(lambda: fps_plain(geo.pc01, S, st), 3),
-            bound_ms=bms, bound_by=by, library_ms=None))
+            max_abs_err=0.0, ms=sk["ms"], plain_ms=sk["plain_ms"], bound_ms=sk["bound_ms"],
+            bound_by=sk["bound_by"], library_ms=None, device_ms=sk["device_ms"],
+            ns_per_step=sk["ns_per_step"], shapes=[sk]))
 
         a = patch_encoder(geo.patches, sa_wb, pn_wb, cfg.sa_knn)
         b = patch_encoder_plain(geo.patches, sa_wb, pn_wb, cfg.sa_knn)
@@ -1437,25 +1543,35 @@ def main() -> int:
     train_card_vs_cpu(dev)
 
     # 9-11. the PPPF-AE path
-    kernels.append(pppf_phase(dev, smi, clouds, kernels[0]))
-    kr = kernels[-1]
+    stage_rec, fps_int_rec = pppf_phase(dev, smi, clouds, kernels[0])
+    kernels += [stage_rec, fps_int_rec]
+    kr = fps_int_rec
+    log(f"{kr['name']}: {kr['ms']:.4f} ms for the integer CPM's three stages (plain "
+        f"{kr['plain_ms']:.4f} ms, bound {kr['bound_ms']:.5f} ms by {kr['bound_by']}), "
+        f"launches {kr['launches']} in one compress -> decompress")
+    kr = stage_rec
     log(f"{kr['name']}: {kr['ms']:.4f} ms for the three stages (plain {kr['plain_ms']:.4f} ms, "
         f"bound {kr['bound_ms']:.4f} ms by {kr['bound_by']}), launches {kr['launches']}")
 
     # 12-14. the PPPF-AE train path
-    _, launches_fused, records = pppf_train_phase(dev, smi)
-    kernels[-1]["launches_per_fused_step"] = launches_fused["pppf_sa_stage"] // PPPF_FUSED_STEPS
-    kernels.append(pppf_bwd_kernel_check(records, launches_fused, kernels[0]))
+    _, launches_fused, records, fps_calls = pppf_train_phase(dev, smi)
+    stage_rec["launches_per_fused_step"] = launches_fused["pppf_sa_stage"] // PPPF_FUSED_STEPS
+    kernels.append(pppf_bwd_kernel_check(records, launches_fused))
     kr = kernels[-1]
     log(f"{kr['name']}: {kr['ms']:.4f} ms for the three stages (plain {kr['plain_ms']:.4f} ms, "
         f"bound {kr['bound_ms']:.4f} ms by {kr['bound_by']}), launches {kr['launches']} over "
         f"{PPPF_FUSED_STEPS} fused steps")
+    kernels[0]["shapes"] += fps_checks("N=8192 fused PPPF-AE step", fps_calls,
+                                       PPPF_TRAIN_CLOUDS, CodecConfig(model="PPPF-AE"))
+    del fps_calls
     pppf_train_card_vs_cpu(dev)
 
     # 15-16. the small-cloud train path and the chamfer kernels
-    chamfer_launches, records = small_train_phase(dev, smi)
+    chamfer_launches, records, fps_calls = small_train_phase(dev, smi)
     kernels += chamfer_kernel_check(dev, records, chamfer_launches)
-    del records
+    kernels[0]["shapes"] += fps_checks("N=512 fused PPPF-AE step", fps_calls, SMALL_CLOUDS,
+                                       CodecConfig(N=SMALL_N, model="PPPF-AE"))
+    del records, fps_calls
 
     # 17. the SetAbstraction kernel
     with torch.no_grad():

@@ -51,6 +51,7 @@ from pcc_tpu_torch.coding.iprob import (
     _split_requant,
     softmax_weights,
 )
+from pcc_tpu_torch.ops.fps import fps_int_batch
 from pcc_tpu_torch.ops.knn import knn_gather
 
 # The backbone (fixed by PPPFConditionalProbabilityModel: PointNetPP(
@@ -104,20 +105,10 @@ def _int_fps_np(xs: np.ndarray, npoint: int, inf: int) -> np.ndarray:
 
 
 def _int_fps(xs: torch.Tensor, npoint: int, inf: int) -> torch.Tensor:
-    """Torch twin of _int_fps_np: [B, n, 3] int32 -> [B, npoint] int64."""
-    B, n, _ = xs.shape
-    rows = torch.arange(B, device=xs.device)
-    iota = torch.arange(n, device=xs.device)
-    out = torch.empty((B, npoint), dtype=torch.int64, device=xs.device)
-    dist = torch.full((B, n), inf, dtype=torch.int32, device=xs.device)
-    far = torch.zeros((B,), dtype=torch.int64, device=xs.device)
-    for i in range(npoint):
-        out[:, i] = far
-        c = xs[rows, far]                                  # [B, 3]
-        dist = torch.minimum(dist, ((xs - c[:, None, :]) ** 2).sum(-1, dtype=torch.int32))
-        # masked argmax: the lowest index among equal maxima
-        far = torch.where(dist == dist.amax(dim=1, keepdim=True), iota, n).amin(dim=1)
-    return out
+    """Torch twin of _int_fps_np: [B, n, 3] int32 -> [B, npoint] int64.
+    One launch of the FPS kernel's int32 instance on the card, its plain
+    version on the CPU (ops/fps.py::fps_int_batch)."""
+    return fps_int_batch(xs.contiguous(), npoint, inf).long()
 
 
 def _int_ball_np(centers, src, K: int, r2: int, n_src: int) -> np.ndarray:

@@ -7,7 +7,10 @@ and flags, so an edited source is rebuilt and a stale library never loads.
 Importing this module needs neither nvcc nor a card.
 
 Every C entry point launches on the stream it is given and returns
-cudaGetLastError() as an int; the wrappers raise on a non-zero value.
+cudaGetLastError() as an int; the wrappers raise on a non-zero value. Two
+kernels may share a source (fps and fps_int, the float32 and int32
+instances of csrc/fps.cu): they share its library, and each has its own
+entry point `<name>_launch` and its own launch count.
 `launches` counts, per kernel, the launches the wrappers made, so a run can
 show that its path went through the kernels.
 """
@@ -29,6 +32,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 KERNELS = {
     # FPS indices must be bit-equal to the plain version: no FMA contraction
     "fps": ("fps.cu", ("--fmad=false",)),
+    "fps_int": ("fps.cu", ("--fmad=false",)),
     "patch_encoder": ("patch_encoder.cu", ()),
     "patch_decoder": ("patch_decoder.cu", ()),
     "patch_encoder_bwd": ("patch_encoder_bwd.cu", ()),
@@ -69,20 +73,23 @@ def _lib_path(name: str) -> str:
         with open(os.path.join(CSRC_DIR, part), "rb") as f:
             h.update(f.read())
     h.update(" ".join(_NVCC_FLAGS + flags).encode())
-    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
+    stem = os.path.splitext(src)[0]
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:12]}.so")
 
 
 def build(names=None) -> dict[str, float]:
     """Compile the named kernels (default: all) that are not built yet, one
     nvcc process per source, all started together. Returns the seconds each
-    build took; raises with nvcc's output if one fails."""
+    build took, by the first name of each source; raises with nvcc's output
+    if one fails."""
     names = list(KERNELS) if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    running = {}
+    running, paths = {}, set()
     for name in names:
         path = _lib_path(name)
-        if os.path.exists(path):
+        if os.path.exists(path) or path in paths:
             continue
+        paths.add(path)
         src, flags = KERNELS[name]
         tmp = f"{path}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *_NVCC_FLAGS, *flags, "-o", tmp,

@@ -1,10 +1,15 @@
 """Farthest point sampling (counterpart of pcc_tpu/ops/fps.py::fps_batch and
-its TPU kernel pcc_tpu/ops/fps_pallas.py::_fps_kernel).
+its TPU kernel pcc_tpu/ops/fps_pallas.py::_fps_kernel), on float32
+coordinates and, for the integer probability model, on int32 grid
+coordinates (counterpart of pcc_tpu/coding/iprob_pppf.py::_int_fps_jnp).
 
-`fps_batch` launches the CUDA kernel csrc/fps.cu on a CUDA tensor and runs
-`fps_plain`, the same function in plain PyTorch, on a CPU tensor. The two
+`fps_batch` and `fps_int_batch` launch the two instances of the CUDA kernel
+csrc/fps.cu on a CUDA tensor and run `fps_plain` / `fps_int_plain`, the
+same functions in plain PyTorch, on a CPU tensor. Kernel and plain version
 give bit-equal indices: both compute ((dx*dx + dy*dy) + dz*dz) with one
-rounding per operation and take the lowest index among equal maxima. The
+rounding per operation (exactly, in int32) and take the lowest index among
+equal maxima. `plan` is the launcher's fixed rule by shape: a warp per
+cloud for small clouds, a cluster of CTAs per cloud for large ones. The
 kernel's design note (what bounds it on an H100, what it does about that)
 is at the top of csrc/fps.cu.
 """
@@ -15,9 +20,46 @@ import torch
 
 from pcc_tpu_torch.ops import cuda_lib
 
-_ARGTYPES = [cuda_lib.PTR, cuda_lib.PTR, cuda_lib.PTR, cuda_lib.INT,
-             cuda_lib.INT, cuda_lib.INT, cuda_lib.PTR]
-MAX_POINTS = 16384   # csrc/fps.cu keeps N / 1024 <= 16 distances per thread
+_ARGTYPES = [cuda_lib.PTR, cuda_lib.PTR, cuda_lib.PTR, cuda_lib.INT, cuda_lib.INT,
+             cuda_lib.INT, cuda_lib.INT, cuda_lib.INT, cuda_lib.PTR]
+_INT_ARGTYPES = [cuda_lib.PTR, cuda_lib.PTR, cuda_lib.INT, cuda_lib.INT, cuda_lib.INT,
+                 cuda_lib.INT, cuda_lib.INT, cuda_lib.INT, cuda_lib.PTR]
+MAX_POINTS = 16384        # csrc/fps.cu: the whole cloud in each CTA's shared memory
+WARP_MAX_POINTS = 512     # a warp per cloud: at most 16 points a lane
+_MAX_PER_THREAD = 8       # points a thread in a cluster's CTA
+_CLUSTERS = (1, 2, 4, 8)  # CTAs per cloud the kernel takes (8: the portable cluster size)
+_MAX_CLUSTER_PICKED = 4
+_SMS = 132                # an H100 SXM's SMs
+
+
+def plan(B: int, N: int) -> tuple[int, int]:
+    """The launch plan (cluster, threads) for B clouds of N points, the
+    fastest measured at the paths' shapes (every candidate plan timed on an
+    H100 by tools/fps_breakdown.py; PERF.md). cluster 0: a warp per
+    cloud, 4 clouds a block. Else cluster CTAs of `threads` threads per
+    cloud, each thread with up to 8 points: as many CTAs as fill the card's
+    SMs once, up to 4 (8 measured no faster at B = 8, slower at B = 16)."""
+    if N <= WARP_MAX_POINTS:
+        return 0, 128
+    c = 1
+    while c < _MAX_CLUSTER_PICKED and B * c * 2 <= _SMS:
+        c *= 2
+    return c, min(1024, _round32(-(-N // (c * _MAX_PER_THREAD))))
+
+
+def candidate_plans(N: int) -> list[tuple[int, int]]:
+    """Every plan the kernel takes for clouds of N points."""
+    out = [(0, t) for t in (32, 64, 128, 256)] if N <= WARP_MAX_POINTS else []
+    for c in _CLUSTERS:
+        slice_ = -(-N // c)
+        for t in (32, 64, 128, 256, 512, 1024):
+            if -(-slice_ // t) <= _MAX_PER_THREAD and t <= _round32(slice_):
+                out.append((c, t))
+    return out
+
+
+def _round32(n: int) -> int:
+    return max(32, -(-n // 32) * 32)
 
 
 def fps_plain(xyz: torch.Tensor, npoint: int, starts: torch.Tensor) -> torch.Tensor:
@@ -43,6 +85,49 @@ def fps_plain(xyz: torch.Tensor, npoint: int, starts: torch.Tensor) -> torch.Ten
     return out
 
 
+def fps_int_plain(xs: torch.Tensor, npoint: int, inf: int) -> torch.Tensor:
+    """[B, n, 3] int32 grid coordinates -> [B, npoint] int32: the same picks
+    in exact int32 arithmetic, from index 0, running minima starting at inf
+    (> every squared distance). npoint > n saturates: once every point is
+    picked all minima are 0 and index 0 wins."""
+    B, n, _ = xs.shape
+    rows = torch.arange(B, device=xs.device)
+    iota = torch.arange(n, device=xs.device)
+    out = torch.empty((B, npoint), dtype=torch.int32, device=xs.device)
+    dist = torch.full((B, n), inf, dtype=torch.int32, device=xs.device)
+    far = torch.zeros((B,), dtype=torch.int64, device=xs.device)
+    for i in range(npoint):
+        out[:, i] = far
+        c = xs[rows, far]                                  # [B, 3]
+        dist = torch.minimum(dist, ((xs - c[:, None, :]) ** 2).sum(-1, dtype=torch.int32))
+        # masked argmax: the lowest index among equal maxima
+        far = torch.where(dist == dist.amax(dim=1, keepdim=True), iota, n).amin(dim=1)
+    return out
+
+
+def _check(name: str, x: torch.Tensor, npoint: int) -> None:
+    B, N, C = x.shape
+    if C != 3 or not 0 < N <= MAX_POINTS or B <= 0 or npoint <= 0:
+        raise ValueError(f"{name}: unsupported shape {tuple(x.shape)}, npoint={npoint} "
+                         f"(N <= {MAX_POINTS})")
+
+
+def _launch(x: torch.Tensor, npoint: int, starts, inf, plan_) -> torch.Tensor:
+    """One launch of the float32 instance (starts given) or the int32 one
+    (inf given) under launch plan plan_ = (cluster, threads)."""
+    B, N, _ = x.shape
+    cluster, threads = plan_
+    out = torch.empty((B, npoint), dtype=torch.int32, device=x.device)
+    stream = cuda_lib.stream_ptr(x)
+    if inf is None:
+        cuda_lib.launch("fps", _ARGTYPES, x.data_ptr(), starts.data_ptr(), out.data_ptr(),
+                        B, N, npoint, cluster, threads, stream)
+    else:
+        cuda_lib.launch("fps_int", _INT_ARGTYPES, x.data_ptr(), out.data_ptr(), B, N, npoint,
+                        inf, cluster, threads, stream)
+    return out
+
+
 def fps_batch(xyz: torch.Tensor, npoint: int, starts: torch.Tensor) -> torch.Tensor:
     """Batched FPS with explicit start indices: [B, N, 3] f32 + starts [B]
     -> [B, npoint] int32. CUDA kernel on a CUDA tensor, plain version on a
@@ -50,14 +135,23 @@ def fps_batch(xyz: torch.Tensor, npoint: int, starts: torch.Tensor) -> torch.Ten
     if xyz.device.type == "cpu":
         return fps_plain(xyz, npoint, starts)
     cuda_lib.require_cuda("fps_batch", xyz, torch.float32, 3)
-    B, N, C = xyz.shape
-    if C != 3 or not 0 < N <= MAX_POINTS or npoint <= 0:
-        raise ValueError(f"fps_batch: unsupported shape {tuple(xyz.shape)}, "
-                         f"npoint={npoint} (N <= {MAX_POINTS})")
+    _check("fps_batch", xyz, npoint)
+    B, N, _ = xyz.shape
     starts = starts.to(device=xyz.device, dtype=torch.int32).contiguous()
     if starts.shape != (B,):
         raise ValueError(f"fps_batch: starts shape {tuple(starts.shape)} != ({B},)")
-    out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
-    cuda_lib.launch("fps", _ARGTYPES, xyz.data_ptr(), starts.data_ptr(),
-                    out.data_ptr(), B, N, npoint, cuda_lib.stream_ptr(xyz))
-    return out
+    return _launch(xyz, npoint, starts, None, plan(B, N))
+
+
+def fps_int_batch(xs: torch.Tensor, npoint: int, inf: int) -> torch.Tensor:
+    """Integer FPS: [B, n, 3] int32 grid coordinates -> [B, npoint] int32,
+    from index 0, running minima starting at inf. CUDA kernel on a CUDA
+    tensor, plain version on a CPU tensor."""
+    if xs.device.type == "cpu":
+        return fps_int_plain(xs, npoint, inf)
+    cuda_lib.require_cuda("fps_int_batch", xs, torch.int32, 3)
+    _check("fps_int_batch", xs, npoint)
+    if not 0 < inf < 2 ** 31:
+        raise ValueError(f"fps_int_batch: inf={inf} is not a positive int32")
+    B, N, _ = xs.shape
+    return _launch(xs, npoint, None, int(inf), plan(B, N))

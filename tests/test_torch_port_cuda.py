@@ -15,7 +15,9 @@ from pcc_tpu_torch.codec import Codec, init_params
 from pcc_tpu_torch.config import CodecConfig
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.decoder_cuda import pack_decoder, patch_decoder, patch_decoder_plain
-from pcc_tpu_torch.ops.fps import fps_batch, fps_plain
+from pcc_tpu_torch.coding.iprob_pppf import _qsel
+from pcc_tpu_torch.ops import fps as fps_ops
+from pcc_tpu_torch.ops.fps import fps_batch, fps_int_batch, fps_int_plain, fps_plain
 from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
 from pcc_tpu_torch.ops.pppf_sa_cuda import (pppf_sa_bwd, pppf_sa_bwd_plain, pppf_sa_fused,
                                             pppf_sa_plain, pppf_sa_points, stack_replay)
@@ -59,6 +61,102 @@ def test_fps_kernel_bit_equal(dev, B, N, S, twins):
     out = fps_batch(xyz, S, starts)
     assert cuda_lib.launches["fps"] == before + 1
     assert torch.equal(out, fps_plain(xyz, S, starts))
+
+
+def _fps_points(g, B, N, twins, grid_bits=None):
+    """Uniform points (float32, or int32 grid coordinates in [0, 2^bits));
+    with twins the second half repeats the first, so picks tie."""
+    if grid_bits is None:
+        x = torch.rand((B, N, 3), generator=g)
+    else:
+        x = torch.randint(0, 1 << grid_bits, (B, N, 3), generator=g, dtype=torch.int32)
+    if twins:
+        x[:, N - N // 2:] = x[:, :N // 2]
+    return x
+
+
+def _fps_case(dev, kind, B, N, npoint, twins, plan=None):
+    """One launch of the float32 (kind "f32") or int32 ("i32") instance,
+    by the launcher's plan or the given one, against its plain version;
+    asserts that exactly one launch of that kernel was counted."""
+    g = torch.Generator().manual_seed(B * 7919 + N * 31 + npoint)
+    if kind == "f32":
+        x = _fps_points(g, B, N, twins).to(dev)
+        starts = torch.randint(0, N, (B,), generator=g, dtype=torch.int32).to(dev)
+        want = fps_plain(x, npoint, starts)
+        name, call = "fps", lambda: fps_batch(x, npoint, starts)
+        if plan is not None:
+            call = lambda: fps_ops._launch(x, npoint, starts, None, plan)  # noqa: E731
+    else:
+        q = _qsel(N)
+        inf = 3 * 4 ** q + 1
+        x = _fps_points(g, B, N, twins, grid_bits=q).to(dev)
+        want = fps_int_plain(x, npoint, inf)
+        name, call = "fps_int", lambda: fps_int_batch(x, npoint, inf)
+        if plan is not None:
+            call = lambda: fps_ops._launch(x, npoint, None, inf, plan)  # noqa: E731
+    before = dict(cuda_lib.launches)
+    got = call()
+    after = dict(cuda_lib.launches)
+    assert after[name] == before[name] + 1
+    assert all(after[k] == before[k] for k in after if k != name)
+    assert got.dtype == torch.int32 and got.shape == (B, npoint)
+    assert torch.equal(got, want), f"{kind} [{B}, {N} -> {npoint}] plan {plan}"
+
+
+# every shape of the users' paths (tests/test_torch_port_fps.py::PATH_SHAPES)
+_FPS_PATH = [("f32", *s) for s in [
+    (64, 8192, 64), (16, 8192, 64), (8, 8192, 64), (1024, 256, 128), (1024, 128, 32),
+    (512, 256, 128), (512, 128, 32), (8, 64, 512), (8, 512, 128), (8, 128, 32),
+    (128, 4, 512), (128, 512, 128), (128, 128, 32), (128, 512, 4)]] + [
+    ("i32", 16, 64, 512), ("i32", 16, 512, 128), ("i32", 16, 128, 32)]
+
+
+@pytest.mark.parametrize("kind,B,N,npoint", _FPS_PATH)
+def test_fps_kernel_path_shapes(dev, kind, B, N, npoint):
+    _fps_case(dev, kind, B, N, npoint, twins=False)
+
+
+# edge cases: twins, saturation (npoint > N), N not a multiple of 32, B not a
+# multiple of the clouds per block, one point, the largest cloud
+_FPS_EDGES = [(5, 37, 50, False), (7, 200, 100, True), (3, 8192, 64, True),
+              (2, 1000, 1100, False), (1, 1, 5, False), (9, 4, 9, True),
+              (3, 16384, 16, False), (33, 513, 40, True), (130, 96, 96, True)]
+
+
+@pytest.mark.parametrize("kind", ["f32", "i32"])
+@pytest.mark.parametrize("B,N,npoint,twins", _FPS_EDGES)
+def test_fps_kernel_edges(dev, kind, B, N, npoint, twins):
+    _fps_case(dev, kind, B, N, npoint, twins)
+
+
+@pytest.mark.parametrize("kind", ["f32", "i32"])
+@pytest.mark.parametrize("N", [4, 37, 256, 512, 1000, 8192])
+def test_fps_kernel_every_plan(dev, kind, N):
+    """Every plan the launcher can pick at N (a warp per cloud with 1-8
+    clouds a block, clusters of 1, 2, 4, 8 CTAs at every width) gives the
+    plain version's picks, with twins, on 5 clouds (not a multiple of the
+    clouds per block)."""
+    for plan in fps_ops.candidate_plans(N):
+        _fps_case(dev, kind, 5, N, min(N + 3, 70), twins=True, plan=plan)
+
+
+@pytest.mark.parametrize("case", ["points", "dtype_f32", "dtype_i32", "inf", "strided"])
+def test_fps_kernel_rejects_unsupported(dev, case):
+    x = torch.rand((2, 64, 3), device=dev)
+    xi = torch.randint(0, 64, (2, 64, 3), dtype=torch.int32, device=dev)
+    z = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        if case == "points":
+            fps_batch(torch.rand((1, fps_ops.MAX_POINTS + 1, 3), device=dev), 4, z[:1])
+        elif case == "dtype_f32":
+            fps_batch(xi, 4, z)
+        elif case == "dtype_i32":
+            fps_int_batch(x, 4, 100)
+        elif case == "inf":
+            fps_int_batch(xi, 4, 0)
+        else:
+            fps_int_batch(xi.transpose(0, 1), 4, 100)
 
 
 @pytest.mark.parametrize("P,N,knn,D", [(16, 256, 16, 16), (5, 32, 8, 4)])
