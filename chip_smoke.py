@@ -10,7 +10,7 @@ IPDAE train step at the same config on 8 such clouds, then the PPPF-AE
 compress -> decompress path (CodecConfig(model="PPPF-AE"), same widths) on
 16 of the clouds, then the PPPF-AE train step (warm-up steps on 4 clouds,
 fused steps on 8), then both families' train steps on 512-point clouds
-(cli/train.py --N 512, whose chamfer runs the chamfer kernels), then the
+(cli/train.py --N 512; every train step runs the chamfer kernels), then the
 SetAbstraction kernel behind SetAbstraction(fused=True), holds every kernel
 against its plain PyTorch version at the shapes those paths give it, and
 checks the streams and the train steps against the port on the CPU.
@@ -45,8 +45,9 @@ Phases (any failed check raises, and the script exits non-zero):
   6. the training path: the step cli/train.py builds (build_train_step,
      rate_mode "reference", lam 1e-6) on 8 clouds of 8192 points, one
      warm-up step, then TRAIN_STEPS counted steps with every launch counter
-     set to 0 just before and read just after (fps, patch_encoder and
-     patch_encoder_bwd once per step, patch_decoder never); finite losses,
+     set to 0 just before and read just after (fps, patch_encoder,
+     patch_encoder_bwd, chamfer_fwd and chamfer_bwd once per step,
+     patch_decoder never); finite losses,
      parameters moved; median step time, points/s and peak memory; one
      step under torch.profiler;
   7. the backward kernel vs its plain version on the step's own patches
@@ -92,8 +93,9 @@ Phases (any failed check raises, and the script exits non-zero):
      stages) on PPPF_WARMUP_CLOUDS clouds, then one uncounted and
      PPPF_FUSED_STEPS counted fused steps on PPPF_TRAIN_CLOUDS, every launch
      counter set to 0 just before each kind's counted steps and read just
-     after (fps 6 per step; fused: pppf_sa_stage 3 and pppf_sa_stage_bwd 3
-     per step; nothing else); finite losses, parameters moved, the encoder's
+     after (fps 6, chamfer_fwd and chamfer_bwd 1 per step; fused:
+     pppf_sa_stage 3 and pppf_sa_stage_bwd 3 per step; nothing else);
+     finite losses, parameters moved, the encoder's
      running statistics moved by warm-up steps only, the CPM's by both;
      median step times, points/s, peak memory; one fused step under
      torch.profiler;
@@ -124,13 +126,18 @@ Phases (any failed check raises, and the script exits non-zero):
      encoder and stage kernels as in phases 6 and 12); finite losses,
      parameters moved; median step times, points/s, peak memory; one IPDAE
      and one fused PPPF-AE step under torch.profiler;
- 16. the chamfer kernels vs their plain versions on phase 15's own clouds
-     (one more IPDAE and fused PPPF-AE step each), with the loss's real
-     cotangents and a random pair: indices bit-equal, distances within TOL
-     and gradients within TOL_BWD of the plain version's largest entry, two
-     backward launches bitwise equal; CUDA-event times, the plain
-     versions' times, the bounds; the fused PPPF-AE step's six FPS calls
-     (the CPM's on skeletons of 4 points) held and timed as in phase 13;
+ 16. the chamfer kernels vs their plain versions on the train steps' own
+     clouds at every path shape: N = 512 IPDAE and fused PPPF-AE (one more
+     step each of phase 15), N = 8192 IPDAE (phase 6's step that records
+     the encoder), the N = 8192 fused PPPF-AE step (phase 12's that records
+     the stages) and its warm-up step (phase 12's uncounted one), with the
+     loss's real cotangents and a random pair: indices bit-equal, distances
+     within TOL and gradients within TOL_BWD of the plain version's largest
+     entry, two backward launches bitwise equal; CUDA-event times, device
+     times from CUDA-graph replays, the plain versions' times, the bounds
+     and the forward's instruction floor; the N = 512 fused PPPF-AE step's
+     six FPS calls (the CPM's on skeletons of 4 points) held and timed as
+     in phase 13;
  17. the SetAbstraction kernel vs its plain version on the IPDAE serving
      path's own patches (phase 4, [4096, 256, 3]) with the serving model's
      weights: within TOL of the largest entry; CUDA-event times, the plain
@@ -142,9 +149,10 @@ path's launch counts for fps, patch_encoder and patch_decoder, the counted
 train steps' for patch_encoder_bwd, the PPPF-AE path's for pppf_sa_stage
 and fps_int (the int32 instance of the FPS kernel: the integer CPM's three
 stages per evaluation, its times summed over them, each under `stages`),
-the counted fused PPPF-AE steps' for pppf_sa_stage_bwd, phase 15's counted
-steps' for chamfer_fwd and chamfer_bwd (the IPDAE step's shapes on top,
-both families under `paths`), phase 17's module call's for sa_fused; fps
+the counted fused PPPF-AE steps' for pppf_sa_stage_bwd, all counted train
+steps' (phases 6, 12 and 15) for chamfer_fwd and chamfer_bwd (the N = 512
+IPDAE step's shape on top, every path shape under `paths` with its own
+steps' count), phase 17's module call's for sa_fused; fps
 also carries the PPPF-AE path's count as launches_pppf and every float
 shape it was held and timed at (phases 4, 10, 13, 16) under `shapes`,
 pppf_sa_stage its launches per fused step); the last line is {"ok": true,
@@ -230,8 +238,7 @@ TOL_PPPF_STEP = 3e-3
 TOL_BATCH_STATS = 0.5
 ZERO_GRAD = 1e-3
 TINY = dict(N=256, N0=64, ALPHA=2, K=32, d=4, L=7, sa_knn=8)
-# the small-cloud train path (cli/train.py --N 512): the whole-cloud chamfer
-# of a step is then in the chamfer kernels' domain for both families
+# the small-cloud train path (cli/train.py --N 512)
 SMALL_N = 512
 SMALL_CLOUDS = 128         # IPDAE and fused PPPF-AE steps: 512 patches, phase 6's count
 SMALL_WARMUP_CLOUDS = 32   # PPPF-AE warm-up steps (plain stages keep every grouped row)
@@ -293,6 +300,25 @@ def recording_fps():
         yield calls
     finally:
         codec_mod.fps_batch, pppf_mod.fps_batch, ipppf_mod.fps_int_batch = saved
+
+
+@contextlib.contextmanager
+def recording_chamfer(records: dict, key: str):
+    """Record, under records[key], the chamfer's clouds and real cotangents
+    of the train steps run while active (ChamferFn.backward swapped for a
+    wrapper that records and goes on to the kernel)."""
+    backward = ChamferFn.backward
+
+    def recording(ctx, gx, gy):
+        x, y, _, _ = ctx.saved_tensors
+        records[key] = (x.detach(), y.detach(), gx.contiguous(), gy.contiguous())
+        return backward(ctx, gx, gy)
+
+    ChamferFn.backward = staticmethod(recording)
+    try:
+        yield
+    finally:
+        ChamferFn.backward = staticmethod(backward)
 
 
 def fps_label(call, clouds: int, cfg: CodecConfig) -> str:
@@ -467,9 +493,11 @@ def encoder_flops(P: int, K: int, knn: int, d: int):
     return P * (9.0 * K * K + 2.0 * K * (sa_mac + pn_mac)), sa_mac, pn_mac
 
 
-def train_phase(dev, smi: str):
-    """Phase 6: the train step at full width; returns the step's patches
-    and encoder cotangent (recorded from one more step) for phase 7."""
+def train_phase(dev, smi: str, chamfer_records: dict):
+    """Phase 6: the train step at full width; returns the state, the step's
+    patches and encoder cotangent (recorded from one more step) for phase 7
+    and the counted steps' launches; the same step's chamfer clouds and
+    cotangents go into chamfer_records for phase 16."""
     cfg = CodecConfig()
     B = TRAIN_CLOUDS
     batch = torch.from_numpy(np.stack(synthetic_clouds(B, cfg.N, SEED))).to(dev)
@@ -498,7 +526,8 @@ def train_phase(dev, smi: str):
     peak = torch.cuda.max_memory_allocated()
     log(f"train launches over {TRAIN_STEPS} steps: {launches}")
     want = {name: 0 for name in cuda_lib.KERNELS}
-    want.update(fps=TRAIN_STEPS, patch_encoder=TRAIN_STEPS, patch_encoder_bwd=TRAIN_STEPS)
+    want.update(fps=TRAIN_STEPS, patch_encoder=TRAIN_STEPS, patch_encoder_bwd=TRAIN_STEPS,
+                chamfer_fwd=TRAIN_STEPS, chamfer_bwd=TRAIN_STEPS)
     if launches != want:
         raise RuntimeError(f"train launches {launches} != {want}")
     losses = torch.stack(losses).cpu().numpy()
@@ -529,9 +558,10 @@ def train_phase(dev, smi: str):
         return backward(ctx, g)
 
     PatchEncoderFn.backward = staticmethod(recording)
-    step(state, batch, starts(), TRAIN_LAM)
+    with recording_chamfer(chamfer_records, f"N={cfg.N} IPDAE"):
+        step(state, batch, starts(), TRAIN_LAM)
     PatchEncoderFn.backward = staticmethod(backward)
-    return state, rec, launches["patch_encoder_bwd"]
+    return state, rec, launches
 
 
 def backward_kernel_check(rec: dict, launches: int) -> dict:
@@ -843,14 +873,15 @@ def bn_stats(model) -> list:
     return [b.detach().clone() for n, b in model.named_buffers() if ".running_" in n]
 
 
-def pppf_train_phase(dev, smi: str):
+def pppf_train_phase(dev, smi: str, chamfer_records: dict):
     """Phase 12: the PPPF-AE train path at full width, built as
     cli/train.py --model PPPF-AE builds it: the warm-up step (batch
     statistics, plain stages) and the fused step (the encoder's BatchNorm
-    frozen: the stage kernel and its backward). Returns the state, the
-    fused steps' launch counts and, from one more fused step, each stage's
+    frozen: the stage kernel and its backward). Returns the state, both
+    kinds' launch counts and, from one more fused step, each stage's
     inputs and real cotangent (sa1, sa2, sa3) and the step's FPS calls for
-    phase 13."""
+    phase 13; the chamfer clouds and cotangents of the uncounted warm-up
+    step and of that fused step go into chamfer_records for phase 16."""
     cfg = CodecConfig(model="PPPF-AE")
     tx = make_optimizer(5e-4, 0.1, 60000, 80000)
     state = create_train_state(SEED, cfg, tx, device="cuda")
@@ -862,12 +893,16 @@ def pppf_train_phase(dev, smi: str):
     def starts(B):
         return torch.randint(0, cfg.N, (B,), generator=gen, dtype=torch.int32).to(dev)
 
-    fused_launches = None
+    kind_launches = {}
     for kind, fused, B, steps in (("warm-up", False, PPPF_WARMUP_CLOUDS, PPPF_WARMUP_STEPS),
                                   ("fused", True, PPPF_TRAIN_CLOUDS, PPPF_FUSED_STEPS)):
         step = build_pppf_train_step(cfg, tx, rate_mode="reference", fused=fused)
         batch = torch.from_numpy(clouds[:B]).to(dev)
-        step(state, batch, starts(B), TRAIN_LAM)                 # warm-up, uncounted
+        if fused:
+            step(state, batch, starts(B), TRAIN_LAM)             # warm-up, uncounted
+        else:
+            with recording_chamfer(chamfer_records, f"N={cfg.N} PPPF-AE warm-up"):
+                step(state, batch, starts(B), TRAIN_LAM)         # warm-up, uncounted
         torch.cuda.synchronize()
         before = [p.detach().clone() for _, p in state.named_parameters()]
         enc_stats, prob_stats = bn_stats(state.ae.encoder), bn_stats(state.prob)
@@ -886,10 +921,10 @@ def pppf_train_phase(dev, smi: str):
         log(f"PPPF-AE {kind} launches over {steps} steps: {launches}")
         # FPS: the skeleton, the encoder's sa2 and sa3, the CPM's three stages
         want = {name: 0 for name in cuda_lib.KERNELS}
-        want["fps"] = 6 * steps
+        want.update(fps=6 * steps, chamfer_fwd=steps, chamfer_bwd=steps)
         if fused:
             want.update(pppf_sa_stage=3 * steps, pppf_sa_stage_bwd=3 * steps)
-            fused_launches = launches
+        kind_launches[kind] = launches
         if launches != want:
             raise RuntimeError(f"PPPF-AE {kind} launches {launches} != {want}")
         losses = torch.stack(losses).cpu().numpy()
@@ -928,10 +963,11 @@ def pppf_train_phase(dev, smi: str):
         return backward(ctx, gout)
 
     PPPFStageFn.backward = staticmethod(recording)
-    with recording_fps() as fps_calls:
+    with recording_fps() as fps_calls, recording_chamfer(chamfer_records,
+                                                         f"N={cfg.N} PPPF-AE fused"):
         step(state, batch, starts(B), TRAIN_LAM)
     PPPFStageFn.backward = staticmethod(backward)
-    return state, fused_launches, rec[::-1], fps_calls
+    return state, kind_launches, rec[::-1], fps_calls
 
 
 def pppf_bwd_kernel_check(records, launches: dict) -> dict:
@@ -1115,20 +1151,19 @@ def pppf_train_card_vs_cpu(dev) -> None:
         log(f"PPPF-AE {kind} step at TINY, card vs CPU port: {summary}")
 
 
-def small_train_phase(dev, smi):
+def small_train_phase(dev, smi, chamfer_records: dict):
     """Phase 15: the small-cloud train path at full width, built as
     cli/train.py --N 512 builds it (and --model PPPF-AE --bn_warmup_steps W):
     seeded weights (PPPF-AE: and BatchNorm statistics), synthetic 512-point
     clouds. Per step kind one uncounted step, then SMALL_STEPS counted steps
     with every launch counter set to 0 just before and read just after.
-    Returns the chamfer kernels' launches over all counted steps and, from
-    one more step of the IPDAE and of the fused PPPF-AE kind, the chamfer's
-    inputs and real cotangents for phase 16, and the fused PPPF-AE step's
-    FPS calls."""
+    Returns each step kind's launches and the fused PPPF-AE step's FPS
+    calls; the chamfer's inputs and real cotangents, from one more step of
+    the IPDAE and of the fused PPPF-AE kind, go into chamfer_records for
+    phase 16."""
     tx = make_optimizer(5e-4, 0.1, 60000, 80000)
     gen = torch.Generator().manual_seed(SEED + 8)
-    chamfer_launches = {"chamfer_fwd": 0, "chamfer_bwd": 0}
-    records = {}
+    kind_launches = {}
     state = None
     for family, kind, B in (("IPDAE", None, SMALL_CLOUDS),
                             ("PPPF-AE", "warm-up", SMALL_WARMUP_CLOUDS),
@@ -1177,8 +1212,7 @@ def small_train_phase(dev, smi):
                 want.update(pppf_sa_stage=3 * n, pppf_sa_stage_bwd=3 * n)
         if launches != want:
             raise RuntimeError(f"N={cfg.N} {label} launches {launches} != {want}")
-        for name in chamfer_launches:
-            chamfer_launches[name] += launches[name]
+        kind_launches[f"N={cfg.N} {label}"] = launches
         losses = torch.stack(losses).cpu().numpy()
         if not np.isfinite(losses).all():
             raise RuntimeError(f"non-finite N={cfg.N} {label} loss: {losses}")
@@ -1198,40 +1232,38 @@ def small_train_phase(dev, smi):
         if kind == "warm-up":
             continue
         # one more step, recording the chamfer's clouds and real cotangents
-        backward = ChamferFn.backward
-
-        def recording(ctx, gx, gy):
-            x, y, _, _ = ctx.saved_tensors
-            records[family] = (x.detach(), y.detach(), gx.contiguous(), gy.contiguous())
-            return backward(ctx, gx, gy)
-
-        ChamferFn.backward = staticmethod(recording)
-        with recording_fps() as calls:
+        with recording_fps() as calls, recording_chamfer(chamfer_records, f"N={cfg.N} {label}"):
             step(state, batch, starts(), TRAIN_LAM)
-        ChamferFn.backward = staticmethod(backward)
         if family == "PPPF-AE":
             fps_calls = calls
-    return chamfer_launches, records, fps_calls
+    return kind_launches, fps_calls
+
+
+CHAMFER_PATHS = ("N=512 IPDAE", "N=512 PPPF-AE fused", "N=8192 IPDAE", "N=8192 PPPF-AE fused",
+                 "N=8192 PPPF-AE warm-up")
 
 
 def chamfer_kernel_check(dev, records: dict, launches: dict) -> list:
-    """Phase 16: the chamfer kernels vs their plain versions on phase 15's
-    own clouds, for both families, with the loss's real cotangents and a
-    random pair; the kernels' records for the kernels line (the IPDAE
-    step's shapes on top, both families under `paths`)."""
+    """Phase 16: the chamfer kernels vs their plain versions on the train
+    steps' own clouds (phases 6, 12 and 15), for every path shape, with
+    the loss's real cotangents and a random pair; the kernels' records for
+    the kernels line (the N = 512 IPDAE step's shape on top, every shape
+    under `paths` with its launches over its phase's counted steps).
+    `launches` holds each counted step kind's launch counts."""
     gen = torch.Generator().manual_seed(SEED + 10)
     paths = []
-    for family, (x, y, gx_loss, gy_loss) in records.items():
+    for label in CHAMFER_PATHS:
+        x, y, gx_loss, gy_loss = records[label]
         P, k, K = x.shape[0], x.shape[1], y.shape[1]
         a, b = chamfer_fwd(x, y), chamfer_fwd_plain(x, y)
         if not (torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])):
-            raise RuntimeError(f"chamfer_fwd indices differ from the plain version ({family})")
+            raise RuntimeError(f"chamfer_fwd indices differ from the plain version ({label})")
         fwd_err = 0.0
         for u, v in zip(a[:2], b[:2]):
             err, big = float((u - v).abs().max()), float(v.abs().max())
             if not err <= TOL * big:
                 raise RuntimeError(f"chamfer_fwd distances differ from the plain version "
-                                   f"({family}): {err} > {TOL} * {big}")
+                                   f"({label}): {err} > {TOL} * {big}")
             fwd_err = max(fwd_err, err)
         ixy, iyx = a[2], a[3]
         cotangents = (("loss", gx_loss, gy_loss),
@@ -1244,46 +1276,51 @@ def chamfer_kernel_check(dev, records: dict, launches: dict) -> list:
             for u, v in zip(u2, v2):
                 err, big = float((u - v).abs().max()), float(v.abs().max())
                 if not err <= TOL_BWD * big:
-                    raise RuntimeError(f"chamfer_bwd differs from the plain version ({family}, "
+                    raise RuntimeError(f"chamfer_bwd differs from the plain version ({label}, "
                                        f"{name} cotangent): {err} > {TOL_BWD} * {big}")
                 bwd_err, rel = max(bwd_err, err), max(rel, err / big if big else 0.0)
             again = chamfer_bwd(x, y, ixy, iyx, gx, gy)
             if not all(torch.equal(u, v) for u, v in zip(u2, again)):
-                raise RuntimeError(f"two launches of chamfer_bwd differ ({family}, {name})")
-        dx, dy = u2
+                raise RuntimeError(f"two launches of chamfer_bwd differ ({label}, {name})")
         f_flops, f_bytes = fwd_work(P, k, K)
         b_flops, b_bytes = bwd_work(P, k, K)
         f_bms, f_by = bound(f_flops, f_bytes)
         b_bms, b_by = bound(b_flops, b_bytes)
+        fwd = lambda: chamfer_fwd(x, y)  # noqa: E731
+        bwd = lambda: chamfer_bwd(x, y, ixy, iyx, gx_loss, gy_loss)  # noqa: E731
+        counted = launches[label]
         rec = dict(
-            family=family, shape=[P, k, K], fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err,
-            fwd_ms=cuda_ms(lambda: chamfer_fwd(x, y), 20),
+            path=label, shape=[P, k, K], fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err,
+            launches=counted["chamfer_fwd"], bwd_launches=counted["chamfer_bwd"],
+            fwd_ms=cuda_ms(fwd, 20), fwd_device_ms=graph_ms(fwd),
             fwd_plain_ms=cuda_ms(lambda: chamfer_fwd_plain(x, y), 3),
             fwd_bound_ms=f_bms, fwd_bound_by=f_by, fwd_gflop=f_flops / 1e9,
-            bwd_ms=cuda_ms(lambda: chamfer_bwd(x, y, ixy, iyx, gx_loss, gy_loss), 20),
+            # 9 instructions a pair and direction, none contracted, at one
+            # per lane and cycle: half the float32 peak, which counts FMAs
+            fwd_instr_floor_ms=2 * f_flops / FP32_FLOP_PER_S * 1e3,
+            bwd_ms=cuda_ms(bwd, 20), bwd_device_ms=graph_ms(bwd),
             bwd_plain_ms=cuda_ms(lambda: chamfer_bwd_plain(x, y, ixy, iyx, gx_loss, gy_loss), 3),
             bwd_bound_ms=b_bms, bwd_bound_by=b_by)
-        log(f"chamfer {family} x {tuple(x.shape)} y {tuple(y.shape)}: forward "
-            f"{rec['fwd_ms']:.4f} ms (plain {rec['fwd_plain_ms']:.3f} ms, bound {f_bms:.4f} ms "
-            f"by {f_by}, {f_flops / 1e9:.2f} GFLOP), indices bit-equal, max_abs_err "
-            f"{fwd_err:.3g}; backward {rec['bwd_ms']:.4f} ms (plain {rec['bwd_plain_ms']:.3f} "
-            f"ms, bound {b_bms:.4f} ms by {b_by}), max |kernel - plain| / max |plain| "
-            f"{rel:.3g} (limit {TOL_BWD}) on the loss's and a random cotangent, two launches "
-            "bitwise equal")
+        log(f"chamfer {label} x {tuple(x.shape)} y {tuple(y.shape)}: forward "
+            f"{rec['fwd_ms']:.4f} ms, device {rec['fwd_device_ms']:.4f} ms (plain "
+            f"{rec['fwd_plain_ms']:.3f} ms, bound {f_bms:.4f} ms by {f_by}, instruction floor "
+            f"{rec['fwd_instr_floor_ms']:.4f} ms, {f_flops / 1e9:.2f} GFLOP), indices "
+            f"bit-equal, max_abs_err {fwd_err:.3g}; backward {rec['bwd_ms']:.4f} ms, device "
+            f"{rec['bwd_device_ms']:.4f} ms (plain {rec['bwd_plain_ms']:.3f} ms, bound "
+            f"{b_bms:.5f} ms by {b_by}), max |kernel - plain| / max |plain| {rel:.3g} (limit "
+            f"{TOL_BWD}) on the loss's and a random cotangent, two launches bitwise equal; "
+            f"{rec['launches']} launches each over the path's counted steps")
         paths.append(rec)
     top = paths[0]
     common = dict(route="cuda", library_ms=None, paths=paths, launches_per_step=1)
     return [
-        dict(name="chamfer_fwd", source="pcc_tpu_torch/csrc/chamfer_fwd.cu",
-             replaces="pcc_tpu/ops/chamfer_pallas.py:47", launches=launches["chamfer_fwd"],
-             max_abs_err=max(r["fwd_max_abs_err"] for r in paths), ms=top["fwd_ms"],
-             plain_ms=top["fwd_plain_ms"], bound_ms=top["fwd_bound_ms"],
-             bound_by=top["fwd_bound_by"], **common),
-        dict(name="chamfer_bwd", source="pcc_tpu_torch/csrc/chamfer_bwd.cu",
-             replaces="pcc_tpu/ops/chamfer_pallas.py:72", launches=launches["chamfer_bwd"],
-             max_abs_err=max(r["bwd_max_abs_err"] for r in paths), ms=top["bwd_ms"],
-             plain_ms=top["bwd_plain_ms"], bound_ms=top["bwd_bound_ms"],
-             bound_by=top["bwd_bound_by"], **common)]
+        dict(name=name, source=f"pcc_tpu_torch/csrc/{name}.cu",
+             replaces=f"pcc_tpu/ops/chamfer_pallas.py:{line}",
+             launches=sum(v[name] for v in launches.values()),
+             max_abs_err=max(r[f"{kind}_max_abs_err"] for r in paths), ms=top[f"{kind}_ms"],
+             device_ms=top[f"{kind}_device_ms"], plain_ms=top[f"{kind}_plain_ms"],
+             bound_ms=top[f"{kind}_bound_ms"], bound_by=top[f"{kind}_bound_by"], **common)
+        for name, kind, line in (("chamfer_fwd", "fwd", 47), ("chamfer_bwd", "bwd", 72))]
 
 
 def sa_fused_phase(dev, patches, sa: SetAbstraction) -> dict:
@@ -1534,8 +1571,10 @@ def main() -> int:
             "on the CPU to the same symbols, decoded clouds within one int8 step")
 
     # 6-8. the training path
-    _, rec, bwd_launches = train_phase(dev, smi)
-    kernels.append(backward_kernel_check(rec, bwd_launches))
+    chamfer_records, train_launches = {}, {}
+    _, rec, launches = train_phase(dev, smi, chamfer_records)
+    train_launches["N=8192 IPDAE"] = launches
+    kernels.append(backward_kernel_check(rec, launches["patch_encoder_bwd"]))
     del rec
     kr = kernels[-1]
     log(f"{kr['name']}: {kr['ms']:.4f} ms (plain {kr['plain_ms']:.4f} ms, bound "
@@ -1554,7 +1593,9 @@ def main() -> int:
         f"bound {kr['bound_ms']:.4f} ms by {kr['bound_by']}), launches {kr['launches']}")
 
     # 12-14. the PPPF-AE train path
-    _, launches_fused, records, fps_calls = pppf_train_phase(dev, smi)
+    _, kind_launches, records, fps_calls = pppf_train_phase(dev, smi, chamfer_records)
+    train_launches.update({f"N=8192 PPPF-AE {kind}": v for kind, v in kind_launches.items()})
+    launches_fused = kind_launches["fused"]
     stage_rec["launches_per_fused_step"] = launches_fused["pppf_sa_stage"] // PPPF_FUSED_STEPS
     kernels.append(pppf_bwd_kernel_check(records, launches_fused))
     kr = kernels[-1]
@@ -1566,12 +1607,13 @@ def main() -> int:
     del fps_calls
     pppf_train_card_vs_cpu(dev)
 
-    # 15-16. the small-cloud train path and the chamfer kernels
-    chamfer_launches, records, fps_calls = small_train_phase(dev, smi)
-    kernels += chamfer_kernel_check(dev, records, chamfer_launches)
+    # 15-16. the small-cloud train path; the chamfer kernels on every train path
+    kind_launches, fps_calls = small_train_phase(dev, smi, chamfer_records)
+    train_launches.update(kind_launches)
+    kernels += chamfer_kernel_check(dev, chamfer_records, train_launches)
     kernels[0]["shapes"] += fps_checks("N=512 fused PPPF-AE step", fps_calls, SMALL_CLOUDS,
                                        CodecConfig(N=SMALL_N, model="PPPF-AE"))
-    del records, fps_calls
+    del chamfer_records, fps_calls
 
     # 17. the SetAbstraction kernel
     with torch.no_grad():

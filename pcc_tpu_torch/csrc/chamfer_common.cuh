@@ -1,16 +1,15 @@
-// The chamfer kernels' shared arithmetic and layout (chamfer_fwd.cu,
-// chamfer_bwd.cu).
-//
-// Both kernels run one launch over a grid (cloud, tile of points), the
-// tiles of x's points first, then y's: a block owns kThreads points of one
-// side of one cloud pair, one point per thread, and streams the other
-// side's points through shared memory kTile at a time, so no cloud is
-// ever staged whole (pcc_tpu's domain reaches k = 8 against K = 65536).
+// The chamfer kernels' shared arithmetic (chamfer_fwd.cu, chamfer_bwd.cu).
 //
 // Every operation rounds once (__f*_rn intrinsics, which are never
 // contracted into FMAs), in the order of the plain PyTorch version
 // (pcc_tpu_torch/ops/knn.py::expanded_sq_dists, ops/chamfer_cuda.py), so
 // the nearest-neighbour indices are bit-equal on the card and the CPU.
+//
+// Limits of both launches: a cloud holds at most kChamferMaxPoints points,
+// so that a point's index and 3 * index stay in int32; the forward's grid
+// has at most INT_MAX blocks. No other bound: neither kernel stages a whole
+// cloud, so k * K is free (pcc_tpu's Pallas kernel, which holds one pair's
+// [k, K] problem in VMEM, keeps k * K <= 2^19).
 
 #pragma once
 
@@ -18,36 +17,7 @@
 
 namespace pcc {
 
-constexpr int kChamferThreads = 128;   // points of one side per block
-constexpr int kChamferTile = 1024;     // points of the other side per pass
-
-// One side of a cloud pair as a block sees it: its own points `a` (n of
-// them), the other side's points `b` (m of them), both [., 3] row-major,
-// and which of the grid's tiles this block's points are.
-struct ChamferSide {
-  const float* a;
-  const float* b;
-  int n, m;
-  int tile;
-  bool is_x;
-};
-
-// The side of blockIdx: tiles [0, tiles_x) are x's points, the rest y's.
-__device__ __forceinline__ ChamferSide chamfer_side(const float* x, const float* y,
-                                                    int k, int K) {
-  const int p = blockIdx.x;
-  const int tiles_x = (k + kChamferThreads - 1) / kChamferThreads;
-  const float* xp = x + static_cast<size_t>(p) * k * 3;
-  const float* yp = y + static_cast<size_t>(p) * K * 3;
-  const int t = blockIdx.y;
-  if (t < tiles_x) return ChamferSide{xp, yp, k, K, t, true};
-  return ChamferSide{yp, xp, K, k, t - tiles_x, false};
-}
-
-__host__ inline int chamfer_tiles(int k, int K) {
-  return (k + kChamferThreads - 1) / kChamferThreads +
-         (K + kChamferThreads - 1) / kChamferThreads;
-}
+constexpr int kChamferMaxPoints = 1 << 29;
 
 // (x*x + y*y) + z*z
 __device__ __forceinline__ float sq_norm3(float x, float y, float z) {
@@ -61,5 +31,24 @@ __device__ __forceinline__ float expansion(float ax, float ay, float az, float a
       __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)), __fmul_rn(az, bz));
   return __fadd_rn(__fsub_rn(aa, __fmul_rn(2.0f, cross)), bb);
 }
+
+// One direction of a cloud pair: the points `a` (n of them) that look for
+// their nearest point among the other side's `b` (m of them), both [., 3]
+// row-major; is_x when a is x.
+struct ChamferDir {
+  const float* a;
+  const float* b;
+  int n, m;
+  bool is_x;
+};
+
+__device__ __forceinline__ ChamferDir chamfer_dir(const float* x, const float* y, int k,
+                                                  int K, int p, bool is_x) {
+  const float* xp = x + static_cast<size_t>(p) * k * 3;
+  const float* yp = y + static_cast<size_t>(p) * K * 3;
+  return is_x ? ChamferDir{xp, yp, k, K, true} : ChamferDir{yp, xp, K, k, false};
+}
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 }  // namespace pcc

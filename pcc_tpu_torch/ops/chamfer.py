@@ -11,12 +11,16 @@ replaces the running best only when strictly closer).
 `chamfer_distance(fast_search=True)`, the training loss's search, takes the
 chamfer kernels (ops/chamfer_cuda.py: csrc/chamfer_fwd.cu and its backward
 csrc/chamfer_bwd.cu on the card, their plain versions on the CPU) whenever
-the clouds are in their domain, [P, k, 3] against [P, K, 3] with k, K >= 8
-and k * K <= 2^19, as pcc_tpu takes its Pallas kernels
-(pcc_tpu/ops/chamfer.py:187-195). Both trainers pass whole clouds, [B, S*k,
-3] against [B, N, 3], so that is training on clouds of N <= 512 at the
-default K, S*k = N for IPDAE and 2N for PPPF-AE. Larger clouds and
-fast_search=False take the chunked plain path here.
+the clouds are in their domain, float32 [P, k, 3] against [P, K, 3] with
+8 <= k, K <= 2^29 (`fits_kernel`). The function is pcc_tpu's (the same
+selection rule, the same exact recompute, the same gradient through the
+gather), but pcc_tpu takes its Pallas kernels only while one pair's [k, K]
+problem fits in VMEM, k * K <= 2^19 (pcc_tpu/ops/chamfer.py:187-195); the
+CUDA kernels stream the other side and take any size. Both trainers pass
+whole clouds, [B, S*k, 3] against [B, N, 3], so every train step of both
+families runs the kernels, at N = 512 and N = 8192 alike. Clouds outside
+the domain (fewer than 8 points, another dtype) and fast_search=False take
+the chunked plain path here.
 """
 
 from __future__ import annotations

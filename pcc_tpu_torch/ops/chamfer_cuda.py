@@ -15,9 +15,11 @@ fixed argmin:
 
 and symmetrically for dy. Each wrapper launches its CUDA kernel
 (csrc/chamfer_fwd.cu, csrc/chamfer_bwd.cu) on CUDA tensors, runs its plain
-version on CPU tensors and raises on anything else. The kernels take
-pcc_tpu's domain (`fits_kernel`); the design notes are at the top of their
-sources.
+version on CPU tensors and raises on anything else. The kernels take any
+[P, k, 3] vs [P, K, 3] float32 clouds with 8 <= k, K <= MAX_POINTS
+(`fits_kernel`): they stream the other side in chunks and never stage a
+pair's [k, K] problem, so pcc_tpu's k * K <= 2^19 (its Pallas kernel's VMEM
+bound) does not apply. The design notes are at the top of their sources.
 
 The plain forward writes the cross term coordinate by coordinate, one
 rounding per operation (ops/knn.py::expanded_sq_dists), as the kernel
@@ -26,27 +28,80 @@ does, so the indices are bit-equal on both devices.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.knn import expanded_sq_dists, sq_norms
 
-# k * K per pair of clouds: pcc_tpu's domain, which fits_kernel keeps as the
-# route (the kernels stream tiles and need no such bound themselves)
-KERNEL_LIMIT = 1 << 19
-MIN_POINTS = 8
+MIN_POINTS = 8            # pcc_tpu's lower bound, kept
+# points per cloud: indices and 3 * index in int32 (csrc/chamfer_common.cuh)
+MAX_POINTS = 1 << 29
 PLAIN_PAIRS = 1 << 24     # point pairs per pass of the plain forward (bounds its memory)
-_FWD_ARGTYPES = [cuda_lib.PTR, cuda_lib.PTR, cuda_lib.INT, cuda_lib.INT, cuda_lib.INT,
-                 cuda_lib.PTR, cuda_lib.PTR, cuda_lib.PTR, cuda_lib.PTR, cuda_lib.PTR]
-_BWD_ARGTYPES = [cuda_lib.PTR] * 6 + [cuda_lib.INT] * 3 + [cuda_lib.PTR] * 3
+# the forward's launch plans (csrc/chamfer_fwd.cu): query points per thread
+# (128 threads a block) and candidates per block
+QUERIES = (2, 8)
+CHUNKS = (256, 512, 1024, 2048)
+_SMS = 132                # an H100 SXM's SMs
+_FWD_ARGTYPES = ([cuda_lib.PTR] * 2 + [cuda_lib.INT] * 5 + [cuda_lib.PTR] * 6
+                 + [ctypes.c_longlong, cuda_lib.PTR])
+_BWD_ARGTYPES = [cuda_lib.PTR] * 6 + [cuda_lib.INT] * 3 + [cuda_lib.PTR] * 4
 
 
 def fits_kernel(x, y) -> bool:
     """Whether clouds x [P, k, 3] and y [P, K, 3] are in the kernels'
-    domain: 3-D, at least 8 points on each side, k * K <= 2^19
-    (pcc_tpu/ops/chamfer_pallas.py::fits_kernel)."""
-    return (x.dim() == 3 and y.dim() == 3 and x.shape[1] * y.shape[1] <= KERNEL_LIMIT
-            and x.shape[1] >= MIN_POINTS and y.shape[1] >= MIN_POINTS)
+    domain: 3-D float32, the same P >= 1, MIN_POINTS <= k, K <= MAX_POINTS."""
+    return (x.dim() == 3 and y.dim() == 3 and x.dtype == y.dtype == torch.float32
+            and x.shape[0] == y.shape[0] >= 1 and x.shape[2] == y.shape[2] == 3
+            and MIN_POINTS <= x.shape[1] <= MAX_POINTS
+            and MIN_POINTS <= y.shape[1] <= MAX_POINTS)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _fwd_blocks(P: int, k: int, K: int, plan) -> int:
+    q, chunk = plan
+    return P * (_cdiv(k, 128 * q) * _cdiv(K, chunk) + _cdiv(K, 128 * q) * _cdiv(k, chunk))
+
+
+def candidate_plans(P: int, k: int, K: int) -> list:
+    """Every (queries per thread, chunk) the forward takes at these shapes
+    that splits the candidates differently."""
+    plans, seen = [], set()
+    for q in QUERIES:
+        for chunk in CHUNKS:
+            key = (q, _cdiv(K, chunk), _cdiv(k, chunk))
+            if key not in seen:
+                seen.add(key)
+                plans.append((q, chunk))
+    return plans
+
+
+@functools.lru_cache(maxsize=64)
+def fwd_plan(P: int, k: int, K: int):
+    """The launcher's rule, from every plan timed on an H100 at the train
+    paths' shapes (tools/chamfer_breakdown.py): 8 query points a thread
+    where both clouds have 1024 points or more, else 2; the largest chunk
+    no longer than the smaller cloud (so no block does twice another's
+    work), halved while the grid gives an SM fewer than two blocks."""
+    q = 8 if min(k, K) >= 1024 else 2
+    fit = [c for c in CHUNKS if c <= min(k, K)] or [min(CHUNKS)]
+    chunk = max(fit)
+    while chunk > min(CHUNKS) and _fwd_blocks(P, k, K, (q, chunk)) < 2 * _SMS:
+        chunk //= 2
+    return q, chunk
+
+
+def fwd_scratch(P: int, k: int, K: int, plan) -> int:
+    """Floats (and as many ints) the forward's partial minima take: per
+    direction with more than one chunk, one per chunk and query point."""
+    _, chunk = plan
+    sx, sy = _cdiv(K, chunk), _cdiv(k, chunk)
+    return (sx * P * k if sx > 1 else 0) + (sy * P * K if sy > 1 else 0)
 
 
 def _gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -56,10 +111,17 @@ def _gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _nearest(a: torch.Tensor, b: torch.Tensor):
     """(exact distance [P, n], index int32 [P, n]) of each point of a in b,
-    PLAIN_PAIRS point pairs at a time."""
-    step = max(1, PLAIN_PAIRS // max(1, a.shape[1] * b.shape[1]))
-    idx = torch.cat([expanded_sq_dists(a[s:s + step], b[s:s + step]).argmin(dim=-1)
-                     for s in range(0, a.shape[0], step)])
+    about PLAIN_PAIRS point pairs at a time: whole cloud pairs where one
+    fits, else rows of a's points of one pair (rows are independent)."""
+    P, n, m = a.shape[0], a.shape[1], b.shape[1]
+    step = PLAIN_PAIRS // max(1, n * m)
+    if step >= 1:
+        idx = torch.cat([expanded_sq_dists(a[s:s + step], b[s:s + step]).argmin(dim=-1)
+                         for s in range(0, P, step)])
+    else:
+        rows = max(1, PLAIN_PAIRS // m)
+        idx = torch.stack([torch.cat([expanded_sq_dists(a[p, r:r + rows], b[p]).argmin(dim=-1)
+                                      for r in range(0, n, rows)]) for p in range(P)])
     return sq_norms(a - _gather(b, idx)), idx.to(torch.int32)
 
 
@@ -86,35 +148,47 @@ def _check(name: str, x: torch.Tensor, y: torch.Tensor) -> None:
     """Raise unless x [P, k, 3] and y [P, K, 3] are what the kernels take."""
     cuda_lib.require_cuda(f"{name} x", x, torch.float32, 3)
     cuda_lib.require_cuda(f"{name} y", y, torch.float32, 3)
-    if (x.shape[0] != y.shape[0] or x.shape[0] < 1 or x.shape[2] != 3 or y.shape[2] != 3
-            or not fits_kernel(x, y)):
+    if x.device != y.device or not fits_kernel(x, y):
         raise ValueError(f"{name}: unsupported clouds {tuple(x.shape)} vs {tuple(y.shape)}: "
-                         f"needs [P, k, 3] and [P, K, 3], k, K >= {MIN_POINTS}, "
-                         f"k * K <= {KERNEL_LIMIT}")
+                         f"needs [P, k, 3] and [P, K, 3] on one device, "
+                         f"{MIN_POINTS} <= k, K <= {MAX_POINTS}")
 
 
-def chamfer_fwd(x: torch.Tensor, y: torch.Tensor):
+def chamfer_fwd(x: torch.Tensor, y: torch.Tensor, plan=None):
     """(dxy, dyx, ixy, iyx) of clouds x [P, k, 3], y [P, K, 3] f32: the CUDA
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+    kernel on CUDA tensors (by `plan`, (queries per thread, chunk), default
+    the launcher's rule fwd_plan), the plain version on CPU tensors."""
     if x.device.type == "cpu" and y.device.type == "cpu":
         return chamfer_fwd_plain(x, y)
     _check("chamfer_fwd", x, y)
     P, k, _ = x.shape
     K = y.shape[1]
-    dxy = torch.empty((P, k), dtype=torch.float32, device=x.device)
-    dyx = torch.empty((P, K), dtype=torch.float32, device=x.device)
-    ixy = torch.empty((P, k), dtype=torch.int32, device=x.device)
-    iyx = torch.empty((P, K), dtype=torch.int32, device=x.device)
-    cuda_lib.launch("chamfer_fwd", _FWD_ARGTYPES, x.data_ptr(), y.data_ptr(), P, k, K,
+    plan = fwd_plan(P, k, K) if plan is None else tuple(plan)
+    if plan[0] not in QUERIES or plan[1] not in CHUNKS:
+        raise ValueError(f"chamfer_fwd: unsupported plan {plan}")
+    if _fwd_blocks(P, k, K, plan) > 2**31 - 1:
+        raise ValueError(f"chamfer_fwd: clouds {tuple(x.shape)} vs {tuple(y.shape)} need "
+                         "more blocks than a grid holds")
+    dev = x.device
+    dxy = torch.empty((P, k), dtype=torch.float32, device=dev)
+    dyx = torch.empty((P, K), dtype=torch.float32, device=dev)
+    ixy = torch.empty((P, k), dtype=torch.int32, device=dev)
+    iyx = torch.empty((P, K), dtype=torch.int32, device=dev)
+    n_part = fwd_scratch(P, k, K, plan)
+    parts = [torch.empty(n_part, dtype=t, device=dev) for t in (torch.float32, torch.int32)] \
+        if n_part else []
+    cuda_lib.launch("chamfer_fwd", _FWD_ARGTYPES, x.data_ptr(), y.data_ptr(), P, k, K, *plan,
                     dxy.data_ptr(), dyx.data_ptr(), ixy.data_ptr(), iyx.data_ptr(),
+                    *([t.data_ptr() for t in parts] or [None, None]), n_part,
                     cuda_lib.stream_ptr(x))
     return dxy, dyx, ixy, iyx
 
 
 def chamfer_bwd(x, y, ixy, iyx, gx, gy):
     """(dx [P, k, 3], dy [P, K, 3]) against cotangents gx [P, k], gy [P, K]:
-    the CUDA kernel on CUDA tensors (deterministic: no atomics), the plain
-    version on CPU tensors."""
+    the CUDA kernel on CUDA tensors (deterministic: each point's gathers
+    summed in ascending order, no atomics), the plain version on CPU
+    tensors."""
     if all(t.device.type == "cpu" for t in (x, y, ixy, iyx, gx, gy)):
         return chamfer_bwd_plain(x, y, ixy, iyx, gx, gy)
     _check("chamfer_bwd", x, y)
@@ -127,10 +201,13 @@ def chamfer_bwd(x, y, ixy, iyx, gx, gy):
         cuda_lib.require_cuda(f"chamfer_bwd {nm}", t, dtype, 2)
         if tuple(t.shape) != shape:
             raise ValueError(f"chamfer_bwd: {nm} {tuple(t.shape)} != {shape}")
+        if t.device != x.device:
+            raise ValueError(f"chamfer_bwd: {nm} on {t.device}, the clouds on {x.device}")
     dx, dy = torch.empty_like(x), torch.empty_like(y)
+    order = torch.empty(P * (k + K), dtype=torch.int32, device=x.device)
     cuda_lib.launch("chamfer_bwd", _BWD_ARGTYPES, x.data_ptr(), y.data_ptr(),
                     ixy.data_ptr(), iyx.data_ptr(), gx.data_ptr(), gy.data_ptr(), P, k, K,
-                    dx.data_ptr(), dy.data_ptr(), cuda_lib.stream_ptr(x))
+                    dx.data_ptr(), dy.data_ptr(), order.data_ptr(), cuda_lib.stream_ptr(x))
     return dx, dy
 
 

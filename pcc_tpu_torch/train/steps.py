@@ -7,10 +7,9 @@ backward as CUDA kernels, the decoder as plain products; PPPF-AE through
 train/steps_pppf.py) -> probability model -> chamfer + rate -> gradients ->
 Adam. The chamfer compares the whole decoded cloud [B, S*k, 3] (S*d*d for
 PPPF-AE) with the input [B, N, 3]: through the chamfer kernels and their
-backward (ops/chamfer_cuda.py) where they take that shape, S*k * N <= 2^19
-(at the default K and d: IPDAE clouds of N <= 724, PPPF-AE of N <= 512),
-else the chunked plain search (ops/chamfer.py). On CPU tensors every kernel runs its plain
-version.
+backward (ops/chamfer_cuda.py), which take whole clouds of any size of the
+paths (N = 512 and N = 8192 alike). On CPU tensors every kernel runs its
+plain version.
 """
 
 from __future__ import annotations

@@ -13,8 +13,12 @@ interpreter: distances to rtol 1e-6, indices equal to a numpy expansion-form
 argmin (one float32 rounding per operation, first index among equal
 minima), gradients through jax.vjp within 1e-6 of each one's largest entry;
 with duplicated keys, an identical cloud whose expansions go negative, and
-a cloud count past the Pallas block of 32. fits_kernel and the route of
-chamfer_distance(fast_search=True) follow pcc_tpu's.
+a cloud count past the Pallas block of 32. fits_kernel keeps pcc_tpu's
+lower bound of 8 points but not its k * K <= 2^19 (the CUDA kernels stream
+the other side), so chamfer_distance(fast_search=True) takes the kernels on
+clouds that pcc_tpu sends down its chunked XLA path, with the same value
+and gradients; the plain forward's query-side chunking changes nothing.
+The module runs torch on one thread.
 """
 
 import functools
@@ -33,6 +37,16 @@ from pcc_tpu_torch.ops import chamfer, chamfer_cuda
 from pcc_tpu_torch.ops.knn import expanded_sq_dists, sq_dists, sq_norms
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread_per_worker():
+    """torch on one thread for this module: several test workers share the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _clouds(rng, S, N, B=2):
     x = rng.random((B, S, 3)).astype(np.float32)
     y = rng.random((B, N, 3)).astype(np.float32)
@@ -42,6 +56,10 @@ def _clouds(rng, S, N, B=2):
 @pytest.mark.parametrize("fast_search", [False, True])
 @pytest.mark.parametrize("S,N", [(300, 2500), (64, 96)])
 def test_chamfer_value_and_grads(rng, fast_search, S, N):
+    """With fast_search both cases go through the chamfer kernels' plain
+    versions (chamfer_min_dists), (300, 2500) beyond pcc_tpu's k * K <=
+    2^19, where pcc_tpu itself takes its chunked XLA search: the value and
+    both gradients still agree with it at rtol 1e-5."""
     x, y = _clouds(rng, S, N)
 
     def j_loss(a, b):
@@ -190,22 +208,26 @@ def test_chamfer_grads_match_pallas_vjp(P, k, K, case):
 @pytest.mark.parametrize("k,K", [(512, 1024), (8, 65536), (8, 65537), (7, 64), (8, 64),
                                  (64, 7)])
 def test_fits_kernel_matches_pcc_tpu(k, K):
-    """k * K = 2^19 fits, one more key does not; k and K at least 8."""
+    """pcc_tpu's predicate: k * K = 2^19 fits, one more key does not; k and
+    K at least 8. The port's domain in the same cases: at least 8 points a
+    side and no bound on k * K (the CUDA kernels stream the other side);
+    2-D clouds do not fit either."""
     x, y = np.empty((1, k, 3), np.float32), np.empty((1, K, 3), np.float32)
     want = j_chamfer_pallas.fits_kernel(x, y)
     assert want == (k * K <= 2 ** 19 and min(k, K) >= 8)
-    assert chamfer_cuda.fits_kernel(torch.from_numpy(x), torch.from_numpy(y)) == want
+    assert chamfer_cuda.fits_kernel(torch.from_numpy(x), torch.from_numpy(y)) == (
+        min(k, K) >= 8)
     assert not chamfer_cuda.fits_kernel(torch.from_numpy(x[0]), torch.from_numpy(y[0]))
 
 
 @pytest.mark.parametrize("k,K,fast_search,routed", [(64, 96, True, True),
                                                     (7, 64, True, False),
-                                                    (8, 65537, True, False),
+                                                    (8, 65537, True, True),
                                                     (64, 96, False, False)])
 def test_chamfer_distance_routes_through_kernels(rng, monkeypatch, k, K, fast_search, routed):
     """chamfer_distance takes chamfer_min_dists exactly when fast_search is
-    set and the clouds fit the kernels; the value matches pcc_tpu's XLA
-    path either way (rtol 1e-6)."""
+    set and the clouds fit the kernels, k * K past pcc_tpu's 2^19 included;
+    the value matches pcc_tpu's XLA path either way (rtol 1e-6)."""
     calls = []
 
     def counted(x, y):
@@ -220,3 +242,17 @@ def test_chamfer_distance_routes_through_kernels(rng, monkeypatch, k, K, fast_se
     want, _ = j_chamfer.chamfer_distance(jnp.asarray(x), jnp.asarray(y),
                                          fast_search=fast_search)
     np.testing.assert_allclose(float(val), float(want), rtol=1e-6)
+
+
+def test_plain_forward_chunks_the_query_side(rng, monkeypatch):
+    """With PLAIN_PAIRS below one cloud pair's k * K, _nearest takes rows of
+    query points a pass (here x's 40 points 3 at a time, the last pass
+    ragged, and y's 24 one at a time): the same indices and distances as
+    one pass over whole pairs."""
+    x, y = _pairs(rng, 2, 40, 24, "duplicates")
+    a, b = torch.from_numpy(x), torch.from_numpy(y)
+    want = chamfer_cuda.chamfer_fwd_plain(a, b)
+    monkeypatch.setattr(chamfer_cuda, "PLAIN_PAIRS", 3 * 24)
+    got = chamfer_cuda.chamfer_fwd_plain(a, b)
+    for u, v in zip(got, want):
+        assert u.dtype == v.dtype and torch.equal(u, v)

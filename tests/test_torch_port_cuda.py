@@ -637,7 +637,9 @@ def _chamfer_pair(g, P, k, K, case, dev):
     """Clouds x [P, k, 3], y [P, K, 3]: random; "ties": y's second half
     repeats its first, and x's first points sit on repeated keys; "self":
     y is x, each odd point one float32 step from the even one before it,
-    so that expansions of a pair fall on either side of 0."""
+    so that expansions of a pair fall on either side of 0; "hub": y's first
+    point at the origin, the rest at least 10 away, x within 1 of it, so
+    that every point of x gathers at y's point 0."""
     x = torch.rand((P, k, 3), generator=g) * 2 - 1
     y = torch.rand((P, K, 3), generator=g) * 2 - 1
     if case == "ties":
@@ -645,20 +647,31 @@ def _chamfer_pair(g, P, k, K, case, dev):
         x[:, :4] = y[:, K // 2:K // 2 + 4]
     elif case == "self":
         x = x + 3.0
-        x[:, 1::2] = torch.nextafter(x[:, 0::2], torch.tensor(float("inf")))
+        x[:, 1::2] = torch.nextafter(x[:, 0:k - 1:2], torch.tensor(float("inf")))
         y = x.clone()
+    elif case == "hub":
+        x = x * 0.5
+        y = y + 12.0
+        y[:, 0] = 0.0
     return x.to(dev), y.to(dev)
 
 
+# (P, k, K, case): k * K = 2^19, k = 8 against 65536 keys, tied keys, an
+# identical cloud, ragged tiles; the N = 8192 shapes (the candidate side in
+# several chunks, merged), a candidate side that splits unevenly (8192 + 37),
+# ties across chunks (y's halves 4133 apart), an identical cloud of 8229
+# points, and one point of y gathered by all 16384 points of x (the
+# backward's longest segment)
 _CHAMFER = [(4, 512, 1024, "random"), (2, 8, 65536, "random"), (3, 1024, 512, "ties"),
-            (5, 256, 256, "self"), (33, 8, 16, "random"), (7, 100, 37, "random")]
+            (5, 256, 256, "self"), (33, 8, 16, "random"), (7, 100, 37, "random"),
+            (2, 8192, 16384, "random"), (2, 700, 8229, "random"), (2, 1300, 8266, "ties"),
+            (1, 8229, 8229, "self"), (2, 16384, 8192, "hub")]
 
 
 @pytest.mark.parametrize("P,k,K,case", _CHAMFER)
 def test_chamfer_fwd_kernel(dev, P, k, K, case):
-    """k * K = 2^19, k = 8 against 65536 keys (64 tiles of them), tied
-    keys, an identical cloud and ragged tiles: indices bit-equal to the
-    plain version, distances to float32 rounding."""
+    """Indices bit-equal to the plain version, distances to float32
+    rounding; with the launcher's plan."""
     g = torch.Generator().manual_seed(20)
     x, y = _chamfer_pair(g, P, k, K, case, dev)
     from pcc_tpu_torch.ops.chamfer_cuda import chamfer_fwd, chamfer_fwd_plain
@@ -670,13 +683,35 @@ def test_chamfer_fwd_kernel(dev, P, k, K, case):
     assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
     for a, b in zip(got[:2], want[:2]):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    if case == "hub":
+        assert bool((got[2] == 0).all())
+
+
+@pytest.mark.parametrize("P,k,K,case", [(2, 700, 8229, "random"), (3, 1024, 512, "ties"),
+                                        (1, 1100, 1100, "self")])
+def test_chamfer_fwd_every_plan(dev, P, k, K, case):
+    """Every (queries per thread, chunk) the forward takes: each plan's
+    outputs bit for bit the launcher's, the indices the plain version's."""
+    from pcc_tpu_torch.ops.chamfer_cuda import candidate_plans, chamfer_fwd, chamfer_fwd_plain
+
+    g = torch.Generator().manual_seed(24)
+    x, y = _chamfer_pair(g, P, k, K, case, dev)
+    ref = chamfer_fwd(x, y)
+    want = chamfer_fwd_plain(x, y)
+    assert torch.equal(ref[2], want[2]) and torch.equal(ref[3], want[3])
+    plans = candidate_plans(P, k, K)
+    assert len(plans) > 1
+    for plan in plans:
+        got = chamfer_fwd(x, y, plan=plan)
+        assert all(torch.equal(u, v) for u, v in zip(got, ref)), plan
 
 
 @pytest.mark.parametrize("P,k,K,case", _CHAMFER)
 def test_chamfer_bwd_kernel(dev, P, k, K, case):
     """dx, dy within 1e-5 of the plain version's largest entry (its
     scatter sums with atomics, in another order); two launches bitwise
-    equal; ChamferFn's backward is the kernel."""
+    equal; chamfer_min_dists launches each kernel once and its backward is
+    the kernel."""
     from pcc_tpu_torch.ops.chamfer_cuda import (chamfer_bwd, chamfer_bwd_plain, chamfer_fwd,
                                                 chamfer_min_dists)
 
@@ -691,22 +726,48 @@ def test_chamfer_bwd_kernel(dev, P, k, K, case):
     again = chamfer_bwd(x, y, ixy, iyx, gx, gy)
     assert all(torch.equal(u, v) for u, v in zip(a, again))
     xr, yr = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
-    before = cuda_lib.launches["chamfer_bwd"]
-    torch.autograd.backward(chamfer_min_dists(xr, yr), [gx, gy])
-    assert cuda_lib.launches["chamfer_bwd"] == before + 1
+    before = dict(cuda_lib.launches)
+    dists = chamfer_min_dists(xr, yr)
+    assert cuda_lib.launches["chamfer_fwd"] == before["chamfer_fwd"] + 1
+    torch.autograd.backward(dists, [gx, gy])
+    assert cuda_lib.launches["chamfer_bwd"] == before["chamfer_bwd"] + 1
     assert torch.equal(xr.grad, a[0]) and torch.equal(yr.grad, a[1])
+
+
+def test_chamfer_bwd_sums_in_ascending_order(dev):
+    """Each point's gathers are summed in ascending order of the gathering
+    point, from zero, one rounding per operation: bit for bit a float32
+    running sum in that order, with every point of x gathered at y's point
+    0 (one segment of 4000 terms) and x's own nearest points random."""
+    from pcc_tpu_torch.ops.chamfer_cuda import chamfer_bwd
+
+    g = torch.Generator().manual_seed(25)
+    P, k, K = 1, 4000, 600
+    x, y = _chamfer_pair(g, P, k, K, "hub", dev)
+    ixy = torch.zeros((P, k), dtype=torch.int32, device=dev)
+    iyx = torch.randint(0, k, (P, K), generator=g, dtype=torch.int32).to(dev)
+    gx = torch.randn((P, k), generator=g).to(dev)
+    gy = torch.randn((P, K), generator=g).to(dev)
+    _, dy = chamfer_bwd(x, y, ixy, iyx, gx, gy)
+    e = (2.0 * (x[0] - y[0, 0])) * gx[0, :, None]            # [k, 3], the gathers at y0
+    acc = torch.zeros(3, device=dev)
+    for j in range(k):
+        acc = acc + e[j]
+    direct = (2.0 * (y[0, 0] - x[0, iyx[0, 0].long()])) * gy[0, 0]
+    assert torch.equal(dy[0, 0], direct - acc)
 
 
 @pytest.mark.parametrize("case", ["few", "many", "clouds", "dtype", "strided", "cpu_y",
                                   "cotangent"])
 def test_chamfer_kernels_reject_unsupported(dev, case):
-    """Outside pcc_tpu's domain (fewer than 8 points, k * K > 2^19), unequal
-    cloud counts, float64, non-contiguous, mixed devices, a wrong
-    cotangent: the wrappers raise."""
-    from pcc_tpu_torch.ops.chamfer_cuda import chamfer_bwd, chamfer_fwd
+    """Outside the kernels' domain (fewer than 8 points, more than
+    MAX_POINTS), unequal cloud counts, float64, non-contiguous, mixed
+    devices, a wrong cotangent: the wrappers raise."""
+    from pcc_tpu_torch.ops.chamfer_cuda import MAX_POINTS, chamfer_bwd, chamfer_fwd
 
-    k, K = {"few": (7, 64), "many": (8, 65537)}.get(case, (16, 32))
-    x, y = torch.rand((2, k, 3), device=dev), torch.rand((2, K, 3), device=dev)
+    k, K = {"few": (7, 64), "many": (8, MAX_POINTS + 1)}.get(case, (16, 32))
+    P = 1 if case == "many" else 2
+    x, y = torch.rand((P, k, 3), device=dev), torch.empty((P, K, 3), device=dev)
     if case == "clouds":
         y = y[:1]
     elif case == "dtype":
