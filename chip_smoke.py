@@ -11,9 +11,13 @@ compress -> decompress path (CodecConfig(model="PPPF-AE"), same widths) on
 16 of the clouds, then the PPPF-AE train step (warm-up steps on 4 clouds,
 fused steps on 8), then both families' train steps on 512-point clouds
 (cli/train.py --N 512; every train step runs the chamfer kernels), then the
-SetAbstraction kernel behind SetAbstraction(fused=True), holds every kernel
-against its plain PyTorch version at the shapes those paths give it, and
-checks the streams and the train steps against the port on the CPU.
+SetAbstraction kernel behind SetAbstraction(fused=True), then evaluation
+(metrics.eval_batch) on the card, then the PPPE whole-cloud codec at its
+CLIs' defaults (32 clouds of 8192 points, latent 256, L = 7) through its
+compress, decompress and eval CLIs, holds every kernel against its plain
+PyTorch version at the shapes those paths give it, and checks the streams,
+the train steps, the metrics and the PPPE latents against the port on the
+CPU.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card, power limit, torch and CUDA versions;
@@ -143,7 +147,28 @@ Phases (any failed check raises, and the script exits non-zero):
      weights: within TOL of the largest entry; CUDA-event times, the plain
      version's time, the bound; then SetAbstraction(fused=True) on the
      card with every launch counter set to 0 just before and read just
-     after (sa_fused 1), its output equal to the kernel's.
+     after (sa_fused 1), its output equal to the kernel's;
+ 18. evaluation on the card: metrics.eval_batch on phase 3's 64 decoded
+     IPDAE clouds against their originals, finite; EVAL_CPU_PAIRS pairs
+     again on the CPU port, within TOL_EVAL; CUDA-event time per
+     EVAL_PAIRS pairs, the normals' share and one query chunk's stable sort;
+ 19. the PPPE serving path (models/pppe.py, seeded weights, randomize_
+     batchnorm, the latent head spread over the bins; pcc_tpu's
+     ae_latest.pkl in a model folder): cli/pppe_pcd_compress.py raw and
+     with --entropy_coding on 32 PLY files, every launch counter set to 0
+     just before each run and read just after (fps 3, pppf_sa_stage 2,
+     nothing else), cli/pppe_pcd_decompress.py in its three transforms (no
+     kernel), cli/eval_pppe.py; walls, stream sizes, the encode's and
+     decode's walls and peak memory, each under torch.profiler; the .bin
+     latents equal to the encoder's; PPPE_CPU_CLOUDS clouds on the CPU
+     port: latents within TOL of the largest, decoded clouds within TOL;
+ 20. the stage kernel in the "pppe" layout vs pppf_sa_plain on phase 19's
+     own sa2 and sa3 inputs (recorded): within TOL of the largest entry,
+     the selection bit-equal (read through the kernel with one-hot
+     features and an identity layer), CUDA-event and device times, the
+     plain version's time, the bound by operations per slot; phase 19's
+     three FPS calls held bit for bit and timed (fps_check), sa1's top-32
+     selection timed.
 The line before the last is the kernels' JSON record (the IPDAE serving
 path's launch counts for fps, patch_encoder and patch_decoder, the counted
 train steps' for patch_encoder_bwd, the PPPF-AE path's for pppf_sa_stage
@@ -152,11 +177,12 @@ stages per evaluation, its times summed over them, each under `stages`),
 the counted fused PPPF-AE steps' for pppf_sa_stage_bwd, all counted train
 steps' (phases 6, 12 and 15) for chamfer_fwd and chamfer_bwd (the N = 512
 IPDAE step's shape on top, every path shape under `paths` with its own
-steps' count), phase 17's module call's for sa_fused; fps
-also carries the PPPF-AE path's count as launches_pppf and every float
-shape it was held and timed at (phases 4, 10, 13, 16) under `shapes`,
-pppf_sa_stage its launches per fused step); the last line is {"ok": true,
-"device": {...}}.
+steps' count), phase 17's module call's for sa_fused, phase 19's raw PPPE
+compress batch's for "pppf_sa_stage (pppe layout)" (sa2 and sa3 summed,
+each under `stages`); fps also carries the PPPF-AE and PPPE paths' counts
+as launches_pppf and launches_pppe and every float shape it was held and
+timed at (phases 4, 10, 13, 16, 20) under `shapes`, pppf_sa_stage its
+launches per fused step); the last line is {"ok": true, "device": {...}}.
 Without a card it exits 1 and prints no result.
 """
 
@@ -164,6 +190,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -174,8 +201,10 @@ import torch
 from pcc_tpu_torch.codec import Codec, decode_clouds_packed, encode_geometry, init_params
 from pcc_tpu_torch.codec import integer_pmf_weights, pack_encode_upload, unpack_encode_upload
 from pcc_tpu_torch.coding.octree_host import codes_to_points, parse_octree_bits, unpack_bits
-from pcc_tpu_torch.config import CodecConfig
+from pcc_tpu_torch.config import CodecConfig, PPPEConfig
+from pcc_tpu_torch.metrics import eval_batch, eval_batch_device
 from pcc_tpu_torch.models.layers import SetAbstraction
+from pcc_tpu_torch.models.pppe import make_pppe_model
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.chamfer_cuda import (ChamferFn, bwd_work, chamfer_bwd, chamfer_bwd_plain,
                                             chamfer_fwd, chamfer_fwd_plain, fwd_work)
@@ -184,6 +213,7 @@ from pcc_tpu_torch.ops.decoder_cuda import (expansion_kmajor, pack_decoder, patc
 from pcc_tpu_torch.ops import fps as fps_ops
 from pcc_tpu_torch.ops.fps import fps_batch, fps_int_batch, fps_int_plain, fps_plain
 from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
+from pcc_tpu_torch.ops.normals import estimate_normals
 from pcc_tpu_torch.ops.pppf_sa_cuda import (PPPFStageFn, pppf_sa_bwd, pppf_sa_bwd_plain,
                                             pppf_sa_fused, pppf_sa_plain, pppf_sa_points,
                                             stage_bwd_flops, stage_bwd_work, stage_flops)
@@ -243,6 +273,20 @@ SMALL_N = 512
 SMALL_CLOUDS = 128         # IPDAE and fused PPPF-AE steps: 512 patches, phase 6's count
 SMALL_WARMUP_CLOUDS = 32   # PPPF-AE warm-up steps (plain stages keep every grouped row)
 SMALL_STEPS = 5
+# evaluation (phase 18): metrics.eval_batch's chunk of pairs, the pairs run
+# again on the CPU port, and the card-vs-CPU bounds: PSNRs in dB, the others
+# relative. D2 rests on PCA normals, whose eigenvectors cuSOLVER and LAPACK
+# may turn differently where the two smallest eigenvalues nearly coincide;
+# on these pairs D1 and D2 differed by 2.8e-7 dB, uc by 6.6e-8 and the
+# chamfer by 0 (an H100, CUDA 12.8)
+EVAL_PAIRS = 16
+EVAL_CPU_PAIRS = 2
+TOL_EVAL = {"p2point_psnr": 1e-3, "p2plane_psnr": 1e-3, "uc": 1e-4, "chamfer": 1e-5}
+# PPPE serving (phases 19-20): the CLIs' default batch, and the clouds run
+# again on the CPU port
+PPPE_CLOUDS = 32
+PPPE_CPU_CLOUDS = 2
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(msg: str) -> None:
@@ -275,12 +319,13 @@ def cuda_ms(fn, reps: int) -> float:
 @contextlib.contextmanager
 def recording_fps():
     """Record the inputs of every FPS call the paths make while active:
-    fps_batch as codec.py and models/pppf.py call it, fps_int_batch as
+    fps_batch as codec.py, models/pppf.py and models/pppe.py call it, fps_int_batch as
     coding/iprob_pppf.py calls it (their names swapped for wrappers that
     record and go on to the kernels). Yields the list of calls, each
     (kind "f32" or "i32", points, npoint, starts or inf)."""
     import pcc_tpu_torch.codec as codec_mod
     import pcc_tpu_torch.coding.iprob_pppf as ipppf_mod
+    import pcc_tpu_torch.models.pppe as pppe_mod
     import pcc_tpu_torch.models.pppf as pppf_mod
 
     calls = []
@@ -293,13 +338,14 @@ def recording_fps():
         calls.append(("i32", xs.clone(), npoint, inf))
         return fps_int_batch(xs, npoint, inf)
 
-    saved = codec_mod.fps_batch, pppf_mod.fps_batch, ipppf_mod.fps_int_batch
-    codec_mod.fps_batch = pppf_mod.fps_batch = float_fps
+    saved = codec_mod.fps_batch, pppf_mod.fps_batch, pppe_mod.fps_batch, ipppf_mod.fps_int_batch
+    codec_mod.fps_batch = pppf_mod.fps_batch = pppe_mod.fps_batch = float_fps
     ipppf_mod.fps_int_batch = int_fps
     try:
         yield calls
     finally:
-        codec_mod.fps_batch, pppf_mod.fps_batch, ipppf_mod.fps_int_batch = saved
+        (codec_mod.fps_batch, pppf_mod.fps_batch, pppe_mod.fps_batch,
+         ipppf_mod.fps_int_batch) = saved
 
 
 @contextlib.contextmanager
@@ -812,7 +858,7 @@ def pppf_phase(dev, smi: str, clouds, fps_record: dict):
                 del rep
             P, S, _ = new_xyz.shape
             widths = [layers[0][0].shape[0]] + [lay[0].shape[1] for lay in layers]
-            flops = stage_flops(P, S, xyz.shape[1], sa.nsample, widths)
+            flops = stage_flops(P, S, xyz.shape[1], sa.nsample, widths, layout)
             ins = [new_xyz] + ([xyz] if new_xyz is not xyz else []) \
                 + ([] if feat is None else [feat]) + [t for lay in layers for t in lay]
             bms, by = bound(flops, nbytes(*ins, a))
@@ -1413,6 +1459,301 @@ def decoder_kernel_check(ae, h2, lat, w3r, b3r, mlp_wb, packed, launches: int) -
     return rec
 
 
+@contextlib.contextmanager
+def recording_pppe_stages():
+    """Record the inputs of every fused stage call of the PPPE encoder
+    while active (models/pppe.py's pppf_sa_fused swapped for a wrapper that
+    records and goes on to the kernel). Yields the list of calls, each
+    (new_xyz, xyz, feat, layers, nsample)."""
+    import pcc_tpu_torch.models.pppe as pppe_mod
+
+    calls = []
+
+    def recording(new_xyz, xyz, feat, layers, *, nsample, radius, layout):
+        calls.append((new_xyz.clone(), xyz.clone(), None if feat is None else feat.clone(),
+                      [tuple(t.detach().clone() for t in lay) for lay in layers], nsample))
+        return pppf_sa_fused(new_xyz, xyz, feat, layers, nsample=nsample, radius=radius,
+                             layout=layout)
+
+    saved = pppe_mod.pppf_sa_fused
+    pppe_mod.pppf_sa_fused = recording
+    try:
+        yield calls
+    finally:
+        pppe_mod.pppf_sa_fused = saved
+
+
+def eval_phase(dev, clouds, decoded) -> dict:
+    """Phase 18: metrics.eval_batch on the IPDAE path's 64 decoded clouds
+    against their originals on the card, EVAL_CPU_PAIRS of the pairs again
+    on the CPU port (within TOL_EVAL); time per EVAL_PAIRS pairs (CUDA
+    events of eval_batch_device on one chunk), with the normals' share and
+    that of one query chunk's stable sort (select_nearest over [EVAL_PAIRS,
+    2048, N])."""
+    origs, recons = np.stack(clouds), np.stack(decoded)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = eval_batch(origs, recons, device=dev.type)
+    wall = time.perf_counter() - t0
+    for m in card:
+        if not all(np.isfinite(v) for v in m.values()):
+            raise RuntimeError(f"eval_batch on the card gave a non-finite metric: {m}")
+    cpu = eval_batch(origs[:EVAL_CPU_PAIRS], recons[:EVAL_CPU_PAIRS], chunk=EVAL_CPU_PAIRS,
+                     device="cpu")
+    diffs = {k: max(abs(a[k] - b[k]) / (1.0 if k in ("p2point_psnr", "p2plane_psnr")
+                                        else abs(b[k])) for a, b in zip(card, cpu))
+             for k in TOL_EVAL}
+    for k, tol in TOL_EVAL.items():
+        if not diffs[k] <= tol:
+            raise RuntimeError(f"eval_batch {k}: card vs CPU port differ by {diffs[k]} > {tol}")
+    o = torch.from_numpy(origs[:EVAL_PAIRS]).to(dev)
+    r = torch.from_numpy(recons[:EVAL_PAIRS]).to(dev)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: eval_batch_device(o, r), 3)
+        normals_ms = cuda_ms(lambda: estimate_normals(o), 3)
+        sort_ms = cuda_ms(lambda: select_nearest(sq_dists(o[:, :2048], o), 30), 3)
+    rec = dict(pairs=len(card), points=[origs.shape[1], recons.shape[1]], wall_ms=wall * 1e3,
+               ms_per_16_pairs=ms, normals_ms=normals_ms, normals_share=normals_ms / ms,
+               sort_chunk_ms=sort_ms, card_vs_cpu=diffs, tolerances=TOL_EVAL,
+               mean_d1=float(np.mean([m["p2point_psnr"] for m in card])),
+               mean_d2=float(np.mean([m["p2plane_psnr"] for m in card])))
+    log(f"eval_batch on the card: {len(card)} pairs of {origs.shape[1]} / {recons.shape[1]} "
+        f"points in {wall * 1e3:.1f} ms (wall); {ms:.2f} ms per {EVAL_PAIRS} pairs (CUDA "
+        f"events), normals {normals_ms:.2f} ms ({normals_ms / ms:.3f}), one query chunk's "
+        f"stable sort [{EVAL_PAIRS}, 2048, {origs.shape[1]}] {sort_ms:.2f} ms; mean D1 "
+        f"{rec['mean_d1']:.3f} dB, D2 {rec['mean_d2']:.3f} dB; card vs CPU port on "
+        f"{EVAL_CPU_PAIRS} pairs: " + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items()))
+    log("eval: " + json.dumps(rec))
+    return rec
+
+
+def pppe_test_state(model, seed: int) -> dict:
+    """randomize_batchnorm, and the latent head scaled so that the latents
+    spread over the L bins (at random weights they all round to bin 0, and
+    the entropy stream would code one symbol)."""
+    sd = randomize_batchnorm(model.state_dict(), seed)
+    sd["encoder.global_conv.3.weight"] = sd["encoder.global_conv.3.weight"] * 60.0
+    sd["encoder.global_conv.3.bias"] = torch.full_like(sd["encoder.global_conv.3.bias"], 3.0)
+    return sd
+
+
+def run_cli(label: str, main_fn, argv) -> tuple:
+    """One in-process CLI run with every launch counter set to 0 just before
+    and read just after: (wall ms, launches)."""
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    main_fn(argv)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = dict(cuda_lib.launches)
+    log(f"{label}: {wall:.1f} ms, launches {launches}")
+    return wall, launches
+
+
+def pppe_phase(dev, smi: str):
+    """Phases 19-20: the PPPE serving path at the CLIs' defaults through the
+    CLIs (compress raw and entropy-coded, decompress in its three
+    transforms, eval_pppe), then the stage kernel in the "pppe" layout and
+    FPS vs their plain versions on the path's own inputs. Returns the
+    stage's kernels-line record, the FPS shape records and the FPS launches
+    of one compress batch."""
+    import pickle
+    import shutil
+    import tempfile
+
+    from pcc_tpu_torch.cli import eval_pppe, pppe_pcd_compress, pppe_pcd_decompress
+    from pcc_tpu_torch.cli.pppe_pcd_compress import encode_clouds
+    from pcc_tpu_torch.cli.pppe_pcd_decompress import decode_latents
+    from pcc_tpu_torch.io import read_point_cloud, save_point_cloud
+    from pcc_tpu_torch.weights import to_jax_params
+
+    cfg = PPPEConfig()
+    B = PPPE_CLOUDS
+    clouds = synthetic_clouds(B, cfg.N, SEED + 5)
+    model = make_pppe_model(cfg, seed=SEED)
+    sd = pppe_test_state(model, SEED + 6)
+    model.load_state_dict(sd)
+    model = model.to(dev)
+    os.makedirs(os.path.join(ROOT, "_chip"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="pppe_", dir=os.path.join(ROOT, "_chip"))
+    try:
+        for i, pc in enumerate(clouds):
+            save_point_cloud(pc, f"c{i:02d}.ply", path=os.path.join(work, "in"))
+        os.makedirs(os.path.join(work, "model"))
+        with open(os.path.join(work, "model", "ae_latest.pkl"), "wb") as f:
+            pickle.dump(to_jax_params(sd)[0], f)
+        d = lambda *p: os.path.join(work, *p)  # noqa: E731
+        common = ["--N", str(cfg.N), "--K", str(cfg.latent_dim), "--L", str(cfg.L),
+                  "--batch_size", str(B), "--device", dev.type]
+
+        # 19. the path, through the CLIs
+        with torch.no_grad():
+            encode_clouds(model, np.stack(clouds), cfg)          # warm-up, uncounted
+        walls = {}
+        want = {name: 0 for name in cuda_lib.KERNELS}
+        want.update(fps=3, pppf_sa_stage=2)
+        counted = {}
+        for kind, extra in (("raw", []), ("entropy", ["--entropy_coding"])):
+            walls[f"compress {kind}"], launches = run_cli(
+                f"PPPE compress ({kind}, {B} clouds x {cfg.N} points)", pppe_pcd_compress.main,
+                [d("in", "*.ply"), d(f"comp_{kind}"), d("model"), *extra, *common])
+            if launches != want:
+                raise RuntimeError(f"PPPE compress ({kind}) launches {launches} != {want}")
+            counted[kind] = launches
+        for mode, src, extra in (("sigmoid", "raw", []), ("round", "raw", ["--use_quantized"]),
+                                 ("quantized", "entropy", [])):
+            walls[f"decompress {mode}"], launches = run_cli(
+                f"PPPE decompress ({mode})", pppe_pcd_decompress.main,
+                [d(f"comp_{src}", "*.bin"), d(f"dec_{mode}"), d("model"), *extra, *common])
+            if any(launches.values()):
+                raise RuntimeError(f"PPPE decompress launched a kernel: {launches}")
+            for i in range(B):
+                pc = read_point_cloud(d(f"dec_{mode}", f"c{i:02d}.bin.ply"))
+                if pc.shape != (cfg.N, 3) or not np.isfinite(pc).all():
+                    raise RuntimeError(f"bad decoded PPPE cloud ({mode}): shape {pc.shape}")
+        walls["eval_pppe"], _ = run_cli(
+            "PPPE eval_pppe (round)", eval_pppe.main,
+            ["--input_glob", d("in", "*.ply"), "--compressed_path", d("comp_raw"),
+             "--decompressed_path", d("dec_round"), "--output_file", d("eval.csv"),
+             "--device", dev.type])
+        with open(d("eval.csv")) as f:
+            rows = f.read().splitlines()
+        if len(rows) != B + 1:
+            raise RuntimeError(f"eval_pppe wrote {len(rows) - 1} rows for {B} clouds")
+        raw_bytes = os.path.getsize(d("comp_raw", "c00.bin"))
+        ent_bytes = [os.path.getsize(d("comp_entropy", f"c{i:02d}.bin")) for i in range(B)]
+        log(f"PPPE streams: raw {raw_bytes} bytes ({8 * raw_bytes / cfg.N:.4f} bpp), entropy "
+            f"{np.mean(ent_bytes):.1f} bytes on average ({8 * np.mean(ent_bytes) / cfg.N:.4f} "
+            f"bpp) per cloud")
+
+        batch = np.stack(clouds)
+        with torch.no_grad():
+            lat = encode_clouds(model, batch, cfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            lat = encode_clouds(model, batch, cfg)
+            torch.cuda.synchronize()
+            enc_ms = (time.perf_counter() - t0) * 1e3
+            enc_peak = torch.cuda.max_memory_allocated() / 2**30
+            lat_np = lat.cpu().numpy()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fine = decode_latents(model, lat_np, "round", cfg.L)
+            torch.cuda.synchronize()
+            dec_ms = (time.perf_counter() - t0) * 1e3
+            dec_peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"PPPE encode of {B} clouds {enc_ms:.1f} ms (wall, {B / enc_ms * 1e3:.1f} "
+                f"clouds/s), peak {enc_peak:.2f} GiB; decode {dec_ms:.1f} ms, peak "
+                f"{dec_peak:.2f} GiB on {smi}")
+            profile("PPPE encode", lambda: encode_clouds(model, batch, cfg), top=12)
+            profile("PPPE decode", lambda: decode_latents(model, lat_np, "round", cfg.L))
+            stored = np.stack([np.fromfile(d("comp_raw", f"c{i:02d}.bin"), "<f4")[1:]
+                               for i in range(B)])
+            if not np.array_equal(stored, lat_np):
+                raise RuntimeError("the CLI's .bin latents differ from the encoder's")
+
+            # the same weights and clouds on the CPU port
+            cpu_model = make_pppe_model(cfg)
+            cpu_model.load_state_dict(sd)
+            n = PPPE_CPU_CLOUDS
+            lat_cpu = encode_clouds(cpu_model, batch[:n], cfg).numpy()
+            lat_err = float(np.abs(lat_np[:n] - lat_cpu).max())
+            big = float(np.abs(lat_cpu).max())
+            if not lat_err <= TOL * big:
+                raise RuntimeError(f"PPPE latents: card vs CPU port {lat_err} > {TOL} * {big}")
+            dec_err = 0.0
+            for mode in ("sigmoid", "round"):
+                a = decode_latents(cpu_model, lat_np[:n], mode, cfg.L).numpy()
+                b = decode_latents(model, lat_np[:n], mode, cfg.L).cpu().numpy()
+                dec_err = max(dec_err, float(np.abs(a - b).max()) / float(np.abs(a).max()))
+            if not dec_err <= TOL:
+                raise RuntimeError(f"PPPE decoded clouds: card vs CPU port {dec_err} > {TOL}")
+            flips = int((np.clip(np.round(lat_np[:n]), 0, cfg.L - 1)
+                         != np.clip(np.round(lat_cpu), 0, cfg.L - 1)).sum())
+            log(f"PPPE card vs CPU port on {n} clouds: latents within {lat_err:.3g} of "
+                f"{big:.3g}, decoded clouds within {dec_err:.3g} of their largest entry; "
+                f"{flips} quantized symbols differ")
+
+            # 20. the stage kernel in the "pppe" layout and FPS on the path's inputs
+            with recording_fps() as fps_calls, recording_pppe_stages() as stage_calls:
+                encode_clouds(model, batch, cfg)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if len(stage_calls) != 2 or len(fps_calls) != 3:
+        raise RuntimeError(f"the PPPE encoder made {len(stage_calls)} stage and "
+                           f"{len(fps_calls)} FPS calls, not 2 and 3")
+    fps_recs = [fps_check(f"PPPE serving {name}", c)
+                for name, c in zip(("sa1", "sa2", "sa3"), fps_calls)]
+    sa1_q = torch.gather(fps_calls[0][1], 1, fps_plain(*fps_calls[0][1:]).long()[..., None]
+                         .expand(-1, -1, 3))
+    x1 = fps_calls[0][1]
+    with torch.no_grad():
+        sort_ms = cuda_ms(lambda: select_nearest(sq_dists(sa1_q, x1), 32), 3)
+        dist_ms = cuda_ms(lambda: sq_dists(sa1_q, x1), 3)
+    log(f"PPPE sa1 top-32 selection [{B}, 512, {cfg.N}]: {sort_ms:.2f} ms, of which the "
+        f"distances {dist_ms:.2f} ms and the stable sort the rest")
+    stages = [pppe_stage_check(name, *call)
+              for name, call in zip(("sa2", "sa3"), stage_calls)]
+    return dict(
+        name="pppf_sa_stage (pppe layout)", route="cuda",
+        source="pcc_tpu_torch/csrc/pppf_sa_stage.cu", replaces="pcc_tpu/ops/pppf_sa_pallas.py:45",
+        launches=counted["raw"]["pppf_sa_stage"],
+        max_abs_err=max(r["max_abs_err"] for r in stages),
+        ms=sum(r["ms"] for r in stages), plain_ms=sum(r["plain_ms"] for r in stages),
+        bound_ms=sum(r["bound_ms"] for r in stages), bound_by=stages[-1]["bound_by"],
+        library_ms=None, path="PPPE serving", stages=stages,
+        walls_ms=walls, encode_ms=enc_ms, decode_ms=dec_ms, encode_peak_gib=enc_peak,
+        sa1_selection_ms=sort_ms), fps_recs, counted["raw"]["fps"]
+
+
+def pppe_stage_check(name: str, new_xyz, xyz, feat, layers, nsample) -> dict:
+    """Phase 20 for one stage: the kernel in the "pppe" layout vs
+    pppf_sa_plain on the recorded inputs, within TOL of the largest entry;
+    its selection bit-equal to the plain version's, read through the kernel
+    itself: with one-hot features of the N points and one identity layer,
+    each query's output is the indicator of the set of points its slots
+    read (the max over slots of 0/1 rows, exact). CUDA-event times, the
+    plain version's time and the bound by operations (per slot)."""
+    kw = dict(nsample=nsample, radius=0.0, layout="pppe")
+    a = pppf_sa_fused(new_xyz, xyz, feat, layers, **kw)
+    b = pppf_sa_plain(new_xyz, xyz, feat, layers, **kw)
+    err, big = float((a - b).abs().max()), float(b.abs().max())
+    if not err <= TOL * big:
+        raise RuntimeError(f"pppf_sa_stage {name} (pppe) differs from the plain version: "
+                           f"{err} > {TOL} * {big}")
+    P, S, _ = new_xyz.shape
+    N = xyz.shape[1]
+    dev = xyz.device
+    onehot = torch.eye(N, device=dev).expand(P, N, N).contiguous()
+    W = 3 + N
+    ident = [(torch.eye(W, device=dev), torch.zeros(W, device=dev), torch.zeros(W, device=dev),
+              torch.ones(W, device=dev), torch.zeros(W, device=dev))]
+    picked = pppf_sa_fused(new_xyz, xyz, onehot, ident, **kw)[..., 3:]
+    idx = select_nearest(sq_dists(new_xyz, xyz), nsample)
+    want = torch.zeros((P, S, N), device=dev).scatter_(2, idx, 1.0)
+    if not torch.equal(picked, want):
+        raise RuntimeError(f"pppf_sa_stage {name} (pppe): the kernel's selection differs from "
+                           f"the plain version's for {int((picked != want).any(-1).sum())} "
+                           "queries")
+    widths = [layers[0][0].shape[0]] + [lay[0].shape[1] for lay in layers]
+    flops = stage_flops(P, S, N, nsample, widths, layout="pppe")
+    bms, by = bound(flops, nbytes(new_xyz, xyz, feat, a, *[t for lay in layers for t in lay]))
+    rec = dict(stage=name, layout="pppe", shape=[P, S, N, widths], nsample=nsample,
+               max_abs_err=err, max_abs=big, selection="bit-equal",
+               ms=cuda_ms(lambda: pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), 10),
+               plain_ms=cuda_ms(lambda: pppf_sa_plain(new_xyz, xyz, feat, layers, **kw), 2),
+               bound_ms=bms, bound_by=by, gflop=flops / 1e9)
+    rec["device_ms"] = graph_ms(lambda: pppf_sa_fused(new_xyz, xyz, feat, layers, **kw))
+    log(f"pppf_sa_stage {name} (pppe) new_xyz {tuple(new_xyz.shape)} xyz {tuple(xyz.shape)} "
+        f"widths {widths} nsample {nsample}: {rec['ms']:.3f} ms, device {rec['device_ms']:.3f} "
+        f"ms (plain {rec['plain_ms']:.2f} ms, bound {bms:.4f} ms by {by}, {flops / 1e9:.2f} "
+        f"GFLOP, {flops / rec['device_ms'] / 1e9:.2f} TFLOP/s), max_abs_err {err:.3g} of "
+        f"{big:.3g}; selection bit-equal to the plain version's")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1618,6 +1959,19 @@ def main() -> int:
     # 17. the SetAbstraction kernel
     with torch.no_grad():
         kernels.append(sa_fused_phase(dev, sa_patches, card.ae.sa))
+
+    # 18. evaluation on the card, on the IPDAE path's decoded clouds
+    eval_phase(dev, clouds, decoded)
+    del decoded
+
+    # 19-20. the PPPE serving path; the stage kernel's "pppe" layout and FPS there
+    pppe_rec, fps_recs, kernels[0]["launches_pppe"] = pppe_phase(dev, smi)
+    kernels.append(pppe_rec)
+    kernels[0]["shapes"] += fps_recs
+    kr = pppe_rec
+    log(f"{kr['name']}: {kr['ms']:.4f} ms for sa2 and sa3 (plain {kr['plain_ms']:.4f} ms, "
+        f"bound {kr['bound_ms']:.4f} ms by {kr['bound_by']}), launches {kr['launches']} per "
+        "PPPE compress batch")
 
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,5 +1,7 @@
 """Range coding of the quantized latents under integer CDF rows
-(the PyTorch port's copy of pcc_tpu/coding/rangecoder.py, integer mode).
+(the PyTorch port's copy of pcc_tpu/coding/rangecoder.py), and of symbols
+under float CDFs quantized to such rows (`quantize_cdf`, the PPPE entropy
+stream's histogram PMF).
 
 The coder is the C++ range coder in _native/rangecoder.cpp, built with g++
 at first use into that folder and loaded with ctypes. A failed build raises:
@@ -15,6 +17,8 @@ import subprocess
 import tempfile
 
 import numpy as np
+
+PRECISION = 16
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "_native")
 _SRC = os.path.join(_NATIVE_DIR, "rangecoder.cpp")
@@ -57,6 +61,30 @@ def _load_native():
     ]
     _lib = lib
     return lib
+
+
+def quantize_cdf(cdf_float: np.ndarray) -> np.ndarray:
+    """[..., Lp] float CDFs (leading 0, last about 1) -> int32 rows
+    (pcc_tpu's quantize_cdf): scaled to 2^16 - Lp and rounded, made
+    monotone by a running maximum, plus a +arange staircase, so that every
+    symbol keeps a probability of at least 2^-16 (torchac's guard) and every
+    row totals 2^16 - 1."""
+    cdf_float = np.asarray(cdf_float, dtype=np.float64)
+    Lp = cdf_float.shape[-1]
+    scaled = np.round(np.clip(cdf_float, 0.0, 1.0) * ((1 << PRECISION) - Lp))
+    scaled = np.maximum.accumulate(scaled, axis=-1)
+    return (scaled + np.arange(Lp)).astype(np.int32)
+
+
+def encode_float_cdf(cdf_float: np.ndarray, sym: np.ndarray) -> bytes:
+    """Encode int symbols [n] under per-slot float CDFs [n, Lp]
+    (the reference's torchac.encode_float_cdf API)."""
+    return encode_quantized_cdf(quantize_cdf(cdf_float), sym)
+
+
+def decode_float_cdf(cdf_float: np.ndarray, byte_stream: bytes) -> np.ndarray:
+    """Decode bytes into int16 symbols shaped like cdf_float.shape[:-1]."""
+    return decode_quantized_cdf(quantize_cdf(cdf_float), byte_stream)
 
 
 def encode_quantized_cdf(cdf_int: np.ndarray, sym: np.ndarray) -> bytes:

@@ -88,3 +88,16 @@ class CodecConfig:
     def with_n(self, N: int) -> "CodecConfig":
         """Per-cloud N at compress time (compress.py:92-93)."""
         return dataclasses.replace(self, N=N)
+
+
+@dataclasses.dataclass(frozen=True)
+class PPPEConfig:
+    """The PPPE whole-cloud pipeline's configuration (pcc_tpu/config.py:121;
+    reference train_pppe_pcd_ae.py:27-29). The port computes in float32
+    (pcc_tpu's compute_dtype "float32")."""
+
+    N: int = 8192          # points per cloud
+    latent_dim: int = 256  # '--K' in the reference PPPE CLIs
+    L: int = 7             # quantization bins
+    coarse_points: int = 512
+    margin: float = 0.01

@@ -22,13 +22,13 @@ from pcc_tpu_torch.ops.sa_cuda import sa_fused
 
 class PointConv(nn.Module):
     """The parameters of a reference 1x1 convolution (weight [out, in, 1, 1]
-    for a Conv2d, [out, in, 1] for a Conv1d with conv_dims=1; bias [out])
-    applied to [..., in] as x @ W + b."""
+    for a Conv2d, [out, in, 1] for a Conv1d with conv_dims=1; bias [out],
+    or none with bias=False) applied to [..., in] as x @ W + b."""
 
-    def __init__(self, cin: int, cout: int, conv_dims: int = 2):
+    def __init__(self, cin: int, cout: int, conv_dims: int = 2, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, *([1] * conv_dims)))
-        self.bias = nn.Parameter(torch.empty(cout))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
 
     def kernel(self) -> torch.Tensor:
         """[in, out] weight matrix (the flax kernel layout), contiguous."""
@@ -36,7 +36,8 @@ class PointConv(nn.Module):
         return self.weight.view(cout, cin).t().contiguous()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel() + self.bias
+        y = x @ self.kernel()
+        return y if self.bias is None else y + self.bias
 
 
 def torch_dense_init_(module: nn.Module, generator: torch.Generator) -> None:
@@ -51,7 +52,8 @@ def torch_dense_init_(module: nn.Module, generator: torch.Generator) -> None:
             if isinstance(m, (PointConv, nn.Linear)):
                 bound = float(m.weight.shape[1]) ** -0.5
                 m.weight.uniform_(-bound, bound, generator=generator)
-                m.bias.uniform_(-bound, bound, generator=generator)
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound, generator=generator)
 
 
 def conv_bn_relu_stack(cin: int, features: Sequence[int]) -> nn.Sequential:

@@ -96,18 +96,28 @@ def pppf_sa_plain(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
     return torch.cat(outs)
 
 
-def stage_flops(P: int, S: int, N: int, nsample: int, widths) -> float:
-    """Operations the "pppf" stage needs, as the kernel computes it per point:
-    the stack on the P * N point rows (2 per multiply-add, 5 per output of a
-    layer: bias, the BatchNorm affine, relu), 9 per (query, point) distance
-    pair where a selection is made (nsample < N; otherwise every point is
-    taken), and one comparison per (query, slot, output channel) for the
-    max. A slot's activations are its point's, so the P * S * nsample slot
-    rows need no more than this."""
+def stage_flops(P: int, S: int, N: int, nsample: int, widths, layout: str = "pppf") -> float:
+    """Operations the stage needs: the stack on its rows (2 per multiply-add,
+    5 per output of a layer: bias, the BatchNorm affine, relu), 9 per
+    (query, point) distance pair where a selection is made (nsample < N;
+    otherwise every point is taken), and one comparison per (query, slot,
+    output channel) for the max. "pppf" as the kernel computes it per
+    point: a slot's activations are its point's, so the stack runs on the
+    P * N point rows. "pppe": a slot's row [x_j - c | f_j] is centred on
+    its query, but the first layer is linear, W1 [x_j - c | f_j] =
+    W1 [x_j | f_j] - W1[:3] c, so its products need only the P * N point
+    rows and a 3 x C1 term per query, then one subtraction per (slot, C1
+    channel); its bias, BatchNorm and relu, and every later layer, run on
+    the P * S * nsample slot rows."""
     macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
     dist = 9.0 * N if nsample < N else 0.0
-    return (P * N * (2.0 * macs + 5.0 * sum(widths[1:]))
-            + P * S * (dist + nsample * widths[-1]))
+    if layout == "pppe":
+        c1 = widths[1]
+        per_slot = 2.0 * (macs - widths[0] * c1) + 5.0 * sum(widths[1:]) + c1
+        rows = P * N * 2.0 * widths[0] * c1 + P * S * (2.0 * 3 * c1 + nsample * per_slot)
+    else:
+        rows = P * N * (2.0 * macs + 5.0 * sum(widths[1:]))
+    return rows + P * S * (dist + nsample * widths[-1])
 
 
 def pppf_sa_points(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *, nsample: int,

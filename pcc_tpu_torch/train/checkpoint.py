@@ -8,7 +8,10 @@ layout (nested dicts of numpy arrays, weights.to_jax_params; for PPPF-AE
 {'params', 'batch_stats'}, the BatchNorm running statistics included), so
 pcc_tpu's load_inference_params and compress read what the port trains,
 and the port's own weights.load_inference_params reads it back; resuming
-restores the running statistics with the weights. The optimizer
+restores the running statistics with the weights. `load_pppe_checkpoint`
+reads the weights of pcc_tpu's PPPE scheme,
+{ae,prob,optimizer,global}_{latest,best}.pkl (PPPE training, which would
+resume from the rest, is not ported yet). The optimizer
 pickle holds the port's Adam state as numpy arrays keyed by parameter name
 ('ae.sa.conv0.weight', ...): {name: {"exp_avg", "exp_avg_sq", "step"}}.
 """
@@ -108,3 +111,16 @@ def load_latest_checkpoint(folder: str, state):
         start_step = int(_load(paths["global"])) + 1
         state.step = start_step
     return state, start_step
+
+
+def load_pppe_checkpoint(folder: str, model, best: bool = False) -> bool:
+    """Load pcc_tpu's PPPE `ae_{latest,best}.pkl` (pcc_tpu/train/
+    checkpoint.py::save_pppe_checkpoint; train_pppe_pcd_ae.py:84-89) into a
+    port PointCloudAE, BatchNorm running statistics included. Returns False,
+    the model untouched, when the folder holds no such file."""
+    ae_p = os.path.join(folder, f"ae_{'best' if best else 'latest'}.pkl")
+    if not os.path.exists(ae_p):
+        return False
+    sd, _ = from_jax_params(_load(ae_p), None)
+    model.load_state_dict(sd)
+    return True

@@ -11,8 +11,11 @@ integer probability model's converter (coding/iprob.py,
 coding/iprob_pppf.py) and the tests. Both model families are carried: IPDAE
 ("AE", `params` only) and PPPF-AE (`params` and the BatchNorm running
 statistics in `batch_stats`; cli/import_torch_checkpoint.py::
-convert_pppf_ae_state_dict / convert_pppf_prob_state_dict). Both ways are
-exact copies: a transpose and a rename, no arithmetic.
+convert_pppf_ae_state_dict / convert_pppf_prob_state_dict) and PPPE (one
+PointCloudAE, `params` and `batch_stats`, whose prob model is a submodule;
+convert_pppe_ae_state_dict, which writes the stages' conv biases as zeros,
+where these functions carry pcc_tpu's). Both ways are exact copies: a
+transpose and a rename, no arithmetic.
 """
 
 from __future__ import annotations
@@ -94,12 +97,116 @@ def _pppf_from_jax(ae_vars, prob_vars):
     return ae, prob
 
 
+# PPPE: (flax name, torch module, kernel layout) of the plain layers
+_PPPE_DENSE = (
+    (("decoder", "fc0"), "decoder.fc_coarse.0", "linear"),
+    (("decoder", "fc1"), "decoder.fc_coarse.2", "linear"),
+    (("decoder", "exp0"), "decoder.expansion_mlp.0", "linear"),
+    (("decoder", "exp1"), "decoder.expansion_mlp.2", "linear"),
+    (("encoder", "gc0"), "encoder.global_conv.0", "conv1d"),
+    (("encoder", "gc1"), "encoder.global_conv.3", "conv1d"),
+    (("prob", "cond0"), "prob.cond_proj.0", "linear"),
+    (("prob", "cond1"), "prob.cond_proj.2", "linear"),
+    (("prob", "comb0"), "prob.combine.0", "conv1d"),
+    (("prob", "comb1"), "prob.combine.2", "conv1d"),
+    (("prob", "mean"), "prob.mean_head", "conv1d"),
+    (("prob", "scale"), "prob.scale_head", "conv1d"),
+    (("prob", "pmf"), "prob.pmf_head", "conv1d"),
+)
+
+
+def _pppe_stages():
+    """(flax path under encoder, torch prefix of the conv2d_bn_relu stack)
+    of PPPE's four stacks."""
+    return ([(("sa1", f"branch_{b}"), f"encoder.sa_modules.0.branches.{b}.mlp_stack")
+             for b in range(2)]
+            + [((f"sa{j}",), f"encoder.sa_modules.{j - 1}.mlp_stack") for j in (2, 3)])
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _bn_from_jax(p, s, prefix: str, sd: dict) -> None:
+    sd[f"{prefix}.weight"] = _bias(p["scale"])
+    sd[f"{prefix}.bias"] = _bias(p["bias"])
+    sd[f"{prefix}.running_mean"] = _bias(s["mean"])
+    sd[f"{prefix}.running_var"] = _bias(s["var"])
+    sd[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+
+def _is_pppe(variables) -> bool:
+    """Whether flax variables are a PPPE PointCloudAE's."""
+    p = _params(variables)
+    return "encoder" in p and "gc0" in p["encoder"]
+
+
+def pppe_from_jax(variables) -> dict:
+    """pcc_tpu PPPE variables ({'params', 'batch_stats'}) -> the port's
+    PointCloudAE state_dict."""
+    p, st = variables["params"], variables["batch_stats"]
+    sd = {}
+    for path, prefix in _pppe_stages():
+        mp = _get(p["encoder"], path)["mlp"]
+        ms = _get(st["encoder"], path)["mlp"]
+        for i in range(len(ms)):
+            lin = mp[f"dense_{i}"]["linear"]
+            sd[f"{prefix}.{i}.0.weight"] = _conv_w(lin["kernel"])
+            sd[f"{prefix}.{i}.0.bias"] = _bias(lin["bias"])
+            _bn_from_jax(mp[f"bn_{i}"], ms[f"bn_{i}"], f"{prefix}.{i}.1", sd)
+    _bn_from_jax(p["encoder"]["gc_bn"], st["encoder"]["gc_bn"], "encoder.global_conv.1", sd)
+    for path, prefix, kind in _PPPE_DENSE:
+        lin = _get(p, path)["linear"]
+        sd[f"{prefix}.weight"] = (_linear_w(lin["kernel"]) if kind == "linear"
+                                  else _conv_w(lin["kernel"], conv_dims=1))
+        if "bias" in lin:
+            sd[f"{prefix}.bias"] = _bias(lin["bias"])
+    return sd
+
+
+def pppe_to_jax(sd) -> dict:
+    """The port's PointCloudAE state_dict -> pcc_tpu PPPE variables."""
+    params, stats = {"encoder": {}, "decoder": {}, "prob": {}}, {"encoder": {}}
+
+    def put(tree, path, value):
+        for k in path[:-1]:
+            tree = tree.setdefault(k, {})
+        tree[path[-1]] = value
+
+    def bn(prefix):
+        return ({"scale": _vec(sd[f"{prefix}.weight"]), "bias": _vec(sd[f"{prefix}.bias"])},
+                {"mean": _vec(sd[f"{prefix}.running_mean"]),
+                 "var": _vec(sd[f"{prefix}.running_var"])})
+
+    for path, prefix in _pppe_stages():
+        mp, ms = {}, {}
+        for i in range(_count(sd, prefix + ".")):
+            mp[f"dense_{i}"] = _dense(sd[f"{prefix}.{i}.0.weight"], sd[f"{prefix}.{i}.0.bias"])
+            mp[f"bn_{i}"], ms[f"bn_{i}"] = bn(f"{prefix}.{i}.1")
+        put(params["encoder"], path + ("mlp",), mp)
+        put(stats["encoder"], path + ("mlp",), ms)
+    params["encoder"]["gc_bn"], stats["encoder"]["gc_bn"] = bn("encoder.global_conv.1")
+    for path, prefix, _ in _PPPE_DENSE:
+        w = sd[f"{prefix}.weight"].detach().cpu().numpy()
+        kernel = np.ascontiguousarray(w.reshape(w.shape[0], w.shape[1]).T)
+        lin = {"kernel": kernel}
+        if f"{prefix}.bias" in sd:
+            lin["bias"] = _vec(sd[f"{prefix}.bias"])
+        put(params, path, {"linear": lin})
+    return {"params": params, "batch_stats": stats}
+
+
 def from_jax_params(ae_vars, prob_vars):
     """pcc_tpu flax variables (nested dicts of arrays) -> (autoencoder
     state_dict, probability model state_dict) of the port, for the family
     the variables belong to (IPDAE: PatchAE / ConditionalProbabilityModel;
     PPPF-AE: PPPF_AE / PPPFConditionalProbabilityModel; for this family
-    either argument may be None)."""
+    either argument may be None; PPPE: (PointCloudAE state_dict, None), its
+    prob model inside, prob_vars ignored)."""
+    if ae_vars is not None and _is_pppe(ae_vars):
+        return pppe_from_jax(ae_vars), None
     if _is_pppf(ae_vars, prob_vars):
         return _pppf_from_jax(ae_vars, prob_vars)
     p = _params(ae_vars)
@@ -189,7 +296,10 @@ def _pppf_to_jax(ae_sd, prob_sd):
 def to_jax_params(ae_sd=None, prob_sd=None):
     """Port state_dicts -> pcc_tpu flax variables ({'params': ...}, and
     'batch_stats' for PPPF-AE: nested dicts of numpy arrays); either may be
-    None. The family is read off the state_dicts' names."""
+    None. The family is read off the state_dicts' names; a PPPE
+    PointCloudAE state_dict gives (its variables, None)."""
+    if ae_sd is not None and "encoder.global_conv.0.weight" in ae_sd:
+        return pppe_to_jax(ae_sd), None
     if ((ae_sd is not None and "enc_proj.weight" in ae_sd)
             or (prob_sd is not None and "model_pnpp.sa1.mlp.0.weight" in prob_sd)):
         return _pppf_to_jax(ae_sd, prob_sd)

@@ -108,7 +108,8 @@ def _fps_case(dev, kind, B, N, npoint, twins, plan=None):
 _FPS_PATH = [("f32", *s) for s in [
     (64, 8192, 64), (16, 8192, 64), (8, 8192, 64), (1024, 256, 128), (1024, 128, 32),
     (512, 256, 128), (512, 128, 32), (8, 64, 512), (8, 512, 128), (8, 128, 32),
-    (128, 4, 512), (128, 512, 128), (128, 128, 32), (128, 512, 4)]] + [
+    (128, 4, 512), (128, 512, 128), (128, 128, 32), (128, 512, 4),
+    (32, 8192, 512), (32, 512, 128), (32, 128, 32)]] + [
     ("i32", 16, 64, 512), ("i32", 16, 512, 128), ("i32", 16, 128, 32)]
 
 
@@ -467,6 +468,110 @@ def test_pppf_sa_stage_per_point(dev, case, P, S, N, C, nsample, radius, widths)
         assert torch.equal(out[:, 0], stack_replay(rows, layers)[-1][:, 0])
     if case == "masked":
         assert bool((out[:, 1:] != out[:, :1]).any())
+
+
+# PPPE's sa2 and sa3 (models/pppe.py): 128 of 512 points with 192
+# features, 32 of 128 with 256; nsample 32, radius 0, the "pppe" layout
+_PPPE_STAGES = [(32, 128, 512, 192, (128, 128, 256)), (32, 32, 128, 256, (256, 256, 512)),
+                (5, 128, 512, 192, (128, 128, 256)), (3, 32, 128, 256, (256, 256, 512))]
+
+
+@pytest.mark.parametrize("P,S,N,C,widths", _PPPE_STAGES)
+def test_pppf_sa_stage_kernel_at_pppe_widths(dev, P, S, N, C, widths):
+    """The "pppe" layout at PPPE's own widths (195 and 259 input channels,
+    not multiples of 4): within 1e-4 of the plain version's largest entry,
+    and its selection bit-equal, read through the kernel: with one-hot
+    features of the N points and one identity layer each query's output
+    is the indicator of the set of points its slots read."""
+    g = torch.Generator().manual_seed(S)
+    xyz = torch.rand((P, N, 3), generator=g).to(dev)
+    new_xyz = xyz[:, torch.randperm(N, generator=g)[:S]].contiguous()
+    feat = torch.randn((P, N, C), generator=g).to(dev)
+    layers = _stage_layers(g, (C + 3,) + tuple(widths), dev, share=0.25)
+    kw = dict(nsample=32, radius=0.0, layout="pppe")
+    before = cuda_lib.launches["pppf_sa_stage"]
+    out = pppf_sa_fused(new_xyz, xyz, feat, layers, **kw)
+    assert cuda_lib.launches["pppf_sa_stage"] == before + 1
+    ref = pppf_sa_plain(new_xyz, xyz, feat, layers, **kw)
+    assert out.shape == ref.shape == (P, S, widths[-1])
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    W = N + 3
+    ident = [(torch.eye(W, device=dev),) + tuple(
+        torch.full((W,), v, device=dev) for v in (0.0, 0.0, 1.0, 0.0))]
+    onehot = torch.eye(N, device=dev).expand(P, N, N).contiguous()
+    picked = pppf_sa_fused(new_xyz, xyz, onehot, ident, **kw)[..., 3:]
+    idx = select_nearest(sq_dists(new_xyz, xyz), 32)
+    assert torch.equal(picked, torch.zeros_like(picked).scatter_(2, idx, 1.0))
+
+
+def test_pppe_encoder_card_matches_cpu(dev):
+    """The PPPE encoder at full width (N = 8192, latent 256) on two clouds,
+    card vs CPU port, with live BatchNorm statistics and the latent head
+    spread over the bins: three FPS and two "pppe" stage launches, latents
+    within 1e-4 of their largest entry."""
+    from pcc_tpu_torch.config import PPPEConfig
+    from pcc_tpu_torch.models.pppe import make_pppe_model
+
+    cfg = PPPEConfig()
+    models = [make_pppe_model(cfg, seed=3) for _ in range(2)]
+    g = torch.Generator().manual_seed(4)
+    sd = dict(models[0].state_dict())
+    for key in [k for k in sd if k.endswith(".running_mean")]:
+        stem, n = key[:-len("running_mean")], sd[key].shape[0]
+        sd[stem + "running_mean"] = torch.randn(n, generator=g) * 0.1
+        sd[stem + "running_var"] = torch.rand(n, generator=g) + 0.5
+        sd[stem + "weight"] = (torch.rand(n, generator=g) + 0.5) * torch.where(
+            torch.rand(n, generator=g) < 0.25, -1.0, 1.0)
+    sd["encoder.global_conv.3.weight"] = sd["encoder.global_conv.3.weight"] * 60.0
+    for m in models:
+        m.load_state_dict(sd)
+    card = models[0].to(dev)
+    x = (torch.rand((2, cfg.N, 3), generator=g) * 3 - 1)
+    before = dict(cuda_lib.launches)
+    with torch.no_grad():
+        lat_card = card.encoder(x.to(dev))[0].cpu()
+        lat_cpu = models[1].encoder(x)[0]
+    after = dict(cuda_lib.launches)
+    assert after["fps"] - before["fps"] == 3
+    assert after["pppf_sa_stage"] - before["pppf_sa_stage"] == 2
+    assert float((lat_card - lat_cpu).abs().max()) <= 1e-4 * float(lat_cpu.abs().max())
+
+
+def test_normals_at_eval_batch_size(dev):
+    """estimate_normals on 16 clouds of 8192 points, eval_batch's chunk at
+    the reference's size (131072 eigenproblems, more than one eigh call
+    takes): finite unit normals; the first cloud's against the CPU port,
+    |n . n'| above 0.99 for all but a few near-degenerate points."""
+    from pcc_tpu_torch.ops.normals import estimate_normals
+
+    g = torch.Generator().manual_seed(8)
+    pc = torch.rand((16, 8192, 3), generator=g)
+    card = estimate_normals(pc.to(dev)).cpu()
+    assert torch.isfinite(card).all()
+    torch.testing.assert_close(card.norm(dim=-1), torch.ones(16, 8192), rtol=0, atol=1e-5)
+    cos = (card[0] * estimate_normals(pc[:1])[0]).sum(-1).abs()
+    assert float((cos < 0.99).float().mean()) <= 1e-3
+
+
+def test_eval_batch_card_matches_cpu(dev):
+    """metrics.eval_batch on the card vs the CPU port: D1 within 1e-3 dB,
+    D2 within 0.05 dB (PCA normals from cuSOLVER vs LAPACK, on uniform
+    random clouds, whose 30-NN neighbourhoods have no plane and so nearly
+    equal small eigenvalues), the uniformity coefficient within 1e-3 and
+    the chamfer within 1e-5, relative."""
+    from pcc_tpu_torch.metrics import eval_batch
+
+    rng = np.random.default_rng(6)
+    origs = rng.random((3, 3000, 3)).astype(np.float32)
+    recons = (origs[:, rng.permutation(3000)[:2500]]
+              + rng.standard_normal((3, 2500, 3)).astype(np.float32) * 0.01)
+    card = eval_batch(origs, recons, chunk=2)
+    cpu = eval_batch(origs, recons, chunk=2, device="cpu")
+    for a, b in zip(card, cpu):
+        assert a["p2point_psnr"] == pytest.approx(b["p2point_psnr"], abs=1e-3)
+        assert a["p2plane_psnr"] == pytest.approx(b["p2plane_psnr"], abs=0.05)
+        assert a["uc"] == pytest.approx(b["uc"], rel=1e-3)
+        assert a["chamfer"] == pytest.approx(b["chamfer"], rel=1e-5)
 
 
 @pytest.mark.parametrize("case", ["points", "layers", "width", "feat", "layout", "cpu_layer"])

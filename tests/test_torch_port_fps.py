@@ -29,11 +29,12 @@ from pcc_tpu_torch.ops import fps as fps_ops
 
 # (B, N, npoint) of every FPS call on the users' paths (ops/fps.py's docstring
 # names them): skeletons, the PN++ encoder's sa2 / sa3, the float CPM's stages
-# in the N = 8192 and N = 512 train steps, the integer CPM's stages
+# in the N = 8192 and N = 512 train steps, the integer CPM's stages, the PPPE
+# encoder's sa1 / sa2 / sa3 at a 32-cloud batch
 PATH_SHAPES = [(64, 8192, 64), (16, 8192, 64), (8, 8192, 64), (1024, 256, 128),
                (1024, 128, 32), (512, 256, 128), (512, 128, 32), (8, 64, 512), (8, 512, 128),
                (8, 128, 32), (128, 4, 512), (128, 512, 128), (128, 128, 32), (16, 64, 512),
-               (16, 512, 128), (128, 512, 4)]
+               (16, 512, 128), (128, 512, 4), (32, 8192, 512), (32, 512, 128), (32, 128, 32)]
 
 
 @pytest.fixture(scope="module", autouse=True)
