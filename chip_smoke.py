@@ -168,7 +168,23 @@ Phases (any failed check raises, and the script exits non-zero):
      features and an identity layer), CUDA-event and device times, the
      plain version's time, the bound by operations per slot; phase 19's
      three FPS calls held bit for bit and timed (fps_check), sa1's top-32
-     selection timed.
+     selection timed;
+ 21. PPPE training at the train CLI's defaults (pppe_train_phase): launches
+     per step fps 3, chamfer_fwd 1, chamfer_bwd 1; a NaN batch skipped with
+     the whole state bit for bit; the step's FPS and chamfer held to their
+     plain versions on its own inputs;
+ 22. one PPPE step at TINY_PPPE on the card and on the CPU port
+     (compare_train_states, the encoder's gradients and the running
+     statistics to TOL_PPPE_STEP), then the PPPE train CLI into the PPPE
+     compress and decompress CLIs;
+ 23. the attribute codec on ATTR_CLOUDS coloured clouds (attr_codec_phase):
+     launches per batch, symbols, the CPU port's streams, colour PSNR, the
+     encoder and decoder held to their plain versions on the batch;
+ 24. the attribute train step (attr_train_phase): launches per step, the
+     patch encoder with its winners and its backward held to their plain
+     versions on the step's own [256, 256, 3] patches (kernel_check: each
+     output within its tolerance of the plain one's own largest entry),
+     FPS and the chamfer as in phase 21.
 The line before the last is the kernels' JSON record (the IPDAE serving
 path's launch counts for fps, patch_encoder and patch_decoder, the counted
 train steps' for patch_encoder_bwd, the PPPF-AE path's for pppf_sa_stage
@@ -223,6 +239,8 @@ from pcc_tpu_torch.ops.sa_cuda import (PatchEncoderFn, _kernel_choices, _unflatt
                                        sa_fused_plain, winners_plain)
 from pcc_tpu_torch.train import build_pppf_train_step, build_train_step, create_train_state
 from pcc_tpu_torch.train.state import make_optimizer
+from pcc_tpu_torch.train.steps_pppe import (build_pppe_train_step, create_pppe_state,
+                                            make_pppe_optimizer)
 
 SEED = 11
 N_CLOUDS = 64
@@ -286,6 +304,23 @@ TOL_EVAL = {"p2point_psnr": 1e-3, "p2plane_psnr": 1e-3, "uc": 1e-4, "chamfer": 1
 # again on the CPU port
 PPPE_CLOUDS = 32
 PPPE_CPU_CLOUDS = 2
+# PPPE training (phases 21-22): the train CLI's default batch; a small
+# config for the card-vs-CPU step (npoint 512 == N: sa1's centroids are the
+# points themselves, no copies in the batch statistics)
+PPPE_TRAIN_CLOUDS = 4
+PPPE_TRAIN_STEPS = 10
+TINY_PPPE = dict(N=512, latent_dim=32, L=7)
+# its card-vs-CPU bound for the encoder's gradients (through batch
+# statistics) and the running statistics, relative to each tensor's largest
+# entry: 2.7e-3 and 1.6e-3 measured on an H100 (PERF.md), about 7x below
+TOL_PPPE_STEP = 2e-2
+# the attribute extension (phases 23-24): AttrCodec's batch of 16 clouds,
+# train_attributes' default batch of 4
+ATTR_CLOUDS = 16
+ATTR_CPU_CLOUDS = 2
+ATTR_DA = 16
+ATTR_TRAIN_CLOUDS = 4
+ATTR_TRAIN_STEPS = 10
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -367,6 +402,9 @@ def recording_chamfer(records: dict, key: str):
         ChamferFn.backward = staticmethod(backward)
 
 
+STAGE_OF_NPOINT = {512: "sa1", 128: "sa2", 32: "sa3"}   # the PN++ stages' FPS counts
+
+
 def fps_label(call, clouds: int, cfg: CodecConfig) -> str:
     """Which FPS of a path a recorded call is: the skeleton, or a PN++
     stage of the encoder (per patch) or of the probability model (per
@@ -376,7 +414,7 @@ def fps_label(call, clouds: int, cfg: CodecConfig) -> str:
     if N == cfg.N and npoint == cfg.S:
         return "skeleton"
     who = "integer CPM" if kind == "i32" else "CPM" if B == clouds else "encoder"
-    return f"{who} " + {512: "sa1", 128: "sa2", 32: "sa3"}.get(npoint, f"npoint {npoint}")
+    return f"{who} " + STAGE_OF_NPOINT.get(npoint, f"npoint {npoint}")
 
 
 def graph_ms(fn, reps: int = 20) -> float:
@@ -1114,29 +1152,38 @@ def pppf_bwd_kernel_check(records, launches: dict) -> dict:
         library_ms=None, launches_per_fused_step=3, stages=stages)
 
 
-def compare_train_states(label: str, la: float, lb: float, sa, sb, batch_stats) -> str:
-    """Hold a PPPF-AE train state after a step (sa) against the same step's
-    on the CPU port (sb): loss to 1e-5 relative; each gradient within
+def compare_train_states(label: str, la: float, lb: float, models, stats, batch_stats,
+                         lr: float, stats_tol: float = TOL_BATCH_STATS) -> str:
+    """Hold the models of a train state after a step on the card against
+    the same step's on the CPU port. `models`: (name prefix, card model, CPU
+    model) triples; `stats`: (the card's running statistics, the CPU's), two
+    lists of tensors. Loss to 1e-5 relative; each gradient within
     TOL_PPPF_STEP of its tensor's largest entry on the CPU, or within
-    TOL_BATCH_STATS for the parameters named by the prefixes `batch_stats`
+    stats_tol for the parameters named by the prefixes `batch_stats`
     (those whose gradient runs through batch statistics in this step); the
     updated parameters to lr / 4 where their gradient is above ZERO_GRAD of
     its tensor's largest entry and twice the two gradients' difference
     (Adam's first update is lr * g / (|g| + eps): an entry whose sign the
     rounding decides steps either way, and one near eps by up to lr / 8);
-    the running statistics to TOL_BATCH_STATS relative. A
+    the running statistics to stats_tol relative. A
     tensor whose largest gradient entry is below ZERO_GRAD of its model's
     largest is a zero gradient in exact arithmetic (the biases of
     convolutions that feed batch statistics), left as rounding noise: it is
     held within ZERO_GRAD of the model's largest entry instead, its
-    parameters not at all. Returns a summary; raises on a failed check."""
+    parameters not at all. A parameter with no gradient on the CPU (a
+    submodule outside the loss) must have none on the card. Returns a
+    summary; raises on a failed check."""
     if not abs(la - lb) <= 1e-5 * abs(lb):
         raise RuntimeError(f"{label} loss: card {la} vs CPU {lb}")
     rel, rel_bs, worst, noise = 0.0, 0.0, 0.0, 0
-    for prefix, model_a, model_b in (("ae.", sa.ae, sb.ae), ("prob.", sa.prob, sb.prob)):
-        top = max(float(q.grad.abs().max()) for q in model_b.parameters())
+    for prefix, model_a, model_b in models:
+        top = max(float(q.grad.abs().max()) for q in model_b.parameters() if q.grad is not None)
         for (name, p), q in zip(model_a.named_parameters(), model_b.parameters()):
             name = prefix + name
+            if q.grad is None:
+                if p.grad is not None:
+                    raise RuntimeError(f"{label}: {name} has a gradient on the card only")
+                continue
             err, big = float((p.grad.cpu() - q.grad).abs().max()), float(q.grad.abs().max())
             if big < ZERO_GRAD * top:
                 noise += 1
@@ -1144,12 +1191,12 @@ def compare_train_states(label: str, la: float, lb: float, sa, sb, batch_stats) 
                     raise RuntimeError(f"{label} gradient of {name} (zero in exact arithmetic): "
                                        f"card and CPU differ by {err} > {ZERO_GRAD} * {top}")
                 continue
-            stats = name.startswith(batch_stats)
-            tol = TOL_BATCH_STATS if stats else TOL_PPPF_STEP
+            through_stats = name.startswith(batch_stats)
+            tol = stats_tol if through_stats else TOL_PPPF_STEP
             if not err <= tol * big:
                 raise RuntimeError(f"{label} gradient of {name}: card and CPU differ by {err} > "
                                    f"{tol} * {big}")
-            if stats:
+            if through_stats:
                 rel_bs = max(rel_bs, err / big)
             else:
                 rel = max(rel, err / big)
@@ -1158,12 +1205,12 @@ def compare_train_states(label: str, la: float, lb: float, sa, sb, batch_stats) 
             moved = float((p.detach().cpu() - q.detach())[sure].abs().max())
             # Adam's first update lr * g / (|g| + eps) changes by at most
             # lr / 8 where |g| > 2 |dg|, all of it where |g| is near eps
-            if not moved <= sb.optimizer.param_groups[0]["lr"] / 4:
+            if not moved <= lr / 4:
                 raise RuntimeError(f"{label} parameters of {name} differ by {moved}")
             worst = max(worst, moved)
-    run = max(float(((x.cpu() - y).abs() / y.abs().clamp_min(1e-6)).max()) for x, y in
-              zip(bn_stats(sa.ae) + bn_stats(sa.prob), bn_stats(sb.ae) + bn_stats(sb.prob)))
-    if not run <= TOL_BATCH_STATS:
+    run = max(float(((x.cpu() - y).abs() / y.abs().clamp_min(1e-6)).max())
+              for x, y in zip(*stats))
+    if not run <= stats_tol:
         raise RuntimeError(f"{label} running statistics differ by {run} (relative)")
     return (f"loss {la:.8f} vs {lb:.8f}; gradients within {rel:.3g} of each tensor's largest "
             f"entry, {rel_bs:.3g} through batch statistics ({', '.join(batch_stats)}), "
@@ -1192,8 +1239,12 @@ def pppf_train_card_vs_cpu(dev) -> None:
         _, b = step(states[1], batch, starts, 1e-2)
         # the parameters whose gradient runs through batch statistics
         batch_stats = ("prob.",) if fused else ("prob.", "ae.encoder.", "ae.enc_proj.")
-        summary = compare_train_states(f"TINY PPPF-AE {kind} step", float(a["loss"]),
-                                       float(b["loss"]), *states, batch_stats)
+        sa, sb = states
+        summary = compare_train_states(
+            f"TINY PPPF-AE {kind} step", float(a["loss"]), float(b["loss"]),
+            (("ae.", sa.ae, sb.ae), ("prob.", sa.prob, sb.prob)),
+            (bn_stats(sa.ae) + bn_stats(sa.prob), bn_stats(sb.ae) + bn_stats(sb.prob)),
+            batch_stats, sb.optimizer.param_groups[0]["lr"])
         log(f"PPPF-AE {kind} step at TINY, card vs CPU port: {summary}")
 
 
@@ -1289,6 +1340,72 @@ CHAMFER_PATHS = ("N=512 IPDAE", "N=512 PPPF-AE fused", "N=8192 IPDAE", "N=8192 P
                  "N=8192 PPPF-AE warm-up")
 
 
+def chamfer_path_check(dev, label: str, record, counted: dict, gen) -> dict:
+    """Phase 16's check of one path shape (also phases 21 and 24's): the
+    chamfer kernels vs their plain versions on a step's recorded clouds
+    with the loss's real cotangents and a random pair, indices bit-equal,
+    distances within TOL and gradients within TOL_BWD of the plain
+    version's largest entry, two backward launches bitwise equal; times
+    and bounds. `counted` holds the path's counted launches."""
+    x, y, gx_loss, gy_loss = record
+    P, k, K = x.shape[0], x.shape[1], y.shape[1]
+    a, b = chamfer_fwd(x, y), chamfer_fwd_plain(x, y)
+    if not (torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])):
+        raise RuntimeError(f"chamfer_fwd indices differ from the plain version ({label})")
+    fwd_err = 0.0
+    for u, v in zip(a[:2], b[:2]):
+        err, big = float((u - v).abs().max()), float(v.abs().max())
+        if not err <= TOL * big:
+            raise RuntimeError(f"chamfer_fwd distances differ from the plain version "
+                               f"({label}): {err} > {TOL} * {big}")
+        fwd_err = max(fwd_err, err)
+    ixy, iyx = a[2], a[3]
+    cotangents = (("loss", gx_loss, gy_loss),
+                  ("random", torch.randn((P, k), generator=gen).to(dev),
+                   torch.randn((P, K), generator=gen).to(dev)))
+    bwd_err, rel = 0.0, 0.0
+    for name, gx, gy in cotangents:
+        u2 = chamfer_bwd(x, y, ixy, iyx, gx, gy)
+        v2 = chamfer_bwd_plain(x, y, ixy, iyx, gx, gy)
+        for u, v in zip(u2, v2):
+            err, big = float((u - v).abs().max()), float(v.abs().max())
+            if not err <= TOL_BWD * big:
+                raise RuntimeError(f"chamfer_bwd differs from the plain version ({label}, "
+                                   f"{name} cotangent): {err} > {TOL_BWD} * {big}")
+            bwd_err, rel = max(bwd_err, err), max(rel, err / big if big else 0.0)
+        again = chamfer_bwd(x, y, ixy, iyx, gx, gy)
+        if not all(torch.equal(u, v) for u, v in zip(u2, again)):
+            raise RuntimeError(f"two launches of chamfer_bwd differ ({label}, {name})")
+    f_flops, f_bytes = fwd_work(P, k, K)
+    b_flops, b_bytes = bwd_work(P, k, K)
+    f_bms, f_by = bound(f_flops, f_bytes)
+    b_bms, b_by = bound(b_flops, b_bytes)
+    fwd = lambda: chamfer_fwd(x, y)  # noqa: E731
+    bwd = lambda: chamfer_bwd(x, y, ixy, iyx, gx_loss, gy_loss)  # noqa: E731
+    rec = dict(
+        path=label, shape=[P, k, K], fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err,
+        launches=counted["chamfer_fwd"], bwd_launches=counted["chamfer_bwd"],
+        fwd_ms=cuda_ms(fwd, 20), fwd_device_ms=graph_ms(fwd),
+        fwd_plain_ms=cuda_ms(lambda: chamfer_fwd_plain(x, y), 3),
+        fwd_bound_ms=f_bms, fwd_bound_by=f_by, fwd_gflop=f_flops / 1e9,
+        # 9 instructions a pair and direction, none contracted, at one
+        # per lane and cycle: half the float32 peak, which counts FMAs
+        fwd_instr_floor_ms=2 * f_flops / FP32_FLOP_PER_S * 1e3,
+        bwd_ms=cuda_ms(bwd, 20), bwd_device_ms=graph_ms(bwd),
+        bwd_plain_ms=cuda_ms(lambda: chamfer_bwd_plain(x, y, ixy, iyx, gx_loss, gy_loss), 3),
+        bwd_bound_ms=b_bms, bwd_bound_by=b_by)
+    log(f"chamfer {label} x {tuple(x.shape)} y {tuple(y.shape)}: forward "
+        f"{rec['fwd_ms']:.4f} ms, device {rec['fwd_device_ms']:.4f} ms (plain "
+        f"{rec['fwd_plain_ms']:.3f} ms, bound {f_bms:.4f} ms by {f_by}, instruction floor "
+        f"{rec['fwd_instr_floor_ms']:.4f} ms, {f_flops / 1e9:.2f} GFLOP), indices "
+        f"bit-equal, max_abs_err {fwd_err:.3g}; backward {rec['bwd_ms']:.4f} ms, device "
+        f"{rec['bwd_device_ms']:.4f} ms (plain {rec['bwd_plain_ms']:.3f} ms, bound "
+        f"{b_bms:.5f} ms by {b_by}), max |kernel - plain| / max |plain| {rel:.3g} (limit "
+        f"{TOL_BWD}) on the loss's and a random cotangent, two launches bitwise equal; "
+        f"{rec['launches']} launches each over the path's counted steps")
+    return rec
+
+
 def chamfer_kernel_check(dev, records: dict, launches: dict) -> list:
     """Phase 16: the chamfer kernels vs their plain versions on the train
     steps' own clouds (phases 6, 12 and 15), for every path shape, with
@@ -1297,66 +1414,8 @@ def chamfer_kernel_check(dev, records: dict, launches: dict) -> list:
     under `paths` with its launches over its phase's counted steps).
     `launches` holds each counted step kind's launch counts."""
     gen = torch.Generator().manual_seed(SEED + 10)
-    paths = []
-    for label in CHAMFER_PATHS:
-        x, y, gx_loss, gy_loss = records[label]
-        P, k, K = x.shape[0], x.shape[1], y.shape[1]
-        a, b = chamfer_fwd(x, y), chamfer_fwd_plain(x, y)
-        if not (torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])):
-            raise RuntimeError(f"chamfer_fwd indices differ from the plain version ({label})")
-        fwd_err = 0.0
-        for u, v in zip(a[:2], b[:2]):
-            err, big = float((u - v).abs().max()), float(v.abs().max())
-            if not err <= TOL * big:
-                raise RuntimeError(f"chamfer_fwd distances differ from the plain version "
-                                   f"({label}): {err} > {TOL} * {big}")
-            fwd_err = max(fwd_err, err)
-        ixy, iyx = a[2], a[3]
-        cotangents = (("loss", gx_loss, gy_loss),
-                      ("random", torch.randn((P, k), generator=gen).to(dev),
-                       torch.randn((P, K), generator=gen).to(dev)))
-        bwd_err, rel = 0.0, 0.0
-        for name, gx, gy in cotangents:
-            u2 = chamfer_bwd(x, y, ixy, iyx, gx, gy)
-            v2 = chamfer_bwd_plain(x, y, ixy, iyx, gx, gy)
-            for u, v in zip(u2, v2):
-                err, big = float((u - v).abs().max()), float(v.abs().max())
-                if not err <= TOL_BWD * big:
-                    raise RuntimeError(f"chamfer_bwd differs from the plain version ({label}, "
-                                       f"{name} cotangent): {err} > {TOL_BWD} * {big}")
-                bwd_err, rel = max(bwd_err, err), max(rel, err / big if big else 0.0)
-            again = chamfer_bwd(x, y, ixy, iyx, gx, gy)
-            if not all(torch.equal(u, v) for u, v in zip(u2, again)):
-                raise RuntimeError(f"two launches of chamfer_bwd differ ({label}, {name})")
-        f_flops, f_bytes = fwd_work(P, k, K)
-        b_flops, b_bytes = bwd_work(P, k, K)
-        f_bms, f_by = bound(f_flops, f_bytes)
-        b_bms, b_by = bound(b_flops, b_bytes)
-        fwd = lambda: chamfer_fwd(x, y)  # noqa: E731
-        bwd = lambda: chamfer_bwd(x, y, ixy, iyx, gx_loss, gy_loss)  # noqa: E731
-        counted = launches[label]
-        rec = dict(
-            path=label, shape=[P, k, K], fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err,
-            launches=counted["chamfer_fwd"], bwd_launches=counted["chamfer_bwd"],
-            fwd_ms=cuda_ms(fwd, 20), fwd_device_ms=graph_ms(fwd),
-            fwd_plain_ms=cuda_ms(lambda: chamfer_fwd_plain(x, y), 3),
-            fwd_bound_ms=f_bms, fwd_bound_by=f_by, fwd_gflop=f_flops / 1e9,
-            # 9 instructions a pair and direction, none contracted, at one
-            # per lane and cycle: half the float32 peak, which counts FMAs
-            fwd_instr_floor_ms=2 * f_flops / FP32_FLOP_PER_S * 1e3,
-            bwd_ms=cuda_ms(bwd, 20), bwd_device_ms=graph_ms(bwd),
-            bwd_plain_ms=cuda_ms(lambda: chamfer_bwd_plain(x, y, ixy, iyx, gx_loss, gy_loss), 3),
-            bwd_bound_ms=b_bms, bwd_bound_by=b_by)
-        log(f"chamfer {label} x {tuple(x.shape)} y {tuple(y.shape)}: forward "
-            f"{rec['fwd_ms']:.4f} ms, device {rec['fwd_device_ms']:.4f} ms (plain "
-            f"{rec['fwd_plain_ms']:.3f} ms, bound {f_bms:.4f} ms by {f_by}, instruction floor "
-            f"{rec['fwd_instr_floor_ms']:.4f} ms, {f_flops / 1e9:.2f} GFLOP), indices "
-            f"bit-equal, max_abs_err {fwd_err:.3g}; backward {rec['bwd_ms']:.4f} ms, device "
-            f"{rec['bwd_device_ms']:.4f} ms (plain {rec['bwd_plain_ms']:.3f} ms, bound "
-            f"{b_bms:.5f} ms by {b_by}), max |kernel - plain| / max |plain| {rel:.3g} (limit "
-            f"{TOL_BWD}) on the loss's and a random cotangent, two launches bitwise equal; "
-            f"{rec['launches']} launches each over the path's counted steps")
-        paths.append(rec)
+    paths = [chamfer_path_check(dev, label, records[label], launches[label], gen)
+             for label in CHAMFER_PATHS]
     top = paths[0]
     common = dict(route="cuda", library_ms=None, paths=paths, launches_per_step=1)
     return [
@@ -1754,7 +1813,405 @@ def pppe_stage_check(name: str, new_xyz, xyz, feat, layers, nsample) -> dict:
     return rec
 
 
+def unit_cube(clouds) -> np.ndarray:
+    """Clouds scaled into [0, 1]^3 each: PPPE trains on raw clouds, and its
+    CLI expects training data already in about that range."""
+    pcs = np.stack(clouds)
+    lo, hi = pcs.min(axis=1, keepdims=True), pcs.max(axis=1, keepdims=True)
+    return ((pcs - lo) / (hi - lo).max(axis=2, keepdims=True)).astype(np.float32)
+
+
+def timed_steps(run_step, steps: int):
+    """`steps` calls of run_step() with every launch counter set to 0 just
+    before and read just after: (per-step wall seconds, the auxes, the
+    launches, the peak memory in GiB)."""
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times, auxes = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        auxes.append(run_step())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, auxes, dict(cuda_lib.launches), torch.cuda.max_memory_allocated() / 2**30
+
+
+def want_launches(steps: int, **per_step) -> dict:
+    want = {name: 0 for name in cuda_lib.KERNELS}
+    want.update({k: v * steps for k, v in per_step.items()})
+    return want
+
+
+def kernel_check(name: str, path: str, kern, plain, tol: float) -> dict:
+    """A kernel's outputs (a tensor or a list of them) vs its plain
+    version's on a new path's own inputs: each within tol of the plain
+    output's own largest entry (an integer output, such as the encoder's
+    winners, so equal); CUDA-event times of both."""
+    a, b = kern(), plain()
+    a, b = (a, b) if isinstance(a, (list, tuple)) else ([a], [b])
+    errs, bigs = [], []
+    for u, v in zip(a, b):
+        e, big = float((u - v).abs().max()), float(v.abs().max())
+        if not e <= tol * big:
+            raise RuntimeError(f"{name} differs from its plain version at {path} on "
+                               f"{tuple(v.shape)}: {e} > {tol} * {big}")
+        errs.append(e)
+        bigs.append(big)
+    rel = [e / big if big else 0.0 for e, big in zip(errs, bigs)]
+    rec = dict(path=path, shape=list(b[0].shape), max_abs_err=max(errs), rel_err=rel,
+               max_abs_plain=bigs, ms=cuda_ms(kern, 5), plain_ms=cuda_ms(plain, 1))
+    log(f"{name} at {path}, output {tuple(b[0].shape)}: {rec['ms']:.4f} ms (plain "
+        f"{rec['plain_ms']:.3f} ms); per output max |kernel - plain| / max |plain| "
+        f"{', '.join(f'{r:.3g}' for r in rel)} (limit {tol}), max |plain| "
+        f"{', '.join(f'{x:.3g}' for x in bigs)}")
+    return rec
+
+
+@contextlib.contextmanager
+def recording_encoder_bwd(rec: dict):
+    """Record the patch encoder's backward inputs (patches, winners,
+    cotangent, weights as the forward saw them) of the steps run while
+    active, as phase 6 does."""
+    backward = PatchEncoderFn.backward
+
+    def recording(ctx, g):
+        patches, winners, *wb = ctx.saved_tensors
+        rec.update(patches=patches, winners=winners, g=g.contiguous(),
+                   wb=[t.detach().clone() for t in wb])
+        return backward(ctx, g)
+
+    PatchEncoderFn.backward = staticmethod(recording)
+    try:
+        yield
+    finally:
+        PatchEncoderFn.backward = staticmethod(backward)
+
+
+def encoder_train_checks(path: str, rec: dict, knn: int) -> dict:
+    """The patch encoder and its backward vs their plain versions on a
+    recorded step's own inputs: the forward with its winners output (the
+    latents within TOL of the plain ones' largest entry, the winners equal,
+    and equal to those the step handed over), the backward on those winners
+    (every output within TOL_BWD of the plain one's largest entry)."""
+    patches, win, g = rec["patches"], rec["winners"], rec["g"]
+    sa_wb, pn_wb = _unflatten(rec["wb"])
+    with torch.no_grad():
+        if not torch.equal(patch_encoder(patches, sa_wb, pn_wb, knn, return_winners=True)[1], win):
+            raise RuntimeError(f"patch_encoder's winners at {path} differ from the step's")
+        fwd = kernel_check(
+            "patch_encoder", path,
+            lambda: patch_encoder(patches, sa_wb, pn_wb, knn, return_winners=True),
+            lambda: patch_encoder_plain(patches, sa_wb, pn_wb, knn, return_winners=True), TOL)
+    bwd = kernel_check(
+        "patch_encoder_bwd", path,
+        lambda: flat_grads(patch_encoder_bwd(patches, g, sa_wb, pn_wb, knn, winners=win)),
+        lambda: flat_grads(patch_encoder_bwd_plain(patches, g, sa_wb, pn_wb, knn, winners=win)),
+        TOL_BWD)
+    return dict(patch_encoder=fwd, patch_encoder_bwd=bwd)
+
+
+def pppe_train_phase(dev, smi: str) -> dict:
+    """Phase 21: PPPE training as cli/train_pppe_pcd_ae.py builds it, at its
+    defaults (N 8192, latent 256, L 7, batch 4, lr 5e-4), seeded weights, on
+    a fixed batch of synthetic clouds in the unit cube: one uncounted and
+    PPPE_TRAIN_STEPS counted steps (fps 3, chamfer_fwd and chamfer_bwd 1 per
+    step, nothing else), finite losses and dist and rate, loss and dist
+    lower after the steps than before; then a step on the batch with one
+    NaN coordinate, which must leave parameters, Adam moments and count,
+    running statistics and step bit for bit. Median step time, points/s,
+    peak memory; one step under torch.profiler. Returns the launches per
+    step."""
+    cfg = PPPEConfig()
+    B = PPPE_TRAIN_CLOUDS
+    tx = make_pppe_optimizer(5e-4)
+    state = create_pppe_state(SEED, cfg, tx, device="cuda")
+    step = build_pppe_train_step(tx)
+    batch = torch.from_numpy(unit_cube(synthetic_clouds(B, cfg.N, SEED + 8))).to(dev)
+    lam = 1.0 / 5000          # the CLI's lambda warm-up at its first step
+    step(state, batch, lam)                                   # uncounted
+    times, auxes, launches, peak = timed_steps(lambda: step(state, batch, lam)[1],
+                                               PPPE_TRAIN_STEPS)
+    log(f"PPPE train launches over {PPPE_TRAIN_STEPS} steps: {launches}")
+    want = want_launches(PPPE_TRAIN_STEPS, fps=3, chamfer_fwd=1, chamfer_bwd=1)
+    if launches != want:
+        raise RuntimeError(f"PPPE train launches {launches} != {want}")
+    vals = {k: torch.stack([a[k] for a in auxes]).cpu().numpy()
+            for k in ("loss", "dist", "rate", "skipped")}
+    if not all(np.isfinite(vals[k]).all() for k in ("loss", "dist", "rate")) \
+            or vals["skipped"].any():
+        raise RuntimeError(f"PPPE train: non-finite or skipped steps: {vals}")
+    if not (vals["loss"][-1] < vals["loss"][0] and vals["dist"][-1] < vals["dist"][0]):
+        raise RuntimeError(f"PPPE train: loss / dist did not fall on a fixed batch: {vals}")
+    ms = float(np.median(times)) * 1e3
+    log(f"PPPE train: {B} clouds x {cfg.N} points per step; median step {ms:.2f} ms (steps "
+        f"{min(times) * 1e3:.2f} to {max(times) * 1e3:.2f} ms), {B * cfg.N / (ms / 1e3):.0f} "
+        f"points/s on {smi}; peak memory {peak:.2f} GiB; loss {vals['loss'][0]:.6f} -> "
+        f"{vals['loss'][-1]:.6f}, dist {vals['dist'][0]:.6f} -> {vals['dist'][-1]:.6f}, rate "
+        f"{vals['rate'][-1]:.4f}")
+    profile("PPPE train step", lambda: step(state, batch, lam), top=14)
+    # one more step, recording its FPS calls and its chamfer's clouds and
+    # cotangents: the kernels vs their plain versions on the path's inputs
+    chamfer_rec = {}
+    with recording_fps() as fps_calls, recording_chamfer(chamfer_rec, "PPPE"):
+        step(state, batch, lam)
+
+    fields = ("params", "stats", "mu", "nu", "count", "step")
+    before = [getattr(state, f).clone() for f in fields]
+    bad = batch.clone()
+    bad[1, 100, 0] = float("nan")
+    _, aux = step(state, bad, lam)
+    same = [f for f, b in zip(fields, before) if torch.equal(b, getattr(state, f))]
+    if not bool(aux["skipped"]) or len(same) != len(fields):
+        raise RuntimeError(f"PPPE train: a NaN batch was not skipped whole (skipped "
+                           f"{bool(aux['skipped'])}, unchanged {same})")
+    log(f"PPPE train: a batch with a NaN coordinate skipped on the device; "
+        f"{', '.join(fields)} bit for bit unchanged")
+    per_step = {k: v // PPPE_TRAIN_STEPS for k, v in launches.items() if v}
+    checks = dict(
+        fps=[fps_check(f"PPPE train step {STAGE_OF_NPOINT[c[2]]}", c) for c in fps_calls],
+        chamfer=chamfer_path_check(dev, "N=8192 PPPE train step", chamfer_rec["PPPE"],
+                                   launches, torch.Generator().manual_seed(SEED + 13)))
+    return dict(launches_per_step=per_step, step_ms=ms, points_per_s=B * cfg.N / (ms / 1e3),
+                peak_gib=peak), checks
+
+
+def pppe_train_card_vs_cpu(dev) -> None:
+    """Phase 22: one PPPE step at TINY_PPPE on the card and on the CPU port
+    from the same seeded weights and clouds, held by compare_train_states:
+    loss to 1e-5 relative; each gradient within TOL_PPPF_STEP of its
+    tensor's largest entry (the decoder's) or TOL_PPPE_STEP (the encoder's,
+    through batch statistics), a zero gradient in exact arithmetic (the
+    stages' conv biases before batch statistics) within ZERO_GRAD of the
+    largest; parameters to lr / 4 where compare_train_states holds them,
+    and running statistics to TOL_PPPE_STEP relative. Then
+    cli/train_pppe_pcd_ae.py for 3 steps at
+    its defaults (--step_window 1), whose ae_latest.pkl the PPPE compress
+    CLI loads and whose .bin files decompress."""
+    import shutil
+    import tempfile
+
+    from pcc_tpu_torch.cli import pppe_pcd_compress, pppe_pcd_decompress, train_pppe_pcd_ae
+    from pcc_tpu_torch.io import read_point_cloud, save_point_cloud
+
+    cfg = PPPEConfig(**TINY_PPPE)
+    lr = 1e-3
+    tx = make_pppe_optimizer(lr)
+    batch = torch.from_numpy(unit_cube(synthetic_clouds(2, cfg.N, SEED + 9)))
+    card, cpu = (create_pppe_state(SEED, cfg, tx, device=d) for d in ("cuda", "cpu"))
+    step = build_pppe_train_step(tx)
+    before = dict(cuda_lib.launches)
+    _, a = step(card, batch.to(dev), 1e-2)
+    torch.cuda.synchronize()
+    chamfer_launched(before, "TINY PPPE step")
+    _, b = step(cpu, batch, 1e-2)
+    # the prob model takes no part in the loss: no gradient on either side
+    summary = compare_train_states("TINY PPPE step", float(a["loss"]), float(b["loss"]),
+                                   (("", card.model, cpu.model),), ([card.stats], [cpu.stats]),
+                                   ("encoder.",), lr, stats_tol=TOL_PPPE_STEP)
+    log(f"PPPE step at TINY_PPPE, card vs CPU port: {summary}")
+
+    full = PPPEConfig()
+    os.makedirs(os.path.join(ROOT, "_chip"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="pppe_train_", dir=os.path.join(ROOT, "_chip"))
+    try:
+        d = lambda *p: os.path.join(work, *p)  # noqa: E731
+        for i, pc in enumerate(unit_cube(synthetic_clouds(4, full.N, SEED + 10))):
+            save_point_cloud(pc, f"c{i}.ply", path=d("in"))
+        flags = ["--N", str(full.N), "--K", str(full.latent_dim), "--L", str(full.L)]
+        wall, launches = run_cli("PPPE train CLI (3 steps of 4 clouds)", train_pppe_pcd_ae.main,
+                                 ["--train_glob", d("in", "*.ply"), "--model_save_folder",
+                                  d("model"), "--max_steps", "3", "--step_window", "1", *flags])
+        if launches != want_launches(3, fps=3, chamfer_fwd=1, chamfer_bwd=1):
+            raise RuntimeError(f"PPPE train CLI launches {launches}")
+        pppe_pcd_compress.main([d("in", "*.ply"), d("comp"), d("model"), *flags])
+        pppe_pcd_decompress.main([d("comp", "*.bin"), d("dec"), d("model"), *flags])
+        for i in range(4):
+            pc = read_point_cloud(d("dec", f"c{i}.bin.ply"))
+            if pc.shape != (full.N, 3) or not np.isfinite(pc).all():
+                raise RuntimeError(f"bad PPPE decode after the train CLI: {pc.shape}")
+        log(f"PPPE train CLI: 3 steps in {wall:.0f} ms; its ae_latest.pkl compressed and "
+            "decompressed 4 clouds through the PPPE CLIs")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def coloured_clouds(n: int, N: int, seed: int):
+    """synthetic_clouds with u8 colours: a smooth function of position plus
+    noise, from a numpy seed."""
+    pcs = synthetic_clouds(n, N, seed)
+    rng = np.random.default_rng(seed + 1)
+    rgbs = [np.clip((0.5 + 0.4 * np.sin(1.5 * pc + np.array([0.0, 1.0, 2.0]))
+                     + rng.normal(0, 0.03, pc.shape)) * 255, 0, 255).astype(np.uint8)
+            for pc in pcs]
+    return pcs, rgbs
+
+
+def attr_codec_phase(dev, smi: str) -> dict:
+    """Phase 23: the attribute codec (AttrCodec, default CodecConfig, d_a
+    16, batches of 16, seeded weights) on ATTR_CLOUDS coloured clouds:
+    warm-up, then compress_many -> decompress_many with every launch counter
+    set to 0 just before each and read just after (compress fps 1,
+    patch_encoder 1; decompress patch_decoder 1; per batch, nothing else);
+    decoded symbols of both streams equal the encoded ones; colour PSNR
+    (metrics.compute_color_psnr); walls per batch; ATTR_CPU_CLOUDS clouds on
+    the CPU port: .s.bin and .c.bin byte-equal, the card's .p.bin and .a.bin
+    decoded on the CPU to the card encoder's symbols. Returns the launches
+    per batch."""
+    from pcc_tpu_torch.attrib import AttrCodec, init_attr_params
+    from pcc_tpu_torch.metrics import compute_color_psnr
+
+    cfg = CodecConfig()
+    n = ATTR_CLOUDS
+    clouds, rgbs = coloured_clouds(n, cfg.N, SEED + 11)
+    ae_sd, prob_sd = init_params(SEED, cfg)
+    attr_sd, attr_prob_sd = init_attr_params(SEED + 1, cfg, ATTR_DA)
+    params = {"ae": ae_sd, "prob": prob_sd, "attr": attr_sd, "attr_prob": attr_prob_sd}
+    card = AttrCodec(cfg, params, batch_size=16, d_a=ATTR_DA, device="cuda")
+    card.decompress_many(card.compress_many(clouds, rgbs))        # warm-up, uncounted
+    torch.cuda.synchronize()
+    walls, launches = {}, {}
+    for kind, fn in (("compress", lambda: card.compress_many(clouds, rgbs)),
+                     ("decompress", lambda: card.decompress_many(streams))):
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[kind] = (time.perf_counter() - t0) * 1e3
+        launches[kind] = dict(cuda_lib.launches)
+        if kind == "compress":
+            streams = out
+        else:
+            decoded = out
+    batches = -(-n // 16)
+    for kind, per in (("compress", dict(fps=1, patch_encoder=1)),
+                      ("decompress", dict(patch_decoder=1))):
+        if launches[kind] != want_launches(batches, **per):
+            raise RuntimeError(f"attribute {kind} launches {launches[kind]}")
+    starts = np.zeros(n, np.int32)
+    recs = skeletons([(p, s, c) for p, s, c, _ in streams])
+    with torch.inference_mode():
+        res = card.encode_batch(np.stack(clouds), np.stack(rgbs), starts)
+        sym, asym = res.sym.cpu().numpy(), res.asym.cpu().numpy()
+        got = card.decode_symbols(recs, [s[0] for s in streams], [s[3] for s in streams])
+    if not (np.array_equal(got[0], sym) and np.array_equal(got[1], asym)):
+        raise RuntimeError("attribute codec: decoded symbols differ from the encoded ones")
+    for pc, rgb in decoded:
+        if pc.shape != (cfg.S * cfg.k, 3) or rgb.shape != pc.shape or not np.isfinite(pc).all():
+            raise RuntimeError(f"bad attribute decode: {pc.shape}, {rgb.shape}")
+    psnr = [compute_color_psnr(c, r, pc, rgb, device="cuda")
+            for c, r, (pc, rgb) in zip(clouds, rgbs, decoded)]
+    bits = [8 * sum(len(b) for b in s) / cfg.N for s in streams]
+    abits = [8 * len(s[3]) / cfg.N for s in streams]
+
+    # the kernels vs their plain versions on the batch's own inputs
+    path = "attribute codec batch"
+    with torch.inference_mode(), recording_fps() as fps_calls:
+        pcs_t, st = unpack_encode_upload(torch.from_numpy(
+            pack_encode_upload(np.stack(clouds), starts).view(np.int32)).to(dev), cfg.N)
+        geo = encode_geometry(pcs_t, st, cfg)
+    with torch.inference_mode():
+        ae = card.ae
+        sa_wb, pn_wb = ae.sa.layers(), ae.pn.layers()
+        latent_q = (res.sym.to(torch.float32) - cfg.L // 2).reshape(-1, cfg.d).contiguous()
+        h2, w3r, b3r, mlp_wb, packed_w = ae.decoder_inputs(latent_q)
+        checks = dict(
+            fps=[fps_check(f"{path} skeleton", c) for c in fps_calls],
+            patch_encoder=kernel_check(
+                "patch_encoder", path,
+                lambda: patch_encoder(geo.patches, sa_wb, pn_wb, cfg.sa_knn),
+                lambda: patch_encoder_plain(geo.patches, sa_wb, pn_wb, cfg.sa_knn), TOL),
+            patch_decoder=kernel_check(
+                "patch_decoder", path,
+                lambda: patch_decoder(h2, latent_q, w3r, b3r, mlp_wb, cfg.k, packed=packed_w),
+                lambda: patch_decoder_plain(h2, latent_q, w3r, b3r, mlp_wb, cfg.k), TOL))
+
+    m = ATTR_CPU_CLOUDS
+    cpu = AttrCodec(cfg, params, batch_size=16, d_a=ATTR_DA, device="cpu")
+    for j, (ours, theirs) in enumerate(zip(cpu.compress_many(clouds[:m], rgbs[:m]), streams)):
+        if ours[1] != theirs[1] or ours[2] != theirs[2]:
+            raise RuntimeError(f"cloud {j}: card .s.bin/.c.bin differ from the CPU port's")
+    got = cpu.decode_symbols(recs[:m], [s[0] for s in streams[:m]], [s[3] for s in streams[:m]])
+    if not (np.array_equal(got[0], sym[:m]) and np.array_equal(got[1], asym[:m])):
+        raise RuntimeError("the CPU port decodes the card's .p.bin / .a.bin to other symbols")
+    log(f"attribute codec: {n} coloured clouds x {cfg.N} points, d_a {ATTR_DA}; compress "
+        f"{walls['compress']:.1f} ms, decompress {walls['decompress']:.1f} ms for {batches} "
+        f"batch(es) of 16 on {smi}; launches {launches}; decoded symbols equal the encoded "
+        f"ones; {np.mean(bits):.4f} bits per point ({np.mean(abits):.4f} of them .a.bin); "
+        f"colour PSNR {np.mean(psnr):.3f} dB (random weights); CPU port on {m} clouds: .s/.c "
+        "byte-equal, the card's .p/.a decode to the card's symbols")
+    return dict(launches_per_batch={k: {n_: v // batches for n_, v in d.items() if v}
+                                    for k, d in launches.items()},
+                compress_ms_per_batch=walls["compress"] / batches,
+                decompress_ms_per_batch=walls["decompress"] / batches,
+                color_psnr=float(np.mean(psnr))), checks
+
+
+def attr_train_phase(dev, smi: str) -> dict:
+    """Phase 24: the attribute train step as cli/train_attributes.py builds
+    it (default CodecConfig, d_a 16, lam 1e-4, colour weight 1) on
+    ATTR_TRAIN_CLOUDS coloured clouds: one uncounted and ATTR_TRAIN_STEPS
+    counted steps (fps, patch_encoder, patch_encoder_bwd, chamfer_fwd and
+    chamfer_bwd once per step, nothing else), finite losses, parameters
+    moved; median step time, peak memory; one step under torch.profiler.
+    Returns the launches per step."""
+    from pcc_tpu_torch.attrib import build_attr_train_step, create_attr_train_state
+
+    cfg = CodecConfig()
+    B = ATTR_TRAIN_CLOUDS
+    tx = make_optimizer(5e-4, 0.1, 8000, 10000)
+    state = create_attr_train_state(SEED, cfg, tx, ATTR_DA, device="cuda")
+    step = build_attr_train_step(cfg, tx)
+    clouds, rgbs = coloured_clouds(B, cfg.N, SEED + 12)
+    batch = torch.from_numpy(np.stack(clouds)).to(dev)
+    colors = torch.from_numpy(np.stack(rgbs).astype(np.float32) / 255.0).to(dev)
+    gen = torch.Generator().manual_seed(SEED + 2)
+
+    def run():
+        starts = torch.randint(0, cfg.N, (B,), generator=gen, dtype=torch.int32).to(dev)
+        return step(state, batch, colors, starts, 1e-4)[1]
+
+    before = [p.detach().clone() for _, p in state.named_parameters()]
+    run()                                                     # uncounted
+    times, auxes, launches, peak = timed_steps(run, ATTR_TRAIN_STEPS)
+    log(f"attribute train launches over {ATTR_TRAIN_STEPS} steps: {launches}")
+    want = want_launches(ATTR_TRAIN_STEPS, fps=1, patch_encoder=1, patch_encoder_bwd=1,
+                         chamfer_fwd=1, chamfer_bwd=1)
+    if launches != want:
+        raise RuntimeError(f"attribute train launches {launches} != {want}")
+    losses = torch.stack([a["loss"] for a in auxes]).cpu().numpy()
+    color = torch.stack([a["color_mse"] for a in auxes]).cpu().numpy()
+    if not (np.isfinite(losses).all() and np.isfinite(color).all()):
+        raise RuntimeError(f"non-finite attribute train loss: {losses}, {color}")
+    moved = sum(not torch.equal(a, p.detach()) for a, (_, p) in
+                zip(before, state.named_parameters()))
+    if moved == 0:
+        raise RuntimeError("no parameter moved in attribute training")
+    ms = float(np.median(times)) * 1e3
+    log(f"attribute train: {B} clouds x {cfg.N} points per step; median step {ms:.2f} ms "
+        f"(steps {min(times) * 1e3:.2f} to {max(times) * 1e3:.2f} ms), "
+        f"{B * cfg.N / (ms / 1e3):.0f} points/s on {smi}; peak memory {peak:.2f} GiB; loss "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}, colour MSE {color[0]:.6f} -> {color[-1]:.6f}; "
+        f"{moved} of {len(before)} parameter tensors moved")
+    profile("attribute train step", run, top=14)
+    # one more step, recording the kernels' inputs on this path
+    chamfer_rec, enc_rec = {}, {}
+    with recording_fps() as fps_calls, recording_chamfer(chamfer_rec, "attr"), \
+            recording_encoder_bwd(enc_rec):
+        run()
+    path = "attribute train step"
+    checks = dict(
+        fps=[fps_check(f"{path} skeleton", c) for c in fps_calls],
+        **encoder_train_checks(path, enc_rec, cfg.sa_knn),
+        chamfer=chamfer_path_check(dev, f"N=8192 {path}", chamfer_rec["attr"], launches,
+                                   torch.Generator().manual_seed(SEED + 14)))
+    return dict(launches_per_step={k: v // ATTR_TRAIN_STEPS for k, v in launches.items() if v},
+                step_ms=ms, points_per_s=B * cfg.N / (ms / 1e3), peak_gib=peak), checks
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -1973,6 +2430,30 @@ def main() -> int:
         f"bound {kr['bound_ms']:.4f} ms by {kr['bound_by']}), launches {kr['launches']} per "
         "PPPE compress batch")
 
+    # 21-22. PPPE training; 23-24. the attribute codec and its training; each
+    # kernel of those paths held against its plain version on their inputs
+    pppe_train, pppe_checks = pppe_train_phase(dev, smi)
+    pppe_train_card_vs_cpu(dev)
+    attr, attr_checks = attr_codec_phase(dev, smi)
+    attr_train, attr_train_checks = attr_train_phase(dev, smi)
+    new_paths = {"PPPE train step": pppe_train["launches_per_step"],
+                 "attribute compress batch": attr["launches_per_batch"]["compress"],
+                 "attribute decompress batch": attr["launches_per_batch"]["decompress"],
+                 "attribute train step": attr_train["launches_per_step"]}
+    by_name = {kr["name"]: kr for kr in kernels}
+    for kr in kernels:
+        if kr["name"] in cuda_lib.KERNELS:
+            kr["launches_new_paths"] = {path: counts.get(kr["name"], 0)
+                                        for path, counts in new_paths.items()}
+    for checks in (pppe_checks, attr_checks, attr_train_checks):
+        by_name["fps"]["shapes"] += checks.pop("fps")
+        if "chamfer" in checks:      # both chamfer records share one `paths` list
+            by_name["chamfer_fwd"]["paths"].append(checks.pop("chamfer"))
+        for kernel, rec in checks.items():
+            by_name[kernel].setdefault("new_paths", []).append(rec)
+    log("phases 21-24: " + json.dumps({"PPPE train": pppe_train, "attribute codec": attr,
+                                       "attribute train": attr_train}))
+    log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,10 +1,11 @@
-"""Shared CLI pieces: the reference's codec flags and codec loading."""
+"""Shared CLI pieces: the reference's codec flags and codec loading (the
+geometry codec, and with --attributes the geometry + RGB one)."""
 
 from __future__ import annotations
 
 from pcc_tpu_torch.codec import Codec, init_params
 from pcc_tpu_torch.config import DEFAULT_SEED, MODELS, CodecConfig
-from pcc_tpu_torch.weights import load_inference_params
+from pcc_tpu_torch.weights import load_attr_params, load_inference_params
 
 
 def add_codec_flags(p) -> None:
@@ -24,6 +25,8 @@ def add_codec_flags(p) -> None:
                         "pcc_tpu's CLIs.")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="Device to run on; 'cuda' raises when there is no card.")
+    p.add_argument("--d_a", type=int, default=16,
+                   help="Attribute bottleneck size (with --attributes).")
 
 
 def config_from_args(args) -> CodecConfig:
@@ -47,3 +50,25 @@ def load_codec(model_load_folder: str, cfg: CodecConfig, seed: int,
               "using randomly initialized weights.")
         ae_state, prob_state = init_params(seed, cfg)
     return Codec(cfg, ae_state, prob_state, batch_size=batch_size, device=device)
+
+
+def load_attr_codec(model_load_folder: str, cfg: CodecConfig, seed: int, d_a: int = 16,
+                    device: str = "cuda"):
+    """AttrCodec (batches of 16, as pcc_tpu's) from pcc_tpu's ae/prob/attr/
+    attr_prob pickles in the folder; a missing pair gets seeded random
+    weights (the attribute pair from seed + 1), with a warning."""
+    from pcc_tpu_torch.attrib import AttrCodec, init_attr_params
+
+    ae_state, prob_state = load_inference_params(model_load_folder)
+    if ae_state is None:
+        print(f"WARNING: no ae.pkl/prob.pkl in {model_load_folder}; "
+              "using randomly initialized weights.")
+        ae_state, prob_state = init_params(seed, cfg)
+    attr_state, attr_prob_state = load_attr_params(model_load_folder)
+    if attr_state is None:
+        print(f"WARNING: no attr.pkl/attr_prob.pkl in {model_load_folder}; "
+              "using randomly initialized attribute weights.")
+        attr_state, attr_prob_state = init_attr_params(seed + 1, cfg, d_a)
+    params = {"ae": ae_state, "prob": prob_state, "attr": attr_state,
+              "attr_prob": attr_prob_state}
+    return AttrCodec(cfg, params, d_a=d_a, device=device)

@@ -2,8 +2,12 @@
 
 Same positional arguments, flags and outputs ({name}.p.bin/.s.bin/.c.bin,
 compress.py:139-152) as pcc_tpu's compress; the streams are byte-compatible.
+--attributes also codes each cloud's RGB into {name}.a.bin (pcc_tpu's
+extension, attrib.py), with attr.pkl / attr_prob.pkl from the model folder;
+clouds without RGB are skipped.
 
   python -m pcc_tpu_torch.cli.compress 'in/*.ply' comp/ model/ [--model PPPF-AE] [--device cpu]
+  python -m pcc_tpu_torch.cli.compress 'in/*.ply' comp/ model/ --attributes [--d_a 16]
 """
 
 from __future__ import annotations
@@ -14,8 +18,8 @@ import time
 from glob import glob
 
 from pcc_tpu_torch.cli._common import (add_codec_flags, batch_size_from_args,
-                                        config_from_args, load_codec)
-from pcc_tpu_torch.io import read_point_cloud
+                                        config_from_args, load_attr_codec, load_codec)
+from pcc_tpu_torch.io import read_point_cloud, read_point_cloud_attr
 
 
 def build_parser():
@@ -28,7 +32,16 @@ def build_parser():
     p.add_argument("compressed_path", help="Compressed .bin files folder.")
     p.add_argument("model_load_folder", help="Directory where to load trained models.")
     add_codec_flags(p)
+    p.add_argument("--attributes", action="store_true",
+                   help="Also compress RGB attributes into a {name}.a.bin stream "
+                        "(extension; the reference codes geometry only).")
     return p
+
+
+def write_streams(folder: str, name: str, blobs) -> None:
+    for ext, blob in zip((".p.bin", ".s.bin", ".c.bin", ".a.bin"), blobs):
+        with open(os.path.join(folder, name + ext), "wb") as fo:
+            fo.write(blob)
 
 
 def main(argv=None):
@@ -37,6 +50,8 @@ def main(argv=None):
     if not files:
         raise SystemExit(f"no input files match {args.input_glob}")
     os.makedirs(args.compressed_path, exist_ok=True)
+    if args.attributes:
+        return compress_with_attributes(args, files)
     codec = load_codec(args.model_load_folder, config_from_args(args), args.seed,
                        batch_size=batch_size_from_args(args), device=args.device)
     print(f"Processing on device: {codec.device}")
@@ -46,11 +61,29 @@ def main(argv=None):
     streams = codec.compress_many(clouds)
     elapsed = time.time() - start
     for f, blobs in zip(files, streams):
-        name = os.path.split(f)[1]
-        for ext, blob in zip((".p.bin", ".s.bin", ".c.bin"), blobs):
-            with open(os.path.join(args.compressed_path, name + ext), "wb") as fo:
-                fo.write(blob)
+        write_streams(args.compressed_path, os.path.split(f)[1], blobs)
     print(f"Done! Execution time: {round(elapsed / len(files), 5)}s per point cloud.")
+
+
+def compress_with_attributes(args, files) -> None:
+    codec = load_attr_codec(args.model_load_folder, config_from_args(args), args.seed,
+                            d_a=args.d_a, device=args.device)
+    print(f"Processing on device: {codec.device}")
+    start = time.time()
+    clouds, rgbs, names = [], [], []
+    for f in files:
+        pc, rgb = read_point_cloud_attr(f)
+        if rgb is None:
+            print(f"skipping {f}: no RGB attributes")
+            continue
+        clouds.append(pc)
+        rgbs.append(rgb)
+        names.append(os.path.split(f)[1])
+    for name, blobs in zip(names, codec.compress_many(clouds, rgbs)):
+        write_streams(args.compressed_path, name, blobs)
+    if names:
+        print(f"Done! Execution time: {round((time.time() - start) / len(names), 5)}s "
+              "per point cloud.")
 
 
 if __name__ == "__main__":

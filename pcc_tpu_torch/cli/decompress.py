@@ -1,7 +1,10 @@
 """Decompress .p/.s/.c.bin streams to .ply (reference decompress.py CLI,
 PyTorch port). Output files are named {name}.bin.ply, as pcc_tpu's.
+--attributes also decodes {name}.a.bin into the PLY's RGB (pcc_tpu's
+extension); a cloud without its .a.bin is skipped.
 
   python -m pcc_tpu_torch.cli.decompress comp/ decomp/ model/ [--model PPPF-AE] [--device cpu]
+  python -m pcc_tpu_torch.cli.decompress comp/ decomp/ model/ --attributes [--d_a 16]
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ import time
 from glob import glob
 
 from pcc_tpu_torch.cli._common import (add_codec_flags, batch_size_from_args,
-                                        config_from_args, load_codec)
+                                        config_from_args, load_attr_codec, load_codec)
 from pcc_tpu_torch.io import save_point_cloud
 
 
@@ -26,7 +29,22 @@ def build_parser():
     p.add_argument("decompressed_path", help="Decompressed .ply files folder.")
     p.add_argument("model_load_folder", help="Directory where to load trained models.")
     add_codec_flags(p)
+    p.add_argument("--attributes", action="store_true",
+                   help="Decode {name}.a.bin RGB streams into colored .ply outputs "
+                        "(extension; the reference codes geometry only).")
     return p
+
+
+def read_streams(folder: str, name: str, exts):
+    """The streams of `name` with the extensions, or None if one is missing."""
+    blobs = []
+    for ext in exts:
+        path = os.path.join(folder, name + ext)
+        if not os.path.exists(path):
+            return None
+        with open(path, "rb") as fi:
+            blobs.append(fi.read())
+    return tuple(blobs)
 
 
 def main(argv=None):
@@ -35,25 +53,42 @@ def main(argv=None):
     if not files:
         raise SystemExit(f"no .s.bin files in {args.compressed_path}")
     os.makedirs(args.decompressed_path, exist_ok=True)
+    if args.attributes:
+        return decompress_with_attributes(args, files)
     codec = load_codec(args.model_load_folder, config_from_args(args), args.seed,
                        batch_size=batch_size_from_args(args), device=args.device)
     print(f"Processing on device: {codec.device}")
 
-    names, streams = [], []
-    for f in files:
-        name = os.path.split(f)[1][: -len(".s.bin")]
-        names.append(name)
-        blobs = []
-        for ext in (".p.bin", ".s.bin", ".c.bin"):
-            with open(os.path.join(args.compressed_path, name + ext), "rb") as fi:
-                blobs.append(fi.read())
-        streams.append(tuple(blobs))
+    names = [os.path.split(f)[1][: -len(".s.bin")] for f in files]
+    streams = [read_streams(args.compressed_path, name, (".p.bin", ".s.bin", ".c.bin"))
+               for name in names]
     start = time.time()
     clouds = codec.decompress_many(streams)
     elapsed = time.time() - start
     for name, pc in zip(names, clouds):
         save_point_cloud(pc, name + ".bin.ply", path=args.decompressed_path)
     print(f"Done! Execution time: {round(elapsed / len(files), 5)}s per point cloud.")
+
+
+def decompress_with_attributes(args, files) -> None:
+    codec = load_attr_codec(args.model_load_folder, config_from_args(args), args.seed,
+                            d_a=args.d_a, device=args.device)
+    print(f"Processing on device: {codec.device}")
+    start = time.time()
+    names, streams = [], []
+    for f in files:
+        name = os.path.split(f)[1][: -len(".s.bin")]
+        blobs = read_streams(args.compressed_path, name, (".p.bin", ".s.bin", ".c.bin", ".a.bin"))
+        if blobs is None:
+            print(f"skipping {name}: missing attribute stream")
+            continue
+        names.append(name)
+        streams.append(blobs)
+    for name, (pc, rgb) in zip(names, codec.decompress_many(streams)):
+        save_point_cloud(pc, name + ".bin.ply", path=args.decompressed_path, rgb=rgb)
+    if names:
+        print(f"Done! Execution time: {round((time.time() - start) / len(names), 5)}s "
+              "per point cloud.")
 
 
 if __name__ == "__main__":

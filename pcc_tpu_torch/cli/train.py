@@ -6,10 +6,10 @@ train.py:29-53,254), plus --device cuda|cpu ('cuda' raises where there is
 no card). On the card the step runs the port's CUDA kernels (IPDAE: FPS,
 the patch encoder and its backward; PPPF-AE: FPS, and after the BatchNorm
 warm-up the PN++ stage and its backward; both families the chamfer
-forward and backward at --N 512, where the decoded and input clouds of a
-step fit them, ops/chamfer_cuda.py::fits_kernel); on the CPU their plain
-versions.
-Checkpoints are pcc_tpu-readable (train/checkpoint.py).
+forward and backward at every cloud size, ops/chamfer.py's route); on the
+CPU their plain versions.
+Checkpoints are pcc_tpu-readable (train/checkpoint.py). PPPE training is
+cli/train_pppe_pcd_ae.py, the attribute codec's cli/train_attributes.py.
 
   python -m pcc_tpu_torch.cli.train --train_glob 'in/*.ply' \\
       --model_save_folder model/ --batch_size 8 [--model PPPF-AE] [--device cpu]
@@ -17,8 +17,9 @@ Checkpoints are pcc_tpu-readable (train/checkpoint.py).
 --model PPPF-AE trains the first --bn_warmup_steps steps with the
 encoder's BatchNorm on batch statistics (plain products), then the fused
 step with them frozen (train/steps_pppf.py), as pcc_tpu's --fused_encoder
-auto does on one accelerator; --fused_encoder itself is not ported. Not
-ported yet, and refused with a message: --bf16, --devices > 1.
+auto does on one accelerator. Not ported yet, and refused with a message:
+--bf16, --devices > 1; --fused_encoder and --jax_debug_nans are not
+flags of this parser, which rejects them.
 """
 
 from __future__ import annotations

@@ -135,6 +135,7 @@ class Geometry(NamedTuple):
     longest: torch.Tensor       # [B]
     octree: OctreeResult        # octree analysis of the FPS skeletons
     patches: torch.Tensor       # [B*S, K, 3] scaled patches (the encoder input)
+    knn_idx: torch.Tensor       # [B, S, K] each patch's points in pc01 (attrib.py's colours)
 
 
 def encode_geometry(pcs: torch.Tensor, fps_starts: torch.Tensor,
@@ -148,11 +149,11 @@ def encode_geometry(pcs: torch.Tensor, fps_starts: torch.Tensor,
     sampled = torch.gather(pc01, 1, idx.long()[..., None].expand(-1, -1, 3))
     octree = octree_analyze(sampled, cfg.N, cfg.min_bpp, cfg.max_depth)
     rec = octree.rec_xyz
-    _, _, grouped = knn_points(rec, pc01, K=cfg.K, return_nn=True)
+    _, knn_idx, grouped = knn_points(rec, pc01, K=cfg.K, return_nn=True)
     patches = (grouped - rec[:, :, None, :]) * cfg.patch_scale      # [B, S, K, 3]
     B, S = patches.shape[:2]
     return Geometry(pc01, center, longest, octree,
-                    patches.reshape(B * S, cfg.K, 3).contiguous())
+                    patches.reshape(B * S, cfg.K, 3).contiguous(), knn_idx)
 
 
 def integer_pmf_weights(bundle, rec_xyz: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
@@ -262,6 +263,13 @@ class Codec:
 
     def compress_many(self, clouds, fps_starts=None):
         """Compress a list of [N, 3] clouds -> list of (p, s, c) bytes."""
+        return self._compress_many(clouds, (), fps_starts)
+
+    def _compress_many(self, clouds, extras, fps_starts):
+        """Clouds of equal size in batches of up to batch_size through
+        encode_batch(clouds, *extras, starts) and serialize, in input order.
+        `extras`: per-cloud lists beside the clouds that encode_batch takes
+        stacked (AttrCodec's colours)."""
         if fps_starts is None:
             fps_starts = [0] * len(clouds)
         results: list = [None] * len(clouds)
@@ -272,7 +280,7 @@ class Codec:
             for lo in range(0, len(idxs), self.batch_size):
                 batch = idxs[lo:lo + self.batch_size]
                 res = self.encode_batch(
-                    np.stack([clouds[i] for i in batch]),
+                    *(np.stack([col[i] for i in batch]) for col in (clouds, *extras)),
                     np.asarray([fps_starts[i] for i in batch], np.int32))
                 for i, blob in zip(batch, self.serialize(res)):
                     results[i] = blob
@@ -306,14 +314,21 @@ class Codec:
         return (pc01 - 0.5) * (headers[:, None, 3:4] / (1.0 - margin)) \
             + headers[:, None, :3]
 
+    def decode_streams(self, recs: np.ndarray, headers: np.ndarray, streams):
+        """One batch: skeletons [B, S, 3], .c.bin headers [B, 4] and the
+        clouds' stream tuples -> one decoded cloud per tuple."""
+        syms = self.decode_symbols(recs, [s[0] for s in streams])
+        return self.decode_batch(syms, recs, headers)
+
     def decompress_many(self, streams):
-        """Decompress a list of (p, s, c) byte triples -> list of [M, 3]."""
+        """Decompress a list of (p, s, c) byte triples -> list of [M, 3],
+        one decode_streams output per triple."""
         results: list = [None] * len(streams)
         parsed = []
-        for _, s_bytes, c_bytes in streams:
-            codes, depth = parse_octree_bits(unpack_bits(s_bytes))
+        for st in streams:
+            codes, depth = parse_octree_bits(unpack_bits(st[1]))
             parsed.append((codes_to_points(codes, depth),
-                           np.frombuffer(c_bytes, dtype=np.float32)))
+                           np.frombuffer(st[2], dtype=np.float32)))
         by_s: dict[int, list[int]] = {}
         for i, (rec, _) in enumerate(parsed):
             by_s.setdefault(rec.shape[0], []).append(i)
@@ -322,7 +337,7 @@ class Codec:
                 batch = idxs[lo:lo + self.batch_size]
                 recs = np.stack([parsed[i][0] for i in batch])
                 headers = np.stack([parsed[i][1] for i in batch])
-                syms = self.decode_symbols(recs, [streams[i][0] for i in batch])
-                for i, pc in zip(batch, self.decode_batch(syms, recs, headers)):
-                    results[i] = pc
+                decoded = self.decode_streams(recs, headers, [streams[i] for i in batch])
+                for i, out in zip(batch, decoded):
+                    results[i] = out
         return results

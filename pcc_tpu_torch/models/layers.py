@@ -90,7 +90,9 @@ def batch_norm_train(h: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     torch's momentum 0.1 and the unbiased variance.)"""
     dims = tuple(range(h.dim() - 1))
     mean = h.mean(dim=dims)
-    var = torch.clamp_min((h * h).mean(dim=dims) - mean * mean, 0.0)
+    # jnp.maximum(0, .): a variance of exactly 0 (a channel constant over
+    # the batch) passes half its gradient, as flax's does
+    var = torch.maximum((h * h).mean(dim=dims) - mean * mean, h.new_zeros(()))
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
         bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)

@@ -1,4 +1,4 @@
-"""PPPE: the whole-cloud fast autoencoder family, eval mode (counterpart of
+"""PPPE: the whole-cloud fast autoencoder family (counterpart of
 pcc_tpu/models/pppe.py; reference pppe_pcd_ae.py's live classes).
 
 A stacked PN++ encoder (one multi-scale stage and two single-scale stages,
@@ -18,12 +18,16 @@ conv2d_bn_relu lacks and pcc_tpu's TorchDense has: seeded weights set it to
 0, so that the importer (which writes zeros) carries the port's weights
 exactly, and pcc_tpu's checkpoints load with theirs.
 
-Eval mode only (running BatchNorm statistics); a module in training mode
-raises. sa2 and sa3 run ops/pppf_sa_cuda.py::pppf_sa_fused in its "pppe"
-layout (the CUDA kernel csrc/pppf_sa_stage.cu on the card, its plain
-version on the CPU), as pcc_tpu's fused flag routes them to its Pallas
-kernel; the multi-scale stage takes one FPS and one top-32 selection for
-both branches and runs its stacks as plain products, as pcc_tpu does.
+In eval mode (running BatchNorm statistics) sa2 and sa3 run
+ops/pppf_sa_cuda.py::pppf_sa_fused in its "pppe" layout (the CUDA kernel
+csrc/pppf_sa_stage.cu on the card, its plain version on the CPU), as
+pcc_tpu's fused flag routes them to its Pallas kernel; the multi-scale
+stage takes one FPS and one top-32 selection for both branches and runs its
+stacks as plain products, as pcc_tpu does. In training mode every stack,
+sa1's branches, sa2, sa3 and global_conv's BatchNorm over the B clouds,
+runs as plain products on batch statistics (layers.batch_norm_train,
+flax's), as pcc_tpu's `fused and not train` gate leaves them; the
+stages' FPS still runs on the FPS kernel (ops/fps.py).
 """
 
 from __future__ import annotations
@@ -34,29 +38,32 @@ import torch
 from torch import nn
 
 from pcc_tpu_torch.config import PPPEConfig
-from pcc_tpu_torch.models.layers import PointConv, torch_dense_init_
+from pcc_tpu_torch.models.layers import PointConv, batch_norm_train, torch_dense_init_
 from pcc_tpu_torch.ops.fps import fps_batch
 from pcc_tpu_torch.ops.knn import knn_gather, knn_points
 from pcc_tpu_torch.ops.pppf_sa_cuda import fold_bn, pppf_sa_fused
 
 
-def _eval_only(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: PPPE runs in eval mode only in pcc_tpu_torch "
-            "(call .eval(); PPPE training is not ported yet)")
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip(x, lo, hi): the values of torch.clamp, and jnp.clip's
+    gradient, which is 0.5 where x sits exactly on a bound (torch.clamp's is
+    1 there): torch.maximum / torch.minimum split a tie between their
+    operands, as jnp.maximum / jnp.minimum do."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
 
 
 def quantize_st(x: torch.Tensor, min_val: float, max_val: float, levels: int) -> torch.Tensor:
     """Clamp -> scale to [0, levels-1] -> straight-through round -> clamp
-    (pppe_pcd_ae.py:719-735), pcc_tpu's float32 operations in its order."""
-    x_c = torch.clamp(x, min_val, max_val)
+    (pppe_pcd_ae.py:719-735), pcc_tpu's float32 operations in its order.
+    Both clamps are jnp.clip's (`clip`): a latent on a bound, and every
+    symbol 0 or levels-1 after the round, get half the gradient."""
+    x_c = clip(x, min_val, max_val)
     # divide by a float32 tensor: torch's division by a Python scalar
     # multiplies by its reciprocal on the card
     span = torch.tensor(max_val - min_val + 1e-9, dtype=x.dtype, device=x.device)
     scaled = (x_c - min_val) / span * (levels - 1)
     y = (torch.round(scaled) - scaled).detach() + scaled
-    return torch.clamp(y, 0, levels - 1)
+    return clip(y, 0.0, levels - 1.0)
 
 
 def bn_eval(h: torch.Tensor, bn) -> torch.Tensor:
@@ -64,6 +71,12 @@ def bn_eval(h: torch.Tensor, bn) -> torch.Tensor:
     (h - mean) * (rsqrt(var + eps) * scale) + bias."""
     mean, mul, bias = fold_bn(bn)
     return (h - mean) * mul + bias
+
+
+def bn(h: torch.Tensor, module: nn.Module, norm) -> torch.Tensor:
+    """`norm`'s BatchNorm of h: on the batch's statistics (running ones
+    updated) when `module` trains, else on the running statistics."""
+    return batch_norm_train(h, norm) if module.training else bn_eval(h, norm)
 
 
 def conv_bn_relu(cin: int, features: Sequence[int]) -> nn.ModuleList:
@@ -93,7 +106,7 @@ class PointNetSetAbstractionKNN(nn.Module):
 
     def stack(self, x: torch.Tensor) -> torch.Tensor:
         for m in self.mlp_stack:
-            x = torch.relu(bn_eval(m[0](x), m[1]))
+            x = torch.relu(bn(m[0](x), self, m[1]))
         return x
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor | None = None,
@@ -101,13 +114,16 @@ class PointNetSetAbstractionKNN(nn.Module):
         """precomputed: (new_xyz, knn_idx, grouped_xyz) at K' >= self.K from
         a sibling branch sharing its centroids (the MSG stage): the leading K
         slots of a sorted larger selection are this branch's own."""
-        _eval_only(self)
         if precomputed is None:
             new_xyz = centroids(xyz, self.npoint)
-            return new_xyz, pppf_sa_fused(
-                new_xyz, xyz.contiguous(), None if features is None else features.contiguous(),
-                self.layers(), nsample=self.K, radius=0.0, layout="pppe")
-        new_xyz, knn_idx, grouped_xyz = precomputed
+            if not self.training:
+                return new_xyz, pppf_sa_fused(
+                    new_xyz, xyz.contiguous(),
+                    None if features is None else features.contiguous(),
+                    self.layers(), nsample=self.K, radius=0.0, layout="pppe")
+            _, knn_idx, grouped_xyz = knn_points(new_xyz, xyz, K=self.K, return_nn=True)
+        else:
+            new_xyz, knn_idx, grouped_xyz = precomputed
         grouped = grouped_xyz[:, :, :self.K] - new_xyz[:, :, None, :]
         if features is not None:
             grouped = torch.cat([grouped, knn_gather(features, knn_idx[..., :self.K])], dim=-1)
@@ -136,7 +152,6 @@ class PointNetSetAbstractionMSG(nn.Module):
             [PointNetSetAbstractionKNN(npoint, sc["K"], cin, sc["mlp"]) for sc in scales])
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor | None = None):
-        _eval_only(self)
         new_xyz = centroids(xyz, self.npoint)
         k_max = max(b.K for b in self.branches)
         _, knn_idx, grouped_xyz = knn_points(new_xyz, xyz, K=k_max, return_nn=True)
@@ -163,12 +178,11 @@ class PointNet2EncoderFull(nn.Module):
             PointConv(512, latent_dim, conv_dims=1))
 
     def forward(self, x: torch.Tensor):
-        _eval_only(self)
         xyz, feat = x, None
         for sa in self.sa_modules:
             xyz, feat = sa(xyz, feat)
         global_feat = feat.amax(dim=1)                          # [B, 512]
-        h = torch.relu(bn_eval(self.global_conv[0](global_feat), self.global_conv[1]))
+        h = torch.relu(bn(self.global_conv[0](global_feat), self, self.global_conv[1]))
         return self.global_conv[3](h), global_feat
 
 
@@ -250,6 +264,19 @@ class PointCloudAE(nn.Module):
         y_global = y_dequant[:, :, None].expand(-1, -1, N).mean(dim=2)
         coarse, fine = self.decoder(y_global)
         return coarse, fine, cond_feats, y_q[:, :, None].expand(-1, -1, N)
+
+
+@torch.no_grad()
+def estimate_bits_per_point_conditional(model: PointCloudAE, y_q: torch.Tensor,
+                                        cond_feats: torch.Tensor) -> torch.Tensor:
+    """The detached rate estimate (pppe_pcd_ae.py:882-917): the prob model's
+    pmf [B, L, N] at the channel-0 symbol of y_q [B, d, N], mean -log2 over
+    the points. Under no_grad, as the reference's no_grad and .detach(): the
+    rate carries no gradient, and PPPE trains on the chamfer alone."""
+    _, _, pmf = model.prob(y_q, cond_feats)
+    idx0 = torch.clamp(y_q[:, 0, :].long(), 0, pmf.shape[1] - 1)         # [B, N]
+    probs = torch.gather(pmf, 1, idx0[:, None, :])                        # [B, 1, N]
+    return torch.mean(-torch.log2(torch.clamp_min(probs, 1e-9)))
 
 
 def init_pppe_weights(model: PointCloudAE, seed: int) -> PointCloudAE:

@@ -79,7 +79,9 @@ def fps_plain(xyz: torch.Tensor, npoint: int, starts: torch.Tensor) -> torch.Ten
         dx = x - c[:, 0:1]
         dy = y - c[:, 1:2]
         dz = z - c[:, 2:3]
-        dist = torch.minimum(dist, dx * dx + dy * dy + dz * dz)
+        # fmin, the kernel's fminf: a NaN distance leaves the minimum as it
+        # was, so a cloud with NaN points still gives indices in range
+        dist = torch.fmin(dist, dx * dx + dy * dy + dz * dz)
         m = dist.amax(dim=-1, keepdim=True)
         far = torch.where(dist == m, iota, N).amin(dim=-1)
     return out

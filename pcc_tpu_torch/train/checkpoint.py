@@ -8,12 +8,19 @@ layout (nested dicts of numpy arrays, weights.to_jax_params; for PPPF-AE
 {'params', 'batch_stats'}, the BatchNorm running statistics included), so
 pcc_tpu's load_inference_params and compress read what the port trains,
 and the port's own weights.load_inference_params reads it back; resuming
-restores the running statistics with the weights. `load_pppe_checkpoint`
-reads the weights of pcc_tpu's PPPE scheme,
-{ae,prob,optimizer,global}_{latest,best}.pkl (PPPE training, which would
-resume from the rest, is not ported yet). The optimizer
-pickle holds the port's Adam state as numpy arrays keyed by parameter name
+restores the running statistics with the weights. The optimizer pickle
+holds the port's Adam state as numpy arrays keyed by parameter name
 ('ae.sa.conv0.weight', ...): {name: {"exp_avg", "exp_avg_sq", "step"}}.
+
+PPPE training keeps pcc_tpu's fixed-name scheme,
+{ae,prob,optimizer,global}_{latest,best}.pkl (train_pppe_pcd_ae.py:84-89):
+`save_pppe_checkpoint` writes the AE's variables (its prob model inside,
+so prob_*.pkl holds the same, as pcc_tpu writes it) in pcc_tpu's layout,
+which pcc_tpu's load_pppe_checkpoint and the port's PPPE compress CLI
+(`load_pppe_checkpoint`) read; optimizer_*.pkl holds the port's Adam state
+in the format above (keyed by the AE's parameter names), which
+`resume_pppe_checkpoint` reads back. An optax pickle written by pcc_tpu is
+not read: resuming from one starts Adam afresh, with a warning.
 """
 
 from __future__ import annotations
@@ -124,3 +131,56 @@ def load_pppe_checkpoint(folder: str, model, best: bool = False) -> bool:
     sd, _ = from_jax_params(_load(ae_p), None)
     model.load_state_dict(sd)
     return True
+
+
+def pppe_optimizer_state(state) -> dict:
+    """A PPPE train state's Adam moments and update count, as numpy arrays
+    keyed by parameter name (`optimizer_state`'s format)."""
+    mu, nu = state.views(state.mu), state.views(state.nu)
+    count = state.count.cpu().numpy().copy()
+    return {name: {"exp_avg": mu[name].cpu().numpy().copy(),
+                   "exp_avg_sq": nu[name].cpu().numpy().copy(), "step": count}
+            for name, _ in state.named_parameters()}
+
+
+def save_pppe_checkpoint(folder: str, state, global_step: int, best: bool = False) -> None:
+    """{ae,prob,optimizer,global}_{latest,best}.pkl of a PPPE train state
+    (pcc_tpu/train/checkpoint.py::save_pppe_checkpoint)."""
+    os.makedirs(folder, exist_ok=True)
+    suffix = "best" if best else "latest"
+    ae_vars, _ = to_jax_params(state.model.state_dict())
+    _dump(ae_vars, os.path.join(folder, f"ae_{suffix}.pkl"))
+    _dump(ae_vars, os.path.join(folder, f"prob_{suffix}.pkl"))
+    _dump(pppe_optimizer_state(state), os.path.join(folder, f"optimizer_{suffix}.pkl"))
+    _dump(int(global_step), os.path.join(folder, f"global_{suffix}.pkl"))
+
+
+def resume_pppe_checkpoint(folder: str, state, best: bool = False):
+    """Resume a PPPE train state from the fixed-name scheme: weights and
+    running statistics, the port's Adam state, and the step; returns
+    (state, start_step), start_step = the saved step + 1 as pcc_tpu
+    resumes (train_pppe_pcd_ae.py:61-82). Missing files are skipped."""
+    suffix = "best" if best else "latest"
+    load_pppe_checkpoint(folder, state.model, best=best)
+    opt_p = os.path.join(folder, f"optimizer_{suffix}.pkl")
+    if os.path.exists(opt_p):
+        try:
+            saved = _load(opt_p)
+        except (ImportError, AttributeError):      # an optax pickle
+            saved = None
+        names = [n for n, _ in state.named_parameters()]
+        if isinstance(saved, dict) and set(saved) == set(names):
+            mu, nu = state.views(state.mu), state.views(state.nu)
+            with torch.no_grad():
+                for n in names:
+                    mu[n].copy_(torch.from_numpy(saved[n]["exp_avg"]))
+                    nu[n].copy_(torch.from_numpy(saved[n]["exp_avg_sq"]))
+                state.count.fill_(int(saved[names[0]]["step"]))
+        else:
+            print(f"WARNING: {opt_p} is not the port's Adam state; Adam starts afresh.")
+    start_step = 0
+    step_p = os.path.join(folder, f"global_{suffix}.pkl")
+    if os.path.exists(step_p):
+        start_step = int(_load(step_p)) + 1
+        state.step.fill_(start_step)
+    return state, start_step

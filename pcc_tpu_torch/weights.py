@@ -14,8 +14,11 @@ statistics in `batch_stats`; cli/import_torch_checkpoint.py::
 convert_pppf_ae_state_dict / convert_pppf_prob_state_dict) and PPPE (one
 PointCloudAE, `params` and `batch_stats`, whose prob model is a submodule;
 convert_pppe_ae_state_dict, which writes the stages' conv biases as zeros,
-where these functions carry pcc_tpu's). Both ways are exact copies: a
-transpose and a rename, no arithmetic.
+where these functions carry pcc_tpu's), and the attribute extension's
+attr.pkl / attr_prob.pkl (`attr_from_jax`, `attr_to_jax`: PatchAttrAE,
+whose names mirror pcc_tpu's flax tree, as no reference state_dict exists
+for it, and an IPDAE ConditionalProbabilityModel at d = d_a). Both ways are
+exact copies: a transpose and a rename, no arithmetic.
 """
 
 from __future__ import annotations
@@ -209,6 +212,11 @@ def from_jax_params(ae_vars, prob_vars):
         return pppe_from_jax(ae_vars), None
     if _is_pppf(ae_vars, prob_vars):
         return _pppf_from_jax(ae_vars, prob_vars)
+    return (None if ae_vars is None else _ipdae_from_jax(ae_vars),
+            None if prob_vars is None else _prob_from_jax(prob_vars))
+
+
+def _ipdae_from_jax(ae_vars) -> dict:
     p = _params(ae_vars)
     ae = {}
     for i in range(len(p["sa"]["mlp"])):
@@ -227,7 +235,10 @@ def from_jax_params(ae_vars, prob_vars):
         lin = p["inv_mlp"][f"dense_{i}"]["linear"]
         ae[f"inv_mlp.mlp_Modules.{i}.0.weight"] = _conv_w(lin["kernel"])
         ae[f"inv_mlp.mlp_Modules.{i}.0.bias"] = _bias(lin["bias"])
+    return ae
 
+
+def _prob_from_jax(prob_vars) -> dict:
     q = _params(prob_vars)
     prob = {}
     for i in range(len(q["model_pn"]["mlp"])):
@@ -238,7 +249,53 @@ def from_jax_params(ae_vars, prob_vars):
         lin = q["model_mlp"][f"dense_{j}"]["linear"]
         prob[f"model_mlp.{idx}.weight"] = _conv_w(lin["kernel"])
         prob[f"model_mlp.{idx}.bias"] = _bias(lin["bias"])
-    return ae, prob
+    return prob
+
+
+def _mlp_from_jax(dense: dict, prefix: str, sd: dict) -> None:
+    """flax PointwiseMLP dense_{i} -> `{prefix}.mlp_Modules.{i}.0` entries."""
+    for i in range(len(dense)):
+        lin = dense[f"dense_{i}"]["linear"]
+        sd[f"{prefix}.mlp_Modules.{i}.0.weight"] = _conv_w(lin["kernel"])
+        sd[f"{prefix}.mlp_Modules.{i}.0.bias"] = _bias(lin["bias"])
+
+
+def attr_from_jax(attr_vars, attr_prob_vars):
+    """pcc_tpu's attribute variables (attr.pkl, attr_prob.pkl) -> the port's
+    (PatchAttrAE state_dict, attribute ConditionalProbabilityModel
+    state_dict); either may be None."""
+    attr = None
+    if attr_vars is not None:
+        p, attr = _params(attr_vars), {}
+        _mlp_from_jax(p["enc"]["mlp"], "enc", attr)
+        _mlp_from_jax(p["dec"], "dec", attr)
+    return attr, None if attr_prob_vars is None else _prob_from_jax(attr_prob_vars)
+
+
+def attr_to_jax(attr_sd=None, attr_prob_sd=None):
+    """The port's attribute state_dicts -> pcc_tpu's attr / attr_prob
+    variables ({'params': ...}); either may be None."""
+    attr = None
+    if attr_sd is not None:
+        def mlp(prefix):
+            return {f"dense_{i}": _dense(attr_sd[f"{prefix}.mlp_Modules.{i}.0.weight"],
+                                         attr_sd[f"{prefix}.mlp_Modules.{i}.0.bias"])
+                    for i in range(_count(attr_sd, f"{prefix}.mlp_Modules."))}
+        attr = {"params": {"enc": {"mlp": mlp("enc")}, "dec": mlp("dec")}}
+    return attr, to_jax_params(None, attr_prob_sd)[1]
+
+
+def load_attr_params(folder: str):
+    """pcc_tpu's `attr.pkl` / `attr_prob.pkl` in `folder` -> the port's
+    (attr state_dict, attr_prob state_dict), or (None, None) when absent."""
+    paths = [os.path.join(folder, f"{n}.pkl") for n in ("attr", "attr_prob")]
+    if not all(os.path.exists(p) for p in paths):
+        return None, None
+    loaded = []
+    for path in paths:
+        with open(path, "rb") as f:
+            loaded.append(pickle.load(f))
+    return attr_from_jax(*loaded)
 
 
 def _dense(weight, bias) -> dict:

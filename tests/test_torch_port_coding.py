@@ -17,6 +17,7 @@ from pcc_tpu_torch.codec import make_models
 from pcc_tpu_torch.coding import iprob, rangecoder
 from pcc_tpu_torch.config import CodecConfig
 from pcc_tpu_torch.weights import from_jax_params, to_jax_params
+from test_torch_port_pppf import one_thread_per_worker  # noqa: F401
 
 KW = dict(N=256, N0=64, ALPHA=2, K=32, d=4, L=7, sa_knn=8)
 CFG, JCFG = CodecConfig(**KW), JCodecConfig(**KW)

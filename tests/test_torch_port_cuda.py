@@ -929,3 +929,105 @@ def test_sa_fused_rejects_unsupported(dev, N, knn, widths):
         sa[0][0].requires_grad_(True)
     with pytest.raises(RuntimeError if want_grad else ValueError):
         sa_fused(pts, sa, knn)
+
+
+@pytest.mark.parametrize("N,d_a", [(2048, 16), (8192, 8)])
+def test_attr_codec_card_vs_cpu(dev, N, d_a):
+    """The attribute codec (attrib.AttrCodec) on the card and on the CPU
+    port, same weights and coloured clouds: .s.bin and .c.bin byte-equal,
+    each decodes the other's .p.bin and .a.bin to the encoded symbols,
+    decoded clouds within 1e-5 of their extent and colours within one
+    level; one compress and one decompress batch launch fps and
+    patch_encoder, then patch_decoder, once each."""
+    from pcc_tpu_torch.attrib import AttrCodec, init_attr_params
+
+    cfg = CodecConfig(N=N)
+    ae_sd, prob_sd = init_params(3, cfg)
+    attr_sd, attr_prob_sd = init_attr_params(4, cfg, d_a)
+    params = {"ae": ae_sd, "prob": prob_sd, "attr": attr_sd, "attr_prob": attr_prob_sd}
+    rng = np.random.default_rng(5)
+    pcs = [(rng.random((N, 3)) * 2 - 1).astype(np.float32) for _ in range(2)]
+    rgbs = [np.clip((0.5 + 0.4 * np.sin(2 * p)) * 255, 0, 255).astype(np.uint8) for p in pcs]
+    card = AttrCodec(cfg, params, d_a=d_a, device="cuda")
+    cpu = AttrCodec(cfg, params, d_a=d_a, device="cpu")
+    before = dict(cuda_lib.launches)
+    c_streams = card.compress_many(pcs, rgbs)
+    c_out = card.decompress_many(c_streams)
+    assert {k: cuda_lib.launches[k] - before[k] for k in before
+            if cuda_lib.launches[k] != before[k]} == dict(fps=1, patch_encoder=1,
+                                                          patch_decoder=1)
+    p_streams = cpu.compress_many(pcs, rgbs)
+    for (_, cs, cc, _), (_, ps, pc_, _) in zip(c_streams, p_streams):
+        assert cs == ps and cc == pc_
+    p_out = cpu.decompress_many(c_streams)
+    for (a, ra), (b, rb) in zip(c_out, p_out):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * np.abs(b).max())
+        assert np.abs(ra.astype(int) - rb.astype(int)).max() <= 1
+    # each side decodes the other's streams to the symbols the other encoded
+    from pcc_tpu_torch.coding.octree_host import codes_to_points, parse_octree_bits, unpack_bits
+
+    for enc, dec, streams in ((card, cpu, c_streams), (cpu, card, p_streams)):
+        res = enc.encode_batch(np.stack(pcs), np.stack(rgbs), np.zeros(2, np.int32))
+        recs = np.stack([codes_to_points(*parse_octree_bits(unpack_bits(s[1])))
+                         for s in streams])
+        sym, asym = dec.decode_symbols(recs, [s[0] for s in streams], [s[3] for s in streams])
+        np.testing.assert_array_equal(sym, res.sym.cpu().numpy())
+        np.testing.assert_array_equal(asym, res.asym.cpu().numpy())
+
+
+def test_pppe_train_step_card_vs_cpu(dev, record_property):
+    """One PPPE train step (train/steps_pppe.py) on the card and on the CPU
+    port from the same seeded weights and clouds: fps 2 (sa2, sa3: at N =
+    512 sa1's centroids are the points), chamfer_fwd and chamfer_bwd once;
+    loss to 1e-5 relative, the decoder's gradients within 3e-3 of each
+    tensor's largest entry, the encoder's (through batch statistics) within
+    0.15 (5.5e-2 measured on an H100 on these uniform clouds, on sa3's
+    second layer's weight: about 3x, as chip_smoke.py's bounds; its phase
+    22 reads 2.7e-3 on its synthetic clouds and holds them to 2e-2),
+    parameters within lr / 4 where the gradient's rounding cannot have
+    turned Adam's first update (chip_smoke.py::compare_train_states' rule);
+    a NaN batch leaves the card's state bit for bit. The encoder's largest
+    relative difference goes into the junit XML as encoder_grad_rel_err."""
+    from pcc_tpu_torch.config import PPPEConfig
+    from pcc_tpu_torch.train.steps_pppe import (build_pppe_train_step, create_pppe_state,
+                                                make_pppe_optimizer)
+
+    cfg = PPPEConfig(N=512, latent_dim=32)
+    tx = make_pppe_optimizer(1e-3)
+    x = torch.from_numpy(np.random.default_rng(6).random((2, cfg.N, 3)).astype(np.float32))
+    card, cpu = (create_pppe_state(0, cfg, tx, device=d) for d in ("cuda", "cpu"))
+    step = build_pppe_train_step(tx)
+    before = dict(cuda_lib.launches)
+    _, a = step(card, x.to(dev), 1e-2)
+    torch.cuda.synchronize()
+    assert {k: cuda_lib.launches[k] - before[k] for k in before
+            if cuda_lib.launches[k] != before[k]} == dict(fps=2, chamfer_fwd=1, chamfer_bwd=1)
+    _, b = step(cpu, x, 1e-2)
+    assert abs(float(a["loss"]) - float(b["loss"])) <= 1e-5 * abs(float(b["loss"]))
+    named = list(cpu.model.named_parameters())
+    top = max(float(q.grad.abs().max()) for _, q in named if q.grad is not None)
+    enc = {}
+    for (name, p), (_, q) in zip(card.model.named_parameters(), named):
+        if q.grad is None:
+            assert p.grad is None
+            continue
+        err, big = float((p.grad.cpu() - q.grad).abs().max()), float(q.grad.abs().max())
+        if big < 1e-3 * top:                # zero in exact arithmetic
+            assert err <= 1e-3 * top, name
+            continue
+        if name.startswith("encoder."):
+            enc[name] = err / big
+        else:
+            assert err <= 3e-3 * big, name
+        sure = (q.grad.abs() > 1e-3 * big) & (q.grad.abs() > 2 * (p.grad.cpu() - q.grad).abs())
+        assert float((p.detach().cpu() - q.detach())[sure].abs().max()) <= 1e-3 / 4, name
+    worst = max(enc, key=enc.get)
+    record_property("encoder_grad_rel_err", f"{enc[worst]:.4g} ({worst})")
+    assert enc[worst] <= 0.15, (worst, enc[worst])
+    saved = [t.clone() for t in (card.params, card.stats, card.mu, card.nu, card.count)]
+    bad = x.clone()
+    bad[0, 3, 1] = float("nan")
+    _, aux = step(card, bad.to(dev), 1e-2)
+    assert bool(aux["skipped"])
+    for s, t in zip(saved, (card.params, card.stats, card.mu, card.nu, card.count)):
+        assert torch.equal(s, t)

@@ -30,6 +30,7 @@ from pcc_tpu_torch.ops.decoder_cuda import (GROUP_ORDER, expansion_kmajor, mlp_k
                                             permute_expansion, split_tf32)
 from pcc_tpu_torch.ops.sa_cuda import patch_encoder_plain
 from pcc_tpu_torch.weights import from_jax_params, to_jax_params
+from test_torch_port_pppf import one_thread_per_worker  # noqa: F401
 
 KW = dict(N=256, N0=64, ALPHA=2, K=32, d=4, L=7, sa_knn=8)
 CFG, JCFG = CodecConfig(**KW), JCodecConfig(**KW)

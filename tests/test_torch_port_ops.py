@@ -31,6 +31,7 @@ from pcc_tpu_torch.config import CodecConfig
 from pcc_tpu_torch.ops.fps import fps_batch
 from pcc_tpu_torch.ops.knn import knn_points
 from pcc_tpu_torch.ops.normalize import denormalize, normalize
+from test_torch_port_pppf import one_thread_per_worker  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

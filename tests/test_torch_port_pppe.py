@@ -135,9 +135,20 @@ def test_quantize_st_bit_equal_to_pcc_tpu():
 
 
 def test_training_mode_raises():
-    model = make_pppe_model(CFG, seed=0).train()
-    with pytest.raises(NotImplementedError, match="eval mode"):
-        model(torch.zeros(1, CFG.N, 3))
+    """Training mode no longer raises: PPPE training is ported
+    (tests/test_torch_port_train_pppe.py holds it to pcc_tpu). A train-mode
+    forward runs every stack on batch statistics and moves the running
+    statistics; an eval-mode forward leaves them."""
+    model = make_pppe_model(CFG, seed=0)
+    x = torch.from_numpy(_clouds(2, 2))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad():
+        model(x)
+        assert all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
+        model.train()(x)
+    moved = [k for k, v in model.state_dict().items()
+             if k.endswith("running_var") and not torch.equal(v, before[k])]
+    assert len(moved) == 4 * 3 + 1      # every stage layer and global_conv's BatchNorm
 
 
 @pytest.mark.parametrize("stage", ["sa2", "sa3"])

@@ -22,6 +22,7 @@ from pcc_tpu_torch.models.layers import SetAbstraction
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.sa_cuda import sa_fused, sa_fused_plain
 from pcc_tpu_torch.weights import to_jax_params
+from test_torch_port_pppf import one_thread_per_worker  # noqa: F401
 
 P, N = 3, 32
 

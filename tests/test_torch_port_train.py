@@ -49,6 +49,7 @@ from pcc_tpu_torch.train import build_train_step, create_train_state
 from pcc_tpu_torch.train.state import make_optimizer
 from pcc_tpu_torch.train.steps import rd_forward
 from pcc_tpu_torch.weights import from_jax_params, to_jax_params
+from test_torch_port_pppf import one_thread_per_worker  # noqa: F401
 
 KW = dict(N=256, N0=64, ALPHA=2, K=32, d=4, L=7, sa_knn=8)
 TINY, JTINY = CodecConfig(**KW), JCodecConfig(**KW)
