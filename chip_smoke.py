@@ -17,7 +17,9 @@ CLIs' defaults (32 clouds of 8192 points, latent 256, L = 7) through its
 compress, decompress and eval CLIs, holds every kernel against its plain
 PyTorch version at the shapes those paths give it, and checks the streams,
 the train steps, the metrics and the PPPE latents against the port on the
-CPU.
+CPU; then runs the train steps and the codec through the data-parallel
+launcher (pcc_tpu_torch/parallel/mesh.py): one rank on NCCL, and two
+ranks sharing the card over gloo.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card, power limit, torch and CUDA versions;
@@ -184,7 +186,25 @@ Phases (any failed check raises, and the script exits non-zero):
      patch encoder with its winners and its backward held to their plain
      versions on the step's own [256, 256, 3] patches (kernel_check: each
      output within its tolerance of the plain one's own largest entry),
-     FPS and the chamfer as in phase 21.
+     FPS and the chamfer as in phase 21;
+ 25. the launcher (parallel/mesh.py::launch) at world size 1 on NCCL: the
+     IPDAE step (8 clouds of 8192 points), the PPPE step (4 clouds) and the
+     64-cloud IPDAE compress -> decompress in one worker on cuda:0, each
+     bit for bit the same run without a process group in this process
+     (losses, every parameter after one step, streams, decoded clouds),
+     with the same launches per step or batch; the step walls beside the
+     unlaunched ones and phases 6 and 21's;
+ 26. two ranks sharing the card over gloo (launch(2, ...,
+     device="cuda:0", backend="gloo")), each on its half of every batch:
+     the IPDAE step (4 + 4 clouds), the PPPE step (2 + 2), the fused
+     PPPF-AE step at N = 512 (64 + 64) and the 64-cloud compress ->
+     decompress; against the one-device runs: losses to 1e-6 relative,
+     gradients summed over the ranks within 1e-5 of each tensor's largest
+     entry (through batch statistics: PPPF-AE's probability model to
+     TOL_BATCH_STATS, PPPE's every gradient to TOL_PPPE_STEP), streams and
+     clouds bit for bit, both ranks' parameters bit-equal after the step,
+     each rank's launches per step or batch the one device's (the
+     counters are per process); each worker's counters printed.
 The line before the last is the kernels' JSON record (the IPDAE serving
 path's launch counts for fps, patch_encoder and patch_decoder, the counted
 train steps' for patch_encoder_bwd, the PPPF-AE path's for pppf_sa_stage
@@ -205,6 +225,7 @@ Without a card it exits 1 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -237,6 +258,9 @@ from pcc_tpu_torch.ops.sa_cuda import (PatchEncoderFn, _kernel_choices, _unflatt
                                        patch_encoder, patch_encoder_bwd, patch_encoder_bwd_plain,
                                        patch_encoder_plain, pointwise_plain, sa_fused,
                                        sa_fused_plain, winners_plain)
+from pcc_tpu_torch.parallel.mesh import (build_sharded_pppe_train_step,
+                                         build_sharded_pppf_train_step, build_sharded_train_step,
+                                         global_sum, launch, rank)
 from pcc_tpu_torch.train import build_pppf_train_step, build_train_step, create_train_state
 from pcc_tpu_torch.train.state import make_optimizer
 from pcc_tpu_torch.train.steps_pppe import (build_pppe_train_step, create_pppe_state,
@@ -579,9 +603,10 @@ def encoder_flops(P: int, K: int, knn: int, d: int):
 
 def train_phase(dev, smi: str, chamfer_records: dict):
     """Phase 6: the train step at full width; returns the state, the step's
-    patches and encoder cotangent (recorded from one more step) for phase 7
-    and the counted steps' launches; the same step's chamfer clouds and
-    cotangents go into chamfer_records for phase 16."""
+    patches and encoder cotangent (recorded from one more step) for phase 7,
+    the counted steps' launches and their median wall in ms; the same
+    step's chamfer clouds and cotangents go into chamfer_records for phase
+    16."""
     cfg = CodecConfig()
     B = TRAIN_CLOUDS
     batch = torch.from_numpy(np.stack(synthetic_clouds(B, cfg.N, SEED))).to(dev)
@@ -645,7 +670,7 @@ def train_phase(dev, smi: str, chamfer_records: dict):
     with recording_chamfer(chamfer_records, f"N={cfg.N} IPDAE"):
         step(state, batch, starts(), TRAIN_LAM)
     PatchEncoderFn.backward = staticmethod(backward)
-    return state, rec, launches
+    return state, rec, launches, ms
 
 
 def backward_kernel_check(rec: dict, launches: int) -> dict:
@@ -2210,6 +2235,272 @@ def attr_train_phase(dev, smi: str) -> dict:
                 step_ms=ms, points_per_s=B * cfg.N / (ms / 1e3), peak_gib=peak), checks
 
 
+# ------------------------------------------------ 25-26: data parallelism --
+
+PAR_STEPS = 3          # timed steps per case after the compared one (phases 25-26)
+PAR_SMALL_CLOUDS = 128  # phase 26's fused PPPF-AE step at N = 512: 64 + 64 clouds
+# the cases' configurations: phase 6's IPDAE step and phase 3's codec, phase
+# 21's PPPE step, phase 15's fused PPPF-AE step; and their device
+PAR_CFG = dict(ae=CodecConfig(), pppe=PPPEConfig(), pppf=CodecConfig(N=SMALL_N, model="PPPF-AE"))
+PAR_DEVICE = "cuda"
+
+
+def digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order: equal digests, bit-equal
+    tensors."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(np.ascontiguousarray(torch.as_tensor(t).detach().cpu().numpy()).tobytes())
+    return h.hexdigest()
+
+
+def stream_digest(streams) -> str:
+    h = hashlib.sha256()
+    for blobs in streams:
+        for b in blobs:
+            h.update(len(b).to_bytes(8, "little") + b)
+    return h.hexdigest()
+
+
+def par_inputs() -> dict:
+    """The global batches of phases 25-26, CPU tensors: the IPDAE step's 8
+    clouds of 8192 points and FPS starts (phase 6's), the PPPE step's 4
+    (phase 21's), the fused PPPF-AE step's 128 clouds of 512 points (phase
+    15's) and the 64 clouds of the IPDAE compress (phase 3's)."""
+    gen = torch.Generator().manual_seed(SEED + 21)
+    clouds = lambda n, N, seed: torch.from_numpy(np.stack(synthetic_clouds(n, N, seed)))
+    N, N_pf = PAR_CFG["ae"].N, PAR_CFG["pppf"].N
+    return dict(
+        ae_batch=clouds(TRAIN_CLOUDS, N, SEED),
+        ae_starts=torch.randint(0, N, (TRAIN_CLOUDS,), generator=gen, dtype=torch.int32),
+        pppe_batch=torch.from_numpy(unit_cube(synthetic_clouds(
+            PPPE_TRAIN_CLOUDS, PAR_CFG["pppe"].N, SEED + 8))),
+        pf_batch=clouds(PAR_SMALL_CLOUDS, N_pf, SEED + 9),
+        pf_starts=torch.randint(0, N_pf, (PAR_SMALL_CLOUDS,), generator=gen, dtype=torch.int32),
+        clouds=clouds(N_CLOUDS, N, SEED))
+
+
+def par_case(name: str, inp: dict, ref: dict | None):
+    """One case of phases 25-26 on this process's card, through the sharded
+    builders and the codec (in a process group on this rank's shard; without
+    one, the single-device code on the global batch): the first step from
+    seeded weights (its loss, the digest of the parameters after it, and
+    its gradients, summed over the ranks: as they are, or, given the
+    one-device `ref`, each one's largest difference from it and its largest
+    entry), then PAR_STEPS timed steps with the launch counters set to 0
+    just before and read just after. "codec": compress -> decompress of the
+    64 clouds at batch 64 (the stream and cloud digests, the launches)."""
+    dev = torch.device(PAR_DEVICE)        # in a worker, its rank's card
+    if name == "codec":
+        cfg = PAR_CFG["ae"]
+        codec = Codec(cfg, *init_params(SEED, cfg), batch_size=N_CLOUDS, device=PAR_DEVICE)
+        clouds = list(inp["clouds"].numpy())
+        codec.decompress_many(codec.compress_many(clouds))            # warm-up, uncounted
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        streams = codec.compress_many(clouds)
+        decoded = codec.decompress_many(streams)
+        torch.cuda.synchronize()
+        return dict(streams=stream_digest(streams), decoded=digest(decoded),
+                    launches={k: v for k, v in cuda_lib.launches.items() if v},
+                    ms=(time.perf_counter() - t0) * 1e3)
+    if name == "pppe":
+        tx = make_pppe_optimizer(5e-4)
+        state = create_pppe_state(SEED, PAR_CFG["pppe"], tx, device=PAR_DEVICE)
+        step = build_sharded_pppe_train_step(tx)
+        batch = inp["pppe_batch"].to(dev)
+        lam = 1.0 / 5000
+        run = lambda: step(state, batch, lam)[1]
+        params = lambda: [state.params]
+
+        def grads():      # the step's flat gradient (the prob model's are zeros)
+            g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                           for _, p in state.named_parameters()])
+            return state.views(global_sum(g))
+    else:
+        tx = make_optimizer(5e-4, 0.1, 60000, 80000)
+        cfg = PAR_CFG[name]
+        state = create_train_state(SEED, cfg, tx, device=PAR_DEVICE)
+        if name == "ae":
+            step = build_sharded_train_step(cfg, tx, rate_mode="reference")
+            batch, starts = inp["ae_batch"].to(dev), inp["ae_starts"].to(dev)
+        else:        # "pppf": the fused step at N = 512 (phase 15's), seeded statistics
+            state.ae.load_state_dict(randomize_batchnorm(state.ae.state_dict(), SEED + 2))
+            state.prob.load_state_dict(randomize_batchnorm(state.prob.state_dict(), SEED + 3))
+            step = build_sharded_pppf_train_step(cfg, tx, rate_mode="reference", fused=True)
+            batch, starts = inp["pf_batch"].to(dev), inp["pf_starts"].to(dev)
+        run = lambda: step(state, batch, starts, TRAIN_LAM)[1]
+        params = lambda: [p for _, p in state.named_parameters()]
+        grads = lambda: {n: p.grad for n, p in state.named_parameters()}
+    aux = run()
+    out = dict(loss=float(aux["loss"]), digest=digest(params()))
+    g = grads()
+    if ref is None:
+        out["grads"] = {n: t.detach().clone() for n, t in g.items()}
+    else:
+        r = ref[name]
+        out["errs"] = {n: (float((t - r[n].to(dev)).abs().max()), float(r[n].abs().max()))
+                       for n, t in g.items()}
+    times, _, launches, _ = timed_steps(run, PAR_STEPS)
+    out.update(ms=float(np.median(times)) * 1e3,
+               launches={k: v // PAR_STEPS for k, v in launches.items() if v})
+    return out
+
+
+def par_worker(path: str, names: tuple) -> dict:
+    """One rank of phases 25-26: par_case for each of `names` on this
+    rank's shards, held against the one-device gradients in `path` where
+    they are there."""
+    inp = torch.load(path)
+    out = {name: par_case(name, inp, inp.get("ref")) for name in names}
+    out["rank"] = rank()
+    return out
+
+
+def par_grads_check(label: str, errs: dict, tol: float, loose: tuple = (),
+                    loose_tol: float = TOL_BATCH_STATS) -> str:
+    """Every gradient within tol of its tensor's largest one-device entry
+    (loose_tol for the names starting with `loose`: through batch
+    statistics); a tensor whose largest entry is below ZERO_GRAD of the
+    largest of all (a zero gradient in exact arithmetic, such as a conv bias
+    before a BatchNorm) within ZERO_GRAD of that instead. Returns a
+    summary; raises on a failed check."""
+    top = max(big for _, big in errs.values())
+    worst, worst_loose, noise = 0.0, 0.0, 0
+    for n, (err, big) in errs.items():
+        if big < ZERO_GRAD * top:
+            noise += 1
+            if not err <= ZERO_GRAD * top:
+                raise RuntimeError(f"{label} gradient of {n} (zero in exact arithmetic) "
+                                   f"differs by {err} > {ZERO_GRAD} * {top}")
+            continue
+        t = loose_tol if n.startswith(loose) else tol
+        if not err <= t * big:
+            raise RuntimeError(f"{label} gradient of {n} differs by {err} > {t} * {big}")
+        if n.startswith(loose):
+            worst_loose = max(worst_loose, err / big)
+        else:
+            worst = max(worst, err / big)
+    parts = [f"{worst:.3g}"] if loose != ("",) else []
+    parts += [f"{worst_loose:.3g} through batch statistics ("
+              + (", ".join(loose) if loose != ("",) else "all") + ")"] if loose else []
+    return (f"gradients within {' and '.join(parts)} of each tensor's largest entry, "
+            f"{noise} zero gradients within {ZERO_GRAD}")
+
+
+def parallel_phases(smi: str, train_ms: float, pppe_ms: float) -> dict:
+    """Phases 25-26: parallel/mesh.py's launcher on the one card. The
+    one-device runs of the cases come first, in this process without a
+    process group (par_case). 25: one rank on NCCL (launch(1, ...)); its
+    IPDAE and PPPE steps' losses and parameters after one step, and the
+    64-cloud compress -> decompress's streams and clouds, bit for bit the
+    one device's; the step walls beside the one device's and phases 6 and
+    21's. 26: two ranks sharing the card over gloo, each on its half of
+    every batch: the IPDAE step (4 + 4 clouds), the PPPE step (2 + 2), the
+    fused PPPF-AE step at N = 512 (64 + 64) and the 64-cloud compress ->
+    decompress; losses to 1e-6 relative, gradients (summed over the ranks)
+    within 1e-5 of each tensor's largest one-device entry (PPPF-AE's
+    probability model, on batch statistics, to TOL_BATCH_STATS, phase 14's;
+    PPPE's every gradient runs through batch statistics: TOL_PPPE_STEP,
+    phase 22's), streams and clouds bit for bit, both ranks' parameters
+    bit-equal, and each rank's launches per step or batch the one
+    device's. Returns the phases' summary."""
+    inp = par_inputs()
+    names = ("ae", "pppe", "pppf", "codec")
+    one = {name: par_case(name, inp, None) for name in names}
+    log("phases 25-26, one device (no process group): " + ", ".join(
+        f"{n} {one[n]['ms']:.2f} ms, launches {one[n]['launches']}" for n in names))
+    # is the one-device step bitwise repeatable? (the plain stages' gather
+    # backward adds with atomics on the card, in no fixed order)
+    repeatable = {n: par_case(n, inp, None)["digest"] == one[n]["digest"] for n in ("ae", "pppe")}
+    log(f"one-device steps bitwise repeatable (parameters after one step, run twice): "
+        f"{repeatable}")
+    path = os.path.join(ROOT, "_chip", "parallel_inputs.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({**inp, "ref": {n: {k: t.cpu() for k, t in one[n].pop("grads").items()}
+                               for n in ("ae", "pppe", "pppf")}}, path)
+    # the workers share the card with this process: hand back its cached
+    # blocks (phase 12's warm-up alone peaks at 57 GiB)
+    torch.cuda.empty_cache()
+    summary = {"repeatable": repeatable}
+    try:
+        # 25. one rank on NCCL: the one-device program, bit for bit
+        t0 = time.perf_counter()
+        (r25,) = launch(1, par_worker, path, ("ae", "pppe", "codec"), device="cuda",
+                        timeout=300)
+        wall25 = time.perf_counter() - t0
+        checks = {}
+        for n in ("ae", "pppe"):
+            if r25[n]["loss"] != one[n]["loss"]:
+                raise RuntimeError(f"phase 25 {n} step: loss {r25[n]['loss']!r} vs "
+                                   f"{one[n]['loss']!r}")
+            # bit for bit where the one-device step repeats itself bit for bit
+            if repeatable[n] and r25[n]["digest"] != one[n]["digest"]:
+                raise RuntimeError(f"phase 25 {n} step: parameters differ from one device's")
+            checks[n] = par_grads_check(f"phase 25 {n}", r25[n]["errs"], 1e-5)
+        for k in ("streams", "decoded"):
+            if r25["codec"][k] != one["codec"][k]:
+                raise RuntimeError(f"phase 25: the {k} differ from one device's")
+        for n in ("ae", "pppe", "codec"):
+            if r25[n]["launches"] != one[n]["launches"]:
+                raise RuntimeError(f"phase 25 {n}: launches {r25[n]['launches']} != "
+                                   f"{one[n]['launches']}")
+        log(f"phase 25, launch(1) on NCCL ({wall25:.1f} s with the spawn): losses, streams and "
+            "decoded clouds bit for bit one device's; parameters after one step bit for bit "
+            "where the one-device step repeats bit for bit ("
+            + ", ".join(n for n in ("ae", "pppe") if repeatable[n]) + "); "
+            + "; ".join(f"{n} {checks[n]}" for n in ("ae", "pppe")) + "; launches "
+            f"{r25['ae']['launches']} per IPDAE step, {r25['pppe']['launches']} per PPPE step, "
+            f"{r25['codec']['launches']} per compress -> decompress; IPDAE step "
+            f"{r25['ae']['ms']:.2f} ms (one device {one['ae']['ms']:.2f}, phase 6 {train_ms:.2f}), "
+            f"PPPE step {r25['pppe']['ms']:.2f} ms (one device {one['pppe']['ms']:.2f}, phase 21 "
+            f"{pppe_ms:.2f}) on {smi}")
+        summary["25"] = {n: {"ms": r25[n]["ms"], "launches": r25[n]["launches"]}
+                         for n in ("ae", "pppe", "codec")}
+
+        # 26. two ranks on one card over gloo
+        t0 = time.perf_counter()
+        r26 = launch(2, par_worker, path, names, device="cuda:0", backend="gloo",
+                     timeout=300)
+        wall26 = time.perf_counter() - t0
+        checks = {}
+        for r in r26:
+            for n in ("ae", "pppe", "pppf"):
+                la, lb = r[n]["loss"], one[n]["loss"]
+                if not abs(la - lb) <= 1e-6 * abs(lb):
+                    raise RuntimeError(f"phase 26 rank {r['rank']} {n} loss {la} vs {lb}")
+                checks[n] = par_grads_check(
+                    f"phase 26 rank {r['rank']} {n}", r[n]["errs"], 1e-5,
+                    loose={"pppf": ("prob.",), "pppe": ("",)}.get(n, ()),
+                    loose_tol=TOL_PPPE_STEP if n == "pppe" else TOL_BATCH_STATS)
+            for k in ("streams", "decoded"):
+                if r["codec"][k] != one["codec"][k]:
+                    raise RuntimeError(f"phase 26 rank {r['rank']}: the {k} differ")
+            for n in names:
+                if r[n]["launches"] != one[n]["launches"]:
+                    raise RuntimeError(f"phase 26 rank {r['rank']} {n}: launches "
+                                       f"{r[n]['launches']} != {one[n]['launches']}")
+        for n in ("ae", "pppe", "pppf"):
+            if r26[0][n]["digest"] != r26[1][n]["digest"]:
+                raise RuntimeError(f"phase 26 {n}: the ranks' parameters differ after a step")
+        log(f"phase 26, launch(2) on one card over gloo ({wall26:.1f} s with the spawn): "
+            + "; ".join(f"{n}: loss {r26[0][n]['loss']:.8f} vs {one[n]['loss']:.8f}, "
+                        f"{checks[n]}" for n in ("ae", "pppe", "pppf"))
+            + "; streams and clouds bit for bit; both ranks' parameters bit-equal")
+        for r in r26:
+            log(f"phase 26 rank {r['rank']}: launches "
+                + ", ".join(f"{n} {r[n]['launches']}" for n in names)
+                + "; walls (ms; two ranks share the card, not a speed figure) "
+                + ", ".join(f"{n} {r[n]['ms']:.2f}" for n in names))
+        summary["26"] = [{n: {"ms": r[n]["ms"], "launches": r[n]["launches"]} for n in names}
+                         for r in r26]
+    finally:
+        os.remove(path)
+    return summary
+
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2370,7 +2661,7 @@ def main() -> int:
 
     # 6-8. the training path
     chamfer_records, train_launches = {}, {}
-    _, rec, launches = train_phase(dev, smi, chamfer_records)
+    _, rec, launches, train_ms = train_phase(dev, smi, chamfer_records)
     train_launches["N=8192 IPDAE"] = launches
     kernels.append(backward_kernel_check(rec, launches["patch_encoder_bwd"]))
     del rec
@@ -2453,6 +2744,9 @@ def main() -> int:
             by_name[kernel].setdefault("new_paths", []).append(rec)
     log("phases 21-24: " + json.dumps({"PPPE train": pppe_train, "attribute codec": attr,
                                        "attribute train": attr_train}))
+
+    # 25-26. the launcher on the one card: one rank on NCCL, two over gloo
+    log("phases 25-26: " + json.dumps(parallel_phases(smi, train_ms, pppe_train["step_ms"])))
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,10 +1,17 @@
 """Shared CLI pieces: the reference's codec flags and codec loading (the
-geometry codec, and with --attributes the geometry + RGB one)."""
+geometry codec, and with --attributes the geometry + RGB one), and
+--devices (pcc_tpu's add_devices_flag / maybe_mesh): one process per
+device, parallel/mesh.py."""
 
 from __future__ import annotations
 
+import sys
+
+import torch
+
 from pcc_tpu_torch.codec import Codec, init_params
 from pcc_tpu_torch.config import DEFAULT_SEED, MODELS, CodecConfig
+from pcc_tpu_torch.parallel.mesh import is_distributed, launch, rank
 from pcc_tpu_torch.weights import load_attr_params, load_inference_params
 
 
@@ -35,9 +42,13 @@ def config_from_args(args) -> CodecConfig:
 
 
 def batch_size_from_args(args) -> int:
-    if args.batch_size is not None:
-        return args.batch_size
-    return 16 if args.model == "PPPF-AE" else 64
+    """--batch_size, default 64 (AE) or 16 (PPPF-AE) as pcc_tpu's CLIs,
+    rounded down to a multiple of --devices, and at least --devices, as
+    pcc_tpu's compress and decompress round it."""
+    bs = args.batch_size if args.batch_size is not None else (
+        16 if args.model == "PPPF-AE" else 64)
+    n = args.devices
+    return n * max(1, bs // n) if n > 1 and bs % n else bs
 
 
 def load_codec(model_load_folder: str, cfg: CodecConfig, seed: int,
@@ -46,8 +57,8 @@ def load_codec(model_load_folder: str, cfg: CodecConfig, seed: int,
     random weights when the folder holds none."""
     ae_state, prob_state = load_inference_params(model_load_folder)
     if ae_state is None:
-        print(f"WARNING: no ae.pkl/prob.pkl in {model_load_folder}; "
-              "using randomly initialized weights.")
+        print0(f"WARNING: no ae.pkl/prob.pkl in {model_load_folder}; "
+               "using randomly initialized weights.")
         ae_state, prob_state = init_params(seed, cfg)
     return Codec(cfg, ae_state, prob_state, batch_size=batch_size, device=device)
 
@@ -72,3 +83,38 @@ def load_attr_codec(model_load_folder: str, cfg: CodecConfig, seed: int, d_a: in
     params = {"ae": ae_state, "prob": prob_state, "attr": attr_state,
               "attr_prob": attr_prob_state}
     return AttrCodec(cfg, params, d_a=d_a, device=device)
+
+
+def print0(*args, **kwargs) -> None:
+    """print on rank 0 only (everywhere without a process group)."""
+    if rank() == 0:
+        print(*args, **kwargs)
+
+
+def add_devices_flag(parser) -> None:
+    parser.add_argument(
+        "--devices", type=int, default=1,
+        help="Data-parallel device count: >1 runs one process per device "
+             "(cuda:0 .. cuda:N-1 on NCCL; with --device cpu, N processes on "
+             "gloo) and shards the cloud batch across them. 1 = single-device "
+             "(default).")
+
+
+def maybe_launch(args, main_fn, argv, batch_size: int | None = None) -> bool:
+    """pcc_tpu's maybe_mesh: False for --devices 1, and in a worker, where the
+    caller then runs its body; else checks that N devices are visible and
+    that N divides `batch_size` (where given), runs main_fn(argv) on N
+    spawned workers (parallel/mesh.py::launch, which raises if one fails)
+    and returns True."""
+    n = args.devices
+    if n <= 1 or is_distributed():
+        return False
+    avail = torch.cuda.device_count() if args.device == "cuda" else n
+    if avail < n:
+        raise SystemExit(
+            f"--devices {n} requested but only {avail} device(s) visible "
+            "(for CPU testing: --device cpu runs the N processes on gloo)")
+    if batch_size is not None and batch_size % n:
+        raise SystemExit(f"--batch_size {batch_size} must be divisible by --devices {n}")
+    launch(n, main_fn, sys.argv[1:] if argv is None else list(argv), device=args.device)
+    return True

@@ -4,7 +4,11 @@ Same positional arguments, flags and outputs ({name}.p.bin/.s.bin/.c.bin,
 compress.py:139-152) as pcc_tpu's compress; the streams are byte-compatible.
 --attributes also codes each cloud's RGB into {name}.a.bin (pcc_tpu's
 extension, attrib.py), with attr.pkl / attr_prob.pkl from the model folder;
-clouds without RGB are skipped.
+clouds without RGB are skipped. --devices N > 1 compresses on N processes,
+one per device, each coding its shard of every batch (codec.py), and rank 0
+writes the streams: the same bytes as one device. --batch_size is rounded
+down to a multiple of N, as pcc_tpu rounds it. --attributes ignores
+--devices, as pcc_tpu's does.
 
   python -m pcc_tpu_torch.cli.compress 'in/*.ply' comp/ model/ [--model PPPF-AE] [--device cpu]
   python -m pcc_tpu_torch.cli.compress 'in/*.ply' comp/ model/ --attributes [--d_a 16]
@@ -17,9 +21,11 @@ import os
 import time
 from glob import glob
 
-from pcc_tpu_torch.cli._common import (add_codec_flags, batch_size_from_args,
-                                        config_from_args, load_attr_codec, load_codec)
+from pcc_tpu_torch.cli._common import (add_codec_flags, add_devices_flag, batch_size_from_args,
+                                        config_from_args, load_attr_codec, load_codec,
+                                        maybe_launch, print0)
 from pcc_tpu_torch.io import read_point_cloud, read_point_cloud_attr
+from pcc_tpu_torch.parallel.mesh import rank
 
 
 def build_parser():
@@ -32,6 +38,7 @@ def build_parser():
     p.add_argument("compressed_path", help="Compressed .bin files folder.")
     p.add_argument("model_load_folder", help="Directory where to load trained models.")
     add_codec_flags(p)
+    add_devices_flag(p)
     p.add_argument("--attributes", action="store_true",
                    help="Also compress RGB attributes into a {name}.a.bin stream "
                         "(extension; the reference codes geometry only).")
@@ -52,17 +59,22 @@ def main(argv=None):
     os.makedirs(args.compressed_path, exist_ok=True)
     if args.attributes:
         return compress_with_attributes(args, files)
+    if maybe_launch(args, main, argv):
+        return
+    if args.devices > 1:
+        print0(f"data-parallel compression over {args.devices} devices")
     codec = load_codec(args.model_load_folder, config_from_args(args), args.seed,
                        batch_size=batch_size_from_args(args), device=args.device)
-    print(f"Processing on device: {codec.device}")
+    print0(f"Processing on device: {codec.device}")
 
     clouds = [read_point_cloud(f) for f in files]
     start = time.time()
     streams = codec.compress_many(clouds)
     elapsed = time.time() - start
-    for f, blobs in zip(files, streams):
-        write_streams(args.compressed_path, os.path.split(f)[1], blobs)
-    print(f"Done! Execution time: {round(elapsed / len(files), 5)}s per point cloud.")
+    if rank() == 0:
+        for f, blobs in zip(files, streams):
+            write_streams(args.compressed_path, os.path.split(f)[1], blobs)
+    print0(f"Done! Execution time: {round(elapsed / len(files), 5)}s per point cloud.")
 
 
 def compress_with_attributes(args, files) -> None:

@@ -1,7 +1,9 @@
 """Decompress .p/.s/.c.bin streams to .ply (reference decompress.py CLI,
 PyTorch port). Output files are named {name}.bin.ply, as pcc_tpu's.
 --attributes also decodes {name}.a.bin into the PLY's RGB (pcc_tpu's
-extension); a cloud without its .a.bin is skipped.
+extension); a cloud without its .a.bin is skipped. --devices N > 1
+decompresses on N processes, one per device, as compress does; rank 0
+writes the clouds.
 
   python -m pcc_tpu_torch.cli.decompress comp/ decomp/ model/ [--model PPPF-AE] [--device cpu]
   python -m pcc_tpu_torch.cli.decompress comp/ decomp/ model/ --attributes [--d_a 16]
@@ -14,9 +16,11 @@ import os
 import time
 from glob import glob
 
-from pcc_tpu_torch.cli._common import (add_codec_flags, batch_size_from_args,
-                                        config_from_args, load_attr_codec, load_codec)
+from pcc_tpu_torch.cli._common import (add_codec_flags, add_devices_flag, batch_size_from_args,
+                                        config_from_args, load_attr_codec, load_codec,
+                                        maybe_launch, print0)
 from pcc_tpu_torch.io import save_point_cloud
+from pcc_tpu_torch.parallel.mesh import rank
 
 
 def build_parser():
@@ -29,6 +33,7 @@ def build_parser():
     p.add_argument("decompressed_path", help="Decompressed .ply files folder.")
     p.add_argument("model_load_folder", help="Directory where to load trained models.")
     add_codec_flags(p)
+    add_devices_flag(p)
     p.add_argument("--attributes", action="store_true",
                    help="Decode {name}.a.bin RGB streams into colored .ply outputs "
                         "(extension; the reference codes geometry only).")
@@ -55,9 +60,13 @@ def main(argv=None):
     os.makedirs(args.decompressed_path, exist_ok=True)
     if args.attributes:
         return decompress_with_attributes(args, files)
+    if maybe_launch(args, main, argv):
+        return
+    if args.devices > 1:
+        print0(f"data-parallel decompression over {args.devices} devices")
     codec = load_codec(args.model_load_folder, config_from_args(args), args.seed,
                        batch_size=batch_size_from_args(args), device=args.device)
-    print(f"Processing on device: {codec.device}")
+    print0(f"Processing on device: {codec.device}")
 
     names = [os.path.split(f)[1][: -len(".s.bin")] for f in files]
     streams = [read_streams(args.compressed_path, name, (".p.bin", ".s.bin", ".c.bin"))
@@ -65,9 +74,10 @@ def main(argv=None):
     start = time.time()
     clouds = codec.decompress_many(streams)
     elapsed = time.time() - start
-    for name, pc in zip(names, clouds):
-        save_point_cloud(pc, name + ".bin.ply", path=args.decompressed_path)
-    print(f"Done! Execution time: {round(elapsed / len(files), 5)}s per point cloud.")
+    if rank() == 0:
+        for name, pc in zip(names, clouds):
+            save_point_cloud(pc, name + ".bin.ply", path=args.decompressed_path)
+    print0(f"Done! Execution time: {round(elapsed / len(files), 5)}s per point cloud.")
 
 
 def decompress_with_attributes(args, files) -> None:

@@ -18,8 +18,14 @@ cli/train_pppe_pcd_ae.py, the attribute codec's cli/train_attributes.py.
 encoder's BatchNorm on batch statistics (plain products), then the fused
 step with them frozen (train/steps_pppf.py), as pcc_tpu's --fused_encoder
 auto does on one accelerator. Not ported yet, and refused with a message:
---bf16, --devices > 1; --fused_encoder and --jax_debug_nans are not
-flags of this parser, which rejects them.
+--bf16; --fused_encoder and --jax_debug_nans are not flags of this parser,
+which rejects them.
+
+--devices N > 1 trains data-parallel on N processes, one per device
+(cli/_common.py::maybe_launch, parallel/mesh.py): every rank draws the same
+global batch and FPS starts and trains on its shard, the step being the
+single-device step of the global batch; rank 0 prints and writes the
+checkpoints. --batch_size must be divisible by N.
 """
 
 from __future__ import annotations
@@ -32,11 +38,12 @@ from glob import glob
 import numpy as np
 import torch
 
+from pcc_tpu_torch.cli._common import add_devices_flag, maybe_launch, print0
 from pcc_tpu_torch.config import DEFAULT_SEED, CodecConfig
 from pcc_tpu_torch.io import read_point_clouds
-from pcc_tpu_torch.train import (build_pppf_train_step, build_train_step,
-                                 create_train_state, load_latest_checkpoint,
-                                 save_checkpoint)
+from pcc_tpu_torch.parallel.mesh import (build_sharded_pppf_train_step,
+                                         build_sharded_train_step, rank)
+from pcc_tpu_torch.train import create_train_state, load_latest_checkpoint, save_checkpoint
 from pcc_tpu_torch.train.state import make_optimizer
 
 
@@ -83,8 +90,7 @@ def build_parser():
                         "fused step with them frozen (the PN++ stage kernels and "
                         "their backward). 0 = fused from the start.")
     p.add_argument("--seed", type=int, default=DEFAULT_SEED)
-    p.add_argument("--devices", type=int, default=1,
-                   help="Data-parallel device count (only 1 is ported).")
+    add_devices_flag(p)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="Device to run on; 'cuda' raises when there is no card.")
     p.add_argument("--profile_dir", default=None,
@@ -97,48 +103,47 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.model not in ("AE", "PPPF-AE"):
         raise SystemExit(f"Unknown model type: {args.model}")
-    for flag, refused in (("--bf16", args.bf16),
-                          (f"--devices {args.devices}", args.devices > 1)):
-        if refused:
-            raise SystemExit(f"{flag}: not ported yet (pcc_tpu_torch trains in "
-                             "float32 on one device)")
+    if args.bf16:
+        raise SystemExit("--bf16: not ported yet (pcc_tpu_torch trains in float32)")
+    if maybe_launch(args, main, argv, batch_size=args.batch_size):
+        return
     cfg = CodecConfig(N=args.N, N0=args.N0, ALPHA=args.ALPHA, K=args.K, d=args.d, L=args.L,
                       model=args.model)
     tx = make_optimizer(args.lr, args.lr_decay, args.lr_decay_steps, args.max_steps)
     state = create_train_state(args.seed, cfg, tx, device=args.device)
     device = state.optimizer.param_groups[0]["params"][0].device
-    print(f"Training {args.model} on {device}")
-    print(f"N={cfg.N}, K={cfg.K}, S={cfg.S}, d={cfg.d}, L={cfg.L}")
+    print0(f"Training {args.model} on {device}")
+    print0(f"N={cfg.N}, K={cfg.K}, S={cfg.S}, d={cfg.d}, L={cfg.L}")
 
     os.makedirs(args.model_save_folder, exist_ok=True)
     files = sorted(glob(args.train_glob, recursive=True))
     if not files:
         raise SystemExit(f"no training files match {args.train_glob}")
-    print("loading point clouds...")
+    print0("loading point clouds...")
     points = read_point_clouds(files)
-    print(f"Loaded {points.shape} points, range: [{points.min()}, {points.max()}]")
+    print0(f"Loaded {points.shape} points, range: [{points.min()}, {points.max()}]")
 
     if args.model == "PPPF-AE":
         # the BatchNorm warm-up, then the fused step; chosen per step off the
         # Python counter, never off a device value
-        warmup_step = build_pppf_train_step(cfg, tx, rate_mode=args.rate_mode)
-        fused_step = build_pppf_train_step(cfg, tx, rate_mode=args.rate_mode, fused=True)
+        warmup_step = build_sharded_pppf_train_step(cfg, tx, rate_mode=args.rate_mode)
+        fused_step = build_sharded_pppf_train_step(cfg, tx, rate_mode=args.rate_mode, fused=True)
         fused_after = args.bn_warmup_steps
     else:
-        warmup_step = fused_step = build_train_step(cfg, tx, rate_mode=args.rate_mode)
+        warmup_step = fused_step = build_sharded_train_step(cfg, tx, rate_mode=args.rate_mode)
         fused_after = 0
     start_step = 0
     if not args.reset:
         state, start_step = load_latest_checkpoint(args.model_save_folder, state)
-        print(f"Resuming from step {start_step}")
+        print0(f"Resuming from step {start_step}")
     else:
-        print("Resetting training from scratch.")
+        print0("Resetting training from scratch.")
 
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator().manual_seed(args.seed + 1)   # FPS start indices
     global_step = start_step
     prof = None
-    if args.profile_dir:
+    if args.profile_dir and rank() == 0:
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda"
@@ -146,6 +151,9 @@ def main(argv=None):
         prof = profile(activities=acts)
         prof.start()
     B = args.batch_size
+    if args.devices > 1:
+        print0(f"data-parallel training over {args.devices} devices "
+               f"({B // args.devices} clouds/device/step)")
     window = {"loss": [], "fbpp": [], "bpp": []}
     t_window = time.time()
 
@@ -154,6 +162,8 @@ def main(argv=None):
         for lo in range(0, len(order) - B + 1, B):
             if global_step >= args.max_steps:
                 break
+            # the global batch and its starts, the same on every rank (the
+            # step takes this rank's shard of both)
             batch = torch.from_numpy(points[order[lo:lo + B]]).to(device)
             starts = torch.randint(0, points.shape[1], (B,), generator=gen,
                                    dtype=torch.int32).to(device)
@@ -169,7 +179,7 @@ def main(argv=None):
             if global_step % args.step_window == 0:
                 window = {k: torch.stack(v).cpu().numpy() for k, v in window.items()}
                 dt = time.time() - t_window
-                print(
+                print0(
                     f"[Epoch {epoch}] Step {global_step} | "
                     f"Feature bpp: {np.mean(window['fbpp']):.5f} | "
                     f"Bpp: {np.mean(window['bpp']):.5f} | "
@@ -183,13 +193,13 @@ def main(argv=None):
                     prof.stop()
                     os.makedirs(args.profile_dir, exist_ok=True)
                     prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
-                    print(f"profiler trace written to {args.profile_dir}")
+                    print0(f"profiler trace written to {args.profile_dir}")
                     prof = None
         if global_step >= args.max_steps:
             break
 
     save_checkpoint(args.model_save_folder, state, "")
-    print("Done.")
+    print0("Done.")
 
 
 if __name__ == "__main__":

@@ -14,7 +14,10 @@ sees raw clouds, while the PPPE compress CLI normalizes each cloud, so
 training data should already lie in about [0, 1]. On the card the step
 runs the FPS kernel 3 times and the chamfer kernels once each.
 --lr_decay and --lr_decay_steps are parsed and unused, as in pcc_tpu.
-Refused with a message: --bf16, --devices > 1.
+Refused with a message: --bf16. --devices N > 1 trains data-parallel on N
+processes, one per device, as cli/train.py does (the step is the
+single-device step of the global batch, train/steps_pppe.py); rank 0 prints
+and writes dataset_norm.pkl and the checkpoints.
 
   python -m pcc_tpu_torch.cli.train_pppe_pcd_ae --train_glob 'in/*.ply' \\
       --model_save_folder model/ [--device cpu]
@@ -31,11 +34,13 @@ from glob import glob
 import numpy as np
 import torch
 
+from pcc_tpu_torch.cli._common import add_devices_flag, maybe_launch, print0
 from pcc_tpu_torch.config import DEFAULT_SEED, PPPEConfig
 from pcc_tpu_torch.io import read_point_clouds
+from pcc_tpu_torch.parallel.mesh import build_sharded_pppe_train_step, rank
 from pcc_tpu_torch.train.checkpoint import resume_pppe_checkpoint, save_pppe_checkpoint
-from pcc_tpu_torch.train.steps_pppe import (build_pppe_train_step, cosine_epoch_lr,
-                                            create_pppe_state, make_pppe_optimizer, set_lr)
+from pcc_tpu_torch.train.steps_pppe import (cosine_epoch_lr, create_pppe_state,
+                                            make_pppe_optimizer, set_lr)
 
 
 def build_parser():
@@ -61,8 +66,7 @@ def build_parser():
     p.add_argument("--bf16", action="store_true",
                    help="bf16 mixed-precision compute (not ported yet).")
     p.add_argument("--seed", type=int, default=DEFAULT_SEED)
-    p.add_argument("--devices", type=int, default=1,
-                   help="Data-parallel device count (only 1 is ported).")
+    add_devices_flag(p)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="Device to run on; 'cuda' raises when there is no card.")
     return p
@@ -93,33 +97,35 @@ def compute_dataset_norm(points: np.ndarray):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag, refused in (("--bf16", args.bf16),
-                          (f"--devices {args.devices}", args.devices > 1)):
-        if refused:
-            raise SystemExit(f"{flag}: not ported yet (pcc_tpu_torch trains in "
-                             "float32 on one device)")
+    if args.bf16:
+        raise SystemExit("--bf16: not ported yet (pcc_tpu_torch trains in float32)")
+    if maybe_launch(args, main, argv, batch_size=args.batch_size):
+        return
     cfg = PPPEConfig(N=args.N, latent_dim=args.K, L=args.L)
     tx = make_pppe_optimizer(args.lr)
     state = create_pppe_state(args.seed, cfg, tx, device=args.device)
     device = state.params.device
-    print(f"Training PointNet++ + PCN + ProbModel on {device}")
+    print0(f"Training PointNet++ + PCN + ProbModel on {device}")
     os.makedirs(args.model_save_folder, exist_ok=True)
     points = load_training_points(args.train_glob)
-    train_step = build_pppe_train_step(tx)
+    train_step = build_sharded_pppe_train_step(tx)
 
     center, longest = compute_dataset_norm(points)
-    with open(os.path.join(args.model_save_folder, "dataset_norm.pkl"), "wb") as f:
-        pickle.dump({"center": center, "longest": longest}, f)
+    if rank() == 0:
+        with open(os.path.join(args.model_save_folder, "dataset_norm.pkl"), "wb") as f:
+            pickle.dump({"center": center, "longest": longest}, f)
 
     start_step = 0
     if not args.reset:
         state, start_step = resume_pppe_checkpoint(args.model_save_folder, state)
-        print(f"Resuming from step {start_step}")
+        print0(f"Resuming from step {start_step}")
     else:
-        print("Starting training from scratch.")
+        print0("Starting training from scratch.")
 
     rng = np.random.default_rng(args.seed)
     B = args.batch_size
+    if args.devices > 1:
+        print0(f"data-parallel training over {args.devices} devices")
     global_step = start_step
     best_loss = float("inf")
     window = {"loss": [], "dist": [], "rate": [], "skipped": []}
@@ -131,6 +137,8 @@ def main(argv=None):
         for lo in range(0, len(order) - B + 1, B):
             if global_step >= args.max_steps:
                 break
+            # the global batch, the same on every rank (the step takes this
+            # rank's shard)
             batch = torch.from_numpy(np.ascontiguousarray(points[order[lo:lo + B]],
                                                           np.float32)).to(device)
             lam_eff = 1.0 * min(1.0, global_step / max(1, args.warmup_steps))
@@ -144,16 +152,16 @@ def main(argv=None):
                 vals = {k: torch.stack(v).cpu().numpy() for k, v in window.items()}
                 n_skip = int(vals.pop("skipped").sum())
                 if n_skip:
-                    print(f"[Warning] {n_skip} loss anomalies in window")
+                    print0(f"[Warning] {n_skip} loss anomalies in window")
                 avg = {k: float(np.mean(v)) for k, v in vals.items()}
                 if avg["loss"] < best_loss:
                     best_loss = avg["loss"]
                     save_pppe_checkpoint(args.model_save_folder, state, global_step, best=True)
                 dt = time.time() - t_window
-                print(f"[Epoch {epoch}] Step {global_step} | "
-                      f"Loss: {avg['loss']:.5f} | Dist: {avg['dist']:.5f} | "
-                      f"Rate: {avg['rate']:.5f} | "
-                      f"{args.step_window / dt:.2f} steps/s")
+                print0(f"[Epoch {epoch}] Step {global_step} | "
+                       f"Loss: {avg['loss']:.5f} | Dist: {avg['dist']:.5f} | "
+                       f"Rate: {avg['rate']:.5f} | "
+                       f"{args.step_window / dt:.2f} steps/s")
                 window = {k: [] for k in window}
                 t_window = time.time()
                 save_pppe_checkpoint(args.model_save_folder, state, global_step)
@@ -161,7 +169,7 @@ def main(argv=None):
             break
 
     save_pppe_checkpoint(args.model_save_folder, state, global_step)
-    print("Done.")
+    print0("Done.")
 
 
 if __name__ == "__main__":

@@ -18,6 +18,13 @@ ops/decoder_cuda.py, k points per patch; PPPF-AE: FoldingNet, plain
 products, d * d points per patch) and returns int8 offsets around each
 skeleton point, which the host adds and denormalizes.
 
+In a process group (parallel/mesh.py; the CLIs' --devices N) each rank
+codes its contiguous shard of every dispatch batch, the batches keeping the
+boundaries one device gives, and every rank gets every cloud's result in
+input order (pcc_tpu's mesh Codec). Streams are byte-identical whatever the
+number of ranks: the integer coding weights are bit-exact, and each cloud's
+symbols do not depend on the other clouds of its batch.
+
 On-disk contract (reference compress.py:139-152, same bytes as pcc_tpu):
   {name}.p.bin  — range-coded latents
   {name}.s.bin  — packed octree occupancy bits
@@ -47,6 +54,7 @@ from pcc_tpu_torch.models.pppf import PPPF_AE, PPPFConditionalProbabilityModel
 from pcc_tpu_torch.ops.fps import fps_batch
 from pcc_tpu_torch.ops.knn import knn_points
 from pcc_tpu_torch.ops.normalize import normalize
+from pcc_tpu_torch.parallel.mesh import merge_shards, shard_batch
 from pcc_tpu_torch.weights import to_jax_params
 
 # scale / 1023.0 as XLA compiles it in pcc_tpu: a product with the float32
@@ -199,7 +207,8 @@ def decode_clouds_packed(ae, sym: torch.Tensor, cfg: CodecConfig):
 
 
 class Codec:
-    """Batched compress / decompress of point clouds on one device.
+    """Batched compress / decompress of point clouds on one device, or on
+    this rank's device in a process group (module docstring).
 
     Clouds of equal size share one device batch of up to `batch_size`
     clouds; the host serializes each batch's streams after the device
@@ -269,7 +278,8 @@ class Codec:
         """Clouds of equal size in batches of up to batch_size through
         encode_batch(clouds, *extras, starts) and serialize, in input order.
         `extras`: per-cloud lists beside the clouds that encode_batch takes
-        stacked (AttrCodec's colours)."""
+        stacked (AttrCodec's colours). In a process group this rank codes
+        its shard of each batch."""
         if fps_starts is None:
             fps_starts = [0] * len(clouds)
         results: list = [None] * len(clouds)
@@ -278,13 +288,15 @@ class Codec:
             by_n.setdefault(int(pc.shape[0]), []).append(i)
         for idxs in by_n.values():
             for lo in range(0, len(idxs), self.batch_size):
-                batch = idxs[lo:lo + self.batch_size]
+                batch = shard_batch(idxs[lo:lo + self.batch_size])
+                if not batch:
+                    continue
                 res = self.encode_batch(
                     *(np.stack([col[i] for i in batch]) for col in (clouds, *extras)),
                     np.asarray([fps_starts[i] for i in batch], np.int32))
                 for i, blob in zip(batch, self.serialize(res)):
                     results[i] = blob
-        return results
+        return merge_shards(results)
 
     # ------------------------------------------------------------- decode --
 
@@ -322,7 +334,8 @@ class Codec:
 
     def decompress_many(self, streams):
         """Decompress a list of (p, s, c) byte triples -> list of [M, 3],
-        one decode_streams output per triple."""
+        one decode_streams output per triple. In a process group this rank
+        decodes its shard of each batch."""
         results: list = [None] * len(streams)
         parsed = []
         for st in streams:
@@ -334,10 +347,12 @@ class Codec:
             by_s.setdefault(rec.shape[0], []).append(i)
         for idxs in by_s.values():
             for lo in range(0, len(idxs), self.batch_size):
-                batch = idxs[lo:lo + self.batch_size]
+                batch = shard_batch(idxs[lo:lo + self.batch_size])
+                if not batch:
+                    continue
                 recs = np.stack([parsed[i][0] for i in batch])
                 headers = np.stack([parsed[i][1] for i in batch])
                 decoded = self.decode_streams(recs, headers, [streams[i] for i in batch])
                 for i, out in zip(batch, decoded):
                     results[i] = out
-        return results
+        return merge_shards(results)

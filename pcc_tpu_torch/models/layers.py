@@ -18,6 +18,7 @@ from torch import nn
 
 from pcc_tpu_torch.ops.knn import knn_points
 from pcc_tpu_torch.ops.sa_cuda import sa_fused
+from pcc_tpu_torch.parallel.mesh import global_mean, is_distributed
 
 
 class PointConv(nn.Module):
@@ -87,12 +88,18 @@ def batch_norm_train(h: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     then (h - mean) * (rsqrt(var + eps) * scale) + bias. Updates bn's running
     statistics in place, running = BN_MOMENTUM * running + (1 - BN_MOMENTUM)
     * batch, with the biased variance. (nn.BatchNorm2d in training would use
-    torch's momentum 0.1 and the unbiased variance.)"""
+    torch's momentum 0.1 and the unbiased variance.) In a process group
+    (parallel/mesh.py) the batch is the global one, as under pcc_tpu's SPMD
+    partitioner: both means are averaged over the ranks, whose shards are
+    equal in size, with the gradient flowing through the collective (not
+    nn.SyncBatchNorm, which is torch's BatchNorm)."""
     dims = tuple(range(h.dim() - 1))
-    mean = h.mean(dim=dims)
+    mean, sq = h.mean(dim=dims), (h * h).mean(dim=dims)
+    if is_distributed():
+        mean, sq = global_mean(torch.stack([mean, sq]))
     # jnp.maximum(0, .): a variance of exactly 0 (a channel constant over
     # the batch) passes half its gradient, as flax's does
-    var = torch.maximum((h * h).mean(dim=dims) - mean * mean, h.new_zeros(()))
+    var = torch.maximum(sq - mean * mean, h.new_zeros(()))
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
         bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)

@@ -21,6 +21,9 @@ which pcc_tpu's load_pppe_checkpoint and the port's PPPE compress CLI
 in the format above (keyed by the AE's parameter names), which
 `resume_pppe_checkpoint` reads back. An optax pickle written by pcc_tpu is
 not read: resuming from one starts Adam afresh, with a warning.
+
+In a process group (parallel/mesh.py) only rank 0 writes, the state being
+the same on every rank; every rank resumes from the same files.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import re
 
 import torch
 
+from pcc_tpu_torch.parallel.mesh import rank
 from pcc_tpu_torch.weights import from_jax_params, to_jax_params
 
 
@@ -69,7 +73,10 @@ def load_optimizer_state(state, saved: dict) -> None:
 
 
 def save_checkpoint(folder: str, state, global_step: int | str = "") -> None:
-    """Step-suffixed dump (train.py:104-108) plus the inference export."""
+    """Step-suffixed dump (train.py:104-108) plus the inference export
+    (rank 0 only)."""
+    if rank() != 0:
+        return
     os.makedirs(folder, exist_ok=True)
     ae_vars, prob_vars = _model_vars(state)
     _dump(ae_vars, os.path.join(folder, f"ae_step{global_step}.pkl"))
@@ -80,7 +87,10 @@ def save_checkpoint(folder: str, state, global_step: int | str = "") -> None:
 
 
 def export_inference_params(folder: str, state) -> None:
-    """Write the un-suffixed names compress / decompress load."""
+    """Write the un-suffixed names compress / decompress load (rank 0
+    only)."""
+    if rank() != 0:
+        return
     os.makedirs(folder, exist_ok=True)
     ae_vars, prob_vars = _model_vars(state)
     _dump(ae_vars, os.path.join(folder, "ae.pkl"))
@@ -145,7 +155,9 @@ def pppe_optimizer_state(state) -> dict:
 
 def save_pppe_checkpoint(folder: str, state, global_step: int, best: bool = False) -> None:
     """{ae,prob,optimizer,global}_{latest,best}.pkl of a PPPE train state
-    (pcc_tpu/train/checkpoint.py::save_pppe_checkpoint)."""
+    (pcc_tpu/train/checkpoint.py::save_pppe_checkpoint), rank 0 only."""
+    if rank() != 0:
+        return
     os.makedirs(folder, exist_ok=True)
     suffix = "best" if best else "latest"
     ae_vars, _ = to_jax_params(state.model.state_dict())

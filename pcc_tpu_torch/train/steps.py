@@ -10,6 +10,13 @@ PPPF-AE) with the input [B, N, 3]: through the chamfer kernels and their
 backward (ops/chamfer_cuda.py), which take whole clouds of any size of the
 paths (N = 512 and N = 8192 alike). On CPU tensors every kernel runs its
 plain version.
+
+In a process group (parallel/mesh.py) each rank runs this on its shard of
+the global batch and the step computes the single-device function of the
+global batch, as pcc_tpu's sharded step does: the bit counts are summed over
+the ranks before the rate's divisions by the global B (quadratic in 1 / B in
+rate_mode "reference"), each rank's loss is its share of the global loss,
+and the gradients are summed over the ranks before Adam.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ from pcc_tpu_torch.codec import encode_geometry
 from pcc_tpu_torch.coding.pmf import estimate_bits_from_pmf
 from pcc_tpu_torch.config import CodecConfig
 from pcc_tpu_torch.models.losses import rate_distortion_loss
+from pcc_tpu_torch.parallel.mesh import (all_reduce_grads, all_reduce_sum, global_mean,
+                                         global_sum, is_distributed, world_size)
 
 RATE_MODES = ("reference", "fixed")
 
@@ -32,25 +41,29 @@ def rd_forward(ae, prob, batch: torch.Tensor, starts: torch.Tensor, lam: float,
     rate_mode "reference" divides the bit count by B*N twice, as the
     reference does (train.py:201-205), so the rate term barely trains;
     "fixed" divides once, a true bits per point. Returns (loss, aux) with
-    aux keys chamfer, fbpp, bpp, true_fbpp.
+    aux keys chamfer, fbpp, bpp, true_fbpp. In a process group `batch` is
+    this rank's shard, aux holds the global batch's values (equal on every
+    rank), and the loss is this rank's share: the ranks' losses sum to the
+    global loss, and so do their gradients.
     """
     if rate_mode not in RATE_MODES:
         raise ValueError(f"rate_mode {rate_mode!r} not in {RATE_MODES}")
-    B, N, _ = batch.shape
+    b, N, _ = batch.shape
+    B = b * world_size()                                                # the global batch
     # patch selection carries no gradient: patches are data-derived
     with torch.no_grad():
         geo = encode_geometry(batch, starts, cfg)
-    rec_xyz = geo.octree.rec_xyz                                        # [B, S, 3]
-    skeleton_bits = geo.octree.total_bits.sum()
+    rec_xyz = geo.octree.rec_xyz                                        # [b, S, 3]
+    skeleton_bits = global_sum(geo.octree.total_bits.sum())
 
     patches_pred, _, latent_q = ae(geo.patches)
     # / patch_scale as XLA compiles it: a product with the f32 reciprocal
     patches_pred = patches_pred * float(np.float32(1.0) / np.float32(cfg.patch_scale))
 
-    pmf = prob(rec_xyz)                                                 # [B, S, d, L]
-    sym = torch.clamp(latent_q.detach().reshape(B, cfg.S, cfg.d) + cfg.L // 2,
+    pmf = prob(rec_xyz)                                                 # [b, S, d, L]
+    sym = torch.clamp(latent_q.detach().reshape(b, cfg.S, cfg.d) + cfg.L // 2,
                       0, cfg.L - 1).long()
-    feature_bits = estimate_bits_from_pmf(pmf, sym)
+    feature_bits = all_reduce_sum(estimate_bits_from_pmf(pmf, sym))
 
     if rate_mode == "reference":
         fbpp = feature_bits / (B * N) / (B * N)
@@ -61,11 +74,14 @@ def rd_forward(ae, prob, batch: torch.Tensor, starts: torch.Tensor, lam: float,
 
     # k points per patch for IPDAE, d * d for PPPF-AE (steps_pppf.py:123-128)
     per_patch = patches_pred.shape[1]
-    pc_pred = (patches_pred.reshape(B, cfg.S, per_patch, 3)
-               + rec_xyz[:, :, None, :]).reshape(B, cfg.S * per_patch, 3)
+    pc_pred = (patches_pred.reshape(b, cfg.S, per_patch, 3)
+               + rec_xyz[:, :, None, :]).reshape(b, cfg.S * per_patch, 3)
     loss, aux = rate_distortion_loss(pc_pred, geo.pc01, fbpp, lam)
     aux["bpp"] = bpp
     aux["true_fbpp"] = feature_bits / (B * N)
+    if is_distributed():
+        aux["chamfer"] = global_mean(aux["chamfer"].detach())
+        loss = loss / world_size()
     return loss, aux
 
 
@@ -74,7 +90,9 @@ def build_train_step(cfg: CodecConfig, tx, rate_mode: str = "reference"):
     (state, aux): one forward, backward and Adam update of `state` (in
     place) at the learning rate of the schedule `tx` (train/state.py). aux
     holds loss, chamfer, fbpp, bpp, true_fbpp as 0-d tensors on the device,
-    detached."""
+    detached. In a process group: the step of the global batch whose shard
+    `batch` is (rd_forward), with the gradients summed over the ranks by one
+    all-reduce; every rank's state moves alike."""
     if rate_mode not in RATE_MODES:
         raise ValueError(f"rate_mode {rate_mode!r} not in {RATE_MODES}")
 
@@ -82,8 +100,9 @@ def build_train_step(cfg: CodecConfig, tx, rate_mode: str = "reference"):
         state.optimizer.zero_grad(set_to_none=False)
         loss, aux = rd_forward(state.ae, state.prob, batch, starts, lam, cfg, rate_mode)
         loss.backward()
+        all_reduce_grads(p for _, p in state.named_parameters())
         state.apply_gradients(tx)
-        aux["loss"] = loss
+        aux["loss"] = global_sum(loss.detach())
         return state, {k: v.detach() for k, v in aux.items()}
 
     return train_step

@@ -20,6 +20,13 @@ statistic of the model is a view into it (`_flatten`). The prob model is a
 submodule of the AE and shares its optimizer (train_pppe:274-276); the
 rate carries no gradient, so its gradients are zeros, and Adam leaves it
 where it is, as in pcc_tpu.
+
+In a process group (parallel/mesh.py) the step is the single-device step of
+the global batch, as pcc_tpu's sharded step is: batch statistics over the
+global batch (models/layers.py::batch_norm_train), the rate's global mean
+before its clip, the skip decided on the global loss, and the flat gradient
+summed over the ranks before the clip and Adam, so that every rank keeps
+the same state bit for bit, skipped steps included.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from pcc_tpu_torch.device import resolve_device
 from pcc_tpu_torch.models.pppe import (PointCloudAE, estimate_bits_per_point_conditional,
                                        make_pppe_model)
 from pcc_tpu_torch.ops.chamfer import chamfer_distance
+from pcc_tpu_torch.parallel.mesh import global_mean, global_sum, is_distributed, world_size
 
 MAX_RATE = 100.0      # the rate term's clip (pcc_tpu's pppe_forward max_rate)
 B1, B2, EPS = 0.9, 0.999, 1e-8   # optax.adam's defaults (eps_root 0)
@@ -137,12 +145,17 @@ def set_lr(state: PPPETrainState, lr: float) -> PPPETrainState:
 def pppe_forward(model: PointCloudAE, batch: torch.Tensor, lam_eff: float):
     """(loss, aux) of raw clouds [B, N, 3]: chamfer(fine, batch) + lam_eff *
     clip(rate, 0, MAX_RATE); aux holds dist and rate. In training mode the
-    forward updates the running statistics."""
+    forward updates the running statistics. In a process group `batch` is
+    this rank's shard: the rate is clipped after its global mean, aux holds
+    the global values and the loss is this rank's share of the global
+    loss."""
     _, fine, cond_feats, y_q = model(batch)
-    fbpp = estimate_bits_per_point_conditional(model, y_q, cond_feats)
+    fbpp = global_mean(estimate_bits_per_point_conditional(model, y_q, cond_feats))
     dist, _ = chamfer_distance(fine, batch, fast_search=True)
     rate = torch.clamp(fbpp, 0.0, MAX_RATE)
     loss = dist + lam_eff * rate
+    if is_distributed():
+        return loss / world_size(), {"dist": global_mean(dist.detach()), "rate": rate}
     return loss, {"dist": dist, "rate": rate}
 
 
@@ -171,7 +184,8 @@ def build_pppe_train_step(tx: ClippedAdam):
     """Returns train_step(state, batch [B, N, 3], lam_eff) -> (state, aux):
     one forward, backward and clipped Adam update of `state` in place,
     skipped whole where the loss is not finite. aux holds loss, dist, rate
-    and skipped as 0-d tensors on the device."""
+    and skipped as 0-d tensors on the device. In a process group: the step
+    of the global batch whose shard `batch` is (module docstring)."""
 
     def train_step(state: PPPETrainState, batch: torch.Tensor, lam_eff: float):
         old_stats = state.stats.clone()
@@ -179,13 +193,14 @@ def build_pppe_train_step(tx: ClippedAdam):
         loss, aux = pppe_forward(state.model, batch, lam_eff)
         loss.backward()
         # the prob model takes no part in the loss: its gradients are zeros
-        g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-                       for _, p in state.named_parameters()])
+        g = global_sum(torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                                  .reshape(-1) for _, p in state.named_parameters()]))
+        loss = global_sum(loss.detach())
         ok = torch.isfinite(loss)
         with torch.no_grad():
             _adam_update(state, g, tx, ok)
             state.stats.copy_(torch.where(ok, state.stats, old_stats))
-        aux["loss"] = loss.detach()
+        aux["loss"] = loss
         aux["skipped"] = ~ok
         return state, {k: v.detach() for k, v in aux.items()}
 
