@@ -144,12 +144,17 @@ Phases (any failed check raises, and the script exits non-zero):
      and the forward's instruction floor; the N = 512 fused PPPF-AE step's
      six FPS calls (the CPM's on skeletons of 4 points) held and timed as
      in phase 13;
- 17. the SetAbstraction kernel vs its plain version on the IPDAE serving
-     path's own patches (phase 4, [4096, 256, 3]) with the serving model's
-     weights: within TOL of the largest entry; CUDA-event times, the plain
-     version's time, the bound; then SetAbstraction(fused=True) on the
-     card with every launch counter set to 0 just before and read just
-     after (sa_fused 1), its output equal to the kernel's;
+ 17. the SetAbstraction kernel (layers 2 and 3 on the tensor cores) vs its
+     plain version on the IPDAE serving path's own patches (phase 4,
+     [4096, 256, 3]) with the serving model's weights: within TOL of the
+     largest entry, two launches bitwise equal; CUDA-event and device
+     times (the log line also quotes the float32 design it replaced, an
+     earlier run's figure in FP32_DESIGN_MS, not measured here), the
+     plain version's time, both bounds (layers 2-3 in 3xTF32, and all in
+     float32); then
+     SetAbstraction(fused=True) on the card with every launch counter set
+     to 0 just before and read just after (sa_fused 1), its output equal to
+     the kernel's;
  18. evaluation on the card: metrics.eval_batch on phase 3's 64 decoded
      IPDAE clouds against their originals, finite; EVAL_CPU_PAIRS pairs
      again on the CPU port, within TOL_EVAL; CUDA-event time per
@@ -164,13 +169,17 @@ Phases (any failed check raises, and the script exits non-zero):
      decode's walls and peak memory, each under torch.profiler; the .bin
      latents equal to the encoder's; PPPE_CPU_CLOUDS clouds on the CPU
      port: latents within TOL of the largest, decoded clouds within TOL;
- 20. the stage kernel in the "pppe" layout vs pppf_sa_plain on phase 19's
-     own sa2 and sa3 inputs (recorded): within TOL of the largest entry,
-     the selection bit-equal (read through the kernel with one-hot
-     features and an identity layer), CUDA-event and device times, the
-     plain version's time, the bound by operations per slot; phase 19's
-     three FPS calls held bit for bit and timed (fps_check), sa1's top-32
-     selection timed;
+ 20. the stage kernel in the "pppe" layout (the first layer's feature
+     block per point, later layers on the tensor cores) vs pppf_sa_plain on
+     phase 19's own sa2 and sa3 inputs (recorded): within TOL of the
+     largest entry, two launches bitwise equal, the selection bit-equal
+     (read through the kernel with one-hot features and an identity
+     layer), CUDA-event and device times (the log line also quotes the
+     float32 per-slot design's, an earlier run's figure in FP32_DESIGN_MS,
+     not measured here), the plain version's time, both bounds (the
+     products in 3xTF32, and all in float32; the work per point where the
+     first layer allows); phase 19's three FPS calls held bit for bit and
+     timed (fps_check), sa1's top-32 selection timed;
  21. PPPE training at the train CLI's defaults (pppe_train_phase): launches
      per step fps 3, chamfer_fwd 1, chamfer_bwd 1; a NaN batch skipped with
      the whole state bit for bit; the step's FPS and chamfer held to their
@@ -252,8 +261,9 @@ from pcc_tpu_torch.ops.fps import fps_batch, fps_int_batch, fps_int_plain, fps_p
 from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
 from pcc_tpu_torch.ops.normals import estimate_normals
 from pcc_tpu_torch.ops.pppf_sa_cuda import (PPPFStageFn, pppf_sa_bwd, pppf_sa_bwd_plain,
-                                            pppf_sa_fused, pppf_sa_plain, pppf_sa_points,
-                                            stage_bwd_flops, stage_bwd_work, stage_flops)
+                                            pppe_work, pppf_sa_fused, pppf_sa_plain,
+                                            pppf_sa_points, stage_bwd_flops, stage_bwd_work,
+                                            stage_flops)
 from pcc_tpu_torch.ops.sa_cuda import (PatchEncoderFn, _kernel_choices, _unflatten,
                                        patch_encoder, patch_encoder_bwd, patch_encoder_bwd_plain,
                                        patch_encoder_plain, pointwise_plain, sa_fused,
@@ -345,6 +355,13 @@ ATTR_CPU_CLOUDS = 2
 ATTR_DA = 16
 ATTR_TRAIN_CLOUDS = 4
 ATTR_TRAIN_STEPS = 10
+# the CUDA-core float32 designs of the "pppe" stage (per slot) and of
+# SetAbstraction alone, which their tensor-core kernels replaced, as an
+# earlier run of this script timed them at the same shapes on an NVIDIA H100
+# 80GB HBM3 at 700 W (CUDA events, ms; PERF.md's kernel table). Quoted in
+# the log lines of phases 17 and 20 for comparison; no record carries them,
+# since nothing in a run measures them.
+FP32_DESIGN_MS = {"pppe sa2": 0.807, "pppe sa3": 0.880, "sa_fused": 10.77}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -510,6 +527,15 @@ def bound(flops: float, nbytes: float, rate: float = FP32_FLOP_PER_S):
     """(least ms, 'operations' or 'bytes') on this card for the work, its
     operations at `rate` a second."""
     t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def tc_bound(fp32: float, products: float, nbytes: float):
+    """(least ms, 'operations' or 'bytes') for work that runs `fp32`
+    operations on the CUDA cores and `products` as 3xTF32 products on the
+    tensor cores (three TF32 products each)."""
+    t_ops = fp32 / FP32_FLOP_PER_S + 3.0 * products / TF32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -1131,9 +1157,7 @@ def pppf_bwd_kernel_check(records, launches: dict) -> dict:
         # cores, the dx and dW products as three TF32 products each on the
         # tensor cores; and the float32 bound (the selection and the replay
         # too, everything on CUDA cores) beside it
-        t_ops = fp32 / FP32_FLOP_PER_S + 3.0 * products / TF32_FLOP_PER_S
-        t_bytes = nbytes(*ins, *a) / HBM_BYTES_PER_S
-        bms, by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+        bms, by = tc_bound(fp32, products, nbytes(*ins, *a))
         bms32, _ = bound(flops, nbytes(*ins, *a))
         r = dict(stage=name, shape=[P, S, N, widths], nsample=nsample,
                  max_abs_err=max(float((x - y).abs().max()) for x, y in zip(a, b)),
@@ -1463,16 +1487,24 @@ def sa_fused_phase(dev, patches, sa: SetAbstraction) -> dict:
     err, big = float((a - b).abs().max()), float(b.abs().max())
     if not err <= TOL * big:
         raise RuntimeError(f"sa_fused differs from the plain version: {err} > {TOL} * {big}")
+    if not torch.equal(sa_fused(patches, sa_wb, knn), a):
+        raise RuntimeError("two launches of sa_fused differ")
     P, N = patches.shape[:2]
     sa_mac = 3 * 32 + 32 * 64 + 64 * 128
-    # 9 operations per distance pair, 2 per multiply-add of the MLP per slot
+    # 9 operations per distance pair, 2 per multiply-add of the MLP per slot;
+    # layers 2 and 3 run as 3xTF32 products on the tensor cores, the rest in
+    # float32 on the CUDA cores (and all of it in float32 beside it)
     flops = P * (9.0 * N * N + 2.0 * N * knn * sa_mac)
-    bms, by = bound(flops, nbytes(patches, a, *[t for wb in sa_wb for t in wb]))
+    products = 2.0 * P * N * knn * (32 * 64 + 64 * 128)
+    io = nbytes(patches, a, *[t for wb in sa_wb for t in wb])
+    bms, by = tc_bound(flops - products, products, io)
+    bms32, _ = bound(flops, io)
     rec = dict(name="sa_fused", route="cuda", source="pcc_tpu_torch/csrc/sa_fused.cu",
                replaces="pcc_tpu/ops/sa_pallas.py:43", max_abs_err=err,
                ms=cuda_ms(lambda: sa_fused(patches, sa_wb, knn), 5),
                plain_ms=cuda_ms(lambda: sa_fused_plain(patches, sa_wb, knn), 2),
-               bound_ms=bms, bound_by=by, library_ms=None)
+               bound_ms=bms, bound_by=by, bound_fp32_ms=bms32, library_ms=None,
+               device_ms=graph_ms(lambda: sa_fused(patches, sa_wb, knn), 5))
     module = SetAbstraction(knn=knn, fused=True).to(dev)
     module.load_state_dict(sa.state_dict())
     torch.cuda.synchronize()
@@ -1487,10 +1519,13 @@ def sa_fused_phase(dev, patches, sa: SetAbstraction) -> dict:
     if not torch.equal(out, a):
         raise RuntimeError("SetAbstraction(fused=True) differs from sa_fused")
     rec["launches"] = launches["sa_fused"]
-    log(f"sa_fused on {tuple(patches.shape)}, knn {knn}: {rec['ms']:.3f} ms (plain "
-        f"{rec['plain_ms']:.1f} ms, bound {bms:.3f} ms by {by}, {flops / 1e9:.1f} GFLOP, "
-        f"{flops / rec['ms'] / 1e9:.2f} TFLOP/s), max_abs_err {err:.3g} of {big:.3g}; "
-        f"SetAbstraction(fused=True) launches {launches['sa_fused']}, output equal")
+    log(f"sa_fused on {tuple(patches.shape)}, knn {knn}: {rec['ms']:.3f} ms, device "
+        f"{rec['device_ms']:.3f} ms (the float32 design's {FP32_DESIGN_MS['sa_fused']} ms "
+        f"in an earlier run, not measured here; plain {rec['plain_ms']:.1f} ms; bound "
+        f"{bms:.3f} ms by {by} with layers 2-3 in 3xTF32, {bms32:.3f} ms in float32; "
+        f"{flops / 1e9:.1f} GFLOP, {flops / rec['ms'] / 1e9:.2f} TFLOP/s), max_abs_err "
+        f"{err:.3g} of {big:.3g}, two launches bitwise equal; SetAbstraction(fused=True) "
+        f"launches {launches['sa_fused']}, output equal")
     return rec
 
 
@@ -1787,6 +1822,8 @@ def pppe_phase(dev, smi: str):
         max_abs_err=max(r["max_abs_err"] for r in stages),
         ms=sum(r["ms"] for r in stages), plain_ms=sum(r["plain_ms"] for r in stages),
         bound_ms=sum(r["bound_ms"] for r in stages), bound_by=stages[-1]["bound_by"],
+        bound_fp32_ms=sum(r["bound_fp32_ms"] for r in stages),
+        device_ms=sum(r["device_ms"] for r in stages),
         library_ms=None, path="PPPE serving", stages=stages,
         walls_ms=walls, encode_ms=enc_ms, decode_ms=dec_ms, encode_peak_gib=enc_peak,
         sa1_selection_ms=sort_ms), fps_recs, counted["raw"]["fps"]
@@ -1821,20 +1858,31 @@ def pppe_stage_check(name: str, new_xyz, xyz, feat, layers, nsample) -> dict:
         raise RuntimeError(f"pppf_sa_stage {name} (pppe): the kernel's selection differs from "
                            f"the plain version's for {int((picked != want).any(-1).sum())} "
                            "queries")
+    if not torch.equal(pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), a):
+        raise RuntimeError(f"two launches of pppf_sa_stage {name} (pppe) differ")
     widths = [layers[0][0].shape[0]] + [lay[0].shape[1] for lay in layers]
     flops = stage_flops(P, S, N, nsample, widths, layout="pppe")
-    bms, by = bound(flops, nbytes(new_xyz, xyz, feat, a, *[t for lay in layers for t in lay]))
+    # the first layer's product per point and layers 2.. per slot as 3xTF32
+    # products on the tensor cores, the rest in float32 (and all of it in
+    # float32 beside it)
+    fp32, products = pppe_work(P, S, N, nsample, widths)
+    io = nbytes(new_xyz, xyz, feat, a, *[t for lay in layers for t in lay])
+    bms, by = tc_bound(fp32, products, io)
+    bms32, _ = bound(flops, io)
     rec = dict(stage=name, layout="pppe", shape=[P, S, N, widths], nsample=nsample,
-               max_abs_err=err, max_abs=big, selection="bit-equal",
+               max_abs_err=err, max_abs=big, selection="bit-equal", repeatable=True,
                ms=cuda_ms(lambda: pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), 10),
                plain_ms=cuda_ms(lambda: pppf_sa_plain(new_xyz, xyz, feat, layers, **kw), 2),
-               bound_ms=bms, bound_by=by, gflop=flops / 1e9)
+               bound_ms=bms, bound_by=by, bound_fp32_ms=bms32, gflop=flops / 1e9)
     rec["device_ms"] = graph_ms(lambda: pppf_sa_fused(new_xyz, xyz, feat, layers, **kw))
     log(f"pppf_sa_stage {name} (pppe) new_xyz {tuple(new_xyz.shape)} xyz {tuple(xyz.shape)} "
         f"widths {widths} nsample {nsample}: {rec['ms']:.3f} ms, device {rec['device_ms']:.3f} "
-        f"ms (plain {rec['plain_ms']:.2f} ms, bound {bms:.4f} ms by {by}, {flops / 1e9:.2f} "
-        f"GFLOP, {flops / rec['device_ms'] / 1e9:.2f} TFLOP/s), max_abs_err {err:.3g} of "
-        f"{big:.3g}; selection bit-equal to the plain version's")
+        f"ms (the float32 per-slot design's {FP32_DESIGN_MS[f'pppe {name}']} ms in an earlier "
+        f"run, not measured here; plain "
+        f"{rec['plain_ms']:.2f} ms; bound {bms:.4f} ms by {by} with the products in 3xTF32, "
+        f"{bms32:.4f} ms in float32; {flops / 1e9:.2f} GFLOP, "
+        f"{flops / rec['device_ms'] / 1e9:.2f} TFLOP/s), max_abs_err {err:.3g} of {big:.3g}; "
+        "selection bit-equal to the plain version's, two launches bitwise equal")
     return rec
 
 

@@ -88,48 +88,53 @@ __device__ __forceinline__ void load_sa_weights(const float* w1, const float* b1
   for (int i = threadIdx.x; i < kEncC3; i += blockDim.x) sw[i] = b3[i];
 }
 
-// The KNN nearest neighbours of every point of the patch, ascending
-// (distance, index): one query per thread, a sorted list in registers.
-// nbr[q * KNN + s]. Ends with __syncthreads().
+// The KNN nearest neighbours of point q of the patch, ascending (distance,
+// index), a sorted list in registers: nbr[q * KNN + s].
 template <int KNN>
-__device__ __forceinline__ void select_knn(const float* sx, const float* sy,
-                                           const float* sz, const float* sq, int n,
-                                           unsigned short* nbr) {
-  for (int q = threadIdx.x; q < n; q += blockDim.x) {
-    float bd[KNN];
-    int bi[KNN];
+__device__ __forceinline__ void knn_of(int q, const float* sx, const float* sy, const float* sz,
+                                       const float* sq, int n, unsigned short* nbr) {
+  float bd[KNN];
+  int bi[KNN];
 #pragma unroll
-    for (int s = 0; s < KNN; ++s) {
-      bd[s] = CUDART_INF_F;
-      bi[s] = 0;
-    }
-    const float qx = sx[q], qy = sy[q], qz = sz[q], qq = sq[q];
-    for (int j = 0; j < n; ++j) {
-      const float cross = __fadd_rn(
-          __fadd_rn(__fmul_rn(qx, sx[j]), __fmul_rn(qy, sy[j])), __fmul_rn(qz, sz[j]));
-      const float d =
-          fmaxf(__fadd_rn(__fsub_rn(qq, __fmul_rn(2.0f, cross)), sq[j]), 0.0f);
-      if (d < bd[KNN - 1]) {
-        // insert after every entry <= d: equal distances keep index order
-        bool placed = false;
+  for (int s = 0; s < KNN; ++s) {
+    bd[s] = CUDART_INF_F;
+    bi[s] = 0;
+  }
+  const float qx = sx[q], qy = sy[q], qz = sz[q], qq = sq[q];
+  for (int j = 0; j < n; ++j) {
+    const float cross = __fadd_rn(
+        __fadd_rn(__fmul_rn(qx, sx[j]), __fmul_rn(qy, sy[j])), __fmul_rn(qz, sz[j]));
+    const float d =
+        fmaxf(__fadd_rn(__fsub_rn(qq, __fmul_rn(2.0f, cross)), sq[j]), 0.0f);
+    if (d < bd[KNN - 1]) {
+      // insert after every entry <= d: equal distances keep index order
+      bool placed = false;
 #pragma unroll
-        for (int s = KNN - 1; s >= 0; --s) {
-          if (!placed) {
-            if (s > 0 && d < bd[s - 1]) {
-              bd[s] = bd[s - 1];
-              bi[s] = bi[s - 1];
-            } else {
-              bd[s] = d;
-              bi[s] = j;
-              placed = true;
-            }
+      for (int s = KNN - 1; s >= 0; --s) {
+        if (!placed) {
+          if (s > 0 && d < bd[s - 1]) {
+            bd[s] = bd[s - 1];
+            bi[s] = bi[s - 1];
+          } else {
+            bd[s] = d;
+            bi[s] = j;
+            placed = true;
           }
         }
       }
     }
-#pragma unroll
-    for (int s = 0; s < KNN; ++s) nbr[q * KNN + s] = static_cast<unsigned short>(bi[s]);
   }
+#pragma unroll
+  for (int s = 0; s < KNN; ++s) nbr[q * KNN + s] = static_cast<unsigned short>(bi[s]);
+}
+
+// The KNN nearest neighbours of every point of the patch (knn_of): one
+// query per thread. Ends with __syncthreads().
+template <int KNN>
+__device__ __forceinline__ void select_knn(const float* sx, const float* sy,
+                                           const float* sz, const float* sq, int n,
+                                           unsigned short* nbr) {
+  for (int q = threadIdx.x; q < n; q += blockDim.x) knn_of<KNN>(q, sx, sy, sz, sq, n, nbr);
   __syncthreads();
 }
 

@@ -10,7 +10,7 @@
 // distance exceeds the radius replaced by point 0's row; layout "pppe": the
 // rows [xyz - query | feat], no mask; then per layer
 // relu(((x W + b) - mean) * mul + beta) and the max over the nsample rows.
-// Output [P, S, C_out].
+// Output [P, S, C_out]. Each layout's design follows.
 //
 // Layout "pppf", per point. A slot's row is its point's [feat | xyz],
 // uncentred, so its activations depend on the point alone, and the max over
@@ -61,19 +61,49 @@
 // selects nor replays the stack. Its outputs are bit for bit the serving
 // mode's, which is compiled without the stores.
 //
-// Layout "pppe", and "pppf" where the queries' masks do not fit in shared
-// memory beside the smallest tile, per slot: its rows are centred
-// (xyz - query), so they depend on the slot. A block owns a few queries of
-// one patch (as many as fill a tile of up to 64 rows; one query when nsample
-// is larger, its rows taken tile by tile), gathers a tile's rows and runs the
-// layers between two activation buffers in shared memory; each thread folds
-// the last layer's rows into a per-query maximum in shared memory (integer
+// Layout "pppf" where the queries' masks do not fit in shared memory beside
+// the smallest tile, per slot: a block owns a few queries of one patch (as
+// many as fill a tile of up to 64 rows; one query when nsample is larger,
+// its rows taken tile by tile), gathers a tile's rows and runs the layers
+// between two activation buffers in shared memory; each thread folds the
+// last layer's rows into a per-query maximum in shared memory (integer
 // atomicMax on the float's bits, started from 0: exact because every layer,
 // the last included, ends in a relu, so every value is >= 0 and orders as
-// its bits do). PPPE's sa2 and sa3 (models/pppe.py) take this path at
-// 128 of 512 and 32 of 128 points, widths 195-128-128-256 and
-// 259-256-256-512, nsample 32, no radius.
+// its bits do).
 //
+// Layout "pppe": a slot's row [x_j - c | f_j] is centred on its query, so
+// every layer but the first depends on the slot; the first is linear, and
+// its product with the point's features f_j W1[3:] is the same in every slot
+// that reads the point. PPPE's sa2 and sa3 (models/pppe.py: 128 of 512 and
+// 32 of 128 points, widths 195-128-128-256 and 259-256-256-512, nsample 32,
+// no radius, 32 clouds a serving batch) need 14.1 and 13.6 GFLOP that way
+// (ops/pppf_sa_cuda.py::stage_flops), 37 where every slot runs the whole
+// stack. What bounds it on an H100: operations, 0.41 ms for the two in
+// float32 at 67 TFLOP/s; 0.17 ms with the products as 3xTF32 on the tensor
+// cores (three TF32 products each at 495 TFLOP/s dense; plain TF32 would not
+// hold the 1e-4 agreement with the plain version). What the design does:
+// two kernels, one launch. The feature block (pppe_feature_kernel) computes
+// y = F W1[3:] once per point, a 3xTF32 mma.sync product (mma_tile.cuh) of
+// 128 x 128 tiles with k-slabs of F and W double-buffered by cp.async, into
+// a scratch [P, N, C1] the wrapper allocates (none where C = 0). The slots
+// (pppe_slots_kernel): a block selects its queries' slots (select_slots, no
+// mask), then per tile of up to 128 rows (4 queries at nsample 32) gathers
+// the rows y[j] by cp.async and completes layer 1 in place, y[j] + (x_j -
+// c) W1[:3] from the centred coordinates in float32 (three multiply-adds a
+// channel; folding c W1[:3] into y would cancel far from the origin), the
+// BatchNorm affine and relu; layers 2 .. L run as 3xTF32 mma.sync on the
+// tile in shared memory, their weights streamed in k-slabs (cp.async,
+// double-buffered, zero-padded past the edges, so widths need not be
+// multiples of 8; split hi / lo per fragment as a warp reads them, which
+// measured faster than splitting each slab once, mma_tile.cuh::warp_mma); a
+// layer before the last keeps its whole output in the accumulators and
+// overwrites its input in place, so a tile of 128 rows fits at sa3's
+// 256-wide layers; the last layer folds from the fragments
+// into the queries' maxima (shuffles first where a warp's 32 rows are one
+// query's). The tile and the blocks an SM follow the widths (launch_pppe):
+// sa2 two blocks of 128 rows with passes of 128 columns, sa3 one block with
+// passes of 256.
+
 // Selection is bit-equal to the plain PyTorch version
 // (pcc_tpu_torch/ops/pppf_sa_cuda.py::pppf_sa_plain): the same distance
 // formulas with one rounding per operation (__f*_rn intrinsics are never
@@ -84,6 +114,7 @@
 
 #include <cuda_runtime.h>
 
+#include "mma_tile.cuh"
 #include "pppf_sa_common.cuh"
 
 namespace {
@@ -105,13 +136,15 @@ struct Stage {
   const float* xyz;       // [P, N, 3]
   const float* feat;      // [P, N, C] or nullptr
   float* out;             // [P, S, width[n_layers]]
-  int s, n, c, nsample, n_layers, pppe;
+  int s, n, c, nsample, n_layers;
   float r2;
   int rows;               // rows per tile, a multiple of kTM
   int qb;                 // per slot: queries per block; per point: queries per selection group
   int lda, ldb;           // row strides of the two activation buffers
   int region;             // per point: words of the activation buffers and selection scratch
   int cc;                 // per point: columns per chunk of the last layer
+  const float* y;         // "pppe": the feature block [P, N, width[1]] (null where c = 0)
+  int ks;                 // "pppe": rows per k-slab of the weights
   int* gsel;              // store mode: the slots [P, S, nsample], ranked
   float* gact;            // store mode: every layer's input and the last
   float* gt;              //   activations, and t_l (pppf_sa_common.cuh::ActLayout)
@@ -161,7 +194,7 @@ pppf_sa_stage_kernel(const __grid_constant__ Stage st) {
   load_queries(st.new_xyz + (static_cast<size_t>(p) * st.s + q0) * 3, nq, sq);
   for (int e = tid; e < nq * cout; e += kThreads) qmax[e] = 0;
   __syncthreads();
-  select_slots(pts, sq, nq, n, st.nsample, !st.pppe, false, st.r2, dist, sel);
+  select_slots(pts, sq, nq, n, st.nsample, true, false, st.r2, dist, sel);
 
   for (int row0 = 0; row0 < rows_total; row0 += st.rows) {
     // gather the tile's rows into buf_a
@@ -170,13 +203,8 @@ pppf_sa_stage_kernel(const __grid_constant__ Stage st) {
       float v = 0.0f;
       if (r < rows_total) {
         const int j = sel[r];
-        if (st.pppe) {
-          v = c < 3 ? __ldg(pts + 3 * j + c) - sq[4 * (r / st.nsample) + c]
-                    : __ldg(ft + static_cast<size_t>(j) * st.c + (c - 3));
-        } else {
-          v = c < st.c ? __ldg(ft + static_cast<size_t>(j) * st.c + c)
-                       : __ldg(pts + 3 * j + (c - st.c));
-        }
+        v = c < st.c ? __ldg(ft + static_cast<size_t>(j) * st.c + c)
+                     : __ldg(pts + 3 * j + (c - st.c));
       }
       buf_a[rl * st.lda + c] = v;
     }
@@ -401,6 +429,403 @@ size_t point_tile(Stage& st, int lda0, int ldb0, size_t budget, bool save) {
   return 0;
 }
 
+// Layout "pppe": the feature block. y[r][o] = sum_k f[r][k] * w[k][o] for
+// the rows r < rows of the points' features f [rows][c] and the first
+// layer's feature rows w = W1[3 .. c + 3) [c][c1]: a 3xTF32 product, a block
+// per kFeatRows x kFeatCols tile of y, k-slabs of f and w double-buffered
+// through shared memory by cp.async (zeros past the edges).
+constexpr int kFeatRows = 128, kFeatCols = 128, kFeatK = 32;
+constexpr int kFeatLdA = kFeatK + 4;   // pcc_tile::a_ld(kFeatK)
+constexpr size_t kFeatSmemBytes =
+    (2 * kFeatRows * kFeatLdA + 2 * kFeatK * (kFeatCols + 8)) * sizeof(float);
+
+__global__ void __launch_bounds__(kThreads, 2)
+pppe_feature_kernel(const float* __restrict__ f, int rows, int c, const float* __restrict__ w,
+                    int c1, float* __restrict__ y) {
+  using namespace pcc_tile;
+  extern __shared__ __align__(16) float smem[];
+  constexpr int ldb = kFeatCols + 8;   // b_ld(kFeatCols)
+  float* as = smem;                                 // [2][kFeatRows][kFeatLdA]
+  float* bs = as + 2 * kFeatRows * kFeatLdA;        // [2][kFeatK][ldb]
+  const int r0 = blockIdx.x * kFeatRows, n0 = blockIdx.y * kFeatCols;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;          // 4 x 2 warps of 32 rows x 64 columns
+  const bool va = aligned16(f, c), vb = aligned16(w, c1);
+  const int vr = min(kFeatRows, rows - r0), vc = min(kFeatCols, c1 - n0);
+  auto load = [&](int stage, int k0) {
+    load_tile_async<kThreads>(as + stage * kFeatRows * kFeatLdA, kFeatLdA,
+                              f + static_cast<size_t>(r0) * c + k0, c, kFeatRows, kFeatK, vr,
+                              c - k0, va);
+    load_tile_async<kThreads>(bs + stage * kFeatK * ldb, ldb,
+                              w + static_cast<size_t>(k0) * c1 + n0, c1, kFeatK, kFeatCols,
+                              c - k0, vc, vb);
+  };
+  float acc[2][8][4];
+  zero(acc);
+  const int nk = (c + kFeatK - 1) / kFeatK;
+  load(0, 0);
+  pcc_mma::cp_async_commit();
+  for (int s = 0; s < nk; ++s) {
+    if (s + 1 < nk) load((s + 1) & 1, (s + 1) * kFeatK);
+    pcc_mma::cp_async_commit();
+    pcc_mma::cp_async_wait<1>();
+    __syncthreads();
+    warp_mma<8>(acc, as + (s & 1) * kFeatRows * kFeatLdA + wm * 32 * kFeatLdA, kFeatLdA,
+                bs + (s & 1) * kFeatK * ldb + wn * 64, ldb,
+                min(kFeatK, pad8(c) - s * kFeatK) / 8);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + wm * 32 + mt * 16 + g + 8 * h;
+        const int o = n0 + wn * 64 + nt * 8 + 2 * t;
+        if (r < rows) {
+          float* dst = y + static_cast<size_t>(r) * c1 + o;
+          if (o < c1) dst[0] = acc[mt][nt][2 * h];
+          if (o + 1 < c1) dst[1] = acc[mt][nt][2 * h + 1];
+        }
+      }
+}
+
+// Layout "pppe": the slots. A block owns qb queries of one patch: it selects
+// their slots (select_slots, no mask), then takes their rows kM = 32 * WM at
+// a time. Layer 1 per slot: y[j] (the feature block; 0 where c = 0) plus
+// (x_j - c_q) W1[0 .. 3), three fused multiply-adds a channel, then the
+// BatchNorm affine and relu, into the tile's activations in shared memory
+// (a single layer folds it straight into the maxima). Layers 2 .. L on the
+// tensor cores (pcc_tile::warp_mma): 8 warps of 32 rows x 8 * NT columns
+// (WM x 8 / WM of them), in passes of kCW columns whose weights stream in
+// k-slabs of st.ks rows through shared memory (cp.async, double-buffered,
+// zeros past the edges). A layer before the last has at most kCW columns:
+// its one pass keeps the whole output in the accumulators and, after a
+// barrier, overwrites its own input with the activations. The last layer's
+// passes fold into the queries' maxima (integer atomicMax on the float's
+// bits in shared memory, from 0: exact, every value being a relu output):
+// where a warp's 32 rows are one query's, first the max over its rows by
+// shuffles. Each query's maxima are written once, at the end.
+// The BatchNorm terms of the columns o and o + 1 (zeros from co on), and
+// a value of column o + i through them and relu.
+struct ColTerms {
+  float b[2], mu[2], mul[2], beta[2];
+};
+__device__ __forceinline__ ColTerms col_terms(const float* __restrict__ b,
+                                              const float* __restrict__ mu,
+                                              const float* __restrict__ mul,
+                                              const float* __restrict__ beta, int o, int co) {
+  ColTerms c;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool ok = o + i < co;
+    c.b[i] = ok ? __ldg(b + o + i) : 0.0f;
+    c.mu[i] = ok ? __ldg(mu + o + i) : 0.0f;
+    c.mul[i] = ok ? __ldg(mul + o + i) : 0.0f;
+    c.beta[i] = ok ? __ldg(beta + o + i) : 0.0f;
+  }
+  return c;
+}
+__device__ __forceinline__ float bn_relu(float acc, const ColTerms& c, int i) {
+  return fmaxf(fmaf(bn_shift(acc, c.b[i], c.mu[i]), c.mul[i], c.beta[i]), 0.0f);
+}
+
+constexpr int kL1Cols = 4;   // layer 1 in place: columns a lane holds the terms of at a time
+
+template <int WM, int NT>
+__global__ void __launch_bounds__(kThreads, NT == 8 ? 2 : 1)
+pppe_slots_kernel(const __grid_constant__ Stage st) {
+  using namespace pcc_tile;
+  constexpr int kWN = kWarps / WM, kM = 32 * WM, kCW = 8 * NT * kWN;
+  extern __shared__ __align__(16) float smem[];
+  const int L = st.n_layers, c1 = st.width[1], cout = st.width[L], ns = st.nsample;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int wm = warp / kWN, wn = warp % kWN;
+  const int ldx = st.lda, ldw = b_ld(kCW), ks = st.ks;
+  float* xs = smem;                                      // [kM][ldx]; selection scratch first
+  float* slab = xs + kM * ldx;                           // [2][ks][ldw]
+  float4* rowc = reinterpret_cast<float4*>(smem + st.region);  // [kM]: point, x - c
+  int* sel = reinterpret_cast<int*>(rowc + kM);          // [qb][ns]
+  float* sq = reinterpret_cast<float*>(sel + st.qb * ns);      // [qb][4]
+  int* qmax = reinterpret_cast<int*>(sq + 4 * st.qb);          // [qb][cout]
+
+  const int qblocks = (st.s + st.qb - 1) / st.qb;
+  const int p = blockIdx.x / qblocks, q0 = (blockIdx.x % qblocks) * st.qb;
+  const int nq = min(st.qb, st.s - q0), rows_total = nq * ns;
+  const float* pts = st.xyz + static_cast<size_t>(p) * st.n * 3;
+  const float* yp = st.y ? st.y + static_cast<size_t>(p) * st.n * c1 : nullptr;
+  const float* w1 = st.w[0];
+
+  load_queries(st.new_xyz + (static_cast<size_t>(p) * st.s + q0) * 3, nq, sq);
+  for (int e = tid; e < nq * cout; e += kThreads) qmax[e] = 0;
+  __syncthreads();
+  select_slots(pts, sq, nq, st.n, ns, false, false, 0.0f, xs, sel);
+
+  // layer 1 of tile row r (point j, centred coordinates d), channel o
+  auto first = [&](float4 d, int o) {
+    float acc = yp ? yp[static_cast<size_t>(__float_as_int(d.x)) * c1 + o] : 0.0f;
+    acc = fmaf(d.y, __ldg(w1 + o), acc);
+    acc = fmaf(d.z, __ldg(w1 + c1 + o), acc);
+    acc = fmaf(d.w, __ldg(w1 + 2 * c1 + o), acc);
+    const float t = bn_shift(acc, __ldg(st.b[0] + o), __ldg(st.mu[0] + o));
+    return fmaxf(fmaf(t, __ldg(st.mul[0] + o), __ldg(st.beta[0] + o)), 0.0f);
+  };
+
+  for (int row0 = 0; row0 < rows_total; row0 += kM) {
+    const int valid = min(kM, rows_total - row0);
+    for (int r = tid; r < kM; r += kThreads) {
+      float4 d = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (r < valid) {
+        const int j = sel[row0 + r], qi = (row0 + r) / ns;
+        d = make_float4(__int_as_float(j), __ldg(pts + 3 * j) - sq[4 * qi],
+                        __ldg(pts + 3 * j + 1) - sq[4 * qi + 1],
+                        __ldg(pts + 3 * j + 2) - sq[4 * qi + 2]);
+      }
+      rowc[r] = d;
+    }
+    __syncthreads();
+    if (L == 1) {
+      for (int r = warp; r < valid; r += kWarps) {
+        const float4 d = rowc[r];
+        int* qm = qmax + ((row0 + r) / ns) * cout;
+        for (int o = lane; o < c1; o += 32) atomicMax(qm + o, __float_as_int(first(d, o)));
+      }
+      __syncthreads();
+      continue;
+    }
+    // the tile's rows of the feature block, gathered into xs by cp.async
+    // (zeros past c1 and past the valid rows), then layer 1 in place: a
+    // lane holds its columns' weights and BatchNorm terms for every row
+    const int c1p = pad8(c1);
+    if (yp) {
+      const bool vec = aligned16(yp, c1);
+      const int per_row = vec ? c1p / 4 : c1p;
+      for (int e = tid; e < kM * per_row; e += kThreads) {
+        const int r = e / per_row, o = (e % per_row) * (vec ? 4 : 1);
+        const bool ok = r < valid && o < c1;
+        const float* src = ok ? yp + static_cast<size_t>(__float_as_int(rowc[r].x)) * c1 + o : yp;
+        if (vec) {
+          pcc_mma::cp_async16(xs + r * ldx + o, src, ok ? 16 : 0);
+        } else {
+          cp_async4(xs + r * ldx + o, src, ok ? 4 : 0);
+        }
+      }
+      pcc_mma::cp_async_commit();
+      pcc_mma::cp_async_wait<0>();
+      __syncthreads();
+    }
+    for (int o0 = 0; o0 < c1p; o0 += 32 * kL1Cols) {
+      float cw[kL1Cols][7];
+#pragma unroll
+      for (int k = 0; k < kL1Cols; ++k) {
+        const int o = o0 + 32 * k + lane;
+        const bool ok = o < c1;
+        cw[k][0] = ok ? __ldg(w1 + o) : 0.0f;
+        cw[k][1] = ok ? __ldg(w1 + c1 + o) : 0.0f;
+        cw[k][2] = ok ? __ldg(w1 + 2 * c1 + o) : 0.0f;
+        cw[k][3] = ok ? __ldg(st.b[0] + o) : 0.0f;
+        cw[k][4] = ok ? __ldg(st.mu[0] + o) : 0.0f;
+        cw[k][5] = ok ? __ldg(st.mul[0] + o) : 0.0f;
+        cw[k][6] = ok ? __ldg(st.beta[0] + o) : 0.0f;
+      }
+      for (int r = warp; r < kM; r += kWarps) {
+        const float4 d = rowc[r];
+#pragma unroll
+        for (int k = 0; k < kL1Cols; ++k) {
+          const int o = o0 + 32 * k + lane;
+          if (o >= c1p) continue;
+          float v = 0.0f;
+          if (r < valid && o < c1) {
+            float acc = yp ? xs[r * ldx + o] : 0.0f;
+            acc = fmaf(d.y, cw[k][0], acc);
+            acc = fmaf(d.z, cw[k][1], acc);
+            acc = fmaf(d.w, cw[k][2], acc);
+            v = fmaxf(fmaf(bn_shift(acc, cw[k][3], cw[k][4]), cw[k][5], cw[k][6]), 0.0f);
+          }
+          xs[r * ldx + o] = v;
+        }
+      }
+    }
+    __syncthreads();
+
+    for (int l = 1; l < L; ++l) {
+      const int K = st.width[l], co = st.width[l + 1];
+      const float* w = st.w[l];
+      const bool vec = aligned16(w, co);
+      const int nk = (K + ks - 1) / ks;
+      for (int n0 = 0; n0 < co; n0 += kCW) {
+        float acc[2][NT][4];
+        zero(acc);
+        load_tile_async<kThreads>(slab, ldw, w + n0, co, ks, kCW, K, co - n0, vec);
+        pcc_mma::cp_async_commit();
+        for (int s = 0; s < nk; ++s) {
+          if (s + 1 < nk)
+            load_tile_async<kThreads>(slab + ((s + 1) & 1) * ks * ldw, ldw,
+                                      w + static_cast<size_t>(s + 1) * ks * co + n0, co, ks,
+                                      kCW, K - (s + 1) * ks, co - n0, vec);
+          pcc_mma::cp_async_commit();
+          pcc_mma::cp_async_wait<1>();
+          __syncthreads();
+          warp_mma<NT>(acc, xs + wm * 32 * ldx + s * ks, ldx,
+                       slab + (s & 1) * ks * ldw + wn * 8 * NT, ldw,
+                       min(ks, pad8(K) - s * ks) / 8);
+          __syncthreads();
+        }
+        const float *b = st.b[l], *mu = st.mu[l], *mul = st.mul[l], *beta = st.beta[l];
+        if (l < L - 1) {
+          // co <= kCW: the whole layer is in the accumulators, and every
+          // warp has read its input (the barrier above)
+          const int cop = pad8(co);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int o = wn * 8 * NT + nt * 8 + 2 * t;
+            if (o >= cop) continue;
+            const ColTerms ct = col_terms(b, mu, mul, beta, o, co);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int r = wm * 32 + mt * 16 + g + 8 * h;
+                float2 v;
+                v.x = o < co ? bn_relu(acc[mt][nt][2 * h], ct, 0) : 0.0f;
+                v.y = o + 1 < co ? bn_relu(acc[mt][nt][2 * h + 1], ct, 1) : 0.0f;
+                *reinterpret_cast<float2*>(xs + r * ldx + o) = v;
+              }
+          }
+          continue;
+        }
+        // the last layer: relu, then the max over each query's rows; where
+        // the warp's 32 rows are one query's, by shuffles first
+        const int rbase = row0 + wm * 32;
+        if (rbase + 31 < rows_total && rbase / ns == (rbase + 31) / ns) {
+          int* qm = qmax + (rbase / ns) * cout;
+#pragma unroll
+          for (int h8 = 0; h8 < NT / 8; ++h8) {
+            float m[8][2];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const int nt = 8 * h8 + i, o = n0 + wn * 8 * NT + nt * 8 + 2 * t;
+              const ColTerms ct = col_terms(b, mu, mul, beta, o, co);
+#pragma unroll
+              for (int k = 0; k < 2; ++k)
+                m[i][k] = o + k < co ? fmaxf(fmaxf(bn_relu(acc[0][nt][k], ct, k),
+                                                   bn_relu(acc[0][nt][2 + k], ct, k)),
+                                             fmaxf(bn_relu(acc[1][nt][k], ct, k),
+                                                   bn_relu(acc[1][nt][2 + k], ct, k)))
+                                     : 0.0f;
+            }
+            const float2 r = max_over_rows_scattered(m);
+            const int o = n0 + wn * 8 * NT + (8 * h8 + g) * 8 + 2 * t;
+            if (o < co) atomicMax(qm + o, __float_as_int(r.x));
+            if (o + 1 < co) atomicMax(qm + o + 1, __float_as_int(r.y));
+          }
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int o = n0 + wn * 8 * NT + nt * 8 + 2 * t;
+            const ColTerms ct = col_terms(b, mu, mul, beta, o, co);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int r = rbase + mt * 16 + g + 8 * (i >> 1), c = o + (i & 1);
+                if (r < rows_total && c < co)
+                  atomicMax(qmax + (r / ns) * cout + c,
+                            __float_as_int(bn_relu(acc[mt][nt][i], ct, i & 1)));
+              }
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  __syncthreads();
+  float* o = st.out + (static_cast<size_t>(p) * st.s + q0) * cout;
+  for (int e = tid; e < nq * cout; e += kThreads) o[e] = __int_as_float(qmax[e]);
+}
+
+// Shared memory (floats) of pppe_slots_kernel at kM rows, kCW columns a
+// pass, k-slabs of ks rows and qb queries; sets st.region.
+size_t pppe_words(Stage& st, int kM, int kCW, int ks, int qb) {
+  const int L = st.n_layers, ns = st.nsample;
+  const size_t dist = ns < st.n ? static_cast<size_t>(qb) * select_words(st.n, ns) : 0;
+  const size_t tiles = L > 1 ? static_cast<size_t>(kM) * st.lda +
+                                   2 * static_cast<size_t>(ks) * pcc_tile::b_ld(kCW)
+                             : 0;
+  const size_t region = ((dist > tiles ? dist : tiles) + 3) & ~static_cast<size_t>(3);
+  st.region = static_cast<int>(region);
+  return region + 4 * static_cast<size_t>(kM) + static_cast<size_t>(qb) * ns + 4 * qb +
+         static_cast<size_t>(qb) * st.width[L];
+}
+
+// The "pppe" layout: the feature block (where c > 0) into y [p, n, c1],
+// then the slots. Tiles: the first of (WM, NT) = (4, 8), (4, 16), (2, 16),
+// (1, 16) whose pass is as wide as every layer between the first and the
+// last (so that it can run in place), with the largest k-slab (32, 16, 8
+// rows) and then the most queries (up to kM / nsample) that fit: two blocks
+// an SM for (4, 8) where they fit, else one. Where none fits (a middle layer
+// wider than 1024, or 32 rows of the widest layer but the last beyond shared
+// memory) it returns cudaErrorInvalidValue; ops/pppf_sa_cuda.py::pppe_plan
+// mirrors this search, so that the wrapper raises before the launch.
+int launch_pppe(Stage& st, int p, float* y, cudaStream_t strm) {
+  const int L = st.n_layers, c1 = st.width[1];
+  if ((st.c > 0) != (y != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  st.y = y;
+  // the widest output of a layer between the first and the last, and of any but the last
+  int mid = 0, widest = 0;
+  for (int l = 1; l < L; ++l) {
+    if (l > 1 && st.width[l] > mid) mid = st.width[l];
+    if (st.width[l] > widest) widest = st.width[l];
+  }
+  st.lda = L > 1 ? pcc_tile::a_ld(widest) : 0;
+  const int plans[4][2] = {{4, 8}, {4, 16}, {2, 16}, {1, 16}};
+  const size_t two = (kSmemLimit + 1024) / 2 - 1024;
+  int plan = -1;
+  size_t bytes = 0;
+  for (int i = 0; i < 4 && plan < 0; ++i) {
+    const int wm = plans[i][0], nt = plans[i][1], kM = 32 * wm, kCW = 8 * nt * (kWarps / wm);
+    if (mid > kCW) continue;
+    for (int b = nt == 8 ? 0 : 1; b < 2 && plan < 0; ++b) {
+      const size_t budget = b == 0 ? two : kSmemLimit;
+      for (int ks = 32; ks >= 8 && plan < 0; ks /= 2) {
+        int qb = st.nsample <= kM ? kM / st.nsample : 1;
+        if (qb > st.s) qb = st.s;
+        while (qb > 1 && pppe_words(st, kM, kCW, ks, qb) * sizeof(float) > budget) --qb;
+        bytes = pppe_words(st, kM, kCW, ks, qb) * sizeof(float);
+        if (bytes <= budget) {
+          plan = i;
+          st.ks = ks;
+          st.qb = qb;
+        }
+      }
+    }
+  }
+  if (plan < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = static_cast<long long>(p) * ((st.s + st.qb - 1) / st.qb);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (st.c > 0) {
+    err = cudaFuncSetAttribute(pppe_feature_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kFeatSmemBytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((p * st.n + kFeatRows - 1) / kFeatRows, (c1 + kFeatCols - 1) / kFeatCols);
+    pppe_feature_kernel<<<grid, kThreads, kFeatSmemBytes, strm>>>(st.feat, p * st.n, st.c,
+                                                                  st.w[0] + 3 * c1, c1, y);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int wm = plans[plan][0], nt = plans[plan][1];
+  void (*kernel)(Stage) = wm == 4   ? (nt == 8 ? pppe_slots_kernel<4, 8> : pppe_slots_kernel<4, 16>)
+                          : wm == 2 ? pppe_slots_kernel<2, 16>
+                                    : pppe_slots_kernel<1, 16>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, strm>>>(st);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // new_xyz [p, s, 3], xyz [p, n, 3], feat [p, n, c] or null (c = 0), all f32
@@ -411,16 +836,17 @@ size_t point_tile(Stage& st, int lda0, int ldb0, size_t budget, bool save) {
 // only: gsel (p * s * nsample ints), gact and gt (laid out as
 // pppf_sa_common.cuh::act_layout(p * n, ...) gives), or all null; *saved
 // (host) is set to 1 where they were written (the per-point kernel ran),
-// else 0. Returns a cudaError_t value.
+// else 0. y: "pppe" with c > 0, scratch for the feature block, p * n *
+// widths[1] floats; else null. Returns a cudaError_t value.
 extern "C" int pppf_sa_stage_launch(const float* new_xyz, const float* xyz, const float* feat,
                                     float* out, int p, int s, int n, int c, int nsample,
                                     float r2, int pppe, int n_layers,
                                     const void* const* layers, const int* widths, int* gsel,
-                                    float* gact, float* gt, int* saved, void* stream) {
+                                    float* gact, float* gt, int* saved, float* y, void* stream) {
   if (p <= 0 || s <= 0 || n <= 0 || n > kMaxN || nsample <= 0 || n_layers <= 0 ||
       n_layers > kMaxLayers || c < 0 || (c > 0) != (feat != nullptr) || widths[0] != c + 3 ||
       (gsel != nullptr) != (gact != nullptr) || (gsel != nullptr) != (gt != nullptr) ||
-      (gsel != nullptr && (pppe || saved == nullptr)))
+      (gsel != nullptr && (pppe || saved == nullptr)) || (!pppe && y != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool save = gsel != nullptr;
   if (saved) *saved = 0;
@@ -437,11 +863,12 @@ extern "C" int pppf_sa_stage_launch(const float* new_xyz, const float* xyz, cons
   st.c = c;
   st.nsample = nsample;
   st.n_layers = n_layers;
-  st.pppe = pppe;
   st.r2 = r2;
   st.lda = st.ldb = 4;
   st.region = 0;
   st.cc = 0;
+  st.y = nullptr;
+  st.ks = 0;
   for (int l = 0; l <= n_layers; ++l) {
     if (widths[l] <= 0) return static_cast<int>(cudaErrorInvalidValue);
     st.width[l] = widths[l];
@@ -461,28 +888,26 @@ extern "C" int pppf_sa_stage_launch(const float* new_xyz, const float* xyz, cons
   // asks for), failing that one
   const size_t budgets[2] = {(kSmemLimit + 1024) / kMinBlocks - 1024, kSmemLimit};
   cudaStream_t strm = static_cast<cudaStream_t>(stream);
-  if (!pppe) {
-    // per point, where the queries' masks fit beside a tile
-    const int lda0 = st.lda, ldb0 = st.ldb;
-    size_t bytes = 0;
-    for (int i = 0; i < 2 && bytes == 0; ++i)
-      bytes = point_tile(st, lda0, ldb0, budgets[i], save);
-    if (bytes > 0) {
-      auto kernel = save ? pppf_sa_points_kernel<true> : pppf_sa_points_kernel<false>;
-      cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(bytes));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      kernel<<<static_cast<unsigned>(p), kThreads, bytes, strm>>>(st);
-      err = cudaGetLastError();
-      if (err == cudaSuccess && save) *saved = 1;
-      return static_cast<int>(err);
-    }
-    st.lda = lda0;
-    st.ldb = ldb0;
-  }
-  // per slot: the largest tile of up to kMaxRows rows of which kMinBlocks
-  // fit in an SM's shared memory; failing that, the largest of which one does
+  if (pppe) return launch_pppe(st, p, y, strm);
+  // "pppf" per point, where the queries' masks fit beside a tile
+  const int lda0 = st.lda, ldb0 = st.ldb;
   size_t bytes = 0;
+  for (int i = 0; i < 2 && bytes == 0; ++i)
+    bytes = point_tile(st, lda0, ldb0, budgets[i], save);
+  if (bytes > 0) {
+    auto kernel = save ? pppf_sa_points_kernel<true> : pppf_sa_points_kernel<false>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<static_cast<unsigned>(p), kThreads, bytes, strm>>>(st);
+    err = cudaGetLastError();
+    if (err == cudaSuccess && save) *saved = 1;
+    return static_cast<int>(err);
+  }
+  st.lda = lda0;
+  st.ldb = ldb0;
+  // "pppf" per slot: the largest tile of up to kMaxRows rows of which kMinBlocks
+  // fit in an SM's shared memory; failing that, the largest of which one does
   st.rows = 0;
   for (int i = 0; i < 2 && st.rows < kTM; ++i) {
     for (st.rows = kMaxRows; st.rows >= kTM; st.rows -= kTM) {

@@ -1,4 +1,5 @@
-// SetAbstraction alone, one block per patch, one launch.
+// SetAbstraction alone, one launch: a persistent grid whose blocks walk the
+// patches, layers 2 and 3 as wgmma on the tensor cores.
 //
 // Replaces the TPU kernel pcc_tpu/ops/sa_pallas.py::_sa_kernel (entry
 // sa_fused). Per [N, 3] patch: the expanded-form squared distances
@@ -7,99 +8,297 @@
 // through the MLP 3 -> 32 -> 64 -> 128 with relu; the max over the
 // neighbours. Output: per-point features [P, N, 128] f32.
 //
-// It is the first half of the patch encoder (patch_encoder.cu) and is
-// built from the same pieces of encoder_common.cuh: the selection is the
-// encoder's bit for bit, and the MLP sums run in the encoder's order.
+// The selection is the patch encoder's (encoder_common.cuh::load_patch's
+// and select_knn's arithmetic, knn_of, bit for bit); layer 1 is the
+// encoder's expression (encoder_common.cuh::sa_layer1). Layers 2 and 3 sum
+// in another order than the encoder's: the encoder (patch_encoder.cu,
+// dense.cuh) does not run this code.
 //
 // What bounds it on an H100: operations. 2 * knn * 10336 FLOP per point
 // (85 MFLOP per patch of 256 points at knn = 16, about 347 GFLOP for 4096
-// such patches) against 12 bytes in and 512 bytes out per point: about 650
-// operations per byte, above the card's balance, so the floor is
-// FLOPs / 67 TFLOP/s.
-// What the design does about it: nothing of the grouped activations leaves
-// the SM. Each thread keeps one query's sorted top-knn in registers
-// while it scans the patch in shared memory; the MLP runs over steps of 128
-// grouped rows (128 / knn query points), whose layers 1 and 2 live in
-// shared memory; layer 3, its relu and the max over neighbours write each
-// query's 128 features straight to device memory. Layers 2 and 3 are the
-// encoder's register-tiled products (dense.cuh::dense_tile; a thread takes
-// 8 rows, or one query's knn rows, x 4 columns), the weights are read
-// through the read-only cache, and a block takes 61 KB of shared memory at
-// N = 256, so that two share an SM. Tensor cores are later work.
+// such patches, 98% of it layers 2 and 3) against 12 bytes in and 512 bytes
+// out per point: about 650 operations per byte, above the card's balance.
+// The float32 floor is FLOPs / 67 TFLOP/s (5.2 ms at [4096, 256, 3]); with
+// layers 2 and 3 as 3xTF32 on the tensor cores (three TF32 products each,
+// 495 TFLOP/s dense) and the rest in float32, about 2.2 ms.
+// What the design does about it: layers 2 and 3 run as 3xTF32 wgmma
+// (wgmma_tf32.cuh: A in registers, B in shared memory), which keeps about
+// float32's accuracy; mma.sync reached about half the rate on these
+// products. The 10,240 weights are split into TF32 hi and lo parts once per
+// block and held in shared memory for the block's life (80 KB: W^T in
+// 128-byte-swizzled K-major tiles, as wgmma reads B), and the grid is one
+// block per SM, each walking the patches, so no row reads a weight from
+// device memory. A block is two row warpgroups and one selector warpgroup.
+// The selector warps load the next patch and select its neighbours
+// (encoder_common.cuh::knn_of, a thread per query, on the CUDA cores)
+// while the row warps run this patch's rows on the tensor cores (double
+// buffers, one barrier a patch). A row warpgroup takes 64 grouped rows
+// (64 / knn queries) at a time, and nothing of them touches shared memory:
+// each lane computes layer 1 (on the CUDA cores) for the rows and columns
+// of its A fragments of layer 2; layer 2's accumulators, + bias and relu,
+// are the A fragments of layer 3 as they lie (columns 2t and 2t + 1 of an
+// n8 tile taken as k = t and t + 4, with W3's rows permuted to match, as
+// patch_decoder.cu does); layer 3's accumulators, + bias and relu, fold to
+// the max over each query's knn rows by a butterfly of shuffles across the
+// fragment's row groups that leaves each lane its own columns
+// (mma_tile.cuh::max_over_rows_scattered; knn = 16: a warp's 16 rows are
+// one query, knn = 8: its two halves are two), each query's features
+// written with 16-byte stores.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "encoder_common.cuh"
+#include "mma_tile.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
 using namespace pcc;
+using namespace pcc_wgmma;
 
-constexpr int kThreads = kEncThreads;
+constexpr int kRowWarps = 8;            // two warpgroups that run the rows
+constexpr int kThreads = 32 * (kRowWarps + 4);
+constexpr int kSelThreads = 128;        // the selector warpgroup
+constexpr int kGroupRows = 64;          // a row warpgroup's rows at a time
+constexpr int kTileK = 32;              // K floats a row of a B tile (128 bytes)
+// B tiles (W^T, [N][32] K-major, 128-byte swizzle), float offsets from the
+// 1024-byte-aligned start: W2 hi, lo (64 rows); W3 hi, lo (two K tiles of 128 rows each)
+constexpr int kW2Tile = kEncC2 * kTileK;
+constexpr int kW3Tile = kEncC3 * kTileK;
+constexpr int kW2Hi = 0, kW2Lo = kW2Tile, kW3Hi = 2 * kW2Tile, kW3Lo = kW3Hi + 2 * kW3Tile;
+constexpr int kWFloats = kW3Lo + 2 * kW3Tile;
+constexpr size_t kSmemLimit = 227 * 1024;
 
-struct Layout {
-  int sx, sy, sz, sq;   // patch points (SoA) and squared norms
-  int h;                // grouped rows of layers 1 and 2
-  int floats;           // float words before the neighbour table
-  size_t bytes;         // total dynamic shared memory
-};
+// Shared memory: the tiles, two buffers of a patch's points (SoA) and
+// squared norms, then two neighbour tables.
+inline size_t smem_bytes(int n, int knn) {
+  return 1024 + (kWFloats + 2 * 4 * static_cast<size_t>(n)) * sizeof(float) +
+         2 * static_cast<size_t>(n) * knn * sizeof(unsigned short);
+}
 
-inline Layout make_layout(int n, int knn) {
-  Layout L;
-  int off = 0;
-  L.sx = off; off += n;
-  L.sy = off; off += n;
-  L.sz = off; off += n;
-  L.sq = off; off += n;
-  L.h = off; off += kEncSaRows * (kEncC1 + kEncC2);
-  L.floats = off;
-  L.bytes = static_cast<size_t>(off) * sizeof(float) +
-            static_cast<size_t>(n) * knn * sizeof(unsigned short);
-  return L;
+// The float index of (row r, k) in a 128-byte-swizzled tile of 32-float rows.
+__device__ __forceinline__ int swizzled(int r, int k) {
+  return r * kTileK + (((k >> 2) ^ (r & 7)) << 2) + (k & 3);
+}
+
+// The tiles of W2 [32][64] and W3 [64][128] (row-major in device memory),
+// split hi / lo. W3's rows are permuted within each 8: its k-step s's A
+// fragments are layer 2's n8 tile s, whose columns 2t and 2t + 1 stand for
+// k = t and t + 4.
+__device__ __forceinline__ void load_weights(const float* __restrict__ w2,
+                                             const float* __restrict__ w3, float* tiles) {
+  for (int e = threadIdx.x; e < kEncC1 * kEncC2; e += kThreads) {
+    const int k = e / kEncC2, o = e % kEncC2;
+    unsigned hi, lo;
+    pcc_mma::split_tf32(__ldg(w2 + e), hi, lo);
+    tiles[kW2Hi + swizzled(o, k)] = __uint_as_float(hi);
+    tiles[kW2Lo + swizzled(o, k)] = __uint_as_float(lo);
+  }
+  for (int e = threadIdx.x; e < kEncC2 * kEncC3; e += kThreads) {
+    const int k = e / kEncC3, o = e % kEncC3, r = k & 7;
+    const int kp = (k & ~7) + ((r & 1) ? (r >> 1) + 4 : r >> 1);
+    const int at = (kp / kTileK) * kW3Tile + swizzled(o, kp % kTileK);
+    unsigned hi, lo;
+    pcc_mma::split_tf32(__ldg(w3 + e), hi, lo);
+    tiles[kW3Hi + at] = __uint_as_float(hi);
+    tiles[kW3Lo + at] = __uint_as_float(lo);
+  }
 }
 
 template <int KNN>
-__global__ void __launch_bounds__(kThreads, 2)
-sa_fused_kernel(const float* __restrict__ pts, int n, Layout L,
+__global__ void __launch_bounds__(kThreads, 1)
+sa_fused_kernel(const float* __restrict__ pts, int patches, int n,
                 const float* __restrict__ w1, const float* __restrict__ b1,
                 const float* __restrict__ w2, const float* __restrict__ b2,
                 const float* __restrict__ w3, const float* __restrict__ b3,
                 float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  float* sx = smem + L.sx;
-  float* sy = smem + L.sy;
-  float* sz = smem + L.sz;
-  float* sq = smem + L.sq;
-  float* h1 = smem + L.h;                     // [kEncSaRows, kEncC1]
-  float* h2 = h1 + kEncSaRows * kEncC1;       // [kEncSaRows, kEncC2]
-  unsigned short* nbr = reinterpret_cast<unsigned short*>(smem + L.floats);
+  using pcc_mma::split_tf32;
+  using pcc_tile::max_over_rows_scattered;
+  extern __shared__ uint8_t smem_raw[];
+  float* tiles = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  float* bufs = tiles + kWFloats;                                             // [2][4][n]
+  unsigned short* tables = reinterpret_cast<unsigned short*>(bufs + 8 * n);   // [2][n * KNN]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
 
-  load_patch(pts + static_cast<size_t>(blockIdx.x) * n * 3, n, sx, sy, sz, sq);
-  select_knn<KNN>(sx, sy, sz, sq, n, nbr);
-  float* feats = out + static_cast<size_t>(blockIdx.x) * n * kEncC3;
-  // n % kEncQ == 0, and a step's kEncSaRows / KNN queries divide kEncQ
-  for (int c0 = 0; c0 < n; c0 += kEncSaRows / KNN)
-    sa_step<KNN>(QueryRange{c0}, nbr, sx, sy, sz, w1, b1, w2, b2, w3, b3, h1, h2,
-                 feats + static_cast<size_t>(c0) * kEncC3, kEncC3);
+  load_weights(w2, w3, tiles);
+  // patch p's points and squared norms (load_patch's arithmetic) into
+  // buffer b, and the knn of its queries first, first + stride, ...
+  // (knn_of), by the threads first, first + stride, ...
+  auto load = [&](int p, int b, int first, int stride) {
+    const float* src = pts + static_cast<size_t>(p) * n * 3;
+    float* q = bufs + b * 4 * n;
+    for (int j = first; j < n; j += stride) {
+      const float x = src[3 * j], y = src[3 * j + 1], z = src[3 * j + 2];
+      q[j] = x;
+      q[n + j] = y;
+      q[2 * n + j] = z;
+      q[3 * n + j] = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+    }
+  };
+  auto select = [&](int b, int first, int stride) {
+    const float* q = bufs + b * 4 * n;
+    for (int i = first; i < n; i += stride)
+      knn_of<KNN>(i, q, q + n, q + 2 * n, q + 3 * n, n, tables + b * n * KNN);
+  };
+  if (blockIdx.x < patches) {
+    load(blockIdx.x, 0, threadIdx.x, kThreads);
+    __syncthreads();
+    select(0, threadIdx.x, kThreads);
+  }
+  __syncthreads();
+
+  const uint64_t d2h = smem_desc_sw128(tiles + kW2Hi), d2l = smem_desc_sw128(tiles + kW2Lo);
+  const uint64_t d3h[2] = {smem_desc_sw128(tiles + kW3Hi),
+                           smem_desc_sw128(tiles + kW3Hi + kW3Tile)};
+  const uint64_t d3l[2] = {smem_desc_sw128(tiles + kW3Lo),
+                           smem_desc_sw128(tiles + kW3Lo + kW3Tile)};
+  const int groups = n * KNN / kGroupRows;
+  for (int i = 0, p = blockIdx.x; p < patches; ++i, p += gridDim.x) {
+    const int cur = i & 1;
+    if (warp >= kRowWarps) {
+      if (p + static_cast<int>(gridDim.x) < patches) {
+        const int first = threadIdx.x - 32 * kRowWarps;
+        load(p + gridDim.x, cur ^ 1, first, kSelThreads);
+        asm volatile("bar.sync 1, %0;\n" ::"n"(kSelThreads));
+        select(cur ^ 1, first, kSelThreads);
+      }
+    } else {
+      const float* sx = bufs + cur * 4 * n;
+      const float* sy = sx + n;
+      const float* sz = sx + 2 * n;
+      const unsigned short* nbr = tables + cur * n * KNN;
+      float* feats = out + static_cast<size_t>(p) * n * kEncC3;
+      for (int gi = warp / 4; gi < groups; gi += kRowWarps / 4) {
+        // this warp's 16 rows; this lane's rows r0 + g and r0 + g + 8
+        const int r0 = gi * kGroupRows + (warp % 4) * 16;
+        float cx[2], cy[2], cz[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + g + 8 * h, q = r / KNN, j = nbr[q * KNN + r % KNN];
+          cx[h] = sx[j] - sx[q];
+          cy[h] = sy[j] - sy[q];
+          cz[h] = sz[j] - sz[q];
+        }
+        // layer 1 (3 -> 32) on the CUDA cores, straight into layer 2's A
+        // fragments: k-step s, columns 8 s + t (a0, a1) and 8 s + t + 4 (a2, a3)
+        unsigned ah[4][4], al[4][4];
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int c4 = 0; c4 < 2; ++c4) {
+            const int o = 8 * s + t + 4 * c4;
+            const float wx = __ldg(w1 + o), wy = __ldg(w1 + kEncC1 + o),
+                        wz = __ldg(w1 + 2 * kEncC1 + o), bo = __ldg(b1 + o);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float acc = cx[h] * wx;
+              acc = fmaf(cy[h], wy, acc);
+              acc = fmaf(cz[h], wz, acc);
+              split_tf32(fmaxf(acc + bo, 0.0f), ah[s][2 * c4 + h], al[s][2 * c4 + h]);
+            }
+          }
+        // layer 2 (32 -> 64): the warpgroup's 64 rows x 64 columns
+        float y2[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) y2[e] = 0.0f;
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          wgmma_m64n64k8(y2, al[s], d2h + 2 * s);
+          wgmma_m64n64k8(y2, ah[s], d2l + 2 * s);
+          wgmma_m64n64k8(y2, ah[s], d2h + 2 * s);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<32>(y2);
+        fence_regs<16>(&ah[0][0]);
+        fence_regs<16>(&al[0][0]);
+        // + bias and relu: layer 3's A fragments, k-step s = layer 2's n8 tile s
+        unsigned xh[8][4], xl[8][4];
+#pragma unroll
+        for (int s = 0; s < 8; ++s) {
+          const float2 bo = __ldg(reinterpret_cast<const float2*>(b2 + 8 * s + 2 * t));
+          split_tf32(fmaxf(y2[4 * s] + bo.x, 0.0f), xh[s][0], xl[s][0]);
+          split_tf32(fmaxf(y2[4 * s + 2] + bo.x, 0.0f), xh[s][1], xl[s][1]);
+          split_tf32(fmaxf(y2[4 * s + 1] + bo.y, 0.0f), xh[s][2], xl[s][2]);
+          split_tf32(fmaxf(y2[4 * s + 3] + bo.y, 0.0f), xh[s][3], xl[s][3]);
+        }
+        // layer 3 (64 -> 128): the warpgroup's 64 rows x 128 columns
+        float y3[64];
+#pragma unroll
+        for (int e = 0; e < 64; ++e) y3[e] = 0.0f;
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 8; ++s) {
+          wgmma_m64n128k8(y3, xl[s], d3h[s / 4] + 2 * (s % 4));
+          wgmma_m64n128k8(y3, xh[s], d3l[s / 4] + 2 * (s % 4));
+          wgmma_m64n128k8(y3, xh[s], d3h[s / 4] + 2 * (s % 4));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<64>(y3);
+        fence_regs<32>(&xh[0][0]);
+        fence_regs<32>(&xl[0][0]);
+        // + bias, relu and the max over each query's rows (rounding is
+        // monotone: max(acc) + b = max(acc + b)); this lane keeps columns
+        // 64 c + 8 g + 2 t, + 1, and lanes of even t store four with their
+        // neighbour's two
+        constexpr int kHalves = KNN == 8 ? 2 : 1;   // queries in the warp's 16 rows
+#pragma unroll
+        for (int hq = 0; hq < kHalves; ++hq)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float v[8][2];
+#pragma unroll
+            for (int i8 = 0; i8 < 8; ++i8)
+#pragma unroll
+              for (int k = 0; k < 2; ++k) {
+                const int e = 4 * (8 * c + i8);
+                v[i8][k] = KNN == 8 ? y3[e + 2 * hq + k] : fmaxf(y3[e + k], y3[e + 2 + k]);
+              }
+            float2 m = max_over_rows_scattered(v);
+            const float2 bo =
+                __ldg(reinterpret_cast<const float2*>(b3 + 64 * c + 8 * g + 2 * t));
+            m = make_float2(fmaxf(m.x + bo.x, 0.0f), fmaxf(m.y + bo.y, 0.0f));
+            const float n0 = __shfl_down_sync(0xffffffffu, m.x, 1);
+            const float n1 = __shfl_down_sync(0xffffffffu, m.y, 1);
+            if ((t & 1) == 0)
+              *reinterpret_cast<float4*>(feats + static_cast<size_t>(r0 / KNN + hq) * kEncC3 +
+                                         64 * c + 8 * g + 2 * t) = make_float4(m.x, m.y, n0, n1);
+          }
+      }
+    }
+    __syncthreads();   // this patch's rows are done, the next one is selected
+  }
 }
 
 template <int KNN>
 int launch(const float* pts, int p, int n, const float* const* w, float* out,
            cudaStream_t stream) {
-  const Layout L = make_layout(n, KNN);
+  const size_t bytes = smem_bytes(n, KNN);
+  if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(sa_fused_kernel<KNN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L.bytes));
+                                         static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  sa_fused_kernel<KNN><<<p, kThreads, L.bytes, stream>>>(pts, n, L, w[0], w[1], w[2], w[3],
-                                                         w[4], w[5], out);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = p < sms ? p : sms;
+  sa_fused_kernel<KNN><<<blocks, kThreads, bytes, stream>>>(pts, p, n, w[0], w[1], w[2], w[3],
+                                                            w[4], w[5], out);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // pts: [p, n, 3] f32. Weights [in, out] row-major f32 and biases [out]:
-// 3 -> 32 -> 64 -> 128. out: [p, n, 128] f32. Returns a cudaError_t value.
+// 3 -> 32 -> 64 -> 128, 16-byte aligned. out: [p, n, 128] f32. Returns a
+// cudaError_t value.
 extern "C" int sa_fused_launch(const float* pts, int p, int n, int knn, const float* w1,
                                const float* b1, const float* w2, const float* b2,
                                const float* w3, const float* b3, float* out, void* stream) {

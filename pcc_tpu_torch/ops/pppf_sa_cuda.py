@@ -2,7 +2,7 @@
 of pcc_tpu/ops/pppf_sa_pallas.py: TPU kernels _stage_kernel, entry
 pppf_sa_fused, and _stage_bwd_kernel, entry pppf_sa_trainable).
 
-`pppf_sa_fused` launches the CUDA kernel csrc/pppf_sa_stage.cu on CUDA
+`pppf_sa_fused` launches the CUDA kernels of csrc/pppf_sa_stage.cu on CUDA
 tensors and runs `pppf_sa_plain`, the same function in plain PyTorch, on
 CPU tensors: per patch and query point, the nsample nearest of the patch's
 N points, their rows gathered ("pppf": [feat | xyz] uncentred, slots beyond
@@ -10,7 +10,9 @@ the radius read point 0; "pppe": [xyz - query | feat], no mask), the
 Conv + BatchNorm(eval) + ReLU stack and the max over samples ->
 [P, S, C_out]. Selection and mask are bit-equal between the two (the same
 float32 operations in the same order); the products sum in another order,
-so outputs agree to float32 rounding.
+so outputs agree to float32 rounding. `pppf_sa_points` and
+`pppe_sa_points` are the per-point forms the kernels compute, each equal to
+the per-slot plain version up to the order of its sums.
 
 `pppf_sa_bwd` is the stage's gradient against a cotangent [P, S, C_out],
 layout "pppf", BatchNorm in its eval-affine form (frozen running
@@ -35,7 +37,7 @@ from pcc_tpu_torch.ops.sa_cuda import fma_matmul
 from pcc_tpu_torch.ops.tf32_mma import wgrad_part_floats
 
 _ARGTYPES = ([cuda_lib.PTR] * 4 + [cuda_lib.INT] * 5 + [ctypes.c_float]
-             + [cuda_lib.INT] * 2 + [cuda_lib.PTR] * 7)
+             + [cuda_lib.INT] * 2 + [cuda_lib.PTR] * 8)
 _BWD_ARGTYPES = ([cuda_lib.PTR] * 4 + [cuda_lib.INT] * 5 + [ctypes.c_float] + [cuda_lib.INT]
                  + [cuda_lib.PTR] * 10 + [ctypes.c_longlong, cuda_lib.INT, cuda_lib.PTR])
 LAYOUTS = ("pppf", "pppe")
@@ -46,6 +48,9 @@ MIN_TILE_ROWS = 8      # kTM
 # one query's maxima, indices and distances) must fit in a block's shared memory
 SMEM_WORDS = 227 * 1024 // 4
 PLAIN_ELEMS = 1 << 27  # elements of the widest grouped activation per pass of the plain version
+# "pppe": the slot kernel's tiles (warps of 32 rows down, n8 tiles a warp),
+# in the order csrc/pppf_sa_stage.cu::launch_pppe tries them
+PPPE_PLANS = ((4, 8), (4, 16), (2, 16), (1, 16))
 # activations within NEAR_TIE of a relu's 0 or of a maximum (relative to the
 # largest of their channel) are recomputed in the kernels' arithmetic
 NEAR_TIE = 1e-4
@@ -120,6 +125,47 @@ def stage_flops(P: int, S: int, N: int, nsample: int, widths, layout: str = "ppp
     return rows + P * S * (dist + nsample * widths[-1])
 
 
+def pppe_work(P: int, S: int, N: int, nsample: int, widths):
+    """(float32 operations, operations of the products) of the "pppe" stage
+    as `stage_flops` counts them, split as csrc/pppf_sa_stage.cu runs them:
+    the first layer's product per point and layers 2 .. L per slot as
+    3xTF32 products on the tensor cores (three TF32 products each), the
+    rest (the query term of the first layer, the BatchNorm affines and relu,
+    the selection, the max) in float32 on the CUDA cores."""
+    first = widths[0] * widths[1]
+    later = sum(a * b for a, b in zip(widths[1:-1], widths[2:]))
+    products = 2.0 * (P * N * first + P * S * nsample * later)
+    return stage_flops(P, S, N, nsample, widths, layout="pppe") - products, products
+
+
+def pppe_sa_points(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
+                   nsample: int) -> torch.Tensor:
+    """The "pppe" stage as csrc/pppf_sa_stage.cu computes it: the first
+    layer's feature block once per point, Y = feat W1[3:], then per slot
+    (query c, point j) Y[j] + (x_j - c) W1[:3] from the centred coordinates,
+    the first layer's bias, BatchNorm and relu, the later layers and the max
+    over each query's nsample nearest (slots beyond N read point 0) ->
+    [P, S, C_out], in the inputs' dtype. Equal to `pppf_sa_plain(...,
+    layout="pppe")`, which takes the first layer's product on the gathered
+    rows [x_j - c | f_j], up to the order of its sums."""
+    w1, b1, mean1, mul1, bias1 = layers[0]
+    y = None if feat is None else feat @ w1[3:]                      # [P, N, C1]
+    S, widest = new_xyz.shape[1], max(w.shape[1] for w, *_ in layers)
+    chunk = max(1, PLAIN_ELEMS // (S * nsample * widest))
+    outs = []
+    for s in range(0, new_xyz.shape[0], chunk):
+        q, pts = new_xyz[s:s + chunk], xyz[s:s + chunk]
+        idx = select_nearest(sq_dists(q, pts), nsample)              # [c, S, ns]
+        x = (knn_gather(pts, idx) - q[:, :, None, :]) @ w1[:3]
+        if y is not None:
+            x = knn_gather(y[s:s + chunk], idx) + x
+        x = torch.relu(((x + b1) - mean1) * mul1 + bias1)
+        for w, b, mean, mul, bias in layers[1:]:
+            x = torch.relu(((x @ w + b) - mean) * mul + bias)
+        outs.append(x.amax(dim=2))
+    return torch.cat(outs)
+
+
 def pppf_sa_points(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *, nsample: int,
                    radius: float, replay: bool = False) -> torch.Tensor:
     """The "pppf" stage per point, as csrc/pppf_sa_stage.cu computes it: the
@@ -146,6 +192,40 @@ def pppf_sa_points(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *, ns
 
 def _round4(v: int) -> int:
     return (v + 3) & ~3
+
+
+def pppe_plan(widths, N: int, S: int, nsample: int):
+    """The tile the "pppe" slot kernel takes for these layer widths, as
+    csrc/pppf_sa_stage.cu::launch_pppe picks it: the first of PPPE_PLANS
+    whose pass of columns is as wide as every layer between the first and
+    the last, with the largest k-slab (32, 16, 8 rows) and then the most
+    queries that fit in shared memory (two blocks an SM for (4, 8), else
+    one) -> dict(wm, nt, ks, qb, smem_bytes), or None where none fits."""
+    def pad8(v):
+        return (v + 7) & ~7
+
+    L, cout = len(widths) - 1, widths[-1]
+    mid, widest = max(widths[2:-1], default=0), max(widths[1:-1], default=0)
+    lda = pad8(widest) + 4 if L > 1 else 0
+    limit = SMEM_WORDS * 4
+    two = (limit + 1024) // 2 - 1024
+    for wm, nt in PPPE_PLANS:
+        rows, cw = 32 * wm, 8 * nt * (8 // wm)
+        if mid > cw:
+            continue
+        for budget in ((two, limit) if nt == 8 else (limit,)):
+            for ks in (32, 16, 8):
+                def words(qb):
+                    dist = qb * (N + min(N, nsample)) if nsample < N else 0
+                    tiles = rows * lda + 2 * ks * (((cw + 15) & ~15) + 8) if L > 1 else 0
+                    return (_round4(max(dist, tiles)) + 4 * rows + qb * nsample + 4 * qb
+                            + qb * cout)
+                qb = min(rows // nsample if nsample <= rows else 1, S)
+                while qb > 1 and 4 * words(qb) > budget:
+                    qb -= 1
+                if 4 * words(qb) <= budget:
+                    return dict(wm=wm, nt=nt, ks=ks, qb=qb, smem_bytes=4 * words(qb))
+    return None
 
 
 def _check(new_xyz, xyz, feat, layers, nsample: int, layout: str, name: str = "pppf_sa_fused"):
@@ -186,6 +266,13 @@ def _check(new_xyz, xyz, feat, layers, nsample: int, layout: str, name: str = "p
         if any(t.data_ptr() % 16 for t in lay):
             raise ValueError(f"{name}: layer tensors must be 16-byte aligned")
         widths.append(w.shape[1])
+    if layout == "pppe":
+        if pppe_plan(widths, N, S, nsample) is None:
+            raise ValueError(f"{name}: widths {widths} with nsample={nsample}, N={N}: no tile "
+                             "of the \"pppe\" kernel fits (a layer between the first and the "
+                             "last at most 1024 wide; 32 rows of the widest layer but the last, "
+                             f"two k-slabs and the queries within {4 * SMEM_WORDS} bytes)")
+        return widths
     pad4 = [_round4(v) for v in widths[:-1]]
     words = (MIN_TILE_ROWS * (max(pad4[0::2]) + max(pad4[1::2], default=4)) + widths[-1] + nsample
              + (N + min(N, nsample) if nsample < N else 0) + 4)
@@ -202,7 +289,10 @@ def pppf_sa_fused(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
     pppf_sa_fused): new_xyz [P, S, 3] query centroids, xyz [P, N, 3], feat
     [P, N, C] or None, layers a list of (W [cin, cout], b, mean, mul, bias)
     with the BatchNorm folded by `fold_bn` -> [P, S, C_out] f32. The CUDA
-    kernel on CUDA tensors, the plain version on CPU tensors.
+    kernel on CUDA tensors, the plain version on CPU tensors. The "pppe"
+    layout computes as `pppe_sa_points` does: the first layer's feature
+    block once per point, into a scratch [P, N, C1] allocated here (none
+    without features), then the slots, in the one launch.
 
     With `save` (layout "pppf"; the train step's forward), (out, saved):
     the kernel's store mode also writes what its backward would otherwise
@@ -222,6 +312,9 @@ def pppf_sa_fused(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
     dev = new_xyz.device
     out = torch.empty((P, S, widths[-1]), dtype=torch.float32, device=dev)
     bufs, done = None, ctypes.c_int(0)
+    # "pppe": the first layer's feature block, once per point
+    y = (torch.empty((P, N, widths[1]), dtype=torch.float32, device=dev)
+         if layout == "pppe" and feat is not None else None)
     if save:
         ws = _bwd_workspace(P, S, N, nsample, widths)
         bufs = (torch.empty(ws["sel"], dtype=torch.int32, device=dev),
@@ -235,7 +328,8 @@ def pppf_sa_fused(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
         0 if feat is None else feat.shape[2], nsample, _radius2(radius),
         LAYOUTS.index(layout), len(layers), ptrs, (ctypes.c_int * len(widths))(*widths),
         *([b.data_ptr() for b in bufs] if save else [None] * 3),
-        ctypes.addressof(done) if save else None, cuda_lib.stream_ptr(new_xyz))
+        ctypes.addressof(done) if save else None, None if y is None else y.data_ptr(),
+        cuda_lib.stream_ptr(new_xyz))
     if save:
         return out, (bufs if done.value else None)
     return out

@@ -25,11 +25,11 @@ calls: forward `patch_encoder` with its winners, backward
 
 `sa_fused` is the encoder's first half alone, SetAbstraction [P, N, 3] ->
 [P, N, 128] (pcc_tpu's TPU kernel _sa_kernel, entry sa_fused): the CUDA
-kernel csrc/sa_fused.cu, built on the encoder's selection and products
-(csrc/encoder_common.cuh), on CUDA tensors; `sa_fused_plain` on CPU
-tensors. Like pcc_tpu's, it has no backward. The kernels' design notes
-(what bounds them on an H100, what they do about that) are at the top of
-their sources.
+kernel csrc/sa_fused.cu, the encoder's selection (csrc/encoder_common.cuh::
+knn_of) with layers 2 and 3 on the tensor cores, on CUDA tensors;
+`sa_fused_plain` on CPU tensors. Like pcc_tpu's, it has no backward. The
+kernels' design notes (what bounds them on an H100, what they do about
+that) are at the top of their sources.
 """
 
 from __future__ import annotations

@@ -12,8 +12,8 @@ the wrapper takes them, on the activations the forward's store mode stored.
 
 The patch encoder backward (csrc/patch_encoder_bwd.cu) is one kernel, so
 its pieces are timed as csrc/pppf_sa_stage.cu's are by stage_breakdown.py:
-the source is built as it is and with one part taken out (nvcc, all
-variants in parallel, into a temporary directory), and each variant is timed
+the source is built as it is and with one part taken out
+(tools/variants.py), and each variant is timed
 with CUDA events on the IPDAE train step's patches [512, 256, 3] with a
 seeded normal cotangent (and, where the wrapper takes them, the forward
 kernel's winners). A variant applies where its texts are in the source (the
@@ -27,9 +27,7 @@ one line per round and encoder variant.
 
 from __future__ import annotations
 
-import ctypes
 import inspect
-import os
 import subprocess
 import tempfile
 
@@ -44,13 +42,12 @@ from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops import pppf_sa_cuda as sa_ops
 from pcc_tpu_torch.ops import sa_cuda
 from pcc_tpu_torch.tools.stage_breakdown import stage_inputs
+from pcc_tpu_torch.tools.variants import build_variants, entry
 
-ENC_SRC = "patch_encoder_bwd.cu"
-# variant -> alternatives, each a list of (old, new) replacements in ENC_SRC:
-# the first whose texts are all in the source applies (one design of the
-# kernel runs a pass over all points to find the winners and sums the weight
-# gradients into per-block partials; the other takes the forward's winners
-# and sums by split-K products over the winners' rows)
+# variant -> alternatives of csrc/patch_encoder_bwd.cu (tools/variants.py;
+# one design of the kernel runs a pass over all points to find the winners
+# and sums the weight gradients into per-block partials; the other takes the
+# forward's winners and sums by split-K products over the winners' rows)
 ENC_VARIANTS = {
     "full": [[]],
     # a whole forward over every point, to find each channel's winner
@@ -141,40 +138,6 @@ def stage_table(dev) -> None:
                       f"x{r.count // calls:<3d} {r.key[:80]}", flush=True)
 
 
-def build_encoder_variants(tmp: str) -> dict:
-    """variant -> its launch function, each built by its own nvcc process;
-    the variants whose text is not in the source are left out."""
-    with open(os.path.join(cuda_lib.CSRC_DIR, ENC_SRC)) as fh:
-        source = fh.read()
-    procs = {}
-    for name, alternatives in ENC_VARIANTS.items():
-        edits = next((e for e in alternatives if all(old in source for old, _ in e)), None)
-        if edits is None:
-            print(f"variant {name}: not in this {ENC_SRC}", flush=True)
-            continue
-        d = os.path.join(tmp, name)
-        os.makedirs(d)
-        for f in os.listdir(cuda_lib.CSRC_DIR):
-            with open(os.path.join(cuda_lib.CSRC_DIR, f)) as fh:
-                text = fh.read()
-            if f == ENC_SRC:
-                for old, new in edits:
-                    text = text.replace(old, new)
-            with open(os.path.join(d, f), "w") as fh:
-                fh.write(text)
-        so = os.path.join(d, "enc_bwd.so")
-        cmd = [cuda_lib._nvcc(), *cuda_lib._NVCC_FLAGS, "-o", so, os.path.join(d, ENC_SRC)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), so)
-    fns = {}
-    for name, (proc, so) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{out}")
-        fns[name] = ctypes.CDLL(so).patch_encoder_bwd_launch
-    return fns
-
-
 def encoder_table(dev) -> None:
     """CUDA-event times of the encoder backward's variants."""
     patches, cot, sa_wb, pn_wb, knn = encoder_inputs(dev)
@@ -186,12 +149,14 @@ def encoder_table(dev) -> None:
     ref_flat = [ref[0]] + [t for wb in list(ref[1]) + list(ref[2]) for t in wb]
     saved = cuda_lib._functions.get("patch_encoder_bwd")
     with tempfile.TemporaryDirectory() as tmp:
-        fns = build_encoder_variants(tmp)
+        fns = {name: entry(lib, "patch_encoder_bwd", saved.argtypes)
+               for name, lib in build_variants(
+                   tmp, {name: ("patch_encoder_bwd", alts)
+                         for name, alts in ENC_VARIANTS.items()}).items()}
         try:
             for rnd in range(2):
                 for variant, fn in fns.items():
                     # the wrapper, with the variant's entry point in its place
-                    fn.restype, fn.argtypes = ctypes.c_int, saved.argtypes
                     cuda_lib._functions["patch_encoder_bwd"] = fn
                     if variant == "full" and rnd == 0:
                         out = sa_cuda.patch_encoder_bwd(patches, cot, sa_wb, pn_wb, knn, **kw)

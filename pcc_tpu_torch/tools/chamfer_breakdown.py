@@ -35,10 +35,11 @@ distances and gradients within 1e-4 of the plain version's largest entry.
 Where ops/chamfer_cuda.py has launch plans (candidate_plans), the forward
 is also timed at every plan it takes at a shape, each held bit for bit to
 the launcher's own choice. The backward is also timed with parts cut out
-(BWD_VARIANTS: csrc/chamfer_bwd.cu with a text replaced, built into a
-temporary directory; their results are not the function's): without the
+(BWD_VARIANTS: csrc/chamfer_bwd.cu with a text replaced, built by
+tools/variants.py; their results are not the function's): without the
 sums, without the placing and the sums, and the zeroing and scans alone.
-Runs on older trees too (copy it into a `git archive` of one): where the
+Runs on older trees too (copy it and tools/variants.py into a `git
+archive` of one): where the
 wrappers still carry pcc_tpu's k * K <= 2^19 gate (KERNEL_LIMIT), it is
 lifted for the direct kernel calls, and what a tree lacks is skipped.
 
@@ -49,10 +50,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import ctypes
 import json
-import os
-import shutil
 import subprocess
 import tempfile
 
@@ -66,6 +64,7 @@ from pcc_tpu_torch.config import CodecConfig
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.train import build_pppf_train_step, build_train_step, create_train_state
 from pcc_tpu_torch.train.state import make_optimizer
+from pcc_tpu_torch.tools.variants import build_variants, entry
 
 SHAPES = [("N=512 IPDAE", 128, 512, 512), ("N=512 PPPF-AE fused", 128, 1024, 512),
           ("N=8192 IPDAE", 8, 8192, 8192), ("N=8192 PPPF-AE fused", 8, 16384, 8192),
@@ -190,32 +189,8 @@ def bwd_variant_functions(tmp: str) -> dict:
     """{label: entry point} of csrc/chamfer_bwd.cu with each BWD_VARIANTS
     cut, built into tmp; a variant whose text the source lacks is left
     out."""
-    with open(os.path.join(cuda_lib.CSRC_DIR, "chamfer_bwd.cu")) as f:
-        src = f.read()
-    for name in os.listdir(cuda_lib.CSRC_DIR):
-        if name.endswith(".cuh"):
-            shutil.copy(os.path.join(cuda_lib.CSRC_DIR, name), tmp)
-    procs = {}
-    for j, (label, cuts) in enumerate(BWD_VARIANTS):
-        if not all(old in src for old, _ in cuts):
-            continue
-        text = src
-        for old, new in cuts:
-            text = text.replace(old, new)
-        path, so = os.path.join(tmp, f"v{j}.cu"), os.path.join(tmp, f"v{j}.so")
-        with open(path, "w") as f:
-            f.write(text)
-        procs[label] = (subprocess.Popen(
-            [cuda_lib._nvcc(), *cuda_lib._NVCC_FLAGS, *cuda_lib.KERNELS["chamfer_bwd"][1],
-             "-o", so, path], stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL), so)
-    fns = {}
-    for label, (proc, so) in procs.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"the backward variant '{label}' did not build")
-        fn = ctypes.CDLL(so).chamfer_bwd_launch
-        fn.restype, fn.argtypes = ctypes.c_int, cc._BWD_ARGTYPES
-        fns[label] = fn
-    return fns
+    libs = build_variants(tmp, {label: ("chamfer_bwd", [cuts]) for label, cuts in BWD_VARIANTS})
+    return {label: entry(lib, "chamfer_bwd", cc._BWD_ARGTYPES) for label, lib in libs.items()}
 
 
 def variant_ms(fns: dict, bwd) -> dict:

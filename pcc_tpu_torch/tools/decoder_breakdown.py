@@ -2,15 +2,16 @@
 
   python3 -m pcc_tpu_torch.tools.decoder_breakdown      # from the repo root
 
-Builds csrc/patch_decoder.cu as it is and with one part taken out (nvcc,
-all variants in parallel, into a temporary directory), then times each with
+Builds csrc/patch_decoder.cu as it is and with one part taken out
+(tools/variants.py), then times each with
 CUDA events at the IPDAE serving batch's shapes (chip_smoke.py's default
 CodecConfig and seeded weights, 64 clouds: P = 4096 patches of k = 128
 points, h2 [4096, 1024], seeded quantized latents): `noexp` leaves out the
 1024 -> k*128 expansion (the fold is relu of the bias alone), `nomlp` leaves
 out the 144 -> 128 -> 64 -> 32 point MLP. A variant applies where its texts
 are in the source (the list covers the designs of several revisions: run
-the tool from a copy of an older tree to time that tree's kernel); the
+the tool and tools/variants.py from a copy of an older tree to time that
+tree's kernel); the
 variants give wrong outputs, and only `full` is checked, bit for bit
 against the wrapper. Beside them: torch.matmul(h2, w3r) in float32 with
 TF32 off (the expansion product alone, as cuBLAS computes it), the plain
@@ -23,9 +24,7 @@ Prints the card's name and power limit, then one line per round.
 
 from __future__ import annotations
 
-import ctypes
 import inspect
-import os
 import subprocess
 import tempfile
 
@@ -37,10 +36,9 @@ from pcc_tpu_torch.codec import init_params, make_models
 from pcc_tpu_torch.config import CodecConfig
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops import decoder_cuda
+from pcc_tpu_torch.tools.variants import build_variants, entry
 
-SRC = "patch_decoder.cu"
-# variant -> alternatives, each a list of (old, new) replacements in SRC:
-# the first whose texts are all in the source applies
+# variant -> alternatives of csrc/patch_decoder.cu (tools/variants.py)
 VARIANTS = {
     "full": [[]],
     "noexp": [
@@ -55,42 +53,6 @@ VARIANTS = {
     ],
 }
 REPS = 10
-
-
-def build_variants(tmp: str) -> dict:
-    """variant -> its launch function, each built by its own nvcc process."""
-    flags = cuda_lib.KERNELS["patch_decoder"][1]
-    procs = {}
-    for name, alternatives in VARIANTS.items():
-        d = os.path.join(tmp, name)
-        os.makedirs(d)
-        texts = {}
-        for f in os.listdir(cuda_lib.CSRC_DIR):
-            with open(os.path.join(cuda_lib.CSRC_DIR, f)) as fh:
-                texts[f] = fh.read()
-        edits = next((alt for alt in alternatives
-                      if all(old in texts[SRC] for old, _ in alt)), None)
-        if edits is None:
-            print(f"variant {name}: no alternative matches {SRC}; skipped", flush=True)
-            continue
-        for old, new in edits:
-            texts[SRC] = texts[SRC].replace(old, new)
-        for f, text in texts.items():
-            with open(os.path.join(d, f), "w") as fh:
-                fh.write(text)
-        so = os.path.join(d, "decoder.so")
-        cmd = [cuda_lib._nvcc(), *cuda_lib._NVCC_FLAGS, *flags, "-o", so, os.path.join(d, SRC)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), so)
-    fns = {}
-    for name, (proc, so) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{out}")
-        fn = ctypes.CDLL(so).patch_decoder_launch
-        fn.restype, fn.argtypes = ctypes.c_int, decoder_cuda._ARGTYPES
-        fns[name] = fn
-    return fns
 
 
 def decoder_case(dev):
@@ -129,7 +91,10 @@ def main() -> int:
         call = lambda: decoder_cuda.patch_decoder(h2, lat, w3r, b3r, mlp, k, **extra)  # noqa: E731
         ref = call()
         with tempfile.TemporaryDirectory() as tmp:
-            fns = build_variants(tmp)
+            fns = {name: entry(lib, "patch_decoder", decoder_cuda._ARGTYPES)
+                   for name, lib in build_variants(
+                       tmp, {name: ("patch_decoder", alts)
+                             for name, alts in VARIANTS.items()}).items()}
             own = cuda_lib.function("patch_decoder", decoder_cuda._ARGTYPES)
             try:
                 cuda_lib._functions["patch_decoder"] = fns["full"]

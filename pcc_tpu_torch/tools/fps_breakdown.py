@@ -23,24 +23,22 @@ Where ops/fps.py has launch plans (candidate_plans), every plan the kernel
 takes at a shape is also timed there and held bit for bit to the
 launcher's own choice, and so is the kernel with its warp argmax as a
 __shfl_xor_sync butterfly instead of two redux.sync (`butterfly`:
-csrc/fps.cu with BUTTERFLY's text in place of the reduction, built into a
-temporary directory). Last, one PPPF-AE encode and one decode of
+csrc/fps.cu with BUTTERFLY's text in place of the reduction, built by
+tools/variants.py). Last, one PPPF-AE encode and one decode of
 chip_smoke.py's 16-cloud batch (seeded weights and BatchNorm statistics):
 their walls (median of 3), torch.profiler's busy share (chip_smoke.profile)
 and the share of each wall that _int_fps takes, timed with a device sync on
 each side of every call.
 
 Prints the card's name and power limit, then one line per measurement.
-Runs on older trees too (copy it into a `git archive` of one): what a tree
-lacks is skipped.
+Runs on older trees too (copy it and tools/variants.py into a `git
+archive` of one): what a tree lacks is skipped.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import os
 import subprocess
 import tempfile
 import time
@@ -55,6 +53,7 @@ from pcc_tpu_torch.coding import iprob_pppf as ipppf
 from pcc_tpu_torch.config import CodecConfig
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops import fps as fps_ops
+from pcc_tpu_torch.tools.variants import build_variants, entry
 
 REPS = 20
 # the warp argmax of csrc/fps.cu as a __shfl_xor_sync butterfly over (key,
@@ -181,22 +180,11 @@ def plan_times(launch, N: int, ref: torch.Tensor) -> dict:
 def butterfly_functions(tmp: str):
     """{kernel name: entry point} of csrc/fps.cu built with the butterfly
     argmax, or None where the source lacks the reduction it replaces."""
-    with open(os.path.join(cuda_lib.CSRC_DIR, "fps.cu")) as f:
-        src = f.read()
-    if BUTTERFLY[0] not in src:
+    lib = build_variants(tmp, {"butterfly": ("fps", [[BUTTERFLY]])}).get("butterfly")
+    if lib is None:
         return None
-    path, so = os.path.join(tmp, "fps.cu"), os.path.join(tmp, "fps_butterfly.so")
-    with open(path, "w") as f:
-        f.write(src.replace(*BUTTERFLY))
-    subprocess.run([cuda_lib._nvcc(), *cuda_lib._NVCC_FLAGS, *cuda_lib.KERNELS["fps"][1],
-                    "-o", so, path], check=True, capture_output=True)
-    lib = ctypes.CDLL(so)
-    fns = {}
-    for name, argtypes in (("fps", fps_ops._ARGTYPES), ("fps_int", fps_ops._INT_ARGTYPES)):
-        fn = getattr(lib, f"{name}_launch")
-        fn.restype, fn.argtypes = ctypes.c_int, argtypes
-        fns[name] = fn
-    return fns
+    return {name: entry(lib, name, argtypes)
+            for name, argtypes in (("fps", fps_ops._ARGTYPES), ("fps_int", fps_ops._INT_ARGTYPES))}
 
 
 def variant_ms(fns, name: str, fn, ref: torch.Tensor) -> float:

@@ -19,8 +19,9 @@ from pcc_tpu_torch.coding.iprob_pppf import _qsel
 from pcc_tpu_torch.ops import fps as fps_ops
 from pcc_tpu_torch.ops.fps import fps_batch, fps_int_batch, fps_int_plain, fps_plain
 from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
-from pcc_tpu_torch.ops.pppf_sa_cuda import (pppf_sa_bwd, pppf_sa_bwd_plain, pppf_sa_fused,
-                                            pppf_sa_plain, pppf_sa_points, stack_replay)
+from pcc_tpu_torch.ops.pppf_sa_cuda import (pppe_plan, pppf_sa_bwd, pppf_sa_bwd_plain,
+                                            pppf_sa_fused, pppf_sa_plain, pppf_sa_points,
+                                            stack_replay)
 from pcc_tpu_torch.ops.sa_cuda import (patch_encoder, patch_encoder_bwd,
                                        patch_encoder_bwd_plain, patch_encoder_plain,
                                        pointwise_plain, winners_plain)
@@ -471,22 +472,27 @@ def test_pppf_sa_stage_per_point(dev, case, P, S, N, C, nsample, radius, widths)
 
 
 # PPPE's sa2 and sa3 (models/pppe.py): 128 of 512 points with 192
-# features, 32 of 128 with 256; nsample 32, radius 0, the "pppe" layout
-_PPPE_STAGES = [(32, 128, 512, 192, (128, 128, 256)), (32, 32, 128, 256, (256, 256, 512)),
-                (5, 128, 512, 192, (128, 128, 256)), (3, 32, 128, 256, (256, 256, 512))]
+# features, 32 of 128 with 256; nsample 32, radius 0, the "pppe" layout;
+# then clouds 100 away from the origin, and sa3's widths without features
+_PPPE_STAGES = [(32, 128, 512, 192, (128, 128, 256), 0.0),
+                (32, 32, 128, 256, (256, 256, 512), 0.0),
+                (5, 128, 512, 192, (128, 128, 256), 0.0), (3, 32, 128, 256, (256, 256, 512), 0.0),
+                (5, 128, 512, 192, (128, 128, 256), 100.0), (4, 32, 128, 0, (256, 256, 512), 0.0)]
 
 
-@pytest.mark.parametrize("P,S,N,C,widths", _PPPE_STAGES)
-def test_pppf_sa_stage_kernel_at_pppe_widths(dev, P, S, N, C, widths):
+@pytest.mark.parametrize("P,S,N,C,widths,offset", _PPPE_STAGES)
+def test_pppf_sa_stage_kernel_at_pppe_widths(dev, P, S, N, C, widths, offset):
     """The "pppe" layout at PPPE's own widths (195 and 259 input channels,
     not multiples of 4): within 1e-4 of the plain version's largest entry,
-    and its selection bit-equal, read through the kernel: with one-hot
-    features of the N points and one identity layer each query's output
-    is the indicator of the set of points its slots read."""
+    two launches bitwise equal, and its selection bit-equal, read through
+    the kernel: with one-hot features of the N points and one identity
+    layer each query's output is the indicator of the set of points its
+    slots read. Far from the origin the first layer's xyz part still comes
+    from the centred coordinates."""
     g = torch.Generator().manual_seed(S)
-    xyz = torch.rand((P, N, 3), generator=g).to(dev)
+    xyz = (torch.rand((P, N, 3), generator=g) + offset).to(dev)
     new_xyz = xyz[:, torch.randperm(N, generator=g)[:S]].contiguous()
-    feat = torch.randn((P, N, C), generator=g).to(dev)
+    feat = torch.randn((P, N, C), generator=g).to(dev) if C else None
     layers = _stage_layers(g, (C + 3,) + tuple(widths), dev, share=0.25)
     kw = dict(nsample=32, radius=0.0, layout="pppe")
     before = cuda_lib.launches["pppf_sa_stage"]
@@ -495,6 +501,7 @@ def test_pppf_sa_stage_kernel_at_pppe_widths(dev, P, S, N, C, widths):
     ref = pppf_sa_plain(new_xyz, xyz, feat, layers, **kw)
     assert out.shape == ref.shape == (P, S, widths[-1])
     assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert torch.equal(pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), out)
     W = N + 3
     ident = [(torch.eye(W, device=dev),) + tuple(
         torch.full((W,), v, device=dev) for v in (0.0, 0.0, 1.0, 0.0))]
@@ -574,19 +581,48 @@ def test_eval_batch_card_matches_cpu(dev):
         assert a["chamfer"] == pytest.approx(b["chamfer"], rel=1e-5)
 
 
-@pytest.mark.parametrize("case", ["points", "layers", "width", "feat", "layout", "cpu_layer"])
+@pytest.mark.parametrize("case", ["points", "layers", "width", "feat", "layout", "cpu_layer",
+                                  "pppe_middle", "pppe_smem"])
 def test_pppf_sa_stage_rejects_unsupported(dev, case):
+    """pppe_middle: a layer between the first and the last wider than the
+    "pppe" kernel's widest pass (1024 columns); pppe_smem: a first layer one
+    column wider than the widest whose 32-row tile fits in shared memory
+    (test_pppe_tiles launches that one)."""
     g = torch.Generator().manual_seed(7)
     N = 2048 if case == "points" else 32
     xyz = torch.rand((2, N, 3), generator=g).to(dev)
     feat = torch.rand((2, 16 if case == "feat" else N, 5), generator=g).to(dev)
-    widths = {"layers": (8,) * 8, "width": (8, 70000)}.get(case, (8, 16))
+    widths = {"layers": (8,) * 8, "width": (8, 70000), "pppe_middle": (16, 1032, 8),
+              "pppe_smem": (1289, 8)}.get(case, (8, 16))
     layers = _stage_layers(g, (8,) + widths, dev)
     if case == "cpu_layer":
         layers[0] = tuple(t.cpu() for t in layers[0])
     with pytest.raises(ValueError):
         pppf_sa_fused(xyz[:, :8].contiguous(), xyz, feat, layers, nsample=8, radius=0.4,
-                      layout="other" if case == "layout" else "pppf")
+                      layout="pppe" if case.startswith("pppe") else
+                      {"layout": "other"}.get(case, "pppf"))
+
+
+@pytest.mark.parametrize("widths,plan", [((16, 384, 8), (2, 16)), ((16, 1024, 8), (1, 16)),
+                                         ((1288, 8), (1, 16))])
+def test_pppe_tiles(dev, widths, plan):
+    """The "pppe" kernel's narrower tiles, as ops/pppf_sa_cuda.py::pppe_plan
+    predicts the launcher picks them (a middle layer 384 and 1024 wide; the
+    widest first layer whose 32-row tile fits, one column short of
+    test_pppf_sa_stage_rejects_unsupported's pppe_smem): within 1e-4 of the
+    plain version's largest entry, two launches bitwise equal."""
+    g = torch.Generator().manual_seed(8)
+    xyz = torch.rand((2, 32, 3), generator=g).to(dev)
+    feat = torch.rand((2, 32, 5), generator=g).to(dev)
+    layers = _stage_layers(g, (8,) + widths, dev)
+    got = pppe_plan([8, *widths], 32, 8, 8)
+    assert (got["wm"], got["nt"]) == plan
+    kw = dict(nsample=8, radius=0.0, layout="pppe")
+    new_xyz = xyz[:, :8].contiguous()
+    out = pppf_sa_fused(new_xyz, xyz, feat, layers, **kw)
+    ref = pppf_sa_plain(new_xyz, xyz, feat, layers, **kw)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert torch.equal(pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), out)
 
 
 def _bwd_flat(dxyz, dfeat, dl):
@@ -891,8 +927,8 @@ def test_chamfer_kernels_reject_unsupported(dev, case):
             chamfer_fwd(x, y)
 
 
-@pytest.mark.parametrize("P,N,knn", [(5, 32, 8), (5, 32, 16), (64, 256, 16), (6, 1024, 16),
-                                     (4, 1024, 8)])
+@pytest.mark.parametrize("P,N,knn", [(5, 32, 8), (5, 32, 16), (64, 256, 16), (64, 256, 8),
+                                     (6, 1024, 16), (4, 1024, 8)])
 def test_sa_fused_kernel(dev, P, N, knn):
     """Features within 1e-5 of the plain version; SetAbstraction(fused=True)
     launches the kernel."""

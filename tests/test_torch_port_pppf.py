@@ -39,8 +39,8 @@ from pcc_tpu_torch.io import read_point_cloud, save_point_cloud
 from pcc_tpu_torch.models.layers import torch_dense_init_
 from pcc_tpu_torch.models.pppf import FoldingNet, PPPF_AE, PPPFConditionalProbabilityModel
 from pcc_tpu_torch.ops.knn import ball_query
-from pcc_tpu_torch.ops.pppf_sa_cuda import (fold_bn, pppf_sa_fused, pppf_sa_plain,
-                                            pppf_sa_points)
+from pcc_tpu_torch.ops.pppf_sa_cuda import (fold_bn, pppe_plan, pppe_sa_points, pppf_sa_fused,
+                                            pppf_sa_plain, pppf_sa_points)
 from pcc_tpu_torch.weights import from_jax_params, load_inference_params, to_jax_params
 
 
@@ -206,6 +206,66 @@ def test_stage_per_point_equals_plain_in_float64(S, N, nsample, radius, offset, 
         assert torch.equal(out, out[:, :1].expand_as(out))
     else:
         assert 0 < float((out > 0).double().mean()) < 1
+
+
+# (case, S, N, C, nsample, offset, widths after the input) for the "pppe"
+# stage's per-point form: PPPE's sa2 widths at a small size, clouds 100 away
+# from the origin, no features, nsample > N (slots read point 0)
+_PPPE_POINT_CASES = [
+    ("sa2_like", 16, 64, 192, 32, 0.0, (128, 128, 256)),
+    ("offset", 8, 32, 24, 8, 100.0, (32, 48)),
+    ("no_features", 8, 32, 0, 8, 0.0, (16, 32)),
+    ("ns_gt_n", 4, 16, 6, 24, 0.0, (16,)),
+]
+
+
+@pytest.mark.parametrize("case,S,N,C,nsample,offset,widths", _PPPE_POINT_CASES)
+def test_pppe_per_point_equals_plain_in_float64(case, S, N, C, nsample, offset, widths):
+    """The "pppe" stage's per-point form (the first layer's feature block
+    once per point, the centred xyz part per slot), which the stage kernel
+    computes, equals the per-slot plain version in float64 to 1e-12 of the
+    output's largest entry (the two sum the first layer in another order),
+    on clouds far from the origin too."""
+    rng = np.random.default_rng(19)
+    P = 3
+    xyz = rng.random((P, N, 3)) + offset
+    new_xyz = xyz[:, rng.permutation(N)[:S]]
+    feat = rng.standard_normal((P, N, C)) if C else None
+    layers, cin = [], C + 3
+    for cout in widths:
+        sign = np.where(rng.random(cout) < 0.25, -1.0, 1.0)
+        layers.append(tuple(torch.from_numpy(a) for a in (
+            (rng.random((cin, cout)) * 2 - 1) * cin ** -0.5, rng.random(cout) * 0.2 - 0.1,
+            rng.standard_normal(cout) * 0.1, (rng.random(cout) + 0.5) * sign,
+            (rng.random(cout) - 0.3) * 0.2)))
+        cin = cout
+    args = (torch.from_numpy(new_xyz), torch.from_numpy(xyz),
+            None if feat is None else torch.from_numpy(feat), layers)
+    ref = pppf_sa_plain(*args, nsample=nsample, radius=0.0, layout="pppe")
+    out = pppe_sa_points(*args, nsample=nsample)
+    assert out.dtype == torch.float64 and out.shape == (P, S, widths[-1])
+    assert float((out - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+    assert bool((out > 0).any())
+
+
+@pytest.mark.parametrize("widths,N,S,nsample,plan", [
+    ((195, 128, 128, 256), 512, 128, 32, dict(wm=4, nt=8, ks=32, qb=4)),
+    ((259, 256, 256, 512), 128, 32, 32, dict(wm=4, nt=16, ks=32, qb=4)),
+    ((1027, 1027), 1024, 256, 32, dict(wm=4, nt=8, ks=32, qb=4)),
+    ((8, 16, 1032, 8), 32, 8, 8, None),
+])
+def test_pppe_plan(widths, N, S, nsample, plan):
+    """The "pppe" kernel's tile as the wrapper predicts the launcher picks
+    it: PPPE's sa2 two blocks an SM of 128 rows with passes of 128 columns,
+    sa3 one block with passes of 256; the selection read-through's single
+    identity layer at N = 1024; none where a middle layer is wider than the
+    widest pass (the card tests hold the launcher to it)."""
+    got = pppe_plan(list(widths), N, S, nsample)
+    if plan is None:
+        assert got is None
+    else:
+        assert {k: got[k] for k in plan} == plan
+        assert got["smem_bytes"] <= (227 * 1024 if plan["nt"] == 16 else 113 * 1024)
 
 
 @pytest.mark.parametrize("d", [8, 16, 45])

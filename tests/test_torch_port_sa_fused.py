@@ -10,6 +10,8 @@ state_dict names with the flag set and refuses to run where autograd would
 need a backward, as pcc_tpu's kernel has none.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,3 +82,36 @@ def test_sa_module_flag_keeps_names_and_routes(weights, monkeypatch):
         assert len(calls) == 1
     with pytest.raises(RuntimeError, match="no backward"):
         fused(x)
+
+
+@pytest.mark.parametrize("tool", ["stage_breakdown", "decoder_breakdown", "fps_breakdown"])
+def test_breakdown_variants_apply_to_the_sources(tool):
+    """Every variant of the breakdown tools that time today's kernels edits
+    text that its kernel source holds, so that the tools build on the card
+    (bwd_breakdown and chamfer_breakdown also list texts of older
+    designs)."""
+    import importlib
+
+    from pcc_tpu_torch.tools.variants import edited
+
+    mod = importlib.import_module(f"pcc_tpu_torch.tools.{tool}")
+    specs = {"stage_breakdown": lambda: mod.VARIANTS,
+             "decoder_breakdown": lambda: {k: ("patch_decoder", v)
+                                           for k, v in mod.VARIANTS.items()},
+             "fps_breakdown": lambda: {"butterfly": ("fps", [[mod.BUTTERFLY]])}}[tool]()
+    for label, (kernel, alternatives) in specs.items():
+        assert edited(kernel, alternatives) is not None, (tool, label)
+
+
+def test_variant_edits_take_the_first_alternative_that_applies():
+    """tools/variants.py::edited applies the first alternative whose old
+    texts all occur in the source, and gives None where none does."""
+    from pcc_tpu_torch.tools.variants import edited
+
+    with open(os.path.join(cuda_lib.CSRC_DIR, "sa_fused.cu")) as f:
+        text = f.read()
+    head = text.splitlines()[0]
+    assert edited("sa_fused", [[]]) == text
+    assert edited("sa_fused", [[("no such text", "x")], [(head, "// edited")]]) == \
+        text.replace(head, "// edited")
+    assert edited("sa_fused", [[(head, "a"), ("no such text", "b")]]) is None
