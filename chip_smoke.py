@@ -19,7 +19,9 @@ PyTorch version at the shapes those paths give it, and checks the streams,
 the train steps, the metrics and the PPPE latents against the port on the
 CPU; then runs the train steps and the codec through the data-parallel
 launcher (pcc_tpu_torch/parallel/mesh.py): one rank on NCCL, and two
-ranks sharing the card over gloo.
+ranks sharing the card over gloo; then both families' serving paths in
+bf16 mixed precision (CodecConfig(compute_dtype="bfloat16"), the CLIs'
+--bf16) on the bf16 instances of the encoder, decoder and stage kernels.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card, power limit, torch and CUDA versions;
@@ -34,7 +36,10 @@ Phases (any failed check raises, and the script exits non-zero):
      time from a CUDA graph's replays beside the CUDA-event time of the
      wrapper's calls; encoder latents
      and decoder points within 1e-4, the decoder on the weights the decode
-     path prepared, two of its launches bitwise equal; the encoder also
+     path prepared and on seeded latents over every bin at the decode
+     batch's shape (the path's own symbols all sit at the middle bin at
+     random weights; distinct_rows), two of its launches bitwise equal; the
+     encoder also
      against sa_cuda.py::_kernel_choices, its arithmetic replayed, on
      REPLAY_PATCHES patches: the count of entries that differ, each within
      one ulp; with its winners output, the latents bit-equal and the
@@ -178,8 +183,11 @@ Phases (any failed check raises, and the script exits non-zero):
      float32 per-slot design's, an earlier run's figure in FP32_DESIGN_MS,
      not measured here), the plain version's time, both bounds (the
      products in 3xTF32, and all in float32; the work per point where the
-     first layer allows); phase 19's three FPS calls held bit for bit and
-     timed (fps_check), sa1's top-32 selection timed;
+     first layer allows); the layout's per-slot route once, at widths past
+     the slot kernel's tiles (a PER_SLOT_MIDDLE-wide middle layer, seeded
+     layers) on sa2's inputs, held the same way (pppe_per_slot_check);
+     phase 19's three FPS calls held bit for bit and timed (fps_check),
+     sa1's top-32 selection timed;
  21. PPPE training at the train CLI's defaults (pppe_train_phase): launches
      per step fps 3, chamfer_fwd 1, chamfer_bwd 1; a NaN batch skipped with
      the whole state bit for bit; the step's FPS and chamfer held to their
@@ -213,7 +221,36 @@ Phases (any failed check raises, and the script exits non-zero):
      TOL_BATCH_STATS, PPPE's every gradient to TOL_PPPE_STEP), streams and
      clouds bit for bit, both ranks' parameters bit-equal after the step,
      each rank's launches per step or batch the one device's (the
-     counters are per process); each worker's counters printed.
+     counters are per process); each worker's counters printed;
+ 27. the IPDAE path in bf16 (CodecConfig(compute_dtype="bfloat16"), 64
+     clouds, phase 3's weights with the PointNet's last layer calibrated
+     on the clouds so that the symbols spread over every bin,
+     spread_symbols): the float32 path on the same weights (one uncounted,
+     one counted compress_many -> decompress_many, profiled), then the
+     same in bf16 (fps 1, patch_encoder_bf16 1, patch_decoder_bf16 1, the
+     float32 instances and every other kernel 0); decoded symbols equal
+     encoded ones, spread over the bins in both runs (symbol_spread);
+     .s.bin and .c.bin byte-equal to the float32 run's, the share of
+     symbols and the .p.bin that bf16 changes; the card's .p.bin decoded
+     on the CPU port to the card's symbols; walls and device time
+     (torch.profiler) beside the float32 run's;
+ 28. the bf16 encoder and decoder against their plain versions on phase
+     27's inputs, each on distinct rows (distinct_rows: the latents, and
+     the h2 of the path's spread symbols) (bf16_hold: every entry bf16, at
+     least BF16_SHARE of them bit-equal, every one within BF16_TOL of the
+     largest, two launches bitwise equal), the encoder also against the
+     replay of its arithmetic; CUDA-event and device times, the plain
+     versions' times, both bounds (the products on the bf16 tensor cores
+     at 989 TFLOP/s, and all in float32 on the CUDA cores), the decoder's
+     bf16 expansion product alone in cuBLAS (its library_ms);
+ 29. the PPPF-AE path in bf16 on phase 9's clouds and weights, enc_proj
+     calibrated as in 27 (launches pppf_sa_stage_bf16 3, fps 3, fps_int 6
+     per compress -> decompress), checked as in 27 against the float32
+     path on the same weights; the bf16 stage against its plain version at
+     the path's three stage shapes, as in 28; then compress --bf16 ->
+     decompress --bf16 through the CLIs on BF16_CLI_CLOUDS clouds of each
+     family, on phases 27 and 29's weights written as pcc_tpu's pickles
+     (the IPDAE streams phase 27's bytes).
 The line before the last is the kernels' JSON record (the IPDAE serving
 path's launch counts for fps, patch_encoder and patch_decoder, the counted
 train steps' for patch_encoder_bwd, the PPPF-AE path's for pppf_sa_stage
@@ -227,13 +264,17 @@ compress batch's for "pppf_sa_stage (pppe layout)" (sa2 and sa3 summed,
 each under `stages`); fps also carries the PPPF-AE and PPPE paths' counts
 as launches_pppf and launches_pppe and every float shape it was held and
 timed at (phases 4, 10, 13, 16, 20) under `shapes`, pppf_sa_stage its
-launches per fused step); the last line is {"ok": true, "device": {...}}.
+launches per fused step; phase 20's per-slot "pppe" route, with no launch
+on a path; phases 27-29's patch_encoder_bf16, patch_decoder_bf16 and
+pppf_sa_stage_bf16 with their launches on the bf16 paths); the last line
+is {"ok": true, "device": {...}}.
 Without a card it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import json
 import os
@@ -244,7 +285,8 @@ import time
 import numpy as np
 import torch
 
-from pcc_tpu_torch.codec import Codec, decode_clouds_packed, encode_geometry, init_params
+from pcc_tpu_torch.codec import (Codec, decode_clouds_packed, encode_geometry, init_params,
+                                 make_models)
 from pcc_tpu_torch.codec import integer_pmf_weights, pack_encode_upload, unpack_encode_upload
 from pcc_tpu_torch.coding.octree_host import codes_to_points, parse_octree_bits, unpack_bits
 from pcc_tpu_torch.config import CodecConfig, PPPEConfig
@@ -260,8 +302,9 @@ from pcc_tpu_torch.ops import fps as fps_ops
 from pcc_tpu_torch.ops.fps import fps_batch, fps_int_batch, fps_int_plain, fps_plain
 from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
 from pcc_tpu_torch.ops.normals import estimate_normals
-from pcc_tpu_torch.ops.pppf_sa_cuda import (PPPFStageFn, pppf_sa_bwd, pppf_sa_bwd_plain,
-                                            pppe_work, pppf_sa_fused, pppf_sa_plain,
+from pcc_tpu_torch.ops.pppf_sa_cuda import (PPPFStageFn, pppe_kernel, pppf_sa_bwd,
+                                            pppf_sa_bwd_plain, pppe_work, pppf_sa_fused,
+                                            pppf_sa_plain,
                                             pppf_sa_points, stage_bwd_flops, stage_bwd_work,
                                             stage_flops)
 from pcc_tpu_torch.ops.sa_cuda import (PatchEncoderFn, _kernel_choices, _unflatten,
@@ -362,6 +405,27 @@ ATTR_TRAIN_STEPS = 10
 # the log lines of phases 17 and 20 for comparison; no record carries them,
 # since nothing in a run measures them.
 FP32_DESIGN_MS = {"pppe sa2": 0.807, "pppe sa3": 0.880, "sa_fused": 10.77}
+# phase 20's per-slot "pppe" route: a middle layer this wide, past the slot
+# kernel's widest pass (1024)
+PER_SLOT_MIDDLE = 1536
+# bf16 serving (phases 27-29): the bf16 kernels against their plain
+# versions, at least BF16_SHARE of the entries bit-equal (float32 sums in
+# another order move a bf16 rounding now and then) and every entry within
+# BF16_TOL of the output's largest |entry|; the bf16 tensor cores' dense
+# rate for the bounds beside the float32 CUDA cores' FP32_FLOP_PER_S
+BF16_SHARE = 0.95
+BF16_TOL = 2.0 ** -7
+BF16_FLOP_PER_S = 989e12
+BF16_CLI_CLOUDS = 4
+# phases 27-29 serve on weights whose last encoder layer is calibrated on
+# the phase's clouds (spread_symbols), the latent's standard deviation this
+# many quantizer steps: at random weights the latent varies between patches
+# far less than between channels (spread_symbols logs both) and every
+# symbol sits at the middle bin
+SPREAD_STD = 1.5
+# and PPPF-AE's encoder BatchNorm scales multiplied by this gain: at the
+# seeded ones its feature varies between patches by less than a bf16 step
+PPPF_BN_GAIN = 2.0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -543,10 +607,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def profile(label: str, fn, top: int = 8) -> None:
+def profile(label: str, fn, top: int = 8) -> dict:
     """Where the time of one call of `fn` goes: host wall time, the device
     time of all kernels (their sum over the wall time is the device's busy
-    share) and the ops with the most device time, from torch.profiler."""
+    share) and the ops with the most device time, from torch.profiler.
+    Returns dict(wall_ms, device_ms), device_ms None where not measured."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -563,12 +628,13 @@ def profile(label: str, fn, top: int = 8) -> None:
     if busy_ms == 0.0:
         log(f"profile {label}: wall {wall_ms:.1f} ms, device time not measured "
             "(the profiler saw no kernel)")
-        return
+        return dict(wall_ms=wall_ms, device_ms=None)
     log(f"profile {label}: wall {wall_ms:.1f} ms (profiler on), device kernels "
         f"{busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.3f}")
     rows = sorted(rows, key=lambda r: r.self_device_time_total, reverse=True)[:top]
     for r in rows:
         log(f"  {r.self_device_time_total / 1e3:9.3f} ms  x{r.count:<5d} {r.key[:90]}")
+    return dict(wall_ms=wall_ms, device_ms=busy_ms)
 
 
 def step_times(card: Codec, clouds, streams) -> None:
@@ -856,11 +922,12 @@ def pppf_test_weights(state: dict, seed: int) -> dict:
     return out
 
 
-def pppf_phase(dev, smi: str, clouds, fps_record: dict):
+def pppf_phase(dev, smi: str, clouds, fps_record: dict, keep: dict):
     """Phases 9-11: the PPPF-AE path, its stage kernel and the FPS kernels
     vs their plain versions, and the card vs the CPU port. Returns the
     records of the stage kernel and of fps_int for the kernels line; the
-    float FPS shapes go into fps_record."""
+    float FPS shapes go into fps_record; the clouds, weights, streams and
+    walls go into `keep` (phase 29's float32 run)."""
     cfg = CodecConfig(model="PPPF-AE")
     B = PPPF_CLOUDS
     clouds = clouds[:B]
@@ -887,6 +954,7 @@ def pppf_phase(dev, smi: str, clouds, fps_record: dict):
     log(f"PPPF-AE path: {B} clouds x {cfg.N} points; encode {B / t_enc:.2f} clouds/s "
         f"({t_enc * 1e3:.1f} ms), decode {B / t_dec:.2f} clouds/s ({t_dec * 1e3:.1f} ms) "
         f"on {smi}")
+    keep.update(clouds=clouds, ae_state=ae_state, prob_state=prob_state)
     log(f"launches on the PPPF-AE path: {launches}")
     want = {name: 0 for name in cuda_lib.KERNELS}
     # FPS: the skeleton, sa2, sa3; fps_int: the integer CPM's three stages,
@@ -1534,6 +1602,7 @@ def decoder_kernel_check(ae, h2, lat, w3r, b3r, mlp_wb, packed, launches: int) -
     the weights the decode path prepared vs its plain version (TOL), two
     launches bitwise equal, its record for the kernels line."""
     k = ae.k
+    n_rows = distinct_rows("patch_decoder's h2", h2)
     a = patch_decoder(h2, lat, w3r, b3r, mlp_wb, k, packed=packed)
     b = patch_decoder_plain(h2, lat, w3r, b3r, mlp_wb, k)
     err = float((a - b).abs().max())
@@ -1557,6 +1626,7 @@ def decoder_kernel_check(ae, h2, lat, w3r, b3r, mlp_wb, packed, launches: int) -
     rec = dict(
         name="patch_decoder", route="cuda", source="pcc_tpu_torch/csrc/patch_decoder.cu",
         replaces="pcc_tpu/ops/decoder_pallas.py:30", launches=launches, max_abs_err=err,
+        distinct_rows=n_rows,
         ms=cuda_ms(lambda: patch_decoder(h2, lat, w3r, b3r, mlp_wb, k, packed=packed), 10),
         plain_ms=cuda_ms(lambda: patch_decoder_plain(h2, lat, w3r, b3r, mlp_wb, k), 5),
         bound_ms=bms, bound_by=by, bound_fp32_ms=bms32, gflop=flops / 1e9,
@@ -1574,7 +1644,8 @@ def decoder_kernel_check(ae, h2, lat, w3r, b3r, mlp_wb, packed, launches: int) -
         f"on the tensor cores, {bms32:.4f} ms in float32; {flops / 1e9:.1f} GFLOP, "
         f"{flops / rec['ms'] / 1e9:.2f} TFLOP/s); {rec['library_call']} "
         f"{rec['library_ms']:.4f} ms; weight preparation {rec['prep_ms']:.4f} ms; max_abs_err "
-        f"{err:.3g} of {float(b.abs().max()):.3g}; two launches bitwise equal")
+        f"{err:.3g} of {float(b.abs().max()):.3g} on seeded latents ({n_rows} distinct h2 rows "
+        f"of {P}); two launches bitwise equal")
     return rec
 
 
@@ -1815,7 +1886,9 @@ def pppe_phase(dev, smi: str):
         f"distances {dist_ms:.2f} ms and the stable sort the rest")
     stages = [pppe_stage_check(name, *call)
               for name, call in zip(("sa2", "sa3"), stage_calls)]
-    return dict(
+    new_xyz, xyz, feat, _, nsample = stage_calls[0]
+    per_slot = pppe_per_slot_check(new_xyz, xyz, feat, nsample)
+    return per_slot, dict(
         name="pppf_sa_stage (pppe layout)", route="cuda",
         source="pcc_tpu_torch/csrc/pppf_sa_stage.cu", replaces="pcc_tpu/ops/pppf_sa_pallas.py:45",
         launches=counted["raw"]["pppf_sa_stage"],
@@ -1827,6 +1900,60 @@ def pppe_phase(dev, smi: str):
         library_ms=None, path="PPPE serving", stages=stages,
         walls_ms=walls, encode_ms=enc_ms, decode_ms=dec_ms, encode_peak_gib=enc_peak,
         sa1_selection_ms=sort_ms), fps_recs, counted["raw"]["fps"]
+
+
+def pppe_per_slot_check(new_xyz, xyz, feat, nsample) -> dict:
+    """Phase 20's per-slot route: the "pppe" layout at a shape past the slot
+    kernel's tiles (a PER_SLOT_MIDDLE-wide middle layer, seeded layers) on
+    phase 19's recorded sa2 inputs, which the per-slot kernel runs (one
+    launch, no feature-block scratch): within TOL of the plain version's
+    largest entry, two launches bitwise equal, CUDA-event and device times,
+    the plain version's time and the float32 bound (the least work, the
+    first layer per point). No path of the port takes this route (PPPE's
+    widths fit the slot kernel): its record's launches are 0."""
+    P, S, _ = new_xyz.shape
+    N, dev = xyz.shape[1], xyz.device
+    widths = [3 + feat.shape[-1], 128, PER_SLOT_MIDDLE, 256]
+    if pppe_kernel(widths, N, S, nsample) != "per_slot":
+        raise RuntimeError(f"widths {widths} do not take the per-slot \"pppe\" route")
+    g = torch.Generator().manual_seed(SEED + 40)
+    layers = []
+    for a, b in zip(widths[:-1], widths[1:]):
+        sign = torch.where(torch.rand(b, generator=g) < 0.25, -1.0, 1.0)
+        layers.append(tuple(t.to(dev) for t in (
+            (torch.rand((a, b), generator=g) * 2 - 1) * a ** -0.5,
+            (torch.rand(b, generator=g) * 2 - 1) * a ** -0.5,
+            (torch.rand(b, generator=g) - 0.5) * 0.2, (torch.rand(b, generator=g) + 0.5) * sign,
+            (torch.rand(b, generator=g) - 0.3) * 0.5)))
+    kw = dict(nsample=nsample, radius=0.0, layout="pppe")
+    before = cuda_lib.launches["pppf_sa_stage"]
+    a = pppf_sa_fused(new_xyz, xyz, feat, layers, **kw)
+    if cuda_lib.launches["pppf_sa_stage"] != before + 1:
+        raise RuntimeError("the per-slot \"pppe\" route made more than one launch")
+    b = pppf_sa_plain(new_xyz, xyz, feat, layers, **kw)
+    err, big = float((a - b).abs().max()), float(b.abs().max())
+    if not err <= TOL * big:
+        raise RuntimeError(f"pppf_sa_stage (pppe, per slot) differs from the plain version: "
+                           f"{err} > {TOL} * {big}")
+    if not torch.equal(pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), a):
+        raise RuntimeError("two launches of pppf_sa_stage (pppe, per slot) differ")
+    flops = stage_flops(P, S, N, nsample, widths, layout="pppe")
+    bms, by = bound(flops, nbytes(new_xyz, xyz, feat, a, *[t for lay in layers for t in lay]))
+    rec = dict(
+        name="pppf_sa_stage (pppe layout, per-slot route)", route="cuda",
+        source="pcc_tpu_torch/csrc/pppf_sa_stage.cu", replaces="pcc_tpu/ops/pppf_sa_pallas.py:45",
+        launches=0, path="none: held on phase 19's sa2 inputs at widths past pppe_plan",
+        shape=[P, S, N, widths], nsample=nsample, max_abs_err=err, max_abs=big,
+        repeatable=True, ms=cuda_ms(lambda: pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), 5),
+        plain_ms=cuda_ms(lambda: pppf_sa_plain(new_xyz, xyz, feat, layers, **kw), 2),
+        bound_ms=bms, bound_by=by, library_ms=None, gflop=flops / 1e9)
+    rec["device_ms"] = graph_ms(lambda: pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), 5)
+    log(f"pppf_sa_stage (pppe, per-slot route) new_xyz {tuple(new_xyz.shape)} xyz "
+        f"{tuple(xyz.shape)} widths {widths} nsample {nsample}: {rec['ms']:.3f} ms, device "
+        f"{rec['device_ms']:.3f} ms (plain {rec['plain_ms']:.2f} ms, bound {bms:.4f} ms by {by} "
+        f"in float32, {flops / 1e9:.2f} GFLOP), max_abs_err {err:.3g} of {big:.3g}; two "
+        "launches bitwise equal")
+    return rec
 
 
 def pppe_stage_check(name: str, new_xyz, xyz, feat, layers, nsample) -> dict:
@@ -2548,6 +2675,442 @@ def parallel_phases(smi: str, train_ms: float, pppe_ms: float) -> dict:
     return summary
 
 
+# --------------------------------------------------- 27-29: bf16 serving --
+
+
+def bf16_bounds(fp32: float, products: float, io: float):
+    """(ms with the products on the bf16 tensor cores at BF16_FLOP_PER_S and
+    the rest on the CUDA cores, its 'operations' or 'bytes', ms with all of
+    it in float32 on the CUDA cores)."""
+    t_ops = fp32 / FP32_FLOP_PER_S + products / BF16_FLOP_PER_S
+    t_bytes = io / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            bound(fp32 + products, io)[0])
+
+
+def bf16_hold(label: str, kern, plain) -> dict:
+    """A bf16 kernel against its plain version on the same inputs: every
+    output entry bf16-exact, at least BF16_SHARE of them bit-equal, every
+    one within BF16_TOL of the largest |entry|, two launches bitwise equal;
+    raises otherwise. Returns the output and the figures."""
+    a, b = kern(), plain()
+    if not torch.equal(a.to(torch.bfloat16).float(), a):
+        raise RuntimeError(f"{label}: output entries that are not bf16 values")
+    share = float((a == b).double().mean())
+    err, big = float((a - b).abs().max()), float(b.abs().max())
+    if not (share >= BF16_SHARE and err <= BF16_TOL * big):
+        raise RuntimeError(f"{label} vs its plain version: {share:.4f} of the entries "
+                           f"bit-equal (at least {BF16_SHARE}), max |diff| {err} "
+                           f"(at most {BF16_TOL} * {big})")
+    if not torch.equal(kern(), a):
+        raise RuntimeError(f"two launches of {label} differ")
+    return a, dict(max_abs_err=err, max_abs=big, bit_equal_share=share, repeatable=True)
+
+
+def bf16_timing(held: dict, kern, plain, fp32: float, products: float, io: float,
+                **extra) -> dict:
+    """A bf16 instance's figures beside bf16_hold's: CUDA-event and device
+    (CUDA-graph) times, the plain version's time and both bounds."""
+    bms, by, bms32 = bf16_bounds(fp32, products, io)
+    return dict(ms=cuda_ms(kern, 10), device_ms=graph_ms(kern, 10), plain_ms=cuda_ms(plain, 2),
+                bound_ms=bms, bound_by=by, bound_fp32_ms=bms32, gflop=(fp32 + products) / 1e9,
+                **held, **extra)
+
+
+def bf16_log(label: str, rec: dict) -> None:
+    log(f"{label}: {rec['ms']:.4f} ms, device {rec['device_ms']:.4f} ms (plain "
+        f"{rec['plain_ms']:.3f} ms; bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} with "
+        f"the products on the bf16 tensor cores, {rec['bound_fp32_ms']:.4f} ms in float32; "
+        f"{rec['gflop']:.1f} GFLOP, {rec['gflop'] / rec['device_ms']:.2f} TFLOP/s); "
+        f"{rec['bit_equal_share']:.5f} of the entries bit-equal to the plain version, max "
+        f"|diff| {rec['max_abs_err']:.3g} of {rec['max_abs']:.3g}; two launches bitwise equal")
+
+
+def seeded_latents(P: int, cfg: CodecConfig, seed: int, dev) -> torch.Tensor:
+    """[P, d] quantized latents drawn from a seed over every bin, -(L // 2)
+    to L // 2: the decoder's inputs where the path's symbols do not vary."""
+    g = torch.Generator().manual_seed(seed)
+    half = cfg.L // 2
+    return torch.randint(-half, half + 1, (P, cfg.d), generator=g).to(torch.float32).to(dev)
+
+
+def distinct_rows(label: str, t: torch.Tensor) -> int:
+    """How many distinct rows t [P, ...] has; raises unless more than half
+    of them are: a kernel held on rows that are all alike would pass while
+    ignoring its input or reading the wrong row."""
+    n = int(torch.unique(t.reshape(t.shape[0], -1), dim=0).shape[0])
+    if 2 * n <= t.shape[0]:
+        raise RuntimeError(f"{label}: only {n} distinct rows of {t.shape[0]}")
+    return n
+
+
+def spread_symbols(cfg: CodecConfig, ae_state: dict, clouds, dev) -> dict:
+    """A copy of ae_state whose last encoder layer (IPDAE: the PointNet's
+    last conv, before the max over points; PPPF-AE: enc_proj) is scaled and
+    shifted per channel so that the float32 latent over these clouds'
+    patches has mean 0 and standard deviation SPREAD_STD: symbols over
+    every bin (the max over points commutes with the positive scale and the
+    shift). PPPF-AE's encoder BatchNorm scales are first multiplied by
+    PPPF_BN_GAIN, so that its feature varies between patches by more than
+    a bf16 step."""
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    ae_state = dict(ae_state)
+    if cfg.model == "PPPF-AE":
+        for key, t in ae_state.items():
+            if key.startswith("encoder.") and key.endswith(".weight") and t.dim() == 1:
+                ae_state[key] = t * PPPF_BN_GAIN
+    ae, _ = make_models(cfg32)
+    ae.load_state_dict(ae_state)
+    ae.to(dev).eval()
+    with torch.inference_mode():
+        packed = pack_encode_upload(np.stack(clouds), np.zeros(len(clouds), np.int32))
+        pcs, st = unpack_encode_upload(torch.from_numpy(packed.view(np.int32)).to(dev), cfg.N)
+        patches = encode_geometry(pcs, st, cfg32).patches
+        if cfg.model == "AE":
+            key = "pn.mlp_Modules.3.0"
+            z = patch_encoder(patches, ae.sa.layers(), ae.pn.layers(), cfg.sa_knn)
+        else:
+            key = "enc_proj"
+            z = ae.encode(patches)
+    mean, std = z.mean(dim=0).cpu(), z.std(dim=0).cpu()
+    scale = SPREAD_STD / std
+    log(f"spread_symbols {cfg.model}: the float32 latent over {z.shape[0]} patches varies "
+        f"between them by {float(std.median()):.3g} (median over channels), its channel "
+        f"means by {float(mean.std()):.3g}; {key} scaled by {float(scale.median()):.4g} "
+        "(median) and shifted")
+    out = dict(ae_state)
+    w = ae_state[key + ".weight"]
+    out[key + ".weight"] = w * scale.view(-1, *[1] * (w.dim() - 1))
+    out[key + ".bias"] = (ae_state[key + ".bias"] - mean) * scale
+    return out
+
+
+def symbol_spread(label: str, sym: np.ndarray, L: int) -> list:
+    """The symbols' histogram over the L bins; raises unless at least
+    L - 2 bins are used and the middle one holds at most half of them."""
+    hist = np.bincount(sym.ravel().astype(np.int64), minlength=L)
+    if (hist > 0).sum() < L - 2 or 2 * hist[L // 2] > hist.sum():
+        raise RuntimeError(f"{label}: symbols do not spread over the bins: {hist.tolist()}")
+    return hist.tolist()
+
+
+def counted_path(card: Codec, clouds):
+    """One uncounted, then one counted compress_many -> decompress_many,
+    every launch counter set to 0 just before and read just after: (streams,
+    decoded, encode ms, decode ms, launches)."""
+    card.decompress_many(card.compress_many(clouds))          # warm-up, uncounted
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    streams = card.compress_many(clouds)
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = card.decompress_many(streams)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    return streams, decoded, t_enc * 1e3, t_dec * 1e3, dict(cuda_lib.launches)
+
+
+def path_profiles(run: dict, card: Codec, clouds, streams, label: str) -> None:
+    with torch.inference_mode():
+        run["encode_profile"] = profile(f"{label} encode", lambda: card.compress_many(clouds))
+        run["decode_profile"] = profile(f"{label} decode", lambda: card.decompress_many(streams))
+
+
+def float32_reference(cfg: CodecConfig, ae_state, prob_state, clouds, label: str) -> dict:
+    """The float32 path on the bf16 phase's weights and clouds, as the bf16
+    run is timed: streams, symbols (spread over the bins, symbol_spread),
+    walls and profiles."""
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    card = Codec(cfg32, ae_state, prob_state, batch_size=len(clouds), device="cuda")
+    streams, _, enc_ms, dec_ms, _ = counted_path(card, clouds)
+    with torch.inference_mode():
+        sym = card.encode_batch(np.stack(clouds), np.zeros(len(clouds), np.int32)).sym
+    ref = dict(streams=streams, sym=sym.cpu().numpy(), encode_ms=enc_ms, decode_ms=dec_ms)
+    ref["histogram"] = symbol_spread(f"{label} float32", ref["sym"], cfg.L)
+    path_profiles(ref, card, clouds, streams, f"{label} float32")
+    return ref
+
+
+def bf16_path(card: Codec, clouds, label: str, want: dict, ref: dict):
+    """One counted compress_many -> decompress_many of a bf16 codec after
+    an uncounted one (counted_path): the launches must be `want` (every
+    other counter 0), the skeleton and header streams the float32 run's
+    bytes (`ref`, float32_reference, the same weights), the decoded symbols
+    the encoded ones, spread over the bins. Returns (streams, decoded, walls,
+    profiles and how far the symbols and .p.bin differ from the float32
+    run's, the encoded symbols)."""
+    streams, decoded, enc_ms, dec_ms, launches = counted_path(card, clouds)
+    full = {name: 0 for name in cuda_lib.KERNELS}
+    full.update(want)
+    if launches != full:
+        raise RuntimeError(f"{label} launches {launches} != {full}")
+    for (p, s, c), (p32, s32, c32) in zip(streams, ref["streams"]):
+        if s != s32 or c != c32:
+            raise RuntimeError(f"{label}: .s.bin / .c.bin differ from the float32 run's")
+    n_p = sum(p != p32 for (p, _, _), (p32, _, _) in zip(streams, ref["streams"]))
+    with torch.inference_mode():
+        sym = card.encode_batch(np.stack(clouds), np.zeros(len(clouds), np.int32)).sym
+        sym = sym.cpu().numpy()
+        if not np.array_equal(card.decode_symbols(skeletons(streams),
+                                                  [p for p, _, _ in streams]), sym):
+            raise RuntimeError(f"{label}: decoded symbols differ from the encoded symbols")
+    run = dict(encode_ms=enc_ms, decode_ms=dec_ms, launches=want, p_bin_differ_from_f32=int(n_p),
+               histogram=symbol_spread(label, sym, card.cfg.L),
+               histogram_f32=ref["histogram"],
+               symbols_differ_from_f32=float((sym != ref["sym"]).mean()))
+    path_profiles(run, card, clouds, streams, label)
+    log(f"{label}: {len(clouds)} clouds; encode {enc_ms:.1f} ms, decode {dec_ms:.1f} ms; "
+        f"launches {want}, every other kernel 0; .s.bin and .c.bin the float32 run's bytes; "
+        f"symbols over the bins {run['histogram']} (float32 {ref['histogram']}), "
+        f"{run['symbols_differ_from_f32']:.4f} of them and {n_p} of {len(clouds)} .p.bin "
+        "differ from the float32 run's; decoded symbols equal the encoded ones")
+    log(f"{label} beside the float32 path on the same clouds and weights: encode "
+        f"{enc_ms:.1f} vs {ref['encode_ms']:.1f} ms, decode {dec_ms:.1f} vs "
+        f"{ref['decode_ms']:.1f} ms; device time (profiler) encode "
+        f"{run['encode_profile']['device_ms']} vs {ref['encode_profile']['device_ms']} ms, "
+        f"decode {run['decode_profile']['device_ms']} vs {ref['decode_profile']['device_ms']} ms")
+    return streams, decoded, run, sym
+
+
+def bf16_cpu_check(label: str, cfg: CodecConfig, ae_state, prob_state, clouds, streams,
+                   sym) -> int:
+    """The card's bf16 .p.bin of the first cloud(s) decoded on the CPU port
+    to the card's symbols; returns how many symbols the CPU port's own bf16
+    encode of them gives otherwise (reported, not held: float32 sums in
+    another order move a bf16 rounding now and then)."""
+    n = 2 if cfg.model == "AE" else 1
+    cpu = Codec(cfg, ae_state, prob_state, batch_size=n, device="cpu")
+    recs = skeletons(streams[:n])
+    if not np.array_equal(cpu.decode_symbols(recs, [p for p, _, _ in streams[:n]]), sym[:n]):
+        raise RuntimeError(f"{label}: the CPU port decodes the card's .p.bin to other symbols")
+    cpu_sym = cpu.encode_batch(np.stack(clouds[:n]), np.zeros(n, np.int32)).sym.numpy()
+    flips = int((cpu_sym != sym[:n]).sum())
+    log(f"{label}: the card's .p.bin decodes on the CPU port to the card's symbols; the CPU "
+        f"port's own bf16 encode gives {flips} of {cpu_sym.size} symbols otherwise")
+    return flips
+
+
+def bf16_ipdae_phase(dev, smi: str, clouds, ae_state, prob_state) -> tuple:
+    """Phases 27-28: the IPDAE path in bf16 (CodecConfig(compute_dtype=
+    "bfloat16"), 64 clouds, phase 3's weights with the last encoder layer
+    calibrated by spread_symbols) with its launches (fps 1,
+    patch_encoder_bf16 1, patch_decoder_bf16 1 per batch, the float32
+    instances 0), streams and symbols against the float32 path on the same
+    weights (bf16_path), the CPU port's decode; then the bf16 encoder and
+    decoder against their plain versions on the path's own inputs
+    (bf16_hold, on distinct rows), the encoder also against the replay of
+    its arithmetic on REPLAY_PATCHES patches. Returns the two kernels-line
+    records, the path's figures, the weights and the streams."""
+    cfg = CodecConfig(compute_dtype="bfloat16")
+    ae_state = spread_symbols(cfg, ae_state, clouds, dev)
+    ref = float32_reference(cfg, ae_state, prob_state, clouds, "phase 27")
+    card = Codec(cfg, ae_state, prob_state, batch_size=N_CLOUDS, device="cuda")
+    streams, decoded, run, sym = bf16_path(
+        card, clouds, "phase 27, IPDAE bf16 path",
+        dict(fps=1, patch_encoder_bf16=1, patch_decoder_bf16=1), ref)
+    for pc in decoded:
+        if pc.shape != (cfg.S * cfg.k, 3) or not np.isfinite(pc).all():
+            raise RuntimeError(f"bad decoded bf16 cloud: shape {pc.shape}")
+    run["cpu_symbol_flips"] = bf16_cpu_check("phase 27", cfg, ae_state, prob_state, clouds,
+                                             streams, sym)
+    with torch.inference_mode():
+        # 28. the bf16 encoder and decoder on the path's own inputs
+        starts = np.zeros(len(clouds), np.int32)
+        packed = pack_encode_upload(np.stack(clouds), starts)
+        pcs, st = unpack_encode_upload(torch.from_numpy(packed.view(np.int32)).to(dev), cfg.N)
+        patches = encode_geometry(pcs, st, cfg).patches
+        ae = card.ae
+        (sa_wb, pn_wb), knn = ae.encoder_weights(), cfg.sa_knn
+
+        def kern_e():
+            return patch_encoder(patches, sa_wb, pn_wb, knn, bf16=True)
+
+        def plain_e():
+            return patch_encoder_plain(patches, sa_wb, pn_wb, knn, bf16=True)
+
+        a, held = bf16_hold("patch_encoder_bf16", kern_e, plain_e)
+        held["distinct_rows"] = distinct_rows("patch_encoder_bf16's latents", a)
+        p = patches[:REPLAY_PATCHES]
+        rows = torch.arange(p.shape[1], device=dev).expand(p.shape[:2]).contiguous()
+        z4 = _kernel_choices(p, select_nearest(sq_dists(p, p), knn), rows, sa_wb, pn_wb,
+                             bf16=True)[-1].amax(dim=1)
+        held["replay_differ"] = int((z4 != a[:REPLAY_PATCHES]).sum())
+        P = patches.shape[0]
+        flops, sa_mac, pn_mac = encoder_flops(P, cfg.K, knn, cfg.d)
+        products = P * 2.0 * cfg.K * (sa_mac + pn_mac)
+        io = nbytes(patches, a, *[t for wb in sa_wb + pn_wb for t in wb])
+        enc_rec = dict(
+            name="patch_encoder_bf16", route="cuda", source="pcc_tpu_torch/csrc/patch_encoder.cu",
+            replaces="pcc_tpu/ops/sa_pallas.py:142", launches=run["launches"]["patch_encoder_bf16"],
+            library_ms=None, **bf16_timing(held, kern_e, plain_e, flops - products, products, io,
+                                           shape=list(patches.shape)))
+        bf16_log(f"patch_encoder_bf16 {tuple(patches.shape)}", enc_rec)
+        log(f"patch_encoder_bf16 vs the replay of its arithmetic on {tuple(p.shape)}: "
+            f"{held['replay_differ']} entries differ; {held['distinct_rows']} distinct latent "
+            f"rows of {P}")
+
+        latent_q = (torch.from_numpy(sym).to(dev, torch.float32) - cfg.L // 2).reshape(
+            -1, cfg.d).contiguous()
+        h2, w3r, b3r, mlp_wb, dpacked = ae.decoder_inputs(latent_q)
+        n_rows = distinct_rows("patch_decoder_bf16's h2", h2)
+        k = ae.k
+
+        def kern_d():
+            return patch_decoder(h2, latent_q, w3r, b3r, mlp_wb, k, packed=dpacked, bf16=True)
+
+        def plain_d():
+            return patch_decoder_plain(h2, latent_q, w3r, b3r, mlp_wb, k, bf16=True)
+
+        a, held = bf16_hold("patch_decoder_bf16", kern_d, plain_d)
+        held["distinct_rows"] = n_rows
+        (P, C), d = h2.shape, latent_q.shape[1]
+        products = 2.0 * P * k * (C * 128 + (128 + d) * 128 + 128 * 64 + 64 * 32 + 32 * 3)
+        io = nbytes(h2, latent_q, a, w3r, b3r, *[t for wb in mlp_wb for t in wb])
+        h2b, w3b = h2.to(torch.bfloat16), w3r.to(torch.bfloat16)
+        dec_rec = dict(
+            name="patch_decoder_bf16", route="cuda", source="pcc_tpu_torch/csrc/patch_decoder.cu",
+            replaces="pcc_tpu/ops/decoder_pallas.py:30",
+            launches=run["launches"]["patch_decoder_bf16"],
+            # no PyTorch call computes the decoder; the yardstick is its
+            # expansion product alone (82% of the operations) in bf16, as
+            # the float32 decoder's record takes it in float32
+            library_ms=cuda_ms(lambda: torch.matmul(h2b, w3b), 10),
+            library_call="torch.matmul(h2, w3r) in bf16: the expansion product alone",
+            **bf16_timing(held, kern_d, plain_d, 0.0, products, io, shape=[P, C, d, k]))
+        bf16_log(f"patch_decoder_bf16 h2 {tuple(h2.shape)} k {k} d {d}", dec_rec)
+        log(f"patch_decoder_bf16: {n_rows} distinct h2 rows of {P}; {dec_rec['library_call']} "
+            f"{dec_rec['library_ms']:.4f} ms")
+    return enc_rec, dec_rec, run, ae_state, streams
+
+
+def bf16_pppf_phase(dev, smi: str, pppf32: dict) -> tuple:
+    """Phase 29: the PPPF-AE path in bf16 on phase 9's clouds and weights,
+    enc_proj calibrated by spread_symbols: launches (pppf_sa_stage_bf16 3,
+    fps 3, fps_int 6, the float32 stage 0), streams and symbols against the
+    float32 path on the same weights (bf16_path), the CPU port's decode;
+    the bf16 stage against its plain version at the path's three stage
+    shapes (bf16_hold). Returns the stage's kernels-line record, the path's
+    figures and the weights."""
+    cfg = CodecConfig(model="PPPF-AE", compute_dtype="bfloat16")
+    clouds, prob_state = pppf32["clouds"], pppf32["prob_state"]
+    ae_state = spread_symbols(cfg, pppf32["ae_state"], clouds, dev)
+    ref = float32_reference(cfg, ae_state, prob_state, clouds, "phase 29")
+    card = Codec(cfg, ae_state, prob_state, batch_size=len(clouds), device="cuda")
+    streams, decoded, run, sym = bf16_path(
+        card, clouds, "phase 29, PPPF-AE bf16 path",
+        dict(pppf_sa_stage_bf16=3, fps=3, fps_int=6), ref)
+    for pc in decoded:
+        if pc.shape != (cfg.S * cfg.d * cfg.d, 3) or not np.isfinite(pc).all():
+            raise RuntimeError(f"bad decoded bf16 PPPF-AE cloud: shape {pc.shape}")
+    run["cpu_symbol_flips"] = bf16_cpu_check("phase 29", cfg, ae_state, prob_state, clouds,
+                                             streams, sym)
+    stages = []
+    with torch.inference_mode():
+        starts = np.zeros(len(clouds), np.int32)
+        packed = pack_encode_upload(np.stack(clouds), starts)
+        pcs, st = unpack_encode_upload(torch.from_numpy(packed.view(np.int32)).to(dev), cfg.N)
+        xyz, feat = encode_geometry(pcs, st, cfg).patches, None
+        for name in ("sa1", "sa2", "sa3"):
+            sa = getattr(card.ae.encoder, name)
+            new_xyz = sa.queries(xyz).contiguous()
+            layers = sa.bf16_layers()
+            kw = dict(nsample=sa.nsample, radius=sa.radius, bf16=True)
+
+            def kern(new_xyz=new_xyz, xyz=xyz, feat=feat, layers=layers, kw=kw):
+                return pppf_sa_fused(new_xyz, xyz, feat, layers, **kw)
+
+            def plain(new_xyz=new_xyz, xyz=xyz, feat=feat, layers=layers, kw=kw):
+                return pppf_sa_plain(new_xyz, xyz, feat, layers, **kw)
+
+            a, held = bf16_hold(f"pppf_sa_stage_bf16 {name}", kern, plain)
+            P, S, _ = new_xyz.shape
+            N = xyz.shape[1]
+            widths = [layers[0][0].shape[0]] + [lay[0].shape[1] for lay in layers]
+            flops = stage_flops(P, S, N, sa.nsample, widths)
+            products = P * N * 2.0 * sum(a_ * b_ for a_, b_ in zip(widths[:-1], widths[1:]))
+            ins = [new_xyz] + ([xyz] if new_xyz is not xyz else []) \
+                + ([] if feat is None else [feat]) + [t for lay in layers for t in lay]
+            rec = bf16_timing(held, kern, plain, flops - products, products, nbytes(*ins, a),
+                              shape=[P, S, N, widths], nsample=sa.nsample)
+            bf16_log(f"pppf_sa_stage_bf16 {name} new_xyz {tuple(new_xyz.shape)} xyz "
+                     f"{tuple(xyz.shape)} widths {widths} nsample {sa.nsample}", rec)
+            stages.append(dict(stage=name, **rec))
+            feat, xyz = a, new_xyz
+    stage_rec = dict(
+        name="pppf_sa_stage_bf16", route="cuda", source="pcc_tpu_torch/csrc/pppf_sa_stage.cu",
+        replaces="pcc_tpu/ops/pppf_sa_pallas.py:45", launches=run["launches"]["pppf_sa_stage_bf16"],
+        max_abs_err=max(r["max_abs_err"] for r in stages),
+        bit_equal_share=min(r["bit_equal_share"] for r in stages),
+        ms=sum(r["ms"] for r in stages), plain_ms=sum(r["plain_ms"] for r in stages),
+        bound_ms=sum(r["bound_ms"] for r in stages), bound_by=stages[-1]["bound_by"],
+        bound_fp32_ms=sum(r["bound_fp32_ms"] for r in stages),
+        device_ms=sum(r["device_ms"] for r in stages), library_ms=None, stages=stages)
+    return stage_rec, run, dict(ae_state=ae_state, prob_state=prob_state)
+
+
+def bf16_cli_phase(clouds, states: dict, streams27) -> dict:
+    """Phase 29's CLIs: compress --bf16 -> decompress --bf16 on
+    BF16_CLI_CLOUDS PLY files of phase 3's clouds for each family, on
+    phases 27 and 29's weights (`states`: model -> (ae_state, prob_state)),
+    written as pcc_tpu's ae.pkl / prob.pkl into each family's model folder:
+    launches per run, decoded clouds finite, and the IPDAE .p.bin, .s.bin
+    and .c.bin the bytes phase 27 wrote for the same clouds (each cloud's
+    symbols do not depend on its batch). Files under _chip/, removed
+    after."""
+    import pickle
+    import shutil
+    import tempfile
+
+    from pcc_tpu_torch.cli import compress, decompress
+    from pcc_tpu_torch.io import read_point_cloud, save_point_cloud
+    from pcc_tpu_torch.weights import to_jax_params
+
+    n = BF16_CLI_CLOUDS
+    os.makedirs(os.path.join(ROOT, "_chip"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="bf16_", dir=os.path.join(ROOT, "_chip"))
+    out = {}
+    try:
+        for i, pc in enumerate(clouds[:n]):
+            save_point_cloud(pc, f"c{i}.ply", path=os.path.join(work, "in"))
+        want = {"AE": (dict(fps=1, patch_encoder_bf16=1), dict(patch_decoder_bf16=1)),
+                "PPPF-AE": (dict(fps=3, fps_int=3, pppf_sa_stage_bf16=3), dict(fps_int=3))}
+        for model, (w_comp, w_dec) in want.items():
+            comp, dec = os.path.join(work, model + "_c"), os.path.join(work, model + "_d")
+            folder = os.path.join(work, model + "_m")
+            os.makedirs(folder)
+            for fname, tree in zip(("ae.pkl", "prob.pkl"), to_jax_params(*states[model])):
+                with open(os.path.join(folder, fname), "wb") as f:
+                    pickle.dump(tree, f)
+            flags = ["--model", model, "--bf16"]
+            wall_c, l_c = run_cli(f"phase 29 compress --bf16 --model {model}", compress.main,
+                                  [os.path.join(work, "in", "*.ply"), comp, folder, *flags])
+            wall_d, l_d = run_cli(f"phase 29 decompress --bf16 --model {model}",
+                                  decompress.main, [comp, dec, folder, *flags])
+            for got, w, what in ((l_c, w_comp, "compress"), (l_d, w_dec, "decompress")):
+                full = {name: 0 for name in cuda_lib.KERNELS}
+                full.update(w)
+                if got != full:
+                    raise RuntimeError(f"{model} {what} --bf16 launches {got} != {full}")
+            outs = sorted(os.listdir(dec))
+            if len(outs) != n or not all(np.isfinite(read_point_cloud(os.path.join(dec, f))).all()
+                                         for f in outs):
+                raise RuntimeError(f"{model} decompress --bf16 wrote {outs}")
+            if model == "AE":
+                for i in range(n):
+                    for ext, blob in zip((".p.bin", ".s.bin", ".c.bin"), streams27[i]):
+                        with open(os.path.join(comp, f"c{i}.ply{ext}"), "rb") as f:
+                            if f.read() != blob:
+                                raise RuntimeError(f"compress --bf16: c{i}.ply{ext} differs "
+                                                   "from phase 27's stream")
+            out[model] = dict(compress_ms=wall_c, decompress_ms=wall_d)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 29 CLIs: {n} clouds per family, compress --bf16 -> decompress --bf16, "
+        "launches as the paths', decoded clouds finite, the IPDAE streams phase 27's bytes; "
+        + json.dumps(out))
+    return out
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -2625,7 +3188,10 @@ def main() -> int:
         sa_patches = geo.patches            # phase 17's inputs
         ae = card.ae
         sa_wb, pn_wb = ae.sa.layers(), ae.pn.layers()
-        latent_q = (enc.sym.to(torch.float32) - cfg.L // 2).reshape(-1, cfg.d).contiguous()
+        # the decoder is held on seeded latents over every bin at the decode
+        # batch's shape: at these random weights every symbol of the path
+        # sits at the middle bin, and the path's h2 rows are all alike
+        latent_q = seeded_latents(sym.size // cfg.d, cfg, SEED + 50, dev)
         h2, w3r, b3r, mlp_wb, packed = ae.decoder_inputs(latent_q)
         S, P = cfg.S, latent_q.shape[0]
         kernels = []
@@ -2719,7 +3285,8 @@ def main() -> int:
     train_card_vs_cpu(dev)
 
     # 9-11. the PPPF-AE path
-    stage_rec, fps_int_rec = pppf_phase(dev, smi, clouds, kernels[0])
+    pppf32 = {}
+    stage_rec, fps_int_rec = pppf_phase(dev, smi, clouds, kernels[0], pppf32)
     kernels += [stage_rec, fps_int_rec]
     kr = fps_int_rec
     log(f"{kr['name']}: {kr['ms']:.4f} ms for the integer CPM's three stages (plain "
@@ -2761,8 +3328,8 @@ def main() -> int:
     del decoded
 
     # 19-20. the PPPE serving path; the stage kernel's "pppe" layout and FPS there
-    pppe_rec, fps_recs, kernels[0]["launches_pppe"] = pppe_phase(dev, smi)
-    kernels.append(pppe_rec)
+    per_slot_rec, pppe_rec, fps_recs, kernels[0]["launches_pppe"] = pppe_phase(dev, smi)
+    kernels += [pppe_rec, per_slot_rec]
     kernels[0]["shapes"] += fps_recs
     kr = pppe_rec
     log(f"{kr['name']}: {kr['ms']:.4f} ms for sa2 and sa3 (plain {kr['plain_ms']:.4f} ms, "
@@ -2795,6 +3362,18 @@ def main() -> int:
 
     # 25-26. the launcher on the one card: one rank on NCCL, two over gloo
     log("phases 25-26: " + json.dumps(parallel_phases(smi, train_ms, pppe_train["step_ms"])))
+
+    # 27-29. bf16 serving: both families' paths with their launches, the bf16
+    # kernels against their plain versions on the paths' inputs, the CLIs
+    enc16, dec16, run27, ae27, streams27 = bf16_ipdae_phase(dev, smi, clouds, ae_state,
+                                                            prob_state)
+    stage16, run29, states29 = bf16_pppf_phase(dev, smi, pppf32)
+    kernels += [enc16, dec16, stage16]
+    cli29 = bf16_cli_phase(clouds, {"AE": (ae27, prob_state),
+                                    "PPPF-AE": (states29["ae_state"], states29["prob_state"])},
+                           streams27)
+    log("phases 27-29: " + json.dumps({"IPDAE bf16": run27, "PPPF-AE bf16": run29,
+                                       "CLIs": cli29}))
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -163,7 +163,9 @@ class AttrCodec(Codec):
     device batch. `params` holds the port's state_dicts under "ae",
     "prob", "attr" and "attr_prob". Integer CDF mode only. Codec batches
     the clouds and writes and parses the .p/.s/.c streams; this class adds
-    the colours and the .a stream."""
+    the colours and the .a stream. The geometry computes in
+    cfg.compute_dtype (make_models); the colour nets stay float32, as
+    pcc_tpu's attrib.py gives them no dtype."""
 
     def __init__(self, cfg: CodecConfig, params: dict, batch_size: int = 16, d_a: int = 16,
                  device: str | torch.device = "cuda", cdf_mode: str = "integer"):

@@ -38,7 +38,8 @@ def add_codec_flags(p) -> None:
 
 def config_from_args(args) -> CodecConfig:
     return CodecConfig(N0=args.N0, ALPHA=args.ALPHA, K=args.K, d=args.d, L=args.L,
-                       model=args.model)
+                       model=args.model,
+                       compute_dtype="bfloat16" if args.bf16 else "float32")
 
 
 def batch_size_from_args(args) -> int:

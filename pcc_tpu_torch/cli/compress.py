@@ -8,10 +8,15 @@ clouds without RGB are skipped. --devices N > 1 compresses on N processes,
 one per device, each coding its shard of every batch (codec.py), and rank 0
 writes the streams: the same bytes as one device. --batch_size is rounded
 down to a multiple of N, as pcc_tpu rounds it. --attributes ignores
---devices, as pcc_tpu's does.
+--devices, as pcc_tpu's does. --bf16 computes the networks in bf16 mixed
+precision (pcc_tpu's flag; the bf16 kernel instances on the card): the
+skeleton and .s.bin / .c.bin are the float32 run's bytes, the latents and
+.p.bin are bf16's; decompress with --bf16 too. With --attributes the
+geometry computes in bf16 and the colour nets in float32.
 
   python -m pcc_tpu_torch.cli.compress 'in/*.ply' comp/ model/ [--model PPPF-AE] [--device cpu]
   python -m pcc_tpu_torch.cli.compress 'in/*.ply' comp/ model/ --attributes [--d_a 16]
+  python -m pcc_tpu_torch.cli.compress 'in/*.ply' comp/ model/ --bf16 [--model PPPF-AE]
 """
 
 from __future__ import annotations
@@ -42,6 +47,10 @@ def build_parser():
     p.add_argument("--attributes", action="store_true",
                    help="Also compress RGB attributes into a {name}.a.bin stream "
                         "(extension; the reference codes geometry only).")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 mixed-precision network compute. Streams remain "
+                        "decodable (decompress with --bf16 too: both sides "
+                        "derive the CDF from the same compiled program).")
     return p
 
 

@@ -3,10 +3,12 @@ PyTorch port). Output files are named {name}.bin.ply, as pcc_tpu's.
 --attributes also decodes {name}.a.bin into the PLY's RGB (pcc_tpu's
 extension); a cloud without its .a.bin is skipped. --devices N > 1
 decompresses on N processes, one per device, as compress does; rank 0
-writes the clouds.
+writes the clouds. --bf16 decodes in bf16 mixed precision, as the streams
+were compressed.
 
   python -m pcc_tpu_torch.cli.decompress comp/ decomp/ model/ [--model PPPF-AE] [--device cpu]
   python -m pcc_tpu_torch.cli.decompress comp/ decomp/ model/ --attributes [--d_a 16]
+  python -m pcc_tpu_torch.cli.decompress comp/ decomp/ model/ --bf16 [--model PPPF-AE]
 """
 
 from __future__ import annotations
@@ -37,6 +39,9 @@ def build_parser():
     p.add_argument("--attributes", action="store_true",
                    help="Decode {name}.a.bin RGB streams into colored .ply outputs "
                         "(extension; the reference codes geometry only).")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 mixed-precision network compute (must match the "
+                        "compress-side setting so the CDF program is identical).")
     return p
 
 

@@ -17,9 +17,10 @@ cli/train_pppe_pcd_ae.py, the attribute codec's cli/train_attributes.py.
 --model PPPF-AE trains the first --bn_warmup_steps steps with the
 encoder's BatchNorm on batch statistics (plain products), then the fused
 step with them frozen (train/steps_pppf.py), as pcc_tpu's --fused_encoder
-auto does on one accelerator. Not ported yet, and refused with a message:
---bf16; --fused_encoder and --jax_debug_nans are not flags of this parser,
-which rejects them.
+auto does on one accelerator. Refused with a message: --bf16 (bf16
+serving is ported, in compress and decompress; bf16 training is not);
+--fused_encoder and --jax_debug_nans are not flags of this parser, which
+rejects them.
 
 --devices N > 1 trains data-parallel on N processes, one per device
 (cli/_common.py::maybe_launch, parallel/mesh.py): every rank draws the same
@@ -83,7 +84,8 @@ def build_parser():
     p.add_argument("--rate_mode", default="reference", choices=["reference", "fixed"],
                    help="Rate-term normalization (see train/steps.py).")
     p.add_argument("--bf16", action="store_true",
-                   help="bf16 mixed-precision compute (not ported yet).")
+                   help="bf16 mixed-precision compute (training in bf16 is not ported; "
+                        "compress and decompress take --bf16).")
     p.add_argument("--bn_warmup_steps", type=int, default=1000,
                    help="PPPF-AE only: steps trained with the encoder's BatchNorm on "
                         "batch statistics (running statistics updating) before the "
@@ -104,7 +106,8 @@ def main(argv=None):
     if args.model not in ("AE", "PPPF-AE"):
         raise SystemExit(f"Unknown model type: {args.model}")
     if args.bf16:
-        raise SystemExit("--bf16: not ported yet (pcc_tpu_torch trains in float32)")
+        raise SystemExit("--bf16: bf16 training is not ported (bf16 serving is: compress and "
+                         "decompress --bf16); training in bf16 is the next slice")
     if maybe_launch(args, main, argv, batch_size=args.batch_size):
         return
     cfg = CodecConfig(N=args.N, N0=args.N0, ALPHA=args.ALPHA, K=args.K, d=args.d, L=args.L,

@@ -14,7 +14,8 @@ sees raw clouds, while the PPPE compress CLI normalizes each cloud, so
 training data should already lie in about [0, 1]. On the card the step
 runs the FPS kernel 3 times and the chamfer kernels once each.
 --lr_decay and --lr_decay_steps are parsed and unused, as in pcc_tpu.
-Refused with a message: --bf16. --devices N > 1 trains data-parallel on N
+Refused with a message: --bf16 (bf16 serving is ported, in compress and
+decompress; bf16 training is not). --devices N > 1 trains data-parallel on N
 processes, one per device, as cli/train.py does (the step is the
 single-device step of the global batch, train/steps_pppe.py); rank 0 prints
 and writes dataset_norm.pkl and the checkpoints.
@@ -64,7 +65,8 @@ def build_parser():
                    help="Number of steps to gradually ramp up lambda in RD loss")
     p.add_argument("--reset", action="store_true")
     p.add_argument("--bf16", action="store_true",
-                   help="bf16 mixed-precision compute (not ported yet).")
+                   help="bf16 mixed-precision compute (training in bf16 is not ported; "
+                        "compress and decompress take --bf16).")
     p.add_argument("--seed", type=int, default=DEFAULT_SEED)
     add_devices_flag(p)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -98,7 +100,8 @@ def compute_dataset_norm(points: np.ndarray):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.bf16:
-        raise SystemExit("--bf16: not ported yet (pcc_tpu_torch trains in float32)")
+        raise SystemExit("--bf16: bf16 training is not ported (bf16 serving is: compress and "
+                         "decompress --bf16); training in bf16 is the next slice")
     if maybe_launch(args, main, argv, batch_size=args.batch_size):
         return
     cfg = PPPEConfig(N=args.N, latent_dim=args.K, L=args.L)

@@ -1,6 +1,8 @@
 """Patch codec: clouds <-> (.p.bin, .s.bin, .c.bin) streams (counterpart of
-pcc_tpu/codec.py, integer CDF mode, float32), for both model families of
-CodecConfig.model.
+pcc_tpu/codec.py, integer CDF mode), for both model families of
+CodecConfig.model, in either CodecConfig.compute_dtype (bf16 changes the
+networks' arithmetic, so the latents and .p.bin, and not the skeleton, the
+.s.bin / .c.bin or the integer CDFs).
 
 Encode, per batch of clouds on the device: the 10-bit packed upload ->
 normalize -> FPS (CUDA kernel, ops/fps.py) -> octree analysis -> KNN
@@ -63,11 +65,14 @@ _INV_1023 = float(np.float32(1.0) / np.float32(1023.0))
 
 
 def make_models(cfg: CodecConfig):
-    """The (autoencoder, float probability model) modules of cfg.model."""
+    """The (autoencoder, float probability model) modules of cfg.model, the
+    autoencoder computing in cfg.compute_dtype (the probability model only
+    holds the weights the integer model is converted from)."""
     if cfg.model == "PPPF-AE":
-        return (PPPF_AE(K=cfg.K, k=cfg.k, d=cfg.d, L=cfg.L),
+        return (PPPF_AE(K=cfg.K, k=cfg.k, d=cfg.d, L=cfg.L, compute_dtype=cfg.compute_dtype),
                 PPPFConditionalProbabilityModel(d=cfg.d, L=cfg.L))
-    return (PatchAE(K=cfg.K, k=cfg.k, d=cfg.d, L=cfg.L, sa_knn=cfg.sa_knn),
+    return (PatchAE(K=cfg.K, k=cfg.k, d=cfg.d, L=cfg.L, sa_knn=cfg.sa_knn,
+                    compute_dtype=cfg.compute_dtype),
             ConditionalProbabilityModel(d=cfg.d, L=cfg.L))
 
 

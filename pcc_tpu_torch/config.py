@@ -7,15 +7,21 @@ in one dataclass; CLIs build it from flags with the reference's names/defaults.
 
 `model` selects the family, as in pcc_tpu: "AE" (IPDAE) or "PPPF-AE" (PN++
 encoder + FoldingNet decoder). The port implements pcc_tpu's defaults for the
-fields it leaves out: float32 compute and the integer CDF mode. The TPU kernel
+fields it leaves out: the integer CDF mode. The TPU kernel
 switches (fused_sa, fused_decode, pruned_knn) have no counterpart: on a CUDA
 device the port always runs its kernels, and its patch selection is the
 exact dense KNN whose output the pruned search reproduces bit for bit.
+`compute_dtype` is pcc_tpu's: "float32", or "bfloat16" for bf16 mixed
+precision in the networks (parameters, the quantizer's arithmetic and the
+integer coding stay float32; ops/bf16.py), which the port serves (compress
+and decompress) and does not train.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+from pcc_tpu_torch.ops.bf16 import COMPUTE_DTYPES
 
 # Minimum skeleton bpp per patch size K; mirrors reference pn_kit.py:17-23.
 OCTREE_BPP_DICT = {
@@ -56,10 +62,17 @@ class CodecConfig:
     margin: float = 0.01  # normalize margin (pn_kit.py:47)
     max_depth: int = MAX_OCTREE_DEPTH
     model: str = "AE"  # "AE" (IPDAE) | "PPPF-AE" (train.py --model)
+    # network computation dtype: "float32" or "bfloat16" (pcc_tpu's bf16
+    # mixed precision); parameters, the quantizer arithmetic and the integer
+    # CDFs stay float32 / exact either way
+    compute_dtype: str = "float32"
 
     def __post_init__(self):
         if self.model not in MODELS:
             raise ValueError(f"model={self.model!r} is not one of {MODELS}")
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype={self.compute_dtype!r} is not one of "
+                             f"{COMPUTE_DTYPES}")
         # the encoded symbol array travels as int8: L beyond 128 would
         # silently wrap into a corrupt-but-decodable stream
         if not 2 <= self.L <= 128:

@@ -152,8 +152,9 @@ struct QueryList {
 };
 
 // SetAbstraction layer 1 on the centred neighbours of nq queries qs[0..nq):
-// h1[r][o], r = i * KNN + slot. No trailing barrier.
-template <int KNN, class Q>
+// h1[r][o], r = i * KNN + slot. kBf16: the centred neighbour and the output
+// rounded to bf16 (the weights are bf16-exact). No trailing barrier.
+template <int KNN, bool kBf16 = false, class Q>
 __device__ __forceinline__ void sa_layer1(int nq, Q qs,
                                           const unsigned short* nbr, const float* sx,
                                           const float* sy, const float* sz,
@@ -165,24 +166,25 @@ __device__ __forceinline__ void sa_layer1(int nq, Q qs,
     const unsigned r = e / kEncC1;
     const int q = qs[r / KNN];
     const int j = nbr[q * KNN + r % KNN];
-    const float cx = sx[j] - sx[q];
-    const float cy = sy[j] - sy[q];
-    const float cz = sz[j] - sz[q];
+    const float cx = pcc_bf16::act_round<kBf16>(sx[j] - sx[q]);
+    const float cy = pcc_bf16::act_round<kBf16>(sy[j] - sy[q]);
+    const float cz = pcc_bf16::act_round<kBf16>(sz[j] - sz[q]);
     float acc = cx * sw1[o];
     acc = fmaf(cy, sw1[kEncC1 + o], acc);
     acc = fmaf(cz, sw1[2 * kEncC1 + o], acc);
-    h1[r * kEncC1 + o] = fmaxf(acc + sb1[o], 0.0f);
+    h1[r * kEncC1 + o] = pcc_bf16::act_round<kBf16>(fmaxf(acc + sb1[o], 0.0f));
   }
 }
 
-// The xyz columns of the concat rows of nq queries. No trailing barrier.
-template <class Q>
+// The xyz columns of the concat rows of nq queries (rounded to bf16 with
+// kBf16). No trailing barrier.
+template <bool kBf16 = false, class Q>
 __device__ __forceinline__ void concat_xyz(int nq, Q qs, const float* sx,
                                            const float* sy, const float* sz, float* x0) {
   for (int e = threadIdx.x; e < nq * 3; e += blockDim.x) {
     const int qi = e / 3, c = e % 3;
     const int q = qs[qi];
-    x0[qi * kEncX0 + c] = c == 0 ? sx[q] : (c == 1 ? sy[q] : sz[q]);
+    x0[qi * kEncX0 + c] = pcc_bf16::act_round<kBf16>(c == 0 ? sx[q] : (c == 1 ? sy[q] : sz[q]));
   }
 }
 
@@ -208,8 +210,9 @@ __device__ __forceinline__ void pointnet_123(const float* x0, const float* pw1,
 // ld_out, shared or device memory). Weights [in, out] and biases in device
 // memory, 16-byte aligned. Starts after a barrier that frees h2 from its
 // last reader; no trailing barrier (the next step's layer 1 may start: it
-// writes h1, which layer 3 does not read).
-template <int KNN, class Q>
+// writes h1, which layer 3 does not read). kBf16: every layer's input and
+// output bf16 (sa_layer1, dense_tile).
+template <int KNN, bool kBf16 = false, class Q>
 __device__ __forceinline__ void sa_step(Q qs, const unsigned short* nbr, const float* sx,
                                         const float* sy, const float* sz,
                                         const float* __restrict__ w1,
@@ -219,12 +222,13 @@ __device__ __forceinline__ void sa_step(Q qs, const unsigned short* nbr, const f
                                         const float* __restrict__ w3,
                                         const float* __restrict__ b3, float* h1, float* h2,
                                         float* out, int ld_out) {
-  sa_layer1<KNN>(kEncSaRows / KNN, qs, nbr, sx, sy, sz, w1, b1, h1);
+  sa_layer1<KNN, kBf16>(kEncSaRows / KNN, qs, nbr, sx, sy, sz, w1, b1, h1);
   __syncthreads();
-  dense_tile<8, kTileRelu>(h1, kEncC1, kEncSaRows, kEncC1, w2, kEncC2, b2, kEncC2, h2, kEncC2);
+  dense_tile<8, kTileRelu, kBf16>(h1, kEncC1, kEncSaRows, kEncC1, w2, kEncC2, b2, kEncC2, h2,
+                                  kEncC2);
   __syncthreads();
-  dense_tile<KNN, kTileGroupMax>(h2, kEncC2, kEncSaRows, kEncC2, w3, kEncC3, b3, kEncC3, out,
-                                 ld_out);
+  dense_tile<KNN, kTileGroupMax, kBf16>(h2, kEncC2, kEncSaRows, kEncC2, w3, kEncC3, b3, kEncC3,
+                                        out, ld_out);
 }
 
 // PointNet's last layer, a step of it: acc[i] += x3[r][k] * pw4[c0 + k][o]
@@ -268,8 +272,12 @@ __device__ __forceinline__ void last_layer_step(const float* x3, const float* __
 // runs on kEncPnQ rows (rows past nq are 0), layer 1 with 4 rows a thread
 // (every warp busy), layers 2 and 3 with 8; layer 3 in steps of kEncP3Step
 // columns, each folded straight into the last layer's sums, which stay in
-// registers. Starts after a barrier; ends with __syncthreads().
-template <int KNN>
+// registers. Starts after a barrier; ends with __syncthreads(). kBf16 (the
+// bf16 instance, pcc_tpu's sa_pallas.py:163-210 with compute_dtype
+// bfloat16; the weights and biases bf16-exact, rounded by the wrapper): the
+// centred neighbours, xyz and every layer's output rounded to bf16, the last
+// layer's after its bias; the maxima are float32 over those bf16 values.
+template <int KNN, bool kBf16 = false>
 __device__ __forceinline__ void encoder_chunk(
     int c0, int nq, const unsigned short* nbr, const float* sx, const float* sy,
     const float* sz, const float* w1, const float* b1, const float* w2, const float* b2,
@@ -282,23 +290,24 @@ __device__ __forceinline__ void encoder_chunk(
   float* x3 = buf;
   constexpr int kSaQ = kEncSaRows / KNN;
   for (int q0 = 0; q0 < nq; q0 += kSaQ)
-    sa_step<KNN>(QueryRange{c0 + q0}, nbr, sx, sy, sz, w1, b1, w2, b2, w3, b3, x1,
-                 x1 + kEncSaRows * kEncC1, x0 + q0 * kEncX0 + 3, kEncX0);
-  concat_xyz(nq, QueryRange{c0}, sx, sy, sz, x0);
+    sa_step<KNN, kBf16>(QueryRange{c0 + q0}, nbr, sx, sy, sz, w1, b1, w2, b2, w3, b3, x1,
+                        x1 + kEncSaRows * kEncC1, x0 + q0 * kEncX0 + 3, kEncX0);
+  concat_xyz<kBf16>(nq, QueryRange{c0}, sx, sy, sz, x0);
   for (int e = nq * kEncX0 + threadIdx.x; e < kEncPnQ * kEncX0; e += blockDim.x) x0[e] = 0.0f;
   __syncthreads();
-  dense_tile<4, kTileRelu>(x0, kEncX0, kEncPnQ, 3 + kEncC3, pw1, kEncP1, pb1, kEncP1, x1,
-                           kEncP1);
+  dense_tile<4, kTileRelu, kBf16>(x0, kEncX0, kEncPnQ, 3 + kEncC3, pw1, kEncP1, pb1, kEncP1, x1,
+                                  kEncP1);
   __syncthreads();
-  dense_tile<8, kTileRelu>(x1, kEncP1, kEncPnQ, kEncP1, pw2, kEncP2, pb2, kEncP2, x2, kEncP2);
+  dense_tile<8, kTileRelu, kBf16>(x1, kEncP1, kEncPnQ, kEncP1, pw2, kEncP2, pb2, kEncP2, x2,
+                                  kEncP2);
   __syncthreads();
   const bool vec = dout % 4 == 0;
   float acc[kEncPnQ * kEncMaxD / kEncThreads];
 #pragma unroll
   for (int i = 0; i < kEncPnQ * kEncMaxD / kEncThreads; ++i) acc[i] = 0.0f;
   for (int c = 0; c < kEncP3; c += kEncP3Step) {
-    dense_tile<8, kTileRelu>(x2, kEncP2, kEncPnQ, kEncP2, pw3 + c, kEncP3, pb3 + c, kEncP3Step,
-                             x3, kEncX3);
+    dense_tile<8, kTileRelu, kBf16>(x2, kEncP2, kEncPnQ, kEncP2, pw3 + c, kEncP3, pb3 + c,
+                                    kEncP3Step, x3, kEncX3);
     __syncthreads();
     if (vec) {
       last_layer_step<true>(x3, pw4, c, dout, acc);
@@ -314,7 +323,7 @@ __device__ __forceinline__ void encoder_chunk(
     const int e = threadIdx.x + (i / kV) * kEncThreads;
     if (e >= kEncPnQ * dout / kV) break;
     const int o = (e % (dout / kV)) * kV + i % kV;
-    o4[(e / (dout / kV)) * dout + o] = acc[i] + __ldg(pb4 + o);
+    o4[(e / (dout / kV)) * dout + o] = pcc_bf16::act_round<kBf16>(acc[i] + __ldg(pb4 + o));
   }
   __syncthreads();
 }

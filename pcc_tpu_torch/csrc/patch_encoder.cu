@@ -43,6 +43,18 @@
 // otherwise have to find with a second forward. The latent itself stays the
 // fmaxf fold, so it is the same bit for bit either way.
 //
+// The bf16 instance (patch_encoder_bf16_launch; pcc_tpu's compute_dtype
+// bfloat16, serving): the same kernel, templated on the rounding
+// (encoder_common.cuh::encoder_chunk, bf16.cuh). The wrapper rounds every
+// weight and bias to bf16, as the TPU kernel's `load` does; the kernel rounds
+// the centred neighbours, xyz and every layer's output (after its relu, the
+// last layer's after its bias) where sa_pallas.py:163-210 casts to bf16.
+// Products of bf16 values are exact in float32, so every output is still
+// the float32 sum of exact products in k-order, which
+// ops/sa_cuda.py::_kernel_choices replays with the same rounding. Its bound
+// is the float32 instance's work: bf16 tensor cores would take it at 989
+// TFLOP/s, these CUDA cores at 67.
+//
 // Selection is bit-equal to the plain PyTorch version
 // (pcc_tpu_torch/ops/sa_cuda.py::patch_encoder_plain): the same distance
 // formula, one rounding per operation, and the lower index first among
@@ -86,7 +98,7 @@ __host__ __device__ inline Layout make_layout(int n, int knn) {
   return L;
 }
 
-template <int KNN, bool kWinners>
+template <int KNN, bool kWinners, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 2)
 patch_encoder_kernel(const float* __restrict__ pts, int n,
                      const float* __restrict__ w1, const float* __restrict__ b1,
@@ -119,8 +131,8 @@ patch_encoder_kernel(const float* __restrict__ pts, int n,
 
   for (int c0 = 0; c0 < n; c0 += kEncPnQ) {
     const int nq = min(kEncPnQ, n - c0);
-    encoder_chunk<KNN>(c0, nq, nbr, sx, sy, sz, w1, b1, w2, b2, w3, b3, pw1, pb1, pw2, pb2,
-                       pw3, pb3, pw4, pb4, dout, chunk);
+    encoder_chunk<KNN, kBf16>(c0, nq, nbr, sx, sy, sz, w1, b1, w2, b2, w3, b3, pw1, pb1, pw2,
+                              pb2, pw3, pb3, pw4, pb4, dout, chunk);
     if (tid < dout) {
       float m = lat[tid];
       if (kWinners) {
@@ -144,15 +156,15 @@ patch_encoder_kernel(const float* __restrict__ pts, int n,
   }
 }
 
-template <int KNN, bool kWinners>
+template <int KNN, bool kWinners, bool kBf16 = false>
 int launch(const float* pts, int p, int n, const float* const* w, int dout,
            float* out, int* winners, cudaStream_t stream) {
   const Layout L = make_layout(n, KNN);
-  cudaError_t err = cudaFuncSetAttribute(patch_encoder_kernel<KNN, kWinners>,
+  cudaError_t err = cudaFuncSetAttribute(patch_encoder_kernel<KNN, kWinners, kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L.bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  patch_encoder_kernel<KNN, kWinners><<<p, kThreads, L.bytes, stream>>>(
+  patch_encoder_kernel<KNN, kWinners, kBf16><<<p, kThreads, L.bytes, stream>>>(
       pts, n, w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8], w[9], w[10],
       w[11], w[12], w[13], dout, out, winners);
   return static_cast<int>(cudaGetLastError());
@@ -185,6 +197,32 @@ extern "C" int patch_encoder_launch(const float* pts, int p, int n, int knn,
     case 16:
       return winners ? launch<16, true>(pts, p, n, w, dout, out, winners, s)
                      : launch<16, false>(pts, p, n, w, dout, out, nullptr, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The bf16 instance: the arguments of patch_encoder_launch without winners,
+// the weights and biases bf16-exact (rounded by the wrapper).
+extern "C" int patch_encoder_bf16_launch(const float* pts, int p, int n, int knn,
+                                         const float* w1, const float* b1,
+                                         const float* w2, const float* b2,
+                                         const float* w3, const float* b3,
+                                         const float* pw1, const float* pb1,
+                                         const float* pw2, const float* pb2,
+                                         const float* pw3, const float* pb3,
+                                         const float* pw4, const float* pb4, int dout,
+                                         float* out, void* stream) {
+  if (p <= 0 || n % kEncQ != 0 || n > kEncMaxN || n < knn || dout <= 0 ||
+      dout > kEncMaxD)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* w[14] = {w1, b1, w2, b2, w3, b3, pw1, pb1, pw2, pb2, pw3, pb3, pw4, pb4};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (knn) {
+    case 8:
+      return launch<8, false, true>(pts, p, n, w, dout, out, nullptr, s);
+    case 16:
+      return launch<16, false, true>(pts, p, n, w, dout, out, nullptr, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

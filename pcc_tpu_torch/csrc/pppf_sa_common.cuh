@@ -15,6 +15,8 @@
 
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
+
 namespace pcc_sa {
 
 constexpr int kThreads = 256;
@@ -80,8 +82,11 @@ struct GlobalRows {
 // wider layer: w, b, mu, mul and beta offset to the chunk). With kQueryMax
 // the rows are not stored: row r of the tile is row row0 + r of the block,
 // which belongs to query (row0 + r) / nsample, and only each query's maximum
-// is kept in qmax[query][o]. No trailing barrier.
-template <int kMode>
+// is kept in qmax[query][o]. kBf16 (the bf16 instance's serving modes,
+// kStore and kQueryMax): every relu output rounded to bf16, as pcc_tpu's
+// bf16 stage rounds each layer's output (the products then read bf16-exact
+// activations and weights). No trailing barrier.
+template <int kMode, bool kBf16 = false>
 __device__ __forceinline__ void dense_layer(
     const float* in, int ld_in, int rows, int cin, const float* __restrict__ w, int ldw,
     const float* __restrict__ b, const float* __restrict__ mu,
@@ -98,7 +103,8 @@ __device__ __forceinline__ void dense_layer(
         continue;
       }
       const float t = bn_shift(acc, __ldg(b + o), __ldg(mu + o));
-      const float v = fmaxf(fmaf(t, __ldg(mul + o), __ldg(beta + o)), 0.0f);
+      const float v =
+          pcc_bf16::act_round<kBf16>(fmaxf(fmaf(t, __ldg(mul + o), __ldg(beta + o)), 0.0f));
       if (kMode == kQueryMax) {
         if (row0 + r < rows_total)
           atomicMax(qmax + ((row0 + r) / nsample) * cout + o, __float_as_int(v));
@@ -189,6 +195,12 @@ __device__ __forceinline__ void dense_layer(
       v.y = fmaxf(fmaf(t.y, vmul.y, vbeta.y), 0.0f);
       v.z = fmaxf(fmaf(t.z, vmul.z, vbeta.z), 0.0f);
       v.w = fmaxf(fmaf(t.w, vmul.w, vbeta.w), 0.0f);
+      if (kBf16) {
+        v.x = pcc_bf16::round_bf16(v.x);
+        v.y = pcc_bf16::round_bf16(v.y);
+        v.z = pcc_bf16::round_bf16(v.z);
+        v.w = pcc_bf16::round_bf16(v.w);
+      }
       if (kMode == kQueryMax) {
         const int r = row0 + gi * kTM + i;
         if (r < rows_total) {

@@ -62,7 +62,10 @@
 // mode's, which is compiled without the stores.
 //
 // Layout "pppf" where the queries' masks do not fit in shared memory beside
-// the smallest tile, per slot: a block owns a few queries of one patch (as
+// the smallest tile, and layout "pppe" where the slot kernel below finds no
+// tile (a layer between the first and the last wider than 1024, or 32 rows
+// of the widest layer but the last beyond shared memory), per slot: the
+// rows as the layout gathers them; a block owns a few queries of one patch (as
 // many as fill a tile of up to 64 rows; one query when nsample is larger,
 // its rows taken tile by tile), gathers a tile's rows and runs the layers
 // between two activation buffers in shared memory; each thread folds the
@@ -104,6 +107,19 @@
 // sa2 two blocks of 128 rows with passes of 128 columns, sa3 one block with
 // passes of 256.
 
+// The bf16 instance (pppf_sa_stage_bf16_launch; pcc_tpu's compute_dtype
+// bfloat16, layout "pppf", serving): the same kernels, templated on the
+// rounding (bf16.cuh), with W rounded to bf16 by the wrapper and b, mean,
+// mul and beta float32, as pcc_tpu/ops/pppf_sa_pallas.py's bf16 stage
+// keeps them. Each layer's input rows are bf16 (the gathered rows rounded,
+// the uncentred xyz lanes included; later layers read the previous layer's
+// rounded outputs), each relu output is rounded to bf16, and the max over
+// samples is float32 over those bf16 values. Products of bf16 values are
+// exact in float32, so each output is still the float32 sum of exact
+// products in k-order. The same bound as the float32 instance (operations,
+// float32 FMAs on the CUDA cores; bf16 tensor cores would bound it at 989
+// TFLOP/s, ops/pppf_sa_cuda.py::stage_flops).
+//
 // Selection is bit-equal to the plain PyTorch version
 // (pcc_tpu_torch/ops/pppf_sa_cuda.py::pppf_sa_plain): the same distance
 // formulas with one rounding per operation (__f*_rn intrinsics are never
@@ -137,6 +153,7 @@ struct Stage {
   const float* feat;      // [P, N, C] or nullptr
   float* out;             // [P, S, width[n_layers]]
   int s, n, c, nsample, n_layers;
+  int pppe;               // the per-slot kernel's layout: 0 "pppf", 1 "pppe"
   float r2;
   int rows;               // rows per tile, a multiple of kTM
   int qb;                 // per slot: queries per block; per point: queries per selection group
@@ -168,6 +185,7 @@ __host__ __device__ inline size_t smem_words(int rows, int qb, int lda, int ldb,
          static_cast<size_t>(qb) * 4;
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 pppf_sa_stage_kernel(const __grid_constant__ Stage st) {
   extern __shared__ __align__(16) float smem[];
@@ -194,19 +212,25 @@ pppf_sa_stage_kernel(const __grid_constant__ Stage st) {
   load_queries(st.new_xyz + (static_cast<size_t>(p) * st.s + q0) * 3, nq, sq);
   for (int e = tid; e < nq * cout; e += kThreads) qmax[e] = 0;
   __syncthreads();
-  select_slots(pts, sq, nq, n, st.nsample, true, false, st.r2, dist, sel);
+  select_slots(pts, sq, nq, n, st.nsample, !st.pppe, false, st.r2, dist, sel);
 
   for (int row0 = 0; row0 < rows_total; row0 += st.rows) {
-    // gather the tile's rows into buf_a
+    // gather the tile's rows into buf_a ("pppf": [feat | xyz]; "pppe":
+    // [xyz - query | feat]), rounded to bf16 in the bf16 instance
     for (int e = tid; e < st.rows * cin; e += kThreads) {
       const int rl = e / cin, c = e % cin, r = row0 + rl;
       float v = 0.0f;
       if (r < rows_total) {
         const int j = sel[r];
-        v = c < st.c ? __ldg(ft + static_cast<size_t>(j) * st.c + c)
-                     : __ldg(pts + 3 * j + (c - st.c));
+        if (st.pppe) {
+          v = c < 3 ? __ldg(pts + 3 * j + c) - sq[4 * (r / st.nsample) + c]
+                    : __ldg(ft + static_cast<size_t>(j) * st.c + (c - 3));
+        } else {
+          v = c < st.c ? __ldg(ft + static_cast<size_t>(j) * st.c + c)
+                       : __ldg(pts + 3 * j + (c - st.c));
+        }
       }
-      buf_a[rl * st.lda + c] = v;
+      buf_a[rl * st.lda + c] = pcc_bf16::act_round<kBf16>(v);
     }
     __syncthreads();
     for (int l = 0; l < st.n_layers; ++l) {
@@ -216,13 +240,13 @@ pppf_sa_stage_kernel(const __grid_constant__ Stage st) {
       const int ld_dst = (l & 1) ? st.lda : st.ldb;
       const int w = st.width[l + 1];
       if (l == st.n_layers - 1) {
-        dense_layer<kQueryMax>(src, ld_src, st.rows, st.width[l], st.w[l], w, st.b[l],
-                               st.mu[l], st.mul[l], st.beta[l], w, dst, ld_dst, qmax, row0,
-                               rows_total, st.nsample, GlobalRows{});
+        dense_layer<kQueryMax, kBf16>(src, ld_src, st.rows, st.width[l], st.w[l], w, st.b[l],
+                                      st.mu[l], st.mul[l], st.beta[l], w, dst, ld_dst, qmax,
+                                      row0, rows_total, st.nsample, GlobalRows{});
       } else {
-        dense_layer<kStore>(src, ld_src, st.rows, st.width[l], st.w[l], w, st.b[l], st.mu[l],
-                            st.mul[l], st.beta[l], w, dst, ld_dst, qmax, row0, rows_total,
-                            st.nsample, GlobalRows{});
+        dense_layer<kStore, kBf16>(src, ld_src, st.rows, st.width[l], st.w[l], w, st.b[l],
+                                   st.mu[l], st.mul[l], st.beta[l], w, dst, ld_dst, qmax, row0,
+                                   rows_total, st.nsample, GlobalRows{});
       }
       __syncthreads();
     }
@@ -302,8 +326,9 @@ __device__ __forceinline__ void fold_query_max(const float* t, int ldt, int row0
 // kSave (the store mode the train step's forward asks for): the same
 // arithmetic, and also the ranked slots, every layer's input x_l and t_l and
 // the last activations stored for the backward kernel (pppf_sa_stage_bwd.cu),
-// which then neither selects nor replays the stack.
-template <bool kSave>
+// which then neither selects nor replays the stack. kBf16 (serving only):
+// the point rows and every layer's output rounded to bf16.
+template <bool kSave, bool kBf16>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 pppf_sa_points_kernel(const __grid_constant__ Stage st) {
   extern __shared__ __align__(16) float smem[];
@@ -358,12 +383,12 @@ pppf_sa_points_kernel(const __grid_constant__ Stage st) {
                      : __ldg(pts + 3 * j + (c - st.c));
         if (kSave) st.gact[st.lay.act_off[0] + (grow + rl) * st.lay.ld[0] + c] = v;
       }
-      buf_a[rl * st.lda + c] = v;
+      buf_a[rl * st.lda + c] = pcc_bf16::act_round<kBf16>(v);
     }
     __syncthreads();
     for (int l = 0; l < L - 1; ++l) {
       const int w = st.width[l + 1];
-      dense_layer<kSave ? kStoreGlobal : kStore>(
+      dense_layer<kSave ? kStoreGlobal : kStore, kBf16>(
           (l & 1) ? buf_b : buf_a, (l & 1) ? st.ldb : st.lda, st.rows, st.width[l], st.w[l], w,
           st.b[l], st.mu[l], st.mul[l], st.beta[l], w, (l & 1) ? buf_a : buf_b,
           (l & 1) ? st.lda : st.ldb, nullptr, 0, 0, 1, kSave ? saved(l, 0) : GlobalRows{});
@@ -376,7 +401,7 @@ pppf_sa_points_kernel(const __grid_constant__ Stage st) {
     const int ld_src = (l & 1) ? st.ldb : st.lda, ldt = (l & 1) ? st.lda : st.ldb;
     for (int c0 = 0; c0 < cout; c0 += st.cc) {
       const int cc = min(st.cc, cout - c0);
-      dense_layer<kSave ? kStoreGlobal : kStore>(
+      dense_layer<kSave ? kStoreGlobal : kStore, kBf16>(
           src, ld_src, st.rows, st.width[l], st.w[l] + c0, cout, st.b[l] + c0, st.mu[l] + c0,
           st.mul[l] + c0, st.beta[l] + c0, cc, t, ldt, nullptr, 0, 0, 1,
           kSave ? saved(l, c0) : GlobalRows{});
@@ -766,18 +791,21 @@ size_t pppe_words(Stage& st, int kM, int kCW, int ks, int qb) {
 // rows) and then the most queries (up to kM / nsample) that fit: two blocks
 // an SM for (4, 8) where they fit, else one. Where none fits (a middle layer
 // wider than 1024, or 32 rows of the widest layer but the last beyond shared
-// memory) it returns cudaErrorInvalidValue; ops/pppf_sa_cuda.py::pppe_plan
-// mirrors this search, so that the wrapper raises before the launch.
+// memory) it returns kNoTile and the caller runs the per-slot kernel
+// (pppf_sa_stage_kernel's "pppe" branch); ops/pppf_sa_cuda.py::pppe_plan
+// mirrors this search, so that the wrapper hands y over only where a tile
+// fits.
+constexpr int kNoTile = -1;
+
 int launch_pppe(Stage& st, int p, float* y, cudaStream_t strm) {
   const int L = st.n_layers, c1 = st.width[1];
-  if ((st.c > 0) != (y != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  st.y = y;
   // the widest output of a layer between the first and the last, and of any but the last
   int mid = 0, widest = 0;
   for (int l = 1; l < L; ++l) {
     if (l > 1 && st.width[l] > mid) mid = st.width[l];
     if (st.width[l] > widest) widest = st.width[l];
   }
+  const int lda0 = st.lda;
   st.lda = L > 1 ? pcc_tile::a_ld(widest) : 0;
   const int plans[4][2] = {{4, 8}, {4, 16}, {2, 16}, {1, 16}};
   const size_t two = (kSmemLimit + 1024) / 2 - 1024;
@@ -801,7 +829,13 @@ int launch_pppe(Stage& st, int p, float* y, cudaStream_t strm) {
       }
     }
   }
-  if (plan < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (plan < 0) {
+    st.lda = lda0;
+    st.region = 0;
+    return kNoTile;
+  }
+  if ((st.c > 0) != (y != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  st.y = y;
   const long long blocks = static_cast<long long>(p) * ((st.s + st.qb - 1) / st.qb);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
@@ -826,87 +860,37 @@ int launch_pppe(Stage& st, int p, float* y, cudaStream_t strm) {
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// new_xyz [p, s, 3], xyz [p, n, 3], feat [p, n, c] or null (c = 0), all f32
-// contiguous; out [p, s, widths[n_layers]] f32. layers: host array of
-// 5 * n_layers device pointers (W [in, out] row-major, b, mean, mul, beta per
-// layer, 16-byte aligned); widths: host array of n_layers + 1 ints, widths[0]
-// = c + 3. pppe: 0 for the "pppf" layout, 1 for "pppe". Store mode, "pppf"
-// only: gsel (p * s * nsample ints), gact and gt (laid out as
-// pppf_sa_common.cuh::act_layout(p * n, ...) gives), or all null; *saved
-// (host) is set to 1 where they were written (the per-point kernel ran),
-// else 0. y: "pppe" with c > 0, scratch for the feature block, p * n *
-// widths[1] floats; else null. Returns a cudaError_t value.
-extern "C" int pppf_sa_stage_launch(const float* new_xyz, const float* xyz, const float* feat,
-                                    float* out, int p, int s, int n, int c, int nsample,
-                                    float r2, int pppe, int n_layers,
-                                    const void* const* layers, const int* widths, int* gsel,
-                                    float* gact, float* gt, int* saved, float* y, void* stream) {
-  if (p <= 0 || s <= 0 || n <= 0 || n > kMaxN || nsample <= 0 || n_layers <= 0 ||
-      n_layers > kMaxLayers || c < 0 || (c > 0) != (feat != nullptr) || widths[0] != c + 3 ||
-      (gsel != nullptr) != (gact != nullptr) || (gsel != nullptr) != (gt != nullptr) ||
-      (gsel != nullptr && (pppe || saved == nullptr)) || (!pppe && y != nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool save = gsel != nullptr;
-  if (saved) *saved = 0;
-  Stage st;
-  st.gsel = gsel;
-  st.gact = gact;
-  st.gt = gt;
-  st.new_xyz = new_xyz;
-  st.xyz = xyz;
-  st.feat = feat;
-  st.out = out;
-  st.s = s;
-  st.n = n;
-  st.c = c;
-  st.nsample = nsample;
-  st.n_layers = n_layers;
-  st.r2 = r2;
-  st.lda = st.ldb = 4;
-  st.region = 0;
-  st.cc = 0;
-  st.y = nullptr;
-  st.ks = 0;
-  for (int l = 0; l <= n_layers; ++l) {
-    if (widths[l] <= 0) return static_cast<int>(cudaErrorInvalidValue);
-    st.width[l] = widths[l];
-    if (l < n_layers) {
-      int& ld = (l & 1) ? st.ldb : st.lda;
-      if (round4(widths[l]) > ld) ld = round4(widths[l]);
-      st.w[l] = static_cast<const float*>(layers[5 * l]);
-      st.b[l] = static_cast<const float*>(layers[5 * l + 1]);
-      st.mu[l] = static_cast<const float*>(layers[5 * l + 2]);
-      st.mul[l] = static_cast<const float*>(layers[5 * l + 3]);
-      st.beta[l] = static_cast<const float*>(layers[5 * l + 4]);
-    }
-  }
-  const int cout = widths[n_layers];
-  st.lay = act_layout(static_cast<size_t>(p) * n, n_layers, widths);
+// Per point where the queries' masks fit beside a tile ("pppf"), else per
+// slot; "pppe" per slot where launch_pppe finds no tile. kBf16: the bf16
+// instance ("pppf", serving).
+template <bool kBf16>
+int launch_stage(Stage& st, int p, bool save, int* saved, float* y, cudaStream_t strm) {
+  const int s = st.s, n = st.n, nsample = st.nsample, cout = st.width[st.n_layers];
   // budgets: kMinBlocks blocks per SM (a block is charged 1 KB more than it
   // asks for), failing that one
   const size_t budgets[2] = {(kSmemLimit + 1024) / kMinBlocks - 1024, kSmemLimit};
-  cudaStream_t strm = static_cast<cudaStream_t>(stream);
-  if (pppe) return launch_pppe(st, p, y, strm);
-  // "pppf" per point, where the queries' masks fit beside a tile
   const int lda0 = st.lda, ldb0 = st.ldb;
   size_t bytes = 0;
-  for (int i = 0; i < 2 && bytes == 0; ++i)
-    bytes = point_tile(st, lda0, ldb0, budgets[i], save);
-  if (bytes > 0) {
-    auto kernel = save ? pppf_sa_points_kernel<true> : pppf_sa_points_kernel<false>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<static_cast<unsigned>(p), kThreads, bytes, strm>>>(st);
-    err = cudaGetLastError();
-    if (err == cudaSuccess && save) *saved = 1;
-    return static_cast<int>(err);
+  if (st.pppe) {
+    const int r = launch_pppe(st, p, y, strm);
+    if (r != kNoTile) return r;
+  } else {
+    for (int i = 0; i < 2 && bytes == 0; ++i)
+      bytes = point_tile(st, lda0, ldb0, budgets[i], save);
+    if (bytes > 0) {
+      auto kernel = save ? pppf_sa_points_kernel<true, false> : pppf_sa_points_kernel<false, kBf16>;
+      cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(bytes));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      kernel<<<static_cast<unsigned>(p), kThreads, bytes, strm>>>(st);
+      err = cudaGetLastError();
+      if (err == cudaSuccess && save) *saved = 1;
+      return static_cast<int>(err);
+    }
   }
   st.lda = lda0;
   st.ldb = ldb0;
-  // "pppf" per slot: the largest tile of up to kMaxRows rows of which kMinBlocks
+  // per slot: the largest tile of up to kMaxRows rows of which kMinBlocks
   // fit in an SM's shared memory; failing that, the largest of which one does
   st.rows = 0;
   for (int i = 0; i < 2 && st.rows < kTM; ++i) {
@@ -920,10 +904,103 @@ extern "C" int pppf_sa_stage_launch(const float* new_xyz, const float* xyz, cons
   if (st.rows < kTM) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = static_cast<long long>(p) * ((s + st.qb - 1) / st.qb);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(pppf_sa_stage_kernel,
+  cudaError_t err = cudaFuncSetAttribute(pppf_sa_stage_kernel<kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  pppf_sa_stage_kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, strm>>>(st);
+  pppf_sa_stage_kernel<kBf16><<<static_cast<unsigned>(blocks), kThreads, bytes, strm>>>(st);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The Stage of a launch's arguments (see pppf_sa_stage_launch), or false
+// where they are invalid.
+bool make_stage(Stage& st, const float* new_xyz, const float* xyz, const float* feat,
+                float* out, int p, int s, int n, int c, int nsample, float r2, int pppe,
+                int n_layers, const void* const* layers, const int* widths) {
+  if (p <= 0 || s <= 0 || n <= 0 || n > kMaxN || nsample <= 0 || n_layers <= 0 ||
+      n_layers > kMaxLayers || c < 0 || (c > 0) != (feat != nullptr) || widths[0] != c + 3)
+    return false;
+  st.gsel = nullptr;
+  st.gact = nullptr;
+  st.gt = nullptr;
+  st.new_xyz = new_xyz;
+  st.xyz = xyz;
+  st.feat = feat;
+  st.out = out;
+  st.s = s;
+  st.n = n;
+  st.c = c;
+  st.nsample = nsample;
+  st.n_layers = n_layers;
+  st.pppe = pppe;
+  st.r2 = r2;
+  st.lda = st.ldb = 4;
+  st.region = 0;
+  st.cc = 0;
+  st.y = nullptr;
+  st.ks = 0;
+  for (int l = 0; l <= n_layers; ++l) {
+    if (widths[l] <= 0) return false;
+    st.width[l] = widths[l];
+    if (l < n_layers) {
+      int& ld = (l & 1) ? st.ldb : st.lda;
+      if (round4(widths[l]) > ld) ld = round4(widths[l]);
+      st.w[l] = static_cast<const float*>(layers[5 * l]);
+      st.b[l] = static_cast<const float*>(layers[5 * l + 1]);
+      st.mu[l] = static_cast<const float*>(layers[5 * l + 2]);
+      st.mul[l] = static_cast<const float*>(layers[5 * l + 3]);
+      st.beta[l] = static_cast<const float*>(layers[5 * l + 4]);
+    }
+  }
+  st.lay = act_layout(static_cast<size_t>(p) * n, n_layers, widths);
+  return true;
+}
+
+}  // namespace
+
+// new_xyz [p, s, 3], xyz [p, n, 3], feat [p, n, c] or null (c = 0), all f32
+// contiguous; out [p, s, widths[n_layers]] f32. layers: host array of
+// 5 * n_layers device pointers (W [in, out] row-major, b, mean, mul, beta per
+// layer, 16-byte aligned); widths: host array of n_layers + 1 ints, widths[0]
+// = c + 3. pppe: 0 for the "pppf" layout, 1 for "pppe". Store mode, "pppf"
+// only: gsel (p * s * nsample ints), gact and gt (laid out as
+// pppf_sa_common.cuh::act_layout(p * n, ...) gives), or all null; *saved
+// (host) is set to 1 where they were written (the per-point kernel ran),
+// else 0. y: "pppe" with c > 0 where the slot kernel's tile fits
+// (pppf_sa_cuda.py::pppe_plan), scratch for the feature block, p * n *
+// widths[1] floats; else null. Returns a cudaError_t value.
+extern "C" int pppf_sa_stage_launch(const float* new_xyz, const float* xyz, const float* feat,
+                                    float* out, int p, int s, int n, int c, int nsample,
+                                    float r2, int pppe, int n_layers,
+                                    const void* const* layers, const int* widths, int* gsel,
+                                    float* gact, float* gt, int* saved, float* y, void* stream) {
+  Stage st;
+  if (!make_stage(st, new_xyz, xyz, feat, out, p, s, n, c, nsample, r2, pppe, n_layers, layers,
+                  widths) ||
+      (gsel != nullptr) != (gact != nullptr) || (gsel != nullptr) != (gt != nullptr) ||
+      (gsel != nullptr && (pppe || saved == nullptr)) || (!pppe && y != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool save = gsel != nullptr;
+  if (saved) *saved = 0;
+  st.gsel = gsel;
+  st.gact = gact;
+  st.gt = gt;
+  return launch_stage<false>(st, p, save, saved, y, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 instance, layout "pppf", serving (no store mode): the arguments
+// of pppf_sa_stage_launch without pppe, the store mode and y; W bf16-exact
+// (the wrapper rounds it), b, mean, mul and beta float32. Every layer's
+// input rows and relu output are rounded to bf16; the selection and the
+// ball mask are the float32 instance's bit for bit.
+extern "C" int pppf_sa_stage_bf16_launch(const float* new_xyz, const float* xyz,
+                                         const float* feat, float* out, int p, int s, int n,
+                                         int c, int nsample, float r2, int n_layers,
+                                         const void* const* layers, const int* widths,
+                                         void* stream) {
+  Stage st;
+  if (!make_stage(st, new_xyz, xyz, feat, out, p, s, n, c, nsample, r2, 0, n_layers, layers,
+                  widths))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_stage<true>(st, p, false, nullptr, nullptr, static_cast<cudaStream_t>(stream));
 }

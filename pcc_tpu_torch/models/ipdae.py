@@ -8,6 +8,14 @@ versions on the CPU (ops/sa_cuda.py, ops/decoder_cuda.py). `forward` is the
 training pass: the encoder with its backward kernel
 (ops/sa_cuda.py::patch_encoder_trainable) and a differentiable decoder of
 plain products, as pcc_tpu trains (models/ipdae.py:115-130).
+
+compute_dtype "bfloat16" (pcc_tpu's PatchAE(dtype=bfloat16) with its fused
+kernels, serving only; parameters stay float32): `encode` runs the bf16
+encoder kernel on the rounded weights `encoder_weights` keeps, then
+sigmoid_spread in float32 (pcc_tpu/models/ipdae.py:
+80-82); `decoder_inputs` and `decode` the bf16 decoder path
+(decoder_pallas.py:113-123: h1 rounded before layer 2, h2 handed to the
+kernel in float32). Training in bf16 is not ported: `forward` raises.
 """
 
 from __future__ import annotations
@@ -22,10 +30,12 @@ from pcc_tpu_torch.models.layers import (
     SetAbstraction,
     sigmoid_spread,
     ste_round,
+    weights_key,
 )
+from pcc_tpu_torch.ops.bf16 import check_compute_dtype, round_bf16
 from pcc_tpu_torch.ops.decoder_cuda import (expansion_kmajor, pack_decoder, patch_decoder,
                                             permute_expansion)
-from pcc_tpu_torch.ops.sa_cuda import patch_encoder, patch_encoder_trainable
+from pcc_tpu_torch.ops.sa_cuda import bf16_wb, patch_encoder, patch_encoder_trainable
 
 
 class PatchAE(nn.Module):
@@ -33,9 +43,10 @@ class PatchAE(nn.Module):
     (reference AE.AE(K, k, d, L), AE.py:12-32)."""
 
     def __init__(self, K: int = 256, k: int = 128, d: int = 16, L: int = 7,
-                 sa_knn: int = 16):
+                 sa_knn: int = 16, compute_dtype: str = "float32"):
         super().__init__()
         self.K, self.k, self.d, self.L, self.sa_knn = K, k, d, L, sa_knn
+        self.bf16 = check_compute_dtype(compute_dtype)
         self.sa = SetAbstraction(knn=sa_knn, mlp=(32, 64, 128))
         self.pn = PointNetFeat(3 + 128, (128, 256, 512, d),
                                relu=(True, True, True, False))
@@ -46,38 +57,52 @@ class PatchAE(nn.Module):
         )
         self.inv_mlp = PointwiseMLP(128 + d, (128, 64, 32, 3),
                                     relu=(True, True, True, False))
-        # the decoder's weights in the fused decoder's layouts, made once per
-        # weights in eval mode (decoder_weights)
-        self._decoder_cache = None
-        self.register_load_state_dict_post_hook(PatchAE._drop_decoder_cache)
+        # the decoder's weights in the fused decoder's layouts and the bf16
+        # encoder's rounded weights, made once per weights in eval mode
+        # (decoder_weights, encoder_weights)
+        self._decoder_cache = self._encoder_cache = None
+        self.register_load_state_dict_post_hook(PatchAE._drop_caches)
 
-    def _drop_decoder_cache(self, *_) -> None:
-        self._decoder_cache = None
+    def _drop_caches(self, *_) -> None:
+        self._decoder_cache = self._encoder_cache = None
 
     def train(self, mode: bool = True):
-        self._drop_decoder_cache()
+        self._drop_caches()
         return super().train(mode)
+
+    def encoder_weights(self):
+        """(sa_wb, pn_wb): the encoder's ([in, out] weight, bias) pairs; in
+        bf16 rounded to bf16 (ops/sa_cuda.py::bf16_wb, the bf16 kernel's
+        operands), in eval mode once per weights."""
+        sa_wb, pn_wb = self.sa.layers(), self.pn.layers()
+        if not self.bf16:
+            return sa_wb, pn_wb
+        key = weights_key([*self.sa.parameters(), *self.pn.parameters()])
+        if self._encoder_cache is not None and self._encoder_cache[0] == key:
+            return self._encoder_cache[1]
+        with torch.no_grad():
+            weights = (bf16_wb(sa_wb), bf16_wb(pn_wb))
+        if not self.training:
+            self._encoder_cache = (key, weights)
+        return weights
 
     def encode(self, patches: torch.Tensor) -> torch.Tensor:
         """[B, K, 3] -> latent [B, d], already spread into the quantizer
         range (AE.py:36-44)."""
-        latent = patch_encoder(patches, self.sa.layers(), self.pn.layers(),
-                               self.sa_knn)
+        latent = patch_encoder(patches, *self.encoder_weights(), self.sa_knn, bf16=self.bf16)
+        # the quantizer's arithmetic stays float32 under bf16 compute
         return sigmoid_spread(latent, self.L)
 
     def decoder_weights(self):
         """(w3r, b3r, mlp_wb, packed): the point-major expansion weight and
         bias, the inv_mlp ([in, out] weight, bias) pairs and, for weights on
         the card, the fused decoder's layout of them
-        (ops/decoder_cuda.py::pack_decoder). Made on every call in train mode;
-        in eval mode once per weights (a 64 MB permutation and its TF32
-        split at full width), dropped by train() and load_state_dict."""
+        (ops/decoder_cuda.py::pack_decoder, for the model's compute dtype).
+        Made on every call in train mode; in eval mode once per weights and
+        compute dtype (a 64 MB permutation and its TF32 split, or bf16
+        rounding, at full width), dropped by train() and load_state_dict."""
         l3 = self.inv_pool[4]
-        params = (l3.weight, l3.bias, *self.inv_mlp.parameters())
-        # the weights' storage (a move to another device) and, where a tensor
-        # has one, its version counter (an update in place; inference
-        # tensors, made under torch.inference_mode, have none)
-        key = tuple((t.data_ptr(), None if t.is_inference() else t._version) for t in params)
+        key = (self.bf16,) + weights_key((l3.weight, l3.bias, *self.inv_mlp.parameters()))
         if self._decoder_cache is not None and self._decoder_cache[0] == key:
             return self._decoder_cache[1]
         with torch.no_grad():
@@ -85,7 +110,8 @@ class PatchAE(nn.Module):
             mlp_wb = self.inv_mlp.layers()
             packed = None
             if l3.weight.is_cuda:
-                packed = pack_decoder(expansion_kmajor(l3.weight, self.k), b3r, mlp_wb)
+                packed = pack_decoder(expansion_kmajor(l3.weight, self.k), b3r, mlp_wb,
+                                      bf16=self.bf16)
         weights = (w3r, b3r, mlp_wb, packed)
         if not self.training:
             self._decoder_cache = (key, weights)
@@ -93,17 +119,25 @@ class PatchAE(nn.Module):
 
     def decoder_inputs(self, latent_q: torch.Tensor):
         """The fused decoder's arguments for [B, d] latents: inv_pool layers
-        1-2 as plain products (h2 [B, 1024]), then decoder_weights()."""
+        1-2 as plain products (h2 [B, 1024]), then decoder_weights(). In
+        bf16 as pcc_tpu's patch_decoder_fused computes them: the operands
+        rounded to bf16, float32 products and biases, h1 rounded before layer
+        2 and h2 float32."""
         l1, l2 = self.inv_pool[0], self.inv_pool[2]
-        h1 = torch.relu(latent_q @ l1.weight.t() + l1.bias)
-        h2 = torch.relu(h1 @ l2.weight.t() + l2.bias)
+        if self.bf16:
+            h1 = torch.relu(round_bf16(latent_q) @ round_bf16(l1.weight.t()) + l1.bias)
+            h2 = torch.relu(round_bf16(h1) @ round_bf16(l2.weight.t()) + l2.bias)
+        else:
+            h1 = torch.relu(latent_q @ l1.weight.t() + l1.bias)
+            h2 = torch.relu(h1 @ l2.weight.t() + l2.bias)
         return (h2.contiguous(), *self.decoder_weights())
 
     def decode(self, latent_q: torch.Tensor) -> torch.Tensor:
         """[B, d] quantized latent -> [B, k, 3] patch points (AE.py:47-53):
         the expansion, fold, tile and inv_mlp are the fused decoder."""
         h2, w3r, b3r, mlp_wb, packed = self.decoder_inputs(latent_q)
-        return patch_decoder(h2, latent_q.contiguous(), w3r, b3r, mlp_wb, self.k, packed=packed)
+        return patch_decoder(h2, latent_q.contiguous(), w3r, b3r, mlp_wb, self.k, packed=packed,
+                             bf16=self.bf16)
 
     def decode_train(self, latent_q: torch.Tensor) -> torch.Tensor:
         """The differentiable decoder (AE.py:47-53): inv_pool, the fold of
@@ -117,6 +151,9 @@ class PatchAE(nn.Module):
     def forward(self, patches: torch.Tensor):
         """Training pass (AE.py:34-55): [B, K, 3] patches -> (reconstructed
         [B, k, 3], latent [B, d], straight-through quantized latent [B, d])."""
+        if self.bf16:
+            raise NotImplementedError("PatchAE: bf16 training is not ported (bf16 serving is; "
+                                      "training in bf16 is the next slice)")
         latent = sigmoid_spread(
             patch_encoder_trainable(patches, self.sa.layers(), self.pn.layers(),
                                     self.sa_knn), self.L)

@@ -7,6 +7,10 @@ as it is and pcc_tpu's importer (cli/import_torch_checkpoint.py) reads the
 port's. Every layer computes channels-last, as a matmul on
 weight.view(out, in): never a cuDNN convolution, which would run float32 in
 TF32 by default.
+
+bf16=True is pcc_tpu's bf16 mixed precision, parameters float32: `dense`
+follows flax's Dense(dtype=bfloat16) (ops/bf16.py::flax_dense),
+`sigmoid_spread` its op-by-op bf16 form.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from pcc_tpu_torch.ops.bf16 import flax_dense, sigmoid_spread_bf16
 from pcc_tpu_torch.ops.knn import knn_points
 from pcc_tpu_torch.ops.sa_cuda import sa_fused
 from pcc_tpu_torch.parallel.mesh import global_mean, is_distributed
@@ -39,6 +44,28 @@ class PointConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x @ self.kernel()
         return y if self.bias is None else y + self.bias
+
+
+def dense(layer: nn.Module, x: torch.Tensor, bf16: bool = False,
+          to_float32: bool = False) -> torch.Tensor:
+    """A PointConv or nn.Linear (with its bias) on x [..., in]: the layer
+    itself in float32; flax's Dense(dtype=bfloat16) rule with bf16
+    (x, the kernel and the bias rounded to bf16, the product rounded, then
+    the bias added in bf16), bf16-exact float32 out. to_float32: pcc_tpu
+    casts this layer's bf16 result to float32 at once, and its last
+    rounding does not happen (ops/bf16.py::flax_dense's round_out)."""
+    if not bf16:
+        return layer(x)
+    w = layer.kernel() if isinstance(layer, PointConv) else layer.weight.t()
+    return flax_dense(x, w, layer.bias, round_out=not to_float32)
+
+
+def weights_key(tensors) -> tuple:
+    """The key of values made from `tensors` and kept: each tensor's storage
+    (a move to another device) and, where a tensor has one, its version
+    counter (an update in place; inference tensors, made under
+    torch.inference_mode, have none)."""
+    return tuple((t.data_ptr(), None if t.is_inference() else t._version) for t in tensors)
 
 
 def torch_dense_init_(module: nn.Module, generator: torch.Generator) -> None:
@@ -112,9 +139,12 @@ def ste_round(x: torch.Tensor) -> torch.Tensor:
     return x + (torch.round(x) - x).detach()
 
 
-def sigmoid_spread(latent: torch.Tensor, L: int) -> torch.Tensor:
+def sigmoid_spread(latent: torch.Tensor, L: int, bf16: bool = False) -> torch.Tensor:
     """Squash the latent into the quantizer's range [-(L-0.2)/2, +(L-0.2)/2]
-    (reference AE.py:42-44)."""
+    (reference AE.py:42-44). bf16: pcc_tpu's sigmoid_spread on a bf16
+    array, every operation rounded (ops/bf16.py::sigmoid_spread_bf16)."""
+    if bf16:
+        return sigmoid_spread_bf16(latent, L)
     spread = L - 0.2
     return torch.sigmoid(latent) * spread - spread / 2
 

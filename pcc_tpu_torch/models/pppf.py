@@ -15,6 +15,16 @@ mode:
   * train: batch statistics with flax's semantics, running statistics
     updated (pcc_tpu's XLA path with train=True): ball query, gather and
     the stack as plain products (layers.batch_norm_train).
+
+compute_dtype "bfloat16" (pcc_tpu's PPPF_AE(dtype=bfloat16) with its fused
+stages; eval mode only, parameters float32; the modules below it take
+bf16=True): each stage is the stage kernel's bf16 instance on the rounded
+weights it keeps (PointnetSAModule.bf16_layers) and its output bf16
+(pcc_tpu/models/pppf.py:79); the
+global max, sigmoid_spread in bf16 and enc_proj on flax's bf16 rule, then a
+cast to float32; dec_proj and FoldingNet on flax's rule, the grid and the
+tiled latent rounded before mlp1 (pppf.py:131-160), the output float32.
+Training in bf16 is not ported: a module in train mode raises.
 """
 
 from __future__ import annotations
@@ -25,11 +35,19 @@ import numpy as np
 import torch
 from torch import nn
 
-from pcc_tpu_torch.models.layers import (PointConv, batch_norm_train, conv_bn_relu_stack,
-                                         sigmoid_spread, stack_layers, ste_round)
+from pcc_tpu_torch.models.layers import (PointConv, batch_norm_train, conv_bn_relu_stack, dense,
+                                         sigmoid_spread, stack_layers, ste_round, weights_key)
+from pcc_tpu_torch.ops.bf16 import check_compute_dtype, round_bf16
 from pcc_tpu_torch.ops.fps import fps_batch
 from pcc_tpu_torch.ops.knn import ball_query, knn_gather
-from pcc_tpu_torch.ops.pppf_sa_cuda import fold_bn, pppf_sa_trainable
+from pcc_tpu_torch.ops.pppf_sa_cuda import (bf16_layers, fold_bn, pppf_sa_fused,
+                                            pppf_sa_trainable)
+
+
+def _no_bf16_training(module: nn.Module) -> None:
+    if module.training and module.bf16:
+        raise NotImplementedError(f"{type(module).__name__}: bf16 training is not ported "
+                                  "(bf16 serving is; training in bf16 is the next slice)")
 
 
 class PointnetSAModule(nn.Module):
@@ -39,16 +57,28 @@ class PointnetSAModule(nn.Module):
     ([B, npoint, 3], [B, npoint, mlp[-1]])."""
 
     def __init__(self, npoint: int, radius: float, nsample: int, cin: int,
-                 mlp: Sequence[int]):
+                 mlp: Sequence[int], bf16: bool = False):
         super().__init__()
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
+        self.bf16 = bf16
         self.mlp = conv_bn_relu_stack(cin, mlp)
+        self._bf16_cache = None
 
     def layers(self):
         """[(W [in, out], b, mean, mul, bias)] per layer, BatchNorm folded;
         differentiable in W, b and BatchNorm's scale and bias."""
         return [(conv.kernel(), conv.bias, *fold_bn(bn)) for conv, bn in
                 stack_layers(self.mlp)]
+
+    def bf16_layers(self):
+        """layers() with each W rounded to bf16, the bf16 stage's operands
+        (ops/pppf_sa_cuda.py::bf16_layers), made once per weights and
+        running statistics (serving only: bf16 does not train)."""
+        key = weights_key([*self.parameters(), *self.buffers()])
+        if self._bf16_cache is None or self._bf16_cache[0] != key:
+            with torch.no_grad():
+                self._bf16_cache = (key, bf16_layers(self.layers()))
+        return self._bf16_cache[1]
 
     def queries(self, xyz: torch.Tensor) -> torch.Tensor:
         """The stage's query centroids [B, npoint, 3]: the points themselves
@@ -63,6 +93,11 @@ class PointnetSAModule(nn.Module):
         xyz = xyz.contiguous()
         new_xyz = self.queries(xyz)
         feat = None if features is None else features.contiguous()
+        _no_bf16_training(self)
+        if self.bf16:
+            # bf16 values, as pcc_tpu casts the stage's output
+            return new_xyz, pppf_sa_fused(new_xyz, xyz, feat, self.bf16_layers(),
+                                          nsample=self.nsample, radius=self.radius, bf16=True)
         if not self.training:
             return new_xyz, pppf_sa_trainable(new_xyz, xyz, feat, self.layers(),
                                               nsample=self.nsample, radius=self.radius)
@@ -83,12 +118,13 @@ class PointNetPP(nn.Module):
 
     def __init__(self, points: int = 512, sa1_mlp: Sequence[int] = (64, 64, 128),
                  sa2_mlp: Sequence[int] = (128, 128, 128, 256),
-                 sa3_mlp: Sequence[int] = (256, 256, 512), feature_dim: int = 1024):
+                 sa3_mlp: Sequence[int] = (256, 256, 512), feature_dim: int = 1024,
+                 bf16: bool = False):
         super().__init__()
-        self.sa1 = PointnetSAModule(points, 0.2, 32, 3, (3,) + tuple(sa1_mlp))
-        self.sa2 = PointnetSAModule(128, 0.4, 64, sa1_mlp[-1] + 3, tuple(sa2_mlp))
+        self.sa1 = PointnetSAModule(points, 0.2, 32, 3, (3,) + tuple(sa1_mlp), bf16)
+        self.sa2 = PointnetSAModule(128, 0.4, 64, sa1_mlp[-1] + 3, tuple(sa2_mlp), bf16)
         self.sa3 = PointnetSAModule(32, 0.8, 128, sa2_mlp[-1] + 3,
-                                    tuple(sa3_mlp) + (feature_dim,))
+                                    tuple(sa3_mlp) + (feature_dim,), bf16)
 
     def forward(self, xyz: torch.Tensor):
         xyz, feat = self.sa1(xyz)
@@ -117,9 +153,11 @@ class FoldingNet(nn.Module):
     line is `grid_line`, bit-equal to the jnp.linspace(-1, 1, d) of
     pcc_tpu's jitted programs."""
 
-    def __init__(self, points: int = 512, grid_size: int = 45, feature_dim: int = 1024):
+    def __init__(self, points: int = 512, grid_size: int = 45, feature_dim: int = 1024,
+                 bf16: bool = False):
         super().__init__()
         self.grid_size = grid_size
+        self.bf16 = bf16
         self.mlp1 = nn.Sequential(
             PointConv(2 + feature_dim, points, conv_dims=1), nn.ReLU(),
             PointConv(points, points, conv_dims=1), nn.ReLU(),
@@ -137,8 +175,21 @@ class FoldingNet(nn.Module):
         grid = torch.from_numpy(np.stack([gx, gy], axis=-1).reshape(1, n, 2)).to(
             latent.device).expand(B, n, 2)
         tiled = latent[:, None, :].expand(B, n, latent.shape[-1])    # [B, n, F]
-        coarse = self.mlp1(torch.cat([grid, tiled], dim=-1))
-        return self.mlp2(torch.cat([coarse, tiled], dim=-1))
+        if not self.bf16:
+            coarse = self.mlp1(torch.cat([grid, tiled], dim=-1))
+            return self.mlp2(torch.cat([coarse, tiled], dim=-1))
+        # flax's bf16 Dense layers on the grid and the latent rounded to bf16
+        x = round_bf16(torch.cat([grid, tiled], dim=-1))
+        for mlp in (self.mlp1, self.mlp2):
+            for i in range(0, len(mlp), 2):
+                # mlp2's last layer is cast to float32 at once, unrounded
+                x = dense(mlp[i], x, bf16=True,
+                          to_float32=mlp is self.mlp2 and i + 1 == len(mlp))
+                if i + 1 < len(mlp):
+                    x = torch.relu(x)
+            if mlp is self.mlp1:
+                x = torch.cat([x, round_bf16(tiled)], dim=-1)
+        return x
 
 
 class PPPF_AE(nn.Module):
@@ -147,22 +198,28 @@ class PPPF_AE(nn.Module):
     (PPPF_AE.py:114-150). `k` is unused, as in pcc_tpu."""
 
     def __init__(self, K: int = 512, k: int = 0, d: int = 16, L: int = 7,
-                 dim: int = 1024):
+                 dim: int = 1024, compute_dtype: str = "float32"):
         super().__init__()
         self.K, self.k, self.d, self.L, self.dim = K, k, d, L, dim
-        self.encoder = PointNetPP(points=K, feature_dim=dim)
-        self.decoder = FoldingNet(points=K, grid_size=d, feature_dim=dim)
+        self.bf16 = check_compute_dtype(compute_dtype)
+        self.encoder = PointNetPP(points=K, feature_dim=dim, bf16=self.bf16)
+        self.decoder = FoldingNet(points=K, grid_size=d, feature_dim=dim, bf16=self.bf16)
         self.enc_proj = nn.Linear(dim, d)
         self.dec_proj = nn.Linear(d, dim)
 
     def encode(self, xyz: torch.Tensor) -> torch.Tensor:
-        """[B, K, 3] patches -> latent [B, d] in the quantizer's range."""
+        """[B, K, 3] patches -> latent [B, d] in the quantizer's range (in
+        bf16 each step rounded as pcc_tpu rounds it, then float32)."""
+        _no_bf16_training(self)
         _, latent = self.encoder(xyz)
-        return self.enc_proj(sigmoid_spread(latent, self.L))
+        # cast to float32 at once in pcc_tpu (pppf.py:186), unrounded
+        return dense(self.enc_proj, sigmoid_spread(latent, self.L, self.bf16), self.bf16,
+                     to_float32=True)
 
     def decode(self, latent_q: torch.Tensor) -> torch.Tensor:
         """[B, d] quantized latent -> [B, d * d, 3] patch points."""
-        return self.decoder(self.dec_proj(latent_q))
+        _no_bf16_training(self)
+        return self.decoder(dense(self.dec_proj, latent_q, self.bf16))
 
     def forward(self, xyz: torch.Tensor):
         """Training pass (PPPF_AE.py:139-150): [B, K, 3] patches ->

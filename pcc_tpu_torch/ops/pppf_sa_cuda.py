@@ -12,7 +12,11 @@ Conv + BatchNorm(eval) + ReLU stack and the max over samples ->
 float32 operations in the same order); the products sum in another order,
 so outputs agree to float32 rounding. `pppf_sa_points` and
 `pppe_sa_points` are the per-point forms the kernels compute, each equal to
-the per-slot plain version up to the order of its sums.
+the per-slot plain version up to the order of its sums. With bf16=True
+(layout "pppf", serving) the bf16 instance of the kernel runs
+(`pppf_sa_plain(..., bf16=True)` on the CPU), rounding where pcc_tpu's
+bf16 stage rounds: W (the caller's, once: `bf16_layers`), each layer's
+input rows and each relu output; b and the BatchNorm terms stay float32.
 
 `pppf_sa_bwd` is the stage's gradient against a cotangent [P, S, C_out],
 layout "pppf", BatchNorm in its eval-affine form (frozen running
@@ -32,12 +36,15 @@ import torch
 import torch.nn.functional as F
 
 from pcc_tpu_torch.ops import cuda_lib
+from pcc_tpu_torch.ops.bf16 import round_bf16
 from pcc_tpu_torch.ops.knn import ball_query, knn_gather, select_nearest, sq_dists
 from pcc_tpu_torch.ops.sa_cuda import fma_matmul
 from pcc_tpu_torch.ops.tf32_mma import wgrad_part_floats
 
 _ARGTYPES = ([cuda_lib.PTR] * 4 + [cuda_lib.INT] * 5 + [ctypes.c_float]
              + [cuda_lib.INT] * 2 + [cuda_lib.PTR] * 8)
+_BF16_ARGTYPES = ([cuda_lib.PTR] * 4 + [cuda_lib.INT] * 5 + [ctypes.c_float] + [cuda_lib.INT]
+                  + [cuda_lib.PTR] * 3)
 _BWD_ARGTYPES = ([cuda_lib.PTR] * 4 + [cuda_lib.INT] * 5 + [ctypes.c_float] + [cuda_lib.INT]
                  + [cuda_lib.PTR] * 10 + [ctypes.c_longlong, cuda_lib.INT, cuda_lib.PTR])
 LAYOUTS = ("pppf", "pppe")
@@ -70,12 +77,22 @@ def _radius2(radius: float) -> float:
     return float(np.float32(radius * radius))
 
 
+def bf16_layers(layers) -> list:
+    """layers with each W rounded to bf16 (b and the BatchNorm terms
+    float32): the layers the bf16 stage takes."""
+    return [(round_bf16(w), *rest) for w, *rest in layers]
+
+
 def pppf_sa_plain(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
-                  nsample: int, radius: float, layout: str = "pppf") -> torch.Tensor:
+                  nsample: int, radius: float, layout: str = "pppf",
+                  bf16: bool = False) -> torch.Tensor:
     """new_xyz [P, S, 3], xyz [P, N, 3], feat [P, N, C] or None, layers a
     list of (W [cin, cout], b, mean, mul, bias) -> [P, S, C_out] f32. Runs
     a chunk of patches at a time to bound the memory of the grouped
-    activations [chunk, S, nsample, C]."""
+    activations [chunk, S, nsample, C]. bf16 (pcc_tpu's
+    pppf_sa_pallas.py:90-102): W a bf16 value (`bf16_layers`), each layer's
+    input rows rounded to bf16, a float32 product + b, the BatchNorm affine
+    and relu in float32, the output rounded to bf16."""
     if layout not in LAYOUTS:
         raise ValueError(f"pppf_sa: unknown layout {layout!r}")
     P, S, _ = new_xyz.shape
@@ -96,8 +113,10 @@ def pppf_sa_plain(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
             idx = ball_query(q, pts, nsample, radius)
             x = knn_gather(pts if f is None else torch.cat([f, pts], dim=-1), idx)
         for w, b, mean, mul, bias in layers:
+            if bf16:
+                x = round_bf16(x)
             x = torch.relu(((x @ w + b) - mean) * mul + bias)
-        outs.append(x.amax(dim=2))
+        outs.append((round_bf16(x) if bf16 else x).amax(dim=2))
     return torch.cat(outs)
 
 
@@ -228,6 +247,25 @@ def pppe_plan(widths, N: int, S: int, nsample: int):
     return None
 
 
+def pppe_kernel(widths, N: int, S: int, nsample: int):
+    """Which kernel the "pppe" layout takes at these widths: "slots" (the
+    slot kernel, where `pppe_plan` finds a tile), "per_slot" (the per-slot
+    kernel, where only its smallest tile fits in shared memory) or None (the
+    wrapper raises)."""
+    if pppe_plan(widths, N, S, nsample) is not None:
+        return "slots"
+    return "per_slot" if _per_slot_words(widths, N, nsample) <= SMEM_WORDS else None
+
+
+def _per_slot_words(widths, N: int, nsample: int) -> int:
+    """Shared memory (4-byte words) of the per-slot kernel's smallest tile:
+    MIN_TILE_ROWS rows of both activation buffers, one query's maxima, slots,
+    coordinates and selection scratch (csrc/pppf_sa_stage.cu::smem_words)."""
+    pad4 = [_round4(v) for v in widths[:-1]]
+    return (MIN_TILE_ROWS * (max(pad4[0::2]) + max(pad4[1::2], default=4)) + widths[-1]
+            + nsample + (N + min(N, nsample) if nsample < N else 0) + 4)
+
+
 def _check(new_xyz, xyz, feat, layers, nsample: int, layout: str, name: str = "pppf_sa_fused"):
     """Raise on what the kernel `name` does not take; return the layer
     widths."""
@@ -266,16 +304,9 @@ def _check(new_xyz, xyz, feat, layers, nsample: int, layout: str, name: str = "p
         if any(t.data_ptr() % 16 for t in lay):
             raise ValueError(f"{name}: layer tensors must be 16-byte aligned")
         widths.append(w.shape[1])
-    if layout == "pppe":
-        if pppe_plan(widths, N, S, nsample) is None:
-            raise ValueError(f"{name}: widths {widths} with nsample={nsample}, N={N}: no tile "
-                             "of the \"pppe\" kernel fits (a layer between the first and the "
-                             "last at most 1024 wide; 32 rows of the widest layer but the last, "
-                             f"two k-slabs and the queries within {4 * SMEM_WORDS} bytes)")
+    if layout == "pppe" and pppe_plan(widths, N, S, nsample) is not None:
         return widths
-    pad4 = [_round4(v) for v in widths[:-1]]
-    words = (MIN_TILE_ROWS * (max(pad4[0::2]) + max(pad4[1::2], default=4)) + widths[-1] + nsample
-             + (N + min(N, nsample) if nsample < N else 0) + 4)
+    words = _per_slot_words(widths, N, nsample)
     if words > SMEM_WORDS:
         raise ValueError(f"{name}: widths {widths} with nsample={nsample}, N={N} "
                          f"need {4 * words} bytes of shared memory for the smallest tile "
@@ -284,7 +315,8 @@ def _check(new_xyz, xyz, feat, layers, nsample: int, layout: str, name: str = "p
 
 
 def pppf_sa_fused(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
-                  nsample: int, radius: float, layout: str = "pppf", save: bool = False):
+                  nsample: int, radius: float, layout: str = "pppf", save: bool = False,
+                  bf16: bool = False):
     """One fused PN++ SA stage over a flat patch batch (pcc_tpu's
     pppf_sa_fused): new_xyz [P, S, 3] query centroids, xyz [P, N, 3], feat
     [P, N, C] or None, layers a list of (W [cin, cout], b, mean, mul, bias)
@@ -292,7 +324,14 @@ def pppf_sa_fused(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
     kernel on CUDA tensors, the plain version on CPU tensors. The "pppe"
     layout computes as `pppe_sa_points` does: the first layer's feature
     block once per point, into a scratch [P, N, C1] allocated here (none
-    without features), then the slots, in the one launch.
+    without features), then the slots, in the one launch; at widths where
+    that kernel has no tile (`pppe_kernel`), the per-slot kernel.
+
+    bf16: the bf16 instance (launch counter "pppf_sa_stage_bf16"), layout
+    "pppf" and serving only, on layers whose W are bf16 values
+    (`bf16_layers`, which PointnetSAModule keeps). The bf16 "pppe" layout
+    and the bf16 store mode are on no path of the port (PPPE serves and
+    trains in float32; bf16 training is not ported) and raise.
 
     With `save` (layout "pppf"; the train step's forward), (out, saved):
     the kernel's store mode also writes what its backward would otherwise
@@ -302,19 +341,34 @@ def pppf_sa_fused(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
     (the per-slot kernel runs where the queries' masks do not fit)."""
     if save and layout != "pppf":
         raise ValueError("pppf_sa_fused: save applies to the \"pppf\" layout")
+    if bf16 and (layout != "pppf" or save):
+        raise ValueError("pppf_sa_fused: the bf16 instance takes the \"pppf\" layout in "
+                         "serving only; the bf16 \"pppe\" layout and store mode are on no "
+                         "path of the port")
     if new_xyz.device.type == "cpu":
         out = pppf_sa_plain(new_xyz, xyz, feat, layers, nsample=nsample, radius=radius,
-                            layout=layout)
+                            layout=layout, bf16=bf16)
         return (out, None) if save else out
     widths = _check(new_xyz, xyz, feat, layers, nsample, layout)
     P, S, _ = new_xyz.shape
     N = xyz.shape[1]
     dev = new_xyz.device
     out = torch.empty((P, S, widths[-1]), dtype=torch.float32, device=dev)
+    if bf16:
+        ptrs = (ctypes.c_void_p * (5 * len(layers)))(
+            *[t.data_ptr() for lay in layers for t in lay])
+        cuda_lib.launch(
+            "pppf_sa_stage_bf16", _BF16_ARGTYPES, new_xyz.data_ptr(), xyz.data_ptr(),
+            None if feat is None else feat.data_ptr(), out.data_ptr(), P, S, N,
+            0 if feat is None else feat.shape[2], nsample, _radius2(radius), len(layers), ptrs,
+            (ctypes.c_int * len(widths))(*widths), cuda_lib.stream_ptr(new_xyz))
+        return out
     bufs, done = None, ctypes.c_int(0)
-    # "pppe": the first layer's feature block, once per point
+    # "pppe": the first layer's feature block, once per point, where the
+    # slot kernel runs
     y = (torch.empty((P, N, widths[1]), dtype=torch.float32, device=dev)
-         if layout == "pppe" and feat is not None else None)
+         if layout == "pppe" and feat is not None
+         and pppe_plan(widths, N, S, nsample) is not None else None)
     if save:
         ws = _bwd_workspace(P, S, N, nsample, widths)
         bufs = (torch.empty(ws["sel"], dtype=torch.int32, device=dev),

@@ -9,7 +9,11 @@ PyTorch, on CPU tensors: per [N, 3] patch, knn-nearest-neighbour grouping,
 the SetAbstraction MLP with a max over neighbours, the concat with xyz, the
 PointNet MLP and a max over points -> the pre-spread latent [P, D].
 Neighbour selection is bit-equal between the two; the MLP sums run in
-another order, so latents agree to float32 rounding.
+another order, so latents agree to float32 rounding. With bf16=True the
+bf16 instance of the kernel runs (launch counter "patch_encoder_bf16";
+serving only), rounding where pcc_tpu's bf16 encoder kernel rounds
+(sa_pallas.py:163-210): every weight and bias (the caller's, once:
+`bf16_wb`), the centred neighbours and xyz, every layer's output.
 
 `patch_encoder_bwd` is its gradient against a cotangent [P, D]: the CUDA
 kernel csrc/patch_encoder_bwd.cu on CUDA tensors, `patch_encoder_bwd_plain`
@@ -39,6 +43,7 @@ import ctypes
 import torch
 
 from pcc_tpu_torch.ops import cuda_lib
+from pcc_tpu_torch.ops.bf16 import round_bf16
 from pcc_tpu_torch.ops.knn import knn_gather, select_nearest, sq_dists
 from pcc_tpu_torch.ops.tf32_mma import wgrad_part_floats
 
@@ -47,6 +52,7 @@ _ARGTYPES = ([cuda_lib.PTR, cuda_lib.INT, cuda_lib.INT, cuda_lib.INT]
 _BWD_ARGTYPES = ([cuda_lib.PTR] * 3 + [cuda_lib.INT, cuda_lib.INT, cuda_lib.INT]
                  + [cuda_lib.PTR] * 14 + [cuda_lib.INT] + [cuda_lib.PTR] * 4
                  + [ctypes.c_longlong, cuda_lib.PTR])
+_BF16_ARGTYPES = _ARGTYPES[:-2] + [cuda_lib.PTR]
 _SA_ARGTYPES = ([cuda_lib.PTR, cuda_lib.INT, cuda_lib.INT, cuda_lib.INT]
                 + [cuda_lib.PTR] * 8)
 SA_WIDTHS = (3, 32, 64, 128)
@@ -58,39 +64,62 @@ ENC_Q = 16          # csrc/encoder_common.cuh: kEncQ, the backward's winners per
 PLAIN_CHUNK = 256   # patches per pass of the plain versions (bounds their memory)
 
 
-def sa_features(p: torch.Tensor, idx: torch.Tensor, sa_wb) -> torch.Tensor:
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def bf16_wb(wb) -> list:
+    """[(w, b)] with every weight and bias rounded to bf16 (the bf16
+    encoder kernel's `load`, pcc_tpu's sa_pallas.py): the weights the bf16
+    encoder takes."""
+    return [(round_bf16(w), round_bf16(b)) for w, b in wb]
+
+
+def sa_features(p: torch.Tensor, idx: torch.Tensor, sa_wb, bf16: bool = False) -> torch.Tensor:
     """SetAbstraction in plain PyTorch: [c, N, 3] patches and their
     neighbour indices [c, N, knn] -> the centred neighbours through the
-    relu MLP, max over neighbours [c, N, 128]."""
-    h = knn_gather(p, idx) - p[:, :, None, :]
+    relu MLP, max over neighbours [c, N, 128]. bf16: the centred neighbours
+    and every layer's output rounded to bf16 (sa_wb already bf16-exact)."""
+    rnd = round_bf16 if bf16 else _identity
+    h = rnd(knn_gather(p, idx) - p[:, :, None, :])
     for w, b in sa_wb:
-        h = torch.relu(h @ w + b)
+        h = rnd(torch.relu(h @ w + b))
     return h.amax(dim=2)
 
 
-def pointwise_plain(p: torch.Tensor, idx: torch.Tensor, sa_wb, pn_wb) -> torch.Tensor:
+def pointwise_plain(p: torch.Tensor, idx: torch.Tensor, sa_wb, pn_wb,
+                    bf16: bool = False) -> torch.Tensor:
     """The encoder before its max over points, in plain PyTorch: [c, N, 3]
-    patches and their neighbour indices [c, N, knn] -> [c, N, D]."""
-    x = torch.cat([p, sa_features(p, idx, sa_wb)], dim=-1)  # [c, N, 131]
+    patches and their neighbour indices [c, N, knn] -> [c, N, D]. bf16: xyz
+    and every layer's output rounded to bf16 as well (weights bf16-exact)."""
+    rnd = round_bf16 if bf16 else _identity
+    x = torch.cat([rnd(p), sa_features(p, idx, sa_wb, bf16)], dim=-1)  # [c, N, 131]
     for i, (w, b) in enumerate(pn_wb):
         x = x @ w + b
         if i < len(pn_wb) - 1:
             x = torch.relu(x)
+        x = rnd(x)
     return x
 
 
 def patch_encoder_plain(patches: torch.Tensor, sa_wb, pn_wb, knn: int,
-                        chunk: int = PLAIN_CHUNK, return_winners: bool = False):
+                        chunk: int = PLAIN_CHUNK, return_winners: bool = False,
+                        bf16: bool = False):
     """[P, N, 3] f32 -> [P, D]. sa_wb / pn_wb: lists of ([in, out] weight,
     [out] bias) tensors. Runs `chunk` patches at a time to bound the memory
     of the [chunk, N, knn, 128] grouped activations. With return_winners,
     (latent, winners [P, D] int32): each channel's first arg-max point as
-    the kernel finds it (`winners_plain`)."""
+    the kernel finds it (`winners_plain`). bf16: the weights and biases
+    bf16 values (`bf16_wb`), the centred neighbours, xyz and every layer's
+    output rounded to bf16, products in float32 (no winners: bf16 training
+    is not ported)."""
+    if bf16 and return_winners:
+        raise ValueError("patch_encoder: no winners in bf16 (bf16 training is not ported)")
     outs, wins = [], []
     for s in range(0, patches.shape[0], chunk):
         p = patches[s:s + chunk]
         idx = select_nearest(sq_dists(p, p), knn)          # [c, N, knn]
-        z4 = pointwise_plain(p, idx, sa_wb, pn_wb)
+        z4 = pointwise_plain(p, idx, sa_wb, pn_wb, bf16)
         outs.append(z4.amax(dim=1))
         if return_winners:
             wins.append(winners_plain(p, idx, z4, sa_wb, pn_wb).to(torch.int32))
@@ -151,30 +180,35 @@ def fma_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _kernel_choices(p, idx, rows, sa_wb, pn_wb):
+def _kernel_choices(p, idx, rows, sa_wb, pn_wb, bf16: bool = False):
     """The forward of the query points `rows` [c, R] of patches p, in the
     kernels' float32 arithmetic (csrc/encoder_common.cuh), for the choices
     the backward makes on them. Returns the relu masks of the
     SetAbstraction layers 1-2 [c, R, knn, 32 / 64], the SetAbstraction
     max's first winning slot and its liveness (max > 0) [c, R, 128], the
-    PointNet relu masks [c, R, 128 / 256 / 512] and the last layer [c, R, D]."""
+    PointNet relu masks [c, R, 128 / 256 / 512] and the last layer [c, R, D].
+    bf16: the bf16 kernel's arithmetic on its weights (`bf16_wb`; the
+    centred neighbours, xyz and every layer's output rounded to bf16), the
+    replay of its forward."""
+    rnd = round_bf16 if bf16 else _identity
     q = torch.gather(p, 1, rows[..., None].expand(-1, -1, 3))            # [c, R, 3]
     nbr = torch.gather(idx, 1, rows[..., None].expand(-1, -1, idx.shape[-1]))
-    h = knn_gather(p, nbr) - q[:, :, None, :]
+    h = rnd(knn_gather(p, nbr) - q[:, :, None, :])
     sa_masks = []
     for i, (w, b) in enumerate(sa_wb):
         z = fma_matmul(h, w) + b
         if i < len(sa_wb) - 1:
             sa_masks.append(z > 0)
-            h = torch.relu(z)
+            h = rnd(torch.relu(z))
     top, slot = z.max(dim=2)                  # first slot reaching the max
-    x = torch.cat([q, torch.relu(top)], dim=-1)
+    x = torch.cat([rnd(q), rnd(torch.relu(top))], dim=-1)
     pn_masks = []
     for i, (w, b) in enumerate(pn_wb):
         x = fma_matmul(x, w) + b
         if i < len(pn_wb) - 1:
             pn_masks.append(x > 0)
             x = torch.relu(x)
+        x = rnd(x)
     return sa_masks, slot, top > 0, pn_masks, x
 
 
@@ -220,15 +254,27 @@ def _kernel_args(name: str, patches: torch.Tensor, sa_wb, pn_wb, knn: int) -> li
 
 
 def patch_encoder(patches: torch.Tensor, sa_wb, pn_wb, knn: int,
-                  return_winners: bool = False):
+                  return_winners: bool = False, bf16: bool = False):
     """[P, N, 3] f32 patches -> pre-spread latent [P, D] f32: the CUDA kernel
     on CUDA tensors, the plain version on CPU tensors. With return_winners,
     (latent, winners [P, D] int32): each latent channel's first arg-max
-    point, which the backward routes its gradient through."""
+    point, which the backward routes its gradient through. bf16: the bf16
+    instance (no winners) on weights and biases that are bf16 values
+    (`bf16_wb`, which PatchAE.encoder_weights keeps)."""
     if patches.device.type == "cpu":
-        return patch_encoder_plain(patches, sa_wb, pn_wb, knn, return_winners=return_winners)
-    args = _kernel_args("patch_encoder", patches, sa_wb, pn_wb, knn)
+        return patch_encoder_plain(patches, sa_wb, pn_wb, knn, return_winners=return_winners,
+                                   bf16=bf16)
     P, D = patches.shape[0], pn_wb[-1][0].shape[1]
+    if bf16:
+        if return_winners:
+            raise ValueError("patch_encoder: no winners in bf16 (bf16 training is not ported)")
+        args = _kernel_args("patch_encoder", patches, sa_wb, pn_wb, knn)
+        out = torch.empty((P, D), dtype=torch.float32, device=patches.device)
+        cuda_lib.launch("patch_encoder_bf16", _BF16_ARGTYPES, patches.data_ptr(), P,
+                        patches.shape[1], knn, *args, D, out.data_ptr(),
+                        cuda_lib.stream_ptr(patches))
+        return out
+    args = _kernel_args("patch_encoder", patches, sa_wb, pn_wb, knn)
     out = torch.empty((P, D), dtype=torch.float32, device=patches.device)
     win = (torch.empty((P, D), dtype=torch.int32, device=patches.device)
            if return_winners else None)

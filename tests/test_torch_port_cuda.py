@@ -19,10 +19,12 @@ from pcc_tpu_torch.coding.iprob_pppf import _qsel
 from pcc_tpu_torch.ops import fps as fps_ops
 from pcc_tpu_torch.ops.fps import fps_batch, fps_int_batch, fps_int_plain, fps_plain
 from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
-from pcc_tpu_torch.ops.pppf_sa_cuda import (pppe_plan, pppf_sa_bwd, pppf_sa_bwd_plain,
+from pcc_tpu_torch.ops.pppf_sa_cuda import (bf16_layers, pppe_kernel, pppe_plan, pppf_sa_bwd,
+                                            pppf_sa_bwd_plain,
                                             pppf_sa_fused, pppf_sa_plain, pppf_sa_points,
                                             stack_replay)
-from pcc_tpu_torch.ops.sa_cuda import (patch_encoder, patch_encoder_bwd,
+from pcc_tpu_torch.ops.sa_cuda import _kernel_choices as _enc_choices
+from pcc_tpu_torch.ops.sa_cuda import (bf16_wb, patch_encoder, patch_encoder_bwd,
                                        patch_encoder_bwd_plain, patch_encoder_plain,
                                        pointwise_plain, winners_plain)
 
@@ -584,39 +586,50 @@ def test_eval_batch_card_matches_cpu(dev):
 @pytest.mark.parametrize("case", ["points", "layers", "width", "feat", "layout", "cpu_layer",
                                   "pppe_middle", "pppe_smem"])
 def test_pppf_sa_stage_rejects_unsupported(dev, case):
-    """pppe_middle: a layer between the first and the last wider than the
-    "pppe" kernel's widest pass (1024 columns); pppe_smem: a first layer one
-    column wider than the widest whose 32-row tile fits in shared memory
-    (test_pppe_tiles launches that one)."""
+    """pppe_middle: a middle layer past the slot kernel's widest pass (1024
+    columns) and past the per-slot kernel's smallest tile (8 rows of both
+    activation buffers in shared memory); pppe_smem: a first layer past both
+    too (test_pppe_tiles launches the widest of each kernel that fit). No
+    launch."""
     g = torch.Generator().manual_seed(7)
     N = 2048 if case == "points" else 32
     xyz = torch.rand((2, N, 3), generator=g).to(dev)
     feat = torch.rand((2, 16 if case == "feat" else N, 5), generator=g).to(dev)
-    widths = {"layers": (8,) * 8, "width": (8, 70000), "pppe_middle": (16, 1032, 8),
-              "pppe_smem": (1289, 8)}.get(case, (8, 16))
+    widths = {"layers": (8,) * 8, "width": (8, 70000), "pppe_middle": (16, 7300, 8),
+              "pppe_smem": (7300, 8)}.get(case, (8, 16))
     layers = _stage_layers(g, (8,) + widths, dev)
     if case == "cpu_layer":
         layers[0] = tuple(t.cpu() for t in layers[0])
+    layout = "pppe" if case.startswith("pppe") else {"layout": "other"}.get(case, "pppf")
+    if layout == "pppe":
+        assert pppe_kernel([8, *widths], N, 8, 8) is None
+    before = cuda_lib.launches["pppf_sa_stage"]
     with pytest.raises(ValueError):
         pppf_sa_fused(xyz[:, :8].contiguous(), xyz, feat, layers, nsample=8, radius=0.4,
-                      layout="pppe" if case.startswith("pppe") else
-                      {"layout": "other"}.get(case, "pppf"))
+                      layout=layout)
+    assert cuda_lib.launches["pppf_sa_stage"] == before
 
 
 @pytest.mark.parametrize("widths,plan", [((16, 384, 8), (2, 16)), ((16, 1024, 8), (1, 16)),
-                                         ((1288, 8), (1, 16))])
+                                         ((1288, 8), (1, 16)), ((16, 1032, 8), None),
+                                         ((1289, 8), None), ((16, 1536, 8), None),
+                                         ((16, 7200, 8), None), ((7200, 8), None)])
 def test_pppe_tiles(dev, widths, plan):
     """The "pppe" kernel's narrower tiles, as ops/pppf_sa_cuda.py::pppe_plan
     predicts the launcher picks them (a middle layer 384 and 1024 wide; the
-    widest first layer whose 32-row tile fits, one column short of
-    test_pppf_sa_stage_rejects_unsupported's pppe_smem): within 1e-4 of the
-    plain version's largest entry, two launches bitwise equal."""
+    widest first layer whose 32-row tile fits), and past them (plan None: a
+    middle layer 1032, 1536 and 7200 wide, a first layer of 1289 and 7200,
+    which raised before the per-slot route came back) the per-slot kernel,
+    up to the widest whose smallest tile fits (test_pppf_sa_stage_rejects_
+    unsupported's pppe cases lie past it): within 1e-4 of the plain
+    version's largest entry, two launches bitwise equal."""
     g = torch.Generator().manual_seed(8)
     xyz = torch.rand((2, 32, 3), generator=g).to(dev)
     feat = torch.rand((2, 32, 5), generator=g).to(dev)
     layers = _stage_layers(g, (8,) + widths, dev)
     got = pppe_plan([8, *widths], 32, 8, 8)
-    assert (got["wm"], got["nt"]) == plan
+    assert pppe_kernel([8, *widths], 32, 8, 8) == ("slots" if plan else "per_slot")
+    assert (got and (got["wm"], got["nt"])) == plan
     kw = dict(nsample=8, radius=0.0, layout="pppe")
     new_xyz = xyz[:, :8].contiguous()
     out = pppf_sa_fused(new_xyz, xyz, feat, layers, **kw)
@@ -1067,3 +1080,123 @@ def test_pppe_train_step_card_vs_cpu(dev, record_property):
     assert bool(aux["skipped"])
     for s, t in zip(saved, (card.params, card.stats, card.mu, card.nu, card.count)):
         assert torch.equal(s, t)
+
+
+# ----------------------------------------------------- the bf16 instances --
+
+BF16_SHARE = 0.95         # entries bit-equal to the plain version at least
+BF16_TOL = 2.0 ** -7      # of the output's largest |entry|
+
+
+def _hold_bf16(out, ref):
+    """The bf16 kernels against their plain versions: at least BF16_SHARE
+    of the entries bit-equal (float32 sums in another order move a bf16
+    rounding now and then), every entry within BF16_TOL of the largest
+    |entry|, every entry bf16-exact."""
+    assert out.shape == ref.shape
+    assert torch.equal(out.to(torch.bfloat16).float(), out)
+    assert float((out == ref).double().mean()) >= BF16_SHARE
+    assert float((out - ref).abs().max()) <= BF16_TOL * float(ref.abs().max())
+
+
+# (P, N, knn, D): tiny, a ragged patch count, the path's patches and widths
+@pytest.mark.parametrize("P,N,knn,D", [(5, 32, 8, 4), (37, 256, 16, 16), (4096, 256, 16, 16)])
+def test_patch_encoder_bf16_kernel(dev, P, N, knn, D):
+    """The bf16 encoder: held to its plain version (_hold_bf16), to the
+    replay of its arithmetic (_kernel_choices in bf16) on 16 patches, and two
+    launches bitwise equal."""
+    g = torch.Generator().manual_seed(21)
+    pts = ((torch.rand((P, N, 3), generator=g) * 2 - 1) * 0.4).to(dev)
+    # the bf16 encoder's weights: bf16 values (as PatchAE.encoder_weights
+    # keeps them)
+    sa = bf16_wb(_wb(g, [3, 32, 64, 128], dev))
+    pn = bf16_wb(_wb(g, [131, 128, 256, 512, D], dev))
+    before = dict(cuda_lib.launches)
+    out = patch_encoder(pts, sa, pn, knn, bf16=True)
+    assert cuda_lib.launches["patch_encoder_bf16"] == before["patch_encoder_bf16"] + 1
+    assert cuda_lib.launches["patch_encoder"] == before["patch_encoder"]
+    _hold_bf16(out, patch_encoder_plain(pts, sa, pn, knn, bf16=True))
+    p = pts[:16]
+    rows = torch.arange(N, device=dev).expand(p.shape[:2]).contiguous()
+    replay = _enc_choices(p, select_nearest(sq_dists(p, p), knn), rows, sa, pn,
+                          bf16=True)[-1].amax(dim=1)
+    assert float((out[:16] == replay).double().mean()) >= 0.999
+    assert torch.equal(patch_encoder(pts, sa, pn, knn, bf16=True), out)
+
+
+@pytest.mark.parametrize("P,d,k", [(9, 4, 16), (129, 16, 128), (4096, 16, 128)])
+def test_patch_decoder_bf16_kernel(dev, P, d, k):
+    """The bf16 decoder (.bf16 wgmma, one a k = 16 step) on its
+    own weight layout: held to its plain version, two launches bitwise
+    equal; the float32 layout or instance is refused."""
+    h2, lat, w3r, b3r, mlp, k = _decoder_case(dev, P, d, k, seed=22)
+    packed = pack_decoder(w3r.t().contiguous(), b3r, mlp, bf16=True)
+    assert packed.bf16 and packed.w_lo is packed.w_hi
+    before = dict(cuda_lib.launches)
+    out = patch_decoder(h2, lat, w3r, b3r, mlp, k, packed=packed, bf16=True)
+    assert cuda_lib.launches["patch_decoder_bf16"] == before["patch_decoder_bf16"] + 1
+    assert cuda_lib.launches["patch_decoder"] == before["patch_decoder"]
+    _hold_bf16(out, patch_decoder_plain(h2, lat, w3r, b3r, mlp, k, bf16=True))
+    assert torch.equal(patch_decoder(h2, lat, w3r, b3r, mlp, k, packed=packed, bf16=True), out)
+    with pytest.raises(ValueError, match="other instance"):
+        patch_decoder(h2, lat, w3r, b3r, mlp, k, packed=packed)
+
+
+# the three PPPF-AE stages at full width (a slice of the path's P = 1024),
+# the CPU tests' widths, nsample > N, one narrow layer
+_BF16_STAGES = [
+    (64, 256, 256, 0, 32, 0.2, (3, 64, 64, 128)),
+    (64, 128, 256, 128, 64, 0.4, (128, 128, 128, 256)),
+    (64, 32, 128, 256, 128, 0.8, (256, 256, 512, 1024)),
+    (4, 32, 64, 21, 16, 0.4, (24, 16, 32)),
+    (7, 8, 32, 37, 32, 0.8, (40, 32, 48)),
+    (3, 5, 40, 0, 12, 0.3, (7,)),
+]
+
+
+@pytest.mark.parametrize("P,S,N,C,nsample,radius,widths", _BF16_STAGES)
+def test_pppf_sa_stage_bf16_kernel(dev, P, S, N, C, nsample, radius, widths):
+    """The bf16 "pppf" stage: held to its plain version, two launches
+    bitwise equal, with negative BatchNorm multipliers and bf16 features."""
+    g = torch.Generator().manual_seed(23)
+    xyz = torch.rand((P, N, 3), generator=g).to(dev)
+    new_xyz = xyz if S == N else xyz[:, torch.randint(0, N, (S,), generator=g)].contiguous()
+    feat = (torch.rand((P, N, C), generator=g).to(torch.bfloat16).float().to(dev)
+            if C else None)
+    layers = bf16_layers(_stage_layers(g, (C + 3,) + tuple(widths), dev))
+    kw = dict(nsample=nsample, radius=radius, bf16=True)
+    before = dict(cuda_lib.launches)
+    out = pppf_sa_fused(new_xyz, xyz, feat, layers, **kw)
+    assert cuda_lib.launches["pppf_sa_stage_bf16"] == before["pppf_sa_stage_bf16"] + 1
+    assert cuda_lib.launches["pppf_sa_stage"] == before["pppf_sa_stage"]
+    _hold_bf16(out, pppf_sa_plain(new_xyz, xyz, feat, layers, **kw))
+    assert torch.equal(pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), out)
+
+
+@pytest.mark.parametrize("case", ["pppe", "save", "winners", "enc_points", "dec_d65",
+                                  "dec_cpu"])
+def test_bf16_instances_reject_unsupported(dev, case):
+    """What no path of the port takes in bf16 (the "pppe" layout, the
+    stage's store mode, the encoder's winners) and shapes outside an
+    instance's domain raise before any launch."""
+    g = torch.Generator().manual_seed(24)
+    before = dict(cuda_lib.launches)
+    with pytest.raises(ValueError):
+        if case in ("pppe", "save"):
+            xyz = torch.rand((2, 32, 3), generator=g).to(dev)
+            layers = _stage_layers(g, (3, 16, 8), dev)
+            pppf_sa_fused(xyz[:, :8].contiguous(), xyz, None, layers, nsample=8, radius=0.4,
+                          layout="pppe" if case == "pppe" else "pppf", save=case == "save",
+                          bf16=True)
+        elif case in ("winners", "enc_points"):
+            N = 24 if case == "enc_points" else 32
+            pts = torch.rand((2, N, 3), generator=g).to(dev)
+            patch_encoder(pts, _wb(g, [3, 32, 64, 128], dev), _wb(g, [131, 128, 256, 512, 4], dev),
+                          8, return_winners=case == "winners", bf16=True)
+        else:
+            h2, lat, w3r, b3r, mlp, k = _decoder_case(dev, 40, 65 if case == "dec_d65" else 16,
+                                                      16)
+            if case == "dec_cpu":
+                mlp[0] = tuple(t.cpu() for t in mlp[0])
+            patch_decoder(h2, lat, w3r, b3r, mlp, k, bf16=True)
+    assert cuda_lib.launches == before
