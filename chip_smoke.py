@@ -21,7 +21,10 @@ CPU; then runs the train steps and the codec through the data-parallel
 launcher (pcc_tpu_torch/parallel/mesh.py): one rank on NCCL, and two
 ranks sharing the card over gloo; then both families' serving paths in
 bf16 mixed precision (CodecConfig(compute_dtype="bfloat16"), the CLIs'
---bf16) on the bf16 instances of the encoder, decoder and stage kernels.
+--bf16) on the bf16 instances of the encoder, decoder and stage kernels;
+then the repo's large-scene rooms (65,536 and 100,000 points) through the
+codec, and IPDAE training in bf16 (train --bf16) on the bf16 instances of
+the encoder and its backward.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card, power limit, torch and CUDA versions;
@@ -250,7 +253,36 @@ Phases (any failed check raises, and the script exits non-zero):
      the path's three stage shapes, as in 28; then compress --bf16 ->
      decompress --bf16 through the CLIs on BF16_CLI_CLOUDS clouds of each
      family, on phases 27 and 29's weights written as pcc_tpu's pickles
-     (the IPDAE streams phase 27's bytes).
+     (the IPDAE streams phase 27's bytes);
+ 30. eval/gen_rooms.py's large-scene rooms (ROOM_SIZES: four of 65,536
+     points and one of 100,000, seeded; S = 512 and 781) through
+     Codec.compress_many -> decompress_many at batch ROOM_BATCH on phase 3's
+     weights (large_scene_phase): launches (fps and patch_encoder once per
+     batch, patch_decoder once per decode batch), each batch's FPS
+     bit-equal to fps_plain and timed with its bound (fps_check), .s.bin
+     and .c.bin byte-equal to the CPU port's, the card's .p.bin decoded on
+     the card and on the CPU port to the encoder's symbols, decoded clouds
+     [S * k, 3] finite;
+ 31. the bf16 IPDAE train step (CodecConfig(compute_dtype="bfloat16"),
+     train --bf16) on 8 clouds of 8192 points, TRAIN_STEPS counted steps:
+     launches per step fps 1, patch_encoder_bf16 1 (its latent and, in the
+     second half of its grid, the winners of the backward's replay),
+     patch_encoder_bwd_bf16 1, chamfer_fwd and chamfer_bwd 1, bf16_reduce
+     the same count each step (the bias gradients' bf16 reductions), every
+     other kernel 0; finite losses, parameters moved, step time, peak
+     memory, a profile;
+ 32. the bf16 encoder backward against its plain version on phase 31's
+     recorded step (every output within TOL_BWD of the plain version's
+     largest entry, two launches bitwise equal, the winners the step's and
+     the plain version's, the latent the serving instance's; times, the
+     bound on the bf16 tensor cores and in float32), and every bf16_reduce
+     call of the step bit-equal to its plain version;
+ 33. one bf16 train step at TINY on the card and on the CPU port (loss,
+     gradients and parameters within tests/test_torch_port_train_bf16.py's
+     bounds);
+ 34. cli/train.py --bf16 --max_steps 3 into compress --bf16 and decompress
+     --bf16 on the checkpoint it wrote, with launches per run; the train
+     CLI's refusal of --bf16 with --model PPPF-AE and with --devices 2.
 The line before the last is the kernels' JSON record (the IPDAE serving
 path's launch counts for fps, patch_encoder and patch_decoder, the counted
 train steps' for patch_encoder_bwd, the PPPF-AE path's for pppf_sa_stage
@@ -266,8 +298,11 @@ as launches_pppf and launches_pppe and every float shape it was held and
 timed at (phases 4, 10, 13, 16, 20) under `shapes`, pppf_sa_stage its
 launches per fused step; phase 20's per-slot "pppe" route, with no launch
 on a path; phases 27-29's patch_encoder_bf16, patch_decoder_bf16 and
-pppf_sa_stage_bf16 with their launches on the bf16 paths); the last line
-is {"ok": true, "device": {...}}.
+pppf_sa_stage_bf16 with their launches on the bf16 paths; phase 30's FPS
+shapes under fps's `shapes`, its launches as launches_rooms; phases 31-32's
+patch_encoder_bwd_bf16 and bf16_reduce with their launches over the counted
+bf16 train steps, patch_encoder_bf16's per bf16 step); the last line is
+{"ok": true, "device": {...}}.
 Without a card it exits 1 and prints no result.
 """
 
@@ -307,7 +342,7 @@ from pcc_tpu_torch.ops.pppf_sa_cuda import (PPPFStageFn, pppe_kernel, pppf_sa_bw
                                             pppf_sa_plain,
                                             pppf_sa_points, stage_bwd_flops, stage_bwd_work,
                                             stage_flops)
-from pcc_tpu_torch.ops.sa_cuda import (PatchEncoderFn, _kernel_choices, _unflatten,
+from pcc_tpu_torch.ops.sa_cuda import (PatchEncoderFn, _kernel_choices, _unflatten, bf16_wb,
                                        patch_encoder, patch_encoder_bwd, patch_encoder_bwd_plain,
                                        patch_encoder_plain, pointwise_plain, sa_fused,
                                        sa_fused_plain, winners_plain)
@@ -426,6 +461,20 @@ SPREAD_STD = 1.5
 # and PPPF-AE's encoder BatchNorm scales multiplied by this gain: at the
 # seeded ones its feature varies between patches by less than a bf16 step
 PPPF_BN_GAIN = 2.0
+# phase 30: eval/gen_rooms.py's large-scene rooms at the recipe's
+# --batch_size 4 (eval/GOLDEN.md), one batch of four 65,536-point rooms and
+# the 100,000-point room (S = 512 and 781)
+ROOM_SIZES = (65536,) * 4 + (100000,)
+ROOM_BATCH = 4
+# phases 31-33: bf16 IPDAE training. The TINY step card vs the CPU port, and
+# the bf16 backward kernel vs its plain version, with the bounds of
+# tests/test_torch_port_train_bf16.py (each of a tensor's largest |entry|):
+# the encoder's gradients, flax's Dense weights' (one bf16 rounding of a
+# float32 sum each), flax's biases' (a bf16 reduction)
+TOL_BF16_ENC = 2.0 ** -10
+TOL_BF16_GRAD = 2.0 ** -7
+TOL_BF16_BIAS = 2.0 ** -4
+BF16_PARAM_SHARE = 0.99
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -441,6 +490,42 @@ def synthetic_clouds(n: int, N: int, seed: int) -> list:
     pts = np.take_along_axis(centres, which[..., None], 1) \
         + rng.standard_normal((n, N, 3)) * 0.15
     return [c.astype(np.float32) for c in pts]
+
+
+def room_cloud(rng, n: int) -> np.ndarray:
+    """One synthetic room of n points, eval/gen_rooms.py's generator (the
+    large-scene recipe's, eval/GOLDEN.md): floor, ceiling and walls plus 4-8
+    furniture boxes, surface-sampled by area, with 5 mm of noise."""
+    w, d, h = rng.uniform(4, 10), rng.uniform(4, 10), rng.uniform(2.5, 4)
+    quads = [(np.zeros(3), np.array([w, 0, 0]), np.array([0, d, 0]), w * d),
+             (np.array([0, 0, h]), np.array([w, 0, 0]), np.array([0, d, 0]), w * d)]
+    for o, e1 in [((0, 0, 0), (w, 0, 0)), ((0, d, 0), (w, 0, 0)), ((0, 0, 0), (0, d, 0)),
+                  ((w, 0, 0), (0, d, 0))]:
+        quads.append((np.array(o, float), np.array(e1, float), np.array([0, 0, h]),
+                      np.linalg.norm(e1) * h))
+    for _ in range(rng.integers(4, 9)):
+        bw, bd, bh = rng.uniform(0.4, 2.0, 3)
+        bo = np.array([rng.uniform(0, w - bw), rng.uniform(0, d - bd), 0.0])
+        for o, e1, e2 in [(bo + [0, 0, bh], [bw, 0, 0], [0, bd, 0]),
+                          (bo, [bw, 0, 0], [0, 0, bh]), (bo + [0, bd, 0], [bw, 0, 0], [0, 0, bh]),
+                          (bo, [0, bd, 0], [0, 0, bh]), (bo + [bw, 0, 0], [0, bd, 0], [0, 0, bh])]:
+            e1, e2 = np.array(e1, float), np.array(e2, float)
+            quads.append((o, e1, e2, np.linalg.norm(e1) * np.linalg.norm(e2)))
+    areas = np.array([q[3] for q in quads])
+    counts = rng.multinomial(n, areas / areas.sum())
+    pts = []
+    for (o, e1, e2, _), c in zip(quads, counts):
+        u, v = rng.random((2, c))
+        pts.append(o + u[:, None] * e1 + v[:, None] * e2)
+    pc = np.concatenate(pts).astype(np.float32)
+    return pc + rng.standard_normal(pc.shape).astype(np.float32) * 0.005
+
+
+def rooms(sizes, seed: int) -> list:
+    """Synthetic rooms of the given point counts from a numpy seed
+    (room_cloud)."""
+    rng = np.random.default_rng(seed)
+    return [room_cloud(rng, n) for n in sizes]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -3112,6 +3197,391 @@ def bf16_cli_phase(clouds, states: dict, streams27) -> dict:
     return out
 
 
+def cpu_skeleton_streams(card: Codec, clouds, starts) -> list:
+    """The CPU port's .s.bin and .c.bin of clouds (the same upload, normalize,
+    FPS, octree analysis and serializer as Codec.compress_many, run on the
+    CPU, batched by size as it batches; the latents' stream is not made):
+    [(s, c)] in input order."""
+    import pcc_tpu_torch.codec as codec_mod
+    from pcc_tpu_torch.coding.octree import octree_analyze
+    from pcc_tpu_torch.ops.normalize import normalize
+
+    cfg = card.cfg
+    out = [None] * len(clouds)
+    by_n: dict = {}
+    for i, pc in enumerate(clouds):
+        by_n.setdefault(pc.shape[0], []).append(i)
+    for N, idxs in by_n.items():
+        c = cfg.with_n(N)
+        for lo in range(0, len(idxs), card.batch_size):
+            batch = idxs[lo:lo + card.batch_size]
+            packed = pack_encode_upload(np.stack([clouds[i] for i in batch]),
+                                        np.asarray([starts[i] for i in batch], np.int32))
+            t = torch.from_numpy(packed.view(np.int32))
+            pcs, st = unpack_encode_upload(t, N)
+            pc01, center, longest = normalize(pcs, c.margin, codec_mod.upload_values(t, N))
+            idx = fps_plain(pc01.contiguous(), c.S, st)
+            sampled = torch.gather(pc01, 1, idx.long()[..., None].expand(-1, -1, 3))
+            octree = octree_analyze(sampled, c.N, c.min_bpp, c.max_depth)
+            B = len(batch)
+            res = codec_mod.EncodeResult(
+                sym=torch.zeros((B, c.S, c.d), dtype=torch.int8),
+                weights=torch.full((B, c.S, c.d, c.L), (1 << 16) // c.L, dtype=torch.int32),
+                sorted_codes=octree.sorted_codes, depth=octree.depth, center=center,
+                longest=longest)
+            for i, (_, s_bytes, c_bytes) in zip(batch, card.serialize(res)):
+                out[i] = (s_bytes, c_bytes)
+    return out
+
+
+def large_scene_phase(dev, ae_state, prob_state, cpu: Codec) -> tuple:
+    """Phase 30: eval/gen_rooms.py's rooms (ROOM_SIZES, seeded) through
+    Codec.compress_many -> decompress_many at --batch_size ROOM_BATCH on
+    phase 3's random weights, S = 512 and 781: launches (fps and
+    patch_encoder once per batch, patch_decoder once per decode batch),
+    every FPS call bit-equal to fps_plain and timed (fps_check: ms, device
+    ms, bound), .s.bin / .c.bin byte-equal to the CPU port's
+    (cpu_skeleton_streams), the card's .p.bin decoded on the CPU port to the
+    card's symbols, which equal the encoder's, decoded clouds [S * k, 3]
+    finite. Returns (the FPS records, a summary)."""
+    cfg = CodecConfig()
+    clouds = rooms(ROOM_SIZES, SEED)
+    card = Codec(cfg, ae_state, prob_state, batch_size=ROOM_BATCH, device="cuda")
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    with recording_fps() as calls:
+        t0 = time.perf_counter()
+        streams = card.compress_many(clouds)
+        t_enc = time.perf_counter() - t0
+    enc_launches = dict(cuda_lib.launches)
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    decoded = card.decompress_many(streams)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    dec_launches = dict(cuda_lib.launches)
+    batches = len(calls)
+    for got, want, what in ((enc_launches, want_launches(batches, fps=1, patch_encoder=1),
+                             "compress"),
+                            (dec_launches, want_launches(batches, patch_decoder=1), "decompress")):
+        if got != want:
+            raise RuntimeError(f"large-scene {what} launches {got} != {want}")
+    for pc, room in zip(decoded, clouds):
+        S = cfg.with_n(room.shape[0]).S
+        if pc.shape != (S * cfg.k, 3) or not np.isfinite(pc).all():
+            raise RuntimeError(f"large-scene decode of {room.shape[0]} points: {pc.shape}")
+    cpu_sc = cpu_skeleton_streams(card, clouds, [0] * len(clouds))
+    for j, ((_, s, c), (s_cpu, c_cpu)) in enumerate(zip(streams, cpu_sc)):
+        if s != s_cpu or c != c_cpu:
+            raise RuntimeError(f"room {j}: the card's .s.bin/.c.bin differ from the CPU port's")
+    fps_recs = []
+    with torch.inference_mode():
+        for call in calls:
+            B, N = call[1].shape[:2]
+            fps_recs.append(fps_check(f"large-scene rooms, {B} of {N} points", call))
+        lo = 0
+        for call in calls:
+            B, N = call[1].shape[:2]
+            idxs = list(range(lo, lo + B))
+            lo += B
+            group = [streams[i] for i in idxs]
+            recs = skeletons(group)
+            sym = card.encode_batch(np.stack([clouds[i] for i in idxs]),
+                                    np.zeros(B, np.int32)).sym.cpu().numpy()
+            for who, codec in (("card", card), ("CPU port", cpu)):
+                got = codec.decode_symbols(recs, [p for p, _, _ in group])
+                if not np.array_equal(got, sym):
+                    raise RuntimeError(f"rooms of {N} points: the {who} decodes the card's "
+                                       ".p.bin to other symbols than the encoder's")
+    bpp = [8 * (len(p) + len(s) + len(c)) / room.shape[0]
+           for (p, s, c), room in zip(streams, clouds)]
+    summary = dict(rooms=list(ROOM_SIZES), batch_size=ROOM_BATCH, encode_ms=t_enc * 1e3,
+                   decode_ms=t_dec * 1e3, launches_compress=enc_launches,
+                   launches_decompress=dec_launches, mean_bpp=float(np.mean(bpp)))
+    log(f"phase 30, large-scene rooms {list(ROOM_SIZES)} at batch {ROOM_BATCH}: encode "
+        f"{t_enc * 1e3:.1f} ms, decode {t_dec * 1e3:.1f} ms, {np.mean(bpp):.4f} bits per "
+        "point; FPS bit-equal to fps_plain, .s.bin/.c.bin byte-equal to the CPU port's, "
+        "the card's .p.bin decoded on the card and on the CPU to the encoder's symbols")
+    return fps_recs, summary
+
+
+@contextlib.contextmanager
+def recording_bf16_reduce(grids: list):
+    """Record the inputs of every bf16_reduce call (the bf16 step's bias and
+    tiled-feature gradients) while active."""
+    import pcc_tpu_torch.ops.bf16 as bf16_mod
+
+    reduce = bf16_mod.bf16_reduce
+
+    def recording(g):
+        grids.append(g.detach().clone())
+        return reduce(g)
+
+    bf16_mod.bf16_reduce = recording
+    try:
+        yield
+    finally:
+        bf16_mod.bf16_reduce = reduce
+
+
+def bf16_train_phase(dev, smi: str) -> tuple:
+    """Phase 31: the bf16 IPDAE train step (CodecConfig(compute_dtype=
+    "bfloat16"), build_train_step as cli/train.py --bf16 builds it) on
+    TRAIN_CLOUDS clouds of 8192 points: one uncounted and TRAIN_STEPS counted
+    steps, launches per step fps 1, patch_encoder_bf16 1, patch_encoder_bwd_bf16
+    1, chamfer_fwd 1, chamfer_bwd 1 and bf16_reduce as many times each step
+    (the levels of the decoder's and probability model's bias gradients),
+    every other kernel 0; finite losses, parameters moved; median step
+    time, points/s, peak memory, one step under torch.profiler; then one
+    more step recording the encoder backward's and bf16_reduce's inputs.
+    Returns (the recordings, the summary)."""
+    cfg = CodecConfig(compute_dtype="bfloat16")
+    B = TRAIN_CLOUDS
+    batch = torch.from_numpy(np.stack(synthetic_clouds(B, cfg.N, SEED))).to(dev)
+    tx = make_optimizer(5e-4, 0.1, 60000, 80000)
+    state = create_train_state(SEED, cfg, tx, device="cuda")
+    step = build_train_step(cfg, tx, rate_mode="reference")
+    gen = torch.Generator().manual_seed(SEED + 1)
+
+    def starts():
+        return torch.randint(0, cfg.N, (B,), generator=gen, dtype=torch.int32).to(dev)
+
+    before = [p.detach().clone() for _, p in state.named_parameters()]
+    step(state, batch, starts(), TRAIN_LAM)                    # warm-up, uncounted
+    times, auxes, launches, peak = timed_steps(
+        lambda: step(state, batch, starts(), TRAIN_LAM)[1], TRAIN_STEPS)
+    per = launches["bf16_reduce"] // TRAIN_STEPS
+    want = want_launches(TRAIN_STEPS, fps=1, patch_encoder_bf16=1, patch_encoder_bwd_bf16=1,
+                         chamfer_fwd=1, chamfer_bwd=1, bf16_reduce=per)
+    if per <= 0 or launches != want:
+        raise RuntimeError(f"bf16 train launches {launches} != {want}")
+    losses = torch.stack([a["loss"] for a in auxes]).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"non-finite bf16 train loss: {losses}")
+    moved = sum(not torch.equal(a, p.detach()) for a, (_, p) in
+                zip(before, state.named_parameters()))
+    if moved == 0:
+        raise RuntimeError("no parameter moved in bf16 training")
+    ms = float(np.median(times)) * 1e3
+    log(f"phase 31, bf16 train: {B} clouds x {cfg.N} points per step; launches over "
+        f"{TRAIN_STEPS} steps {launches}; median step {ms:.2f} ms (steps {min(times) * 1e3:.2f} "
+        f"to {max(times) * 1e3:.2f} ms), {B * cfg.N / (ms / 1e3):.0f} points/s on {smi}; "
+        f"peak memory {peak:.2f} GiB; losses {losses[0]:.6f} -> {losses[-1]:.6f}; {moved} of "
+        f"{len(before)} parameter tensors moved")
+    prof = profile("bf16 train step", lambda: step(state, batch, starts(), TRAIN_LAM), top=14)
+    rec, grids = {}, []
+    with recording_encoder_bwd(rec), recording_bf16_reduce(grids):
+        step(state, batch, starts(), TRAIN_LAM)
+    summary = dict(step_ms=ms, points_per_s=B * cfg.N / (ms / 1e3), peak_gib=peak,
+                   launches_per_step={k: v // TRAIN_STEPS for k, v in launches.items() if v},
+                   profile=prof)
+    return rec, grids, launches, summary
+
+
+def bf16_backward_check(rec: dict, launches: dict) -> dict:
+    """Phase 32: the bf16 encoder backward kernel vs its plain version on
+    phase 31's recorded step (patches [512, 256, 3], the winners its forward
+    handed over, its cotangent, the float32 weights): the forward's winners
+    again the step's, the plain version's on REPLAY_PATCHES patches, its
+    latent bit for bit the serving instance's; every backward output within
+    TOL_BWD of the plain version's largest entry, two launches bitwise
+    equal; CUDA-event and device times, the plain version's, the bound
+    (the winners' rows' work with the products on the bf16 tensor cores, and
+    in float32), the forward's time with its winners half and without."""
+    cfg = CodecConfig()
+    knn = cfg.sa_knn
+    patches, win, g = rec["patches"], rec["winners"], rec["g"]
+    sa_wb, pn_wb = _unflatten(rec["wb"])
+    sa16, pn16 = bf16_wb(sa_wb), bf16_wb(pn_wb)
+    with torch.no_grad():
+        lat, again = patch_encoder(patches, sa_wb, pn_wb, knn, return_winners=True, bf16=True)
+        if not torch.equal(again, win):
+            raise RuntimeError("patch_encoder_bf16's winners differ from the step's")
+        if not torch.equal(lat, patch_encoder(patches, sa16, pn16, knn, bf16=True)):
+            raise RuntimeError("patch_encoder_bf16's latent with winners differs from serving's")
+        p = patches[:REPLAY_PATCHES]
+        plain_win = patch_encoder_plain(p, sa_wb, pn_wb, knn, return_winners=True, bf16=True)[1]
+        if not torch.equal(plain_win, win[:REPLAY_PATCHES]):
+            n = int((plain_win != win[:REPLAY_PATCHES]).sum())
+            raise RuntimeError(f"{n} of patch_encoder_bf16's winners differ from the plain "
+                               "version's")
+    kern = lambda: flat_grads(patch_encoder_bwd(patches, g, sa_wb, pn_wb, knn,  # noqa: E731
+                                                winners=win, bf16=True))
+    plain = lambda: flat_grads(patch_encoder_bwd_plain(patches, g, sa_wb, pn_wb,  # noqa: E731
+                                                       knn, winners=win, bf16=True))
+    a, b = kern(), plain()
+    rel = []
+    for x, y in zip(a, b):
+        err, big = float((x - y).abs().max()), float(y.abs().max())
+        if not err <= TOL_BWD * big:
+            raise RuntimeError(f"patch_encoder_bwd_bf16 differs from the plain version on "
+                               f"{tuple(y.shape)}: {err} > {TOL_BWD} * {big}")
+        rel.append(err / big if big else 0.0)
+    if not all(torch.equal(x, y) for x, y in zip(a, kern())):
+        raise RuntimeError("two launches of patch_encoder_bwd_bf16 differ")
+    P, K = patches.shape[:2]
+    _, sa_mac, pn_mac = encoder_flops(P, K, knn, cfg.d)
+    rows = sum(len(torch.unique(r)) for r in win)
+    flops = 2.0 * rows * (pn_mac + sa_mac) + 4.0 * rows * (pn_mac + sa_mac - (knn - 1) * 64 * 128)
+    w_bytes = nbytes(*[t for wb in sa_wb + pn_wb for t in wb])
+    bms, by, bms32 = bf16_bounds(0.0, flops, 2 * nbytes(patches) + nbytes(g, win) + 2 * w_bytes)
+    fwd_ms = cuda_ms(lambda: patch_encoder(patches, sa16, pn16, knn, bf16=True), 5)
+    fwd_win_ms = cuda_ms(lambda: patch_encoder(patches, sa_wb, pn_wb, knn, return_winners=True,
+                                               bf16=True), 5)
+    out = dict(
+        name="patch_encoder_bwd_bf16", route="cuda",
+        source="pcc_tpu_torch/csrc/patch_encoder_bwd.cu",
+        replaces="pcc_tpu/ops/sa_pallas.py:504", launches=launches["patch_encoder_bwd_bf16"],
+        max_abs_err=max(float((x - y).abs().max()) for x, y in zip(a, b)), rel_err=rel,
+        ms=cuda_ms(kern, 5), device_ms=graph_ms(kern, 5), plain_ms=cuda_ms(plain, 1),
+        bound_ms=bms, bound_by=by, bound_fp32_ms=bms32, library_ms=None, winning_rows=rows,
+        gflop=flops / 1e9, forward_ms=fwd_ms, forward_winners_ms=fwd_win_ms)
+    log(f"phase 32, patch_encoder_bwd_bf16 on {tuple(patches.shape)}: {out['ms']:.4f} ms, "
+        f"device {out['device_ms']:.4f} ms (plain {out['plain_ms']:.3f} ms; bound "
+        f"{bms:.4f} ms by {by} on the bf16 tensor cores, {bms32:.4f} ms in float32; {rows} "
+        f"winning rows, {flops / 1e9:.2f} GFLOP); per output max |kernel - plain| / max "
+        f"|plain| {max(rel):.3g} (limit {TOL_BWD}); two launches bitwise equal; winners the "
+        f"step's and the plain version's; the forward {fwd_ms:.4f} ms, with its winners half "
+        f"{fwd_win_ms:.4f} ms")
+    return out
+
+
+def bf16_reduce_check(grids: list, launches: dict) -> dict:
+    """Phase 32, bf16_reduce: every recorded call of phase 31's step (the
+    bias and tiled-feature gradients) bit-equal to its plain version;
+    CUDA-event times summed over the step's calls, the plain version's,
+    and the bound (each cotangent read once, its rows' adds)."""
+    from pcc_tpu_torch.ops.bf16 import bf16_reduce, bf16_reduce_plain
+
+    for x in grids:
+        if not torch.equal(bf16_reduce(x), bf16_reduce_plain(x)):
+            raise RuntimeError(f"bf16_reduce differs from its plain version on {tuple(x.shape)}")
+    ms = sum(cuda_ms(lambda x=x: bf16_reduce(x), 10) for x in grids)
+    plain_ms = sum(cuda_ms(lambda x=x: bf16_reduce_plain(x), 1) for x in grids)
+    bms, by = bound(sum(x.numel() for x in grids), sum(nbytes(x) for x in grids))
+    out = dict(name="bf16_reduce", route="cuda", source="pcc_tpu_torch/csrc/bf16_reduce.cu",
+               replaces="none: XLA's bf16 reduce_sum of a flax Dense bias gradient in "
+                        "pcc_tpu's bf16 step (pcc_tpu/models/layers.py:48; no pallas_call)",
+               launches=launches["bf16_reduce"], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+               bound_ms=bms, bound_by=by, library_ms=None,
+               shapes=[list(x.shape) for x in grids])
+    log(f"phase 32, bf16_reduce: {len(grids)} calls a step, bit-equal to the plain version; "
+        f"{ms:.4f} ms for the step's calls (plain {plain_ms:.2f} ms, bound {bms:.5f} ms by {by})")
+    return out
+
+
+def bf16_step_card_vs_cpu(dev) -> dict:
+    """Phase 33: one bf16 train step at TINY on the card and on the CPU port
+    from the same weights and FPS starts (the card's step launches
+    patch_encoder_bf16, patch_encoder_bwd_bf16 and the chamfer kernels once
+    each): loss to 1e-5 relative, each gradient within its bound of the CPU
+    port's largest entry (the encoder's TOL_BF16_ENC, flax's weights'
+    TOL_BF16_GRAD, flax's biases' TOL_BF16_BIAS), the parameters after Adam
+    within 2 lr of the CPU port's, BF16_PARAM_SHARE of them within 1e-6."""
+    cfg = CodecConfig(**TINY, compute_dtype="bfloat16")
+    lr = 1e-3
+    tx = make_optimizer(lr, 0.1, 10, 10)
+    card = create_train_state(SEED, cfg, tx, device="cuda")
+    cpu = create_train_state(SEED, cfg, tx, device="cpu")
+    batch = torch.from_numpy(np.stack(synthetic_clouds(2, cfg.N, SEED)))
+    starts = torch.tensor([0, 77], dtype=torch.int32)
+    step = build_train_step(cfg, tx, rate_mode="fixed")
+    before = dict(cuda_lib.launches)
+    _, a = step(card, batch.to(dev), starts.to(dev), 1e-2)
+    torch.cuda.synchronize()
+    for name in ("patch_encoder_bf16", "patch_encoder_bwd_bf16", "chamfer_fwd", "chamfer_bwd"):
+        if cuda_lib.launches[name] != before[name] + 1:
+            raise RuntimeError(f"TINY bf16 step: {name} launched "
+                               f"{cuda_lib.launches[name] - before[name]} times, not once")
+    _, b = step(cpu, batch, starts, 1e-2)
+    la, lb = float(a["loss"]), float(b["loss"])
+    if not abs(la - lb) <= 1e-5 * abs(lb):
+        raise RuntimeError(f"TINY bf16 train step loss: card {la} vs CPU {lb}")
+    worst = {}
+    diffs = []
+    for (name, p), (_, q) in zip(card.named_parameters(), cpu.named_parameters()):
+        encoder = name.startswith(("ae.sa.", "ae.pn."))
+        tol = TOL_BF16_ENC if encoder else TOL_BF16_BIAS if name.endswith("bias") \
+            else TOL_BF16_GRAD
+        err, big = float((p.grad.cpu() - q.grad).abs().max()), float(q.grad.abs().max())
+        if not err <= tol * big:
+            raise RuntimeError(f"TINY bf16 step gradient of {name}: card and CPU differ by "
+                               f"{err} > {tol} * {big}")
+        worst[name] = err / big if big else 0.0
+        diffs.append((p.detach().cpu() - q.detach()).abs().reshape(-1))
+    diffs = torch.cat(diffs)
+    share = float((diffs <= 1e-6).double().mean())
+    if not (float(diffs.max()) <= 2 * lr + 1e-6 and share >= BF16_PARAM_SHARE):
+        raise RuntimeError(f"TINY bf16 step parameters: max diff {float(diffs.max())}, "
+                           f"{share:.4f} within 1e-6")
+    out = dict(loss_card=la, loss_cpu=lb, worst_rel_grad=max(worst.values()),
+               params_within_1e6=share, params_max_diff=float(diffs.max()))
+    log(f"phase 33, bf16 train step at TINY, card vs CPU port: loss {la:.8f} vs {lb:.8f}, "
+        f"worst gradient {out['worst_rel_grad']:.3g} of its largest entry, parameters "
+        f"{share:.5f} within 1e-6, at most {out['params_max_diff']:.3g} apart")
+    return out
+
+
+def bf16_train_cli_phase(clouds) -> dict:
+    """Phase 34: cli/train.py --bf16 --max_steps 3 (batch TRAIN_CLOUDS, one
+    device) on PLY files of phase 3's clouds into compress --bf16 and
+    decompress --bf16 on the checkpoint it writes (ae.pkl / prob.pkl, float32
+    pickles of pcc_tpu's layout); launches per run (the train run's encoder
+    and its backward in bf16 once per step), decoded clouds finite; files
+    under _chip/, removed after. The same CLIs refuse --model PPPF-AE --bf16
+    and --devices 2 --bf16."""
+    import shutil
+    import tempfile
+
+    from pcc_tpu_torch.cli import compress, decompress, train
+    from pcc_tpu_torch.io import read_point_cloud, save_point_cloud
+
+    os.makedirs(os.path.join(ROOT, "_chip"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="bf16_train_", dir=os.path.join(ROOT, "_chip"))
+    steps = 3
+    try:
+        for i, pc in enumerate(clouds[:TRAIN_CLOUDS]):
+            save_point_cloud(pc, f"c{i}.ply", path=os.path.join(work, "in"))
+        model = os.path.join(work, "model")
+        flags = ["--train_glob", os.path.join(work, "in", "*.ply"), "--model_save_folder", model,
+                 "--batch_size", str(TRAIN_CLOUDS), "--step_window", str(steps), "--bf16"]
+        wall_t, l_t = run_cli("phase 34 train --bf16", train.main,
+                              flags + ["--max_steps", str(steps)])
+        want = want_launches(steps, fps=1, patch_encoder_bf16=1, patch_encoder_bwd_bf16=1,
+                             chamfer_fwd=1, chamfer_bwd=1,
+                             bf16_reduce=l_t["bf16_reduce"] // steps)
+        if l_t != want or l_t["bf16_reduce"] <= 0:
+            raise RuntimeError(f"train --bf16 launches {l_t} != {want}")
+        for name in ("ae.pkl", "prob.pkl"):
+            if not os.path.exists(os.path.join(model, name)):
+                raise RuntimeError(f"train --bf16 wrote no {name}")
+        comp, dec = os.path.join(work, "comp"), os.path.join(work, "dec")
+        wall_c, l_c = run_cli("phase 34 compress --bf16", compress.main,
+                              [os.path.join(work, "in", "*.ply"), comp, model, "--bf16"])
+        wall_d, l_d = run_cli("phase 34 decompress --bf16", decompress.main,
+                              [comp, dec, model, "--bf16"])
+        for got, w, what in ((l_c, dict(fps=1, patch_encoder_bf16=1), "compress"),
+                             (l_d, dict(patch_decoder_bf16=1), "decompress")):
+            if got != want_launches(1, **w):
+                raise RuntimeError(f"{what} --bf16 on the bf16 checkpoint: launches {got}")
+        outs = sorted(os.listdir(dec))
+        if len(outs) != TRAIN_CLOUDS or not all(
+                np.isfinite(read_point_cloud(os.path.join(dec, f))).all() for f in outs):
+            raise RuntimeError(f"decompress --bf16 wrote {outs}")
+        for extra in (["--model", "PPPF-AE"], ["--devices", "2"]):
+            try:
+                train.main(flags + extra + ["--max_steps", "1"])
+            except SystemExit as e:
+                log(f"train --bf16 {' '.join(extra)} refused: {e}")
+            else:
+                raise RuntimeError(f"train --bf16 {' '.join(extra)} was not refused")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = dict(train_ms=wall_t, compress_ms=wall_c, decompress_ms=wall_d, steps=steps)
+    log("phase 34, train --bf16 -> compress --bf16 -> decompress --bf16: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3374,6 +3844,26 @@ def main() -> int:
                            streams27)
     log("phases 27-29: " + json.dumps({"IPDAE bf16": run27, "PPPF-AE bf16": run29,
                                        "CLIs": cli29}))
+
+    # 30. the large-scene rooms through the codec: FPS past 16384 points
+    room_fps, rooms30 = large_scene_phase(dev, ae_state, prob_state, cpu)
+    kernels[0]["shapes"] += room_fps
+    kernels[0]["launches_rooms"] = rooms30["launches_compress"]["fps"]
+
+    # 31-34. bf16 IPDAE training: the step with its launches, the bf16 encoder
+    # backward and bf16_reduce against their plain versions on its inputs,
+    # a TINY step card vs CPU, the train CLI into the bf16 codec
+    rec31, grids31, launches31, train31 = bf16_train_phase(dev, smi)
+    by_name = {kr["name"]: kr for kr in kernels}
+    by_name["patch_encoder_bf16"]["launches_bf16_train_step"] = \
+        launches31["patch_encoder_bf16"] // TRAIN_STEPS
+    kernels.append(bf16_backward_check(rec31, launches31))
+    kernels.append(bf16_reduce_check(grids31, launches31))
+    del rec31, grids31
+    card33 = bf16_step_card_vs_cpu(dev)
+    cli34 = bf16_train_cli_phase(clouds)
+    log("phases 30-34: " + json.dumps({"large-scene rooms": rooms30, "bf16 train": train31,
+                                       "bf16 TINY card vs CPU": card33, "train CLI": cli34}))
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -15,7 +15,11 @@ Kernels: encoding runs the FPS kernel and the patch encoder kernel (the
 geometry symbols); decoding the patch decoder kernel; the train step the
 FPS kernel, the patch encoder with its backward kernel and the chamfer
 kernels. The colour encoder and decoder are plain products, as in
-pcc_tpu.
+pcc_tpu. In bf16 (compress / decompress --attributes --bf16) the geometry
+is pcc_tpu's AttrCodec's, which builds PatchAE without its fused kernels
+(pcc_tpu/attrib.py:116, 222) and so rounds by flax's bf16 Dense rule, not
+the kernels': PatchAE.encode_unfused and decode_unfused, plain products
+(the FPS kernel still runs).
 
 Module names: no reference state_dict exists for this extension, so
 PatchAttrAE's names mirror pcc_tpu's flax tree, `enc` and `dec`, with the
@@ -135,7 +139,7 @@ def encode_clouds_attr(ae, attr, bundle, abundle, pcs: torch.Tensor, rgb01: torc
     patch_rgb = knn_gather(rgb01, geo.knn_idx).reshape(B * cfg.S, cfg.K, 3)
     rec = geo.octree.rec_xyz
     return AttrEncodeResult(
-        sym=_symbols(ae.encode(geo.patches), cfg, B),
+        sym=_symbols(ae.encode_unfused(geo.patches), cfg, B),
         asym=_symbols(attr.encode(geo.patches, patch_rgb), cfg, B),
         weights=iprob_pmf_weights(bundle, rec), aweights=iprob_pmf_weights(abundle, rec),
         sorted_codes=geo.octree.sorted_codes, depth=geo.octree.depth,
@@ -148,7 +152,7 @@ def decode_clouds_attr(ae, attr, sym: torch.Tensor, asym: torch.Tensor, recs: to
     (clouds [B, S*k, 3], colours [B, S*k, 3] in [0, 1]): the patch decoder,
     then the colour decoder paints each decoded patch in its scaled frame."""
     B, S = sym.shape[:2]
-    patches = ae.decode((sym.to(torch.float32) - cfg.L // 2).reshape(B * S, -1))
+    patches = ae.decode_unfused((sym.to(torch.float32) - cfg.L // 2).reshape(B * S, -1))
     rgb01 = attr.decode((asym.to(torch.float32) - cfg.L // 2).reshape(B * S, -1), patches)
     # / patch_scale as XLA compiles it: a product with the f32 reciprocal
     inv_scale = float(np.float32(1.0) / np.float32(cfg.patch_scale))

@@ -17,10 +17,14 @@ cli/train_pppe_pcd_ae.py, the attribute codec's cli/train_attributes.py.
 --model PPPF-AE trains the first --bn_warmup_steps steps with the
 encoder's BatchNorm on batch statistics (plain products), then the fused
 step with them frozen (train/steps_pppf.py), as pcc_tpu's --fused_encoder
-auto does on one accelerator. Refused with a message: --bf16 (bf16
-serving is ported, in compress and decompress; bf16 training is not);
---fused_encoder and --jax_debug_nans are not flags of this parser, which
-rejects them.
+auto does on one accelerator. --bf16 trains --model AE in bf16 mixed
+precision on one device, as pcc_tpu's --bf16 with its fused encoder does
+(CodecConfig(compute_dtype="bfloat16"): the bf16 instances of the encoder
+and its backward kernel, flax's bf16 rules in the decoder and the
+probability model; parameters, Adam and the chamfer float32); the
+checkpoints are the same float32 pickles. Refused with a message: --bf16
+with --model PPPF-AE or --devices N > 1 (not ported yet); --fused_encoder
+and --jax_debug_nans are not flags of this parser, which rejects them.
 
 --devices N > 1 trains data-parallel on N processes, one per device
 (cli/_common.py::maybe_launch, parallel/mesh.py): every rank draws the same
@@ -84,8 +88,9 @@ def build_parser():
     p.add_argument("--rate_mode", default="reference", choices=["reference", "fixed"],
                    help="Rate-term normalization (see train/steps.py).")
     p.add_argument("--bf16", action="store_true",
-                   help="bf16 mixed-precision compute (training in bf16 is not ported; "
-                        "compress and decompress take --bf16).")
+                   help="bf16 mixed-precision network compute, parameters and Adam "
+                        "float32 (--model AE on one device; PPPF-AE and --devices N > 1 "
+                        "in bf16 are not ported).")
     p.add_argument("--bn_warmup_steps", type=int, default=1000,
                    help="PPPF-AE only: steps trained with the encoder's BatchNorm on "
                         "batch statistics (running statistics updating) before the "
@@ -105,17 +110,22 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.model not in ("AE", "PPPF-AE"):
         raise SystemExit(f"Unknown model type: {args.model}")
-    if args.bf16:
-        raise SystemExit("--bf16: bf16 training is not ported (bf16 serving is: compress and "
-                         "decompress --bf16); training in bf16 is the next slice")
+    if args.bf16 and args.model == "PPPF-AE":
+        raise SystemExit("--model PPPF-AE --bf16: PPPF-AE's bf16 training (with the bf16 "
+                         "instance of the PN++ stage backward kernel) is not ported yet; "
+                         "--model AE --bf16 trains")
+    if args.bf16 and args.devices > 1:
+        raise SystemExit("--devices N --bf16: multi-device bf16 training is not ported yet "
+                         "(pcc_tpu runs it unfused, on flax's rounding, not the kernels'); "
+                         "--bf16 trains on one device")
     if maybe_launch(args, main, argv, batch_size=args.batch_size):
         return
     cfg = CodecConfig(N=args.N, N0=args.N0, ALPHA=args.ALPHA, K=args.K, d=args.d, L=args.L,
-                      model=args.model)
+                      model=args.model, compute_dtype="bfloat16" if args.bf16 else "float32")
     tx = make_optimizer(args.lr, args.lr_decay, args.lr_decay_steps, args.max_steps)
     state = create_train_state(args.seed, cfg, tx, device=args.device)
     device = state.optimizer.param_groups[0]["params"][0].device
-    print0(f"Training {args.model} on {device}")
+    print0(f"Training {args.model} on {device}" + (" in bf16" if args.bf16 else ""))
     print0(f"N={cfg.N}, K={cfg.K}, S={cfg.S}, d={cfg.d}, L={cfg.L}")
 
     os.makedirs(args.model_save_folder, exist_ok=True)

@@ -14,11 +14,12 @@ sees raw clouds, while the PPPE compress CLI normalizes each cloud, so
 training data should already lie in about [0, 1]. On the card the step
 runs the FPS kernel 3 times and the chamfer kernels once each.
 --lr_decay and --lr_decay_steps are parsed and unused, as in pcc_tpu.
-Refused with a message: --bf16 (bf16 serving is ported, in compress and
-decompress; bf16 training is not). --devices N > 1 trains data-parallel on N
-processes, one per device, as cli/train.py does (the step is the
-single-device step of the global batch, train/steps_pppe.py); rank 0 prints
-and writes dataset_norm.pkl and the checkpoints.
+Refused with a message: --bf16 (PPPE's bf16 training is not ported yet; it
+follows PPPF-AE's, and --model AE trains in bf16 in cli/train.py).
+--devices N > 1 trains data-parallel on N processes, one per device, as
+cli/train.py does (the step is the single-device step of the global batch,
+train/steps_pppe.py); rank 0 prints and writes dataset_norm.pkl and the
+checkpoints.
 
   python -m pcc_tpu_torch.cli.train_pppe_pcd_ae --train_glob 'in/*.ply' \\
       --model_save_folder model/ [--device cpu]
@@ -100,8 +101,8 @@ def compute_dataset_norm(points: np.ndarray):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.bf16:
-        raise SystemExit("--bf16: bf16 training is not ported (bf16 serving is: compress and "
-                         "decompress --bf16); training in bf16 is the next slice")
+        raise SystemExit("--bf16: PPPE's bf16 training is not ported yet (it comes after "
+                         "PPPF-AE's; cli/train.py --model AE --bf16 trains in bf16)")
     if maybe_launch(args, main, argv, batch_size=args.batch_size):
         return
     cfg = PPPEConfig(N=args.N, latent_dim=args.K, L=args.L)

@@ -66,14 +66,15 @@ _INV_1023 = float(np.float32(1.0) / np.float32(1023.0))
 
 def make_models(cfg: CodecConfig):
     """The (autoencoder, float probability model) modules of cfg.model, the
-    autoencoder computing in cfg.compute_dtype (the probability model only
-    holds the weights the integer model is converted from)."""
+    autoencoder computing in cfg.compute_dtype, and so does the IPDAE
+    probability model where it trains (in the codec it only holds the
+    weights the integer model is converted from)."""
     if cfg.model == "PPPF-AE":
         return (PPPF_AE(K=cfg.K, k=cfg.k, d=cfg.d, L=cfg.L, compute_dtype=cfg.compute_dtype),
                 PPPFConditionalProbabilityModel(d=cfg.d, L=cfg.L))
     return (PatchAE(K=cfg.K, k=cfg.k, d=cfg.d, L=cfg.L, sa_knn=cfg.sa_knn,
                     compute_dtype=cfg.compute_dtype),
-            ConditionalProbabilityModel(d=cfg.d, L=cfg.L))
+            ConditionalProbabilityModel(d=cfg.d, L=cfg.L, compute_dtype=cfg.compute_dtype))
 
 
 def init_params(seed: int, cfg: CodecConfig):
@@ -130,16 +131,36 @@ def unpack_encode_upload(packed: torch.Tensor, N: int):
     contracts the first two and not the third). The fused form is the
     float64 sum of the exact float64 product (10 x 24 bits) rounded to
     float32; the unfused one is two float32 operations, two PyTorch kernels
-    on the card, so neither device contracts them."""
-    q = packed[:, :N]
-    lo = packed[:, N:N + 3].contiguous().view(torch.float32)
-    scale = packed[:, N + 3:N + 6].contiguous().view(torch.float32)
-    v = torch.stack([q & 1023, (q >> 10) & 1023, (q >> 20) & 1023], dim=-1)
-    step = scale * _INV_1023
+    on the card, so neither device contracts them. These are the values
+    pcc_tpu's normalization takes its bounding box (the .c.bin header) from;
+    its normalized coordinates it computes from upload_values."""
+    v, step, lo = _upload_terms(packed, N)
     fused = (v[..., :2].to(torch.float64) * step[:, None, :2].to(torch.float64)
              + lo[:, None, :2].to(torch.float64)).to(torch.float32)
     unfused = v[..., 2:].to(torch.float32) * step[:, None, 2:] + lo[:, None, 2:]
     return torch.cat([fused, unfused], dim=-1), packed[:, N + 6]
+
+
+def upload_values(packed: torch.Tensor, N: int) -> torch.Tensor:
+    """The clouds [B, N, 3] of an upload as pcc_tpu's encode program feeds
+    them to the normalization's elementwise pass: there XLA's CPU program
+    contracts v * step + lo into a fused multiply-add for all three
+    coordinates, z too (its max / min reductions read unpack_encode_upload's
+    values). Found from pcc_tpu's streams: on eval/gen_rooms.py's
+    100,000-point room only this pair reproduces its .s.bin
+    (tests/test_torch_port_codec.py)."""
+    v, step, lo = _upload_terms(packed, N)
+    return (v.to(torch.float64) * step[:, None, :].to(torch.float64)
+            + lo[:, None, :].to(torch.float64)).to(torch.float32)
+
+
+def _upload_terms(packed: torch.Tensor, N: int):
+    """(v [B, N, 3] int, step [B, 3], lo [B, 3]) of an upload's int32 view."""
+    q = packed[:, :N]
+    lo = packed[:, N:N + 3].contiguous().view(torch.float32)
+    scale = packed[:, N + 3:N + 6].contiguous().view(torch.float32)
+    v = torch.stack([q & 1023, (q >> 10) & 1023, (q >> 20) & 1023], dim=-1)
+    return v, scale * _INV_1023, lo
 
 
 class Geometry(NamedTuple):
@@ -152,11 +173,13 @@ class Geometry(NamedTuple):
 
 
 def encode_geometry(pcs: torch.Tensor, fps_starts: torch.Tensor,
-                    cfg: CodecConfig) -> Geometry:
+                    cfg: CodecConfig, values: torch.Tensor | None = None) -> Geometry:
     """The model-independent half of the encoder (train.py:175-192):
     normalize -> FPS -> octree analysis -> KNN patches around the *decoded*
-    skeleton (train.py:185-189), for [B, N, 3] clouds."""
-    pc01, center, longest = normalize(pcs, cfg.margin)
+    skeleton (train.py:185-189), for [B, N, 3] clouds. values: the clouds
+    the normalized coordinates are computed from, where they differ from
+    those its bounding box is taken on (an upload: upload_values)."""
+    pc01, center, longest = normalize(pcs, cfg.margin, values)
     pc01 = pc01.contiguous()
     idx = fps_batch(pc01, cfg.S, fps_starts)                        # [B, S]
     sampled = torch.gather(pc01, 1, idx.long()[..., None].expand(-1, -1, 3))
@@ -178,10 +201,11 @@ def integer_pmf_weights(bundle, rec_xyz: torch.Tensor, cfg: CodecConfig) -> torc
 
 
 def encode_clouds(ae, bundle, pcs: torch.Tensor, fps_starts: torch.Tensor,
-                  cfg: CodecConfig) -> EncodeResult:
+                  cfg: CodecConfig, values: torch.Tensor | None = None) -> EncodeResult:
     """Batched analysis transform [B, N, 3] -> EncodeResult
-    (reference compress.py:78-136 for all clouds and patches at once)."""
-    geo = encode_geometry(pcs, fps_starts, cfg)
+    (reference compress.py:78-136 for all clouds and patches at once);
+    values as for encode_geometry."""
+    geo = encode_geometry(pcs, fps_starts, cfg, values)
     B = pcs.shape[0]
     latent = ae.encode(geo.patches)                                 # [B*S, d]
     sym = torch.clamp(torch.round(latent) + cfg.L // 2, 0, cfg.L - 1)
@@ -248,7 +272,7 @@ class Codec:
         dev = torch.from_numpy(packed.view(np.int32)).to(self.device)
         clouds, fps_starts = unpack_encode_upload(dev, N)
         return encode_clouds(self.ae, self.bundle, clouds, fps_starts,
-                             self.cfg.with_n(N))
+                             self.cfg.with_n(N), upload_values(dev, N))
 
     def serialize(self, res: EncodeResult):
         """EncodeResult of a batch -> list of (p, s, c) bytes per cloud."""

@@ -27,8 +27,10 @@ __device__ __forceinline__ float load_w(const float* p) {
 }
 
 // RT rows per work item; kRelu applies max(., 0); kGlobalW reads W and bias
-// through the read-only cache instead of shared memory. rows % RT == 0.
-template <int RT, bool kRelu, bool kGlobalW>
+// through the read-only cache instead of shared memory; kBf16 rounds every
+// output to bf16 after the bias and relu (the encoder backward's bf16
+// instance). rows % RT == 0.
+template <int RT, bool kRelu, bool kGlobalW, bool kBf16 = false>
 __device__ __forceinline__ void dense_rows(const float* in, int ld_in, int rows,
                                            int cin, const float* w,
                                            const float* bias, int cout,
@@ -51,7 +53,7 @@ __device__ __forceinline__ void dense_rows(const float* in, int ld_in, int rows,
     for (int i = 0; i < RT; ++i) {
       float v = acc[i] + b;
       if (kRelu) v = fmaxf(v, 0.0f);
-      out[(g * RT + i) * ld_out + o] = v;
+      out[(g * RT + i) * ld_out + o] = pcc_bf16::act_round<kBf16>(v);
     }
   }
 }

@@ -189,18 +189,20 @@ __device__ __forceinline__ void concat_xyz(int nq, Q qs, const float* sx,
 }
 
 // PointNet layers 1-3 (relu) on kEncQ concat rows x0 -> x1, x2, x3, in the
-// simple product of dense.cuh (the backward's winners). Starts after a
-// barrier; ends with __syncthreads().
+// simple product of dense.cuh (the backward's winners); kBf16: every output
+// rounded to bf16. Starts after a barrier; ends with __syncthreads().
+template <bool kBf16 = false>
 __device__ __forceinline__ void pointnet_123(const float* x0, const float* pw1,
                                              const float* pb1, const float* pw2,
                                              const float* pb2, const float* pw3,
                                              const float* pb3, float* x1, float* x2,
                                              float* x3) {
-  dense_rows<8, true, true>(x0, kEncX0, kEncQ, 3 + kEncC3, pw1, pb1, kEncP1, x1, kEncP1);
+  dense_rows<8, true, true, kBf16>(x0, kEncX0, kEncQ, 3 + kEncC3, pw1, pb1, kEncP1, x1,
+                                   kEncP1);
   __syncthreads();
-  dense_rows<16, true, true>(x1, kEncP1, kEncQ, kEncP1, pw2, pb2, kEncP2, x2, kEncP2);
+  dense_rows<16, true, true, kBf16>(x1, kEncP1, kEncQ, kEncP1, pw2, pb2, kEncP2, x2, kEncP2);
   __syncthreads();
-  dense_rows<16, true, true>(x2, kEncP2, kEncQ, kEncP2, pw3, pb3, kEncP3, x3, kEncP3);
+  dense_rows<16, true, true, kBf16>(x2, kEncP2, kEncQ, kEncP2, pw3, pb3, kEncP3, x3, kEncP3);
   __syncthreads();
 }
 

@@ -31,6 +31,21 @@
 //   for the winner's coordinates. Splitting a cloud over CTAs puts more
 //   SMs on each step's pass; the launcher (ops/fps.py::plan) picks the
 //   split by shape.
+// * Clouds whose copy does not fit a CTA's shared memory (past 16384
+//   points; the large-scene recipe's rooms of 50,000-100,000 points), or
+//   whose slices need more than 8 points a thread: fps_slice_kernel. A CTA
+//   holds only its own slice of the cloud in shared memory, and the
+//   exchange carries the winner's coordinates: each warp sends its
+//   (distance, index) record and, beside it, its winner's coordinates, read
+//   from its own slice, so that no CTA needs the rest of the cloud. Up to 8
+//   points a thread are kept in registers; past that (16, or 32 in CTAs of
+//   up to 512 threads, whose threads have 128 registers) only their
+//   running minima, the coordinates read from the slice in shared memory
+//   on every step. So a cloud takes up to 8 CTAs x 1024 threads x 16
+//   points = 8 x 512 x 32 = 131,072 points (MAX_POINTS), a slice of 16,384
+//   points in 192 KB of a CTA's 227 KB. Fewer, fuller threads mean fewer
+//   warp records to reduce a step, which the measured plans favour
+//   (ops/fps.py::plan).
 // The indices are kept one per lane and stored 32 at a time, coalesced.
 //
 // Bit-equality: the indices fix the .s.bin stream and the CPM's weights, so
@@ -54,7 +69,9 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kNoPoint = 0x7fffffffu;  // the index of no point: loses every min
 constexpr int kWarpMaxPer = 16;             // a warp per cloud: N <= 32 * 16
 constexpr int kWarpMaxThreads = 256;        // 8 clouds a block at most
-constexpr int kMaxPer = 8;                  // points a thread in a cluster's CTA
+constexpr int kMaxPer = 8;                  // points a thread in registers
+constexpr int kSliceMaxPer = 32;            // points a thread of a slice in shared memory
+constexpr int kSlice32Threads = 512;        // 32 a thread only up to this many threads
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxCluster = 8;              // the portable cluster size
 constexpr size_t kMaxSmem = 232448;         // 227 KB a block
@@ -129,6 +146,42 @@ __device__ __forceinline__ void send(unsigned to, unsigned bar, unsigned a, unsi
                : "memory");
 }
 
+// v (16 bytes) into shared::cluster address `to` (16-byte aligned), counted
+// on the mbarrier `bar` there.
+__device__ __forceinline__ void send4(unsigned to, unsigned bar, uint4 v) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];" ::"r"(to), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+// Coordinates as the bits that a record carries, and back.
+__device__ __forceinline__ unsigned to_bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ unsigned to_bits(int v) { return static_cast<unsigned>(v); }
+template <typename T>
+__device__ __forceinline__ T from_bits(unsigned v);
+template <>
+__device__ __forceinline__ float from_bits<float>(unsigned v) { return __uint_as_float(v); }
+template <>
+__device__ __forceinline__ int from_bits<int>(unsigned v) { return static_cast<int>(v); }
+
+// The largest of v[0 .. PER) and its slot, a tree of adjacent pairs in which
+// the upper slot wins only where it is strictly larger: ties keep the lower
+// slot, and the chain is log2(PER) compares long, not PER.
+template <typename T, int PER>
+__device__ __forceinline__ void tree_argmax(T (&v)[PER], int (&at)[PER]) {
+#pragma unroll
+  for (int w = 1; w < PER; w *= 2) {
+#pragma unroll
+    for (int k = 0; k + w < PER; k += 2 * w) {
+      if (v[k + w] > v[k]) {
+        v[k] = v[k + w];
+        at[k] = at[k + w];
+      }
+    }
+  }
+}
+
 // A thread's points first + k * stride (k < PER) and their running minima.
 template <typename T, int PER>
 struct Points {
@@ -154,10 +207,8 @@ struct Points {
   }
 
   // Fold in the distances to (cx, cy, cz); the largest minimum as an order
-  // key, and its lowest index (kNoPoint where the thread has no point). The
-  // argmax over the slots is a tree of adjacent pairs, in which the upper
-  // slot wins only where it is strictly larger: ties keep the lower index,
-  // and the chain is log2(PER) compares long, not PER.
+  // key, and its lowest index (kNoPoint where the thread has no point), by
+  // tree_argmax.
   __device__ __forceinline__ void step(T cx, T cy, T cz, int first, int stride, unsigned& key,
                                        unsigned& idx) {
     T v[PER];
@@ -168,16 +219,43 @@ struct Points {
       v[k] = d[k];
       at[k] = k;
     }
+    tree_argmax(v, at);
+    key = order_key(v[0]);
+    idx = v[0] < T(0) ? kNoPoint : static_cast<unsigned>(first + at[0] * stride);
+  }
+};
+
+// A thread's points first + k * stride (k < PER) of a slice held in shared
+// memory as rows x | y | z: their running minima in registers, their
+// coordinates read from the rows on every step (more points a thread than
+// Points keeps in registers). The rows hold PER * stride entries, zeros past
+// the slice's `end`, so no read is out of bounds.
+template <typename T, int PER>
+struct SlicePoints {
+  T d[PER];
+  const T *sx, *sy, *sz;
+
+  __device__ __forceinline__ void load(const T* x, const T* y, const T* z, int first, int stride,
+                                       int end, T init) {
+    sx = x;
+    sy = y;
+    sz = z;
 #pragma unroll
-    for (int w = 1; w < PER; w *= 2) {
+    for (int k = 0; k < PER; ++k) d[k] = first + k * stride < end ? init : T(-1);
+  }
+
+  __device__ __forceinline__ void step(T cx, T cy, T cz, int first, int stride, unsigned& key,
+                                       unsigned& idx) {
+    T v[PER];
+    int at[PER];
 #pragma unroll
-      for (int k = 0; k + w < PER; k += 2 * w) {
-        if (v[k + w] > v[k]) {
-          v[k] = v[k + w];
-          at[k] = at[k + w];
-        }
-      }
+    for (int k = 0; k < PER; ++k) {
+      const int j = first + k * stride;
+      d[k] = dmin(d[k], sq_dist(sx[j], sy[j], sz[j], cx, cy, cz));
+      v[k] = d[k];
+      at[k] = k;
     }
+    tree_argmax(v, at);
     key = order_key(v[0]);
     idx = v[0] < T(0) ? kNoPoint : static_cast<unsigned>(first + at[0] * stride);
   }
@@ -312,6 +390,123 @@ fps_cluster_kernel(const T* __restrict__ xyz, const int* __restrict__ starts,
   }
 }
 
+// Grid: csize CTAs per cloud, in clusters of csize where csize > 1; CTA
+// `rank` owns points [rank * slice, (rank + 1) * slice) and holds only them
+// in shared memory, as rows x | y | z of cap = PER * blockDim.x entries.
+// Pts: Points (coordinates in registers) or SlicePoints (read from the
+// rows). A step's records, double-buffered in every CTA: the warp winners'
+// (key, index) [2][ne] and their coordinates [2][ne] (x, y, z, 0 as bits),
+// which every warp reduces itself, taking the coordinates of the record
+// that wins (the lowest index among the equal keys: the same record in
+// every warp). With one CTA a __syncthreads hands them over; in a cluster
+// each warp sends both to every CTA with st.async and each CTA waits on its
+// own mbarrier for the step's ne * 24 bytes. A buffer is written again two
+// steps later, as in fps_cluster_kernel: a warp sends the next step only
+// after its last read of the buffer.
+template <typename T, int PER, class Pts>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+fps_slice_kernel(const T* __restrict__ xyz, const int* __restrict__ starts,
+                 int* __restrict__ out, int n, int npoint, T init, int csize, int slice) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  const int ne = csize * nw;
+  const int cap = PER * blockDim.x;
+  T* sx = reinterpret_cast<T*>(smem_raw);
+  T* sy = sx + cap;
+  T* sz = sy + cap;
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(
+      smem_raw + ((3 * static_cast<size_t>(cap) * sizeof(T) + 15) & ~size_t(15)));
+  uint4* coords = reinterpret_cast<uint4*>(bars + 2);   // 16-byte aligned
+  uint2* records = reinterpret_cast<uint2*>(coords + 2 * ne);
+  const int cloud = blockIdx.x / csize, rank = blockIdx.x % csize;
+  const int base = rank * slice;
+  const int cnt = max(0, min(n, base + slice) - base);
+  const T* p = xyz + static_cast<size_t>(cloud) * n * 3;
+  for (int j = tid; j < cap; j += blockDim.x) {
+    const bool in = j < cnt;
+    const size_t at = 3 * static_cast<size_t>(base + j);
+    sx[j] = in ? p[at] : T(0);
+    sy[j] = in ? p[at + 1] : T(0);
+    sz[j] = in ? p[at + 2] : T(0);
+  }
+  unsigned to_rec0 = 0u, to_rec1 = 0u, to_crd0 = 0u, to_crd1 = 0u, to_bar0 = 0u, to_bar1 = 0u;
+  if (csize > 1) {
+    if (tid == 0) {
+      mbar_init(smem_addr(bars), 1);
+      mbar_init(smem_addr(bars + 1), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    if (lane < csize) {
+      const int slot = rank * nw + warp;
+      to_rec0 = cluster_addr(smem_addr(records + slot), lane);
+      to_rec1 = cluster_addr(smem_addr(records + ne + slot), lane);
+      to_crd0 = cluster_addr(smem_addr(coords + slot), lane);
+      to_crd1 = cluster_addr(smem_addr(coords + ne + slot), lane);
+      to_bar0 = cluster_addr(smem_addr(bars), lane);
+      to_bar1 = cluster_addr(smem_addr(bars + 1), lane);
+    }
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+  Pts pts;
+  pts.load(sx, sy, sz, tid, blockDim.x, cnt, init);
+  unsigned far = starts ? static_cast<unsigned>(starts[cloud]) : 0u;
+  T cx = p[3 * static_cast<size_t>(far)], cy = p[3 * static_cast<size_t>(far) + 1],
+    cz = p[3 * static_cast<size_t>(far) + 2];
+  int* o = out + static_cast<size_t>(cloud) * npoint;
+  const bool writer = rank == 0 && warp == 0;
+  int mine = 0;
+  for (int it = 0;; ++it) {
+    if (writer) keep_pick(o, it, npoint, far, lane, mine);
+    if (it + 1 == npoint) break;
+    const int b = it & 1;
+    if (csize > 1 && tid == 0)
+      mbar_expect(smem_addr(bars + b), ne * (sizeof(uint2) + sizeof(uint4)));
+    unsigned key, idx;
+    pts.step(cx, cy, cz, tid, blockDim.x, key, idx);   // idx: in the slice
+    warp_best(key, idx);
+    const bool none = idx == kNoPoint;
+    const uint4 c = none ? make_uint4(0u, 0u, 0u, 0u)
+                         : make_uint4(to_bits(sx[idx]), to_bits(sy[idx]), to_bits(sz[idx]), 0u);
+    idx = none ? kNoPoint : base + idx;
+    if (csize == 1) {
+      if (lane == 0) {
+        records[b * ne + warp] = make_uint2(key, idx);
+        coords[b * ne + warp] = c;
+      }
+      __syncthreads();
+    } else {
+      if (lane < csize) {
+        send(b ? to_rec1 : to_rec0, b ? to_bar1 : to_bar0, key, idx);
+        send4(b ? to_crd1 : to_crd0, b ? to_bar1 : to_bar0, c);
+      }
+      mbar_wait(smem_addr(bars + b), (it >> 1) & 1);
+    }
+    key = 0;
+    idx = kNoPoint;
+    unsigned q_best = 0u;
+    for (int q = lane; q < ne; q += 32) {
+      const uint2 w = records[b * ne + q];
+      if (w.x > key || (w.x == key && w.y < idx)) {
+        key = w.x;
+        idx = w.y;
+        q_best = q;
+      }
+    }
+    const unsigned mine_idx = idx;
+    warp_best(key, idx);
+    // the winning record: indices are distinct, so one lane holds it
+    q_best = __reduce_min_sync(kFull, mine_idx == idx ? q_best : 0xffffffffu);
+    const uint4 w = coords[b * ne + q_best];
+    cx = from_bits<T>(w.x);
+    cy = from_bits<T>(w.y);
+    cz = from_bits<T>(w.z);
+    far = idx;
+  }
+}
+
 int pow2_at_least(int need) {
   int p = 1;
   while (p < need) p <<= 1;
@@ -344,16 +539,17 @@ cudaError_t launch_warp(const T* xyz, const int* starts, int* out, int b, int n,
   return cudaGetLastError();
 }
 
-template <typename T, int PER>
+// A cluster kernel (fps_cluster_kernel or fps_slice_kernel: the same
+// arguments) on b clouds of csize CTAs each.
+template <typename T, auto kKernel>
 cudaError_t launch_cluster(const T* xyz, const int* starts, int* out, int b, int n, int npoint,
                            T init, int csize, int slice, int threads, size_t smem,
                            cudaStream_t stream) {
   static size_t allowed = 48 * 1024;
-  cudaError_t err = allow_smem(fps_cluster_kernel<T, PER>, smem, allowed);
+  cudaError_t err = allow_smem(kKernel, smem, allowed);
   if (err != cudaSuccess) return err;
   if (csize == 1) {
-    fps_cluster_kernel<T, PER><<<b, threads, smem, stream>>>(xyz, starts, out, n, npoint, init,
-                                                             csize, slice);
+    kKernel<<<b, threads, smem, stream>>>(xyz, starts, out, n, npoint, init, csize, slice);
     return cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
@@ -368,14 +564,31 @@ cudaError_t launch_cluster(const T* xyz, const int* starts, int* out, int b, int
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fps_cluster_kernel<T, PER>, xyz, starts, out, n, npoint, init,
-                           csize, slice);
+  err = cudaLaunchKernelEx(&cfg, kKernel, xyz, starts, out, n, npoint, init, csize, slice);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+// Shared memory of fps_cluster_kernel (the whole cloud) and of
+// fps_slice_kernel (a slice of per * threads points), in bytes.
+template <typename T>
+size_t cloud_smem(int n, int cluster, int threads) {
+  return ((3 * static_cast<size_t>(n) * sizeof(T) + 15) & ~size_t(15)) +
+         2 * sizeof(unsigned long long) +
+         2 * static_cast<size_t>(cluster) * (threads / 32) * sizeof(uint2);
+}
+
+template <typename T>
+size_t slice_smem(int per, int cluster, int threads) {
+  return ((3 * static_cast<size_t>(per) * threads * sizeof(T) + 15) & ~size_t(15)) +
+         2 * sizeof(unsigned long long) +
+         2 * static_cast<size_t>(cluster) * (threads / 32) * (sizeof(uint2) + sizeof(uint4));
+}
+
 // cluster 0: a warp per cloud, threads / 32 clouds a block; cluster >= 1:
-// that many CTAs of `threads` per cloud.
+// that many CTAs of `threads` per cloud, each with a slice of n / cluster
+// points: fps_cluster_kernel where the whole cloud fits a CTA's shared
+// memory and a thread keeps at most kMaxPer points, else fps_slice_kernel.
 template <typename T>
 int launch(const T* xyz, const int* starts, int* out, int b, int n, int npoint, T init,
            int cluster, int threads, cudaStream_t stream) {
@@ -394,32 +607,41 @@ int launch(const T* xyz, const int* starts, int* out, int b, int n, int npoint, 
       default: return launch_warp<T, 16>(xyz, starts, out, b, n, npoint, init, threads, stream);
     }
   }
+  if (threads > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
   const int slice = (n + cluster - 1) / cluster;
   const int per = pow2_at_least((slice + threads - 1) / threads);
-  const size_t smem = ((3 * static_cast<size_t>(n) * sizeof(T) + 15) & ~size_t(15)) +
-                      2 * sizeof(unsigned long long) +
-                      2 * static_cast<size_t>(cluster) * (threads / 32) * sizeof(uint2);
-  if (per > kMaxPer || threads > kMaxThreads || smem > kMaxSmem)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
-  switch (per) {
-    case 1:
-      err = launch_cluster<T, 1>(xyz, starts, out, b, n, npoint, init, cluster, slice, threads,
-                                 smem, stream);
-      break;
-    case 2:
-      err = launch_cluster<T, 2>(xyz, starts, out, b, n, npoint, init, cluster, slice, threads,
-                                 smem, stream);
-      break;
-    case 4:
-      err = launch_cluster<T, 4>(xyz, starts, out, b, n, npoint, init, cluster, slice, threads,
-                                 smem, stream);
-      break;
-    default:
-      err = launch_cluster<T, 8>(xyz, starts, out, b, n, npoint, init, cluster, slice, threads,
-                                 smem, stream);
+  const size_t csmem = cloud_smem<T>(n, cluster, threads);
+  if (per <= kMaxPer && csmem <= kMaxSmem) {
+    switch (per) {
+      case 1: return static_cast<int>(launch_cluster<T, fps_cluster_kernel<T, 1>>(
+          xyz, starts, out, b, n, npoint, init, cluster, slice, threads, csmem, stream));
+      case 2: return static_cast<int>(launch_cluster<T, fps_cluster_kernel<T, 2>>(
+          xyz, starts, out, b, n, npoint, init, cluster, slice, threads, csmem, stream));
+      case 4: return static_cast<int>(launch_cluster<T, fps_cluster_kernel<T, 4>>(
+          xyz, starts, out, b, n, npoint, init, cluster, slice, threads, csmem, stream));
+      default: return static_cast<int>(launch_cluster<T, fps_cluster_kernel<T, 8>>(
+          xyz, starts, out, b, n, npoint, init, cluster, slice, threads, csmem, stream));
+    }
   }
-  return static_cast<int>(err);
+  const size_t ssmem = slice_smem<T>(per, cluster, threads);
+  if (per > kSliceMaxPer || (per > 16 && threads > kSlice32Threads) || ssmem > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (per) {
+    case 1: return static_cast<int>(launch_cluster<T, fps_slice_kernel<T, 1, Points<T, 1>>>(
+        xyz, starts, out, b, n, npoint, init, cluster, slice, threads, ssmem, stream));
+    case 2: return static_cast<int>(launch_cluster<T, fps_slice_kernel<T, 2, Points<T, 2>>>(
+        xyz, starts, out, b, n, npoint, init, cluster, slice, threads, ssmem, stream));
+    case 4: return static_cast<int>(launch_cluster<T, fps_slice_kernel<T, 4, Points<T, 4>>>(
+        xyz, starts, out, b, n, npoint, init, cluster, slice, threads, ssmem, stream));
+    case 8: return static_cast<int>(launch_cluster<T, fps_slice_kernel<T, 8, Points<T, 8>>>(
+        xyz, starts, out, b, n, npoint, init, cluster, slice, threads, ssmem, stream));
+    case 16: return static_cast<int>(
+        launch_cluster<T, fps_slice_kernel<T, 16, SlicePoints<T, 16>>>(
+            xyz, starts, out, b, n, npoint, init, cluster, slice, threads, ssmem, stream));
+    default: return static_cast<int>(
+        launch_cluster<T, fps_slice_kernel<T, 32, SlicePoints<T, 32>>>(
+            xyz, starts, out, b, n, npoint, init, cluster, slice, threads, ssmem, stream));
+  }
 }
 
 }  // namespace

@@ -44,7 +44,7 @@
 // fmaxf fold, so it is the same bit for bit either way.
 //
 // The bf16 instance (patch_encoder_bf16_launch; pcc_tpu's compute_dtype
-// bfloat16, serving): the same kernel, templated on the rounding
+// bfloat16): the same kernel, templated on the rounding
 // (encoder_common.cuh::encoder_chunk, bf16.cuh). The wrapper rounds every
 // weight and bias to bf16, as the TPU kernel's `load` does; the kernel rounds
 // the centred neighbours, xyz and every layer's output (after its relu, the
@@ -53,7 +53,15 @@
 // the float32 sum of exact products in k-order, which
 // ops/sa_cuda.py::_kernel_choices replays with the same rounding. Its bound
 // is the float32 instance's work: bf16 tensor cores would take it at 989
-// TFLOP/s, these CUDA cores at 67.
+// TFLOP/s, these CUDA cores at 67. In bf16 training the winners are not
+// the forward's: pcc_tpu's bf16 backward kernel replays the forward with
+// the weights rounded but the biases float32 (sa_pallas.py:305-314) and
+// routes its gradient through that replay's arg-max points (:392). So the
+// bf16 instance with winners runs a grid of two halves in one launch:
+// blockIdx.y 0 computes the latent on the rounded biases, blockIdx.y 1 the
+// same forward on the float32 biases the wrapper hands it beside them, and
+// keeps only its winners. That doubles the forward's work in a bf16 train
+// step, in exchange for the backward's own routing.
 //
 // Selection is bit-equal to the plain PyTorch version
 // (pcc_tpu_torch/ops/sa_cuda.py::patch_encoder_plain): the same distance
@@ -108,7 +116,24 @@ patch_encoder_kernel(const float* __restrict__ pts, int n,
                      const float* __restrict__ pw2, const float* __restrict__ pb2,
                      const float* __restrict__ pw3, const float* __restrict__ pb3,
                      const float* __restrict__ pw4, const float* __restrict__ pb4,
-                     int dout, float* __restrict__ out, int* __restrict__ winners) {
+                     int dout, float* __restrict__ out, int* __restrict__ winners,
+                     const float* __restrict__ rb1, const float* __restrict__ rb2,
+                     const float* __restrict__ rb3, const float* __restrict__ rpb1,
+                     const float* __restrict__ rpb2, const float* __restrict__ rpb3,
+                     const float* __restrict__ rpb4) {
+  // bf16 with winners: blockIdx.y 1 is the backward's replay (biases rb*,
+  // rpb*), which writes the winners; blockIdx.y 0 writes the latent
+  constexpr bool kHalves = kWinners && kBf16;
+  const bool replay = kHalves && blockIdx.y == 1;
+  if (replay) {
+    b1 = rb1;
+    b2 = rb2;
+    b3 = rb3;
+    pb1 = rpb1;
+    pb2 = rpb2;
+    pb3 = rpb3;
+    pb4 = rpb4;
+  }
   const Layout L = make_layout(n, KNN);
   extern __shared__ __align__(16) float smem[];
   float* sx = smem + L.sx;
@@ -151,22 +176,28 @@ patch_encoder_kernel(const float* __restrict__ pts, int n,
   }
   __syncthreads();
   if (tid < dout) {
-    out[static_cast<size_t>(blockIdx.x) * dout + tid] = lat[tid];
-    if (kWinners) winners[static_cast<size_t>(blockIdx.x) * dout + tid] = win[tid];
+    if (!replay) out[static_cast<size_t>(blockIdx.x) * dout + tid] = lat[tid];
+    if (kWinners && (replay || !kHalves))
+      winners[static_cast<size_t>(blockIdx.x) * dout + tid] = win[tid];
   }
 }
 
+// rb: the replay's 7 biases (bf16 with winners), else null.
 template <int KNN, bool kWinners, bool kBf16 = false>
 int launch(const float* pts, int p, int n, const float* const* w, int dout,
-           float* out, int* winners, cudaStream_t stream) {
+           float* out, int* winners, const float* const* rb, cudaStream_t stream) {
   const Layout L = make_layout(n, KNN);
   cudaError_t err = cudaFuncSetAttribute(patch_encoder_kernel<KNN, kWinners, kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L.bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  patch_encoder_kernel<KNN, kWinners, kBf16><<<p, kThreads, L.bytes, stream>>>(
-      pts, n, w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8], w[9], w[10],
-      w[11], w[12], w[13], dout, out, winners);
+  const float* none[7] = {};
+  if (rb == nullptr) rb = none;
+  patch_encoder_kernel<KNN, kWinners, kBf16>
+      <<<dim3(p, kWinners && kBf16 ? 2 : 1), kThreads, L.bytes, stream>>>(
+          pts, n, w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8], w[9], w[10],
+          w[11], w[12], w[13], dout, out, winners, rb[0], rb[1], rb[2], rb[3], rb[4], rb[5],
+          rb[6]);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -192,18 +223,20 @@ extern "C" int patch_encoder_launch(const float* pts, int p, int n, int knn,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (knn) {
     case 8:
-      return winners ? launch<8, true>(pts, p, n, w, dout, out, winners, s)
-                     : launch<8, false>(pts, p, n, w, dout, out, nullptr, s);
+      return winners ? launch<8, true>(pts, p, n, w, dout, out, winners, nullptr, s)
+                     : launch<8, false>(pts, p, n, w, dout, out, nullptr, nullptr, s);
     case 16:
-      return winners ? launch<16, true>(pts, p, n, w, dout, out, winners, s)
-                     : launch<16, false>(pts, p, n, w, dout, out, nullptr, s);
+      return winners ? launch<16, true>(pts, p, n, w, dout, out, winners, nullptr, s)
+                     : launch<16, false>(pts, p, n, w, dout, out, nullptr, nullptr, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The bf16 instance: the arguments of patch_encoder_launch without winners,
-// the weights and biases bf16-exact (rounded by the wrapper).
+// The bf16 instance: the arguments of patch_encoder_launch, the weights and
+// biases bf16-exact (rounded by the wrapper), then (with winners, in bf16
+// training) the replay's biases rb1, rb2, rb3, rpb1 .. rpb4 (float32, as
+// pcc_tpu's bf16 backward adds them), on which the winners are found.
 extern "C" int patch_encoder_bf16_launch(const float* pts, int p, int n, int knn,
                                          const float* w1, const float* b1,
                                          const float* w2, const float* b2,
@@ -212,17 +245,26 @@ extern "C" int patch_encoder_bf16_launch(const float* pts, int p, int n, int knn
                                          const float* pw2, const float* pb2,
                                          const float* pw3, const float* pb3,
                                          const float* pw4, const float* pb4, int dout,
-                                         float* out, void* stream) {
+                                         float* out, int* winners, void* stream,
+                                         const float* rb1, const float* rb2, const float* rb3,
+                                         const float* rpb1, const float* rpb2,
+                                         const float* rpb3, const float* rpb4) {
   if (p <= 0 || n % kEncQ != 0 || n > kEncMaxN || n < knn || dout <= 0 ||
       dout > kEncMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* w[14] = {w1, b1, w2, b2, w3, b3, pw1, pb1, pw2, pb2, pw3, pb3, pw4, pb4};
+  const float* rb[7] = {rb1, rb2, rb3, rpb1, rpb2, rpb3, rpb4};
+  if (winners)
+    for (const float* b : rb)
+      if (b == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (knn) {
     case 8:
-      return launch<8, false, true>(pts, p, n, w, dout, out, nullptr, s);
+      return winners ? launch<8, true, true>(pts, p, n, w, dout, out, winners, rb, s)
+                     : launch<8, false, true>(pts, p, n, w, dout, out, nullptr, nullptr, s);
     case 16:
-      return launch<16, false, true>(pts, p, n, w, dout, out, nullptr, s);
+      return winners ? launch<16, true, true>(pts, p, n, w, dout, out, winners, rb, s)
+                     : launch<16, false, true>(pts, p, n, w, dout, out, nullptr, nullptr, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

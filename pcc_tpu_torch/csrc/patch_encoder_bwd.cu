@@ -49,6 +49,25 @@
 // wgrad_tf32_kernel, as the PN++ stage backward computes its own), its bias
 // gradient the column sums of the same pass.
 //
+// The bf16 instance (patch_encoder_bwd_bf16_launch; pcc_tpu's compute_dtype
+// bfloat16, sa_pallas.py:288-470) is this kernel templated on the rounding
+// (bf16.cuh), with the TPU kernel's rounding points. The wrapper hands it
+// the weights rounded to bf16 and the biases float32, as the TPU kernel
+// casts them (ops/sa_cuda.py::replay_wb). The forward replay rounds the
+// centred neighbours, xyz and every layer's output after its relu
+// (`dense_fwd`), and the SetAbstraction max routes to the first slot of
+// the rounded maximum (:376-378), from the winners that the forward
+// kernel found on the same replay. Every input gradient is round(dz) @
+// round(w).T in float32 (`matmul`, :404, :450, :455, :460): the cotangent
+// is rounded where it is read, so each stored dz stays float32, as the
+// weight gradients take it. The weight gradients are float32 products of
+// the stored activations (:400-402, :446, :456), among them the two that
+// the forward rounds but the TPU kernel stores unrounded: x0's xyz columns
+// (:382) and the centred neighbours (`inp`, :456-458). So the rows and
+// the weight-gradient products are the float32 instance's; only the
+// recomputed rows and the input-gradient chain round. Products of bf16
+// values are exact in float32, so the chain needs no bf16 arithmetic.
+//
 // Determinism: every sum runs in a fixed order (the products' splits are
 // fixed by the shapes and summed in order; the dpatches scatter is one
 // thread per point, walking the rows in a fixed order); no float atomics.
@@ -190,7 +209,8 @@ __device__ __forceinline__ void zero_sa_rows(float* rows, const Rows& R, size_t 
 // x[r][k] = sum_o dz[r][o] * w[k][o], times (x[r][k] > 0) when kMask: the
 // input gradient of a layer z = x @ w + b, written over x (each element is
 // read and written by the same thread). RT rows per work item; rows % RT == 0.
-template <int RT, bool kGlobalW, bool kMask>
+// kBf16: dz rounded to bf16 where it is read (w is bf16-exact).
+template <int RT, bool kGlobalW, bool kMask, bool kBf16 = false>
 __device__ __forceinline__ void dense_bwd_x(const float* dz, int ldz, int rows, int cout,
                                             const float* w, int cin, float* x, int ldx) {
   const int items = (rows / RT) * cin;
@@ -204,7 +224,8 @@ __device__ __forceinline__ void dense_bwd_x(const float* dz, int ldz, int rows, 
     for (int o = 0; o < cout; ++o) {
       const float wk = load_w<kGlobalW>(w + k * cout + o);
 #pragma unroll
-      for (int i = 0; i < RT; ++i) acc[i] = fmaf(d[i * ldz + o], wk, acc[i]);
+      for (int i = 0; i < RT; ++i)
+        acc[i] = fmaf(pcc_bf16::act_round<kBf16>(d[i * ldz + o]), wk, acc[i]);
     }
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
@@ -215,25 +236,27 @@ __device__ __forceinline__ void dense_bwd_x(const float* dz, int ldz, int rows, 
 }
 
 // SetAbstraction layers 1-2 for kG queries qs[0..kG): a1, a2 rows
-// r = i * KNN + slot, as the forward computes them. Ends with a barrier.
-template <int KNN>
+// r = i * KNN + slot, as the forward computes them (rounded with kBf16).
+// Ends with a barrier.
+template <int KNN, bool kBf16>
 __device__ __forceinline__ void sa_group_forward(const int* qs, const unsigned short* nbr,
                                                  const float* sx, const float* sy,
                                                  const float* sz, const float* sw1,
                                                  const float* sb1, const float* sw2,
                                                  const float* sb2, float* a1, float* a2) {
-  sa_layer1<KNN>(kG, QueryList{qs}, nbr, sx, sy, sz, sw1, sb1, a1);
+  sa_layer1<KNN, kBf16>(kG, QueryList{qs}, nbr, sx, sy, sz, sw1, sb1, a1);
   __syncthreads();
-  dense_rows<8, true, false>(a1, kEncC1, kG * KNN, kEncC1, sw2, sb2, kEncC2, a2, kEncC2);
+  dense_rows<8, true, false, kBf16>(a1, kEncC1, kG * KNN, kEncC1, sw2, sb2, kEncC2, a2, kEncC2);
   __syncthreads();
 }
 
 // SetAbstraction layer 3 and the max over slots for kG queries: the pooled
 // features (equal to the forward's: rounding is monotone, so
 // max_s(acc_s + b) == max_s(acc_s) + b) into the concat rows, and the first
-// slot that reaches the max, or kDead where the max is <= 0. Ends with a
-// barrier.
-template <int KNN>
+// slot that reaches the max, or kDead where the max is <= 0. kBf16: the
+// slots' values rounded to bf16 before the max, so that the first of the
+// rounded maxima wins, as the TPU kernel picks it. Ends with a barrier.
+template <int KNN, bool kBf16>
 __device__ __forceinline__ void sa_group_max(const float* a2, const float* sw3,
                                              const float* sb3, float* feats,
                                              unsigned char* best) {
@@ -250,11 +273,11 @@ __device__ __forceinline__ void sa_group_max(const float* a2, const float* sw3,
       for (int i = 0; i < KNN; ++i) acc[i] = fmaf(x[i * kEncC2 + k], wk, acc[i]);
     }
     const float b = sb3[o];
-    float m = acc[0] + b;
+    float m = pcc_bf16::act_round<kBf16>(acc[0] + b);
     int s = 0;
 #pragma unroll
     for (int i = 1; i < KNN; ++i) {
-      const float v = acc[i] + b;
+      const float v = pcc_bf16::act_round<kBf16>(acc[i] + b);
       if (v > m) {
         m = v;
         s = i;
@@ -269,8 +292,9 @@ __device__ __forceinline__ void sa_group_max(const float* a2, const float* sw3,
 // The SetAbstraction backward of kG queries qs[0..kG) whose a1/a2 rows were
 // just recomputed, given the pooled features' gradient dfeats (row stride
 // kEncX0): writes their SetAbstraction rows (from r0 on) for the weight
-// gradients and adds the patch gradient into dpts. Ends with a barrier.
-template <int KNN>
+// gradients and adds the patch gradient into dpts. kBf16: each gradient
+// rounded to bf16 where a product reads it. Ends with a barrier.
+template <int KNN, bool kBf16>
 __device__ __forceinline__ void sa_group_backward(
     const int* qs, const unsigned short* nbr, const float* sx, const float* sy,
     const float* sz, int n, const float* sw1, const float* sw2, const float* sw3,
@@ -303,20 +327,21 @@ __device__ __forceinline__ void sa_group_backward(
     if (a2[e] > 0.0f) {
       for (int o = 0; o < kEncC3; ++o)
         if (best[qi * kEncC3 + o] == slot)
-          s = fmaf(dfeats[qi * kEncX0 + o], sw3[i * kEncC3 + o], s);
+          s = fmaf(pcc_bf16::act_round<kBf16>(dfeats[qi * kEncX0 + o]), sw3[i * kEncC3 + o], s);
     }
     a2[e] = s;
   }
   __syncthreads();
   for (int e = threadIdx.x; e < kRows * kEncC2; e += blockDim.x) rows[R.da2 + r0 * kEncC2 + e] = a2[e];
-  dense_bwd_x<8, false, true>(a2, kEncC2, kRows, kEncC2, sw2, kEncC1, a1, kEncC1);
+  dense_bwd_x<8, false, true, kBf16>(a2, kEncC2, kRows, kEncC2, sw2, kEncC1, a1, kEncC1);
   __syncthreads();
   for (int e = threadIdx.x; e < kRows * kEncC1; e += blockDim.x) rows[R.da1 + r0 * kEncC1 + e] = a1[e];
   // the centred input's gradient
   for (int e = threadIdx.x; e < kRows * 3; e += blockDim.x) {
     const int d = e % 3, r = e / 3;
     float s = 0.0f;
-    for (int o = 0; o < kEncC1; ++o) s = fmaf(a1[r * kEncC1 + o], sw1[d * kEncC1 + o], s);
+    for (int o = 0; o < kEncC1; ++o)
+      s = fmaf(pcc_bf16::act_round<kBf16>(a1[r * kEncC1 + o]), sw1[d * kEncC1 + o], s);
     dinp[e] = s;
   }
   __syncthreads();
@@ -345,8 +370,8 @@ __device__ __forceinline__ void sa_group_backward(
   __syncthreads();
 }
 
-// One block per patch.
-template <int KNN>
+// One block per patch; kBf16: the bf16 instance (the header note).
+template <int KNN, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ g,
                          const int* __restrict__ pwin, int n,
@@ -417,8 +442,8 @@ patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict_
     if (tid < kEncQ) qs[tid] = winners[w0 + min(tid, Wn - 1)];
     __syncthreads();
     for (int g0 = 0; g0 < kEncQ; g0 += kG) {
-      sa_group_forward<KNN>(qs + g0, nbr, sx, sy, sz, sw1, sb1, sw2, sb2, a1, a2);
-      sa_group_max<KNN>(a2, sw3, sb3, bx0 + g0 * kEncX0 + 3, best + g0 * kEncC3);
+      sa_group_forward<KNN, kBf16>(qs + g0, nbr, sx, sy, sz, sw1, sb1, sw2, sb2, a1, a2);
+      sa_group_max<KNN, kBf16>(a2, sw3, sb3, bx0 + g0 * kEncX0 + 3, best + g0 * kEncC3);
     }
     concat_xyz(kEncQ, QueryList{qs}, sx, sy, sz, bx0);
     for (int e = tid; e < kEncQ * dout; e += blockDim.x) {
@@ -426,26 +451,37 @@ patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict_
       dz4[e] = (r < Wn && win[c] == qs[r]) ? gp[c] : 0.0f;
     }
     __syncthreads();
-    pointnet_123(bx0, pw1, pb1, pw2, pb2, pw3, pb3, bx1, bx2, bx3);
+    // x0's rows for the weight gradient keep xyz unrounded (sa_pallas.py:382,
+    // :400); the product rounds it
+    store_rows(bx0, kEncX0, 3 + kEncC3, kEncQ, rows + R.x0 + pr * kEncX0, kEncX0);
+    if (kBf16) {
+      __syncthreads();
+      for (int e = tid; e < kEncQ * 3; e += blockDim.x) {
+        float* x = bx0 + (e / 3) * kEncX0 + e % 3;
+        *x = pcc_bf16::round_bf16(*x);
+      }
+      __syncthreads();
+    }
+    pointnet_123<kBf16>(bx0, pw1, pb1, pw2, pb2, pw3, pb3, bx1, bx2, bx3);
 
     // PointNet backward, each gradient written over its layer's activations,
     // every layer's input rows and pre-activation gradients to `rows`
-    store_rows(bx0, kEncX0, 3 + kEncC3, kEncQ, rows + R.x0 + pr * kEncX0, kEncX0);
     store_rows(bx1, kEncP1, kEncP1, kEncQ, rows + R.x1 + pr * kEncP1, kEncP1);
     store_rows(bx2, kEncP2, kEncP2, kEncQ, rows + R.x2 + pr * kEncP2, kEncP2);
     store_rows(bx3, kEncP3, kEncP3, kEncQ, rows + R.x3 + pr * kEncP3, kEncP3);
     store_rows(dz4, dout, dout, kEncQ, rows + R.dz4 + pr * R.ldd, R.ldd);
     __syncthreads();
-    dense_bwd_x<16, true, true>(dz4, dout, kEncQ, dout, pw4, kEncP3, bx3, kEncP3);
+    dense_bwd_x<16, true, true, kBf16>(dz4, dout, kEncQ, dout, pw4, kEncP3, bx3, kEncP3);
     __syncthreads();
     store_rows(bx3, kEncP3, kEncP3, kEncQ, rows + R.dz3 + pr * kEncP3, kEncP3);
-    dense_bwd_x<16, true, true>(bx3, kEncP3, kEncQ, kEncP3, pw3, kEncP2, bx2, kEncP2);
+    dense_bwd_x<16, true, true, kBf16>(bx3, kEncP3, kEncQ, kEncP3, pw3, kEncP2, bx2, kEncP2);
     __syncthreads();
     store_rows(bx2, kEncP2, kEncP2, kEncQ, rows + R.dz2 + pr * kEncP2, kEncP2);
-    dense_bwd_x<16, true, true>(bx2, kEncP2, kEncQ, kEncP2, pw2, kEncP1, bx1, kEncP1);
+    dense_bwd_x<16, true, true, kBf16>(bx2, kEncP2, kEncQ, kEncP2, pw2, kEncP1, bx1, kEncP1);
     __syncthreads();
     store_rows(bx1, kEncP1, kEncP1, kEncQ, rows + R.dz1 + pr * kEncP1, kEncP1);
-    dense_bwd_x<16, true, false>(bx1, kEncP1, kEncQ, kEncP1, pw1, 3 + kEncC3, bx0, kEncX0);
+    dense_bwd_x<16, true, false, kBf16>(bx1, kEncP1, kEncQ, kEncP1, pw1, 3 + kEncC3, bx0,
+                                        kEncX0);
     __syncthreads();
     // the concat's xyz columns straight onto the (distinct) winners
     for (int e = tid; e < Wn * 3; e += blockDim.x) {
@@ -457,8 +493,8 @@ patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict_
     // at a time; the rows of the groups past Wn are zeros
     int g0 = 0;
     for (; g0 < Wn; g0 += kG) {
-      sa_group_forward<KNN>(qs + g0, nbr, sx, sy, sz, sw1, sb1, sw2, sb2, a1, a2);
-      sa_group_backward<KNN>(qs + g0, nbr, sx, sy, sz, n, sw1, sw2, sw3, a1, a2,
+      sa_group_forward<KNN, kBf16>(qs + g0, nbr, sx, sy, sz, sw1, sb1, sw2, sb2, a1, a2);
+      sa_group_backward<KNN, kBf16>(qs + g0, nbr, sx, sy, sz, n, sw1, sw2, sw3, a1, a2,
                              best + g0 * kEncC3, bx0 + g0 * kEncX0 + 3, dinp, dpts, rows, R,
                              (pr + g0) * KNN);
     }
@@ -491,7 +527,7 @@ inline size_t part_floats(size_t rows, int cin, int cout) {
          (cin + 3) * cout;
 }
 
-template <int KNN>
+template <int KNN, bool kBf16>
 int launch(const float* pts, const float* g, const int* winners, int p, int n,
            const float* const* w, int dout, float* dpatches, float* grads, float* rows,
            float* part, long long part_n, cudaStream_t stream) {
@@ -519,13 +555,13 @@ int launch(const float* pts, const float* g, const int* winners, int p, int n,
     if (static_cast<long long>(part_floats(pr.rows, pr.cin, pr.cout)) > part_n)
       return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(patch_encoder_bwd_kernel<KNN>,
+  if ((err = cudaFuncSetAttribute(patch_encoder_bwd_kernel<KNN, kBf16>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(L.bytes))) != cudaSuccess ||
       (err = cudaFuncSetAttribute(wgrad_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(kWSmemBytes))) != cudaSuccess)
     return static_cast<int>(err);
-  patch_encoder_bwd_kernel<KNN><<<p, kThreads, L.bytes, stream>>>(
+  patch_encoder_bwd_kernel<KNN, kBf16><<<p, kThreads, L.bytes, stream>>>(
       pts, g, winners, n, w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8], w[9], w[10],
       w[11], w[12], w[13], dout, dpatches, rows, R);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
@@ -553,6 +589,30 @@ int launch(const float* pts, const float* g, const int* winners, int p, int n,
 
 }  // namespace
 
+namespace {
+
+template <bool kBf16>
+int dispatch(const float* pts, const float* g, const int* winners, int p, int n, int knn,
+             const float* const* w, int dout, float* dpatches, float* grads, float* rows,
+             float* part, long long part_n, void* stream) {
+  if (p <= 0 || n % kEncQ != 0 || n > kEncMaxN || n < knn || dout <= 0 || dout > kEncMaxD ||
+      static_cast<long long>(p) * ((dout + kEncQ - 1) / kEncQ * kEncQ) * knn > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (knn) {
+    case 8:
+      return launch<8, kBf16>(pts, g, winners, p, n, w, dout, dpatches, grads, rows, part,
+                              part_n, s);
+    case 16:
+      return launch<16, kBf16>(pts, g, winners, p, n, w, dout, dpatches, grads, rows, part,
+                               part_n, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
 // pts: [p, n, 3] f32; g: [p, dout] f32; winners: [p, dout] int32, each
 // latent channel's first arg-max point (patch_encoder_launch's winners
 // output); weights [in, out] row-major f32 and biases [out] as for
@@ -571,17 +631,21 @@ extern "C" int patch_encoder_bwd_launch(const float* pts, const float* g, const 
                                         const float* pw4, const float* pb4, int dout,
                                         float* dpatches, float* grads, float* rows, float* part,
                                         long long part_n, void* stream) {
-  if (p <= 0 || n % kEncQ != 0 || n > kEncMaxN || n < knn || dout <= 0 || dout > kEncMaxD ||
-      static_cast<long long>(p) * ((dout + kEncQ - 1) / kEncQ * kEncQ) * knn > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
   const float* w[14] = {w1, b1, w2, b2, w3, b3, pw1, pb1, pw2, pb2, pw3, pb3, pw4, pb4};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (knn) {
-    case 8:
-      return launch<8>(pts, g, winners, p, n, w, dout, dpatches, grads, rows, part, part_n, s);
-    case 16:
-      return launch<16>(pts, g, winners, p, n, w, dout, dpatches, grads, rows, part, part_n, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<false>(pts, g, winners, p, n, knn, w, dout, dpatches, grads, rows, part,
+                         part_n, stream);
+}
+
+// The bf16 instance: the arguments of patch_encoder_bwd_launch, the weights
+// bf16-exact and the biases float32 (ops/sa_cuda.py::replay_wb), the
+// winners those of patch_encoder_bf16_launch's replay half.
+extern "C" int patch_encoder_bwd_bf16_launch(
+    const float* pts, const float* g, const int* winners, int p, int n, int knn,
+    const float* w1, const float* b1, const float* w2, const float* b2, const float* w3,
+    const float* b3, const float* pw1, const float* pb1, const float* pw2, const float* pb2,
+    const float* pw3, const float* pb3, const float* pw4, const float* pb4, int dout,
+    float* dpatches, float* grads, float* rows, float* part, long long part_n, void* stream) {
+  const float* w[14] = {w1, b1, w2, b2, w3, b3, pw1, pb1, pw2, pb2, pw3, pb3, pw4, pb4};
+  return dispatch<true>(pts, g, winners, p, n, knn, w, dout, dpatches, grads, rows, part,
+                        part_n, stream);
 }

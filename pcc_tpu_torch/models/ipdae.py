@@ -10,12 +10,16 @@ training pass: the encoder with its backward kernel
 plain products, as pcc_tpu trains (models/ipdae.py:115-130).
 
 compute_dtype "bfloat16" (pcc_tpu's PatchAE(dtype=bfloat16) with its fused
-kernels, serving only; parameters stay float32): `encode` runs the bf16
-encoder kernel on the rounded weights `encoder_weights` keeps, then
-sigmoid_spread in float32 (pcc_tpu/models/ipdae.py:
-80-82); `decoder_inputs` and `decode` the bf16 decoder path
-(decoder_pallas.py:113-123: h1 rounded before layer 2, h2 handed to the
-kernel in float32). Training in bf16 is not ported: `forward` raises.
+kernels; parameters stay float32): `encode` runs the bf16 encoder kernel on
+the rounded weights `encoder_weights` keeps, then sigmoid_spread in float32
+(pcc_tpu/models/ipdae.py:80-82); `decoder_inputs` and `decode` the bf16
+decoder path (decoder_pallas.py:113-123: h1 rounded before layer 2, h2
+handed to the kernel in float32). `forward` in bf16 is pcc_tpu's bf16 train
+pass with fused_sa: the encoder through the bf16 instances of both encoder
+kernels (ops/sa_cuda.py::patch_encoder_trainable), the spread in float32,
+and the decoder on flax's bf16 Dense rule with its gradient rules
+(ops/bf16.py), since pcc_tpu trains without its fused decoder
+(models/ipdae.py:99-123). The probability model in bf16 is flax's too.
 """
 
 from __future__ import annotations
@@ -28,14 +32,18 @@ from pcc_tpu_torch.models.layers import (
     PointNetFeat,
     PointwiseMLP,
     SetAbstraction,
+    dense,
+    mlp_bf16,
     sigmoid_spread,
     ste_round,
     weights_key,
 )
-from pcc_tpu_torch.ops.bf16 import check_compute_dtype, round_bf16
+from pcc_tpu_torch.ops.bf16 import check_compute_dtype, grad_round, round_bf16, tile_bf16
 from pcc_tpu_torch.ops.decoder_cuda import (expansion_kmajor, pack_decoder, patch_decoder,
                                             permute_expansion)
-from pcc_tpu_torch.ops.sa_cuda import bf16_wb, patch_encoder, patch_encoder_trainable
+from pcc_tpu_torch.ops.knn import knn_points
+from pcc_tpu_torch.ops.sa_cuda import (PLAIN_CHUNK, bf16_wb, patch_encoder,
+                                       patch_encoder_trainable)
 
 
 class PatchAE(nn.Module):
@@ -93,6 +101,31 @@ class PatchAE(nn.Module):
         # the quantizer's arithmetic stays float32 under bf16 compute
         return sigmoid_spread(latent, self.L)
 
+    def encode_unfused(self, patches: torch.Tensor) -> torch.Tensor:
+        """encode as pcc_tpu's PatchAE computes it with fused_sa off (its
+        AttrCodec's geometry, pcc_tpu/attrib.py:116): in bf16 the
+        SetAbstraction and PointNet MLPs on flax's bf16 Dense rule (the
+        centred neighbours and the concat float32 values, each max over bf16
+        values), plain products, PLAIN_CHUNK patches at a time; in float32
+        `encode`, the same function."""
+        if not self.bf16:
+            return self.encode(patches)
+        outs = []
+        for p in torch.split(patches, PLAIN_CHUNK):
+            _, _, grouped = knn_points(p, p, K=self.sa_knn, return_nn=True)
+            h = grouped - p[..., None, :]
+            for i, c in enumerate(self.sa.convs()):
+                h = torch.relu(dense(c, h, True, x_bf16=i > 0))
+            x = torch.cat([p, h.amax(dim=-2)], dim=-1)
+            outs.append(mlp_bf16(self.pn, x, x_bf16=False).amax(dim=-2))
+        return sigmoid_spread(torch.cat(outs), self.L)
+
+    def decode_unfused(self, latent_q: torch.Tensor) -> torch.Tensor:
+        """decode as pcc_tpu's PatchAE computes it with fused_decode off (its
+        AttrCodec's geometry): `decode_train`'s plain products, flax's rule
+        in bf16; in float32 `decode`, the same function."""
+        return self.decode_train(latent_q) if self.bf16 else self.decode(latent_q)
+
     def decoder_weights(self):
         """(w3r, b3r, mlp_wb, packed): the point-major expansion weight and
         bias, the inv_mlp ([in, out] weight, bias) pairs and, for weights on
@@ -142,21 +175,32 @@ class PatchAE(nn.Module):
     def decode_train(self, latent_q: torch.Tensor) -> torch.Tensor:
         """The differentiable decoder (AE.py:47-53): inv_pool, the fold of
         [B, k*128] viewed as [B, 128, k] and moved point-major, the latent
-        tiled onto every point, inv_mlp -> [B, k, 3]."""
+        tiled onto every point, inv_mlp -> [B, k, 3]. In bf16 every layer on
+        flax's bf16 rule, the output cast to float32 at once; the latent is a
+        float32 value that goes straight into the first layer, whose input
+        gradient stays float32 (ops/bf16.py)."""
         B = latent_q.shape[0]
-        fold = self.inv_pool(latent_q).reshape(B, 128, self.k).transpose(1, 2)
+        if self.bf16:
+            h = latent_q
+            for i in (0, 2, 4):
+                h = torch.relu(dense(self.inv_pool[i], h, True, x_bf16=i > 0))
+            fold = h.reshape(B, 128, self.k).transpose(1, 2)
+        else:
+            fold = self.inv_pool(latent_q).reshape(B, 128, self.k).transpose(1, 2)
         tiled = latent_q[:, None, :].expand(B, self.k, latent_q.shape[-1])
-        return self.inv_mlp(torch.cat([fold, tiled], dim=-1))
+        x = torch.cat([fold, tiled], dim=-1)
+        if self.bf16:
+            return mlp_bf16(self.inv_mlp, x, to_float32=True)
+        return self.inv_mlp(x)
 
     def forward(self, patches: torch.Tensor):
         """Training pass (AE.py:34-55): [B, K, 3] patches -> (reconstructed
-        [B, k, 3], latent [B, d], straight-through quantized latent [B, d])."""
-        if self.bf16:
-            raise NotImplementedError("PatchAE: bf16 training is not ported (bf16 serving is; "
-                                      "training in bf16 is the next slice)")
+        [B, k, 3], latent [B, d], straight-through quantized latent [B, d]).
+        In bf16 the encoder's kernels take the float32 weights and round them
+        as pcc_tpu's do; the latent is spread in float32."""
         latent = sigmoid_spread(
             patch_encoder_trainable(patches, self.sa.layers(), self.pn.layers(),
-                                    self.sa_knn), self.L)
+                                    self.sa_knn, bf16=self.bf16), self.L)
         latent_q = ste_round(latent)
         return self.decode_train(latent_q), latent, latent_q
 
@@ -165,11 +209,15 @@ class ConditionalProbabilityModel(nn.Module):
     """Latent PMFs conditioned only on the decoded skeleton (AE.py:87-123):
     [B, S, 3] -> [B, S, d, L]. The codec codes with its integer twin
     (coding/iprob.py); this float model holds the weights that twin is
-    converted from."""
+    converted from, and trains. compute_dtype "bfloat16": pcc_tpu's
+    ConditionalProbabilityModel(dtype=bfloat16), every layer on flax's bf16
+    rule, the max over points and the tiled feature bf16 values, the xyz
+    rounded into the concat, the logits cast to float32 for the softmax."""
 
-    def __init__(self, d: int = 16, L: int = 7):
+    def __init__(self, d: int = 16, L: int = 7, compute_dtype: str = "float32"):
         super().__init__()
         self.d, self.L = d, L
+        self.bf16 = check_compute_dtype(compute_dtype)
         self.model_pn = PointNetFeat(3, (64, 128, 256))
         self.model_mlp = nn.Sequential(
             PointConv(3 + 256, 512), nn.ReLU(),
@@ -179,6 +227,15 @@ class ConditionalProbabilityModel(nn.Module):
 
     def forward(self, sampled_xyz: torch.Tensor) -> torch.Tensor:
         B, S, _ = sampled_xyz.shape
+        if self.bf16:
+            feature = grad_round(mlp_bf16(self.model_pn, sampled_xyz, x_bf16=False)
+                                 .amax(dim=-2))
+            x = torch.cat([round_bf16(sampled_xyz), tile_bf16(feature, S)], dim=-1)
+            for i in (0, 2, 4):
+                x = dense(self.model_mlp[i], x, True, to_float32=i == 4)
+                if i < 4:
+                    x = torch.relu(x)
+            return torch.softmax(x.reshape(B, S, self.d, self.L), dim=-1)
         feature = self.model_pn(sampled_xyz)                    # [B, 256]
         tiled = feature[:, None, :].expand(B, S, feature.shape[-1])
         out = self.model_mlp(torch.cat([sampled_xyz, tiled], dim=-1))

@@ -47,17 +47,35 @@ class PointConv(nn.Module):
 
 
 def dense(layer: nn.Module, x: torch.Tensor, bf16: bool = False,
-          to_float32: bool = False) -> torch.Tensor:
+          to_float32: bool = False, x_bf16: bool = True) -> torch.Tensor:
     """A PointConv or nn.Linear (with its bias) on x [..., in]: the layer
     itself in float32; flax's Dense(dtype=bfloat16) rule with bf16
     (x, the kernel and the bias rounded to bf16, the product rounded, then
     the bias added in bf16), bf16-exact float32 out. to_float32: pcc_tpu
     casts this layer's bf16 result to float32 at once, and its last
-    rounding does not happen (ops/bf16.py::flax_dense's round_out)."""
+    rounding does not happen (ops/bf16.py::flax_dense's round_out).
+    x_bf16=False: x is a float32 value in pcc_tpu, and its cotangent
+    stays float32 (flax_dense's gradient rules)."""
     if not bf16:
         return layer(x)
     w = layer.kernel() if isinstance(layer, PointConv) else layer.weight.t()
-    return flax_dense(x, w, layer.bias, round_out=not to_float32)
+    return flax_dense(x, w, layer.bias, round_out=not to_float32, x_bf16=x_bf16)
+
+
+def mlp_bf16(mlp: "PointwiseMLP", x: torch.Tensor, x_bf16: bool = True,
+             to_float32: bool = False) -> torch.Tensor:
+    """A PointwiseMLP as pcc_tpu's PointwiseMLP(dtype=bfloat16) computes it:
+    every layer on flax's bf16 rule (`dense`), relu where the MLP has one.
+    x_bf16: whether pcc_tpu's input is a bf16 value (else float32, its
+    cotangent float32); to_float32: the last layer's result cast to float32
+    at once."""
+    n = len(mlp.mlp_Modules)
+    for i, m in enumerate(mlp.mlp_Modules):
+        x = dense(m[0], x, True, to_float32=to_float32 and i == n - 1,
+                  x_bf16=x_bf16 or i > 0)
+        if len(m) > 1:
+            x = torch.relu(x)
+    return x
 
 
 def weights_key(tensors) -> tuple:

@@ -46,8 +46,9 @@ from pcc_tpu_torch.ops.pppf_sa_cuda import (bf16_layers, fold_bn, pppf_sa_fused,
 
 def _no_bf16_training(module: nn.Module) -> None:
     if module.training and module.bf16:
-        raise NotImplementedError(f"{type(module).__name__}: bf16 training is not ported "
-                                  "(bf16 serving is; training in bf16 is the next slice)")
+        raise NotImplementedError(f"{type(module).__name__}: PPPF-AE's bf16 training is not "
+                                  "ported yet (bf16 serving is; it is the next slice, with "
+                                  "the bf16 instance of the PN++ stage backward kernel)")
 
 
 class PointnetSAModule(nn.Module):

@@ -9,7 +9,9 @@ same functions in plain PyTorch, on a CPU tensor. Kernel and plain version
 give bit-equal indices: both compute ((dx*dx + dy*dy) + dz*dz) with one
 rounding per operation (exactly, in int32) and take the lowest index among
 equal maxima. `plan` is the launcher's fixed rule by shape: a warp per
-cloud for small clouds, a cluster of CTAs per cloud for large ones. The
+cloud for small clouds, a cluster of CTAs per cloud for large ones, each
+CTA with the whole cloud up to 16384 points and with its own slice past
+that, up to MAX_POINTS. The
 kernel's design note (what bounds it on an H100, what it does about that)
 is at the top of csrc/fps.cu.
 """
@@ -24,23 +26,66 @@ _ARGTYPES = [cuda_lib.PTR, cuda_lib.PTR, cuda_lib.PTR, cuda_lib.INT, cuda_lib.IN
              cuda_lib.INT, cuda_lib.INT, cuda_lib.INT, cuda_lib.PTR]
 _INT_ARGTYPES = [cuda_lib.PTR, cuda_lib.PTR, cuda_lib.INT, cuda_lib.INT, cuda_lib.INT,
                  cuda_lib.INT, cuda_lib.INT, cuda_lib.INT, cuda_lib.PTR]
-MAX_POINTS = 16384        # csrc/fps.cu: the whole cloud in each CTA's shared memory
+MAX_POINTS = 131072       # csrc/fps.cu: 8 CTAs x 1024 x 16 = 8 x 512 x 32 points (16384 a CTA)
 WARP_MAX_POINTS = 512     # a warp per cloud: at most 16 points a lane
-_MAX_PER_THREAD = 8       # points a thread in a cluster's CTA
+_MAX_PER_THREAD = 8       # points a thread in registers
+_SLICE_MAX_PER = 32       # points a thread of a slice in shared memory
+_SLICE32_THREADS = 512    # 32 points a thread only in CTAs of up to 512 threads
 _CLUSTERS = (1, 2, 4, 8)  # CTAs per cloud the kernel takes (8: the portable cluster size)
 _MAX_CLUSTER_PICKED = 4
 _SMS = 132                # an H100 SXM's SMs
+_MAX_SMEM = 232448        # shared memory a block can have on an H100 (227 KB)
+WHOLE_CLOUD_POINTS = 16384  # the largest cloud whose copy csrc/fps.cu keeps in every CTA
+
+
+def _pow2_at_least(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def kernel_takes(N: int, cluster: int, threads: int) -> bool:
+    """Whether csrc/fps.cu's launcher takes the plan (cluster, threads) at
+    clouds of N points (its checks, mirrored): a warp per cloud up to 512
+    points; else each of `cluster` CTAs holds the whole cloud in shared
+    memory (up to 8 points a thread) or only its slice (up to 16, or 32
+    with up to 512 threads)."""
+    if threads % 32 or threads < 32:
+        return False
+    if cluster == 0:
+        return N <= WARP_MAX_POINTS and threads <= 256
+    if cluster not in _CLUSTERS or threads > 1024:
+        return False
+    slice_ = -(-N // cluster)
+    per = _pow2_at_least(-(-slice_ // threads))
+    warps = threads // 32
+    whole = ((12 * N + 15) & ~15) + 16 + 2 * cluster * warps * 8
+    if per <= _MAX_PER_THREAD and whole <= _MAX_SMEM:
+        return True
+    sliced = ((12 * per * threads + 15) & ~15) + 16 + 2 * cluster * warps * 24
+    return (per <= _SLICE_MAX_PER and (per <= 16 or threads <= _SLICE32_THREADS)
+            and sliced <= _MAX_SMEM)
 
 
 def plan(B: int, N: int) -> tuple[int, int]:
     """The launch plan (cluster, threads) for B clouds of N points, the
     fastest measured at the paths' shapes (every candidate plan timed on an
     H100 by tools/fps_breakdown.py; PERF.md). cluster 0: a warp per
-    cloud, 4 clouds a block. Else cluster CTAs of `threads` threads per
-    cloud, each thread with up to 8 points: as many CTAs as fill the card's
-    SMs once, up to 4 (8 measured no faster at B = 8, slower at B = 16)."""
+    cloud, 4 clouds a block. Up to 16384 points, cluster CTAs of `threads`
+    threads per cloud, each thread with up to 8 points: as many CTAs as
+    fill the card's SMs once, up to 4 (8 measured no faster at B = 8, slower
+    at B = 16). Past 16384 points (the large-scene rooms), 8 CTAs of a
+    power of two threads, up to 512, each CTA holding its slice, with 17-32
+    points a thread read from the slice: the fastest plan measured at [4,
+    65536] (256 threads, 0.774 ms; 512 threads 0.908, 1024 with the points
+    in registers 0.957) and [1, 100000] (512 threads, 1.885 ms; 1024 threads
+    2.235), fewer records to reduce a step outweighing the reads."""
     if N <= WARP_MAX_POINTS:
         return 0, 128
+    if N > WHOLE_CLOUD_POINTS:
+        c = _CLUSTERS[-1]
+        return c, min(_SLICE32_THREADS, max(32, _pow2_at_least(-(-N // (c * 32)))))
     c = 1
     while c < _MAX_CLUSTER_PICKED and B * c * 2 <= _SMS:
         c *= 2
@@ -51,9 +96,8 @@ def candidate_plans(N: int) -> list[tuple[int, int]]:
     """Every plan the kernel takes for clouds of N points."""
     out = [(0, t) for t in (32, 64, 128, 256)] if N <= WARP_MAX_POINTS else []
     for c in _CLUSTERS:
-        slice_ = -(-N // c)
         for t in (32, 64, 128, 256, 512, 1024):
-            if -(-slice_ // t) <= _MAX_PER_THREAD and t <= _round32(slice_):
+            if t <= _round32(-(-N // c)) and kernel_takes(N, c, t):
                 out.append((c, t))
     return out
 

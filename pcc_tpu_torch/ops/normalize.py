@@ -11,11 +11,14 @@ from __future__ import annotations
 import torch
 
 
-def normalize(pc: torch.Tensor, margin: float = 0.01):
+def normalize(pc: torch.Tensor, margin: float = 0.01, values: torch.Tensor | None = None):
     """Normalize clouds along their point axis.
 
     Args:
       pc: [..., N, 3] float32.
+      values: the clouds the normalized coordinates are computed from, where
+        they are not pc's (the same points rounded otherwise:
+        codec.py::upload_values); the bounding box is pc's.
     Returns:
       (pc01 [..., N, 3], center [..., 3], longest [...]).
     """
@@ -23,7 +26,7 @@ def normalize(pc: torch.Tensor, margin: float = 0.01):
     mn = pc.amin(dim=-2)
     center = (mx + mn) / 2.0
     longest = (mx - mn).amax(dim=-1)
-    pc01 = (pc - center[..., None, :]) * (1.0 - margin) \
+    pc01 = ((pc if values is None else values) - center[..., None, :]) * (1.0 - margin) \
         / longest[..., None, None] + 0.5
     return pc01, center, longest
 

@@ -10,10 +10,13 @@ the SetAbstraction MLP with a max over neighbours, the concat with xyz, the
 PointNet MLP and a max over points -> the pre-spread latent [P, D].
 Neighbour selection is bit-equal between the two; the MLP sums run in
 another order, so latents agree to float32 rounding. With bf16=True the
-bf16 instance of the kernel runs (launch counter "patch_encoder_bf16";
-serving only), rounding where pcc_tpu's bf16 encoder kernel rounds
-(sa_pallas.py:163-210): every weight and bias (the caller's, once:
-`bf16_wb`), the centred neighbours and xyz, every layer's output.
+bf16 instance of the kernel runs (launch counter "patch_encoder_bf16"),
+rounding where pcc_tpu's bf16 encoder kernel rounds (sa_pallas.py:163-210):
+every weight and bias (the caller's, once: `bf16_wb`), the centred
+neighbours and xyz, every layer's output. In bf16 training it also gives
+the winners of pcc_tpu's bf16 backward, whose replay of the forward rounds
+the weights but adds the float32 biases (sa_pallas.py:297-314): see
+`patch_encoder`.
 
 `patch_encoder_bwd` is its gradient against a cotangent [P, D]: the CUDA
 kernel csrc/patch_encoder_bwd.cu on CUDA tensors, `patch_encoder_bwd_plain`
@@ -23,9 +26,15 @@ winner, the first point that reaches the channel's max over points:
 `patch_encoder(..., return_winners=True)` returns them beside the latent
 (the forward kernel computes them in its fold), and `patch_encoder_bwd(...,
 winners=...)` takes them.
+With bf16=True the bf16 instance of the backward kernel runs (launch
+counter "patch_encoder_bwd_bf16"), with pcc_tpu's rounding points
+(sa_pallas.py:288-470): the replayed forward as above, every input
+gradient a product of the bf16-rounded cotangent and weight, every weight
+gradient a float32 product of the stored activations (the patch points and
+the centred neighbours unrounded).
 `patch_encoder_trainable` is the differentiable encoder that training
 calls: forward `patch_encoder` with its winners, backward
-`patch_encoder_bwd` on them.
+`patch_encoder_bwd` on them, in either dtype.
 
 `sa_fused` is the encoder's first half alone, SetAbstraction [P, N, 3] ->
 [P, N, 128] (pcc_tpu's TPU kernel _sa_kernel, entry sa_fused): the CUDA
@@ -52,7 +61,7 @@ _ARGTYPES = ([cuda_lib.PTR, cuda_lib.INT, cuda_lib.INT, cuda_lib.INT]
 _BWD_ARGTYPES = ([cuda_lib.PTR] * 3 + [cuda_lib.INT, cuda_lib.INT, cuda_lib.INT]
                  + [cuda_lib.PTR] * 14 + [cuda_lib.INT] + [cuda_lib.PTR] * 4
                  + [ctypes.c_longlong, cuda_lib.PTR])
-_BF16_ARGTYPES = _ARGTYPES[:-2] + [cuda_lib.PTR]
+_BF16_ARGTYPES = _ARGTYPES + [cuda_lib.PTR] * 7   # + the replay's 7 biases
 _SA_ARGTYPES = ([cuda_lib.PTR, cuda_lib.INT, cuda_lib.INT, cuda_lib.INT]
                 + [cuda_lib.PTR] * 8)
 SA_WIDTHS = (3, 32, 64, 128)
@@ -73,6 +82,15 @@ def bf16_wb(wb) -> list:
     encoder kernel's `load`, pcc_tpu's sa_pallas.py): the weights the bf16
     encoder takes."""
     return [(round_bf16(w), round_bf16(b)) for w, b in wb]
+
+
+def replay_wb(wb) -> list:
+    """[(w, b)] with the weights rounded to bf16 and the biases as they are:
+    the operands of pcc_tpu's bf16 backward kernel, whose replay of the
+    forward casts each weight but adds the float32 bias (`dense_fwd`,
+    sa_pallas.py:305-314) and whose input gradients take the rounded weights
+    (`matmul`, :316-317)."""
+    return [(round_bf16(w), b) for w, b in wb]
 
 
 def sa_features(p: torch.Tensor, idx: torch.Tensor, sa_wb, bf16: bool = False) -> torch.Tensor:
@@ -111,18 +129,23 @@ def patch_encoder_plain(patches: torch.Tensor, sa_wb, pn_wb, knn: int,
     (latent, winners [P, D] int32): each channel's first arg-max point as
     the kernel finds it (`winners_plain`). bf16: the weights and biases
     bf16 values (`bf16_wb`), the centred neighbours, xyz and every layer's
-    output rounded to bf16, products in float32 (no winners: bf16 training
-    is not ported)."""
-    if bf16 and return_winners:
-        raise ValueError("patch_encoder: no winners in bf16 (bf16 training is not ported)")
+    output rounded to bf16, products in float32. bf16 with return_winners
+    (training): sa_wb / pn_wb are the float32 weights; the latent is taken
+    on bf16_wb of them, as pcc_tpu's forward kernel rounds every weight and
+    bias, and the winners on replay_wb of them, as its backward's replay
+    computes the forward (sa_pallas.py:297-392)."""
+    lat_sa, lat_pn = (bf16_wb(sa_wb), bf16_wb(pn_wb)) if bf16 and return_winners \
+        else (sa_wb, pn_wb)
+    rep_sa, rep_pn = (replay_wb(sa_wb), replay_wb(pn_wb)) if bf16 else (sa_wb, pn_wb)
     outs, wins = [], []
     for s in range(0, patches.shape[0], chunk):
         p = patches[s:s + chunk]
         idx = select_nearest(sq_dists(p, p), knn)          # [c, N, knn]
-        z4 = pointwise_plain(p, idx, sa_wb, pn_wb, bf16)
+        z4 = pointwise_plain(p, idx, lat_sa, lat_pn, bf16)
         outs.append(z4.amax(dim=1))
         if return_winners:
-            wins.append(winners_plain(p, idx, z4, sa_wb, pn_wb).to(torch.int32))
+            z4w = pointwise_plain(p, idx, rep_sa, rep_pn, True) if bf16 else z4
+            wins.append(winners_plain(p, idx, z4w, rep_sa, rep_pn, bf16).to(torch.int32))
     if return_winners:
         return torch.cat(outs), torch.cat(wins)
     return torch.cat(outs)
@@ -180,35 +203,46 @@ def fma_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _kernel_choices(p, idx, rows, sa_wb, pn_wb, bf16: bool = False):
+def _kernel_choices(p, idx, rows, sa_wb, pn_wb, bf16: bool = False, acts=None):
     """The forward of the query points `rows` [c, R] of patches p, in the
     kernels' float32 arithmetic (csrc/encoder_common.cuh), for the choices
     the backward makes on them. Returns the relu masks of the
     SetAbstraction layers 1-2 [c, R, knn, 32 / 64], the SetAbstraction
     max's first winning slot and its liveness (max > 0) [c, R, 128], the
     PointNet relu masks [c, R, 128 / 256 / 512] and the last layer [c, R, D].
-    bf16: the bf16 kernel's arithmetic on its weights (`bf16_wb`; the
-    centred neighbours, xyz and every layer's output rounded to bf16), the
-    replay of its forward."""
+    bf16: the bf16 kernels' arithmetic on the weights given (`bf16_wb` for
+    the forward, `replay_wb` for the backward's replay; the centred
+    neighbours, xyz and every layer's output rounded to bf16), the slot the
+    first to reach the max of the rounded values. acts (a dict): filled
+    with each layer's stored input as pcc_tpu's backward keeps it, "sa"
+    [the centred neighbours unrounded, layer 1's and 2's outputs] and "pn"
+    [x0 = xyz unrounded | the pooled features, x1, x2, x3]."""
     rnd = round_bf16 if bf16 else _identity
     q = torch.gather(p, 1, rows[..., None].expand(-1, -1, 3))            # [c, R, 3]
     nbr = torch.gather(idx, 1, rows[..., None].expand(-1, -1, idx.shape[-1]))
-    h = rnd(knn_gather(p, nbr) - q[:, :, None, :])
-    sa_masks = []
+    centred = knn_gather(p, nbr) - q[:, :, None, :]
+    h = rnd(centred)
+    sa_masks, sa_in = [], [centred]
     for i, (w, b) in enumerate(sa_wb):
         z = fma_matmul(h, w) + b
         if i < len(sa_wb) - 1:
-            sa_masks.append(z > 0)
             h = rnd(torch.relu(z))
-    top, slot = z.max(dim=2)                  # first slot reaching the max
-    x = torch.cat([rnd(q), rnd(torch.relu(top))], dim=-1)
-    pn_masks = []
+            sa_masks.append(h > 0)
+            sa_in.append(h)
+    top, slot = rnd(z).max(dim=2)             # first slot reaching the max
+    feats = rnd(torch.relu(top))
+    x = torch.cat([rnd(q), feats], dim=-1)
+    pn_masks, pn_in = [], [torch.cat([q, feats], dim=-1)]
     for i, (w, b) in enumerate(pn_wb):
         x = fma_matmul(x, w) + b
         if i < len(pn_wb) - 1:
-            pn_masks.append(x > 0)
             x = torch.relu(x)
         x = rnd(x)
+        if i < len(pn_wb) - 1:
+            pn_masks.append(x > 0)
+            pn_in.append(x)
+    if acts is not None:
+        acts.update(sa=sa_in, pn=pn_in)
     return sa_masks, slot, top > 0, pn_masks, x
 
 
@@ -259,58 +293,121 @@ def patch_encoder(patches: torch.Tensor, sa_wb, pn_wb, knn: int,
     on CUDA tensors, the plain version on CPU tensors. With return_winners,
     (latent, winners [P, D] int32): each latent channel's first arg-max
     point, which the backward routes its gradient through. bf16: the bf16
-    instance (no winners) on weights and biases that are bf16 values
-    (`bf16_wb`, which PatchAE.encoder_weights keeps)."""
+    instance on weights and biases that are bf16 values (`bf16_wb`, which
+    PatchAE.encoder_weights keeps). bf16 with return_winners (training):
+    sa_wb / pn_wb are the float32 weights; one launch computes the latent on
+    bf16_wb of them and, in a second half of its grid, the winners on
+    replay_wb of them, pcc_tpu's bf16 backward's own replay of the forward
+    (its biases float32), whose winners its gradient routes through."""
     if patches.device.type == "cpu":
         return patch_encoder_plain(patches, sa_wb, pn_wb, knn, return_winners=return_winners,
                                    bf16=bf16)
     P, D = patches.shape[0], pn_wb[-1][0].shape[1]
-    if bf16:
-        if return_winners:
-            raise ValueError("patch_encoder: no winners in bf16 (bf16 training is not ported)")
-        args = _kernel_args("patch_encoder", patches, sa_wb, pn_wb, knn)
-        out = torch.empty((P, D), dtype=torch.float32, device=patches.device)
-        cuda_lib.launch("patch_encoder_bf16", _BF16_ARGTYPES, patches.data_ptr(), P,
-                        patches.shape[1], knn, *args, D, out.data_ptr(),
-                        cuda_lib.stream_ptr(patches))
-        return out
-    args = _kernel_args("patch_encoder", patches, sa_wb, pn_wb, knn)
     out = torch.empty((P, D), dtype=torch.float32, device=patches.device)
     win = (torch.empty((P, D), dtype=torch.int32, device=patches.device)
            if return_winners else None)
-    cuda_lib.launch("patch_encoder", _ARGTYPES, patches.data_ptr(), P,
-                    patches.shape[1], knn, *args, D, out.data_ptr(),
-                    None if win is None else win.data_ptr(), cuda_lib.stream_ptr(patches))
+    if bf16:
+        biases = [None] * 7
+        if return_winners:
+            biases = [b.contiguous() for _, b in list(sa_wb) + list(pn_wb)]
+            sa_wb, pn_wb = bf16_wb(sa_wb), bf16_wb(pn_wb)
+        args = _kernel_args("patch_encoder", patches, sa_wb, pn_wb, knn)
+        if return_winners and any(b.data_ptr() % 16 for b in biases):
+            raise ValueError("patch_encoder: biases must be 16-byte aligned")
+        cuda_lib.launch("patch_encoder_bf16", _BF16_ARGTYPES, patches.data_ptr(), P,
+                        patches.shape[1], knn, *args, D, out.data_ptr(),
+                        None if win is None else win.data_ptr(), cuda_lib.stream_ptr(patches),
+                        *[None if b is None else b.data_ptr() for b in biases])
+    else:
+        args = _kernel_args("patch_encoder", patches, sa_wb, pn_wb, knn)
+        cuda_lib.launch("patch_encoder", _ARGTYPES, patches.data_ptr(), P,
+                        patches.shape[1], knn, *args, D, out.data_ptr(),
+                        None if win is None else win.data_ptr(), cuda_lib.stream_ptr(patches))
     return (out, win) if return_winners else out
 
 
 def winners_plain(p: torch.Tensor, idx: torch.Tensor, z4: torch.Tensor, sa_wb,
-                  pn_wb) -> torch.Tensor:
+                  pn_wb, bf16: bool = False) -> torch.Tensor:
     """Each latent channel's winner as the kernels find it: the first point
     (lowest index) that reaches the channel's max over points, on the
-    kernels' float32 values. p [c, N, 3] patches, idx [c, N, knn] their
+    kernels' values. p [c, N, 3] patches, idx [c, N, knn] their
     neighbours, z4 [c, N, D] the plain pre-max latents -> [c, D] points. The
-    points within 1e-4 of a channel's max are recomputed in the kernels'
-    arithmetic (fma_matmul), since float32 ties and near-ties, which occur at
-    training sizes, can resolve differently in any other summation order."""
+    points near a channel's max (within 1e-4 of its largest |entry| in
+    float32; in bf16, where rounded values tie often and a rounding moves a
+    value by 2^-8 of itself, within 2^-5) are recomputed in the kernels'
+    arithmetic (fma_matmul), since ties and near-ties, which occur at
+    training sizes, can resolve differently in any other summation order.
+    bf16: pcc_tpu's bf16 backward's argmax (sa_pallas.py:392) on the
+    rounded values of its replay (sa_wb, pn_wb: `replay_wb`)."""
+    tol = 2.0 ** -5 if bf16 else 1e-4
     top = z4.amax(dim=1, keepdim=True)
-    near = z4 >= top - 1e-4 * z4.abs().amax(dim=1, keepdim=True)
+    near = z4 >= top - tol * z4.abs().amax(dim=1, keepdim=True)
     # the candidate points of each patch, ascending, padded with the first
     cand = near.any(dim=-1)                                        # [c, N]
     R = int(cand.sum(dim=1).max())
     order = torch.sort((~cand).to(torch.int8), dim=1, stable=True).indices[:, :R]
     rows = torch.where(torch.gather(cand, 1, order), order, order[:, :1])
-    z4r = _kernel_choices(p, idx, rows, sa_wb, pn_wb)[-1]
+    z4r = _kernel_choices(p, idx, rows, sa_wb, pn_wb, bf16)[-1]
     z4r = torch.where(_gather_rows(near, rows), z4r, -torch.inf)   # [c, R, D]
     return torch.gather(rows, 1, z4r.max(dim=1).indices)           # first row
 
 
+def _bwd_bf16_chunk(p, gc, idx, q, sa_rep, pn_rep):
+    """pcc_tpu's bf16 backward (sa_pallas.py:288-470) of patches p [c, N, 3]
+    against the cotangent gc [c, D], on the winning points q [c, D], written
+    out as its dense_bwd chain: each distinct winning point one row (the
+    channels it wins in its cotangent row), the forward replayed on the rows
+    in the kernels' arithmetic (`_kernel_choices`); every input gradient
+    round(dz) @ round(w).T (the weights arrive rounded, replay_wb), masked by
+    its input's relu; every weight gradient x.T @ dz in float32 on the stored
+    inputs (acts: xyz and the centred neighbours unrounded). Returns
+    (dpatches [c, N, 3], [dw, db] * 7)."""
+    c, D = q.shape
+    acts = {}
+    _, slot, live, _, _ = _kernel_choices(p, idx, q, sa_rep, pn_rep, True, acts)
+    same = q[:, :, None] == q[:, None, :]                       # row r's point wins channel c'
+    first = ~torch.tril(same, diagonal=-1).any(dim=-1)          # the first row of its point
+    dz = gc[:, None, :] * (same & first[:, :, None])            # [c, D rows, D]
+
+    def layer_grads(x, dz, w):
+        """(dw, db, round(dz) @ round(w).T) of one layer (w rounded)."""
+        dw = x.reshape(-1, x.shape[-1]).t() @ dz.reshape(-1, dz.shape[-1])
+        return dw, dz.reshape(-1, dz.shape[-1]).sum(dim=0), round_bf16(dz) @ w.t()
+
+    grads = []
+    xs = acts["pn"]
+    for i in reversed(range(len(pn_rep))):
+        dw, db, dx = layer_grads(xs[i], dz, pn_rep[i][0])
+        grads = [dw, db] + grads
+        dz = dx * (xs[i] > 0) if i else dx
+    dxyz, dfeats = dz[..., :3], dz[..., 3:]                     # [c, D, 3 / 128]
+    knn = idx.shape[-1]
+    slots = torch.arange(knn, device=p.device)[:, None]
+    dz = torch.where((slot[:, :, None, :] == slots) & live[:, :, None, :],
+                     dfeats[:, :, None, :], 0.0)                 # [c, D, knn, 128]
+    xs = acts["sa"]
+    sa_grads = []
+    for i in reversed(range(len(sa_rep))):
+        dw, db, dx = layer_grads(xs[i], dz, sa_rep[i][0])
+        sa_grads = [dw, db] + sa_grads
+        dz = dx * (xs[i] > 0) if i else dx
+    # the gather transposed onto each neighbour, minus the centred term on
+    # the query, plus the concat's xyz columns on the query
+    nbr = torch.gather(idx, 1, q[..., None].expand(-1, -1, knn))             # [c, D, knn]
+    dp = torch.zeros_like(p)
+    dp.scatter_add_(1, nbr.reshape(c, -1, 1).expand(-1, -1, 3), dz.reshape(c, -1, 3))
+    dp.scatter_add_(1, q[..., None].expand(-1, -1, 3), dxyz - dz.sum(dim=2))
+    return dp, sa_grads + grads
+
+
 def patch_encoder_bwd_plain(patches: torch.Tensor, g: torch.Tensor, sa_wb, pn_wb,
-                            knn: int, winners=None):
+                            knn: int, winners=None, bf16: bool = False):
     """The encoder's gradient against the cotangent g [P, D], with the
     kernel's subgradient. Returns (dpatches [P, N, 3], dsa_wb, dpn_wb), the
     weight gradients summed over patches in the ([in, out], [out]) layout of
-    sa_wb / pn_wb.
+    sa_wb / pn_wb. bf16: pcc_tpu's bf16 backward (`_bwd_bf16_chunk`) on
+    the float32 weights sa_wb / pn_wb, its winners those of
+    `patch_encoder(..., bf16=True, return_winners=True)`.
 
     The gradient of latent channel c flows only through the point that wins
     its max over points (`winners` [P, D], the forward's, or else
@@ -323,6 +420,21 @@ def patch_encoder_bwd_plain(patches: torch.Tensor, g: torch.Tensor, sa_wb, pn_wb
     arithmetic (fma_matmul), and the gradients are then autograd through
     plain products on the winning points, with the relu and max replaced by
     those choices."""
+    if bf16:
+        sa_rep, pn_rep = replay_wb(sa_wb), replay_wb(pn_wb)
+        dpatches, wgrads = [], None
+        for s in range(0, patches.shape[0], PLAIN_CHUNK):
+            p, gc = patches[s:s + PLAIN_CHUNK].detach(), g[s:s + PLAIN_CHUNK].detach()
+            idx = select_nearest(sq_dists(p, p), knn)
+            if winners is None:
+                q = winners_plain(p, idx, pointwise_plain(p, idx, sa_rep, pn_rep, True),
+                                  sa_rep, pn_rep, True)
+            else:
+                q = winners[s:s + PLAIN_CHUNK].long()
+            dp, grads = _bwd_bf16_chunk(p, gc, idx, q, sa_rep, pn_rep)
+            dpatches.append(dp)
+            wgrads = grads if wgrads is None else [a + b for a, b in zip(wgrads, grads)]
+        return (torch.cat(dpatches), *_unflatten(wgrads))
     leaves = [t.detach().requires_grad_(True) for t in _flatten(sa_wb, pn_wb)]
     sa, pn = _unflatten(leaves)
     dpatches, wgrads = [], None
@@ -378,36 +490,41 @@ def _bwd_workspace(P: int, knn: int, D: int):
 
 
 def patch_encoder_bwd(patches: torch.Tensor, g: torch.Tensor, sa_wb, pn_wb, knn: int,
-                      winners=None):
+                      winners=None, bf16: bool = False):
     """(dpatches, dsa_wb, dpn_wb) of the encoder against the cotangent g
     [P, D]: the CUDA kernel on CUDA tensors, the plain version on CPU
     tensors. winners [P, D] int32: each latent channel's first arg-max point,
     as `patch_encoder(..., return_winners=True)` gives them; when None, the
     wrapper gets them from one launch of the forward kernel (the plain
-    version from `winners_plain`)."""
+    version from `winners_plain`). bf16: the bf16 instance (launch counter
+    "patch_encoder_bwd_bf16") on the float32 weights sa_wb / pn_wb, which it
+    takes as replay_wb of them, with the winners of the bf16 forward."""
     if patches.device.type == "cpu":
-        return patch_encoder_bwd_plain(patches, g, sa_wb, pn_wb, knn, winners=winners)
+        return patch_encoder_bwd_plain(patches, g, sa_wb, pn_wb, knn, winners=winners,
+                                       bf16=bf16)
+    if winners is None:
+        winners = patch_encoder(patches, sa_wb, pn_wb, knn, return_winners=True, bf16=bf16)[1]
+    leaves = _flatten(sa_wb, pn_wb)
+    if bf16:
+        sa_wb, pn_wb = replay_wb(sa_wb), replay_wb(pn_wb)
     args = _kernel_args("patch_encoder_bwd", patches, sa_wb, pn_wb, knn)
     P, N, _ = patches.shape
     D = pn_wb[-1][0].shape[1]
     cuda_lib.require_cuda("patch_encoder_bwd cotangent", g, torch.float32, 2)
     if g.shape != (P, D):
         raise ValueError(f"patch_encoder_bwd: cotangent {tuple(g.shape)} != {(P, D)}")
-    if winners is None:
-        winners = patch_encoder(patches, sa_wb, pn_wb, knn, return_winners=True)[1]
     cuda_lib.require_cuda("patch_encoder_bwd winners", winners, torch.int32, 2)
     if winners.shape != (P, D):
         raise ValueError(f"patch_encoder_bwd: winners {tuple(winners.shape)} != {(P, D)}")
-    leaves = _flatten(sa_wb, pn_wb)
     total = sum(t.numel() for t in leaves)
     dpatches = torch.empty_like(patches)
     grads = torch.empty(total, dtype=torch.float32, device=patches.device)
     rows, part = (torch.empty(n, dtype=torch.float32, device=patches.device)
                   for n in _bwd_workspace(P, knn, D))
-    cuda_lib.launch("patch_encoder_bwd", _BWD_ARGTYPES, patches.data_ptr(), g.data_ptr(),
-                    winners.data_ptr(), P, N, knn, *args, D, dpatches.data_ptr(),
-                    grads.data_ptr(), rows.data_ptr(), part.data_ptr(), part.numel(),
-                    cuda_lib.stream_ptr(patches))
+    cuda_lib.launch("patch_encoder_bwd_bf16" if bf16 else "patch_encoder_bwd", _BWD_ARGTYPES,
+                    patches.data_ptr(), g.data_ptr(), winners.data_ptr(), P, N, knn, *args, D,
+                    dpatches.data_ptr(), grads.data_ptr(), rows.data_ptr(), part.data_ptr(),
+                    part.numel(), cuda_lib.stream_ptr(patches))
     flat = list(torch.split(grads, [t.numel() for t in leaves]))
     flat = [f.view(t.shape) for f, t in zip(flat, leaves)]
     return (dpatches, *_unflatten(flat))
@@ -417,14 +534,15 @@ class PatchEncoderFn(torch.autograd.Function):
     """The encoder with its backward kernel: forward `patch_encoder`, which
     also hands over each latent channel's winning point, saved for the
     backward `patch_encoder_bwd` (pcc_tpu's custom VJP,
-    sa_pallas.py::_make_trainable_encoder). Arguments: knn, patches, then
-    the 14 weights and biases."""
+    sa_pallas.py::_make_trainable_encoder). Arguments: knn, bf16, patches,
+    then the 14 weights and biases (float32; in bf16 each kernel rounds
+    them where pcc_tpu's does)."""
 
     @staticmethod
-    def forward(ctx, knn, patches, *wb):
-        ctx.knn = knn
+    def forward(ctx, knn, bf16, patches, *wb):
+        ctx.knn, ctx.bf16 = knn, bf16
         sa, pn = _unflatten(wb)
-        latent, winners = patch_encoder(patches, sa, pn, knn, return_winners=True)
+        latent, winners = patch_encoder(patches, sa, pn, knn, return_winners=True, bf16=bf16)
         ctx.save_for_backward(patches, winners, *wb)
         return latent
 
@@ -433,12 +551,14 @@ class PatchEncoderFn(torch.autograd.Function):
         patches, winners, *wb = ctx.saved_tensors
         sa, pn = _unflatten(wb)
         dpatches, dsa, dpn = patch_encoder_bwd(patches, g.contiguous(), sa, pn, ctx.knn,
-                                               winners=winners)
-        return (None, dpatches, *_flatten(dsa, dpn))
+                                               winners=winners, bf16=ctx.bf16)
+        return (None, None, dpatches, *_flatten(dsa, dpn))
 
 
-def patch_encoder_trainable(patches: torch.Tensor, sa_wb, pn_wb, knn: int) -> torch.Tensor:
+def patch_encoder_trainable(patches: torch.Tensor, sa_wb, pn_wb, knn: int,
+                            bf16: bool = False) -> torch.Tensor:
     """Differentiable encoder [P, N, 3] -> [P, D] (pcc_tpu's
-    patch_encoder_trainable): the kernels on CUDA tensors, the plain
-    versions on CPU tensors, the same latents as `patch_encoder`."""
-    return PatchEncoderFn.apply(knn, patches, *_flatten(sa_wb, pn_wb))
+    patch_encoder_trainable, compute_dtype bfloat16 with bf16): the kernels
+    on CUDA tensors, the plain versions on CPU tensors, the same latents as
+    `patch_encoder`."""
+    return PatchEncoderFn.apply(knn, bf16, patches, *_flatten(sa_wb, pn_wb))

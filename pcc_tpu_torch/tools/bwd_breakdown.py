@@ -61,7 +61,9 @@ ENC_VARIANTS = {
     "nosa_bwd": [[("      for (int g0 = 0; g0 < Wn; g0 += kG) {\n        sa_group_forward<KNN>(",
                    "      for (int g0 = 0; g0 < 0; g0 += kG) {\n        sa_group_forward<KNN>(")],
                  [("    for (; g0 < Wn; g0 += kG) {\n      sa_group_forward<KNN>(",
-                   "    for (; g0 < 0; g0 += kG) {\n      sa_group_forward<KNN>(")]],
+                   "    for (; g0 < 0; g0 += kG) {\n      sa_group_forward<KNN>(")],
+                 [("    for (; g0 < Wn; g0 += kG) {\n      sa_group_forward<KNN, kBf16>(",
+                   "    for (; g0 < 0; g0 += kG) {\n      sa_group_forward<KNN, kBf16>(")]],
     # every weight-gradient and bias-gradient sum: in shared memory per group
     # of winners, or the split-K products over the winners' rows
     "nowgrad": [[("  for (int e = threadIdx.x; e < cin * cout; e += blockDim.x) {",

@@ -1,6 +1,6 @@
 """Farthest point sampling at the shapes of the users' paths, on an NVIDIA GPU.
 
-  python3 -m pcc_tpu_torch.tools.fps_breakdown [--json PATH]   # from the repo root
+  python3 -m pcc_tpu_torch.tools.fps_breakdown [--rooms] [--json PATH]   # from the repo root
 
 Times ops/fps.py::fps_batch with CUDA events at every float32 shape at which
 a path samples: the skeleton of an IPDAE serving batch [64, 8192 -> 64], of
@@ -30,6 +30,11 @@ their walls (median of 3), torch.profiler's busy share (chip_smoke.profile)
 and the share of each wall that _int_fps takes, timed with a device sync on
 each side of every call.
 
+--rooms times only the large-scene shapes (eval/gen_rooms.py's rooms at
+--batch_size 4: [4, 65536 -> 512] and [1, 100000 -> 781], chip_smoke.py's
+seeded rooms, normalized as the codec does) beside the IPDAE serving
+skeleton [64, 8192 -> 64], every plan at each, and nothing else.
+
 Prints the card's name and power limit, then one line per measurement.
 Runs on older trees too (copy it and tools/variants.py into a `git
 archive` of one): what a tree lacks is skipped.
@@ -53,6 +58,7 @@ from pcc_tpu_torch.coding import iprob_pppf as ipppf
 from pcc_tpu_torch.config import CodecConfig
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops import fps as fps_ops
+from pcc_tpu_torch.ops.normalize import normalize
 from pcc_tpu_torch.tools.variants import build_variants, entry
 
 REPS = 20
@@ -123,6 +129,19 @@ def float_cases(dev):
     cases += cpm_chain(rec[:cs.PPPF_TRAIN_CLOUDS].contiguous(), "CPM N=8192 step")
     cases += cpm_chain(rec512, "CPM N=512 step")
     return cases, rec[:cs.PPPF_CLOUDS].contiguous()
+
+
+def room_cases(dev):
+    """[(label, xyz [B, N, 3], npoint)]: the large-scene rooms' skeleton
+    FPS (S = N * ALPHA / K), on chip_smoke.py's seeded rooms normalized as
+    the codec normalizes them, and the IPDAE serving skeleton beside them."""
+    pc01 = geometry(dev, cs.N_CLOUDS, 8192)[0]
+    out = [("IPDAE serving skeleton", pc01, 64)]
+    for B, N in ((4, 65536), (1, 100000)):
+        rooms = torch.from_numpy(np.stack(cs.rooms([N] * B, cs.SEED))).to(dev)
+        x = normalize(rooms, CodecConfig().margin)[0].contiguous()
+        out.append(("room skeleton", x, CodecConfig(N=N).S))
+    return out
 
 
 def int_cases(rec: torch.Tensor):
@@ -300,6 +319,8 @@ def pppf_serving() -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the measurements to this file")
+    ap.add_argument("--rooms", action="store_true",
+                    help="time only the large-scene rooms' shapes (and the serving skeleton)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("fps_breakdown needs an NVIDIA GPU")
@@ -313,6 +334,13 @@ def main() -> int:
         cuda_lib.function(name, fps_ops._INT_ARGTYPES if name == "fps_int" else fps_ops._ARGTYPES)
         log(f"{name}: " + "; ".join(ln.strip() for ln in cuda_lib.build_log.get(name, "").splitlines()
                                     if "registers" in ln or "spill" in ln))
+    if args.rooms:
+        with torch.inference_mode():
+            result = dict(card=smi, float=time_float(room_cases(dev), None))
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(result, f, indent=1)
+        return 0
     with torch.inference_mode(), tempfile.TemporaryDirectory() as tmp:
         bfly = butterfly_functions(tmp)
         cases, rec16 = float_cases(dev)

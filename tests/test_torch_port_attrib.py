@@ -222,3 +222,78 @@ def test_train_attributes_then_compress_decompress(tmp_path):
     for i in range(2):
         pc, rgb = read_point_cloud_attr(str(tmp_path / "dec" / f"c{i}.ply.bin.ply"))
         assert pc.shape == (CFG.S * CFG.k, 3) and rgb is not None and rgb.shape == pc.shape
+
+
+# bf16 geometry: a symbol may differ from pcc_tpu's only where pcc_tpu's
+# latent lies within NEAR_TIE of a rounding boundary (float32 sums in
+# another order move a bf16 rounding now and then, which the calibrated
+# last layer amplifies); stated before the first run
+NEAR_TIE = 2.0 ** -4
+
+
+def test_bf16_geometry_matches_pcc_tpu_attr_codec():
+    """compress --attributes --bf16's geometry: pcc_tpu's AttrCodec builds
+    its PatchAE with make_models(cfg), fused kernels off, so in bf16 it
+    rounds by flax's Dense rule (pcc_tpu/attrib.py:116, 222). The port's
+    AttrCodec in bf16 against it, on weights whose last encoder layer is
+    calibrated (as chip_smoke.py's spread_symbols does) so that the symbols
+    spread over the bins: the geometry symbols equal but for near-ties
+    (NEAR_TIE); the same symbols decoded by both packages' PatchAE
+    decoders (AttrCodec's decode_clouds_attr takes decode_unfused) within
+    bf16's tolerance (at least 0.99 of the points' coordinates bit-equal,
+    every one within 2^-7 of the largest)."""
+    kw = dict(KW, compute_dtype="bfloat16")
+    cfg, jcfg = CodecConfig(**kw), JCodecConfig(**kw)
+    ae_sd, prob_sd = init_params(3, cfg)
+    attr_sd, attr_prob_sd = init_attr_params(4, cfg, D_A)
+    clouds, rgbs = coloured_clouds(11, 2)
+    starts = np.array([0, 101], np.int32)
+    from pcc_tpu.codec import make_models as j_make_models
+    from pcc_tpu.models.ipdae import PatchAE as JPatchAE
+    from pcc_tpu_torch.codec import encode_geometry as p_geometry
+    from pcc_tpu_torch.codec import make_models as p_make_models
+    from pcc_tpu_torch.codec import pack_encode_upload as p_pack
+    from pcc_tpu_torch.codec import unpack_encode_upload as p_unpack
+    from pcc_tpu_torch.ops.sa_cuda import patch_encoder
+
+    # the last PointNet layer scaled and shifted per channel: the float32
+    # latent over these patches to mean 0, standard deviation 1.5
+    pcs, st = p_unpack(torch.from_numpy(p_pack(np.stack(clouds), starts).view(np.int32)), CFG.N)
+    ae32, _ = p_make_models(CFG)
+    ae32.load_state_dict(ae_sd)
+    with torch.no_grad():
+        patches = p_geometry(pcs, st, CFG).patches
+        z = patch_encoder(patches, ae32.sa.layers(), ae32.pn.layers(), CFG.sa_knn)
+    scale = 1.5 / z.std(dim=0)
+    key = "pn.mlp_Modules.3.0"
+    ae_sd = dict(ae_sd)
+    ae_sd[key + ".bias"] = (ae_sd[key + ".bias"] - z.mean(dim=0)) * scale
+    w = ae_sd[key + ".weight"]
+    ae_sd[key + ".weight"] = w * scale.view(-1, *[1] * (w.dim() - 1))
+
+    ae_v, prob_v = to_jax_params(ae_sd, prob_sd)
+    attr_v, attr_prob_v = attr_to_jax(attr_sd, attr_prob_sd)
+    jparams = {"ae": ae_v, "prob": prob_v, "attr": attr_v, "attr_prob": attr_prob_v}
+    jc = j_attrib.AttrCodec(jcfg, jparams, batch_size=2, d_a=D_A)
+    pc = AttrCodec(cfg, {"ae": ae_sd, "prob": prob_sd, "attr": attr_sd,
+                         "attr_prob": attr_prob_sd}, batch_size=2, d_a=D_A, device="cpu")
+    res = pc.encode_batch(np.stack(clouds), np.stack(rgbs), starts)
+    jres = jc._enc(cfg.N)(jparams, jnp.asarray(
+        j_attrib.pack_attr_upload(np.stack(clouds), np.stack(rgbs), starts)))
+    sym, jsym = res.sym.numpy().astype(np.int32), np.asarray(jres.sym)
+    assert len(np.unique(jsym)) >= 5                  # spread over the bins
+    # pcc_tpu's latent for the differing symbols: near a rounding boundary
+    jae, _ = j_make_models(jcfg)
+    jlat = np.asarray(jax.jit(lambda v, p: jae.apply(v, p, method=JPatchAE.encode))(
+        ae_v, jnp.asarray(patches.numpy()))).reshape(jsym.shape)
+    differ = sym != jsym
+    frac = np.abs(jlat - np.floor(jlat) - 0.5)
+    assert np.all(frac[differ] <= NEAR_TIE), (int(differ.sum()), frac[differ].max())
+    # the same symbols through both decoders
+    latent_q = (jsym - cfg.L // 2).astype(np.float32).reshape(-1, cfg.d)
+    want = np.asarray(jax.jit(lambda v, q: jae.apply(v, q, method=JPatchAE.decode))(
+        ae_v, jnp.asarray(latent_q)))
+    with torch.no_grad():
+        got = pc.ae.decode_unfused(torch.from_numpy(latent_q)).numpy()
+    assert float((got == want).mean()) >= 0.99
+    assert np.abs(got - want).max() <= 2.0 ** -7 * np.abs(want).max()

@@ -2,8 +2,10 @@
 slice on the CPU, same weights, same clouds.
 
   * .s.bin and .c.bin byte-equal: the port dequantizes the 10-bit upload
-    per axis as pcc_tpu's XLA CPU program does (x and y as one fused
-    multiply-add, z unfused);
+    as pcc_tpu's XLA CPU program does, per axis for the bounding box (x and
+    y as one fused multiply-add, z unfused) and fused on every axis for the
+    normalized coordinates; also on eval/gen_rooms.py's 100,000-point room,
+    all three streams;
   * streams cross-decode both ways to the encoder's own symbols;
   * decoded clouds agree to one int8 step of each patch's scale;
   * one in-process CLI round trip.
@@ -155,3 +157,30 @@ def test_cli_round_trip(tmp_path, run):
     for o in outs:
         pts = read_point_cloud(o)
         assert pts.shape == (CFG.S * CFG.k, 3) and np.isfinite(pts).all()
+
+
+def test_large_scene_room_streams_match_pcc_tpu():
+    """eval/gen_rooms.py's 100,000-point room (its seed, after a 65,536-point
+    one; S = 781): .s.bin, .c.bin and .p.bin byte-equal to pcc_tpu's CPU
+    codec. Its skeleton is the one of the repo's rooms that tells the two
+    dequantizations of pcc_tpu's upload apart: with the normalized
+    coordinates taken from codec.py::unpack_encode_upload's values instead
+    of upload_values', the skeleton and its .s.bin differ."""
+    import chip_smoke
+    import pcc_tpu_torch.codec as p_codec
+
+    room = chip_smoke.rooms([65536, 100000], 7)[1]   # eval/gen_rooms.py's generator
+    ae_vars, prob_vars = j_codec.init_params(jax.random.key(2), JCodecConfig())
+    (j_streams,) = j_codec.Codec(JCodecConfig(), ae_vars, prob_vars,
+                                 batch_size=1).compress_many([room])
+    pc = Codec(CodecConfig(), *from_jax_params(ae_vars, prob_vars), batch_size=1,
+               device="cpu")
+    (p_streams,) = pc.compress_many([room])
+    assert p_streams == j_streams
+    values = p_codec.upload_values
+    p_codec.upload_values = lambda packed, N: p_codec.unpack_encode_upload(packed, N)[0]
+    try:
+        (old,) = pc.compress_many([room])
+    finally:
+        p_codec.upload_values = values
+    assert old[1] != j_streams[1] and old[2] == j_streams[2]

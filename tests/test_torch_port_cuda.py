@@ -112,7 +112,8 @@ _FPS_PATH = [("f32", *s) for s in [
     (64, 8192, 64), (16, 8192, 64), (8, 8192, 64), (1024, 256, 128), (1024, 128, 32),
     (512, 256, 128), (512, 128, 32), (8, 64, 512), (8, 512, 128), (8, 128, 32),
     (128, 4, 512), (128, 512, 128), (128, 128, 32), (128, 512, 4),
-    (32, 8192, 512), (32, 512, 128), (32, 128, 32)]] + [
+    (32, 8192, 512), (32, 512, 128), (32, 128, 32),
+    (4, 65536, 512), (2, 65536, 512), (1, 50000, 390), (1, 100000, 781)]] + [
     ("i32", 16, 64, 512), ("i32", 16, 512, 128), ("i32", 16, 128, 32)]
 
 
@@ -125,7 +126,8 @@ def test_fps_kernel_path_shapes(dev, kind, B, N, npoint):
 # multiple of the clouds per block, one point, the largest cloud
 _FPS_EDGES = [(5, 37, 50, False), (7, 200, 100, True), (3, 8192, 64, True),
               (2, 1000, 1100, False), (1, 1, 5, False), (9, 4, 9, True),
-              (3, 16384, 16, False), (33, 513, 40, True), (130, 96, 96, True)]
+              (3, 16384, 16, False), (33, 513, 40, True), (130, 96, 96, True),
+              (2, 16385, 40, True), (3, 131072, 24, True)]
 
 
 @pytest.mark.parametrize("kind", ["f32", "i32"])
@@ -135,12 +137,13 @@ def test_fps_kernel_edges(dev, kind, B, N, npoint, twins):
 
 
 @pytest.mark.parametrize("kind", ["f32", "i32"])
-@pytest.mark.parametrize("N", [4, 37, 256, 512, 1000, 8192])
+@pytest.mark.parametrize("N", [4, 37, 256, 512, 1000, 8192, 20000, 65536, 100000])
 def test_fps_kernel_every_plan(dev, kind, N):
     """Every plan the launcher can pick at N (a warp per cloud with 1-8
-    clouds a block, clusters of 1, 2, 4, 8 CTAs at every width) gives the
-    plain version's picks, with twins, on 5 clouds (not a multiple of the
-    clouds per block)."""
+    clouds a block, clusters of 1, 2, 4, 8 CTAs at every width, each CTA
+    with the whole cloud or with its slice, points in registers or read
+    from the slice) gives the plain version's picks, with twins, on 5
+    clouds (not a multiple of the clouds per block)."""
     for plan in fps_ops.candidate_plans(N):
         _fps_case(dev, kind, 5, N, min(N + 3, 70), twins=True, plan=plan)
 
@@ -1124,6 +1127,81 @@ def test_patch_encoder_bf16_kernel(dev, P, N, knn, D):
     assert torch.equal(patch_encoder(pts, sa, pn, knn, bf16=True), out)
 
 
+@pytest.mark.parametrize("P,N,knn,D", [(512, 256, 16, 16), (16, 256, 16, 16), (5, 32, 8, 4)])
+def test_patch_encoder_bf16_winners(dev, P, N, knn, D):
+    """The bf16 encoder with its winners (bf16 training): one launch, its
+    latent bit for bit the serving instance's on the rounded weights, its
+    winners those of the backward's replay (float32 biases) bit for bit
+    the plain version's, two launches bitwise equal."""
+    g = torch.Generator().manual_seed(25)
+    pts = ((torch.rand((P, N, 3), generator=g) * 2 - 1) * 0.4).to(dev)
+    sa, pn = _wb(g, [3, 32, 64, 128], dev), _wb(g, [131, 128, 256, 512, D], dev)
+    before = dict(cuda_lib.launches)
+    lat, win = patch_encoder(pts, sa, pn, knn, return_winners=True, bf16=True)
+    assert cuda_lib.launches["patch_encoder_bf16"] == before["patch_encoder_bf16"] + 1
+    assert torch.equal(lat, patch_encoder(pts, bf16_wb(sa), bf16_wb(pn), knn, bf16=True))
+    p = slice(0, min(P, 32))
+    plain_lat, plain_win = patch_encoder_plain(pts[p], sa, pn, knn, return_winners=True,
+                                               bf16=True)
+    assert torch.equal(win[p], plain_win)
+    _hold_bf16(lat[p], plain_lat)
+    again = patch_encoder(pts, sa, pn, knn, return_winners=True, bf16=True)
+    assert torch.equal(again[0], lat) and torch.equal(again[1], win)
+
+
+# the bf16 backward kernel against its plain version, of each output's
+# largest entry: tests/test_torch_port_train_bf16.py's TOL_ENC (float32 sums
+# in another order, which now and then moves one bf16 rounding of a
+# cotangent; measured 1.9e-4 at [6, 32, 3], 3.2e-6 at [512, 256, 3])
+TOL_BWD_BF16 = 2.0 ** -11
+
+
+@pytest.mark.parametrize("P,N,knn,D", [(512, 256, 16, 16), (6, 32, 8, 8), (5, 48, 16, 4)])
+def test_patch_encoder_bwd_bf16_kernel(dev, P, N, knn, D):
+    """The bf16 backward (patch_encoder_bwd_bf16) on the bf16 forward's
+    winners: one launch of its own counter, every output within
+    TOL_BWD_BF16 of the plain version's largest entry, two launches
+    bitwise equal; without winners the wrapper takes them from one launch
+    of the bf16 forward, and the outputs are the same bit for bit."""
+    g = torch.Generator().manual_seed(26)
+    pts = ((torch.rand((P, N, 3), generator=g) * 2 - 1) * 0.4).to(dev)
+    sa, pn = _wb(g, [3, 32, 64, 128], dev), _wb(g, [131, 128, 256, 512, D], dev)
+    cot = torch.randn((P, D), generator=g).to(dev)
+    _, win = patch_encoder(pts, sa, pn, knn, return_winners=True, bf16=True)
+    before = dict(cuda_lib.launches)
+    out = patch_encoder_bwd(pts, cot, sa, pn, knn, winners=win, bf16=True)
+    assert cuda_lib.launches["patch_encoder_bwd_bf16"] == before["patch_encoder_bwd_bf16"] + 1
+    assert cuda_lib.launches["patch_encoder_bwd"] == before["patch_encoder_bwd"]
+    ref = patch_encoder_bwd_plain(pts, cot, sa, pn, knn, winners=win, bf16=True)
+    flat = lambda o: [o[0]] + [t for wb in list(o[1]) + list(o[2]) for t in wb]  # noqa: E731
+    for a, b in zip(flat(out), flat(ref)):
+        assert float((a - b).abs().max()) <= TOL_BWD_BF16 * float(b.abs().max())
+    again = patch_encoder_bwd(pts, cot, sa, pn, knn, winners=win, bf16=True)
+    assert all(torch.equal(a, b) for a, b in zip(flat(out), flat(again)))
+    found = patch_encoder_bwd(pts, cot, sa, pn, knn, bf16=True)
+    assert all(torch.equal(a, b) for a, b in zip(flat(out), flat(found)))
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 128), (512, 128, 128), (512, 128, 3), (8, 64, 512),
+                                   (1, 64, 2048), (32, 16, 3), (1, 100, 5), (100, 7, 5),
+                                   (1, 1, 7), (33, 33, 2)])
+def test_bf16_reduce_kernel(dev, shape):
+    """bf16_reduce (XLA's bf16 reduction tree) bit for bit its plain
+    version, one launch a level."""
+    from pcc_tpu_torch.ops.bf16 import _reduce_level, bf16_reduce, bf16_reduce_plain, round_bf16
+
+    g = torch.Generator().manual_seed(27)
+    x = round_bf16(torch.randn(shape, generator=g)).to(dev)
+    levels, (A, K) = 0, shape[:2]
+    while A * K > 1:
+        A, K = _reduce_level(A, K)[4:]
+        levels += 1
+    before = cuda_lib.launches["bf16_reduce"]
+    out = bf16_reduce(x)
+    assert cuda_lib.launches["bf16_reduce"] == before + levels
+    assert torch.equal(out.cpu(), bf16_reduce_plain(x.cpu()))
+
+
 @pytest.mark.parametrize("P,d,k", [(9, 4, 16), (129, 16, 128), (4096, 16, 128)])
 def test_patch_decoder_bf16_kernel(dev, P, d, k):
     """The bf16 decoder (.bf16 wgmma, one a k = 16 step) on its
@@ -1173,12 +1251,13 @@ def test_pppf_sa_stage_bf16_kernel(dev, P, S, N, C, nsample, radius, widths):
     assert torch.equal(pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), out)
 
 
-@pytest.mark.parametrize("case", ["pppe", "save", "winners", "enc_points", "dec_d65",
+@pytest.mark.parametrize("case", ["pppe", "save", "bwd_points", "enc_points", "dec_d65",
                                   "dec_cpu"])
 def test_bf16_instances_reject_unsupported(dev, case):
     """What no path of the port takes in bf16 (the "pppe" layout, the
-    stage's store mode, the encoder's winners) and shapes outside an
-    instance's domain raise before any launch."""
+    stage's store mode, which PPPF-AE's bf16 training will take) and shapes
+    outside an instance's domain (the encoder and its backward's N % 16,
+    the decoder's) raise before any launch."""
     g = torch.Generator().manual_seed(24)
     before = dict(cuda_lib.launches)
     with pytest.raises(ValueError):
@@ -1188,11 +1267,15 @@ def test_bf16_instances_reject_unsupported(dev, case):
             pppf_sa_fused(xyz[:, :8].contiguous(), xyz, None, layers, nsample=8, radius=0.4,
                           layout="pppe" if case == "pppe" else "pppf", save=case == "save",
                           bf16=True)
-        elif case in ("winners", "enc_points"):
-            N = 24 if case == "enc_points" else 32
-            pts = torch.rand((2, N, 3), generator=g).to(dev)
-            patch_encoder(pts, _wb(g, [3, 32, 64, 128], dev), _wb(g, [131, 128, 256, 512, 4], dev),
-                          8, return_winners=case == "winners", bf16=True)
+        elif case in ("bwd_points", "enc_points"):
+            pts = torch.rand((2, 24, 3), generator=g).to(dev)
+            sa, pn = _wb(g, [3, 32, 64, 128], dev), _wb(g, [131, 128, 256, 512, 4], dev)
+            if case == "enc_points":
+                patch_encoder(pts, sa, pn, 8, bf16=True)
+            else:
+                patch_encoder_bwd(pts, torch.zeros((2, 4), device=dev), sa, pn, 8,
+                                  winners=torch.zeros((2, 4), dtype=torch.int32, device=dev),
+                                  bf16=True)
         else:
             h2, lat, w3r, b3r, mlp, k = _decoder_case(dev, 40, 65 if case == "dec_d65" else 16,
                                                       16)

@@ -10,8 +10,10 @@ pcc_tpu on the same numpy inputs, bit for bit:
   * fps_plain against pcc_tpu's Pallas kernel (fps_pallas, interpret mode)
     and its XLA FPS at the small-cloud forms: a saturating one and one
     with twins;
+  * fps_plain against pcc_tpu's XLA FPS at the large-scene rooms' sizes
+    (65,536 and 100,000 points, a few picks);
   * the launcher's rule (ops/fps.py::plan) picks only plans the kernel
-    takes, at every shape of the users' paths.
+    takes, at every shape of the users' paths, up to MAX_POINTS.
 The kernel itself is held to these plain versions on the card
 (tests/test_torch_port_cuda.py, chip_smoke.py).
 """
@@ -30,11 +32,14 @@ from pcc_tpu_torch.ops import fps as fps_ops
 # (B, N, npoint) of every FPS call on the users' paths (ops/fps.py's docstring
 # names them): skeletons, the PN++ encoder's sa2 / sa3, the float CPM's stages
 # in the N = 8192 and N = 512 train steps, the integer CPM's stages, the PPPE
-# encoder's sa1 / sa2 / sa3 at a 32-cloud batch
+# encoder's sa1 / sa2 / sa3 at a 32-cloud batch, and the skeletons of
+# eval/gen_rooms.py's large-scene rooms at --batch_size 4 (six of 65,536
+# points: a batch of 4 and one of 2; one each of 50,000 and 100,000)
 PATH_SHAPES = [(64, 8192, 64), (16, 8192, 64), (8, 8192, 64), (1024, 256, 128),
                (1024, 128, 32), (512, 256, 128), (512, 128, 32), (8, 64, 512), (8, 512, 128),
                (8, 128, 32), (128, 4, 512), (128, 512, 128), (128, 128, 32), (16, 64, 512),
-               (16, 512, 128), (128, 512, 4), (32, 8192, 512), (32, 512, 128), (32, 128, 32)]
+               (16, 512, 128), (128, 512, 4), (32, 8192, 512), (32, 512, 128), (32, 128, 32),
+               (4, 65536, 512), (2, 65536, 512), (1, 50000, 390), (1, 100000, 781)]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -110,21 +115,41 @@ def test_plan_is_one_the_kernel_takes(B, N, npoint):
     """At every shape of the paths the launcher's plan is among the plans
     the kernel takes (csrc/fps.cu checks the same limits): a warp per cloud
     up to 512 points, else 1-8 CTAs of up to 1024 threads and up to 8
-    points a thread."""
+    points a thread (16 or 32 where a CTA holds only its slice)."""
     c, t = fps_ops.plan(B, N)
     assert (c, t) in fps_ops.candidate_plans(N)
+    assert fps_ops.kernel_takes(N, c, t)
     if c == 0:
         assert N <= fps_ops.WARP_MAX_POINTS and t % 32 == 0 and t <= 256
     else:
         assert c in (1, 2, 4, 8) and t % 32 == 0 and t <= 1024
-        assert t * 8 * c >= N
+        assert t * (8 if N <= fps_ops.WHOLE_CLOUD_POINTS else 32) * c >= N
 
 
 def test_candidate_plans_cover_every_point():
-    """Every candidate plan gives each point of the cloud a slot."""
-    for N in (1, 4, 31, 33, 256, 512, 513, 1000, 8192, fps_ops.MAX_POINTS):
+    """Every candidate plan gives each point of the cloud a slot, up to
+    MAX_POINTS, and past it the kernel takes no plan."""
+    for N in (1, 4, 31, 33, 256, 512, 513, 1000, 8192, 16384, 16385, 50000, 65536, 100000,
+              fps_ops.MAX_POINTS):
         plans = fps_ops.candidate_plans(N)
         assert plans, N
         for c, t in plans:
-            per = 16 if c == 0 else 8
-            assert (32 if c == 0 else t * c) * per >= N, (N, c, t)
+            # 16 points a lane, 32 a thread at most (8 where a CTA holds the
+            # whole cloud and its points in registers)
+            assert (32 if c == 0 else t * c) * 32 >= N, (N, c, t)
+            assert fps_ops.kernel_takes(N, c, t)
+    assert fps_ops.MAX_POINTS >= 131072
+    assert not fps_ops.candidate_plans(fps_ops.MAX_POINTS + 1)
+
+
+@pytest.mark.parametrize("N", [65536, 100000])
+def test_fps_plain_matches_xla_on_rooms(N):
+    """fps_plain == pcc_tpu's XLA FPS on a large-scene room's size (the
+    kernel's slice design runs there on the card), at a small npoint: the
+    plain version has no size limit, as pcc_tpu's FPS has none."""
+    rng = np.random.default_rng(N)
+    xyz = rng.random((1, N, 3)).astype(np.float32)
+    starts = np.array([N - 1], np.int32)
+    ours = fps_ops.fps_plain(torch.from_numpy(xyz), 8, torch.from_numpy(starts)).numpy()
+    xla = np.asarray(j_fps_batch(jnp.asarray(xyz), 8, jnp.asarray(starts), impl="xla"))
+    np.testing.assert_array_equal(ours, xla)

@@ -18,7 +18,8 @@ everything at once), and every test below reads what they returned.
       rank's cloud, which both ranks skip, the state bit for bit unchanged;
   (d) after two steps of each family every parameter, running statistic
       and Adam moment bit-equal across the ranks;
-  (e) two-rank compress_many (AE and PPPF-AE) byte-equal to one device's,
+  (e) two-rank compress_many (AE and PPPF-AE, and AE in bf16 as
+      compress --devices 2 --bf16 runs it) byte-equal to one device's,
       decoded by pcc_tpu's integer model and range coder, and two-rank
       decompress_many bit for bit one device's; the CLIs with --devices 2;
   (f) the CLIs' refusals (--devices above the visible cards, a batch not
@@ -58,6 +59,7 @@ AE_KW = dict(N=256, N0=64, ALPHA=2, K=32, d=4, L=7, sa_knn=8)
 PPPF_KW = dict(N=64, N0=64, ALPHA=2, K=32, d=4, L=7, model="PPPF-AE")
 PPPF_CODEC_KW = dict(N=64, K=32, d=4, L=7, model="PPPF-AE")
 AE, PPPF, PPPF_CODEC = CodecConfig(**AE_KW), CodecConfig(**PPPF_KW), CodecConfig(**PPPF_CODEC_KW)
+AE_BF16 = CodecConfig(**AE_KW, compute_dtype="bfloat16")   # compress / decompress --bf16
 PPPE_KW = dict(N=256, latent_dim=16, L=7)
 PPPE = PPPEConfig(**PPPE_KW)
 PNPP_KW = dict(points=64, sa1_mlp=(16, 16, 32), sa2_mlp=(32, 32, 32, 64), sa3_mlp=(64, 64, 128),
@@ -214,8 +216,8 @@ def _codec_cases(inp):
     p_codec.convert_pppf_prob_params = functools.partial(convert_pppf_prob_params, n_calib=2)
     out = {}
     try:
-        for fam, cfg in (("ae", AE), ("pppf", PPPF_CODEC)):
-            c = inp[fam]
+        for fam, cfg in (("ae", AE), ("pppf", PPPF_CODEC), ("ae_bf16", AE_BF16)):
+            c = inp["ae" if fam == "ae_bf16" else fam]
             codec = Codec(cfg, _sd(c["ae_sd"]), _sd(c["prob_sd"]), batch_size=c["batch_size"],
                           device="cpu")
             streams = codec.compress_many(c["clouds"], c["starts"])
@@ -807,12 +809,13 @@ def test_replicas_bit_equal_after_two_steps(runs, family):
     assert a["digest"] == b["digest"]
 
 
-@pytest.mark.parametrize("family", ["ae", "pppf"])
+@pytest.mark.parametrize("family", ["ae", "pppf", "ae_bf16"])
 def test_streams_match_one_device(runs, family):
     """compress_many on two ranks: every rank holds every cloud's streams,
     byte-equal to one device's (the last batch of the AE case has shards of
     1 and 0 clouds); decompress_many on two ranks returns one device's
-    clouds bit for bit."""
+    clouds bit for bit. ae_bf16: the AE case's weights and clouds in bf16,
+    as compress / decompress --devices 2 --bf16 code them."""
     want = runs["one"]["codec"][family]
     for r in range(W):
         got = runs["ranks"][r]["codec"][family]
@@ -820,7 +823,7 @@ def test_streams_match_one_device(runs, family):
         _bit_equal(got["decoded"], want["decoded"], "decoded")
 
 
-@pytest.mark.parametrize("family", ["ae", "pppf"])
+@pytest.mark.parametrize("family", ["ae", "pppf", "ae_bf16"])
 def test_streams_decode_in_pcc_tpu(runs, family):
     """pcc_tpu's integer probability model (converted from the same float
     weights; its numpy spec, bit-exact with its device program) and its
@@ -834,7 +837,8 @@ def test_streams_decode_in_pcc_tpu(runs, family):
     streams = runs["ranks"][0]["codec"][family]["streams"]
     recs = np.stack([codes_to_points(*parse_octree_bits(unpack_bits(s))) for _, s, _ in streams])
     weights = pppf_pmf_weights_np if family == "pppf" else iprob_pmf_weights_np
-    cdfs = weights_to_cdf_rows(weights(runs["j"]["bundles"][family], recs))
+    bundle = runs["j"]["bundles"]["ae" if family == "ae_bf16" else family]
+    cdfs = weights_to_cdf_rows(weights(bundle, recs))
     sym = runs["ranks"][0]["codec"][family]["sym"]
     for j, (p, _, _) in enumerate(streams):
         np.testing.assert_array_equal(j_rc.decode_quantized_cdf(cdfs[j], p).reshape(

@@ -211,12 +211,12 @@ def test_encoder_hands_its_winners_to_the_backward(setup, monkeypatch):
     ae_vars, prob_vars, batch, _, starts = setup
     bwd, calls = sa_cuda.patch_encoder_bwd, []
 
-    def handed(patches, g, sa_wb, pn_wb, knn, winners=None):
+    def handed(patches, g, sa_wb, pn_wb, knn, winners=None, bf16=False):
         calls.append((patches, winners, sa_wb, pn_wb))
-        return bwd(patches, g, sa_wb, pn_wb, knn, winners=winners)
+        return bwd(patches, g, sa_wb, pn_wb, knn, winners=winners, bf16=bf16)
 
-    def found(patches, g, sa_wb, pn_wb, knn, winners=None):
-        return bwd(patches, g, sa_wb, pn_wb, knn)
+    def found(patches, g, sa_wb, pn_wb, knn, winners=None, bf16=False):
+        return bwd(patches, g, sa_wb, pn_wb, knn, bf16=bf16)
 
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
