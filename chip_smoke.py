@@ -282,7 +282,30 @@ Phases (any failed check raises, and the script exits non-zero):
      bounds);
  34. cli/train.py --bf16 --max_steps 3 into compress --bf16 and decompress
      --bf16 on the checkpoint it wrote, with launches per run; the train
-     CLI's refusal of --bf16 with --model PPPF-AE and with --devices 2.
+     CLI's refusal of --model AE --bf16 with --devices 2;
+ 35. PPPF_AE(compute_dtype="bfloat16") in train mode, its encoder frozen,
+     at the default config on the patches of phase 12's 8 clouds (512 of
+     K = 256), forward and backward: launches fps 3,
+     pppf_sa_stage_bf16_save 3, pppf_sa_stage_bwd_bf16 3; each stage's
+     bf16 backward held to its plain version on the same stored forward
+     (TOL_BWD of the largest entry for the weight gradients; the row
+     gradients row by row by tools/holds.py::row_hold, which the control
+     regrouped per point, regrouped_rows, must fail), two launches bitwise
+     equal, the store mode's output to the plain bf16 forward by the bf16
+     serving phases' limits; times and bounds (the products at the bf16
+     tensor cores' rate, and in float32);
+ 36. PPPE training in bf16 (PPPEConfig(compute_dtype="bfloat16")) as
+     phase 21 (launches per step fps 3, chamfer 1 + 1 and the bf16
+     reductions, peak memory, the NaN skip), a TINY bf16 step card vs CPU
+     port (its gradients by the CPU port's own spread over reorderings of
+     the clouds, the update as optax's Adam on the card's gradient),
+     cli/train_pppe_pcd_ae.py --bf16 --max_steps 3 into the PPPE compress
+     and decompress CLIs;
+ 37. cli/train.py --model PPPF-AE --N 512 --max_steps 2 with and without
+     --bf16: the --bf16 run's parameters as close to the float32 run's as
+     a float32 repeat's (pcc_tpu's PPPF-AE trainer is float32 under --bf16;
+     the card's float32 step is not bitwise repeatable), the same launches
+     and no bf16 one.
 The line before the last is the kernels' JSON record (the IPDAE serving
 path's launch counts for fps, patch_encoder and patch_decoder, the counted
 train steps' for patch_encoder_bwd, the PPPF-AE path's for pppf_sa_stage
@@ -301,7 +324,8 @@ on a path; phases 27-29's patch_encoder_bf16, patch_decoder_bf16 and
 pppf_sa_stage_bf16 with their launches on the bf16 paths; phase 30's FPS
 shapes under fps's `shapes`, its launches as launches_rooms; phases 31-32's
 patch_encoder_bwd_bf16 and bf16_reduce with their launches over the counted
-bf16 train steps, patch_encoder_bf16's per bf16 step); the last line is
+bf16 train steps, patch_encoder_bf16's per bf16 step; phase 35's
+pppf_sa_stage_bf16_save and pppf_sa_stage_bwd_bf16); the last line is
 {"ok": true, "device": {...}}.
 Without a card it exits 1 and prints no result.
 """
@@ -313,6 +337,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -337,11 +362,11 @@ from pcc_tpu_torch.ops import fps as fps_ops
 from pcc_tpu_torch.ops.fps import fps_batch, fps_int_batch, fps_int_plain, fps_plain
 from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
 from pcc_tpu_torch.ops.normals import estimate_normals
-from pcc_tpu_torch.ops.pppf_sa_cuda import (PPPFStageFn, pppe_kernel, pppf_sa_bwd,
-                                            pppf_sa_bwd_plain, pppe_work, pppf_sa_fused,
-                                            pppf_sa_plain,
-                                            pppf_sa_points, stage_bwd_flops, stage_bwd_work,
-                                            stage_flops)
+from pcc_tpu_torch.ops.pppf_sa_cuda import (PPPFStageFn, bf16_layers, pppe_kernel, pppf_sa_bwd,
+                                            pppf_sa_bwd_plain, pppf_sa_bwd_plain_bf16,
+                                            pppe_work, pppf_sa_fused, pppf_sa_plain,
+                                            pppf_sa_points, stage_bwd_bf16_work,
+                                            stage_bwd_flops, stage_bwd_work, stage_flops)
 from pcc_tpu_torch.ops.sa_cuda import (PatchEncoderFn, _kernel_choices, _unflatten, bf16_wb,
                                        patch_encoder, patch_encoder_bwd, patch_encoder_bwd_plain,
                                        patch_encoder_plain, pointwise_plain, sa_fused,
@@ -349,6 +374,8 @@ from pcc_tpu_torch.ops.sa_cuda import (PatchEncoderFn, _kernel_choices, _unflatt
 from pcc_tpu_torch.parallel.mesh import (build_sharded_pppe_train_step,
                                          build_sharded_pppf_train_step, build_sharded_train_step,
                                          global_sum, launch, rank)
+from pcc_tpu_torch.tools.holds import (ROW_F32, ROW_SHARE, ROW_TOL, regrouped_rows, row_hold,
+                                      shaped_clouds, spread_hold, steady_symbols)
 from pcc_tpu_torch.train import build_pppf_train_step, build_train_step, create_train_state
 from pcc_tpu_torch.train.state import make_optimizer
 from pcc_tpu_torch.train.steps_pppe import (build_pppe_train_step, create_pppe_state,
@@ -422,6 +449,9 @@ PPPE_CPU_CLOUDS = 2
 PPPE_TRAIN_CLOUDS = 4
 PPPE_TRAIN_STEPS = 10
 TINY_PPPE = dict(N=512, latent_dim=32, L=7)
+# phase 36's bf16 TINY step, card vs CPU: the CPU port's own spread over the
+# same step with the clouds in these orders (tools/holds.py::spread_hold)
+PPPE_REORDERS = (np.array([3, 2, 1, 0]), np.array([1, 3, 0, 2]))
 # its card-vs-CPU bound for the encoder's gradients (through batch
 # statistics) and the running statistics, relative to each tensor's largest
 # entry: 2.7e-3 and 1.6e-3 measured on an H100 (PERF.md), about 7x below
@@ -474,6 +504,7 @@ ROOM_BATCH = 4
 TOL_BF16_ENC = 2.0 ** -10
 TOL_BF16_GRAD = 2.0 ** -7
 TOL_BF16_BIAS = 2.0 ** -4
+REPEAT_FACTOR = 4.0              # phase 37: the --bf16 run vs a float32 repeat
 BF16_PARAM_SHARE = 0.99
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -3568,18 +3599,393 @@ def bf16_train_cli_phase(clouds) -> dict:
         if len(outs) != TRAIN_CLOUDS or not all(
                 np.isfinite(read_point_cloud(os.path.join(dec, f))).all() for f in outs):
             raise RuntimeError(f"decompress --bf16 wrote {outs}")
-        for extra in (["--model", "PPPF-AE"], ["--devices", "2"]):
-            try:
-                train.main(flags + extra + ["--max_steps", "1"])
-            except SystemExit as e:
-                log(f"train --bf16 {' '.join(extra)} refused: {e}")
-            else:
-                raise RuntimeError(f"train --bf16 {' '.join(extra)} was not refused")
+        try:
+            train.main(flags + ["--devices", "2", "--max_steps", "1"])
+        except SystemExit as e:
+            log(f"train --bf16 --devices 2 refused: {e}")
+        else:
+            raise RuntimeError("train --bf16 --devices 2 was not refused")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out = dict(train_ms=wall_t, compress_ms=wall_c, decompress_ms=wall_d, steps=steps)
     log("phase 34, train --bf16 -> compress --bf16 -> decompress --bf16: " + json.dumps(out))
     return out
+
+
+def pppf_bf16_train_phase(dev, smi: str) -> list:
+    """Phase 35: PPPF_AE(compute_dtype="bfloat16") in train mode with its
+    encoder frozen (pcc_tpu's fused_train=True form), default config, seeded
+    weights with live BatchNorm statistics, on the patches of phase 12's 8
+    clouds: the step's patching and one forward and backward of a seeded
+    loss, counted (fps 3: the skeleton, sa2 and sa3; pppf_sa_stage_bf16_save
+    3, pppf_sa_stage_bwd_bf16 3, nothing else of the stage), finite
+    gradients; then, per stage, on its recorded inputs,
+    stored forward and cotangent: the backward kernel vs
+    pppf_sa_bwd_plain_bf16 on that stored forward, two launches bitwise
+    equal, the store mode's output vs pppf_sa_plain(bf16=True) (bf16_hold),
+    times and bounds. Returns the two kernels' records."""
+    cfg = CodecConfig(model="PPPF-AE", compute_dtype="bfloat16")
+    ae, _ = make_models(cfg)
+    ae.load_state_dict(randomize_batchnorm(init_params(SEED, cfg)[0], SEED + 2))
+    ae = ae.to(dev).train()
+    ae.encoder.train(False)
+    clouds = torch.from_numpy(np.stack(synthetic_clouds(PPPF_TRAIN_CLOUDS, cfg.N,
+                                                        SEED + 4))).to(dev)
+    starts = torch.zeros(PPPF_TRAIN_CLOUDS, dtype=torch.int32, device=dev)
+    g = torch.Generator().manual_seed(SEED + 40)
+    rec = []
+    backward = PPPFStageFn.backward
+
+    def recording(ctx, gout):
+        new_xyz, xyz, feat, *rest = ctx.saved_tensors
+        flat, saved = rest[:ctx.n_flat], rest[ctx.n_flat:]
+        layers = [tuple(t.detach() for t in flat[i:i + 5]) for i in range(0, len(flat), 5)]
+        rec.append((new_xyz, xyz, feat, layers, gout.contiguous(), tuple(saved),
+                    ctx.nsample, ctx.radius))
+        return backward(ctx, gout)
+
+    def run():
+        # the train step's patches (its skeleton FPS), then the module
+        with torch.no_grad():
+            patches = encode_geometry(clouds, starts, cfg).patches
+        out, z, _ = ae(patches)
+        gz = torch.randn(z.shape, generator=g).to(dev)
+        go = torch.randn(out.shape, generator=g).to(dev)
+        ((out * go).sum() + (z * gz).sum()).backward()
+
+    run()                                                     # uncounted
+    ae.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    PPPFStageFn.backward = staticmethod(recording)
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        PPPFStageFn.backward = staticmethod(backward)
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in cuda_lib.launches.items() if v}
+    want = dict(fps=3, pppf_sa_stage_bf16_save=3, pppf_sa_stage_bwd_bf16=3)
+    log(f"phase 35, PPPF_AE bf16 in train mode (encoder frozen), {tuple(rec[-1][1].shape)} "
+        f"patches: patching, forward + backward {wall:.1f} ms, launches {launches}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+    if any(launches.get(k, 0) != v for k, v in want.items()) or any(
+            launches.get(k, 0) for k in ("pppf_sa_stage", "pppf_sa_stage_bf16",
+                                         "pppf_sa_stage_bwd")):
+        raise RuntimeError(f"PPPF_AE bf16 train launches {launches}, want {want}")
+    if not all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in ae.parameters()):
+        raise RuntimeError("PPPF_AE bf16 train: a missing or non-finite gradient")
+    save_recs, bwd_recs = [], []
+    for name, (new_xyz, xyz, feat, layers, gout, saved, nsample, radius) in zip(
+            ("sa1", "sa2", "sa3"), rec[::-1]):
+        if not saved:
+            raise RuntimeError(f"phase 35 {name}: the bf16 store mode stored nothing")
+        kw = dict(nsample=nsample, radius=radius)
+        lay16 = bf16_layers(layers)
+        P, S, _ = new_xyz.shape
+        N = xyz.shape[1]
+        widths = [layers[0][0].shape[0]] + [lay[0].shape[1] for lay in layers]
+        # the store mode's output vs the plain bf16 forward
+        out, held = bf16_hold(f"pppf_sa_stage_bf16_save {name}",
+                              lambda: pppf_sa_fused(new_xyz, xyz, feat, lay16, save=True,
+                                                    bf16=True, **kw)[0],
+                              lambda: pppf_sa_plain(new_xyz, xyz, feat, lay16, bf16=True, **kw))
+        # as phase 28: the products are bf16 x bf16, at the tensor cores' bf16 rate
+        fl = stage_flops(P, S, N, nsample, widths)
+        products = P * N * 2.0 * sum(a_ * b_ for a_, b_ in zip(widths[:-1], widths[1:]))
+        io = nbytes(new_xyz, xyz, out, *([] if feat is None else [feat])) + \
+            sum(s_.numel() * s_.element_size() for s_ in saved)
+        r = bf16_timing(held, lambda: pppf_sa_fused(new_xyz, xyz, feat, lay16, save=True,
+                                                    bf16=True, **kw),
+                        lambda: pppf_sa_plain(new_xyz, xyz, feat, lay16, bf16=True, **kw),
+                        fl - products, products, io, stage=name, shape=[P, S, N, widths],
+                        nsample=nsample)
+        bf16_log(f"pppf_sa_stage_bf16_save {name} (store mode)", r)
+        save_recs.append(r)
+
+        def flat(res):
+            dxyz, dfeat, dl = res
+            return [dxyz] + ([] if dfeat is None else [dfeat]) + [t for lay in dl for t in lay]
+
+        kern = lambda: pppf_sa_bwd(new_xyz, xyz, feat, gout, lay16, saved=saved,  # noqa: E731
+                                   bf16=True, **kw)
+        plain = lambda: pppf_sa_bwd_plain_bf16(new_xyz, xyz, feat, gout, lay16,  # noqa: E731
+                                               saved=saved, **kw)
+        a, b = flat(kern()), flat(plain())
+        rows = 1 + (feat is not None)
+        control = regrouped_rows(new_xyz, xyz, feat, gout, lay16, saved=saved, **kw)
+        rel, row_figs = [], []
+        for i, (x, y) in enumerate(zip(a, b)):
+            err, big = float((x - y).abs().max()), float(y.abs().max())
+            rel.append(err / big if big else 0.0)
+            if i < rows:
+                # the row gradients, row by row; the per-point regrouping,
+                # not pcc_tpu's function in bf16, must fail the same hold
+                fails, fig = row_hold(x, y)
+                c_fails, c_fig = row_hold(control[i], y)
+                log(f"  pppf_sa_stage_bwd_bf16 {name} rows {tuple(y.shape)}: {fig['rows']} "
+                    f"rows ({fig['zero_rows']} zero), {fig['share_f32']:.4f} within "
+                    f"{ROW_F32} of their largest entry, the worst {fig['worst']:.3g} apart "
+                    f"(limits {ROW_SHARE}, {ROW_TOL}); max |kernel - plain| {err:.3g} of "
+                    f"{big:.3g}. Regrouped per point (control): {c_fig['share_f32']:.4f} "
+                    f"within, the worst {c_fig['worst']:.3g}")
+                if fails or not c_fails:
+                    raise RuntimeError(f"pppf_sa_stage_bwd_bf16 {name} rows {tuple(y.shape)}: "
+                                       f"{fails}; the regrouped control fails {c_fails}")
+                row_figs.append(dict(shape=list(y.shape), **fig,
+                                     control_share_f32=c_fig["share_f32"],
+                                     control_worst=c_fig["worst"]))
+                continue
+            log(f"  pppf_sa_stage_bwd_bf16 {name} output {tuple(y.shape)}: max |kernel - "
+                f"plain| {err:.3g}, max |plain| {big:.3g} (limit {TOL_BWD} of it)")
+            if not err <= TOL_BWD * big:
+                raise RuntimeError(f"pppf_sa_stage_bwd_bf16 {name} differs from the plain "
+                                   f"version on {tuple(y.shape)}: {err} > {TOL_BWD} * {big}")
+        del control
+        if not all(torch.equal(x, y) for x, y in zip(a, flat(kern()))):
+            raise RuntimeError(f"two launches of pppf_sa_stage_bwd_bf16 differ at {name}")
+        fp32, products = stage_bwd_bf16_work(P, S, N, nsample, widths)
+        ins = [new_xyz, xyz, gout, *saved] + ([] if feat is None else [feat]) \
+            + [t for lay in layers for t in (lay[0], lay[1], lay[3], lay[4])]
+        bms, by, bms32 = bf16_bounds(fp32, products, nbytes(*ins, *a))
+        br = dict(stage=name, shape=[P, S, N, widths], nsample=nsample,
+                  max_abs_err=max(float((x - y).abs().max()) for x, y in zip(a, b)),
+                  max_rel_err=max(rel), ms=cuda_ms(kern, 3), plain_ms=cuda_ms(plain, 1),
+                  bound_ms=bms, bound_by=by, bound_fp32_ms=bms32,
+                  gflop=(fp32 + products) / 1e9, slot_rows=P * S * nsample, rows=row_figs)
+        log(f"pppf_sa_stage_bwd_bf16 {name} new_xyz {tuple(new_xyz.shape)} xyz "
+            f"{tuple(xyz.shape)} widths {widths} nsample {nsample}: {br['ms']:.3f} ms on the "
+            f"stored forward (plain {br['plain_ms']:.1f} ms; bound {bms:.3f} ms by {by} with "
+            f"the per-slot products on the bf16 tensor cores, {bms32:.3f} ms in float32; "
+            f"{br['gflop']:.1f} GFLOP, {P * S * nsample} slot rows); max |kernel - plain| / max "
+            f"|plain| over the weight gradients {max(rel[rows:]):.3g}; two launches bitwise "
+            f"equal")
+        profile(f"pppf_sa_stage_bwd_bf16 {name} (one call on the stored forward)", kern, top=10)
+        bwd_recs.append(br)
+    del rec
+    common = dict(route="cuda", library_ms=None)
+    return [
+        dict(name="pppf_sa_stage_bf16_save", source="pcc_tpu_torch/csrc/pppf_sa_stage.cu",
+             replaces="pcc_tpu/ops/pppf_sa_pallas.py:45",
+             launches=launches["pppf_sa_stage_bf16_save"],
+             max_abs_err=max(r["max_abs_err"] for r in save_recs),
+             ms=sum(r["ms"] for r in save_recs), plain_ms=sum(r["plain_ms"] for r in save_recs),
+             bound_ms=sum(r["bound_ms"] for r in save_recs), bound_by=save_recs[-1]["bound_by"],
+             bound_fp32_ms=sum(r["bound_fp32_ms"] for r in save_recs), stages=save_recs,
+             **common),
+        dict(name="pppf_sa_stage_bwd_bf16", source="pcc_tpu_torch/csrc/pppf_sa_stage_bwd.cu",
+             replaces="pcc_tpu/ops/pppf_sa_pallas.py:258",
+             launches=launches["pppf_sa_stage_bwd_bf16"],
+             max_abs_err=max(r["max_abs_err"] for r in bwd_recs),
+             ms=sum(r["ms"] for r in bwd_recs), plain_ms=sum(r["plain_ms"] for r in bwd_recs),
+             bound_ms=sum(r["bound_ms"] for r in bwd_recs), bound_by=bwd_recs[-1]["bound_by"],
+             bound_fp32_ms=sum(r["bound_fp32_ms"] for r in bwd_recs), stages=bwd_recs,
+             **common)]
+
+
+def pppe_bf16_train_phase(dev, smi: str) -> dict:
+    """Phase 36: PPPE training in bf16 as cli/train_pppe_pcd_ae.py --bf16
+    builds it (PPPEConfig(compute_dtype="bfloat16") at the CLI defaults):
+    PPPE_TRAIN_STEPS counted steps on phase 21's clouds (fps 3, chamfer_fwd
+    and chamfer_bwd 1 a step, the bf16 reductions of the bias gradients,
+    nothing else), finite, loss lower at the end; the NaN skip; peak
+    memory. Then a TINY bf16 step on the card and on the CPU port, on
+    shaped_clouds with steady_symbols: the loss and every gradient before
+    the clip held by tools/holds.py::spread_hold to the CPU port's own
+    spread over the same step with the clouds in PPPE_REORDERS' orders (as
+    tests/test_torch_port_pn_bf16.py holds the port to pcc_tpu), and the
+    update equal to optax's clip and Adam on the card's own gradient; and
+    the CLI with --bf16 for 3 steps into the float32 PPPE compress and
+    decompress CLIs."""
+    import shutil
+    import tempfile
+
+    from pcc_tpu_torch.cli import pppe_pcd_compress, pppe_pcd_decompress, train_pppe_pcd_ae
+    from pcc_tpu_torch.io import read_point_cloud, save_point_cloud
+
+    cfg = PPPEConfig(compute_dtype="bfloat16")
+    B = PPPE_TRAIN_CLOUDS
+    tx = make_pppe_optimizer(5e-4)
+    state = create_pppe_state(SEED, cfg, tx, device="cuda")
+    step = build_pppe_train_step(tx)
+    batch = torch.from_numpy(unit_cube(synthetic_clouds(B, cfg.N, SEED + 8))).to(dev)
+    lam = 1.0 / 5000
+    step(state, batch, lam)                                   # uncounted
+    times, auxes, launches, peak = timed_steps(lambda: step(state, batch, lam)[1],
+                                               PPPE_TRAIN_STEPS)
+    want = want_launches(PPPE_TRAIN_STEPS, fps=3, chamfer_fwd=1, chamfer_bwd=1,
+                         bf16_reduce=launches.get("bf16_reduce", 0) // PPPE_TRAIN_STEPS)
+    log(f"phase 36, PPPE bf16 train launches over {PPPE_TRAIN_STEPS} steps: {launches}")
+    if launches != want or not launches.get("bf16_reduce"):
+        raise RuntimeError(f"PPPE bf16 train launches {launches} != {want}")
+    vals = {k: torch.stack([a[k] for a in auxes]).cpu().numpy()
+            for k in ("loss", "dist", "rate", "skipped")}
+    if not all(np.isfinite(vals[k]).all() for k in ("loss", "dist", "rate")) \
+            or vals["skipped"].any() or not vals["loss"][-1] < vals["loss"][0]:
+        raise RuntimeError(f"PPPE bf16 train: non-finite, skipped or not falling: {vals}")
+    ms = float(np.median(times)) * 1e3
+    log(f"phase 36, PPPE bf16 train: {B} clouds x {cfg.N} points per step; median step "
+        f"{ms:.2f} ms (steps {min(times) * 1e3:.2f} to {max(times) * 1e3:.2f} ms), "
+        f"{B * cfg.N / (ms / 1e3):.0f} points/s on {smi}; peak memory {peak:.2f} GiB; loss "
+        f"{vals['loss'][0]:.6f} -> {vals['loss'][-1]:.6f}")
+    profile("PPPE bf16 train step", lambda: step(state, batch, lam), top=14)
+    fields = ("params", "stats", "mu", "nu", "count", "step")
+    before = [getattr(state, f).clone() for f in fields]
+    bad = batch.clone()
+    bad[1, 100, 0] = float("nan")
+    _, aux = step(state, bad, lam)
+    if not bool(aux["skipped"]) or not all(torch.equal(b_, getattr(state, f))
+                                           for f, b_ in zip(fields, before)):
+        raise RuntimeError("PPPE bf16 train: a NaN batch was not skipped whole")
+    log("phase 36, PPPE bf16 train: a batch with a NaN coordinate skipped, the state bit for "
+        "bit unchanged")
+    del state
+
+    tiny = PPPEConfig(**TINY_PPPE, compute_dtype="bfloat16")
+    lr = 1e-3
+    ttx = make_pppe_optimizer(lr)
+    tb = torch.from_numpy(shaped_clouds(PPPE_TRAIN_CLOUDS, tiny.N, SEED + 9))
+    tstep = build_pppe_train_step(ttx)
+
+    def tiny_step(device, order):
+        """A fresh TINY state, one step on the clouds in `order`: (state,
+        parameters before, aux, gradients by name before the clip)."""
+        st = create_pppe_state(SEED, tiny, ttx, device=device)
+        steady_symbols(st.model, SEED + 9)
+        p0 = st.params.detach().double().cpu().numpy().copy()
+        _, aux = tstep(st, tb[order].to(device), 1e-2)
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+                 for n, p in st.named_parameters()}
+        return st, p0, aux, grads
+
+    card, p0, a, g_card = tiny_step("cuda", np.arange(len(tb)))
+    _, _, b, g_cpu = tiny_step("cpu", np.arange(len(tb)))
+    others = [tiny_step("cpu", o) for o in PPPE_REORDERS]
+    la, lb = float(a["loss"]), float(b["loss"])
+    fails, fig = spread_hold(g_card, g_cpu, [o[3] for o in others],
+                             {n for n in g_cpu if re.search(r"\.mlp_stack\.\d+\.0\.bias$", n)})
+    fails += spread_hold({"loss": la}, {"loss": lb}, [{"loss": float(o[2]["loss"])}
+                                                      for o in others])[0]
+    # optax's clip_by_global_norm(1.0) and Adam's first step on the card's
+    # own gradient, in float64
+    g = torch.cat([x.reshape(-1) for x in g_card.values()]).double().numpy()
+    n = float(np.sqrt(np.sum(g * g)))
+    g = g / n if n >= 1.0 else g
+    adam = float(np.abs(card.params.detach().double().cpu().numpy()
+                        - (p0 - lr * g / (np.abs(g) + 1e-8))).max())
+    med = fig["median"]
+    log(f"phase 36, PPPE bf16 step at TINY_PPPE, card vs CPU port (tools/holds.py::spread_hold, "
+        f"the CPU port's own spread over {len(others)} reorderings of the clouds): loss "
+        f"{la:.8f} vs {lb:.8f}; gradients median distance {med['e']:.3g} (CPU reorderings "
+        f"{med['s']:.3g}), median norm ratio {med['rho']:.4f}, mean cosine "
+        f"{fig['mean_cos']:.4f} (CPU reorderings {fig['mean_cos_self']:.4f}); the update at "
+        f"most {adam:.3g} from optax's Adam on the card's gradient (limit 1e-6)")
+    if fails or not adam <= 1e-6:
+        raise RuntimeError(f"PPPE bf16 TINY step card vs CPU: {fails[:6]}, Adam {adam}")
+
+    full = PPPEConfig()
+    os.makedirs(os.path.join(ROOT, "_chip"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="pppe_bf16_", dir=os.path.join(ROOT, "_chip"))
+    try:
+        d = lambda *p: os.path.join(work, *p)  # noqa: E731
+        for i, pc in enumerate(unit_cube(synthetic_clouds(4, full.N, SEED + 10))):
+            save_point_cloud(pc, f"c{i}.ply", path=d("in"))
+        flags = ["--N", str(full.N), "--K", str(full.latent_dim), "--L", str(full.L)]
+        wall, l_t = run_cli("phase 36 PPPE train CLI --bf16 (3 steps of 4 clouds)",
+                            train_pppe_pcd_ae.main,
+                            ["--train_glob", d("in", "*.ply"), "--model_save_folder", d("model"),
+                             "--max_steps", "3", "--step_window", "1", "--bf16", *flags])
+        if l_t != want_launches(3, fps=3, chamfer_fwd=1, chamfer_bwd=1,
+                                bf16_reduce=l_t.get("bf16_reduce", 0) // 3):
+            raise RuntimeError(f"PPPE train CLI --bf16 launches {l_t}")
+        pppe_pcd_compress.main([d("in", "*.ply"), d("comp"), d("model"), *flags])
+        pppe_pcd_decompress.main([d("comp", "*.bin"), d("dec"), d("model"), *flags])
+        for i in range(4):
+            pc = read_point_cloud(d("dec", f"c{i}.bin.ply"))
+            if pc.shape != (full.N, 3) or not np.isfinite(pc).all():
+                raise RuntimeError(f"bad PPPE decode after the bf16 train CLI: {pc.shape}")
+        log(f"phase 36, PPPE train CLI --bf16: 3 steps in {wall:.0f} ms; its float32 "
+            "ae_latest.pkl compressed and decompressed 4 clouds through the PPPE CLIs")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(launches_per_step={k: v // PPPE_TRAIN_STEPS for k, v in launches.items()},
+                step_ms=ms, points_per_s=B * cfg.N / (ms / 1e3), peak_gib=peak,
+                tiny_loss=[la, lb], tiny_grad_median=med, tiny_mean_cos=fig["mean_cos"],
+                tiny_mean_cos_cpu=fig["mean_cos_self"], tiny_adam_diff=adam)
+
+
+def pppf_bf16_cli_phase() -> dict:
+    """Phase 37: cli/train.py --model PPPF-AE --N 512 --max_steps 2 with and
+    without --bf16 on the same clouds and seed: the --bf16 run is the
+    float32 step (pcc_tpu's PPPF-AE trainer computes in float32 under
+    --bf16). The card's float32 PPPF-AE step is not bitwise repeatable (the
+    batch-statistics stages' gather backward adds with atomics; ROADMAP.md
+    §3 open 1), so the run without --bf16 runs twice, and the --bf16 run
+    must lie as close to the first as REPEAT_FACTOR times the second does
+    (each tensor's max |difference| over its largest entry; bit for bit on
+    the CPU, tests/test_torch_port_pn_bf16.py). What fixes the step: the
+    --bf16 run launches the same kernels as many times as the float32 run,
+    and no bf16 kernel or reduction."""
+    import pickle
+    import shutil
+    import tempfile
+
+    from pcc_tpu_torch.cli import train
+    from pcc_tpu_torch.io import save_point_cloud
+
+    os.makedirs(os.path.join(ROOT, "_chip"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="pppf_bf16_cli_", dir=os.path.join(ROOT, "_chip"))
+    try:
+        for i, pc in enumerate(synthetic_clouds(4, 512, SEED + 41)):
+            save_point_cloud(pc, f"c{i}.ply", path=os.path.join(work, "in"))
+        trees, launched = [], []
+        for k, bf16 in enumerate((False, True, False)):
+            model = os.path.join(work, f"m{k}")
+            _, l_k = run_cli(
+                f"phase 37 train --model PPPF-AE --N 512{' --bf16' if bf16 else ''}",
+                train.main, ["--train_glob", os.path.join(work, "in", "*.ply"),
+                             "--model_save_folder", model, "--model", "PPPF-AE", "--N", "512",
+                             "--batch_size", "4", "--bn_warmup_steps", "1",
+                             "--max_steps", "2", "--step_window", "1"]
+                + (["--bf16"] if bf16 else []))
+            loaded = []
+            for name in ("ae.pkl", "prob.pkl"):
+                with open(os.path.join(model, name), "rb") as f:
+                    loaded.append(pickle.load(f))
+            trees.append([np.asarray(x, np.float64) for x in _leaves(loaded)])
+            launched.append({k_: v for k_, v in l_k.items() if v})
+
+        def apart(a, b):
+            return max(float(np.abs(x - y).max()) / (float(np.abs(x).max()) or 1.0)
+                       for x, y in zip(a, b))
+
+        bf16_gap, repeat_gap = apart(trees[0], trees[1]), apart(trees[0], trees[2])
+        # the float32 step launches the float32 kernels only, as many times
+        log(f"phase 37, launches without --bf16 {launched[0]}, with it {launched[1]}")
+        if launched[1] != launched[0] or any("bf16" in k_ for k_ in launched[1]):
+            raise RuntimeError(f"train --model PPPF-AE --bf16 launched {launched[1]}, the "
+                               f"float32 run {launched[0]}")
+        log(f"phase 37, train --model PPPF-AE: the --bf16 run's parameters at most "
+            f"{bf16_gap:.3g} from the float32 run's, a second float32 run's at most "
+            f"{repeat_gap:.3g} (limit {REPEAT_FACTOR} times that, or 1e-6)")
+        if len(trees[1]) != len(trees[0]) or bf16_gap > max(REPEAT_FACTOR * repeat_gap, 1e-6):
+            raise RuntimeError(f"train --model PPPF-AE --bf16 is not the float32 step: "
+                               f"{bf16_gap} vs a repeat's {repeat_gap}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(bf16_gap=bf16_gap, repeat_gap=repeat_gap, launches=launched[1])
+
+
+def _leaves(tree) -> list:
+    """The arrays of a nested dict / list / tuple of arrays, in key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
 
 
 def main() -> int:
@@ -3864,6 +4270,14 @@ def main() -> int:
     cli34 = bf16_train_cli_phase(clouds)
     log("phases 30-34: " + json.dumps({"large-scene rooms": rooms30, "bf16 train": train31,
                                        "bf16 TINY card vs CPU": card33, "train CLI": cli34}))
+
+    # 35-37. the PN++ families' bf16 training: PPPF_AE in bf16 with its
+    # encoder frozen (the bf16 store mode and stage backward), PPPE's bf16
+    # step and CLI, and PPPF-AE's float32 step under --bf16
+    kernels += pppf_bf16_train_phase(dev, smi)
+    pppe36 = pppe_bf16_train_phase(dev, smi)
+    cli37 = pppf_bf16_cli_phase()
+    log("phases 35-37: " + json.dumps({"PPPE bf16 train": pppe36, "PPPF-AE --bf16": cli37}))
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -22,9 +22,13 @@ precision on one device, as pcc_tpu's --bf16 with its fused encoder does
 (CodecConfig(compute_dtype="bfloat16"): the bf16 instances of the encoder
 and its backward kernel, flax's bf16 rules in the decoder and the
 probability model; parameters, Adam and the chamfer float32); the
-checkpoints are the same float32 pickles. Refused with a message: --bf16
-with --model PPPF-AE or --devices N > 1 (not ported yet); --fused_encoder
-and --jax_debug_nans are not flags of this parser, which rejects them.
+checkpoints are the same float32 pickles. --model PPPF-AE --bf16 (one
+device or --devices N) trains the float32 step, as pcc_tpu's does: its
+PPPF-AE trainer builds its models with no dtype whatever --bf16 says
+(pcc_tpu/train/steps_pppf.py:50-54), so the checkpoints are those of the
+run without --bf16. Refused with a message: --model AE --devices N > 1
+--bf16 (not ported yet); --fused_encoder and --jax_debug_nans are not
+flags of this parser, which rejects them.
 
 --devices N > 1 trains data-parallel on N processes, one per device
 (cli/_common.py::maybe_launch, parallel/mesh.py): every rank draws the same
@@ -89,8 +93,9 @@ def build_parser():
                    help="Rate-term normalization (see train/steps.py).")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 mixed-precision network compute, parameters and Adam "
-                        "float32 (--model AE on one device; PPPF-AE and --devices N > 1 "
-                        "in bf16 are not ported).")
+                        "float32 (--model AE on one device; --model PPPF-AE computes its "
+                        "float32 step, as pcc_tpu's does; --model AE with --devices N > 1 "
+                        "in bf16 is not ported).")
     p.add_argument("--bn_warmup_steps", type=int, default=1000,
                    help="PPPF-AE only: steps trained with the encoder's BatchNorm on "
                         "batch statistics (running statistics updating) before the "
@@ -110,14 +115,10 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.model not in ("AE", "PPPF-AE"):
         raise SystemExit(f"Unknown model type: {args.model}")
-    if args.bf16 and args.model == "PPPF-AE":
-        raise SystemExit("--model PPPF-AE --bf16: PPPF-AE's bf16 training (with the bf16 "
-                         "instance of the PN++ stage backward kernel) is not ported yet; "
-                         "--model AE --bf16 trains")
-    if args.bf16 and args.devices > 1:
-        raise SystemExit("--devices N --bf16: multi-device bf16 training is not ported yet "
-                         "(pcc_tpu runs it unfused, on flax's rounding, not the kernels'); "
-                         "--bf16 trains on one device")
+    if args.bf16 and args.devices > 1 and args.model == "AE":
+        raise SystemExit("--model AE --devices N --bf16: multi-device bf16 training is not "
+                         "ported yet (pcc_tpu runs it unfused, on flax's rounding, not the "
+                         "kernels'); --bf16 trains on one device")
     if maybe_launch(args, main, argv, batch_size=args.batch_size):
         return
     cfg = CodecConfig(N=args.N, N0=args.N0, ALPHA=args.ALPHA, K=args.K, d=args.d, L=args.L,
@@ -125,7 +126,11 @@ def main(argv=None):
     tx = make_optimizer(args.lr, args.lr_decay, args.lr_decay_steps, args.max_steps)
     state = create_train_state(args.seed, cfg, tx, device=args.device)
     device = state.optimizer.param_groups[0]["params"][0].device
-    print0(f"Training {args.model} on {device}" + (" in bf16" if args.bf16 else ""))
+    # the dtype the train state built: PPPF-AE's is float32 whatever --bf16 says
+    bf16 = state.ae.bf16
+    print0(f"Training {args.model} on {device}" + (" in bf16" if bf16 else ""))
+    if args.bf16 and not bf16:
+        print0(f"--bf16: the {args.model} step computes in float32, as pcc_tpu's does")
     print0(f"N={cfg.N}, K={cfg.K}, S={cfg.S}, d={cfg.d}, L={cfg.L}")
 
     os.makedirs(args.model_save_folder, exist_ok=True)

@@ -14,8 +14,11 @@ sees raw clouds, while the PPPE compress CLI normalizes each cloud, so
 training data should already lie in about [0, 1]. On the card the step
 runs the FPS kernel 3 times and the chamfer kernels once each.
 --lr_decay and --lr_decay_steps are parsed and unused, as in pcc_tpu.
-Refused with a message: --bf16 (PPPE's bf16 training is not ported yet; it
-follows PPPF-AE's, and --model AE trains in bf16 in cli/train.py).
+--bf16 trains in bf16 mixed precision (PPPEConfig(compute_dtype=
+"bfloat16"), pcc_tpu's: flax's bf16 rules in every module but the
+probability model; parameters, Adam, the clip and the chamfer float32),
+also with --devices N; the checkpoints are float32 and serve in float32
+(pppe_pcd_compress / pppe_pcd_decompress / eval_pppe, as pcc_tpu's do).
 --devices N > 1 trains data-parallel on N processes, one per device, as
 cli/train.py does (the step is the single-device step of the global batch,
 train/steps_pppe.py); rank 0 prints and writes dataset_norm.pkl and the
@@ -66,8 +69,8 @@ def build_parser():
                    help="Number of steps to gradually ramp up lambda in RD loss")
     p.add_argument("--reset", action="store_true")
     p.add_argument("--bf16", action="store_true",
-                   help="bf16 mixed-precision compute (training in bf16 is not ported; "
-                        "compress and decompress take --bf16).")
+                   help="bf16 mixed-precision compute; parameters, Adam and the "
+                        "checkpoints float32.")
     p.add_argument("--seed", type=int, default=DEFAULT_SEED)
     add_devices_flag(p)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -100,16 +103,15 @@ def compute_dataset_norm(points: np.ndarray):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.bf16:
-        raise SystemExit("--bf16: PPPE's bf16 training is not ported yet (it comes after "
-                         "PPPF-AE's; cli/train.py --model AE --bf16 trains in bf16)")
     if maybe_launch(args, main, argv, batch_size=args.batch_size):
         return
-    cfg = PPPEConfig(N=args.N, latent_dim=args.K, L=args.L)
+    cfg = PPPEConfig(N=args.N, latent_dim=args.K, L=args.L,
+                     compute_dtype="bfloat16" if args.bf16 else "float32")
     tx = make_pppe_optimizer(args.lr)
     state = create_pppe_state(args.seed, cfg, tx, device=args.device)
     device = state.params.device
-    print0(f"Training PointNet++ + PCN + ProbModel on {device}")
+    print0(f"Training PointNet++ + PCN + ProbModel on {device}" + (" in bf16" if args.bf16
+                                                                     else ""))
     os.makedirs(args.model_save_folder, exist_ok=True)
     points = load_training_points(args.train_glob)
     train_step = build_sharded_pppe_train_step(tx)

@@ -14,7 +14,10 @@ exact dense KNN whose output the pruned search reproduces bit for bit.
 `compute_dtype` is pcc_tpu's: "float32", or "bfloat16" for bf16 mixed
 precision in the networks (parameters, the quantizer's arithmetic and the
 integer coding stay float32; ops/bf16.py), which the port serves (compress
-and decompress) and does not train.
+and decompress) and trains for --model AE (cli/train.py --bf16; pcc_tpu's
+PPPF-AE trainer computes in float32 whatever compute_dtype says, and so
+does the port's). PPPEConfig.compute_dtype is PPPE's, which trains in bf16
+(cli/train_pppe_pcd_ae.py --bf16) and serves in float32.
 """
 
 from __future__ import annotations
@@ -106,11 +109,18 @@ class CodecConfig:
 @dataclasses.dataclass(frozen=True)
 class PPPEConfig:
     """The PPPE whole-cloud pipeline's configuration (pcc_tpu/config.py:121;
-    reference train_pppe_pcd_ae.py:27-29). The port computes in float32
-    (pcc_tpu's compute_dtype "float32")."""
+    reference train_pppe_pcd_ae.py:27-29). compute_dtype "bfloat16" is
+    pcc_tpu's bf16 mixed precision in the PointCloudAE (parameters float32),
+    which the port trains (models/pppe.py)."""
 
     N: int = 8192          # points per cloud
     latent_dim: int = 256  # '--K' in the reference PPPE CLIs
     L: int = 7             # quantization bins
     coarse_points: int = 512
     margin: float = 0.01
+    compute_dtype: str = "float32"  # "bfloat16" = mixed-precision networks
+
+    def __post_init__(self):
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype={self.compute_dtype!r} is not one of "
+                             f"{COMPUTE_DTYPES}")

@@ -108,7 +108,8 @@
 // passes of 256.
 
 // The bf16 instance (pppf_sa_stage_bf16_launch; pcc_tpu's compute_dtype
-// bfloat16, layout "pppf", serving): the same kernels, templated on the
+// bfloat16, layout "pppf"; in serving, and in the store mode,
+// pppf_sa_stage_bf16_save_launch, for the bf16 train step): the same kernels, templated on the
 // rounding (bf16.cuh), with W rounded to bf16 by the wrapper and b, mean,
 // mul and beta float32, as pcc_tpu/ops/pppf_sa_pallas.py's bf16 stage
 // keeps them. Each layer's input rows are bf16 (the gathered rows rounded,
@@ -326,8 +327,10 @@ __device__ __forceinline__ void fold_query_max(const float* t, int ldt, int row0
 // kSave (the store mode the train step's forward asks for): the same
 // arithmetic, and also the ranked slots, every layer's input x_l and t_l and
 // the last activations stored for the backward kernel (pppf_sa_stage_bwd.cu),
-// which then neither selects nor replays the stack. kBf16 (serving only):
-// the point rows and every layer's output rounded to bf16.
+// which then neither selects nor replays the stack. kBf16: the point rows
+// and every layer's output rounded to bf16; with kSave too (the bf16 store
+// mode), the stored inputs x_l are the rounded ones, which the bf16
+// backward's weight gradients read, and t_l is the float32 (z + b) - mean.
 template <bool kSave, bool kBf16>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 pppf_sa_points_kernel(const __grid_constant__ Stage st) {
@@ -381,9 +384,10 @@ pppf_sa_points_kernel(const __grid_constant__ Stage st) {
       if (rl < valid) {
         v = c < st.c ? __ldg(ft + static_cast<size_t>(j) * st.c + c)
                      : __ldg(pts + 3 * j + (c - st.c));
+        v = pcc_bf16::act_round<kBf16>(v);
         if (kSave) st.gact[st.lay.act_off[0] + (grow + rl) * st.lay.ld[0] + c] = v;
       }
-      buf_a[rl * st.lda + c] = pcc_bf16::act_round<kBf16>(v);
+      buf_a[rl * st.lda + c] = v;
     }
     __syncthreads();
     for (int l = 0; l < L - 1; ++l) {
@@ -878,7 +882,7 @@ int launch_stage(Stage& st, int p, bool save, int* saved, float* y, cudaStream_t
     for (int i = 0; i < 2 && bytes == 0; ++i)
       bytes = point_tile(st, lda0, ldb0, budgets[i], save);
     if (bytes > 0) {
-      auto kernel = save ? pppf_sa_points_kernel<true, false> : pppf_sa_points_kernel<false, kBf16>;
+      auto kernel = save ? pppf_sa_points_kernel<true, kBf16> : pppf_sa_points_kernel<false, kBf16>;
       cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              static_cast<int>(bytes));
       if (err != cudaSuccess) return static_cast<int>(err);
@@ -988,8 +992,8 @@ extern "C" int pppf_sa_stage_launch(const float* new_xyz, const float* xyz, cons
   return launch_stage<false>(st, p, save, saved, y, static_cast<cudaStream_t>(stream));
 }
 
-// The bf16 instance, layout "pppf", serving (no store mode): the arguments
-// of pppf_sa_stage_launch without pppe, the store mode and y; W bf16-exact
+// The bf16 instance, layout "pppf", serving: the arguments of
+// pppf_sa_stage_launch without pppe, the store mode and y; W bf16-exact
 // (the wrapper rounds it), b, mean, mul and beta float32. Every layer's
 // input rows and relu output are rounded to bf16; the selection and the
 // ball mask are the float32 instance's bit for bit.
@@ -1003,4 +1007,27 @@ extern "C" int pppf_sa_stage_bf16_launch(const float* new_xyz, const float* xyz,
                   widths))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_stage<true>(st, p, false, nullptr, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 instance's store mode (the bf16 train step's forward): the
+// arguments of pppf_sa_stage_bf16_launch and the store mode's gsel, gact, gt
+// and *saved, as pppf_sa_stage_launch takes them (all four not null). The
+// output is the serving instance's bit for bit; gact holds the rounded
+// layer inputs.
+extern "C" int pppf_sa_stage_bf16_save_launch(const float* new_xyz, const float* xyz,
+                                              const float* feat, float* out, int p, int s,
+                                              int n, int c, int nsample, float r2, int n_layers,
+                                              const void* const* layers, const int* widths,
+                                              int* gsel, float* gact, float* gt, int* saved,
+                                              void* stream) {
+  Stage st;
+  if (!make_stage(st, new_xyz, xyz, feat, out, p, s, n, c, nsample, r2, 0, n_layers, layers,
+                  widths) ||
+      gsel == nullptr || gact == nullptr || gt == nullptr || saved == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *saved = 0;
+  st.gsel = gsel;
+  st.gact = gact;
+  st.gt = gt;
+  return launch_stage<true>(st, p, true, saved, nullptr, static_cast<cudaStream_t>(stream));
 }

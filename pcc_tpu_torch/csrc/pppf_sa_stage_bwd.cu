@@ -98,6 +98,40 @@
 //    replays, with dense_layer, bit for bit the forward kernel's
 //    arithmetic.
 
+//
+// The bf16 instance (pppf_sa_stage_bwd_bf16_launch; replaces the same TPU
+// kernel with compute_dtype bfloat16, the backward of PPPF_AE(dtype=
+// bfloat16, fused_train=True)). Its rounding points are _stage_bwd_kernel's
+// (pppf_sa_pallas.py:326-436): the replay rounds each layer's input and
+// relu output to bf16 (the bf16 store mode of pppf_sa_stage.cu stores those
+// rounded inputs, so no replay runs on the train path); the max routes to
+// the first slot in selection order that reaches the maximum (ties between
+// distinct points are common in bf16); dz = dh * mul in float32, and the
+// input gradient is round(dz) @ round(W)^T per SLOT. Rounding dz per slot
+// is not linear, so the per-point regrouping of the float32 instance does
+// not hold below the last layer's routing: there the cotangent is carried
+// per slot (P * S * nsample rows, 8.4 M at sa1 of the 512-patch step), as
+// the TPU kernel carries it. What stays per point is exact in real
+// arithmetic: the routing, and the weight gradients and column sums, taken
+// on each point's sum of its slots' dh (no rounding sits between them), by
+// the float32 instance's route and wgrad kernels.
+// What bounds it on an H100: the per-slot products, 2 operations per
+// multiply-add of the stack on the slot rows (4.2 TFLOP at the 512-patch
+// step, 3.3 of them at sa3), exact bf16 x bf16 products with float32
+// accumulation: mma.sync m16n8k16 on the bf16 tensor cores (989 TFLOP/s
+// dense), one pass. What the design does (a simple first version): per
+// chunk of patches (CHAIN_BYTES of per-slot buffers in the wrapper), the
+// last layer's round(dz) per slot row from the routing's winning slots
+// (top_kernel); then per layer, from the last, one product over the
+// chunk's slot rows (chain_kernel: 128 x 128 tiles, k-slabs of 32 by
+// cp.async, both operands k-contiguous), its epilogue masking by the slot's
+// point's stored activation and writing dh (float32) and round(dh * mul)
+// (bf16, the next product's A); and the per-point sums of dh
+// (regroup_kernel: a block per patch and 32 columns, slots in order, a few
+// groups of slots summed in a fixed order, so two launches give the same
+// bits). The first layer's product gives each slot's row gradient, summed
+// per point into [dfeat | dxyz] (masked slots read point 0).
+
 #include <cuda_runtime.h>
 
 #include "pppf_sa_common.cuh"
@@ -122,6 +156,7 @@ struct Bwd {
   float* act;             // x_l, l = 0..n_layers: [P * N, ld[l]] each
   float* t;               // t_l, l = 0..n_layers-1: [P * N, ld[l + 1]] each
   float* da;              // da_l, laid out as t
+  unsigned char* win;     // bf16: the winning slot of each (patch, query, channel)
   int p, s, n, c, nsample, n_layers;
   float r2;
   int rows;               // point tile of the forward replay
@@ -155,6 +190,9 @@ __global__ void __launch_bounds__(kThreads) select_kernel(const __grid_constant_
 }
 
 // 2. the stack on every point's row [feat | xyz], storing x_l and t_l
+// (kBf16: the rows and every layer's output rounded to bf16, as the bf16
+// forward kernel computes them)
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 forward_kernel(const __grid_constant__ Bwd st) {
   extern __shared__ __align__(16) float smem[];
@@ -169,7 +207,8 @@ forward_kernel(const __grid_constant__ Bwd st) {
     const size_t r = static_cast<size_t>(row0) + rl;
     float v = 0.0f;
     if (rl < valid) {
-      v = c < st.c ? __ldg(st.feat + r * st.c + c) : __ldg(st.xyz + r * 3 + (c - st.c));
+      v = pcc_bf16::act_round<kBf16>(c < st.c ? __ldg(st.feat + r * st.c + c)
+                                             : __ldg(st.xyz + r * 3 + (c - st.c)));
       st.act[st.act_off[0] + r * st.ld[0] + c] = v;
     }
     buf_a[rl * st.lda + c] = v;
@@ -181,7 +220,7 @@ forward_kernel(const __grid_constant__ Bwd st) {
     const size_t off = static_cast<size_t>(row0) * st.ld[l + 1];
     const GlobalRows g{st.act + st.act_off[l + 1] + off, st.t + st.t_off[l] + off,
                        st.ld[l + 1], valid};
-    dense_layer<kStoreGlobal>(src, (l & 1) ? st.ldb : st.lda, st.rows, st.width[l], st.w[l],
+    dense_layer<kStoreGlobal, kBf16>(src, (l & 1) ? st.ldb : st.lda, st.rows, st.width[l], st.w[l],
                               st.width[l + 1], st.b[l], st.mu[l], st.mul[l], st.beta[l], st.width[l + 1], dst,
                               (l & 1) ? st.lda : st.ldb, nullptr, 0, 0, 1, g);
     __syncthreads();
@@ -204,7 +243,11 @@ constexpr unsigned short kDead = 0xFFFF;   // maximum <= 0: no gradient (N <= kM
 // owns these columns of this patch), and the chunk of the last layer's da
 // is stored. kStaged: the patch's slots are first copied to shared memory
 // (where they fit), so that the winners' loop reads no device memory.
-template <bool kStaged>
+// kSlots (the bf16 instance): each winner's slot is also stored, win[p][q][c]
+// (kDeadSlot where the maximum is not live), for the per-slot chain.
+constexpr unsigned char kDeadSlot = 0xFF;   // nsample <= kMaxSlots < 0xFF
+constexpr int kMaxSlots = 254;
+template <bool kStaged, bool kSlots>
 __global__ void __launch_bounds__(kThreads) route_kernel(const __grid_constant__ Bwd st) {
   extern __shared__ __align__(16) float smem[];
   const int L = st.n_layers, cout = st.width[L], ld = st.ld[L], ch = st.ch;
@@ -234,7 +277,7 @@ __global__ void __launch_bounds__(kThreads) route_kernel(const __grid_constant__
     for (int q = threadIdx.x / ch; q < st.s; q += lanes) {
       const int* sel = (kStaged ? ssel : psel) + q * st.nsample;
       float best = -1.0f;
-      int bj = 0;
+      int bj = 0, bk = 0;
       int k = 0;
       // eight slots' loads in flight, compared in slot order
       for (; k + 8 <= st.nsample; k += 8) {
@@ -249,6 +292,7 @@ __global__ void __launch_bounds__(kThreads) route_kernel(const __grid_constant__
           if (v[i] > best) {
             best = v[i];
             bj = j[i];
+            bk = k + i;
           }
       }
       for (; k < st.nsample; ++k) {
@@ -257,10 +301,14 @@ __global__ void __launch_bounds__(kThreads) route_kernel(const __grid_constant__
         if (v > best) {
           best = v;
           bj = j;
+          bk = k;
         }
       }
       const bool live = best > 0.0f && c < nch;
       win[q * ch + c] = live ? static_cast<unsigned short>(bj) : kDead;
+      if (kSlots && c < nch)
+        st.win[(static_cast<size_t>(p) * st.s + q) * cout + c0 + c] =
+            live ? static_cast<unsigned char>(bk) : kDeadSlot;
       gw[q * ch + c] = live ? __ldg(go + static_cast<size_t>(q) * cout) : 0.0f;
     }
   }
@@ -393,6 +441,213 @@ dx_kernel(const float* __restrict__ A, int lda, const float* __restrict__ B, int
       }
 }
 
+// ---- the bf16 instance's per-slot chain (see the note at the top) ----
+//
+// Slot rows of a chunk of patches [p0, p0 + chunk): row r is slot k of query
+// q of patch p0 + r / (s * nsample), r % (s * nsample) = q * nsample + k, so
+// the chunk's rows are contiguous in sel. A buffers hold round(dz) per slot
+// row in bf16, [rows][pad16(width)], zero past the width; D holds a layer's
+// masked cotangent dh per slot row in float32, [rows][pad16(width)].
+
+__device__ __forceinline__ unsigned short bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// The last layer's round(dz) per slot row: gout * mul at the slot that wins
+// (win), 0 elsewhere, rounded to bf16; zeros up to lda.
+__global__ void top_kernel(const __grid_constant__ Bwd st, int p0, int rows, int lda,
+                           unsigned short* __restrict__ A) {
+  const int L = st.n_layers, cout = st.width[L];
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= static_cast<long long>(rows) * lda) return;
+  const int c = static_cast<int>(e % lda);
+  const long long r = e / lda;
+  float v = 0.0f;
+  if (c < cout) {
+    const long long slot = static_cast<long long>(p0) * st.s * st.nsample + r;
+    const long long pq = slot / st.nsample;          // patch * s + query
+    const int k = static_cast<int>(slot % st.nsample);
+    if (st.win[pq * cout + c] == k)
+      v = __ldg(st.gout + pq * cout + c) * __ldg(st.mul[L - 1] + c);
+  }
+  A[e] = bf16_bits(v);
+}
+
+// The per-slot input-gradient product of layer l, G = A Wb^T (A [rows][lda]
+// round(dz) in bf16, Wb [pad16(cin)][lda] = bf16(W_l), cin = width[l]): bf16
+// mma.sync m16n8k16, float32 accumulators, a block 128 rows x 128 columns,
+// 8 warps of 32 x 64, k-slabs of 32 double-buffered by cp.async (rows 40
+// bf16 apart: conflict-free fragments). Epilogue, for columns n < ldo =
+// pad16(cin): l > 0: dh = G * (x_l > 0) at the slot's point (the stored
+// relu output of layer l - 1) into D, round(dh * mul_{l-1}) into Aout (zeros
+// past cin); l = 0: G (the slot's row gradient [dfeat | dxyz]) into D.
+constexpr int kGBM = 128, kGBN = 128, kGBK = 32, kGLd = kGBK + 8;
+constexpr int kGStage = (kGBM + kGBN) * kGLd;              // bf16 per stage
+constexpr size_t kGSmemBytes = 2 * kGStage * sizeof(unsigned short);
+
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__global__ void __launch_bounds__(kThreads)
+chain_kernel(const __grid_constant__ Bwd st, int l, int p0, int rows,
+             const unsigned short* __restrict__ A, int lda, const unsigned short* __restrict__ Wb,
+             float* __restrict__ D, unsigned short* __restrict__ Aout) {
+  extern __shared__ __align__(16) unsigned short gsm[];
+  const int cin = st.width[l], ldo = (cin + 15) & ~15;
+  const int ntiles = (ldo + kGBN - 1) / kGBN;
+  const int n0 = (blockIdx.x % ntiles) * kGBN, row0 = (blockIdx.x / ntiles) * kGBM;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
+  auto load = [&](int stage, int k0) {
+    unsigned short* as = gsm + stage * kGStage;
+    unsigned short* bs = as + kGBM * kGLd;
+    for (int e = tid; e < kGBM * (kGBK / 8); e += kThreads) {
+      const int rr = e / (kGBK / 8), k = k0 + (e % (kGBK / 8)) * 8, r = row0 + rr;
+      const bool ok = r < rows && k < lda;
+      cp_async16(as + rr * kGLd + (k - k0), ok ? A + static_cast<size_t>(r) * lda + k : A,
+                 ok ? 16 : 0);
+    }
+    for (int e = tid; e < kGBN * (kGBK / 8); e += kThreads) {
+      const int nn = e / (kGBK / 8), k = k0 + (e % (kGBK / 8)) * 8, n = n0 + nn;
+      const bool ok = n < ldo && k < lda;
+      cp_async16(bs + nn * kGLd + (k - k0), ok ? Wb + static_cast<size_t>(n) * lda + k : Wb,
+                 ok ? 16 : 0);
+    }
+  };
+  float acc[2][8][4] = {};
+  load(0, 0);
+  cp_async_commit();
+  int stage = 0;
+  for (int k0 = 0; k0 < lda; k0 += kGBK, stage ^= 1) {
+    if (k0 + kGBK < lda) load(stage ^ 1, k0 + kGBK);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const unsigned short* as = gsm + stage * kGStage;
+    const unsigned short* bs = as + kGBM * kGLd;
+#pragma unroll
+    for (int kk = 0; kk < kGBK; kk += 16) {
+      unsigned a[2][4], b[8][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const unsigned short* ap = as + (wm + mt * 16 + g) * kGLd + kk + 2 * t;
+        a[mt][0] = *reinterpret_cast<const unsigned*>(ap);
+        a[mt][1] = *reinterpret_cast<const unsigned*>(ap + 8 * kGLd);
+        a[mt][2] = *reinterpret_cast<const unsigned*>(ap + 8);
+        a[mt][3] = *reinterpret_cast<const unsigned*>(ap + 8 * kGLd + 8);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const unsigned short* bp = bs + (wn + nt * 8 + g) * kGLd + kk + 2 * t;
+        b[nt][0] = *reinterpret_cast<const unsigned*>(bp);
+        b[nt][1] = *reinterpret_cast<const unsigned*>(bp + 8);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt]);
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  const size_t chunk_slot0 = static_cast<size_t>(p0) * st.s * st.nsample;
+  const int per_patch = st.s * st.nsample;
+  const float* x = l > 0 ? st.act + st.act_off[l] : nullptr;
+  const float* mul = l > 0 ? st.mul[l - 1] : nullptr;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + wm + mt * 16 + g + 8 * h;
+      if (r >= rows) continue;
+      const float* xr = nullptr;
+      if (l > 0) {
+        const int pt = st.sel[chunk_slot0 + r];
+        xr = x + (static_cast<size_t>(p0 + r / per_patch) * st.n + pt) * st.ld[l];
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int n = n0 + wn + nt * 8 + 2 * t + i;
+          if (n >= ldo) continue;
+          float v = acc[mt][nt][2 * h + i];
+          const size_t o = static_cast<size_t>(r) * ldo + n;
+          if (l > 0) {
+            v = n < cin && __ldg(xr + n) > 0.0f ? v : 0.0f;
+            Aout[o] = bf16_bits(n < cin ? v * __ldg(mul + n) : 0.0f);
+          }
+          D[o] = v;
+        }
+    }
+}
+
+// Per (patch of the chunk, chunk of 32 columns): the per-slot rows of D
+// summed per point, slots in order, into the point's row: kGroups groups of
+// 32 threads each take a contiguous range of the patch's slots into their
+// own copy in shared memory, the copies then added in group order (a fixed
+// order: two launches give the same bits). l > 0: into da_{l-1} (row p * n
+// + point, stride ld[l], zeros from width[l] to ld[l]); l = 0: into dfeat
+// and dxyz.
+__host__ __device__ inline int regroup_groups(int n) {
+  int g = static_cast<int>(kSmemLimit / (static_cast<size_t>(n) * 32 * sizeof(float)));
+  return g > kWarps ? kWarps : g;
+}
+
+__global__ void __launch_bounds__(kThreads)
+regroup_kernel(const __grid_constant__ Bwd st, int l, int p0, const float* __restrict__ D) {
+  extern __shared__ __align__(16) float rsm[];
+  const int cin = st.width[l], ldo = (cin + 15) & ~15, n = st.n;
+  const int groups = regroup_groups(n);
+  const int cols = l > 0 ? st.ld[l] : cin;
+  const int chunks = (cols + 31) / 32;
+  const int pl = blockIdx.x / chunks, c0 = (blockIdx.x % chunks) * 32;
+  const int per_patch = st.s * st.nsample;
+  const int* sel = st.sel + (static_cast<size_t>(p0) + pl) * per_patch;
+  const float* d = D + static_cast<size_t>(pl) * per_patch * ldo;
+  for (int e = threadIdx.x; e < groups * n * 32; e += blockDim.x) rsm[e] = 0.0f;
+  __syncthreads();
+  const int gi = threadIdx.x / 32, c = threadIdx.x % 32, col = c0 + c;
+  if (gi < groups && col < cin) {
+    const int span = (per_patch + groups - 1) / groups;
+    const int r1 = min(per_patch, (gi + 1) * span);
+    float* acc = rsm + static_cast<size_t>(gi) * n * 32 + c;
+    int r = gi * span;
+    for (; r + 8 <= r1; r += 8) {
+      int j[8];
+      float v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) j[i] = __ldg(sel + r + i);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = __ldg(d + static_cast<size_t>(r + i) * ldo + col);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[j[i] * 32] += v[i];
+    }
+    for (; r < r1; ++r) acc[__ldg(sel + r) * 32] += __ldg(d + static_cast<size_t>(r) * ldo + col);
+  }
+  __syncthreads();
+  const size_t prow = static_cast<size_t>(p0 + pl) * n;
+  for (int e = threadIdx.x; e < n * 32; e += blockDim.x) {
+    const int j = e / 32, cc = e % 32, k = c0 + cc;
+    if (k >= cols) continue;
+    float v = 0.0f;
+    for (int q = 0; q < groups; ++q) v += rsm[static_cast<size_t>(q) * n * 32 + e];
+    if (l > 0) {
+      st.da[st.t_off[l - 1] + (prow + j) * st.ld[l] + k] = k < cin ? v : 0.0f;
+    } else if (k < st.c) {
+      st.dfeat[(prow + j) * st.c + k] = v;
+    } else {
+      st.dxyz[(prow + j) * 3 + (k - st.c)] = v;
+    }
+  }
+}
+
 // The largest tile of up to kMaxRows rows (a multiple of kTM) whose two
 // buffers of lda + ldb words a row let kMinBlocks blocks share an SM (a block
 // is charged 1 KB more than it asks for); failing that, the largest of which
@@ -418,36 +673,29 @@ size_t part_floats(int rows, int n_layers, const int* widths) {
   return most;
 }
 
-}  // namespace
+// The bf16 instance's buffers (pppf_sa_stage_bwd_bf16_launch).
+struct Bf16Chain {
+  unsigned char* win;      // [p, s, widths[n_layers]]
+  unsigned short* a0;      // [chunk * s * nsample, pad16(max widths[1..])] bf16, twice
+  unsigned short* a1;
+  float* d;                // [chunk * s * nsample, pad16(max widths[0..n_layers-1])]
+  int chunk;               // patches per pass of the chain
+};
 
-// new_xyz [p, s, 3], xyz [p, n, 3], feat [p, n, c] or null (c = 0), gout
-// [p, s, widths[n_layers]], all f32 contiguous. layers: host array of
-// 6 * n_layers device pointers per layer: W [in, out], (W * mul)^T
-// [round4(out), round4(in)] zero-padded, b, mean, mul, beta (16-byte
-// aligned); widths: host
-// array of n_layers + 1 ints, widths[0] = c + 3. Outputs dxyz [p, n, 3],
-// dfeat [p, n, c] (or null), grads (per layer dW, db, dmul, dbeta). Scratch,
-// as pcc_tpu_torch/ops/pppf_sa_cuda.py::_bwd_workspace sizes it: sel (p * s
-// * nsample ints), act (p * n * sum_l round4(widths[l]) floats, l =
-// 0..n_layers), t and da (p * n * sum_l round4(widths[l]) floats each, l =
-// 1..n_layers; both as pppf_sa_common.cuh::act_layout(p * n, ...) lays them
-// out), part (part_n floats: for each layer, splits * (in + 3) * out with
-// tf32_mma.cuh::wgrad_splits(p * n, in, out); the largest). replay: 1 to
-// select and replay the stack into sel, act and t first; 0 where the forward
-// kernel's store mode wrote them. Returns a cudaError_t value.
-extern "C" int pppf_sa_stage_bwd_launch(const float* new_xyz, const float* xyz,
-                                        const float* feat, const float* gout, int p, int s,
-                                        int n, int c, int nsample, float r2, int n_layers,
-                                        const void* const* layers, const int* widths,
-                                        float* dxyz, float* dfeat, float* grads, int* sel,
-                                        float* act, float* t, float* da, float* part,
-                                        long long part_n, int replay, void* stream) {
+int bwd_launch(const float* new_xyz, const float* xyz, const float* feat, const float* gout,
+               int p, int s, int n, int c, int nsample, float r2, int n_layers,
+               const void* const* layers, const int* widths, float* dxyz, float* dfeat,
+               float* grads, int* sel, float* act, float* t, float* da, float* part,
+               long long part_n, int replay, const Bf16Chain* x16, cudaStream_t cs) {
   if (p <= 0 || s <= 0 || n <= 0 || n > kMaxN || nsample <= 0 || n_layers <= 0 ||
       n_layers > kMaxLayers || c < 0 || (c > 0) != (feat != nullptr) ||
       (c > 0) != (dfeat != nullptr) || widths[0] != c + 3)
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(p) * n > 0x7fffffffLL / 2) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const bool bf16 = x16 != nullptr;
+  if (bf16 && (nsample > kMaxSlots || x16->chunk <= 0 || x16->win == nullptr ||
+               x16->a0 == nullptr || x16->a1 == nullptr || x16->d == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   Bwd st;
   st.new_xyz = new_xyz;
   st.xyz = xyz;
@@ -459,6 +707,7 @@ extern "C" int pppf_sa_stage_bwd_launch(const float* new_xyz, const float* xyz,
   st.act = act;
   st.t = t;
   st.da = da;
+  st.win = bf16 ? x16->win : nullptr;
   st.p = p;
   st.s = s;
   st.n = n;
@@ -514,9 +763,11 @@ extern "C" int pppf_sa_stage_bwd_launch(const float* new_xyz, const float* xyz,
       static_cast<size_t>(st.qb) * (4 + select_words(n, nsample)) * sizeof(float);
   const size_t fwd_bytes = static_cast<size_t>(st.rows) * (st.lda + st.ldb) * sizeof(float);
   const size_t rt_bytes = route_bytes(n, s, staged_ns, st.ch);
-  auto route = staged_ns ? route_kernel<true> : route_kernel<false>;
+  auto route = bf16 ? (staged_ns ? route_kernel<true, true> : route_kernel<false, true>)
+                    : (staged_ns ? route_kernel<true, false> : route_kernel<false, false>);
+  auto forward = bf16 ? forward_kernel<true> : forward_kernel<false>;
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if ((err = cudaFuncSetAttribute(forward, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(fwd_bytes))) != cudaSuccess ||
       (err = cudaFuncSetAttribute(dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(kXSmemBytes))) != cudaSuccess ||
@@ -529,11 +780,46 @@ extern "C" int pppf_sa_stage_bwd_launch(const float* new_xyz, const float* xyz,
   if (replay) {
     const long long qblocks = (s + st.qb - 1) / st.qb;
     select_kernel<<<static_cast<unsigned>(p * qblocks), kThreads, sel_bytes, cs>>>(st);
-    forward_kernel<<<static_cast<unsigned>((total + st.rows - 1) / st.rows), kThreads,
-                     fwd_bytes, cs>>>(st);
+    forward<<<static_cast<unsigned>((total + st.rows - 1) / st.rows), kThreads, fwd_bytes,
+              cs>>>(st);
   }
   route<<<static_cast<unsigned>(p * ((cout + st.ch - 1) / st.ch)), kThreads, rt_bytes, cs>>>(st);
-  for (int l = n_layers - 1; l >= 0; --l) {
+  if (bf16) {
+    // the per-slot chain, a chunk of patches at a time
+    const size_t rg_bytes = static_cast<size_t>(regroup_groups(n)) * n * 32 * sizeof(float);
+    if (regroup_groups(n) < 1 ||
+        (err = cudaFuncSetAttribute(chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(kGSmemBytes))) != cudaSuccess ||
+        (err = cudaFuncSetAttribute(regroup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(rg_bytes))) != cudaSuccess)
+      return static_cast<int>(regroup_groups(n) < 1 ? cudaErrorInvalidValue : err);
+    for (int p0 = 0; p0 < p; p0 += x16->chunk) {
+      const int pc = min(x16->chunk, p - p0);
+      const int rows = pc * s * nsample;
+      const int lda_top = (cout + 15) & ~15;
+      const long long top = static_cast<long long>(rows) * lda_top;
+      top_kernel<<<static_cast<unsigned>((top + 255) / 256), 256, 0, cs>>>(st, p0, rows, lda_top,
+                                                                           x16->a0);
+      unsigned short* a = x16->a0;
+      unsigned short* aout = x16->a1;
+      for (int l = n_layers - 1; l >= 0; --l) {
+        const int lda = (widths[l + 1] + 15) & ~15, ldo = (widths[l] + 15) & ~15;
+        const long long blocks =
+            static_cast<long long>((ldo + kGBN - 1) / kGBN) * ((rows + kGBM - 1) / kGBM);
+        chain_kernel<<<static_cast<unsigned>(blocks), kThreads, kGSmemBytes, cs>>>(
+            st, l, p0, rows, a, lda, static_cast<const unsigned short*>(layers[6 * l + 1]),
+            x16->d, aout);
+        const int cols = l > 0 ? st.ld[l] : widths[l];
+        regroup_kernel<<<static_cast<unsigned>(pc * ((cols + 31) / 32)), kThreads, rg_bytes,
+                         cs>>>(st, l, p0, x16->d);
+        unsigned short* tmp = a;
+        a = aout;
+        aout = tmp;
+      }
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  for (int l = n_layers - 1; l >= 0 && !bf16; --l) {
     const int ci = widths[l], ldi = st.ld[l];
     const size_t blocks = ((ldi + kXBN - 1) / kXBN) * ((total + kXBM - 1) / kXBM);
     dx_kernel<<<static_cast<unsigned>(blocks), kWThreads, kXSmemBytes, cs>>>(
@@ -563,4 +849,53 @@ extern "C" int pppf_sa_stage_bwd_launch(const float* new_xyz, const float* xyz,
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// new_xyz [p, s, 3], xyz [p, n, 3], feat [p, n, c] or null (c = 0), gout
+// [p, s, widths[n_layers]], all f32 contiguous. layers: host array of
+// 6 * n_layers device pointers per layer: W [in, out], (W * mul)^T
+// [round4(out), round4(in)] zero-padded, b, mean, mul, beta (16-byte
+// aligned); widths: host
+// array of n_layers + 1 ints, widths[0] = c + 3. Outputs dxyz [p, n, 3],
+// dfeat [p, n, c] (or null), grads (per layer dW, db, dmul, dbeta). Scratch,
+// as pcc_tpu_torch/ops/pppf_sa_cuda.py::_bwd_workspace sizes it: sel (p * s
+// * nsample ints), act (p * n * sum_l round4(widths[l]) floats, l =
+// 0..n_layers), t and da (p * n * sum_l round4(widths[l]) floats each, l =
+// 1..n_layers; both as pppf_sa_common.cuh::act_layout(p * n, ...) lays them
+// out), part (part_n floats: for each layer, splits * (in + 3) * out with
+// tf32_mma.cuh::wgrad_splits(p * n, in, out); the largest). replay: 1 to
+// select and replay the stack into sel, act and t first; 0 where the forward
+// kernel's store mode wrote them. Returns a cudaError_t value.
+extern "C" int pppf_sa_stage_bwd_launch(const float* new_xyz, const float* xyz,
+                                        const float* feat, const float* gout, int p, int s,
+                                        int n, int c, int nsample, float r2, int n_layers,
+                                        const void* const* layers, const int* widths,
+                                        float* dxyz, float* dfeat, float* grads, int* sel,
+                                        float* act, float* t, float* da, float* part,
+                                        long long part_n, int replay, void* stream) {
+  return bwd_launch(new_xyz, xyz, feat, gout, p, s, n, c, nsample, r2, n_layers, layers, widths,
+                    dxyz, dfeat, grads, sel, act, t, da, part, part_n, replay, nullptr,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 instance: the arguments of pppf_sa_stage_bwd_launch, the second
+// pointer of each layer being bf16(W) [pad16(in)][pad16(out)] zero-padded (in
+// place of (W * mul)^T), W bf16-exact, and where replay is 0, sel, act and t
+// from the bf16 store mode (pppf_sa_stage_bf16_save_launch); then the
+// chain's buffers: win (p * s * widths[n_layers] bytes), a0 and a1 (chunk *
+// s * nsample * pad16(max widths[1..n_layers]) bf16 each), d (chunk * s *
+// nsample * pad16(max widths[0..n_layers-1]) floats) and chunk, the patches
+// per pass. nsample <= 254. Returns a cudaError_t value.
+extern "C" int pppf_sa_stage_bwd_bf16_launch(
+    const float* new_xyz, const float* xyz, const float* feat, const float* gout, int p, int s,
+    int n, int c, int nsample, float r2, int n_layers, const void* const* layers,
+    const int* widths, float* dxyz, float* dfeat, float* grads, int* sel, float* act, float* t,
+    float* da, float* part, long long part_n, int replay, unsigned char* win,
+    unsigned short* a0, unsigned short* a1, float* d, int chunk, void* stream) {
+  const Bf16Chain x16{win, a0, a1, d, chunk};
+  return bwd_launch(new_xyz, xyz, feat, gout, p, s, n, c, nsample, r2, n_layers, layers, widths,
+                    dxyz, dfeat, grads, sel, act, t, da, part, part_n, replay, &x16,
+                    static_cast<cudaStream_t>(stream));
 }

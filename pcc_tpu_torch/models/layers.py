@@ -20,7 +20,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from pcc_tpu_torch.ops.bf16 import flax_dense, sigmoid_spread_bf16
+from pcc_tpu_torch.ops.bf16 import flax_dense, grad_round, round_bf16, sigmoid_spread_bf16
 from pcc_tpu_torch.ops.knn import knn_points
 from pcc_tpu_torch.ops.sa_cuda import sa_fused
 from pcc_tpu_torch.parallel.mesh import global_mean, is_distributed
@@ -125,7 +125,7 @@ BN_MOMENTUM = 0.99   # flax.linen.BatchNorm's defaults, which pcc_tpu's PN++ sta
 BN_EPS = 1e-5
 
 
-def batch_norm_train(h: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+def batch_norm_train(h: torch.Tensor, bn: nn.BatchNorm2d, bf16: bool = False) -> torch.Tensor:
     """BatchNorm of h [..., C] with its batch statistics, as
     flax.linen.BatchNorm computes it in training (pcc_tpu's PN++ stages,
     BN_MOMENTUM and BN_EPS): the mean and the fast
@@ -137,7 +137,18 @@ def batch_norm_train(h: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     (parallel/mesh.py) the batch is the global one, as under pcc_tpu's SPMD
     partitioner: both means are averaged over the ranks, whose shards are
     equal in size, with the gradient flowing through the collective (not
-    nn.SyncBatchNorm, which is torch's BatchNorm)."""
+    nn.SyncBatchNorm, which is torch's BatchNorm).
+
+    bf16: flax's BatchNorm(dtype=bfloat16) on a bf16 h: the same float32
+    arithmetic on h promoted to float32 (force_float32_reductions), the
+    output rounded once to bf16; the running statistics float32. Its
+    gradient rounds where XLA's does (ops/bf16.py): h's two uses, the
+    statistics and the centring, each pass a cotangent rounded to bf16,
+    and their sum is rounded again."""
+    hc = h
+    if bf16:
+        h = grad_round(h)
+        h, hc = grad_round(h), grad_round(h)
     dims = tuple(range(h.dim() - 1))
     mean, sq = h.mean(dim=dims), (h * h).mean(dim=dims)
     if is_distributed():
@@ -148,7 +159,8 @@ def batch_norm_train(h: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
         bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
-    return (h - mean) * (torch.rsqrt(var + BN_EPS) * bn.weight) + bn.bias
+    y = (hc - mean) * (torch.rsqrt(var + BN_EPS) * bn.weight) + bn.bias
+    return round_bf16(y) if bf16 else y
 
 
 def ste_round(x: torch.Tensor) -> torch.Tensor:

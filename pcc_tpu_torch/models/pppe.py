@@ -28,6 +28,21 @@ sa1's branches, sa2, sa3 and global_conv's BatchNorm over the B clouds,
 runs as plain products on batch statistics (layers.batch_norm_train,
 flax's), as pcc_tpu's `fused and not train` gate leaves them; the
 stages' FPS still runs on the FPS kernel (ops/fps.py).
+
+compute_dtype "bfloat16" (pcc_tpu's PointCloudAE(dtype=bfloat16), which
+its PPPE trainer builds under --bf16, parameters float32) trains on flax's
+bf16 rules (ops/bf16.py): every stage layer flax's bf16 Dense, its result
+going unrounded into flax's bf16 BatchNorm on batch statistics, relu, the
+max over the K with jnp.max's gradient (max_bf16), the bf16 features
+gathered with a bf16 scatter-add as their transpose (gather_bf16); the
+global max, global_conv (its bias-free Dense and BatchNorm) and gc1, whose
+result and the global feature are cast to float32
+(pcc_tpu/models/pppe.py:179-181); the quantizer float32; PCNDecoderSmall
+on flax's Dense, its two outputs cast to float32 (pppe.py:199-204; the
+coarse cloud's after a reshape, which keeps its bf16 rounding). The
+probability model takes no dtype in pcc_tpu and stays float32. The bf16
+eval mode (sa2 / sa3 on the stage kernel's bf16 "pppe" layout) is the next
+slice and raises.
 """
 
 from __future__ import annotations
@@ -38,7 +53,8 @@ import torch
 from torch import nn
 
 from pcc_tpu_torch.config import PPPEConfig
-from pcc_tpu_torch.models.layers import PointConv, batch_norm_train, torch_dense_init_
+from pcc_tpu_torch.models.layers import PointConv, batch_norm_train, dense, torch_dense_init_
+from pcc_tpu_torch.ops.bf16 import check_compute_dtype, gather_bf16, max_bf16
 from pcc_tpu_torch.ops.fps import fps_batch
 from pcc_tpu_torch.ops.knn import knn_gather, knn_points
 from pcc_tpu_torch.ops.pppf_sa_cuda import fold_bn, pppf_sa_fused
@@ -95,9 +111,9 @@ class PointNetSetAbstractionKNN(nn.Module):
     stack -> max over the K. [B, N, 3] xyz (+ [B, N, C] features) ->
     ([B, npoint, 3], [B, npoint, mlp[-1]])."""
 
-    def __init__(self, npoint: int, K: int, cin: int, mlp: Sequence[int]):
+    def __init__(self, npoint: int, K: int, cin: int, mlp: Sequence[int], bf16: bool = False):
         super().__init__()
-        self.npoint, self.K = npoint, K
+        self.npoint, self.K, self.bf16 = npoint, K, bf16
         self.mlp_stack = conv_bn_relu(cin, mlp)
 
     def layers(self):
@@ -105,15 +121,25 @@ class PointNetSetAbstractionKNN(nn.Module):
         return [(m[0].kernel(), m[0].bias, *fold_bn(m[1])) for m in self.mlp_stack]
 
     def stack(self, x: torch.Tensor) -> torch.Tensor:
+        """The Conv + BatchNorm + ReLU stack and the max over the K (dim 2)."""
+        if self.bf16:
+            for m in self.mlp_stack:
+                h = dense(m[0], x, True, to_float32=True)
+                x = torch.relu(batch_norm_train(h, m[1], bf16=True))
+            return max_bf16(x, 2)
         for m in self.mlp_stack:
             x = torch.relu(bn(m[0](x), self, m[1]))
-        return x
+        return x.amax(dim=2)
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor | None = None,
                 precomputed=None):
         """precomputed: (new_xyz, knn_idx, grouped_xyz) at K' >= self.K from
         a sibling branch sharing its centroids (the MSG stage): the leading K
         slots of a sorted larger selection are this branch's own."""
+        if self.bf16 and not self.training:
+            raise NotImplementedError("PPPE's bf16 eval mode (sa2 / sa3 on the stage kernel's "
+                                      "bf16 \"pppe\" layout) is not ported yet: the next "
+                                      "slice; bf16 trains, and serving is float32")
         if precomputed is None:
             new_xyz = centroids(xyz, self.npoint)
             if not self.training:
@@ -126,8 +152,9 @@ class PointNetSetAbstractionKNN(nn.Module):
             new_xyz, knn_idx, grouped_xyz = precomputed
         grouped = grouped_xyz[:, :, :self.K] - new_xyz[:, :, None, :]
         if features is not None:
-            grouped = torch.cat([grouped, knn_gather(features, knn_idx[..., :self.K])], dim=-1)
-        return new_xyz, self.stack(grouped).amax(dim=2)
+            gather = gather_bf16 if self.bf16 else knn_gather
+            grouped = torch.cat([grouped, gather(features, knn_idx[..., :self.K])], dim=-1)
+        return new_xyz, self.stack(grouped)
 
 
 def centroids(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -145,11 +172,11 @@ class PointNetSetAbstractionMSG(nn.Module):
     concatenated (pppe_pcd_ae.py:617-632). One FPS and one top-Kmax
     selection serve every branch (pcc_tpu/models/pppe.py:109)."""
 
-    def __init__(self, npoint: int, scales: Sequence[dict], cin: int = 3):
+    def __init__(self, npoint: int, scales: Sequence[dict], cin: int = 3, bf16: bool = False):
         super().__init__()
         self.npoint = npoint
         self.branches = nn.ModuleList(
-            [PointNetSetAbstractionKNN(npoint, sc["K"], cin, sc["mlp"]) for sc in scales])
+            [PointNetSetAbstractionKNN(npoint, sc["K"], cin, sc["mlp"], bf16) for sc in scales])
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor | None = None):
         new_xyz = centroids(xyz, self.npoint)
@@ -165,13 +192,14 @@ class PointNet2EncoderFull(nn.Module):
     [B, 512]) (pppe_pcd_ae.py:637-686): MSG(512; K16 / K32) -> SS(128, K32)
     -> SS(32, K32), max over points, global_conv."""
 
-    def __init__(self, latent_dim: int = 256):
+    def __init__(self, latent_dim: int = 256, bf16: bool = False):
         super().__init__()
+        self.bf16 = bf16
         self.sa_modules = nn.ModuleList([
             PointNetSetAbstractionMSG(512, ({"K": 16, "mlp": (32, 32, 64)},
-                                            {"K": 32, "mlp": (64, 64, 128)})),
-            PointNetSetAbstractionKNN(128, 32, 3 + 64 + 128, (128, 128, 256)),
-            PointNetSetAbstractionKNN(32, 32, 3 + 256, (256, 256, 512)),
+                                            {"K": 32, "mlp": (64, 64, 128)}), bf16=bf16),
+            PointNetSetAbstractionKNN(128, 32, 3 + 64 + 128, (128, 128, 256), bf16),
+            PointNetSetAbstractionKNN(32, 32, 3 + 256, (256, 256, 512), bf16),
         ])
         self.global_conv = nn.Sequential(
             PointConv(512, 512, conv_dims=1, bias=False), nn.BatchNorm1d(512), nn.ReLU(),
@@ -181,6 +209,11 @@ class PointNet2EncoderFull(nn.Module):
         xyz, feat = x, None
         for sa in self.sa_modules:
             xyz, feat = sa(xyz, feat)
+        if self.bf16:
+            global_feat = max_bf16(feat, 1)                     # [B, 512]
+            h = dense(self.global_conv[0], global_feat, True, to_float32=True)
+            h = torch.relu(batch_norm_train(h, self.global_conv[1], bf16=True))
+            return dense(self.global_conv[3], h, True, to_float32=True), global_feat
         global_feat = feat.amax(dim=1)                          # [B, 512]
         h = torch.relu(bn(self.global_conv[0](global_feat), self, self.global_conv[1]))
         return self.global_conv[3](h), global_feat
@@ -191,9 +224,9 @@ class PCNDecoderSmall(nn.Module):
     (pppe_pcd_ae.py:691-714)."""
 
     def __init__(self, latent_dim: int = 256, coarse_points: int = 512,
-                 final_points: int = 8192):
+                 final_points: int = 8192, bf16: bool = False):
         super().__init__()
-        self.coarse_points, self.final_points = coarse_points, final_points
+        self.coarse_points, self.final_points, self.bf16 = coarse_points, final_points, bf16
         self.fc_coarse = nn.Sequential(nn.Linear(latent_dim, 512), nn.ReLU(),
                                        nn.Linear(512, coarse_points * 3))
         self.expansion_mlp = nn.Sequential(
@@ -202,8 +235,18 @@ class PCNDecoderSmall(nn.Module):
 
     def forward(self, latent: torch.Tensor):
         B = latent.shape[0]
-        coarse = self.fc_coarse(latent)
-        fine = self.expansion_mlp(torch.cat([coarse, latent], dim=1))
+        if self.bf16:
+            # flax's bf16 Dense; the float32 latent goes straight into fc0 (its
+            # cotangent float32), the float32 concat into exp0; fc1's result
+            # is reshaped before its cast to float32, and stays rounded
+            fc, ex = self.fc_coarse, self.expansion_mlp
+            h = torch.relu(dense(fc[0], latent, True, x_bf16=False))
+            coarse = dense(fc[2], h, True)
+            h = torch.relu(dense(ex[0], torch.cat([coarse, latent], dim=1), True))
+            fine = dense(ex[2], h, True, to_float32=True)
+        else:
+            coarse = self.fc_coarse(latent)
+            fine = self.expansion_mlp(torch.cat([coarse, latent], dim=1))
         return coarse.reshape(B, self.coarse_points, 3), fine.reshape(B, self.final_points, 3)
 
 
@@ -245,11 +288,13 @@ class PointCloudAE(nn.Module):
     tiled per point -> quantize_st -> dequantize -> mean over points ->
     decoder. forward returns (coarse, fine, cond_feats, y_q)."""
 
-    def __init__(self, latent_dim: int = 64, latent_bins: int = 16, npoints: int = 8192):
+    def __init__(self, latent_dim: int = 64, latent_bins: int = 16, npoints: int = 8192,
+                 compute_dtype: str = "float32"):
         super().__init__()
         self.latent_dim, self.latent_bins, self.npoints = latent_dim, latent_bins, npoints
-        self.encoder = PointNet2EncoderFull(latent_dim)
-        self.decoder = PCNDecoderSmall(latent_dim, 512, npoints)
+        self.bf16 = check_compute_dtype(compute_dtype)
+        self.encoder = PointNet2EncoderFull(latent_dim, self.bf16)
+        self.decoder = PCNDecoderSmall(latent_dim, 512, npoints, self.bf16)
         self.prob = PPPEConditionalProbabilityModel(512, 128, latent_bins, latent_dim)
         self.q_min, self.q_max = 0.0, latent_bins - 1.0
 
@@ -294,9 +339,10 @@ def init_pppe_weights(model: PointCloudAE, seed: int) -> PointCloudAE:
 def make_pppe_model(cfg: PPPEConfig, seed: int | None = None,
                     device: str | torch.device = "cpu") -> PointCloudAE:
     """PointCloudAE for `cfg` in eval mode on `device` (pcc_tpu's
-    make_pppe_model: latent_bins = L, npoints = N), with seeded weights
-    when `seed` is given."""
-    model = PointCloudAE(latent_dim=cfg.latent_dim, latent_bins=cfg.L, npoints=cfg.N)
+    make_pppe_model: latent_bins = L, npoints = N, compute_dtype), with
+    seeded weights when `seed` is given."""
+    model = PointCloudAE(latent_dim=cfg.latent_dim, latent_bins=cfg.L, npoints=cfg.N,
+                         compute_dtype=cfg.compute_dtype)
     if seed is not None:
         init_pppe_weights(model, seed)
     return model.to(device).eval()

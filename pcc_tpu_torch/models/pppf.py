@@ -16,15 +16,28 @@ mode:
     updated (pcc_tpu's XLA path with train=True): ball query, gather and
     the stack as plain products (layers.batch_norm_train).
 
-compute_dtype "bfloat16" (pcc_tpu's PPPF_AE(dtype=bfloat16) with its fused
-stages; eval mode only, parameters float32; the modules below it take
-bf16=True): each stage is the stage kernel's bf16 instance on the rounded
-weights it keeps (PointnetSAModule.bf16_layers) and its output bf16
-(pcc_tpu/models/pppf.py:79); the
-global max, sigmoid_spread in bf16 and enc_proj on flax's bf16 rule, then a
-cast to float32; dec_proj and FoldingNet on flax's rule, the grid and the
-tiled latent rounded before mlp1 (pppf.py:131-160), the output float32.
-Training in bf16 is not ported: a module in train mode raises.
+compute_dtype "bfloat16" (pcc_tpu's PPPF_AE(dtype=bfloat16); parameters
+float32; the modules below it take bf16=True). A stage's BatchNorm follows
+the module's mode as in float32:
+  * eval (pcc_tpu's fused stage, and its fused_train stage in training):
+    the stage kernel's bf16 instance, in serving on the rounded weights it
+    keeps (PointnetSAModule.bf16_layers), where a gradient is taken through
+    pppf_sa_trainable(bf16=True) (the bf16 store mode and the bf16 stage
+    backward kernel) on weights rounded per call; the features cast to
+    float32 before the stage and the output back to bf16, so that both
+    cotangents are rounded to bf16 there (pcc_tpu/models/pppf.py:75, 79);
+  * train (pcc_tpu's XLA stage on batch statistics, pppf.py:80-90): the
+    ball query and gather (the bf16 features' transpose a bf16 scatter-add,
+    ops/bf16.py::gather_bf16), each layer flax's bf16 Dense, its result
+    going unrounded into flax's bf16 BatchNorm (layers.batch_norm_train),
+    relu, and the max over samples with jnp.max's gradient (max_bf16).
+Then the global max (max_bf16), sigmoid_spread in bf16 and enc_proj on
+flax's bf16 rule, then a cast to float32; the quantizer float32
+(pppf.py:185-189); dec_proj and FoldingNet on flax's rule, the tiled latent
+a bf16 value whose cotangent sums over its copies in bf16 (tile_bf16), the
+grid and the latent rounded before mlp1 (pppf.py:131-160), the output
+float32. In training every Dense follows flax's gradient rules
+(ops/bf16.py).
 """
 
 from __future__ import annotations
@@ -37,18 +50,18 @@ from torch import nn
 
 from pcc_tpu_torch.models.layers import (PointConv, batch_norm_train, conv_bn_relu_stack, dense,
                                          sigmoid_spread, stack_layers, ste_round, weights_key)
-from pcc_tpu_torch.ops.bf16 import check_compute_dtype, round_bf16
+from pcc_tpu_torch.ops.bf16 import (check_compute_dtype, gather_bf16, grad_round, max_bf16,
+                                    tile_bf16)
 from pcc_tpu_torch.ops.fps import fps_batch
 from pcc_tpu_torch.ops.knn import ball_query, knn_gather
 from pcc_tpu_torch.ops.pppf_sa_cuda import (bf16_layers, fold_bn, pppf_sa_fused,
                                             pppf_sa_trainable)
 
 
-def _no_bf16_training(module: nn.Module) -> None:
-    if module.training and module.bf16:
-        raise NotImplementedError(f"{type(module).__name__}: PPPF-AE's bf16 training is not "
-                                  "ported yet (bf16 serving is; it is the next slice, with "
-                                  "the bf16 instance of the PN++ stage backward kernel)")
+def _needs_grad(module: nn.Module, *tensors) -> bool:
+    """Whether autograd will take a gradient through `module` on `tensors`."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in [*tensors, *module.parameters()])
 
 
 class PointnetSAModule(nn.Module):
@@ -74,7 +87,8 @@ class PointnetSAModule(nn.Module):
     def bf16_layers(self):
         """layers() with each W rounded to bf16, the bf16 stage's operands
         (ops/pppf_sa_cuda.py::bf16_layers), made once per weights and
-        running statistics (serving only: bf16 does not train)."""
+        running statistics, for serving (a trained stage rounds its weights
+        per call, inside pppf_sa_trainable)."""
         key = weights_key([*self.parameters(), *self.buffers()])
         if self._bf16_cache is None or self._bf16_cache[0] != key:
             with torch.no_grad():
@@ -94,22 +108,26 @@ class PointnetSAModule(nn.Module):
         xyz = xyz.contiguous()
         new_xyz = self.queries(xyz)
         feat = None if features is None else features.contiguous()
-        _no_bf16_training(self)
-        if self.bf16:
-            # bf16 values, as pcc_tpu casts the stage's output
-            return new_xyz, pppf_sa_fused(new_xyz, xyz, feat, self.bf16_layers(),
-                                          nsample=self.nsample, radius=self.radius, bf16=True)
+        kw = dict(nsample=self.nsample, radius=self.radius)
+        if self.bf16 and not self.training:
+            if not _needs_grad(self, xyz, feat):
+                return new_xyz, pppf_sa_fused(new_xyz, xyz, feat, self.bf16_layers(), bf16=True,
+                                              **kw)
+            # the casts around pcc_tpu's stage round both cotangents to bf16
+            out = pppf_sa_trainable(new_xyz, xyz, None if feat is None else grad_round(feat),
+                                    self.layers(), bf16=True, **kw)
+            return new_xyz, grad_round(out)
         if not self.training:
-            return new_xyz, pppf_sa_trainable(new_xyz, xyz, feat, self.layers(),
-                                              nsample=self.nsample, radius=self.radius)
+            return new_xyz, pppf_sa_trainable(new_xyz, xyz, feat, self.layers(), **kw)
         # batch statistics: pcc_tpu's XLA stage (pointnet_sa_module.py:74-93)
         idx = ball_query(new_xyz, xyz, self.nsample, self.radius)
         x = knn_gather(xyz, idx)                                # [B, S, ns, 3]
         if feat is not None:
-            x = torch.cat([knn_gather(feat, idx), x], dim=-1)
+            x = torch.cat([(gather_bf16 if self.bf16 else knn_gather)(feat, idx), x], dim=-1)
         for conv, bn in stack_layers(self.mlp):
-            x = torch.relu(batch_norm_train(conv(x), bn))
-        return new_xyz, x.amax(dim=2)
+            h = dense(conv, x, self.bf16, to_float32=True)
+            x = torch.relu(batch_norm_train(h, bn, bf16=self.bf16))
+        return new_xyz, max_bf16(x, 2) if self.bf16 else x.amax(dim=2)
 
 
 class PointNetPP(nn.Module):
@@ -122,6 +140,7 @@ class PointNetPP(nn.Module):
                  sa3_mlp: Sequence[int] = (256, 256, 512), feature_dim: int = 1024,
                  bf16: bool = False):
         super().__init__()
+        self.bf16 = bf16
         self.sa1 = PointnetSAModule(points, 0.2, 32, 3, (3,) + tuple(sa1_mlp), bf16)
         self.sa2 = PointnetSAModule(128, 0.4, 64, sa1_mlp[-1] + 3, tuple(sa2_mlp), bf16)
         self.sa3 = PointnetSAModule(32, 0.8, 128, sa2_mlp[-1] + 3,
@@ -131,7 +150,7 @@ class PointNetPP(nn.Module):
         xyz, feat = self.sa1(xyz)
         xyz, feat = self.sa2(xyz, feat)
         xyz, feat = self.sa3(xyz, feat)
-        return xyz, feat.amax(dim=1)                         # [B, feature_dim]
+        return xyz, max_bf16(feat, 1) if self.bf16 else feat.amax(dim=1)   # [B, feature_dim]
 
 
 def grid_line(d: int) -> np.ndarray:
@@ -175,12 +194,14 @@ class FoldingNet(nn.Module):
         gx, gy = np.meshgrid(line, line, indexing="ij")
         grid = torch.from_numpy(np.stack([gx, gy], axis=-1).reshape(1, n, 2)).to(
             latent.device).expand(B, n, 2)
-        tiled = latent[:, None, :].expand(B, n, latent.shape[-1])    # [B, n, F]
         if not self.bf16:
+            tiled = latent[:, None, :].expand(B, n, latent.shape[-1])    # [B, n, F]
             coarse = self.mlp1(torch.cat([grid, tiled], dim=-1))
             return self.mlp2(torch.cat([coarse, tiled], dim=-1))
-        # flax's bf16 Dense layers on the grid and the latent rounded to bf16
-        x = round_bf16(torch.cat([grid, tiled], dim=-1))
+        # flax's bf16 Dense layers on the grid and the latent (a bf16 value)
+        # rounded to bf16, the latent's cotangent summed over its copies in bf16
+        tiled = tile_bf16(latent, n)
+        x = torch.cat([grid, tiled], dim=-1)
         for mlp in (self.mlp1, self.mlp2):
             for i in range(0, len(mlp), 2):
                 # mlp2's last layer is cast to float32 at once, unrounded
@@ -189,7 +210,7 @@ class FoldingNet(nn.Module):
                 if i + 1 < len(mlp):
                     x = torch.relu(x)
             if mlp is self.mlp1:
-                x = torch.cat([x, round_bf16(tiled)], dim=-1)
+                x = torch.cat([x, tiled], dim=-1)
         return x
 
 
@@ -211,7 +232,6 @@ class PPPF_AE(nn.Module):
     def encode(self, xyz: torch.Tensor) -> torch.Tensor:
         """[B, K, 3] patches -> latent [B, d] in the quantizer's range (in
         bf16 each step rounded as pcc_tpu rounds it, then float32)."""
-        _no_bf16_training(self)
         _, latent = self.encoder(xyz)
         # cast to float32 at once in pcc_tpu (pppf.py:186), unrounded
         return dense(self.enc_proj, sigmoid_spread(latent, self.L, self.bf16), self.bf16,
@@ -219,8 +239,8 @@ class PPPF_AE(nn.Module):
 
     def decode(self, latent_q: torch.Tensor) -> torch.Tensor:
         """[B, d] quantized latent -> [B, d * d, 3] patch points."""
-        _no_bf16_training(self)
-        return self.decoder(dense(self.dec_proj, latent_q, self.bf16))
+        # a float32 latent straight into the Dense: its cotangent stays float32
+        return self.decoder(dense(self.dec_proj, latent_q, self.bf16, x_bf16=False))
 
     def forward(self, xyz: torch.Tensor):
         """Training pass (PPPF_AE.py:139-150): [B, K, 3] patches ->
@@ -236,7 +256,10 @@ class PPPFConditionalProbabilityModel(nn.Module):
     [B, S, 3] -> [B, S, d, L]. The codec codes with its integer twin
     (coding/iprob_pppf.py); this float model holds the weights that twin is
     converted from. BatchNorm stays in the backbone, as in the reference
-    (its bn=False flag never reaches PointnetSAModule)."""
+    (its bn=False flag never reaches PointnetSAModule). It takes no
+    compute_dtype: no pcc_tpu path trains or runs it in bf16 while the
+    codec's CDFs come from its integer twin (its PPPF_AE trainer builds it,
+    like the autoencoder, in float32, train/steps_pppf.py:50-54)."""
 
     def __init__(self, d: int = 16, L: int = 7):
         super().__init__()

@@ -35,6 +35,21 @@ against jax.grad of flax's Dense(dtype=bfloat16) on XLA's CPU backend,
     Dense, the decoder's fold and tiled latent, keeps it.)
 Every gradient of these rules is XLA's bit for bit up to the order of a
 float32 sum (tests/test_torch_port_train_bf16.py).
+
+The PN++ families' bf16 training (PPPF-AE's encoder and PPPE's stages on
+batch statistics) adds three rules, read off jax.grad of bare flax modules
+and jnp ops in jitted programs on XLA's CPU backend:
+  * a max over an axis of bf16 values (`max_bf16`: jnp.max's gradient,
+    JAX's reduce-chooser rule): the cotangent split equally among the
+    elements that reach the maximum, round(round(g) / count), each tie
+    getting that share (ties are common in bf16);
+  * the gather of bf16 rows by index (`gather_bf16`: index_points /
+    knn_gather): its transpose is a bf16 scatter-add, which XLA runs
+    update by update in the index array's order, each add rounded to bf16;
+  * BatchNorm(dtype=bfloat16) in training (models/layers.py::
+    batch_norm_train(..., bf16=True)): the input enters twice, promoted
+    to float32 for the statistics and for the centring; each promotion's
+    transpose rounds its cotangent to bf16, and the two add in bf16.
 """
 
 from __future__ import annotations
@@ -83,61 +98,77 @@ class _GradRound(torch.autograd.Function):
 
 
 XLA_WINDOW = 32   # the window XLA's CPU backend cuts a long reduction into
-_REDUCE_ARGTYPES = [cuda_lib.PTR, cuda_lib.PTR] + [cuda_lib.INT] * 9 + [cuda_lib.PTR]
+GRID_DIMS = 3     # reduced dimensions a grid of rows may have
+_REDUCE_ARGTYPES = [cuda_lib.PTR, cuda_lib.PTR] + [cuda_lib.INT] * 13 + [cuda_lib.PTR]
 
 
-def _reduce_level(A: int, K: int) -> tuple:
-    """One level of XLA's bf16 reduction of an [A, K] grid of rows: (wa, wk,
-    pa, pk, A2, K2), windows of wa x wk rows (a dimension of at most
-    XLA_WINDOW rows whole, else windows of XLA_WINDOW), pa / pk zero rows
-    padded before each dimension (the odd one after), A2 x K2 windows. A
-    grid of at most XLA_WINDOW x XLA_WINDOW is one window."""
-    wa = A if A <= XLA_WINDOW else XLA_WINDOW
-    wk = K if K <= XLA_WINDOW else XLA_WINDOW
-    A2, K2 = -(-A // wa), -(-K // wk)
-    return wa, wk, (A2 * wa - A) // 2, (K2 * wk - K) // 2, A2, K2
+def _reduce_level(dims) -> tuple:
+    """One level of XLA's bf16 reduction of a grid of rows `dims` (each a
+    reduced dimension): per dimension (w, p, n), windows of w rows (a
+    dimension of at most XLA_WINDOW rows whole, else windows of
+    XLA_WINDOW), p zero rows padded before it (the odd one after), n
+    windows. A grid whose every dimension is at most XLA_WINDOW is one
+    window."""
+    out = []
+    for d in dims:
+        w = d if d <= XLA_WINDOW else XLA_WINDOW
+        n = -(-d // w)
+        out.append((w, (n * w - d) // 2, n))
+    return tuple(out)
 
 
 def bf16_reduce_plain(g: torch.Tensor) -> torch.Tensor:
-    """g [A, K, C] bf16 values -> [C]: the sum over the [A, K] grid of rows
-    as XLA's CPU backend reduces a bf16 array (the order that the tests
-    hold pcc_tpu's step to; measured on XLA's HLO): each window of
+    """g [d1, ..., dk, C] bf16 values -> [C]: the sum over the grid of rows
+    [d1, ..., dk] as XLA's CPU backend reduces a bf16 array (the order that
+    the tests hold pcc_tpu's step to; measured on XLA's HLO): each window of
     `_reduce_level` summed in row-major order from 0, every add in float32
     rounded to bf16, the windows' sums reduced the same way, level after
     level, down to one row. csrc/bf16_reduce.cu computes each level."""
-    while g.shape[0] * g.shape[1] > 1:
-        A, K, C = g.shape
-        wa, wk, pa, pk, A2, K2 = _reduce_level(A, K)
-        g = torch.nn.functional.pad(g, (0, 0, pk, K2 * wk - K - pk, pa, A2 * wa - A - pa))
-        g = g.reshape(A2, wa, K2, wk, C).permute(0, 2, 1, 3, 4).reshape(A2, K2, wa * wk, C)
-        acc = g.new_zeros((A2, K2, C))
-        for i in range(wa * wk):
-            acc = round_bf16(acc + g[:, :, i])
+    while g[..., 0].numel() > 1:
+        dims, C = g.shape[:-1], g.shape[-1]
+        lev = _reduce_level(dims)
+        pad = []
+        for d, (w, p, n) in reversed(list(zip(dims, lev))):
+            pad += [p, n * w - d - p]
+        g = torch.nn.functional.pad(g, [0, 0] + pad)
+        g = g.reshape(*[x for w, p, n in lev for x in (n, w)], C)
+        k = len(dims)
+        g = g.permute(*range(0, 2 * k, 2), *range(1, 2 * k, 2), 2 * k)
+        g = g.reshape(*[n for w, p, n in lev], -1, C)
+        acc = g.new_zeros(g.shape[:-2] + (C,))
+        for i in range(g.shape[-2]):
+            acc = round_bf16(acc + g[..., i, :])
         g = acc
     return g.reshape(-1)
 
 
 def bf16_reduce(g: torch.Tensor) -> torch.Tensor:
-    """bf16_reduce_plain: the CUDA kernel csrc/bf16_reduce.cu (one launch a
-    level, launch counter "bf16_reduce") on a CUDA tensor, the plain version
-    on a CPU tensor."""
+    """bf16_reduce_plain of g [..., C] (at most GRID_DIMS reduced
+    dimensions): the CUDA kernel csrc/bf16_reduce.cu (one launch a level,
+    launch counter "bf16_reduce") on a CUDA tensor, the plain version on a
+    CPU tensor."""
     if g.device.type == "cpu":
         return bf16_reduce_plain(g)
-    cuda_lib.require_cuda("bf16_reduce", g, torch.float32, 3)
-    while g.shape[0] * g.shape[1] > 1:
-        A, K, C = g.shape
-        wa, wk, pa, pk, A2, K2 = _reduce_level(A, K)
-        out = torch.empty((A2, K2, C), dtype=torch.float32, device=g.device)
-        cuda_lib.launch("bf16_reduce", _REDUCE_ARGTYPES, g.data_ptr(), out.data_ptr(), A, K, C,
-                        wa, wk, pa, pk, A2, K2, cuda_lib.stream_ptr(g))
+    if not 2 <= g.dim() <= GRID_DIMS + 1:
+        raise ValueError(f"bf16_reduce: {g.dim() - 1} reduced dimensions (at most {GRID_DIMS})")
+    g = g.reshape((1,) * (GRID_DIMS + 1 - g.dim()) + tuple(g.shape))
+    cuda_lib.require_cuda("bf16_reduce", g, torch.float32, GRID_DIMS + 1)
+    while g[..., 0].numel() > 1:
+        dims, C = g.shape[:-1], g.shape[-1]
+        lev = _reduce_level(dims)
+        out = torch.empty([n for w, p, n in lev] + [C], dtype=torch.float32, device=g.device)
+        cuda_lib.launch("bf16_reduce", _REDUCE_ARGTYPES, g.data_ptr(), out.data_ptr(), *dims, C,
+                        *[w for w, p, n in lev], *[p for w, p, n in lev],
+                        *[n for w, p, n in lev], cuda_lib.stream_ptr(g))
         g = out
     return g.reshape(-1)
 
 
+
 def _grid(g: torch.Tensor) -> torch.Tensor:
-    """A cotangent [rows, C] or [A, K, C] as the [A, K, C] grid of rows that
-    its bias gradient reduces ([rows, C] as the grid [1, rows])."""
-    if g.dim() not in (2, 3):
+    """A cotangent [..., C] as the grid of rows that its bias gradient
+    reduces ([rows, C] as the grid [1, rows])."""
+    if not 2 <= g.dim() <= GRID_DIMS + 1:
         raise ValueError(f"bf16 bias gradient of a {g.dim()}-d output")
     return (g.reshape(1, *g.shape) if g.dim() == 2 else g).contiguous()
 
@@ -202,7 +233,7 @@ def kernel_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
     return round_bf16(torch.relu(h) if relu else h)
 
 
-def flax_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+def flax_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
                round_out: bool = True, x_bf16: bool = True) -> torch.Tensor:
     """flax.linen.Dense(dtype=bfloat16) on float32 parameters: x, w and b
     rounded to bf16, the product rounded to bf16, then the bias added in
@@ -211,10 +242,36 @@ def flax_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     jitted program), where XLA keeps the excess precision of the bias add
     and never rounds it: the sum of the two bf16 values in float32.
     Differentiable with the module docstring's rules; x_bf16=False: x is a
-    float32 value, whose cotangent stays float32."""
+    float32 value, whose cotangent stays float32. b None: a Dense without
+    bias, its rounded product."""
     xr = round_bf16(x) if x_bf16 else round_keep_grad(x)
-    y = _BiasAddBf16.apply(round_bf16(xr @ round_bf16(w)), b)
+    y = round_bf16(xr @ round_bf16(w))
+    if b is not None:
+        y = _BiasAddBf16.apply(y, b)
     return round_bf16(y) if round_out else grad_round(y)
+
+
+class _SigmoidSpreadBf16(torch.autograd.Function):
+    """sigmoid_spread_bf16's forward, with XLA's bf16 gradient: the
+    cotangent g (a bf16 value) times the rounded spread constant, rounded,
+    times jax.nn.sigmoid's derivative s * (1 - s) taken in bf16 (JAX's
+    logistic rule: 1 - s rounded, times s rounded), rounded."""
+
+    @staticmethod
+    def forward(ctx, latent, L):
+        spread = L - 0.2
+        c_mul = round_bf16(torch.tensor(spread, dtype=torch.float32)).to(latent.device)
+        c_sub = round_bf16(torch.tensor(spread / 2, dtype=torch.float32)).to(latent.device)
+        x = round_bf16(latent)
+        s = round_bf16(1.0 / round_bf16(1.0 + round_bf16(torch.exp(-x))))
+        ctx.save_for_backward(s, c_mul)
+        return round_bf16(round_bf16(s * c_mul) - c_sub)
+
+    @staticmethod
+    def backward(ctx, g):
+        s, c_mul = ctx.saved_tensors
+        gs = round_bf16(round_bf16(g) * c_mul)
+        return round_bf16(gs * round_bf16(s * round_bf16(1.0 - s))), None
 
 
 def sigmoid_spread_bf16(latent: torch.Tensor, L: int) -> torch.Tensor:
@@ -222,10 +279,82 @@ def sigmoid_spread_bf16(latent: torch.Tensor, L: int) -> torch.Tensor:
     jax.nn.sigmoid rounds exp(-x), 1 + that and its reciprocal to bf16 in
     turn, and the spread's Python constants L - 0.2 and (L - 0.2) / 2 round
     to bf16 before they apply (6.8 -> 6.8125 and 3.4 -> 3.40625 at L = 7).
-    latent: bf16-exact float32 values -> bf16-exact float32 values."""
-    spread = L - 0.2
-    c_mul = round_bf16(torch.tensor(spread, dtype=torch.float32))
-    c_sub = round_bf16(torch.tensor(spread / 2, dtype=torch.float32))
-    x = round_bf16(latent)
-    s = round_bf16(1.0 / round_bf16(1.0 + round_bf16(torch.exp(-x))))
-    return round_bf16(round_bf16(s * c_mul.to(x.device)) - c_sub.to(x.device))
+    latent: bf16-exact float32 values -> bf16-exact float32 values; the
+    gradient is XLA's (`_SigmoidSpreadBf16`)."""
+    return _SigmoidSpreadBf16.apply(latent, L)
+
+
+class _MaxBf16(torch.autograd.Function):
+    """x.amax(dim) of bf16 values, with jnp.max's gradient in bf16."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        m = x.amax(dim=dim, keepdim=True)
+        ctx.save_for_backward(x, m)
+        ctx.dim = dim
+        return m.squeeze(dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, m = ctx.saved_tensors
+        hit = x == m
+        count = hit.sum(dim=ctx.dim, keepdim=True).to(x.dtype)
+        share = round_bf16(round_bf16(g.unsqueeze(ctx.dim)) / count)
+        return torch.where(hit, share, torch.zeros((), dtype=x.dtype, device=x.device)), None
+
+
+def max_bf16(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The max over `dim` of bf16 values (bf16-exact float32), its cotangent
+    split as jnp.max's: round(round(g) / count) to each element that
+    reaches the maximum, 0 elsewhere."""
+    return _MaxBf16.apply(x, dim)
+
+
+def bf16_scatter_add(upd: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """upd [B, R, C] added into [B, n, C] at rows idx [B, R], as XLA's CPU
+    backend runs a bf16 scatter-add: update by update in the order of R,
+    each add rounded to bf16. Vectorized by rank: the r-th update of a row
+    is added in pass r, every row at most once a pass."""
+    B, R, C = upd.shape
+    key = (idx.long() + n * torch.arange(B, device=idx.device)[:, None]).reshape(-1)
+    order = torch.sort(key, stable=True).indices
+    skey = key[order]
+    start = torch.ones_like(skey, dtype=torch.bool)
+    start[1:] = skey[1:] != skey[:-1]
+    first = torch.cummax(torch.where(start, torch.arange(len(skey), device=key.device), 0),
+                         0).values
+    rank = torch.empty_like(key)
+    rank[order] = torch.arange(len(skey), device=key.device) - first
+    u = round_bf16(upd).reshape(B * R, C)
+    acc = upd.new_zeros((B * n, C))
+    for r in range(int(rank.max()) + 1 if len(rank) else 0):
+        take = rank == r
+        rows = key[take]
+        acc[rows] = round_bf16(acc[rows] + u[take])
+    return acc.reshape(B, n, C)
+
+
+class _GatherBf16(torch.autograd.Function):
+    """rows [B, n, C] gathered at idx [B, ...], the transpose a bf16
+    scatter-add in index order."""
+
+    @staticmethod
+    def forward(ctx, rows, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = rows.shape[1]
+        flat = idx.reshape(idx.shape[0], -1).long()
+        out = torch.gather(rows, 1, flat[..., None].expand(-1, -1, rows.shape[-1]))
+        return out.reshape(*idx.shape, rows.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        B, C = idx.shape[0], g.shape[-1]
+        return bf16_scatter_add(g.reshape(B, -1, C), idx.reshape(B, -1), ctx.n), None
+
+
+def gather_bf16(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """rows [B, n, C] of bf16 values at idx [B, ...] -> [B, ..., C]
+    (pcc_tpu's index_points / knn_gather on a bf16 array), the cotangent
+    summed back as XLA sums a bf16 scatter-add (`bf16_scatter_add`)."""
+    return _GatherBf16.apply(rows, idx)

@@ -10,7 +10,8 @@ Every C entry point launches on the stream it is given and returns
 cudaGetLastError() as an int; the wrappers raise on a non-zero value. Two
 kernels may share a source (fps and fps_int, the float32 and int32
 instances of csrc/fps.cu; the float32 and bf16 instances of the encoder,
-its backward, the decoder and the stage kernels): they share its library, and each has its own
+its backward, the decoder, the stage kernel (and its store mode) and the stage
+backward): they share its library, and each has its own
 entry point `<name>_launch` and its own launch count.
 `launches` counts, per kernel, the launches the wrappers made, so a run can
 show that its path went through the kernels.
@@ -42,8 +43,10 @@ KERNELS = {
     "patch_encoder_bf16": ("patch_encoder.cu", ()),
     "patch_decoder_bf16": ("patch_decoder.cu", ()),
     "pppf_sa_stage_bf16": ("pppf_sa_stage.cu", ()),
+    "pppf_sa_stage_bf16_save": ("pppf_sa_stage.cu", ()),
     "patch_encoder_bwd_bf16": ("patch_encoder_bwd.cu", ()),
     "pppf_sa_stage_bwd": ("pppf_sa_stage_bwd.cu", ()),
+    "pppf_sa_stage_bwd_bf16": ("pppf_sa_stage_bwd.cu", ()),
     # chamfer indices must be bit-equal to the plain version, as FPS's
     "chamfer_fwd": ("chamfer_fwd.cu", ("--fmad=false",)),
     "chamfer_bwd": ("chamfer_bwd.cu", ("--fmad=false",)),

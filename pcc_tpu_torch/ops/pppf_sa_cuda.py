@@ -13,15 +13,18 @@ float32 operations in the same order); the products sum in another order,
 so outputs agree to float32 rounding. `pppf_sa_points` and
 `pppe_sa_points` are the per-point forms the kernels compute, each equal to
 the per-slot plain version up to the order of its sums. With bf16=True
-(layout "pppf", serving) the bf16 instance of the kernel runs
+(layout "pppf") the bf16 instance of the kernel runs
 (`pppf_sa_plain(..., bf16=True)` on the CPU), rounding where pcc_tpu's
-bf16 stage rounds: W (the caller's, once: `bf16_layers`), each layer's
-input rows and each relu output; b and the BatchNorm terms stay float32.
+bf16 stage rounds: W (`bf16_layers`), each layer's input rows and each
+relu output; b and the BatchNorm terms stay float32; in its store mode
+it keeps the rounded inputs for the bf16 backward.
 
 `pppf_sa_bwd` is the stage's gradient against a cotangent [P, S, C_out],
 layout "pppf", BatchNorm in its eval-affine form (frozen running
 statistics): the CUDA kernel csrc/pppf_sa_stage_bwd.cu on CUDA tensors,
-`pppf_sa_bwd_plain` on CPU tensors. `pppf_sa_trainable` is the
+`pppf_sa_bwd_plain` on CPU tensors; with bf16=True its bf16 instance
+(`pppf_sa_bwd_plain_bf16`: the cotangent per slot below the max routing,
+as pcc_tpu's bf16 backward rounds it). `pppf_sa_trainable` is the
 differentiable stage that training calls: forward `pppf_sa_fused`, backward
 `pppf_sa_bwd`. The kernels' design notes (what bounds them on an H100, what
 they do about that) are at the top of their sources.
@@ -47,7 +50,11 @@ _BF16_ARGTYPES = ([cuda_lib.PTR] * 4 + [cuda_lib.INT] * 5 + [ctypes.c_float] + [
                   + [cuda_lib.PTR] * 3)
 _BWD_ARGTYPES = ([cuda_lib.PTR] * 4 + [cuda_lib.INT] * 5 + [ctypes.c_float] + [cuda_lib.INT]
                  + [cuda_lib.PTR] * 10 + [ctypes.c_longlong, cuda_lib.INT, cuda_lib.PTR])
+_BF16_SAVE_ARGTYPES = _BF16_ARGTYPES[:-1] + [cuda_lib.PTR] * 5
+_BWD_BF16_ARGTYPES = _BWD_ARGTYPES[:-1] + [cuda_lib.PTR] * 4 + [cuda_lib.INT, cuda_lib.PTR]
 LAYOUTS = ("pppf", "pppe")
+MAX_SLOTS = 254        # csrc/pppf_sa_stage_bwd.cu: kMaxSlots, the bf16 backward's nsample
+CHAIN_BYTES = 1 << 29  # the bf16 backward's per-slot buffers, at most (one patch at least)
 MAX_POINTS = 1024      # csrc/pppf_sa_stage.cu: kMaxN
 MAX_LAYERS = 6         # kMaxLayers
 MIN_TILE_ROWS = 8      # kTM
@@ -327,11 +334,12 @@ def pppf_sa_fused(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
     without features), then the slots, in the one launch; at widths where
     that kernel has no tile (`pppe_kernel`), the per-slot kernel.
 
-    bf16: the bf16 instance (launch counter "pppf_sa_stage_bf16"), layout
-    "pppf" and serving only, on layers whose W are bf16 values
-    (`bf16_layers`, which PointnetSAModule keeps). The bf16 "pppe" layout
-    and the bf16 store mode are on no path of the port (PPPE serves and
-    trains in float32; bf16 training is not ported) and raise.
+    bf16: the bf16 instance (launch counter "pppf_sa_stage_bf16", and
+    "pppf_sa_stage_bf16_save" in its store mode), layout "pppf", on layers
+    whose W are bf16 values (`bf16_layers`); its store mode writes the
+    rounded layer inputs, which the bf16 backward's weight gradients read.
+    The bf16 "pppe" layout is the next slice (PointCloudAE's bf16 serving)
+    and raises.
 
     With `save` (layout "pppf"; the train step's forward), (out, saved):
     the kernel's store mode also writes what its backward would otherwise
@@ -341,10 +349,10 @@ def pppf_sa_fused(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
     (the per-slot kernel runs where the queries' masks do not fit)."""
     if save and layout != "pppf":
         raise ValueError("pppf_sa_fused: save applies to the \"pppf\" layout")
-    if bf16 and (layout != "pppf" or save):
-        raise ValueError("pppf_sa_fused: the bf16 instance takes the \"pppf\" layout in "
-                         "serving only; the bf16 \"pppe\" layout and store mode are on no "
-                         "path of the port")
+    if bf16 and layout != "pppf":
+        raise ValueError("pppf_sa_fused: the bf16 instance takes the \"pppf\" layout; the "
+                         "bf16 \"pppe\" layout is not ported yet (the next slice, with "
+                         "PPPE's bf16 serving)")
     if new_xyz.device.type == "cpu":
         out = pppf_sa_plain(new_xyz, xyz, feat, layers, nsample=nsample, radius=radius,
                             layout=layout, bf16=bf16)
@@ -354,26 +362,31 @@ def pppf_sa_fused(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
     N = xyz.shape[1]
     dev = new_xyz.device
     out = torch.empty((P, S, widths[-1]), dtype=torch.float32, device=dev)
-    if bf16:
-        ptrs = (ctypes.c_void_p * (5 * len(layers)))(
-            *[t.data_ptr() for lay in layers for t in lay])
-        cuda_lib.launch(
-            "pppf_sa_stage_bf16", _BF16_ARGTYPES, new_xyz.data_ptr(), xyz.data_ptr(),
-            None if feat is None else feat.data_ptr(), out.data_ptr(), P, S, N,
-            0 if feat is None else feat.shape[2], nsample, _radius2(radius), len(layers), ptrs,
-            (ctypes.c_int * len(widths))(*widths), cuda_lib.stream_ptr(new_xyz))
-        return out
     bufs, done = None, ctypes.c_int(0)
-    # "pppe": the first layer's feature block, once per point, where the
-    # slot kernel runs
-    y = (torch.empty((P, N, widths[1]), dtype=torch.float32, device=dev)
-         if layout == "pppe" and feat is not None
-         and pppe_plan(widths, N, S, nsample) is not None else None)
     if save:
         ws = _bwd_workspace(P, S, N, nsample, widths)
         bufs = (torch.empty(ws["sel"], dtype=torch.int32, device=dev),
                 torch.empty(ws["act"], dtype=torch.float32, device=dev),
                 torch.empty(ws["t"], dtype=torch.float32, device=dev))
+    if bf16:
+        ptrs = (ctypes.c_void_p * (5 * len(layers)))(
+            *[t.data_ptr() for lay in layers for t in lay])
+        args = [new_xyz.data_ptr(), xyz.data_ptr(), None if feat is None else feat.data_ptr(),
+                out.data_ptr(), P, S, N, 0 if feat is None else feat.shape[2], nsample,
+                _radius2(radius), len(layers), ptrs, (ctypes.c_int * len(widths))(*widths)]
+        if not save:
+            cuda_lib.launch("pppf_sa_stage_bf16", _BF16_ARGTYPES, *args,
+                            cuda_lib.stream_ptr(new_xyz))
+            return out
+        cuda_lib.launch("pppf_sa_stage_bf16_save", _BF16_SAVE_ARGTYPES, *args,
+                        *[b.data_ptr() for b in bufs], ctypes.addressof(done),
+                        cuda_lib.stream_ptr(new_xyz))
+        return out, (bufs if done.value else None)
+    # "pppe": the first layer's feature block, once per point, where the
+    # slot kernel runs
+    y = (torch.empty((P, N, widths[1]), dtype=torch.float32, device=dev)
+         if layout == "pppe" and feat is not None
+         and pppe_plan(widths, N, S, nsample) is not None else None)
     ptrs = (ctypes.c_void_p * (5 * len(layers)))(
         *[t.data_ptr() for lay in layers for t in lay])
     cuda_lib.launch(
@@ -490,6 +503,108 @@ def pppf_sa_bwd_plain(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, gout: torc
     return torch.cat(dxyz), (torch.cat(dfeat) if feat is not None else None), dlayers
 
 
+def saved_views(saved, P: int, S: int, N: int, nsample: int, widths):
+    """The store mode's buffers (sel, act, t) as (sel [P, S, nsample], [x_l
+    [P, N, widths[l]]] for l = 0 .. L, [t_l [P, N, widths[l + 1]]] for l =
+    0 .. L - 1): views, in pppf_sa_common.cuh::act_layout's layout."""
+    sel, act, t = saved
+    pad = [_round4(w) for w in widths]
+    xs, ts, off, toff = [], [], 0, 0
+    for l, w in enumerate(widths):
+        xs.append(act[off:off + P * N * pad[l]].view(P, N, pad[l])[..., :w])
+        off += P * N * pad[l]
+        if l > 0:
+            ts.append(t[toff:toff + P * N * pad[l]].view(P, N, pad[l])[..., :w])
+            toff += P * N * pad[l]
+    return sel.view(P, S, nsample), xs, ts
+
+
+def _scatter_points(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """g [c, S, ns, w] per slot summed into its point, idx [c, S, ns] ->
+    [c, n, w]."""
+    c, w = g.shape[0], g.shape[-1]
+    return g.new_zeros((c, n, w)).scatter_add_(
+        1, idx.reshape(c, -1, 1).expand(-1, -1, w), g.reshape(c, -1, w))
+
+
+def bf16_points_forward(xyz: torch.Tensor, feat, layers):
+    """The bf16 "pppf" stack per point, as the bf16 kernels compute it: x_0
+    the rows [feat | xyz] rounded to bf16, t_l = (x_l W_l + b_l) - mean_l,
+    x_{l+1} = round(relu(t_l mul_l + beta_l)) -> ([x_0 .. x_L], [t_0 ..
+    t_{L-1}])."""
+    x = round_bf16(xyz if feat is None else torch.cat([feat, xyz], dim=-1))
+    xs, ts = [x], []
+    for w, b, mean, mul, beta in layers:
+        t = (x @ w + b) - mean
+        x = round_bf16(torch.relu(t * mul + beta))
+        xs.append(x)
+        ts.append(t)
+    return xs, ts
+
+
+def first_winners(vals: torch.Tensor):
+    """The max routing of vals [..., nsample, C]: (the first slot in
+    selection order that reaches each maximum [..., C], whether the maximum
+    is > 0)."""
+    top = vals.amax(dim=-2, keepdim=True)
+    return (vals == top).to(torch.int32).argmax(dim=-2), top.squeeze(-2) > 0
+
+
+def pppf_sa_bwd_plain_bf16(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, gout: torch.Tensor,
+                           layers, *, nsample: int, radius: float, saved=None):
+    """The bf16 "pppf" stage's gradient (pcc_tpu's _stage_bwd_kernel with
+    compute_dtype bfloat16, pppf_sa_pallas.py:258-456) against gout [P, S,
+    C_out]; layers with W bf16 values (`bf16_layers`). Returns what
+    `pppf_sa_bwd_plain` returns. The forward, per point: the rows rounded
+    to bf16, each layer's t = (x W + b) - mean and its relu output rounded,
+    or, with `saved`, the store mode's selection, rounded inputs x_l and t_l
+    (`saved_views`; on the card the kernel's own, so that no rounding of a
+    forward in another order enters a comparison). Each (patch, query,
+    channel) max routes to the first slot in selection order that reaches
+    it, where it is > 0. Below it the cotangent is carried per slot, as the
+    TPU kernel carries it: at layer l, dh (masked by the slot's point's x_{l+1}
+    > 0 below the last layer), dz = dh mul_l, and the row cotangent
+    round(dz) @ W_l^T, float32. dW, db, dmul and dbeta are sums with no
+    rounding between them, taken per point on the slots' dh summed per
+    point: dW = mul x^T da, db = mul sum da, dmul = sum da t, dbeta = sum da;
+    the row gradient sums into each slot's point (masked slots read point
+    0)."""
+    P, S, _ = new_xyz.shape
+    N = xyz.shape[1]
+    widths = [3 + (0 if feat is None else feat.shape[-1])] + [w.shape[1] for w, *_ in layers]
+    L = len(layers)
+    if saved is None:
+        idx = ball_query(new_xyz, xyz, nsample, radius)
+        xs, ts = bf16_points_forward(xyz, feat, layers)
+    else:
+        idx, xs, ts = saved_views(saved, P, S, N, nsample, widths)
+    idx = idx.long()
+    das = [gout.new_zeros((P, N, w)) for w in widths[1:]]
+    dx = gout.new_zeros((P, N, widths[0]))
+    chunk = max(1, PLAIN_ELEMS // (S * nsample * max(widths)))
+    for s0 in range(0, P, chunk):
+        sl, ids = slice(s0, s0 + chunk), idx[s0:s0 + chunk]
+        vals = knn_gather(xs[L][sl], ids)                                 # [c, S, ns, C_out]
+        first, live = first_winners(vals)
+        g = torch.zeros_like(vals).scatter_(
+            2, first[:, :, None], torch.where(live, gout[sl], 0.0)[:, :, None])
+        for l in range(L - 1, -1, -1):
+            w, _, _, mul, _ = layers[l]
+            if l < L - 1:
+                g = g * (knn_gather(xs[l + 1][sl], ids) > 0)
+            das[l][sl] = _scatter_points(g, ids, N)
+            g = round_bf16(g * mul) @ w.t()
+        dx[sl] = _scatter_points(g, ids, N)
+    dlayers = []
+    for (w, b, mean, mul, beta), x, t, da in zip(layers, xs, ts, das):
+        x2, da2 = x.reshape(-1, x.shape[-1]), da.reshape(-1, da.shape[-1])
+        dlayers.append(((x2.t() @ da2) * mul, da2.sum(0) * mul,
+                        (da2 * t.reshape(da2.shape)).sum(0), da2.sum(0)))
+    C = widths[0] - 3
+    return dx[..., C:].contiguous(), (dx[..., :C].contiguous() if feat is not None else None), \
+        dlayers
+
+
 def stage_bwd_flops(P: int, S: int, N: int, nsample: int, widths) -> float:
     """Operations of one stage's backward as the kernel computes it, per
     point: the replay (2 per multiply-add of the stack, 5 per output of a
@@ -500,6 +615,22 @@ def stage_bwd_flops(P: int, S: int, N: int, nsample: int, widths) -> float:
     counted as float32 work (stage_bwd_work splits it by unit)."""
     fp32, products = stage_bwd_work(P, S, N, nsample, widths)
     return fp32 + products
+
+
+def stage_bwd_bf16_work(P: int, S: int, N: int, nsample: int, widths):
+    """(float32 operations, bf16 products' operations) of the bf16 backward
+    on the forward's stored activations: the routing (a comparison per
+    slot and output channel), per slot and layer the mask, the scale and
+    the rounding of dz (3 per output) and its input-gradient product
+    round(dz) @ W^T (2 per multiply-add, on P * S * nsample slot rows: the
+    products that run on the bf16 tensor cores), the per-point sums (1 per
+    slot output), and per point the weight gradients x^T da (2 per
+    multiply-add) with their column sums (3 per output)."""
+    macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    slots = P * S * nsample
+    fp32 = (slots * (widths[-1] + 4.0 * sum(widths[1:]) + widths[0])
+            + P * N * (2.0 * macs + 3.0 * sum(widths[1:])))
+    return fp32, slots * 2.0 * macs
 
 
 def stage_bwd_work(P: int, S: int, N: int, nsample: int, widths, replay: bool = True):
@@ -516,25 +647,51 @@ def stage_bwd_work(P: int, S: int, N: int, nsample: int, widths, replay: bool = 
     return fp32, P * N * 4.0 * macs
 
 
-def _bwd_workspace(P: int, S: int, N: int, nsample: int, widths) -> dict:
+def _bwd_workspace(P: int, S: int, N: int, nsample: int, widths, bf16: bool = False) -> dict:
     """Element counts of the backward kernel's scratch buffers (see the
-    launcher's comment in csrc/pppf_sa_stage_bwd.cu)."""
+    launcher's comments in csrc/pppf_sa_stage_bwd.cu); with bf16 also the
+    per-slot chain's: win, the patches per pass (chunk, as many as keep a0,
+    a1 and d within CHAIN_BYTES) and a0, a1 and d for that many."""
     pad = [_round4(w) for w in widths]
     pairs = list(zip(widths[:-1], widths[1:]))
-    return dict(sel=P * S * nsample, act=P * N * sum(pad),
-                t=P * N * sum(pad[1:]), da=P * N * sum(pad[1:]),
-                part=wgrad_part_floats([(P * N, a, b) for a, b in pairs]))
+    ws = dict(sel=P * S * nsample, act=P * N * sum(pad),
+              t=P * N * sum(pad[1:]), da=P * N * sum(pad[1:]),
+              part=wgrad_part_floats([(P * N, a, b) for a, b in pairs]))
+    if bf16:
+        wa, wd = _pad16(max(widths[1:])), _pad16(max(widths[:-1]))
+        chunk = max(1, min(P, CHAIN_BYTES // (S * nsample * (4 * wa + 4 * wd))))
+        ws.update(win=P * S * widths[-1], chunk=chunk, a=chunk * S * nsample * wa,
+                  d=chunk * S * nsample * wd)
+    return ws
+
+
+def _pad16(v: int) -> int:
+    return (v + 15) & ~15
+
+
+def bf16_weights(w: torch.Tensor) -> torch.Tensor:
+    """W [cin, cout] (bf16 values) as the bf16 backward's operand: bf16
+    [pad16(cin), pad16(cout)], zero-padded."""
+    return F.pad(w, (0, _pad16(w.shape[1]) - w.shape[1],
+                     0, _pad16(w.shape[0]) - w.shape[0])).to(torch.bfloat16).contiguous()
 
 
 def pppf_sa_bwd(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, gout: torch.Tensor, layers,
-                *, nsample: int, radius: float, saved=None):
+                *, nsample: int, radius: float, saved=None, bf16: bool = False):
     """(dxyz, dfeat | None, [(dW, db, dmul, dbeta)] per layer) of the "pppf"
     stage against the cotangent gout [P, S, C_out]: the CUDA kernel on CUDA
     tensors, the plain version on CPU tensors. saved: what
     `pppf_sa_fused(..., save=True)` stored for these inputs and layers (the
     kernel then starts at the routing); None to select and replay the stack
-    here. The results are the same bit for bit either way."""
+    here. The results are the same bit for bit either way.
+
+    bf16: the bf16 instance (launch counter "pppf_sa_stage_bwd_bf16"; the
+    plain version `pppf_sa_bwd_plain_bf16`), on layers whose W are bf16
+    values and, where given, what the bf16 store mode saved."""
     if new_xyz.device.type == "cpu":
+        if bf16:
+            return pppf_sa_bwd_plain_bf16(new_xyz, xyz, feat, gout, layers, nsample=nsample,
+                                          radius=radius, saved=saved)
         return pppf_sa_bwd_plain(new_xyz, xyz, feat, gout, layers, nsample=nsample,
                                  radius=radius)
     widths = _check(new_xyz, xyz, feat, layers, nsample, "pppf", name="pppf_sa_bwd")
@@ -549,8 +706,10 @@ def pppf_sa_bwd(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, gout: torch.Tens
     if 4 * (4 * N + 6 * S) > 4 * SMEM_WORDS:
         raise ValueError(f"pppf_sa_bwd: N={N}, S={S} need more than {4 * SMEM_WORDS} bytes "
                          "of shared memory for the routing of 4 channels")
+    if bf16 and nsample > MAX_SLOTS:
+        raise ValueError(f"pppf_sa_bwd: the bf16 instance takes nsample <= {MAX_SLOTS}")
     dev = new_xyz.device
-    ws = _bwd_workspace(P, S, N, nsample, widths)
+    ws = _bwd_workspace(P, S, N, nsample, widths, bf16)
     if saved is None:
         sel = torch.empty(ws["sel"], dtype=torch.int32, device=dev)
         act, t = (torch.empty(ws[k], dtype=torch.float32, device=dev) for k in ("act", "t"))
@@ -559,24 +718,35 @@ def pppf_sa_bwd(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, gout: torch.Tens
         if (sel.numel(), act.numel(), t.numel()) != (ws["sel"], ws["act"], ws["t"]):
             raise ValueError("pppf_sa_bwd: saved buffers of another stage's shapes")
     da, part = (torch.empty(ws[k], dtype=torch.float32, device=dev) for k in ("da", "part"))
-    # (W mul)^T [round4(cout), round4(cin)], zero-padded: dx's weights
-    wts = [F.pad((lay[0] * lay[3]).t(), (0, _round4(lay[0].shape[0]) - lay[0].shape[0],
-                                         0, _round4(lay[0].shape[1]) - lay[0].shape[1]))
-           .contiguous() for lay in layers]
+    if bf16:
+        # bf16(W) [pad16(cin), pad16(cout)]: the per-slot products' weights
+        wts = [bf16_weights(lay[0]) for lay in layers]
+    else:
+        # (W mul)^T [round4(cout), round4(cin)], zero-padded: dx's weights
+        wts = [F.pad((lay[0] * lay[3]).t(), (0, _round4(lay[0].shape[0]) - lay[0].shape[0],
+                                             0, _round4(lay[0].shape[1]) - lay[0].shape[1]))
+               .contiguous() for lay in layers]
     ptrs = (ctypes.c_void_p * (6 * len(layers)))(*[
         p.data_ptr() for lay, wt in zip(layers, wts) for p in (lay[0], wt, *lay[1:])])
     dxyz = torch.empty_like(xyz)
     dfeat = None if feat is None else torch.empty_like(feat)
     pairs = list(zip(widths[:-1], widths[1:]))
     grads = torch.empty(sum(a * b + 3 * b for a, b in pairs), dtype=torch.float32, device=dev)
-    cuda_lib.launch(
-        "pppf_sa_stage_bwd", _BWD_ARGTYPES, new_xyz.data_ptr(), xyz.data_ptr(),
-        None if feat is None else feat.data_ptr(), gout.data_ptr(), P, S, N,
-        0 if feat is None else feat.shape[2], nsample, _radius2(radius), len(layers), ptrs,
-        (ctypes.c_int * len(widths))(*widths), dxyz.data_ptr(),
-        None if dfeat is None else dfeat.data_ptr(), grads.data_ptr(), sel.data_ptr(),
-        act.data_ptr(), t.data_ptr(), da.data_ptr(), part.data_ptr(), part.numel(),
-        int(saved is None), cuda_lib.stream_ptr(xyz))
+    args = [new_xyz.data_ptr(), xyz.data_ptr(), None if feat is None else feat.data_ptr(),
+            gout.data_ptr(), P, S, N, 0 if feat is None else feat.shape[2], nsample,
+            _radius2(radius), len(layers), ptrs, (ctypes.c_int * len(widths))(*widths),
+            dxyz.data_ptr(), None if dfeat is None else dfeat.data_ptr(), grads.data_ptr(),
+            sel.data_ptr(), act.data_ptr(), t.data_ptr(), da.data_ptr(), part.data_ptr(),
+            part.numel(), int(saved is None)]
+    if bf16:
+        win = torch.empty(ws["win"], dtype=torch.uint8, device=dev)
+        a0, a1 = (torch.empty(ws["a"], dtype=torch.bfloat16, device=dev) for _ in range(2))
+        d = torch.empty(ws["d"], dtype=torch.float32, device=dev)
+        cuda_lib.launch("pppf_sa_stage_bwd_bf16", _BWD_BF16_ARGTYPES, *args, win.data_ptr(),
+                        a0.data_ptr(), a1.data_ptr(), d.data_ptr(), ws["chunk"],
+                        cuda_lib.stream_ptr(xyz))
+    else:
+        cuda_lib.launch("pppf_sa_stage_bwd", _BWD_ARGTYPES, *args, cuda_lib.stream_ptr(xyz))
     parts = torch.split(grads, [n for a, b in pairs for n in (a * b, b, b, b)])
     dlayers = [(parts[4 * i].view(a, b), *parts[4 * i + 1:4 * i + 4])
                for i, (a, b) in enumerate(pairs)]
@@ -587,22 +757,28 @@ class PPPFStageFn(torch.autograd.Function):
     """The stage with its backward kernel: forward `pppf_sa_fused`, with
     `save` in its store mode, backward `pppf_sa_bwd` on what it stored
     (pcc_tpu's custom VJP, pppf_sa_pallas.py::_make_trainable_stage).
-    Arguments: nsample, radius, save, new_xyz, xyz, feat (or None), then W,
-    b, mean, mul, beta of each layer. new_xyz and mean get no gradient; at a
-    first stage new_xyz may be xyz itself, whose gradient is then dxyz alone.
-    ctx.saved_tensors holds new_xyz, xyz, feat, the layers' tensors, then the
-    stored buffers (none without `save`, or on the CPU)."""
+    Arguments: nsample, radius, save, bf16, new_xyz, xyz, feat (or None),
+    then W, b, mean, mul, beta of each layer. With bf16 both run their bf16
+    instances on W rounded here, per call (the weights train), and W's
+    gradient is the kernel's float32 dW, unrounded (the custom VJP's). new_xyz
+    and mean get no gradient; at a first stage new_xyz may be xyz itself,
+    whose gradient is then dxyz alone. ctx.saved_tensors holds new_xyz, xyz,
+    feat, the layers' tensors (W rounded with bf16), then the stored buffers
+    (none without `save`, or on the CPU)."""
 
     @staticmethod
-    def forward(ctx, nsample, radius, save, new_xyz, xyz, feat, *flat):
-        ctx.nsample, ctx.radius, ctx.n_flat = nsample, radius, len(flat)
+    def forward(ctx, nsample, radius, save, bf16, new_xyz, xyz, feat, *flat):
+        ctx.nsample, ctx.radius, ctx.bf16, ctx.n_flat = nsample, radius, bf16, len(flat)
         layers = [flat[i:i + 5] for i in range(0, len(flat), 5)]
-        kw = dict(nsample=nsample, radius=radius)
+        if bf16:
+            layers = bf16_layers(layers)
+        kw = dict(nsample=nsample, radius=radius, bf16=bf16)
         if save:
             out, saved = pppf_sa_fused(new_xyz, xyz, feat, layers, save=True, **kw)
         else:
             out, saved = pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), None
-        ctx.save_for_backward(new_xyz, xyz, feat, *flat, *(saved or ()))
+        ctx.save_for_backward(new_xyz, xyz, feat, *[t for lay in layers for t in lay],
+                              *(saved or ()))
         return out
 
     @staticmethod
@@ -612,21 +788,24 @@ class PPPFStageFn(torch.autograd.Function):
         layers = [flat[i:i + 5] for i in range(0, len(flat), 5)]
         dxyz, dfeat, dl = pppf_sa_bwd(new_xyz, xyz, feat, gout.contiguous(), layers,
                                       nsample=ctx.nsample, radius=ctx.radius,
-                                      saved=tuple(saved) or None)
-        return (None, None, None, None, dxyz, dfeat,
+                                      saved=tuple(saved) or None, bf16=ctx.bf16)
+        return (None, None, None, None, None, dxyz, dfeat,
                 *[g for dw, db, dmul, dbeta in dl for g in (dw, db, None, dmul, dbeta)])
 
 
 def pppf_sa_trainable(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
-                      nsample: int, radius: float) -> torch.Tensor:
+                      nsample: int, radius: float, bf16: bool = False) -> torch.Tensor:
     """Differentiable "pppf" stage [P, S, C_out] (pcc_tpu's
     pppf_sa_trainable): the same output as `pppf_sa_fused`, gradients by
     `pppf_sa_bwd` to xyz, feat and every layer's W, b, mul and beta
     (BatchNorm frozen at the running statistics folded into mean and mul).
     Where a gradient will be taken, the forward stores its activations for
     the backward (about 1.9 GB for the three stages of an 8-cloud step);
-    under no_grad, as in serving, it does not."""
+    under no_grad, as in serving, it does not. bf16: pcc_tpu's
+    pppf_sa_trainable(compute_dtype=bfloat16), on W as it trains (float32;
+    rounded inside, `PPPFStageFn`): the output bf16 values, the feature and
+    coordinate gradients float32, as the custom VJP leaves them."""
     flat = [t for lay in layers for t in lay]
     save = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in [new_xyz, xyz, feat] + flat)
-    return PPPFStageFn.apply(nsample, radius, save, new_xyz, xyz, feat, *flat)
+    return PPPFStageFn.apply(nsample, radius, save, bf16, new_xyz, xyz, feat, *flat)

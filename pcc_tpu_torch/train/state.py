@@ -77,8 +77,14 @@ def create_train_state(seed: int, cfg: CodecConfig, tx: AdamSchedule,
                        device: str | torch.device = "cuda") -> TrainState:
     """The models of cfg.model on `device` in train mode, with seeded random
     weights (BatchNorm at its defaults), and a fresh Adam over their
-    parameters."""
+    parameters. PPPF-AE's models compute in float32 whatever
+    cfg.compute_dtype says, as pcc_tpu's trainer builds them."""
     dev = resolve_device(device)
+    if cfg.model == "PPPF-AE":
+        # pcc_tpu's PPPF-AE trainer builds both models with no dtype, so its
+        # step is float32 whatever compute_dtype says
+        # (pcc_tpu/train/steps_pppf.py:50-54, make_pppf_models)
+        cfg = dataclasses.replace(cfg, compute_dtype="float32")
     ae_sd, prob_sd = init_params(seed, cfg)
     ae, prob = make_models(cfg)
     ae.load_state_dict(ae_sd)

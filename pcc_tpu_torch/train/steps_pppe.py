@@ -3,8 +3,9 @@ reference train_pppe_pcd_ae.py:171-251).
 
 One step for a batch of raw clouds [B, N, 3]: the PointCloudAE in training
 mode (every PN++ stack and global_conv's BatchNorm on batch statistics, the
-stages' FPS on the FPS kernel), the chamfer distortion of the fine cloud
-against the input through the chamfer kernels
+stages' FPS on the FPS kernel; with PPPEConfig(compute_dtype="bfloat16")
+on flax's bf16 rules, models/pppe.py), the float32 chamfer distortion of
+the fine cloud against the input through the chamfer kernels
 (ops/chamfer.py::chamfer_distance(fast_search=True)), plus lam_eff times the
 detached, clamped rate estimate; then optax's clip_by_global_norm(1.0) and
 Adam, with the learning rate a float32 hyperparameter that the caller sets

@@ -232,7 +232,7 @@ def test_stage_plain_bf16_matches_pallas(npoint, radius, nsample, mlp, N, C):
     assert float(np.abs(ref).max()) > 0.05
     _hold(ours, ref)
     assert torch.equal(pppf_sa_fused(*args16, bf16=True, **kw), ours)
-    with pytest.raises(ValueError, match="no path"):
+    with pytest.raises(ValueError, match="next slice"):
         pppf_sa_fused(*args16, bf16=True, layout="pppe", **kw)
 
 
@@ -303,9 +303,10 @@ def test_params_stay_float32():
             assert all(v.dtype == torch.float32 for v in sd.values()
                        if v.is_floating_point())
     ae, _ = p_codec.make_models(PCFG)
+    ae.load_state_dict(init_params(0, PCFG)[0])
     ae.train()
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        ae.encode(torch.zeros((1, PCFG.K, 3)))
+    z = ae.encode(torch.rand((2, PCFG.K, 3)) - 0.5)     # bf16 training runs
+    assert z.shape == (2, PCFG.d) and bool(torch.isfinite(z).all())
 
 
 # --------------------------------------------------------------- the codecs --

@@ -19,10 +19,12 @@ from pcc_tpu_torch.coding.iprob_pppf import _qsel
 from pcc_tpu_torch.ops import fps as fps_ops
 from pcc_tpu_torch.ops.fps import fps_batch, fps_int_batch, fps_int_plain, fps_plain
 from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
+from pcc_tpu_torch.ops.bf16 import round_bf16
 from pcc_tpu_torch.ops.pppf_sa_cuda import (bf16_layers, pppe_kernel, pppe_plan, pppf_sa_bwd,
-                                            pppf_sa_bwd_plain,
+                                            pppf_sa_bwd_plain, pppf_sa_bwd_plain_bf16,
                                             pppf_sa_fused, pppf_sa_plain, pppf_sa_points,
-                                            stack_replay)
+                                            saved_views, stack_replay)
+from pcc_tpu_torch.tools.holds import row_hold
 from pcc_tpu_torch.ops.sa_cuda import _kernel_choices as _enc_choices
 from pcc_tpu_torch.ops.sa_cuda import (bf16_wb, patch_encoder, patch_encoder_bwd,
                                        patch_encoder_bwd_plain, patch_encoder_plain,
@@ -1184,17 +1186,18 @@ def test_patch_encoder_bwd_bf16_kernel(dev, P, N, knn, D):
 
 @pytest.mark.parametrize("shape", [(1, 512, 128), (512, 128, 128), (512, 128, 3), (8, 64, 512),
                                    (1, 64, 2048), (32, 16, 3), (1, 100, 5), (100, 7, 5),
-                                   (1, 1, 7), (33, 33, 2)])
+                                   (1, 1, 7), (33, 33, 2), (4, 128, 32, 16), (3, 40, 50, 8),
+                                   (8, 32, 128, 64), (300, 5)])
 def test_bf16_reduce_kernel(dev, shape):
     """bf16_reduce (XLA's bf16 reduction tree) bit for bit its plain
-    version, one launch a level."""
-    from pcc_tpu_torch.ops.bf16 import _reduce_level, bf16_reduce, bf16_reduce_plain, round_bf16
+    version, one launch a level, on grids of one to three dimensions."""
+    from pcc_tpu_torch.ops.bf16 import _reduce_level, bf16_reduce, bf16_reduce_plain
 
     g = torch.Generator().manual_seed(27)
     x = round_bf16(torch.randn(shape, generator=g)).to(dev)
-    levels, (A, K) = 0, shape[:2]
-    while A * K > 1:
-        A, K = _reduce_level(A, K)[4:]
+    levels, dims = 0, shape[:-1]
+    while int(np.prod(dims)) > 1:
+        dims = tuple(n for w, p, n in _reduce_level(dims))
         levels += 1
     before = cuda_lib.launches["bf16_reduce"]
     out = bf16_reduce(x)
@@ -1251,22 +1254,73 @@ def test_pppf_sa_stage_bf16_kernel(dev, P, S, N, C, nsample, radius, widths):
     assert torch.equal(pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), out)
 
 
-@pytest.mark.parametrize("case", ["pppe", "save", "bwd_points", "enc_points", "dec_d65",
+@pytest.mark.parametrize("P,S,N,C,nsample,radius,widths", _BF16_STAGES[:2] + [
+    (7, 12, 40, 13, 12, 0.3, (16, 24, 40)), (5, 16, 32, 0, 40, 0.5, (3, 8, 20))])
+def test_pppf_sa_stage_bwd_bf16_kernel(dev, P, S, N, C, nsample, radius, widths):
+    """The bf16 store mode: the serving output bit for bit, the rounded
+    inputs stored. The bf16 stage backward on what it stored: held to its
+    plain version on the same stored forward (every weight gradient within
+    1e-4 of its largest |entry|: float32 sums in another order, and the
+    tensor cores' accumulation; the row gradients row by row by
+    tools/holds.py::row_hold, since a float32 sum in another order flips
+    the bf16 rounding of a slot's cotangent now and then), two
+    launches bitwise equal, and the same bits where the backward replays
+    the forward itself (ragged widths, nsample beyond N)."""
+    g = torch.Generator().manual_seed(25)
+    xyz = torch.rand((P, N, 3), generator=g).to(dev)
+    new_xyz = xyz if S == N else xyz[:, torch.randint(0, N, (S,), generator=g)].contiguous()
+    feat = (torch.rand((P, N, C), generator=g).to(torch.bfloat16).float().to(dev)
+            if C else None)
+    layers = bf16_layers(_stage_layers(g, (C + 3,) + tuple(widths), dev))
+    gout = round_bf16(torch.randn((P, S, widths[-1]), generator=g)).to(dev)
+    kw = dict(nsample=nsample, radius=radius, bf16=True)
+    before = dict(cuda_lib.launches)
+    out, saved = pppf_sa_fused(new_xyz, xyz, feat, layers, save=True, **kw)
+    assert cuda_lib.launches["pppf_sa_stage_bf16_save"] == before["pppf_sa_stage_bf16_save"] + 1
+    assert saved is not None
+    assert torch.equal(out, pppf_sa_fused(new_xyz, xyz, feat, layers, **kw))
+    _, xs, _ = saved_views(saved, P, S, N, nsample, [C + 3] + list(widths))
+    assert all(torch.equal(round_bf16(x), x) for x in xs)
+    res = pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, saved=saved, **kw)
+    assert cuda_lib.launches["pppf_sa_stage_bwd_bf16"] == before["pppf_sa_stage_bwd_bf16"] + 1
+    a = _bwd_flat(*res)
+    b = _bwd_flat(*pppf_sa_bwd_plain_bf16(new_xyz, xyz, feat, gout, layers, nsample=nsample,
+                                          radius=radius, saved=saved))
+    assert float(b[0].abs().max()) > 0
+    rows = 2 if C else 1
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert x.shape == y.shape
+        if i < rows:
+            fails, fig = row_hold(x, y)
+            assert not fails, (fails, fig)
+        else:
+            assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
+    again = _bwd_flat(*pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, saved=saved, **kw))
+    assert all(torch.equal(x, y) for x, y in zip(a, again))
+    replayed = _bwd_flat(*pppf_sa_bwd(new_xyz, xyz, feat, gout, layers, **kw))
+    assert all(torch.equal(x, y) for x, y in zip(a, replayed))
+
+
+@pytest.mark.parametrize("case", ["pppe", "bwd_slots", "bwd_points", "enc_points", "dec_d65",
                                   "dec_cpu"])
 def test_bf16_instances_reject_unsupported(dev, case):
-    """What no path of the port takes in bf16 (the "pppe" layout, the
-    stage's store mode, which PPPF-AE's bf16 training will take) and shapes
-    outside an instance's domain (the encoder and its backward's N % 16,
-    the decoder's) raise before any launch."""
+    """What no path of the port takes in bf16 yet (the "pppe" layout) and
+    shapes outside an instance's domain (the stage backward's nsample <=
+    254, the encoder and its backward's N % 16, the decoder's) raise before
+    any launch."""
     g = torch.Generator().manual_seed(24)
     before = dict(cuda_lib.launches)
     with pytest.raises(ValueError):
-        if case in ("pppe", "save"):
+        if case == "pppe":
             xyz = torch.rand((2, 32, 3), generator=g).to(dev)
             layers = _stage_layers(g, (3, 16, 8), dev)
             pppf_sa_fused(xyz[:, :8].contiguous(), xyz, None, layers, nsample=8, radius=0.4,
-                          layout="pppe" if case == "pppe" else "pppf", save=case == "save",
-                          bf16=True)
+                          layout="pppe", bf16=True)
+        elif case == "bwd_slots":
+            xyz = torch.rand((2, 32, 3), generator=g).to(dev)
+            layers = bf16_layers(_stage_layers(g, (3, 16, 8), dev))
+            pppf_sa_bwd(xyz[:, :8].contiguous(), xyz, None, torch.zeros((2, 8, 8), device=dev),
+                        layers, nsample=300, radius=0.4, bf16=True)
         elif case in ("bwd_points", "enc_points"):
             pts = torch.rand((2, 24, 3), generator=g).to(dev)
             sa, pn = _wb(g, [3, 32, 64, 128], dev), _wb(g, [131, 128, 256, 512, 4], dev)

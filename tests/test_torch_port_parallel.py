@@ -36,6 +36,7 @@ import functools
 import glob
 import hashlib
 import os
+import pickle
 import socket
 import subprocess
 import sys
@@ -237,6 +238,7 @@ def _cli_runs(inp):
     from pcc_tpu_torch.cli import compress, decompress, train, train_pppe_pcd_ae
 
     for main, argv in ((train.main, inp["train"]), (train_pppe_pcd_ae.main, inp["train_pppe"]),
+                       (train_pppe_pcd_ae.main, inp["train_pppe_bf16"]),
                        (compress.main, inp["compress"]), (decompress.main, inp["decompress"])):
         main(argv + ["--devices", str(W)])
 
@@ -405,6 +407,10 @@ def _make_inputs(tmp):
         train_pppe=["--train_glob", os.path.join(data, "*.ply"), "--model_save_folder",
                     os.path.join(tmp, "pppe"), "--N", "256", "--K", "16", "--batch_size", "2",
                     "--max_steps", "2", "--step_window", "1", "--device", "cpu"],
+        train_pppe_bf16=["--train_glob", os.path.join(data, "*.ply"), "--model_save_folder",
+                         os.path.join(tmp, "pppe16"), "--N", "256", "--K", "16",
+                         "--batch_size", "2", "--max_steps", "1", "--step_window", "1",
+                         "--bf16", "--device", "cpu"],
         compress=[os.path.join(data, "*.ply"), os.path.join(tmp, "comp"),
                   os.path.join(tmp, "ae")] + small,
         decompress=[os.path.join(tmp, "comp"), os.path.join(tmp, "dec"),
@@ -848,7 +854,8 @@ def test_streams_decode_in_pcc_tpu(runs, family):
 def test_clis_with_two_devices(runs):
     """The CLIs with --devices 2 --device cpu, each spawning its two
     workers: the AE train CLI's checkpoint loads in pcc_tpu, the PPPE train
-    CLI wrote its latest checkpoint and dataset_norm.pkl, and compress ->
+    CLI wrote its latest checkpoint and dataset_norm.pkl (also with --bf16:
+    a float32 checkpoint of finite parameters), and compress ->
     decompress with the trained weights wrote (on rank 0) the streams and
     clouds of one device's codec, byte for byte and bit for bit."""
     from pcc_tpu.train.checkpoint import load_inference_params as j_load_inference_params
@@ -858,8 +865,17 @@ def test_clis_with_two_devices(runs):
     tmp = runs["tmp"]
     ae, prob = j_load_inference_params(os.path.join(tmp, "ae"))
     assert ae is not None and prob is not None
-    assert {os.path.basename(f) for f in glob.glob(os.path.join(tmp, "pppe", "*.pkl"))} >= {
-        "ae_latest.pkl", "optimizer_latest.pkl", "global_latest.pkl", "dataset_norm.pkl"}
+    for folder in ("pppe", "pppe16"):
+        assert {os.path.basename(f) for f in glob.glob(os.path.join(tmp, folder, "*.pkl"))} >= {
+            "ae_latest.pkl", "optimizer_latest.pkl", "global_latest.pkl", "dataset_norm.pkl"}
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [a for v in tree.values() for a in leaves(v)]
+        return [np.asarray(tree)]
+
+    with open(os.path.join(tmp, "pppe16", "ae_latest.pkl"), "rb") as f:
+        arrays = leaves(pickle.load(f))
+    assert arrays and all(a.dtype == np.float32 and np.isfinite(a).all() for a in arrays)
     files = sorted(glob.glob(os.path.join(tmp, "in", "*.ply")))
     codec = Codec(CodecConfig(N0=64, K=32, d=4), *load_inference_params(os.path.join(tmp, "ae")),
                   device="cpu")

@@ -22,7 +22,8 @@ the same numpy clouds.
   * a port checkpoint read by pcc_tpu's load_pppe_checkpoint, and resumed
     by the port;
   * the train CLI for 2 steps, whose ae_latest.pkl the port's PPPE compress
-    and decompress CLIs load.
+    and decompress CLIs load, and for one --bf16 step, whose float32
+    checkpoint the compress CLI serves.
 One jitted pcc_tpu function serves every float64 step.
 """
 
@@ -287,5 +288,11 @@ def test_train_cli_then_compress(tmp_path):
     pppe_pcd_decompress.main([str(tmp_path / "comp" / "*.bin"), str(tmp_path / "dec"),
                               str(model)] + flags)
     assert len(os.listdir(tmp_path / "dec")) == 2
-    with pytest.raises(SystemExit, match="--bf16"):
-        train_pppe_pcd_ae.main(["--bf16"] + flags)
+    # --bf16: one bf16 step, a float32 checkpoint the float32 CLIs serve
+    model16 = tmp_path / "model16"
+    train_pppe_pcd_ae.main(["--train_glob", str(inp / "*.ply"), "--model_save_folder",
+                            str(model16), "--batch_size", "2", "--step_window", "1",
+                            "--max_steps", "1", "--warmup_steps", "1", "--bf16"] + flags)
+    pppe_pcd_compress.main([str(inp / "*.ply"), str(tmp_path / "comp16"), str(model16)]
+                           + flags)
+    assert len(os.listdir(tmp_path / "comp16")) == 2
