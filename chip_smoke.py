@@ -24,7 +24,10 @@ bf16 mixed precision (CodecConfig(compute_dtype="bfloat16"), the CLIs'
 --bf16) on the bf16 instances of the encoder, decoder and stage kernels;
 then the repo's large-scene rooms (65,536 and 100,000 points) through the
 codec, and IPDAE training in bf16 (train --bf16) on the bf16 instances of
-the encoder and its backward.
+the encoder and its backward; then the PN++ families' bf16 training on
+the stage's bf16 store mode and backward; then SetAbstraction and PPPE's
+eval mode in bf16 on the bf16 instances of sa_fused.cu and of the stage's
+"pppe" layout.
 
 Phases (any failed check raises, and the script exits non-zero):
   1. card, power limit, torch and CUDA versions;
@@ -302,10 +305,37 @@ Phases (any failed check raises, and the script exits non-zero):
      cli/train_pppe_pcd_ae.py --bf16 --max_steps 3 into the PPPE compress
      and decompress CLIs;
  37. cli/train.py --model PPPF-AE --N 512 --max_steps 2 with and without
-     --bf16: the --bf16 run's parameters as close to the float32 run's as
-     a float32 repeat's (pcc_tpu's PPPF-AE trainer is float32 under --bf16;
-     the card's float32 step is not bitwise repeatable), the same launches
-     and no bf16 one.
+     --bf16, under torch's deterministic algorithms: the --bf16 run's
+     parameters as close to the float32 run's as a float32 repeat's (0:
+     within 1e-6) (pcc_tpu's PPPF-AE trainer is float32 under --bf16; the
+     card's float32 step repeats bit for bit only with those algorithms),
+     the same launches and no bf16 one;
+ 38. SetAbstraction(knn=16, compute_dtype="bfloat16", fused=True) on
+     phase 17's patches ([4096, 256, 3], the IPDAE serving batch's) with
+     the serving model's weights: one call with every launch counter set
+     to 0 just before and read just after (sa_fused_bf16 1, nothing
+     else), its output the kernel's; the bf16 instance held to
+     sa_fused_plain(bf16=True) (at least BF16_SHARE of the entries
+     bit-equal, every entry within BF16_TOL of the largest, bf16 values,
+     two launches bitwise equal), the float32 instance's output failing
+     that hold (the control); CUDA-event and device times, the plain
+     version's time, the bounds;
+ 39. PPPE in bf16 eval mode (make_pppe_model(PPPEConfig(compute_dtype=
+     "bfloat16")), the CLIs' defaults: N 8192, latent 256, L 7) on 32
+     clouds, the latent head scaled as phase 19's: encode_clouds ->
+     symbols -> decode_latents with the launch counters set to 0 just
+     before and read just after (fps 3, pppe_sa_stage_bf16 2, nothing
+     else; nothing in the decode), walls and the busy share; 4 of the
+     clouds against the CPU port: the global feature under the bf16 hold
+     and the float32 model's (the control) failing it, the latents within
+     BF16_TOL of their largest entry (their bit-equal share and the
+     float32 model's printed beside them), the symbols equal but near a
+     bin's edge, the decoded clouds within BF16_TOL of the CPU's;
+ 40. the bf16 "pppe" instance against its plain version on phase 39's own
+     sa2 and sa3 inputs and on the per-slot route (phase 20's
+     PER_SLOT_MIDDLE-wide middle layer on sa2's inputs, seeded layers
+     rounded): the bf16 hold, the float32 instance failing it, CUDA-event
+     and device times, the plain version's time, the bounds.
 The line before the last is the kernels' JSON record (the IPDAE serving
 path's launch counts for fps, patch_encoder and patch_decoder, the counted
 train steps' for patch_encoder_bwd, the PPPF-AE path's for pppf_sa_stage
@@ -325,7 +355,10 @@ pppf_sa_stage_bf16 with their launches on the bf16 paths; phase 30's FPS
 shapes under fps's `shapes`, its launches as launches_rooms; phases 31-32's
 patch_encoder_bwd_bf16 and bf16_reduce with their launches over the counted
 bf16 train steps, patch_encoder_bf16's per bf16 step; phase 35's
-pppf_sa_stage_bf16_save and pppf_sa_stage_bwd_bf16); the last line is
+pppf_sa_stage_bf16_save and pppf_sa_stage_bwd_bf16; phase 38's
+sa_fused_bf16; phase 39's counted encode's pppe_sa_stage_bf16, its sa2
+and sa3 summed and each under `stages`, the per-slot route under
+`per_slot_route`); the last line is
 {"ok": true, "device": {...}}.
 Without a card it exits 1 and prints no result.
 """
@@ -482,6 +515,7 @@ BF16_SHARE = 0.95
 BF16_TOL = 2.0 ** -7
 BF16_FLOP_PER_S = 989e12
 BF16_CLI_CLOUDS = 4
+PPPE_BF16_CPU_CLOUDS = 4   # phase 39: the PPPE bf16 clouds run again on the CPU port
 # phases 27-29 serve on weights whose last encoder layer is calibrated on
 # the phase's clouds (spread_symbols), the latent's standard deviation this
 # many quantizer steps: at random weights the latent varies between patches
@@ -1770,16 +1804,17 @@ def recording_pppe_stages():
     """Record the inputs of every fused stage call of the PPPE encoder
     while active (models/pppe.py's pppf_sa_fused swapped for a wrapper that
     records and goes on to the kernel). Yields the list of calls, each
-    (new_xyz, xyz, feat, layers, nsample)."""
+    (new_xyz, xyz, feat, layers, nsample); the bf16 model's calls (its
+    layers' W rounded) too."""
     import pcc_tpu_torch.models.pppe as pppe_mod
 
     calls = []
 
-    def recording(new_xyz, xyz, feat, layers, *, nsample, radius, layout):
+    def recording(new_xyz, xyz, feat, layers, *, nsample, radius, layout, bf16=False):
         calls.append((new_xyz.clone(), xyz.clone(), None if feat is None else feat.clone(),
                       [tuple(t.detach().clone() for t in lay) for lay in layers], nsample))
         return pppf_sa_fused(new_xyz, xyz, feat, layers, nsample=nsample, radius=radius,
-                             layout=layout)
+                             layout=layout, bf16=bf16)
 
     saved = pppe_mod.pppf_sa_fused
     pppe_mod.pppf_sa_fused = recording
@@ -2804,6 +2839,14 @@ def bf16_bounds(fp32: float, products: float, io: float):
             bound(fp32 + products, io)[0])
 
 
+def held_share(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(share of a's entries bit-equal to b's, max |a - b|, max |b|, whether
+    a passes bf16_hold's figures against b)."""
+    share = float((a == b).double().mean())
+    err, big = float((a - b).abs().max()), float(b.abs().max())
+    return share, err, big, share >= BF16_SHARE and err <= BF16_TOL * big
+
+
 def bf16_hold(label: str, kern, plain) -> dict:
     """A bf16 kernel against its plain version on the same inputs: every
     output entry bf16-exact, at least BF16_SHARE of them bit-equal, every
@@ -2812,9 +2855,8 @@ def bf16_hold(label: str, kern, plain) -> dict:
     a, b = kern(), plain()
     if not torch.equal(a.to(torch.bfloat16).float(), a):
         raise RuntimeError(f"{label}: output entries that are not bf16 values")
-    share = float((a == b).double().mean())
-    err, big = float((a - b).abs().max()), float(b.abs().max())
-    if not (share >= BF16_SHARE and err <= BF16_TOL * big):
+    share, err, big, held = held_share(a, b)
+    if not held:
         raise RuntimeError(f"{label} vs its plain version: {share:.4f} of the entries "
                            f"bit-equal (at least {BF16_SHARE}), max |diff| {err} "
                            f"(at most {BF16_TOL} * {big})")
@@ -3921,12 +3963,18 @@ def pppf_bf16_cli_phase() -> dict:
     """Phase 37: cli/train.py --model PPPF-AE --N 512 --max_steps 2 with and
     without --bf16 on the same clouds and seed: the --bf16 run is the
     float32 step (pcc_tpu's PPPF-AE trainer computes in float32 under
-    --bf16). The card's float32 PPPF-AE step is not bitwise repeatable (the
-    batch-statistics stages' gather backward adds with atomics; ROADMAP.md
-    §3 open 1), so the run without --bf16 runs twice, and the --bf16 run
-    must lie as close to the first as REPEAT_FACTOR times the second does
-    (each tensor's max |difference| over its largest entry; bit for bit on
-    the CPU, tests/test_torch_port_pn_bf16.py). What fixes the step: the
+    --bf16). The card's float32 PPPF-AE step is not bitwise repeatable by
+    default (the batch-statistics stages' gather backward adds with
+    atomics; ROADMAP.md §3 open 1), and the gap between two runs spreads
+    several times over between calls; so the three runs take torch's
+    deterministic algorithms (main() sets CUBLAS_WORKSPACE_CONFIG, as they
+    ask), under which the step repeats bit for bit on an H100. The run
+    without --bf16 runs twice, and the --bf16 run must lie as close to the
+    first as REPEAT_FACTOR times the second does, or within 1e-6 (each
+    tensor's max |difference| over its largest entry; with the algorithms
+    deterministic the repeat's is 0, so the --bf16 run must equal the first
+    to 1e-6; bit for bit on the CPU, tests/test_torch_port_pn_bf16.py).
+    What fixes the step: the
     --bf16 run launches the same kernels as many times as the float32 run,
     and no bf16 kernel or reduction."""
     import pickle
@@ -3942,21 +3990,26 @@ def pppf_bf16_cli_phase() -> dict:
         for i, pc in enumerate(synthetic_clouds(4, 512, SEED + 41)):
             save_point_cloud(pc, f"c{i}.ply", path=os.path.join(work, "in"))
         trees, launched = [], []
-        for k, bf16 in enumerate((False, True, False)):
-            model = os.path.join(work, f"m{k}")
-            _, l_k = run_cli(
-                f"phase 37 train --model PPPF-AE --N 512{' --bf16' if bf16 else ''}",
-                train.main, ["--train_glob", os.path.join(work, "in", "*.ply"),
-                             "--model_save_folder", model, "--model", "PPPF-AE", "--N", "512",
-                             "--batch_size", "4", "--bn_warmup_steps", "1",
-                             "--max_steps", "2", "--step_window", "1"]
-                + (["--bf16"] if bf16 else []))
-            loaded = []
-            for name in ("ae.pkl", "prob.pkl"):
-                with open(os.path.join(model, name), "rb") as f:
-                    loaded.append(pickle.load(f))
-            trees.append([np.asarray(x, np.float64) for x in _leaves(loaded)])
-            launched.append({k_: v for k_, v in l_k.items() if v})
+        deterministic = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for k, bf16 in enumerate((False, True, False)):
+                model = os.path.join(work, f"m{k}")
+                _, l_k = run_cli(
+                    f"phase 37 train --model PPPF-AE --N 512{' --bf16' if bf16 else ''}",
+                    train.main, ["--train_glob", os.path.join(work, "in", "*.ply"),
+                                 "--model_save_folder", model, "--model", "PPPF-AE", "--N",
+                                 "512", "--batch_size", "4", "--bn_warmup_steps", "1",
+                                 "--max_steps", "2", "--step_window", "1"]
+                    + (["--bf16"] if bf16 else []))
+                loaded = []
+                for name in ("ae.pkl", "prob.pkl"):
+                    with open(os.path.join(model, name), "rb") as f:
+                        loaded.append(pickle.load(f))
+                trees.append([np.asarray(x, np.float64) for x in _leaves(loaded)])
+                launched.append({k_: v for k_, v in l_k.items() if v})
+        finally:
+            torch.use_deterministic_algorithms(deterministic)
 
         def apart(a, b):
             return max(float(np.abs(x - y).max()) / (float(np.abs(x).max()) or 1.0)
@@ -3979,6 +4032,256 @@ def pppf_bf16_cli_phase() -> dict:
     return dict(bf16_gap=bf16_gap, repeat_gap=repeat_gap, launches=launched[1])
 
 
+def sa_bf16_phase(dev, patches, sa_state: dict) -> dict:
+    """Phase 38: SetAbstraction(knn=16, compute_dtype="bfloat16",
+    fused=True) at the IPDAE serving batch's patches (phase 17's [4096, 256,
+    3]) and the serving model's SetAbstraction weights: one call with every
+    launch counter set to 0 just before and read just after (sa_fused_bf16
+    1, nothing else), its output the kernel's; the bf16 instance held to
+    sa_fused_plain(bf16=True) (bf16_hold), the float32 instance's output as
+    the control failing that hold; times and bounds (layers 2-3 on the bf16
+    tensor cores, layer 1, the selection and the max in float32)."""
+    knn = 16
+    module = SetAbstraction(knn=knn, fused=True, compute_dtype="bfloat16").to(dev).eval()
+    module.load_state_dict(sa_state)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    out = module(patches)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launches)
+    want = {name: 0 for name in cuda_lib.KERNELS}
+    want["sa_fused_bf16"] = 1
+    if launches != want:
+        raise RuntimeError(f"SetAbstraction(bf16, fused=True) launches {launches} != {want}")
+    layers, sa16 = module.layers(), module.fused_weights()
+    kern = lambda: sa_fused(patches, sa16, knn, bf16=True)          # noqa: E731
+    plain = lambda: sa_fused_plain(patches, layers, knn, bf16=True)  # noqa: E731
+    a, held = bf16_hold("sa_fused_bf16", kern, plain)
+    if not torch.equal(out, a):
+        raise RuntimeError("SetAbstraction(bf16, fused=True) differs from sa_fused_bf16")
+    ref = plain()
+    c_share, c_err, c_big, c_held = held_share(sa_fused(patches, layers, knn), ref)
+    if c_held:
+        raise RuntimeError(f"control: the float32 instance passes the bf16 hold ({c_share:.4f} "
+                           f"bit-equal, max |diff| {c_err})")
+    P, N = patches.shape[:2]
+    sa_mac = 3 * 32 + 32 * 64 + 64 * 128
+    flops = P * (9.0 * N * N + 2.0 * N * knn * sa_mac)
+    products = 2.0 * P * N * knn * (32 * 64 + 64 * 128)
+    io = nbytes(patches, a, *[t for wb in sa16 for t in wb])
+    rec = dict(name="sa_fused_bf16", route="cuda", source="pcc_tpu_torch/csrc/sa_fused.cu",
+               replaces="pcc_tpu/ops/sa_pallas.py:43", launches=launches["sa_fused_bf16"],
+               library_ms=None, path="SetAbstraction(compute_dtype=bfloat16, fused=True)",
+               shape=[P, N, knn], control_f32=dict(bit_equal_share=c_share, max_abs_err=c_err),
+               **bf16_timing(held, kern, plain, flops - products, products, io))
+    bf16_log(f"phase 38, sa_fused_bf16 on {tuple(patches.shape)}, knn {knn}", rec)
+    log(f"phase 38: SetAbstraction(bf16, fused=True) launches sa_fused_bf16 "
+        f"{rec['launches']}, nothing else, output equal; control, the float32 instance: "
+        f"{c_share:.4f} of the entries bit-equal, max |diff| {c_err:.3g} of {c_big:.3g} "
+        "(fails the hold)")
+    return rec
+
+
+def pppe_encode(model, batch: np.ndarray, cfg: PPPEConfig):
+    """cli/pppe_pcd_compress.py::encode_clouds with the global feature too:
+    [B, N, 3] clouds -> (latents, global features) on the model's device."""
+    from pcc_tpu_torch.ops.normalize import normalize
+
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        pc01 = normalize(torch.from_numpy(np.asarray(batch, np.float32)).to(dev),
+                         margin=cfg.margin)[0]
+        return model.encoder(pc01)
+
+
+def pppe_bf16_phase(dev, smi: str) -> tuple:
+    """Phase 39: PPPE in bf16 eval mode at the CLIs' defaults
+    (make_pppe_model(PPPEConfig(compute_dtype="bfloat16")), N 8192, latent
+    256, L 7) on PPPE_CLOUDS clouds, the latent head scaled as phase 19's
+    (pppe_test_state): the CLIs' encode_clouds -> symbols ->
+    decode_latents with every launch counter set to 0 just before and read
+    just after (fps 3 and pppe_sa_stage_bf16 2 in the encode, nothing else
+    and nothing in the decode), the walls and the busy share; then on
+    PPPE_BF16_CPU_CLOUDS of the clouds against the CPU port: the global
+    feature under the bf16 hold and the float32 model's (on the card) as the
+    control failing it; the latents within BF16_TOL of their largest entry
+    (their bit-equal share and the float32 model's beside them: a bf16
+    rounding flipped by another order of a stage's float32 sums moves gc0's
+    unrounded product, and most latents of its cloud by an ulp); the
+    symbols equal but where the CPU's latent lies within that bound of a
+    bin's edge; the card's decoded clouds within BF16_TOL of the CPU's
+    decode of the same latents (their bit-equal share printed: a bf16
+    rounding that cuBLAS's order of a float32 sum flips moves the layers
+    after it, as in the latents). Returns the figures and the recorded sa2
+    / sa3 stage calls."""
+    from pcc_tpu_torch.cli.pppe_pcd_compress import encode_clouds
+    from pcc_tpu_torch.cli.pppe_pcd_decompress import decode_latents
+
+    cfg = PPPEConfig(compute_dtype="bfloat16")
+    B = PPPE_CLOUDS
+    batch = np.stack(synthetic_clouds(B, cfg.N, SEED + 5))
+    model = make_pppe_model(cfg, seed=SEED)
+    sd = pppe_test_state(model, SEED + 6)
+    model.load_state_dict(sd)
+    model = model.to(dev)
+    with torch.no_grad():
+        decode_latents(model, encode_clouds(model, batch, cfg).cpu().numpy(), "round", cfg.L)
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        lat = encode_clouds(model, batch, cfg)
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        enc_launches = dict(cuda_lib.launches)
+        lat_np = lat.cpu().numpy()
+        sym = np.clip(np.round(lat_np), 0, cfg.L - 1)
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        fine = decode_latents(model, lat_np, "round", cfg.L)
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) * 1e3
+        dec_launches = dict(cuda_lib.launches)
+    want = {name: 0 for name in cuda_lib.KERNELS}
+    want.update(fps=3, pppe_sa_stage_bf16=2)
+    if enc_launches != want or any(dec_launches.values()):
+        raise RuntimeError(f"PPPE bf16 launches: encode {enc_launches} (want {want}), decode "
+                           f"{dec_launches} (want none)")
+    if fine.shape != (B, cfg.N, 3) or not torch.isfinite(fine).all() \
+            or not np.isfinite(lat_np).all():
+        raise RuntimeError(f"PPPE bf16: bad latents or decoded clouds {tuple(fine.shape)}")
+    counts = np.bincount(sym.astype(np.int64).ravel(), minlength=cfg.L).tolist()
+    log(f"phase 39, PPPE bf16 eval: encode of {B} clouds {enc_ms:.1f} ms (wall, "
+        f"{B / enc_ms * 1e3:.1f} clouds/s), decode {dec_ms:.1f} ms on {smi}; launches "
+        f"{ {k: v for k, v in enc_launches.items() if v} } and none in the decode; symbols "
+        f"per bin {counts}")
+    with torch.no_grad():
+        enc_prof = profile("PPPE bf16 encode", lambda: encode_clouds(model, batch, cfg), top=10)
+        dec_prof = profile("PPPE bf16 decode",
+                           lambda: decode_latents(model, lat_np, "round", cfg.L))
+        with recording_pppe_stages() as stage_calls:
+            encode_clouds(model, batch, cfg)
+        n = PPPE_BF16_CPU_CLOUDS
+        lat_card, cond_card = (t.cpu() for t in pppe_encode(model, batch[:n], cfg))
+        cpu_model = make_pppe_model(cfg)
+        cpu_model.load_state_dict(sd)
+        lat_cpu, cond_cpu = pppe_encode(cpu_model, batch[:n], cfg)
+        f32_model = make_pppe_model(PPPEConfig())
+        f32_model.load_state_dict(sd)
+        lat_f32, cond_f32 = (t.cpu() for t in pppe_encode(f32_model.to(dev), batch[:n], cfg))
+        fine_cpu = decode_latents(cpu_model, lat_np[:n], "round", cfg.L)
+    if not torch.equal(lat_card, lat[:n].cpu()):
+        raise RuntimeError("PPPE bf16: encode_clouds and the encoder differ on the card")
+    cond_fig = held_share(cond_card, cond_cpu)
+    ctl_fig = held_share(cond_f32, cond_cpu)
+    lat_fig = held_share(lat_card, lat_cpu)
+    lat32_fig = held_share(lat_f32, lat_cpu)
+    if not cond_fig[3] or ctl_fig[3]:
+        raise RuntimeError(f"PPPE bf16 global feature, card vs CPU port: {cond_fig[:3]} "
+                           f"(must pass the bf16 hold); the float32 model's {ctl_fig[:3]} "
+                           "(must fail it)")
+    if not lat_fig[1] <= BF16_TOL * lat_fig[2]:
+        raise RuntimeError(f"PPPE bf16 latents, card vs CPU port: max |diff| {lat_fig[1]} > "
+                           f"{BF16_TOL} * {lat_fig[2]}")
+    lc = lat_cpu.numpy()
+    sym_cpu = np.clip(np.round(lc), 0, cfg.L - 1)
+    edge = np.abs(np.abs(lc - np.floor(lc)) - 0.5) <= BF16_TOL * lat_fig[2]
+    edge &= (lc > -0.5) & (lc < cfg.L - 0.5)
+    moved = sym[:n] != sym_cpu
+    if (moved & ~edge).any():
+        raise RuntimeError(f"PPPE bf16: {int((moved & ~edge).sum())} symbols differ from the "
+                           "CPU port's away from a bin's edge")
+    dec_fig = held_share(fine[:n].cpu(), fine_cpu)
+    if not dec_fig[1] <= BF16_TOL * dec_fig[2]:
+        raise RuntimeError(f"PPPE bf16 decoded clouds, card vs CPU port: max |diff| "
+                           f"{dec_fig[1]} > {BF16_TOL} * {dec_fig[2]}")
+    log(f"phase 39, PPPE bf16 card vs CPU port on {n} clouds: global feature "
+        f"{cond_fig[0]:.4f} of the entries bit-equal, max |diff| {cond_fig[1]:.3g} of "
+        f"{cond_fig[2]:.3g} (the float32 model's, the control: {ctl_fig[0]:.4f}, "
+        f"{ctl_fig[1]:.3g}); latents {lat_fig[0]:.4f} bit-equal, max |diff| {lat_fig[1]:.3g} "
+        f"of {lat_fig[2]:.3g} (limit {BF16_TOL * lat_fig[2]:.3g}; the float32 model's "
+        f"{lat32_fig[0]:.4f}, {lat32_fig[1]:.3g}); symbols differing {int(moved.sum())} of "
+        f"{moved.size}, {int(edge.sum())} CPU latents within the limit of a bin's edge; "
+        f"decoded clouds {dec_fig[0]:.4f} bit-equal, max |diff| {dec_fig[1]:.3g} of "
+        f"{dec_fig[2]:.3g}")
+    fig = dict(encode_ms=enc_ms, decode_ms=dec_ms, launches=enc_launches["pppe_sa_stage_bf16"],
+               fps_launches=enc_launches["fps"], encode_profile=enc_prof,
+               decode_profile=dec_prof, symbols_per_bin=counts,
+               global_feature=dict(zip(("bit_equal_share", "max_abs_err", "max_abs"),
+                                       cond_fig[:3])),
+               global_feature_f32_control=dict(zip(("bit_equal_share", "max_abs_err"),
+                                                   ctl_fig[:2])),
+               latents=dict(zip(("bit_equal_share", "max_abs_err", "max_abs"), lat_fig[:3])),
+               latents_f32=dict(zip(("bit_equal_share", "max_abs_err"), lat32_fig[:2])),
+               symbols_differ=int(moved.sum()),
+               decoded=dict(zip(("bit_equal_share", "max_abs_err", "max_abs"), dec_fig[:3])))
+    return fig, stage_calls
+
+
+def pppe_bf16_stage_check(stage_calls, launches: int) -> dict:
+    """Phase 40: the bf16 "pppe" instance against its plain version on the
+    path's own sa2 and sa3 inputs (recorded in phase 39, the model's rounded
+    layers) and on the per-slot route (phase 20's: a PER_SLOT_MIDDLE-wide
+    middle layer, seeded layers rounded, on sa2's inputs): bf16_hold, the
+    float32 instance on the same layers as the control failing it, times
+    and bounds (the first layer's product per point and the later layers'
+    per slot on the bf16 tensor cores, the rest in float32)."""
+    if len(stage_calls) != 2:
+        raise RuntimeError(f"the PPPE bf16 encoder made {len(stage_calls)} stage calls, not 2")
+    recs = []
+    new_xyz, xyz, feat, _, nsample = stage_calls[0]
+    g = torch.Generator().manual_seed(SEED + 41)
+    widths = [3 + feat.shape[-1], 128, PER_SLOT_MIDDLE, 256]
+    per_slot = []
+    for a, b in zip(widths[:-1], widths[1:]):
+        sign = torch.where(torch.rand(b, generator=g) < 0.25, -1.0, 1.0)
+        per_slot.append(tuple(t.to(xyz.device) for t in (
+            (torch.rand((a, b), generator=g) * 2 - 1) * a ** -0.5,
+            (torch.rand(b, generator=g) * 2 - 1) * a ** -0.5,
+            (torch.rand(b, generator=g) - 0.5) * 0.2, (torch.rand(b, generator=g) + 0.5) * sign,
+            (torch.rand(b, generator=g) - 0.3) * 0.5)))
+    cases = [(name, *call[:4], "slots") for name, call in zip(("sa2", "sa3"), stage_calls)]
+    cases.append(("sa2 per slot", new_xyz, xyz, feat, bf16_layers(per_slot), "per_slot"))
+    for name, new_xyz, xyz, feat, layers, route in cases:
+        P, S, _ = new_xyz.shape
+        N = xyz.shape[1]
+        widths = [layers[0][0].shape[0]] + [lay[0].shape[1] for lay in layers]
+        if pppe_kernel(widths, N, S, nsample) != route:
+            raise RuntimeError(f"{name}: widths {widths} do not take the {route} route")
+        kw = dict(nsample=nsample, radius=0.0, layout="pppe")
+        kern = lambda: pppf_sa_fused(new_xyz, xyz, feat, layers, bf16=True, **kw)  # noqa: E731
+        plain = lambda: pppf_sa_plain(new_xyz, xyz, feat, layers, bf16=True, **kw)  # noqa: E731
+        before = cuda_lib.launches["pppe_sa_stage_bf16"]
+        a, held = bf16_hold(f"pppe_sa_stage_bf16 {name}", kern, plain)
+        if cuda_lib.launches["pppe_sa_stage_bf16"] != before + 2:
+            raise RuntimeError(f"pppe_sa_stage_bf16 {name}: not one launch a call")
+        c_share, c_err, _, c_held = held_share(pppf_sa_fused(new_xyz, xyz, feat, layers, **kw),
+                                               plain())
+        if c_held:
+            raise RuntimeError(f"control: the float32 \"pppe\" stage passes the bf16 hold on "
+                               f"{name} ({c_share:.4f} bit-equal, max |diff| {c_err})")
+        fp32, products = pppe_work(P, S, N, nsample, widths)
+        io = nbytes(new_xyz, xyz, feat, a, *[t for lay in layers for t in lay])
+        rec = dict(stage=name, route=route, shape=[P, S, N, widths], nsample=nsample,
+                   control_f32=dict(bit_equal_share=c_share, max_abs_err=c_err),
+                   **bf16_timing(held, kern, plain, fp32, products, io))
+        bf16_log(f"phase 40, pppe_sa_stage_bf16 {name} ({route}) widths {widths}", rec)
+        log(f"phase 40, {name}: control, the float32 instance: {c_share:.4f} of the entries "
+            f"bit-equal, max |diff| {c_err:.3g} (fails the hold)")
+        recs.append(rec)
+    path = recs[:2]
+    return dict(name="pppe_sa_stage_bf16", route="cuda",
+                source="pcc_tpu_torch/csrc/pppf_sa_stage.cu",
+                replaces="pcc_tpu/ops/pppf_sa_pallas.py:45", launches=launches,
+                path="PPPE bf16 eval encode (sa2 + sa3)",
+                max_abs_err=max(r["max_abs_err"] for r in path),
+                bit_equal_share=min(r["bit_equal_share"] for r in path),
+                ms=sum(r["ms"] for r in path), device_ms=sum(r["device_ms"] for r in path),
+                plain_ms=sum(r["plain_ms"] for r in path),
+                bound_ms=sum(r["bound_ms"] for r in path), bound_by=path[-1]["bound_by"],
+                bound_fp32_ms=sum(r["bound_fp32_ms"] for r in path), library_ms=None,
+                stages=path, per_slot_route=recs[2])
+
+
 def _leaves(tree) -> list:
     """The arrays of a nested dict / list / tuple of arrays, in key order."""
     if isinstance(tree, dict):
@@ -3990,6 +4293,9 @@ def _leaves(tree) -> list:
 
 def main() -> int:
     t_start = time.perf_counter()
+    # cuBLAS's fixed workspace, which torch's deterministic algorithms (phase
+    # 37) ask for; read when the first cuBLAS handle is made
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -4198,6 +4504,7 @@ def main() -> int:
     # 17. the SetAbstraction kernel
     with torch.no_grad():
         kernels.append(sa_fused_phase(dev, sa_patches, card.ae.sa))
+    sa_state = card.ae.sa.state_dict()                   # phase 38's weights
 
     # 18. evaluation on the card, on the IPDAE path's decoded clouds
     eval_phase(dev, clouds, decoded)
@@ -4278,6 +4585,17 @@ def main() -> int:
     pppe36 = pppe_bf16_train_phase(dev, smi)
     cli37 = pppf_bf16_cli_phase()
     log("phases 35-37: " + json.dumps({"PPPE bf16 train": pppe36, "PPPF-AE --bf16": cli37}))
+
+    # 38. SetAbstraction in bf16 on sa_fused.cu's bf16 instance; 39. PPPE's
+    # bf16 eval mode; 40. the bf16 "pppe" stage on its inputs and the per-slot route
+    with torch.no_grad():
+        kernels.append(sa_bf16_phase(dev, sa_patches, sa_state))
+    del sa_patches
+    pppe39, stage_calls = pppe_bf16_phase(dev, smi)
+    with torch.no_grad():
+        kernels.append(pppe_bf16_stage_check(stage_calls, pppe39["launches"]))
+    del stage_calls
+    log("phases 38-40: " + json.dumps({"PPPE bf16 eval": pppe39}))
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

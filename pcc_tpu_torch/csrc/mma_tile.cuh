@@ -1,4 +1,5 @@
-// Row-tile products on the H100's tensor cores in 3xTF32 (tf32_mma.cuh),
+// Row-tile products on the H100's tensor cores in 3xTF32 (tf32_mma.cuh; one
+// TF32 product on bf16 values),
 // from operands in shared memory, for the stage kernel's "pppe" layout
 // (pppf_sa_stage.cu); and the max over an accumulator's rows, which
 // SetAbstraction alone (sa_fused.cu) shares.
@@ -16,6 +17,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "tf32_mma.cuh"
 
 namespace pcc_tile {
@@ -87,10 +89,38 @@ __device__ __forceinline__ void load_a(const float* a, int lda, int kk, unsigned
 // a second shared load a value, a pass and a barrier a slab and a third slab
 // buffer, and measured 20-28% slower on the "pppe" stage at PPPE's shapes on
 // an H100 (tools/stage_breakdown.py, variant splitonce).
-template <int NT>
+//
+// kBf16 (the bf16 instances): A rounded to bf16 as the warp reads it (a
+// no-op on activations that are bf16 values already) and B bf16 values (the
+// wrapper rounds the weights). A bf16 value is a TF32 value and the product
+// of two is exact, so one TF32 product a k-step gives the sum of the exact
+// products, where float32 operands take three.
+template <int NT, bool kBf16 = false>
 __device__ __forceinline__ void warp_mma(float (&acc)[2][NT][4], const float* a, int lda,
                                          const float* b, int ldb, int ksteps) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if constexpr (kBf16) {
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const int kk = ks * 8;
+      unsigned ar[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* p = a + (mt * 16 + g) * lda + kk + t;
+        ar[mt][0] = __float_as_uint(pcc_bf16::round_bf16(p[0]));
+        ar[mt][1] = __float_as_uint(pcc_bf16::round_bf16(p[8 * lda]));
+        ar[mt][2] = __float_as_uint(pcc_bf16::round_bf16(p[4]));
+        ar[mt][3] = __float_as_uint(pcc_bf16::round_bf16(p[8 * lda + 4]));
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* q = b + (kk + t) * ldb + nt * 8 + g;
+        const unsigned br[2] = {__float_as_uint(q[0]), __float_as_uint(q[4 * ldb])};
+        pcc_mma::mma_tf32(acc[0][nt], ar[0], br);
+        pcc_mma::mma_tf32(acc[1][nt], ar[1], br);
+      }
+    }
+    return;
+  }
   for (int ks = 0; ks < ksteps; ++ks) {
     const int kk = ks * 8;
     unsigned ah[2][4], al[2][4];

@@ -121,6 +121,25 @@
 // float32 FMAs on the CUDA cores; bf16 tensor cores would bound it at 989
 // TFLOP/s, ops/pppf_sa_cuda.py::stage_flops).
 //
+// The bf16 "pppe" instance (pppe_sa_stage_bf16_launch; pcc_tpu's
+// compute_dtype bfloat16 with layout "pppe", PPPE's sa2 and sa3 in bf16
+// eval mode): the slot kernel and the feature block templated on the
+// rounding, and, where they find no tile, the per-slot kernel's bf16
+// instance. W rounded by the wrapper, b, mean, mul and beta float32, as
+// pcc_tpu's stage keeps them. pcc_tpu rounds each entry of a slot's row
+// [x_j - c | f_j], so the first layer still splits per entry: the feature
+// block round(f_j) W1[3:] once per point, then per slot round(x_j - c)
+// W1[:3] (the centred coordinates rounded after the float32 subtraction);
+// only the float32 order of the sum changes. Each layer's relu output is
+// rounded (the last layer's at the end: rounding is monotone, so the
+// rounded max is the max of the rounded values). The products of layers 2
+// .. L and of the feature block take one TF32 mma.sync product a k = 8
+// step on bf16 operands (mma_tile.cuh::warp_mma<NT, true>: a bf16 value is
+// a TF32 value, and the product of two is exact in float32) where float32
+// takes three; bf16 mma.sync m16n8k16 would halve the k-steps again. The
+// bound: the float32 instance's work with the products on the bf16 tensor
+// cores at 989 TFLOP/s.
+//
 // Selection is bit-equal to the plain PyTorch version
 // (pcc_tpu_torch/ops/pppf_sa_cuda.py::pppf_sa_plain): the same distance
 // formulas with one rounding per operation (__f*_rn intrinsics are never
@@ -460,7 +479,8 @@ size_t point_tile(Stage& st, int lda0, int ldb0, size_t budget, bool save) {
 
 // Layout "pppe": the feature block. y[r][o] = sum_k f[r][k] * w[k][o] for
 // the rows r < rows of the points' features f [rows][c] and the first
-// layer's feature rows w = W1[3 .. c + 3) [c][c1]: a 3xTF32 product, a block
+// layer's feature rows w = W1[3 .. c + 3) [c][c1] (kBf16: f rounded, w bf16
+// values, one TF32 product): a 3xTF32 product, a block
 // per kFeatRows x kFeatCols tile of y, k-slabs of f and w double-buffered
 // through shared memory by cp.async (zeros past the edges).
 constexpr int kFeatRows = 128, kFeatCols = 128, kFeatK = 32;
@@ -468,6 +488,7 @@ constexpr int kFeatLdA = kFeatK + 4;   // pcc_tile::a_ld(kFeatK)
 constexpr size_t kFeatSmemBytes =
     (2 * kFeatRows * kFeatLdA + 2 * kFeatK * (kFeatCols + 8)) * sizeof(float);
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 2)
 pppe_feature_kernel(const float* __restrict__ f, int rows, int c, const float* __restrict__ w,
                     int c1, float* __restrict__ y) {
@@ -499,9 +520,9 @@ pppe_feature_kernel(const float* __restrict__ f, int rows, int c, const float* _
     pcc_mma::cp_async_commit();
     pcc_mma::cp_async_wait<1>();
     __syncthreads();
-    warp_mma<8>(acc, as + (s & 1) * kFeatRows * kFeatLdA + wm * 32 * kFeatLdA, kFeatLdA,
-                bs + (s & 1) * kFeatK * ldb + wn * 64, ldb,
-                min(kFeatK, pad8(c) - s * kFeatK) / 8);
+    warp_mma<8, kBf16>(acc, as + (s & 1) * kFeatRows * kFeatLdA + wm * 32 * kFeatLdA,
+                       kFeatLdA, bs + (s & 1) * kFeatK * ldb + wn * 64, ldb,
+                       min(kFeatK, pad8(c) - s * kFeatK) / 8);
     __syncthreads();
   }
 #pragma unroll
@@ -535,7 +556,9 @@ pppe_feature_kernel(const float* __restrict__ f, int rows, int c, const float* _
 // passes fold into the queries' maxima (integer atomicMax on the float's
 // bits in shared memory, from 0: exact, every value being a relu output):
 // where a warp's 32 rows are one query's, first the max over its rows by
-// shuffles. Each query's maxima are written once, at the end.
+// shuffles. Each query's maxima are written once, at the end. kBf16: the
+// centred coordinates and every layer's relu output rounded to bf16 (the
+// last layer's maxima when they are written), the products on bf16 values.
 // The BatchNorm terms of the columns o and o + 1 (zeros from co on), and
 // a value of column o + i through them and relu.
 struct ColTerms {
@@ -562,9 +585,10 @@ __device__ __forceinline__ float bn_relu(float acc, const ColTerms& c, int i) {
 
 constexpr int kL1Cols = 4;   // layer 1 in place: columns a lane holds the terms of at a time
 
-template <int WM, int NT>
+template <int WM, int NT, bool kBf16>
 __global__ void __launch_bounds__(kThreads, NT == 8 ? 2 : 1)
 pppe_slots_kernel(const __grid_constant__ Stage st) {
+  using pcc_bf16::act_round;
   using namespace pcc_tile;
   constexpr int kWN = kWarps / WM, kM = 32 * WM, kCW = 8 * NT * kWN;
   extern __shared__ __align__(16) float smem[];
@@ -607,9 +631,9 @@ pppe_slots_kernel(const __grid_constant__ Stage st) {
       float4 d = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (r < valid) {
         const int j = sel[row0 + r], qi = (row0 + r) / ns;
-        d = make_float4(__int_as_float(j), __ldg(pts + 3 * j) - sq[4 * qi],
-                        __ldg(pts + 3 * j + 1) - sq[4 * qi + 1],
-                        __ldg(pts + 3 * j + 2) - sq[4 * qi + 2]);
+        d = make_float4(__int_as_float(j), act_round<kBf16>(__ldg(pts + 3 * j) - sq[4 * qi]),
+                        act_round<kBf16>(__ldg(pts + 3 * j + 1) - sq[4 * qi + 1]),
+                        act_round<kBf16>(__ldg(pts + 3 * j + 2) - sq[4 * qi + 2]));
       }
       rowc[r] = d;
     }
@@ -670,7 +694,8 @@ pppe_slots_kernel(const __grid_constant__ Stage st) {
             acc = fmaf(d.y, cw[k][0], acc);
             acc = fmaf(d.z, cw[k][1], acc);
             acc = fmaf(d.w, cw[k][2], acc);
-            v = fmaxf(fmaf(bn_shift(acc, cw[k][3], cw[k][4]), cw[k][5], cw[k][6]), 0.0f);
+            v = act_round<kBf16>(
+                fmaxf(fmaf(bn_shift(acc, cw[k][3], cw[k][4]), cw[k][5], cw[k][6]), 0.0f));
           }
           xs[r * ldx + o] = v;
         }
@@ -696,9 +721,9 @@ pppe_slots_kernel(const __grid_constant__ Stage st) {
           pcc_mma::cp_async_commit();
           pcc_mma::cp_async_wait<1>();
           __syncthreads();
-          warp_mma<NT>(acc, xs + wm * 32 * ldx + s * ks, ldx,
-                       slab + (s & 1) * ks * ldw + wn * 8 * NT, ldw,
-                       min(ks, pad8(K) - s * ks) / 8);
+          warp_mma<NT, kBf16>(acc, xs + wm * 32 * ldx + s * ks, ldx,
+                              slab + (s & 1) * ks * ldw + wn * 8 * NT, ldw,
+                              min(ks, pad8(K) - s * ks) / 8);
           __syncthreads();
         }
         const float *b = st.b[l], *mu = st.mu[l], *mul = st.mul[l], *beta = st.beta[l];
@@ -717,8 +742,9 @@ pppe_slots_kernel(const __grid_constant__ Stage st) {
               for (int h = 0; h < 2; ++h) {
                 const int r = wm * 32 + mt * 16 + g + 8 * h;
                 float2 v;
-                v.x = o < co ? bn_relu(acc[mt][nt][2 * h], ct, 0) : 0.0f;
-                v.y = o + 1 < co ? bn_relu(acc[mt][nt][2 * h + 1], ct, 1) : 0.0f;
+                v.x = o < co ? act_round<kBf16>(bn_relu(acc[mt][nt][2 * h], ct, 0)) : 0.0f;
+                v.y = o + 1 < co ? act_round<kBf16>(bn_relu(acc[mt][nt][2 * h + 1], ct, 1))
+                                 : 0.0f;
                 *reinterpret_cast<float2*>(xs + r * ldx + o) = v;
               }
           }
@@ -771,7 +797,7 @@ pppe_slots_kernel(const __grid_constant__ Stage st) {
   }
   __syncthreads();
   float* o = st.out + (static_cast<size_t>(p) * st.s + q0) * cout;
-  for (int e = tid; e < nq * cout; e += kThreads) o[e] = __int_as_float(qmax[e]);
+  for (int e = tid; e < nq * cout; e += kThreads) o[e] = act_round<kBf16>(__int_as_float(qmax[e]));
 }
 
 // Shared memory (floats) of pppe_slots_kernel at kM rows, kCW columns a
@@ -801,6 +827,7 @@ size_t pppe_words(Stage& st, int kM, int kCW, int ks, int qb) {
 // fits.
 constexpr int kNoTile = -1;
 
+template <bool kBf16>
 int launch_pppe(Stage& st, int p, float* y, cudaStream_t strm) {
   const int L = st.n_layers, c1 = st.width[1];
   // the widest output of a layer between the first and the last, and of any but the last
@@ -844,19 +871,21 @@ int launch_pppe(Stage& st, int p, float* y, cudaStream_t strm) {
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (st.c > 0) {
-    err = cudaFuncSetAttribute(pppe_feature_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(pppe_feature_kernel<kBf16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kFeatSmemBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((p * st.n + kFeatRows - 1) / kFeatRows, (c1 + kFeatCols - 1) / kFeatCols);
-    pppe_feature_kernel<<<grid, kThreads, kFeatSmemBytes, strm>>>(st.feat, p * st.n, st.c,
-                                                                  st.w[0] + 3 * c1, c1, y);
+    pppe_feature_kernel<kBf16><<<grid, kThreads, kFeatSmemBytes, strm>>>(
+        st.feat, p * st.n, st.c, st.w[0] + 3 * c1, c1, y);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int wm = plans[plan][0], nt = plans[plan][1];
-  void (*kernel)(Stage) = wm == 4   ? (nt == 8 ? pppe_slots_kernel<4, 8> : pppe_slots_kernel<4, 16>)
-                          : wm == 2 ? pppe_slots_kernel<2, 16>
-                                    : pppe_slots_kernel<1, 16>;
+  void (*kernel)(Stage) = wm == 4   ? (nt == 8 ? pppe_slots_kernel<4, 8, kBf16>
+                                               : pppe_slots_kernel<4, 16, kBf16>)
+                          : wm == 2 ? pppe_slots_kernel<2, 16, kBf16>
+                                    : pppe_slots_kernel<1, 16, kBf16>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -866,7 +895,7 @@ int launch_pppe(Stage& st, int p, float* y, cudaStream_t strm) {
 
 // Per point where the queries' masks fit beside a tile ("pppf"), else per
 // slot; "pppe" per slot where launch_pppe finds no tile. kBf16: the bf16
-// instance ("pppf", serving).
+// instances ("pppf" in serving and store mode, "pppe").
 template <bool kBf16>
 int launch_stage(Stage& st, int p, bool save, int* saved, float* y, cudaStream_t strm) {
   const int s = st.s, n = st.n, nsample = st.nsample, cout = st.width[st.n_layers];
@@ -876,7 +905,7 @@ int launch_stage(Stage& st, int p, bool save, int* saved, float* y, cudaStream_t
   const int lda0 = st.lda, ldb0 = st.ldb;
   size_t bytes = 0;
   if (st.pppe) {
-    const int r = launch_pppe(st, p, y, strm);
+    const int r = launch_pppe<kBf16>(st, p, y, strm);
     if (r != kNoTile) return r;
   } else {
     for (int i = 0; i < 2 && bytes == 0; ++i)
@@ -1030,4 +1059,22 @@ extern "C" int pppf_sa_stage_bf16_save_launch(const float* new_xyz, const float*
   st.gact = gact;
   st.gt = gt;
   return launch_stage<true>(st, p, true, saved, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 instance, layout "pppe" (PPPE's sa2 and sa3 in bf16 eval mode):
+// the arguments of pppf_sa_stage_launch without r2, pppe and the store
+// mode; W bf16-exact (the wrapper rounds it), b, mean, mul and beta
+// float32; y as pppf_sa_stage_launch takes it for "pppe". Each layer's
+// input rows (the centred coordinates and the features) and relu output
+// are rounded to bf16; the selection is the float32 instance's bit for bit.
+extern "C" int pppe_sa_stage_bf16_launch(const float* new_xyz, const float* xyz,
+                                         const float* feat, float* out, int p, int s, int n,
+                                         int c, int nsample, int n_layers,
+                                         const void* const* layers, const int* widths, float* y,
+                                         void* stream) {
+  Stage st;
+  if (!make_stage(st, new_xyz, xyz, feat, out, p, s, n, c, nsample, 0.0f, 1, n_layers, layers,
+                  widths))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_stage<true>(st, p, false, nullptr, y, static_cast<cudaStream_t>(stream));
 }

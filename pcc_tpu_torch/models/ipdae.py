@@ -41,7 +41,6 @@ from pcc_tpu_torch.models.layers import (
 from pcc_tpu_torch.ops.bf16 import check_compute_dtype, grad_round, round_bf16, tile_bf16
 from pcc_tpu_torch.ops.decoder_cuda import (expansion_kmajor, pack_decoder, patch_decoder,
                                             permute_expansion)
-from pcc_tpu_torch.ops.knn import knn_points
 from pcc_tpu_torch.ops.sa_cuda import (PLAIN_CHUNK, bf16_wb, patch_encoder,
                                        patch_encoder_trainable)
 
@@ -55,7 +54,7 @@ class PatchAE(nn.Module):
         super().__init__()
         self.K, self.k, self.d, self.L, self.sa_knn = K, k, d, L, sa_knn
         self.bf16 = check_compute_dtype(compute_dtype)
-        self.sa = SetAbstraction(knn=sa_knn, mlp=(32, 64, 128))
+        self.sa = SetAbstraction(knn=sa_knn, mlp=(32, 64, 128), compute_dtype=compute_dtype)
         self.pn = PointNetFeat(3 + 128, (128, 256, 512, d),
                                relu=(True, True, True, False))
         self.inv_pool = nn.Sequential(
@@ -104,19 +103,16 @@ class PatchAE(nn.Module):
     def encode_unfused(self, patches: torch.Tensor) -> torch.Tensor:
         """encode as pcc_tpu's PatchAE computes it with fused_sa off (its
         AttrCodec's geometry, pcc_tpu/attrib.py:116): in bf16 the
-        SetAbstraction and PointNet MLPs on flax's bf16 Dense rule (the
-        centred neighbours and the concat float32 values, each max over bf16
-        values), plain products, PLAIN_CHUNK patches at a time; in float32
-        `encode`, the same function."""
+        SetAbstraction(fused=False) in bf16 (flax's bf16 Dense rule on the
+        float32 centred neighbours) and the PointNet MLP on flax's rule (the
+        concat a float32 value, the max over bf16 values), plain products,
+        PLAIN_CHUNK patches at a time; in float32 `encode`, the same
+        function."""
         if not self.bf16:
             return self.encode(patches)
         outs = []
         for p in torch.split(patches, PLAIN_CHUNK):
-            _, _, grouped = knn_points(p, p, K=self.sa_knn, return_nn=True)
-            h = grouped - p[..., None, :]
-            for i, c in enumerate(self.sa.convs()):
-                h = torch.relu(dense(c, h, True, x_bf16=i > 0))
-            x = torch.cat([p, h.amax(dim=-2)], dim=-1)
+            x = torch.cat([p, self.sa(p)], dim=-1)
             outs.append(mlp_bf16(self.pn, x, x_bf16=False).amax(dim=-2))
         return sigmoid_spread(torch.cat(outs), self.L)
 

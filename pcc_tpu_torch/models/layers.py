@@ -20,9 +20,11 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from pcc_tpu_torch.ops.bf16 import flax_dense, grad_round, round_bf16, sigmoid_spread_bf16
+from pcc_tpu_torch.ops.bf16 import (check_compute_dtype, flax_dense, grad_round, max_bf16,
+                                    round_bf16, sigmoid_spread_bf16)
 from pcc_tpu_torch.ops.knn import knn_points
-from pcc_tpu_torch.ops.sa_cuda import sa_fused
+from pcc_tpu_torch.ops.pppf_sa_cuda import fold_bn
+from pcc_tpu_torch.ops.sa_cuda import bf16_wb, sa_fused
 from pcc_tpu_torch.parallel.mesh import global_mean, is_distributed
 
 
@@ -163,6 +165,22 @@ def batch_norm_train(h: torch.Tensor, bn: nn.BatchNorm2d, bf16: bool = False) ->
     return round_bf16(y) if bf16 else y
 
 
+def batch_norm_eval(h: torch.Tensor, bn: nn.BatchNorm2d, bf16: bool = False) -> torch.Tensor:
+    """BatchNorm of h [..., C] at bn's running statistics, as
+    flax.linen.BatchNorm(use_running_average=True) computes it: (h - mean)
+    * (rsqrt(var + eps) * scale) + bias in float32 (ops/pppf_sa_cuda.py::
+    fold_bn's terms, which the fused stage takes too). The running
+    statistics are read, never updated. bf16: BatchNorm(dtype=bfloat16) on
+    a bf16 Dense result: h enters unrounded, as in training (XLA keeps the
+    bias add's excess precision where h goes straight into the float32
+    normalization: `dense(..., to_float32=True)`), the arithmetic is the
+    same float32 with the parameters and statistics float32
+    (force_float32_reductions), and the output is rounded once to bf16."""
+    mean, mul, bias = fold_bn(bn)
+    y = (h - mean) * mul + bias
+    return round_bf16(y) if bf16 else y
+
+
 def ste_round(x: torch.Tensor) -> torch.Tensor:
     """Straight-through rounding: round forward, identity gradient
     (reference STEQuantize, AE.py:72-85)."""
@@ -221,18 +239,41 @@ class SetAbstraction(nn.Module):
     fused=True evaluates a 3-D input with ops/sa_cuda.py::sa_fused (the
     CUDA kernel on the card, its plain version on the CPU), as pcc_tpu's
     fused flag routes it to its Pallas kernel: inference only, no
-    backward. The state_dict is the same either way."""
+    backward. The state_dict is the same either way.
+
+    compute_dtype "bfloat16" is pcc_tpu's SetAbstraction(dtype=bfloat16),
+    parameters float32, and its fused flag changes the result: fused=True
+    runs sa_fused's bf16 instance (_sa_kernel's rounding: every weight and
+    bias, the centred neighbours and each layer's relu output, products and
+    bias adds float32) on the weights rounded once (`fused_weights`);
+    fused=False runs flax's bf16 Dense rule layer by layer (`dense`: the
+    product and the bias add each rounded), as pcc_tpu's
+    PointwiseMLP(dtype=bfloat16) computes it, then the max. Either way the
+    output holds bf16 values as float32 (pcc_tpu's module returns them as a
+    bf16 array), as `dense` gives them."""
 
     def __init__(self, knn: int = 16, mlp: Sequence[int] = (32, 64, 128),
-                 fused: bool = False):
+                 fused: bool = False, compute_dtype: str = "float32"):
         super().__init__()
         self.knn = knn
         self.fused = fused
+        self.bf16 = check_compute_dtype(compute_dtype)
         cin = 3
         for i, f in enumerate(mlp):
             self.add_module(f"conv{i}", PointConv(cin, f))
             cin = f
         self.n_layers = len(mlp)
+        # the bf16 kernel's rounded weights, made once per weights in eval
+        # mode (fused_weights)
+        self._cache = None
+        self.register_load_state_dict_post_hook(SetAbstraction._drop_cache)
+
+    def _drop_cache(self, *_) -> None:
+        self._cache = None
+
+    def train(self, mode: bool = True):
+        self._drop_cache()
+        return super().train(mode)
 
     def convs(self):
         return [getattr(self, f"conv{i}") for i in range(self.n_layers)]
@@ -241,11 +282,27 @@ class SetAbstraction(nn.Module):
         """[([in, out] kernel, bias)] per layer, for the fused kernels."""
         return [(c.kernel(), c.bias) for c in self.convs()]
 
+    def fused_weights(self):
+        """The fused kernel's ([in, out] weight, bias) pairs: `layers`; in
+        bf16 rounded to bf16 (ops/sa_cuda.py::bf16_wb), in eval mode once
+        per weights."""
+        if not self.bf16:
+            return self.layers()
+        key = weights_key(list(self.parameters()))
+        if self._cache is not None and self._cache[0] == key:
+            return self._cache[1]
+        with torch.no_grad():
+            weights = bf16_wb(self.layers())
+        if not self.training:
+            self._cache = (key, weights)
+        return weights
+
     def forward(self, xyz: torch.Tensor) -> torch.Tensor:
         if self.fused and xyz.dim() == 3:
-            return sa_fused(xyz, self.layers(), self.knn)
+            return sa_fused(xyz, self.fused_weights(), self.knn, self.bf16)
         _, _, grouped = knn_points(xyz, xyz, K=self.knn, return_nn=True)
         x = grouped - xyz[..., None, :]                     # [B, N, knn, 3]
-        for c in self.convs():
-            x = torch.relu(c(x))
-        return x.amax(dim=-2)
+        for i, c in enumerate(self.convs()):
+            # in bf16 the centred neighbours are a float32 value
+            x = torch.relu(dense(c, x, self.bf16, x_bf16=i > 0))
+        return max_bf16(x, -2) if self.bf16 else x.amax(dim=-2)

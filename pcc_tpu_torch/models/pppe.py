@@ -40,9 +40,17 @@ result and the global feature are cast to float32
 (pcc_tpu/models/pppe.py:179-181); the quantizer float32; PCNDecoderSmall
 on flax's Dense, its two outputs cast to float32 (pppe.py:199-204; the
 coarse cloud's after a reshape, which keeps its bf16 rounding). The
-probability model takes no dtype in pcc_tpu and stays float32. The bf16
-eval mode (sa2 / sa3 on the stage kernel's bf16 "pppe" layout) is the next
-slice and raises.
+probability model takes no dtype in pcc_tpu and stays float32. Its bf16 eval
+mode is pcc_tpu's make_pppe_model(cfg, fused=True) in eval mode (whose
+fused flag changes bf16 results: the port follows fused=True, as in
+float32): sa1's branches on flax's bf16 Dense and its bf16 BatchNorm at the
+running statistics (layers.batch_norm_eval, which updates nothing), relu
+and the max; sa2 and sa3 on the stage kernel's bf16 "pppe" instance
+(pppf_sa_fused(..., bf16=True)) on weights rounded once per weights and
+statistics, sa1's bf16 features going in as float32 values
+(pcc_tpu/models/pppe.py:93) and the stage's bf16 values coming out; the
+global max, gc0 and gc_bn at the running statistics, relu, gc1 and the
+casts to float32; the quantizer float32 and the decoder as in training.
 """
 
 from __future__ import annotations
@@ -53,11 +61,12 @@ import torch
 from torch import nn
 
 from pcc_tpu_torch.config import PPPEConfig
-from pcc_tpu_torch.models.layers import PointConv, batch_norm_train, dense, torch_dense_init_
+from pcc_tpu_torch.models.layers import (PointConv, batch_norm_eval, batch_norm_train, dense,
+                                         torch_dense_init_, weights_key)
 from pcc_tpu_torch.ops.bf16 import check_compute_dtype, gather_bf16, max_bf16
 from pcc_tpu_torch.ops.fps import fps_batch
 from pcc_tpu_torch.ops.knn import knn_gather, knn_points
-from pcc_tpu_torch.ops.pppf_sa_cuda import fold_bn, pppf_sa_fused
+from pcc_tpu_torch.ops.pppf_sa_cuda import bf16_layers, fold_bn, pppf_sa_fused
 
 
 def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -82,17 +91,11 @@ def quantize_st(x: torch.Tensor, min_val: float, max_val: float, levels: int) ->
     return clip(y, 0.0, levels - 1.0)
 
 
-def bn_eval(h: torch.Tensor, bn) -> torch.Tensor:
-    """BatchNorm at its running statistics on h [..., C], flax's arithmetic:
-    (h - mean) * (rsqrt(var + eps) * scale) + bias."""
-    mean, mul, bias = fold_bn(bn)
-    return (h - mean) * mul + bias
-
-
-def bn(h: torch.Tensor, module: nn.Module, norm) -> torch.Tensor:
-    """`norm`'s BatchNorm of h: on the batch's statistics (running ones
-    updated) when `module` trains, else on the running statistics."""
-    return batch_norm_train(h, norm) if module.training else bn_eval(h, norm)
+def bn(h: torch.Tensor, module: nn.Module, norm, bf16: bool = False) -> torch.Tensor:
+    """`norm`'s BatchNorm of h, flax's (bf16: BatchNorm(dtype=bfloat16)):
+    on the batch's statistics (running ones updated) when `module` trains,
+    else on the running statistics."""
+    return (batch_norm_train if module.training else batch_norm_eval)(h, norm, bf16)
 
 
 def conv_bn_relu(cin: int, features: Sequence[int]) -> nn.ModuleList:
@@ -115,17 +118,30 @@ class PointNetSetAbstractionKNN(nn.Module):
         super().__init__()
         self.npoint, self.K, self.bf16 = npoint, K, bf16
         self.mlp_stack = conv_bn_relu(cin, mlp)
+        self._bf16_cache = None
 
     def layers(self):
         """[(W [in, out], b, mean, mul, bias)] per layer, BatchNorm folded."""
         return [(m[0].kernel(), m[0].bias, *fold_bn(m[1])) for m in self.mlp_stack]
+
+    def stage_layers(self):
+        """The fused stage's layers: `layers`; in bf16 with each W rounded
+        (ops/pppf_sa_cuda.py::bf16_layers), made once per weights and
+        running statistics."""
+        if not self.bf16:
+            return self.layers()
+        key = weights_key([*self.parameters(), *self.buffers()])
+        if self._bf16_cache is None or self._bf16_cache[0] != key:
+            with torch.no_grad():
+                self._bf16_cache = (key, bf16_layers(self.layers()))
+        return self._bf16_cache[1]
 
     def stack(self, x: torch.Tensor) -> torch.Tensor:
         """The Conv + BatchNorm + ReLU stack and the max over the K (dim 2)."""
         if self.bf16:
             for m in self.mlp_stack:
                 h = dense(m[0], x, True, to_float32=True)
-                x = torch.relu(batch_norm_train(h, m[1], bf16=True))
+                x = torch.relu(bn(h, self, m[1], bf16=True))
             return max_bf16(x, 2)
         for m in self.mlp_stack:
             x = torch.relu(bn(m[0](x), self, m[1]))
@@ -136,17 +152,14 @@ class PointNetSetAbstractionKNN(nn.Module):
         """precomputed: (new_xyz, knn_idx, grouped_xyz) at K' >= self.K from
         a sibling branch sharing its centroids (the MSG stage): the leading K
         slots of a sorted larger selection are this branch's own."""
-        if self.bf16 and not self.training:
-            raise NotImplementedError("PPPE's bf16 eval mode (sa2 / sa3 on the stage kernel's "
-                                      "bf16 \"pppe\" layout) is not ported yet: the next "
-                                      "slice; bf16 trains, and serving is float32")
         if precomputed is None:
             new_xyz = centroids(xyz, self.npoint)
             if not self.training:
                 return new_xyz, pppf_sa_fused(
                     new_xyz, xyz.contiguous(),
                     None if features is None else features.contiguous(),
-                    self.layers(), nsample=self.K, radius=0.0, layout="pppe")
+                    self.stage_layers(), nsample=self.K, radius=0.0, layout="pppe",
+                    bf16=self.bf16)
             _, knn_idx, grouped_xyz = knn_points(new_xyz, xyz, K=self.K, return_nn=True)
         else:
             new_xyz, knn_idx, grouped_xyz = precomputed
@@ -212,7 +225,7 @@ class PointNet2EncoderFull(nn.Module):
         if self.bf16:
             global_feat = max_bf16(feat, 1)                     # [B, 512]
             h = dense(self.global_conv[0], global_feat, True, to_float32=True)
-            h = torch.relu(batch_norm_train(h, self.global_conv[1], bf16=True))
+            h = torch.relu(bn(h, self, self.global_conv[1], bf16=True))
             return dense(self.global_conv[3], h, True, to_float32=True), global_feat
         global_feat = feat.amax(dim=1)                          # [B, 512]
         h = torch.relu(bn(self.global_conv[0](global_feat), self, self.global_conv[1]))

@@ -243,11 +243,13 @@ def flax_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
     and never rounds it: the sum of the two bf16 values in float32.
     Differentiable with the module docstring's rules; x_bf16=False: x is a
     float32 value, whose cotangent stays float32. b None: a Dense without
-    bias, its rounded product."""
+    bias, its rounded product, whose rounding is then the last: with
+    round_out=False (PPPE's bias-free gc0 into its bf16 BatchNorm) XLA
+    keeps the product unrounded too."""
     xr = round_bf16(x) if x_bf16 else round_keep_grad(x)
-    y = round_bf16(xr @ round_bf16(w))
+    y = xr @ round_bf16(w)
     if b is not None:
-        y = _BiasAddBf16.apply(y, b)
+        y = _BiasAddBf16.apply(round_bf16(y), b)
     return round_bf16(y) if round_out else grad_round(y)
 
 

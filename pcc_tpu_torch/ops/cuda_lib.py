@@ -10,8 +10,9 @@ Every C entry point launches on the stream it is given and returns
 cudaGetLastError() as an int; the wrappers raise on a non-zero value. Two
 kernels may share a source (fps and fps_int, the float32 and int32
 instances of csrc/fps.cu; the float32 and bf16 instances of the encoder,
-its backward, the decoder, the stage kernel (and its store mode) and the stage
-backward): they share its library, and each has its own
+its backward, the decoder, SetAbstraction alone, the stage kernel (its
+"pppe" layout and its store mode) and the stage backward): they share its
+library, and each has its own
 entry point `<name>_launch` and its own launch count.
 `launches` counts, per kernel, the launches the wrappers made, so a run can
 show that its path went through the kernels.
@@ -51,6 +52,9 @@ KERNELS = {
     "chamfer_fwd": ("chamfer_fwd.cu", ("--fmad=false",)),
     "chamfer_bwd": ("chamfer_bwd.cu", ("--fmad=false",)),
     "sa_fused": ("sa_fused.cu", ()),
+    # the bf16 instances of SetAbstraction alone and of the "pppe" stage
+    "sa_fused_bf16": ("sa_fused.cu", ()),
+    "pppe_sa_stage_bf16": ("pppf_sa_stage.cu", ()),
     # XLA's bf16 reduction (bf16 training's bias gradients), order for order
     "bf16_reduce": ("bf16_reduce.cu", ()),
 }

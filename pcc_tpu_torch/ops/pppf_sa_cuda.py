@@ -13,11 +13,12 @@ float32 operations in the same order); the products sum in another order,
 so outputs agree to float32 rounding. `pppf_sa_points` and
 `pppe_sa_points` are the per-point forms the kernels compute, each equal to
 the per-slot plain version up to the order of its sums. With bf16=True
-(layout "pppf") the bf16 instance of the kernel runs
-(`pppf_sa_plain(..., bf16=True)` on the CPU), rounding where pcc_tpu's
-bf16 stage rounds: W (`bf16_layers`), each layer's input rows and each
-relu output; b and the BatchNorm terms stay float32; in its store mode
-it keeps the rounded inputs for the bf16 backward.
+the bf16 instance of the kernel runs (`pppf_sa_plain(..., bf16=True)` on
+the CPU), rounding where pcc_tpu's bf16 stage rounds
+(pppf_sa_pallas.py:60-120): W (`bf16_layers`), each layer's input rows
+(in "pppe" the xyz part after its centring on the query) and each relu
+output; b and the BatchNorm terms stay float32; in its store mode
+("pppf") it keeps the rounded inputs for the bf16 backward.
 
 `pppf_sa_bwd` is the stage's gradient against a cotangent [P, S, C_out],
 layout "pppf", BatchNorm in its eval-affine form (frozen running
@@ -51,6 +52,7 @@ _BF16_ARGTYPES = ([cuda_lib.PTR] * 4 + [cuda_lib.INT] * 5 + [ctypes.c_float] + [
 _BWD_ARGTYPES = ([cuda_lib.PTR] * 4 + [cuda_lib.INT] * 5 + [ctypes.c_float] + [cuda_lib.INT]
                  + [cuda_lib.PTR] * 10 + [ctypes.c_longlong, cuda_lib.INT, cuda_lib.PTR])
 _BF16_SAVE_ARGTYPES = _BF16_ARGTYPES[:-1] + [cuda_lib.PTR] * 5
+_PPPE_BF16_ARGTYPES = ([cuda_lib.PTR] * 4 + [cuda_lib.INT] * 6 + [cuda_lib.PTR] * 4)
 _BWD_BF16_ARGTYPES = _BWD_ARGTYPES[:-1] + [cuda_lib.PTR] * 4 + [cuda_lib.INT, cuda_lib.PTR]
 LAYOUTS = ("pppf", "pppe")
 MAX_SLOTS = 254        # csrc/pppf_sa_stage_bwd.cu: kMaxSlots, the bf16 backward's nsample
@@ -98,8 +100,9 @@ def pppf_sa_plain(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
     a chunk of patches at a time to bound the memory of the grouped
     activations [chunk, S, nsample, C]. bf16 (pcc_tpu's
     pppf_sa_pallas.py:90-102): W a bf16 value (`bf16_layers`), each layer's
-    input rows rounded to bf16, a float32 product + b, the BatchNorm affine
-    and relu in float32, the output rounded to bf16."""
+    input rows rounded to bf16 ("pppe": the xyz part after its centring),
+    a float32 product + b, the BatchNorm affine and relu in float32, the
+    output rounded to bf16."""
     if layout not in LAYOUTS:
         raise ValueError(f"pppf_sa: unknown layout {layout!r}")
     P, S, _ = new_xyz.shape
@@ -334,12 +337,12 @@ def pppf_sa_fused(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
     without features), then the slots, in the one launch; at widths where
     that kernel has no tile (`pppe_kernel`), the per-slot kernel.
 
-    bf16: the bf16 instance (launch counter "pppf_sa_stage_bf16", and
-    "pppf_sa_stage_bf16_save" in its store mode), layout "pppf", on layers
-    whose W are bf16 values (`bf16_layers`); its store mode writes the
-    rounded layer inputs, which the bf16 backward's weight gradients read.
-    The bf16 "pppe" layout is the next slice (PointCloudAE's bf16 serving)
-    and raises.
+    bf16: the bf16 instance, on layers whose W are bf16 values
+    (`bf16_layers`): layout "pppf" (launch counter "pppf_sa_stage_bf16",
+    and "pppf_sa_stage_bf16_save" in its store mode, which writes the
+    rounded layer inputs that the bf16 backward's weight gradients read)
+    and "pppe" (launch counter "pppe_sa_stage_bf16": the slot kernel or the
+    per-slot kernel, as in float32).
 
     With `save` (layout "pppf"; the train step's forward), (out, saved):
     the kernel's store mode also writes what its backward would otherwise
@@ -349,10 +352,6 @@ def pppf_sa_fused(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
     (the per-slot kernel runs where the queries' masks do not fit)."""
     if save and layout != "pppf":
         raise ValueError("pppf_sa_fused: save applies to the \"pppf\" layout")
-    if bf16 and layout != "pppf":
-        raise ValueError("pppf_sa_fused: the bf16 instance takes the \"pppf\" layout; the "
-                         "bf16 \"pppe\" layout is not ported yet (the next slice, with "
-                         "PPPE's bf16 serving)")
     if new_xyz.device.type == "cpu":
         out = pppf_sa_plain(new_xyz, xyz, feat, layers, nsample=nsample, radius=radius,
                             layout=layout, bf16=bf16)
@@ -368,9 +367,21 @@ def pppf_sa_fused(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
         bufs = (torch.empty(ws["sel"], dtype=torch.int32, device=dev),
                 torch.empty(ws["act"], dtype=torch.float32, device=dev),
                 torch.empty(ws["t"], dtype=torch.float32, device=dev))
+    # "pppe": the first layer's feature block, once per point, where the
+    # slot kernel runs
+    y = (torch.empty((P, N, widths[1]), dtype=torch.float32, device=dev)
+         if layout == "pppe" and feat is not None
+         and pppe_plan(widths, N, S, nsample) is not None else None)
+    ptrs = (ctypes.c_void_p * (5 * len(layers)))(
+        *[t.data_ptr() for lay in layers for t in lay])
+    if bf16 and layout == "pppe":
+        cuda_lib.launch("pppe_sa_stage_bf16", _PPPE_BF16_ARGTYPES, new_xyz.data_ptr(),
+                        xyz.data_ptr(), None if feat is None else feat.data_ptr(),
+                        out.data_ptr(), P, S, N, 0 if feat is None else feat.shape[2], nsample,
+                        len(layers), ptrs, (ctypes.c_int * len(widths))(*widths),
+                        None if y is None else y.data_ptr(), cuda_lib.stream_ptr(new_xyz))
+        return out
     if bf16:
-        ptrs = (ctypes.c_void_p * (5 * len(layers)))(
-            *[t.data_ptr() for lay in layers for t in lay])
         args = [new_xyz.data_ptr(), xyz.data_ptr(), None if feat is None else feat.data_ptr(),
                 out.data_ptr(), P, S, N, 0 if feat is None else feat.shape[2], nsample,
                 _radius2(radius), len(layers), ptrs, (ctypes.c_int * len(widths))(*widths)]
@@ -382,13 +393,6 @@ def pppf_sa_fused(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
                         *[b.data_ptr() for b in bufs], ctypes.addressof(done),
                         cuda_lib.stream_ptr(new_xyz))
         return out, (bufs if done.value else None)
-    # "pppe": the first layer's feature block, once per point, where the
-    # slot kernel runs
-    y = (torch.empty((P, N, widths[1]), dtype=torch.float32, device=dev)
-         if layout == "pppe" and feat is not None
-         and pppe_plan(widths, N, S, nsample) is not None else None)
-    ptrs = (ctypes.c_void_p * (5 * len(layers)))(
-        *[t.data_ptr() for lay in layers for t in lay])
     cuda_lib.launch(
         "pppf_sa_stage", _ARGTYPES, new_xyz.data_ptr(), xyz.data_ptr(),
         None if feat is None else feat.data_ptr(), out.data_ptr(), P, S, N,

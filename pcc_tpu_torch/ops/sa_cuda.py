@@ -40,7 +40,11 @@ calls: forward `patch_encoder` with its winners, backward
 [P, N, 128] (pcc_tpu's TPU kernel _sa_kernel, entry sa_fused): the CUDA
 kernel csrc/sa_fused.cu, the encoder's selection (csrc/encoder_common.cuh::
 knn_of) with layers 2 and 3 on the tensor cores, on CUDA tensors;
-`sa_fused_plain` on CPU tensors. Like pcc_tpu's, it has no backward. The
+`sa_fused_plain` on CPU tensors. Like pcc_tpu's, it has no backward. With
+bf16=True its bf16 instance runs (launch counter "sa_fused_bf16"; the plain
+version `sa_fused_plain(..., bf16=True)`), rounding where _sa_kernel rounds
+(sa_pallas.py:63-80): every weight and bias, the centred neighbours before
+layer 1 and every layer's relu output; products and bias adds float32. The
 kernels' design notes (what bounds them on an H100, what they do about
 that) are at the top of their sources.
 """
@@ -151,25 +155,32 @@ def patch_encoder_plain(patches: torch.Tensor, sa_wb, pn_wb, knn: int,
     return torch.cat(outs)
 
 
-def sa_fused_plain(patches: torch.Tensor, sa_wb, knn: int) -> torch.Tensor:
+def sa_fused_plain(patches: torch.Tensor, sa_wb, knn: int, bf16: bool = False) -> torch.Tensor:
     """SetAbstraction alone, [P, N, 3] f32 -> [P, N, 128], in plain PyTorch,
-    PLAIN_CHUNK patches at a time."""
-    return torch.cat([sa_features(p, select_nearest(sq_dists(p, p), knn), sa_wb)
+    PLAIN_CHUNK patches at a time. bf16: pcc_tpu's _sa_kernel with
+    compute_dtype bfloat16, every weight and bias rounded (`bf16_wb`), then
+    `sa_features` in bf16: bf16 values in float32 out."""
+    if bf16:
+        sa_wb = bf16_wb(sa_wb)
+    return torch.cat([sa_features(p, select_nearest(sq_dists(p, p), knn), sa_wb, bf16)
                       for p in torch.split(patches, PLAIN_CHUNK)])
 
 
-def sa_fused(patches: torch.Tensor, sa_wb, knn: int) -> torch.Tensor:
+def sa_fused(patches: torch.Tensor, sa_wb, knn: int, bf16: bool = False) -> torch.Tensor:
     """SetAbstraction alone (pcc_tpu's sa_fused): [P, N, 3] f32 patches ->
     per-point features [P, N, 128] f32, the CUDA kernel on CUDA tensors, the
     plain version on CPU tensors. sa_wb: [([in, out] weight, [out] bias)]
-    for 3 -> 32 -> 64 -> 128. Raises where a gradient would be needed: the
-    kernel has no backward, as pcc_tpu's has none."""
+    for 3 -> 32 -> 64 -> 128. bf16: the bf16 instance (launch counter
+    "sa_fused_bf16"), which rounds every weight and bias as it loads them,
+    a no-op on `bf16_wb`'s (SetAbstraction keeps those). Raises where a
+    gradient would be needed: the kernel has no backward, as pcc_tpu's has
+    none."""
     flat = [t for wb in sa_wb for t in wb]
     if torch.is_grad_enabled() and any(t.requires_grad for t in [patches] + flat):
         raise RuntimeError("sa_fused has no backward: call it under torch.no_grad() "
                            "(SetAbstraction(fused=True) is for inference)")
     if patches.device.type == "cpu":
-        return sa_fused_plain(patches, sa_wb, knn)
+        return sa_fused_plain(patches, sa_wb, knn, bf16)
     cuda_lib.require_cuda("sa_fused", patches, torch.float32, 3)
     P, N, C = patches.shape
     if C != 3 or knn not in KNN_SUPPORTED or N % 16 or not knn <= N <= MAX_POINTS:
@@ -184,8 +195,8 @@ def sa_fused(patches: torch.Tensor, sa_wb, knn: int) -> torch.Tensor:
     if any(t.data_ptr() % 16 for t in flat):
         raise ValueError("sa_fused: weights and biases must be 16-byte aligned")
     out = torch.empty((P, N, SA_WIDTHS[-1]), dtype=torch.float32, device=patches.device)
-    cuda_lib.launch("sa_fused", _SA_ARGTYPES, patches.data_ptr(), P, N, knn,
-                    *[t.data_ptr() for t in flat], out.data_ptr(),
+    cuda_lib.launch("sa_fused_bf16" if bf16 else "sa_fused", _SA_ARGTYPES, patches.data_ptr(),
+                    P, N, knn, *[t.data_ptr() for t in flat], out.data_ptr(),
                     cuda_lib.stream_ptr(patches))
     return out
 

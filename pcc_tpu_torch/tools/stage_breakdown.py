@@ -54,54 +54,66 @@ from pcc_tpu_torch.ops import sa_cuda
 from pcc_tpu_torch.tools.variants import build_variants, entry
 
 PARTS = ("pppf", "pppe", "sa")
+# the slot kernel's products, as the source writes them (since the bf16
+# instance, and before it)
+_CALLS = ("          warp_mma<NT, kBf16>(acc, xs + wm * 32 * ldx + s * ks, ldx,\n"
+          "                              slab + (s & 1) * ks * ldw + wn * 8 * NT, ldw,\n"
+          "                              min(ks, pad8(K) - s * ks) / 8);",
+          "          warp_mma<NT>(acc, xs + wm * 32 * ldx + s * ks, ldx,\n"
+          "                       slab + (s & 1) * ks * ldw + wn * 8 * NT, ldw,\n"
+          "                       min(ks, pad8(K) - s * ks) / 8);")
+
+
 # the "pppe" slot kernel with each k-slab of weights split hi / lo once,
-# into a third slab buffer, and the products reading both halves
-_SPLIT_ONCE = [
-    ("  const size_t tiles = L > 1 ? static_cast<size_t>(kM) * st.lda +\n"
-     "                                   2 * static_cast<size_t>(ks)",
-     "  const size_t tiles = L > 1 ? static_cast<size_t>(kM) * st.lda +\n"
-     "                                   3 * static_cast<size_t>(ks)"),
-    ("constexpr int kL1Cols = 4;",
-     "template <int NT>\n"
-     "__device__ __forceinline__ void warp_mma_split(float (&acc)[2][NT][4], const float* a,\n"
-     "                                               int lda, const float* bh, const float* bl,\n"
-     "                                               int ldb, int ksteps) {\n"
-     "  using namespace pcc_tile;\n"
-     "  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;\n"
-     "  for (int ks = 0; ks < ksteps; ++ks) {\n"
-     "    const int kk = ks * 8;\n"
-     "    unsigned ah[2][4], al[2][4];\n"
-     "    load_a(a, lda, kk, ah, al);\n"
-     "#pragma unroll\n"
-     "    for (int nt = 0; nt < NT; ++nt) {\n"
-     "      const int o = (kk + t) * ldb + nt * 8 + g;\n"
-     "      const unsigned h[2] = {__float_as_uint(bh[o]), __float_as_uint(bh[o + 4 * ldb])};\n"
-     "      const unsigned l[2] = {__float_as_uint(bl[o]), __float_as_uint(bl[o + 4 * ldb])};\n"
-     "      mma_3xtf32(acc[0][nt], ah[0], al[0], h, l);\n"
-     "      mma_3xtf32(acc[1][nt], ah[1], al[1], h, l);\n"
-     "    }\n"
-     "  }\n"
-     "}\n\n"
-     "constexpr int kL1Cols = 4;"),
-    ("          warp_mma<NT>(acc, xs + wm * 32 * ldx + s * ks, ldx,\n"
-     "                       slab + (s & 1) * ks * ldw + wn * 8 * NT, ldw,\n"
-     "                       min(ks, pad8(K) - s * ks) / 8);",
-     "          {\n"
-     "            float* hb = slab + (s & 1) * ks * ldw;\n"
-     "            float* lb = slab + 2 * ks * ldw;\n"
-     "            for (int e = tid; e < ks * ldw; e += kThreads) {\n"
-     "              unsigned h, l;\n"
-     "              split_tf32(hb[e], h, l);\n"
-     "              hb[e] = __uint_as_float(h);\n"
-     "              lb[e] = __uint_as_float(l);\n"
-     "            }\n"
-     "          }\n"
-     "          __syncthreads();\n"
-     "          warp_mma_split<NT>(acc, xs + wm * 32 * ldx + s * ks, ldx,\n"
-     "                             slab + (s & 1) * ks * ldw + wn * 8 * NT,\n"
-     "                             slab + 2 * ks * ldw + wn * 8 * NT, ldw,\n"
-     "                             min(ks, pad8(K) - s * ks) / 8);"),
-]
+# into a third slab buffer, and the products reading both halves (the
+# products' text `call`)
+def _split_once(call: str) -> list:
+    return [
+        ("  const size_t tiles = L > 1 ? static_cast<size_t>(kM) * st.lda +\n"
+         "                                   2 * static_cast<size_t>(ks)",
+         "  const size_t tiles = L > 1 ? static_cast<size_t>(kM) * st.lda +\n"
+         "                                   3 * static_cast<size_t>(ks)"),
+        ("constexpr int kL1Cols = 4;",
+         "template <int NT>\n"
+         "__device__ __forceinline__ void warp_mma_split(float (&acc)[2][NT][4], const float* a,\n"
+         "                                               int lda, const float* bh, const float* bl,\n"
+         "                                               int ldb, int ksteps) {\n"
+         "  using namespace pcc_tile;\n"
+         "  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;\n"
+         "  for (int ks = 0; ks < ksteps; ++ks) {\n"
+         "    const int kk = ks * 8;\n"
+         "    unsigned ah[2][4], al[2][4];\n"
+         "    load_a(a, lda, kk, ah, al);\n"
+         "#pragma unroll\n"
+         "    for (int nt = 0; nt < NT; ++nt) {\n"
+         "      const int o = (kk + t) * ldb + nt * 8 + g;\n"
+         "      const unsigned h[2] = {__float_as_uint(bh[o]), __float_as_uint(bh[o + 4 * ldb])};\n"
+         "      const unsigned l[2] = {__float_as_uint(bl[o]), __float_as_uint(bl[o + 4 * ldb])};\n"
+         "      mma_3xtf32(acc[0][nt], ah[0], al[0], h, l);\n"
+         "      mma_3xtf32(acc[1][nt], ah[1], al[1], h, l);\n"
+         "    }\n"
+         "  }\n"
+         "}\n\n"
+         "constexpr int kL1Cols = 4;"),
+        (call,
+         "          {\n"
+         "            float* hb = slab + (s & 1) * ks * ldw;\n"
+         "            float* lb = slab + 2 * ks * ldw;\n"
+         "            for (int e = tid; e < ks * ldw; e += kThreads) {\n"
+         "              unsigned h, l;\n"
+         "              split_tf32(hb[e], h, l);\n"
+         "              hb[e] = __uint_as_float(h);\n"
+         "              lb[e] = __uint_as_float(l);\n"
+         "            }\n"
+         "          }\n"
+         "          __syncthreads();\n"
+         "          warp_mma_split<NT>(acc, xs + wm * 32 * ldx + s * ks, ldx,\n"
+         "                             slab + (s & 1) * ks * ldw + wn * 8 * NT,\n"
+         "                             slab + 2 * ks * ldw + wn * 8 * NT, ldw,\n"
+         "                             min(ks, pad8(K) - s * ks) / 8);"),
+    ]
+
+
 # "part variant" -> (kernel, alternatives); see tools/variants.py
 VARIANTS = {
     "pppf full": ("pppf_sa_stage", [[]]),
@@ -117,11 +129,12 @@ VARIANTS = {
                                       "{{4, 16}, {4, 8}, {2, 16}, {1, 16}}")]]),
     "pppe ks16": ("pppf_sa_stage", [[("      for (int ks = 32; ks >= 8 && plan < 0; ks /= 2) {",
                                       "      for (int ks = 16; ks >= 8 && plan < 0; ks /= 2) {")]]),
-    "pppe splitonce": ("pppf_sa_stage", [_SPLIT_ONCE]),
-    "pppe noproducts": ("pppf_sa_stage", [[("          warp_mma<NT>(acc, xs",
-                                            "          if (0) warp_mma<NT>(acc, xs")]]),
-    "pppe nofeature": ("pppf_sa_stage", [[("    pppe_feature_kernel<<<grid",
-                                           "    if (0) pppe_feature_kernel<<<grid")]]),
+    "pppe splitonce": ("pppf_sa_stage", [_split_once(c) for c in _CALLS]),
+    "pppe noproducts": ("pppf_sa_stage", [[(c, c.replace("warp_mma", "if (0) warp_mma", 1))]
+                                         for c in _CALLS]),
+    "pppe nofeature": ("pppf_sa_stage", [[(f"    pppe_feature_kernel{t}<<<grid",
+                                           f"    if (0) pppe_feature_kernel{t}<<<grid")]
+                                         for t in ("<kBf16>", "")]),
     "sa full": ("sa_fused", [[]]),
     "sa noselect": ("sa_fused", [[
         ("      knn_of<KNN>(i, q, q + n, q + 2 * n, q + 3 * n, n, tables + b * n * KNN);",

@@ -1254,6 +1254,89 @@ def test_pppf_sa_stage_bf16_kernel(dev, P, S, N, C, nsample, radius, widths):
     assert torch.equal(pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), out)
 
 
+# (P, N, knn): tiny, ragged patch counts, the largest patch, the path's
+# [4096, 256] patches at knn 16
+@pytest.mark.parametrize("P,N,knn", [(5, 32, 8), (5, 32, 16), (37, 256, 16), (64, 256, 8),
+                                     (6, 1024, 16), (4096, 256, 16)])
+def test_sa_fused_bf16_kernel(dev, P, N, knn):
+    """SetAbstraction alone in bf16: held to its plain version (_hold_bf16),
+    two launches bitwise equal, the same bits on the float32 weights as on
+    bf16_wb's (the kernel rounds each weight and bias as it loads it);
+    SetAbstraction(compute_dtype="bfloat16", fused=True) launches it once
+    and no float32 instance. The float32 instance's output, the control,
+    fails the hold where the rounding shows (not at 5 patches of 32
+    points, whose few entries may all sit on bf16 values by chance)."""
+    from pcc_tpu_torch.models.layers import SetAbstraction
+    from pcc_tpu_torch.ops.sa_cuda import sa_fused, sa_fused_plain
+
+    g = torch.Generator().manual_seed(26)
+    pts = ((torch.rand((P, N, 3), generator=g) * 2 - 1) * 0.4).to(dev)
+    sa = _wb(g, [3, 32, 64, 128], dev)
+    sa16 = bf16_wb(sa)
+    before = dict(cuda_lib.launches)
+    out = sa_fused(pts, sa16, knn, bf16=True)
+    assert cuda_lib.launches["sa_fused_bf16"] == before["sa_fused_bf16"] + 1
+    assert cuda_lib.launches["sa_fused"] == before["sa_fused"]
+    ref = sa_fused_plain(pts, sa, knn, bf16=True)
+    _hold_bf16(out, ref)
+    assert torch.equal(sa_fused(pts, sa16, knn, bf16=True), out)
+    assert torch.equal(sa_fused(pts, sa, knn, bf16=True), out)
+    if P * N >= 4096:
+        f32 = sa_fused(pts, sa, knn)
+        assert (float((f32 == ref).double().mean()) < BF16_SHARE
+                or float((f32 - ref).abs().max()) > BF16_TOL * float(ref.abs().max()))
+    module = SetAbstraction(knn=knn, fused=True, compute_dtype="bfloat16").to(dev).eval()
+    with torch.no_grad():
+        for conv, (w, b) in zip(module.convs(), sa):
+            conv.weight.copy_(w.t().reshape(conv.weight.shape))
+            conv.bias.copy_(b)
+        before = dict(cuda_lib.launches)
+        assert torch.equal(module(pts), out)
+    assert cuda_lib.launches["sa_fused_bf16"] == before["sa_fused_bf16"] + 1
+    assert cuda_lib.launches["sa_fused"] == before["sa_fused"]
+
+
+# (P, S, N, C, widths after the input, route): PPPE's sa2 and sa3 at the
+# serving batch, ragged patch and query counts, no features, a single
+# layer, odd widths, and the per-slot route (a 1536-wide middle layer, as
+# chip_smoke.py's phase 20; a first layer too wide for the slot kernel)
+_PPPE_BF16 = [(32, 128, 512, 192, (128, 128, 256), "slots"),
+              (32, 32, 128, 256, (256, 256, 512), "slots"),
+              (5, 37, 300, 192, (128, 128, 256), "slots"),
+              (3, 32, 128, 0, (256, 256, 512), "slots"),
+              (7, 13, 40, 21, (24,), "slots"),
+              (4, 9, 33, 5, (12, 20, 36), "slots"),
+              (5, 128, 512, 192, (128, 1536, 256), "per_slot"),
+              (2, 8, 32, 5, (1300, 8), "per_slot")]
+
+
+@pytest.mark.parametrize("P,S,N,C,widths,route", _PPPE_BF16)
+def test_pppe_sa_stage_bf16_kernel(dev, P, S, N, C, widths, route):
+    """The bf16 "pppe" stage on both routes: held to its plain version
+    (_hold_bf16) with negative BatchNorm multipliers and bf16 features, one
+    pppe_sa_stage_bf16 launch and no float32 one, two launches bitwise
+    equal; the float32 instance's output, the control, fails the hold at
+    PPPE's widths."""
+    g = torch.Generator().manual_seed(27)
+    xyz = torch.rand((P, N, 3), generator=g).to(dev)
+    new_xyz = xyz[:, torch.randperm(N, generator=g)[:S]].contiguous()
+    feat = round_bf16(torch.randn((P, N, C), generator=g)).to(dev) if C else None
+    layers = bf16_layers(_stage_layers(g, (C + 3,) + tuple(widths), dev, share=0.25))
+    assert pppe_kernel([C + 3, *widths], N, S, 32) == route
+    kw = dict(nsample=32, radius=0.0, layout="pppe")
+    before = dict(cuda_lib.launches)
+    out = pppf_sa_fused(new_xyz, xyz, feat, layers, bf16=True, **kw)
+    assert cuda_lib.launches["pppe_sa_stage_bf16"] == before["pppe_sa_stage_bf16"] + 1
+    assert cuda_lib.launches["pppf_sa_stage"] == before["pppf_sa_stage"]
+    ref = pppf_sa_plain(new_xyz, xyz, feat, layers, bf16=True, **kw)
+    _hold_bf16(out, ref)
+    assert torch.equal(pppf_sa_fused(new_xyz, xyz, feat, layers, bf16=True, **kw), out)
+    if P >= 32:
+        f32 = pppf_sa_fused(new_xyz, xyz, feat, layers, **kw)
+        assert (float((f32 == ref).double().mean()) < BF16_SHARE
+                or float((f32 - ref).abs().max()) > BF16_TOL * float(ref.abs().max()))
+
+
 @pytest.mark.parametrize("P,S,N,C,nsample,radius,widths", _BF16_STAGES[:2] + [
     (7, 12, 40, 13, 12, 0.3, (16, 24, 40)), (5, 16, 32, 0, 40, 0.5, (3, 8, 20))])
 def test_pppf_sa_stage_bwd_bf16_kernel(dev, P, S, N, C, nsample, radius, widths):
@@ -1301,21 +1384,31 @@ def test_pppf_sa_stage_bwd_bf16_kernel(dev, P, S, N, C, nsample, radius, widths)
     assert all(torch.equal(x, y) for x, y in zip(a, replayed))
 
 
-@pytest.mark.parametrize("case", ["pppe", "bwd_slots", "bwd_points", "enc_points", "dec_d65",
-                                  "dec_cpu"])
+@pytest.mark.parametrize("case", ["pppe", "pppe_middle", "sa_points", "sa_knn", "bwd_slots",
+                                  "bwd_points", "enc_points", "dec_d65", "dec_cpu"])
 def test_bf16_instances_reject_unsupported(dev, case):
-    """What no path of the port takes in bf16 yet (the "pppe" layout) and
-    shapes outside an instance's domain (the stage backward's nsample <=
-    254, the encoder and its backward's N % 16, the decoder's) raise before
-    any launch."""
+    """Shapes outside an instance's domain raise before any launch: the
+    bf16 "pppe" stage's widths past the per-slot kernel's smallest tile (a
+    first layer and a middle layer 7300 wide), SetAbstraction's N % 16 and
+    knn, the stage backward's nsample <= 254, the encoder and its
+    backward's N % 16, the decoder's."""
     g = torch.Generator().manual_seed(24)
     before = dict(cuda_lib.launches)
     with pytest.raises(ValueError):
-        if case == "pppe":
+        if case.startswith("pppe"):
             xyz = torch.rand((2, 32, 3), generator=g).to(dev)
-            layers = _stage_layers(g, (3, 16, 8), dev)
-            pppf_sa_fused(xyz[:, :8].contiguous(), xyz, None, layers, nsample=8, radius=0.4,
+            feat = torch.rand((2, 32, 5), generator=g).to(dev)
+            widths = (7300, 8) if case == "pppe" else (16, 7300, 8)
+            assert pppe_kernel([8, *widths], 32, 8, 8) is None
+            layers = bf16_layers(_stage_layers(g, (8,) + widths, dev))
+            pppf_sa_fused(xyz[:, :8].contiguous(), xyz, feat, layers, nsample=8, radius=0.0,
                           layout="pppe", bf16=True)
+        elif case.startswith("sa_"):
+            from pcc_tpu_torch.ops.sa_cuda import sa_fused
+
+            pts = torch.rand((2, 24 if case == "sa_points" else 32, 3), generator=g).to(dev)
+            sa_fused(pts, bf16_wb(_wb(g, [3, 32, 64, 128], dev)), 8 if case == "sa_points" else 12,
+                     bf16=True)
         elif case == "bwd_slots":
             xyz = torch.rand((2, 32, 3), generator=g).to(dev)
             layers = bf16_layers(_stage_layers(g, (3, 16, 8), dev))

@@ -12,6 +12,7 @@ need a backward, as pcc_tpu's kernel has none.
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -115,3 +116,77 @@ def test_variant_edits_take_the_first_alternative_that_applies():
     assert edited("sa_fused", [[("no such text", "x")], [(head, "// edited")]]) == \
         text.replace(head, "// edited")
     assert edited("sa_fused", [[(head, "a"), ("no such text", "b")]]) is None
+
+
+# ------------------------------------------------------------------ bf16 --
+
+BF16 = jnp.bfloat16
+BF16_SHARE = 0.95          # entries bit-equal at least (float32 sums in another order)
+BF16_TOL = 2.0 ** -7       # of the largest |entry|, every entry
+
+
+def _held(got, want) -> bool:
+    """The bf16 hold: at least BF16_SHARE of the entries bit-equal and every
+    entry within BF16_TOL of the largest |entry|."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return bool(got.shape == want.shape and (got == want).mean() >= BF16_SHARE
+                and np.abs(got - want).max() <= BF16_TOL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("knn", [8, 16])
+def test_sa_fused_plain_bf16_matches_pallas(weights, knn):
+    """sa_fused_plain(bf16=True) against pcc_tpu's _sa_kernel with
+    compute_dtype bfloat16 under the interpreter: the bf16 hold, bf16
+    values out. The bias trap: _sa_kernel rounds the biases too (its
+    `load`), unlike the stage kernel, and the plain version with the
+    biases unrounded (ops/sa_cuda.py::replay_wb) fails the hold."""
+    from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
+    from pcc_tpu_torch.ops.sa_cuda import replay_wb, sa_features
+
+    j_wb, sd = weights
+    patches = _patches(knn + 1)
+    ref = np.asarray(j_sa_fused(jnp.asarray(patches), [w for w, _ in j_wb],
+                                [b for _, b in j_wb], knn=knn, compute_dtype=BF16,
+                                interpret=True))
+    module = SetAbstraction(knn=knn)
+    module.load_state_dict(sd)
+    p = torch.from_numpy(patches)
+    with torch.no_grad():
+        got = sa_fused_plain(p, module.layers(), knn, bf16=True)
+        unrounded_b = sa_features(p, select_nearest(sq_dists(p, p), knn),
+                                  replay_wb(module.layers()), bf16=True)
+    assert torch.equal(got.to(torch.bfloat16).float(), got)
+    assert _held(got, ref)
+    assert not _held(unrounded_b, ref)
+
+
+def test_sa_module_bf16_fused_and_unfused_match_pcc_tpu(weights, monkeypatch):
+    """SetAbstraction(compute_dtype="bfloat16") against pcc_tpu's
+    SetAbstraction(dtype=bfloat16), fused=True under PCC_PALLAS_INTERPRET=1
+    (its Pallas kernel) and fused=False under plain jit (flax's bf16 Dense
+    layer by layer): each under the bf16 hold, and each failing it against
+    the other flag's reference, since the flag changes bf16 results (the
+    kernel rounds each layer once after a float32 bias add, flax rounds the
+    product and again after the bias add)."""
+    from pcc_tpu.models.layers import SetAbstraction as JSetAbstraction
+
+    j_wb, sd = weights
+    variables = {"params": {"mlp": {f"dense_{i}": {"linear": {"kernel": w, "bias": b}}
+                                    for i, (w, b) in enumerate(j_wb)}}}
+    x = _patches(3)
+    refs = {}
+    for fused in (True, False):
+        if fused:
+            monkeypatch.setenv("PCC_PALLAS_INTERPRET", "1")
+        else:
+            monkeypatch.delenv("PCC_PALLAS_INTERPRET", raising=False)
+        jm = JSetAbstraction(knn=8, dtype=BF16, fused=fused)
+        refs[fused] = np.asarray(jax.jit(jm.apply)(variables, jnp.asarray(x))).astype(np.float32)
+    for fused in (True, False):
+        module = SetAbstraction(knn=8, fused=fused, compute_dtype="bfloat16").eval()
+        module.load_state_dict(sd)
+        with torch.no_grad():
+            got = module(torch.from_numpy(x))
+        assert got.shape == (P, N, 128) and torch.equal(got.to(torch.bfloat16).float(), got)
+        assert _held(got, refs[fused]), fused
+        assert not _held(got, refs[not fused]), fused
