@@ -248,7 +248,8 @@ Phases (any failed check raises, and the script exits non-zero):
      replay of its arithmetic; CUDA-event and device times, the plain
      versions' times, both bounds (the products on the bf16 tensor cores
      at 989 TFLOP/s, and all in float32 on the CUDA cores), the decoder's
-     bf16 expansion product alone in cuBLAS (its library_ms);
+     bf16 expansion product alone in cuBLAS (its library_ms) and its bytes
+     from L2 by its tile plan (logged);
  29. the PPPF-AE path in bf16 on phase 9's clouds and weights, enc_proj
      calibrated as in 27 (launches pppf_sa_stage_bf16 3, fps 3, fps_int 6
      per compress -> decompress), checked as in 27 against the float32
@@ -389,8 +390,9 @@ from pcc_tpu_torch.models.pppe import make_pppe_model
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.chamfer_cuda import (ChamferFn, bwd_work, chamfer_bwd, chamfer_bwd_plain,
                                             chamfer_fwd, chamfer_fwd_plain, fwd_work)
-from pcc_tpu_torch.ops.decoder_cuda import (expansion_kmajor, pack_decoder, patch_decoder,
-                                            patch_decoder_plain, permute_expansion)
+from pcc_tpu_torch.ops.decoder_cuda import (bf16_tma_bytes, expansion_kmajor, pack_decoder,
+                                            patch_decoder, patch_decoder_plain,
+                                            permute_expansion)
 from pcc_tpu_torch.ops import fps as fps_ops
 from pcc_tpu_torch.ops.fps import fps_batch, fps_int_batch, fps_int_plain, fps_plain
 from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
@@ -3137,8 +3139,11 @@ def bf16_ipdae_phase(dev, smi: str, clouds, ae_state, prob_state) -> tuple:
             library_call="torch.matmul(h2, w3r) in bf16: the expansion product alone",
             **bf16_timing(held, kern_d, plain_d, 0.0, products, io, shape=[P, C, d, k]))
         bf16_log(f"patch_decoder_bf16 h2 {tuple(h2.shape)} k {k} d {d}", dec_rec)
+        # the tile plan's bytes from L2, a count and no measurement: logged,
+        # not in the kernels line
+        l2 = bf16_tma_bytes(P, C, k, torch.cuda.get_device_properties(0).multi_processor_count)
         log(f"patch_decoder_bf16: {n_rows} distinct h2 rows of {P}; {dec_rec['library_call']} "
-            f"{dec_rec['library_ms']:.4f} ms")
+            f"{dec_rec['library_ms']:.4f} ms; {l2 / 1e9:.3f} GB from L2 by the tile plan")
     return enc_rec, dec_rec, run, ae_state, streams
 
 

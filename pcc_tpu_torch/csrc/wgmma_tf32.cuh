@@ -63,6 +63,37 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
       : "memory");
 }
 
+// mbar_wait that gives up: a wait that outlasts 2^22 polls (tenths of seconds,
+// far beyond any phase of these kernels) traps, so that a fault in a barrier
+// protocol ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar, unsigned parity) {
+  for (unsigned spins = 0;; ++spins) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, P1;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1u << 22)) __trap();
+  }
+}
+
+// --- registers: a warpgroup gives some back or takes more (every thread of
+// the warpgroup executes it; R a multiple of 8 in [24, 256]) ---
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
 // --- TMA: one thread copies a box of a 2-D tensor map (c0 along the inner
 // dimension, c1 along the outer) to shared memory; the box's bytes count
 // against bar's transaction count (out-of-bounds elements arrive as zeros)

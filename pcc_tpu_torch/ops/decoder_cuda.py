@@ -17,12 +17,14 @@ groups of 8 (`mlp_kmajor`) so that one layer's accumulator is the next
 layer's operand as it stands.
 
 bf16=True runs the kernel's bf16 instance (launch counter
-"patch_decoder_bf16", .bf16 wgmma), rounding where pcc_tpu's bf16 decoder
-kernel rounds (decoder_pallas.py:39-70): every weight, the kernel's input
-h2, the fold and every inv_mlp layer's output; the biases stay float32. Its
-layout (`pack_decoder(..., bf16=True)`) holds each weight
-once as a bf16 tensor, K-major, the inv_mlp layers in their natural column
-order (a bf16 accumulator is the next product's operand as it stands).
+"patch_decoder_bf16", .bf16 wgmma with both expansion operands in shared
+memory), rounding where pcc_tpu's bf16 decoder kernel rounds
+(decoder_pallas.py:39-70): every weight, the kernel's input h2 (which the
+wrapper hands over as a bf16 tensor, rounded once), the fold and every
+inv_mlp layer's output; the biases stay float32. Its layout
+(`pack_decoder(..., bf16=True)`) holds each weight once as a bf16 tensor,
+K-major, the inv_mlp layers in their natural column order (a bf16
+accumulator is the next product's operand as it stands).
 """
 
 from __future__ import annotations
@@ -141,6 +143,22 @@ def bf16_layout(w_kmajor: torch.Tensor, b3r: torch.Tensor, mlp_wb) -> PackedDeco
                          bf16=True)
 
 
+# the bf16 kernel's tile plan (csrc/patch_decoder.cu, dec16): 128 patch rows x
+# 2 points a tile, one CTA a tile
+BF16_TILE_ROWS, BF16_TILE_POINTS = 128, 2
+BF16_MLP_BYTES = 2 * 64 * (3 * 128 + 2 * 64 + 32)   # the inv_mlp's tiles, once a CTA
+
+
+def bf16_tma_bytes(P: int, C: int, k: int, ctas: int) -> int:
+    """Bytes the bf16 kernel's TMA loads bring from L2 into shared memory
+    for h2 [P, C] and k points on `ctas` CTAs: per tile, its h2 box (128
+    rows x C bf16) and its two points' 256 weight rows x C; the inv_mlp's
+    tiles once a CTA."""
+    tiles = -(-P // BF16_TILE_ROWS) * -(-k // BF16_TILE_POINTS)
+    per_tile = 2 * C * (BF16_TILE_ROWS + BF16_TILE_POINTS * 128)
+    return tiles * per_tile + min(ctas, tiles) * BF16_MLP_BYTES
+
+
 def patch_decoder_plain(h2: torch.Tensor, lat: torch.Tensor, w3r: torch.Tensor,
                         b3r: torch.Tensor, mlp_wb, k: int, bf16: bool = False) -> torch.Tensor:
     """h2 [P, C], lat [P, d], permuted expansion w3r [C, k*128] / b3r,
@@ -219,8 +237,11 @@ def patch_decoder(h2: torch.Tensor, lat: torch.Tensor, w3r: torch.Tensor,
     _check("layer 4 bias", packed.b4, (3,), tma=False)
     out = torch.empty((P, k, 3), dtype=torch.float32, device=h2.device)
     if bf16:
-        # one part of each weight: layer i's (weight, bias) of args' (hi, lo, bias)
-        cuda_lib.launch("patch_decoder_bf16", _BF16_ARGTYPES, h2.data_ptr(), lat.data_ptr(), P,
+        # h2 rounded to bf16 once here (what the kernel's products read: the
+        # plain version's round_bf16, pcc_tpu's in-kernel cast); one part of
+        # each weight: layer i's (weight, bias) of args' (hi, lo, bias)
+        h2b = h2.to(torch.bfloat16)
+        cuda_lib.launch("patch_decoder_bf16", _BF16_ARGTYPES, h2b.data_ptr(), lat.data_ptr(), P,
                         C, d, k, packed.w_hi.data_ptr(), packed.b3r.data_ptr(),
                         *[a for i in range(3) for a in (args[3 * i], args[3 * i + 2])],
                         packed.w4.data_ptr(), packed.b4.data_ptr(), out.data_ptr(),

@@ -1,6 +1,6 @@
 """Where the time of the IPDAE patch decoder kernel goes, on an NVIDIA GPU.
 
-  python3 -m pcc_tpu_torch.tools.decoder_breakdown      # from the repo root
+  python3 -m pcc_tpu_torch.tools.decoder_breakdown [--bf16]   # from the repo root
 
 Builds csrc/patch_decoder.cu as it is and with one part taken out
 (tools/variants.py), then times each with
@@ -19,6 +19,13 @@ version, and the preparation of the kernel's weights that the decode path
 makes where it holds none (permute_expansion, and pack_decoder where the
 kernel takes its own layout).
 
+With --bf16 the same for the bf16 instance (patch_decoder_bf16, on its own
+weight layout): `nomlp` leaves out the point MLP, `noexpmma` the
+expansion's products (the loads stay); beside them torch.matmul(h2, w3r)
+in bf16 (the expansion alone, cuBLAS), h2's conversion to bf16 that the
+wrapper makes, the plain version, and the bytes from L2 by the tile plan
+(ops/decoder_cuda.py::bf16_tma_bytes).
+
 Prints the card's name and power limit, then one line per round.
 """
 
@@ -26,6 +33,7 @@ from __future__ import annotations
 
 import inspect
 import subprocess
+import sys
 import tempfile
 
 import numpy as np
@@ -52,6 +60,14 @@ VARIANTS = {
         [("constexpr bool kRunMlp = true;", "constexpr bool kRunMlp = false;")],
     ],
 }
+# variant -> alternatives of csrc/patch_decoder.cu's bf16 instance
+BF16_VARIANTS = {
+    "full": [[]],
+    "nomlp": [[("      pair_mlp(p, f, la,", "      if (false) pair_mlp(p, f, la,"),
+               ("      point_mlp(p, f[0], la,", "      if (false) point_mlp(p, f[0], la,")]],
+    "noexpmma": [[("      for (int q = 0; q < 4; ++q) wgmma_bf16_ss_m64n256k16(",
+                   "      for (int q = 0; q < 0; ++q) wgmma_bf16_ss_m64n256k16(")]],
+}
 REPS = 10
 
 
@@ -73,6 +89,49 @@ def decoder_case(dev):
     return h2.contiguous(), lat, w3r, b3r, ae.inv_mlp.layers(), cfg.k, ae
 
 
+def main_bf16(dev) -> int:
+    """The bf16 instance's variants at the serving batch's shapes."""
+    with torch.inference_mode():
+        h2, lat, w3r, b3r, mlp, k, ae = decoder_case(dev)
+        packed = decoder_cuda.pack_decoder(decoder_cuda.expansion_kmajor(ae.inv_pool[4].weight, k),
+                                           b3r, mlp, bf16=True)
+        call = lambda: decoder_cuda.patch_decoder(h2, lat, w3r, b3r, mlp, k,  # noqa: E731
+                                                  packed=packed, bf16=True)
+        ref = call()
+        P, C = h2.shape
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        print(f"bytes from L2 by the tile plan: "
+              f"{decoder_cuda.bf16_tma_bytes(P, C, k, sms) / 1e9:.3f} GB", flush=True)
+        h2b, w3b = h2.to(torch.bfloat16), w3r.to(torch.bfloat16)
+        name = "patch_decoder_bf16"
+        with tempfile.TemporaryDirectory() as tmp:
+            fns = {v: entry(lib, name, decoder_cuda._BF16_ARGTYPES)
+                   for v, lib in build_variants(
+                       tmp, {v: (name, alts) for v, alts in BF16_VARIANTS.items()}).items()}
+            own = cuda_lib.function(name, decoder_cuda._BF16_ARGTYPES)
+            try:
+                cuda_lib._functions[name] = fns["full"]
+                if not torch.equal(call(), ref):
+                    raise RuntimeError("the full variant differs from the wrapper")
+                for rnd in range(2):
+                    times = {}
+                    for variant, fn in fns.items():
+                        cuda_lib._functions[name] = fn
+                        times[variant] = cs.cuda_ms(call, REPS)
+                        times[f"{variant} device"] = cs.graph_ms(call, REPS)
+                    cuda_lib._functions[name] = own
+                    times["matmul(h2, w3r) bf16"] = cs.cuda_ms(lambda: torch.matmul(h2b, w3b),
+                                                               REPS)
+                    times["h2 to bf16"] = cs.cuda_ms(lambda: h2.to(torch.bfloat16), REPS)
+                    times["plain"] = cs.cuda_ms(lambda: decoder_cuda.patch_decoder_plain(
+                        h2, lat, w3r, b3r, mlp, k, bf16=True), 3)
+                    print(f"round {rnd} bf16 (P = {P}, k = {k}): " + ", ".join(
+                        f"{v} {t:.4f} ms" for v, t in times.items()), flush=True)
+            finally:
+                cuda_lib._functions[name] = own
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("decoder_breakdown needs an NVIDIA GPU")
@@ -80,6 +139,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    if "--bf16" in sys.argv[1:]:
+        return main_bf16(dev)
     with torch.inference_mode():
         h2, lat, w3r, b3r, mlp, k, ae = decoder_case(dev)
         l3 = ae.inv_pool[4]

@@ -1205,11 +1205,15 @@ def test_bf16_reduce_kernel(dev, shape):
     assert torch.equal(out.cpu(), bf16_reduce_plain(x.cpu()))
 
 
-@pytest.mark.parametrize("P,d,k", [(9, 4, 16), (129, 16, 128), (4096, 16, 128)])
+# tiles are 128 patch rows x 2 points: the path's shape; P past a tile,
+# one row; k odd (a tile's second point past k) and one point; d below one
+# k16 step, the most
+@pytest.mark.parametrize("P,d,k", [(9, 4, 16), (129, 16, 128), (4096, 16, 128), (4100, 4, 127),
+                                   (300, 64, 3), (1, 16, 1)])
 def test_patch_decoder_bf16_kernel(dev, P, d, k):
-    """The bf16 decoder (.bf16 wgmma, one a k = 16 step) on its
-    own weight layout: held to its plain version, two launches bitwise
-    equal; the float32 layout or instance is refused."""
+    """The bf16 decoder (.bf16 wgmma, h2 and the expansion weights from
+    shared memory) on its own weight layout: held to its plain version, two
+    launches bitwise equal; the float32 layout or instance is refused."""
     h2, lat, w3r, b3r, mlp, k = _decoder_case(dev, P, d, k, seed=22)
     packed = pack_decoder(w3r.t().contiguous(), b3r, mlp, bf16=True)
     assert packed.bf16 and packed.w_lo is packed.w_hi
@@ -1385,13 +1389,15 @@ def test_pppf_sa_stage_bwd_bf16_kernel(dev, P, S, N, C, nsample, radius, widths)
 
 
 @pytest.mark.parametrize("case", ["pppe", "pppe_middle", "sa_points", "sa_knn", "bwd_slots",
-                                  "bwd_points", "enc_points", "dec_d65", "dec_cpu"])
+                                  "bwd_points", "enc_points", "enc_knn", "enc_n1040", "enc_d65",
+                                  "dec_d65", "dec_c1000", "dec_cpu"])
 def test_bf16_instances_reject_unsupported(dev, case):
     """Shapes outside an instance's domain raise before any launch: the
     bf16 "pppe" stage's widths past the per-slot kernel's smallest tile (a
     first layer and a middle layer 7300 wide), SetAbstraction's N % 16 and
     knn, the stage backward's nsample <= 254, the encoder and its
-    backward's N % 16, the decoder's."""
+    backward's N % 16, the bf16 encoder's knn in (8, 16), N <= 1024 and
+    D <= 64, the decoder's d <= 64 and C % 64 (its k = 64 stages)."""
     g = torch.Generator().manual_seed(24)
     before = dict(cuda_lib.launches)
     with pytest.raises(ValueError):
@@ -1414,18 +1420,21 @@ def test_bf16_instances_reject_unsupported(dev, case):
             layers = bf16_layers(_stage_layers(g, (3, 16, 8), dev))
             pppf_sa_bwd(xyz[:, :8].contiguous(), xyz, None, torch.zeros((2, 8, 8), device=dev),
                         layers, nsample=300, radius=0.4, bf16=True)
-        elif case in ("bwd_points", "enc_points"):
-            pts = torch.rand((2, 24, 3), generator=g).to(dev)
-            sa, pn = _wb(g, [3, 32, 64, 128], dev), _wb(g, [131, 128, 256, 512, 4], dev)
-            if case == "enc_points":
-                patch_encoder(pts, sa, pn, 8, bf16=True)
+        elif case in ("bwd_points", "enc_points", "enc_knn", "enc_n1040", "enc_d65"):
+            N = {"enc_n1040": 1040, "enc_knn": 32, "enc_d65": 32}.get(case, 24)
+            pts = torch.rand((2, N, 3), generator=g).to(dev)
+            D = 65 if case == "enc_d65" else 4
+            sa, pn = _wb(g, [3, 32, 64, 128], dev), _wb(g, [131, 128, 256, 512, D], dev)
+            if case.startswith("enc"):
+                patch_encoder(pts, bf16_wb(sa), bf16_wb(pn), 12 if case == "enc_knn" else 8,
+                              bf16=True)
             else:
                 patch_encoder_bwd(pts, torch.zeros((2, 4), device=dev), sa, pn, 8,
                                   winners=torch.zeros((2, 4), dtype=torch.int32, device=dev),
                                   bf16=True)
         else:
             h2, lat, w3r, b3r, mlp, k = _decoder_case(dev, 40, 65 if case == "dec_d65" else 16,
-                                                      16)
+                                                      16, C=1000 if case == "dec_c1000" else 1024)
             if case == "dec_cpu":
                 mlp[0] = tuple(t.cpu() for t in mlp[0])
             patch_decoder(h2, lat, w3r, b3r, mlp, k, bf16=True)

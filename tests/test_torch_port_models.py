@@ -28,6 +28,7 @@ from pcc_tpu_torch.models.layers import sigmoid_spread, ste_round
 from pcc_tpu_torch.ops.decoder_cuda import (GROUP_ORDER, expansion_kmajor, mlp_kmajor,
                                             pack_decoder, patch_decoder_plain,
                                             permute_expansion, split_tf32)
+from pcc_tpu_torch.ops.bf16 import round_bf16
 from pcc_tpu_torch.ops.sa_cuda import patch_encoder_plain
 from pcc_tpu_torch.weights import from_jax_params, to_jax_params
 from test_torch_port_pppf import one_thread_per_worker  # noqa: F401
@@ -204,6 +205,38 @@ def test_packed_decoder_layout_is_the_decoder(rng, d):
     x = x @ packed.w4.double() + packed.b4.double()
     ours = patch_decoder_plain(h2, lat, w3r, b3r, mlp, k)
     np.testing.assert_allclose(x.numpy(), ours.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [4, 13])
+def test_packed_decoder_bf16_layout_is_the_decoder(rng, d):
+    """The bf16 kernel's weights (pack_decoder(..., bf16=True)) read back in
+    plain PyTorch: the expansion [k*128, C] is w3r transposed, each inv_mlp
+    layer [out, round16(in)] its weight transposed with zero columns past
+    `in`; the plain bf16 decoder on what was read back is the plain bf16
+    decoder bit for bit. The kernel takes h2 as the bf16 tensor the wrapper
+    makes (h2.to(bfloat16)), which is round_bf16 of it."""
+    k, P, C = 4, 5, 64
+    h2 = torch.from_numpy(rng.random((P, C)).astype(np.float32))
+    lat = torch.from_numpy(rng.integers(-3, 4, (P, d)).astype(np.float32))
+    w3 = torch.from_numpy((rng.standard_normal((128 * k, C)) * C ** -0.5).astype(np.float32))
+    b3 = torch.from_numpy(rng.standard_normal(128 * k).astype(np.float32) * 0.1)
+    mlp = [(torch.from_numpy((rng.standard_normal(s) * s[0] ** -0.5).astype(np.float32)),
+            torch.from_numpy(rng.standard_normal(s[1]).astype(np.float32) * 0.1))
+           for s in [(128 + d, 128), (128, 64), (64, 32), (32, 3)]]
+    w3r, b3r = permute_expansion(w3.t(), b3, k)
+    packed = pack_decoder(expansion_kmajor(w3, k), b3r, mlp, bf16=True)
+    assert packed.w_hi.dtype == torch.bfloat16 and packed.w_hi.shape == (128 * k, C)
+    back = []
+    for i, (w, _) in enumerate(mlp[:3]):
+        m = packed.m_hi[i].float()
+        assert m.shape == (w.shape[1], -(-w.shape[0] // 16) * 16)
+        assert not m[:, w.shape[0]:].any()
+        back.append((m[:, :w.shape[0]].t(), packed.mb[i]))
+    back.append((packed.w4, packed.b4))
+    want = patch_decoder_plain(h2, lat, w3r, b3r, mlp, k, bf16=True)
+    got = patch_decoder_plain(h2, lat, packed.w_hi.float().t(), packed.b3r, back, k, bf16=True)
+    assert torch.equal(got, want)
+    assert torch.equal(h2.to(torch.bfloat16).float(), round_bf16(h2))
 
 
 def test_decoder_weights_prepared_once_in_eval():

@@ -97,8 +97,10 @@ def test_breakdown_variants_apply_to_the_sources(tool):
 
     mod = importlib.import_module(f"pcc_tpu_torch.tools.{tool}")
     specs = {"stage_breakdown": lambda: mod.VARIANTS,
-             "decoder_breakdown": lambda: {k: ("patch_decoder", v)
-                                           for k, v in mod.VARIANTS.items()},
+             "decoder_breakdown": lambda: {
+                 **{k: ("patch_decoder", v) for k, v in mod.VARIANTS.items()},
+                 **{f"bf16 {k}": ("patch_decoder_bf16", v)
+                    for k, v in mod.BF16_VARIANTS.items()}},
              "fps_breakdown": lambda: {"butterfly": ("fps", [[mod.BUTTERFLY]])}}[tool]()
     for label, (kernel, alternatives) in specs.items():
         assert edited(kernel, alternatives) is not None, (tool, label)
