@@ -245,7 +245,9 @@ Phases (any failed check raises, and the script exits non-zero):
      the h2 of the path's spread symbols) (bf16_hold: every entry bf16, at
      least BF16_SHARE of them bit-equal, every one within BF16_TOL of the
      largest, two launches bitwise equal), the encoder also against the
-     replay of its arithmetic; CUDA-event and device times, the plain
+     replay of its arithmetic on REPLAY_PATCHES patches, bit for bit (its
+     products on the tensor cores, certified: csrc/certified.cuh);
+     CUDA-event and device times, the plain
      versions' times, both bounds (the products on the bf16 tensor cores
      at 989 TFLOP/s, and all in float32 on the CUDA cores), the decoder's
      bf16 expansion product alone in cuBLAS (its library_ms) and its bytes
@@ -254,7 +256,9 @@ Phases (any failed check raises, and the script exits non-zero):
      calibrated as in 27 (launches pppf_sa_stage_bf16 3, fps 3, fps_int 6
      per compress -> decompress), checked as in 27 against the float32
      path on the same weights; the bf16 stage against its plain version at
-     the path's three stage shapes, as in 28; then compress --bf16 ->
+     the path's three stage shapes, as in 28, and bit for bit against the
+     bf16 replay of its arithmetic (pppf_sa_points(replay=True, bf16=True))
+     on REPLAY_PATCHES patches at each; then compress --bf16 ->
      decompress --bf16 through the CLIs on BF16_CLI_CLOUDS clouds of each
      family, on phases 27 and 29's weights written as pcc_tpu's pickles
      (the IPDAE streams phase 27's bytes);
@@ -3096,6 +3100,9 @@ def bf16_ipdae_phase(dev, smi: str, clouds, ae_state, prob_state) -> tuple:
         z4 = _kernel_choices(p, select_nearest(sq_dists(p, p), knn), rows, sa_wb, pn_wb,
                              bf16=True)[-1].amax(dim=1)
         held["replay_differ"] = int((z4 != a[:REPLAY_PATCHES]).sum())
+        if held["replay_differ"]:
+            raise RuntimeError(f"patch_encoder_bf16: {held['replay_differ']} entries of "
+                               f"{tuple(z4.shape)} differ from the replay of its arithmetic")
         P = patches.shape[0]
         flops, sa_mac, pn_mac = encoder_flops(P, cfg.K, knn, cfg.d)
         products = P * 2.0 * cfg.K * (sa_mac + pn_mac)
@@ -3187,6 +3194,18 @@ def bf16_pppf_phase(dev, smi: str, pppf32: dict) -> tuple:
                 return pppf_sa_plain(new_xyz, xyz, feat, layers, **kw)
 
             a, held = bf16_hold(f"pppf_sa_stage_bf16 {name}", kern, plain)
+            # the kernel bit for bit against the bf16 replay of its
+            # arithmetic on REPLAY_PATCHES patches
+            sl = slice(0, REPLAY_PATCHES)
+            rep = pppf_sa_points(new_xyz[sl], xyz[sl], None if feat is None else feat[sl],
+                                 layers, nsample=sa.nsample, radius=sa.radius, replay=True,
+                                 bf16=True)
+            held["replay_differ"] = int((rep != a[sl]).sum())
+            if held["replay_differ"]:
+                raise RuntimeError(f"pppf_sa_stage_bf16 {name}: {held['replay_differ']} entries "
+                                   f"of {tuple(rep.shape)} differ from the bf16 replay of its "
+                                   "arithmetic")
+            del rep
             P, S, _ = new_xyz.shape
             N = xyz.shape[1]
             widths = [layers[0][0].shape[0]] + [lay[0].shape[1] for lay in layers]
@@ -3198,6 +3217,8 @@ def bf16_pppf_phase(dev, smi: str, pppf32: dict) -> tuple:
                               shape=[P, S, N, widths], nsample=sa.nsample)
             bf16_log(f"pppf_sa_stage_bf16 {name} new_xyz {tuple(new_xyz.shape)} xyz "
                      f"{tuple(xyz.shape)} widths {widths} nsample {sa.nsample}", rec)
+            log(f"pppf_sa_stage_bf16 {name} vs the bf16 replay of its arithmetic on "
+                f"{REPLAY_PATCHES} patches: {held['replay_differ']} entries differ")
             stages.append(dict(stage=name, **rec))
             feat, xyz = a, new_xyz
     stage_rec = dict(
@@ -3465,7 +3486,8 @@ def bf16_backward_check(rec: dict, launches: dict) -> dict:
     TOL_BWD of the plain version's largest entry, two launches bitwise
     equal; CUDA-event and device times, the plain version's, the bound
     (the winners' rows' work with the products on the bf16 tensor cores, and
-    in float32), the forward's time with its winners half and without."""
+    in float32), the forward's time with its winners half and without, and
+    its plain version's with the winners."""
     cfg = CodecConfig()
     knn = cfg.sa_knn
     patches, win, g = rec["patches"], rec["winners"], rec["g"]
@@ -3506,6 +3528,8 @@ def bf16_backward_check(rec: dict, launches: dict) -> dict:
     fwd_ms = cuda_ms(lambda: patch_encoder(patches, sa16, pn16, knn, bf16=True), 5)
     fwd_win_ms = cuda_ms(lambda: patch_encoder(patches, sa_wb, pn_wb, knn, return_winners=True,
                                                bf16=True), 5)
+    fwd_win_plain_ms = cuda_ms(lambda: patch_encoder_plain(patches, sa_wb, pn_wb, knn,
+                                                           return_winners=True, bf16=True), 1)
     out = dict(
         name="patch_encoder_bwd_bf16", route="cuda",
         source="pcc_tpu_torch/csrc/patch_encoder_bwd.cu",
@@ -3513,14 +3537,15 @@ def bf16_backward_check(rec: dict, launches: dict) -> dict:
         max_abs_err=max(float((x - y).abs().max()) for x, y in zip(a, b)), rel_err=rel,
         ms=cuda_ms(kern, 5), device_ms=graph_ms(kern, 5), plain_ms=cuda_ms(plain, 1),
         bound_ms=bms, bound_by=by, bound_fp32_ms=bms32, library_ms=None, winning_rows=rows,
-        gflop=flops / 1e9, forward_ms=fwd_ms, forward_winners_ms=fwd_win_ms)
+        gflop=flops / 1e9, forward_ms=fwd_ms, forward_winners_ms=fwd_win_ms,
+        forward_winners_plain_ms=fwd_win_plain_ms)
     log(f"phase 32, patch_encoder_bwd_bf16 on {tuple(patches.shape)}: {out['ms']:.4f} ms, "
         f"device {out['device_ms']:.4f} ms (plain {out['plain_ms']:.3f} ms; bound "
         f"{bms:.4f} ms by {by} on the bf16 tensor cores, {bms32:.4f} ms in float32; {rows} "
         f"winning rows, {flops / 1e9:.2f} GFLOP); per output max |kernel - plain| / max "
         f"|plain| {max(rel):.3g} (limit {TOL_BWD}); two launches bitwise equal; winners the "
         f"step's and the plain version's; the forward {fwd_ms:.4f} ms, with its winners half "
-        f"{fwd_win_ms:.4f} ms")
+        f"{fwd_win_ms:.4f} ms (its plain version {fwd_win_plain_ms:.3f} ms)")
     return out
 
 

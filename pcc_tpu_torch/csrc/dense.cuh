@@ -79,11 +79,8 @@ enum TileEpilogue {
 // (ldw, ld_in, ld_out % 4 == 0). cout / 4 divides 32 or is a multiple of 32;
 // rows % TM == 0. With kTileGroupMax, rounding is monotone, so
 // max_i(acc_i) + b equals max_i(acc_i + b), and out[g] is stored by scalars
-// (its rows need not be aligned). kBf16 (the encoder's bf16 instance): every
-// output rounded to bf16 after the bias and relu (with kTileGroupMax after
-// the max, which rounding, being monotone, commutes with). No trailing
-// barrier.
-template <int TM, int kEpi, bool kBf16 = false>
+// (its rows need not be aligned). No trailing barrier.
+template <int TM, int kEpi>
 __device__ __forceinline__ void dense_tile(const float* in, int ld_in, int rows, int cin,
                                            const float* __restrict__ w, int ldw,
                                            const float* __restrict__ bias, int cout,
@@ -149,10 +146,10 @@ __device__ __forceinline__ void dense_tile(const float* in, int ld_in, int rows,
 #pragma unroll
         for (int j = 0; j < 4; ++j) m[j] = fmaxf(m[j], acc[i][j]);
       float* o = out + g * ld_out + col;
-      o[0] = pcc_bf16::act_round<kBf16>(fmaxf(m[0] + b.x, 0.0f));
-      o[1] = pcc_bf16::act_round<kBf16>(fmaxf(m[1] + b.y, 0.0f));
-      o[2] = pcc_bf16::act_round<kBf16>(fmaxf(m[2] + b.z, 0.0f));
-      o[3] = pcc_bf16::act_round<kBf16>(fmaxf(m[3] + b.w, 0.0f));
+      o[0] = fmaxf(m[0] + b.x, 0.0f);
+      o[1] = fmaxf(m[1] + b.y, 0.0f);
+      o[2] = fmaxf(m[2] + b.z, 0.0f);
+      o[3] = fmaxf(m[3] + b.w, 0.0f);
     } else {
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
@@ -164,10 +161,6 @@ __device__ __forceinline__ void dense_tile(const float* in, int ld_in, int rows,
           v.z = fmaxf(v.z, 0.0f);
           v.w = fmaxf(v.w, 0.0f);
         }
-        v.x = pcc_bf16::act_round<kBf16>(v.x);
-        v.y = pcc_bf16::act_round<kBf16>(v.y);
-        v.z = pcc_bf16::act_round<kBf16>(v.z);
-        v.w = pcc_bf16::act_round<kBf16>(v.w);
         *reinterpret_cast<float4*>(out + (g * TM + i) * ld_out + col) = v;
       }
     }

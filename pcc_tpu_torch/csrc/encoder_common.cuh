@@ -212,9 +212,8 @@ __device__ __forceinline__ void pointnet_123(const float* x0, const float* pw1,
 // ld_out, shared or device memory). Weights [in, out] and biases in device
 // memory, 16-byte aligned. Starts after a barrier that frees h2 from its
 // last reader; no trailing barrier (the next step's layer 1 may start: it
-// writes h1, which layer 3 does not read). kBf16: every layer's input and
-// output bf16 (sa_layer1, dense_tile).
-template <int KNN, bool kBf16 = false, class Q>
+// writes h1, which layer 3 does not read).
+template <int KNN, class Q>
 __device__ __forceinline__ void sa_step(Q qs, const unsigned short* nbr, const float* sx,
                                         const float* sy, const float* sz,
                                         const float* __restrict__ w1,
@@ -224,13 +223,12 @@ __device__ __forceinline__ void sa_step(Q qs, const unsigned short* nbr, const f
                                         const float* __restrict__ w3,
                                         const float* __restrict__ b3, float* h1, float* h2,
                                         float* out, int ld_out) {
-  sa_layer1<KNN, kBf16>(kEncSaRows / KNN, qs, nbr, sx, sy, sz, w1, b1, h1);
+  sa_layer1<KNN>(kEncSaRows / KNN, qs, nbr, sx, sy, sz, w1, b1, h1);
   __syncthreads();
-  dense_tile<8, kTileRelu, kBf16>(h1, kEncC1, kEncSaRows, kEncC1, w2, kEncC2, b2, kEncC2, h2,
-                                  kEncC2);
+  dense_tile<8, kTileRelu>(h1, kEncC1, kEncSaRows, kEncC1, w2, kEncC2, b2, kEncC2, h2, kEncC2);
   __syncthreads();
-  dense_tile<KNN, kTileGroupMax, kBf16>(h2, kEncC2, kEncSaRows, kEncC2, w3, kEncC3, b3, kEncC3,
-                                        out, ld_out);
+  dense_tile<KNN, kTileGroupMax>(h2, kEncC2, kEncSaRows, kEncC2, w3, kEncC3, b3, kEncC3, out,
+                                 ld_out);
 }
 
 // PointNet's last layer, a step of it: acc[i] += x3[r][k] * pw4[c0 + k][o]
@@ -274,12 +272,8 @@ __device__ __forceinline__ void last_layer_step(const float* x3, const float* __
 // runs on kEncPnQ rows (rows past nq are 0), layer 1 with 4 rows a thread
 // (every warp busy), layers 2 and 3 with 8; layer 3 in steps of kEncP3Step
 // columns, each folded straight into the last layer's sums, which stay in
-// registers. Starts after a barrier; ends with __syncthreads(). kBf16 (the
-// bf16 instance, pcc_tpu's sa_pallas.py:163-210 with compute_dtype
-// bfloat16; the weights and biases bf16-exact, rounded by the wrapper): the
-// centred neighbours, xyz and every layer's output rounded to bf16, the last
-// layer's after its bias; the maxima are float32 over those bf16 values.
-template <int KNN, bool kBf16 = false>
+// registers. Starts after a barrier; ends with __syncthreads().
+template <int KNN>
 __device__ __forceinline__ void encoder_chunk(
     int c0, int nq, const unsigned short* nbr, const float* sx, const float* sy,
     const float* sz, const float* w1, const float* b1, const float* w2, const float* b2,
@@ -292,24 +286,22 @@ __device__ __forceinline__ void encoder_chunk(
   float* x3 = buf;
   constexpr int kSaQ = kEncSaRows / KNN;
   for (int q0 = 0; q0 < nq; q0 += kSaQ)
-    sa_step<KNN, kBf16>(QueryRange{c0 + q0}, nbr, sx, sy, sz, w1, b1, w2, b2, w3, b3, x1,
-                        x1 + kEncSaRows * kEncC1, x0 + q0 * kEncX0 + 3, kEncX0);
-  concat_xyz<kBf16>(nq, QueryRange{c0}, sx, sy, sz, x0);
+    sa_step<KNN>(QueryRange{c0 + q0}, nbr, sx, sy, sz, w1, b1, w2, b2, w3, b3, x1,
+                 x1 + kEncSaRows * kEncC1, x0 + q0 * kEncX0 + 3, kEncX0);
+  concat_xyz(nq, QueryRange{c0}, sx, sy, sz, x0);
   for (int e = nq * kEncX0 + threadIdx.x; e < kEncPnQ * kEncX0; e += blockDim.x) x0[e] = 0.0f;
   __syncthreads();
-  dense_tile<4, kTileRelu, kBf16>(x0, kEncX0, kEncPnQ, 3 + kEncC3, pw1, kEncP1, pb1, kEncP1, x1,
-                                  kEncP1);
+  dense_tile<4, kTileRelu>(x0, kEncX0, kEncPnQ, 3 + kEncC3, pw1, kEncP1, pb1, kEncP1, x1, kEncP1);
   __syncthreads();
-  dense_tile<8, kTileRelu, kBf16>(x1, kEncP1, kEncPnQ, kEncP1, pw2, kEncP2, pb2, kEncP2, x2,
-                                  kEncP2);
+  dense_tile<8, kTileRelu>(x1, kEncP1, kEncPnQ, kEncP1, pw2, kEncP2, pb2, kEncP2, x2, kEncP2);
   __syncthreads();
   const bool vec = dout % 4 == 0;
   float acc[kEncPnQ * kEncMaxD / kEncThreads];
 #pragma unroll
   for (int i = 0; i < kEncPnQ * kEncMaxD / kEncThreads; ++i) acc[i] = 0.0f;
   for (int c = 0; c < kEncP3; c += kEncP3Step) {
-    dense_tile<8, kTileRelu, kBf16>(x2, kEncP2, kEncPnQ, kEncP2, pw3 + c, kEncP3, pb3 + c,
-                                    kEncP3Step, x3, kEncX3);
+    dense_tile<8, kTileRelu>(x2, kEncP2, kEncPnQ, kEncP2, pw3 + c, kEncP3, pb3 + c, kEncP3Step,
+                             x3, kEncX3);
     __syncthreads();
     if (vec) {
       last_layer_step<true>(x3, pw4, c, dout, acc);
@@ -325,7 +317,7 @@ __device__ __forceinline__ void encoder_chunk(
     const int e = threadIdx.x + (i / kV) * kEncThreads;
     if (e >= kEncPnQ * dout / kV) break;
     const int o = (e % (dout / kV)) * kV + i % kV;
-    o4[(e / (dout / kV)) * dout + o] = pcc_bf16::act_round<kBf16>(acc[i] + __ldg(pb4 + o));
+    o4[(e / (dout / kV)) * dout + o] = acc[i] + __ldg(pb4 + o);
   }
   __syncthreads();
 }

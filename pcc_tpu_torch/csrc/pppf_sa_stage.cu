@@ -107,19 +107,35 @@
 // sa2 two blocks of 128 rows with passes of 128 columns, sa3 one block with
 // passes of 256.
 
-// The bf16 instance (pppf_sa_stage_bf16_launch; pcc_tpu's compute_dtype
-// bfloat16, layout "pppf"; in serving, and in the store mode,
-// pppf_sa_stage_bf16_save_launch, for the bf16 train step): the same kernels, templated on the
-// rounding (bf16.cuh), with W rounded to bf16 by the wrapper and b, mean,
-// mul and beta float32, as pcc_tpu/ops/pppf_sa_pallas.py's bf16 stage
-// keeps them. Each layer's input rows are bf16 (the gathered rows rounded,
-// the uncentred xyz lanes included; later layers read the previous layer's
-// rounded outputs), each relu output is rounded to bf16, and the max over
-// samples is float32 over those bf16 values. Products of bf16 values are
-// exact in float32, so each output is still the float32 sum of exact
-// products in k-order. The same bound as the float32 instance (operations,
-// float32 FMAs on the CUDA cores; bf16 tensor cores would bound it at 989
-// TFLOP/s, ops/pppf_sa_cuda.py::stage_flops).
+// The bf16 instances, layout "pppf" (pcc_tpu's compute_dtype bfloat16): W
+// rounded to bf16 by the wrapper, b, mean, mul and beta float32, as
+// pcc_tpu/ops/pppf_sa_pallas.py's bf16 stage keeps them. Each layer's input
+// rows are bf16 (the gathered rows rounded, the uncentred xyz lanes
+// included; later layers read the previous layer's rounded outputs), each
+// relu output is rounded to bf16, and the max over samples is float32 over
+// those bf16 values. Products of bf16 values are exact in float32, so each
+// output is the float32 sum of exact products in k-order, which
+// pppf_sa_cuda.py::stack_replay(bf16=True) replays.
+// In serving (pppf_sa_stage_bf16_launch, namespace st16) the products run
+// on the bf16 tensor cores, its outputs bit for bit the k-order ones. What
+// bounds it on an H100: operations, 0.43 ms for PPPF-AE's three stages at
+// the serving batch on the bf16 tensor cores (ops/pppf_sa_cuda.py::
+// stage_flops), 4.0 ms in float32 on the CUDA cores, where the float32
+// instance computes them. What the design does: the float32 instance's
+// per-point design (a block per patch, select_slots, the queries' bitmasks,
+// the fold into their maxima) on bf16 tiles of 16 to 128 point rows in
+// shared memory, every layer at least 16 deep as mma.sync m16n8k16 with
+// certified rounding (certified.cuh: a proven bound on each sum's distance
+// from the k-order sum, the epilogue (z + b) - mean, fma(t, mul, beta),
+// relu, round evaluated at both ends, which is monotone for either sign of
+// mul; the 0.5-4% of entries a layer whose ends differ recomputed in
+// k-order on the CUDA cores), the weights' fragments read through the
+// read-only cache a step ahead; layers less deep (sa1's first two, K = 3)
+// on the CUDA cores in k-order. The store mode (pppf_sa_stage_bf16_save_
+// launch, the bf16 train step's forward) keeps the float32 instance's
+// kernel templated on the rounding, the k-order arithmetic on the CUDA
+// cores: its output is the serving launch's bit for bit, because both are
+// that arithmetic's (tests/test_torch_port_cuda.py holds the two equal).
 //
 // The bf16 "pppe" instance (pppe_sa_stage_bf16_launch; pcc_tpu's
 // compute_dtype bfloat16 with layout "pppe", PPPE's sa2 and sa3 in bf16
@@ -150,6 +166,7 @@
 
 #include <cuda_runtime.h>
 
+#include "certified.cuh"
 #include "mma_tile.cuh"
 #include "pppf_sa_common.cuh"
 
@@ -275,6 +292,33 @@ pppf_sa_stage_kernel(const __grid_constant__ Stage st) {
   for (int e = tid; e < nq * cout; e += kThreads) o[e] = __int_as_float(qmax[e]);
 }
 
+// A row's kV activations from a chunk of the last layer: float32 rows (the
+// k-order kernels) or bf16 rows (st16's).
+template <int kV>
+__device__ __forceinline__ void load_row(const float* row, float (&x)[kV]) {
+  if constexpr (kV == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(row);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else {
+    x[0] = row[0];
+  }
+}
+template <int kV>
+__device__ __forceinline__ void load_row(const unsigned short* row, float (&x)[kV]) {
+  if constexpr (kV == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(row);
+    x[0] = pcc_cert::bf16_lo(v.x);
+    x[1] = pcc_cert::bf16_hi(v.x);
+    x[2] = pcc_cert::bf16_lo(v.y);
+    x[3] = pcc_cert::bf16_hi(v.y);
+  } else {
+    x[0] = pcc_cert::bf16_val(row[0]);
+  }
+}
+
 // Folds the rows [row0, row0 + valid) of the points, whose last-layer
 // columns [c0, c0 + cc) are t[r - row0][0 .. cc) (row stride ldt), into the
 // maxima out[q][c0 ..] (row stride ld_out) of the s queries, whose point sets
@@ -283,8 +327,8 @@ pppf_sa_stage_kernel(const __grid_constant__ Stage st) {
 // walks the points any of its queries holds, so that each activation read
 // from shared memory serves up to kFoldQ queries. No trailing barrier.
 constexpr int kFoldQ = 8;
-template <bool kVec>
-__device__ __forceinline__ void fold_query_max(const float* t, int ldt, int row0, int valid,
+template <bool kVec, class Row>
+__device__ __forceinline__ void fold_query_max(const Row* t, int ldt, int row0, int valid,
                                                int cc, int c0, const unsigned* masks,
                                                int nw, int s, float* out, int ld_out) {
   constexpr int kV = kVec ? 4 : 1;
@@ -313,17 +357,8 @@ __device__ __forceinline__ void fold_query_max(const float* t, int ldt, int row0
       while (u) {
         const int b = __ffs(u) - 1;
         u &= u - 1u;
-        const float* row = t + (32 * wi + b - row0) * ldt + o;
         float x[kV];
-        if (kVec) {
-          const float4 v = *reinterpret_cast<const float4*>(row);
-          x[0] = v.x;
-          x[kV > 1 ? 1 : 0] = v.y;
-          x[kV > 2 ? 2 : 0] = v.z;
-          x[kV > 3 ? 3 : 0] = v.w;
-        } else {
-          x[0] = row[0];
-        }
+        load_row<kV>(t + (32 * wi + b - row0) * ldt + o, x);
 #pragma unroll
         for (int g = 0; g < kFoldQ; ++g)
           if ((m[g] >> b) & 1u)
@@ -361,6 +396,7 @@ pppf_sa_points_kernel(const __grid_constant__ Stage st) {
   const float* pts = st.xyz + static_cast<size_t>(p) * n * 3;
   const float* ft = st.feat ? st.feat + static_cast<size_t>(p) * n * st.c : nullptr;
   unsigned* masks = reinterpret_cast<unsigned*>(smem + st.region);   // [s][nw]
+  int* queues = reinterpret_cast<int*>(masks + s * nw);   // kWarps * kQueue, then kWarps counts
 
   // 1. each query's set: the points its slots read after the ball mask
   // (masked slots and slots beyond N read point 0), as bits of its mask.
@@ -907,11 +943,15 @@ int launch_stage(Stage& st, int p, bool save, int* saved, float* y, cudaStream_t
   if (st.pppe) {
     const int r = launch_pppe<kBf16>(st, p, y, strm);
     if (r != kNoTile) return r;
-  } else {
+  } else if (save || !kBf16) {
+    // (bf16 serving takes st16's per-point kernel, and this one per slot
+    // where that finds no tile)
     for (int i = 0; i < 2 && bytes == 0; ++i)
       bytes = point_tile(st, lda0, ldb0, budgets[i], save);
     if (bytes > 0) {
-      auto kernel = save ? pppf_sa_points_kernel<true, kBf16> : pppf_sa_points_kernel<false, kBf16>;
+      auto kernel = pppf_sa_points_kernel<true, kBf16>;
+      if constexpr (!kBf16)
+        if (!save) kernel = pppf_sa_points_kernel<false, false>;
       cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              static_cast<int>(bytes));
       if (err != cudaSuccess) return static_cast<int>(err);
@@ -944,6 +984,256 @@ int launch_stage(Stage& st, int p, bool save, int* saved, float* y, cudaStream_t
   pppf_sa_stage_kernel<kBf16><<<static_cast<unsigned>(blocks), kThreads, bytes, strm>>>(st);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// The bf16 "pppf" instance in serving (pppf_sa_stage_bf16_launch), per
+// point: the products of every layer at least 16 deep on the bf16 tensor
+// cores, its outputs bit for bit those of the k-order CUDA-core arithmetic
+// (certified.cuh). See the file's note.
+namespace st16 {
+
+using namespace pcc_sa;
+using namespace pcc_cert;
+
+__host__ __device__ inline int pad16(int v) { return (v + 15) & ~15; }
+// a layer input's bf16 row stride: the width padded to 16, + 8
+__host__ __device__ inline int ld_of(int width) { return pad16(width) + 8; }
+
+struct St16 {
+  const float* new_xyz;   // [P, S, 3]
+  const float* xyz;       // [P, N, 3]
+  const float* feat;      // [P, N, C] or nullptr
+  float* out;             // [P, S, width[n_layers]]
+  int s, n, c, nsample, n_layers;
+  float r2;
+  int rows;               // rows per tile: 16, 32 or a multiple of 64
+  int qb;                 // queries per selection group
+  int lda, ldb;           // bf16 row strides of the two activation buffers
+  int region;             // bytes of the activation buffers and selection scratch
+  int cc;                 // columns per chunk of the last layer
+  int width[kMaxLayers + 1];
+  const float* w[kMaxLayers];
+  const uint2* frag[kMaxLayers];   // packed W (layers at least 16 deep), else null
+  const float* b[kMaxLayers];
+  const float* mu[kMaxLayers];
+  const float* mul[kMaxLayers];
+  const float* beta[kMaxLayers];
+};
+
+// round_bf16(relu(fma((s + b) - mean, mul, beta))): pppf_sa_common.cuh's
+// epilogue of a layer on a k-order sum
+struct BnRelu {
+  const float *b, *mu, *mul, *beta;
+  __device__ __forceinline__ float operator()(float s, int c) const {
+    const float t = bn_shift(s, __ldg(b + c), __ldg(mu + c));
+    return pcc_bf16::round_bf16(fmaxf(fmaf(t, __ldg(mul + c), __ldg(beta + c)), 0.0f));
+  }
+};
+
+// A layer less than 16 deep, on the CUDA cores: out[r][c - c0] for the
+// columns [c0, c0 + cols) below cout, acc = fma(x[k], w[k][c], acc) from
+// k = 0; a lane per column (its weights in registers), the warps taking
+// the rows. No trailing barrier.
+__device__ __forceinline__ void small_layer(const unsigned short* in, int ldi, int rows, int cin,
+                                            const float* __restrict__ w, int cout, int c0,
+                                            int cols, const BnRelu& f, unsigned short* out,
+                                            int ldo) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  for (int c = c0 + lane; c < c0 + cols && c < cout; c += 32) {
+    float wk[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) wk[k] = k < cin ? __ldg(w + k * cout + c) : 0.0f;
+    for (int r = warp; r < rows; r += warps) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        if (k < cin) acc = fmaf(bf16_val(in[r * ldi + k]), wk[k], acc);
+      out[r * ldo + (c - c0)] = bf16_bits(f(acc, c));
+    }
+  }
+}
+
+// Layer l on a tile: the columns [c0, c0 + cols) of its output into out
+// (row stride ldo), the pad columns up to `zero_to` zeroed. A layer at
+// least 16 deep runs certified on the tensor cores (MT m16 tiles x 8 / MT
+// n8 tiles a warp item; its packed weights have columns to a multiple of
+// 64). Ends with __syncthreads().
+template <int MT>
+__device__ __forceinline__ void stage_layer(const St16& st, int l, const unsigned short* in,
+                                            int ldi, int c0, int cols, unsigned short* out,
+                                            int ldo, int zero_to, int* queues) {
+  constexpr int kNT = 8 / MT;
+  const int cin = st.width[l], cout = st.width[l + 1], rows = st.rows;
+  const BnRelu f{st.b[l], st.mu[l], st.mul[l], st.beta[l]};
+  if (st.frag[l] == nullptr) {
+    small_layer(in, ldi, rows, cin, st.w[l], cout, c0, cols, f, out, ldo);
+  } else {
+    const int span = 8 * kNT;
+    cert_layer<MT, kNT, false>(in, ldi, rows, st.frag[l], pad16(cin) / 16, cin, c0,
+                               (cols + span - 1) / span * span, cout, f, out, ldo, l, queues,
+                               queues + kWarps * kQueue);
+  }
+  const int first = cout - c0 > 0 ? cout - c0 : 0, pad = zero_to - first;
+  for (int e = threadIdx.x; e < rows * pad; e += blockDim.x)
+    out[(e / pad) * ldo + first + e % pad] = 0;
+  __syncthreads();
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+points_kernel(const __grid_constant__ St16 st) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int L = st.n_layers, cout = st.width[L], cin = st.width[0];
+  const int n = st.n, s = st.s, ns = st.nsample, nw = (n + 31) >> 5;
+  const int tid = threadIdx.x;
+  const int p = blockIdx.x;
+  const float* pts = st.xyz + static_cast<size_t>(p) * n * 3;
+  const float* ft = st.feat ? st.feat + static_cast<size_t>(p) * n * st.c : nullptr;
+  unsigned* masks = reinterpret_cast<unsigned*>(smem + st.region);   // [s][nw]
+  int* queues = reinterpret_cast<int*>(masks + s * nw);   // kWarps * kQueue, then kWarps counts
+
+  // 1. each query's set of points, as bits of its mask (the float32
+  // kernel's selection, pppf_sa_points_kernel), the scratch aliasing the
+  // activation buffers
+  float* sq = reinterpret_cast<float*>(smem);                // [qb][4]
+  float* dist = sq + 4 * st.qb;                              // where ns < n
+  int* sel = reinterpret_cast<int*>(dist + (ns < n ? st.qb * select_words(n, ns) : 0));
+  for (int e = tid; e < s * nw; e += kThreads) masks[e] = 0u;
+  for (int q0 = 0; q0 < s; q0 += st.qb) {
+    const int nq = min(st.qb, s - q0);
+    load_queries(st.new_xyz + (static_cast<size_t>(p) * s + q0) * 3, nq, sq);
+    __syncthreads();
+    select_slots(pts, sq, nq, n, ns, true, false, st.r2, dist, sel);
+    for (int e = tid; e < nq * ns; e += kThreads) {
+      const int j = sel[e];
+      atomicOr(masks + (q0 + e / ns) * nw + (j >> 5), 1u << (j & 31));
+    }
+  }
+  __syncthreads();
+
+  // 2. the stack on the points, tile by tile
+  unsigned short* buf_a = reinterpret_cast<unsigned short*>(smem);
+  unsigned short* buf_b = buf_a + st.rows * st.lda;
+  float* o = st.out + static_cast<size_t>(p) * s * cout;
+  const int kp0 = pad16(cin);
+  for (int row0 = 0; row0 < n; row0 += st.rows) {
+    const int valid = min(st.rows, n - row0);
+    // the rows [feat | xyz] rounded to bf16, zeros past cin and past the points
+    for (int e = tid; e < st.rows * kp0; e += kThreads) {
+      const int rl = e / kp0, c = e % kp0, j = row0 + rl;
+      float v = 0.0f;
+      if (rl < valid && c < cin)
+        v = pcc_bf16::round_bf16(c < st.c ? __ldg(ft + static_cast<size_t>(j) * st.c + c)
+                                          : __ldg(pts + 3 * j + (c - st.c)));
+      buf_a[rl * st.lda + c] = bf16_bits(v);
+    }
+    __syncthreads();
+    for (int l = 0; l < L - 1; ++l) {
+      const int w = st.width[l + 1];
+      stage_layer<MT>(st, l, (l & 1) ? buf_b : buf_a, (l & 1) ? st.ldb : st.lda, 0, pad16(w),
+                      (l & 1) ? buf_a : buf_b, (l & 1) ? st.lda : st.ldb, pad16(w), queues);
+    }
+    // the last layer, a column chunk at a time into the buffer it does not read
+    const int l = L - 1;
+    const unsigned short* src = (l & 1) ? buf_b : buf_a;
+    unsigned short* t = (l & 1) ? buf_a : buf_b;
+    const int ld_src = (l & 1) ? st.ldb : st.lda, ldt = (l & 1) ? st.lda : st.ldb;
+    for (int c0 = 0; c0 < cout; c0 += st.cc) {
+      const int cc = min(st.cc, cout - c0);
+      stage_layer<MT>(st, l, src, ld_src, c0, pad16(cc), t, ldt, 0, queues);
+      if (cout % 4 == 0) {
+        fold_query_max<true>(t, ldt, row0, valid, cc, c0, masks, nw, s, o, cout);
+      } else {
+        fold_query_max<false>(t, ldt, row0, valid, cc, c0, masks, nw, s, o, cout);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The tile: the most rows (128, 64, 32, 16; no more than the patch's
+// points need) whose buffers, selection scratch, masks and fix-up queues
+// fit in `budget` bytes; the selection scratch, which the buffers alias,
+// then takes what is left of the budget, so that a selection group holds
+// as many queries as it can. Sets st.rows, lda, ldb, region, cc and qb;
+// returns the bytes, or 0 if none fits.
+size_t tile(St16& st, size_t budget) {
+  const int L = st.n_layers, cout = st.width[L];
+  const int nw = (st.n + 31) / 32;
+  const size_t per_query =
+      4 * (4 + st.nsample + (st.nsample < st.n ? select_words(st.n, st.nsample) : 0));
+  const int cc = cout < 128 ? pad16(cout) : 128;
+  int ld[2] = {8, 8};
+  for (int l = 0; l <= L; ++l) {
+    const int need = l < L ? ld_of(st.width[l]) : cc + 8;
+    if (need > ld[l & 1]) ld[l & 1] = need;
+  }
+  for (int rows = 128; rows >= 16; rows /= 2) {
+    if (rows / 2 >= pad16(st.n)) continue;
+    size_t region = 2 * static_cast<size_t>(rows) * (ld[0] + ld[1]);
+    if (region < per_query) region = per_query;
+    const size_t rest = 4 * static_cast<size_t>(st.s) * nw + 4 * kWarps * (kQueue + 1);
+    if (region + rest <= budget) {
+      const size_t sel = (budget - rest) / per_query;
+      const size_t want = (sel < static_cast<size_t>(st.s) ? sel : st.s) * per_query;
+      if (want > region) region = want;
+      const size_t bytes = region + rest;
+      st.rows = rows;
+      st.lda = ld[0];
+      st.ldb = ld[1];
+      st.region = static_cast<int>(region);
+      st.cc = cc;
+      const size_t qb = region / per_query;
+      st.qb = qb < static_cast<size_t>(st.s) ? static_cast<int>(qb) : st.s;
+      return bytes;
+    }
+  }
+  return 0;
+}
+
+// Launch the per-point kernel where a tile fits; returns kNoTile where none
+// does (the caller takes the per-slot kernel).
+int launch(const Stage& base, const void* const* frags, int p, cudaStream_t strm) {
+  St16 st;
+  st.new_xyz = base.new_xyz;
+  st.xyz = base.xyz;
+  st.feat = base.feat;
+  st.out = base.out;
+  st.s = base.s;
+  st.n = base.n;
+  st.c = base.c;
+  st.nsample = base.nsample;
+  st.n_layers = base.n_layers;
+  st.r2 = base.r2;
+  for (int l = 0; l <= base.n_layers; ++l) st.width[l] = base.width[l];
+  for (int l = 0; l < base.n_layers; ++l) {
+    st.w[l] = base.w[l];
+    st.frag[l] = static_cast<const uint2*>(frags[l]);
+    if ((base.width[l] >= 16) != (st.frag[l] != nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    st.b[l] = base.b[l];
+    st.mu[l] = base.mu[l];
+    st.mul[l] = base.mul[l];
+    st.beta[l] = base.beta[l];
+  }
+  const size_t budgets[2] = {(kSmemLimit + 1024) / kMinBlocks - 1024, kSmemLimit};
+  size_t bytes = 0;
+  for (int i = 0; i < 2 && bytes == 0; ++i) bytes = tile(st, budgets[i]);
+  if (bytes == 0) return kNoTile;
+  void (*kernel)(St16) = st.rows >= 64   ? points_kernel<4>
+                         : st.rows == 32 ? points_kernel<2>
+                                         : points_kernel<1>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(p), kThreads, bytes, strm>>>(st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace st16
+
+namespace {
 
 // The Stage of a launch's arguments (see pppf_sa_stage_launch), or false
 // where they are invalid.
@@ -1023,19 +1313,38 @@ extern "C" int pppf_sa_stage_launch(const float* new_xyz, const float* xyz, cons
 
 // The bf16 instance, layout "pppf", serving: the arguments of
 // pppf_sa_stage_launch without pppe, the store mode and y; W bf16-exact
-// (the wrapper rounds it), b, mean, mul and beta float32. Every layer's
-// input rows and relu output are rounded to bf16; the selection and the
-// ball mask are the float32 instance's bit for bit.
+// (the wrapper rounds it), b, mean, mul and beta float32; frags: host array
+// of n_layers device pointers, each layer's W packed for the tensor cores
+// (ops/certified.py::pack_frags) where it is at least 16 deep, else null.
+// Every layer's input rows and relu output are rounded to bf16; the
+// selection and the ball mask are the float32 instance's bit for bit, the
+// outputs those of the k-order arithmetic (st16; the per-slot kernel's
+// bf16 instance where no per-point tile fits).
 extern "C" int pppf_sa_stage_bf16_launch(const float* new_xyz, const float* xyz,
                                          const float* feat, float* out, int p, int s, int n,
                                          int c, int nsample, float r2, int n_layers,
                                          const void* const* layers, const int* widths,
-                                         void* stream) {
+                                         const void* const* frags, void* stream) {
   Stage st;
   if (!make_stage(st, new_xyz, xyz, feat, out, p, s, n, c, nsample, r2, 0, n_layers, layers,
-                  widths))
+                  widths) ||
+      frags == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_stage<true>(st, p, false, nullptr, nullptr, static_cast<cudaStream_t>(stream));
+  cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  const int r = st16::launch(st, frags, p, strm);
+  if (r != kNoTile) return r;
+  return launch_stage<true>(st, p, false, nullptr, nullptr, strm);
+}
+
+// The counting build's flagged and computed entries per layer (st16's
+// tags: the layer index), copied to host[0 .. 2 * tags) and zeroed.
+// Returns a cudaError_t value.
+extern "C" int pppf_sa_stage_bf16_cert_counts(unsigned long long* host, int tags) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, pcc_cert::cert_counts,
+                                         2 * tags * sizeof(unsigned long long));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static const unsigned long long zeros[64] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(pcc_cert::cert_counts, zeros, sizeof(zeros)));
 }
 
 // The bf16 instance's store mode (the bf16 train step's forward): the

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.bf16 import round_bf16
+from pcc_tpu_torch.ops.certified import cached_frags
 from pcc_tpu_torch.ops.knn import ball_query, knn_gather, select_nearest, sq_dists
 from pcc_tpu_torch.ops.sa_cuda import fma_matmul
 from pcc_tpu_torch.ops.tf32_mma import wgrad_part_floats
@@ -52,6 +53,7 @@ _BF16_ARGTYPES = ([cuda_lib.PTR] * 4 + [cuda_lib.INT] * 5 + [ctypes.c_float] + [
 _BWD_ARGTYPES = ([cuda_lib.PTR] * 4 + [cuda_lib.INT] * 5 + [ctypes.c_float] + [cuda_lib.INT]
                  + [cuda_lib.PTR] * 10 + [ctypes.c_longlong, cuda_lib.INT, cuda_lib.PTR])
 _BF16_SAVE_ARGTYPES = _BF16_ARGTYPES[:-1] + [cuda_lib.PTR] * 5
+_BF16_SERVE_ARGTYPES = _BF16_ARGTYPES[:-1] + [cuda_lib.PTR] * 2   # + the packed weights
 _PPPE_BF16_ARGTYPES = ([cuda_lib.PTR] * 4 + [cuda_lib.INT] * 6 + [cuda_lib.PTR] * 4)
 _BWD_BF16_ARGTYPES = _BWD_ARGTYPES[:-1] + [cuda_lib.PTR] * 4 + [cuda_lib.INT, cuda_lib.PTR]
 LAYOUTS = ("pppf", "pppe")
@@ -196,17 +198,20 @@ def pppe_sa_points(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
 
 
 def pppf_sa_points(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *, nsample: int,
-                   radius: float, replay: bool = False) -> torch.Tensor:
+                   radius: float, replay: bool = False, bf16: bool = False) -> torch.Tensor:
     """The "pppf" stage per point, as csrc/pppf_sa_stage.cu computes it: the
     layer stack once on each point's row [feat | xyz], then each query's max
     over the points its slots read (`ball_query`: masked slots and slots
     beyond N read point 0) -> [P, S, C_out]. With `replay` the stack is
-    `stack_replay`, the kernels' float32 arithmetic; otherwise plain products
-    in the inputs' dtype. Equal to `pppf_sa_plain`, which evaluates the stack
-    per slot, up to the order of the products' sums."""
+    `stack_replay`, the kernels' float32 arithmetic (with bf16 the bf16
+    kernels', bit for bit their outputs); otherwise plain products in the
+    inputs' dtype. Equal to `pppf_sa_plain`, which evaluates the stack per
+    slot, up to the order of the products' sums."""
     rows = xyz if feat is None else torch.cat([feat, xyz], dim=-1)
+    if bf16 and not replay:
+        raise ValueError("pppf_sa_points: bf16 is the replay's")
     if replay:
-        act = stack_replay(rows, layers)[-1]
+        act = stack_replay(rows, layers, bf16)[-1]
     else:
         act = rows
         for w, b, mean, mul, bias in layers:
@@ -386,7 +391,13 @@ def pppf_sa_fused(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
                 out.data_ptr(), P, S, N, 0 if feat is None else feat.shape[2], nsample,
                 _radius2(radius), len(layers), ptrs, (ctypes.c_int * len(widths))(*widths)]
         if not save:
-            cuda_lib.launch("pppf_sa_stage_bf16", _BF16_ARGTYPES, *args,
+            # each layer at least 16 deep packed for the tensor cores (its
+            # columns to a multiple of 64: the kernel's widest warp item),
+            # once per weights
+            frags = cached_frags([lay[0] for lay in layers], n_align=64)
+            fptrs = (ctypes.c_void_p * len(layers))(
+                *[None if f is None else f.data_ptr() for f in frags])
+            cuda_lib.launch("pppf_sa_stage_bf16", _BF16_SERVE_ARGTYPES, *args, fptrs,
                             cuda_lib.stream_ptr(new_xyz))
             return out
         cuda_lib.launch("pppf_sa_stage_bf16_save", _BF16_SAVE_ARGTYPES, *args,
@@ -406,15 +417,19 @@ def pppf_sa_fused(new_xyz: torch.Tensor, xyz: torch.Tensor, feat, layers, *,
     return out
 
 
-def stack_replay(rows: torch.Tensor, layers) -> list:
+def stack_replay(rows: torch.Tensor, layers, bf16: bool = False) -> list:
     """The layer stack on rows [..., cin] in the kernels' float32 arithmetic
     (csrc/pppf_sa_common.cuh): the product as fma_matmul, t = (z + b) - mean
     rounded twice, relu(fma(t, mul, beta)) with the fused multiply-add taken
-    in float64 and rounded once to float32. Returns every layer's output."""
-    x, outs = rows, []
+    in float64 and rounded once to float32. bf16: the bf16 kernels' (rows
+    rounded to bf16, each layer's output too; W bf16 values, `bf16_layers`).
+    Returns every layer's output."""
+    x, outs = (round_bf16(rows) if bf16 else rows), []
     for w, b, mean, mul, beta in layers:
         t = (fma_matmul(x, w) + b) - mean
         x = torch.relu((t.double() * mul.double() + beta.double()).to(torch.float32))
+        if bf16:
+            x = round_bf16(x)
         outs.append(x)
     return outs
 

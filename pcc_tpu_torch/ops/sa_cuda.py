@@ -57,6 +57,7 @@ import torch
 
 from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.bf16 import round_bf16
+from pcc_tpu_torch.ops.certified import cached_frags
 from pcc_tpu_torch.ops.knn import knn_gather, select_nearest, sq_dists
 from pcc_tpu_torch.ops.tf32_mma import wgrad_part_floats
 
@@ -65,7 +66,7 @@ _ARGTYPES = ([cuda_lib.PTR, cuda_lib.INT, cuda_lib.INT, cuda_lib.INT]
 _BWD_ARGTYPES = ([cuda_lib.PTR] * 3 + [cuda_lib.INT, cuda_lib.INT, cuda_lib.INT]
                  + [cuda_lib.PTR] * 14 + [cuda_lib.INT] + [cuda_lib.PTR] * 4
                  + [ctypes.c_longlong, cuda_lib.PTR])
-_BF16_ARGTYPES = _ARGTYPES + [cuda_lib.PTR] * 7   # + the replay's 7 biases
+_BF16_ARGTYPES = _ARGTYPES + [cuda_lib.PTR] * 8   # + the replay's 7 biases, the packed weights
 _SA_ARGTYPES = ([cuda_lib.PTR, cuda_lib.INT, cuda_lib.INT, cuda_lib.INT]
                 + [cuda_lib.PTR] * 8)
 SA_WIDTHS = (3, 32, 64, 128)
@@ -325,10 +326,13 @@ def patch_encoder(patches: torch.Tensor, sa_wb, pn_wb, knn: int,
         args = _kernel_args("patch_encoder", patches, sa_wb, pn_wb, knn)
         if return_winners and any(b.data_ptr() % 16 for b in biases):
             raise ValueError("patch_encoder: biases must be 16-byte aligned")
+        # the tensor-core layers' weights, packed once per weights
+        frags = cached_frags([sa_wb[1][0], sa_wb[2][0]] + [w for w, _ in pn_wb[:3]], cat=True)
         cuda_lib.launch("patch_encoder_bf16", _BF16_ARGTYPES, patches.data_ptr(), P,
                         patches.shape[1], knn, *args, D, out.data_ptr(),
                         None if win is None else win.data_ptr(), cuda_lib.stream_ptr(patches),
-                        *[None if b is None else b.data_ptr() for b in biases])
+                        *[None if b is None else b.data_ptr() for b in biases],
+                        frags.data_ptr())
     else:
         args = _kernel_args("patch_encoder", patches, sa_wb, pn_wb, knn)
         cuda_lib.launch("patch_encoder", _ARGTYPES, patches.data_ptr(), P,

@@ -1104,12 +1104,37 @@ def _hold_bf16(out, ref):
     assert float((out - ref).abs().max()) <= BF16_TOL * float(ref.abs().max())
 
 
+def _enc_replay(pts, sa, pn, knn):
+    """The bf16 encoder's latents by the replay of its k-order arithmetic
+    (_kernel_choices in bf16) on at most REPLAY patches."""
+    p = pts[:REPLAY]
+    rows = torch.arange(p.shape[1], device=p.device).expand(p.shape[:2]).contiguous()
+    return _enc_choices(p, select_nearest(sq_dists(p, p), knn), rows, sa, pn,
+                        bf16=True)[-1].amax(dim=1)
+
+
+def _calibrated(pts, sa, pn, knn):
+    """pn with its last layer scaled and shifted per channel so that the
+    float32 latents over these patches have mean 0 and spread 1.5, as
+    chip_smoke.py::spread_symbols calibrates it (about 5000x at the path's
+    weights): nearly every sum of that layer cancels."""
+    z = patch_encoder(pts, sa, pn, knn)
+    scale = 1.5 / z.std(dim=0)
+    w, b = pn[-1]
+    return pn[:-1] + [(w * scale, (b - z.mean(dim=0)) * scale)]
+
+
+REPLAY = 64   # patches the bf16 kernels are replayed on, bit for bit
+
+
 # (P, N, knn, D): tiny, a ragged patch count, the path's patches and widths
 @pytest.mark.parametrize("P,N,knn,D", [(5, 32, 8, 4), (37, 256, 16, 16), (4096, 256, 16, 16)])
 def test_patch_encoder_bf16_kernel(dev, P, N, knn, D):
     """The bf16 encoder: held to its plain version (_hold_bf16), to the
     replay of its arithmetic (_kernel_choices in bf16) on 16 patches, and two
-    launches bitwise equal."""
+    launches bitwise equal; bit for bit that replay on up to REPLAY patches
+    (its products on the tensor cores, certified), also with the last layer
+    calibrated."""
     g = torch.Generator().manual_seed(21)
     pts = ((torch.rand((P, N, 3), generator=g) * 2 - 1) * 0.4).to(dev)
     # the bf16 encoder's weights: bf16 values (as PatchAE.encoder_weights
@@ -1127,6 +1152,10 @@ def test_patch_encoder_bf16_kernel(dev, P, N, knn, D):
                           bf16=True)[-1].amax(dim=1)
     assert float((out[:16] == replay).double().mean()) >= 0.999
     assert torch.equal(patch_encoder(pts, sa, pn, knn, bf16=True), out)
+    assert torch.equal(out[:REPLAY], _enc_replay(pts, sa, pn, knn))
+    pn_cal = bf16_wb(_calibrated(pts, sa, pn, knn))
+    cal = patch_encoder(pts, sa, pn_cal, knn, bf16=True)
+    assert torch.equal(cal[:REPLAY], _enc_replay(pts, sa, pn_cal, knn))
 
 
 @pytest.mark.parametrize("P,N,knn,D", [(512, 256, 16, 16), (16, 256, 16, 16), (5, 32, 8, 4)])
@@ -1134,7 +1163,9 @@ def test_patch_encoder_bf16_winners(dev, P, N, knn, D):
     """The bf16 encoder with its winners (bf16 training): one launch, its
     latent bit for bit the serving instance's on the rounded weights, its
     winners those of the backward's replay (float32 biases) bit for bit
-    the plain version's, two launches bitwise equal."""
+    the plain version's, two launches bitwise equal; the latent bit for bit
+    the replay of its arithmetic, and the same with the last layer
+    calibrated."""
     g = torch.Generator().manual_seed(25)
     pts = ((torch.rand((P, N, 3), generator=g) * 2 - 1) * 0.4).to(dev)
     sa, pn = _wb(g, [3, 32, 64, 128], dev), _wb(g, [131, 128, 256, 512, D], dev)
@@ -1149,6 +1180,12 @@ def test_patch_encoder_bf16_winners(dev, P, N, knn, D):
     _hold_bf16(lat[p], plain_lat)
     again = patch_encoder(pts, sa, pn, knn, return_winners=True, bf16=True)
     assert torch.equal(again[0], lat) and torch.equal(again[1], win)
+    assert torch.equal(lat[:REPLAY], _enc_replay(pts, bf16_wb(sa), bf16_wb(pn), knn))
+    pn_cal = _calibrated(pts, sa, pn, knn)
+    lat, win = patch_encoder(pts, sa, pn_cal, knn, return_winners=True, bf16=True)
+    assert torch.equal(lat[:REPLAY], _enc_replay(pts, bf16_wb(sa), bf16_wb(pn_cal), knn))
+    assert torch.equal(win[p], patch_encoder_plain(pts[p], sa, pn_cal, knn, return_winners=True,
+                                                   bf16=True)[1])
 
 
 # the bf16 backward kernel against its plain version, of each output's
@@ -1242,7 +1279,11 @@ _BF16_STAGES = [
 @pytest.mark.parametrize("P,S,N,C,nsample,radius,widths", _BF16_STAGES)
 def test_pppf_sa_stage_bf16_kernel(dev, P, S, N, C, nsample, radius, widths):
     """The bf16 "pppf" stage: held to its plain version, two launches
-    bitwise equal, with negative BatchNorm multipliers and bf16 features."""
+    bitwise equal, with negative BatchNorm multipliers and bf16 features;
+    bit for bit the bf16 replay of its arithmetic (its products on the
+    tensor cores, certified) on up to REPLAY patches, also with the
+    BatchNorm scales multiplied by 2 (chip_smoke.py's PPPF_BN_GAIN, which
+    spreads the feature between patches)."""
     g = torch.Generator().manual_seed(23)
     xyz = torch.rand((P, N, 3), generator=g).to(dev)
     new_xyz = xyz if S == N else xyz[:, torch.randint(0, N, (S,), generator=g)].contiguous()
@@ -1256,6 +1297,13 @@ def test_pppf_sa_stage_bf16_kernel(dev, P, S, N, C, nsample, radius, widths):
     assert cuda_lib.launches["pppf_sa_stage"] == before["pppf_sa_stage"]
     _hold_bf16(out, pppf_sa_plain(new_xyz, xyz, feat, layers, **kw))
     assert torch.equal(pppf_sa_fused(new_xyz, xyz, feat, layers, **kw), out)
+    sl = slice(0, REPLAY)
+    f = None if feat is None else feat[sl]
+    pts = dict(nsample=nsample, radius=radius, replay=True, bf16=True)
+    assert torch.equal(out[sl], pppf_sa_points(new_xyz[sl], xyz[sl], f, layers, **pts))
+    gained = [(w, b, mean, mul * 2, beta) for w, b, mean, mul, beta in layers]
+    out = pppf_sa_fused(new_xyz, xyz, feat, gained, **kw)
+    assert torch.equal(out[sl], pppf_sa_points(new_xyz[sl], xyz[sl], f, gained, **pts))
 
 
 # (P, N, knn): tiny, ragged patch counts, the largest patch, the path's
