@@ -284,7 +284,13 @@ Phases (any failed check raises, and the script exits non-zero):
      largest entry, two launches bitwise equal, the winners the step's and
      the plain version's, the latent the serving instance's; times, the
      bound on the bf16 tensor cores and in float32), and every bf16_reduce
-     call of the step bit-equal to its plain version;
+     call of the step bit-equal to its plain version, one launch a call;
+     then csrc/certified.cuh's model of the bf16 tensor cores checked on
+     the card (csrc/cert_model.cu): on ops/certified.py's stress rows
+     (cancelling sums, wide exponent spreads inside a k16 block, products
+     into the subnormal range; K = 16, 131, 256, 1024) every tensor-core
+     sum within the certificate's bound E of the k-order sum, the largest
+     |s_tc - s_k| / E printed (at most 1);
  33. one bf16 train step at TINY on the card and on the CPU port (loss,
      gradients and parameters within tests/test_torch_port_train_bf16.py's
      bounds);
@@ -407,7 +413,8 @@ from pcc_tpu_torch.ops.pppf_sa_cuda import (PPPFStageFn, bf16_layers, pppe_kerne
                                             pppf_sa_points, stage_bwd_bf16_work,
                                             stage_bwd_flops, stage_bwd_work, stage_flops)
 from pcc_tpu_torch.ops.sa_cuda import (PatchEncoderFn, _kernel_choices, _unflatten, bf16_wb,
-                                       patch_encoder, patch_encoder_bwd, patch_encoder_bwd_plain,
+                                       fma_matmul, patch_encoder, patch_encoder_bwd,
+                                       patch_encoder_bwd_plain,
                                        patch_encoder_plain, pointwise_plain, sa_fused,
                                        sa_fused_plain, winners_plain)
 from pcc_tpu_torch.parallel.mesh import (build_sharded_pppe_train_step,
@@ -3412,9 +3419,10 @@ def recording_bf16_reduce(grids: list):
 
     reduce = bf16_mod.bf16_reduce
 
-    def recording(g):
-        grids.append(g.detach().clone())
-        return reduce(g)
+    def recording(g, cols=1):
+        # clone keeps a permuted view's strides, as the kernel reads them
+        grids.append((g.detach().clone(), cols))
+        return reduce(g, cols)
 
     bf16_mod.bf16_reduce = recording
     try:
@@ -3550,27 +3558,67 @@ def bf16_backward_check(rec: dict, launches: dict) -> dict:
 
 
 def bf16_reduce_check(grids: list, launches: dict) -> dict:
-    """Phase 32, bf16_reduce: every recorded call of phase 31's step (the
-    bias and tiled-feature gradients) bit-equal to its plain version;
-    CUDA-event times summed over the step's calls, the plain version's,
-    and the bound (each cotangent read once, its rows' adds)."""
+    """Phase 32, bf16_reduce: one launch a call of phase 31's step, and
+    every recorded call (the bias and tiled-feature gradients, their
+    cotangents unrounded and as the step hands them, permuted views
+    included) bit-equal to its plain version, twice; CUDA-event and device
+    times summed over the step's calls, the plain version's, and the bound
+    (each cotangent read once, its rows' adds)."""
     from pcc_tpu_torch.ops.bf16 import bf16_reduce, bf16_reduce_plain
 
-    for x in grids:
-        if not torch.equal(bf16_reduce(x), bf16_reduce_plain(x)):
+    per = launches["bf16_reduce"] // TRAIN_STEPS
+    if per != len(grids):
+        raise RuntimeError(f"bf16_reduce: {per} launches a step for {len(grids)} calls")
+    for x, cols in grids:
+        out = bf16_reduce(x, cols)
+        if not torch.equal(out, bf16_reduce_plain(x, cols)):
             raise RuntimeError(f"bf16_reduce differs from its plain version on {tuple(x.shape)}")
-    ms = sum(cuda_ms(lambda x=x: bf16_reduce(x), 10) for x in grids)
-    plain_ms = sum(cuda_ms(lambda x=x: bf16_reduce_plain(x), 1) for x in grids)
-    bms, by = bound(sum(x.numel() for x in grids), sum(nbytes(x) for x in grids))
+        if not torch.equal(out, bf16_reduce(x, cols)):
+            raise RuntimeError(f"two launches of bf16_reduce differ on {tuple(x.shape)}")
+    ms = sum(cuda_ms(lambda x=x, c=c: bf16_reduce(x, c), 10) for x, c in grids)
+    device_ms = sum(graph_ms(lambda x=x, c=c: bf16_reduce(x, c), 10) for x, c in grids)
+    plain_ms = sum(cuda_ms(lambda x=x, c=c: bf16_reduce_plain(x, c), 1) for x, c in grids)
+    bms, by = bound(sum(x.numel() for x, _ in grids), sum(nbytes(x) for x, _ in grids))
     out = dict(name="bf16_reduce", route="cuda", source="pcc_tpu_torch/csrc/bf16_reduce.cu",
                replaces="none: XLA's bf16 reduce_sum of a flax Dense bias gradient in "
                         "pcc_tpu's bf16 step (pcc_tpu/models/layers.py:48; no pallas_call)",
-               launches=launches["bf16_reduce"], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-               bound_ms=bms, bound_by=by, library_ms=None,
-               shapes=[list(x.shape) for x in grids])
-    log(f"phase 32, bf16_reduce: {len(grids)} calls a step, bit-equal to the plain version; "
-        f"{ms:.4f} ms for the step's calls (plain {plain_ms:.2f} ms, bound {bms:.5f} ms by {by})")
+               launches=launches["bf16_reduce"], max_abs_err=0.0, ms=ms, device_ms=device_ms,
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+               calls_per_step=len(grids),
+               shapes=[[list(x.shape), list(x.stride()), c] for x, c in grids])
+    log(f"phase 32, bf16_reduce: {len(grids)} calls a step in {per} launches, bit-equal to "
+        f"the plain version; {ms:.4f} ms for the step's calls, device {device_ms:.4f} ms "
+        f"(plain {plain_ms:.2f} ms, bound {bms:.5f} ms by {by})")
     return out
+
+
+def cert_model_check() -> dict:
+    """Phase 32, certified.cuh's model of the bf16 tensor cores
+    (ops/certified.py::model_sums on csrc/cert_model.cu): on the stress
+    rows of every kind and depth, the k-order sum within an ulp of the
+    plain fused multiply-add chain and every tensor-core sum within the
+    certificate's bound E of it; the largest |s_tc - s_k| / E by kind and
+    depth. Raises where a ratio exceeds 1: the bf16 encoder and "pppf"
+    stage would then not be certified on this card."""
+    from pcc_tpu_torch.ops.certified import (STRESS_DEPTHS, STRESS_KINDS, model_ratio,
+                                             model_sums, stress_rows)
+
+    dev = torch.device("cuda", 0)
+    ratios = {}
+    for kind in STRESS_KINDS:
+        for k in STRESS_DEPTHS:
+            x, w = stress_rows(kind, k, seed=k)
+            s_tc, s_k, err = model_sums(x.to(dev), w.to(dev))
+            ref = fma_matmul(x, w)
+            if not bool(((s_k.cpu() - ref).abs() <= ref.abs() * 2.0 ** -23 + 2.0 ** -149).all()):
+                raise RuntimeError(f"cert_model: s_k is not the k-order sum ({kind}, K = {k})")
+            ratios[f"{kind} K={k}"] = model_ratio(s_tc, s_k, err)
+    worst = max(ratios.values())
+    log(f"phase 32, certified.cuh's model on the card: largest |s_tc - s_k| / E {worst:.6g} "
+        f"over {len(ratios)} stress cases of 64 x 16 entries (limit 1); " + json.dumps(ratios))
+    if not worst <= 1.0:
+        raise RuntimeError(f"certified.cuh's model fails on this card: |s_tc - s_k| / E = {worst}")
+    return dict(largest_ratio=worst, ratios=ratios)
 
 
 def bf16_step_card_vs_cpu(dev) -> dict:
@@ -4603,9 +4651,11 @@ def main() -> int:
     kernels.append(bf16_backward_check(rec31, launches31))
     kernels.append(bf16_reduce_check(grids31, launches31))
     del rec31, grids31
+    cert32 = cert_model_check()
     card33 = bf16_step_card_vs_cpu(dev)
     cli34 = bf16_train_cli_phase(clouds)
     log("phases 30-34: " + json.dumps({"large-scene rooms": rooms30, "bf16 train": train31,
+                                       "certified.cuh's model": cert32,
                                        "bf16 TINY card vs CPU": card33, "train CLI": cli34}))
 
     # 35-37. the PN++ families' bf16 training: PPPF_AE in bf16 with its

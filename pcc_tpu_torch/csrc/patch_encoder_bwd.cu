@@ -35,19 +35,35 @@
 // activations, hence the max routing, are the forward's bit for bit.
 //
 // What bounds it on an H100: not its operations but the latency of a chain
-// of small steps per group of 16 winners between the barriers of one
-// 256-thread block per SM (the SetAbstraction weights, the patch and the
-// winners' rows take about 155 KB of shared memory at N = 256). Summing the
-// weight gradients there, one output per thread into a per-block slice of
-// partials for each group, cost about as much as the SetAbstraction
-// backward (1.4 and 1.6 ms at P = 512, timed by taking each out:
-// pcc_tpu_torch/tools/bwd_breakdown.py). So the kernel only recomputes the
-// winners' rows and propagates the gradients through them, and writes each
-// layer's input rows and the gradients of its pre-activation to device
-// memory (about 0.23 GB at P = 512); each layer's weight gradient is then
-// one split-K 3xTF32 product over those rows (tf32_mma.cuh::
-// wgrad_tf32_kernel, as the PN++ stage backward computes its own), its bias
-// gradient the column sums of the same pass.
+// of small steps per group of 16 winners between the barriers of a
+// 256-thread block (pcc_tpu_torch/tools/bwd_breakdown.py times each step by
+// taking it out). Summing the weight gradients there, one output per thread
+// into a per-block slice of partials for each group, cost about as much as
+// the SetAbstraction backward (1.4 and 1.6 ms at P = 512 in an earlier
+// design). So the kernel only recomputes the winners' rows and propagates
+// the gradients through them, and writes each layer's input rows and the
+// gradients of its pre-activation to device memory (about 0.23 GB at P =
+// 512); each layer's weight gradient is then a split-K 3xTF32 product over
+// those rows (tf32_mma.cuh::wgrad_tile, as the PN++ stage backward computes
+// its own), its bias gradient the column sums of the same pass: the seven
+// products in one grouped launch and their sums in one more, after the
+// kernel and a launch that transposes PointNet's weights for it (4 launches
+// a call, 22 before).
+//
+// Against the latency: two blocks on an SM (about 105 KB of shared memory
+// each at N = 256: w3 is read through the cache, a group's SetAbstraction
+// rows share bx3's space, w3 transposed shares PointNet's rows while they
+// are dead: make_layout); the input gradients read each weight transposed,
+// so that a warp's loads coalesce (PointNet's from device memory, a launch
+// before the kernel transposes them; w2 and w3 in shared memory without
+// bank conflicts); the neighbours of the winners alone are selected
+// (U <= D queries, not all N); and layer 3's input gradient, which is
+// nonzero only at the channels whose max a slot won (each channel routes to
+// one slot), sums over each slot's channels in ascending order, listed once
+// per group, in place of a test of every channel for every (row, input) (1.1
+// of the earlier 3.6 ms of the bf16 instance at P = 512). Each of these
+// keeps every sum's terms and order, so the outputs are the earlier design's
+// bit for bit.
 //
 // The bf16 instance (patch_encoder_bwd_bf16_launch; pcc_tpu's compute_dtype
 // bfloat16, sa_pallas.py:288-470) is this kernel templated on the rounding
@@ -107,15 +123,25 @@ __host__ __device__ inline GradOffsets grad_offsets(int dout) {
   return g;
 }
 
+// SetAbstraction weights and biases kept in shared memory: w1 b1 w2 b2 b3
+// (w3 is read through the cache, and transposed for its input gradient)
+constexpr int kSaShared = 3 * kEncC1 + kEncC1 + kEncC1 * kEncC2 + kEncC2 + kEncC3;
+
 struct Layout {
   int sx, sy, sz, sq, sa, dpts;      // patch, SetAbstraction weights, patch gradient
   int qs, win, winners, nwin;        // chunk queries, per-channel winners, distinct winners
   int bx0, bx1, bx2, bx3, dz4;       // the winners' PointNet rows
-  int a1, a2, best, dinp;            // one group's SetAbstraction rows
+  int a1, a2, w2t, w3t;              // one group's SetAbstraction rows; w2, w3 transposed
+  int best, order, start, dinp;      // the max's slots, each slot's channels, gradients
   int floats;                        // float words before the neighbour table
   size_t bytes;                      // total dynamic shared memory
 };
 
+// A group's SetAbstraction rows a1 and a2 live in the last floats of bx3,
+// which is dead while they are (before PointNet's forward and after its
+// backward), and w3 transposed [kEncC3][kEncC2] in bx1, bx2 and the rest of
+// bx3 during the SetAbstraction backward: about 105 KB at n = 256, knn =
+// 16, so that two blocks fit on an SM.
 __host__ __device__ inline Layout make_layout(int n, int knn) {
   Layout L;
   int off = 0;
@@ -123,7 +149,8 @@ __host__ __device__ inline Layout make_layout(int n, int knn) {
   L.sy = off; off += n;
   L.sz = off; off += n;
   L.sq = off; off += n;
-  L.sa = off; off += kEncSaW;
+  L.sa = off; off += kSaShared;
+  L.w2t = off; off += kEncC1 * kEncC2;
   L.dpts = off; off += 3 * n;
   L.qs = off; off += kEncQ;
   L.win = off; off += kEncMaxD;
@@ -134,15 +161,20 @@ __host__ __device__ inline Layout make_layout(int n, int knn) {
   L.bx2 = L.bx1 + kEncQ * kEncP1;
   L.bx3 = L.bx2 + kEncQ * kEncP2;
   L.dz4 = L.bx3 + kEncQ * kEncP3;
-  L.a1 = L.dz4 + kEncQ * kEncMaxD;
+  L.a1 = L.dz4 - kG * knn * (kEncC1 + kEncC2);
   L.a2 = L.a1 + kG * knn * kEncC1;
-  L.best = L.a2 + kG * knn * kEncC2;
-  L.dinp = L.best + kEncQ * kEncC3 / 4;
+  L.w3t = L.bx1;
+  L.best = L.dz4 + kEncQ * kEncMaxD;
+  L.order = L.best + kEncQ * kEncC3 / 4;
+  L.start = L.order + kG * kEncC3 / 4;
+  L.dinp = L.start + kG * (knn + 1);
   L.floats = L.dinp + kG * knn * 3;
   L.bytes = static_cast<size_t>(L.floats) * sizeof(float) +
             static_cast<size_t>(n) * knn * sizeof(unsigned short);
   return L;
 }
+static_assert(kEncQ * (kEncP1 + kEncP2 + kEncP3) >= kEncC2 * kEncC3 + kG * 16 * (kEncC1 + kEncC2),
+              "w3 transposed and a group's rows fit in bx1..bx3");
 
 // The winners' rows in device memory, for the weight-gradient products. A
 // patch has rs = D rounded up to kEncQ row slots (slots past its winners
@@ -208,11 +240,14 @@ __device__ __forceinline__ void zero_sa_rows(float* rows, const Rows& R, size_t 
 
 // x[r][k] = sum_o dz[r][o] * w[k][o], times (x[r][k] > 0) when kMask: the
 // input gradient of a layer z = x @ w + b, written over x (each element is
-// read and written by the same thread). RT rows per work item; rows % RT == 0.
-// kBf16: dz rounded to bf16 where it is read (w is bf16-exact).
+// read and written by the same thread), from w transposed, wt [cout][cin]:
+// the threads of a warp take neighbouring k, so their weight loads are one
+// coalesced row (w itself, [cin][cout], would put them cout apart). RT rows
+// per work item; rows % RT == 0. kBf16: dz rounded to bf16 where it is read
+// (w is bf16-exact).
 template <int RT, bool kGlobalW, bool kMask, bool kBf16 = false>
 __device__ __forceinline__ void dense_bwd_x(const float* dz, int ldz, int rows, int cout,
-                                            const float* w, int cin, float* x, int ldx) {
+                                            const float* wt, int cin, float* x, int ldx) {
   const int items = (rows / RT) * cin;
   for (int e = threadIdx.x; e < items; e += blockDim.x) {
     const int k = e % cin;
@@ -222,7 +257,7 @@ __device__ __forceinline__ void dense_bwd_x(const float* dz, int ldz, int rows, 
 #pragma unroll
     for (int i = 0; i < RT; ++i) acc[i] = 0.0f;
     for (int o = 0; o < cout; ++o) {
-      const float wk = load_w<kGlobalW>(w + k * cout + o);
+      const float wk = load_w<kGlobalW>(wt + o * cin + k);
 #pragma unroll
       for (int i = 0; i < RT; ++i)
         acc[i] = fmaf(pcc_bf16::act_round<kBf16>(d[i * ldz + o]), wk, acc[i]);
@@ -250,14 +285,15 @@ __device__ __forceinline__ void sa_group_forward(const int* qs, const unsigned s
   __syncthreads();
 }
 
-// SetAbstraction layer 3 and the max over slots for kG queries: the pooled
+// SetAbstraction layer 3 (w3 through the read-only cache) and the max over
+// slots for kG queries: the pooled
 // features (equal to the forward's: rounding is monotone, so
 // max_s(acc_s + b) == max_s(acc_s) + b) into the concat rows, and the first
 // slot that reaches the max, or kDead where the max is <= 0. kBf16: the
 // slots' values rounded to bf16 before the max, so that the first of the
 // rounded maxima wins, as the TPU kernel picks it. Ends with a barrier.
 template <int KNN, bool kBf16>
-__device__ __forceinline__ void sa_group_max(const float* a2, const float* sw3,
+__device__ __forceinline__ void sa_group_max(const float* a2, const float* __restrict__ w3,
                                              const float* sb3, float* feats,
                                              unsigned char* best) {
   for (int e = threadIdx.x; e < kG * kEncC3; e += blockDim.x) {
@@ -268,7 +304,7 @@ __device__ __forceinline__ void sa_group_max(const float* a2, const float* sw3,
 #pragma unroll
     for (int i = 0; i < KNN; ++i) acc[i] = 0.0f;
     for (int k = 0; k < kEncC2; ++k) {
-      const float wk = sw3[k * kEncC3 + o];
+      const float wk = __ldg(w3 + k * kEncC3 + o);
 #pragma unroll
       for (int i = 0; i < KNN; ++i) acc[i] = fmaf(x[i * kEncC2 + k], wk, acc[i]);
     }
@@ -292,15 +328,39 @@ __device__ __forceinline__ void sa_group_max(const float* a2, const float* sw3,
 // The SetAbstraction backward of kG queries qs[0..kG) whose a1/a2 rows were
 // just recomputed, given the pooled features' gradient dfeats (row stride
 // kEncX0): writes their SetAbstraction rows (from r0 on) for the weight
-// gradients and adds the patch gradient into dpts. kBf16: each gradient
-// rounded to bf16 where a product reads it. Ends with a barrier.
+// gradients and adds the patch gradient into dpts. w2t, w3t: w2 and w3
+// transposed; order, start: scratch for each (query, slot)'s channels.
+// kBf16: each gradient rounded to bf16 where a product reads it. Ends with a
+// barrier.
 template <int KNN, bool kBf16>
 __device__ __forceinline__ void sa_group_backward(
     const int* qs, const unsigned short* nbr, const float* sx, const float* sy,
-    const float* sz, int n, const float* sw1, const float* sw2, const float* sw3,
+    const float* sz, int n, const float* sw1, const float* w2t, const float* w3t,
     float* a1, float* a2, const unsigned char* best, const float* dfeats, float* dinp,
-    float* dpts, float* rows, const Rows& R, size_t r0) {
+    float* dpts, float* rows, const Rows& R, size_t r0, unsigned char* order, int* start) {
   constexpr int kRows = kG * KNN;
+  // each (query, slot)'s channels, ascending: the channels whose max that
+  // slot won (a counting sort of best by slot, a warp a query, a lane a slot)
+  {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (warp < kG) {
+      const unsigned char* b = best + warp * kEncC3;
+      int cnt = 0;
+      if (lane < KNN)
+        for (int o = 0; o < kEncC3; ++o) cnt += b[o] == lane;
+      int incl = cnt;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += v;
+      }
+      int pos = incl - cnt;
+      if (lane <= KNN) start[warp * (KNN + 1) + lane] = pos;
+      if (lane < KNN)
+        for (int o = 0; o < kEncC3; ++o)
+          if (b[o] == lane) order[warp * kEncC3 + pos++] = static_cast<unsigned char>(o);
+    }
+  }
   // the layers' inputs, and layer 3's gradient: each (query, channel)
   // gradient flows to its winning slot only
   for (int e = threadIdx.x; e < kRows * 4; e += blockDim.x) {
@@ -319,21 +379,25 @@ __device__ __forceinline__ void sa_group_backward(
         best[qi * kEncC3 + o] == slot ? dfeats[qi * kEncX0 + o] : 0.0f;
   }
   __syncthreads();
-  // da2 = (dz3 @ w3^T) * (a2 > 0), over a2
+  // da2 = (dz3 @ w3^T) * (a2 > 0), over a2: dz3 is nonzero on a row only at
+  // the channels whose max its slot won, so the sum runs over those, in
+  // ascending order (the order of the dense sum, whose other terms are 0)
   for (int e = threadIdx.x; e < kRows * kEncC2; e += blockDim.x) {
     const int i = e % kEncC2, r = e / kEncC2;
     const int qi = r / KNN, slot = r % KNN;
     float s = 0.0f;
     if (a2[e] > 0.0f) {
-      for (int o = 0; o < kEncC3; ++o)
-        if (best[qi * kEncC3 + o] == slot)
-          s = fmaf(pcc_bf16::act_round<kBf16>(dfeats[qi * kEncX0 + o]), sw3[i * kEncC3 + o], s);
+      const int* st = start + qi * (KNN + 1);
+      for (int t = st[slot]; t < st[slot + 1]; ++t) {
+        const int o = order[qi * kEncC3 + t];
+        s = fmaf(pcc_bf16::act_round<kBf16>(dfeats[qi * kEncX0 + o]), w3t[o * kEncC2 + i], s);
+      }
     }
     a2[e] = s;
   }
   __syncthreads();
   for (int e = threadIdx.x; e < kRows * kEncC2; e += blockDim.x) rows[R.da2 + r0 * kEncC2 + e] = a2[e];
-  dense_bwd_x<8, false, true, kBf16>(a2, kEncC2, kRows, kEncC2, sw2, kEncC1, a1, kEncC1);
+  dense_bwd_x<8, false, true, kBf16>(a2, kEncC2, kRows, kEncC2, w2t, kEncC1, a1, kEncC1);
   __syncthreads();
   for (int e = threadIdx.x; e < kRows * kEncC1; e += blockDim.x) rows[R.da1 + r0 * kEncC1 + e] = a1[e];
   // the centred input's gradient
@@ -370,9 +434,40 @@ __device__ __forceinline__ void sa_group_backward(
   __syncthreads();
 }
 
-// One block per patch; kBf16: the bf16 instance (the header note).
+// PointNet's weights transposed ([out][in]) for the input gradients, one
+// after the other in device memory (floats): pw1 at 0, then pw2, pw3, pw4.
+constexpr int kPw2T = (3 + kEncC3) * kEncP1;
+constexpr int kPw3T = kPw2T + kEncP1 * kEncP2;
+constexpr int kPw4T = kPw3T + kEncP2 * kEncP3;
+__host__ __device__ inline int pw_t_floats(int dout) { return kPw4T + kEncP3 * dout; }
+
+// wt = pw1..pw4 transposed: wt[off + o * in + k] = w[k * out + o].
+__global__ void __launch_bounds__(256)
+transpose_pn_kernel(const float* __restrict__ pw1, const float* __restrict__ pw2,
+                    const float* __restrict__ pw3, const float* __restrict__ pw4, int dout,
+                    float* __restrict__ wt) {
+  const int total = pw_t_floats(dout);
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total; e += gridDim.x * blockDim.x) {
+    const float* w;
+    int off, cin, cout;
+    if (e < kPw2T) {
+      w = pw1, off = 0, cin = 3 + kEncC3, cout = kEncP1;
+    } else if (e < kPw3T) {
+      w = pw2, off = kPw2T, cin = kEncP1, cout = kEncP2;
+    } else if (e < kPw4T) {
+      w = pw3, off = kPw3T, cin = kEncP2, cout = kEncP3;
+    } else {
+      w = pw4, off = kPw4T, cin = kEncP3, cout = dout;
+    }
+    const int i = e - off, k = i / cout, o = i % cout;
+    wt[off + o * cin + k] = w[i];
+  }
+}
+
+// One block per patch, two on an SM; kBf16: the bf16 instance (the header
+// note).
 template <int KNN, bool kBf16>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ g,
                          const int* __restrict__ pwin, int n,
                          const float* __restrict__ w1, const float* __restrict__ b1,
@@ -382,8 +477,8 @@ patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict_
                          const float* __restrict__ pw2, const float* __restrict__ pb2,
                          const float* __restrict__ pw3, const float* __restrict__ pb3,
                          const float* __restrict__ pw4, const float* __restrict__ pb4,
-                         int dout, float* __restrict__ dpatches, float* __restrict__ rows,
-                         const Rows R) {
+                         const float* __restrict__ wt, int dout,
+                         float* __restrict__ dpatches, float* __restrict__ rows, const Rows R) {
   const Layout L = make_layout(n, KNN);
   extern __shared__ __align__(16) float smem[];
   float* sx = smem + L.sx;
@@ -402,24 +497,33 @@ patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict_
   float* dz4 = smem + L.dz4;
   float* a1 = smem + L.a1;
   float* a2 = smem + L.a2;
+  float* w2t = smem + L.w2t;
+  float* w3t = smem + L.w3t;
   unsigned char* best = reinterpret_cast<unsigned char*>(smem + L.best);
+  unsigned char* order = reinterpret_cast<unsigned char*>(smem + L.order);
+  int* start = reinterpret_cast<int*>(smem + L.start);
   float* dinp = smem + L.dinp;
   unsigned short* nbr = reinterpret_cast<unsigned short*>(smem + L.floats);
-  float* sw1 = smem + L.sa;                // SetAbstraction weights, as loaded
+  float* sw1 = smem + L.sa;                // SetAbstraction weights, as loaded (not w3)
   float* sb1 = sw1 + 3 * kEncC1;
   float* sw2 = sb1 + kEncC1;
   float* sb2 = sw2 + kEncC1 * kEncC2;
-  float* sw3 = sb2 + kEncC2;
-  float* sb3 = sw3 + kEncC2 * kEncC3;
+  float* sb3 = sb2 + kEncC2;
   const int tid = threadIdx.x;
   const int p = blockIdx.x;
 
-  load_sa_weights(w1, b1, w2, b2, w3, b3, sw1);
+  for (int i = tid; i < 3 * kEncC1; i += blockDim.x) sw1[i] = w1[i];
+  for (int i = tid; i < kEncC1; i += blockDim.x) sb1[i] = b1[i];
+  for (int i = tid; i < kEncC1 * kEncC2; i += blockDim.x) {
+    sw2[i] = w2[i];
+    w2t[(i % kEncC2) * kEncC1 + i / kEncC2] = w2[i];
+  }
+  for (int i = tid; i < kEncC2; i += blockDim.x) sb2[i] = b2[i];
+  for (int i = tid; i < kEncC3; i += blockDim.x) sb3[i] = b3[i];
   for (int e = tid; e < 3 * n; e += blockDim.x) dpts[e] = 0.0f;
   // each channel's first arg-max point, from the forward
   if (tid < dout) win[tid] = pwin[static_cast<size_t>(p) * dout + tid];
   load_patch(pts + static_cast<size_t>(p) * n * 3, n, sx, sy, sz, sq);
-  select_knn<KNN>(sx, sy, sz, sq, n, nbr);
   if (tid == 0) {
     int u = 0;
     for (int c = 0; c < dout; ++c) {
@@ -431,6 +535,9 @@ patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict_
   }
   __syncthreads();
   const int U = *nwin;
+  // the neighbours of the winners only: the rows below read no others
+  for (int i = tid; i < U; i += blockDim.x) knn_of<KNN>(winners[i], sx, sy, sz, sq, n, nbr);
+  __syncthreads();
   const float* gp = g + static_cast<size_t>(p) * dout;
 
   // the distinct winning points, kEncQ at a time (rows past Wn repeat the
@@ -443,7 +550,7 @@ patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict_
     __syncthreads();
     for (int g0 = 0; g0 < kEncQ; g0 += kG) {
       sa_group_forward<KNN, kBf16>(qs + g0, nbr, sx, sy, sz, sw1, sb1, sw2, sb2, a1, a2);
-      sa_group_max<KNN, kBf16>(a2, sw3, sb3, bx0 + g0 * kEncX0 + 3, best + g0 * kEncC3);
+      sa_group_max<KNN, kBf16>(a2, w3, sb3, bx0 + g0 * kEncX0 + 3, best + g0 * kEncC3);
     }
     concat_xyz(kEncQ, QueryList{qs}, sx, sy, sz, bx0);
     for (int e = tid; e < kEncQ * dout; e += blockDim.x) {
@@ -471,16 +578,20 @@ patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict_
     store_rows(bx3, kEncP3, kEncP3, kEncQ, rows + R.x3 + pr * kEncP3, kEncP3);
     store_rows(dz4, dout, dout, kEncQ, rows + R.dz4 + pr * R.ldd, R.ldd);
     __syncthreads();
-    dense_bwd_x<16, true, true, kBf16>(dz4, dout, kEncQ, dout, pw4, kEncP3, bx3, kEncP3);
+    const float* pwt = wt;                         // pw1..pw4 transposed, in turn
+    dense_bwd_x<16, true, true, kBf16>(dz4, dout, kEncQ, dout, pwt + kPw4T, kEncP3, bx3,
+                                       kEncP3);
     __syncthreads();
     store_rows(bx3, kEncP3, kEncP3, kEncQ, rows + R.dz3 + pr * kEncP3, kEncP3);
-    dense_bwd_x<16, true, true, kBf16>(bx3, kEncP3, kEncQ, kEncP3, pw3, kEncP2, bx2, kEncP2);
+    dense_bwd_x<16, true, true, kBf16>(bx3, kEncP3, kEncQ, kEncP3, pwt + kPw3T, kEncP2, bx2,
+                                       kEncP2);
     __syncthreads();
     store_rows(bx2, kEncP2, kEncP2, kEncQ, rows + R.dz2 + pr * kEncP2, kEncP2);
-    dense_bwd_x<16, true, true, kBf16>(bx2, kEncP2, kEncQ, kEncP2, pw2, kEncP1, bx1, kEncP1);
+    dense_bwd_x<16, true, true, kBf16>(bx2, kEncP2, kEncQ, kEncP2, pwt + kPw2T, kEncP1, bx1,
+                                       kEncP1);
     __syncthreads();
     store_rows(bx1, kEncP1, kEncP1, kEncQ, rows + R.dz1 + pr * kEncP1, kEncP1);
-    dense_bwd_x<16, true, false, kBf16>(bx1, kEncP1, kEncQ, kEncP1, pw1, 3 + kEncC3, bx0,
+    dense_bwd_x<16, true, false, kBf16>(bx1, kEncP1, kEncQ, kEncP1, pwt, 3 + kEncC3, bx0,
                                         kEncX0);
     __syncthreads();
     // the concat's xyz columns straight onto the (distinct) winners
@@ -490,13 +601,18 @@ patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict_
     }
     __syncthreads();
     // SetAbstraction backward of the pooled features' gradient, kG winners
-    // at a time; the rows of the groups past Wn are zeros
+    // at a time; the rows of the groups past Wn are zeros. w3 transposed
+    // over PointNet's rows, dead now (the groups' barriers publish it)
+    for (int e = tid; e < kEncC2 * kEncC3; e += blockDim.x) {
+      const int i = e % kEncC2, o = e / kEncC2;
+      w3t[o * kEncC2 + i] = __ldg(w3 + i * kEncC3 + o);
+    }
     int g0 = 0;
     for (; g0 < Wn; g0 += kG) {
       sa_group_forward<KNN, kBf16>(qs + g0, nbr, sx, sy, sz, sw1, sb1, sw2, sb2, a1, a2);
-      sa_group_backward<KNN, kBf16>(qs + g0, nbr, sx, sy, sz, n, sw1, sw2, sw3, a1, a2,
+      sa_group_backward<KNN, kBf16>(qs + g0, nbr, sx, sy, sz, n, sw1, w2t, w3t, a1, a2,
                              best + g0 * kEncC3, bx0 + g0 * kEncX0 + 3, dinp, dpts, rows, R,
-                             (pr + g0) * KNN);
+                             (pr + g0) * KNN, order, start);
     }
     zero_sa_rows(rows, R, (pr + g0) * KNN, (kEncQ - g0) * KNN);
   }
@@ -517,6 +633,59 @@ patch_encoder_bwd_kernel(const float* __restrict__ pts, const float* __restrict_
   __syncthreads();
   float* out = dpatches + static_cast<size_t>(p) * n * 3;
   for (int e = tid; e < 3 * n; e += blockDim.x) out[e] = dpts[e];
+}
+
+// The seven weight-gradient products, grouped: one launch computes every
+// output tile of every split of all seven (block b belongs to the last
+// product whose first block is <= b, and there to the tile and split that
+// wgrad_tf32_kernel's grid would give it), one more sums each product's
+// splits and its bias column sums (split_sum_kernel's blocks, likewise).
+// Each tile and each sum is computed exactly as the launch per product
+// computed it, so the bits are the same. The job tables are
+// __grid_constant__: a block reads its job in place, with no copy of the
+// table per thread.
+constexpr int kProducts = 7;
+
+struct WgradJob {
+  const float* x;
+  const float* d;
+  float* part;
+  float* vpart;
+  int ldx, cin, ldd, cout, rows, chunk, tiles_n, tiles_m, first;
+};
+struct WgradGroup {
+  WgradJob job[kProducts];
+};
+
+__global__ void __launch_bounds__(kWThreads)
+wgrad_group_kernel(const __grid_constant__ WgradGroup grp) {
+  extern __shared__ __align__(16) float wsm[];
+  int j = kProducts - 1;
+  while (static_cast<int>(blockIdx.x) < grp.job[j].first) --j;
+  const WgradJob& w = grp.job[j];
+  const int b = blockIdx.x - w.first;
+  wgrad_tile(w.x, w.ldx, w.cin, w.d, w.ldd, w.cout, nullptr, w.rows, w.chunk, w.part, w.vpart,
+             (b % w.tiles_n) * kWBN, ((b / w.tiles_n) % w.tiles_m) * kWBM,
+             b / (w.tiles_n * w.tiles_m), wsm);
+}
+
+struct SumJob {
+  const float* part;
+  float* out;
+  size_t stride;
+  int size, splits, first;
+};
+struct SumGroup {
+  SumJob job[2 * kProducts];
+};
+
+__global__ void __launch_bounds__(256)
+split_sum_group_kernel(const __grid_constant__ SumGroup grp) {
+  int j = 2 * kProducts - 1;
+  while (static_cast<int>(blockIdx.x) < grp.job[j].first) --j;
+  const SumJob& s = grp.job[j];
+  split_sum_block(s.part, s.size, s.stride, s.splits, nullptr, 1, 0, s.out,
+                  blockIdx.x - s.first);
 }
 
 // The weight-gradient scratch for `rows` rows of a cin x cout product: its
@@ -542,7 +711,7 @@ int launch(const float* pts, const float* g, const int* winners, int p, int n,
     int ldd, cout;
     size_t rows;
   };
-  const Product prods[7] = {
+  const Product prods[kProducts] = {
       {R.c, 4, 3, R.da1, kEncC1, kEncC1, R.sa},
       {R.a1, kEncC1, kEncC1, R.da2, kEncC2, kEncC2, R.sa},
       {R.a2, kEncC2, kEncC2, R.sdz3, kEncC3, kEncC3, R.sa},
@@ -551,39 +720,52 @@ int launch(const float* pts, const float* g, const int* winners, int p, int n,
       {R.x2, kEncP2, kEncP2, R.dz3, kEncP3, kEncP3, R.pn},
       {R.x3, kEncP3, kEncP3, R.dz4, R.ldd, dout, R.pn},
   };
-  for (const Product& pr : prods)
-    if (static_cast<long long>(part_floats(pr.rows, pr.cin, pr.cout)) > part_n)
-      return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
-  if ((err = cudaFuncSetAttribute(patch_encoder_bwd_kernel<KNN, kBf16>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  static_cast<int>(L.bytes))) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(wgrad_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  static_cast<int>(kWSmemBytes))) != cudaSuccess)
-    return static_cast<int>(err);
-  patch_encoder_bwd_kernel<KNN, kBf16><<<p, kThreads, L.bytes, stream>>>(
-      pts, g, winners, n, w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8], w[9], w[10],
-      w[11], w[12], w[13], dout, dpatches, rows, R);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  // each product's scratch after the last's
   const GradOffsets go = grad_offsets(dout);
-  for (int i = 0; i < 7; ++i) {
+  WgradGroup wg;
+  SumGroup sg;
+  long long used = 0;
+  int blocks = 0, sum_blocks = 0;
+  for (int i = 0; i < kProducts; ++i) {
     const Product& pr = prods[i];
     int chunk;
     const int nr = static_cast<int>(pr.rows);
     const int splits = wgrad_splits(nr, pr.cin, pr.cout, &chunk);
-    float* vpart = part + static_cast<size_t>(splits) * pr.cin * pr.cout;
-    wgrad_tf32_kernel<<<dim3((pr.cout + kWBN - 1) / kWBN, (pr.cin + kWBM - 1) / kWBM, splits),
-                        kWThreads, kWSmemBytes, stream>>>(
-        rows + pr.x, pr.ldx, pr.cin, rows + pr.d, pr.ldd, pr.cout, nullptr, nr, chunk, part,
-        vpart);
+    float* ppart = part + used;
+    float* vpart = ppart + static_cast<size_t>(splits) * pr.cin * pr.cout;
+    used += static_cast<long long>(part_floats(pr.rows, pr.cin, pr.cout));
+    if (used > part_n) return static_cast<int>(cudaErrorInvalidValue);
+    const int tn = (pr.cout + kWBN - 1) / kWBN, tm = (pr.cin + kWBM - 1) / kWBM;
+    wg.job[i] = WgradJob{rows + pr.x, rows + pr.d, ppart, vpart, pr.ldx, pr.cin, pr.ldd,
+                         pr.cout, nr, chunk, tn, tm, blocks};
+    blocks += tn * tm * splits;
     const int size = pr.cin * pr.cout;
-    split_sum_kernel<<<(size + 31) / 32, 256, 0, stream>>>(part, size, size, splits, nullptr, 1,
-                                                           0, grads + go.off[2 * i]);
-    split_sum_kernel<<<(pr.cout + 31) / 32, 256, 0, stream>>>(
-        vpart, pr.cout, 3 * static_cast<size_t>(pr.cout), splits, nullptr, 1, 0,
-        grads + go.off[2 * i + 1]);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    sg.job[2 * i] = SumJob{ppart, grads + go.off[2 * i], static_cast<size_t>(size), size,
+                           splits, sum_blocks};
+    sum_blocks += (size + 31) / 32;
+    sg.job[2 * i + 1] = SumJob{vpart, grads + go.off[2 * i + 1],
+                               3 * static_cast<size_t>(pr.cout), pr.cout, splits, sum_blocks};
+    sum_blocks += (pr.cout + 31) / 32;
   }
+  float* wt = part + used;
+  used += pw_t_floats(dout);
+  if (used > part_n) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(patch_encoder_bwd_kernel<KNN, kBf16>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(L.bytes))) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(wgrad_group_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(kWSmemBytes))) != cudaSuccess)
+    return static_cast<int>(err);
+  transpose_pn_kernel<<<(pw_t_floats(dout) + 255) / 256, 256, 0, stream>>>(w[6], w[8], w[10],
+                                                                          w[12], dout, wt);
+  patch_encoder_bwd_kernel<KNN, kBf16><<<p, kThreads, L.bytes, stream>>>(
+      pts, g, winners, n, w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8], w[9], w[10],
+      w[11], w[12], w[13], wt, dout, dpatches, rows, R);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  wgrad_group_kernel<<<blocks, kWThreads, kWSmemBytes, stream>>>(wg);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  split_sum_group_kernel<<<sum_blocks, 256, 0, stream>>>(sg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -619,8 +801,9 @@ int dispatch(const float* pts, const float* g, const int* winners, int p, int n,
 // patch_encoder_launch. dpatches: [p, n, 3] f32; grads: the 14 gradients
 // flattened in that order. Scratch, as pcc_tpu_torch/ops/sa_cuda.py sizes
 // it: rows (make_rows(p, dout, knn).floats floats), part (part_n floats, at
-// least the largest layer's splits * (in + 3) * out, tf32_mma.cuh::
-// wgrad_splits). Returns a cudaError_t value.
+// least the seven layers' splits * (in + 3) * out summed, tf32_mma.cuh::
+// wgrad_splits, and PointNet's weights transposed, pw_t_floats). Returns a
+// cudaError_t value.
 extern "C" int patch_encoder_bwd_launch(const float* pts, const float* g, const int* winners,
                                         int p, int n, int knn, const float* w1, const float* b1,
                                         const float* w2, const float* b2,

@@ -100,15 +100,17 @@ __host__ __device__ inline int wgrad_splits(int rows, int cin, int cout, int* ch
   return (rows + c - 1) / c;
 }
 
-__global__ void __launch_bounds__(kWThreads)
-wgrad_tf32_kernel(const float* __restrict__ X, int ldx, int cin, const float* __restrict__ D,
-                  int ldd, int cout, const float* __restrict__ T, int rows, int chunk,
-                  float* __restrict__ part, float* __restrict__ vpart) {
-  extern __shared__ __align__(16) float wsm[];
-  const int o0 = blockIdx.x * kWBN, i0 = blockIdx.y * kWBM, split = blockIdx.z;
+// One block's tile of the weight-gradient product (wgrad_tf32_kernel's
+// body): output tile (o0, i0) of split `split`; wsm the block's dynamic
+// shared memory (kWSmemBytes).
+__device__ __forceinline__ void wgrad_tile(const float* __restrict__ X, int ldx, int cin,
+                                           const float* __restrict__ D, int ldd, int cout,
+                                           const float* __restrict__ T, int rows, int chunk,
+                                           float* __restrict__ part, float* __restrict__ vpart,
+                                           int o0, int i0, int split, float* wsm) {
   const int r_begin = split * chunk;
   const int r_end = min(rows, r_begin + chunk);
-  const bool vec = vpart != nullptr && blockIdx.y == 0;
+  const bool vec = vpart != nullptr && i0 == 0;
   const bool vt = vec && T != nullptr;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -217,16 +219,25 @@ wgrad_tf32_kernel(const float* __restrict__ X, int ldx, int cin, const float* __
   }
 }
 
+__global__ void __launch_bounds__(kWThreads)
+wgrad_tf32_kernel(const float* __restrict__ X, int ldx, int cin, const float* __restrict__ D,
+                  int ldd, int cout, const float* __restrict__ T, int rows, int chunk,
+                  float* __restrict__ part, float* __restrict__ vpart) {
+  extern __shared__ __align__(16) float wsm[];
+  wgrad_tile(X, ldx, cin, D, ldd, cout, T, rows, chunk, part, vpart, blockIdx.x * kWBN,
+             blockIdx.y * kWBM, blockIdx.z, wsm);
+}
+
 // out[e] = sum over the splits, in order of k % 8 then k, of part[k *
 // stride + e] for e < size (each of 8 lanes sums every 8th split, then the
 // lanes in order), times scale[e % cols] for e < scaled. 256 threads: 32
 // elements x 8 lanes.
-__global__ void __launch_bounds__(256)
-split_sum_kernel(const float* __restrict__ part, int size, size_t stride, int splits,
-                 const float* __restrict__ scale, int cols, int scaled,
-                 float* __restrict__ out) {
+__device__ __forceinline__ void split_sum_block(const float* __restrict__ part, int size,
+                                                size_t stride, int splits,
+                                                const float* __restrict__ scale, int cols,
+                                                int scaled, float* __restrict__ out, int block) {
   __shared__ float red[8][32];
-  const int e = blockIdx.x * 32 + threadIdx.x % 32, h = threadIdx.x / 32;
+  const int e = block * 32 + threadIdx.x % 32, h = threadIdx.x / 32;
   float s = 0.0f;
   if (e < size) {
 #pragma unroll 4
@@ -240,6 +251,13 @@ split_sum_kernel(const float* __restrict__ part, int size, size_t stride, int sp
     for (int k = 0; k < 8; ++k) v += red[k][threadIdx.x];
     out[e] = e < scaled ? __fmul_rn(v, __ldg(scale + e % cols)) : v;
   }
+}
+
+__global__ void __launch_bounds__(256)
+split_sum_kernel(const float* __restrict__ part, int size, size_t stride, int splits,
+                 const float* __restrict__ scale, int cols, int scaled,
+                 float* __restrict__ out) {
+  split_sum_block(part, size, stride, splits, scale, cols, scaled, out, blockIdx.x);
 }
 
 }  // namespace pcc_mma

@@ -54,6 +54,10 @@ and jnp ops in jitted programs on XLA's CPU backend:
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import math
+
 import torch
 
 from pcc_tpu_torch.ops import cuda_lib
@@ -99,7 +103,8 @@ class _GradRound(torch.autograd.Function):
 
 XLA_WINDOW = 32   # the window XLA's CPU backend cuts a long reduction into
 GRID_DIMS = 3     # reduced dimensions a grid of rows may have
-_REDUCE_ARGTYPES = [cuda_lib.PTR, cuda_lib.PTR] + [cuda_lib.INT] * 13 + [cuda_lib.PTR]
+_REDUCE_ARGTYPES = ([cuda_lib.PTR] * 5 + [ctypes.c_longlong] * 3 + [cuda_lib.INT] * 2
+                    + [ctypes.c_longlong] * 2 + [cuda_lib.PTR])
 
 
 def _reduce_level(dims) -> tuple:
@@ -117,13 +122,16 @@ def _reduce_level(dims) -> tuple:
     return tuple(out)
 
 
-def bf16_reduce_plain(g: torch.Tensor) -> torch.Tensor:
-    """g [d1, ..., dk, C] bf16 values -> [C]: the sum over the grid of rows
-    [d1, ..., dk] as XLA's CPU backend reduces a bf16 array (the order that
-    the tests hold pcc_tpu's step to; measured on XLA's HLO): each window of
+def bf16_reduce_plain(g: torch.Tensor, cols: int = 1) -> torch.Tensor:
+    """g [d1, ..., dk, c1, ..., c_cols] -> [C] (C the columns' product):
+    the sum over the grid of rows [d1, ..., dk] of g rounded to bf16, as
+    XLA's CPU backend reduces a bf16 array (the order that the tests hold
+    pcc_tpu's step to; measured on XLA's HLO): each window of
     `_reduce_level` summed in row-major order from 0, every add in float32
     rounded to bf16, the windows' sums reduced the same way, level after
-    level, down to one row. csrc/bf16_reduce.cu computes each level."""
+    level, down to one row. csrc/bf16_reduce.cu computes every level in one
+    launch."""
+    g = round_bf16(g.reshape(*g.shape[:g.dim() - cols], -1))
     while g[..., 0].numel() > 1:
         dims, C = g.shape[:-1], g.shape[-1]
         lev = _reduce_level(dims)
@@ -142,40 +150,64 @@ def bf16_reduce_plain(g: torch.Tensor) -> torch.Tensor:
     return g.reshape(-1)
 
 
-def bf16_reduce(g: torch.Tensor) -> torch.Tensor:
-    """bf16_reduce_plain of g [..., C] (at most GRID_DIMS reduced
-    dimensions): the CUDA kernel csrc/bf16_reduce.cu (one launch a level,
-    launch counter "bf16_reduce") on a CUDA tensor, the plain version on a
-    CPU tensor."""
-    if g.device.type == "cpu":
-        return bf16_reduce_plain(g)
-    if not 2 <= g.dim() <= GRID_DIMS + 1:
-        raise ValueError(f"bf16_reduce: {g.dim() - 1} reduced dimensions (at most {GRID_DIMS})")
-    g = g.reshape((1,) * (GRID_DIMS + 1 - g.dim()) + tuple(g.shape))
-    cuda_lib.require_cuda("bf16_reduce", g, torch.float32, GRID_DIMS + 1)
-    while g[..., 0].numel() > 1:
-        dims, C = g.shape[:-1], g.shape[-1]
+@functools.lru_cache(maxsize=256)
+def _reduce_plan(grid: tuple) -> tuple:
+    """The kernel's plan of a grid of GRID_DIMS dimensions: (its ints as
+    csrc/bf16_reduce.cu reads them, a ctypes array; the scratch rows, every
+    level's window count but the last's, summed)."""
+    plan, sizes, dims = [0], [], grid
+    while True:
         lev = _reduce_level(dims)
-        out = torch.empty([n for w, p, n in lev] + [C], dtype=torch.float32, device=g.device)
-        cuda_lib.launch("bf16_reduce", _REDUCE_ARGTYPES, g.data_ptr(), out.data_ptr(), *dims, C,
-                        *[w for w, p, n in lev], *[p for w, p, n in lev],
-                        *[n for w, p, n in lev], cuda_lib.stream_ptr(g))
-        g = out
-    return g.reshape(-1)
+        plan += [*dims, *[w for w, p, n in lev], *[p for w, p, n in lev],
+                 *[n for w, p, n in lev]]
+        plan[0] += 1
+        dims = tuple(n for w, p, n in lev)
+        if math.prod(dims) == 1:
+            break
+        sizes.append(math.prod(dims))
+    return (ctypes.c_int * len(plan))(*plan), sum(sizes)
 
 
+REDUCE_COLS = 32      # columns a block of csrc/bf16_reduce.cu takes, a ticket each
+_TICKETS: dict = {}   # device -> the kernel's tickets, 0 between calls
 
-def _grid(g: torch.Tensor) -> torch.Tensor:
-    """A cotangent [..., C] as the grid of rows that its bias gradient
-    reduces ([rows, C] as the grid [1, rows])."""
-    if not 2 <= g.dim() <= GRID_DIMS + 1:
-        raise ValueError(f"bf16 bias gradient of a {g.dim()}-d output")
-    return (g.reshape(1, *g.shape) if g.dim() == 2 else g).contiguous()
+
+def bf16_reduce(g: torch.Tensor, cols: int = 1) -> torch.Tensor:
+    """bf16_reduce_plain of g [d1, ..., dk, c1, ..., c_cols] (k at most
+    GRID_DIMS, cols 1 or 2), float32 in any layout (a permuted view as it
+    is), not yet rounded: the CUDA kernel csrc/bf16_reduce.cu on a CUDA
+    tensor (one launch a call, launch counter "bf16_reduce"), the plain
+    version on a CPU tensor."""
+    if g.device.type == "cpu":
+        return bf16_reduce_plain(g, cols)
+    k = g.dim() - cols
+    if cols not in (1, 2) or not 1 <= k <= GRID_DIMS:
+        raise ValueError(f"bf16_reduce: {k} reduced dimensions (1 to {GRID_DIMS}) and {cols} "
+                         "column dimensions (1 or 2)")
+    if not g.is_cuda or g.dtype != torch.float32:
+        raise ValueError(f"bf16_reduce: expected a float32 CUDA tensor, got {g.dtype} on "
+                         f"{g.device}")
+    pad = GRID_DIMS - k
+    grid = (1,) * pad + tuple(g.shape[:k])
+    rs = (0,) * pad + tuple(g.stride()[:k])
+    c1, c0 = ((1, g.shape[-1]) if cols == 1 else tuple(g.shape[-2:]))
+    sc1, sc0 = ((0, g.stride(-1)) if cols == 1 else tuple(g.stride()[-2:]))
+    plan, scratch = _reduce_plan(grid)
+    C = c1 * c0
+    buf = torch.empty(C + scratch * C, dtype=torch.float32, device=g.device)
+    tickets = _TICKETS.get(g.device)
+    if tickets is None or tickets.numel() < -(-C // REDUCE_COLS):
+        tickets = _TICKETS[g.device] = torch.zeros(-(-C // REDUCE_COLS), dtype=torch.int32,
+                                                   device=g.device)
+    cuda_lib.launch("bf16_reduce", _REDUCE_ARGTYPES, g.data_ptr(), buf.data_ptr(),
+                    buf.data_ptr() + 4 * C, tickets.data_ptr(), ctypes.addressof(plan), *rs,
+                    c1, c0, sc1, sc0, cuda_lib.stream_ptr(g))
+    return buf[:C]
 
 
 class _BiasAddBf16(torch.autograd.Function):
     """y + round_bf16(b) (both bf16 values); b's gradient the bf16
-    reduction of the rounded cotangent over y's rows (bf16_reduce)."""
+    reduction of the cotangent, rounded, over y's rows (bf16_reduce)."""
 
     @staticmethod
     def forward(ctx, y, b):
@@ -183,12 +215,13 @@ class _BiasAddBf16(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return g, bf16_reduce(_grid(round_bf16(g)))
+        return g, bf16_reduce(g)
 
 
 class _TileBf16(torch.autograd.Function):
     """x [B, C] tiled to [B, n, C]; the cotangent summed over the n copies
-    as a bf16 reduction (bf16_reduce over the grid [1, n] of each column)."""
+    as a bf16 reduction (bf16_reduce over the n rows of each of the B x C
+    columns, read through the permuted view)."""
 
     @staticmethod
     def forward(ctx, x, n):
@@ -197,8 +230,7 @@ class _TileBf16(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         B, n, C = g.shape
-        rows = round_bf16(g).permute(1, 0, 2).reshape(1, n, B * C)
-        return bf16_reduce(rows.contiguous()).reshape(B, C), None
+        return bf16_reduce(g.permute(1, 0, 2), cols=2).reshape(B, C), None
 
 
 def tile_bf16(x: torch.Tensor, n: int) -> torch.Tensor:

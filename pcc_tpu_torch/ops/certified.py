@@ -14,7 +14,9 @@ rounded up: where the two are bit-equal, that is f(s) (f is monotone);
 elsewhere the entry is flagged and recomputed in k-order. `pack_frags`
 lays a weight out as the kernels read it. `flag_shares` measures the
 flagged share of a layer under the kernels' bound and under two looser
-ones, for the design notes.
+ones, for the design notes. `model_sums` checks the model itself on the
+card (csrc/cert_model.cu): the tensor cores' sums, the k-order sums and E
+as the kernels form them, on `stress_rows`.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import weakref
 import numpy as np
 import torch
 
+from pcc_tpu_torch.ops import cuda_lib
 from pcc_tpu_torch.ops.bf16 import round_bf16
 
 U = 2.0 ** -24
@@ -144,3 +147,102 @@ def cached_frags(ws, n_align: int = 16, cat: bool = False):
     for w in ws:
         weakref.finalize(w, _CACHE.pop, key, None)
     return frags
+
+
+# Rows that stress certified.cuh's model of the tensor cores' accumulation,
+# at the depths of its check (K = 16, one k16 block; 131, the encoder's
+# PointNet layer 1; 256; 1024, past every layer of the paths).
+STRESS_KINDS = ("cancelling", "spread", "subnormal", "random")
+STRESS_DEPTHS = (16, 131, 256, 1024)
+
+
+def stress_rows(kind: str, k: int, seed: int, rows: int = 64, cols: int = 16):
+    """(x [rows, k], w [k, cols]) bf16 values (float32) built to stress the
+    model: "cancelling", rows near 1 against columns of mean 0 with large
+    partial sums and small totals, signs alternating along k;
+    "spread", magnitudes 2^0 to 2^-40 mixed inside every k16 block, random
+    signs (the block's alignment truncates the small ones); "subnormal",
+    products from 2^-96 to 2^-140, into float32's subnormal range;
+    "random", relu(normal) rows and normal weights."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "cancelling":
+        x = 1 + 0.01 * torch.rand((rows, k), generator=g)
+        x = x * torch.where(torch.arange(k) % 2 == 0, 1.0, -1.0)
+        w = torch.randn((k, cols), generator=g) + 4.0
+        w = w - w.mean(dim=0)
+    elif kind == "spread":
+        ex = torch.randint(0, 41, (rows, k), generator=g).float()
+        x = torch.exp2(-ex) * (1 + torch.rand((rows, k), generator=g))
+        x = x * (torch.randint(0, 2, (rows, k), generator=g) * 2 - 1)
+        w = torch.randn((k, cols), generator=g)
+    elif kind == "subnormal":
+        ex = torch.randint(33, 78, (rows, k), generator=g).float()
+        x = torch.exp2(-ex) * (1 + torch.rand((rows, k), generator=g))
+        x = x * (torch.randint(0, 2, (rows, k), generator=g) * 2 - 1)
+        w = 2.0 ** -63 * torch.randn((k, cols), generator=g)
+    elif kind == "random":
+        x = torch.relu(torch.randn((rows, k), generator=g))
+        w = torch.randn((k, cols), generator=g) * k ** -0.5
+    else:
+        raise ValueError(f"stress_rows: unknown kind {kind!r}")
+    return round_bf16(x), round_bf16(w)
+
+
+def _chop(x64: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32 rounded toward zero."""
+    y = x64.to(torch.float32)
+    return torch.where(y.double().abs() > x64.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def model_sums_plain(x: torch.Tensor, w: torch.Tensor):
+    """model_sums by the model itself: s_tc the sum in k16 blocks with every
+    addition truncated toward zero, s_k the k-order fused multiply-add sum,
+    E = err_bound of R, the sum of |x| |w| plus |s_tc| after each k16 step
+    but the last."""
+    from pcc_tpu_torch.ops.sa_cuda import fma_matmul   # sa_cuda imports this module
+
+    p = x.double()[:, :, None] * w.double()[None]            # exact products
+    k = x.shape[1]
+    acc = torch.zeros(p.shape[0], p.shape[2], dtype=torch.float32)
+    r = (x.abs().double() @ w.abs().double())
+    for b0 in range(0, k, 16):
+        if b0:
+            r = r + acc.double().abs()
+        for i in range(b0, min(k, b0 + 16)):
+            acc = _chop(acc.double() + p[:, i])
+    return acc, fma_matmul(x, w), err_bound(r.to(torch.float32), k)
+
+
+_MODEL_ARGTYPES = ([cuda_lib.PTR] + [cuda_lib.INT] * 3 + [cuda_lib.PTR, cuda_lib.INT]
+                   + [cuda_lib.PTR] * 4)
+
+
+def model_sums(x: torch.Tensor, w: torch.Tensor):
+    """(s_tc, s_k, E), each [rows, cols], of x [rows, k] @ w [k, cols] (bf16
+    values, rows a multiple of 16, cols of 8): on a CUDA tensor, the kernel
+    csrc/cert_model.cu (launch counter "cert_model"): the tensor cores'
+    sum as certified.cuh's cert_mma forms it, the k-order sum of its
+    cert_kdot and E from the same product's R register; on a CPU tensor
+    the model's own sums (`model_sums_plain`). |s_tc - s_k| <= E on every
+    entry is what the certified kernels rest on."""
+    if x.device.type == "cpu":
+        return model_sums_plain(x, w)
+    m, k = x.shape
+    n = w.shape[1]
+    if m % 16 or n % 8 or w.shape[0] != k or not w.is_cuda:
+        raise ValueError(f"model_sums: rows {m} (a multiple of 16), cols {n} (of 8), "
+                         f"w {tuple(w.shape)}")
+    kp = (k + 15) // 16 * 16
+    xb = torch.zeros((m, kp), dtype=torch.bfloat16, device=x.device)
+    xb[:, :k] = x
+    frag = pack_frags(w, 8)
+    out = [torch.empty((m, n), dtype=torch.float32, device=x.device) for _ in range(3)]
+    cuda_lib.launch("cert_model", _MODEL_ARGTYPES, xb.data_ptr(), m, kp, k, frag.data_ptr(), n,
+                    *[t.data_ptr() for t in out], cuda_lib.stream_ptr(x))
+    return tuple(out)
+
+
+def model_ratio(s_tc: torch.Tensor, s_k: torch.Tensor, err: torch.Tensor) -> float:
+    """The largest |s_tc - s_k| / E over the entries (at most 1 where the
+    model holds)."""
+    return float(((s_tc.double() - s_k.double()).abs() / err.double()).max())

@@ -57,6 +57,8 @@ KERNELS = {
     "pppe_sa_stage_bf16": ("pppf_sa_stage.cu", ()),
     # XLA's bf16 reduction (bf16 training's bias gradients), order for order
     "bf16_reduce": ("bf16_reduce.cu", ()),
+    # certified.cuh's tensor-core sums beside the k-order ones, for its check
+    "cert_model": ("cert_model.cu", ()),
 }
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -490,8 +490,8 @@ def _bwd_workspace(P: int, knn: int, D: int):
     make_rows and its seven weight-gradient products): the winners' rows,
     D rounded up to ENC_Q slots a patch (PointNet: the layers' inputs and
     their pre-activations' gradients; SetAbstraction, knn rows a slot: the
-    centred neighbour and the layers' inputs and gradients), and the
-    products' scratch."""
+    centred neighbour and the layers' inputs and gradients), the seven
+    products' scratch, each its own, and PointNet's weights transposed."""
     pn = P * -(-D // ENC_Q) * ENC_Q
     sa = pn * knn
     c1, c2, c3 = SA_WIDTHS[1:]
@@ -501,7 +501,10 @@ def _bwd_workspace(P: int, knn: int, D: int):
     pn_widths = PN_WIDTHS + (D,)
     products = ([(sa, a, b) for a, b in zip(SA_WIDTHS[:-1], SA_WIDTHS[1:])]
                 + [(pn, a, b) for a, b in zip(pn_widths[:-1], pn_widths[1:])])
-    return rows, wgrad_part_floats(products)
+    # the seven products' scratch side by side (one grouped launch), then
+    # PointNet's weights transposed
+    transposed = sum(a * b for a, b in zip(pn_widths[:-1], pn_widths[1:]))
+    return rows, sum(wgrad_part_floats([pr]) for pr in products) + transposed
 
 
 def patch_encoder_bwd(patches: torch.Tensor, g: torch.Tensor, sa_wb, pn_wb, knn: int,

@@ -1,6 +1,9 @@
 """Where the time of the two backward kernels goes, on an NVIDIA GPU.
 
-  python3 -m pcc_tpu_torch.tools.bwd_breakdown      # from the repo root
+  python3 -m pcc_tpu_torch.tools.bwd_breakdown [stage] [encoder] [--bf16]
+
+(from the repo root; no part named: both; --bf16: the encoder backward's
+bf16 instance, patch_encoder_bwd_bf16, in place of the float32 one.)
 
 The PN++ SA stage backward (csrc/pppf_sa_stage_bwd.cu) is a chain of
 launches, so its pieces are its launches: on the stage inputs of
@@ -16,7 +19,8 @@ the source is built as it is and with one part taken out
 (tools/variants.py), and each variant is timed
 with CUDA events on the IPDAE train step's patches [512, 256, 3] with a
 seeded normal cotangent (and, where the wrapper takes them, the forward
-kernel's winners). A variant applies where its texts are in the source (the
+kernel's winners; with --bf16 the bf16 forward's, as train --bf16 hands
+them over). A variant applies where its texts are in the source (the
 list covers the designs of several revisions) and is skipped otherwise; the variants give wrong outputs, and only `full` is checked, bit
 for bit against the wrapper. The difference between `full` and a variant is
 the time of the part it takes out.
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import inspect
 import subprocess
+import sys
 import tempfile
 
 import numpy as np
@@ -71,7 +76,9 @@ ENC_VARIANTS = {
                  ("  for (int o = threadIdx.x; o < cout; o += blockDim.x) {\n    float s = 0.0f;\n    for (int r = 0; r < rows; ++r) s += dz[r * ldz + o];",
                   "  for (int o = threadIdx.x; o < 0; o += blockDim.x) {\n    float s = 0.0f;\n    for (int r = 0; r < rows; ++r) s += dz[r * ldz + o];")],
                 [("  for (int i = 0; i < 7; ++i) {\n    const Product& pr = prods[i];",
-                  "  for (int i = 0; i < 0; ++i) {\n    const Product& pr = prods[i];")]],
+                  "  for (int i = 0; i < 0; ++i) {\n    const Product& pr = prods[i];")],
+                [("  wgrad_group_kernel<<<", "  if (0) wgrad_group_kernel<<<"),
+                 ("  split_sum_group_kernel<<<", "  if (0) split_sum_group_kernel<<<")]],
     # the winners' rows written to device memory for the products
     "norows": [[("  for (int e = threadIdx.x; e < nrows * ld; e += blockDim.x) {",
                  "  for (int e = threadIdx.x; e < 0; e += blockDim.x) {")]],
@@ -80,7 +87,48 @@ ENC_VARIANTS = {
                "  const int items = (rows / RT) * cin;\n  for (int e = threadIdx.x; e < 0; e += blockDim.x) {")]],
     # the sum of the per-block partial gradients
     "noreduce": [[("  reduce_partials<<<", "  if (0) reduce_partials<<<")]],
+    # the neighbour selection (a cheap fill in its place, so the indices
+    # stay inside the patch)
+    "noselect": [[("  select_knn<KNN>(sx, sy, sz, sq, n, nbr);\n",
+                   "  for (int e = tid; e < n * KNN; e += blockDim.x)\n"
+                   "    nbr[e] = static_cast<unsigned short>((e / KNN + e % KNN) % n);\n"
+                   "  __syncthreads();\n")],
+                 [("  for (int i = tid; i < U; i += blockDim.x) knn_of<KNN>(winners[i], sx, sy, "
+                   "sz, sq, n, nbr);",
+                   "  for (int e = tid; e < n * KNN; e += blockDim.x)\n"
+                   "    nbr[e] = static_cast<unsigned short>((e / KNN + e % KNN) % n);")]],
+    # SetAbstraction layers 1-2 of the winners, before the max
+    "nosafwd1": [[("      sa_group_forward<KNN, kBf16>(qs + g0, nbr, sx, sy, sz, sw1, sb1, sw2, sb2, "
+                   "a1, a2);\n      sa_group_max<KNN, kBf16>(",
+                   "      sa_group_max<KNN, kBf16>(")]],
+    # SetAbstraction layer 3 and the max over slots of the winners
+    "nosamax": [[("      sa_group_max<KNN, kBf16>(a2, sw3, sb3, bx0 + g0 * kEncX0 + 3, "
+                  "best + g0 * kEncC3);",
+                  "      if (0) sa_group_max<KNN, kBf16>(a2, sw3, sb3, bx0 + g0 * kEncX0 + 3, "
+                  "best + g0 * kEncC3);")],
+                [("      sa_group_max<KNN, kBf16>(a2, w3, sb3, bx0 + g0 * kEncX0 + 3, "
+                  "best + g0 * kEncC3);",
+                  "      if (0) sa_group_max<KNN, kBf16>(a2, w3, sb3, bx0 + g0 * kEncX0 + 3, "
+                  "best + g0 * kEncC3);")]],
+    # SetAbstraction layers 1-2 again, before each group's backward
+    "nosafwd2": [[("      sa_group_forward<KNN, kBf16>(qs + g0, nbr, sx, sy, sz, sw1, sb1, sw2, sb2, "
+                   "a1, a2);\n      sa_group_backward<KNN, kBf16>(",
+                   "      sa_group_backward<KNN, kBf16>(")]],
+    # PointNet layers 1-3 of the winners
+    "nopn": [[("    pointnet_123<kBf16>(bx0, pw1, pb1, pw2, pb2, pw3, pb3, bx1, bx2, bx3);",
+               "    __syncthreads();")]],
+    # PointNet's input gradients (layers 4 to 1)
+    "nopnbwd": [[("dense_bwd_x<16, true, true, kBf16>(", "if (0) dense_bwd_x<16, true, true, kBf16>("),
+                 ("dense_bwd_x<16, true, false, kBf16>(", "if (0) dense_bwd_x<16, true, false, kBf16>(")]],
+    # SetAbstraction layer 3's input gradient, routed through the max
+    "noda2": [[("      for (int o = 0; o < kEncC3; ++o)\n        if (best[qi * kEncC3 + o] == slot)",
+                "      for (int o = 0; o < 0; ++o)\n        if (best[qi * kEncC3 + o] == slot)")],
+              [("      for (int t = st[slot]; t < st[slot + 1]; ++t) {",
+                "      for (int t = st[slot]; t < st[slot]; ++t) {")]],
 }
+# the variants that apply to today's design (tests/test_torch_port_sa_fused.py)
+CURRENT = ("full", "nopass2", "nosa_bwd", "nowgrad", "norows", "nodx", "noselect",
+           "nosafwd1", "nosamax", "nosafwd2", "nopn", "nopnbwd", "noda2")
 
 
 def encoder_inputs(dev):
@@ -140,18 +188,21 @@ def stage_table(dev) -> None:
                       f"x{r.count // calls:<3d} {r.key[:80]}", flush=True)
 
 
-def encoder_table(dev) -> None:
-    """CUDA-event times of the encoder backward's variants."""
+def encoder_table(dev, bf16: bool = False) -> None:
+    """CUDA-event times of the encoder backward's variants (bf16: of its
+    bf16 instance, on the bf16 forward's winners)."""
     patches, cot, sa_wb, pn_wb, knn = encoder_inputs(dev)
-    kw = {}
+    kernel = "patch_encoder_bwd_bf16" if bf16 else "patch_encoder_bwd"
+    kw = {"bf16": True} if bf16 else {}
     if "winners" in inspect.signature(sa_cuda.patch_encoder_bwd).parameters:
         # the forward's winners, as the train step hands them over
-        kw["winners"] = sa_cuda.patch_encoder(patches, sa_wb, pn_wb, knn, return_winners=True)[1]
+        kw["winners"] = sa_cuda.patch_encoder(patches, sa_wb, pn_wb, knn, return_winners=True,
+                                              **({"bf16": True} if bf16 else {}))[1]
     ref = sa_cuda.patch_encoder_bwd(patches, cot, sa_wb, pn_wb, knn, **kw)
     ref_flat = [ref[0]] + [t for wb in list(ref[1]) + list(ref[2]) for t in wb]
-    saved = cuda_lib._functions.get("patch_encoder_bwd")
+    saved = cuda_lib._functions.get(kernel)
     with tempfile.TemporaryDirectory() as tmp:
-        fns = {name: entry(lib, "patch_encoder_bwd", saved.argtypes)
+        fns = {name: entry(lib, kernel, saved.argtypes)
                for name, lib in build_variants(
                    tmp, {name: ("patch_encoder_bwd", alts)
                          for name, alts in ENC_VARIANTS.items()}).items()}
@@ -159,7 +210,7 @@ def encoder_table(dev) -> None:
             for rnd in range(2):
                 for variant, fn in fns.items():
                     # the wrapper, with the variant's entry point in its place
-                    cuda_lib._functions["patch_encoder_bwd"] = fn
+                    cuda_lib._functions[kernel] = fn
                     if variant == "full" and rnd == 0:
                         out = sa_cuda.patch_encoder_bwd(patches, cot, sa_wb, pn_wb, knn, **kw)
                         flat = [out[0]] + [t for wb in list(out[1]) + list(out[2]) for t in wb]
@@ -167,10 +218,10 @@ def encoder_table(dev) -> None:
                             raise RuntimeError("the full variant differs from the wrapper")
                     ms = cs.cuda_ms(
                         lambda: sa_cuda.patch_encoder_bwd(patches, cot, sa_wb, pn_wb, knn, **kw), 5)
-                    print(f"round {rnd} encoder backward {variant}: {ms:.3f} ms "
-                          f"on {tuple(patches.shape)}", flush=True)
+                    print(f"round {rnd} encoder backward{' bf16' if bf16 else ''} {variant}: "
+                          f"{ms:.3f} ms on {tuple(patches.shape)}", flush=True)
         finally:
-            cuda_lib._functions["patch_encoder_bwd"] = saved
+            cuda_lib._functions[kernel] = saved
 
 
 def main() -> int:
@@ -179,8 +230,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    stage_table(dev)
-    encoder_table(dev)
+    parts = [a for a in sys.argv[1:] if not a.startswith("--")] or ["stage", "encoder"]
+    if "stage" in parts:
+        stage_table(dev)
+    if "encoder" in parts:
+        encoder_table(dev, bf16="--bf16" in sys.argv[1:])
     return 0
 
 

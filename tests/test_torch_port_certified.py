@@ -25,8 +25,10 @@ import pytest
 import torch
 
 from pcc_tpu_torch.ops.bf16 import round_bf16
-from pcc_tpu_torch.ops.certified import (bias_relu, bn_relu, bound_sums, cached_frags, certify,
-                                         err_bound, flag_shares, pack_frags)
+from pcc_tpu_torch.ops.certified import (STRESS_DEPTHS, STRESS_KINDS, bias_relu, bn_relu,
+                                         bound_sums, cached_frags, certify, err_bound,
+                                         flag_shares, model_ratio, model_sums, pack_frags,
+                                         stress_rows)
 from pcc_tpu_torch.ops.pppf_sa_cuda import bf16_layers, pppf_sa_plain, pppf_sa_points
 from pcc_tpu_torch.ops.sa_cuda import fma_matmul
 from test_torch_port_pppf import one_thread_per_worker  # noqa: F401
@@ -146,6 +148,22 @@ def test_partial_sum_bound_flags_fewest():
     x, w, f = _rows("random", g, 64, 256, 64)
     shares = flag_shares(x, w, f)
     assert 0 < shares["partial_sums"] < shares["linear"] < shares["cauchy_schwarz"] < 1
+
+
+@pytest.mark.parametrize("kind", STRESS_KINDS)
+def test_model_sums_plain_within_the_bound(kind):
+    """model_sums on the CPU (the model itself: k16 blocks, every addition
+    truncated) keeps |s_tc - s_k| <= E on the stress rows at every depth of
+    the card's check, with s_k the k-order sum; the card's check
+    (test_cert_model_holds_on_the_card, chip_smoke.py) holds the tensor
+    cores to the same ratio."""
+    for k in STRESS_DEPTHS:
+        x, w = stress_rows(kind, k, seed=k)
+        assert x.shape == (64, k) and w.shape == (k, 16)
+        assert torch.equal(round_bf16(x), x) and torch.equal(round_bf16(w), w)
+        s_tc, s_k, err = model_sums(x, w)
+        assert torch.equal(s_k, fma_matmul(x, w))
+        assert model_ratio(s_tc, s_k, err) <= 1.0
 
 
 @pytest.mark.parametrize("k,n,align", [(32, 64, 16), (131, 128, 16), (7, 12, 16), (40, 48, 64)])

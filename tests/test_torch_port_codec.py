@@ -39,7 +39,7 @@ CFG, JCFG = CodecConfig(**KW), JCodecConfig(**KW)
 @pytest.fixture(scope="module")
 def run():
     """Both codecs on the same 3 clouds; encodes computed once."""
-    ae_vars, prob_vars = j_codec.init_params(jax.random.key(1), JCFG)
+    ae_vars, prob_vars = jax.jit(j_codec.init_params, static_argnums=1)(jax.random.key(1), JCFG)
     jc = j_codec.Codec(JCFG, ae_vars, prob_vars, batch_size=4)
     pc = Codec(CFG, *from_jax_params(ae_vars, prob_vars), batch_size=4,
                device="cpu")
@@ -170,17 +170,22 @@ def test_large_scene_room_streams_match_pcc_tpu():
     import pcc_tpu_torch.codec as p_codec
 
     room = chip_smoke.rooms([65536, 100000], 7)[1]   # eval/gen_rooms.py's generator
-    ae_vars, prob_vars = j_codec.init_params(jax.random.key(2), JCodecConfig())
+    ae_vars, prob_vars = jax.jit(j_codec.init_params, static_argnums=1)(
+        jax.random.key(2), JCodecConfig())
     (j_streams,) = j_codec.Codec(JCodecConfig(), ae_vars, prob_vars,
                                  batch_size=1).compress_many([room])
     pc = Codec(CodecConfig(), *from_jax_params(ae_vars, prob_vars), batch_size=1,
                device="cpu")
     (p_streams,) = pc.compress_many([room])
     assert p_streams == j_streams
+    # the other dequantization: only .s.bin and .c.bin are read, and neither
+    # depends on the latents, so the encoder's MLP gives way to zeros there
     values = p_codec.upload_values
     p_codec.upload_values = lambda packed, N: p_codec.unpack_encode_upload(packed, N)[0]
+    pc.ae.encode = lambda patches: patches.new_zeros(patches.shape[0], pc.cfg.d)
     try:
         (old,) = pc.compress_many([room])
     finally:
         p_codec.upload_values = values
+        del pc.ae.encode
     assert old[1] != j_streams[1] and old[2] == j_streams[2]

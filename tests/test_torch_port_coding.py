@@ -27,7 +27,7 @@ CFG, JCFG = CodecConfig(**KW), JCodecConfig(**KW)
 def bundles():
     """The same float prob weights converted by both packages; the port
     converts from its own state_dict."""
-    ae_vars, prob_vars = j_init_params(jax.random.key(5), JCFG)
+    ae_vars, prob_vars = jax.jit(j_init_params, static_argnums=1)(jax.random.key(5), JCFG)
     _, prob_sd = from_jax_params(ae_vars, prob_vars)
     _, tree = to_jax_params(None, prob_sd)
     ours = iprob.convert_prob_params(tree, CFG.d, CFG.L)
@@ -59,7 +59,8 @@ def test_integer_weights_and_cdf_rows_bit_equal(bundles, rng):
     w_torch = iprob.iprob_pmf_weights(iprob.bundle_to_device(ours, "cpu"),
                                       torch.from_numpy(rec)).numpy()
     w_np = iprob.iprob_pmf_weights_np(ours, rec)
-    w_jax = np.asarray(j_iprob.iprob_pmf_weights(ref, jnp.asarray(rec)))
+    # jitted over the concrete bundle: one program, the integer spec's bits
+    w_jax = np.asarray(jax.jit(lambda r: j_iprob.iprob_pmf_weights(ref, r))(jnp.asarray(rec)))
     w_jnp = j_iprob.iprob_pmf_weights_np(ref, rec)
     np.testing.assert_array_equal(w_torch, w_jax)
     np.testing.assert_array_equal(w_np, w_jnp)
@@ -75,7 +76,7 @@ def test_float_prob_model_matches(bundles, rng):
     xyz = rng.random((2, 16, 3)).astype(np.float32)
     with torch.no_grad():
         ours = prob(torch.from_numpy(xyz)).numpy()
-    ref = np.asarray(JProb(d=CFG.d, L=CFG.L).apply(prob_vars, jnp.asarray(xyz)))
+    ref = np.asarray(jax.jit(JProb(d=CFG.d, L=CFG.L).apply)(prob_vars, jnp.asarray(xyz)))
     np.testing.assert_allclose(ours, ref, atol=1e-6)
 
 

@@ -20,13 +20,15 @@ from pcc_tpu_torch.ops import fps as fps_ops
 from pcc_tpu_torch.ops.fps import fps_batch, fps_int_batch, fps_int_plain, fps_plain
 from pcc_tpu_torch.ops.knn import select_nearest, sq_dists
 from pcc_tpu_torch.ops.bf16 import round_bf16
+from pcc_tpu_torch.ops.certified import (STRESS_DEPTHS, STRESS_KINDS, model_ratio, model_sums,
+                                         stress_rows)
 from pcc_tpu_torch.ops.pppf_sa_cuda import (bf16_layers, pppe_kernel, pppe_plan, pppf_sa_bwd,
                                             pppf_sa_bwd_plain, pppf_sa_bwd_plain_bf16,
                                             pppf_sa_fused, pppf_sa_plain, pppf_sa_points,
                                             saved_views, stack_replay)
 from pcc_tpu_torch.tools.holds import row_hold
 from pcc_tpu_torch.ops.sa_cuda import _kernel_choices as _enc_choices
-from pcc_tpu_torch.ops.sa_cuda import (bf16_wb, patch_encoder, patch_encoder_bwd,
+from pcc_tpu_torch.ops.sa_cuda import (bf16_wb, fma_matmul, patch_encoder, patch_encoder_bwd,
                                        patch_encoder_bwd_plain, patch_encoder_plain,
                                        pointwise_plain, winners_plain)
 
@@ -1221,25 +1223,62 @@ def test_patch_encoder_bwd_bf16_kernel(dev, P, N, knn, D):
     assert all(torch.equal(a, b) for a, b in zip(flat(out), flat(found)))
 
 
+@pytest.mark.parametrize("kind", STRESS_KINDS)
+@pytest.mark.parametrize("k", STRESS_DEPTHS)
+def test_cert_model_holds_on_the_card(dev, kind, k):
+    """certified.cuh's model of the bf16 mma.sync accumulation on this card:
+    on rows built to stress it (cancelling sums, exponents 2^0 to 2^-40
+    inside a k16 block, products into the subnormal range), the tensor
+    cores' sum s_tc as cert_mma forms it lies within the bound E (its R
+    register) of the k-order sum s_k of cert_kdot, |s_tc - s_k| / E <= 1 on
+    every entry, in one launch; s_k is the k-order sum (within an ulp of
+    the plain fused multiply-add chain, whose float64 form rounds twice)."""
+    x, w = stress_rows(kind, k, seed=k)
+    before = cuda_lib.launches["cert_model"]
+    s_tc, s_k, err = model_sums(x.to(dev), w.to(dev))
+    assert cuda_lib.launches["cert_model"] == before + 1
+    ref = fma_matmul(x, w)
+    assert bool(((s_k.cpu() - ref).abs() <= ref.abs() * 2.0 ** -23 + 2.0 ** -149).all())
+    assert bool(torch.isfinite(err).all()) and bool((err > 0).all())
+    assert model_ratio(s_tc, s_k, err) <= 1.0
+
+
 @pytest.mark.parametrize("shape", [(1, 512, 128), (512, 128, 128), (512, 128, 3), (8, 64, 512),
                                    (1, 64, 2048), (32, 16, 3), (1, 100, 5), (100, 7, 5),
                                    (1, 1, 7), (33, 33, 2), (4, 128, 32, 16), (3, 40, 50, 8),
                                    (8, 32, 128, 64), (300, 5)])
 def test_bf16_reduce_kernel(dev, shape):
     """bf16_reduce (XLA's bf16 reduction tree) bit for bit its plain
-    version, one launch a level, on grids of one to three dimensions."""
-    from pcc_tpu_torch.ops.bf16 import _reduce_level, bf16_reduce, bf16_reduce_plain
+    version, one launch a call whatever its levels, on grids of one to
+    three dimensions."""
+    from pcc_tpu_torch.ops.bf16 import bf16_reduce, bf16_reduce_plain
 
     g = torch.Generator().manual_seed(27)
     x = round_bf16(torch.randn(shape, generator=g)).to(dev)
-    levels, dims = 0, shape[:-1]
-    while int(np.prod(dims)) > 1:
-        dims = tuple(n for w, p, n in _reduce_level(dims))
-        levels += 1
     before = cuda_lib.launches["bf16_reduce"]
     out = bf16_reduce(x)
-    assert cuda_lib.launches["bf16_reduce"] == before + levels
+    assert cuda_lib.launches["bf16_reduce"] == before + 1
     assert torch.equal(out.cpu(), bf16_reduce_plain(x.cpu()))
+
+
+@pytest.mark.parametrize("shape,perm,cols", [((64, 40, 8), (1, 0, 2), 1),
+                                             ((3, 40, 6, 5), (0, 2, 1, 3), 1),
+                                             ((8, 128, 33), (1, 0, 2), 2),
+                                             ((512, 16, 16), (1, 0, 2), 2)])
+def test_bf16_reduce_kernel_views(dev, shape, perm, cols):
+    """bf16_reduce on an unrounded, permuted view (the bias and tiled
+    feature gradients hand it the cotangent as it is): one launch, bit for
+    bit the plain version of the rounded, contiguous rows, twice."""
+    from pcc_tpu_torch.ops.bf16 import bf16_reduce, bf16_reduce_plain
+
+    g = torch.Generator().manual_seed(28)
+    x = torch.randn(shape, generator=g).to(dev).permute(*perm)
+    before = cuda_lib.launches["bf16_reduce"]
+    out = bf16_reduce(x, cols)
+    assert cuda_lib.launches["bf16_reduce"] == before + 1
+    want = bf16_reduce_plain(round_bf16(x.cpu().contiguous()), cols)
+    assert torch.equal(out.cpu(), want)
+    assert torch.equal(bf16_reduce(x, cols), out)
 
 
 # tiles are 128 patch rows x 2 points: the path's shape; P past a tile,

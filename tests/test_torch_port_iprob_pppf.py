@@ -161,7 +161,8 @@ def test_integer_weights_bit_equal(bundles):
     assert w.dtype == torch.int32 and tuple(w.shape) == (2, CFG.S, CFG.d, CFG.L)
     np.testing.assert_array_equal(w.numpy(), ipppf.pppf_pmf_weights_np(bundle, rec))
     np.testing.assert_array_equal(w.numpy(), j_ipppf.pppf_pmf_weights_np(j_bundle, rec))
-    w_jax = j_ipppf.pppf_pmf_weights(jax.tree.map(jnp.asarray, j_bundle), jnp.asarray(rec))
+    # jitted over the concrete bundle: one program, the integer spec's bits
+    w_jax = jax.jit(lambda r: j_ipppf.pppf_pmf_weights(j_bundle, r))(jnp.asarray(rec))
     np.testing.assert_array_equal(w.numpy(), np.asarray(w_jax))
 
 

@@ -8,6 +8,8 @@ tests/test_sa_pallas.py). The weight bridge is checked bitwise against
 pcc_tpu's own importer.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,7 +42,7 @@ CFG, JCFG = CodecConfig(**KW), JCodecConfig(**KW)
 @pytest.fixture(scope="module")
 def models():
     """pcc_tpu random weights, and the port's modules loaded with them."""
-    ae_vars, prob_vars = j_init_params(jax.random.key(3), JCFG)
+    ae_vars, prob_vars = jax.jit(j_init_params, static_argnums=1)(jax.random.key(3), JCFG)
     ae_sd, prob_sd = from_jax_params(ae_vars, prob_vars)
     ae, prob = make_models(CFG)
     ae.load_state_dict(ae_sd)
@@ -86,8 +88,9 @@ def test_encoder_plain_matches_pallas_and_xla(models, rng, P):
         ours = patch_encoder_plain(t, ae.sa.layers(), ae.pn.layers(), CFG.sa_knn)
         spread = ae.encode(t)
     np.testing.assert_allclose(ours.numpy(), kern, atol=1e-5)
-    xla = JPatchAE(K=CFG.K, k=CFG.k, d=CFG.d, L=CFG.L, sa_knn=CFG.sa_knn).apply(
-        ae_vars, jnp.asarray(patches), method="encode")
+    xla = jax.jit(functools.partial(
+        JPatchAE(K=CFG.K, k=CFG.k, d=CFG.d, L=CFG.L, sa_knn=CFG.sa_knn).apply,
+        method="encode"))(ae_vars, jnp.asarray(patches))
     np.testing.assert_allclose(spread.numpy(), np.asarray(xla), atol=1e-5)
 
 
@@ -101,9 +104,9 @@ def test_decoder_plain_matches_pallas_and_xla(models, rng, P):
     kern = np.asarray(patch_decoder_fused(jnp.asarray(lat), pool_wb, mlp_wb,
                                           k=CFG.k, block_p=4, block_k=4,
                                           interpret=True))
-    xla = np.asarray(JPatchAE(K=CFG.K, k=CFG.k, d=CFG.d, L=CFG.L,
-                              sa_knn=CFG.sa_knn).apply(
-        ae_vars, jnp.asarray(lat), method="decode"))
+    xla = np.asarray(jax.jit(functools.partial(
+        JPatchAE(K=CFG.K, k=CFG.k, d=CFG.d, L=CFG.L, sa_knn=CFG.sa_knn).apply,
+        method="decode"))(ae_vars, jnp.asarray(lat)))
     with torch.no_grad():
         ours = ae.decode(torch.from_numpy(lat)).numpy()
     assert ours.shape == (P, CFG.k, 3)
@@ -289,7 +292,9 @@ def test_set_abstraction_and_pointnet_modules(models, rng):
     with torch.no_grad():
         sa = ae.sa(torch.from_numpy(xyz)).numpy()
         pn = ae.pn(torch.from_numpy(feats)).numpy()
-    ref_sa = jae.apply(ae_vars, jnp.asarray(xyz), method=lambda m, x: m.sa(x))
-    ref_pn = jae.apply(ae_vars, jnp.asarray(feats), method=lambda m, x: m.pn(x))
+    ref_sa = jax.jit(functools.partial(jae.apply, method=lambda m, x: m.sa(x)))(
+        ae_vars, jnp.asarray(xyz))
+    ref_pn = jax.jit(functools.partial(jae.apply, method=lambda m, x: m.pn(x)))(
+        ae_vars, jnp.asarray(feats))
     np.testing.assert_allclose(sa, np.asarray(ref_sa), atol=1e-5)
     np.testing.assert_allclose(pn, np.asarray(ref_pn), atol=1e-5)

@@ -4,7 +4,8 @@ The same numpy inputs go through both packages. FPS indices, octree fields
 and octree bytes must be bit-equal; KNN indices bit-equal in float64 (in
 float32 the expanded distance's rounding may order near-ties differently,
 tests/test_knn_pruned.py). Also holds the package guards: no JAX import in
-the port, and no silent CPU fallback when CUDA is asked for.
+the port, and no silent CPU fallback when CUDA is asked for; and
+ops/bf16.py's bf16_reduce on the cotangent views the bf16 steps hand it.
 """
 
 import ast
@@ -28,6 +29,7 @@ from pcc_tpu.ops.normalize import normalize as j_normalize
 from pcc_tpu_torch.coding import octree_host
 from pcc_tpu_torch.coding.octree import octree_analyze
 from pcc_tpu_torch.config import CodecConfig
+from pcc_tpu_torch.ops.bf16 import bf16_reduce, bf16_reduce_plain, round_bf16
 from pcc_tpu_torch.ops.fps import fps_batch
 from pcc_tpu_torch.ops.knn import knn_points
 from pcc_tpu_torch.ops.normalize import denormalize, normalize
@@ -165,3 +167,17 @@ def test_cuda_requested_without_card_raises():
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         Codec(cfg, ae, prob, device="cuda")
+
+
+@pytest.mark.parametrize("shape,perm,cols", [((64, 40, 8), (1, 0, 2), 1),
+                                             ((3, 40, 6, 5), (0, 2, 1, 3), 1),
+                                             ((8, 70, 6), (1, 0, 2), 2)])
+def test_bf16_reduce_takes_unrounded_views(shape, perm, cols):
+    """bf16_reduce on an unrounded, non-contiguous (permuted) view, as the
+    bias and tiled-feature gradients hand it their cotangents, is bit for
+    bit bf16_reduce_plain of the rounded, contiguous rows."""
+    g = torch.Generator().manual_seed(31)
+    x = torch.randn(shape, generator=g).permute(*perm)
+    assert not x.is_contiguous()
+    want = bf16_reduce_plain(round_bf16(x.contiguous()), cols)
+    assert torch.equal(bf16_reduce(x, cols), want)

@@ -20,6 +20,7 @@ decode transforms within 1e-5, and eval_pppe's CSV held as the eval CSV
 (tests/test_torch_port_eval.py).
 """
 
+import functools
 import glob
 import os
 import struct
@@ -118,8 +119,8 @@ def test_model_matches_pcc_tpu(models):
         assert tuple(g.shape) == w.shape, name
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, err_msg=name)
     y_q, cond = got[3], got[2]
-    prob_want = jmodel.apply(variables, jnp.asarray(y_q.numpy()), jnp.asarray(cond.numpy()),
-                             method=lambda m, a, b: m.prob(a, b))
+    prob_want = jax.jit(functools.partial(jmodel.apply, method=lambda m, a, b: m.prob(a, b)))(
+        variables, jnp.asarray(y_q.numpy()), jnp.asarray(cond.numpy()))
     with torch.no_grad():
         prob_got = port.prob(y_q, cond)
     for g, w, name in zip(prob_got, prob_want, ("mean", "scale", "pmf")):

@@ -336,7 +336,9 @@ def ae_pair():
 def test_pppf_ae_encode(ae_pair):
     jae, variables, ae = ae_pair
     xyz = np.random.default_rng(2).random((3, 64, 3)).astype(np.float32)
-    ref = np.asarray(jae.apply(variables, jnp.asarray(xyz), method=JPPPF_AE.encode))
+    # jitted: one program in place of an eager dispatch of every op
+    ref = np.asarray(jax.jit(functools.partial(jae.apply, method=JPPPF_AE.encode))(
+        variables, jnp.asarray(xyz)))
     with torch.no_grad():
         out = ae.encode(torch.from_numpy(xyz)).numpy()
     assert out.shape == ref.shape == (3, 4)
@@ -346,7 +348,8 @@ def test_pppf_ae_encode(ae_pair):
 def test_pppf_ae_decode(ae_pair):
     jae, variables, ae = ae_pair
     latent_q = np.random.default_rng(4).integers(-3, 4, (3, 4)).astype(np.float32)
-    ref = np.asarray(jae.apply(variables, jnp.asarray(latent_q), method=JPPPF_AE.decode))
+    ref = np.asarray(jax.jit(functools.partial(jae.apply, method=JPPPF_AE.decode))(
+        variables, jnp.asarray(latent_q)))
     with torch.no_grad():
         out = ae.decode(torch.from_numpy(latent_q)).numpy()
     assert out.shape == ref.shape == (3, 16, 3)
@@ -363,7 +366,7 @@ def prob_pair():
 def test_float_probability_model(prob_pair):
     jprob, variables, prob = prob_pair
     rec = np.random.default_rng(6).random((2, 16, 3)).astype(np.float32)
-    ref = np.asarray(jprob.apply(variables, jnp.asarray(rec)))
+    ref = np.asarray(jax.jit(jprob.apply)(variables, jnp.asarray(rec)))
     with torch.no_grad():
         out = prob(torch.from_numpy(rec)).numpy()
     assert out.shape == ref.shape == (2, 16, 4, 7)

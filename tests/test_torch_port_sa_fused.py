@@ -85,12 +85,13 @@ def test_sa_module_flag_keeps_names_and_routes(weights, monkeypatch):
         fused(x)
 
 
-@pytest.mark.parametrize("tool", ["stage_breakdown", "decoder_breakdown", "fps_breakdown"])
+@pytest.mark.parametrize("tool", ["stage_breakdown", "decoder_breakdown", "fps_breakdown",
+                                  "bwd_breakdown"])
 def test_breakdown_variants_apply_to_the_sources(tool):
     """Every variant of the breakdown tools that time today's kernels edits
     text that its kernel source holds, so that the tools build on the card
-    (bwd_breakdown and chamfer_breakdown also list texts of older
-    designs)."""
+    (bwd_breakdown, whose CURRENT names them, and chamfer_breakdown also
+    list texts of older designs)."""
     import importlib
 
     from pcc_tpu_torch.tools.variants import edited
@@ -101,7 +102,9 @@ def test_breakdown_variants_apply_to_the_sources(tool):
                  **{k: ("patch_decoder", v) for k, v in mod.VARIANTS.items()},
                  **{f"bf16 {k}": ("patch_decoder_bf16", v)
                     for k, v in mod.BF16_VARIANTS.items()}},
-             "fps_breakdown": lambda: {"butterfly": ("fps", [[mod.BUTTERFLY]])}}[tool]()
+             "fps_breakdown": lambda: {"butterfly": ("fps", [[mod.BUTTERFLY]])},
+             "bwd_breakdown": lambda: {k: ("patch_encoder_bwd", mod.ENC_VARIANTS[k])
+                                       for k in mod.CURRENT}}[tool]()
     for label, (kernel, alternatives) in specs.items():
         assert edited(kernel, alternatives) is not None, (tool, label)
 

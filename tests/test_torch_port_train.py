@@ -60,7 +60,7 @@ B = 2
 def setup():
     """pcc_tpu weights, a batch of clouds, a JAX key and the FPS starts
     jax.random.randint draws from it inside pcc_tpu's rd_forward."""
-    ae_vars, prob_vars = j_init_params(jax.random.key(5), JTINY)
+    ae_vars, prob_vars = jax.jit(j_init_params, static_argnums=1)(jax.random.key(5), JTINY)
     rng = np.random.default_rng(11)
     batch = (rng.random((B, TINY.N, 3)) * 4 - 1).astype(np.float32)
     key = jax.random.key(7)
@@ -290,7 +290,7 @@ def test_train_cli_round_trip(tmp_path):
          for s in ("1", "2", "")] + ["ae.pkl", "prob.pkl"])
 
     ae, prob = load_inference_params(str(model))
-    ref_ae, ref_prob = j_init_params(jax.random.key(0), JTINY)
+    ref_ae, ref_prob = jax.jit(j_init_params, static_argnums=1)(jax.random.key(0), JTINY)
     for got, ref in ((ae, ref_ae), (prob, ref_prob)):
         assert jax.tree.structure(got) == jax.tree.structure(ref)
         for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(ref)):
